@@ -1,0 +1,128 @@
+"""Weight bridge: the JAX package's parameter tree to the port's, and a
+random init in the same layout.
+
+Both sides use one layout: nested dicts of tensors, layer weights stacked
+on a leading [L, ...] axis (see model/mistral.py and model/vit.py), exactly
+the pytree of ``init_trace_params`` in trace_tpu/model/trace_model.py.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from trace_tpu_torch.constants import SCORE_VOCAB_SIZE, TIME_VOCAB_SIZE
+from trace_tpu_torch.model.config import DecoderConfig, TraceConfig, VisionConfig
+
+
+def _to_tensor(x) -> torch.Tensor:
+    a = np.array(x)  # a writable copy: JAX hands out read-only buffers
+    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16 has no torch mapping
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def from_jax_params(tree) -> dict:
+    """Map a tree of numpy (or array-like) leaves, as ``init_trace_params``
+    of the JAX package makes it after ``jax.tree.map(np.asarray, ...)``, to
+    the port's tree of CPU tensors (``TracePipeline`` moves them to its
+    device)."""
+    if isinstance(tree, dict):
+        return {k: from_jax_params(v) for k, v in tree.items()}
+    return _to_tensor(tree)
+
+
+class _Init:
+    """Draws N(0, 1) * scale leaves from one generator, a leading slice at a
+    time (a full-width fp32 temp of a stacked 7B leaf would be 7.5 GB)."""
+
+    def __init__(self, generator: torch.Generator, device, dtype):
+        self.g, self.device, self.dtype = generator, device, dtype
+
+    def normal(self, shape, scale=0.02):
+        out = torch.empty(shape, dtype=self.dtype, device=self.device)
+        rows = out.view(shape[0], -1) if len(shape) > 2 else out[None]
+        for r in rows:
+            r.copy_(torch.randn(r.shape, generator=self.g, device=self.device,
+                                dtype=torch.float32).mul_(scale))
+        return out
+
+    def ones(self, shape):
+        return torch.ones(shape, dtype=self.dtype, device=self.device)
+
+    def zeros(self, shape):
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+
+def _decoder(c: DecoderConfig, r: _Init) -> dict:
+    L, D, I = c.num_layers, c.hidden_size, c.intermediate_size
+    NH, NKV, HD = c.num_heads, c.num_kv_heads, c.head_dim
+    return {
+        "embed": r.normal((c.vocab_size, D)),
+        "layers": {
+            "attn_norm": r.ones((L, D)),
+            "mlp_norm": r.ones((L, D)),
+            "wq": r.normal((L, D, NH, HD)),
+            "wk": r.normal((L, D, NKV, HD)),
+            "wv": r.normal((L, D, NKV, HD)),
+            "wo": r.normal((L, NH, HD, D)),
+            "w_gate": r.normal((L, D, I)),
+            "w_up": r.normal((L, D, I)),
+            "w_down": r.normal((L, I, D)),
+        },
+        "final_norm": r.ones((D,)),
+        "lm_head": r.normal((D, c.vocab_size)),
+        "sync_head": r.normal((D, 1)),
+        "time_head": r.normal((D, c.time_vocab_size)),
+        "score_head": r.normal((D, c.score_vocab_size)),
+    }
+
+
+def _vision(c: VisionConfig, r: _Init) -> dict:
+    L, D, I, P = c.num_layers, c.hidden_size, c.intermediate_size, c.patch_size
+    layers = {
+        "ln1_scale": r.ones((L, D)), "ln1_bias": r.zeros((L, D)),
+        "wq": r.normal((L, D, D)), "bq": r.zeros((L, D)),
+        "wk": r.normal((L, D, D)), "bk": r.zeros((L, D)),
+        "wv": r.normal((L, D, D)), "bv": r.zeros((L, D)),
+        "wo": r.normal((L, D, D)), "bo": r.zeros((L, D)),
+        "ln2_scale": r.ones((L, D)), "ln2_bias": r.zeros((L, D)),
+        "fc1": r.normal((L, D, I)), "b1": r.zeros((L, I)),
+        "fc2": r.normal((L, I, D)), "b2": r.zeros((L, D)),
+    }
+    return {
+        "class_embedding": r.normal((D,)),
+        "patch_embed": r.normal((P * P * 3, D)),
+        "position_embedding": r.normal((c.num_patches + 1, D)),
+        "pre_ln": {"scale": r.ones((D,)), "bias": r.zeros((D,))},
+        "layers": layers,
+    }
+
+
+def init_trace_params(config: TraceConfig, generator: torch.Generator,
+                      device=None) -> dict:
+    """Random params in the JAX package's layout and init scales (weights
+    N(0, 0.02), norms 1, biases 0, connector slots N(0, 1)). The values
+    differ from JAX's for the same seed; tests that compare the two sides
+    make the weights with JAX and convert them with ``from_jax_params``.
+    ``device`` defaults to the generator's."""
+    if config.mm_projector_type != "spatial_slot":
+        raise NotImplementedError("only the spatial_slot connector is ported")
+    device = torch.device(device if device is not None else generator.device)
+    r = _Init(generator, device, config.dtype)
+    mm, lm = config.vision.hidden_size, config.decoder.hidden_size
+    return {
+        "decoder": _decoder(config.decoder, r),
+        "vision": _vision(config.vision, r),
+        "connector": {
+            "slots": r.normal((mm, config.num_slots), scale=1.0),
+            "ln_scale": r.ones((mm,)),
+            "ln_bias": r.zeros((mm,)),
+            "readout": r.normal((mm, lm)),
+        },
+        "towers": {
+            "time": r.normal((TIME_VOCAB_SIZE, lm)),
+            "score": r.normal((SCORE_VOCAB_SIZE, lm)),
+            "sync": r.normal((1, lm)),
+        },
+    }
