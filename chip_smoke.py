@@ -39,10 +39,23 @@ SEED = 0
 FRAMES = 128
 VIDEOS = 2
 MAX_NEW = 64
-# bf16 kernel vs plain: both round the output to bf16 and the probabilities
-# to bf16 before P.V (at other points of the online softmax); an output of
-# magnitude <= ~4 has a bf16 step of 2^-6 = 0.016
-KERNEL_ATOL = 3e-2
+# bf16 kernel vs plain, per kernel: |diff| <= atol + rtol |ref| element by
+# element, and ||diff|| / ||ref|| <= REL_NORM_TOL. Both versions round the
+# output to bf16 and the probabilities to bf16 before P.V (at other points
+# of the online softmax), so they differ by about one bf16 step of the
+# output: rtol is two steps (2^-7). Each atol is about twice the largest
+# difference measured at these shapes and inputs (NVIDIA H100 80GB HBM3,
+# 700 W: 0.0156 / 0.0039 / 0.00098): flash's early rows average few keys,
+# |o| up to ~4, where a step is 2^-6; a ViT output averages 577 keys,
+# |o| < 1; a decode output averages ~1150 keys, |o| < 0.25. The norm
+# limit is ~3x a bf16 step of the output (2^-8): a kernel that drops or
+# doubles a fraction of its key tiles or chunks moves it by far more.
+KERNEL_TOL = {  # name: (atol, rtol)
+    "flash_attention": (3e-2, 2 ** -7),
+    "vit_attention_btd": (8e-3, 2 ** -7),
+    "decode_attention": (2e-3, 2 ** -7),
+}
+REL_NORM_TOL = 1e-2
 # end to end: the kernel path's distance from an fp32 reference may exceed
 # the plain bf16 path's by this factor (see end_to_end)
 REF_RATIO_TOL = 1.5
@@ -76,6 +89,19 @@ def median_ms(torch, fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def compare(name: str, out, ref) -> dict:
+    """Kernel output against the plain version's, on the rows that count:
+    the largest difference, the largest excess over atol + rtol |ref|
+    (> 0 fails), ||diff|| / ||ref|| and the RMS of ref."""
+    atol, rtol = KERNEL_TOL[name]
+    out, ref = out.float(), ref.float()
+    diff = (out - ref).abs()
+    return {"err": diff.max().item(),
+            "excess": (diff - atol - rtol * ref.abs()).max().item(),
+            "rel_norm": (diff.norm() / ref.norm()).item(),
+            "ref_rms": ref.square().mean().sqrt().item()}
 
 
 def bound(bytes_moved: float, flops: float):
@@ -113,18 +139,21 @@ def kernel_checks(torch):
     if not torch.isfinite(out).all():
         fail("flash_attention: non-finite output")
     # left-padded rows see no key: finite, unspecified; compare real rows
-    err = max((out[0, :, PAD:].float() - ref[0, :, PAD:].float()).abs().max().item(),
-              (out[1].float() - ref[1].float()).abs().max().item())
+    cmp = compare("flash_attention", torch.cat([out[0, :, PAD:], out[1]], dim=1),
+                  torch.cat([ref[0, :, PAD:], ref[1]], dim=1))
     causal_mask = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
     lib_mask = torch.where(causal_mask[None, None], bias[:, None, None, :],
                            torch.tensor(-1e30, device="cuda")).to(torch.bfloat16)
     lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask,
                                                  enable_gqa=True)
+    # what the function needs: the visible causal pairs; q rows and k/v
+    # rows of real tokens read, every output row written
     visible = sum((T - p) * (T - p + 1) // 2 for p in (PAD, 0))  # per head
     flops = 4 * H * HD * visible
-    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 2 + bias.numel() * 4
+    real = 2 * T - PAD
+    nbytes = (H + 2 * HKV) * real * HD * 2 + q.numel() * 2 + bias.numel() * 4
     rows["flash_attention"] = dict(
-        err=err, ms=median_ms(torch, lambda: flash_attention(q, k, v, bias, True)),
+        **cmp, ms=median_ms(torch, lambda: flash_attention(q, k, v, bias, True)),
         plain_ms=median_ms(torch, lambda: flash_attention(q, k, v, bias, True, impl="plain")),
         library_ms=median_ms(torch, lib), bound=bound(nbytes, flops))
     del q, k, v, out, ref, lib_mask
@@ -137,15 +166,17 @@ def kernel_checks(torch):
     out = vit_attention_btd(q, k, v, TQ, NH)
     ref = vit_attention_btd(q, k, v, TQ, NH, impl="plain")
     torch.cuda.synchronize()
-    err = (out[:, :TQ].float() - ref[:, :TQ].float()).abs().max().item()
+    cmp = compare("vit_attention_btd", out[:, :TQ], ref[:, :TQ])
     heads = lambda x: x.view(B, P, NH, D // NH).transpose(1, 2)
     key_mask = (torch.arange(P, device="cuda") < TQ)[None, None, None, :]
     lib = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
                                                  attn_mask=key_mask)
+    # the tq real tokens' q/k/v read and outputs written (pad rows need
+    # nothing)
     flops = 4 * B * NH * TQ * TQ * (D // NH)
-    nbytes = 4 * B * P * D * 2
+    nbytes = 4 * B * TQ * D * 2
     rows["vit_attention_btd"] = dict(
-        err=err, ms=median_ms(torch, lambda: vit_attention_btd(q, k, v, TQ, NH)),
+        **cmp, ms=median_ms(torch, lambda: vit_attention_btd(q, k, v, TQ, NH)),
         plain_ms=median_ms(torch, lambda: vit_attention_btd(q, k, v, TQ, NH, impl="plain")),
         library_ms=median_ms(torch, lib), bound=bound(nbytes, flops))
     del qkv, q, k, v, out, ref
@@ -160,25 +191,31 @@ def kernel_checks(torch):
     out = decode_attention(q, ck[LI], cv[LI], bias)
     ref = decode_attention(q, ck[LI], cv[LI], bias, impl="plain")
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
+    cmp = compare("decode_attention", out, ref)
     lib_mask = bias[:, None, None, :].to(torch.bfloat16)
     lib = lambda: F.scaled_dot_product_attention(q, ck[LI], cv[LI], attn_mask=lib_mask,
                                                  enable_gqa=True)
-    flops = 4 * B * H * S * HD
-    nbytes = (2 * q.numel() + 2 * B * NKV * S * HD) * 2 + bias.numel() * 4
+    # a masked slot adds exactly 0 (exp(-1e30 - m) underflows): the
+    # function needs the K and V rows of the visible slots only
+    visible = int((bias == 0).sum().item())  # (row, slot) pairs
+    flops = 4 * (H // NKV) * NKV * visible * HD
+    nbytes = (2 * q.numel() + 2 * visible * NKV * HD) * 2 + bias.numel() * 4
     rows["decode_attention"] = dict(
-        err=err, ms=median_ms(torch, lambda: decode_attention(q, ck[LI], cv[LI], bias)),
+        **cmp, ms=median_ms(torch, lambda: decode_attention(q, ck[LI], cv[LI], bias)),
         plain_ms=median_ms(torch, lambda: decode_attention(q, ck[LI], cv[LI], bias,
                                                            impl="plain")),
         library_ms=median_ms(torch, lib), bound=bound(nbytes, flops))
     del q, ck, cv, out, ref
 
     for name, r in rows.items():
-        print(f"kernel {name}: max_abs_err={r['err']:.6f} (tol {KERNEL_ATOL}) "
+        atol, rtol = KERNEL_TOL[name]
+        print(f"kernel {name}: max_abs_err={r['err']:.6f} (|diff| <= {atol} + "
+              f"{rtol} |ref|, excess {r['excess']:.6f}) rel_norm_err="
+              f"{r['rel_norm']:.6f} (tol {REL_NORM_TOL}) ref_rms={r['ref_rms']:.4f} "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"sdpa_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
               f"({r['bound'][1]})", flush=True)
-        if not r["err"] <= KERNEL_ATOL:
+        if not (r["excess"] <= 0 and r["rel_norm"] <= REL_NORM_TOL):
             fail(f"{name}: kernel disagrees with its plain version")
     return rows
 
@@ -292,9 +329,12 @@ def end_to_end(torch):
     for name, p, impl in (("kernel", pipe, "auto"), ("plain", plain, "plain"),
                           ("fp32", ref, "plain")):
         x = pe.float() if name == "fp32" else pe
-        _, _, last, _ = gen._prefill(p._decoder_params, cfg.decoder, x, pm,
-                                     cache_len=bucket + 1, use_flash=True, impl=impl)
-        logits[name] = compute_logits(p._decoder_params, last)
+        state = gen._prefill(p._decoder_params, cfg.decoder, x, pm,
+                             cache_len=bucket + 1, impl=impl)
+        logits[name] = compute_logits(p._decoder_params, state[2])
+        if name == "kernel":
+            step_profile = profile_decode_step(torch, pipe, cfg.decoder, state)
+        del state
     del ref
     if not torch.isfinite(logits["kernel"]).all():
         fail("non-finite logits")
@@ -323,7 +363,54 @@ def end_to_end(torch):
         if not e["kernel_vs_fp32"] <= REF_RATIO_TOL * e["plain_vs_fp32"]:
             fail(f"{what}: the kernel path is further from the fp32 reference "
                  "than the plain path")
-    return launches, stats, {**errs, "greedy_agree": agree}
+    return launches, stats, {**errs, "greedy_agree": agree,
+                             "decode_step": step_profile}
+
+
+def profile_decode_step(torch, pipe, dec, state) -> dict:
+    """One decode step of the kernel path (decoder, combined logits, argmax)
+    from a prefilled cache: its wall time (median of 5, synchronised), and
+    under torch.profiler the CUDA kernels it launches and the share of the
+    step's wall time (profiled, so the host side is slowed) in which the
+    device runs one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from trace_tpu_torch.model.mistral import compute_logits, decoder_forward
+
+    params = pipe._decoder_params
+    cache, cache_mask, last, next_pos = state
+    ones = torch.ones((last.shape[0], 1), dtype=torch.bool, device="cuda")
+    tok = compute_logits(params, last).argmax(-1)
+    slot = cache_mask.shape[1] - 1  # the one free slot
+
+    def step():
+        h, _ = decoder_forward(params, dec, pipe._combined[tok][:, None].to(last.dtype),
+                               ones, next_pos[:, None], cache=cache, cache_index=slot,
+                               cache_mask=cache_mask)
+        return compute_logits(params, h[:, -1]).argmax(-1)
+
+    walls = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    on_device = [e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in on_device) / 1e3
+    out = {"wall_ms": 1e3 * statistics.median(walls[1:]),
+           "device_events": len(on_device) or "not measured",
+           "device_busy_ms": busy if on_device else "not measured",
+           "traced_wall_ms": 1e3 * traced}
+    print(f"decode step (B={last.shape[0]}): {out['wall_ms']:.2f} ms wall; traced: "
+          f"{out['device_events']} device events, busy {busy:.2f} ms of "
+          f"{out['traced_wall_ms']:.2f} ms", flush=True)
+    return out
 
 
 def main() -> int:

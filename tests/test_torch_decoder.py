@@ -35,11 +35,11 @@ def _close(got, want, tol=TOL):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=tol, atol=tol)
 
 
-def _inputs(B=2, T=12, seed=0):
+def _inputs(B=2, T=12, seed=0, pad=4):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, T, CFG.hidden_size)).astype(np.float32)
     mask = np.ones((B, T), bool)
-    mask[1, :4] = False  # row 1 left-padded
+    mask[1, :pad] = False  # row 1 left-padded
     pos = np.maximum(np.cumsum(mask, axis=1) - 1, 0).astype(np.int32)
     return x, mask, pos
 
@@ -61,23 +61,27 @@ def test_rms_norm_and_rope_match():
 
 
 def test_cacheless_forward_matches(params):
+    """The port runs the cache-less forward through flash_attention (its
+    plain version here), the JAX package on the CPU through its einsum
+    path; the real rows agree (left-padded rows see no key and differ)."""
     jp, tp = params
     x, mask, pos = _inputs()
     jh, _ = jm.decoder_forward(jp, JCFG, jnp.asarray(x), jnp.asarray(mask), jnp.asarray(pos))
     th, _ = tm.decoder_forward(tp, CFG, torch.from_numpy(x), torch.from_numpy(mask),
                                torch.from_numpy(pos))
-    _close(th, jh)
+    real = mask[:, :, None]
+    _close(th * torch.from_numpy(real), np.asarray(jh) * real)
 
 
-@pytest.mark.parametrize("use_flash", [False, True])
-def test_prefill_then_decode_matches(params, use_flash):
+@pytest.mark.parametrize("left_pad", [False, True])
+def test_prefill_then_decode_matches(params, left_pad):
     """Prefill into a static cache, then one T=1 step; hidden states and
-    cache contents match. ``use_flash`` routes the port's prefill through
+    cache contents match. The port's prefill runs through
     ``flash_attention`` (its plain version here), which the JAX side cannot
     run on the CPU outside interpret mode; the JAX side takes its cache
-    path, and the real rows agree."""
+    path, and the real rows agree. ``left_pad`` left-pads row 1 by 4."""
     jp, tp = params
-    x, mask, pos = _inputs(T=16, seed=2)
+    x, mask, pos = _inputs(T=16, seed=2, pad=4 if left_pad else 0)
     B, T, S = 2, 16, 24
     jcache = jm.init_kv_cache(JCFG, B, S, dtype=jnp.float32)
     jh, jcache = jm.decoder_forward(
@@ -87,8 +91,7 @@ def test_prefill_then_decode_matches(params, use_flash):
     tcache = tm.init_kv_cache(CFG, B, S, dtype=torch.float32)
     th, tcache = tm.decoder_forward(
         tp, CFG, torch.from_numpy(x), torch.from_numpy(mask), torch.from_numpy(pos),
-        cache=tcache, cache_index=0, cache_mask=torch.zeros((B, S), dtype=torch.bool),
-        use_flash=use_flash)
+        cache=tcache, cache_index=0, cache_mask=torch.zeros((B, S), dtype=torch.bool))
     # padded rows are garbage that differs between the two attention paths;
     # every real query masks them out
     real = mask[:, :, None]
@@ -134,6 +137,17 @@ def test_compute_logits_is_fp32_for_bf16_weights(params):
         [bf[n].double() for n in tm.HEAD_NAMES], dim=-1)
     assert got.dtype == torch.float32
     torch.testing.assert_close(got.double(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_chunked_prefill_raises(params):
+    """A T > 1 chunk after earlier cache slots has no kernel: it raises
+    rather than attending through a plain path."""
+    _, tp = params
+    x, mask, pos = _inputs(T=4)
+    cache = tm.init_kv_cache(CFG, 2, 16, dtype=torch.float32)
+    with pytest.raises(NotImplementedError):
+        tm.decoder_forward(tp, CFG, torch.from_numpy(x), torch.from_numpy(mask),
+                           torch.from_numpy(pos), cache=cache, cache_index=4)
 
 
 def test_init_kv_cache_layout():

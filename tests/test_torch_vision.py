@@ -47,13 +47,14 @@ def _images(n, seed=0):
 
 @pytest.mark.parametrize("use_flash", [False, True])
 def test_vit_forward_matches(params, use_flash):
-    """use_flash pads the tokens to a multiple of 16 and runs
-    vit_attention_btd (its plain version on the CPU, the JAX package's
-    reference on its side)."""
+    """The port's one path (tokens padded to a multiple of 16, attention
+    through vit_attention_btd, its plain version on the CPU) against both
+    of the JAX package's branches: unpadded einsum attention, and the padded
+    path through its reference."""
     jp, tp = params
     x = _images(3)
     want = jvit.vit_forward(jp["vision"], JCFG.vision, jnp.asarray(x), use_flash=use_flash)
-    got = tvit.vit_forward(tp["vision"], CFG.vision, torch.from_numpy(x), use_flash=use_flash)
+    got = tvit.vit_forward(tp["vision"], CFG.vision, torch.from_numpy(x))
     assert tuple(got.shape) == want.shape
     _close(got, want)
 
@@ -63,7 +64,7 @@ def test_fused_qkv_vit_matches_unfused(params):
     x = torch.from_numpy(_images(2, seed=1))
     fused = tvit.fuse_vision_qkv(tp["vision"])
     assert "wqkv" in fused["layers"] and "wq" not in fused["layers"]
-    _close(tvit.vit_forward(fused, CFG.vision, x, use_flash=True),
+    _close(tvit.vit_forward(fused, CFG.vision, x),
            tvit.vit_forward(tp["vision"], CFG.vision, x).numpy())
 
 

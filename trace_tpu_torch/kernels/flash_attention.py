@@ -9,9 +9,9 @@ written in the ViT's [B, P, D] layout, keys >= tq masked.
 
 Bound on an H100: operations. At the prefill shape (B=2, 32/8 heads,
 T=2048, hd=128, causal, one row left-padded by 300) the visible causal
-pairs take ~59 GFLOP over ~50 MB of q/k/v/o, ~1200 flops per byte, far
+pairs take ~59 GFLOP over ~80 MB of q/k/v/o, ~700 flops per byte, far
 above the card's ~295 bf16 flops per byte (the ViT chunk sits near the
-ridge: ~22 GFLOP over ~78 MB). The design keeps the scores out of device
+ridge: ~22 GFLOP over ~76 MB). The design keeps the scores out of device
 memory: a block owns 64 query rows of one head and runs an online softmax
 over 64-key tiles, both products on the tensor cores (mma.sync, fp32
 accumulate) with scores and output in registers, and the K/V tiles double

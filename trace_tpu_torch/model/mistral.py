@@ -8,10 +8,11 @@ The KV cache is a (k, v) pair of [L, B, NKV, S, hd] tensors, updated IN
 PLACE: a layer writes its chunk's k/v into its stripe first, then attends
 (the JAX package threads an immutable cache through a scan carry).
 
-Attention routing follows the JAX package: prefill (T > 1 with
-``use_flash``) goes through ``flash_attention`` over the chunk, a T=1 step
-with a cache through ``decode_attention`` over the layer's stripe, anything
-else through the plain grouped attention.
+Attention always goes through a kernel wrapper: a T=1 step with a cache
+through ``decode_attention`` over the layer's stripe, anything else (the
+cache-less forward, prefill into an empty cache) through
+``flash_attention`` over the chunk. Each wrapper takes its plain version
+for CPU tensors or ``impl="plain"``.
 """
 
 from __future__ import annotations
@@ -21,10 +22,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from trace_tpu_torch.kernels.decode_attention import (
-    decode_attention,
-    grouped_attention,
-)
+from trace_tpu_torch.kernels.decode_attention import decode_attention
 from trace_tpu_torch.kernels.flash_attention import flash_attention
 from trace_tpu_torch.model.config import DecoderConfig
 
@@ -77,14 +75,16 @@ def _layer(
     config: DecoderConfig,
     cos: torch.Tensor,
     sin: torch.Tensor,
-    bias: Optional[torch.Tensor],
+    flash_bias: Optional[torch.Tensor] = None,
+    decode_bias: Optional[torch.Tensor] = None,
     cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_index: int = 0,
-    flash_bias: Optional[torch.Tensor] = None,
     impl: str = "auto",
 ) -> torch.Tensor:
     """One decoder block. ``cache_kv`` is this layer's (k, v) stripe pair
-    [B, NKV, S, hd], written in place at ``cache_index``."""
+    [B, NKV, S, hd], written in place at ``cache_index``. With
+    ``decode_bias`` ([B, S]) the step attends over the stripe, else the
+    chunk attends causally to itself under ``flash_bias`` ([B, T])."""
     B, T, D = x.shape
     NH, HD = config.num_heads, config.head_dim
 
@@ -98,15 +98,11 @@ def _layer(
         ck[:, :, cache_index:cache_index + T] = k.to(ck.dtype)
         cv[:, :, cache_index:cache_index + T] = v.to(cv.dtype)
 
-    if flash_bias is not None and T > 1:
+    if decode_bias is not None:
+        attn = decode_attention(q.contiguous(), ck, cv, decode_bias, impl=impl)
+    else:
         attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                flash_bias, True, impl=impl)
-    elif cache_kv is not None and T == 1:
-        attn = decode_attention(q.contiguous(), ck, cv,
-                                bias[:, 0, 0, :].contiguous(), impl=impl)
-    else:
-        k_all, v_all = (k, v) if cache_kv is None else (ck, cv)
-        attn = grouped_attention(q, k_all.to(x.dtype), v_all.to(x.dtype), bias)
 
     attn_flat = attn.transpose(1, 2).reshape(B * T, NH * HD)
     x = x + (attn_flat @ lp["wo"].reshape(NH * HD, D)).view(B, T, D)
@@ -130,54 +126,46 @@ def decoder_forward(
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # [L,B,NKV,S,hd] x2
     cache_index: int = 0,
     cache_mask: Optional[torch.Tensor] = None,  # [B, S] bool over cache slots
-    use_flash: bool = False,
     impl: str = "auto",
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Run the decoder stack (causal). Without a cache: attention within
-    the sequence. With a cache: keys/values are
-    written at ``cache_index`` and attention runs over the static cache,
-    masked by ``cache_mask`` (slots valid before this call) plus the chunk's
-    causal pattern. Returns (final-normed hidden, cache)."""
+    the sequence. With a cache, keys/values are written at ``cache_index``;
+    a T=1 step then attends over the static cache, masked by ``cache_mask``
+    (slots valid before this call) plus its own slot. A T > 1 chunk with a
+    cache is prefill into an empty cache (``cache_index`` 0, ``cache_mask``
+    not read), as the JAX package's flash path assumes; chunked prefill
+    after earlier slots has no kernel and raises. Returns (final-normed
+    hidden, cache)."""
     B, T, D = embeds.shape
     dev = embeds.device
     x = embeds
     cos, sin = rope_cos_sin(positions, config.head_dim, config.rope_theta)
 
-    # flash is valid when the chunk is the whole attendable context:
-    # cache-less forward, or prefill into an empty cache
-    flash_ok = use_flash and T > 1
-    flash_bias = None
-    bias = None
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
-    if flash_ok:
-        flash_bias = torch.where(attn_mask, zero, neg).contiguous()
-    elif cache is None:
-        bias = torch.where(attn_mask[:, None, None, :], zero, neg)
-        causal_m = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))
-        bias = bias + torch.where(causal_m[None, None], zero, neg)
-    else:
+    flash_bias = decode_bias = None
+    if cache is not None and T == 1:
         S = cache[0].shape[3]
-        slot = torch.arange(S, device=dev)[None, None, None, :]
-        qoff = torch.arange(T, device=dev)[None, None, :, None]
-        in_chunk_causal = (slot >= cache_index) & (slot <= cache_index + qoff)
-        valid_new = torch.zeros((B, S), dtype=torch.bool, device=dev)
-        valid_new[:, cache_index:cache_index + T] = attn_mask.bool()
-        new_vis = in_chunk_causal & valid_new[:, None, None, :]
+        vis = (torch.arange(S, device=dev) == cache_index)[None] & attn_mask.bool()
         if cache_mask is not None:
-            vis = cache_mask[:, None, None, :] | new_vis
-        else:
-            vis = new_vis
-        bias = torch.where(vis, zero, neg)
+            vis = vis | cache_mask
+        decode_bias = torch.where(vis, zero, neg).contiguous()
+    elif cache is not None and cache_index != 0:
+        raise NotImplementedError(
+            "chunked prefill (T > 1 at cache_index > 0) is not ported: no "
+            "kernel attends a chunk over earlier cache slots")
+    else:
+        flash_bias = torch.where(attn_mask.bool(), zero, neg).contiguous()
 
     layers = params["layers"]
     num_layers = layers["wq"].shape[0]
     for li in range(num_layers):
         lp = {name: leaf[li] for name, leaf in layers.items()}
         x = _layer(
-            x, lp, config=config, cos=cos, sin=sin, bias=bias,
+            x, lp, config=config, cos=cos, sin=sin,
+            flash_bias=flash_bias, decode_bias=decode_bias,
             cache_kv=None if cache is None else (cache[0][li], cache[1][li]),
-            cache_index=cache_index, flash_bias=flash_bias, impl=impl,
+            cache_index=cache_index, impl=impl,
         )
     return rms_norm(x, params["final_norm"], config.rms_eps), cache
 

@@ -44,7 +44,6 @@ def encode_video(
     frames: torch.Tensor,          # [B, T, H, W, 3] CLIP-normalized (or patches)
     frame_time_ids: torch.Tensor,  # [B, T, 6] local time-token ids per frame
     *,
-    use_flash: bool = False,
     impl: str = "auto",
 ) -> torch.Tensor:
     """Frames -> interleaved visual + time token features [B, T*(S+6), D_lm].
@@ -60,8 +59,7 @@ def encode_video(
     chunk = config.vit_chunk_size
 
     def vit(x):
-        return vit_forward(params["vision"], config.vision, x,
-                           use_flash=use_flash, impl=impl)
+        return vit_forward(params["vision"], config.vision, x, impl=impl)
 
     if chunk and flat.shape[0] > chunk and flat.shape[0] % chunk == 0:
         feats = torch.cat([vit(c) for c in flat.split(chunk)], dim=0)
@@ -103,12 +101,10 @@ def encode_prefix_for_generation(
     frames: torch.Tensor,          # [B, T, H, W, 3]
     frame_time_ids: torch.Tensor,  # [B, T, 6]
     *,
-    use_flash: bool = False,
     table: Optional[torch.Tensor] = None,
     impl: str = "auto",
 ) -> torch.Tensor:
     """Inference prefix embeds: encode the video and splice it in."""
-    feats = encode_video(params, config, frames, frame_time_ids,
-                         use_flash=use_flash, impl=impl)
+    feats = encode_video(params, config, frames, frame_time_ids, impl=impl)
     return build_input_embeds(params, config, token_ids, feats, video_pos,
                               table=table)

@@ -64,13 +64,9 @@ def _linear(x, w, b):
     return y.view(*lead, w.shape[-1])
 
 
-def _vit_layer(x, lp: dict, config: VisionConfig, use_flash: bool = False,
-               tq: int | None = None, impl: str = "auto"):
+def _vit_layer(x, lp: dict, config: VisionConfig, tq: int, impl: str = "auto"):
     c = config
-    NH = c.num_heads
-    B, T, D = x.shape
-    HD = D // NH
-    tq = T if tq is None else tq
+    D = x.shape[-1]
 
     h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], c.layer_eps)
     if "wqkv" in lp:
@@ -79,19 +75,7 @@ def _vit_layer(x, lp: dict, config: VisionConfig, use_flash: bool = False,
         q = _linear(h, lp["wq"], lp["bq"])
         k = _linear(h, lp["wk"], lp["bk"])
         v = _linear(h, lp["wv"], lp["bv"])
-    if use_flash:
-        attn = vit_attention_btd(q, k, v, tq, NH, impl=impl)
-    else:
-        qh = q.reshape(B, T, NH, HD).transpose(1, 2)
-        kh = k.reshape(B, T, NH, HD).transpose(1, 2)
-        vh = v.reshape(B, T, NH, HD).transpose(1, 2)
-        scores = torch.einsum("bnth,bnsh->bnts", qh.float(), kh.float())
-        if tq != T:  # pad keys are invisible
-            keep = torch.arange(T, device=x.device)[None, None, None] < tq
-            scores = torch.where(keep, scores, torch.full_like(scores, -1e30))
-        probs = torch.softmax(scores * (HD ** -0.5), dim=-1).to(x.dtype)
-        attn = torch.einsum("bnts,bnsh->bnth", probs.float(), vh.float())
-        attn = attn.to(x.dtype).transpose(1, 2).reshape(B, T, D)
+    attn = vit_attention_btd(q, k, v, tq, c.num_heads, impl=impl)
     x = x + _linear(attn.to(x.dtype), lp["wo"], lp["bo"])
 
     h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], c.layer_eps)
@@ -104,15 +88,13 @@ def vit_forward(
     config: VisionConfig,
     images: torch.Tensor,  # [B, H, W, 3] CLIP-normalized
     *,
-    use_flash: bool = False,
     impl: str = "auto",
 ) -> torch.Tensor:
     """Images -> patch features [B, num_patches, hidden] at the -2 tap.
 
-    With ``use_flash`` the token dim is padded once from 577 to a multiple of
-    16 (592) for the whole stack and attention runs through
-    ``vit_attention_btd`` with keys >= 577 masked; pad rows are dropped at
-    the end."""
+    The token dim is padded once from 577 to a multiple of 16 (592) for the
+    whole stack and attention runs through ``vit_attention_btd`` with keys
+    >= 577 masked; pad rows are dropped at the end."""
     c = config
     B = images.shape[0]
     patch_w = params["patch_embed"]
@@ -125,14 +107,14 @@ def vit_forward(
 
     tq = x.shape[1]
     P = -(-tq // 16) * 16
-    if use_flash and P != tq:
+    if P != tq:
         x = torch.nn.functional.pad(x, (0, 0, 0, P - tq))
 
     num_run = c.num_layers + 1 + c.select_layer  # -2 => num_layers - 1
     layers = params["layers"]
     for li in range(num_run):
         lp = {name: leaf[li] for name, leaf in layers.items()}
-        x = _vit_layer(x, lp, c, use_flash=use_flash, tq=tq, impl=impl)
+        x = _vit_layer(x, lp, c, tq, impl=impl)
     x = x[:, :tq]
     if c.select_feature == "patch":
         return x[:, 1:]

@@ -114,8 +114,7 @@ def _time_constraint_update(config, token, frame_chars, alive, value_pos):
     return alive, value_pos
 
 
-def _prefill(params, c, prefix_embeds, prefix_mask, *, cache_len, use_flash,
-             impl="auto"):
+def _prefill(params, c, prefix_embeds, prefix_mask, *, cache_len, impl="auto"):
     """Prefill phase: returns (cache, cache_mask, last_hidden, next_pos)."""
     B, P, D = prefix_embeds.shape
     dev = prefix_embeds.device
@@ -125,7 +124,7 @@ def _prefill(params, c, prefix_embeds, prefix_mask, *, cache_len, use_flash,
         params, c, prefix_embeds, prefix_mask, positions,
         cache=cache, cache_index=0,
         cache_mask=torch.zeros((B, cache_len), dtype=torch.bool, device=dev),
-        use_flash=use_flash, impl=impl,
+        impl=impl,
     )
     cache_mask = torch.nn.functional.pad(prefix_mask.bool(), (0, cache_len - P))
     last_hidden = hidden[:, -1, :]  # content is right-aligned
@@ -251,7 +250,6 @@ def generate(
     eos_id: int = 2,
     seed: int = 0,
     pad_to_multiple: int = 128,
-    use_flash: Optional[bool] = None,
     constrain_time: bool = False,
     frame_time_ids: Optional[torch.Tensor] = None,
     stop_sequences=None,
@@ -262,10 +260,10 @@ def generate(
     decode loop.
 
     ``initial_head`` defaults to 1 (time head): the production prompt ends
-    with ``<sync>``. ``use_flash`` defaults to True on a CUDA device (prefill
-    through the flash kernel) and False on the CPU, as the JAX package
-    routes it. Greedy decoding (temperature 0) is token-exact with the JAX
-    package at fp32; with temperature > 0 tokens are drawn with
+    with ``<sync>``. Prefill runs through ``flash_attention`` and each step
+    through ``decode_attention`` (their plain versions on the CPU or with
+    ``impl="plain"``). Greedy decoding (temperature 0) is token-exact with
+    the JAX package at fp32; with temperature > 0 tokens are drawn with
     ``torch.multinomial`` from a ``torch.Generator`` seeded with ``seed``,
     which matches JAX's sampler in distribution, not bit for bit."""
     B, P, D = prefix_embeds.shape
@@ -276,14 +274,12 @@ def generate(
         prefix_embeds = torch.nn.functional.pad(prefix_embeds, (0, 0, pad, 0))
         prefix_mask = torch.nn.functional.pad(prefix_mask, (pad, 0))
     prefix_mask = prefix_mask.bool()
-    if use_flash is None:
-        use_flash = dev.type == "cuda"
     cache_len = bucket + max_new_tokens
 
     t0 = time.perf_counter()
     cache, cache_mask, last_hidden, next_pos = _prefill(
         params, config, prefix_embeds, prefix_mask,
-        cache_len=cache_len, use_flash=use_flash, impl=impl,
+        cache_len=cache_len, impl=impl,
     )
     del prefix_embeds
     _sync(dev)

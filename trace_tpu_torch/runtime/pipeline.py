@@ -108,10 +108,6 @@ class TracePipeline:
         self.params = {**params, "decoder": decoder,
                        "vision": self._encode_params["vision"]}
 
-    @property
-    def use_flash(self) -> bool:
-        return self.device.type == "cuda"
-
     def _prepare_sample_host(self, frames_u8, ts, instruction, template="llama_2"):
         """The events path's sample prep (rgb upload): the JAX package's
         host paths for yuv420 and for frames larger than the ViT input use
@@ -165,7 +161,7 @@ class TracePipeline:
             self._encode_params, self.config,
             torch.from_numpy(token_ids).to(dev), torch.from_numpy(video_pos),
             frames, time_ids,
-            use_flash=self.use_flash, table=self._combined, impl=self.attn_impl,
+            table=self._combined, impl=self.attn_impl,
         )
         return prefix, torch.from_numpy(mask).to(dev)
 
