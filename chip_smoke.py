@@ -6,21 +6,27 @@
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the serving path from csrc/ (nvcc, parallel);
-  3. each kernel against its plain PyTorch version at serving shapes, bf16,
-     with its time (CUDA events, median of 20, L2 flushed between runs), the
-     plain version's time, the time of one PyTorch library call computing
-     the same function (a yardstick only, never called by the port) and the
-     least time the card could take (the larger of bytes / 3.35 TB/s and
-     FLOPs / 989 TFLOP/s, the H100 SXM data-sheet rates);
-  4. the bf16 TRACE-7B serving path end to end at full width (CLIP
-     ViT-L/14-336 at the -2 tap, spatial_slot, Mistral-7B, random weights
-     from seed 0): two requests of 2 synthetic 128-frame 336x336 videos,
-     64 new tokens each, launch counts checked per request, outputs checked
-     against the same path with every attention kernel replaced by its plain
-     version.
+  3. each kernel against its plain PyTorch version at serving shapes (the
+     three bf16 attention kernels; the int8 weight product, 2-D and
+     stacked; int8 decode attention in both modes), with its time (CUDA
+     events, median of 20, L2 flushed between runs), the plain version's
+     time, the time of one PyTorch library call computing the same function
+     (a yardstick only, never called by the port) and the least time the
+     card could take (the larger of bytes / 3.35 TB/s and operations over
+     the peak rate of their type, 989 TFLOP/s bf16 or 1979 TOP/s int8, the
+     H100 SXM data-sheet rates);
+  4. the TRACE-7B serving path end to end at full width (CLIP ViT-L/14-336
+     at the -2 tap, spatial_slot, Mistral-7B, random weights from seed 0),
+     first in bf16, then in the int8 serving configuration (int8 weights in
+     the fused layout, int8 KV cache, W8A8 prefill and ViT): two requests
+     of 2 synthetic 128-frame 336x336 videos, 64 new tokens each, launch
+     counts checked per request, outputs checked against the same path with
+     every kernel replaced by its plain version and against an fp32 model
+     of the same (dequantized) weights.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
-of the repository, it prints no result and exits 2.
+of the repository, it prints no result and exits 2. ``--kernels`` stops
+after phase 3 (a short check of freshly edited kernels; no last line).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, data sheet
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16, data sheet
+INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8, data sheet
 SEED = 0
 FRAMES = 128
 VIDEOS = 2
@@ -50,10 +57,28 @@ MAX_NEW = 64
 # |o| < 1; a decode output averages ~1150 keys, |o| < 0.25. The norm
 # limit is ~3x a bf16 step of the output (2^-8): a kernel that drops or
 # doubles a fraction of its key tiles or chunks moves it by far more.
+#
+# The int8 weight product sums the same exact products (bf16 x int8) in fp32
+# in another order than the plain version: over K <= 14336 terms the sums
+# differ by ~sqrt(K) eps of their size, far under 1e-5 of the largest output,
+# so outputs are compared in units of max |ref| with atol 1e-5 and, for the
+# rows with bf16 outputs, rtol of two bf16 steps for a rounding that flips.
+# int8 decode attention: the integer sums are exact and every fp32 step
+# that feeds a rounding is the plain version's, so the two differ only where
+# expf and torch.exp round a probability apart: the sum l moves by ~1e-7 of
+# itself, and a quantized p * vs that lay on a half flips by one step, which
+# moves an output by at most ps * 127 / l (~0.004 of the largest output
+# here, where ~1150 slots share the weight); then the output's bf16 rounding
+# can flip (rtol 2^-7). dequant sums fp32 in another order besides. atol as
+# for the bf16 decode kernel (|o| < 0.25).
 KERNEL_TOL = {  # name: (atol, rtol)
     "flash_attention": (3e-2, 2 ** -7),
     "vit_attention_btd": (8e-3, 2 ** -7),
     "decode_attention": (2e-3, 2 ** -7),
+    "quant_matmul": (1e-5, 1e-5),           # fp32 out, in units of max |ref|
+    "quant_matmul_stacked": (1e-5, 2 ** -7),  # bf16 and fp32 outs, same units
+    "decode_attention_int8_s8dot": (2e-3, 2 ** -7),
+    "decode_attention_int8_dequant": (2e-3, 2 ** -7),
 }
 REL_NORM_TOL = 1e-2
 # end to end: the kernel path's distance from an fp32 reference may exceed
@@ -104,9 +129,9 @@ def compare(name: str, out, ref) -> dict:
             "ref_rms": ref.square().mean().sqrt().item()}
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, ops: float, ops_per_s: float = BF16_FLOPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -205,7 +230,10 @@ def kernel_checks(torch):
         plain_ms=median_ms(torch, lambda: decode_attention(q, ck[LI], cv[LI], bias,
                                                            impl="plain")),
         library_ms=median_ms(torch, lib), bound=bound(nbytes, flops))
-    del q, ck, cv, out, ref
+    del q, ck, cv, out, ref, lib_mask
+
+    quant_matmul_checks(torch, g, rows)
+    int8_decode_checks(torch, g, rows)
 
     for name, r in rows.items():
         atol, rtol = KERNEL_TOL[name]
@@ -213,11 +241,127 @@ def kernel_checks(torch):
               f"{rtol} |ref|, excess {r['excess']:.6f}) rel_norm_err="
               f"{r['rel_norm']:.6f} (tol {REL_NORM_TOL}) ref_rms={r['ref_rms']:.4f} "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"sdpa_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
+              f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
               f"({r['bound'][1]})", flush=True)
         if not (r["excess"] <= 0 and r["rel_norm"] <= REL_NORM_TOL):
             fail(f"{name}: kernel disagrees with its plain version")
     return rows
+
+
+def merge(parts: list) -> dict:
+    """One row out of several timed shapes: errors at their worst, times and
+    bounds summed (the row then stands for the shapes together)."""
+    worst = {k: max(p[k] for p in parts) for k in ("err", "excess", "rel_norm")}
+    total = {k: sum(p[k] for p in parts) for k in ("ms", "plain_ms", "library_ms")}
+    by = max(parts, key=lambda p: p["bound"][0])["bound"][1]
+    return {**worst, **total, "ref_rms": parts[0]["ref_rms"],
+            "bound": (sum(p["bound"][0] for p in parts), by)}
+
+
+def quant_matmul_checks(torch, g, rows: dict) -> None:
+    """The int8 weight product against its plain version: the 2-D entry on
+    the lm_head at M = 2 (timed) and at a ragged shape; the stacked entry at
+    M = 2, layer 17 of 32, on the four weights of a fused decoder layer (the
+    row is their sum: one layer's weight products of a decode step)."""
+    from trace_tpu_torch.kernels.quant_matmul import quant_matmul, quant_matmul_stacked
+
+    def weight(*shape):
+        q = torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+        s = (torch.rand(shape[:-2] + shape[-1:], generator=g, device="cuda")
+             * 4e-4 + 1e-4).to(torch.bfloat16)
+        return q, s
+
+    def one(name, fn, x, q2, s1, timed=True):
+        """fn(impl) -> y; q2 [K, N], s1 [N] the layer the call reads."""
+        out, ref = fn("auto"), fn("plain")
+        torch.cuda.synchronize()
+        unit = ref.abs().max()
+        r = compare(name, out.float() / unit, ref.float() / unit)
+        r["err"] *= unit.item()
+        if not torch.isfinite(out).all():
+            fail(f"{name}: non-finite output")
+        if not timed:
+            return r
+        M, (K, N) = x.shape[0], q2.shape
+        w = (q2.to(torch.bfloat16) * s1).contiguous()  # yardstick operand only
+        nbytes = x.numel() * 2 + K * N + N * 2 + M * N * out.element_size()
+        r.update(ms=median_ms(torch, lambda: fn("auto")),
+                 plain_ms=median_ms(torch, lambda: fn("plain")),
+                 library_ms=median_ms(torch, lambda: torch.matmul(x, w)),
+                 bound=bound(nbytes, 2 * M * K * N))
+        print(f"  {name} x [{M}, {K}] @ q [{K}, {N}] -> {str(out.dtype).split('.')[-1]}: "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms="
+              f"{r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})",
+              flush=True)
+        return r
+
+    x = torch.randn((2, 4096), generator=g, device="cuda").to(torch.bfloat16)
+    q, s = weight(4096, 32000)
+    head = one("quant_matmul", lambda impl: quant_matmul(
+        x, q, s, out_dtype=torch.float32, impl=impl), x, q, s)
+    xr = torch.randn((37, 1000), generator=g, device="cuda").to(torch.bfloat16)
+    qr, sr = weight(1000, 1100)
+    ragged = one("quant_matmul", lambda impl: quant_matmul(
+        xr, qr, sr, out_dtype=torch.float32, impl=impl), xr, qr, sr, timed=False)
+    head.update({k: max(head[k], ragged[k]) for k in ("err", "excess", "rel_norm")})
+    rows["quant_matmul"] = head
+    del q, s, qr, sr
+
+    L, LI, parts = 32, 17, []
+    for K, N, out_dtype in ((4096, 6144, torch.bfloat16), (4096, 4096, torch.bfloat16),
+                            (4096, 28672, torch.float32), (14336, 4096, torch.bfloat16)):
+        xk = torch.randn((2, K), generator=g, device="cuda").to(torch.bfloat16)
+        q, s = weight(L, K, N)
+        parts.append(one("quant_matmul_stacked", lambda impl: quant_matmul_stacked(
+            xk, q, s, LI, out_dtype=out_dtype, impl=impl), xk, q[LI], s[LI]))
+        del q, s
+    rows["quant_matmul_stacked"] = merge(parts)
+
+
+def int8_decode_checks(torch, g, rows: dict) -> None:
+    """int8 decode attention, both modes, at the bf16 row's shape: L = 32,
+    B = 4, S = 2304, layer 17's stripe, half the slots masked, the stripe
+    quantized from random K/V as the decoder quantizes it."""
+    import torch.nn.functional as F
+
+    from trace_tpu_torch.kernels.decode_attention import INT8_MODES, decode_attention
+    from trace_tpu_torch.model.config import DecoderConfig
+    from trace_tpu_torch.model.mistral import _quantize_kv, init_kv_cache
+
+    B, H, NKV, S, HD, LI = 4, 32, 8, 2304, 128, 17
+    cfg = DecoderConfig(kv_cache_dtype="int8")
+    cache = init_kv_cache(cfg, B, S, device="cuda")
+    stripe = {name: leaf[LI] for name, leaf in cache.items()}
+    for vals, scales in (("kq", "ks"), ("vq", "vs")):
+        x = torch.randn((B, NKV, S, HD), generator=g, device="cuda").to(torch.bfloat16)
+        stripe[vals][:], stripe[scales][:] = _quantize_kv(x)
+    q = torch.randn((B, H, 1, HD), generator=g, device="cuda").to(torch.bfloat16)
+    bias = torch.where(torch.rand((B, S), generator=g, device="cuda") < 0.5,
+                       0.0, -1e30).float()
+    # the yardstick's operands: the stripe dequantized to bf16 beforehand
+    kd = stripe["kq"].to(torch.bfloat16) * stripe["ks"].transpose(-1, -2)
+    vd = stripe["vq"].to(torch.bfloat16) * stripe["vs"].transpose(-1, -2)
+    lib_mask = bias[:, None, None, :].to(torch.bfloat16)
+    lib = lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=lib_mask,
+                                                 enable_gqa=True)
+    # as for the bf16 row, the visible slots' K and V rows (1 byte a value)
+    # and their two scales; both products count as int8 operations
+    visible = int((bias == 0).sum().item())
+    ops = 4 * (H // NKV) * NKV * visible * HD
+    nbytes = 2 * q.numel() * 2 + 2 * visible * NKV * (HD + 2) + bias.numel() * 4
+    for mode in INT8_MODES:
+        name = f"decode_attention_int8_{mode}"
+        run = lambda impl="auto": decode_attention(q, stripe, None, bias, mode=mode,
+                                                   impl=impl)
+        out, ref = run(), run("plain")
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            fail(f"{name}: non-finite output")
+        rows[name] = dict(
+            **compare(name, out, ref), ms=median_ms(torch, run),
+            plain_ms=median_ms(torch, lambda: run("plain")),
+            library_ms=median_ms(torch, lib),
+            bound=bound(nbytes, ops, INT8_OPS_PER_S if mode == "s8dot" else BF16_FLOPS_PER_S))
 
 
 def check_head_slices(dec, tokens, initial_head=1):
@@ -244,26 +388,83 @@ def rel_err(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def end_to_end(torch):
-    """Phase 4: the serving path at full width, two requests."""
+def dequantized_fp32(tree):
+    """An int8 serving tree as dense fp32 weights (q * s exactly, a layer at
+    a time), fused leaves split back; other leaves widened to fp32."""
+    import torch
+
+    from trace_tpu_torch.model.quantize import is_quantized, unfuse_decoder_serving
+
+    if "layers" in tree and is_quantized(tree["layers"].get("wqkv")):
+        tree = unfuse_decoder_serving(tree)  # the dense ViT's fused wqkv stays
+    out = {}
+    for name, leaf in tree.items():
+        if is_quantized(leaf):
+            q, sc = leaf["q"], leaf["s"]
+            w = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+            if q.ndim > 2:
+                for li in range(q.shape[0]):
+                    w[li] = q[li].float() * sc[li].float()
+            else:
+                w[:] = q.float() * sc.float()
+            out[name] = w
+        elif isinstance(leaf, dict):
+            out[name] = dequantized_fp32(leaf)
+        else:
+            out[name] = leaf.float()
+    return out
+
+
+def dequant_request(torch, params, cfg, tok, videos, stamps, asks) -> dict:
+    """The int8 path once more with the decode attention's other body
+    (``decode_attn_int8="dequant"``), 8 new tokens: its launch count."""
+    from trace_tpu_torch.kernels.decode_attention import decode_attention
+    from trace_tpu_torch.runtime.pipeline import TracePipeline
+
+    dcfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, decode_attn_int8="dequant"))
+    pipe = TracePipeline(params, dcfg, tok)
+    before = dict(decode_attention.launches_int8)
+    decode_attention.launches_int8["dequant"] = 0
+    pipe.infer_events_batch(videos, stamps, asks, max_new_tokens=8)
+    got = decode_attention.launches_int8["dequant"]
+    steps = pipe.last_stats["decode_steps"]
+    print(f"int8 request with decode_attn_int8='dequant': {got} launches over "
+          f"{steps} steps (expected {cfg.decoder.num_layers * steps})", flush=True)
+    if steps <= 0 or got != cfg.decoder.num_layers * steps:
+        fail("dequant decode attention: unexpected launch count")
+    if decode_attention.launches_int8["s8dot"] != before["s8dot"]:
+        fail("the dequant request launched the s8dot body")
+    check_head_slices(cfg.decoder, pipe.last_stats["tokens"])
+    return {"decode_attention_int8_dequant": got}
+
+
+def end_to_end(torch, mode: str):
+    """Phase 4: the serving path at full width, two requests, in the bf16
+    (``mode="bf16"``) or the int8 serving configuration (``mode="int8"``)."""
     import numpy as np
 
     from trace_tpu_torch import EventPredictions
     from trace_tpu_torch.kernels.decode_attention import decode_attention
     from trace_tpu_torch.kernels.flash_attention import flash_attention, vit_attention_btd
+    from trace_tpu_torch.kernels.quant_matmul import quant_matmul, quant_matmul_stacked
     from trace_tpu_torch.model.config import TraceConfig
     from trace_tpu_torch.model.mistral import compute_logits
+    from trace_tpu_torch.model.quantize import int8_serving
     from trace_tpu_torch.params import init_trace_params
     from trace_tpu_torch.runtime import generate as gen
     from trace_tpu_torch.runtime.pipeline import TracePipeline
     from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
 
+    int8 = mode == "int8"
     cfg = TraceConfig()
     t0 = time.perf_counter()
     params = init_trace_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    if int8:
+        params, cfg = int8_serving(params, cfg)  # the dense tree is dropped here
     torch.cuda.synchronize()
-    print(f"init: random bf16 TRACE-7B weights in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"init ({mode}): random TRACE-7B weights in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card", flush=True)
     tok = SpmLikeTokenizer()
     pipe = TracePipeline(params, cfg, tok)
     rng = np.random.default_rng(SEED)
@@ -272,50 +473,90 @@ def end_to_end(torch):
     stamps = [[[float(i)] for i in range(FRAMES)]] * VIDEOS
     asks = ["Localize the visual events in the video and describe each one.",
             "Find every moment where something changes, with timestamps."]
-    kernels = (flash_attention, vit_attention_btd, decode_attention)
     vit_layers = cfg.vision.num_layers + 1 + cfg.vision.select_layer
     chunks = VIDEOS * FRAMES // cfg.vit_chunk_size
+    L = cfg.decoder.num_layers
+
+    def reset():
+        for fn in (flash_attention, vit_attention_btd, decode_attention,
+                   quant_matmul, quant_matmul_stacked):
+            fn.launches = 0
+        for m in decode_attention.launches_int8:
+            decode_attention.launches_int8[m] = 0
+
+    def counts():
+        return {"flash_attention": flash_attention.launches,
+                "vit_attention_btd": vit_attention_btd.launches,
+                "decode_attention": decode_attention.launches,
+                "quant_matmul": quant_matmul.launches,
+                "quant_matmul_stacked": quant_matmul_stacked.launches,
+                **{f"decode_attention_int8_{m}": n
+                   for m, n in decode_attention.launches_int8.items()}}
 
     launches, stats = None, []
     for request in (1, 2):
-        for fn in kernels:
-            fn.launches = 0
+        reset()
         t0 = time.perf_counter()
         preds = pipe.infer_events_batch(videos, stamps, asks, max_new_tokens=MAX_NEW)
         wall = time.perf_counter() - t0
-        counts = {fn.__name__: fn.launches for fn in kernels}
+        got = counts()
         s = pipe.last_stats
-        want = {"vit_attention_btd": vit_layers * chunks,
-                "flash_attention": cfg.decoder.num_layers,
-                "decode_attention": cfg.decoder.num_layers * s["decode_steps"]}
-        print(f"request {request}: launches {counts} expected {want}; "
-              f"{s['prefix_tokens']} prefix tokens, {s['decode_steps']} decode steps; "
+        steps = s["decode_steps"]
+        # what the code implies: one ViT attention per layer and chunk, one
+        # flash attention per decoder layer (prefill), one decode attention
+        # per layer and step; int8: four stacked products per layer and step
+        # (wqkv, wo, w_gateup, w_down; prefill is W8A8) and one 2-D product
+        # per lm_head call (the prefill's last position, then every step)
+        want = dict.fromkeys(got, 0)
+        want.update({"vit_attention_btd": vit_layers * chunks, "flash_attention": L})
+        if int8:
+            want.update({"decode_attention_int8_s8dot": L * steps,
+                         "quant_matmul_stacked": 4 * L * steps,
+                         "quant_matmul": steps + 1})
+        else:
+            want["decode_attention"] = L * steps
+        print(f"{mode} request {request}: launches {got} expected {want}; "
+              f"{s['prefix_tokens']} prefix tokens, {steps} decode steps; "
               f"wall {wall:.3f} s, encode {s['encode_s']:.3f} s "
               f"({VIDEOS * FRAMES / s['encode_s']:.1f} ViT frames/s), "
               f"prefill {s['prefill_s']:.3f} s, decode "
-              f"{1e3 * s['decode_s'] / max(s['decode_steps'], 1):.2f} ms/step", flush=True)
-        if counts != want or min(counts.values()) <= 0:
-            fail(f"launch counts {counts} != expected {want}")
+              f"{1e3 * s['decode_s'] / max(steps, 1):.2f} ms/step", flush=True)
+        if got != want or steps <= 0:
+            fail(f"launch counts {got} != expected {want}")
         if not all(isinstance(p, EventPredictions) for p in preds):
             fail("output does not parse into EventPredictions")
         check_head_slices(cfg.decoder, s["tokens"])
-        launches = launches or counts
-        stats.append({k: v for k, v in s.items() if k != "tokens"} | {"wall_s": wall})
+        launches = launches or got
+        stats.append({k: v for k, v in s.items() if k != "tokens"}
+                     | {"wall_s": wall, "mode": mode})
     tokens = pipe.last_stats["tokens"]
+    if int8:
+        launches.update(dequant_request(torch, params, cfg, tok, videos, stamps, asks))
 
-    # The same path with every attention kernel replaced by its plain
-    # version, and an fp32 reference of the same model (plain attention,
-    # fp32 weights and activations). With random weights the bf16 model is
-    # ill-conditioned (the connector's N(0, 1) slots make its softmax over
-    # 576 patches nearly an argmax; 32 random decoder layers amplify), so
-    # kernel-vs-plain has no fixed scale; the test is that the kernel path
-    # is no further from the fp32 reference than the plain bf16 path is,
-    # within REF_RATIO_TOL.
+    # The same path with every kernel replaced by its plain version, and an
+    # fp32 reference of the same model (plain attention, fp32 weights and
+    # activations; for int8 the dequantized weights, dense products and an
+    # fp32 cache). With random weights the model is ill-conditioned (the
+    # connector's N(0, 1) slots make its softmax over 576 patches nearly an
+    # argmax; 32 random decoder layers amplify), so kernel-vs-plain has no
+    # fixed scale; the test is that the kernel path is no further from the
+    # fp32 reference than the plain path is, within REF_RATIO_TOL.
     plain = TracePipeline(params, cfg, tok, attn_impl="plain")
-    f32 = lambda t: {k: f32(v) if isinstance(v, dict) else v.float() for k, v in t.items()}
-    ref = TracePipeline(f32(params), dataclasses.replace(cfg, dtype=torch.float32),
-                        tok, attn_impl="plain")
-    prefix, mask = pipe.encode_prefix(videos, stamps, asks)
+    if int8:
+        fcfg = dataclasses.replace(
+            cfg, dtype=torch.float32,
+            decoder=dataclasses.replace(cfg.decoder, kv_cache_dtype="bf16", act_quant=False),
+            vision=dataclasses.replace(cfg.vision, act_quant=False))
+    else:
+        fcfg = dataclasses.replace(cfg, dtype=torch.float32)
+    ref_params = dequantized_fp32(pipe.params)
+    # pipe.params has dropped decoder.embed: the combined table's text rows
+    ref_params["decoder"]["embed"] = pipe._combined[:cfg.decoder.vocab_size].float()
+    ref = TracePipeline(ref_params, fcfg, tok, attn_impl="plain")
+    del ref_params
+    (prefix, mask), encode_profile = device_profile(
+        torch, f"{mode} encode (ViT + connector + splice)",
+        lambda: pipe.encode_prefix(videos, stamps, asks))
     if not torch.isfinite(prefix).all():
         fail("non-finite prefix embeddings")
     prefixes = {"kernel": prefix, "plain": plain.encode_prefix(videos, stamps, asks)[0],
@@ -329,9 +570,13 @@ def end_to_end(torch):
     for name, p, impl in (("kernel", pipe, "auto"), ("plain", plain, "plain"),
                           ("fp32", ref, "plain")):
         x = pe.float() if name == "fp32" else pe
-        state = gen._prefill(p._decoder_params, cfg.decoder, x, pm,
-                             cache_len=bucket + 1, impl=impl)
-        logits[name] = compute_logits(p._decoder_params, state[2])
+        prefill = lambda: gen._prefill(p._decoder_params, p.config.decoder, x, pm,
+                                       cache_len=bucket + 1, impl=impl)
+        if name == "kernel":
+            state, prefill_profile = device_profile(torch, f"{mode} prefill", prefill)
+        else:
+            state = prefill()
+        logits[name] = compute_logits(p._decoder_params, state[2], impl=impl)
         if name == "kernel":
             step_profile = profile_decode_step(torch, pipe, cfg.decoder, state)
         del state
@@ -353,18 +598,50 @@ def end_to_end(torch):
             n += 1
         agree.append(n)
     for what, e in errs.items():
-        print(f"{what} (||diff|| / ||ref||): kernel vs plain {e['kernel_vs_plain']:.5f}, "
-              f"kernel vs fp32 {e['kernel_vs_fp32']:.5f}, plain vs fp32 "
-              f"{e['plain_vs_fp32']:.5f} (tol: kernel vs fp32 <= {REF_RATIO_TOL} x "
-              f"plain vs fp32)", flush=True)
-    print(f"greedy tokens of the kernel path equal the plain path's for the first "
-          f"{agree} of {MAX_NEW} per row", flush=True)
+        print(f"{mode} {what} (||diff|| / ||ref||): kernel vs plain "
+              f"{e['kernel_vs_plain']:.5f}, kernel vs fp32 {e['kernel_vs_fp32']:.5f}, "
+              f"plain vs fp32 {e['plain_vs_fp32']:.5f} (tol: kernel vs fp32 <= "
+              f"{REF_RATIO_TOL} x plain vs fp32)", flush=True)
+    print(f"{mode}: greedy tokens of the kernel path equal the plain path's for the "
+          f"first {agree} of {MAX_NEW} per row", flush=True)
     for what, e in errs.items():
         if not e["kernel_vs_fp32"] <= REF_RATIO_TOL * e["plain_vs_fp32"]:
-            fail(f"{what}: the kernel path is further from the fp32 reference "
+            fail(f"{mode} {what}: the kernel path is further from the fp32 reference "
                  "than the plain path")
-    return launches, stats, {**errs, "greedy_agree": agree,
-                             "decode_step": step_profile}
+    del pipe, plain, params
+    torch.cuda.empty_cache()
+    return launches, stats, {**errs, "greedy_agree": agree, "decode_step": step_profile,
+                             "encode_profile": encode_profile,
+                             "prefill_profile": prefill_profile}
+
+
+def device_profile(torch, label: str, fn, top: int = 8):
+    """Run fn once under torch.profiler; print the device-busy time and the
+    CUDA kernels that take most of it. Returns (fn's result, summary)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    events = sum(n for _, n in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    if not by_name:
+        print(f"{label}: traced wall {wall:.1f} ms; device time not measured", flush=True)
+        return out, {"traced_wall_ms": wall, "device_busy_ms": "not measured"}
+    print(f"{label}: traced wall {wall:.1f} ms, {events} device events, busy {busy:.1f} ms; "
+          "most of it: " + "; ".join(f"{name[:60]} {ms:.1f} ms x{n}"
+                                     for name, (ms, n) in ranked), flush=True)
+    return out, {"traced_wall_ms": wall, "device_busy_ms": busy, "device_events": events,
+                 "top": [[name[:80], ms, n] for name, (ms, n) in ranked]}
 
 
 def profile_decode_step(torch, pipe, dec, state) -> dict:
@@ -442,7 +719,21 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     rows = kernel_checks(torch)
-    launches, stats, e2e = end_to_end(torch)
+    if sys.argv[1:] == ["--kernels"]:
+        print(json.dumps({name: {k: v for k, v in r.items()} for name, r in rows.items()}))
+        return 0
+    # each path is driven with the counts set to 0 just before it and read
+    # just after; a kernel's launches are those of the path that runs it
+    launches, stats, e2e = {}, [], {}
+    for mode in ("bf16", "int8"):
+        counts, mode_stats, e2e[mode] = end_to_end(torch, mode)
+        launches.update({k: v for k, v in counts.items() if v})
+        stats += mode_stats
+    a, b = (stats[1], stats[3])  # the second request of each path
+    per_step = lambda s: 1e3 * s["decode_s"] / max(s["decode_steps"], 1)
+    print(f"second requests, bf16 | int8: encode {a['encode_s']:.3f} | {b['encode_s']:.3f} s, "
+          f"prefill {a['prefill_s']:.3f} | {b['prefill_s']:.3f} s, decode "
+          f"{per_step(a):.2f} | {per_step(b):.2f} ms/step", flush=True)
 
     sources = {
         "flash_attention": ("trace_tpu_torch/kernels/csrc/attention.cu",
@@ -451,15 +742,28 @@ def main() -> int:
                               "trace_tpu/kernels/flash_attention.py:209"),
         "decode_attention": ("trace_tpu_torch/kernels/csrc/decode_attention.cu",
                              "trace_tpu/kernels/decode_attention.py:288"),
+        "quant_matmul": ("trace_tpu_torch/kernels/csrc/quant_matmul.cu",
+                         "trace_tpu/kernels/quant_matmul.py:320"),
+        "quant_matmul_stacked": ("trace_tpu_torch/kernels/csrc/quant_matmul.cu",
+                                 "trace_tpu/kernels/quant_matmul.py:418"),
+        "decode_attention_int8_s8dot": (
+            "trace_tpu_torch/kernels/csrc/decode_attention_int8.cu",
+            "trace_tpu/kernels/decode_attention.py:288 (bodies :97, :145)"),
+        "decode_attention_int8_dequant": (
+            "trace_tpu_torch/kernels/csrc/decode_attention_int8.cu",
+            "trace_tpu/kernels/decode_attention.py:288 (body :68)"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": sources[name][0],
-         "replaces": sources[name][1], "launches": launches[name],
+         "replaces": sources[name][1], "launches": launches.get(name, 0),
          "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
          "library_ms": r["library_ms"]}
         for name, r in rows.items()
     ]
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    if idle:
+        fail(f"the serving paths never launched {idle}")
     print(json.dumps({"requests": stats, "e2e": e2e, "card": card,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)

@@ -12,6 +12,11 @@ import torch
 
 from trace_tpu_torch.kernels.decode_attention import decode_attention
 from trace_tpu_torch.kernels.flash_attention import flash_attention, vit_attention_btd
+from trace_tpu_torch.kernels.quant_matmul import (
+    int8_matmul,
+    quant_matmul,
+    quant_matmul_stacked,
+)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -101,3 +106,138 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
         flash_attention(q, q, q, None, True)
     with pytest.raises(ValueError):
         decode_attention(q[:, :, :1], q, q, torch.zeros((1, 64), device=cuda))
+
+
+# The int8 weight product sums the same exact products (bf16 x int8) in fp32
+# in another order than its plain version: the sums differ by ~sqrt(K) eps of
+# their size. Outputs are compared in units of the largest one: 1e-5 absolute,
+# and for a bf16 output two bf16 steps relative (a rounding that flips).
+def _assert_qmm_matches(got, want, out_dtype):
+    unit = want.float().abs().max()
+    rtol = 2 ** -7 if out_dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float() / unit, want.float() / unit, atol=1e-5, rtol=rtol)
+
+
+def _int8_weight(rng, shape, dev):
+    q = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).to(dev)
+    s = torch.from_numpy((rng.random(shape[:-2] + shape[-1:]) * 4e-3 + 1e-3)
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    return q, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,out_dtype", [
+    (1, 64, 16, torch.bfloat16),        # smaller than one strip and one chunk
+    (2, 4096, 32000, torch.float32),    # the lm_head of a decode step
+    (3, 1000, 1100, torch.bfloat16),    # ragged K and N: the byte-wise loads
+    (37, 520, 1040, torch.float32),     # M over several row tiles
+    (300, 256, 512, torch.bfloat16),    # weight-only prefill, many row tiles
+])
+def test_quant_matmul_kernel_matches_plain(cuda, M, K, N, out_dtype):
+    rng = np.random.default_rng(9)
+    x = _bf16(rng, (M, K), cuda)
+    q, s = _int8_weight(rng, (K, N), cuda)
+    n = quant_matmul.launches
+    got = quant_matmul(x, q, s, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == n + 1 and got.dtype == out_dtype
+    _assert_qmm_matches(got, quant_matmul(x, q, s, out_dtype=out_dtype, impl="plain"),
+                        out_dtype)
+    # no atomics: the same bits from run to run
+    assert torch.equal(got, quant_matmul(x, q, s, out_dtype=out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,out_dtype", [
+    (4096, 6144, torch.bfloat16), (4096, 28672, torch.float32),
+    (14336, 4096, torch.bfloat16), (200, 136, torch.float32)])
+@pytest.mark.parametrize("li", [0, 2])
+def test_quant_matmul_stacked_kernel_matches_plain(cuda, K, N, out_dtype, li):
+    rng = np.random.default_rng(10)
+    x = _bf16(rng, (2, K), cuda)
+    q, s = _int8_weight(rng, (3, K, N), cuda)
+    n = quant_matmul_stacked.launches
+    got = quant_matmul_stacked(x, q, s, li, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert quant_matmul_stacked.launches == n + 1
+    _assert_qmm_matches(got, quant_matmul_stacked(x, q, s, li, out_dtype=out_dtype,
+                                                  impl="plain"), out_dtype)
+    # the layer is read in place: the same bits as the 2-D entry on its slice
+    assert torch.equal(got, quant_matmul(x, q[li], s[li], out_dtype=out_dtype))
+
+
+def _int8_stripe(rng, L, B, NKV, S, HD, dev):
+    from trace_tpu_torch.model.config import DecoderConfig
+    from trace_tpu_torch.model.mistral import _quantize_kv, init_kv_cache
+
+    cfg = DecoderConfig(num_layers=L, num_kv_heads=NKV, head_dim=HD, kv_cache_dtype="int8")
+    cache = init_kv_cache(cfg, B, S, device=dev)
+    for vals, scales in (("kq", "ks"), ("vq", "vs")):
+        for li in range(L):
+            cache[vals][li], cache[scales][li] = _quantize_kv(_bf16(rng, (B, NKV, S, HD), dev))
+    return cache
+
+
+# int8 decode attention: integer sums are exact and every fp32 step that
+# feeds a rounding is the plain version's, so kernel and plain differ only
+# where expf and torch.exp round a probability apart: a quantized p * vs on
+# a half flips by one step (at most ps * 127 / l of an output, ~1/S of it),
+# then the bf16 output may round to its neighbour: two bf16 steps relative,
+# and the bf16 decode kernel's absolute limit.
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["s8dot", "dequant"])
+@pytest.mark.parametrize("L,B,NKV,G,S,HD", [(3, 3, 2, 4, 333, 128), (2, 2, 2, 2, 40, 64),
+                                            (2, 4, 8, 4, 2304, 128)])
+def test_int8_decode_kernel_matches_plain(cuda, mode, L, B, NKV, G, S, HD):
+    rng = np.random.default_rng(11)
+    q = _bf16(rng, (B, NKV * G, 1, HD), cuda)
+    cache = _int8_stripe(rng, L, B, NKV, S, HD, cuda)
+    stripe = {name: leaf[1] for name, leaf in cache.items()}
+    masked = torch.from_numpy(rng.random((B, S)) < 0.5).to(cuda)
+    bias = torch.where(masked, -1e30, 0.0).float()
+    n = decode_attention.launches_int8[mode]
+    got = decode_attention(q, stripe, None, bias, mode=mode)
+    torch.cuda.synchronize()
+    assert decode_attention.launches_int8[mode] == n + 1
+    want = decode_attention(q, stripe, None, bias, mode=mode, impl="plain")
+    assert torch.isfinite(got).all()
+    _assert_matches(got, want, ATOL["decode"])
+    assert torch.equal(got, decode_attention(q, stripe, None, bias, mode=mode))
+
+
+@pytest.mark.cuda
+def test_int8_product_on_the_card_is_exact_or_refused(cuda):
+    rng = np.random.default_rng(12)
+    a = torch.from_numpy(rng.integers(100, 128, (32, 1600), dtype=np.int8)).to(cuda)
+    b = torch.from_numpy(rng.integers(100, 128, (1600, 24), dtype=np.int8)).to(cuda)
+    exact = (a.cpu().long() @ b.cpu().long())
+    assert exact.max() > 2 ** 24
+    for impl in ("auto", "plain"):
+        assert torch.equal(int8_matmul(a, b, impl=impl).cpu(), exact.float())
+    with pytest.raises(ValueError):
+        int8_matmul(a[:16], b)       # 16 rows or fewer
+    with pytest.raises(ValueError):
+        int8_matmul(a, b[:, :20])    # N no multiple of 8
+
+
+@pytest.mark.cuda
+def test_int8_wrappers_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros((2, 64), device=cuda)  # fp32: the kernel takes bf16
+    q = torch.zeros((64, 32), dtype=torch.int8, device=cuda)
+    s = torch.ones((32,), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):
+        quant_matmul(x, q, s)
+    xb = torch.zeros((2, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        quant_matmul(xb[:, ::2], q, s)  # strided x
+    with pytest.raises(ValueError):
+        quant_matmul(xb[:, :64].contiguous(), q, s.cpu())
+    rng = np.random.default_rng(13)
+    cache = _int8_stripe(rng, 1, 1, 2, 16, 128, cuda)
+    stripe = {name: leaf[0] for name, leaf in cache.items()}
+    qh = torch.zeros((1, 4, 1, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        decode_attention(qh, {**stripe, "ks": stripe["ks"].float()}, None,
+                         torch.zeros((1, 16), device=cuda))
+    with pytest.raises(ValueError):
+        decode_attention(qh, stripe, None, torch.zeros((1, 16), device=cuda), mode="fp8")

@@ -2,7 +2,8 @@
 Pallas kernels, run in interpret mode on the CPU (the CUDA kernels against
 their plain versions are in test_torch_cuda.py).
 
-Tolerance: fp32, 2e-5 (the same scores summed in another order).
+Tolerance: fp32, 2e-5 (the same scores summed in another order); the int8
+decode attention bodies state theirs where they are tested.
 """
 
 import jax.numpy as jnp
@@ -126,3 +127,104 @@ def test_unknown_impl_is_refused():
         flash_attention(q, q, q, None, True, impl="kernel")
     with pytest.raises(ValueError):
         decode_attention(q[:, :, :1], q, q, torch.zeros((1, 4)), impl="fast")
+
+
+# int8 decode attention. The plain versions repeat the Pallas bodies' fp32
+# arithmetic step for step and take the integer sums exactly, so they differ
+# from the interpreted kernels only where torch.exp and XLA's exp round a
+# probability apart (1 ulp): the sum l moves by ~1e-7 of itself, and in
+# s8dot a quantized p * vs that lay on a half may flip by one int8 step,
+# which moves an output by at most ps * 127 / l * max|vq| * vs, about 1/127 of
+# one slot's share. With >= 40 visible slots that is under 2e-4 of |o| ~ 0.1-1;
+# the limit is 5e-4 absolute and relative. dequant has no integer rounding
+# but rounds p to bf16 (a flip there moves one weight by 2^-8 of itself):
+# the same limit.
+INT8_TOL = 5e-4
+
+
+def _int8_case(seed, L=3, B=2, NKV=2, G=4, S=256, HD=128):
+    from trace_tpu.model.mistral import _quantize_kv as jax_quantize_kv
+
+    rng = np.random.default_rng(seed)
+    q = _normal(rng, B, NKV * G, 1, HD)
+    cache = {}
+    for vals, scales in (("kq", "ks"), ("vq", "vs")):
+        x = _normal(rng, L * B, NKV, S, HD)
+        xq, xs = jax_quantize_kv(jnp.asarray(x))
+        cache[vals] = np.array(xq).reshape(L, B, NKV, S, HD)
+        cache[scales] = np.array(xs.astype(jnp.float32)).reshape(L, B, NKV, 1, S)
+    # a valid prefix per row plus scattered masked slots inside it
+    valid = np.arange(S)[None, :] < np.array([[97], [180]])
+    valid &= rng.random((B, S)) < 0.8
+    bias = np.where(valid, 0.0, -1e30).astype(np.float32)
+    return q, cache, bias
+
+
+def _jax_int8_decode(q, cache, li, bias):
+    jcache = {k: jnp.asarray(v).astype(jnp.bfloat16 if k in ("ks", "vs") else jnp.int8)
+              for k, v in cache.items()}
+    return np.asarray(jax_decode(jnp.asarray(q), jcache, jnp.int32(li), jnp.asarray(bias),
+                                 interpret=True))
+
+
+def _torch_int8_decode(q, cache, li, bias, mode):
+    stripe = {k: torch.from_numpy(v).to(torch.bfloat16 if k in ("ks", "vs") else torch.int8)[li]
+              for k, v in cache.items()}
+    assert all(t.is_contiguous() for t in stripe.values())
+    return decode_attention(torch.from_numpy(q), stripe, None, torch.from_numpy(bias),
+                            mode=mode).numpy()
+
+
+@pytest.mark.parametrize("li", [0, 2])
+@pytest.mark.parametrize("s8_env", [None, "1", "2"])
+def test_int8_decode_s8dot_plain_matches_pallas(monkeypatch, li, s8_env):
+    """``mode="s8dot"`` against the JAX package's default body (stacked
+    chain) and its per-head body (TRACE_TPU_DECODE_ATTN_S8=1)."""
+    if s8_env is None:
+        monkeypatch.delenv("TRACE_TPU_DECODE_ATTN_S8", raising=False)
+    else:
+        monkeypatch.setenv("TRACE_TPU_DECODE_ATTN_S8", s8_env)
+    q, cache, bias = _int8_case(30 + li)
+    want = _jax_int8_decode(q, cache, li, bias)
+    got = _torch_int8_decode(q, cache, li, bias, "s8dot")
+    np.testing.assert_allclose(got, want, rtol=INT8_TOL, atol=INT8_TOL)
+
+
+@pytest.mark.parametrize("li", [0, 1])
+def test_int8_decode_dequant_plain_matches_pallas(monkeypatch, li):
+    monkeypatch.setenv("TRACE_TPU_DECODE_ATTN_S8", "0")
+    q, cache, bias = _int8_case(40 + li)
+    want = _jax_int8_decode(q, cache, li, bias)
+    got = _torch_int8_decode(q, cache, li, bias, "dequant")
+    np.testing.assert_allclose(got, want, rtol=INT8_TOL, atol=INT8_TOL)
+
+
+def test_int8_decode_modes_differ_and_bf16_q_is_taken(monkeypatch):
+    """The two bodies are different functions (s8dot adds two row
+    quantizations, ~1/254 per operand), and a bf16 q gives a bf16 result
+    close to the JAX kernel's (one bf16 step of the output)."""
+    q, cache, bias = _int8_case(50)
+    s8 = _torch_int8_decode(q, cache, 1, bias, "s8dot")
+    dq = _torch_int8_decode(q, cache, 1, bias, "dequant")
+    assert 1e-5 < np.abs(s8 - dq).max() < 2e-2
+    monkeypatch.delenv("TRACE_TPU_DECODE_ATTN_S8", raising=False)
+    jcache = {k: jnp.asarray(v).astype(jnp.bfloat16 if k in ("ks", "vs") else jnp.int8)
+              for k, v in cache.items()}
+    want = jax_decode(jnp.asarray(q).astype(jnp.bfloat16), jcache, jnp.int32(1),
+                      jnp.asarray(bias), interpret=True)
+    stripe = {k: torch.from_numpy(v).to(torch.bfloat16 if k in ("ks", "vs") else torch.int8)[1]
+              for k, v in cache.items()}
+    got = decode_attention(torch.from_numpy(q).to(torch.bfloat16), stripe, None,
+                           torch.from_numpy(bias))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=2 ** -7, atol=INT8_TOL)
+
+
+def test_int8_decode_cpu_counts_no_launch_and_refuses_unknown_mode():
+    q, cache, bias = _int8_case(51, L=1, S=16)
+    before = dict(decode_attention.launches_int8)
+    _torch_int8_decode(q, cache, 0, bias, "s8dot")
+    assert decode_attention.launches_int8 == before
+    with pytest.raises(ValueError):
+        _torch_int8_decode(q, cache, 0, bias, "fp8")

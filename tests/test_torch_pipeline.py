@@ -182,3 +182,138 @@ def test_event_codec_matches_jax_and_drops_malformed_values():
     one = tcodec.time_local_to_combined(3)
     bad = [one, dot, dot, one + 4, sep, one, sync]
     assert tcodec.decode_event_stream(bad, tok.decode).timestamps == [[1.0]]
+
+
+def test_event_codec_malformed_value_jax_raises_port_drops_it():
+    """Pins the one known difference of the codecs: on a value whose chars
+    form no number the JAX package raises ValueError; the port returns
+    exactly what it returns for the stream with that value's chars removed
+    (its <sep> stays: an empty value adds nothing in either codec)."""
+    from trace_tpu.tokenizers import event_codec as jcodec
+    from trace_tpu_torch.tokenizers import event_codec as tcodec
+
+    tok = ByteTokenizer()
+    events = [{"timestamp": [1.5, 12.0], "score": [3.2], "caption": "a cat"},
+              {"timestamp": [20.0, 31.5], "score": [4.8], "caption": "jumps"}]
+    good = tcodec.encode_event_stream(events, lambda s: tok.encode(s)[1:])
+    dot = tcodec.time_local_to_combined(12)
+    at = good.index(dot)  # the '.' of 1.5
+    bad = good[:at] + [dot] + good[at:]  # '1..5'
+    with pytest.raises(ValueError):
+        jcodec.decode_event_stream(bad, tok.decode)
+    # remove the whole malformed value: every char id around the dots, up
+    # to the <sep> / <sync> ids of the time block on either side
+    ends = {tcodec.time_local_to_combined(i) for i in (0, 1)}
+    chars = lambda i: min(ends) < bad[i] <= dot and bad[i] not in ends
+    lo, hi = at, at
+    while chars(lo - 1):
+        lo -= 1
+    while chars(hi + 1):
+        hi += 1
+    removed = bad[:lo] + bad[hi + 1:]
+    got = tcodec.decode_event_stream(bad, tok.decode).to_dict()
+    assert got == tcodec.decode_event_stream(removed, tok.decode).to_dict()
+    assert got == jcodec.decode_event_stream(removed, tok.decode).to_dict()
+    assert got["timestamps"][0] == [12.0] and got["timestamps"][1] == [20.0, 31.5]
+
+
+# ---------------------------------------------------------------------------
+# The int8 serving configuration as a whole.
+#
+# The JAX pipeline runs what it runs on a TPU, in interpret mode on the CPU:
+# prefill through its Pallas flash kernel (the test sets
+# ``generate.default_use_flash`` to True and routes
+# ``flash_attention_trainable`` to ``flash_attention(..., interpret=True)``),
+# each decode step through its Pallas int8 decode kernel
+# (``TRACE_TPU_DECODE_ATTN=force``; it wants head_dim 128 and a cache length
+# that is a multiple of 8, which the 128-token prefix bucket gives). Nothing
+# in the JAX package changes. Both sides then compute one function, and the
+# greedy streams are compared token for token. A summation-order difference
+# could flip an int8 rounding and, on a near-tie, a token; on these seeds it
+# does not (the decoder tests measure 3e-7 between the two).
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def jax_serving_kernels_interpreted(monkeypatch):
+    from trace_tpu.kernels import flash_attention as jfa
+
+    monkeypatch.setenv("TRACE_TPU_DECODE_ATTN", "force")
+    for name in ("TRACE_TPU_DECODE_ATTN_S8", "TRACE_TPU_STACKED_QMM", "TRACE_TPU_QMM"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setattr(jgen, "default_use_flash", lambda: True)
+    monkeypatch.setattr(
+        jfa, "flash_attention_trainable",
+        lambda q, k, v, bias, causal=False: jfa.flash_attention(
+            q, k, v, bias, causal=causal, interpret=True))
+
+
+def _int8_pipes():
+    import dataclasses
+
+    from trace_tpu.model import quantize as jq
+    from trace_tpu_torch.model.quantize import int8_serving
+
+    wide = dict(num_heads=4, num_kv_heads=2, head_dim=128, hidden_size=128)
+    jcfg = dataclasses.replace(JCFG, decoder=dataclasses.replace(JCFG.decoder, **wide))
+    tcfg = dataclasses.replace(CFG, decoder=dataclasses.replace(CFG.decoder, **wide))
+    jp = jax_init(jcfg, jax.random.PRNGKey(3))
+    rng = np.random.default_rng(10)
+    dec = dict(jp["decoder"])
+    for name in ("lm_head", "sync_head", "time_head", "score_head"):
+        dec[name] = jnp.asarray(rng.standard_normal(dec[name].shape).astype(np.float32))
+    jp = {**jp, "decoder": dec}
+    tp = from_jax_params(jax.tree.map(np.asarray, jp))
+    # the JAX serving pair, as model_init(..., quant="int8") and the bench build it
+    jq_params = jq.quantize_trace_params(jp)
+    jq_params["decoder"] = jq.fuse_decoder_serving(jq_params["decoder"])
+    jq_cfg = dataclasses.replace(
+        jcfg,
+        decoder=dataclasses.replace(jcfg.decoder, kv_cache_dtype="int8", act_quant=True),
+        vision=dataclasses.replace(jcfg.vision, act_quant=True))
+    tq_params, tq_cfg = int8_serving(tp, tcfg)
+    return (JaxPipeline(params=jq_params, config=jq_cfg, tokenizer=JaxByteTokenizer()),
+            TracePipeline(tq_params, tq_cfg, ByteTokenizer(), device="cpu"))
+
+
+def test_int8_serving_infer_events_batch_matches(jax_serving_kernels_interpreted):
+    jpipe, tpipe = _int8_pipes()
+    assert tpipe.config.decoder.kv_cache_dtype == "int8" and tpipe.config.vision.act_quant
+    frames, ts, qs = _videos()
+    jprefix, jmask = jpipe._prepare_prefix_batch(frames, ts, qs)
+    tprefix, tmask = tpipe.encode_prefix(frames, ts, qs)
+    np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
+    # W8A8 ViT on preprocessed frames that differ by ~2e-5 (bicubic resize in
+    # another order): a few int8 activations flip by one step, each moving
+    # its frame's slots by up to ~1/127 of a term. Measured here: 0.03% of
+    # the entries beyond 2e-3 of the largest value, the worst 7e-3. Limits:
+    # 2e-2 of the largest value for any entry, 5e-3 for ||diff|| / ||ref||
+    # (measured 1.5e-3).
+    jpre = np.asarray(jprefix)
+    diff = np.abs(tprefix.numpy() - jpre)
+    assert diff.max() <= 2e-2 * np.abs(jpre).max()
+    assert np.linalg.norm(diff) <= 5e-3 * np.linalg.norm(jpre)
+    want = jpipe.infer_events_batch(frames, ts, qs, max_new_tokens=24)
+    got = tpipe.infer_events_batch(frames, ts, qs, max_new_tokens=24)
+    assert [g.to_dict() for g in got] == [w.to_dict() for w in want]
+    jtok = jgen.generate(jpipe._decoder_params, jpipe.config.decoder, jprefix, jmask,
+                         jpipe._combined, max_new_tokens=24, initial_head=1, use_flash=True)
+    np.testing.assert_array_equal(tpipe.last_stats["tokens"], jtok.tokens)
+    assert tpipe.last_stats["decode_steps"] > 0
+    layers = tpipe._decoder_params["layers"]
+    assert "wqkv" in layers and "w_gateup" in layers
+
+
+def test_pipeline_fuses_an_unfused_int8_tree():
+    """An int8 tree handed over per weight is put into the fused serving
+    layout at first use; a dense tree is left as it is."""
+    from trace_tpu_torch.model.quantize import quantize_trace_params
+    from trace_tpu_torch.params import init_trace_params
+
+    params = init_trace_params(CFG, torch.Generator().manual_seed(1), device="cpu")
+    pipe = TracePipeline(quantize_trace_params(params), CFG, ByteTokenizer(), device="cpu")
+    pipe._prepare_memory_layout()
+    assert "wqkv" in pipe._decoder_params["layers"]
+    dense = TracePipeline(params, CFG, ByteTokenizer(), device="cpu")
+    dense._prepare_memory_layout()
+    assert "wq" in dense._decoder_params["layers"]

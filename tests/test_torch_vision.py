@@ -160,3 +160,58 @@ def test_init_trace_params_layout_matches_jax():
     assert abs(float(got["decoder"]["layers"]["w_up"].std()) - 0.02) < 2e-3
     assert abs(float(got["connector"]["slots"].std()) - 1.0) < 0.3
     assert bool((got["vision"]["layers"]["ln1_scale"] == 1).all())
+
+
+# int8 ViT. W8A8 (``act_quant``): both sides compute the same function in
+# fp32 activations; fp32 summation order differs (~1e-6), and where that
+# falls on a rounding boundary one int8 activation flips by a step, which
+# moves that token's output by ~1/127 of one of K = 32..64 terms. Limit: 2e-3
+# of the largest feature (measured on these seeds: under 1e-5, no flip).
+# Weight-only (``act_quant`` off): dense products on the dequantized
+# weights. The port rounds ``q * s`` to bf16 as the JAX source writes it; XLA
+# on the CPU keeps the product in fp32 inside the layer scan (it is allowed
+# excess precision and drops the f32 -> bf16 -> f32 pair), so each weight
+# differs by up to 2^-9 of itself and the features by ~1e-4 (measured
+# 1.05e-4 on values up to ~2): limit 5e-4. On the dequantized dense tree
+# the two agree to 3e-6.
+W8A8_TOL = 2e-3
+WEIGHT_ONLY_TOL = 5e-4
+
+
+@pytest.fixture(scope="module")
+def int8_vision(params):
+    from trace_tpu.model import quantize as jq
+
+    jv = jq.quantize_vision_params(params[0]["vision"])
+    return jv, from_jax_params(jax.tree.map(np.asarray, jv))
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_w8a8_vit_forward_matches(int8_vision, use_flash):
+    import dataclasses
+
+    jv, tv = int8_vision
+    x = _images(3, seed=7)
+    jcfg = dataclasses.replace(JCFG.vision, act_quant=True)
+    tcfg = dataclasses.replace(CFG.vision, act_quant=True)
+    want = np.asarray(jvit.vit_forward(jv, jcfg, jnp.asarray(x), use_flash=use_flash))
+    got = tvit.vit_forward(tv, tcfg, torch.from_numpy(x))
+    assert tuple(got.shape) == want.shape and got.dtype == torch.float32
+    unit = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy() / unit, want / unit, rtol=W8A8_TOL, atol=W8A8_TOL)
+    # and it is the int8 function, not the dense one
+    dense = tvit.vit_forward(tv, CFG.vision, torch.from_numpy(x))
+    assert (got - dense).abs().max() > 1e-4 * unit
+
+
+def test_weight_only_int8_vit_matches(int8_vision):
+    jv, tv = int8_vision
+    x = _images(2, seed=8)
+    want = jvit.vit_forward(jv, JCFG.vision, jnp.asarray(x))
+    _close(tvit.vit_forward(tv, CFG.vision, torch.from_numpy(x)), want, WEIGHT_ONLY_TOL)
+
+
+def test_fuse_vision_qkv_leaves_an_int8_tree_as_it_is(int8_vision):
+    jv, tv = int8_vision
+    assert tvit.fuse_vision_qkv(tv) is tv
+    assert jvit.fuse_vision_qkv(jv) is jv

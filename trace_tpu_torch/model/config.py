@@ -1,5 +1,6 @@
 """Model configuration for the PyTorch port (copy of trace_tpu/model/config.py
-with torch dtypes)."""
+with torch dtypes): the bf16 and the int8 serving configurations (int8 KV
+cache, W8A8 prefill and ViT; ``model/quantize.py int8_serving`` sets them)."""
 
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ from trace_tpu_torch.constants import (
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
     """Mistral-7B decoder hyperparameters plus TRACE's sync/time/score heads
-    (the JAX config's qkv-bias, LoRA and W8A8 fields belong to slices not
-    ported yet). Mistral v0.1's 4096-token sliding window never binds at
+    (the JAX config's qkv-bias and LoRA fields belong to slices not ported
+    yet). Mistral v0.1's 4096-token sliding window never binds at
     TRACE's context, so attention is plain causal."""
 
     vocab_size: int = TEXT_VOCAB_SIZE
@@ -33,8 +34,17 @@ class DecoderConfig:
     rms_eps: float = 1e-5
     time_vocab_size: int = TIME_VOCAB_SIZE
     score_vocab_size: int = SCORE_VOCAB_SIZE
-    # only 'bf16' is ported so far; 'int8' belongs to the quantized slice
+    # KV cache storage: 'bf16', or 'int8' (values int8, one bf16 scale per
+    # layer, row, kv head and slot)
     kv_cache_dtype: str = "bf16"
+    # W8A8: with int8 weights, chunks of more than one token (prefill)
+    # quantize their activations per token and run s8 x s8 -> s32 products;
+    # a T = 1 step always stays weight-only
+    act_quant: bool = False
+    # body of the decode-step attention over an int8 cache: 's8dot' (q rows
+    # and probabilities quantized, s8 x s8 products; the JAX package's
+    # default) or 'dequant' (K/V widened to bf16; its TRACE_TPU_DECODE_ATTN_S8=0)
+    decode_attn_int8: str = "s8dot"
 
     @property
     def combined_vocab_size(self) -> int:
@@ -73,6 +83,8 @@ class VisionConfig:
     # CLS dropped
     select_layer: int = -2
     select_feature: str = "patch"
+    # W8A8 products for int8 ViT weights (see DecoderConfig.act_quant)
+    act_quant: bool = False
 
     @property
     def num_patches_per_side(self) -> int:

@@ -1,5 +1,5 @@
-"""CLIP ViT-L/14-336 vision tower in PyTorch (bf16 / fused-qkv branches of
-trace_tpu/model/vit.py).
+"""CLIP ViT-L/14-336 vision tower in PyTorch (the dense fused-qkv and the
+int8 W8A8 branches of trace_tpu/model/vit.py).
 
 The hidden-states tap at ``select_layer=-2`` is implemented by not running
 the last layer; the CLS position attends and is dropped from the output.
@@ -12,7 +12,9 @@ from __future__ import annotations
 import torch
 
 from trace_tpu_torch.kernels.flash_attention import vit_attention_btd
+from trace_tpu_torch.kernels.quant_matmul import quant_apply_w8a8, quantize_acts
 from trace_tpu_torch.model.config import VisionConfig
+from trace_tpu_torch.model.quantize import dequantize, is_quantized
 
 # OpenAI CLIP normalization constants (CLIPImageProcessor defaults).
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -43,9 +45,10 @@ def extract_patches(images: torch.Tensor, patch_size: int) -> torch.Tensor:
 
 def fuse_vision_qkv(params: dict) -> dict:
     """Serving layout: concat the stacked q/k/v projections into one
-    [L, D, 3D] weight (one matmul per layer for QKV)."""
+    [L, D, 3D] weight (one matmul per layer for QKV). An int8 tree keeps
+    its separate weights and comes back as it is."""
     layers = dict(params["layers"])
-    if "wqkv" in layers:
+    if "wqkv" in layers or not torch.is_tensor(layers.get("wq")):
         return params
     layers["wqkv"] = torch.cat(
         [layers.pop("wq"), layers.pop("wk"), layers.pop("wv")], dim=-1)
@@ -58,29 +61,46 @@ def fuse_vision_qkv(params: dict) -> dict:
 
 def _linear(x, w, b):
     """x [..., K] @ w [K, N] + b, accumulated in fp32 where the backend
-    does (cuBLAS adds the bias in its fp32 epilogue)."""
+    does (cuBLAS adds the bias in its fp32 epilogue). An int8 weight is
+    dequantized first (the weight-only ViT, ``act_quant`` off)."""
     lead = x.shape[:-1]
+    w = dequantize(w, x.dtype)
     y = torch.addmm(b.to(x.dtype), x.reshape(-1, x.shape[-1]), w.to(x.dtype))
     return y.view(*lead, w.shape[-1])
+
+
+def _linear_w8a8(acts, leaf: dict, b, dtype, impl: str):
+    """s8 x s8 product of quantized activations with an int8 weight; the
+    bias is added to the fp32 result before the cast."""
+    y = quant_apply_w8a8(*acts, leaf, (leaf["q"].shape[-1],),
+                         out_dtype=torch.float32, impl=impl)
+    return (y + b).to(dtype)
 
 
 def _vit_layer(x, lp: dict, config: VisionConfig, tq: int, impl: str = "auto"):
     c = config
     D = x.shape[-1]
+    w8a8 = c.act_quant and is_quantized(lp.get("wq"))
+    if w8a8:
+        lin = lambda t, w, b: _linear_w8a8(quantize_acts(t), lp[w], lp[b], x.dtype, impl)
+    else:
+        lin = lambda t, w, b: _linear(t, lp[w], lp[b])
 
     h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], c.layer_eps)
-    if "wqkv" in lp:
-        q, k, v = _linear(h, lp["wqkv"], lp["bqkv"]).split(D, dim=-1)
+    if w8a8:
+        hq = quantize_acts(h)  # one rounding pass shared by q/k/v
+        q, k, v = (_linear_w8a8(hq, lp[w], lp[b], x.dtype, impl)
+                   for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+    elif "wqkv" in lp:
+        q, k, v = lin(h, "wqkv", "bqkv").split(D, dim=-1)
     else:
-        q = _linear(h, lp["wq"], lp["bq"])
-        k = _linear(h, lp["wk"], lp["bk"])
-        v = _linear(h, lp["wv"], lp["bv"])
+        q, k, v = lin(h, "wq", "bq"), lin(h, "wk", "bk"), lin(h, "wv", "bv")
     attn = vit_attention_btd(q, k, v, tq, c.num_heads, impl=impl)
-    x = x + _linear(attn.to(x.dtype), lp["wo"], lp["bo"])
+    x = x + lin(attn.to(x.dtype), "wo", "bo")
 
     h = layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], c.layer_eps)
-    h1 = _linear(h, lp["fc1"], lp["b1"])
-    return x + _linear(quick_gelu(h1), lp["fc2"], lp["b2"])
+    h1 = lin(h, "fc1", "b1")
+    return x + lin(quick_gelu(h1), "fc2", "b2")
 
 
 def vit_forward(
@@ -97,7 +117,8 @@ def vit_forward(
     >= 577 masked; pad rows are dropped at the end."""
     c = config
     B = images.shape[0]
-    patch_w = params["patch_embed"]
+    patch_w = dequantize(params["patch_embed"],
+                         images.dtype if images.is_floating_point() else torch.float32)
     embeds = extract_patches(images, c.patch_size).to(patch_w.dtype) @ patch_w
 
     cls = params["class_embedding"].expand(B, 1, c.hidden_size).to(embeds.dtype)
@@ -113,7 +134,8 @@ def vit_forward(
     num_run = c.num_layers + 1 + c.select_layer  # -2 => num_layers - 1
     layers = params["layers"]
     for li in range(num_run):
-        lp = {name: leaf[li] for name, leaf in layers.items()}
+        lp = {name: ({k: v[li] for k, v in leaf.items()} if isinstance(leaf, dict)
+                     else leaf[li]) for name, leaf in layers.items()}
         x = _vit_layer(x, lp, c, tq, impl=impl)
     x = x[:, :tq]
     if c.select_feature == "patch":

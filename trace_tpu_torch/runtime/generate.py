@@ -115,7 +115,9 @@ def _time_constraint_update(config, token, frame_chars, alive, value_pos):
 
 
 def _prefill(params, c, prefix_embeds, prefix_mask, *, cache_len, impl="auto"):
-    """Prefill phase: returns (cache, cache_mask, last_hidden, next_pos)."""
+    """Prefill phase: returns (cache, cache_mask, last_hidden, next_pos).
+    The cache is the (k, v) pair in the prefix's dtype, or the int8 dict
+    when ``c.kv_cache_dtype == "int8"``."""
     B, P, D = prefix_embeds.shape
     dev = prefix_embeds.device
     cache = init_kv_cache(c, B, cache_len, dtype=prefix_embeds.dtype, device=dev)
@@ -179,7 +181,7 @@ def _decode_from_state(
         return _time_constraint_update(c, tok, frame_time_ids, alive, vpos)
 
     # first token from the prefill's last hidden state
-    tok = pick_token(compute_logits(params, last_hidden), initial_head,
+    tok = pick_token(compute_logits(params, last_hidden, impl=impl), initial_head,
                      alive, vpos).long()
     K = 0 if stop_ids is None else stop_ids.shape[1]
     recent = torch.full((B, max(K, 1)), -2, dtype=torch.long, device=dev)
@@ -203,7 +205,7 @@ def _decode_from_state(
             cache=cache, cache_index=write_idx, cache_mask=cache_mask, impl=impl,
         )
         cache_mask[:, write_idx] = True
-        tok = pick_token(compute_logits(params, hidden[:, -1, :]), head,
+        tok = pick_token(compute_logits(params, hidden[:, -1, :], impl=impl), head,
                          alive, vpos).long()
 
         recent = torch.cat([recent[:, 1:], tok[:, None]], dim=1)
