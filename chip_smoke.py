@@ -8,7 +8,9 @@ Phases, in order; any failure exits non-zero:
   2. build every CUDA kernel of the serving path from csrc/ (nvcc, parallel);
   3. each kernel against its plain PyTorch version at serving shapes (the
      three bf16 attention kernels; the int8 weight product, 2-D and
-     stacked; int8 decode attention in both modes), with its time (CUDA
+     stacked; int8 decode attention in both modes; the nibble-packed int4
+     weight products, per channel and grouped, each in its split-K form at
+     M = 2 and its tensor-core form at M = 3886), with its time (CUDA
      events, median of 20, L2 flushed between runs), the plain version's
      time, the time of one PyTorch library call computing the same function
      (a yardstick only, never called by the port) and the least time the
@@ -18,11 +20,16 @@ Phases, in order; any failure exits non-zero:
   4. the TRACE-7B serving path end to end at full width (CLIP ViT-L/14-336
      at the -2 tap, spatial_slot, Mistral-7B, random weights from seed 0),
      first in bf16, then in the int8 serving configuration (int8 weights in
-     the fused layout, int8 KV cache, W8A8 prefill and ViT): two requests
+     the fused layout, int8 KV cache, W8A8 prefill and ViT), then in the
+     int4p serving configuration (nibble-packed int4 layer weights with
+     group-128 scales, weight-only at every chunk length): two requests
      of 2 synthetic 128-frame 336x336 videos, 64 new tokens each, launch
      counts checked per request, outputs checked against the same path with
      every kernel replaced by its plain version and against an fp32 model
-     of the same (dequantized) weights.
+     of the same (dequantized) weights. Last the same on a per-channel
+     (group 0) int4p tree at a depth of 4 layers (W4A8 prefill, the
+     per-channel kernel in the steps), and one request of it without
+     activation quantization (the per-channel kernel in the prefill too).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it prints no result and exits 2. ``--kernels`` stops
@@ -71,6 +78,16 @@ MAX_NEW = 64
 # here, where ~1150 slots share the weight); then the output's bf16 rounding
 # can flip (rtol 2^-7). dequant sums fp32 in another order besides. atol as
 # for the bf16 decode kernel (|o| < 0.25).
+# The packed-int4 products sum exact products too (bf16 x a nibble; grouped,
+# bf16 x the scaled weight rounded to bf16, which kernel and plain version
+# round alike: nibble x scale is exact in fp32 and in the kernel's bf16
+# multiply, and both round it once to nearest even). The split-K form
+# multiply-adds in fp32 like the int8 product: its limits. The tensor-core
+# form adds each 16 products into the fp32 accumulator inside mma.sync, which
+# truncates where an fp32 add rounds to nearest; over K / 16 <= 896 steps the
+# sum drifts by up to ~K / 16 x 2^-24 of the largest partial sum, so 1e-4 of
+# the largest output (a dropped k step or a misplaced nibble moves outputs by
+# 1e-2 and more); bf16 outputs two bf16 steps relative as above.
 KERNEL_TOL = {  # name: (atol, rtol)
     "flash_attention": (3e-2, 2 ** -7),
     "vit_attention_btd": (8e-3, 2 ** -7),
@@ -79,7 +96,15 @@ KERNEL_TOL = {  # name: (atol, rtol)
     "quant_matmul_stacked": (1e-5, 2 ** -7),  # bf16 and fp32 outs, same units
     "decode_attention_int8_s8dot": (2e-3, 2 ** -7),
     "decode_attention_int8_dequant": (2e-3, 2 ** -7),
+    "quant_matmul_p4": (1e-5, 2 ** -7),          # split-K form, units of max |ref|
+    "quant_matmul_p4_mma": (1e-4, 2 ** -7),      # tensor-core form, same units
+    "quant_matmul_p4_grouped": (1e-5, 2 ** -7),
+    "quant_matmul_p4_grouped_mma": (1e-4, 2 ** -7),
 }
+P4_SHAPES = (  # K, N, out dtype: wqkv, wo, w_gateup, w_down of a fused 7B layer
+    (4096, 6144, "bfloat16"), (4096, 4096, "bfloat16"),
+    (4096, 28672, "float32"), (14336, 4096, "bfloat16"))
+PREFILL_M = 3886  # rows of the smoke's prefill: 2 x 1943 prefix tokens
 REL_NORM_TOL = 1e-2
 # end to end: the kernel path's distance from an fp32 reference may exceed
 # the plain bf16 path's by this factor (see end_to_end)
@@ -116,11 +141,13 @@ def median_ms(torch, fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def compare(name: str, out, ref) -> dict:
+def compare(name: str, out, ref, rtol=None) -> dict:
     """Kernel output against the plain version's, on the rows that count:
     the largest difference, the largest excess over atol + rtol |ref|
-    (> 0 fails), ||diff|| / ||ref|| and the RMS of ref."""
-    atol, rtol = KERNEL_TOL[name]
+    (> 0 fails), ||diff|| / ||ref|| and the RMS of ref. ``rtol`` replaces the
+    kernel's own where an output type allows a tighter one."""
+    atol, own_rtol = KERNEL_TOL[name]
+    rtol = own_rtol if rtol is None else rtol
     out, ref = out.float(), ref.float()
     diff = (out - ref).abs()
     return {"err": diff.max().item(),
@@ -234,6 +261,7 @@ def kernel_checks(torch):
 
     quant_matmul_checks(torch, g, rows)
     int8_decode_checks(torch, g, rows)
+    packed_int4_checks(torch, g, rows)
 
     for name, r in rows.items():
         atol, rtol = KERNEL_TOL[name]
@@ -318,6 +346,89 @@ def quant_matmul_checks(torch, g, rows: dict) -> None:
     rows["quant_matmul_stacked"] = merge(parts)
 
 
+def packed_int4_checks(torch, g, rows: dict) -> None:
+    """The nibble-packed int4 products against their plain versions on layer
+    17 of 32 of the four weights of a fused 7B layer, through the stacked
+    entries the decoder calls: per channel and grouped (group 128), each in
+    its split-K form at M = 2 (one row each: the four shapes together = one
+    layer's weight products of a decode step) and its tensor-core form at
+    M = 3886 (grouped: the four shapes = one layer of the prefill; per
+    channel, which no serving prefill runs: wqkv only). The 2-D entries are
+    held to the stacked ones bit for bit, and to their plain versions at a
+    ragged shape. Yardstick: ``torch.matmul`` on the weight dequantized to
+    bf16 beforehand."""
+    from trace_tpu_torch.kernels import quant_matmul as qmm
+    from trace_tpu_torch.model.quantize import dequantize
+
+    L, LI = 32, 17
+    entries = {False: (qmm.quant_matmul_p4_stacked, qmm.quant_matmul_p4),
+               True: (qmm.quant_matmul_p4_grouped_stacked, qmm.quant_matmul_p4_grouped)}
+
+    def weight(K, N, grouped, layers=L):
+        qp = torch.randint(-128, 128, (layers, K // 2, N), generator=g, device="cuda",
+                           dtype=torch.int8)
+        s = (torch.rand((layers, K // 128 if grouped else 1, N), generator=g, device="cuda")
+             * 4e-3 + 1e-3).to(torch.bfloat16)
+        return qp, s
+
+    def one(name, x, qp, s, li, out_dtype, grouped, reps=20):
+        stacked, flat = entries[grouped]
+        fn = lambda impl="auto": stacked(x, qp, s, li, out_dtype=out_dtype, impl=impl)
+        out, ref = fn(), fn("plain")
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            fail(f"{name}: non-finite output")
+        unit = ref.abs().max()
+        # an fp32 output has no bf16 rounding to flip: relative limit = absolute
+        r = compare(name, out.float() / unit, ref.float() / unit,
+                    rtol=KERNEL_TOL[name][0] if out_dtype == torch.float32 else None)
+        r["err"] *= unit.item()
+        s2 = s[li] if grouped else s[li].reshape(-1)
+        if not torch.equal(out, flat(x, qp[li], s2, out_dtype=out_dtype)):
+            fail(f"{name}: the 2-D entry differs from the stacked one")
+        if not reps:
+            return r
+        M, K, N = x.shape[0], x.shape[1], qp.shape[2]
+        w = dequantize({"qp": qp[li], "s": s[li]})  # yardstick operand only
+        nbytes = x.numel() * 2 + K * N // 2 + s[li].numel() * 2 + M * N * out.element_size()
+        r.update(ms=median_ms(torch, fn, reps), plain_ms=median_ms(torch, lambda: fn("plain"), reps),
+                 library_ms=median_ms(torch, lambda: torch.matmul(x, w), reps),
+                 bound=bound(nbytes, 2 * M * K * N))
+        print(f"  {name} x [{M}, {K}] @ qp [{K // 2}, {N}] -> "
+              f"{str(out.dtype).split('.')[-1]}: max_err/max|ref|={r['err'] / unit.item():.2e} "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
+              f"({r['bound'][1]})", flush=True)
+        return r
+
+    parts = {name: [] for name in ("quant_matmul_p4", "quant_matmul_p4_grouped",
+                                   "quant_matmul_p4_mma", "quant_matmul_p4_grouped_mma")}
+    for K, N, dtype_name in P4_SHAPES:
+        out_dtype = getattr(torch, dtype_name)
+        x2 = torch.randn((2, K), generator=g, device="cuda").to(torch.bfloat16)
+        xp = torch.randn((PREFILL_M, K), generator=g, device="cuda").to(torch.bfloat16)
+        for grouped in (False, True):
+            qp, s = weight(K, N, grouped)
+            base = "quant_matmul_p4_grouped" if grouped else "quant_matmul_p4"
+            parts[base].append(one(base, x2, qp, s, LI, out_dtype, grouped))
+            if grouped or N == 6144:
+                parts[base + "_mma"].append(one(base + "_mma", xp, qp, s, LI, out_dtype,
+                                                grouped, reps=10))
+            del qp, s
+    # ragged M, N (and, per channel, K / 2 no multiple of 8), untimed
+    for grouped, M, K, N in ((False, 3, 1000, 1100), (False, 37, 1000, 1100),
+                             (True, 3, 1024, 1100), (True, 37, 1024, 1100)):
+        xr = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        qp, s = weight(K, N, grouped, layers=2)
+        name = ("quant_matmul_p4_grouped" if grouped else "quant_matmul_p4") \
+            + ("" if M <= 8 else "_mma")
+        parts[name].append(one(name, xr, qp, s, 1, torch.float32, grouped, reps=0))
+    for name, ps in parts.items():
+        timed = [p for p in ps if "ms" in p]
+        rows[name] = merge(timed)
+        rows[name].update({k: max(p[k] for p in ps) for k in ("err", "excess", "rel_norm")})
+
+
 def int8_decode_checks(torch, g, rows: dict) -> None:
     """int8 decode attention, both modes, at the bf16 row's shape: L = 32,
     B = 4, S = 2304, layer 17's stripe, half the slots masked, the stripe
@@ -389,17 +500,37 @@ def rel_err(a, b) -> float:
 
 
 def dequantized_fp32(tree):
-    """An int8 serving tree as dense fp32 weights (q * s exactly, a layer at
-    a time), fused leaves split back; other leaves widened to fp32."""
+    """A quantized serving tree as dense fp32 weights, a layer at a time:
+    int8 leaves q * s exactly; packed int4 leaves the flattened [L, K, N]
+    weight their product multiplies (nibble * s exactly per channel, that
+    product rounded to bf16 with group-wise scales); fused leaves split
+    back; other leaves widened to fp32."""
     import torch
 
-    from trace_tpu_torch.model.quantize import is_quantized, unfuse_decoder_serving
+    from trace_tpu_torch.model.quantize import (
+        dequantize,
+        is_packed4,
+        is_quantized,
+        packed4_groups,
+        unfuse_decoder_serving,
+        unpack4,
+    )
 
     if "layers" in tree and is_quantized(tree["layers"].get("wqkv")):
         tree = unfuse_decoder_serving(tree)  # the dense ViT's fused wqkv stays
     out = {}
     for name, leaf in tree.items():
-        if is_quantized(leaf):
+        if is_packed4(leaf):
+            qp, sc = leaf["qp"], leaf["s"]
+            w = torch.empty((qp.shape[0], 2 * qp.shape[1], qp.shape[2]), dtype=torch.float32,
+                            device=qp.device)
+            for li in range(qp.shape[0]):
+                if packed4_groups(leaf) > 1:
+                    w[li] = dequantize({"qp": qp[li], "s": sc[li]})
+                else:
+                    w[li] = unpack4(qp[li]).float() * sc[li].float()
+            out[name] = w
+        elif is_quantized(leaf):
             q, sc = leaf["q"], leaf["s"]
             w = torch.empty(q.shape, dtype=torch.float32, device=q.device)
             if q.ndim > 2:
@@ -439,31 +570,75 @@ def dequant_request(torch, params, cfg, tok, videos, stamps, asks) -> dict:
     return {"decode_attention_int8_dequant": got}
 
 
+def weight_only_request(torch, params, cfg, tok, videos, stamps, asks) -> dict:
+    """The per-channel int4p tree once more without activation quantization,
+    8 new tokens: the prefill then goes through the per-channel kernel's
+    tensor-core form (four products a layer), the steps through its split-K
+    form."""
+    from trace_tpu_torch.kernels.quant_matmul import quant_matmul_p4
+    from trace_tpu_torch.runtime.pipeline import TracePipeline
+
+    wcfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, act_quant=False))
+    pipe = TracePipeline(params, wcfg, tok)
+    quant_matmul_p4.launches = 0
+    quant_matmul_p4.launches_by_form.update(splitk=0, mma=0)
+    pipe.infer_events_batch(videos, stamps, asks, max_new_tokens=8)
+    got = dict(quant_matmul_p4.launches_by_form)
+    steps, L = pipe.last_stats["decode_steps"], cfg.decoder.num_layers
+    want = {"splitk": 4 * L * steps, "mma": 4 * L}
+    print(f"int4p per-channel request without act_quant: launches {got} over {steps} steps "
+          f"(expected {want})", flush=True)
+    if steps <= 0 or got != want:
+        fail("weight-only per-channel int4p request: unexpected launch counts")
+    check_head_slices(cfg.decoder, pipe.last_stats["tokens"])
+    return {"quant_matmul_p4_mma": got["mma"]}
+
+
+G0_LAYERS = 4  # depth of the per-channel (group 0) int4p run
+
+
 def end_to_end(torch, mode: str):
     """Phase 4: the serving path at full width, two requests, in the bf16
-    (``mode="bf16"``) or the int8 serving configuration (``mode="int8"``)."""
+    (``mode="bf16"``), the int8 (``"int8"``) or the int4p serving
+    configuration with group-128 scales (``"int4p"``); ``"int4p_g0"`` is the
+    int4p configuration with per-channel scales at a depth of G0_LAYERS."""
     import numpy as np
 
     from trace_tpu_torch import EventPredictions
     from trace_tpu_torch.kernels.decode_attention import decode_attention
     from trace_tpu_torch.kernels.flash_attention import flash_attention, vit_attention_btd
-    from trace_tpu_torch.kernels.quant_matmul import quant_matmul, quant_matmul_stacked
+    from trace_tpu_torch.kernels.quant_matmul import (
+        quant_matmul,
+        quant_matmul_p4,
+        quant_matmul_p4_grouped,
+        quant_matmul_stacked,
+    )
     from trace_tpu_torch.model.config import TraceConfig
     from trace_tpu_torch.model.mistral import compute_logits
-    from trace_tpu_torch.model.quantize import int8_serving
+    from trace_tpu_torch.model.quantize import int4p_serving, int8_serving
     from trace_tpu_torch.params import init_trace_params
     from trace_tpu_torch.runtime import generate as gen
     from trace_tpu_torch.runtime.pipeline import TracePipeline
     from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
 
     int8 = mode == "int8"
+    quantized = mode != "bf16"  # int8 KV cache, int8 lm_head, W8A8 ViT
     cfg = TraceConfig()
+    if mode == "int4p_g0":
+        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+            cfg.decoder, num_layers=G0_LAYERS))
     t0 = time.perf_counter()
     params = init_trace_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    # the dense tree is dropped here
     if int8:
-        params, cfg = int8_serving(params, cfg)  # the dense tree is dropped here
+        params, cfg = int8_serving(params, cfg)
+    elif mode == "int4p":
+        params, cfg = int4p_serving(params, cfg)
+    elif mode == "int4p_g0":
+        params, cfg = int4p_serving(params, cfg, group=0)
     torch.cuda.synchronize()
-    print(f"init ({mode}): random TRACE-7B weights in {time.perf_counter() - t0:.1f} s, "
+    print(f"init ({mode}): random TRACE-7B weights ({cfg.decoder.num_layers} decoder layers) "
+          f"in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card", flush=True)
     tok = SpmLikeTokenizer()
     pipe = TracePipeline(params, cfg, tok)
@@ -479,10 +654,13 @@ def end_to_end(torch, mode: str):
 
     def reset():
         for fn in (flash_attention, vit_attention_btd, decode_attention,
-                   quant_matmul, quant_matmul_stacked):
+                   quant_matmul, quant_matmul_stacked, quant_matmul_p4,
+                   quant_matmul_p4_grouped):
             fn.launches = 0
         for m in decode_attention.launches_int8:
             decode_attention.launches_int8[m] = 0
+        for fn in (quant_matmul_p4, quant_matmul_p4_grouped):
+            fn.launches_by_form.update(splitk=0, mma=0)
 
     def counts():
         return {"flash_attention": flash_attention.launches,
@@ -491,7 +669,11 @@ def end_to_end(torch, mode: str):
                 "quant_matmul": quant_matmul.launches,
                 "quant_matmul_stacked": quant_matmul_stacked.launches,
                 **{f"decode_attention_int8_{m}": n
-                   for m, n in decode_attention.launches_int8.items()}}
+                   for m, n in decode_attention.launches_int8.items()},
+                "quant_matmul_p4": quant_matmul_p4.launches_by_form["splitk"],
+                "quant_matmul_p4_mma": quant_matmul_p4.launches_by_form["mma"],
+                "quant_matmul_p4_grouped": quant_matmul_p4_grouped.launches_by_form["splitk"],
+                "quant_matmul_p4_grouped_mma": quant_matmul_p4_grouped.launches_by_form["mma"]}
 
     launches, stats = None, []
     for request in (1, 2):
@@ -504,15 +686,21 @@ def end_to_end(torch, mode: str):
         steps = s["decode_steps"]
         # what the code implies: one ViT attention per layer and chunk, one
         # flash attention per decoder layer (prefill), one decode attention
-        # per layer and step; int8: four stacked products per layer and step
-        # (wqkv, wo, w_gateup, w_down; prefill is W8A8) and one 2-D product
-        # per lm_head call (the prefill's last position, then every step)
+        # per layer and step; quantized: four weight products per layer and
+        # step (wqkv, wo, w_gateup, w_down) through the tree's kernel (int8
+        # stacked; packed int4 per channel or grouped, split-K form) and one
+        # 2-D int8 product per lm_head call (the prefill's last position, then
+        # every step). The prefill is W8A8 / W4A8 (no kernel of these) except
+        # on group-scaled int4p leaves: four tensor-core-form products a layer
         want = dict.fromkeys(got, 0)
         want.update({"vit_attention_btd": vit_layers * chunks, "flash_attention": L})
-        if int8:
+        if quantized:
+            step_kernel = {"int8": "quant_matmul_stacked", "int4p": "quant_matmul_p4_grouped",
+                           "int4p_g0": "quant_matmul_p4"}[mode]
             want.update({"decode_attention_int8_s8dot": L * steps,
-                         "quant_matmul_stacked": 4 * L * steps,
-                         "quant_matmul": steps + 1})
+                         step_kernel: 4 * L * steps, "quant_matmul": steps + 1})
+            if mode == "int4p":
+                want["quant_matmul_p4_grouped_mma"] = 4 * L
         else:
             want["decode_attention"] = L * steps
         print(f"{mode} request {request}: launches {got} expected {want}; "
@@ -532,17 +720,19 @@ def end_to_end(torch, mode: str):
     tokens = pipe.last_stats["tokens"]
     if int8:
         launches.update(dequant_request(torch, params, cfg, tok, videos, stamps, asks))
+    if mode == "int4p_g0":
+        launches.update(weight_only_request(torch, params, cfg, tok, videos, stamps, asks))
 
     # The same path with every kernel replaced by its plain version, and an
     # fp32 reference of the same model (plain attention, fp32 weights and
-    # activations; for int8 the dequantized weights, dense products and an
-    # fp32 cache). With random weights the model is ill-conditioned (the
+    # activations; for a quantized tree the dequantized weights, dense
+    # products and an fp32 cache). With random weights the model is ill-conditioned (the
     # connector's N(0, 1) slots make its softmax over 576 patches nearly an
     # argmax; 32 random decoder layers amplify), so kernel-vs-plain has no
     # fixed scale; the test is that the kernel path is no further from the
     # fp32 reference than the plain path is, within REF_RATIO_TOL.
     plain = TracePipeline(params, cfg, tok, attn_impl="plain")
-    if int8:
+    if quantized:
         fcfg = dataclasses.replace(
             cfg, dtype=torch.float32,
             decoder=dataclasses.replace(cfg.decoder, kv_cache_dtype="bf16", act_quant=False),
@@ -723,17 +913,22 @@ def main() -> int:
         print(json.dumps({name: {k: v for k, v in r.items()} for name, r in rows.items()}))
         return 0
     # each path is driven with the counts set to 0 just before it and read
-    # just after; a kernel's launches are those of the path that runs it
+    # just after; a kernel's launches are those of the first path that runs it
     launches, stats, e2e = {}, [], {}
-    for mode in ("bf16", "int8"):
+    modes = ("bf16", "int8", "int4p", "int4p_g0")
+    for mode in modes:
         counts, mode_stats, e2e[mode] = end_to_end(torch, mode)
-        launches.update({k: v for k, v in counts.items() if v})
+        for name, n in counts.items():
+            if n:
+                launches.setdefault(name, n)  # of the first path that runs the kernel
         stats += mode_stats
-    a, b = (stats[1], stats[3])  # the second request of each path
+    second = stats[1::2]  # the second request of each path
     per_step = lambda s: 1e3 * s["decode_s"] / max(s["decode_steps"], 1)
-    print(f"second requests, bf16 | int8: encode {a['encode_s']:.3f} | {b['encode_s']:.3f} s, "
-          f"prefill {a['prefill_s']:.3f} | {b['prefill_s']:.3f} s, decode "
-          f"{per_step(a):.2f} | {per_step(b):.2f} ms/step", flush=True)
+    col = lambda f: " | ".join(f(s) for s in second)
+    print(f"second requests, {' | '.join(modes)} ({G0_LAYERS} layers): "
+          f"encode {col(lambda s: format(s['encode_s'], '.3f'))} s, "
+          f"prefill {col(lambda s: format(s['prefill_s'], '.3f'))} s, "
+          f"decode {col(lambda s: format(per_step(s), '.2f'))} ms/step", flush=True)
 
     sources = {
         "flash_attention": ("trace_tpu_torch/kernels/csrc/attention.cu",
@@ -752,6 +947,14 @@ def main() -> int:
         "decode_attention_int8_dequant": (
             "trace_tpu_torch/kernels/csrc/decode_attention_int8.cu",
             "trace_tpu/kernels/decode_attention.py:288 (body :68)"),
+        "quant_matmul_p4": ("trace_tpu_torch/kernels/csrc/quant_matmul_p4.cu",
+                            "trace_tpu/kernels/quant_matmul.py:133"),
+        "quant_matmul_p4_mma": ("trace_tpu_torch/kernels/csrc/quant_matmul_p4.cu",
+                                "trace_tpu/kernels/quant_matmul.py:133"),
+        "quant_matmul_p4_grouped": ("trace_tpu_torch/kernels/csrc/quant_matmul_p4.cu",
+                                    "trace_tpu/kernels/quant_matmul.py:239"),
+        "quant_matmul_p4_grouped_mma": ("trace_tpu_torch/kernels/csrc/quant_matmul_p4.cu",
+                                        "trace_tpu/kernels/quant_matmul.py:239"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": sources[name][0],

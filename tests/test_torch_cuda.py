@@ -14,8 +14,14 @@ from trace_tpu_torch.kernels.decode_attention import decode_attention
 from trace_tpu_torch.kernels.flash_attention import flash_attention, vit_attention_btd
 from trace_tpu_torch.kernels.quant_matmul import (
     int8_matmul,
+    quant_apply_w8a8,
     quant_matmul,
+    quant_matmul_p4,
+    quant_matmul_p4_grouped,
+    quant_matmul_p4_grouped_stacked,
+    quant_matmul_p4_stacked,
     quant_matmul_stacked,
+    quantize_acts,
 )
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -164,6 +170,134 @@ def test_quant_matmul_stacked_kernel_matches_plain(cuda, K, N, out_dtype, li):
                                                   impl="plain"), out_dtype)
     # the layer is read in place: the same bits as the 2-D entry on its slice
     assert torch.equal(got, quant_matmul(x, q[li], s[li], out_dtype=out_dtype))
+
+
+# The packed-int4 products sum exact products in fp32 (bf16 x a nibble, or
+# bf16 x the scaled weight rounded to bf16, which both versions round alike).
+# Split-K form (M <= 8): fp32 multiply-adds in another order than the plain
+# version: the int8 product's limits. Tensor-core form: mma.sync adds each 16
+# products into the fp32 accumulator with truncation, not rounding to nearest,
+# so over K / 16 steps the sum drifts by up to ~K / 16 x 2^-24 of the largest
+# partial sum: 1e-4 of the largest output at K <= 14336 (a dropped k step or a
+# misplaced nibble moves outputs by 1e-2 and more).
+def _assert_p4_matches(got, want, out_dtype, form):
+    unit = want.float().abs().max()
+    atol = 1e-5 if form == "splitk" else 1e-4
+    rtol = 2 ** -7 if out_dtype == torch.bfloat16 else atol
+    torch.testing.assert_close(got.float() / unit, want.float() / unit, atol=atol, rtol=rtol)
+
+
+def _packed_weight(rng, shape, groups, dev):
+    """qp [.., K/2, N] random bytes (every nibble value, -8 too) and bf16
+    scales [.., groups, N] that differ by up to 5x between groups."""
+    qp = torch.from_numpy(rng.integers(-128, 128, shape, dtype=np.int8)).to(dev)
+    s = torch.from_numpy((rng.random(shape[:-2] + (groups, shape[-1])) * 4e-3 + 1e-3)
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    return qp, s
+
+
+P4_SHAPES = [  # M, K, N, out dtype
+    (1, 256, 16, torch.bfloat16),        # one group pair, under one strip
+    (2, 4096, 6144, torch.bfloat16),     # wqkv of a decode step
+    (2, 14336, 4096, torch.bfloat16),    # w_down of a decode step
+    (5, 512, 1100, torch.float32),       # split-K form, ragged N: byte-wise loads
+    (8, 1024, 520, torch.float32),       # the last M of the split-K form
+    (9, 512, 136, torch.bfloat16),       # the first M of the tensor-core form
+    (300, 1024, 1100, torch.float32),    # ragged M and N (N % 16 != 0): scalar tile loads
+    (333, 512, 520, torch.bfloat16),     # N % 16 != 0 but % 8 == 0: vector stores
+    (1943, 4096, 512, torch.bfloat16),   # a prefill row block at full K
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,out_dtype", P4_SHAPES)
+def test_quant_matmul_p4_grouped_kernel_matches_plain(cuda, M, K, N, out_dtype):
+    rng = np.random.default_rng(14)
+    x = _bf16(rng, (M, K), cuda)
+    qp, s = _packed_weight(rng, (K // 2, N), K // 128, cuda)
+    form = "splitk" if M <= 8 else "mma"
+    before = dict(quant_matmul_p4_grouped.launches_by_form)
+    got = quant_matmul_p4_grouped(x, qp, s, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    before[form] += 1
+    assert quant_matmul_p4_grouped.launches_by_form == before and got.dtype == out_dtype
+    assert torch.isfinite(got).all()
+    _assert_p4_matches(got, quant_matmul_p4_grouped(x, qp, s, out_dtype=out_dtype,
+                                                    impl="plain"), out_dtype, form)
+    assert torch.equal(got, quant_matmul_p4_grouped(x, qp, s, out_dtype=out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,out_dtype", P4_SHAPES + [
+    (3, 200, 130, torch.float32),        # K / 2 no multiple of 8, per channel only
+    (40, 200, 130, torch.bfloat16),      # the same in the tensor-core form: scalar x loads
+])
+def test_quant_matmul_p4_kernel_matches_plain(cuda, M, K, N, out_dtype):
+    rng = np.random.default_rng(15)
+    x = _bf16(rng, (M, K), cuda)
+    qp, s = _packed_weight(rng, (K // 2, N), 1, cuda)
+    form = "splitk" if M <= 8 else "mma"
+    before = dict(quant_matmul_p4.launches_by_form)
+    got = quant_matmul_p4(x, qp, s, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    before[form] += 1
+    assert quant_matmul_p4.launches_by_form == before and got.dtype == out_dtype
+    _assert_p4_matches(got, quant_matmul_p4(x, qp, s, out_dtype=out_dtype, impl="plain"),
+                       out_dtype, form)
+    assert torch.equal(got, quant_matmul_p4(x, qp, s, out_dtype=out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [2, 200])
+@pytest.mark.parametrize("li", [0, 2])
+def test_quant_matmul_p4_stacked_kernels_read_the_layer_in_place(cuda, M, li):
+    rng = np.random.default_rng(16)
+    K, N = 512, 1040
+    x = _bf16(rng, (M, K), cuda)
+    for groups, stacked, flat in ((1, quant_matmul_p4_stacked, quant_matmul_p4),
+                                  (K // 128, quant_matmul_p4_grouped_stacked,
+                                   quant_matmul_p4_grouped)):
+        qp, s = _packed_weight(rng, (3, K // 2, N), groups, cuda)
+        n = flat.launches
+        got = stacked(x, qp, s, li, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert flat.launches == n + 1
+        _assert_p4_matches(got, stacked(x, qp, s, li, out_dtype=torch.float32, impl="plain"),
+                           torch.float32, "splitk" if M <= 8 else "mma")
+        sl = s[li].reshape(-1) if groups == 1 else s[li]
+        assert torch.equal(got, flat(x, qp[li], sl, out_dtype=torch.float32))
+
+
+@pytest.mark.cuda
+def test_w4a8_product_on_the_card_matches_plain(cuda):
+    """Two ``torch._int_mm`` products over the nibble halves against the exact
+    plain product: the integer sums are equal, the fp32 epilogue elementwise."""
+    rng = np.random.default_rng(17)
+    K, N = 1024, 264
+    x = torch.from_numpy(_normal(rng, 40, K)).to(cuda)
+    qp, s = _packed_weight(rng, (K // 2, N), 1, cuda)
+    xq, xs = quantize_acts(x)
+    got = quant_apply_w8a8(xq, xs, {"qp": qp, "s": s}, (N,), out_dtype=torch.float32)
+    want = quant_apply_w8a8(xq, xs, {"qp": qp, "s": s}, (N,), out_dtype=torch.float32,
+                            impl="plain")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_p4_wrappers_refuse_what_they_do_not_take(cuda):
+    rng = np.random.default_rng(18)
+    qp, s = _packed_weight(rng, (128, 32), 2, cuda)
+    x = torch.zeros((2, 256), device=cuda)  # fp32: the kernels take bf16
+    with pytest.raises(TypeError):
+        quant_matmul_p4_grouped(x, qp, s)
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        quant_matmul_p4_grouped(xb, qp, s.cpu())
+    qp4, s4 = _packed_weight(rng, (128, 32), 4, cuda)  # groups of 64: plain only
+    with pytest.raises(ValueError, match="128"):
+        quant_matmul_p4_grouped(xb, qp4, s4)
+    with pytest.raises(ValueError):
+        quant_matmul_p4(xb, qp[:, ::2], s[0, ::2])  # strided qp
 
 
 def _int8_stripe(rng, L, B, NKV, S, HD, dev):

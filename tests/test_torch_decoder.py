@@ -1,6 +1,6 @@
-"""The port's Mistral decoder (dense branch, run here in fp32, and the int8
-serving branch) against the JAX package's on the tiny config, with the same
-weights and inputs.
+"""The port's Mistral decoder (dense branch, run here in fp32, the int8
+serving branch and the nibble-packed int4 branch) against the JAX package's
+on the tiny config, with the same weights and inputs.
 
 Tolerance: 1e-5 absolute/relative on fp32 values (same math, other
 summation orders and transcendental implementations); the int8 tests state
@@ -292,6 +292,101 @@ def test_int8_prefill_then_decode_matches(jax_kernels_interpreted, fused, act_qu
     got = tm.compute_logits(tp, th1[:, -1])
     assert got.dtype == torch.float32 and got.shape == (B, tcfg.combined_vocab_size)
     _close_scaled(got, jm.compute_logits(jp, jh1[:, -1]))
+
+
+# Nibble-packed int4 trees. The JAX side runs its packed products through the
+# plain route its ``quant_apply`` takes on the CPU (unpack, scale, one product
+# with an fp32 sum), the attention as above. Both sides compute one function:
+# the tolerance is the int8 branch's (summation order, and where it falls on a
+# rounding boundary an int8 activation or cache value one step apart).
+P4_WIDE = dict(hidden_size=256, intermediate_size=256, num_heads=2, num_kv_heads=1)
+
+
+@pytest.mark.parametrize("kind,fused", [("w4a8", True), ("w4a8", False),
+                                        ("weight_only", False), ("grouped", True),
+                                        ("grouped", False)])
+def test_int4p_prefill_then_decode_matches(jax_kernels_interpreted, kind, fused):
+    """Per-channel packed leaves with ``act_quant`` (W4A8 prefill, then the
+    weight-only T = 1 step), without it (weight-only at every T), and
+    group-128 leaves on a hidden-256 config (G = 2: weight-only at every T even
+    under ``act_quant``); hidden states, the int8 cache and the logits of the
+    int8 ``lm_head`` against JAX."""
+    from trace_tpu.model import quantize as jq
+
+    wide = P4_WIDE if kind == "grouped" else {}
+    jcfg = dataclasses.replace(QJCFG, act_quant=kind != "weight_only", **wide)
+    tcfg = dataclasses.replace(QCFG, act_quant=kind != "weight_only", **wide)
+    jp = jq.quantize_decoder_params(jm.init_decoder_params(jcfg, jax.random.PRNGKey(14)),
+                                    bits=4, pack=True, group=128 if kind == "grouped" else 0)
+    assert {leaf["s"].shape[1] for leaf in jp["layers"].values() if "qp" in leaf} == {
+        2 if kind == "grouped" else 1}
+    if fused:
+        jp = jq.fuse_decoder_serving(jp)
+        assert "qp" in jp["layers"]["wqkv"]
+    tp = from_jax_params(jax.tree.map(np.asarray, jp))
+    B, T, S = 2, 16, 24
+    rng = np.random.default_rng(15)
+    x = (rng.standard_normal((B, T, tcfg.hidden_size)) * 0.5).astype(np.float32)
+    mask = np.ones((B, T), bool)
+    mask[1, :4] = False
+    pos = np.maximum(np.cumsum(mask, axis=1) - 1, 0).astype(np.int32)
+
+    jh, jcache = jm.decoder_forward(
+        jp, jcfg, jnp.asarray(x), jnp.asarray(mask), jnp.asarray(pos),
+        cache=jm.init_kv_cache(jcfg, B, S), cache_index=jnp.int32(0),
+        cache_mask=jnp.zeros((B, S), bool), use_flash=True)
+    th, tcache = tm.decoder_forward(
+        tp, tcfg, torch.from_numpy(x), torch.from_numpy(mask), torch.from_numpy(pos),
+        cache=tm.init_kv_cache(tcfg, B, S), cache_index=0,
+        cache_mask=torch.zeros((B, S), dtype=torch.bool))
+    real = mask[:, :, None]
+    _close_scaled(th * torch.from_numpy(real), np.asarray(jh) * real)
+    slots = np.pad(mask, ((0, 0), (0, S - T)))
+    _assert_int8_cache_close(tcache, jcache, slots)
+
+    x1 = (rng.standard_normal((B, 1, tcfg.hidden_size)) * 0.5).astype(np.float32)
+    pos1 = mask.sum(1, keepdims=True).astype(np.int32)
+    jh1, jcache = jm.decoder_forward(
+        jp, jcfg, jnp.asarray(x1), jnp.ones((B, 1), bool), jnp.asarray(pos1),
+        cache=jcache, cache_index=jnp.int32(T), cache_mask=jnp.asarray(slots))
+    th1, tcache = tm.decoder_forward(
+        tp, tcfg, torch.from_numpy(x1), torch.ones((B, 1), dtype=torch.bool),
+        torch.from_numpy(pos1), cache=tcache, cache_index=T,
+        cache_mask=torch.from_numpy(slots))
+    _close_scaled(th1, jh1)
+    slots[:, T] = True
+    _assert_int8_cache_close(tcache, jcache, slots)
+    _close_scaled(tm.compute_logits(tp, th1[:, -1]), jm.compute_logits(jp, jh1[:, -1]))
+
+
+def test_int4p_routing_follows_the_q_leaf(monkeypatch):
+    """Which product each chunk takes: W4A8 (``quant_apply_w8a8``) only for
+    per-channel packed leaves under ``act_quant`` at T > 1; the stacked
+    weight-only product otherwise. Seven products a layer on a per-weight
+    tree."""
+    from trace_tpu_torch.model import quantize as tq
+
+    calls = []
+    for name in ("quant_apply_w8a8", "quant_apply_stacked"):
+        real = getattr(tm, name)
+        monkeypatch.setattr(tm, name, lambda *a, _n=name, _f=real, **k: (calls.append(_n),
+                                                                         _f(*a, **k))[1])
+    for wide, group, want_prefill in (({}, 0, "quant_apply_w8a8"),
+                                      (P4_WIDE, 128, "quant_apply_stacked")):
+        cfg = dataclasses.replace(QCFG, act_quant=True, kv_cache_dtype="bf16", **wide)
+        jp = jm.init_decoder_params(dataclasses.replace(QJCFG, **wide), jax.random.PRNGKey(16))
+        tp = tq.quantize_decoder_params(from_jax_params(jax.tree.map(np.asarray, jp)),
+                                        bits=4, pack=True, group=group)
+        x = torch.zeros((1, 4, cfg.hidden_size))
+        ones = torch.ones((1, 4), dtype=torch.bool)
+        cache = tm.init_kv_cache(cfg, 1, 8, dtype=torch.float32)
+        calls.clear()
+        tm.decoder_forward(tp, cfg, x, ones, torch.arange(4)[None], cache=cache)
+        assert calls == [want_prefill] * 7 * cfg.num_layers
+        calls.clear()
+        tm.decoder_forward(tp, cfg, x[:, :1], ones[:, :1], torch.tensor([[4]]), cache=cache,
+                           cache_index=4, cache_mask=torch.zeros((1, 8), dtype=torch.bool))
+        assert calls == ["quant_apply_stacked"] * 7 * cfg.num_layers
 
 
 def test_int8_dequant_decode_body_matches(jax_kernels_interpreted, monkeypatch):

@@ -304,6 +304,88 @@ def test_int8_serving_infer_events_batch_matches(jax_serving_kernels_interpreted
     assert "wqkv" in layers and "w_gateup" in layers
 
 
+# ---------------------------------------------------------------------------
+# The int4p serving configuration as a whole, built on the JAX side as
+# ``model_init(..., quant="int4p")`` builds it (host quantizer, fused on the
+# host, int8 KV cache, ``act_quant``) with the bench's int8 W8A8 ViT. The JAX
+# package's packed products take its plain route on the CPU, its attention the
+# interpreted Pallas kernels as above. Two trees: per-channel scales (group 0)
+# on the 128-wide decoder, where prefill is W4A8 and the steps are the
+# per-channel weight-only product; group-128 scales on a 256-wide decoder
+# (G = 2 for every weight), weight-only at every chunk length. Greedy streams
+# are compared token for token.
+# ---------------------------------------------------------------------------
+
+
+def _int4p_pipes(group):
+    import dataclasses
+
+    from trace_tpu.model import quantize as jq
+    from trace_tpu_torch.model.quantize import int4p_serving
+
+    if group:
+        wide = dict(num_heads=2, num_kv_heads=1, head_dim=128, hidden_size=256,
+                    intermediate_size=256)
+    else:
+        wide = dict(num_heads=4, num_kv_heads=2, head_dim=128, hidden_size=128)
+    jcfg = dataclasses.replace(JCFG, decoder=dataclasses.replace(JCFG.decoder, **wide))
+    tcfg = dataclasses.replace(CFG, decoder=dataclasses.replace(CFG.decoder, **wide))
+    jp = jax_init(jcfg, jax.random.PRNGKey(4))
+    rng = np.random.default_rng(11)
+    dec = dict(jp["decoder"])
+    for name in ("lm_head", "sync_head", "time_head", "score_head"):
+        dec[name] = jnp.asarray(rng.standard_normal(dec[name].shape).astype(np.float32))
+    jp = {**jp, "decoder": dec}
+    host = jax.tree.map(np.asarray, jp)
+    tp = from_jax_params(host)
+    jq_params = dict(jp)
+    jq_params["decoder"] = jq.fuse_decoder_serving(
+        jq.quantize_decoder_params_host(host["decoder"], 4, pack=True, group=group))
+    jq_params["vision"] = jq.quantize_vision_params(jp["vision"])
+    jq_cfg = dataclasses.replace(
+        jcfg,
+        decoder=dataclasses.replace(jcfg.decoder, kv_cache_dtype="int8", act_quant=True),
+        vision=dataclasses.replace(jcfg.vision, act_quant=True))
+    tq_params, tq_cfg = int4p_serving(tp, tcfg, group=group)
+    return (JaxPipeline(params=jq_params, config=jq_cfg, tokenizer=JaxByteTokenizer()),
+            TracePipeline(tq_params, tq_cfg, ByteTokenizer(), device="cpu"))
+
+
+@pytest.mark.parametrize("group", [128, 0])
+def test_int4p_serving_infer_events_batch_matches(jax_serving_kernels_interpreted, group):
+    from trace_tpu_torch.model.quantize import packed4_groups
+
+    jpipe, tpipe = _int4p_pipes(group)
+    frames, ts, qs = _videos()
+    want = jpipe.infer_events_batch(frames, ts, qs, max_new_tokens=24)
+    got = tpipe.infer_events_batch(frames, ts, qs, max_new_tokens=24)
+    assert [g.to_dict() for g in got] == [w.to_dict() for w in want]
+    jprefix, jmask = jpipe._prepare_prefix_batch(frames, ts, qs)
+    jtok = jgen.generate(jpipe._decoder_params, jpipe.config.decoder, jprefix, jmask,
+                         jpipe._combined, max_new_tokens=24, initial_head=1, use_flash=True)
+    np.testing.assert_array_equal(tpipe.last_stats["tokens"], jtok.tokens)
+    assert tpipe.last_stats["decode_steps"] > 0
+    layers = tpipe._decoder_params["layers"]
+    assert sorted(n for n in layers if n.startswith("w")) == ["w_down", "w_gateup", "wo", "wqkv"]
+    assert {packed4_groups(layers[n]) for n in ("w_down", "w_gateup", "wo", "wqkv")} == {
+        2 if group else 1}
+    assert set(tpipe._decoder_params["lm_head"]) == {"q", "s"}
+
+
+def test_pipeline_fuses_an_unfused_int4p_tree():
+    """A packed tree handed over per weight is fused at first use, as an int8
+    one is."""
+    from trace_tpu_torch.model.quantize import quantize_decoder_params
+    from trace_tpu_torch.params import init_trace_params
+
+    params = init_trace_params(CFG, torch.Generator().manual_seed(2), device="cpu")
+    params["decoder"] = quantize_decoder_params(params["decoder"], bits=4, pack=True)
+    pipe = TracePipeline(params, CFG, ByteTokenizer(), device="cpu")
+    pipe._prepare_memory_layout()
+    layers = pipe._decoder_params["layers"]
+    assert "qp" in layers["wqkv"] and "qp" in layers["w_gateup"] and "wq" not in layers
+
+
 def test_pipeline_fuses_an_unfused_int8_tree():
     """An int8 tree handed over per weight is put into the fused serving
     layout at first use; a dense tree is left as it is."""

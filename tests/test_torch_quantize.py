@@ -1,9 +1,12 @@
-"""The port's int8 quantization and serving layout against the JAX package's
-on the same fp32 weights.
+"""The port's int8 and nibble-packed int4 quantization and serving layouts
+against the JAX package's on the same fp32 weights.
 
-Tolerance: none. Quantization is elementwise IEEE arithmetic and a max, so
-``q`` is compared exactly and ``s`` bit for bit (as the int16 view of bf16).
+Tolerance: none. Quantization is elementwise IEEE arithmetic, a max and
+integer bit arithmetic, so ``q`` / ``qp`` are compared exactly and ``s`` bit
+for bit (as the int16 view of bf16).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -122,15 +125,103 @@ def test_dequantize_matches_jax(decoder):
     assert tq.dequantize(dense) is dense
 
 
-def test_int4_and_packed_leaves_wait_for_their_slice(decoder):
+def test_native_int4_storage_is_refused(decoder):
+    """``bits=4, pack=False`` is ``jnp.int4`` storage in the JAX package; torch
+    has no such dtype."""
     _, tp = decoder
-    with pytest.raises(NotImplementedError, match="int4p"):
+    with pytest.raises(NotImplementedError, match="jnp.int4"):
         tq.quantize_decoder_params(tp, bits=4)
-    with pytest.raises(NotImplementedError, match="int4p"):
-        tq.quantize_decoder_params(tp, bits=4, pack=True)
-    with pytest.raises(NotImplementedError, match="int4p"):
-        tq.dequantize({"qp": torch.zeros((2, 4), dtype=torch.int8),
-                       "s": torch.ones((1, 4))})
+    with pytest.raises(ValueError):
+        tq.quantize_decoder_params(tp, bits=2, pack=True)
+
+
+# G = 1 on the tiny config (64 and 128 are no even number of groups of 128);
+# G = 2 on the hidden-256 config of the JAX package's grouped tests
+WIDE = dataclasses.replace(JCFG, hidden_size=256, intermediate_size=256, num_heads=4,
+                           num_kv_heads=2, head_dim=64)
+
+
+@pytest.fixture(scope="module", params=["tiny", "wide"])
+def packed_case(request, decoder):
+    if request.param == "tiny":
+        jp, tp = decoder
+        return JCFG, jp, tp
+    jp = init_decoder_params(WIDE, jax.random.PRNGKey(3))
+    layers = dict(jp["layers"])
+    layers["w_up"] = layers["w_up"].at[:, :128, 3].set(0.0)  # one all-zero group
+    jp = {**jp, "layers": layers}
+    return WIDE, jp, from_jax_params(jax.tree.map(np.asarray, jp))
+
+
+@pytest.mark.parametrize("group", [128, 0])
+def test_int4p_quantization_is_bit_identical(packed_case, group):
+    cfg, jp, tp = packed_case
+    want = jq.quantize_decoder_params(jp, bits=4, pack=True, group=group)
+    got = tq.quantize_decoder_params(tp, bits=4, pack=True, group=group)
+    _assert_same_tree(got, want)
+    G = 2 if (cfg is WIDE and group) else 1
+    L, D, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    nq = cfg.num_heads * cfg.head_dim
+    assert got["layers"]["wq"]["qp"].shape == (L, D // 2, nq)
+    assert got["layers"]["wq"]["qp"].dtype == torch.int8
+    assert got["layers"]["wo"]["s"].shape == (L, G, D)
+    assert got["layers"]["w_down"]["qp"].shape == (L, I // 2, D)
+    assert tq.is_packed4(got["layers"]["wq"]) and tq.packed4_groups(got["layers"]["wq"]) == G
+    # lm_head stays int8 in 4-bit mode
+    assert set(got["lm_head"]) == {"q", "s"} and not tq.is_packed4(got["lm_head"])
+    # the host (numpy) variant of the JAX package gives the same tree
+    host = jq.quantize_decoder_params_host(jax.tree.map(np.asarray, jp), bits=4, pack=True,
+                                           group=group)
+    _assert_same_tree(got, host)
+
+
+@pytest.mark.parametrize("group", [128, 0])
+def test_int4p_fuse_and_unfuse_match_jax(packed_case, group):
+    cfg, jp, tp = packed_case
+    jqp = jq.quantize_decoder_params(jp, bits=4, pack=True, group=group)
+    tqp = tq.quantize_decoder_params(tp, bits=4, pack=True, group=group)
+    jf, tf = jq.fuse_decoder_serving(jqp), tq.fuse_decoder_serving(tqp)
+    _assert_same_tree(tf, jf)
+    assert "wqkv" in tf["layers"] and "wq" not in tf["layers"]
+    nq, nkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    G = tqp["layers"]["wq"]["s"].shape[1]
+    assert tf["layers"]["wqkv"]["qp"].shape == (cfg.num_layers, cfg.hidden_size // 2,
+                                                nq + 2 * nkv)
+    assert tf["layers"]["w_gateup"]["s"].shape == (cfg.num_layers, G, 2 * cfg.intermediate_size)
+    back = tq.unfuse_decoder_serving(tf)
+    _assert_same_tree(back, jq.unfuse_decoder_serving(jf))
+    for name in ("wq", "wk", "wv", "w_gate", "w_up"):
+        _assert_same_tree(back["layers"][name], tqp["layers"][name])
+    assert tq.fuse_decoder_serving(tf) is tf
+
+
+@pytest.mark.parametrize("group", [128, 0])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_int4p_dequantize_matches_jax(packed_case, group, dtype):
+    _, jp, tp = packed_case
+    jqp = jq.quantize_decoder_params(jp, bits=4, pack=True, group=group)["layers"]
+    tqp = tq.quantize_decoder_params(tp, bits=4, pack=True, group=group)["layers"]
+    for name in ("wo", "w_up"):
+        got = tq.dequantize(tqp[name], getattr(torch, dtype))
+        want = jq.dequantize(jqp[name], getattr(jnp, dtype))
+        assert tuple(got.shape) == want.shape  # the flattened [L, K, N] view
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_pack4_and_unpack4_match_jax():
+    rng = np.random.default_rng(4)
+    q = rng.integers(-8, 8, (2, 16, 6), dtype=np.int8)
+    packed = tq.pack4(torch.from_numpy(q))
+    assert packed.dtype == torch.int8 and tuple(packed.shape) == (2, 8, 6)
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jq.pack4(jnp.asarray(q))))
+    assert torch.equal(tq.unpack4(packed), torch.from_numpy(q))
+    # every byte value: low nibble sign-extended, high nibble by arithmetic shift
+    every = np.arange(-128, 128, dtype=np.int8).reshape(1, 256)
+    got = tq.unpack4(torch.from_numpy(every))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jq.unpack4(jnp.asarray(every))))
+    assert got.dtype == torch.int8 and got.min() == -8 and got.max() == 7
+    with pytest.raises(ValueError):
+        tq.pack4(torch.zeros((3, 4), dtype=torch.int8))
 
 
 def test_converted_quantized_trees_arrive_bit_for_bit(decoder):
@@ -143,6 +234,22 @@ def test_converted_quantized_trees_arrive_bit_for_bit(decoder):
     assert conv["layers"]["wqkv"]["q"].dtype == torch.int8
     assert conv["lm_head"]["s"].dtype == torch.bfloat16
     _assert_same_tree(conv, tq.fuse_decoder_serving(tq.quantize_decoder_params(tp)))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_converted_packed_trees_arrive_bit_for_bit(packed_case, fused):
+    """``from_jax_params`` on a packed tree from the JAX package's host
+    quantizer (numpy int8 bytes, ``ml_dtypes.bfloat16`` scales), fused or not."""
+    _, jp, tp = packed_case
+    host = jq.quantize_decoder_params_host(jax.tree.map(np.asarray, jp), bits=4, pack=True)
+    want = tq.quantize_decoder_params(tp, bits=4, pack=True)
+    if fused:
+        host, want = jq.fuse_decoder_serving(host), tq.fuse_decoder_serving(want)
+    assert isinstance(host["layers"]["wo"]["qp"], np.ndarray)
+    conv = from_jax_params(host)
+    _assert_same_tree(conv, want)
+    assert conv["layers"]["wo"]["qp"].dtype == torch.int8
+    assert conv["layers"]["wo"]["s"].dtype == torch.bfloat16
 
 
 def test_int8_serving_gives_the_serving_pair():
@@ -159,4 +266,25 @@ def test_int8_serving_gives_the_serving_pair():
     assert qparams["connector"] is params["connector"]
     assert torch.is_tensor(params["decoder"]["layers"]["wq"])  # the input tree is kept
     dparams, dcfg = tq.int8_serving(params, cfg, vision=False)
+    assert dparams["vision"] is params["vision"] and not dcfg.vision.act_quant
+
+
+@pytest.mark.parametrize("group", [128, 0])
+def test_int4p_serving_gives_the_serving_pair(group):
+    cfg = TraceConfig.tiny()
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, hidden_size=256, intermediate_size=256, head_dim=64))
+    params = init_trace_params(cfg, torch.Generator().manual_seed(0))
+    qparams, qcfg = tq.int4p_serving(params, cfg, group=group)
+    assert qcfg.decoder.kv_cache_dtype == "int8" and qcfg.decoder.act_quant
+    assert qcfg.vision.act_quant
+    layers = qparams["decoder"]["layers"]
+    assert sorted(layers) == ["attn_norm", "mlp_norm", "w_down", "w_gateup", "wo", "wqkv"]
+    for name in ("w_down", "w_gateup", "wo", "wqkv"):
+        assert tq.is_packed4(layers[name])
+        assert tq.packed4_groups(layers[name]) == (2 if group else 1)
+    assert set(qparams["decoder"]["lm_head"]) == {"q", "s"}
+    assert tq.is_quantized(qparams["vision"]["layers"]["fc1"])  # the int8 W8A8 ViT
+    assert torch.is_tensor(params["decoder"]["layers"]["wq"])  # the input tree is kept
+    dparams, dcfg = tq.int4p_serving(params, cfg, vision=False, group=group)
     assert dparams["vision"] is params["vision"] and not dcfg.vision.act_quant

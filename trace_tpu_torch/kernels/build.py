@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("attention.cu", "decode_attention.cu", "decode_attention_int8.cu",
-           "quant_matmul.cu")
+           "quant_matmul.cu", "quant_matmul_p4.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

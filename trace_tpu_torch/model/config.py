@@ -1,6 +1,7 @@
 """Model configuration for the PyTorch port (copy of trace_tpu/model/config.py
-with torch dtypes): the bf16 and the int8 serving configurations (int8 KV
-cache, W8A8 prefill and ViT; ``model/quantize.py int8_serving`` sets them)."""
+with torch dtypes): the bf16, int8 and int4p serving configurations (int8
+KV cache, W8A8 / W4A8 prefill and W8A8 ViT; ``model/quantize.py int8_serving``
+and ``int4p_serving`` set them)."""
 
 from __future__ import annotations
 
@@ -37,9 +38,10 @@ class DecoderConfig:
     # KV cache storage: 'bf16', or 'int8' (values int8, one bf16 scale per
     # layer, row, kv head and slot)
     kv_cache_dtype: str = "bf16"
-    # W8A8: with int8 weights, chunks of more than one token (prefill)
-    # quantize their activations per token and run s8 x s8 -> s32 products;
-    # a T = 1 step always stays weight-only
+    # W8A8: with int8 weights (W4A8: per-channel packed int4), chunks of more
+    # than one token (prefill) quantize their activations per token and run
+    # s8 x s8 -> s32 products; a T = 1 step always stays weight-only, and so
+    # does every chunk of group-scaled packed int4 weights
     act_quant: bool = False
     # body of the decode-step attention over an int8 cache: 's8dot' (q rows
     # and probabilities quantized, s8 x s8 products; the JAX package's

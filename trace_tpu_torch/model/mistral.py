@@ -1,5 +1,5 @@
-"""Mistral decoder in PyTorch: the dense (bf16) and int8 branches of
-trace_tpu/model/mistral.py.
+"""Mistral decoder in PyTorch: the dense (bf16), int8 and nibble-packed
+int4 branches of trace_tpu/model/mistral.py.
 
 Parameters keep the JAX package's layout: a plain dict whose layer weights
 are stacked on a leading [L, ...] axis (wq [L, D, NH, hd], wo [L, NH, hd, D],
@@ -7,7 +7,11 @@ w_gate [L, D, I], ...). Layer ``li`` reads ``leaf[li]``, a view. An int8
 tree (``model/quantize.py``) holds ``{'q', 's'}`` leaves, in the serving
 layout fused into ``wqkv`` and ``w_gateup``: a chunk of more than one token
 runs W8A8 when ``config.act_quant`` is set, a T = 1 step the weight-only
-``quant_matmul_stacked`` kernel on the whole stacked leaf.
+``quant_matmul_stacked`` kernel on the whole stacked leaf. An int4p tree
+holds packed ``{'qp', 's'}`` layer leaves (``lm_head`` stays int8): with
+group-wise scales every chunk length is weight-only through
+``quant_matmul_p4_grouped``; with per-channel scales a longer chunk runs W4A8
+under ``act_quant`` and a T = 1 step ``quant_matmul_p4``.
 
 The KV cache is a (k, v) pair of [L, B, NKV, S, hd] tensors, or for
 ``kv_cache_dtype="int8"`` the dict {kq, ks, vq, vs} (int8 values, bf16
@@ -39,7 +43,7 @@ from trace_tpu_torch.kernels.quant_matmul import (
     quantize_acts,
 )
 from trace_tpu_torch.model.config import DecoderConfig
-from trace_tpu_torch.model.quantize import is_quantized
+from trace_tpu_torch.model.quantize import is_packed4, is_quantized, packed4_groups
 
 NEG_INF = -1e30  # finite large-negative avoids NaNs from (-inf) - (-inf)
 
@@ -85,11 +89,11 @@ def _quantize_kv(x: torch.Tensor):
 
 def _project(h, layers: dict, name: str, li: int, out_shape: tuple, *,
              acts=None, out_dtype=None, impl: str = "auto") -> torch.Tensor:
-    """h [B, T, K] through layer ``li`` of the stacked weight ``name``. An
-    int8 leaf takes the s8 x s8 product when ``acts`` (``quantize_acts`` of
-    h) is given, else the weight-only kernel, which reads the layer out of
-    the whole stacked leaf in place; a dense weight takes a product with an
-    fp32 sum."""
+    """h [B, T, K] through layer ``li`` of the stacked weight ``name``. A
+    quantized leaf (int8 or packed int4) takes the s8 x s8 product when
+    ``acts`` (``quantize_acts`` of h) is given, else its weight-only kernel,
+    which reads the layer out of the whole stacked leaf in place; a dense
+    weight takes a product with an fp32 sum."""
     leaf = layers[name]
     out_dtype = out_dtype or h.dtype
     if not is_quantized(leaf):
@@ -97,10 +101,7 @@ def _project(h, layers: dict, name: str, li: int, out_shape: tuple, *,
     if acts is None:
         return quant_apply_stacked(h, leaf, li, out_shape, out_dtype=out_dtype,
                                    impl=impl)
-    if "qp" in leaf:
-        raise NotImplementedError(
-            "nibble-packed int4 ('qp') leaves wait for the int4p slice")
-    return quant_apply_w8a8(*acts, {"q": leaf["q"][li], "s": leaf["s"][li]},
+    return quant_apply_w8a8(*acts, {k: v[li] for k, v in leaf.items()},
                             out_shape, out_dtype=out_dtype, impl=impl)
 
 
@@ -124,16 +125,20 @@ def _layer(
     ``decode_bias`` ([B, S]) the step attends over the stripe, else the
     chunk attends causally to itself under ``flash_bias`` ([B, T]).
 
-    Routing of an int8 tree, as the JAX package's defaults: a chunk of more
-    than one token with ``config.act_quant`` runs W8A8 (activations
-    quantized once per consumer group), a T = 1 step is always weight-only.
-    The fused serving leaves ``wqkv`` / ``w_gateup`` are used where present."""
+    Routing of a quantized tree, as the JAX package's defaults, decided on
+    the q (or fused qkv) leaf: a chunk of more than one token with
+    ``config.act_quant`` runs W8A8, or W4A8 on per-channel packed leaves
+    (activations quantized once per consumer group); a T = 1 step is always
+    weight-only, and so is every chunk of a group-scaled packed tree, whose
+    scales apply inside the contraction. The fused serving leaves ``wqkv`` /
+    ``w_gateup`` are used where present."""
     B, T, D = x.shape
     NH, NKV, HD = config.num_heads, config.num_kv_heads, config.head_dim
     NQ, NKVW = NH * HD, NKV * HD
     fused_qkv = "wqkv" in layers
-    w8a8 = (config.act_quant and T > 1
-            and is_quantized(layers["wqkv" if fused_qkv else "wq"]))
+    wq = layers["wqkv" if fused_qkv else "wq"]
+    grouped = is_packed4(wq) and packed4_groups(wq) > 1
+    w8a8 = config.act_quant and T > 1 and is_quantized(wq) and not grouped
     acts = lambda t: quantize_acts(t) if w8a8 else None
     proj = functools.partial(_project, layers=layers, li=li, impl=impl)
 
@@ -211,7 +216,8 @@ def decoder_forward(
     cache is prefill into an empty cache (``cache_index`` 0, ``cache_mask``
     not read), as the JAX package's flash path assumes; chunked prefill
     after earlier slots has no kernel and raises. The layer weights may be
-    dense, int8 ``{'q', 's'}`` leaves, or the fused int8 serving layout; the
+    dense, int8 ``{'q', 's'}`` or packed int4 ``{'qp', 's'}`` leaves, per
+    weight or in the fused serving layout; the
     cache the (k, v) pair or the int8 dict of ``init_kv_cache``. Returns
     (final-normed hidden, cache)."""
     B, T, D = embeds.shape

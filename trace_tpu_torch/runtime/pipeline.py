@@ -1,6 +1,6 @@
 """End-to-end inference: frames -> event triplets (the rgb serving path of
-trace_tpu/runtime/pipeline.py), in the bf16 or the int8 serving
-configuration (``model/quantize.py int8_serving``).
+trace_tpu/runtime/pipeline.py), in the bf16, the int8 or the int4p serving
+configuration (``model/quantize.py int8_serving`` / ``int4p_serving``).
 
   tokenize + preprocess on the device -> ViT + connector + splice
   -> prefill + FSM decode -> shared structured event decoder.
@@ -73,11 +73,11 @@ class TracePipeline:
     inference on ``device`` (default: the CUDA card, which must exist).
 
     ``attn_impl="plain"`` runs the plain PyTorch version of every kernel
-    (attention, int8 weight products) on the card instead of the kernel: it
+    (attention, quantized weight products) on the card instead of the kernel: it
     exists to compare the two, and no serving path sets it. At first use the
     combined input-embedding table is built, the decoder's own embedding is
-    dropped, a dense ViT's q/k/v weights are fused, and an int8 decoder tree
-    is put into the fused serving layout. ``last_stats`` holds the phase times of the
+    dropped, a dense ViT's q/k/v weights are fused, and an int8 or int4p
+    decoder tree is put into the fused serving layout. ``last_stats`` holds the phase times of the
     last request."""
 
     def __init__(self, params: dict, config: TraceConfig,
@@ -105,7 +105,7 @@ class TracePipeline:
         self._combined = combined_embedding(params)
         decoder = dict(params["decoder"])
         decoder.pop("embed", None)
-        decoder = fuse_decoder_serving(decoder)  # as it is unless int8 and unfused
+        decoder = fuse_decoder_serving(decoder)  # as it is unless quantized and unfused
         self._decoder_params = decoder
         self._encode_params = {k: v for k, v in params.items() if k != "decoder"}
         self._encode_params["vision"] = fuse_vision_qkv(self._encode_params["vision"])
