@@ -5,12 +5,14 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the serving path from csrc/ (nvcc, parallel);
-  3. each kernel against its plain PyTorch version at serving shapes (the
-     three bf16 attention kernels; the int8 weight product, 2-D and
-     stacked; int8 decode attention in both modes; the nibble-packed int4
+  2. build every CUDA kernel of the serving and training paths from csrc/
+     (nvcc, parallel);
+  3. each kernel against its plain PyTorch version at the shapes its path
+     gives it (the three bf16 attention kernels; the int8 weight product, 2-D
+     and stacked; int8 decode attention in both modes; the nibble-packed int4
      weight products, per channel and grouped, each in its split-K form at
-     M = 2 and its tensor-core form at M = 3886), with its time (CUDA
+     M = 2 and its tensor-core form at M = 3886; the training attention:
+     forward with the logsumexp residual, backward dq and backward dk/dv), with its time (CUDA
      events, median of 20, L2 flushed between runs), the plain version's
      time, the time of one PyTorch library call computing the same function
      (a yardstick only, never called by the port) and the least time the
@@ -30,6 +32,19 @@ Phases, in order; any failure exits non-zero:
      (group 0) int4p tree at a depth of 4 layers (W4A8 prefill, the
      per-channel kernel in the steps), and one request of it without
      activation quantization (the per-channel kernel in the prefill too).
+  5. the training path at full width: ``train_loop`` on TRACE-7B bf16 (random
+     weights from seed 0, 2 synthetic 128-frame videos with one event list
+     each, batch 2, remat on) for stage ``pretrain`` and stage ``lora``
+     (rank 128 on the seven decoder projections), then stage ``sft`` at a
+     depth of 4 layers. Per stage a 1-step run (the schedule starts at 0: no
+     trainable leaf may move), a 2-step run (every trainable group must have
+     moved) and the 4-step run that is timed: losses finite, frozen leaves
+     bit-equal before and after, launch counts per step as the code implies,
+     peak memory printed; one ``pretrain`` step under torch.profiler. Last, at
+     the 4-layer depth, one forward_train + backward through the kernels
+     against the same with every kernel replaced by its plain version and
+     against an fp32 model of the same weights: the loss and the gradients of
+     the connector, the towers and decoder layer 0.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it prints no result and exits 2. ``--kernels`` stops
@@ -38,11 +53,13 @@ after phase 3 (a short check of freshly edited kernels; no last line).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -88,7 +105,23 @@ MAX_NEW = 64
 # sum drifts by up to ~K / 16 x 2^-24 of the largest partial sum, so 1e-4 of
 # the largest output (a dropped k step or a misplaced nibble moves outputs by
 # 1e-2 and more); bf16 outputs two bf16 steps relative as above.
+# The training attention. flash_attention_fwd_res is the forward kernel with
+# one more output: o is held to flash_attention's limits, and lse (fp32 on
+# both sides, the same exact products summed in another order, exp and log of
+# two libraries) to LSE_TOL absolute on values of a few units. The backward
+# kernels round p and ds to bf16 before their second product (p^T do, ds k,
+# ds^T q) where the plain version keeps them in fp32; both round the result
+# to bf16. A gradient element sums up to 2048 x 4 signed terms, so its error
+# is a fraction of the gradient's typical size, not of its own value: limits
+# in units of max |ref|, atol 1e-2 (the largest difference measured at this
+# shape is ~1.5e-3 of max |ref|; NVIDIA H100 80GB HBM3, 700 W), rtol two bf16
+# steps, and the norm limit as above (measured 2.6e-3, the rounding of p and
+# ds; a dropped or doubled tile moves it by far more).
+LSE_TOL = 1e-4
 KERNEL_TOL = {  # name: (atol, rtol)
+    "flash_attention_fwd_res": (3e-2, 2 ** -7),
+    "flash_attention_bwd_dq": (1e-2, 2 ** -7),    # units of max |ref|
+    "flash_attention_bwd_dkv": (1e-2, 2 ** -7),   # units of max |ref|
     "flash_attention": (3e-2, 2 ** -7),
     "vit_attention_btd": (8e-3, 2 ** -7),
     "decode_attention": (2e-3, 2 ** -7),
@@ -262,6 +295,7 @@ def kernel_checks(torch):
     quant_matmul_checks(torch, g, rows)
     int8_decode_checks(torch, g, rows)
     packed_int4_checks(torch, g, rows)
+    flash_backward_checks(torch, g, rows)
 
     for name, r in rows.items():
         atol, rtol = KERNEL_TOL[name]
@@ -473,6 +507,106 @@ def int8_decode_checks(torch, g, rows: dict) -> None:
             plain_ms=median_ms(torch, lambda: run("plain")),
             library_ms=median_ms(torch, lib),
             bound=bound(nbytes, ops, INT8_OPS_PER_S if mode == "s8dot" else BF16_FLOPS_PER_S))
+
+
+def flash_backward_checks(torch, g, rows: dict) -> None:
+    """The training attention at the shape a full-width train step gives it:
+    q/do/o [2, 32, 2048, 128], k/v [2, 8, 2048, 128], causal, row 0
+    right-padded by 300 slots, do zero on padded query rows. The backward
+    kernels read the forward kernel's own residuals, as training does.
+    Yardstick: autograd through ``scaled_dot_product_attention`` (forward for
+    the forward row; one backward call computes dq, dk and dv together, so
+    both backward rows carry its whole time). Bounds count what each function
+    needs over the visible pairs of real query rows: the forward 2 products,
+    dq 3 (q k^T, do v^T, ds k), dk/dv 4 (q k^T, do v^T, p^T do, ds^T q); a
+    joint backward would need 5."""
+    import torch.nn.functional as F
+
+    from trace_tpu_torch.kernels import flash_backward as fb
+
+    B, H, HKV, T, HD, PAD = 2, 32, 8, 2048, 128, 300
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = randn(B, H, T, HD), randn(B, HKV, T, HD), randn(B, HKV, T, HD)
+    real = torch.ones((B, T), dtype=torch.bool, device="cuda")
+    real[0, T - PAD:] = False
+    bias = torch.where(real, 0.0, -1e30).float()
+    do = randn(B, H, T, HD) * real[:, None, :, None]
+
+    fwd = lambda impl="auto": fb.flash_attention_fwd_res(q, k, v, bias, causal=True, impl=impl)
+    (o, lse), (o_ref, lse_ref) = fwd(), fwd("plain")
+    torch.cuda.synchronize()
+    if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
+        fail("flash_attention_fwd_res: non-finite output")
+    # every row sees key 0 here (right padding): all rows compare
+    cmp = compare("flash_attention_fwd_res", o, o_ref)
+    lse_err = (lse - lse_ref).abs().max().item()
+    print(f"  flash_attention_fwd_res lse: max_abs_err={lse_err:.2e} (tol {LSE_TOL})", flush=True)
+    if not lse_err <= LSE_TOL:
+        fail("flash_attention_fwd_res: lse disagrees with its plain version")
+    visible = sum((T - p) * (T - p + 1) // 2 for p in (PAD, 0))  # per head, real query rows
+    product = 2 * H * HD * visible  # operations of one product over the visible pairs
+    n_real = 2 * T - PAD
+    io = lambda heads: heads * n_real * HD * 2  # bf16 rows of real tokens
+    stats = H * n_real * 4                       # one fp32 per real query row
+    causal_mask = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
+    lib_mask = torch.where(causal_mask[None, None], bias[:, None, None, :],
+                           torch.tensor(-1e30, device="cuda")).to(torch.bfloat16)
+    lib_leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    lib_fwd = lambda: F.scaled_dot_product_attention(*lib_leaves, attn_mask=lib_mask,
+                                                     enable_gqa=True)
+    lib_out = lib_fwd()
+    lib_bwd = lambda: torch.autograd.grad(lib_out, lib_leaves, do, retain_graph=True)
+    with torch.no_grad():
+        lib_fwd_ms = median_ms(torch, lib_fwd)
+    lib_bwd_ms = median_ms(torch, lib_bwd)
+    rows["flash_attention_fwd_res"] = dict(
+        **cmp, ms=median_ms(torch, fwd), plain_ms=median_ms(torch, lambda: fwd("plain")),
+        library_ms=lib_fwd_ms,
+        bound=bound(io(H + 2 * HKV) + io(H) + stats + bias.numel() * 4, 2 * product))
+    del o_ref, lse_ref, lib_out, lib_leaves, lib_mask
+
+    delta = fb.flash_attention_bwd_delta(o, do)
+    delta_ref = fb.flash_attention_bwd_delta(o, do, impl="plain")
+    if not torch.allclose(delta, delta_ref, rtol=1e-5, atol=1e-5):
+        fail("flash_attention_bwd_delta disagrees with its plain version")
+    args = (q, k, v, bias, do, lse, delta)
+
+    def grad_row(name, fn, n_products, out_heads):
+        out, ref = fn("auto"), fn("plain")
+        torch.cuda.synchronize()
+        out = out if isinstance(out, tuple) else (out,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        parts = []
+        for a, b in zip(out, ref):
+            if not torch.isfinite(a).all():
+                fail(f"{name}: non-finite output")
+            unit = b.float().abs().max()
+            r = compare(name, a.float() / unit, b.float() / unit)
+            r["err"] *= unit.item()
+            parts.append(r)
+        worst = {key: max(p[key] for p in parts) for key in ("err", "excess", "rel_norm")}
+        # reads q, k, v, do, lse, delta and the bias; writes the gradients
+        nbytes = io(2 * H + 2 * HKV) + 2 * stats + bias.numel() * 4 + io(out_heads)
+        rows[name] = dict(**worst, ref_rms=parts[0]["ref_rms"], ms=median_ms(torch, lambda: fn("auto")),
+                          plain_ms=median_ms(torch, lambda: fn("plain")),
+                          library_ms=lib_bwd_ms, bound=bound(nbytes, n_products * product))
+        return out
+
+    dq, = grad_row("flash_attention_bwd_dq", lambda impl: fb.flash_attention_bwd_dq(
+        *args, causal=True, impl=impl), 3, H)
+    dkv = grad_row("flash_attention_bwd_dkv", lambda impl: fb.flash_attention_bwd_dkv(
+        *args, causal=True, impl=impl), 4, 2 * HKV)
+    # a second run gives the same bits: fixed summation order, no atomics
+    again = fb.flash_attention_bwd(q, k, v, bias, o, lse, do, causal=True)
+    if not all(torch.equal(a, b) for a, b in zip((dq,) + dkv, again)):
+        fail("flash_attention_bwd: two runs on the same inputs differ")
+    joint = bound(io(2 * H + 2 * HKV) + io(H) + 2 * stats + bias.numel() * 4
+                  + io(H + 2 * HKV), 5 * product)
+    whole = rows["flash_attention_bwd_dq"]["ms"] + rows["flash_attention_bwd_dkv"]["ms"]
+    print(f"  flash_attention_bwd (delta + dq + dk/dv): dq + dk/dv kernels {whole:.4f} ms, "
+          f"delta pre-pass {median_ms(torch, lambda: fb.flash_attention_bwd_delta(o, do)):.4f} ms; "
+          f"library backward {lib_bwd_ms:.4f} ms; bound of a joint backward (5 products) "
+          f"{joint[0]:.4f} ms ({joint[1]})", flush=True)
 
 
 def check_head_slices(dec, tokens, initial_head=1):
@@ -805,6 +939,342 @@ def end_to_end(torch, mode: str):
                              "prefill_profile": prefill_profile}
 
 
+TRAIN_STEPS = 4
+SFT_LAYERS = 4   # depth of the sft run and of the gradient check
+LORA_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+EVENT_LISTS = (
+    [{"timestamp": [3.0, 21.0], "score": [4.5], "caption": "a person walks into the room"},
+     {"timestamp": [21.0, 64.0], "score": [3.0], "caption": "they sit down and open a laptop"},
+     {"timestamp": [70.0, 118.0], "score": [2.5], "caption": "the person types and then leaves"}],
+    [{"timestamp": [0.0, 40.0], "score": [3.5], "caption": "a dog runs across a field"},
+     {"timestamp": [55.0, 101.0], "score": [4.0], "caption": "it catches a ball and returns"}],
+)
+
+
+class SyntheticVideos:
+    """VIDEOS synthetic FRAMES-frame 336x336 videos, one event list each,
+    served round robin as ready training samples (the layout of
+    ``EventDataset._build``). ``max_len`` is the smallest multiple of 128
+    that drops no supervised label."""
+
+    def __init__(self, cfg, tok, length: int):
+        import numpy as np
+
+        from trace_tpu_torch.data.dataset import (
+            assemble_sequence,
+            build_prompt_segments,
+            event_response_segments,
+        )
+        from trace_tpu_torch.model.trace_model import tokens_per_frame
+        from trace_tpu_torch.tokenizers.event_codec import TIME_CODEC
+
+        rng = np.random.default_rng(SEED)
+        n_video = FRAMES * tokens_per_frame(cfg)
+        V = cfg.decoder.vocab_size
+        parts = []
+        for events in EVENT_LISTS[:VIDEOS]:
+            segs, pos = build_prompt_segments(
+                "Localize the visual events in the video and describe each one.",
+                tok, n_video, text_vocab_size=V)
+            segs = segs + event_response_segments(events, tok, text_vocab_size=V)
+            parts.append((segs, pos))
+        longest = max(sum(len(sg.ids) for sg in segs) + 1 for segs, _ in parts)  # + eos
+        self.max_len = -(-longest // 128) * 128
+        self.samples = []
+        for segs, pos in parts:
+            seq = assemble_sequence(segs, self.max_len, pos, text_vocab_size=V,
+                                    eos_id=tok.eos_token_id)
+            self.samples.append({
+                "frames_u8": rng.integers(0, 256, (FRAMES, 336, 336, 3), dtype=np.uint8),
+                "frame_time_ids": np.stack([TIME_CODEC.encode_value(float(i))
+                                            for i in range(FRAMES)]).astype(np.int32),
+                "token_ids": seq.token_ids, "labels": seq.labels,
+                "time_labels": seq.time_labels, "score_labels": seq.score_labels,
+                "attn_mask": seq.attn_mask, "video_pos": np.int32(seq.video_pos),
+                "has_video": np.bool_(True),
+            })
+        self.length = length
+        self.supervised = [int(sum((s[k] != -100).sum() for k in
+                                   ("labels", "time_labels", "score_labels")))
+                           for s in self.samples]
+        self.real = [int(s["attn_mask"].sum()) for s in self.samples]
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, i):
+        return self.samples[i % len(self.samples)]
+
+    def resized(self, length: int):
+        """The same samples behind another length (steps x batch)."""
+        other = copy.copy(self)
+        other.length = length
+        return other
+
+
+def train_counts():
+    from trace_tpu_torch.kernels import flash_backward as fb
+    from trace_tpu_torch.kernels.flash_attention import flash_attention, vit_attention_btd
+
+    return {"vit_attention_btd": vit_attention_btd, "flash_attention": flash_attention,
+            "flash_attention_fwd_res": fb.flash_attention_fwd_res,
+            "flash_attention_bwd_dq": fb.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fb.flash_attention_bwd_dkv}
+
+
+def train_params(torch, stage: str, layers: int):
+    """(params, config) of a stage from SEED: TRACE-7B at ``layers`` decoder
+    layers; stage ``lora`` adds rank-128 fp32 adapters on the seven decoder
+    projections, as the training CLI does."""
+    from trace_tpu_torch.model.config import TraceConfig
+    from trace_tpu_torch.model.lora import add_lora_params
+    from trace_tpu_torch.params import init_trace_params
+
+    cfg = TraceConfig()
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, num_layers=layers))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_trace_params(cfg, gen)
+    if stage == "lora":
+        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+            cfg.decoder, lora_r=128, lora_alpha=256.0))
+        params["decoder"] = add_lora_params(params["decoder"], cfg.decoder, gen,
+                                            targets=LORA_TARGETS)
+        # B = 0 would hold every A gradient at zero for the first steps: small
+        # random B, so that both adapter leaves take gradients and move
+        for name, leaf in params["decoder"]["layers"].items():
+            if name.endswith("_lora_b"):
+                leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda") * 1e-3)
+    return params, cfg
+
+
+def train_stage(torch, stage: str, layers: int, data: "SyntheticVideos", tmp: Path):
+    """One stage through ``train_loop``: a 1-step run, a 2-step run and the
+    timed TRAIN_STEPS-step run, each from a fresh optimizer on the same
+    parameters, with the checks of phase 5."""
+    from trace_tpu_torch.train.train import TrainRecipe, make_train_step, param_group, \
+        build_optimizer, train_loop, tree_paths
+
+    t0 = time.perf_counter()
+    params, cfg = train_params(torch, stage, layers)
+    torch.cuda.synchronize()
+    print(f"train {stage}: random TRACE-7B weights ({layers} decoder layers) in "
+          f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB "
+          f"on the card; {VIDEOS} videos x {FRAMES} frames, max_len {data.max_len} "
+          f"(real tokens {data.real}, supervised labels {data.supervised})", flush=True)
+    lr = {"pretrain": 1e-3, "lora": 1e-4, "sft": 5e-6}[stage]
+    recipe = TrainRecipe(stage=stage, learning_rate=lr, total_steps=TRAIN_STEPS)
+    leaves = dict(tree_paths(params))
+    group = {p: param_group(p, stage) for p in leaves}
+    frozen = [p for p in leaves if group[p] == "frozen"]
+    trainable = [p for p in leaves if group[p] != "frozen"]
+    before = {p: leaves[p].detach().clone() for p in trainable}
+
+    def run(steps, **kw):
+        return train_loop(params, cfg, data.resized(steps * VIDEOS), recipe,
+                          batch_size=VIDEOS, log_every=0, **kw)
+
+    def moved():
+        return [p for p in trainable if not torch.equal(leaves[p].detach(), before[p])]
+
+    # 1 step: the schedule starts at 0, no trainable leaf may move
+    out, _, _ = run(1)
+    if any(out_leaf is not leaves[p] for p, out_leaf in tree_paths(out)):
+        fail(f"train {stage}: train_loop did not update the caller's tensors in place")
+    if moved():
+        fail(f"train {stage}: leaves moved in step 1, at learning rate 0: {moved()}")
+    # 2 steps: every trainable leaf group has moved
+    run(2)
+    still = sorted(set(trainable) - set(moved()))
+    print(f"train {stage}: after a 2-step run {len(moved())} of {len(trainable)} trainable "
+          f"leaves moved; not moved: {still} (a bf16 norm scale of 1.0 cannot move by less "
+          "than 2^-9)", flush=True)
+    groups = lambda ps: {(p.split("/")[0], group[p]) for p in ps}
+    if groups(moved()) != groups(trainable) or not moved():
+        fail(f"train {stage}: a trainable group did not move by step 2")
+    if stage == "sft" and not all(
+            p in moved() for p in trainable if p.startswith("decoder/layers/w")):
+        fail("train sft: a backbone weight did not move")
+    if stage == "lora" and not all(p in moved() for p in trainable if "_lora_" in p):
+        fail("train lora: an adapter leaf did not move")
+
+    # the timed run
+    counters = train_counts()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log = tmp / f"train_{stage}.jsonl"
+    log.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    train_loop(params, cfg, data.resized(TRAIN_STEPS * VIDEOS), recipe, batch_size=VIDEOS,
+               log_every=1, metrics_path=str(log))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = {name: fn.launches for name, fn in counters.items()}
+    records = [json.loads(line) for line in log.read_text().splitlines()]
+    losses = [r["loss"] for r in records]
+    if len(records) != TRAIN_STEPS or not all(
+            all(x == x and abs(x) != float("inf") for x in
+                (r["loss"], r["text_loss"], r["time_loss"], r["score_loss"], r["grad_norm"]))
+            for r in records):
+        fail(f"train {stage}: a loss is not finite: {records}")
+    vit_layers = cfg.vision.num_layers + 1 + cfg.vision.select_layer
+    chunks = VIDEOS * FRAMES // cfg.vit_chunk_size
+    # per step, with remat: the frozen ViT's attention once per layer and
+    # chunk; per decoder layer the forward-with-lse kernel twice (forward and
+    # the backward's recomputation) and each backward kernel once
+    per_step = {"vit_attention_btd": vit_layers * chunks, "flash_attention": 0,
+                "flash_attention_fwd_res": 2 * layers, "flash_attention_bwd_dq": layers,
+                "flash_attention_bwd_dkv": layers}
+    want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    # the logger rounds wall_s to 0.01 s: the steps after the first
+    step_s = (records[-1]["wall_s"] - records[0]["wall_s"]) / (TRAIN_STEPS - 1)
+    print(f"train {stage}: {TRAIN_STEPS} steps in {wall:.2f} s, {step_s:.3f} s/step after the "
+          f"first ({VIDEOS * data.max_len / step_s:.0f} tokens/s), peak "
+          f"{peak:.2f} GiB allocated; losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(r['grad_norm'], 3) for r in records]}; launches per step {per_step}, "
+          f"over the run {got} expected {want}", flush=True)
+    if got != want:
+        fail(f"train {stage}: launch counts {got} != expected {want}")
+    for p, x in leaves.items():
+        if not torch.isfinite(x).all():
+            fail(f"train {stage}: non-finite values in {p}")
+    # frozen leaves bit-equal to what the seed gave before any step: the tree
+    # made anew (a copy kept through the run would double the peak above)
+    del before
+    fresh = dict(tree_paths(train_params(torch, stage, layers)[0]))
+    for p in frozen:
+        if not torch.equal(leaves[p].detach(), fresh[p]):
+            fail(f"train {stage}: frozen leaf {p} changed")
+    if not any(not torch.equal(leaves[p].detach(), fresh[p]) for p in trainable):
+        fail(f"train {stage}: no trainable leaf differs from its initial value")
+    del fresh
+    stats = {"stage": stage, "layers": layers, "steps": TRAIN_STEPS, "wall_s": wall,
+             "step_s": step_s, "peak_gib": peak, "losses": losses, "max_len": data.max_len,
+             "launches_per_step": per_step}
+    profile = None
+    if stage == "pretrain":
+        tx = build_optimizer(params, recipe)
+        state = tx.init(params)
+        step = make_train_step(cfg, tx, freeze_stage=stage)
+        batch = one_batch(data)
+        _, profile = device_profile(torch, "pretrain step (forward, backward, update)",
+                                    lambda: step(params, state, batch), top=14)
+        if isinstance(profile.get("device_busy_ms"), float):
+            # against the untraced step: the profiler slows the host by a
+            # varying amount, which the traced wall time includes
+            share = profile["device_busy_ms"] / (1e3 * step_s)
+            print(f"pretrain step: the card is busy {profile['device_busy_ms']:.0f} ms of a "
+                  f"{1e3 * step_s:.0f} ms untraced step ({100 * share:.1f} %)", flush=True)
+            profile["busy_share_of_untraced_step"] = share
+        stats["profile"] = profile
+    return params, cfg, got, stats
+
+
+def one_batch(data):
+    from trace_tpu_torch.data.dataset import collate_batch
+
+    return collate_batch([data[i] for i in range(VIDEOS)])
+
+
+def gradient_check(torch, params, cfg, data) -> dict:
+    """Right, not only finite: one forward_train + backward of stage ``sft``
+    at SFT_LAYERS layers through the kernels, against the same with every
+    kernel replaced by its plain version and against an fp32 model of the
+    same weights: the loss and the gradients of the connector, the towers
+    and decoder layer 0. With random weights the model is ill-conditioned
+    (see end_to_end), so the test is that the kernel path is no further from
+    the fp32 model than the plain bf16 path is, within REF_RATIO_TOL; the
+    scalar loss is also allowed two bf16 steps of its own size."""
+    from trace_tpu_torch.model.trace_model import forward_train
+    from trace_tpu_torch.train.train import _batch_to_device, param_group, \
+        preprocess_batch_frames, tree_paths
+
+    batch = _batch_to_device(one_batch(data), torch.device("cuda"))
+    frames = preprocess_batch_frames(batch.pop("frames_u8"), dataclasses.replace(
+        cfg, dtype=torch.float32))
+
+    def run(tree, c, impl):
+        for path, x in tree_paths(tree):
+            x.requires_grad_(param_group(path, "sft") != "frozen")
+            x.grad = None
+        loss, _ = forward_train(tree, c, {**batch, "frames": frames.to(c.dtype)}, impl=impl)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {}
+        for path, x in tree_paths(tree):
+            if x.grad is None:
+                continue
+            top = path.split("/")[0]
+            if top in ("connector", "towers"):
+                grads.setdefault(top, []).append(x.grad.float().flatten())
+            elif path.startswith("decoder/layers/"):
+                grads.setdefault("layer0", []).append(x.grad[0].float().flatten())
+            x.grad = None
+        return loss.item(), {k: torch.cat(v) for k, v in grads.items()}
+
+    for fn in train_counts().values():
+        fn.launches = 0
+    kernel = run(params, cfg, "auto")
+    if train_counts()["flash_attention_bwd_dkv"].launches != cfg.decoder.num_layers:
+        fail("gradient check: the backward did not go through the kernels")
+    plain = run(params, cfg, "plain")
+    f32 = lambda t: t.detach().float()
+    fp32_tree = {k: {kk: ({n: f32(t) for n, t in vv.items()} if isinstance(vv, dict)
+                          else f32(vv)) for kk, vv in v.items()} for k, v in params.items()}
+    ref = run(fp32_tree, dataclasses.replace(cfg, dtype=torch.float32), "plain")
+    del fp32_tree
+    out = {"loss": {"kernel": kernel[0], "plain": plain[0], "fp32": ref[0]}}
+    print(f"sft gradient check ({cfg.decoder.num_layers} layers): loss kernel {kernel[0]:.5f}, "
+          f"plain {plain[0]:.5f}, fp32 {ref[0]:.5f}", flush=True)
+    if not abs(kernel[0] - ref[0]) <= max(REF_RATIO_TOL * abs(plain[0] - ref[0]),
+                                          2 ** -7 * abs(ref[0])):
+        fail("gradient check: the kernel path's loss is further from the fp32 model "
+             "than the plain path's")
+    if set(kernel[1]) != {"connector", "towers", "layer0"}:
+        fail(f"gradient check: gradient groups {sorted(kernel[1])}")
+    for name in kernel[1]:
+        if not torch.isfinite(kernel[1][name]).all():
+            fail(f"gradient check: non-finite gradient in {name}")
+        e = {"kernel_vs_plain": rel_err(kernel[1][name], plain[1][name]),
+             "kernel_vs_fp32": rel_err(kernel[1][name], ref[1][name]),
+             "plain_vs_fp32": rel_err(plain[1][name], ref[1][name])}
+        out[name] = e
+        print(f"sft gradient check, {name} gradients (||diff|| / ||ref||): kernel vs plain "
+              f"{e['kernel_vs_plain']:.5f}, kernel vs fp32 {e['kernel_vs_fp32']:.5f}, plain vs "
+              f"fp32 {e['plain_vs_fp32']:.5f} (tol: kernel vs fp32 <= {REF_RATIO_TOL} x plain "
+              f"vs fp32)", flush=True)
+        if not e["kernel_vs_fp32"] <= REF_RATIO_TOL * e["plain_vs_fp32"]:
+            fail(f"gradient check: the kernel path's {name} gradients are further from "
+                 "the fp32 model than the plain path's")
+    return out
+
+
+def training(torch, tmp: Path):
+    """Phase 5: stages pretrain and lora at full depth, sft at SFT_LAYERS
+    layers, then the gradient check on the sft model."""
+    from trace_tpu_torch.model.config import TraceConfig
+    from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
+
+    tok = SpmLikeTokenizer()
+    data = SyntheticVideos(TraceConfig(), tok, VIDEOS)
+    launches, stats = {}, []
+    full = TraceConfig().decoder.num_layers
+    check = None
+    for stage, layers in (("pretrain", full), ("lora", full), ("sft", SFT_LAYERS)):
+        params, cfg, got, st = train_stage(torch, stage, layers, data, tmp)
+        for name, n in got.items():
+            if n:
+                launches.setdefault(name, n)  # over the stage's TRAIN_STEPS-step run
+        stats.append(st)
+        if stage == "sft":
+            check = gradient_check(torch, params, cfg, data)
+        del params
+        torch.cuda.empty_cache()
+    return launches, stats, check
+
+
 def device_profile(torch, label: str, fn, top: int = 8):
     """Run fn once under torch.profiler; print the device-busy time and the
     CUDA kernels that take most of it. Returns (fn's result, summary)."""
@@ -922,6 +1392,10 @@ def main() -> int:
             if n:
                 launches.setdefault(name, n)  # of the first path that runs the kernel
         stats += mode_stats
+    with tempfile.TemporaryDirectory() as tmp:  # the loops' metrics logs
+        train_launches, train_stats, grad_check = training(torch, Path(tmp))
+    for name, n in train_launches.items():
+        launches.setdefault(name, n)
     second = stats[1::2]  # the second request of each path
     per_step = lambda s: 1e3 * s["decode_s"] / max(s["decode_steps"], 1)
     col = lambda f: " | ".join(f(s) for s in second)
@@ -955,6 +1429,12 @@ def main() -> int:
                                     "trace_tpu/kernels/quant_matmul.py:239"),
         "quant_matmul_p4_grouped_mma": ("trace_tpu_torch/kernels/csrc/quant_matmul_p4.cu",
                                         "trace_tpu/kernels/quant_matmul.py:239"),
+        "flash_attention_fwd_res": ("trace_tpu_torch/kernels/csrc/attention.cu",
+                                    "trace_tpu/kernels/flash_backward.py:172"),
+        "flash_attention_bwd_dq": ("trace_tpu_torch/kernels/csrc/attention_bwd.cu",
+                                   "trace_tpu/kernels/flash_backward.py:228"),
+        "flash_attention_bwd_dkv": ("trace_tpu_torch/kernels/csrc/attention_bwd.cu",
+                                    "trace_tpu/kernels/flash_backward.py:252"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": sources[name][0],
@@ -966,8 +1446,9 @@ def main() -> int:
     ]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
-        fail(f"the serving paths never launched {idle}")
-    print(json.dumps({"requests": stats, "e2e": e2e, "card": card,
+        fail(f"no path launched {idle}")
+    print(json.dumps({"requests": stats, "e2e": e2e, "training": train_stats,
+                      "gradient_check": grad_check, "card": card,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

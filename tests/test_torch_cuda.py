@@ -105,6 +105,119 @@ def test_decode_kernel_matches_plain(cuda):
     _assert_matches(got, want, ATOL["decode"])
 
 
+# Attention backward: the kernels round p and ds to bf16 before their second
+# product (p^T do, ds k, ds^T q) where the plain version keeps fp32, and both
+# round the result to bf16. A gradient sums up to T signed terms, so an
+# element's error is a fraction of the gradient's typical size, not of its own:
+# limits are in units of the largest |ref|, 2e-2 absolute (measured ~4e-3) and
+# two bf16 steps relative, and ||diff|| / ||ref|| <= REL_NORM. lse is fp32 on
+# both sides and differs by the online softmax's summation order: 1e-4.
+BWD_CASES = [  # B, H, Hkv, Tq, hd, pad, side, causal
+    (2, 8, 2, 300, 128, 37, "right", True),
+    (2, 8, 2, 300, 128, 37, "left", True),
+    (1, 4, 4, 128, 64, 0, "right", True),
+    (2, 4, 1, 77, 64, 5, "right", False),
+    (1, 8, 2, 1024, 128, 100, "right", True),
+]
+
+
+def _bwd_inputs(cuda, B, H, Hkv, T, hd, pad, side):
+    rng = np.random.default_rng(11)
+    q, do = _bf16(rng, (B, H, T, hd), cuda), _bf16(rng, (B, H, T, hd), cuda)
+    k, v = _bf16(rng, (B, Hkv, T, hd), cuda), _bf16(rng, (B, Hkv, T, hd), cuda)
+    real = torch.ones((B, T), dtype=torch.bool, device=cuda)
+    if pad:
+        if side == "right":
+            real[0, T - pad:] = False
+        else:
+            real[0, :pad] = False
+    bias = torch.where(real, 0.0, -1e30).float()
+    do = do * real[:, None, :, None]  # padded query rows carry no loss
+    return q, k, v, bias, do, real
+
+
+def _assert_grad_matches(got, want, name):
+    unit = want.float().abs().max()
+    got, want = got.float() / unit, want.float() / unit
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=RTOL, msg=lambda m: f"{name}: {m}")
+    assert ((got - want).norm() / want.norm()).item() <= REL_NORM, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,T,hd,pad,side,causal", BWD_CASES)
+def test_flash_backward_kernels_match_plain(cuda, B, H, Hkv, T, hd, pad, side, causal):
+    from trace_tpu_torch.kernels import flash_backward as fb
+
+    q, k, v, bias, do, real = _bwd_inputs(cuda, B, H, Hkv, T, hd, pad, side)
+    counts = [f.launches for f in (fb.flash_attention_fwd_res, fb.flash_attention_bwd_dq,
+                                   fb.flash_attention_bwd_dkv)]
+    o, lse = fb.flash_attention_fwd_res(q, k, v, bias, causal=causal)
+    o_ref, lse_ref = fb.flash_attention_fwd_res(q, k, v, bias, causal=causal, impl="plain")
+    torch.cuda.synchronize()
+    sees = torch.ones_like(real)  # query rows that see a key
+    if causal and side == "left":
+        sees[0, :pad] = False
+    rows = sees[:, None, :, None].expand_as(lse)
+    _assert_matches(o[rows.expand_as(o)], o_ref[rows.expand_as(o)], ATOL["flash"])
+    torch.testing.assert_close(lse[rows], lse_ref[rows], atol=1e-4, rtol=1e-5)
+    assert (lse[~rows] == lse_ref[~rows]).all()  # -1e30 on both sides
+
+    # both backwards from the kernel's own residuals, as training runs them
+    got = fb.flash_attention_bwd(q, k, v, bias, o, lse, do, causal=causal)
+    want = fb.flash_attention_bwd(q, k, v, bias, o, lse, do, causal=causal, impl="plain")
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fb.flash_attention_fwd_res, fb.flash_attention_bwd_dq,
+                                 fb.flash_attention_bwd_dkv)] == [c + 1 for c in counts]
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert torch.isfinite(g).all(), name
+        _assert_grad_matches(g, w, name)
+    # and bit for bit the same on a second run: no atomics, a fixed order
+    again = fb.flash_attention_bwd(q, k, v, bias, o, lse, do, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_trainable_on_the_card(cuda):
+    """The autograd Function against autograd through the plain attention,
+    under a non-reentrant checkpoint as the decoder's remat uses it; under
+    no_grad it saves nothing."""
+    from torch.utils.checkpoint import checkpoint
+
+    from trace_tpu_torch.kernels.flash_attention import flash_attention_trainable, xla_attention
+
+    q, k, v, bias, do, _ = _bwd_inputs(cuda, 2, 8, 2, 256, 128, 30, "right")
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = checkpoint(lambda a, b, c: flash_attention_trainable(a, b, c, bias, True),
+                     *leaves, use_reentrant=False)
+    out.backward(do)
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    xla_attention(*refs, bias, causal=True).backward(do)
+    for a, b, name in zip(leaves, refs, ("dq", "dk", "dv")):
+        _assert_grad_matches(a.grad, b.grad, name)
+    with torch.no_grad():
+        o = flash_attention_trainable(q, k, v, bias, True)
+    assert o.grad_fn is None
+
+
+@pytest.mark.cuda
+def test_backward_wrappers_refuse_what_they_do_not_take(cuda):
+    from trace_tpu_torch.kernels import flash_backward as fb
+
+    q = torch.zeros((1, 2, 64, 64), device=cuda)  # fp32: the kernels take bf16
+    with pytest.raises(TypeError):
+        fb.flash_attention_fwd_res(q, q, q, None, causal=True)
+    qb = q.to(torch.bfloat16)
+    rows = torch.zeros((1, 2, 64, 1), device=cuda)
+    with pytest.raises(TypeError):
+        fb.flash_attention_bwd_dq(qb, qb, q, None, qb, rows, rows, causal=True)
+    with pytest.raises(TypeError):
+        fb.flash_attention_bwd_dq(qb, qb, qb, None, q, rows, rows, causal=True)  # fp32 do
+    with pytest.raises(TypeError):
+        fb.flash_attention_bwd_delta(q, qb)
+    with pytest.raises(ValueError):
+        fb.flash_attention_bwd_dkv(qb, qb, qb, None, qb, rows[:, :1], rows, causal=True)
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     q = torch.zeros((1, 2, 64, 64), device=cuda)  # fp32: the kernels take bf16

@@ -2,7 +2,7 @@
 
 The JAX package ``trace_tpu`` is the reference; this package never imports
 it (nor JAX) and keeps its own copies of what it needs. It carries the
-serving path: frames -> CLIP ViT-L/14-336 -> spatial_slot connector ->
+serving path and the training path. Serving: frames -> CLIP ViT-L/14-336 -> spatial_slot connector ->
 combined-table splice -> Mistral-7B prefill and head-FSM decode -> event
 triplets, in three configurations: bf16; the int8 serving configuration
 (``model.quantize.int8_serving``: int8 weights in the fused QKV / gate|up
@@ -13,7 +13,15 @@ chunk length; W4A8 prefill with per-channel scales).
 Every Pallas kernel of those paths is a hand-written CUDA kernel under
 ``kernels/``: prefill, ViT and decode attention (bf16 and int8 cache), the
 int8 weight product (2-D and layer-stacked) and the packed-int4 weight
-products (per channel and grouped). Training is not ported yet.
+products (per channel and grouped).
+
+Training (``train.train.train_loop``, ``python -m trace_tpu_torch.train.cli``):
+the three-stream loss over ``model.trace_model.forward_train``, the stage
+recipes ``pretrain`` / ``sft`` / ``lora`` on a hand-written AdamW, the data
+pipeline, checkpoints and auto-resume, on one device. The decoder's attention
+runs forward and backward through ``kernels.flash_attention
+.flash_attention_trainable``: the forward kernel with a logsumexp output and
+the dq and dk/dv backward kernels (``kernels/flash_backward.py``).
 
   TracePipeline(params, config, tokenizer)  -> runs on the card by default
   int8_serving(params, config)              -> the int8 serving pair

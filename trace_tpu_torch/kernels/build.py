@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` compiles on its own (all nvcc processes start
 together) into a shared library with a plain C interface, in ``_build/``
-beside this file. A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is reused. The
+beside this file. A library's file name carries a hash of its source, the
+shared headers (``*.cuh``) and the flags, so an edited source is rebuilt and
+an unchanged one is reused. The
 build happens at first use, never at import: machines without a CUDA
 toolkit import every module of the port.
 """
@@ -20,8 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("attention.cu", "decode_attention.cu", "decode_attention_int8.cu",
-           "quant_matmul.cu", "quant_matmul_p4.cu")
+SOURCES = ("attention.cu", "attention_bwd.cu", "decode_attention.cu",
+           "decode_attention_int8.cu", "quant_matmul.cu", "quant_matmul_p4.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -47,8 +48,9 @@ def nvcc() -> str:
 
 
 def _target(source: str) -> Path:
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / source).read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 

@@ -8,7 +8,11 @@
 //     written in place in the [B, P, D] layout (head h = columns h*hd..),
 //     keys >= kv_len masked.
 // The caller passes element strides for (batch, head, token) of q, k, v and
-// o, so both layouts are plain strided reads.
+// o, so both layouts are plain strided reads. With an ``lse`` pointer it is
+// also flash_attention_fwd_res of trace_tpu/kernels/flash_backward.py
+// (_fwd_res_kernel): the same forward, which also writes each query row's
+// fp32 logsumexp m + log(sum exp(s - m)), the residual of the backward
+// kernels in attention_bwd.cu.
 //
 // The TPU kernel keeps a whole [block_q, Tk] fp32 score row block in VMEM.
 // At Tk = 2048 that is 512 KB for 64 rows, beyond the 227 KB of shared
@@ -25,19 +29,10 @@
 // Masks use the finite -1e30 of the JAX package, never -inf: a row whose
 // keys are all masked averages its visible values and stays finite.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per tile
-constexpr int NWARPS = 4;       // each warp owns 16 query rows
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float NEG_INF = -1e30f;
 constexpr float M_INIT = -1e38f;  // running-max start, below any masked score
 
 struct Params {
@@ -46,6 +41,7 @@ struct Params {
   const bf16* v;
   const float* bias;  // [B, Tk] additive, or null
   bf16* o;
+  float* lse;         // [B, H, Tq] m + log(sum exp(s - m)) per query row, or null
   int group;          // query heads per kv head
   int tq, tk, kv_len, causal;
   float scale;
@@ -55,74 +51,6 @@ struct Params {
   long long sob, soh, sot;
   long long sbias;
 };
-
-// smem row pitch in bf16: rows stay 16-byte aligned, and the 8-element pad
-// puts the 8 rows a fragment load touches on distinct banks
-template <int HD>
-__host__ __device__ constexpr int pitch() { return HD + 8; }
-
-// rows x HD bf16 from global (row stride in elements) into shared memory,
-// 16 bytes per thread and step; rows >= valid are zero-filled
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long stride, int valid) {
-  constexpr int VPR = HD / 8;
-  for (int i = threadIdx.x; i < BQ * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * pitch<HD>() + c) = val;
-  }
-}
-
-// the same copy issued asynchronously (cp.async, 16 bytes per thread and
-// step, zero-fill past ``valid``); completes at cp_async_wait
-template <int HD>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
-                                                long long stride, int valid) {
-  constexpr int VPR = HD / 8;
-  for (int i = threadIdx.x; i < BQ * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const unsigned saddr = static_cast<unsigned>(
-        __cvta_generic_to_shared(dst + r * pitch<HD>() + c));
-    const bf16* gaddr = src + (r < valid ? r * stride + c : 0);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(saddr), "l"(gaddr), "r"(r < valid ? 16 : 0));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a * b for one 16x8x16 tile. Fragment layout (PTX ISA, mma.m16n8k16):
-// with g = lane / 4 and t = lane % 4, a holds A[g][2t..], A[g+8][2t..],
-// A[g][2t+8..], A[g+8][2t+8..]; b holds B[2t..][g], B[2t+8..][g]; d holds
-// D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1].
-__device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int HD>
 __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(Params p) {
@@ -273,6 +201,9 @@ __global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(Params p) {
   for (int r = 0; r < 2; ++r) {
     if (tq_row[r] >= p.tq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    if (p.lse && t == 0)
+      p.lse[(static_cast<long long>(b) * gridDim.y + h) * p.tq + tq_row[r]] =
+          m[r] + logf(fmaxf(l[r], 1e-30f));
     bf16* og = p.o + b * p.sob + h * p.soh + tq_row[r] * p.sot + 2 * t;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
@@ -296,7 +227,7 @@ int launch(const Params& p, int B, int H, cudaStream_t stream) {
 
 extern "C" int attn_fwd_bf16(
     const void* q, const void* k, const void* v, const float* bias, void* o,
-    int B, int H, int group, int tq, int tk, int hd, int kv_len, int causal,
+    float* lse, int B, int H, int group, int tq, int tk, int hd, int kv_len, int causal,
     float scale, long long sqb, long long sqh, long long sqt, long long skb,
     long long skh, long long skt, long long svb, long long svh, long long svt,
     long long sob, long long soh, long long sot, long long sbias,
@@ -307,6 +238,7 @@ extern "C" int attn_fwd_bf16(
   p.v = static_cast<const bf16*>(v);
   p.bias = bias;
   p.o = static_cast<bf16*>(o);
+  p.lse = lse;
   p.group = group;
   p.tq = tq;
   p.tk = tk;

@@ -74,24 +74,44 @@ def _check_operand(name, x, hd):
 
 
 def _launch(q, k, v, bias, o, *, B, H, group, tq, tk, hd, kv_len, causal,
-            q_strides, k_strides, v_strides, o_strides, bias_stride):
+            q_strides, k_strides, v_strides, o_strides, bias_stride, lse=None):
+    """One launch of the forward kernel; ``lse`` (fp32 [B, H, Tq], contiguous)
+    also receives each query row's logsumexp."""
     from trace_tpu_torch.kernels.build import check, load
 
     lib = load(_SOURCE)
     fn = lib.attn_fwd_bf16
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float]
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float]
         + [ctypes.c_longlong] * 13 + [ctypes.c_void_p]
     )
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr() if bias is not None else None, o.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
         B, H, group, tq, tk, hd, kv_len, int(causal), float(hd ** -0.5),
         *q_strides, *k_strides, *v_strides, *o_strides, bias_stride,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check(err, "attn_fwd_bf16")
+
+
+def _check_causal_operands(q, k, v, mask_bias):
+    """Shapes, types and layout the [B, H, T, hd] kernels take."""
+    B, H, Tq, hd = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    if k.shape != (B, Hkv, Tk, hd) or v.shape != k.shape or H % Hkv:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do not match")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        _check_operand(name, x, hd)
+    if mask_bias is not None:
+        if (mask_bias.shape != (B, Tk) or mask_bias.dtype != torch.float32
+                or not mask_bias.is_contiguous()):
+            raise ValueError("mask_bias must be a contiguous fp32 [B, Tk]")
 
 
 def flash_attention(
@@ -107,19 +127,9 @@ def flash_attention(
     dtype. GQA: query head h reads kv head h // (H // Hkv)."""
     if not _use_kernel(q, impl):
         return xla_attention(q, k, v, mask_bias, causal=causal)
+    _check_causal_operands(q, k, v, mask_bias)
     B, H, Tq, hd = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
-    if k.shape != (B, Hkv, Tk, hd) or v.shape != k.shape or H % Hkv:
-        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)} do not match")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        _check_operand(name, x, hd)
-    if mask_bias is not None:
-        if (mask_bias.shape != (B, Tk) or mask_bias.dtype != torch.float32
-                or not mask_bias.is_contiguous()):
-            raise ValueError("mask_bias must be a contiguous fp32 [B, Tk]")
     o = torch.empty_like(q)
     _launch(
         q, k, v, mask_bias, o, B=B, H=H, group=H // Hkv, tq=Tq, tk=Tk, hd=hd,
@@ -189,3 +199,37 @@ def vit_attention_btd(
 
 
 vit_attention_btd.launches = 0
+
+
+class _FlashAttentionTrainable(torch.autograd.Function):
+    """Forward ``flash_attention_fwd_res``, backward ``flash_attention_bwd``
+    (kernels/flash_backward.py): nothing [B, H, Tq, Tk]-shaped reaches device
+    memory in either direction."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_bias, causal, impl):
+        from trace_tpu_torch.kernels.flash_backward import flash_attention_fwd_res
+
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_attention_fwd_res(q, k, v, mask_bias, causal=causal, impl=impl)
+        # under no_grad nothing is saved: autograd drops these references
+        ctx.save_for_backward(q, k, v, mask_bias, o, lse)
+        ctx.causal, ctx.impl = causal, impl
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from trace_tpu_torch.kernels.flash_backward import flash_attention_bwd
+
+        q, k, v, mask_bias, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, mask_bias, o, lse, do.contiguous(),
+                                         causal=ctx.causal, impl=ctx.impl)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_trainable(q, k, v, mask_bias=None, causal: bool = False, *,
+                              impl: str = "auto") -> torch.Tensor:
+    """Differentiable ``flash_attention``: the forward keeps each query row's
+    logsumexp, the backward recomputes the score tiles from it inside the
+    dq and dk/dv kernels. No gradient reaches ``mask_bias``."""
+    return _FlashAttentionTrainable.apply(q, k, v, mask_bias, causal, impl)

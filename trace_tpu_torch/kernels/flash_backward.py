@@ -1,0 +1,259 @@
+"""Attention forward with residuals and attention backward: wrappers of the
+CUDA kernels in csrc/attention.cu and csrc/attention_bwd.cu, and their plain
+PyTorch versions.
+
+``flash_attention_fwd_res`` replaces trace_tpu/kernels/flash_backward.py
+``flash_attention_fwd_res`` (``_fwd_res_kernel``): the attention forward that
+also returns ``lse = m + log(sum exp(s - m))`` per query row. It is the
+forward kernel of ``flash_attention`` with one more output.
+``flash_attention_bwd`` replaces ``flash_attention_bwd`` (``_dq_kernel``,
+``_dkv_kernel``): from the residuals ``o`` and ``lse``,
+
+    p = exp(s - lse)        delta = rowsum(do * o)
+    dv = p^T do             ds = p * (do v^T - delta)
+    dq = ds k * scale       dk = ds^T q * scale
+
+with dk and dv summed over the G query heads of a kv head. It runs three
+launches, each a wrapper of its own with a launch count:
+``flash_attention_bwd_delta`` (a pre-pass), ``flash_attention_bwd_dq`` and
+``flash_attention_bwd_dkv``.
+
+Bound on an H100: operations. At the training shape (B=2, 32/8 heads,
+T=2048, hd=128, causal) a product over the visible pairs is ~34 GFLOP; the
+forward needs two, the backward five, over ~100 MB of operands. The design
+keeps every score tile on chip: a block recomputes its 64 x 64 tiles of p
+from ``lse`` and accumulates in registers; the dk/dv kernel walks the G query
+heads of its kv head in a fixed order, so the group sum needs no atomics and
+no per-query-head copy, and a step repeats bit for bit. See
+csrc/attention_bwd.cu.
+
+On a CUDA tensor a wrapper launches its kernel or raises; the plain version
+runs for CPU tensors, or when the caller passes ``impl="plain"``.
+
+A query row that sees no key (left padding under the causal mask) has
+``lse = -1e30``; its ``p`` is 1 on every key the backward visits. The plain
+version visits all keys, the kernels skip causally masked tiles, so the two
+(and the JAX package's kernels) differ on such rows unless ``do`` is zero
+there, which it is in training: padding carries no label.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from trace_tpu_torch.kernels.flash_attention import (
+    NEG_INF,
+    _check_causal_operands,
+    _launch,
+    _use_kernel,
+)
+
+_SOURCE = "attention_bwd.cu"
+
+
+def _scores(q, k, mask_bias, causal):
+    """fp32 scores [B, Hkv, G, Tq, Tk] with the bias and the causal mask."""
+    B, H, Tq, hd = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, Tq, hd)
+    s = torch.einsum("bngth,bnsh->bngts", qg.float(), k.float()) * (hd ** -0.5)
+    if mask_bias is not None:
+        s = s + mask_bias.float()[:, None, None, None, :]
+    if causal:
+        qpos = torch.arange(Tq, device=q.device)[:, None]
+        kpos = torch.arange(Tk, device=q.device)[None, :]
+        s = torch.where(kpos <= qpos, s, torch.full_like(s, NEG_INF))
+    return s
+
+
+def flash_attention_fwd_res_plain(q, k, v, mask_bias=None, *, causal=False):
+    """Plain version of ``flash_attention_fwd_res``: ``xla_attention`` with
+    its fp32 logsumexp written out."""
+    B, H, Tq, hd = q.shape
+    s = _scores(q, k, mask_bias, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    p = (e / l.clamp_min(1e-30)).to(v.dtype)
+    o = torch.einsum("bngts,bnsh->bngth", p.float(), v.float())
+    lse = m + torch.log(l.clamp_min(1e-30))
+    return o.reshape(B, H, Tq, hd).to(q.dtype), lse.reshape(B, H, Tq, 1)
+
+
+def flash_attention_fwd_res(
+    q: torch.Tensor,                 # [B, H, Tq, hd]
+    k: torch.Tensor,                 # [B, Hkv, Tk, hd]
+    v: torch.Tensor,
+    mask_bias: Optional[torch.Tensor] = None,  # [B, Tk] fp32 additive
+    *,
+    causal: bool = False,
+    impl: str = "auto",
+):
+    """Attention forward returning (o, lse): o [B, H, Tq, hd] in q's dtype,
+    lse [B, H, Tq, 1] fp32, the residuals ``flash_attention_bwd`` needs."""
+    if not _use_kernel(q, impl):
+        return flash_attention_fwd_res_plain(q, k, v, mask_bias, causal=causal)
+    _check_causal_operands(q, k, v, mask_bias)
+    B, H, Tq, hd = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Tq, 1), dtype=torch.float32, device=q.device)
+    _launch(
+        q, k, v, mask_bias, o, B=B, H=H, group=H // Hkv, tq=Tq, tk=Tk, hd=hd,
+        kv_len=Tk, causal=causal,
+        q_strides=q.stride()[:3], k_strides=k.stride()[:3],
+        v_strides=v.stride()[:3], o_strides=o.stride()[:3],
+        bias_stride=Tk, lse=lse,
+    )
+    flash_attention_fwd_res.launches += 1
+    return o, lse
+
+
+flash_attention_fwd_res.launches = 0
+
+
+def _lib():
+    from trace_tpu_torch.kernels.build import load
+
+    return load(_SOURCE)
+
+
+def _check_bwd_operands(q, k, v, mask_bias, do, lse, delta):
+    _check_causal_operands(q, k, v, mask_bias)
+    if do.dtype != torch.bfloat16:
+        raise TypeError(f"do: the CUDA kernel takes bfloat16, got {do.dtype}")
+    if do.shape != q.shape or not do.is_contiguous():
+        raise ValueError("do must be a contiguous tensor of q's shape")
+    if do.data_ptr() % 16:
+        raise ValueError("do: data pointer not 16-byte aligned")
+    rows = q.shape[:3] + (1,)
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != rows or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous fp32 {tuple(rows)}")
+
+
+def flash_attention_bwd_delta(o, do, *, impl: str = "auto"):
+    """delta [B, H, Tq, 1] fp32 = rowsum(do * o)."""
+    if not _use_kernel(o, impl):
+        return (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    from trace_tpu_torch.kernels.build import check
+
+    for name, x in (("o", o), ("do", do)):
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got {x.dtype}")
+        if not x.is_contiguous() or x.shape != o.shape:
+            raise ValueError(f"{name} must be contiguous and of o's shape")
+    hd = o.shape[-1]
+    delta = torch.empty(o.shape[:-1] + (1,), dtype=torch.float32, device=o.device)
+    fn = _lib().attn_bwd_delta_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    check(fn(o.data_ptr(), do.data_ptr(), delta.data_ptr(), delta.numel(), hd,
+             torch.cuda.current_stream(o.device).cuda_stream), "attn_bwd_delta_bf16")
+    flash_attention_bwd_delta.launches += 1
+    return delta
+
+
+flash_attention_bwd_delta.launches = 0
+
+
+def _p_and_ds(q, k, v, mask_bias, do, lse, delta, causal):
+    """fp32 p and ds, [B, Hkv, G, Tq, Tk], and do grouped alike."""
+    B, H, Tq, hd = q.shape
+    Hkv = k.shape[1]
+    shape = (B, Hkv, H // Hkv, Tq)
+    p = torch.exp(_scores(q, k, mask_bias, causal) - lse.reshape(shape + (1,)))
+    dog = do.reshape(shape + (hd,)).float()
+    dp = torch.einsum("bngth,bnsh->bngts", dog, v.float())
+    return p, p * (dp - delta.reshape(shape + (1,))), dog
+
+
+def flash_attention_bwd_dq_plain(q, k, v, mask_bias, do, lse, delta, *, causal=False):
+    """Plain version of ``flash_attention_bwd_dq``: materialised scores."""
+    _, ds, _ = _p_and_ds(q, k, v, mask_bias, do, lse, delta, causal)
+    dq = torch.einsum("bngts,bnsh->bngth", ds, k.float()) * (q.shape[-1] ** -0.5)
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, mask_bias, do, lse, delta, *, causal=False):
+    """Plain version of ``flash_attention_bwd_dkv``: materialised scores, the
+    sum over a kv head's query heads inside the contraction."""
+    B, H, Tq, hd = q.shape
+    Hkv = k.shape[1]
+    p, ds, dog = _p_and_ds(q, k, v, mask_bias, do, lse, delta, causal)
+    qg = q.reshape(B, Hkv, H // Hkv, Tq, hd).float()
+    dv = torch.einsum("bngts,bngth->bnsh", p, dog)
+    dk = torch.einsum("bngts,bngth->bnsh", ds, qg) * (hd ** -0.5)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_args(q, k, v, mask_bias, do, lse, delta, outs, causal):
+    B, H, Tq, hd = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    argtypes = ([ctypes.c_void_p] * (7 + len(outs)) + [ctypes.c_int] * 7
+                + [ctypes.c_float, ctypes.c_void_p])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            mask_bias.data_ptr() if mask_bias is not None else None,
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(x.data_ptr() for x in outs),
+            B, H, H // Hkv, Tq, Tk, hd, int(causal), float(hd ** -0.5),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return argtypes, args
+
+
+def flash_attention_bwd_dq(q, k, v, mask_bias, do, lse, delta, *, causal=False,
+                           impl: str = "auto"):
+    """dq [B, H, Tq, hd] in q's dtype."""
+    if not _use_kernel(q, impl):
+        return flash_attention_bwd_dq_plain(q, k, v, mask_bias, do, lse, delta,
+                                            causal=causal)
+    from trace_tpu_torch.kernels.build import check
+
+    _check_bwd_operands(q, k, v, mask_bias, do, lse, delta)
+    dq = torch.empty_like(q)
+    fn = _lib().attn_bwd_dq_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes, args = _bwd_args(q, k, v, mask_bias, do, lse, delta, (dq,), causal)
+    check(fn(*args), "attn_bwd_dq_bf16")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, mask_bias, do, lse, delta, *, causal=False,
+                            impl: str = "auto"):
+    """(dk, dv), each [B, Hkv, Tk, hd], summed over the query heads of each
+    kv head."""
+    if not _use_kernel(q, impl):
+        return flash_attention_bwd_dkv_plain(q, k, v, mask_bias, do, lse, delta,
+                                             causal=causal)
+    from trace_tpu_torch.kernels.build import check
+
+    _check_bwd_operands(q, k, v, mask_bias, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _lib().attn_bwd_dkv_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes, args = _bwd_args(q, k, v, mask_bias, do, lse, delta, (dk, dv), causal)
+    check(fn(*args), "attn_bwd_dkv_bf16")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, mask_bias, o, lse, do, *, causal=False,
+                        impl: str = "auto"):
+    """(dq, dk, dv) in the input dtypes from the forward's residuals ``o``
+    and ``lse``; the scores are recomputed tile by tile."""
+    delta = flash_attention_bwd_delta(o, do, impl=impl)
+    dq = flash_attention_bwd_dq(q, k, v, mask_bias, do, lse, delta, causal=causal,
+                                impl=impl)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, mask_bias, do, lse, delta,
+                                     causal=causal, impl=impl)
+    return dq, dk, dv

@@ -49,13 +49,33 @@ def _check_impl(impl: str) -> None:
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
 
 
+class _MmF32(torch.autograd.Function):
+    """bf16 [M, K] @ bf16 [K, N] -> fp32 on the card. The backward rounds the
+    fp32 cotangent to bf16 and takes both products in bf16 with fp32 sums; the
+    results are bf16, as JAX's transpose of a bf16-in / fp32-out ``dot_general``
+    rounds them (JAX keeps the cotangent in fp32 for the products)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gb = g.to(torch.bfloat16)
+        dx = gb @ w.t() if ctx.needs_input_grad[0] else None
+        dw = x.t() @ gb if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [M, K] @ w [K, N] with an fp32 sum and an fp32 result (JAX's
     ``preferred_element_type=float32``). bf16 operands on the card go to
     one product with an fp32 output, so no fp32 copy of the weight is held;
     elsewhere the operands are widened first."""
     if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
-        return torch.mm(x, w, out_dtype=torch.float32)
+        return _MmF32.apply(x, w)
     return x.float() @ w.float()
 
 

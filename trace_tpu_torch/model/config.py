@@ -20,8 +20,8 @@ from trace_tpu_torch.constants import (
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
     """Mistral-7B decoder hyperparameters plus TRACE's sync/time/score heads
-    (the JAX config's qkv-bias and LoRA fields belong to slices not ported
-    yet). Mistral v0.1's 4096-token sliding window never binds at
+    (the JAX config's qkv-bias field belongs to a slice not ported yet).
+    Mistral v0.1's 4096-token sliding window never binds at
     TRACE's context, so attention is plain causal."""
 
     vocab_size: int = TEXT_VOCAB_SIZE
@@ -47,6 +47,9 @@ class DecoderConfig:
     # and probabilities quantized, s8 x s8 products; the JAX package's
     # default) or 'dequant' (K/V widened to bf16; its TRACE_TPU_DECODE_ATTN_S8=0)
     decode_attn_int8: str = "s8dot"
+    # LoRA adapters (model/lora.py): rank (0 = none) and alpha
+    lora_r: int = 0
+    lora_alpha: float = 16.0
 
     @property
     def combined_vocab_size(self) -> int:

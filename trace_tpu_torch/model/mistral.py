@@ -22,8 +22,15 @@ cache through a scan carry).
 Attention always goes through a kernel wrapper: a T=1 step with a cache
 through ``decode_attention`` over the layer's stripe, anything else (the
 cache-less forward, prefill into an empty cache) through
-``flash_attention`` over the chunk. Each wrapper takes its plain version
-for CPU tensors or ``impl="plain"``.
+``flash_attention`` over the chunk, or with ``trainable`` through
+``flash_attention_trainable``, whose backward is a pair of kernels too. Each
+wrapper takes its plain version for CPU tensors or ``impl="plain"``.
+
+Training reads the same stacked leaves. A leaf that requires a gradient is
+sliced through ``layer_slice``, whose backward adds the layer's gradient into
+stripe ``li`` of the stacked ``.grad`` in place: indexing ``leaf[li]`` under
+autograd would build a full [L, ...] zero gradient per layer and weight.
+LoRA adapters (model/lora.py) are extra stacked leaves of the same tree.
 """
 
 from __future__ import annotations
@@ -33,9 +40,13 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from trace_tpu_torch.kernels.decode_attention import decode_attention
-from trace_tpu_torch.kernels.flash_attention import flash_attention
+from trace_tpu_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_trainable,
+)
 from trace_tpu_torch.kernels.quant_matmul import (
     quant_apply,
     quant_apply_stacked,
@@ -43,6 +54,7 @@ from trace_tpu_torch.kernels.quant_matmul import (
     quantize_acts,
 )
 from trace_tpu_torch.model.config import DecoderConfig
+from trace_tpu_torch.model.lora import lora_delta
 from trace_tpu_torch.model.quantize import is_packed4, is_quantized, packed4_groups
 
 NEG_INF = -1e30  # finite large-negative avoids NaNs from (-inf) - (-inf)
@@ -87,17 +99,58 @@ def _quantize_kv(x: torch.Tensor):
     return q, scale.to(torch.bfloat16)
 
 
+class _StackedLayerGrad(torch.autograd.Function):
+    """``leaf[li]`` of a stacked [L, ...] leaf. The backward adds the layer's
+    gradient into ``leaf.grad[li]`` in place (allocating a zero ``.grad`` of
+    the leaf's shape once) and hands autograd nothing for the leaf, so one
+    backward costs one stacked gradient, not L of them. ``torch.autograd.grad``
+    does not see this gradient; ``backward()`` and ``.grad`` do."""
+
+    @staticmethod
+    def forward(ctx, leaf, li):
+        ctx.leaf, ctx.li = leaf, li
+        return leaf[li]
+
+    @staticmethod
+    def backward(ctx, g):
+        leaf = ctx.leaf
+        if leaf.grad is None:
+            leaf.grad = torch.zeros_like(leaf)
+        leaf.grad[ctx.li].add_(g)
+        return None, None
+
+
+def layer_slice(leaf: torch.Tensor, li: int) -> torch.Tensor:
+    """Layer ``li`` of a stacked leaf: a view, differentiable towards the
+    leaf's stacked ``.grad`` when the leaf takes a gradient."""
+    if leaf.requires_grad and torch.is_grad_enabled():
+        return _StackedLayerGrad.apply(leaf, li)
+    return leaf[li]
+
+
+# the q/k/v adapters apply only beside a q or v adapter, as in the JAX package
+_QKV = ("wq", "wk", "wv")
+
+
 def _project(h, layers: dict, name: str, li: int, out_shape: tuple, *,
-             acts=None, out_dtype=None, impl: str = "auto") -> torch.Tensor:
+             acts=None, out_dtype=None, impl: str = "auto",
+             config: Optional[DecoderConfig] = None) -> torch.Tensor:
     """h [B, T, K] through layer ``li`` of the stacked weight ``name``. A
     quantized leaf (int8 or packed int4) takes the s8 x s8 product when
     ``acts`` (``quantize_acts`` of h) is given, else its weight-only kernel,
     which reads the layer out of the whole stacked leaf in place; a dense
-    weight takes a product with an fp32 sum."""
+    weight takes a product with an fp32 sum, plus its LoRA adapter's delta
+    where the tree holds one."""
     leaf = layers[name]
     out_dtype = out_dtype or h.dtype
     if not is_quantized(leaf):
-        return quant_apply(h, leaf[li], out_shape, out_dtype=out_dtype)
+        y = quant_apply(h, layer_slice(leaf, li), out_shape, out_dtype=out_dtype)
+        if f"{name}_lora_a" in layers and (
+                name not in _QKV or "wq_lora_a" in layers or "wv_lora_a" in layers):
+            a = layer_slice(layers[f"{name}_lora_a"], li)
+            b = layer_slice(layers[f"{name}_lora_b"], li)
+            y = y + lora_delta(h, a, b, config).reshape(y.shape)
+        return y
     if acts is None:
         return quant_apply_stacked(h, leaf, li, out_shape, out_dtype=out_dtype,
                                    impl=impl)
@@ -118,12 +171,14 @@ def _layer(
     cache=None,
     cache_index: int = 0,
     impl: str = "auto",
+    trainable: bool = False,
 ) -> torch.Tensor:
     """Decoder block ``li`` of the stacked tree ``layers``. ``cache`` is the
     whole cache; the block writes its chunk's k/v into its stripe in place
     at ``cache_index`` (quantized per slot for the int8 cache). With
     ``decode_bias`` ([B, S]) the step attends over the stripe, else the
-    chunk attends causally to itself under ``flash_bias`` ([B, T]).
+    chunk attends causally to itself under ``flash_bias`` ([B, T]), with
+    ``trainable`` through the differentiable wrapper.
 
     Routing of a quantized tree, as the JAX package's defaults, decided on
     the q (or fused qkv) leaf: a chunk of more than one token with
@@ -140,9 +195,9 @@ def _layer(
     grouped = is_packed4(wq) and packed4_groups(wq) > 1
     w8a8 = config.act_quant and T > 1 and is_quantized(wq) and not grouped
     acts = lambda t: quantize_acts(t) if w8a8 else None
-    proj = functools.partial(_project, layers=layers, li=li, impl=impl)
+    proj = functools.partial(_project, layers=layers, li=li, impl=impl, config=config)
 
-    h = rms_norm(x, layers["attn_norm"][li], config.rms_eps)
+    h = rms_norm(x, layer_slice(layers["attn_norm"], li), config.rms_eps)
     hq = acts(h)  # one rounding pass shared by q/k/v
     heads = lambda t, n: t.view(B, T, n, HD).transpose(1, 2)
     if fused_qkv:
@@ -173,6 +228,8 @@ def _layer(
                                     mode=config.decode_attn_int8, impl=impl)
         else:
             attn = decode_attention(q.contiguous(), *stripe, decode_bias, impl=impl)
+    elif trainable:
+        attn = flash_attention_trainable(q, k, v, flash_bias, True, impl=impl)
     else:
         attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                flash_bias, True, impl=impl)
@@ -182,7 +239,7 @@ def _layer(
 
     # gate and up stay fp32 into silu, as the JAX package's
     # preferred_element_type=float32 keeps them
-    h = rms_norm(x, layers["mlp_norm"][li], config.rms_eps)
+    h = rms_norm(x, layer_slice(layers["mlp_norm"], li), config.rms_eps)
     hq = acts(h)  # shared by gate/up
     if "w_gateup" in layers:
         gate, up = proj(h, name="w_gateup", out_shape=(-1,), acts=hq,
@@ -208,10 +265,14 @@ def decoder_forward(
     cache_index: int = 0,
     cache_mask: Optional[torch.Tensor] = None,  # [B, S] bool over cache slots
     impl: str = "auto",
+    remat: bool = False,
+    trainable: bool = False,
 ):
     """Run the decoder stack (causal). Without a cache: attention within
-    the sequence. With a cache, keys/values are written at ``cache_index``;
-    a T=1 step then attends over the static cache, masked by ``cache_mask``
+    the sequence, with ``trainable`` through ``flash_attention_trainable``
+    (forward and backward kernels); ``remat`` runs each layer under a
+    non-reentrant checkpoint, so only its input is kept for the backward.
+    With a cache, keys/values are written at ``cache_index``; a T=1 step then attends over the static cache, masked by ``cache_mask``
     (slots valid before this call) plus its own slot. A T > 1 chunk with a
     cache is prefill into an empty cache (``cache_index`` 0, ``cache_mask``
     not read), as the JAX package's flash path assumes; chunked prefill
@@ -242,12 +303,17 @@ def decoder_forward(
         flash_bias = torch.where(attn_mask.bool(), zero, neg).contiguous()
 
     layers = params["layers"]
+    trainable = trainable and flash_bias is not None and T > 1 and cache is None
     for li in range(layers["attn_norm"].shape[0]):
-        x = _layer(
-            x, layers, li, config=config, cos=cos, sin=sin,
+        layer = functools.partial(
+            _layer, layers=layers, li=li, config=config, cos=cos, sin=sin,
             flash_bias=flash_bias, decode_bias=decode_bias,
-            cache=cache, cache_index=cache_index, impl=impl,
+            cache=cache, cache_index=cache_index, impl=impl, trainable=trainable,
         )
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(layer, x, use_reentrant=False)
+        else:
+            x = layer(x)
     return rms_norm(x, params["final_norm"], config.rms_eps), cache
 
 

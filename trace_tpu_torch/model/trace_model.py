@@ -1,5 +1,6 @@
-"""The TRACE multimodal prefix: vision tower + connector + towers + the
-combined-table splice (trace_tpu/model/trace_model.py, inference parts).
+"""The full TRACE multimodal model: vision tower + connector + towers +
+decoder (trace_tpu/model/trace_model.py): the inference prefix and the
+training forward with its three-stream loss.
 
 Every non-video token embeds through one gather from the combined
 [V + 1 + Vt + Vs, D] table (text ++ sync ++ time ++ score), and the video
@@ -8,13 +9,16 @@ features are written over the pre-expanded video span of each row.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from trace_tpu_torch.constants import TIME_TOKENS_PER_FRAME
+from trace_tpu_torch.constants import IGNORE_INDEX, TIME_TOKENS_PER_FRAME
 from trace_tpu_torch.model.config import TraceConfig
 from trace_tpu_torch.model.connector import spatial_slot_forward
+from trace_tpu_torch.model.mistral import compute_logits, decoder_forward
+from trace_tpu_torch.model.quantize import is_quantized
 from trace_tpu_torch.model.towers import embed_time
 from trace_tpu_torch.model.vit import vit_forward
 
@@ -45,12 +49,19 @@ def encode_video(
     frame_time_ids: torch.Tensor,  # [B, T, 6] local time-token ids per frame
     *,
     impl: str = "auto",
+    remat_connector: bool = False,
 ) -> torch.Tensor:
     """Frames -> interleaved visual + time token features [B, T*(S+6), D_lm].
 
     The ViT runs over ``vit_chunk_size`` frames at a time (sequentially,
     bounding its activations), then the connector pools each frame to S
-    slots and each frame's 6 time-token embeddings follow its slots."""
+    slots and each frame's 6 time-token embeddings follow its slots.
+
+    The vision tower is frozen in every training stage: it runs under
+    ``no_grad``, so nothing of it is kept for a backward. With
+    ``remat_connector`` the connector runs under a checkpoint and its
+    [B*T, 576, 1024] intermediates are recomputed from the ViT features in
+    the backward."""
     if config.mm_projector_type != "spatial_slot":
         raise NotImplementedError(
             f"connector {config.mm_projector_type!r}: only spatial_slot is ported")
@@ -61,13 +72,18 @@ def encode_video(
     def vit(x):
         return vit_forward(params["vision"], config.vision, x, impl=impl)
 
-    if chunk and flat.shape[0] > chunk and flat.shape[0] % chunk == 0:
-        feats = torch.cat([vit(c) for c in flat.split(chunk)], dim=0)
-    else:
-        feats = vit(flat)
+    with torch.no_grad():
+        if chunk and flat.shape[0] > chunk and flat.shape[0] % chunk == 0:
+            feats = torch.cat([vit(c) for c in flat.split(chunk)], dim=0)
+        else:
+            feats = vit(flat)
     feats = feats.reshape(B, T, feats.shape[1], feats.shape[2])
 
-    slots = spatial_slot_forward(params["connector"], feats)
+    if remat_connector and torch.is_grad_enabled():
+        slots = checkpoint(spatial_slot_forward, params["connector"], feats,
+                           use_reentrant=False)
+    else:
+        slots = spatial_slot_forward(params["connector"], feats)
     time_feats = embed_time(params["towers"], frame_time_ids)  # [B, T, 6, D_lm]
     merged = torch.cat([slots, time_feats.to(slots.dtype)], dim=2)
     return merged.reshape(B, T * merged.shape[2], merged.shape[3])
@@ -80,13 +96,21 @@ def build_input_embeds(
     video_features: torch.Tensor,  # [B, Tv, D] from encode_video
     video_pos: torch.Tensor,       # [B] start index of the video span
     table: Optional[torch.Tensor] = None,
+    has_video: Optional[torch.Tensor] = None,  # [B] bool; False = no span written
 ) -> torch.Tensor:
-    """Gather token embeddings and write the video span. [B, L, D]."""
+    """Gather token embeddings and write the video span. [B, L, D].
+
+    Rows with ``has_video`` False (text-only records) keep their token
+    embeddings. Under autograd the span write sends its gradient to the video
+    features and none to the table rows it overwrote."""
     if table is None:
         table = combined_embedding(params)
     embeds = table[token_ids.clamp(0, table.shape[0] - 1)]
     Tv = video_features.shape[1]
+    has = has_video.tolist() if has_video is not None else [True] * embeds.shape[0]
     for b, pos in enumerate(video_pos.tolist()):
+        if not has[b]:
+            continue
         # dynamic_update_slice semantics: a span past the end is shifted in
         pos = max(0, min(pos, embeds.shape[1] - Tv))
         embeds[b, pos:pos + Tv] = video_features[b].to(embeds.dtype)
@@ -108,3 +132,95 @@ def encode_prefix_for_generation(
     feats = encode_video(params, config, frames, frame_time_ids, impl=impl)
     return build_input_embeds(params, config, token_ids, feats, video_pos,
                               table=table)
+
+
+def three_stream_loss(
+    dec_params: dict,
+    c,
+    hidden: torch.Tensor,        # [B, L, D] decoder output (final-normed)
+    labels: torch.Tensor,        # [B, L] text-stream labels (or IGNORE_INDEX)
+    time_labels: torch.Tensor,
+    score_labels: torch.Tensor,
+    *,
+    chunk: int = 256,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Summed three-stream cross entropy (text + sync | time | score), in
+    chunks of ``chunk`` positions, each under a checkpoint: the [B, L, 32027]
+    fp32 logits never live whole, a chunk's are recomputed in the backward.
+    hidden[t] predicts labels[t + 1]. Chunking is exact: the softmax is per
+    position; sums and counts add up in fp32 / integers and normalise once,
+    ``sums / max(counts, 1)`` per stream."""
+    B, L, D = hidden.shape
+    v = c.vocab_size
+    h = hidden[:, :-1]
+    labs = torch.stack([labels[:, 1:], time_labels[:, 1:], score_labels[:, 1:]])
+    slices = (
+        (0, v + 1),                                       # text + sync
+        (v + 1, c.time_vocab_size),                       # time
+        (v + 1 + c.time_vocab_size, c.score_vocab_size),  # score
+    )
+
+    def body(h_c, lab_c):
+        logits = compute_logits(dec_params, h_c, impl=impl)  # [B, C, CV] fp32
+        sums = []
+        for s, (off, width) in enumerate(slices):
+            lab = lab_c[s]
+            valid = lab != IGNORE_INDEX
+            logp = torch.log_softmax(logits[..., off:off + width], dim=-1)
+            nll = -logp.gather(-1, torch.where(valid, lab, 0)[..., None].long())[..., 0]
+            sums.append(torch.where(valid, nll, 0.0).sum())
+        return torch.stack(sums)
+
+    sums = torch.zeros(3, dtype=torch.float32, device=hidden.device)
+    counts = torch.zeros(3, dtype=torch.int64, device=hidden.device)
+    for start in range(0, L - 1, chunk):
+        h_c, lab_c = h[:, start:start + chunk], labs[:, :, start:start + chunk]
+        if torch.is_grad_enabled():
+            sums = sums + checkpoint(body, h_c, lab_c, use_reentrant=False)
+        else:
+            sums = sums + body(h_c, lab_c)
+        counts += (lab_c != IGNORE_INDEX).sum(dim=(1, 2))
+    losses = sums / counts.clamp_min(1)
+    return losses[0], losses[1], losses[2]
+
+
+def forward_train(
+    params: dict,
+    config: TraceConfig,
+    batch: dict,
+    *,
+    remat: bool = True,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, dict]:
+    """Training forward: the summed three-stream loss and its parts.
+
+    ``batch`` keys (tensors on the params' device): frames [B,T,H,W,3]
+    CLIP-normalized, frame_time_ids [B,T,6], token_ids [B,L], video_pos [B],
+    attn_mask [B,L] bool, labels / time_labels / score_labels [B,L] (ids or
+    IGNORE_INDEX), and optionally has_video [B] bool.
+
+    The decoder's attention runs forward and backward through
+    ``flash_attention_trainable``; with ``remat`` each decoder layer and the
+    connector keep only their inputs for the backward. The vision tower is
+    frozen. A quantized tree does not train."""
+    dec = params["decoder"]
+    if is_quantized(dec["lm_head"]) or any(is_quantized(v) for v in dec["layers"].values()):
+        raise ValueError("forward_train needs dense decoder weights, not a quantized tree")
+    video_feats = encode_video(
+        params, config, batch["frames"], batch["frame_time_ids"],
+        impl=impl, remat_connector=remat)
+    embeds = build_input_embeds(
+        params, config, batch["token_ids"], video_feats, batch["video_pos"],
+        has_video=batch.get("has_video"))
+    mask = batch["attn_mask"].bool()
+    positions = (mask.long().cumsum(dim=1) - 1).clamp_min(0)
+    hidden, _ = decoder_forward(
+        dec, config.decoder, embeds, mask, positions,
+        remat=remat, trainable=True, impl=impl)
+    text_loss, time_loss, score_loss = three_stream_loss(
+        dec, config.decoder, hidden,
+        batch["labels"], batch["time_labels"], batch["score_labels"], impl=impl)
+    loss = text_loss + time_loss + score_loss
+    return loss, {"loss": loss, "text_loss": text_loss, "time_loss": time_loss,
+                  "score_loss": score_loss}

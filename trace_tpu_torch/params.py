@@ -25,8 +25,9 @@ def _to_tensor(x) -> torch.Tensor:
 def from_jax_params(tree) -> dict:
     """Map a tree of numpy (or array-like) leaves, as ``init_trace_params``
     of the JAX package makes it after ``jax.tree.map(np.asarray, ...)``, to
-    the port's tree of CPU tensors (``TracePipeline`` moves them to its
-    device)."""
+    the port's tree of CPU tensors (``TracePipeline`` and ``train_loop`` move
+    them to their device). Every leaf crosses as it is, LoRA adapter leaves
+    (``<name>_lora_a`` / ``_lora_b``) and quantized leaves included."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v) for k, v in tree.items()}
     return _to_tensor(tree)
