@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero:
      gives it (the three bf16 attention kernels; the int8 weight product, 2-D
      and stacked; int8 decode attention in both modes; the nibble-packed int4
      weight products, per channel and grouped, each in its split-K form at
-     M = 2 and its tensor-core form at M = 3886; the training attention:
+     M = 2 and its tensor-core form at M = 3886, the grouped one also at
+     M = 32, its 64-row tile, printed apart; the training attention:
      forward with the logsumexp residual, backward dq and backward dk/dv), with its time (CUDA
      events, median of 20, L2 flushed between runs), the plain version's
      time, the time of one PyTorch library call computing the same function
@@ -100,7 +101,7 @@ MAX_NEW = 64
 # round alike: nibble x scale is exact in fp32 and in the kernel's bf16
 # multiply, and both round it once to nearest even). The split-K form
 # multiply-adds in fp32 like the int8 product: its limits. The tensor-core
-# form adds each 16 products into the fp32 accumulator inside mma.sync, which
+# form adds each 16 products into the fp32 accumulator inside wgmma, which
 # truncates where an fp32 add rounds to nearest; over K / 16 <= 896 steps the
 # sum drifts by up to ~K / 16 x 2^-24 of the largest partial sum, so 1e-4 of
 # the largest output (a dropped k step or a misplaced nibble moves outputs by
@@ -448,10 +449,19 @@ def packed_int4_checks(torch, g, rows: dict) -> None:
             if grouped or N == 6144:
                 parts[base + "_mma"].append(one(base + "_mma", xp, qp, s, LI, out_dtype,
                                                 grouped, reps=10))
+            if grouped and N == 6144:
+                # the 64-row tile at a corpus-serving decode batch of 32 rows:
+                # printed, held to the limits, not summed into the row
+                print("  (the 64-row tile, M = 32, not in the row:)", flush=True)
+                r = one(base + "_mma", xp[:32].contiguous(), qp, s, LI, out_dtype, grouped)
+                parts[base + "_mma"].append({k: r[k] for k in ("err", "excess", "rel_norm")})
             del qp, s
-    # ragged M, N (and, per channel, K / 2 no multiple of 8), untimed
+    # ragged M, N (and, per channel, K / 2 no multiple of 8), untimed; M = 65
+    # and 129 are one row past a 64-row and a 128-row tile
     for grouped, M, K, N in ((False, 3, 1000, 1100), (False, 37, 1000, 1100),
-                             (True, 3, 1024, 1100), (True, 37, 1024, 1100)):
+                             (False, 65, 1000, 1100), (False, 129, 1000, 1100),
+                             (True, 3, 1024, 1100), (True, 37, 1024, 1100),
+                             (True, 65, 1024, 1100), (True, 129, 1024, 1100)):
         xr = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
         qp, s = weight(K, N, grouped, layers=2)
         name = ("quant_matmul_p4_grouped" if grouped else "quant_matmul_p4") \

@@ -288,7 +288,7 @@ def test_quant_matmul_stacked_kernel_matches_plain(cuda, K, N, out_dtype, li):
 # The packed-int4 products sum exact products in fp32 (bf16 x a nibble, or
 # bf16 x the scaled weight rounded to bf16, which both versions round alike).
 # Split-K form (M <= 8): fp32 multiply-adds in another order than the plain
-# version: the int8 product's limits. Tensor-core form: mma.sync adds each 16
+# version: the int8 product's limits. Tensor-core form: wgmma adds each 16
 # products into the fp32 accumulator with truncation, not rounding to nearest,
 # so over K / 16 steps the sum drifts by up to ~K / 16 x 2^-24 of the largest
 # partial sum: 1e-4 of the largest output at K <= 14336 (a dropped k step or a
@@ -319,6 +319,13 @@ P4_SHAPES = [  # M, K, N, out dtype
     (300, 1024, 1100, torch.float32),    # ragged M and N (N % 16 != 0): scalar tile loads
     (333, 512, 520, torch.bfloat16),     # N % 16 != 0 but % 8 == 0: vector stores
     (1943, 4096, 512, torch.bfloat16),   # a prefill row block at full K
+    # the tensor-core form's tile edges: 64-row tiles up to M = 64, 128-row
+    # tiles beyond; 128 columns a tile
+    (64, 512, 136, torch.bfloat16),      # the last M of the 64-row tile, N = 128 + 8
+    (65, 1024, 120, torch.float32),      # the first M of the 128-row tile, N = 128 - 8
+    (128, 512, 120, torch.bfloat16),     # one whole 128-row tile
+    (129, 1024, 136, torch.float32),     # a second row tile holding one row
+    (256, 4096, 28672, torch.float32),   # w_gateup at full width
 ]
 
 
@@ -343,7 +350,9 @@ def test_quant_matmul_p4_grouped_kernel_matches_plain(cuda, M, K, N, out_dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N,out_dtype", P4_SHAPES + [
     (3, 200, 130, torch.float32),        # K / 2 no multiple of 8, per channel only
-    (40, 200, 130, torch.bfloat16),      # the same in the tensor-core form: scalar x loads
+    (40, 200, 130, torch.bfloat16),      # the same in the tensor-core form: x and qp
+                                         # loaded without tensor maps, 64-row tile
+    (150, 200, 130, torch.float32),      # the same with 128-row tiles
 ])
 def test_quant_matmul_p4_kernel_matches_plain(cuda, M, K, N, out_dtype):
     rng = np.random.default_rng(15)
@@ -358,6 +367,26 @@ def test_quant_matmul_p4_kernel_matches_plain(cuda, M, K, N, out_dtype):
     _assert_p4_matches(got, quant_matmul_p4(x, qp, s, out_dtype=out_dtype, impl="plain"),
                        out_dtype, form)
     assert torch.equal(got, quant_matmul_p4(x, qp, s, out_dtype=out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("M", [40, 300])
+def test_quant_matmul_p4_tensor_core_form_repeats_bit_for_bit(cuda, grouped, M):
+    """The tensor-core form sums in a fixed order: two launches on the same
+    inputs give the same bits, in both tile heights."""
+    rng = np.random.default_rng(19)
+    K, N = 4096, 1024
+    x = _bf16(rng, (M, K), cuda)
+    qp, s = _packed_weight(rng, (K // 2, N), K // 128 if grouped else 1, cuda)
+    fn = quant_matmul_p4_grouped if grouped else quant_matmul_p4
+    s = s if grouped else s.reshape(-1)
+    n = fn.launches_by_form["mma"]
+    first = fn(x, qp, s, out_dtype=torch.float32)
+    second = fn(x, qp, s, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fn.launches_by_form["mma"] == n + 2
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

@@ -190,7 +190,9 @@ def _packed(rng, *shape, groups=1):
 
 @pytest.mark.parametrize("x_dtype,out_dtype", [("float32", "float32"), ("bfloat16", "bfloat16"),
                                                ("bfloat16", "float32"), ("float32", "bfloat16")])
-@pytest.mark.parametrize("M,K,N", [(2, 128, 256), (10, 64, 48), (37, 200, 130)])
+# M = 65 and 129: one row past the card kernel's 64- and 128-row tiles
+@pytest.mark.parametrize("M,K,N", [(2, 128, 256), (10, 64, 48), (37, 200, 130),
+                                   (65, 64, 32), (129, 64, 16)])
 def test_quant_matmul_p4_plain_matches_pallas(M, K, N, x_dtype, out_dtype):
     rng = np.random.default_rng(M + K)
     x = rng.standard_normal((M, K)).astype(np.float32)
@@ -208,7 +210,8 @@ def test_quant_matmul_p4_plain_matches_pallas(M, K, N, x_dtype, out_dtype):
 
 @pytest.mark.parametrize("x_dtype,out_dtype", [("float32", "float32"), ("bfloat16", "bfloat16"),
                                                ("bfloat16", "float32")])
-@pytest.mark.parametrize("M,K,N", [(2, 256, 96), (10, 512, 96), (37, 1024, 40)])
+@pytest.mark.parametrize("M,K,N", [(2, 256, 96), (10, 512, 96), (37, 1024, 40),
+                                   (65, 256, 32), (129, 256, 32)])
 def test_quant_matmul_p4_grouped_plain_matches_pallas(M, K, N, x_dtype, out_dtype):
     rng = np.random.default_rng(M + K + 1)
     x = rng.standard_normal((M, K)).astype(np.float32)

@@ -28,23 +28,46 @@
 //     multiply-add on the CUDA cores into 16 x rows registers; a second
 //     launch sums the chunks in a fixed order (no atomics: the same bits
 //     from run to run).
-//   * larger M (prefill): bound by operations. A block computes a 128 x 128
-//     tile of y with mma.sync m16n8k16 (bf16 in, fp32 accumulate), 8 warps of
-//     64 x 32 each. The x tile (both halves) and the packed weight tile
-//     stream through a 3-stage cp.async ring in shared memory; each warp
-//     dequantizes its B fragments in registers, two weights at a time in
-//     bf16x2 arithmetic (nibble | 0x4300 is the bf16 128 + nibble, minus 136
-//     after the sign bit is flipped, times the scale pair: each step exact
-//     or rounded once, as the plain version's fp32 product rounded to bf16).
-//     The mma's K index is permuted so that one byte feeds one thread: k
-//     indices 0-7 of a step are the low nibbles of 8 packed rows, 8-15 their
-//     high nibbles, and the A fragment takes its halves from the two x
-//     tiles accordingly; a thread's four 8-column tiles are interleaved
-//     (column 4 g + j) so that its four bytes are one 32-bit word.
+//   * larger M (prefill): bound by operations, 2 M K N of them (a 7B layer's
+//     four products at M = 3886: 1.7 TFLOP, 1.7 ms at the card's bf16 peak).
+//     Only wgmma reaches that rate, and the weight has to become bf16 on the
+//     way, outside the warps that run it. A block computes a 128 x 128 tile
+//     of y (64 x 128 for M <= 64, where a 128-row tile would be half empty)
+//     with two (one) consumer warpgroups issuing wgmma.mma_async m64n128k16
+//     (bf16 in, fp32 accumulate), A and B read from shared memory through
+//     descriptors, and two producer warpgroups that run no wgmma. A packed
+//     tile (64 packed rows x 128 columns) feeds two stages: its low nibbles
+//     weigh x[:, k], its high nibbles x[:, k + K/2], for the same 64 values of
+//     k. The producers take alternate packed tiles, each fetched by TMA into
+//     the producer's own slot; for each tile a producer waits until its two
+//     stages of a 6-stage ring are free, asks TMA for x's two tiles [BM x 64]
+//     (one tensor map over x viewed as [M][2][K/2]: rows past M and columns
+//     past K/2 read as zero), and dequantizes the packed tile into the
+//     stages' two weight tiles, each byte once per block: bf16x2 arithmetic,
+//     nibble | 0x4300 is the bf16 128 + nibble, minus 136 after the sign bit
+//     is flipped, times the scale pair, each step exact or rounded once as
+//     the plain version's fp32 product rounded to bf16. Full and empty
+//     mbarriers hand the stages over; a consumer runs 4 wgmma a stage. The
+//     weight tiles are stored transposed ([column][k], K-major, 128-byte
+//     swizzle), their rows permuted so that a thread's 32 accumulator columns
+//     are 32 neighbouring columns of y for the epilogue's 16-byte stores.
+//     Shapes a tensor map cannot take (K/2 % 8, N % 16, unaligned pointers)
+//     load the same tiles with predicated loads in the producers. The sums
+//     run in a fixed order: a repeat gives the same bits.
+//     What holds it at ~45 % of peak (PERF.md): shared-memory traffic (each
+//     consumer reads the whole weight tile, and TMA and the producers write
+//     every stage: ~690 cycles of the bus per 512 cycles of tensor work) and
+//     the latency of the copies in flight. A 128 x 256 tile would cut both,
+//     but its 128 accumulators a thread need more registers than 512 threads
+//     can hold, and one producer warpgroup does not dequantize fast enough;
+//     both roles fit the 128 registers a thread holds at launch, so no
+//     setmaxnreg.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 typedef __nv_bfloat16 bf16;
 
@@ -270,46 +293,49 @@ int run_splitk(const bf16* x, const int8_t* qp, const bf16* s, void* y, float* w
 }
 
 // ---- tensor-core form ---------------------------------------------------
+//
+// A packed tile of 64 rows feeds two stages: its low nibbles weigh x[:, k]
+// and its high nibbles x[:, k + K/2], for the same 64 values of k. A stage's
+// operand tiles are [rows][64 bf16], 128-byte rows in the 128-byte swizzle
+// (16-byte chunk c of row r at chunk c ^ (r % 8)), the layout TMA writes and
+// wgmma reads through a K-major descriptor: x's tile [BM][64] of one half and
+// the dequantized weight of that half stored transposed, [BN][64].
 
-constexpr int BM = 128;          // rows of y per block
-constexpr int BN = 128;          // columns of y per block
-constexpr int BKP = 32;          // packed rows per stage (64 rows of K)
-constexpr int NSTAGE = 3;
-constexpr int TC_THREADS = 256;  // 8 warps: 2 along M x 4 along N, 64 x 32 each
-constexpr int XLD = BKP + 8;     // bf16 per x row in shared memory (80 bytes: the 8 rows
-                                 // a fragment load touches fall on distinct banks)
-constexpr int WLD = BN + 16;     // bytes per packed row in shared memory
-constexpr int X_SLAB = BM * XLD;                        // bf16 elements of one x half
-constexpr int STAGE_BYTES = 2 * X_SLAB * 2 + BKP * WLD;  // both x halves + packed tile
-constexpr int TC_SMEM = NSTAGE * STAGE_BYTES;
+constexpr int BN = 128;               // columns of y per block
+constexpr int BKP = 64;               // packed rows per packed tile: two stages
+constexpr int ROW_BYTES = 128;        // bytes per row of an operand tile
+constexpr int B_TILE = BN * ROW_BYTES;  // the dequantized weight of a stage: 16 KB
+constexpr int P_TILE = BKP * BN;      // one packed tile: 8 KB
+constexpr int PRODUCERS = 2;          // producer warpgroups: alternate packed tiles
+constexpr int STAGES = 6;             // operand stages in flight
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(saddr), "l"(src), "r"(ok ? 16 : 0));
-}
+// NC consumer warpgroups of 64 rows each, then the producer warpgroups, each
+// with one slot for its packed tile
+template <int NC>
+struct Tc {
+  static constexpr int BM = 64 * NC;
+  static constexpr int THREADS = 128 * (NC + PRODUCERS);
+  static constexpr int X_TILE = BM * ROW_BYTES;
+  static constexpr int STAGE = X_TILE + B_TILE;
+  static constexpr int P_OFF = STAGES * STAGE;
+  static constexpr int BAR_OFF = P_OFF + PRODUCERS * P_TILE;
+  static constexpr int SMEM = BAR_OFF + 8 * (2 * STAGES + PRODUCERS) + 1024;  // + alignment
+};
+static_assert(Tc<2>::SMEM <= 232448, "shared memory");
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
+struct TcParams {
+  const bf16* x;
+  const int8_t* qp;
+  const bf16* s;
+  void* y;
+  int M, K, N;
+  int xtma;  // x through its tensor map (K/2 % 8 == 0, 16-byte aligned), else loads
+  int wtma;  // qp through its tensor map (N % 16 == 0, 16-byte aligned), else loads
+  int yvec;  // N % 8 == 0 and y 16-byte aligned: 16-byte stores
+};
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// four 8 x 8 bf16 blocks from shared memory into mma fragment order: lane l
-// passes the address of row l % 8 of block l / 8 (16 bytes, 16-byte aligned);
-// a[i] then holds, for lane (g, t), elements 2t and 2t + 1 of row g of block i
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* row) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(saddr));
 }
 
 __device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t v) {
@@ -320,205 +346,443 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d += a * b for one 16x8x16 tile. Fragment layout (PTX ISA, mma.m16n8k16):
-// with g = lane / 4 and t = lane % 4, a holds A[g][2t..], A[g+8][2t..],
-// A[g][2t+8..], A[g+8][2t+8..]; b holds B[2t..][g], B[2t+8..][g]; d holds
-// D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1].
-__device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-struct TcParams {
-  const bf16* x;
-  const int8_t* qp;
-  const bf16* s;
-  void* y;
-  int M, K, N;
-  int xvec;  // x rows and both halves start 16-byte aligned: cp.async
-  int wvec;  // packed rows start 16-byte aligned: cp.async
-  int yvec;  // a thread's 8 columns of y are 16-byte aligned: vector stores
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// one arrival, and `bytes` more to come from copies that name the barrier
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+         "r"(c2)
+      : "memory");
+}
+
+// shared-memory writes of this thread made visible to the async proxy (TMA, wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void producer_sync(int q) {  // producer warpgroup q alone
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + q) : "memory");
+}
+
+// K-major operand tile in the 128-byte swizzle: 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// d [64 x 128 of y, fp32] += A [64 x 16] * B [16 x 128], both from shared
+// memory. Fragment of d (PTX ISA, wgmma .m64nNk16): with w the warp of the
+// warpgroup, g = lane / 4 and t = lane % 4, d[4c + 2h + e] is row 16 w + g + 8 h,
+// column 8 c + 2 t + e.
+__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+
+}
+
+// the operands' registers are final here: reads of d are not moved above
+__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// B row (column of the wgmma's N) of output column n of the tile: thread t
+// of a quad then holds the 32 columns 32 t .. 32 t + 31 of y
+__device__ __forceinline__ int b_row(int n) {
+  return 8 * ((n & 31) >> 1) + 2 * (n >> 5) + (n & 1);
+}
+
+template <int NC>
+struct Bars {  // addresses of the barriers in shared memory
+  uint32_t full, empty, pfull;
+  __device__ explicit Bars(uint32_t base)
+      : full(base + Tc<NC>::BAR_OFF), empty(full + 8 * STAGES), pfull(empty + 8 * STAGES) {}
 };
 
-// tile kt (packed rows kt * BKP ..) of x's two halves and of qp into a stage
-__device__ __forceinline__ void load_stage(const TcParams& p, unsigned char* stage,
-                                           int kt, int m_blk, int n_blk) {
+// Producer warpgroup q: packed tiles q, q + 2, .. into its slot (TMA, or
+// loads for shapes a tensor map cannot take); for each, x's two tiles into
+// the tile's two stages (the same) and the low and the high nibbles,
+// dequantized, beside them.
+template <int NC, bool GROUPED>
+__device__ __forceinline__ void p4_produce(const CUtensorMap* xmap, const CUtensorMap* wmap,
+                                           const TcParams& p, unsigned char* smem,
+                                           int m_blk, int n_blk) {
+  using T = Tc<NC>;
   const int Kh = p.K / 2;
-  const int kk0 = kt * BKP;
-  bf16* const xt = reinterpret_cast<bf16*>(stage);  // [2][BM][XLD]
-  unsigned char* const wt = stage + 2 * X_SLAB * 2;  // [BKP][WLD]
-  constexpr int XCH = BKP / 8;                       // 16-byte chunks per x row
-  for (int id = threadIdx.x; id < 2 * BM * XCH; id += TC_THREADS) {
-    const int half = id / (BM * XCH), rem = id % (BM * XCH);
-    const int r = rem / XCH, c = (rem % XCH) * 8;
-    const int row = m_blk + r, col = kk0 + c;
-    bf16* dst = xt + half * X_SLAB + r * XLD + c;
-    const bf16* src = p.x + static_cast<long long>(row) * p.K + half * Kh + col;
-    if (p.xvec) {
-      const bool ok = row < p.M && col < Kh;  // Kh is a multiple of 8 here
-      cp_async16(dst, ok ? src : p.x, ok);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = (row < p.M && col + e < Kh) ? src[e] : __float2bfloat16(0.f);
+  const int q = threadIdx.x / 128 - NC;
+  const int pt = threadIdx.x % 128, pw = pt / 32, lane = pt % 32;
+  const Bars<NC> bars(smem_u32(smem));
+  const uint32_t pbar = bars.pfull + 8 * q;
+  unsigned char* const pk = smem + T::P_OFF + q * P_TILE;
+
+  auto load_packed = [&](int kp) {
+    if (p.wtma) {
+      if (pt == 0) {
+        fence_proxy_async();
+        mbar_arrive_tx(pbar, P_TILE);
+        tma_load_2d(smem_u32(pk), wmap, pbar, n_blk, kp * BKP);
+      }
+      return;
     }
-  }
-  constexpr int WCH = BN / 16;
-  for (int id = threadIdx.x; id < BKP * WCH; id += TC_THREADS) {
-    const int r = id / WCH, c = (id % WCH) * 16;
-    const int row = kk0 + r, col = n_blk + c;
-    unsigned char* dst = wt + r * WLD + c;
-    const int8_t* src = p.qp + static_cast<long long>(row) * p.N + col;
-    if (p.wvec) {
-      const bool ok = row < Kh && col < p.N;  // N is a multiple of 16 here
-      cp_async16(dst, ok ? src : p.qp, ok);
-    } else {
+    for (int i = pt; i < P_TILE / 4; i += 128) {
+      const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
+      const int row = kp * BKP + r;
+      uint32_t word = 0;
 #pragma unroll
-      for (int e = 0; e < 16; ++e)
-        dst[e] = (row < Kh && col + e < p.N) ? static_cast<unsigned char>(src[e]) : 0;
+      for (int b = 0; b < 4; ++b) {
+        const int col = n_blk + c + b;
+        if (row < Kh && col < p.N)
+          word |= static_cast<uint32_t>(static_cast<uint8_t>(
+                      p.qp[static_cast<long long>(row) * p.N + col])) << (8 * b);
+      }
+      *reinterpret_cast<uint32_t*>(pk + r * BN + c) = word;
     }
-  }
-}
+  };
 
-template <bool GROUPED, typename OUT>
-__global__ void __launch_bounds__(TC_THREADS, 2) p4_mma(TcParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int Kh = p.K / 2;
-  const int m_blk = blockIdx.x * BM, n_blk = blockIdx.y * BN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = (warp % 2) * 64;  // the warp's rows of the tile
-  const int wn = (warp / 2) * 32;  // its columns
-  const int nkt = (Kh + BKP - 1) / BKP;
+  const int nkp = (Kh + BKP - 1) / BKP;
+  if (q < nkp) load_packed(q);
 
-  float acc[4][4][4];  // [16-row tile][8-column tile j][fragment]
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
-
-  // the thread's B columns: tile j holds column n_blk + wn + 4 g + j
-  const int bcol = n_blk + wn + 4 * g;
-  __nv_bfloat162 slo[4], shi[4];  // GROUPED: the stage's scales, each doubled
+  // the thread's 4 columns 4 lane .. + 3, and 2 of the 8 row groups (of 8
+  // rows) of the packed tile, turning with the lane so that the 16-byte
+  // stores of the 8 lanes of a store phase land in 8 distinct chunks
+  const int c4 = lane;
+  const int rg0 = lane + 2 * pw;
   const __nv_bfloat162 bias = as_bf162(0x43084308u);  // 136 = 128 + 8, twice
-
-  for (int st = 0; st < NSTAGE - 1; ++st) {
-    if (st < nkt) load_stage(p, smem + st * STAGE_BYTES, st, m_blk, n_blk);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    cp_async_wait<NSTAGE - 2>();  // tile kt has landed
-    __syncthreads();              // for every thread; and tile kt - 1 is consumed
-    if (kt + NSTAGE - 1 < nkt)
-      load_stage(p, smem + ((kt + NSTAGE - 1) % NSTAGE) * STAGE_BYTES, kt + NSTAGE - 1,
-                 m_blk, n_blk);
-    cp_async_commit();
-
-    if (GROUPED && (kt * BKP) % 128 == 0) {
-      const int group = (kt * BKP) >> 7;
-      const bf16* rlo = p.s + static_cast<long long>(group) * p.N;
-      const bf16* rhi = p.s + static_cast<long long>(group + (p.K >> 8)) * p.N;
+  __nv_bfloat162 slo[4], shi[4];  // GROUPED: the scales of the thread's columns, doubled
+  for (int kp = q, use = 0; kp < nkp; kp += PRODUCERS, ++use) {
+    unsigned char* stage[2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = bcol + j < p.N;
-        slo[j] = __bfloat162bfloat162(ok ? rlo[bcol + j] : __float2bfloat16(0.f));
-        shi[j] = __bfloat162bfloat162(ok ? rhi[bcol + j] : __float2bfloat16(0.f));
-      }
-    }
-
-    const unsigned char* stage = smem + (kt % NSTAGE) * STAGE_BYTES;
-    const bf16* xlo = reinterpret_cast<const bf16*>(stage);
-    const bf16* xhi = xlo + X_SLAB;
-    const unsigned char* wt = stage + 2 * X_SLAB * 2;
-
-#pragma unroll
-    for (int ks = 0; ks < BKP / 8; ++ks) {
-      // k indices 2t, 2t+1 of this step: the low nibbles of packed rows
-      // 8 ks + 2t and + 1; k indices 2t+8, 2t+9: their high nibbles
-      const unsigned char* wr = wt + (ks * 8 + 2 * t) * WLD + wn + 4 * g;
-      const uint32_t w0 = ld32(wr) ^ 0x88888888u;
-      const uint32_t w1 = ld32(wr + WLD) ^ 0x88888888u;
-      uint32_t b[4][2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // byte j of both rows: row 2t in the low half, row 2t+1 in the high
-        const uint32_t sel = __byte_perm(w0, w1, 0x4400 + 0x1111 * j);
-        __nv_bfloat162 lo = __hsub2(as_bf162((sel & 0x000F000Fu) | 0x43004300u), bias);
-        __nv_bfloat162 hi = __hsub2(as_bf162(((sel >> 4) & 0x000F000Fu) | 0x43004300u), bias);
-        if (GROUPED) {
-          lo = __hmul2(lo, slo[j]);
-          hi = __hmul2(hi, shi[j]);
-        }
-        b[j][0] = as_u32(lo);
-        b[j][1] = as_u32(hi);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        // the four 8 x 8 blocks of the A fragment in one load: rows 0-7 and
-        // 8-15 of the low-half tile (k indices 0-7), then of the high-half
-        // tile (k indices 8-15); lane l names row l % 8 of block l / 8
-        uint32_t a[4];
-        ldmatrix_x4(a, (lane < 16 ? xlo : xhi)
-                       + (wm + mt * 16 + (lane & 15)) * XLD + ks * 8);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma(acc[mt][j], a, b[j][0], b[j][1]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // D's column 2t + c of tile j is y's column wn + 4 (2t + c) + j: a thread
-  // holds 8 consecutive columns, wn + 8t .. + 7, of rows g and g + 8
-  const int col0 = n_blk + wn + 8 * t;
-  float sc[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    sc[i] = (!GROUPED && col0 + i < p.N) ? __bfloat162float(p.s[col0 + i]) : 1.f;
-  OUT* const y = static_cast<OUT*>(p.y);
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m_blk + wm + mt * 16 + g + 8 * h;
-      if (row >= p.M) continue;
-      OUT* out = y + static_cast<long long>(row) * p.N + col0;
-      __align__(16) OUT v[8];
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[4 * c + j] = cast_out<OUT>(acc[mt][j][2 * h + c] * sc[4 * c + j]);
-      if (p.yvec) {  // N is a multiple of 8: the 8 columns are all inside, 16-byte aligned
-        if (col0 < p.N) {
-          const uint4* src = reinterpret_cast<const uint4*>(v);
-          uint4* dst = reinterpret_cast<uint4*>(out);
-#pragma unroll
-          for (int q = 0; q < static_cast<int>(sizeof(v) / 16); ++q) dst[q] = src[q];
+    for (int h = 0; h < 2; ++h) {  // stage 2 kp + h takes half h of x
+      const int st = 2 * kp + h, slot = st % STAGES;
+      mbar_wait(bars.empty + 8 * slot, ((st / STAGES) & 1) ^ 1);
+      stage[h] = smem + slot * T::STAGE;
+      if (p.xtma) {
+        if (pt == 0) {
+          mbar_arrive_tx(bars.full + 8 * slot, T::X_TILE);
+          tma_load_3d(smem_u32(stage[h]), xmap, bars.full + 8 * slot, kp * BKP, h, m_blk);
         }
       } else {
+        for (int i = pt; i < T::BM * 8; i += 128) {
+          const int r = i / 8, ch = i % 8;
+          const int row = m_blk + r, col = kp * BKP + ch * 8;
+          const bf16* src = p.x + static_cast<long long>(row) * p.K + h * Kh + col;
+          __align__(16) bf16 v[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          if (col0 + i < p.N) out[i] = v[i];
+          for (int e = 0; e < 8; ++e)
+            v[e] = (row < p.M && col + e < Kh) ? src[e] : __float2bfloat16(0.f);
+          *reinterpret_cast<uint4*>(stage[h] + r * ROW_BYTES + ((ch ^ (r & 7)) << 4)) =
+              *reinterpret_cast<const uint4*>(v);
+        }
+        if (pt == 0) mbar_arrive(bars.full + 8 * slot);  // in place of the copy's arrival
+      }
+    }
+
+    if (GROUPED) {  // rows 64 kp ..: group kp / 2; the high half's is K / 256 further
+      const bf16* rlo = p.s + static_cast<long long>(kp >> 1) * p.N;
+      const bf16* rhi = p.s + static_cast<long long>((kp >> 1) + (p.K >> 8)) * p.N;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n_blk + 4 * c4 + j;
+        const bool ok = col < p.N;
+        slo[j] = __bfloat162bfloat162(ok ? rlo[col] : __float2bfloat16(0.f));
+        shi[j] = __bfloat162bfloat162(ok ? rhi[col] : __float2bfloat16(0.f));
+      }
+    }
+
+    if (p.wtma)
+      mbar_wait(pbar, use & 1);
+    else
+      producer_sync(q);  // the warpgroup's loads of the packed tile are in
+    unsigned char* const blo = stage[0] + T::X_TILE;
+    unsigned char* const bhi = stage[1] + T::X_TILE;
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const int rg = (rg0 + it) & 7;
+      uint32_t w[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        w[i] = ld32(pk + (8 * rg + i) * BN + 4 * c4) ^ 0x88888888u;  // nibble + 8
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t lo[4], hi[4];
+#pragma unroll
+        for (int pp = 0; pp < 4; ++pp) {
+          // byte j of rows 2 pp and 2 pp + 1: nibble | 0x4300 is the bf16
+          // 128 + nibble, minus 136 the weight (exact); times the scale pair,
+          // rounded once as the plain version's fp32 product rounded to bf16
+          const uint32_t sel = __byte_perm(w[2 * pp], w[2 * pp + 1], 0x4400 + 0x1111 * j);
+          __nv_bfloat162 l = __hsub2(as_bf162((sel & 0x000F000Fu) | 0x43004300u), bias);
+          __nv_bfloat162 h = __hsub2(as_bf162(((sel >> 4) & 0x000F000Fu) | 0x43004300u), bias);
+          if (GROUPED) {
+            l = __hmul2(l, slo[j]);
+            h = __hmul2(h, shi[j]);
+          }
+          lo[pp] = as_u32(l);
+          hi[pp] = as_u32(h);
+        }
+        const int r = b_row(4 * c4 + j);
+        const int off = r * ROW_BYTES + ((rg ^ (r & 7)) << 4);
+        *reinterpret_cast<uint4*>(blo + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        *reinterpret_cast<uint4*>(bhi + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      }
+    }
+    fence_proxy_async();
+    mbar_arrive(bars.full + 8 * ((2 * kp) % STAGES));
+    mbar_arrive(bars.full + 8 * ((2 * kp + 1) % STAGES));
+    producer_sync(q);  // every thread is done with the packed slot: refill it
+    if (kp + PRODUCERS < nkp) load_packed(kp + PRODUCERS);
+  }
+}
+
+// A consumer warpgroup: rows 64 wg .. of the tile, 4 wgmma a stage (k steps
+// of 16), then the epilogue.
+template <int NC, bool GROUPED, typename OUT>
+__device__ __forceinline__ void p4_consume(const TcParams& p, unsigned char* smem, int m_blk,
+                                           int n_blk, int nkt) {
+  using T = Tc<NC>;
+  const int wg = threadIdx.x / 128;
+  const uint32_t base = smem_u32(smem);
+  const Bars<NC> bars(base);
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {  // stage kt: packed tile kt / 2, x's half kt % 2
+    const int slot = kt % STAGES;
+    mbar_wait(bars.full + 8 * slot, (kt / STAGES) & 1);
+    const uint32_t st = base + slot * T::STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_128(acc, sw128_desc(st + wg * 64 * ROW_BYTES + 32 * kk),
+                sw128_desc(st + T::X_TILE + 32 * kk));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: release its slot
+    if (kt > 0) mbar_arrive(bars.empty + 8 * ((kt - 1) % STAGES));
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+
+  // thread (warp w, g, t) holds rows 16 w + g and + 8 of its warpgroup's 64,
+  // columns 32 t .. 32 t + 31: value o of a row is acc[4 (o / 2) + 2 h + o % 2]
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  OUT* const y = static_cast<OUT*>(p.y);
+  constexpr int V = 16 / sizeof(OUT);  // values per 16-byte store
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {  // 16 columns at a time
+    const int col0 = n_blk + 32 * t + 16 * k;
+    float sc[16];
+#pragma unroll
+    for (int o = 0; o < 16; ++o)
+      sc[o] = (!GROUPED && col0 + o < p.N) ? __bfloat162float(p.s[col0 + o]) : 1.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m_blk + 64 * wg + 16 * warp + g + 8 * h;
+      if (row >= p.M) continue;
+      OUT* out = y + static_cast<long long>(row) * p.N + col0;
+      __align__(16) OUT v[16];
+#pragma unroll
+      for (int o = 0; o < 16; ++o)
+        v[o] = cast_out<OUT>(acc[32 * k + 4 * (o >> 1) + 2 * h + (o & 1)] * sc[o]);
+#pragma unroll
+      for (int i = 0; i < 16 / V; ++i) {
+        if (p.yvec && col0 + (i + 1) * V <= p.N) {
+          reinterpret_cast<uint4*>(out)[i] = reinterpret_cast<const uint4*>(v)[i];
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            if (col0 + i * V + e < p.N) out[i * V + e] = v[i * V + e];
+        }
       }
     }
   }
 }
 
-template <bool GROUPED, typename OUT>
-int launch_mma(const TcParams& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      p4_mma<GROUPED, OUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN);  // M fastest: the blocks
+template <int NC, bool GROUPED, typename OUT>
+__global__ void __launch_bounds__(Tc<NC>::THREADS, 1)
+    p4_wgmma(const __grid_constant__ CUtensorMap xmap,
+             const __grid_constant__ CUtensorMap wmap, const TcParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int m_blk = blockIdx.x * Tc<NC>::BM, n_blk = blockIdx.y * BN;
+  if (threadIdx.x == 0) {
+    const Bars<NC> bars(smem_u32(smem));
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(bars.full + 8 * i, 129);  // a producer warpgroup's 128 threads + the x copy
+      mbar_init(bars.empty + 8 * i, 128 * NC);
+    }
+    for (int i = 0; i < PRODUCERS; ++i) mbar_init(bars.pfull + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= 128 * NC)
+    p4_produce<NC, GROUPED>(&xmap, &wmap, p, smem, m_blk, n_blk);
+  else
+    p4_consume<NC, GROUPED, OUT>(p, smem, m_blk, n_blk, 2 * ((p.K / 2 + BKP - 1) / BKP));
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda at run time (no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(sym);
+  }
+  return fn;
+}
+
+// x [M, K] as [M][2][K/2]: one map serves both halves, and columns past K/2
+// and rows past M read as zero
+int x_map(CUtensorMap* map, const TcParams& p, int bm) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(p.K / 2), 2,
+                              static_cast<cuuint64_t>(p.M)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(p.K / 2) * 2,
+                                 static_cast<cuuint64_t>(p.K) * 2};
+  const cuuint32_t box[3] = {64, 1, static_cast<cuuint32_t>(bm)};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode_tiled()(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(p.x), dims, strides, box,
+      step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// qp [K/2, N] bytes; rows past K/2 and columns past N read as zero (weight 0)
+int w_map(CUtensorMap* map, const TcParams& p) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.N), static_cast<cuuint64_t>(p.K / 2)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.N)};
+  const cuuint32_t box[2] = {BN, BKP};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode_tiled()(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(p.qp), dims, strides, box,
+      step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int NC, bool GROUPED, typename OUT>
+int launch_wgmma(const TcParams& p, cudaStream_t stream) {
+  using T = Tc<NC>;
+  const auto kernel = p4_wgmma<NC, GROUPED, OUT>;
+  CUtensorMap xmap, wmap;
+  memset(&xmap, 0, sizeof(xmap));
+  memset(&wmap, 0, sizeof(wmap));
+  if ((p.xtma || p.wtma) && encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorNotSupported);
+  int err = p.xtma ? x_map(&xmap, p, T::BM) : 0;
+  if (err == 0 && p.wtma) err = w_map(&wmap, p);
+  if (err != 0) return err;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((p.M + T::BM - 1) / T::BM, (p.N + BN - 1) / BN);  // M fastest: the blocks
   // in flight share a few column tiles of the weight
-  p4_mma<GROUPED, OUT><<<grid, TC_THREADS, TC_SMEM, stream>>>(p);
+  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(xmap, wmap, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool GROUPED, typename OUT>
+int launch_tc(const TcParams& p, cudaStream_t stream) {
+  return p.M <= 64 ? launch_wgmma<1, GROUPED, OUT>(p, stream)
+                   : launch_wgmma<2, GROUPED, OUT>(p, stream);
 }
 
 template <bool GROUPED>
@@ -532,11 +796,10 @@ int run(const void* x, const int8_t* qp, const bf16* s, void* y, float* ws, int 
   TcParams p;
   p.x = xb; p.qp = qp; p.s = s; p.y = y;
   p.M = M; p.K = K; p.N = N;
-  p.xvec = ((K / 2) % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) ? 1 : 0;
-  p.wvec = (N % 16 == 0 && reinterpret_cast<uintptr_t>(qp) % 16 == 0) ? 1 : 0;
+  p.xtma = ((K / 2) % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) ? 1 : 0;
+  p.wtma = (N % 16 == 0 && reinterpret_cast<uintptr_t>(qp) % 16 == 0) ? 1 : 0;
   p.yvec = (N % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0) ? 1 : 0;
-  return out_f32 ? launch_mma<GROUPED, float>(p, stream)
-                 : launch_mma<GROUPED, bf16>(p, stream);
+  return out_f32 ? launch_tc<GROUPED, float>(p, stream) : launch_tc<GROUPED, bf16>(p, stream);
 }
 
 }  // namespace
