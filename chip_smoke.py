@@ -196,6 +196,13 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = BF16_FLOPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def rate_line(name: str, r: dict, flops: float) -> None:
+    """The achieved rate of an attention row and its share of its bound."""
+    print(f"  {name}: {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{100 * r['bound'][0] / r['ms']:.1f} % of its bound "
+          f"({r['bound'][1]}, {r['bound'][0]:.4f} ms)", flush=True)
+
+
 def kernel_checks(torch):
     """Phase 3: each kernel against its plain version at serving shapes."""
     import torch.nn.functional as F
@@ -242,6 +249,7 @@ def kernel_checks(torch):
         **cmp, ms=median_ms(torch, lambda: flash_attention(q, k, v, bias, True)),
         plain_ms=median_ms(torch, lambda: flash_attention(q, k, v, bias, True, impl="plain")),
         library_ms=median_ms(torch, lib), bound=bound(nbytes, flops))
+    rate_line("flash_attention", rows["flash_attention"], flops)
     del q, k, v, out, ref, lib_mask
 
     # ViT attention: one 16-frame chunk [16, 592, 1024], 16 heads x 64,
@@ -265,6 +273,7 @@ def kernel_checks(torch):
         **cmp, ms=median_ms(torch, lambda: vit_attention_btd(q, k, v, TQ, NH)),
         plain_ms=median_ms(torch, lambda: vit_attention_btd(q, k, v, TQ, NH, impl="plain")),
         library_ms=median_ms(torch, lib), bound=bound(nbytes, flops))
+    rate_line("vit_attention_btd", rows["vit_attention_btd"], flops)
     del qkv, q, k, v, out, ref
 
     # decode attention: L=32, B=4, S=2304, layer 17's stripe, half the
@@ -573,6 +582,7 @@ def flash_backward_checks(torch, g, rows: dict) -> None:
         **cmp, ms=median_ms(torch, fwd), plain_ms=median_ms(torch, lambda: fwd("plain")),
         library_ms=lib_fwd_ms,
         bound=bound(io(H + 2 * HKV) + io(H) + stats + bias.numel() * 4, 2 * product))
+    rate_line("flash_attention_fwd_res", rows["flash_attention_fwd_res"], 2 * product)
     del o_ref, lse_ref, lib_out, lib_leaves, lib_mask
 
     delta = fb.flash_attention_bwd_delta(o, do)

@@ -63,14 +63,35 @@ def _bf16(rng, shape, dev):
     return torch.from_numpy(_normal(rng, *shape)).to(dev, torch.bfloat16)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,H,Hkv,T,hd,pad", [(2, 8, 2, 300, 128, 37), (1, 4, 4, 128, 64, 0)])
-def test_flash_kernel_matches_plain(cuda, B, H, Hkv, T, hd, pad):
-    rng = np.random.default_rng(6)
+FLASH_CASES = [  # B, H, Hkv, T, hd, pad, side
+    (2, 8, 2, 300, 128, 37, "left"),
+    (1, 4, 4, 128, 64, 0, "left"),
+    # the forward's tile edges: 128 query rows a block, 128 keys a tile
+    (2, 8, 2, 128, 128, 0, "left"),     # one whole query tile
+    (1, 4, 1, 129, 128, 5, "left"),     # a second query tile holding one row
+    (2, 8, 2, 257, 128, 20, "right"),   # right padding: every row sees a key
+    (1, 8, 2, 257, 64, 0, "left"),      # hd = 64, GQA group 4
+    (2, 16, 4, 129, 64, 3, "right"),    # hd = 64, GQA group 4, right padding
+]
+
+
+def _flash_inputs(cuda, B, H, Hkv, T, hd, pad, side, seed=6):
+    rng = np.random.default_rng(seed)
     q, k, v = _bf16(rng, (B, H, T, hd), cuda), _bf16(rng, (B, Hkv, T, hd), cuda), \
         _bf16(rng, (B, Hkv, T, hd), cuda)
     bias = torch.zeros((B, T), device=cuda)
-    bias[0, :pad] = -1e30
+    if pad:
+        if side == "left":
+            bias[0, :pad] = -1e30
+        else:
+            bias[0, T - pad:] = -1e30
+    return q, k, v, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,T,hd,pad,side", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, B, H, Hkv, T, hd, pad, side):
+    q, k, v, bias = _flash_inputs(cuda, B, H, Hkv, T, hd, pad, side)
     n = flash_attention.launches
     got = flash_attention(q, k, v, bias, True)
     torch.cuda.synchronize()
@@ -78,18 +99,70 @@ def test_flash_kernel_matches_plain(cuda, B, H, Hkv, T, hd, pad):
     want = flash_attention(q, k, v, bias, True, impl="plain")
     assert torch.isfinite(got).all()
     # left-padded rows see no key; their (finite) values are unspecified
-    _assert_matches(got[:, :, pad:], want[:, :, pad:], ATOL["flash"])
+    real = pad if side == "left" else 0
+    _assert_matches(got[:, :, real:], want[:, :, real:], ATOL["flash"])
 
 
 @pytest.mark.cuda
-def test_vit_kernel_matches_plain_on_fused_slices(cuda):
-    B, P, NH, HD, TQ = 3, 80, 4, 64, 77
+@pytest.mark.parametrize("B,P,NH,HD,TQ", [(3, 80, 4, 64, 77), (2, 592, 16, 64, 577)])
+def test_vit_kernel_matches_plain_on_fused_slices(cuda, B, P, NH, HD, TQ):
     rng = np.random.default_rng(7)
     qkv = _bf16(rng, (B, P, 3 * NH * HD), cuda)
     q, k, v = qkv.split(NH * HD, dim=-1)  # strided column slices, read in place
     got = vit_attention_btd(q, k, v, TQ, NH)
     want = vit_attention_btd(q, k, v, TQ, NH, impl="plain")
     _assert_matches(got[:, :TQ], want[:, :TQ], ATOL["vit"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", ["flash_attention", "vit_attention_btd",
+                                 "flash_attention_fwd_res"])
+def test_attention_forward_repeats_bit_for_bit(cuda, row):
+    """The forward sums in a fixed order and has no atomics: two launches on
+    the same inputs give the same bits, for each of the rows it serves."""
+    from trace_tpu_torch.kernels.flash_backward import flash_attention_fwd_res
+
+    if row == "vit_attention_btd":
+        rng = np.random.default_rng(20)
+        q, k, v = _bf16(rng, (2, 592, 3 * 1024), cuda).split(1024, dim=-1)
+        run = lambda: (vit_attention_btd(q, k, v, 577, 16),)
+    else:
+        q, k, v, bias = _flash_inputs(cuda, 2, 8, 2, 300, 128, 37, "left", seed=20)
+        if row == "flash_attention":
+            run = lambda: (flash_attention(q, k, v, bias, True),)
+        else:
+            run = lambda: flash_attention_fwd_res(q, k, v, bias, causal=True)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_forward_pv_product_on_one_tile(cuda, hd):
+    """The forward's O += P V on one tile alone (P in the A fragments, V
+    through its tensor map and the MN-major swizzled descriptor) against
+    torch.matmul in fp32: bf16 x bf16 products are exact in fp32, so only the
+    summation order differs. A wrong descriptor offset moves whole blocks of
+    O."""
+    import ctypes
+
+    from trace_tpu_torch.kernels.build import check, load
+
+    lib = load("attention.cu")
+    bk = lib.attn_fwd_tile_keys(hd)
+    assert bk in (64, 128)
+    rng = np.random.default_rng(21)
+    p = torch.from_numpy(rng.random((64, bk)).astype(np.float32)).to(cuda, torch.bfloat16)
+    v = _bf16(rng, (bk, hd), cuda)
+    o = torch.empty((64, hd), dtype=torch.float32, device=cuda)
+    fn = lib.attn_pv_tile_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    check(fn(p.data_ptr(), v.data_ptr(), o.data_ptr(), hd,
+             torch.cuda.current_stream().cuda_stream), "attn_pv_tile_bf16")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, p.float() @ v.float(), atol=1e-4, rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -483,6 +556,9 @@ def test_int8_decode_kernel_matches_plain(cuda, mode, L, B, NKV, G, S, HD):
 
 @pytest.mark.cuda
 def test_int8_product_on_the_card_is_exact_or_refused(cuda):
+    """Exact integer sums past 2^24, also at shapes ``torch._int_mm`` does
+    not take (16 rows or fewer; N no multiple of 8), which the wrapper
+    zero-pads."""
     rng = np.random.default_rng(12)
     a = torch.from_numpy(rng.integers(100, 128, (32, 1600), dtype=np.int8)).to(cuda)
     b = torch.from_numpy(rng.integers(100, 128, (1600, 24), dtype=np.int8)).to(cuda)
@@ -490,10 +566,50 @@ def test_int8_product_on_the_card_is_exact_or_refused(cuda):
     assert exact.max() > 2 ** 24
     for impl in ("auto", "plain"):
         assert torch.equal(int8_matmul(a, b, impl=impl).cpu(), exact.float())
-    with pytest.raises(ValueError):
-        int8_matmul(a[:16], b)       # 16 rows or fewer
-    with pytest.raises(ValueError):
-        int8_matmul(a, b[:, :20])    # N no multiple of 8
+    assert torch.equal(int8_matmul(a[:16], b).cpu(), exact[:16].float())
+    assert torch.equal(int8_matmul(a, b[:, :20]).cpu(), exact[:, :20].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(2, 4096, 4096), (16, 4096, 4096), (2, 200, 100),
+                                   (16, 200, 100), (40, 200, 100)])
+def test_int8_product_on_the_card_takes_any_shape(cuda, M, K, N):
+    """W8A8 at few rows or ragged K, N: ``torch._int_mm`` on zero-padded
+    operands, bit for bit the plain product, also through the W8A8 epilogue."""
+    rng = np.random.default_rng(22)
+    a = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8)).to(cuda)
+    q, s = _int8_weight(rng, (K, N), cuda)
+    assert torch.equal(int8_matmul(a, q), int8_matmul(a, q, impl="plain"))
+    xq, xs = quantize_acts(torch.from_numpy(_normal(rng, M, K)).to(cuda))
+    got = quant_apply_w8a8(xq, xs, {"q": q, "s": s}, (N,))
+    assert torch.equal(got, quant_apply_w8a8(xq, xs, {"q": q, "s": s}, (N,), impl="plain"))
+
+
+@pytest.mark.cuda
+def test_w8a8_decoder_forward_without_cache_at_few_rows(cuda):
+    """A cache-less W8A8 ``decoder_forward`` with B * T = 10 rows and an MLP
+    width no multiple of 8 runs on the card and agrees with the plain path
+    (the same integer sums; the attention kernel's rounding)."""
+    import dataclasses
+
+    from trace_tpu_torch.model.config import DecoderConfig
+    from trace_tpu_torch.model.mistral import decoder_forward
+    from trace_tpu_torch.model.quantize import quantize_decoder_params
+    from trace_tpu_torch.params import _decoder, _Init
+
+    cfg = dataclasses.replace(DecoderConfig.tiny(), hidden_size=256, intermediate_size=100,
+                              num_heads=4, num_kv_heads=2, head_dim=64, act_quant=True)
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    params = quantize_decoder_params(_decoder(cfg, _Init(gen, cuda, torch.bfloat16)))
+    B, T = 2, 5
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(_normal(rng, B, T, cfg.hidden_size)).to(cuda, torch.bfloat16)
+    mask = torch.ones((B, T), dtype=torch.bool, device=cuda)
+    pos = torch.arange(T, device=cuda)[None].expand(B, T)
+    got, _ = decoder_forward(params, cfg, x, mask, pos)
+    want, _ = decoder_forward(params, cfg, x, mask, pos, impl="plain")
+    assert got.shape == (B, T, cfg.hidden_size) and torch.isfinite(got).all()
+    assert ((got.float() - want.float()).norm() / want.float().norm()).item() <= REL_NORM
 
 
 @pytest.mark.cuda

@@ -38,6 +38,10 @@ def _normal(rng, *shape):
         (1, 2, 2, 128, 64, False),   # ViT-like (MHA, bidirectional)
         (2, 4, 2, 256, 128, True),   # LM-like (GQA, causal)
         (1, 2, 1, 200, 64, True),    # Tq/Tk not a multiple of the block
+        # one row past the CUDA kernel's 128-row query and 128-key tiles,
+        # and past two
+        (1, 2, 1, 129, 128, True),   # causal, hd 128
+        (1, 2, 2, 257, 64, False),   # bidirectional, hd 64
     ],
 )
 def test_flash_plain_matches_pallas(B, H, Hkv, T, hd, causal):

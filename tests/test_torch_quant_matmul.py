@@ -153,6 +153,23 @@ def test_quantize_acts_is_exact(dtype):
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
+@pytest.mark.parametrize("N", [100, 4096])
+@pytest.mark.parametrize("K", [200, 4100])
+@pytest.mark.parametrize("M", [1, 2, 16, 17])
+def test_int8_operands_padded_for_int_mm_keep_the_product(M, K, N):
+    """The zero padding that lets ``torch._int_mm`` take any shape on the
+    card (more than 16 rows, K and N multiples of 8) leaves the integer
+    product, sliced back to [M, N], bit for bit what it was."""
+    rng = np.random.default_rng(M * 7 + K + N)
+    a = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8))
+    ap, bp = tqmm.pad_for_int_mm(a, b)
+    assert ap.shape[0] > 16 and ap.shape[1] % 8 == 0 and bp.shape[1] % 8 == 0
+    assert ap.shape[1] == bp.shape[0] and ap.dtype == bp.dtype == torch.int8
+    got = (ap.to(torch.int32) @ bp.to(torch.int32))[:M, :N]
+    assert torch.equal(got, a.to(torch.int32) @ b.to(torch.int32))
+
+
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 def test_quant_apply_w8a8_matches_jax(out_dtype):
     rng = np.random.default_rng(23)

@@ -1,225 +1,666 @@
-// Tiled attention forward for Hopper (sm_90a): bf16 in, bf16 out, fp32
-// softmax statistics and accumulators.
+// Attention forward for Hopper (sm_90a): bf16 in, bf16 out, fp32 softmax
+// statistics and accumulators.
 //
-// One kernel serves two TPU kernels of trace_tpu/kernels/flash_attention.py:
-//   * flash_attention (_attn_kernel): causal GQA prefill attention over
-//     [B, H, T, hd] with an additive fp32 [B, Tk] padding bias;
-//   * vit_attention_btd (_btd_kernel): bidirectional ViT attention read and
-//     written in place in the [B, P, D] layout (head h = columns h*hd..),
-//     keys >= kv_len masked.
+// One kernel serves three TPU kernels:
+//   * flash_attention (_attn_kernel) of trace_tpu/kernels/flash_attention.py:
+//     causal GQA prefill attention over [B, H, T, hd] with an additive fp32
+//     [B, Tk] padding bias;
+//   * vit_attention_btd (_btd_kernel), same file: bidirectional ViT attention
+//     read and written in place in the [B, P, D] layout (head h = columns
+//     h*hd..), keys >= kv_len masked;
+//   * flash_attention_fwd_res (_fwd_res_kernel) of
+//     trace_tpu/kernels/flash_backward.py: the same forward, which with an
+//     ``lse`` pointer also writes each query row's fp32 natural-log
+//     logsumexp m + log(sum exp(s - m)), the residual of attention_bwd.cu.
 // The caller passes element strides for (batch, head, token) of q, k, v and
-// o, so both layouts are plain strided reads. With an ``lse`` pointer it is
-// also flash_attention_fwd_res of trace_tpu/kernels/flash_backward.py
-// (_fwd_res_kernel): the same forward, which also writes each query row's
-// fp32 logsumexp m + log(sum exp(s - m)), the residual of the backward
-// kernels in attention_bwd.cu.
+// o; the operands are read through TMA tensor maps built from them: a
+// [B, H, T, hd] operand as a 4-D map (column, token, head, batch), the ViT's
+// column slices of the fused [B, P, 3D] projection, whose heads are
+// neighbouring 64- or 128-column blocks of a row, as a 3-D map (h*hd +
+// column, token, batch) with the slice's own row stride and base pointer.
 //
-// The TPU kernel keeps a whole [block_q, Tk] fp32 score row block in VMEM.
-// At Tk = 2048 that is 512 KB for 64 rows, beyond the 227 KB of shared
-// memory a block may use here, so this kernel runs an online softmax over
-// 64-key tiles instead (FlashAttention-2 order): one block per (q-tile of
-// 64 rows, head, batch row), four warps, each warp owning 16 query rows.
-// Both products run on the tensor cores as mma.sync m16n8k16 (bf16 in,
-// fp32 accumulate); a warp keeps its Q fragments, its 16x64 score tile and
-// its 16xhd output accumulator in registers, so only the K and V tiles pass
-// through shared memory, double buffered with cp.async so the next tile's
-// copy overlaps this tile's math, and the scores never leave the SM. With
-// causal masking, key tiles past the tile's last query row are skipped.
+// Bound on an H100: operations at the prefill shape (~59 GFLOP of visible
+// causal pairs, 0.060 ms at the bf16 peak); the ViT chunk sits at the ridge
+// (~22 GFLOP over ~76 MB, 0.023 ms by bytes), and there the exponentials
+// (one per score, 16 a cycle on an SM) take as long as the products.
 //
-// Masks use the finite -1e30 of the JAX package, never -inf: a row whose
-// keys are all masked averages its visible values and stays finite.
+// Design (FlashAttention-3's shape, without its ping-pong scheduling): a block
+// owns 128 query rows of one (head, batch row) and has three warpgroups.
+//   * The producer: one thread issues TMA copies, Q once, then K and V tiles
+//     of 128 keys into a ring of 2 stages at hd = 128 (all the shared memory
+//     there is) and 3 at hd = 64, with full and empty mbarriers per stage.
+//     Every tile sits in shared memory in the 128-byte swizzle as 64-column
+//     boxes (two per row at hd = 128).
+//     Rows past Tk arrive zero-filled and are masked below.
+//   * Two consumer warpgroups of 64 query rows each. Per key tile:
+//     S = Q K^T as wgmma.mma_async m64n128k16 (Q and K both K-major from
+//     shared memory), then the online softmax on the accumulator registers
+//     (a thread holds rows 16w+g and 16w+g+8; scores prescaled by
+//     scale * log2(e), ex2; the row max reduced over the quad, the row sum
+//     kept per thread until the end), O rescaled, and O += P V as wgmma
+//     m64nHDk16 with P from registers: the S accumulator layout is the A
+//     fragment layout, so P is the accumulator packed to bf16 pairs, and V is
+//     read MN-major through the transpose bit. Then the stage is released.
+//     At hd = 128 that is 160 accumulator and fragment registers a thread:
+//     setmaxnreg moves registers from the producer warpgroup (24) to the
+//     consumers (240).
+//   * Causal blocks are issued longest first (the q-tile index is the
+//     slowest grid dimension, reversed), key tiles past a warpgroup's last
+//     row are skipped, and a warpgroup whose rows all lie past Tq does no
+//     work. The epilogue stages O through the warpgroup's own rows of the Q
+//     tile so that each thread writes 16-byte rows of o.
+// What sets the pace (PERF.md): the softmax between a warpgroup's two
+// products; with it cut out, the products and copies alone run much faster.
+// Each form of the softmax (with or without a bias, with or without
+// masks) is one straight block of code: with a branch per score the compiler
+// scheduled dozens of small blocks and the kernel ran markedly slower. The
+// two consumer warpgroups are not ordered against each other, so they tend
+// to reach their softmax together; a ping-pong order between them and an S
+// product issued ahead of the softmax inside a warpgroup were tried (with
+// 64-key tiles at hd = 128), and each gained a few percent at hd = 128 and
+// lost at hd = 64 (registers), so neither is kept. The sums run in a fixed
+// order and nothing is atomic: a repeat gives the same bits.
+//
+// Masks use the finite -1e30 of the JAX package, never -inf (keys past Tk,
+// which the tensor does not hold, are dropped): a row whose keys are all
+// masked averages the keys of the tiles it visits and stays finite, and its
+// lse is written as -1e30 + log(l), exactly -1e30, as the plain version's.
 
-#include "attention_common.cuh"
+#include "hopper_common.cuh"
+
+typedef __nv_bfloat16 bf16;
 
 namespace {
 
+constexpr int BQ = 128;         // query rows of a block
+constexpr int CONSUMERS = 2;    // consumer warpgroups, 64 rows each
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int ROW_BYTES = 128;  // a 64-column box row in shared memory
+constexpr float NEG_INF = -1e30f;
 constexpr float M_INIT = -1e38f;  // running-max start, below any masked score
-
-struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const float* bias;  // [B, Tk] additive, or null
-  bf16* o;
-  float* lse;         // [B, H, Tq] m + log(sum exp(s - m)) per query row, or null
-  int group;          // query heads per kv head
-  int tq, tk, kv_len, causal;
-  float scale;
-  long long sqb, sqh, sqt;
-  long long skb, skh, skt;
-  long long svb, svh, svt;
-  long long sob, soh, sot;
-  long long sbias;
-};
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS) attn_fwd_kernel(Params p) {
-  constexpr int LD = pitch<HD>();
-  constexpr int NT = BK / 8;   // 8-key column tiles of S
-  constexpr int NO = HD / 8;   // 8-wide column tiles of O
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* const Kbuf = reinterpret_cast<bf16*>(smem);  // [2][BK * LD], double buffered
-  bf16* const Vbuf = Kbuf + 2 * BK * LD;             // [2][BK * LD]
+struct Cfg {
+  static constexpr int BK = 128;                    // keys per tile
+  // K/V tiles in flight: at hd = 128 two stages of 64 KB fill the shared
+  // memory beside Q's 32 KB
+  static constexpr int STAGES = HD == 128 ? 2 : 3;
+  static constexpr int Q_BYTES = BQ * HD * 2;      // [HD / 64][BQ rows][128 B]
+  static constexpr int KV_BYTES = BK * HD * 2;     // a K or a V tile, [HD / 64][BK rows][128 B]
+  static constexpr int STAGE = 2 * KV_BYTES;
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;  // + alignment
+};
+static_assert(Cfg<128>::SMEM <= 232448 && Cfg<64>::SMEM <= 232448, "shared memory");
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+struct Params {
+  const float* bias;  // [B, Tk] additive, or null
+  bf16* o;
+  float* lse;         // [B, H, Tq] natural-log logsumexp per query row, or null
+  int H, group, tq, tk, kv_len, causal;
+  float scale_log2;   // hd^-0.5 * log2(e)
+  long long sob, soh, sot, sbias;
+  int qfold, kfold, vfold;  // the operand's map is (h*hd + column, token, batch)
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void consumer_sync(int wg) {  // consumer warpgroup wg alone
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+}
+
+// rows x HD of an operand (tokens token.., head, batch row b) into its
+// 64-column boxes at dst
+template <int HD>
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, int fold,
+                                          uint32_t bar, int token, int head, int b, int rows) {
+#pragma unroll
+  for (int cb = 0; cb < HD / 64; ++cb) {
+    const uint32_t box = dst + cb * rows * ROW_BYTES;
+    if (fold)
+      tma_load_3d(box, map, bar, head * HD + cb * 64, token, b);
+    else
+      tma_load_4d(box, map, bar, cb * 64, token, head, b);
+  }
+}
+
+// d [64 x 64] (+)= A [64 x 16] B [16 x 64], A and B K-major in shared memory;
+// accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d [64 x 128] (+)= A [64 x 16] B [16 x 128], A and B K-major in shared memory;
+// accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d [64 x 64] += A [64 x 16] B [16 x 64], A from registers (the fragment of
+// mma.m16n8k16 per warp), B MN-major in shared memory (transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d [64 x 128] += A [64 x 16] B [16 x 128], A from registers (the fragment of
+// mma.m16n8k16 per warp), B MN-major in shared memory (transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+
+template <int N> struct Wgmma;
+template <> struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+    wgmma_ss_n64(d, a, b, acc);
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    wgmma_rs_n64(d, a, b);
+  }
+};
+template <> struct Wgmma<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    wgmma_ss_n128(d, a, b, acc);
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    wgmma_rs_n128(d, a, b);
+  }
+};
+
+// S [64 x BK] = Q [64 x HD] K^T: qa the warpgroup's rows of the Q tile
+// (BQ-row boxes), ks a K tile (BK-row boxes)
+template <int HD>
+__device__ __forceinline__ void qk_product(float (&s)[Cfg<HD>::BK / 2], uint32_t qa, uint32_t ks) {
+  constexpr int BK = Cfg<HD>::BK;
+#pragma unroll
+  for (int kc = 0; kc < HD / 16; ++kc)
+    Wgmma<BK>::ss(s, sw128_desc(qa + (kc / 4) * BQ * ROW_BYTES + (kc % 4) * 32),
+                  sw128_desc(ks + (kc / 4) * BK * ROW_BYTES + (kc % 4) * 32), kc > 0);
+}
+
+// O [64 x HD] += P [64 x BK] V: pa the P fragments of the BK / 16 key
+// slices, vs a V tile, read MN-major (its HD / 64 boxes BK rows apart)
+template <int HD>
+__device__ __forceinline__ void pv_product(float (&o)[HD / 2],
+                                           const uint32_t (&pa)[Cfg<HD>::BK / 16][4],
+                                           uint32_t vs) {
+  constexpr int BK = Cfg<HD>::BK;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    Wgmma<HD>::rs(o, pa[kk], sw128_desc_mn(vs + kk * 16 * ROW_BYTES, BK * ROW_BYTES));
+}
+
+template <int HD>
+__device__ __forceinline__ void produce(const CUtensorMap* qmap, const CUtensorMap* kmap,
+                                        const CUtensorMap* vmap, const Params& p, uint32_t base,
+                                        int h, int b, int q0, int ntiles) {
+  using C = Cfg<HD>;
+  const uint32_t q_full = base + C::BAR_OFF;
+  constexpr int STAGES = C::STAGES;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * STAGES, empty = v_full + 8 * STAGES;
   const int kvh = h / p.group;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row0 = warp * 16;
-
-  const bf16* qg = p.q + b * p.sqb + h * p.sqh + q0 * p.sqt;
-  const bf16* kg = p.k + b * p.skb + kvh * p.skh;
-  const bf16* vg = p.v + b * p.svb + kvh * p.svh;
-  const float* bias = p.bias ? p.bias + b * p.sbias : nullptr;
-
-  // Q tile through the K buffer into this warp's A fragments
-  load_tile<HD>(Kbuf, qg, p.sqt, min(BQ, p.tq - q0));
-  __syncthreads();
-  uint32_t qf[HD / 16][4];
-  {
-    const bf16* r0 = Kbuf + (row0 + g) * LD + 2 * t;
-    const bf16* r1 = r0 + 8 * LD;
-#pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
-      qf[kc][0] = ld32(r0 + kc * 16);
-      qf[kc][1] = ld32(r1 + kc * 16);
-      qf[kc][2] = ld32(r0 + kc * 16 + 8);
-      qf[kc][3] = ld32(r1 + kc * 16 + 8);
-    }
+  mbar_arrive_tx(q_full, C::Q_BYTES);
+  load_rows<HD>(base, qmap, p.qfold, q_full, q0, h, b, BQ);
+  for (int j = 0; j < ntiles; ++j) {
+    const int slot = j % STAGES;
+    if (j >= STAGES) mbar_wait(empty + 8 * slot, ((j / STAGES) - 1) & 1);
+    const uint32_t ks = base + C::Q_BYTES + slot * C::STAGE;
+    mbar_arrive_tx(k_full + 8 * slot, C::KV_BYTES);
+    load_rows<HD>(ks, kmap, p.kfold, k_full + 8 * slot, j * C::BK, kvh, b, C::BK);
+    mbar_arrive_tx(v_full + 8 * slot, C::KV_BYTES);
+    load_rows<HD>(ks + C::KV_BYTES, vmap, p.vfold, v_full + 8 * slot, j * C::BK, kvh, b, C::BK);
   }
+}
 
-  float o[NO][4];
+// epilogue: o / l through the warpgroup's own rows of the Q tile (its
+// wgmma reads of them are done), then 16-byte rows of o; lse
+template <int HD>
+__device__ __forceinline__ void finish(const Params& p, unsigned char* smem, int h, int b,
+                                       int row0, const int (&row)[2], const float (&m)[2],
+                                       const float (&l)[2], const float (&o)[HD / 2], int warp,
+                                       int g, int t) {
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
+  unsigned char* const stage = smem + wg * 64 * ROW_BYTES;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {M_INIT, M_INIT};  // rows g and g + 8 of the warp
-  float l[2] = {0.f, 0.f};
-  const int tq_row[2] = {q0 + row0 + g, q0 + row0 + g + 8};
-
-  // keys past the tile's last query row are causally masked for every row
-  const int k_end = p.causal ? min(p.tk, q0 + BQ) : p.tk;
-
-  // K/V tiles stream through two buffers: tile i+1's copy is in flight
-  // while tile i is computed
-  __syncthreads();  // Q's reads of buffer 0 are finished
-  load_tile_async<HD>(Kbuf, kg, p.skt, min(BK, p.tk));
-  load_tile_async<HD>(Vbuf, vg, p.svt, min(BK, p.tk));
-  for (int k0 = 0, stage = 0; k0 < k_end; k0 += BK, stage ^= 1) {
-    if (k0 + BK < k_end) {
-      const int nvalid = min(BK, p.tk - k0 - BK);
-      load_tile_async<HD>(Kbuf + (stage ^ 1) * BK * LD, kg + (k0 + BK) * p.skt,
-                          p.skt, nvalid);
-      load_tile_async<HD>(Vbuf + (stage ^ 1) * BK * LD, vg + (k0 + BK) * p.svt,
-                          p.svt, nvalid);
-      cp_async_wait<2>();  // this tile's two groups are done, the next two fly
-    } else {
-      cp_async_wait<0>();
+  for (int hh = 0; hh < 2; ++hh) {
+    float lt = l[hh];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float inv = 1.f / fmaxf(lt, 1e-30f);
+    const int r = 16 * warp + g + 8 * hh;
+    if (p.lse && t == 0 && row[hh] < p.tq) {
+      // a row that saw no key keeps m = -1e30 in natural-log units too
+      const float mn = m[hh] <= NEG_INF ? NEG_INF : m[hh] * LN2;
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.tq + row[hh]] = mn + logf(fmaxf(lt, 1e-30f));
     }
-    __syncthreads();
-    const bf16* Ks = Kbuf + stage * BK * LD;
-    const bf16* Vs = Vbuf + stage * BK * LD;
-
-    // S = Q K^T: 16 rows x 64 keys per warp
-    float s[NT][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const bf16* kr = Ks + (n * 8 + g) * LD + kc * 16 + 2 * t;
-        mma(s[n], qf[kc], ld32(kr), ld32(kr + 8));
-      }
-    }
-
-    // scale, bias, masks, online softmax; a row's 64 scores sit in the 4
-    // lanes of one quad (16 each)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = M_INIT;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int j = k0 + n * 8 + 2 * t + c;
-          float x = s[n][2 * r + c] * p.scale;
-          if (j < p.tk) {
-            if (bias) x += bias[j];
-            if (j >= p.kv_len || (p.causal && j > tq_row[r])) x = NEG_INF;
-            mx = fmaxf(mx, x);
-          }
-          s[n][2 * r + c] = x;
-        }
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int j = k0 + n * 8 + 2 * t + c;
-          const float e = j < p.tk ? expf(s[n][2 * r + c] - m_new) : 0.f;
-          s[n][2 * r + c] = e;
-          sum += e;
-        }
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        o[n][2 * r] *= alpha;
-        o[n][2 * r + 1] *= alpha;
-      }
-    }
-
-    // O += P V, P taken from the score registers as bf16 A fragments
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const bf16* vr = Vs + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const bf16* vc = vr + n * 8;
-        mma(o[n], a, pack(vc[0], vc[LD]), pack(vc[8 * LD], vc[9 * LD]));
-      }
-    }
-    __syncthreads();  // every warp is done with this stage's buffers
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(stage + (n / 8) * BQ * ROW_BYTES + r * ROW_BYTES +
+                                   (((n % 8) ^ (r & 7)) << 4) + 4 * t) =
+          pack(o[4 * n + 2 * hh] * inv, o[4 * n + 2 * hh + 1] * inv);
   }
+  consumer_sync(wg);
+  bf16* const og = p.o + b * p.sob + h * p.soh;
+  for (int i = threadIdx.x % 128; i < 64 * (HD / 8); i += 128) {
+    const int r = i / (HD / 8), n = i % (HD / 8);
+    if (row0 + r >= p.tq) break;  // rows only grow with i
+    *reinterpret_cast<uint4*>(og + static_cast<long long>(row0 + r) * p.sot + 8 * n) =
+        *reinterpret_cast<const uint4*>(stage + (n / 8) * BQ * ROW_BYTES + r * ROW_BYTES +
+                                        (((n % 8) ^ (r & 7)) << 4));
+  }
+}
 
+
+// The bias of the thread's keys of a tile, log2 units (loaded while the
+// tile's S product runs)
+template <int BK>
+__device__ __forceinline__ void load_bias(float (&bl)[BK / 4], const Params& p,
+                                          const float* bias, int k0, int t) {
+  if (!bias) return;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (tq_row[r] >= p.tq) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    if (p.lse && t == 0)
-      p.lse[(static_cast<long long>(b) * gridDim.y + h) * p.tq + tq_row[r]] =
-          m[r] + logf(fmaxf(l[r], 1e-30f));
-    bf16* og = p.o + b * p.sob + h * p.soh + tq_row[r] * p.sot + 2 * t;
+  for (int i = 0; i < BK / 4; ++i) {
+    const int jj = k0 + 8 * (i / 2) + 2 * t + (i % 2);
+    bl[i] = jj < p.tk ? bias[jj] * LOG2E : 0.f;
+  }
+}
+
+// The online softmax of one S tile in registers: scale (log2 units), bias,
+// masks, the running max and the thread's share of the row sums; s becomes
+// the unnormalized probabilities, alpha the factor O must be rescaled by.
+// Max and sum run as four interleaved chains, not one. EDGE and BIAS are
+// template arguments so that each form is one straight block of code:
+// a branch per score would cut the compiler's scheduling into pieces.
+// lim: the keys j < lim[hh] that row hh may see (kv_len, and the diagonal).
+template <int HD, bool EDGE, bool BIAS>
+__device__ __forceinline__ void softmax_tile(float (&s)[Cfg<HD>::BK / 2], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             const float (&bl)[Cfg<HD>::BK / 4],
+                                             const Params& p, int k0, const int (&lim)[2],
+                                             int t) {
+  constexpr int BK = Cfg<HD>::BK;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(og + n * 8) =
-          pack(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+  for (int hh = 0; hh < 2; ++hh) {
+    float mx[4] = {M_INIT, M_INIT, M_INIT, M_INIT};
+#pragma unroll
+    for (int c = 0; c < BK / 8; ++c) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = BIAS ? fmaf(s[4 * c + 2 * hh + e], p.scale_log2, bl[2 * c + e])
+                       : s[4 * c + 2 * hh + e] * p.scale_log2;
+        if (EDGE) {
+          const int jj = k0 + 8 * c + 2 * t + e;
+          x = jj < lim[hh] ? x : NEG_INF;
+          x = jj < p.tk ? x : -INFINITY;  // no such key: weight 0, not in the max
+        }
+        s[4 * c + 2 * hh + e] = x;
+        mx[(2 * c + e) % 4] = fmaxf(mx[(2 * c + e) % 4], x);
+      }
+    }
+    float mr = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 1));
+    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
+    const float m_new = fmaxf(m[hh], mr);
+    alpha[hh] = ex2(m[hh] - m_new);
+    m[hh] = m_new;
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < BK / 8; ++c) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float pe = ex2(s[4 * c + 2 * hh + e] - m_new);
+        s[4 * c + 2 * hh + e] = pe;
+        sum[(2 * c + e) % 4] += pe;
+      }
+    }
+    l[hh] = l[hh] * alpha[hh] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+  }
+}
+
+// softmax_tile in the form a tile needs; the branches are uniform
+template <int HD>
+__device__ __forceinline__ void softmax_any(float (&s)[Cfg<HD>::BK / 2], float (&m)[2],
+                                            float (&l)[2], float (&alpha)[2],
+                                            const float (&bl)[Cfg<HD>::BK / 4],
+                                            const Params& p, bool bias, int k0, bool edge,
+                                            const int (&lim)[2], int t) {
+  if (bias) {
+    if (edge) softmax_tile<HD, true, true>(s, m, l, alpha, bl, p, k0, lim, t);
+    else softmax_tile<HD, false, true>(s, m, l, alpha, bl, p, k0, lim, t);
+  } else {
+    if (edge) softmax_tile<HD, true, false>(s, m, l, alpha, bl, p, k0, lim, t);
+    else softmax_tile<HD, false, false>(s, m, l, alpha, bl, p, k0, lim, t);
+  }
+}
+
+// P as the A fragments of the key slices: slice kk is accumulator columns
+// 16 kk .. 16 kk + 15, registers s[8 kk .. 8 kk + 7]
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4], const float (&s)[BK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pa[kk][i] = pack(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+}
+
+template <int HD>
+__device__ __forceinline__ void rescale(float (&o)[HD / 2], const float (&alpha)[2]) {
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    o[4 * n] *= alpha[0];
+    o[4 * n + 1] *= alpha[0];
+    o[4 * n + 2] *= alpha[1];
+    o[4 * n + 3] *= alpha[1];
   }
 }
 
 template <int HD>
-int launch(const Params& p, int B, int H, cudaStream_t stream) {
-  const int bytes = 4 * BK * pitch<HD>() * static_cast<int>(sizeof(bf16));
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.tq + BQ - 1) / BQ, H, B);
-  attn_fwd_kernel<HD><<<grid, NTHREADS, bytes, stream>>>(p);
+__device__ __forceinline__ void consume(const Params& p, unsigned char* smem, int h, int b,
+                                        int q0, int ntiles) {
+  using C = Cfg<HD>;
+  constexpr int BK = C::BK;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t q_full = base + C::BAR_OFF;
+  constexpr int STAGES = C::STAGES;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * STAGES, empty = v_full + 8 * STAGES;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = q0 + 64 * wg;  // the warpgroup's first query row
+  const int row[2] = {row0 + 16 * warp + g, row0 + 16 * warp + g + 8};
+  const int lim[2] = {p.causal ? min(p.kv_len, row[0] + 1) : p.kv_len,
+                      p.causal ? min(p.kv_len, row[1] + 1) : p.kv_len};
+  // key tiles this warpgroup needs: none past its last row (causal), none
+  // at all when its rows lie past Tq
+  const int wg_end = p.causal ? min(p.tk, row0 + 64) : p.tk;
+  const int nt = row0 >= p.tq ? 0 : (wg_end + BK - 1) / BK;
+  const int kv_lim = min(p.tk, p.kv_len);
+  const float* bias = p.bias ? p.bias + b * p.sbias : nullptr;
+  const uint32_t qa = base + wg * 64 * ROW_BYTES;
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {M_INIT, M_INIT};  // running max, log2 units
+  float l[2] = {0.f, 0.f};        // this thread's share of the row sums
+
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const int slot = j % STAGES;
+    const uint32_t parity = (j / STAGES) & 1;
+    mbar_wait(k_full + 8 * slot, parity);
+    if (j >= nt) {  // past the warpgroup's rows: release the stage unread
+      mbar_arrive(empty + 8 * slot);
+      continue;
+    }
+    const uint32_t ks = base + C::Q_BYTES + slot * C::STAGE;
+    float s[BK / 2];  // s[4c + 2hh + e]: row row[hh], key k0 + 8c + 2t + e
+    wgmma_fence();
+    qk_product<HD>(s, qa, ks);
+    wgmma_commit();
+    const int k0 = j * BK;
+    float bl[BK / 4];
+    load_bias<BK>(bl, p, bias, k0, t);
+    wgmma_wait<0>();
+    fence_operands(s);
+    // masks only on tiles that reach past the keys or above a row's diagonal
+    const bool edge = k0 + BK > kv_lim || (p.causal && k0 + BK - 1 > row0);
+    float alpha[2];
+    softmax_any<HD>(s, m, l, alpha, bl, p, bias != nullptr, k0, edge, lim, t);
+    rescale<HD>(o, alpha);
+    uint32_t pa[BK / 16][4];
+    pack_p<BK>(pa, s);
+    mbar_wait(v_full + 8 * slot, parity);
+    wgmma_fence();
+    pv_product<HD>(o, pa, ks + C::KV_BYTES);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(o);
+    mbar_arrive(empty + 8 * slot);
+  }
+
+  finish<HD>(p, smem, h, b, row0, row, m, l, o, warp, g, t);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+    attn_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, const Params p) {
+  using C = Cfg<HD>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const int h = blockIdx.x, b = blockIdx.y;
+  // causal q tiles longest first: the last tile holds the most keys
+  const int q0 = (p.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z) * BQ;
+  const int k_end = p.causal ? min(p.tk, q0 + BQ) : p.tk;
+  const int ntiles = (k_end + C::BK - 1) / C::BK;
+  constexpr int STAGES = C::STAGES;
+  if (threadIdx.x == 0) {
+    const uint32_t q_full = base + C::BAR_OFF;
+    mbar_init(q_full, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(q_full + 8 + 8 * i, 1);                   // K full
+      mbar_init(q_full + 8 + 8 * (STAGES + i), 1);        // V full
+      mbar_init(q_full + 8 + 8 * (2 * STAGES + i), 128 * CONSUMERS);  // empty
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) >= CONSUMERS) {
+    // at hd = 128 a consumer thread holds S (64), O (64) and P (32) of a
+    // tile: the producer warpgroup gives up its registers to the consumers
+    if constexpr (HD == 128) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 128 * CONSUMERS) produce<HD>(&qmap, &kmap, &vmap, p, base, h, b, q0, ntiles);
+    return;
+  }
+  if constexpr (HD == 128) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  consume<HD>(p, smem, h, b, q0, ntiles);
+}
+
+// One consumer warpgroup's P V on a single tile: P [64, BK] row-major bf16
+// into the A fragments as the forward forms them, V [BK, HD] through the
+// forward's tensor map, load and descriptor; O [64, HD] fp32. Checks the
+// MN-major descriptor alone.
+template <int HD>
+__global__ void __launch_bounds__(128, 1)
+    pv_tile_kernel(const __grid_constant__ CUtensorMap vmap, const bf16* P, float* O) {
+  using C = Cfg<HD>;
+  constexpr int BK = C::BK;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem), bar = base + C::KV_BYTES;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_tx(bar, C::KV_BYTES);
+    load_rows<HD>(base, &vmap, 0, bar, 0, 0, 0, BK);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  uint32_t pa[BK / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 16 * warp + g + 8 * (i & 1), c = 16 * kk + 8 * (i >> 1) + 2 * t;
+      __nv_bfloat162 v = __halves2bfloat162(P[r * BK + c], P[r * BK + c + 1]);
+      pa[kk][i] = *reinterpret_cast<uint32_t*>(&v);
+    }
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  mbar_wait(bar, 0);
+  wgmma_fence();
+  pv_product<HD>(o, pa, base);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(o);
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i)
+    O[(16 * warp + g + 8 * ((i / 2) % 2)) * HD + 8 * (i / 4) + 2 * t + i % 2] = o[i];
+}
+
+// An operand [batch, heads, tokens, hd] at element strides (sb, sh, st) as a
+// tensor map with boxes of 64 columns x `rows` tokens in the 128-byte
+// swizzle; tokens past `tokens` read as zero. Heads that are neighbouring
+// column blocks of a row (sh == hd, the ViT's [B, P, D] slices) fold into
+// the column: a 3-D map (h*hd + column, token, batch); otherwise 4-D
+// (column, token, head, batch).
+int make_map(CUtensorMap* map, int* fold, const void* ptr, int hd, int heads, int tokens,
+             int batch, long long sb, long long sh, long long st, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  CUresult r;
+  *fold = sh == hd ? 1 : 0;
+  if (*fold) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(heads) * hd,
+                                static_cast<cuuint64_t>(tokens), static_cast<cuuint64_t>(batch)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(st) * 2,
+                                   static_cast<cuuint64_t>(sb) * 2};
+    const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+    r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+               box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(tokens),
+                                static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2,
+                                   static_cast<cuuint64_t>(sh) * 2,
+                                   static_cast<cuuint64_t>(sb) * 2};
+    const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+    r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+               box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+struct Operands {
+  const void *q, *k, *v;
+  int B, tq, tk;
+  long long sqb, sqh, sqt, skb, skh, skt, svb, svh, svt;
+};
+
+template <int HD>
+int launch(Params p, const Operands& a, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  CUtensorMap qmap, kmap, vmap;
+  const int hkv = p.H / p.group;
+  int err = make_map(&qmap, &p.qfold, a.q, HD, p.H, a.tq, a.B, a.sqb, a.sqh, a.sqt, BQ);
+  if (err == 0)
+    err = make_map(&kmap, &p.kfold, a.k, HD, hkv, a.tk, a.B, a.skb, a.skh, a.skt, C::BK);
+  if (err == 0)
+    err = make_map(&vmap, &p.vfold, a.v, HD, hkv, a.tk, a.B, a.svb, a.svh, a.svt, C::BK);
+  if (err != 0) return err;
+  const auto kernel = attn_fwd_kernel<HD>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(p.H, a.B, (a.tq + BQ - 1) / BQ);
+  kernel<<<grid, THREADS, C::SMEM, stream>>>(qmap, kmap, vmap, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_pv_tile(const void* P, const void* V, float* O, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  CUtensorMap vmap;
+  int fold;
+  const long long tile = static_cast<long long>(C::BK) * HD;
+  int err = make_map(&vmap, &fold, V, HD, 1, C::BK, 1, tile, tile, HD, C::BK);
+  if (err != 0) return err;
+  const int bytes = C::KV_BYTES + 8 + 1024;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      pv_tile_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  pv_tile_kernel<HD><<<1, 128, bytes, stream>>>(vmap, static_cast<const bf16*>(P), O);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -232,26 +673,41 @@ extern "C" int attn_fwd_bf16(
     long long skh, long long skt, long long svb, long long svh, long long svt,
     long long sob, long long soh, long long sot, long long sbias,
     void* stream) {
+  if (B < 1 || H < 1 || group < 1 || H % group || tq < 1 || tk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
   p.bias = bias;
   p.o = static_cast<bf16*>(o);
   p.lse = lse;
+  p.H = H;
   p.group = group;
   p.tq = tq;
   p.tk = tk;
   p.kv_len = kv_len;
   p.causal = causal;
-  p.scale = scale;
-  p.sqb = sqb; p.sqh = sqh; p.sqt = sqt;
-  p.skb = skb; p.skh = skh; p.skt = skt;
-  p.svb = svb; p.svh = svh; p.svt = svt;
+  p.scale_log2 = scale * LOG2E;
   p.sob = sob; p.soh = soh; p.sot = sot;
   p.sbias = sbias;
+  p.qfold = p.kfold = p.vfold = 0;
+  const Operands a = {q, k, v, B, tq, tk, sqb, sqh, sqt, skb, skh, skt, svb, svh, svt};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 128) return launch<128>(p, B, H, s);
-  if (hd == 64) return launch<64>(p, B, H, s);
+  if (hd == 128) return launch<128>(p, a, s);
+  if (hd == 64) return launch<64>(p, a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// keys per tile of the forward at head dim hd (the P V test's tile), 0 if
+// the forward does not take hd
+extern "C" int attn_fwd_tile_keys(int hd) {
+  return hd == 128 ? Cfg<128>::BK : hd == 64 ? Cfg<64>::BK : 0;
+}
+
+// O [64, hd] fp32 = P [64, BK] V [BK, hd], both bf16 row-major and 16-byte
+// aligned, BK = attn_fwd_tile_keys(hd): the forward's P V on one tile
+extern "C" int attn_pv_tile_bf16(const void* P, const void* V, float* O, int hd,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 128) return launch_pv_tile<128>(P, V, O, s);
+  if (hd == 64) return launch_pv_tile<64>(P, V, O, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

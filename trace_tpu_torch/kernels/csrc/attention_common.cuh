@@ -1,7 +1,6 @@
-// Shared pieces of the tiled attention kernels (attention.cu forward,
-// attention_bwd.cu backward): 64-row bf16 tiles in shared memory, cp.async
-// copies, and the mma.sync m16n8k16 products a warp builds its 16 x 64 score
-// tile and its 16 x hd accumulators from.
+// Pieces of the attention backward kernels (attention_bwd.cu): 64-row bf16
+// tiles in shared memory, cp.async copies, and the mma.sync m16n8k16 products
+// a warp builds its 16 x 64 score tile and its 16 x hd accumulators from.
 
 #pragma once
 
@@ -24,20 +23,6 @@ constexpr float NEG_INF = -1e30f;
 template <int HD>
 __host__ __device__ constexpr int pitch() { return HD + 8; }
 
-// rows x HD bf16 from global (row stride in elements) into shared memory,
-// 16 bytes per thread and step; rows >= valid are zero-filled
-template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long stride, int valid) {
-  constexpr int VPR = HD / 8;
-  for (int i = threadIdx.x; i < BQ * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * pitch<HD>() + c) = val;
-  }
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -56,14 +41,6 @@ __device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src,
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(saddr), "l"(gaddr), "r"(r < valid ? 16 : 0));
   }
-}
-
-// copy_tile_async as a group of its own; completes at cp_async_wait
-template <int HD>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
-                                                long long stride, int valid) {
-  copy_tile_async<HD>(dst, src, stride, valid);
-  cp_async_commit();
 }
 
 template <int N>

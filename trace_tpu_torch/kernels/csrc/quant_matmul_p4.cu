@@ -63,11 +63,9 @@
 //     both roles fit the 128 registers a thread holds at launch, so no
 //     setmaxnreg.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 #include <string.h>
+
+#include "hopper_common.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -346,81 +344,8 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// one arrival, and `bytes` more to come from copies that name the barrier
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-         "r"(c2)
-      : "memory");
-}
-
-// shared-memory writes of this thread made visible to the async proxy (TMA, wgmma)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void producer_sync(int q) {  // producer warpgroup q alone
   asm volatile("bar.sync %0, 128;\n" :: "r"(1 + q) : "memory");
-}
-
-// K-major operand tile in the 128-byte swizzle: 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // d [64 x 128 of y, fp32] += A [64 x 16] * B [16 x 128], both from shared
@@ -461,12 +386,6 @@ __device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t desc_a, uint6
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(1));
 
-}
-
-// the operands' registers are final here: reads of d are not moved above
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 // B row (column of the wgmma's N) of output column n of the tile: thread t
@@ -703,30 +622,6 @@ __global__ void __launch_bounds__(Tc<NC>::THREADS, 1)
     p4_produce<NC, GROUPED>(&xmap, &wmap, p, smem, m_blk, n_blk);
   else
     p4_consume<NC, GROUPED, OUT>(p, smem, m_blk, n_blk, 2 * ((p.K / 2 + BKP - 1) / BKP));
-}
-
-// cuTensorMapEncodeTiled, looked up in libcuda at run time (no -lcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(sym);
-  }
-  return fn;
 }
 
 // x [M, K] as [M][2][K/2]: one map serves both halves, and columns past K/2

@@ -11,11 +11,16 @@ Bound on an H100: operations. At the prefill shape (B=2, 32/8 heads,
 T=2048, hd=128, causal, one row left-padded by 300) the visible causal
 pairs take ~59 GFLOP over ~80 MB of q/k/v/o, ~700 flops per byte, far
 above the card's ~295 bf16 flops per byte (the ViT chunk sits near the
-ridge: ~22 GFLOP over ~76 MB). The design keeps the scores out of device
-memory: a block owns 64 query rows of one head and runs an online softmax
-over 64-key tiles, both products on the tensor cores (mma.sync, fp32
-accumulate) with scores and output in registers, and the K/V tiles double
-buffered in shared memory with cp.async. See csrc/attention.cu.
+ridge: ~22 GFLOP over ~76 MB, where one exponential per score costs as
+much as the products). The design keeps the scores out of device memory
+and feeds Hopper's tensor cores the way they run fastest: a block owns 128
+query rows of one head; a producer thread copies Q and a ring of 128-key
+K/V tiles by TMA; two consumer warpgroups of 64 rows each run both products
+as wgmma (fp32 accumulate) and an online softmax in registers between them.
+What sets the pace is the softmax between a warpgroup's two products, which
+only the other warpgroup's products hide. See csrc/attention.cu. The kernel
+reads q, k and v through TMA tensor maps, so the wrapper's operands need
+16-byte aligned pointers and row strides.
 
 On a CUDA tensor a wrapper launches its kernel or raises; the plain version
 runs for CPU tensors, or when the caller passes ``impl="plain"``. Each

@@ -434,26 +434,37 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto") -> torc
     return _int8_sums(a, b, impl).float()
 
 
+def pad_for_int_mm(a: torch.Tensor, b: torch.Tensor):
+    """a [M, K] and b [K, N] int8 zero-padded to what ``torch._int_mm`` takes:
+    more than 16 rows of a, K and N multiples of 8. The zero terms leave the
+    integer sums exact, so the product sliced back to [M, N] is the product
+    of the unpadded operands, bit for bit."""
+    M, K = a.shape
+    N = b.shape[1]
+    Mp, Kp, Np = max(M, 17), -(-K // 8) * 8, -(-N // 8) * 8
+    if (Mp, Kp) != (M, K):
+        a = torch.nn.functional.pad(a, (0, Kp - K, 0, Mp - M))
+    if (Kp, Np) != (K, N):
+        b = torch.nn.functional.pad(b, (0, Np - N, 0, Kp - K))
+    return a, b
+
+
 def _int8_sums(a: torch.Tensor, b: torch.Tensor, impl: str) -> torch.Tensor:
     """a [M, K] int8 @ b [K, N] int8 -> the exact sums as int32.
 
-    On the card ``torch._int_mm`` (more than 16 rows, K and N multiples of
-    8, else it raises: no other route). It is handed ``b`` column-major, a
-    copy made per call: on a row-major ``b`` cuBLASLt takes a WMMA kernel 6-7x
-    slower (H100, [3968, 4096] @ [4096, 28672]: 7.25 ms against 1.13 ms plus
-    0.85 ms for the copy), and the weight-only kernel wants the stored
-    layout row-major. On the CPU, or with
-    ``impl="plain"``, an exact product: int32 on the CPU; fp64 on the card,
-    where no integer matmul exists and fp32 would round partial sums
-    beyond 2^24 (K x 127 x 127 passes it from K = 1041)."""
+    On the card ``torch._int_mm`` on the operands zero-padded by
+    ``pad_for_int_mm`` (it takes more than 16 rows, K and N multiples of 8),
+    sliced back to [M, N]. It is handed ``b`` column-major, a copy made per
+    call: on a row-major ``b`` cuBLASLt takes a WMMA kernel 6-7x slower (H100,
+    [3968, 4096] @ [4096, 28672]: 7.25 ms against 1.13 ms plus 0.85 ms for the
+    copy), and the weight-only kernel wants the stored layout row-major. On
+    the CPU, or with ``impl="plain"``, an exact product: int32 on the CPU;
+    fp64 on the card, where no integer matmul exists and fp32 would round
+    partial sums beyond 2^24 (K x 127 x 127 passes it from K = 1041)."""
     _check_impl(impl)
     if a.is_cuda and impl == "auto":
-        M, K = a.shape
-        if M <= 16 or K % 8 or b.shape[1] % 8:
-            raise ValueError(
-                f"int8_matmul on the card wants more than 16 rows and K, N "
-                f"multiples of 8, got [{M}, {K}] @ {tuple(b.shape)}")
-        return torch._int_mm(a, b.t().contiguous().t())
+        ap, bp = pad_for_int_mm(a, b)
+        return torch._int_mm(ap, bp.t().contiguous().t())[: a.shape[0], : b.shape[1]]
     if a.is_cuda:
         return (a.double() @ b.double()).to(torch.int32)
     return a.to(torch.int32) @ b.to(torch.int32)
