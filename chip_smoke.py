@@ -485,47 +485,64 @@ def packed_int4_checks(torch, g, rows: dict) -> None:
 def int8_decode_checks(torch, g, rows: dict) -> None:
     """int8 decode attention, both modes, at the bf16 row's shape: L = 32,
     B = 4, S = 2304, layer 17's stripe, half the slots masked, the stripe
-    quantized from random K/V as the decoder quantizes it."""
+    quantized from random K/V as the decoder quantizes it; then the same at
+    B = 32, the bench's decode batch, where the bytes and not one launch's
+    latency set the bound (printed on lines of its own, held to the same
+    limits; the B = 4 entries are the row)."""
     import torch.nn.functional as F
 
     from trace_tpu_torch.kernels.decode_attention import INT8_MODES, decode_attention
     from trace_tpu_torch.model.config import DecoderConfig
     from trace_tpu_torch.model.mistral import _quantize_kv, init_kv_cache
 
-    B, H, NKV, S, HD, LI = 4, 32, 8, 2304, 128, 17
+    H, NKV, S, HD, LI = 32, 8, 2304, 128, 17
     cfg = DecoderConfig(kv_cache_dtype="int8")
-    cache = init_kv_cache(cfg, B, S, device="cuda")
-    stripe = {name: leaf[LI] for name, leaf in cache.items()}
-    for vals, scales in (("kq", "ks"), ("vq", "vs")):
-        x = torch.randn((B, NKV, S, HD), generator=g, device="cuda").to(torch.bfloat16)
-        stripe[vals][:], stripe[scales][:] = _quantize_kv(x)
-    q = torch.randn((B, H, 1, HD), generator=g, device="cuda").to(torch.bfloat16)
-    bias = torch.where(torch.rand((B, S), generator=g, device="cuda") < 0.5,
-                       0.0, -1e30).float()
-    # the yardstick's operands: the stripe dequantized to bf16 beforehand
-    kd = stripe["kq"].to(torch.bfloat16) * stripe["ks"].transpose(-1, -2)
-    vd = stripe["vq"].to(torch.bfloat16) * stripe["vs"].transpose(-1, -2)
-    lib_mask = bias[:, None, None, :].to(torch.bfloat16)
-    lib = lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=lib_mask,
-                                                 enable_gqa=True)
-    # as for the bf16 row, the visible slots' K and V rows (1 byte a value)
-    # and their two scales; both products count as int8 operations
-    visible = int((bias == 0).sum().item())
-    ops = 4 * (H // NKV) * NKV * visible * HD
-    nbytes = 2 * q.numel() * 2 + 2 * visible * NKV * (HD + 2) + bias.numel() * 4
-    for mode in INT8_MODES:
-        name = f"decode_attention_int8_{mode}"
-        run = lambda impl="auto": decode_attention(q, stripe, None, bias, mode=mode,
-                                                   impl=impl)
-        out, ref = run(), run("plain")
-        torch.cuda.synchronize()
-        if not torch.isfinite(out).all():
-            fail(f"{name}: non-finite output")
-        rows[name] = dict(
-            **compare(name, out, ref), ms=median_ms(torch, run),
-            plain_ms=median_ms(torch, lambda: run("plain")),
-            library_ms=median_ms(torch, lib),
-            bound=bound(nbytes, ops, INT8_OPS_PER_S if mode == "s8dot" else BF16_FLOPS_PER_S))
+    for B in (4, 32):
+        cache = init_kv_cache(cfg, B, S, device="cuda")
+        stripe = {name: leaf[LI] for name, leaf in cache.items()}
+        for vals, scales in (("kq", "ks"), ("vq", "vs")):
+            x = torch.randn((B, NKV, S, HD), generator=g, device="cuda").to(torch.bfloat16)
+            stripe[vals][:], stripe[scales][:] = _quantize_kv(x)
+            del x
+        q = torch.randn((B, H, 1, HD), generator=g, device="cuda").to(torch.bfloat16)
+        bias = torch.where(torch.rand((B, S), generator=g, device="cuda") < 0.5,
+                           0.0, -1e30).float()
+        # the yardstick's operands: the stripe dequantized to bf16 beforehand
+        kd = stripe["kq"].to(torch.bfloat16) * stripe["ks"].transpose(-1, -2)
+        vd = stripe["vq"].to(torch.bfloat16) * stripe["vs"].transpose(-1, -2)
+        lib_mask = bias[:, None, None, :].to(torch.bfloat16)
+        lib = lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=lib_mask,
+                                                     enable_gqa=True)
+        # as for the bf16 row, the visible slots' K and V rows (1 byte a
+        # value) and their two scales; both products count as int8 operations
+        visible = int((bias == 0).sum().item())
+        ops = 4 * (H // NKV) * NKV * visible * HD
+        nbytes = 2 * q.numel() * 2 + 2 * visible * NKV * (HD + 2) + bias.numel() * 4
+        for mode in INT8_MODES:
+            name = f"decode_attention_int8_{mode}"
+            run = lambda impl="auto": decode_attention(q, stripe, None, bias, mode=mode,
+                                                       impl=impl)
+            out, ref = run(), run("plain")
+            torch.cuda.synchronize()
+            if not torch.isfinite(out).all():
+                fail(f"{name} at B = {B}: non-finite output")
+            r = dict(**compare(name, out, ref), ms=median_ms(torch, run),
+                     plain_ms=median_ms(torch, lambda: run("plain")),
+                     library_ms=median_ms(torch, lib),
+                     bound=bound(nbytes, ops,
+                                 INT8_OPS_PER_S if mode == "s8dot" else BF16_FLOPS_PER_S))
+            if B == 4:
+                rows[name] = r
+                continue
+            atol, rtol = KERNEL_TOL[name]
+            print(f"  {name} at B = {B}, S = {S}: ms={r['ms']:.4f} library_ms="
+                  f"{r['library_ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms="
+                  f"{r['bound'][0]:.4f} ({r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} %) "
+                  f"max_abs_err={r['err']:.6f} (|diff| <= {atol} + {rtol} |ref|, excess "
+                  f"{r['excess']:.6f}) rel_norm_err={r['rel_norm']:.6f}", flush=True)
+            if not (r["excess"] <= 0 and r["rel_norm"] <= REL_NORM_TOL):
+                fail(f"{name} at B = {B}: kernel disagrees with its plain version")
+        del cache, stripe, kd, vd, q, bias, lib_mask
 
 
 def flash_backward_checks(torch, g, rows: dict) -> None:

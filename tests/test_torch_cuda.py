@@ -554,6 +554,87 @@ def test_int8_decode_kernel_matches_plain(cuda, mode, L, B, NKV, G, S, HD):
     assert torch.equal(got, decode_attention(q, stripe, None, bias, mode=mode))
 
 
+def _edge_bias(rng, kind, B, S):
+    """[B, S] decode masks that the kernel's slot skipping must keep: a row
+    that sees no slot (the plain version then weighs every slot alike), rows
+    that see one slot (first, inside, last), and serving rows: left padding,
+    the visible prefix, then masked future slots."""
+    visible = rng.random((B, S)) < 0.5
+    if kind == "no_visible":
+        visible[0] = False
+    elif kind == "one_visible":
+        visible[:] = False
+        for b, j in zip(range(B), (S // 2 + 3, 0, S - 1)):
+            visible[b, j] = True
+    else:
+        for b in range(B):
+            pad = int(rng.integers(0, S // 4))
+            end = int(rng.integers(S // 2, S))
+            visible[b] = (np.arange(S) >= pad) & (np.arange(S) < end)
+    return torch.from_numpy(np.where(visible, 0.0, -1e30).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["s8dot", "dequant"])
+@pytest.mark.parametrize("kind", ["no_visible", "one_visible", "serving"])
+@pytest.mark.parametrize("S", [40, 1100])
+def test_int8_decode_kernel_on_edge_masks(cuda, mode, kind, S):
+    B, NKV, G, HD = 3, 2, 4, 128
+    rng = np.random.default_rng(24)
+    q = _bf16(rng, (B, NKV * G, 1, HD), cuda)
+    cache = _int8_stripe(rng, 1, B, NKV, S, HD, cuda)
+    stripe = {name: leaf[0] for name, leaf in cache.items()}
+    bias = _edge_bias(rng, kind, B, S).to(cuda)
+    got = decode_attention(q, stripe, None, bias, mode=mode)
+    want = decode_attention(q, stripe, None, bias, mode=mode, impl="plain")
+    assert torch.isfinite(got).all()
+    _assert_matches(got, want, ATOL["decode"])
+    assert torch.equal(got, decode_attention(q, stripe, None, bias, mode=mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["s8dot", "dequant"])
+def test_int8_decode_kernel_at_the_bench_decode_batch(cuda, mode):
+    """B = 32 (the bench's decode batch), S = 2304, serving-shaped masks."""
+    B, NKV, G, S, HD = 32, 8, 4, 2304, 128
+    rng = np.random.default_rng(25)
+    q = _bf16(rng, (B, NKV * G, 1, HD), cuda)
+    cache = _int8_stripe(rng, 1, B, NKV, S, HD, cuda)
+    stripe = {name: leaf[0] for name, leaf in cache.items()}
+    bias = _edge_bias(rng, "serving", B, S).to(cuda)
+    got = decode_attention(q, stripe, None, bias, mode=mode)
+    want = decode_attention(q, stripe, None, bias, mode=mode, impl="plain")
+    _assert_matches(got, want, ATOL["decode"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["s8dot", "dequant"])
+def test_int8_decode_is_one_launch_that_allocates_only_its_output(cuda, mode):
+    from torch.profiler import ProfilerActivity, profile
+
+    B, NKV, G, S, HD = 4, 8, 4, 2304, 128
+    rng = np.random.default_rng(26)
+    q = _bf16(rng, (B, NKV * G, 1, HD), cuda)
+    cache = _int8_stripe(rng, 1, B, NKV, S, HD, cuda)
+    stripe = {name: leaf[0] for name, leaf in cache.items()}
+    bias = _edge_bias(rng, "serving", B, S).to(cuda)
+    decode_attention(q, stripe, None, bias, mode=mode)  # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode_attention(q, stripe, None, bias, mode=mode)
+        torch.cuda.synchronize()
+    on_device = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_device) == 1 and "decode_int8_kernel" in on_device[0], on_device
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = decode_attention(q, stripe, None, bias, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before == out.untyped_storage().nbytes()
+    del out
+    assert torch.cuda.memory_allocated() == before
+
+
 @pytest.mark.cuda
 def test_int8_product_on_the_card_is_exact_or_refused(cuda):
     """Exact integer sums past 2^24, also at shapes ``torch._int_mm`` does

@@ -203,6 +203,27 @@ def test_int8_decode_dequant_plain_matches_pallas(monkeypatch, li):
     np.testing.assert_allclose(got, want, rtol=INT8_TOL, atol=INT8_TOL)
 
 
+@pytest.mark.parametrize("mode,s8_env", [("s8dot", None), ("s8dot", "1"), ("dequant", "0")])
+@pytest.mark.parametrize("visible", [0, 1])
+def test_int8_decode_rows_with_no_or_one_visible_slot_match_pallas(monkeypatch, mode,
+                                                                  s8_env, visible):
+    """Row 0 sees no slot (every score is exactly -1e30, so p = 1 on every
+    slot and the output weighs all slots alike) or one slot (masked slots
+    add exactly 0); row 1 keeps the usual mask. What the CUDA kernel's
+    skipping of masked slots must keep."""
+    if s8_env is None:
+        monkeypatch.delenv("TRACE_TPU_DECODE_ATTN_S8", raising=False)
+    else:
+        monkeypatch.setenv("TRACE_TPU_DECODE_ATTN_S8", s8_env)
+    q, cache, bias = _int8_case(60 + visible)
+    bias[0] = -1e30
+    if visible:
+        bias[0, 77] = 0.0
+    want = _jax_int8_decode(q, cache, 1, bias)
+    got = _torch_int8_decode(q, cache, 1, bias, mode)
+    np.testing.assert_allclose(got, want, rtol=INT8_TOL, atol=INT8_TOL)
+
+
 def test_int8_decode_modes_differ_and_bf16_q_is_taken(monkeypatch):
     """The two bodies are different functions (s8dot adds two row
     quantizations, ~1/254 per operand), and a bf16 q gives a bf16 result

@@ -13,42 +13,58 @@
 // cache), where the TPU kernel selects them through a scalar-prefetch index.
 //
 // The step is bound by bytes: each (row, kv head) stripe is read once for G
-// query rows. The bf16 kernel's single pass over the slots cannot be used:
-// s8dot's probability scale ps is the maximum of exp(s - m) * vs over ALL
-// slots of the row, so no probability can be quantized before every score is
-// known (and dequant rounds exp(s - m) to bf16 under the final m). The score
-// matrix is tiny (B x H x S fp32), so the work runs in four launches, the
-// slots split into chunks of CHUNK over blocks:
-//   1. scores:  one block per (kv head, row, chunk); HD / 16 lanes share a
-//               slot (16-byte loads of K), s8dot with __dp4a on the packed
-//               int8 q, scores to a workspace [B, NKV, G, S];
-//   2. stats:   one block per (kv head, row): m, p = expf(s - m) written over
-//               the scores, l, and for s8dot ps;
-//   3. pv:      one block per (kv head, row, chunk) quantizes its slots'
-//               weights into shared memory, then HD / 4 threads share a V
-//               row (4 bytes each); s8dot transposes 4 slots x 4 columns
+// query rows. A single online pass over the slots, as the bf16 kernel makes,
+// cannot be used: s8dot's probability scale ps is the maximum of
+// exp(s - m) * vs over ALL slots of the row, so no probability can be
+// quantized before every score is known (and dequant rounds exp(s - m) to
+// bf16 under the final m). So the row's statistics are exchanged between the
+// blocks that share it: one launch, one cluster of C <= 8 blocks per (kv
+// head, batch row), block r of the cluster owning a contiguous share of the
+// slots, and no workspace in device memory:
+//   pass 1:     the block lists the slots it takes, quantizes (s8dot) or
+//               converts the G query rows, and scores its slots into shared
+//               memory: HD / 16 lanes share a K row (16-byte loads), s8dot
+//               with __dp4a on the packed int8 q;
+//   exchange 1: every block reads the ranks' maxima and slot counts through
+//               distributed shared memory, in rank order: the row max m;
+//   pass 2:     p = expf(s - m), the block's share of l and, for s8dot, of
+//               max(p * vs);
+//   exchange 2: l and ps = max(max(p * vs), 1e-30) / 127;
+//   pass 3:     the block quantizes p * vs (s8dot) or rounds bf16(bf16(p) *
+//               vs) (dequant) and runs P.V over its V rows, HD / 4 threads
+//               a row (4 bytes each); s8dot transposes 4 slots x 4 columns
 //               with byte permutes so that __dp4a contracts over the slots;
-//               the chunk's partial output (int32, or fp32 for dequant) goes
-//               to a workspace;
-//   4. finish:  sums the chunks, scales, divides by max(l, 1e-30), casts.
-// Integer sums are exact, so splitting the slots changes nothing in s8dot;
-// every fp32 step that feeds a rounding (q / qs, the score chain, p * vs,
-// pv / ps) is written with the _rn intrinsics so that the compiler fuses no
-// multiply with an add and the values equal the plain version's bit for bit
-// wherever expf and the plain version's exp agree.
+//               partial sums [G, HD] (int32, or fp32 for dequant);
+//   exchange 3: block r sums slice r of the G * HD partials over the ranks
+//               in rank order, scales, divides by max(l, 1e-30), casts and
+//               writes; a last cluster barrier keeps every block's shared
+//               memory alive until the others have read it.
+// A block whose share is empty takes part in every exchange with neutral
+// values (max -inf, sums 0). Nothing is summed with atomics, so a call
+// repeats bit for bit. Integer sums are exact in any order; every fp32 step
+// that feeds a rounding (q / qs, the score chain, p * vs, pv / ps) is written
+// with the _rn intrinsics so that the compiler fuses no multiply with an add,
+// and the values equal the plain version's bit for bit wherever expf and the
+// plain version's exp agree (only l's summation order differs besides).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 typedef __nv_bfloat16 bf16;
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT = 256;     // threads per block
-constexpr int CHUNK = 256;  // slots per block in the scores and pv launches
+constexpr int NT = 256;           // threads per block
+constexpr int NW = NT / 32;       // warps per block
+constexpr int MAX_CLUSTER = 8;    // blocks per (kv head, batch row), portable
+constexpr int MIN_SHARE = 128;    // C = clamp(ceil(S / MIN_SHARE), 1, MAX_CLUSTER)
+constexpr int UNROLL = 4;         // K / V rows a thread has in flight
 constexpr int S8DOT = 0;
 constexpr int DEQUANT = 1;
 #define INV127 (static_cast<float>(1.0 / 127.0))
@@ -68,38 +84,56 @@ __device__ __forceinline__ float clip127(float r) {
   return fminf(fmaxf(r, -127.f), 127.f);
 }
 
-template <bool MAX>
-__device__ __forceinline__ float block_reduce(float v, float* sm) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = MAX ? fmaxf(v, o) : v + o;
-  }
-  if (threadIdx.x % 32 == 0) sm[threadIdx.x / 32] = v;
-  __syncthreads();
-  float r = sm[0];
-#pragma unroll
-  for (int w = 1; w < NT / 32; ++w) r = MAX ? fmaxf(r, sm[w]) : r + sm[w];
-  __syncthreads();
-  return r;
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// dynamic shared memory of a block: scores [G][cap] fp32, slot list [cap]
+// int32, s8dot's quantized weights [G][cap] int8; cap = share rounded up to 16
+template <int G, int MODE>
+__host__ __device__ constexpr int smem_per_slot() {
+  return G * 4 + 4 + (MODE == S8DOT ? G : 0);
 }
 
 template <int HD, int G, int MODE>
 __global__ void __launch_bounds__(NT)
-    scores_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ kq,
-                  const bf16* __restrict__ ks, const float* __restrict__ bias,
-                  float* __restrict__ ws_s, int nkv, int S, float scale) {
-  constexpr int LPS = HD / 16;   // lanes per slot
-  constexpr int SPI = NT / LPS;  // slots per block iteration
+    decode_int8_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ kq,
+                       const bf16* __restrict__ ks, const int8_t* __restrict__ vq,
+                       const bf16* __restrict__ vs, const float* __restrict__ bias,
+                       bf16* __restrict__ o, int nkv, int S, int share, float scale) {
+  constexpr int LPS = HD / 16;   // pass 1: lanes per K row
+  constexpr int SPI = NT / LPS;  // pass 1: rows per block iteration
+  constexpr int LPR = HD / 4;    // pass 3: threads per V row
+  constexpr int RW = NT / LPR;   // pass 3: rows per block iteration
+  typedef acc_t<MODE> A;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long long bn = static_cast<long long>(blockIdx.z) * nkv + blockIdx.y;
+
+  extern __shared__ __align__(16) unsigned char dyn[];
+  const int cap = (share + 15) & ~15;
+  float* sc = reinterpret_cast<float*>(dyn);          // scores, then p * vs or weights
+  int* idx = reinterpret_cast<int*>(sc + G * cap);    // the slots taken, ascending
+  int8_t* pq = reinterpret_cast<int8_t*>(idx + cap);  // s8dot: quantized p * vs
+
   __shared__ float qf[G][HD];
   __shared__ int qq[G][HD / 4];
   __shared__ float qsc[G];
+  __shared__ A red[RW][G][HD];
+  __shared__ A part[G * HD];            // read by the other ranks in exchange 3
+  __shared__ float xm[G], xl[G], xpa[G];  // read by the other ranks
+  __shared__ int xn;
+  __shared__ float gm[MAX_CLUSTER][G], gl[MAX_CLUSTER][G], gp[MAX_CLUSTER][G];
+  __shared__ int gn[MAX_CLUSTER];
+  __shared__ float st_m[G], st_l[G], st_ps[G];
+  __shared__ float wr[NW][G], wr2[NW][G];
+  __shared__ int wcnt[NW];
 
-  const int n = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
-  const long long bn = static_cast<long long>(b) * nkv + n;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  for (int i = threadIdx.x; i < G * HD; i += NT)
+  // the G query rows: fp32, and for s8dot quantized to packed int8
+  for (int i = tid; i < G * HD; i += NT)
     qf[i / HD][i % HD] = __bfloat162float(q[bn * G * HD + i]);
   __syncthreads();
   if constexpr (MODE == S8DOT) {
@@ -124,224 +158,331 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();
   }
 
-  const int sub = threadIdx.x % LPS, grp = threadIdx.x / LPS;
-  const int j_end = min(S, (c + 1) * CHUNK);
+  // pass 1: the slots of this block's share, in order
+  const int j0 = min(S, rank * share), j1 = min(S, j0 + share);
+  const float* bb = bias + static_cast<long long>(blockIdx.z) * S;
+  int nv = 0;
+  for (int base = j0; base < j1; base += NT) {
+    const int j = base + tid;
+    const bool take = j < j1;
+    const unsigned bal = __ballot_sync(0xffffffffu, take);
+    if (lane == 0) wcnt[warp] = __popc(bal);
+    __syncthreads();
+    int off = nv, tot = 0;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      off += w < warp ? wcnt[w] : 0;
+      tot += wcnt[w];
+    }
+    if (take) idx[off + __popc(bal & ((1u << lane) - 1u))] = j;
+    nv += tot;
+    __syncthreads();
+  }
+
+  // their scores, UNROLL K rows in flight per lane group
   const int8_t* kb = kq + bn * S * HD;
   const bf16* ksb = ks + bn * S;
-  const float* bb = bias + static_cast<long long>(b) * S;
-
-  for (int j0 = c * CHUNK; j0 < j_end; j0 += SPI) {
-    const int j = j0 + grp;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (j < j_end)
-      v = *reinterpret_cast<const uint4*>(kb + static_cast<long long>(j) * HD + sub * 16);
-    const unsigned w[4] = {v.x, v.y, v.z, v.w};
-    acc_t<MODE> a[G];
+  const int sub = tid % LPS, grp = tid / LPS;
+  float mx[G];
 #pragma unroll
-    for (int g = 0; g < G; ++g) a[g] = 0;
-    if constexpr (MODE == S8DOT) {
+  for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
+  for (int k0 = 0; k0 < nv; k0 += UNROLL * SPI) {
+    uint4 kv[UNROLL];
+    float ksj[UNROLL], bj[UNROLL];
 #pragma unroll
-      for (int g = 0; g < G; ++g)
+    for (int u = 0; u < UNROLL; ++u) {
+      const int k = k0 + u * SPI + grp;
+      kv[u] = make_uint4(0u, 0u, 0u, 0u);
+      ksj[u] = 0.f;
+      bj[u] = 0.f;
+      if (k < nv) {
+        const int j = idx[k];
+        kv[u] = *reinterpret_cast<const uint4*>(kb + static_cast<long long>(j) * HD + sub * 16);
+        ksj[u] = __bfloat162float(ksb[j]);
+        bj[u] = bb[j];
+      }
+    }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[g] = __dp4a(static_cast<int>(w[i]), qq[g][sub * 4 + i], static_cast<int>(a[g]));
-    } else {
+    for (int u = 0; u < UNROLL; ++u) {
+      const int k = k0 + u * SPI + grp;
+      const unsigned w[4] = {kv[u].x, kv[u].y, kv[u].z, kv[u].w};
+      A a[G];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float kf[4];
-        unpack4(w[i], kf);
+      for (int g = 0; g < G; ++g) a[g] = 0;
+      if constexpr (MODE == S8DOT) {
 #pragma unroll
         for (int g = 0; g < G; ++g)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            a[g] += qf[g][sub * 16 + 4 * i + e] * kf[e];
+          for (int i = 0; i < 4; ++i)
+            a[g] = __dp4a(static_cast<int>(w[i]), qq[g][sub * 4 + i], static_cast<int>(a[g]));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float kf[4];
+          unpack4(w[i], kf);
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              a[g] += qf[g][sub * 16 + 4 * i + e] * kf[e];
+        }
       }
-    }
 #pragma unroll
-    for (int off = LPS / 2; off > 0; off >>= 1)
+      for (int off = LPS / 2; off > 0; off >>= 1)
 #pragma unroll
-      for (int g = 0; g < G; ++g) a[g] += __shfl_xor_sync(0xffffffffu, a[g], off);
-    if (sub == 0 && j < j_end) {
-      const float ksj = __bfloat162float(ksb[j]);
+        for (int g = 0; g < G; ++g) a[g] += __shfl_xor_sync(0xffffffffu, a[g], off);
+      if (sub == 0 && k < nv) {
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float dot = static_cast<float>(a[g]);
-        const float x = (MODE == S8DOT)
-            ? __fmul_rn(__fmul_rn(dot, qsc[g]), ksj)    // s32 * (qs * scale) * ks
-            : __fmul_rn(__fmul_rn(dot, ksj), scale);    // dot * ks * scale
-        ws_s[(bn * G + g) * S + j] = __fadd_rn(x, bb[j]);
+        for (int g = 0; g < G; ++g) {
+          const float dot = static_cast<float>(a[g]);
+          const float x = (MODE == S8DOT)
+              ? __fmul_rn(__fmul_rn(dot, qsc[g]), ksj[u])    // s32 * (qs * scale) * ks
+              : __fmul_rn(__fmul_rn(dot, ksj[u]), scale);    // dot * ks * scale
+          const float s = __fadd_rn(x, bj[u]);
+          sc[g * cap + k] = s;
+          mx[g] = fmaxf(mx[g], s);
+        }
       }
     }
   }
-}
-
-template <int G, int MODE>
-__global__ void __launch_bounds__(NT)
-    stats_kernel(float* __restrict__ ws_s, const bf16* __restrict__ vs,
-                 float* __restrict__ ws_stat, int nkv, int S) {
-  __shared__ float sm[NT / 32];
-  const long long bn = static_cast<long long>(blockIdx.y) * nkv + blockIdx.x;
-  const bf16* vsb = vs + bn * S;
+#pragma unroll
   for (int g = 0; g < G; ++g) {
-    float* row = ws_s + (bn * G + g) * S;
-    float m = -3.0e38f;
-    for (int j = threadIdx.x; j < S; j += NT) m = fmaxf(m, row[j]);
-    m = block_reduce<true>(m, sm);
-    float l = 0.f, pa = 0.f;
-    for (int j = threadIdx.x; j < S; j += NT) {
-      const float p = expf(row[j] - m);
-      row[j] = p;
-      l += p;
-      if constexpr (MODE == S8DOT) pa = fmaxf(pa, __fmul_rn(p, __bfloat162float(vsb[j])));
-    }
-    l = block_reduce<false>(l, sm);
-    pa = block_reduce<true>(pa, sm);
-    if (threadIdx.x == 0) {
-      ws_stat[(bn * G + g) * 2] = l;
-      ws_stat[(bn * G + g) * 2 + 1] = __fmul_rn(fmaxf(pa, 1e-30f), INV127);
-    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], off));
+    if (lane == 0) wr[warp][g] = mx[g];
   }
-}
+  __syncthreads();
+  if (tid < G) {
+    float m = wr[0][tid];
+    for (int w = 1; w < NW; ++w) m = fmaxf(m, wr[w][tid]);
+    xm[tid] = m;
+  }
+  if (tid == 0) xn = nv;
 
-template <int HD, int G, int MODE>
-__global__ void __launch_bounds__(NT)
-    pv_kernel(const float* __restrict__ ws_p, const float* __restrict__ ws_stat,
-              const int8_t* __restrict__ vq, const bf16* __restrict__ vs,
-              acc_t<MODE>* __restrict__ ws_o, int nkv, int S) {
-  constexpr int LPR = HD / 4;   // threads per V row, 4 bytes each
-  constexpr int RW = NT / LPR;  // rows in flight per block
-  typedef acc_t<MODE> A;
-  __shared__ __align__(16) int8_t pq[G][CHUNK];  // s8dot: quantized p * vs
-  __shared__ float wf[G][CHUNK];                 // dequant: bf16(bf16(p) * vs)
-  __shared__ A red[RW][G][HD];
-
-  const int n = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
-  const int nchunk = gridDim.z;
-  const long long bn = static_cast<long long>(b) * nkv + n;
-  const int j0 = c * CHUNK;
-  const int j_end = min(S, j0 + CHUNK);
-  const bf16* vsb = vs + bn * S;
-  const int8_t* vb = vq + bn * S * HD;
-
-  for (int i = threadIdx.x; i < G * CHUNK; i += NT) {
-    const int g = i / CHUNK, jj = i % CHUNK;
-    const int j = j0 + jj;
-    float p = 0.f, vsj = 0.f;
-    if (j < j_end) {
-      p = ws_p[(bn * G + g) * S + j];
-      vsj = __bfloat162float(vsb[j]);
-    }
-    if constexpr (MODE == S8DOT) {
-      const float ps = ws_stat[(bn * G + g) * 2 + 1];
-      const float r = clip127(rintf(__fdiv_rn(__fmul_rn(p, vsj), ps)));
-      pq[g][jj] = static_cast<int8_t>(static_cast<int>(r));
-    } else {
-      const float pb = __bfloat162float(__float2bfloat16(p));
-      wf[g][jj] = __bfloat162float(__float2bfloat16(__fmul_rn(pb, vsj)));
-    }
+  // exchange 1: the row max over the ranks
+  cluster.sync();
+  if (tid < C) {
+    const float* rm = cluster.map_shared_rank(xm, tid);
+#pragma unroll
+    for (int g = 0; g < G; ++g) gm[tid][g] = rm[g];
+    gn[tid] = *cluster.map_shared_rank(&xn, tid);
+  }
+  __syncthreads();
+  if (tid < G) {
+    float m = gm[0][tid];
+    for (int r = 1; r < C; ++r) m = fmaxf(m, gm[r][tid]);
+    st_m[tid] = m;
   }
   __syncthreads();
 
-  const int worker = threadIdx.x / LPR;
-  const int d0 = (threadIdx.x % LPR) * 4;
+  // pass 2: p = exp(s - m), this block's share of l and of max(p * vs)
+  const bf16* vsb = vs + bn * S;
+  float m[G], ls[G], pa[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = st_m[g];
+    ls[g] = 0.f;
+    pa[g] = 0.f;
+  }
+  for (int k = tid; k < nv; k += NT) {
+    const float vsj = __bfloat162float(vsb[idx[k]]);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float p = expf(sc[g * cap + k] - m[g]);
+      ls[g] += p;
+      if constexpr (MODE == S8DOT) {
+        const float pv = __fmul_rn(p, vsj);
+        sc[g * cap + k] = pv;
+        pa[g] = fmaxf(pa[g], pv);
+      } else {
+        sc[g * cap + k] = bf16_round(__fmul_rn(bf16_round(p), vsj));
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ls[g] += __shfl_xor_sync(0xffffffffu, ls[g], off);
+      pa[g] = fmaxf(pa[g], __shfl_xor_sync(0xffffffffu, pa[g], off));
+    }
+    if (lane == 0) {
+      wr[warp][g] = ls[g];
+      wr2[warp][g] = pa[g];
+    }
+  }
+  __syncthreads();
+  if (tid < G) {
+    float l = 0.f, a = 0.f;
+    for (int w = 0; w < NW; ++w) {
+      l += wr[w][tid];
+      a = fmaxf(a, wr2[w][tid]);
+    }
+    xl[tid] = l;
+    xpa[tid] = a;
+  }
+
+  // exchange 2: l and ps over the ranks
+  cluster.sync();
+  if (tid < C) {
+    const float* rl = cluster.map_shared_rank(xl, tid);
+    const float* rp = cluster.map_shared_rank(xpa, tid);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      gl[tid][g] = rl[g];
+      gp[tid][g] = rp[g];
+    }
+  }
+  __syncthreads();
+  if (tid < G) {
+    float l = 0.f, a = 0.f;
+    for (int r = 0; r < C; ++r) {
+      l += gl[r][tid];
+      a = fmaxf(a, gp[r][tid]);
+    }
+    st_l[tid] = l;
+    st_ps[tid] = __fmul_rn(fmaxf(a, 1e-30f), INV127);
+  }
+  __syncthreads();
+
+  // pass 3: the weights, then P.V over this block's V rows
+  const int nv4 = (nv + 3) & ~3;
+  if constexpr (MODE == S8DOT) {
+    for (int i = tid; i < G * nv4; i += NT) {
+      const int g = i / nv4, k = i % nv4;
+      const float r = k < nv ? clip127(rintf(__fdiv_rn(sc[g * cap + k], st_ps[g]))) : 0.f;
+      pq[g * cap + k] = static_cast<int8_t>(static_cast<int>(r));
+    }
+    __syncthreads();
+  }
+  const int8_t* vb = vq + bn * S * HD;
+  const int worker = tid / LPR, d0 = (tid % LPR) * 4;
   A acc[G][4];
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[g][e] = 0;
-
   if constexpr (MODE == S8DOT) {
-    for (int jj = worker * 4; jj < CHUNK; jj += RW * 4) {
-      unsigned w[4];
+    // UNROLL / 2 groups of 4 slots in flight
+    constexpr int U = UNROLL / 2;
+    for (int k0 = worker * 4; k0 < nv; k0 += U * RW * 4) {
+      unsigned w[U][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int j = j0 + jj + r;
-        w[r] = (j < j_end)
-            ? *reinterpret_cast<const unsigned*>(vb + static_cast<long long>(j) * HD + d0)
-            : 0u;
-      }
-      // 4 slots x 4 columns -> 4 columns x 4 slots
-      const unsigned t0 = __byte_perm(w[0], w[1], 0x5140);
-      const unsigned t1 = __byte_perm(w[0], w[1], 0x7362);
-      const unsigned u0 = __byte_perm(w[2], w[3], 0x5140);
-      const unsigned u1 = __byte_perm(w[2], w[3], 0x7362);
-      const unsigned col[4] = {__byte_perm(t0, u0, 0x5410), __byte_perm(t0, u0, 0x7632),
-                               __byte_perm(t1, u1, 0x5410), __byte_perm(t1, u1, 0x7632)};
+      for (int u = 0; u < U; ++u)
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const int pk = *reinterpret_cast<const int*>(&pq[g][jj]);
+        for (int r = 0; r < 4; ++r) {
+          const int k = k0 + u * RW * 4 + r;
+          w[u][r] = k < nv ? *reinterpret_cast<const unsigned*>(
+                                 vb + static_cast<long long>(idx[k]) * HD + d0)
+                           : 0u;
+        }
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[g][e] = __dp4a(static_cast<int>(col[e]), pk, static_cast<int>(acc[g][e]));
+      for (int u = 0; u < U; ++u) {
+        const int kk = k0 + u * RW * 4;
+        if (kk >= nv4) break;
+        // 4 slots x 4 columns -> 4 columns x 4 slots
+        const unsigned t0 = __byte_perm(w[u][0], w[u][1], 0x5140);
+        const unsigned t1 = __byte_perm(w[u][0], w[u][1], 0x7362);
+        const unsigned u0 = __byte_perm(w[u][2], w[u][3], 0x5140);
+        const unsigned u1 = __byte_perm(w[u][2], w[u][3], 0x7362);
+        const unsigned col[4] = {__byte_perm(t0, u0, 0x5410), __byte_perm(t0, u0, 0x7632),
+                                 __byte_perm(t1, u1, 0x5410), __byte_perm(t1, u1, 0x7632)};
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const int pk = *reinterpret_cast<const int*>(pq + g * cap + kk);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[g][e] = __dp4a(static_cast<int>(col[e]), pk, static_cast<int>(acc[g][e]));
+        }
       }
     }
   } else {
-    for (int jj = worker; jj < CHUNK; jj += RW) {
-      const int j = j0 + jj;
-      if (j >= j_end) break;
-      float f[4];
-      unpack4(*reinterpret_cast<const unsigned*>(vb + static_cast<long long>(j) * HD + d0), f);
+    for (int k0 = worker; k0 < nv; k0 += UNROLL * RW) {
+      unsigned w[UNROLL];
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float wv = wf[g][jj];
+      for (int u = 0; u < UNROLL; ++u) {
+        const int k = k0 + u * RW;
+        w[u] = k < nv ? *reinterpret_cast<const unsigned*>(
+                            vb + static_cast<long long>(idx[k]) * HD + d0)
+                      : 0u;
+      }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[g][e] += wv * f[e];
+      for (int u = 0; u < UNROLL; ++u) {
+        const int k = k0 + u * RW;
+        if (k >= nv) break;
+        float f[4];
+        unpack4(w[u], f);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float wv = sc[g * cap + k];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[g][e] += wv * f[e];
+        }
       }
     }
   }
-
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
     for (int e = 0; e < 4; ++e) red[worker][g][d0 + e] = acc[g][e];
   __syncthreads();
-  for (int i = threadIdx.x; i < G * HD; i += NT) {
+  for (int i = tid; i < G * HD; i += NT) {
     A sum = 0;
 #pragma unroll
     for (int w = 0; w < RW; ++w) sum += red[w][i / HD][i % HD];
-    ws_o[(bn * nchunk + c) * G * HD + i] = sum;
+    part[i] = sum;
   }
-}
 
-template <int HD, int G, int MODE>
-__global__ void finish_kernel(const acc_t<MODE>* __restrict__ ws_o,
-                              const float* __restrict__ ws_stat,
-                              bf16* __restrict__ o, int nkv, int nchunk) {
-  const long long bn = static_cast<long long>(blockIdx.y) * nkv + blockIdx.x;
-  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
+  // exchange 3: slice `rank` of the outputs, summed over the ranks in order
+  cluster.sync();
+  const int per = (G * HD + C - 1) / C;
+  for (int t = tid; t < per; t += NT) {
+    const int i = rank * per + t;
+    if (i >= G * HD) break;
+    A sum = 0;
+    for (int r = 0; r < C; ++r) sum += cluster.map_shared_rank(part, r)[i];
     const int g = i / HD;
-    acc_t<MODE> sum = 0;
-    for (int c = 0; c < nchunk; ++c) sum += ws_o[(bn * nchunk + c) * G * HD + i];
-    const float l = fmaxf(ws_stat[(bn * G + g) * 2], 1e-30f);
     float v = static_cast<float>(sum);
-    if constexpr (MODE == S8DOT) v = __fmul_rn(v, ws_stat[(bn * G + g) * 2 + 1]);
-    o[bn * G * HD + i] = __float2bfloat16(__fdiv_rn(v, l));
+    if constexpr (MODE == S8DOT) v = __fmul_rn(v, st_ps[g]);
+    o[bn * G * HD + i] = __float2bfloat16(__fdiv_rn(v, fmaxf(st_l[g], 1e-30f)));
   }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 struct Args {
   const bf16* q; const int8_t* kq; const bf16* ks; const int8_t* vq; const bf16* vs;
-  const float* bias; bf16* o; float* ws_s; float* ws_stat; void* ws_o;
+  const float* bias; bf16* o;
   int B, nkv, S; float scale; cudaStream_t stream;
 };
 
 template <int HD, int G, int MODE>
 int launch(const Args& a) {
-  const int nchunk = (a.S + CHUNK - 1) / CHUNK;
-  const dim3 per_chunk(a.nkv, a.B, nchunk), per_row(a.nkv, a.B);
-  scores_kernel<HD, G, MODE><<<per_chunk, NT, 0, a.stream>>>(
-      a.q, a.kq, a.ks, a.bias, a.ws_s, a.nkv, a.S, a.scale);
-  cudaError_t err = cudaGetLastError();
+  const int C = std::min(MAX_CLUSTER, std::max(1, (a.S + MIN_SHARE - 1) / MIN_SHARE));
+  const int share = (a.S + C - 1) / C;
+  const size_t smem = static_cast<size_t>((share + 15) & ~15) * smem_per_slot<G, MODE>();
+  auto kernel = decode_int8_kernel<HD, G, MODE>;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, a.nkv, a.B);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a.q, a.kq, a.ks, a.vq, a.vs, a.bias, a.o, a.nkv,
+                           a.S, share, a.scale);
   if (err != cudaSuccess) return static_cast<int>(err);
-  stats_kernel<G, MODE><<<per_row, NT, 0, a.stream>>>(a.ws_s, a.vs, a.ws_stat, a.nkv, a.S);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pv_kernel<HD, G, MODE><<<per_chunk, NT, 0, a.stream>>>(
-      a.ws_s, a.ws_stat, a.vq, a.vs, static_cast<acc_t<MODE>*>(a.ws_o), a.nkv, a.S);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  finish_kernel<HD, G, MODE><<<per_row, G * HD, 0, a.stream>>>(
-      static_cast<const acc_t<MODE>*>(a.ws_o), a.ws_stat, a.o, a.nkv, nchunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -357,6 +498,7 @@ int dispatch_group(const Args& a, int G) {
 
 template <int MODE>
 int dispatch(const Args& a, int G, int hd) {
+  if (a.S < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (hd == 128) return dispatch_group<128, MODE>(a, G);
   if (hd == 64) return dispatch_group<64, MODE>(a, G);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -364,21 +506,14 @@ int dispatch(const Args& a, int G, int hd) {
 
 }  // namespace
 
-// Slots per block; the caller sizes the workspaces from it: ws_s [B, nkv, G, S]
-// fp32, ws_stat [B, nkv, G, 2] fp32, ws_o [B, nkv, ceil(S / chunk), G, hd] of
-// 32-bit words.
-extern "C" int decode_attn_int8_chunk() { return CHUNK; }
-
 #define DECODE_ATTN_INT8_ENTRY(NAME, MODE)                                          \
   extern "C" int NAME(const void* q, const void* kq, const void* ks, const void* vq, \
-                      const void* vs, const float* bias, void* o, float* ws_s,       \
-                      float* ws_stat, void* ws_o, int B, int nkv, int G, int S,      \
-                      int hd, float scale, void* stream) {                           \
+                      const void* vs, const float* bias, void* o, int B, int nkv,    \
+                      int G, int S, int hd, float scale, void* stream) {             \
     const Args a = {static_cast<const bf16*>(q), static_cast<const int8_t*>(kq),     \
                     static_cast<const bf16*>(ks), static_cast<const int8_t*>(vq),    \
-                    static_cast<const bf16*>(vs), bias, static_cast<bf16*>(o), ws_s, \
-                    ws_stat, ws_o, B, nkv, S, scale,                                 \
-                    static_cast<cudaStream_t>(stream)};                              \
+                    static_cast<const bf16*>(vs), bias, static_cast<bf16*>(o), B,    \
+                    nkv, S, scale, static_cast<cudaStream_t>(stream)};               \
     return dispatch<MODE>(a, G, hd);                                                 \
   }
 

@@ -14,10 +14,12 @@ Bound on an H100: bytes. Each (batch row, kv head) stripe is read once for
 G = 4 query rows (~2 flops per byte, far below the card's ~295). The bf16
 kernel streams K and V once at full row width and keeps the softmax online
 in registers, the slots split into chunks of 256 with a second small launch
-that merges them. The int8 kernels cannot run in one pass: s8dot quantizes
-``p * vs`` by its maximum over all slots of the row, so they write the
-scores to a workspace, reduce each row's statistics, and run the P.V pass
-afterwards (four small launches). See the sources.
+that merges them. The int8 kernel cannot run in one online pass: s8dot
+quantizes ``p * vs`` by its maximum over all slots of the row. It runs as
+one cluster launch instead: a cluster of up to 8 blocks per (batch row, kv
+head) splits the slots, and the blocks exchange the row's max, sum and
+probability scale, then their partial outputs, through distributed shared
+memory; the wrapper allocates only the output. See the sources.
 
 On a CUDA tensor the wrapper launches its kernel or raises; the plain
 version runs for CPU tensors, or when the caller passes ``impl="plain"``.
@@ -121,30 +123,21 @@ def _decode_attention_int8(q, cache: dict, bias_row, mode: str, impl: str):
                            ("vs", vs, torch.bfloat16), ("bias_row", bias_row, torch.float32)):
         if x.dtype != dtype or not x.is_contiguous() or x.device != q.device:
             raise ValueError(f"{name} must be a contiguous {dtype} tensor on {q.device}")
-    if bias_row.shape != (B, S):
-        raise ValueError("bias_row must be [B, S]")
+    if bias_row.shape != (B, S) or S < 1:
+        raise ValueError("bias_row must be [B, S] with S >= 1")
 
     from trace_tpu_torch.kernels.build import check, load
 
     lib = load(_SOURCE_INT8)
     fn = getattr(lib, f"decode_attn_int8_{mode}")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
-    lib.decode_attn_int8_chunk.restype = ctypes.c_int
-    lib.decode_attn_int8_chunk.argtypes = []
-    G = H // NKV
-    nchunk = -(-S // lib.decode_attn_int8_chunk())
-    o = torch.empty_like(q)
-    dev = q.device
-    ws_s = torch.empty((B, NKV, G, S), dtype=torch.float32, device=dev)
-    ws_stat = torch.empty((B, NKV, G, 2), dtype=torch.float32, device=dev)
-    ws_o = torch.empty((B, NKV, nchunk, G, hd), dtype=torch.int32, device=dev)
+    o = torch.empty_like(q)  # the kernel's only allocation: no workspace
     err = fn(
         q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-        bias_row.data_ptr(), o.data_ptr(), ws_s.data_ptr(), ws_stat.data_ptr(),
-        ws_o.data_ptr(), B, NKV, G, S, hd, float(hd ** -0.5),
-        torch.cuda.current_stream(dev).cuda_stream,
+        bias_row.data_ptr(), o.data_ptr(), B, NKV, H // NKV, S, hd, float(hd ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     check(err, f"decode_attn_int8_{mode}")
     decode_attention.launches_int8[mode] += 1
