@@ -21,12 +21,20 @@
 // blocks that share it: one launch, one cluster of C <= 8 blocks per (kv
 // head, batch row), block r of the cluster owning a contiguous share of the
 // slots, and no workspace in device memory:
-//   pass 1:     the block lists the slots it takes, quantizes (s8dot) or
-//               converts the G query rows, and scores its slots into shared
-//               memory: HD / 16 lanes share a K row (16-byte loads), s8dot
-//               with __dp4a on the packed int8 q;
+//   pass 1:     the block reads its share of the bias and lists the slots
+//               it takes: the visible ones only (bias above -1e30; a masked
+//               slot adds exactly 0 once one slot of its row is visible,
+//               since exp(-1e30 - m) underflows), so masked K and V rows are
+//               never read. It quantizes (s8dot) or converts the G query
+//               rows into registers and scores its slots into shared memory:
+//               HD / 16 (s8dot, __dp4a on the packed int8 q) or HD / 8
+//               (dequant) lanes share a K row;
 //   exchange 1: every block reads the ranks' maxima and slot counts through
-//               distributed shared memory, in rank order: the row max m;
+//               distributed shared memory, in rank order: the row max m. A
+//               row with no visible slot at all (the count is 0) repeats
+//               pass 1 and exchange 1 over every slot: its scores are then
+//               exactly the bias and p = 1 on every slot, as in the plain
+//               version;
 //   pass 2:     p = expf(s - m), the block's share of l and, for s8dot, of
 //               max(p * vs);
 //   exchange 2: l and ps = max(max(p * vs), 1e-30) / 127;
@@ -65,6 +73,7 @@ constexpr int NW = NT / 32;       // warps per block
 constexpr int MAX_CLUSTER = 8;    // blocks per (kv head, batch row), portable
 constexpr int MIN_SHARE = 128;    // C = clamp(ceil(S / MIN_SHARE), 1, MAX_CLUSTER)
 constexpr int UNROLL = 4;         // K / V rows a thread has in flight
+constexpr float MASKED = -1e30f;  // a slot whose bias is not above this is masked
 constexpr int S8DOT = 0;
 constexpr int DEQUANT = 1;
 #define INV127 (static_cast<float>(1.0 / 127.0))
@@ -80,6 +89,12 @@ __device__ __forceinline__ void unpack4(unsigned w, float (&f)[4]) {
     f[b] = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 + b)) - 8388736.f;
 }
 
+// word i of a 16- or 8-byte vector
+__device__ __forceinline__ unsigned word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ unsigned word(const uint2& v, int i) { return i == 0 ? v.x : v.y; }
+
 __device__ __forceinline__ float clip127(float r) {
   return fminf(fmaxf(r, -127.f), 127.f);
 }
@@ -88,11 +103,12 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// dynamic shared memory of a block: scores [G][cap] fp32, slot list [cap]
-// int32, s8dot's quantized weights [G][cap] int8; cap = share rounded up to 16
+// dynamic shared memory of a block: scores [G][cap] fp32, V scales [cap]
+// fp32, slot list [cap] int32, s8dot's quantized weights [G][cap] int8; cap =
+// share rounded up to 16
 template <int G, int MODE>
 __host__ __device__ constexpr int smem_per_slot() {
-  return G * 4 + 4 + (MODE == S8DOT ? G : 0);
+  return G * 4 + 4 + 4 + (MODE == S8DOT ? G : 0);
 }
 
 template <int HD, int G, int MODE>
@@ -101,11 +117,13 @@ __global__ void __launch_bounds__(NT)
                        const bf16* __restrict__ ks, const int8_t* __restrict__ vq,
                        const bf16* __restrict__ vs, const float* __restrict__ bias,
                        bf16* __restrict__ o, int nkv, int S, int share, float scale) {
-  constexpr int LPS = HD / 16;   // pass 1: lanes per K row
+  constexpr int BPL = MODE == S8DOT ? 16 : 8;  // pass 1: bytes of a K row per lane
+  constexpr int LPS = HD / BPL;  // pass 1: lanes per K row
   constexpr int SPI = NT / LPS;  // pass 1: rows per block iteration
   constexpr int LPR = HD / 4;    // pass 3: threads per V row
   constexpr int RW = NT / LPR;   // pass 3: rows per block iteration
   typedef acc_t<MODE> A;
+  typedef typename std::conditional<BPL == 16, uint4, uint2>::type kvec;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
@@ -116,28 +134,39 @@ __global__ void __launch_bounds__(NT)
   extern __shared__ __align__(16) unsigned char dyn[];
   const int cap = (share + 15) & ~15;
   float* sc = reinterpret_cast<float*>(dyn);          // scores, then p * vs or weights
-  int* idx = reinterpret_cast<int*>(sc + G * cap);    // the slots taken, ascending
+  float* vsl = sc + G * cap;                          // the slots' V scales
+  int* idx = reinterpret_cast<int*>(vsl + cap);       // the slots taken, ascending
   int8_t* pq = reinterpret_cast<int8_t*>(idx + cap);  // s8dot: quantized p * vs
 
   __shared__ float qf[G][HD];
   __shared__ int qq[G][HD / 4];
   __shared__ float qsc[G];
   __shared__ A red[RW][G][HD];
-  __shared__ A part[G * HD];            // read by the other ranks in exchange 3
-  __shared__ float xm[G], xl[G], xpa[G];  // read by the other ranks
-  __shared__ int xn;
+  __shared__ A part[G * HD];                  // read by the other ranks in exchange 3
+  __shared__ float xm[2][G], xl[G], xpa[G];   // read by the other ranks
+  __shared__ int xn[2];
   __shared__ float gm[MAX_CLUSTER][G], gl[MAX_CLUSTER][G], gp[MAX_CLUSTER][G];
   __shared__ int gn[MAX_CLUSTER];
   __shared__ float st_m[G], st_l[G], st_ps[G];
+  __shared__ int st_n;
   __shared__ float wr[NW][G], wr2[NW][G];
   __shared__ int wcnt[NW];
 
-  // the G query rows: fp32, and for s8dot quantized to packed int8
-  for (int i = tid; i < G * HD; i += NT)
-    qf[i / HD][i % HD] = __bfloat162float(q[bn * G * HD + i]);
-  __syncthreads();
+  const int j0 = min(S, rank * share), j1 = min(S, j0 + share);
+  const float* bb = bias + static_cast<long long>(blockIdx.z) * S;
+  const float b_first = j0 + tid < j1 ? bb[j0 + tid] : 0.f;  // in flight beside q
+
+  // the G query rows, in registers: a lane holds the BPL columns of every
+  // row that it multiplies with its part of a K row (fp32, or s8dot's
+  // packed int8 after the rows are quantized, one warp a row)
+  const int sub = tid % LPS, grp = tid / LPS;
+  float qr[G][MODE == S8DOT ? 1 : BPL];
+  int qi[G][MODE == S8DOT ? BPL / 4 : 1];
   if constexpr (MODE == S8DOT) {
-    if (warp < G) {  // one warp quantizes one query row
+    for (int i = tid; i < G * HD; i += NT)
+      qf[i / HD][i % HD] = __bfloat162float(q[bn * G * HD + i]);
+    __syncthreads();
+    if (warp < G) {
       float a = 0.f;
       for (int d = lane; d < HD; d += 32) a = fmaxf(a, fabsf(qf[warp][d]));
 #pragma unroll
@@ -156,128 +185,153 @@ __global__ void __launch_bounds__(NT)
       if (lane == 0) qsc[warp] = __fmul_rn(qs, scale);
     }
     __syncthreads();
-  }
-
-  // pass 1: the slots of this block's share, in order
-  const int j0 = min(S, rank * share), j1 = min(S, j0 + share);
-  const float* bb = bias + static_cast<long long>(blockIdx.z) * S;
-  int nv = 0;
-  for (int base = j0; base < j1; base += NT) {
-    const int j = base + tid;
-    const bool take = j < j1;
-    const unsigned bal = __ballot_sync(0xffffffffu, take);
-    if (lane == 0) wcnt[warp] = __popc(bal);
-    __syncthreads();
-    int off = nv, tot = 0;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      off += w < warp ? wcnt[w] : 0;
-      tot += wcnt[w];
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int i = 0; i < BPL / 4; ++i) qi[g][i] = qq[g][sub * (BPL / 4) + i];
+  } else {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const uint4 h = *reinterpret_cast<const uint4*>(q + bn * G * HD + g * HD + sub * BPL);
+      const unsigned hw[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hw[i]));
+        qr[g][2 * i] = f.x;
+        qr[g][2 * i + 1] = f.y;
+      }
     }
-    if (take) idx[off + __popc(bal & ((1u << lane) - 1u))] = j;
-    nv += tot;
-    __syncthreads();
   }
 
-  // their scores, UNROLL K rows in flight per lane group
+  // pass 1 and exchange 1, in up to two rounds: first over the visible
+  // slots only (bias above MASKED; a masked slot adds exactly 0 once its row
+  // has one visible slot, since exp(-1e30 - m) underflows), then, only if
+  // the whole row has no visible slot, over every slot (each score is then
+  // exactly the bias, p = 1 everywhere, as in the plain version)
   const int8_t* kb = kq + bn * S * HD;
   const bf16* ksb = ks + bn * S;
-  const int sub = tid % LPS, grp = tid / LPS;
-  float mx[G];
+  const bf16* vsb = vs + bn * S;
+  int nv = 0;
+  for (int round = 0;; ++round) {
+    const bool dense = round == 1;
+    // the slots this block takes, in order
+    nv = 0;
+    for (int base = j0; base < j1; base += NT) {
+      const int j = base + tid;
+      const bool take = j < j1 && (dense || (base == j0 ? b_first : bb[j]) > MASKED);
+      const unsigned bal = __ballot_sync(0xffffffffu, take);
+      if (lane == 0) wcnt[warp] = __popc(bal);
+      __syncthreads();
+      int off = nv, tot = 0;
 #pragma unroll
-  for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
-  for (int k0 = 0; k0 < nv; k0 += UNROLL * SPI) {
-    uint4 kv[UNROLL];
-    float ksj[UNROLL], bj[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int k = k0 + u * SPI + grp;
-      kv[u] = make_uint4(0u, 0u, 0u, 0u);
-      ksj[u] = 0.f;
-      bj[u] = 0.f;
-      if (k < nv) {
-        const int j = idx[k];
-        kv[u] = *reinterpret_cast<const uint4*>(kb + static_cast<long long>(j) * HD + sub * 16);
-        ksj[u] = __bfloat162float(ksb[j]);
-        bj[u] = bb[j];
+      for (int w = 0; w < NW; ++w) {
+        off += w < warp ? wcnt[w] : 0;
+        tot += wcnt[w];
       }
+      if (take) idx[off + __popc(bal & ((1u << lane) - 1u))] = j;
+      nv += tot;
+      __syncthreads();
     }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int k = k0 + u * SPI + grp;
-      const unsigned w[4] = {kv[u].x, kv[u].y, kv[u].z, kv[u].w};
-      A a[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) a[g] = 0;
-      if constexpr (MODE == S8DOT) {
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            a[g] = __dp4a(static_cast<int>(w[i]), qq[g][sub * 4 + i], static_cast<int>(a[g]));
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float kf[4];
-          unpack4(w[i], kf);
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              a[g] += qf[g][sub * 16 + 4 * i + e] * kf[e];
-        }
-      }
-#pragma unroll
-      for (int off = LPS / 2; off > 0; off >>= 1)
-#pragma unroll
-        for (int g = 0; g < G; ++g) a[g] += __shfl_xor_sync(0xffffffffu, a[g], off);
-      if (sub == 0 && k < nv) {
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float dot = static_cast<float>(a[g]);
-          const float x = (MODE == S8DOT)
-              ? __fmul_rn(__fmul_rn(dot, qsc[g]), ksj[u])    // s32 * (qs * scale) * ks
-              : __fmul_rn(__fmul_rn(dot, ksj[u]), scale);    // dot * ks * scale
-          const float s = __fadd_rn(x, bj[u]);
-          sc[g * cap + k] = s;
-          mx[g] = fmaxf(mx[g], s);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], off));
-    if (lane == 0) wr[warp][g] = mx[g];
-  }
-  __syncthreads();
-  if (tid < G) {
-    float m = wr[0][tid];
-    for (int w = 1; w < NW; ++w) m = fmaxf(m, wr[w][tid]);
-    xm[tid] = m;
-  }
-  if (tid == 0) xn = nv;
 
-  // exchange 1: the row max over the ranks
-  cluster.sync();
-  if (tid < C) {
-    const float* rm = cluster.map_shared_rank(xm, tid);
+    // their scores, UNROLL K rows in flight per lane group
+    float mx[G];
 #pragma unroll
-    for (int g = 0; g < G; ++g) gm[tid][g] = rm[g];
-    gn[tid] = *cluster.map_shared_rank(&xn, tid);
+    for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
+    for (int k0 = 0; k0 < nv; k0 += UNROLL * SPI) {
+      kvec kv[UNROLL];
+      float ksj[UNROLL], vsj[UNROLL], bj[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int k = k0 + u * SPI + grp;
+        kv[u] = kvec{};
+        ksj[u] = vsj[u] = bj[u] = 0.f;
+        if (k < nv) {
+          const int j = idx[k];
+          kv[u] = *reinterpret_cast<const kvec*>(kb + static_cast<long long>(j) * HD + sub * BPL);
+          ksj[u] = __bfloat162float(ksb[j]);
+          vsj[u] = __bfloat162float(vsb[j]);
+          bj[u] = bb[j];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int k = k0 + u * SPI + grp;
+        A a[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) a[g] = 0;
+#pragma unroll
+        for (int i = 0; i < BPL / 4; ++i) {
+          if constexpr (MODE == S8DOT) {
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+              a[g] = __dp4a(static_cast<int>(word(kv[u], i)), qi[g][i], static_cast<int>(a[g]));
+          } else {
+            float kf[4];
+            unpack4(word(kv[u], i), kf);
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) a[g] += qr[g][4 * i + e] * kf[e];
+          }
+        }
+#pragma unroll
+        for (int off = LPS / 2; off > 0; off >>= 1)
+#pragma unroll
+          for (int g = 0; g < G; ++g) a[g] += __shfl_xor_sync(0xffffffffu, a[g], off);
+        if (sub == 0 && k < nv) {
+          vsl[k] = vsj[u];
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float dot = static_cast<float>(a[g]);
+            const float x = (MODE == S8DOT)
+                ? __fmul_rn(__fmul_rn(dot, qsc[g]), ksj[u])    // s32 * (qs * scale) * ks
+                : __fmul_rn(__fmul_rn(dot, ksj[u]), scale);    // dot * ks * scale
+            const float s = __fadd_rn(x, bj[u]);
+            sc[g * cap + k] = s;
+            mx[g] = fmaxf(mx[g], s);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], off));
+      if (lane == 0) wr[warp][g] = mx[g];
+    }
+    __syncthreads();
+    if (tid < G) {
+      float m = wr[0][tid];
+      for (int w = 1; w < NW; ++w) m = fmaxf(m, wr[w][tid]);
+      xm[round][tid] = m;
+    }
+    if (tid == 0) xn[round] = nv;
+
+    // exchange 1: the row max and the row's slot count over the ranks
+    cluster.sync();
+    if (tid < C) {
+      const float* rm = cluster.map_shared_rank(xm[round], tid);
+#pragma unroll
+      for (int g = 0; g < G; ++g) gm[tid][g] = rm[g];
+      gn[tid] = *cluster.map_shared_rank(&xn[round], tid);
+    }
+    __syncthreads();
+    if (tid < G) {
+      float m = gm[0][tid];
+      for (int r = 1; r < C; ++r) m = fmaxf(m, gm[r][tid]);
+      st_m[tid] = m;
+    }
+    if (tid == 0) {
+      int n = 0;
+      for (int r = 0; r < C; ++r) n += gn[r];
+      st_n = n;
+    }
+    __syncthreads();
+    if (st_n > 0 || dense) break;  // the same in every block of the cluster
   }
-  __syncthreads();
-  if (tid < G) {
-    float m = gm[0][tid];
-    for (int r = 1; r < C; ++r) m = fmaxf(m, gm[r][tid]);
-    st_m[tid] = m;
-  }
-  __syncthreads();
 
   // pass 2: p = exp(s - m), this block's share of l and of max(p * vs)
-  const bf16* vsb = vs + bn * S;
   float m[G], ls[G], pa[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -286,7 +340,7 @@ __global__ void __launch_bounds__(NT)
     pa[g] = 0.f;
   }
   for (int k = tid; k < nv; k += NT) {
-    const float vsj = __bfloat162float(vsb[idx[k]]);
+    const float vsj = vsl[k];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const float p = expf(sc[g * cap + k] - m[g]);
