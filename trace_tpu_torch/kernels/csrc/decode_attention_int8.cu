@@ -21,14 +21,17 @@
 // blocks that share it: one launch, one cluster of C <= 8 blocks per (kv
 // head, batch row), block r of the cluster owning a contiguous share of the
 // slots, and no workspace in device memory:
-//   pass 1:     the block reads its share of the bias and lists the slots
+//   pass 1:     the block reads its share of the bias and of the K and V
+//               scales (contiguous) into shared memory and lists the slots
 //               it takes: the visible ones only (bias above -1e30; a masked
 //               slot adds exactly 0 once one slot of its row is visible,
 //               since exp(-1e30 - m) underflows), so masked K and V rows are
-//               never read. It quantizes (s8dot) or converts the G query
-//               rows into registers and scores its slots into shared memory:
-//               HD / 16 (s8dot, __dp4a on the packed int8 q) or HD / 8
-//               (dequant) lanes share a K row;
+//               never read. It copies the listed K rows into shared memory
+//               with cp.async, RING bytes at a time, holds the G query rows
+//               in registers (s8dot quantizes them to packed int8 first) and
+//               scores its slots: HD / 16 (s8dot, __dp4a) or HD / 8 (dequant,
+//               fp32) lanes share a K row. Then it starts the copies of its
+//               first V rows, which land during the exchanges;
 //   exchange 1: every block reads the ranks' maxima and slot counts through
 //               distributed shared memory, in rank order: the row max m. A
 //               row with no visible slot at all (the count is 0) repeats
@@ -39,10 +42,10 @@
 //               max(p * vs);
 //   exchange 2: l and ps = max(max(p * vs), 1e-30) / 127;
 //   pass 3:     the block quantizes p * vs (s8dot) or rounds bf16(bf16(p) *
-//               vs) (dequant) and runs P.V over its V rows, HD / 4 threads
-//               a row (4 bytes each); s8dot transposes 4 slots x 4 columns
-//               with byte permutes so that __dp4a contracts over the slots;
-//               partial sums [G, HD] (int32, or fp32 for dequant);
+//               vs) (dequant) and runs P.V over its staged V rows, HD / 4
+//               threads a row (4 bytes each); s8dot transposes 4 slots x 4
+//               columns with byte permutes so that __dp4a contracts over the
+//               slots; partial sums [G, HD] (int32, or fp32 for dequant);
 //   exchange 3: block r sums slice r of the G * HD partials over the ranks
 //               in rank order, scales, divides by max(l, 1e-30), casts and
 //               writes; a last cluster barrier keeps every block's shared
@@ -54,6 +57,9 @@
 // with the _rn intrinsics so that the compiler fuses no multiply with an add,
 // and the values equal the plain version's bit for bit wherever expf and the
 // plain version's exp agree (only l's summation order differs besides).
+// Shared memory: RING (32 KB) plus 36 bytes a slot of the share at G = 4
+// (43 KB at S = 2304), so four blocks fit an SM at serving lengths; a share
+// past ~5000 slots (S past ~40000) would not fit, and the launch fails.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -72,7 +78,7 @@ constexpr int NT = 256;           // threads per block
 constexpr int NW = NT / 32;       // warps per block
 constexpr int MAX_CLUSTER = 8;    // blocks per (kv head, batch row), portable
 constexpr int MIN_SHARE = 128;    // C = clamp(ceil(S / MIN_SHARE), 1, MAX_CLUSTER)
-constexpr int UNROLL = 4;         // K / V rows a thread has in flight
+constexpr int RING = 32 * 1024;   // bytes of K or V rows a block stages at once
 constexpr float MASKED = -1e30f;  // a slot whose bias is not above this is masked
 constexpr int S8DOT = 0;
 constexpr int DEQUANT = 1;
@@ -103,16 +109,39 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// dynamic shared memory of a block: scores [G][cap] fp32, V scales [cap]
-// fp32, slot list [cap] int32, s8dot's quantized weights [G][cap] int8; cap =
-// share rounded up to 16
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// copy rows idx[k0..k1) of a [S, HD] int8 stripe into ring rows 0..k1-k0
+template <int HD>
+__device__ __forceinline__ void stage_rows(int8_t* ring, const int8_t* src, const int* idx,
+                                           int k0, int k1) {
+  constexpr int CPR = HD / 16;  // 16-byte pieces per row
+  for (int c = threadIdx.x; c < (k1 - k0) * CPR; c += NT) {
+    const int r = c / CPR, piece = c % CPR;
+    cp_async16(ring + r * HD + piece * 16,
+               src + static_cast<long long>(idx[k0 + r]) * HD + piece * 16);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// dynamic shared memory of a block, in bytes: the ring of staged K or V rows
+// (later the P.V reduction), then per slot of the share (cap = share rounded
+// up to 16): scores [G][cap] fp32, bias, K and V scales [cap] fp32, the slot
+// list [cap] int32 and, for s8dot, the quantized weights [G][cap] int8
 template <int G, int MODE>
 __host__ __device__ constexpr int smem_per_slot() {
-  return G * 4 + 4 + 4 + (MODE == S8DOT ? G : 0);
+  return G * 4 + 3 * 4 + 4 + (MODE == S8DOT ? G : 0);
 }
 
 template <int HD, int G, int MODE>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 4)
     decode_int8_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ kq,
                        const bf16* __restrict__ ks, const int8_t* __restrict__ vq,
                        const bf16* __restrict__ vs, const float* __restrict__ bias,
@@ -122,8 +151,10 @@ __global__ void __launch_bounds__(NT)
   constexpr int SPI = NT / LPS;  // pass 1: rows per block iteration
   constexpr int LPR = HD / 4;    // pass 3: threads per V row
   constexpr int RW = NT / LPR;   // pass 3: rows per block iteration
+  constexpr int RB = RING / HD;  // rows per staged batch
   typedef acc_t<MODE> A;
   typedef typename std::conditional<BPL == 16, uint4, uint2>::type kvec;
+  static_assert(RW * G * HD * sizeof(A) <= RING, "the P.V reduction must fit the ring");
 
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
@@ -133,15 +164,18 @@ __global__ void __launch_bounds__(NT)
 
   extern __shared__ __align__(16) unsigned char dyn[];
   const int cap = (share + 15) & ~15;
-  float* sc = reinterpret_cast<float*>(dyn);          // scores, then p * vs or weights
-  float* vsl = sc + G * cap;                          // the slots' V scales
-  int* idx = reinterpret_cast<int*>(vsl + cap);       // the slots taken, ascending
-  int8_t* pq = reinterpret_cast<int8_t*>(idx + cap);  // s8dot: quantized p * vs
+  int8_t* ring = reinterpret_cast<int8_t*>(dyn);
+  A* red = reinterpret_cast<A*>(dyn);                   // [RW][G][HD], after the last V batch
+  float* sc = reinterpret_cast<float*>(dyn + RING);     // scores, then p * vs or weights
+  float* bsh = sc + G * cap;                            // the share's bias,
+  float* kss = bsh + cap;                               // K scales
+  float* vss = kss + cap;                               // and V scales
+  int* idx = reinterpret_cast<int*>(vss + cap);         // the slots taken, ascending
+  int8_t* pq = reinterpret_cast<int8_t*>(idx + cap);    // s8dot: quantized p * vs
 
   __shared__ float qf[G][HD];
   __shared__ int qq[G][HD / 4];
   __shared__ float qsc[G];
-  __shared__ A red[RW][G][HD];
   __shared__ A part[G * HD];                  // read by the other ranks in exchange 3
   __shared__ float xm[2][G], xl[G], xpa[G];   // read by the other ranks
   __shared__ int xn[2];
@@ -152,9 +186,17 @@ __global__ void __launch_bounds__(NT)
   __shared__ float wr[NW][G], wr2[NW][G];
   __shared__ int wcnt[NW];
 
+  // the share's bias and scales (contiguous), in flight beside q
   const int j0 = min(S, rank * share), j1 = min(S, j0 + share);
-  const float* bb = bias + static_cast<long long>(blockIdx.z) * S;
-  const float b_first = j0 + tid < j1 ? bb[j0 + tid] : 0.f;  // in flight beside q
+  {
+    const float* bb = bias + static_cast<long long>(blockIdx.z) * S;
+#pragma unroll 2
+    for (int i = tid; i < j1 - j0; i += NT) {
+      bsh[i] = bb[j0 + i];
+      kss[i] = __bfloat162float(ks[bn * S + j0 + i]);
+      vss[i] = __bfloat162float(vs[bn * S + j0 + i]);
+    }
+  }
 
   // the G query rows, in registers: a lane holds the BPL columns of every
   // row that it multiplies with its part of a K row (fp32, or s8dot's
@@ -193,24 +235,22 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const uint4 h = *reinterpret_cast<const uint4*>(q + bn * G * HD + g * HD + sub * BPL);
-      const unsigned hw[4] = {h.x, h.y, h.z, h.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hw[i]));
+        const unsigned hw = word(h, i);
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hw));
         qr[g][2 * i] = f.x;
         qr[g][2 * i + 1] = f.y;
       }
     }
+    __syncthreads();
   }
 
   // pass 1 and exchange 1, in up to two rounds: first over the visible
-  // slots only (bias above MASKED; a masked slot adds exactly 0 once its row
-  // has one visible slot, since exp(-1e30 - m) underflows), then, only if
-  // the whole row has no visible slot, over every slot (each score is then
-  // exactly the bias, p = 1 everywhere, as in the plain version)
+  // slots only, then, only if the whole row has no visible slot, over every
+  // slot
   const int8_t* kb = kq + bn * S * HD;
-  const bf16* ksb = ks + bn * S;
-  const bf16* vsb = vs + bn * S;
+  const int8_t* vb = vq + bn * S * HD;
   int nv = 0;
   for (int round = 0;; ++round) {
     const bool dense = round == 1;
@@ -218,7 +258,7 @@ __global__ void __launch_bounds__(NT)
     nv = 0;
     for (int base = j0; base < j1; base += NT) {
       const int j = base + tid;
-      const bool take = j < j1 && (dense || (base == j0 ? b_first : bb[j]) > MASKED);
+      const bool take = j < j1 && (dense || bsh[j - j0] > MASKED);
       const unsigned bal = __ballot_sync(0xffffffffu, take);
       if (lane == 0) wcnt[warp] = __popc(bal);
       __syncthreads();
@@ -233,29 +273,19 @@ __global__ void __launch_bounds__(NT)
       __syncthreads();
     }
 
-    // their scores, UNROLL K rows in flight per lane group
+    // their scores: K rows staged RB at a time, LPS lanes a row
     float mx[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
-    for (int k0 = 0; k0 < nv; k0 += UNROLL * SPI) {
-      kvec kv[UNROLL];
-      float ksj[UNROLL], vsj[UNROLL], bj[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int k = k0 + u * SPI + grp;
-        kv[u] = kvec{};
-        ksj[u] = vsj[u] = bj[u] = 0.f;
-        if (k < nv) {
-          const int j = idx[k];
-          kv[u] = *reinterpret_cast<const kvec*>(kb + static_cast<long long>(j) * HD + sub * BPL);
-          ksj[u] = __bfloat162float(ksb[j]);
-          vsj[u] = __bfloat162float(vsb[j]);
-          bj[u] = bb[j];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int k = k0 + u * SPI + grp;
+    for (int k0 = 0; k0 < nv; k0 += RB) {
+      const int k1 = min(nv, k0 + RB);
+      stage_rows<HD>(ring, kb, idx, k0, k1);
+      cp_async_wait_all();
+      __syncthreads();
+      for (int kk = k0; kk < k1; kk += SPI) {
+        const int k = kk + grp;
+        const kvec kv = k < k1 ? *reinterpret_cast<const kvec*>(ring + (k - k0) * HD + sub * BPL)
+                               : kvec{};
         A a[G];
 #pragma unroll
         for (int g = 0; g < G; ++g) a[g] = 0;
@@ -264,10 +294,10 @@ __global__ void __launch_bounds__(NT)
           if constexpr (MODE == S8DOT) {
 #pragma unroll
             for (int g = 0; g < G; ++g)
-              a[g] = __dp4a(static_cast<int>(word(kv[u], i)), qi[g][i], static_cast<int>(a[g]));
+              a[g] = __dp4a(static_cast<int>(word(kv, i)), qi[g][i], static_cast<int>(a[g]));
           } else {
             float kf[4];
-            unpack4(word(kv[u], i), kf);
+            unpack4(word(kv, i), kf);
 #pragma unroll
             for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -278,21 +308,25 @@ __global__ void __launch_bounds__(NT)
         for (int off = LPS / 2; off > 0; off >>= 1)
 #pragma unroll
           for (int g = 0; g < G; ++g) a[g] += __shfl_xor_sync(0xffffffffu, a[g], off);
-        if (sub == 0 && k < nv) {
-          vsl[k] = vsj[u];
+        if (sub == 0 && k < k1) {
+          const int jj = idx[k] - j0;
 #pragma unroll
           for (int g = 0; g < G; ++g) {
             const float dot = static_cast<float>(a[g]);
             const float x = (MODE == S8DOT)
-                ? __fmul_rn(__fmul_rn(dot, qsc[g]), ksj[u])    // s32 * (qs * scale) * ks
-                : __fmul_rn(__fmul_rn(dot, ksj[u]), scale);    // dot * ks * scale
-            const float s = __fadd_rn(x, bj[u]);
+                ? __fmul_rn(__fmul_rn(dot, qsc[g]), kss[jj])    // s32 * (qs * scale) * ks
+                : __fmul_rn(__fmul_rn(dot, kss[jj]), scale);    // dot * ks * scale
+            const float s = __fadd_rn(x, bsh[jj]);
             sc[g * cap + k] = s;
             mx[g] = fmaxf(mx[g], s);
           }
         }
       }
+      __syncthreads();  // the ring is free again
     }
+    // the first batch of V rows lands while the statistics are exchanged
+    if (nv > 0) stage_rows<HD>(ring, vb, idx, 0, min(nv, RB));
+
 #pragma unroll
     for (int g = 0; g < G; ++g) {
 #pragma unroll
@@ -340,7 +374,7 @@ __global__ void __launch_bounds__(NT)
     pa[g] = 0.f;
   }
   for (int k = tid; k < nv; k += NT) {
-    const float vsj = vsl[k];
+    const float vsj = vss[idx[k] - j0];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const float p = expf(sc[g * cap + k] - m[g]);
@@ -400,7 +434,7 @@ __global__ void __launch_bounds__(NT)
   }
   __syncthreads();
 
-  // pass 3: the weights, then P.V over this block's V rows
+  // pass 3: the weights, then P.V over this block's V rows, RB at a time
   const int nv4 = (nv + 3) & ~3;
   if constexpr (MODE == S8DOT) {
     for (int i = tid; i < G * nv4; i += NT) {
@@ -408,38 +442,32 @@ __global__ void __launch_bounds__(NT)
       const float r = k < nv ? clip127(rintf(__fdiv_rn(sc[g * cap + k], st_ps[g]))) : 0.f;
       pq[g * cap + k] = static_cast<int8_t>(static_cast<int>(r));
     }
-    __syncthreads();
   }
-  const int8_t* vb = vq + bn * S * HD;
   const int worker = tid / LPR, d0 = (tid % LPR) * 4;
   A acc[G][4];
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[g][e] = 0;
-  if constexpr (MODE == S8DOT) {
-    // UNROLL / 2 groups of 4 slots in flight
-    constexpr int U = UNROLL / 2;
-    for (int k0 = worker * 4; k0 < nv; k0 += U * RW * 4) {
-      unsigned w[U][4];
+  for (int k0 = 0; k0 < nv; k0 += RB) {
+    const int k1 = min(nv, k0 + RB);
+    if (k0 > 0) stage_rows<HD>(ring, vb, idx, k0, k1);
+    cp_async_wait_all();
+    __syncthreads();
+    if constexpr (MODE == S8DOT) {
+      // 4 slots a step; RB is a multiple of 4, so a step never straddles two
+      // batches, and the weights past nv are 0
+      for (int kk = k0 + worker * 4; kk < k1; kk += RW * 4) {
+        unsigned w[4];
 #pragma unroll
-      for (int u = 0; u < U; ++u)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int k = k0 + u * RW * 4 + r;
-          w[u][r] = k < nv ? *reinterpret_cast<const unsigned*>(
-                                 vb + static_cast<long long>(idx[k]) * HD + d0)
-                           : 0u;
-        }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int kk = k0 + u * RW * 4;
-        if (kk >= nv4) break;
+        for (int r = 0; r < 4; ++r)
+          w[r] = kk + r < k1 ? *reinterpret_cast<const unsigned*>(ring + (kk + r - k0) * HD + d0)
+                             : 0u;
         // 4 slots x 4 columns -> 4 columns x 4 slots
-        const unsigned t0 = __byte_perm(w[u][0], w[u][1], 0x5140);
-        const unsigned t1 = __byte_perm(w[u][0], w[u][1], 0x7362);
-        const unsigned u0 = __byte_perm(w[u][2], w[u][3], 0x5140);
-        const unsigned u1 = __byte_perm(w[u][2], w[u][3], 0x7362);
+        const unsigned t0 = __byte_perm(w[0], w[1], 0x5140);
+        const unsigned t1 = __byte_perm(w[0], w[1], 0x7362);
+        const unsigned u0 = __byte_perm(w[2], w[3], 0x5140);
+        const unsigned u1 = __byte_perm(w[2], w[3], 0x7362);
         const unsigned col[4] = {__byte_perm(t0, u0, 0x5410), __byte_perm(t0, u0, 0x7632),
                                  __byte_perm(t1, u1, 0x5410), __byte_perm(t1, u1, 0x7632)};
 #pragma unroll
@@ -450,23 +478,10 @@ __global__ void __launch_bounds__(NT)
             acc[g][e] = __dp4a(static_cast<int>(col[e]), pk, static_cast<int>(acc[g][e]));
         }
       }
-    }
-  } else {
-    for (int k0 = worker; k0 < nv; k0 += UNROLL * RW) {
-      unsigned w[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int k = k0 + u * RW;
-        w[u] = k < nv ? *reinterpret_cast<const unsigned*>(
-                            vb + static_cast<long long>(idx[k]) * HD + d0)
-                      : 0u;
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int k = k0 + u * RW;
-        if (k >= nv) break;
+    } else {
+      for (int k = k0 + worker; k < k1; k += RW) {
         float f[4];
-        unpack4(w[u], f);
+        unpack4(*reinterpret_cast<const unsigned*>(ring + (k - k0) * HD + d0), f);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float wv = sc[g * cap + k];
@@ -475,16 +490,17 @@ __global__ void __launch_bounds__(NT)
         }
       }
     }
+    __syncthreads();  // the ring is free again
   }
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) red[worker][g][d0 + e] = acc[g][e];
+    for (int e = 0; e < 4; ++e) red[(worker * G + g) * HD + d0 + e] = acc[g][e];
   __syncthreads();
   for (int i = tid; i < G * HD; i += NT) {
     A sum = 0;
 #pragma unroll
-    for (int w = 0; w < RW; ++w) sum += red[w][i / HD][i % HD];
+    for (int w = 0; w < RW; ++w) sum += red[w * G * HD + i];
     part[i] = sum;
   }
 
@@ -514,7 +530,8 @@ template <int HD, int G, int MODE>
 int launch(const Args& a) {
   const int C = std::min(MAX_CLUSTER, std::max(1, (a.S + MIN_SHARE - 1) / MIN_SHARE));
   const int share = (a.S + C - 1) / C;
-  const size_t smem = static_cast<size_t>((share + 15) & ~15) * smem_per_slot<G, MODE>();
+  const size_t smem =
+      RING + static_cast<size_t>((share + 15) & ~15) * smem_per_slot<G, MODE>();
   auto kernel = decode_int8_kernel<HD, G, MODE>;
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {
