@@ -114,6 +114,18 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
 
+// the cluster barrier in two halves: arrive (release: this block's writes,
+// also into other blocks' shared memory, become visible), then wait (acquire)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -149,6 +161,7 @@ __global__ void __launch_bounds__(NT, 4)
   constexpr int BPL = MODE == S8DOT ? 16 : 8;  // pass 1: bytes of a K row per lane
   constexpr int LPS = HD / BPL;  // pass 1: lanes per K row
   constexpr int SPI = NT / LPS;  // pass 1: rows per block iteration
+  constexpr int R = 2;           // pass 1: rows a lane group scores together
   constexpr int LPR = HD / 4;    // pass 3: threads per V row
   constexpr int RW = NT / LPR;   // pass 3: rows per block iteration
   constexpr int RB = RING / HD;  // rows per staged batch
@@ -161,6 +174,9 @@ __global__ void __launch_bounds__(NT, 4)
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long long bn = static_cast<long long>(blockIdx.z) * nkv + blockIdx.y;
+  // no block writes into another's shared memory before every block of the
+  // cluster runs; this barrier completes while the first loads are in flight
+  cluster_arrive_relaxed();
 
   extern __shared__ __align__(16) unsigned char dyn[];
   const int cap = (share + 15) & ~15;
@@ -176,18 +192,44 @@ __global__ void __launch_bounds__(NT, 4)
   __shared__ float qf[G][HD];
   __shared__ int qq[G][HD / 4];
   __shared__ float qsc[G];
-  __shared__ A part[G * HD];                  // read by the other ranks in exchange 3
-  __shared__ float xm[2][G], xl[G], xpa[G];   // read by the other ranks
-  __shared__ int xn[2];
-  __shared__ float gm[MAX_CLUSTER][G], gl[MAX_CLUSTER][G], gp[MAX_CLUSTER][G];
-  __shared__ int gn[MAX_CLUSTER];
-  __shared__ float st_m[G], st_l[G], st_ps[G];
-  __shared__ int st_n;
+  // what the other ranks write here (rank r's values at [r]), before the
+  // barrier of each exchange
+  __shared__ float rx_m[2][MAX_CLUSTER][G];
+  __shared__ int rx_n[2][MAX_CLUSTER];
+  __shared__ float rx_l[MAX_CLUSTER][G], rx_pa[MAX_CLUSTER][G];
+  __shared__ A rx_part[G * HD + MAX_CLUSTER];
   __shared__ float wr[NW][G], wr2[NW][G];
   __shared__ int wcnt[NW];
 
-  // the share's bias and scales (contiguous), in flight beside q
+  // q and the share's bias and scales (contiguous) in flight together
   const int j0 = min(S, rank * share), j1 = min(S, j0 + share);
+  const int sub = tid % LPS, grp = tid / LPS;
+  // the G query rows, in registers: a lane holds the BPL columns of every
+  // row that it multiplies with its part of a K row (fp32, or s8dot's
+  // packed int8 after the rows are quantized, one warp a row)
+  float qr[G][MODE == S8DOT ? 1 : BPL];
+  int qi[G][MODE == S8DOT ? BPL / 4 : 1];
+  constexpr int QPT = (G * HD + NT - 1) / NT;  // s8dot: q values a thread loads
+  float qv[MODE == S8DOT ? QPT : 1];
+  if constexpr (MODE == S8DOT) {
+#pragma unroll
+    for (int u = 0; u < QPT; ++u) {
+      const int i = tid + u * NT;
+      qv[u] = i < G * HD ? __bfloat162float(q[bn * G * HD + i]) : 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const uint4 h = *reinterpret_cast<const uint4*>(q + bn * G * HD + g * HD + sub * BPL);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned hw = word(h, i);
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hw));
+        qr[g][2 * i] = f.x;
+        qr[g][2 * i + 1] = f.y;
+      }
+    }
+  }
   {
     const float* bb = bias + static_cast<long long>(blockIdx.z) * S;
 #pragma unroll 2
@@ -197,16 +239,12 @@ __global__ void __launch_bounds__(NT, 4)
       vss[i] = __bfloat162float(vs[bn * S + j0 + i]);
     }
   }
-
-  // the G query rows, in registers: a lane holds the BPL columns of every
-  // row that it multiplies with its part of a K row (fp32, or s8dot's
-  // packed int8 after the rows are quantized, one warp a row)
-  const int sub = tid % LPS, grp = tid / LPS;
-  float qr[G][MODE == S8DOT ? 1 : BPL];
-  int qi[G][MODE == S8DOT ? BPL / 4 : 1];
   if constexpr (MODE == S8DOT) {
-    for (int i = tid; i < G * HD; i += NT)
-      qf[i / HD][i % HD] = __bfloat162float(q[bn * G * HD + i]);
+#pragma unroll
+    for (int u = 0; u < QPT; ++u) {
+      const int i = tid + u * NT;
+      if (i < G * HD) qf[i / HD][i % HD] = qv[u];
+    }
     __syncthreads();
     if (warp < G) {
       float a = 0.f;
@@ -231,20 +269,8 @@ __global__ void __launch_bounds__(NT, 4)
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int i = 0; i < BPL / 4; ++i) qi[g][i] = qq[g][sub * (BPL / 4) + i];
-  } else {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const uint4 h = *reinterpret_cast<const uint4*>(q + bn * G * HD + g * HD + sub * BPL);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const unsigned hw = word(h, i);
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hw));
-        qr[g][2 * i] = f.x;
-        qr[g][2 * i + 1] = f.y;
-      }
-    }
-    __syncthreads();
   }
+  cluster_wait();
 
   // pass 1 and exchange 1, in up to two rounds: first over the visible
   // slots only, then, only if the whole row has no visible slot, over every
@@ -252,6 +278,7 @@ __global__ void __launch_bounds__(NT, 4)
   const int8_t* kb = kq + bn * S * HD;
   const int8_t* vb = vq + bn * S * HD;
   int nv = 0;
+  float m[G];
   for (int round = 0;; ++round) {
     const bool dense = round == 1;
     // the slots this block takes, in order
@@ -273,7 +300,8 @@ __global__ void __launch_bounds__(NT, 4)
       __syncthreads();
     }
 
-    // their scores: K rows staged RB at a time, LPS lanes a row
+    // their scores: K rows staged RB at a time, LPS lanes a row, R rows a
+    // lane group at once
     float mx[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
@@ -282,43 +310,57 @@ __global__ void __launch_bounds__(NT, 4)
       stage_rows<HD>(ring, kb, idx, k0, k1);
       cp_async_wait_all();
       __syncthreads();
-      for (int kk = k0; kk < k1; kk += SPI) {
-        const int k = kk + grp;
-        const kvec kv = k < k1 ? *reinterpret_cast<const kvec*>(ring + (k - k0) * HD + sub * BPL)
-                               : kvec{};
-        A a[G];
+      for (int kk = k0; kk < k1; kk += R * SPI) {
+        kvec kv[R];
+        A a[R][G];
 #pragma unroll
-        for (int g = 0; g < G; ++g) a[g] = 0;
+        for (int u = 0; u < R; ++u) {
+          const int k = kk + u * SPI + grp;
+          kv[u] = k < k1 ? *reinterpret_cast<const kvec*>(ring + (k - k0) * HD + sub * BPL)
+                         : kvec{};
 #pragma unroll
-        for (int i = 0; i < BPL / 4; ++i) {
-          if constexpr (MODE == S8DOT) {
-#pragma unroll
-            for (int g = 0; g < G; ++g)
-              a[g] = __dp4a(static_cast<int>(word(kv, i)), qi[g][i], static_cast<int>(a[g]));
-          } else {
-            float kf[4];
-            unpack4(word(kv, i), kf);
-#pragma unroll
-            for (int g = 0; g < G; ++g)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) a[g] += qr[g][4 * i + e] * kf[e];
-          }
+          for (int g = 0; g < G; ++g) a[u][g] = 0;
         }
+#pragma unroll
+        for (int i = 0; i < BPL / 4; ++i)
+#pragma unroll
+          for (int u = 0; u < R; ++u) {
+            if constexpr (MODE == S8DOT) {
+#pragma unroll
+              for (int g = 0; g < G; ++g)
+                a[u][g] = __dp4a(static_cast<int>(word(kv[u], i)), qi[g][i],
+                                 static_cast<int>(a[u][g]));
+            } else {
+              float kf[4];
+              unpack4(word(kv[u], i), kf);
+#pragma unroll
+              for (int g = 0; g < G; ++g)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) a[u][g] += qr[g][4 * i + e] * kf[e];
+            }
+          }
 #pragma unroll
         for (int off = LPS / 2; off > 0; off >>= 1)
 #pragma unroll
-          for (int g = 0; g < G; ++g) a[g] += __shfl_xor_sync(0xffffffffu, a[g], off);
-        if (sub == 0 && k < k1) {
-          const int jj = idx[k] - j0;
+          for (int u = 0; u < R; ++u)
 #pragma unroll
-          for (int g = 0; g < G; ++g) {
-            const float dot = static_cast<float>(a[g]);
-            const float x = (MODE == S8DOT)
-                ? __fmul_rn(__fmul_rn(dot, qsc[g]), kss[jj])    // s32 * (qs * scale) * ks
-                : __fmul_rn(__fmul_rn(dot, kss[jj]), scale);    // dot * ks * scale
-            const float s = __fadd_rn(x, bsh[jj]);
-            sc[g * cap + k] = s;
-            mx[g] = fmaxf(mx[g], s);
+            for (int g = 0; g < G; ++g) a[u][g] += __shfl_xor_sync(0xffffffffu, a[u][g], off);
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          const int k = kk + u * SPI + grp;
+          if (sub == 0 && k < k1) {
+            const int jj = idx[k] - j0;
+            const float ksj = kss[jj], bj = bsh[jj];
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              const float dot = static_cast<float>(a[u][g]);
+              const float x = (MODE == S8DOT)
+                  ? __fmul_rn(__fmul_rn(dot, qsc[g]), ksj)    // s32 * (qs * scale) * ks
+                  : __fmul_rn(__fmul_rn(dot, ksj), scale);    // dot * ks * scale
+              const float s = __fadd_rn(x, bj);
+              sc[g * cap + k] = s;
+              mx[g] = fmaxf(mx[g], s);
+            }
           }
         }
       }
@@ -327,6 +369,8 @@ __global__ void __launch_bounds__(NT, 4)
     // the first batch of V rows lands while the statistics are exchanged
     if (nv > 0) stage_rows<HD>(ring, vb, idx, 0, min(nv, RB));
 
+    // exchange 1: every block writes its max and slot count into every
+    // rank's shared memory; after the barrier each reads them in rank order
 #pragma unroll
     for (int g = 0; g < G; ++g) {
 #pragma unroll
@@ -335,41 +379,30 @@ __global__ void __launch_bounds__(NT, 4)
       if (lane == 0) wr[warp][g] = mx[g];
     }
     __syncthreads();
-    if (tid < G) {
-      float m = wr[0][tid];
-      for (int w = 1; w < NW; ++w) m = fmaxf(m, wr[w][tid]);
-      xm[round][tid] = m;
+    if (tid < C * G) {
+      const int g = tid % G;
+      float bm = wr[0][g];
+      for (int w = 1; w < NW; ++w) bm = fmaxf(bm, wr[w][g]);
+      *cluster.map_shared_rank(&rx_m[round][rank][g], tid / G) = bm;
     }
-    if (tid == 0) xn[round] = nv;
-
-    // exchange 1: the row max and the row's slot count over the ranks
-    cluster.sync();
-    if (tid < C) {
-      const float* rm = cluster.map_shared_rank(xm[round], tid);
+    if (tid < C) *cluster.map_shared_rank(&rx_n[round][rank], tid) = nv;
+    cluster_arrive();
+    cluster_wait();
+    int n = 0;
 #pragma unroll
-      for (int g = 0; g < G; ++g) gm[tid][g] = rm[g];
-      gn[tid] = *cluster.map_shared_rank(&xn[round], tid);
+    for (int g = 0; g < G; ++g) m[g] = rx_m[round][0][g];
+    for (int r = 0; r < C; ++r) {
+      n += rx_n[round][r];
+#pragma unroll
+      for (int g = 0; g < G; ++g) m[g] = fmaxf(m[g], rx_m[round][r][g]);
     }
-    __syncthreads();
-    if (tid < G) {
-      float m = gm[0][tid];
-      for (int r = 1; r < C; ++r) m = fmaxf(m, gm[r][tid]);
-      st_m[tid] = m;
-    }
-    if (tid == 0) {
-      int n = 0;
-      for (int r = 0; r < C; ++r) n += gn[r];
-      st_n = n;
-    }
-    __syncthreads();
-    if (st_n > 0 || dense) break;  // the same in every block of the cluster
+    if (n > 0 || dense) break;  // the same in every block of the cluster
   }
 
   // pass 2: p = exp(s - m), this block's share of l and of max(p * vs)
-  float m[G], ls[G], pa[G];
+  float ls[G], pa[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    m[g] = st_m[g];
     ls[g] = 0.f;
     pa[g] = 0.f;
   }
@@ -401,45 +434,41 @@ __global__ void __launch_bounds__(NT, 4)
     }
   }
   __syncthreads();
-  if (tid < G) {
+
+  // exchange 2: l and ps, the same way
+  if (tid < C * G) {
+    const int g = tid % G;
     float l = 0.f, a = 0.f;
     for (int w = 0; w < NW; ++w) {
-      l += wr[w][tid];
-      a = fmaxf(a, wr2[w][tid]);
+      l += wr[w][g];
+      a = fmaxf(a, wr2[w][g]);
     }
-    xl[tid] = l;
-    xpa[tid] = a;
+    *cluster.map_shared_rank(&rx_l[rank][g], tid / G) = l;
+    *cluster.map_shared_rank(&rx_pa[rank][g], tid / G) = a;
   }
-
-  // exchange 2: l and ps over the ranks
-  cluster.sync();
-  if (tid < C) {
-    const float* rl = cluster.map_shared_rank(xl, tid);
-    const float* rp = cluster.map_shared_rank(xpa, tid);
+  cluster_arrive();
+  cluster_wait();
+  float l[G], ps[G];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      gl[tid][g] = rl[g];
-      gp[tid][g] = rp[g];
-    }
-  }
-  __syncthreads();
-  if (tid < G) {
-    float l = 0.f, a = 0.f;
+  for (int g = 0; g < G; ++g) {
+    float a = 0.f;
+    l[g] = 0.f;
     for (int r = 0; r < C; ++r) {
-      l += gl[r][tid];
-      a = fmaxf(a, gp[r][tid]);
+      l[g] += rx_l[r][g];
+      a = fmaxf(a, rx_pa[r][g]);
     }
-    st_l[tid] = l;
-    st_ps[tid] = __fmul_rn(fmaxf(a, 1e-30f), INV127);
+    ps[g] = __fmul_rn(fmaxf(a, 1e-30f), INV127);
   }
-  __syncthreads();
 
   // pass 3: the weights, then P.V over this block's V rows, RB at a time
   const int nv4 = (nv + 3) & ~3;
   if constexpr (MODE == S8DOT) {
     for (int i = tid; i < G * nv4; i += NT) {
       const int g = i / nv4, k = i % nv4;
-      const float r = k < nv ? clip127(rintf(__fdiv_rn(sc[g * cap + k], st_ps[g]))) : 0.f;
+      float psg = ps[0];
+#pragma unroll
+      for (int h = 1; h < G; ++h) psg = g == h ? ps[h] : psg;
+      const float r = k < nv ? clip127(rintf(__fdiv_rn(sc[g * cap + k], psg))) : 0.f;
       pq[g * cap + k] = static_cast<int8_t>(static_cast<int>(r));
     }
   }
@@ -497,27 +526,38 @@ __global__ void __launch_bounds__(NT, 4)
 #pragma unroll
     for (int e = 0; e < 4; ++e) red[(worker * G + g) * HD + d0 + e] = acc[g][e];
   __syncthreads();
+
+  // exchange 3: output i belongs to rank i / per; every block writes its
+  // partial sums into the owners' shared memory, then each owner sums its
+  // slice over the ranks in rank order, scales, divides and writes. After
+  // this barrier no block touches another's shared memory, so none waits
+  // for the others to leave.
+  const int per = (G * HD + C - 1) / C;
   for (int i = tid; i < G * HD; i += NT) {
     A sum = 0;
 #pragma unroll
     for (int w = 0; w < RW; ++w) sum += red[w * G * HD + i];
-    part[i] = sum;
+    const int owner = i / per;
+    *cluster.map_shared_rank(&rx_part[rank * per + i - owner * per], owner) = sum;
   }
-
-  // exchange 3: slice `rank` of the outputs, summed over the ranks in order
-  cluster.sync();
-  const int per = (G * HD + C - 1) / C;
+  cluster_arrive();
+  cluster_wait();
   for (int t = tid; t < per; t += NT) {
     const int i = rank * per + t;
     if (i >= G * HD) break;
     A sum = 0;
-    for (int r = 0; r < C; ++r) sum += cluster.map_shared_rank(part, r)[i];
+    for (int r = 0; r < C; ++r) sum += rx_part[r * per + t];
     const int g = i / HD;
+    float lg = l[0], psg = ps[0];
+#pragma unroll
+    for (int h = 1; h < G; ++h) {
+      lg = g == h ? l[h] : lg;
+      psg = g == h ? ps[h] : psg;
+    }
     float v = static_cast<float>(sum);
-    if constexpr (MODE == S8DOT) v = __fmul_rn(v, st_ps[g]);
-    o[bn * G * HD + i] = __float2bfloat16(__fdiv_rn(v, fmaxf(st_l[g], 1e-30f)));
+    if constexpr (MODE == S8DOT) v = __fmul_rn(v, psg);
+    o[bn * G * HD + i] = __float2bfloat16(__fdiv_rn(v, fmaxf(lg, 1e-30f)));
   }
-  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 struct Args {
