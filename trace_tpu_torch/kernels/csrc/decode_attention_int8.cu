@@ -77,8 +77,11 @@ namespace {
 constexpr int NT = 256;           // threads per block
 constexpr int NW = NT / 32;       // warps per block
 constexpr int MAX_CLUSTER = 8;    // blocks per (kv head, batch row), portable
-constexpr int MIN_SHARE = 128;    // C = clamp(ceil(S / MIN_SHARE), 1, MAX_CLUSTER)
-constexpr int RING = 32 * 1024;   // bytes of K or V rows a block stages at once
+constexpr int MIN_SHARE = 128;    // slots a block takes at least, where C > 1
+constexpr int MAX_BLOCKS = 1056;  // blocks a launch takes at most, where C > 1
+constexpr int STAGE = 8 * 1024;   // bytes of K or V rows in one stage of the ring
+constexpr int NSTAGE = 4;         // stages of the ring, NSTAGE - 1 in flight
+constexpr int RING = NSTAGE * STAGE;
 constexpr float MASKED = -1e30f;  // a slot whose bias is not above this is masked
 constexpr int S8DOT = 0;
 constexpr int DEQUANT = 1;
@@ -126,18 +129,44 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+// a[0..G) summed over the N lanes (xor groups) that share sub = lane % N:
+// after it a[0] holds the sum of a[sub / (N / G)] (N >= G, both powers of 2)
+template <int G, int N, typename T>
+__device__ __forceinline__ void reduce_scatter(T (&a)[G], int sub) {
+  int off = N / 2;
+#pragma unroll
+  for (int half = G / 2; half > 0; half /= 2, off /= 2) {
+    const bool hi = (sub & off) != 0;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const T keep = hi ? a[half + i] : a[i];
+      const T send = hi ? a[i] : a[half + i];
+      a[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+#pragma unroll
+  for (; off > 0; off /= 2) a[0] += __shfl_xor_sync(0xffffffffu, a[0], off);
 }
 
-// copy rows idx[k0..k1) of a [S, HD] int8 stripe into ring rows 0..k1-k0
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// start the copies of tile t (rows idx[t * TR .. min(nv, (t + 1) * TR)) of a
+// [S, HD] int8 stripe, TR = STAGE / HD) into stage t % NSTAGE of the ring, as
+// one commit group (empty past the last tile, so that every thread counts
+// the same groups)
 template <int HD>
-__device__ __forceinline__ void stage_rows(int8_t* ring, const int8_t* src, const int* idx,
-                                           int k0, int k1) {
-  constexpr int CPR = HD / 16;  // 16-byte pieces per row
-  for (int c = threadIdx.x; c < (k1 - k0) * CPR; c += NT) {
+__device__ __forceinline__ void stage_tile(int8_t* ring, const int8_t* src, const int* idx,
+                                           int t, int nv) {
+  constexpr int CPR = HD / 16;     // 16-byte pieces per row
+  constexpr int TR = STAGE / HD;   // rows per tile
+  const int k0 = t * TR, rows = min(nv - k0, TR);
+  int8_t* dst = ring + (t % NSTAGE) * STAGE;
+  for (int c = threadIdx.x; c < rows * CPR; c += NT) {
     const int r = c / CPR, piece = c % CPR;
-    cp_async16(ring + r * HD + piece * 16,
+    cp_async16(dst + r * HD + piece * 16,
                src + static_cast<long long>(idx[k0 + r]) * HD + piece * 16);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -145,11 +174,12 @@ __device__ __forceinline__ void stage_rows(int8_t* ring, const int8_t* src, cons
 
 // dynamic shared memory of a block, in bytes: the ring of staged K or V rows
 // (later the P.V reduction), then per slot of the share (cap = share rounded
-// up to 16): scores [G][cap] fp32, bias, K and V scales [cap] fp32, the slot
-// list [cap] int32 and, for s8dot, the quantized weights [G][cap] int8
+// up to 16): scores [G][cap] fp32, bias [cap] fp32, the slot list [cap]
+// int32, K and V scales [cap] bf16 and, for s8dot, the quantized weights
+// [G][cap] int8
 template <int G, int MODE>
 __host__ __device__ constexpr int smem_per_slot() {
-  return G * 4 + 3 * 4 + 4 + (MODE == S8DOT ? G : 0);
+  return G * 4 + 4 + 4 + 2 * 2 + (MODE == S8DOT ? G : 0);
 }
 
 template <int HD, int G, int MODE>
@@ -164,7 +194,7 @@ __global__ void __launch_bounds__(NT, 4)
   constexpr int R = 2;           // pass 1: rows a lane group scores together
   constexpr int LPR = HD / 4;    // pass 3: threads per V row
   constexpr int RW = NT / LPR;   // pass 3: rows per block iteration
-  constexpr int RB = RING / HD;  // rows per staged batch
+  constexpr int TR = STAGE / HD;  // rows per tile of the ring
   typedef acc_t<MODE> A;
   typedef typename std::conditional<BPL == 16, uint4, uint2>::type kvec;
   static_assert(RW * G * HD * sizeof(A) <= RING, "the P.V reduction must fit the ring");
@@ -183,11 +213,11 @@ __global__ void __launch_bounds__(NT, 4)
   int8_t* ring = reinterpret_cast<int8_t*>(dyn);
   A* red = reinterpret_cast<A*>(dyn);                   // [RW][G][HD], after the last V batch
   float* sc = reinterpret_cast<float*>(dyn + RING);     // scores, then p * vs or weights
-  float* bsh = sc + G * cap;                            // the share's bias,
-  float* kss = bsh + cap;                               // K scales
-  float* vss = kss + cap;                               // and V scales
-  int* idx = reinterpret_cast<int*>(vss + cap);         // the slots taken, ascending
-  int8_t* pq = reinterpret_cast<int8_t*>(idx + cap);    // s8dot: quantized p * vs
+  float* bsh = sc + G * cap;                            // the share's bias
+  int* idx = reinterpret_cast<int*>(bsh + cap);         // the slots taken, ascending
+  bf16* kss = reinterpret_cast<bf16*>(idx + cap);       // the share's K scales
+  bf16* vss = kss + cap;                                // and V scales
+  int8_t* pq = reinterpret_cast<int8_t*>(vss + cap);    // s8dot: quantized p * vs
 
   __shared__ float qf[G][HD];
   __shared__ int qq[G][HD / 4];
@@ -235,8 +265,8 @@ __global__ void __launch_bounds__(NT, 4)
 #pragma unroll 2
     for (int i = tid; i < j1 - j0; i += NT) {
       bsh[i] = bb[j0 + i];
-      kss[i] = __bfloat162float(ks[bn * S + j0 + i]);
-      vss[i] = __bfloat162float(vs[bn * S + j0 + i]);
+      kss[i] = ks[bn * S + j0 + i];
+      vss[i] = vs[bn * S + j0 + i];
     }
   }
   if constexpr (MODE == S8DOT) {
@@ -300,23 +330,27 @@ __global__ void __launch_bounds__(NT, 4)
       __syncthreads();
     }
 
-    // their scores: K rows staged RB at a time, LPS lanes a row, R rows a
+    // their scores: K rows through the ring, LPS lanes a row, R rows a
     // lane group at once
     float mx[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
-    for (int k0 = 0; k0 < nv; k0 += RB) {
-      const int k1 = min(nv, k0 + RB);
-      stage_rows<HD>(ring, kb, idx, k0, k1);
-      cp_async_wait_all();
-      __syncthreads();
+    const int ntile = (nv + TR - 1) / TR;
+    const int gown = sub / (LPS / G);  // the query row whose dot this lane ends with
+    for (int t = 0; t < NSTAGE - 1; ++t) stage_tile<HD>(ring, kb, idx, t, nv);
+    for (int t = 0; t < ntile; ++t) {
+      cp_async_wait<NSTAGE - 2>();  // tile t has landed
+      __syncthreads();              // everywhere, and stage (t - 1) % NSTAGE is free
+      stage_tile<HD>(ring, kb, idx, t + NSTAGE - 1, nv);
+      const int k0 = t * TR, k1 = min(nv, k0 + TR);
+      const int8_t* tile = ring + (t % NSTAGE) * STAGE;
       for (int kk = k0; kk < k1; kk += R * SPI) {
         kvec kv[R];
         A a[R][G];
 #pragma unroll
         for (int u = 0; u < R; ++u) {
           const int k = kk + u * SPI + grp;
-          kv[u] = k < k1 ? *reinterpret_cast<const kvec*>(ring + (k - k0) * HD + sub * BPL)
+          kv[u] = k < k1 ? *reinterpret_cast<const kvec*>(tile + (k - k0) * HD + sub * BPL)
                          : kvec{};
 #pragma unroll
           for (int g = 0; g < G; ++g) a[u][g] = 0;
@@ -339,35 +373,34 @@ __global__ void __launch_bounds__(NT, 4)
                 for (int e = 0; e < 4; ++e) a[u][g] += qr[g][4 * i + e] * kf[e];
             }
           }
+        // the LPS lanes of a row sum their G partial dots: the first
+        // log2(G) steps halve the values a lane holds (it keeps one half
+        // and sends the other), the rest add the one value left, so lane
+        // sub ends with the whole dot of query row sub / (LPS / G)
 #pragma unroll
-        for (int off = LPS / 2; off > 0; off >>= 1)
-#pragma unroll
-          for (int u = 0; u < R; ++u)
-#pragma unroll
-            for (int g = 0; g < G; ++g) a[u][g] += __shfl_xor_sync(0xffffffffu, a[u][g], off);
+        for (int u = 0; u < R; ++u) reduce_scatter<G, LPS>(a[u], sub);
 #pragma unroll
         for (int u = 0; u < R; ++u) {
           const int k = kk + u * SPI + grp;
-          if (sub == 0 && k < k1) {
+          if (sub % (LPS / G) == 0 && k < k1) {
             const int jj = idx[k] - j0;
-            const float ksj = kss[jj], bj = bsh[jj];
+            const float ksj = __bfloat162float(kss[jj]), bj = bsh[jj];
+            const float dot = static_cast<float>(a[u][0]);
+            const float x = (MODE == S8DOT)
+                ? __fmul_rn(__fmul_rn(dot, qsc[gown]), ksj)    // s32 * (qs * scale) * ks
+                : __fmul_rn(__fmul_rn(dot, ksj), scale);       // dot * ks * scale
+            const float s = __fadd_rn(x, bj);
+            sc[gown * cap + k] = s;
 #pragma unroll
-            for (int g = 0; g < G; ++g) {
-              const float dot = static_cast<float>(a[u][g]);
-              const float x = (MODE == S8DOT)
-                  ? __fmul_rn(__fmul_rn(dot, qsc[g]), ksj)    // s32 * (qs * scale) * ks
-                  : __fmul_rn(__fmul_rn(dot, ksj), scale);    // dot * ks * scale
-              const float s = __fadd_rn(x, bj);
-              sc[g * cap + k] = s;
-              mx[g] = fmaxf(mx[g], s);
-            }
+            for (int g = 0; g < G; ++g)
+              if (g == gown) mx[g] = fmaxf(mx[g], s);
           }
         }
       }
-      __syncthreads();  // the ring is free again
     }
-    // the first batch of V rows lands while the statistics are exchanged
-    if (nv > 0) stage_rows<HD>(ring, vb, idx, 0, min(nv, RB));
+    __syncthreads();  // the ring is free again
+    // the first V tiles land while the statistics are exchanged
+    for (int t = 0; t < NSTAGE - 1; ++t) stage_tile<HD>(ring, vb, idx, t, nv);
 
     // exchange 1: every block writes its max and slot count into every
     // rank's shared memory; after the barrier each reads them in rank order
@@ -407,7 +440,7 @@ __global__ void __launch_bounds__(NT, 4)
     pa[g] = 0.f;
   }
   for (int k = tid; k < nv; k += NT) {
-    const float vsj = vss[idx[k] - j0];
+    const float vsj = __bfloat162float(vss[idx[k] - j0]);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const float p = expf(sc[g * cap + k] - m[g]);
@@ -460,7 +493,7 @@ __global__ void __launch_bounds__(NT, 4)
     ps[g] = __fmul_rn(fmaxf(a, 1e-30f), INV127);
   }
 
-  // pass 3: the weights, then P.V over this block's V rows, RB at a time
+  // pass 3: the weights, then P.V over this block's V rows through the ring
   const int nv4 = (nv + 3) & ~3;
   if constexpr (MODE == S8DOT) {
     for (int i = tid; i < G * nv4; i += NT) {
@@ -478,19 +511,21 @@ __global__ void __launch_bounds__(NT, 4)
   for (int g = 0; g < G; ++g)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[g][e] = 0;
-  for (int k0 = 0; k0 < nv; k0 += RB) {
-    const int k1 = min(nv, k0 + RB);
-    if (k0 > 0) stage_rows<HD>(ring, vb, idx, k0, k1);
-    cp_async_wait_all();
+  const int ntile = (nv + TR - 1) / TR;
+  for (int t = 0; t < ntile; ++t) {
+    cp_async_wait<NSTAGE - 2>();
     __syncthreads();
+    stage_tile<HD>(ring, vb, idx, t + NSTAGE - 1, nv);
+    const int k0 = t * TR, k1 = min(nv, k0 + TR);
+    const int8_t* tile = ring + (t % NSTAGE) * STAGE;
     if constexpr (MODE == S8DOT) {
-      // 4 slots a step; RB is a multiple of 4, so a step never straddles two
-      // batches, and the weights past nv are 0
+      // 4 slots a step; TR is a multiple of 4, so a step never straddles two
+      // tiles, and the weights past nv are 0
       for (int kk = k0 + worker * 4; kk < k1; kk += RW * 4) {
         unsigned w[4];
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          w[r] = kk + r < k1 ? *reinterpret_cast<const unsigned*>(ring + (kk + r - k0) * HD + d0)
+          w[r] = kk + r < k1 ? *reinterpret_cast<const unsigned*>(tile + (kk + r - k0) * HD + d0)
                              : 0u;
         // 4 slots x 4 columns -> 4 columns x 4 slots
         const unsigned t0 = __byte_perm(w[0], w[1], 0x5140);
@@ -510,7 +545,7 @@ __global__ void __launch_bounds__(NT, 4)
     } else {
       for (int k = k0 + worker; k < k1; k += RW) {
         float f[4];
-        unpack4(*reinterpret_cast<const unsigned*>(ring + (k - k0) * HD + d0), f);
+        unpack4(*reinterpret_cast<const unsigned*>(tile + (k - k0) * HD + d0), f);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float wv = sc[g * cap + k];
@@ -519,8 +554,8 @@ __global__ void __launch_bounds__(NT, 4)
         }
       }
     }
-    __syncthreads();  // the ring is free again
   }
+  __syncthreads();  // the ring is free again
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -568,17 +603,17 @@ struct Args {
 
 template <int HD, int G, int MODE>
 int launch(const Args& a) {
-  const int C = std::min(MAX_CLUSTER, std::max(1, (a.S + MIN_SHARE - 1) / MIN_SHARE));
+  const int by_length = (a.S + MIN_SHARE - 1) / MIN_SHARE;
+  const int by_grid = MAX_BLOCKS / (a.B * a.nkv);
+  const int C = std::min(MAX_CLUSTER, std::max(1, std::min(by_length, by_grid)));
   const int share = (a.S + C - 1) / C;
   const size_t smem =
       RING + static_cast<size_t>((share + 15) & ~15) * smem_per_slot<G, MODE>();
   auto kernel = decode_int8_kernel<HD, G, MODE>;
-  cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  // static and dynamic shared memory together pass 48 KB at some lengths
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = C;
