@@ -20,36 +20,42 @@
 // bf16 under the final m). So the row's statistics are exchanged between the
 // blocks that share it: one launch, one cluster of C <= 8 blocks per (kv
 // head, batch row), block r of the cluster owning a contiguous share of the
-// slots, and no workspace in device memory:
-//   pass 1:     the block reads its share of the bias and of the K and V
-//               scales (contiguous) into shared memory and lists the slots
-//               it takes: the visible ones only (bias above -1e30; a masked
-//               slot adds exactly 0 once one slot of its row is visible,
-//               since exp(-1e30 - m) underflows), so masked K and V rows are
-//               never read. It copies the listed K rows into shared memory
-//               with cp.async, RING bytes at a time, holds the G query rows
-//               in registers (s8dot quantizes them to packed int8 first) and
-//               scores its slots: HD / 16 (s8dot, __dp4a) or HD / 8 (dequant,
-//               fp32) lanes share a K row. Then it starts the copies of its
-//               first V rows, which land during the exchanges;
-//   exchange 1: every block reads the ranks' maxima and slot counts through
-//               distributed shared memory, in rank order: the row max m. A
-//               row with no visible slot at all (the count is 0) repeats
-//               pass 1 and exchange 1 over every slot: its scores are then
-//               exactly the bias and p = 1 on every slot, as in the plain
-//               version;
+// slots, and no workspace in device memory. C is 8 at serving lengths, less
+// where a share would hold under MIN_SHARE slots or the grid would pass
+// MAX_BLOCKS (four blocks an SM: C = 2 at decode batch 32).
+//   pass 1:     the block loads q and its share of the bias and of the K and
+//               V scales (contiguous) together, and lists the slots it takes:
+//               the visible ones only (bias above -1e30; a masked slot adds
+//               exactly 0 once one slot of its row is visible, since
+//               exp(-1e30 - m) underflows), so masked K and V rows are never
+//               read. Its K rows stream through a ring of NSTAGE shared-memory
+//               stages (cp.async; a tile lands while the one before is
+//               scored). The G query rows sit in registers (s8dot quantizes
+//               them to packed int8 first); HD / 16 (s8dot, __dp4a) or HD / 8
+//               (dequant, fp32) lanes share a K row and sum their partial
+//               dots with a reduce-scatter. Then the first V tile's copy
+//               starts, to land during the exchanges;
+//   exchange 1: every block writes its max and slot count into every rank's
+//               shared memory (distributed shared memory) before a cluster
+//               barrier, then reads them in rank order: the row max m. A row
+//               with no visible slot at all (the count is 0) repeats pass 1
+//               and exchange 1 over every slot: its scores are then exactly
+//               the bias and p = 1 on every slot, as in the plain version;
 //   pass 2:     p = expf(s - m), the block's share of l and, for s8dot, of
 //               max(p * vs);
-//   exchange 2: l and ps = max(max(p * vs), 1e-30) / 127;
+//   exchange 2: l and ps = max(max(p * vs), 1e-30) / 127, the same way;
 //   pass 3:     the block quantizes p * vs (s8dot) or rounds bf16(bf16(p) *
-//               vs) (dequant) and runs P.V over its staged V rows, HD / 4
-//               threads a row (4 bytes each); s8dot transposes 4 slots x 4
-//               columns with byte permutes so that __dp4a contracts over the
-//               slots; partial sums [G, HD] (int32, or fp32 for dequant);
-//   exchange 3: block r sums slice r of the G * HD partials over the ranks
-//               in rank order, scales, divides by max(l, 1e-30), casts and
-//               writes; a last cluster barrier keeps every block's shared
-//               memory alive until the others have read it.
+//               vs) (dequant) and runs P.V over its V rows through the ring,
+//               HD / 4 threads a row (4 bytes each); s8dot transposes 4 slots
+//               x 4 columns with byte permutes so that __dp4a contracts over
+//               the slots; partial sums [G, HD] (int32, or fp32 for dequant);
+//   exchange 3: every block writes slice r of its partial sums into rank r's
+//               shared memory before a cluster barrier; rank r sums its slice
+//               over the ranks in rank order, scales, divides by max(l,
+//               1e-30), casts and writes. After that barrier no block touches
+//               another's shared memory, so none waits for the others to
+//               leave. (The first barrier, that every block of the cluster
+//               runs before any writes into it, completes while q loads.)
 // A block whose share is empty takes part in every exchange with neutral
 // values (max -inf, sums 0). Nothing is summed with atomics, so a call
 // repeats bit for bit. Integer sums are exact in any order; every fp32 step
@@ -57,9 +63,10 @@
 // with the _rn intrinsics so that the compiler fuses no multiply with an add,
 // and the values equal the plain version's bit for bit wherever expf and the
 // plain version's exp agree (only l's summation order differs besides).
-// Shared memory: RING (32 KB) plus 36 bytes a slot of the share at G = 4
-// (43 KB at S = 2304), so four blocks fit an SM at serving lengths; a share
-// past ~5000 slots (S past ~40000) would not fit, and the launch fails.
+// Shared memory: RING (16 KB) plus 28 bytes a slot of the share at G = 4
+// (24 KB at S = 2304 and C = 8, 48 KB at C = 2), so four blocks fit an SM at
+// serving lengths; a share past ~7500 slots (S past ~60000) would not fit,
+// and the launch fails.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -78,9 +85,9 @@ constexpr int NT = 256;           // threads per block
 constexpr int NW = NT / 32;       // warps per block
 constexpr int MAX_CLUSTER = 8;    // blocks per (kv head, batch row), portable
 constexpr int MIN_SHARE = 128;    // slots a block takes at least, where C > 1
-constexpr int MAX_BLOCKS = 1056;  // blocks a launch takes at most, where C > 1
+constexpr int MAX_BLOCKS = 528;   // blocks a launch takes at most (4 an SM), where C > 1
 constexpr int STAGE = 8 * 1024;   // bytes of K or V rows in one stage of the ring
-constexpr int NSTAGE = 4;         // stages of the ring, NSTAGE - 1 in flight
+constexpr int NSTAGE = 2;         // stages of the ring, NSTAGE - 1 in flight
 constexpr int RING = NSTAGE * STAGE;
 constexpr float MASKED = -1e30f;  // a slot whose bias is not above this is masked
 constexpr int S8DOT = 0;
@@ -174,12 +181,12 @@ __device__ __forceinline__ void stage_tile(int8_t* ring, const int8_t* src, cons
 
 // dynamic shared memory of a block, in bytes: the ring of staged K or V rows
 // (later the P.V reduction), then per slot of the share (cap = share rounded
-// up to 16): scores [G][cap] fp32, bias [cap] fp32, the slot list [cap]
-// int32, K and V scales [cap] bf16 and, for s8dot, the quantized weights
-// [G][cap] int8
-template <int G, int MODE>
+// up to 16): scores [G][cap] fp32, bias [cap] fp32 (in pass 3 s8dot's
+// quantized weights [G][cap] int8), the slot list [cap] int32, K and V
+// scales [cap] bf16
+template <int G>
 __host__ __device__ constexpr int smem_per_slot() {
-  return G * 4 + 4 + 4 + 2 * 2 + (MODE == S8DOT ? G : 0);
+  return G * 4 + 4 + 4 + 2 * 2;
 }
 
 template <int HD, int G, int MODE>
@@ -211,13 +218,13 @@ __global__ void __launch_bounds__(NT, 4)
   extern __shared__ __align__(16) unsigned char dyn[];
   const int cap = (share + 15) & ~15;
   int8_t* ring = reinterpret_cast<int8_t*>(dyn);
-  A* red = reinterpret_cast<A*>(dyn);                   // [RW][G][HD], after the last V batch
+  A* red = reinterpret_cast<A*>(dyn);                   // [RW][G][HD], after the last V tile
   float* sc = reinterpret_cast<float*>(dyn + RING);     // scores, then p * vs or weights
-  float* bsh = sc + G * cap;                            // the share's bias
+  float* bsh = sc + G * cap;                            // the share's bias (pass 1)
   int* idx = reinterpret_cast<int*>(bsh + cap);         // the slots taken, ascending
   bf16* kss = reinterpret_cast<bf16*>(idx + cap);       // the share's K scales
   bf16* vss = kss + cap;                                // and V scales
-  int8_t* pq = reinterpret_cast<int8_t*>(vss + cap);    // s8dot: quantized p * vs
+  int8_t* pq = reinterpret_cast<int8_t*>(bsh);          // s8dot: quantized p * vs, in pass 3
 
   __shared__ float qf[G][HD];
   __shared__ int qq[G][HD / 4];
@@ -608,7 +615,7 @@ int launch(const Args& a) {
   const int C = std::min(MAX_CLUSTER, std::max(1, std::min(by_length, by_grid)));
   const int share = (a.S + C - 1) / C;
   const size_t smem =
-      RING + static_cast<size_t>((share + 15) & ~15) * smem_per_slot<G, MODE>();
+      RING + static_cast<size_t>((share + 15) & ~15) * smem_per_slot<G>();
   auto kernel = decode_int8_kernel<HD, G, MODE>;
   // static and dynamic shared memory together pass 48 KB at some lengths
   cudaError_t err = cudaFuncSetAttribute(

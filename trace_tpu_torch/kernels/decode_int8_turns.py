@@ -9,7 +9,8 @@ named by ``--against`` (say an earlier commit's copy, unpacked with
 times both modes at the shapes of ``chip_smoke.py`` phase 3: an int8 cache
 stripe quantized from random K/V, 8 kv heads, G = 4, hd 128, S = 2304,
 half the slots masked at random, at B = 4 and at B = 32 (the bench's decode
-batch). CUDA events, median of 20 with the L2 flushed
+batch), and at B = 32 with serving-shaped masks (left padding, a visible
+prefix, masked future slots). CUDA events, median of 20 with the L2 flushed
 before each run; the versions in turns, forward then backward (A B B A), so
 that a drift of the card shows as a spread and not as a difference. Every
 version's output is held against the plain version first (the limits of
@@ -35,7 +36,7 @@ from trace_tpu_torch.kernels.build import BUILD_DIR, CSRC, NVCC_FLAGS, nvcc
 from trace_tpu_torch.kernels.decode_attention import INT8_MODES, _PLAIN_INT8
 
 NKV, G, S, HD = 8, 4, 2304, 128
-BATCHES = (4, 32)
+CASES = ((4, "random"), (32, "random"), (32, "serving"))
 ATOL, RTOL = 2e-3, 2 ** -7
 
 
@@ -100,7 +101,7 @@ def median_ms(fn, flush, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def inputs(g, B):
+def inputs(g, B, mask="random"):
     from trace_tpu_torch.model.mistral import _quantize_kv
 
     stripe = {}
@@ -108,8 +109,14 @@ def inputs(g, B):
         x = torch.randn((B, NKV, S, HD), generator=g, device="cuda").to(torch.bfloat16)
         stripe[vals], stripe[scales] = (t.contiguous() for t in _quantize_kv(x))
     q = torch.randn((B, NKV * G, 1, HD), generator=g, device="cuda").to(torch.bfloat16)
-    bias = torch.where(torch.rand((B, S), generator=g, device="cuda") < 0.5,
-                       0.0, -1e30).float()
+    if mask == "random":
+        visible = torch.rand((B, S), generator=g, device="cuda") < 0.5
+    else:  # row b sees slots [pad, end): its padded prompt, then no future slot
+        pad = torch.randint(0, S // 8, (B, 1), generator=g, device="cuda")
+        end = torch.randint(S // 2, S, (B, 1), generator=g, device="cuda")
+        slot = torch.arange(S, device="cuda")[None]
+        visible = (slot >= pad) & (slot < end)
+    bias = torch.where(visible, 0.0, -1e30).float()
     return q, stripe, bias
 
 
@@ -129,17 +136,17 @@ def main() -> int:
     libs = build(sources)
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    for B in BATCHES:
-        q, stripe, bias = inputs(g, B)
+    for B, mask in CASES:
+        q, stripe, bias = inputs(g, B, mask)
         kd = stripe["kq"].to(torch.bfloat16) * stripe["ks"].transpose(-1, -2)
         vd = stripe["vq"].to(torch.bfloat16) * stripe["vs"].transpose(-1, -2)
-        mask = bias[:, None, None, :].to(torch.bfloat16)
+        attn_mask = bias[:, None, None, :].to(torch.bfloat16)
         sdpa = median_ms(lambda: F.scaled_dot_product_attention(
-            q, kd, vd, attn_mask=mask, enable_gqa=True), flush)
+            q, kd, vd, attn_mask=attn_mask, enable_gqa=True), flush)
         visible = int((bias == 0).sum().item())
         nbytes = 2 * q.numel() * 2 + 2 * visible * NKV * (HD + 2) + bias.numel() * 4
-        print(f"B = {B}: SDPA {sdpa:.4f} ms; byte bound {nbytes / 3.35e12 * 1e3:.4f} ms",
-              flush=True)
+        print(f"B = {B}, {mask} mask: SDPA {sdpa:.4f} ms; byte bound "
+              f"{nbytes / 3.35e12 * 1e3:.4f} ms", flush=True)
         for mode in INT8_MODES:
             ref = _PLAIN_INT8[mode](q, stripe["kq"], stripe["ks"], stripe["vq"], stripe["vs"],
                                     bias).float()
@@ -159,7 +166,7 @@ def main() -> int:
                 times[name].append(median_ms(runs[name], flush))
             for name, ts in times.items():
                 print(f"  {mode} {name}: {' / '.join(f'{t:.4f}' for t in ts)} ms", flush=True)
-        del q, stripe, bias, kd, vd, mask
+        del q, stripe, bias, kd, vd, attn_mask
     return 0
 
 
