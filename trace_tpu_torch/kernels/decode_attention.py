@@ -123,8 +123,8 @@ def _decode_attention_int8(q, cache: dict, bias_row, mode: str, impl: str):
                            ("vs", vs, torch.bfloat16), ("bias_row", bias_row, torch.float32)):
         if x.dtype != dtype or not x.is_contiguous() or x.device != q.device:
             raise ValueError(f"{name} must be a contiguous {dtype} tensor on {q.device}")
-    if bias_row.shape != (B, S) or S < 1:
-        raise ValueError("bias_row must be [B, S] with S >= 1")
+    if bias_row.shape != (B, S):
+        raise ValueError("bias_row must be [B, S]")
 
     from trace_tpu_torch.kernels.build import check, load
 

@@ -67,6 +67,7 @@ def caller(lib, mode, q, stripe, bias):
     ws = []
     if hasattr(lib, "decode_attn_int8_chunk"):  # the four-launch interface
         lib.decode_attn_int8_chunk.restype = ctypes.c_int
+        lib.decode_attn_int8_chunk.argtypes = []
         nchunk = -(-S // lib.decode_attn_int8_chunk())
         ws = [torch.empty(shape, dtype=dtype, device="cuda") for shape, dtype in (
             ((B, NKV, G, S), torch.float32), ((B, NKV, G, 2), torch.float32),
