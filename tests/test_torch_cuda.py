@@ -609,6 +609,29 @@ def test_int8_decode_kernel_at_the_bench_decode_batch(cuda, mode):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["s8dot", "dequant"])
+def test_int8_decode_kernel_on_a_large_grid_at_a_long_length(cuda, mode):
+    """B x NKV = 512 (row, kv head) pairs at S = 8192: the grid alone would
+    leave one block per pair, whose share of the slots would not fit its
+    shared memory, so the cluster keeps more blocks."""
+    from trace_tpu_torch.model.mistral import _quantize_kv
+
+    B, NKV, G, S, HD = 64, 8, 4, 8192, 128
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    stripe = {}
+    for vals, scales in (("kq", "ks"), ("vq", "vs")):
+        x = torch.randn((B, NKV, S, HD), generator=gen, device=cuda).to(torch.bfloat16)
+        stripe[vals], stripe[scales] = (t.contiguous() for t in _quantize_kv(x))
+        del x
+    q = torch.randn((B, NKV * G, 1, HD), generator=gen, device=cuda).to(torch.bfloat16)
+    bias = torch.where(torch.rand((B, S), generator=gen, device=cuda) < 0.5,
+                       0.0, -1e30).float()
+    got = decode_attention(q, stripe, None, bias, mode=mode)
+    want = decode_attention(q, stripe, None, bias, mode=mode, impl="plain")
+    _assert_matches(got, want, ATOL["decode"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["s8dot", "dequant"])
 def test_int8_decode_is_one_launch_that_allocates_only_its_output(cuda, mode):
     from torch.profiler import ProfilerActivity, profile
 

@@ -65,8 +65,8 @@
 // plain version's exp agree (only l's summation order differs besides).
 // Shared memory: RING (16 KB) plus 28 bytes a slot of the share at G = 4
 // (24 KB at S = 2304 and C = 8, 48 KB at C = 2), so four blocks fit an SM at
-// serving lengths; a share past ~7500 slots (S past ~60000) would not fit,
-// and the launch fails.
+// serving lengths. C grows where a share would not fit; past 8 x ~7400 slots
+// (S past ~59000) none does, and the launch fails.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -89,6 +89,7 @@ constexpr int MAX_BLOCKS = 528;   // blocks a launch takes at most (4 an SM), wh
 constexpr int STAGE = 8 * 1024;   // bytes of K or V rows in one stage of the ring
 constexpr int NSTAGE = 2;         // stages of the ring, NSTAGE - 1 in flight
 constexpr int RING = NSTAGE * STAGE;
+constexpr int MAX_DYNAMIC_SMEM = 220 * 1024;  // of the 227 KB a block may have, beside static
 constexpr float MASKED = -1e30f;  // a slot whose bias is not above this is masked
 constexpr int S8DOT = 0;
 constexpr int DEQUANT = 1;
@@ -612,7 +613,10 @@ template <int HD, int G, int MODE>
 int launch(const Args& a) {
   const int by_length = (a.S + MIN_SHARE - 1) / MIN_SHARE;
   const int by_grid = MAX_BLOCKS / (a.B * a.nkv);
-  const int C = std::min(MAX_CLUSTER, std::max(1, std::min(by_length, by_grid)));
+  // but never fewer blocks than hold the row in shared memory
+  const int fit = (MAX_DYNAMIC_SMEM - RING) / smem_per_slot<G>() - 15;
+  const int by_memory = (a.S + fit - 1) / fit;
+  const int C = std::min(MAX_CLUSTER, std::max({1, by_memory, std::min(by_length, by_grid)}));
   const int share = (a.S + C - 1) / C;
   const size_t smem =
       RING + static_cast<size_t>((share + 15) & ~15) * smem_per_slot<G>();
