@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero:
      and stacked; int8 decode attention in both modes; the nibble-packed int4
      weight products, per channel and grouped, each in its split-K form at
      M = 2 and its tensor-core form at M = 3886, the grouped one also at
-     M = 32, its 64-row tile, printed apart; the training attention:
+     M = 32, its 64-row tile, printed apart; the bf16 decode attention also
+     at decode batch 32 with random and with serving masks, printed apart;
+     the training attention:
      forward with the logsumexp residual, backward dq and backward dk/dv), with its time (CUDA
      events, median of 20, L2 flushed between runs), the plain version's
      time, the time of one PyTorch library call computing the same function
@@ -73,9 +75,9 @@ VIDEOS = 2
 MAX_NEW = 64
 # bf16 kernel vs plain, per kernel: |diff| <= atol + rtol |ref| element by
 # element, and ||diff|| / ||ref|| <= REL_NORM_TOL. Both versions round the
-# output to bf16 and the probabilities to bf16 before P.V (at other points
-# of the online softmax), so they differ by about one bf16 step of the
-# output: rtol is two steps (2^-7). Each atol is about twice the largest
+# output to bf16 and the probabilities to bf16 before P.V (the flash kernels
+# at other points of the online softmax), so they differ by about one bf16
+# step of the output: rtol is two steps (2^-7). Each atol is about twice the largest
 # difference measured at these shapes and inputs (NVIDIA H100 80GB HBM3,
 # 700 W: 0.0156 / 0.0039 / 0.00098): flash's early rows average few keys,
 # |o| up to ~4, where a step is 2^-6; a ViT output averages 577 keys,
@@ -301,6 +303,7 @@ def kernel_checks(torch):
                                                            impl="plain")),
         library_ms=median_ms(torch, lib), bound=bound(nbytes, flops))
     del q, ck, cv, out, ref, lib_mask
+    bf16_decode_batch_checks(torch)
 
     quant_matmul_checks(torch, g, rows)
     int8_decode_checks(torch, g, rows)
@@ -318,6 +321,50 @@ def kernel_checks(torch):
         if not (r["excess"] <= 0 and r["rel_norm"] <= REL_NORM_TOL):
             fail(f"{name}: kernel disagrees with its plain version")
     return rows
+
+
+def bf16_decode_batch_checks(torch) -> None:
+    """bf16 decode attention at B = 32, the bench's decode batch, S = 2304,
+    one [B, 8, S, 128] stripe per mask: half the slots masked at random, and
+    serving-shaped masks (row b sees slots [pad, end): its left-padded
+    prompt, then no future slot). Printed on lines of their own beside the
+    bound and SDPA, held to the row's limits; inputs from a generator of
+    their own, so that the entries after them see the inputs they saw."""
+    import torch.nn.functional as F
+
+    from trace_tpu_torch.kernels.decode_attention import decode_attention
+    from trace_tpu_torch.kernels.decode_int8_turns import mask_bias
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    B, H, NKV, S, HD = 32, 32, 8, 2304, 128  # mask_bias's S
+    name = "decode_attention"
+    atol, rtol = KERNEL_TOL[name]
+    for mask in ("random", "serving"):
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                   for shape in ((B, H, 1, HD), (B, NKV, S, HD), (B, NKV, S, HD)))
+        bias = mask_bias(g, B, mask)
+        run = lambda impl="auto": decode_attention(q, k, v, bias, impl=impl)
+        out, ref = run(), run("plain")
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            fail(f"{name} at B = {B}, {mask} mask: non-finite output")
+        lib_mask = bias[:, None, None, :].to(torch.bfloat16)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask,
+                                                     enable_gqa=True)
+        n_visible = int((bias == 0).sum().item())
+        flops = 4 * H * n_visible * HD
+        nbytes = (2 * q.numel() + 2 * n_visible * NKV * HD) * 2 + bias.numel() * 4
+        r = dict(**compare(name, out, ref), ms=median_ms(torch, run),
+                 plain_ms=median_ms(torch, lambda: run("plain")),
+                 library_ms=median_ms(torch, lib), bound=bound(nbytes, flops))
+        print(f"  {name} at B = {B}, S = {S}, {mask} mask: ms={r['ms']:.4f} library_ms="
+              f"{r['library_ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms="
+              f"{r['bound'][0]:.4f} ({r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} %) "
+              f"max_abs_err={r['err']:.6f} (|diff| <= {atol} + {rtol} |ref|, excess "
+              f"{r['excess']:.6f}) rel_norm_err={r['rel_norm']:.6f}", flush=True)
+        if not (r["excess"] <= 0 and r["rel_norm"] <= REL_NORM_TOL):
+            fail(f"{name} at B = {B}, {mask} mask: kernel disagrees with its plain version")
+        del q, k, v, bias, out, ref, lib_mask
 
 
 def merge(parts: list) -> dict:
@@ -939,7 +986,7 @@ def end_to_end(torch, mode: str):
             state = prefill()
         logits[name] = compute_logits(p._decoder_params, state[2], impl=impl)
         if name == "kernel":
-            step_profile = profile_decode_step(torch, pipe, cfg.decoder, state)
+            step_profile = profile_decode_step(torch, pipe, cfg.decoder, state, mode)
         del state
     del ref
     if not torch.isfinite(logits["kernel"]).all():
@@ -1341,7 +1388,7 @@ def device_profile(torch, label: str, fn, top: int = 8):
                  "top": [[name[:80], ms, n] for name, (ms, n) in ranked]}
 
 
-def profile_decode_step(torch, pipe, dec, state) -> dict:
+def profile_decode_step(torch, pipe, dec, state, mode: str) -> dict:
     """One decode step of the kernel path (decoder, combined logits, argmax)
     from a prefilled cache: its wall time (median of 5, synchronised), and
     under torch.profiler the CUDA kernels it launches and the share of the
@@ -1381,8 +1428,8 @@ def profile_decode_step(torch, pipe, dec, state) -> dict:
            "device_events": len(on_device) or "not measured",
            "device_busy_ms": busy if on_device else "not measured",
            "traced_wall_ms": 1e3 * traced}
-    print(f"decode step (B={last.shape[0]}): {out['wall_ms']:.2f} ms wall; traced: "
-          f"{out['device_events']} device events, busy {busy:.2f} ms of "
+    print(f"{mode} decode step (B={last.shape[0]}): {out['wall_ms']:.2f} ms wall; traced: "
+          f"{out['device_events']} device operations per step, busy {busy:.2f} ms of "
           f"{out['traced_wall_ms']:.2f} ms", flush=True)
     return out
 

@@ -165,17 +165,73 @@ def test_forward_pv_product_on_one_tile(cuda, hd):
     torch.testing.assert_close(o, p.float() @ v.float(), atol=1e-4, rtol=1e-5)
 
 
+# bf16 decode attention: kernel and plain version round p to bf16 at the
+# same point (under the row max, before the division), so they differ by the
+# order of the fp32 sums and where expf and torch.exp round a p apart; the
+# limits of the other decode tests hold.
+def _bf16_stripe(cuda, B, NKV, G, S, HD, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((B, NKV * G, 1, HD), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((B, NKV, S, HD), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn((B, NKV, S, HD), generator=gen, device=cuda).to(torch.bfloat16)
+    return q, k, v
+
+
+def _check_bf16_decode(q, k, v, bias):
+    n = decode_attention.launches
+    got = decode_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n + 1
+    want = decode_attention(q, k, v, bias, impl="plain")
+    assert torch.isfinite(got).all()
+    _assert_matches(got, want, ATOL["decode"])
+    assert torch.equal(got, decode_attention(q, k, v, bias))  # no atomics
+
+
 @pytest.mark.cuda
-def test_decode_kernel_matches_plain(cuda):
-    L, B, NKV, G, S, HD = 3, 3, 2, 4, 333, 128
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("HD", [64, 128])
+@pytest.mark.parametrize("S", [333, 2304])
+def test_decode_kernel_matches_plain(cuda, G, HD, S):
+    """Layer 1's stripe of a 3-layer cache, read in place; half the slots
+    masked at random."""
+    L, B, NKV = 3, 3, 2
     rng = np.random.default_rng(8)
     q = _bf16(rng, (B, NKV * G, 1, HD), cuda)
     k, v = _bf16(rng, (L, B, NKV, S, HD), cuda), _bf16(rng, (L, B, NKV, S, HD), cuda)
-    masked = torch.from_numpy(rng.random((B, S)) < 0.5).to(cuda)
-    bias = torch.where(masked, -1e30, 0.0).float()
-    got = decode_attention(q, k[1], v[1], bias)
-    want = decode_attention(q, k[1], v[1], bias, impl="plain")
-    _assert_matches(got, want, ATOL["decode"])
+    bias = _edge_bias(rng, "random", B, S).to(cuda)
+    _check_bf16_decode(q, k[1], v[1], bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["no_visible", "one_visible", "all_visible", "serving"])
+@pytest.mark.parametrize("S", [40, 1100])
+def test_decode_kernel_on_edge_masks(cuda, kind, S):
+    q, k, v = _bf16_stripe(cuda, 3, 2, 4, S, 128, seed=31)
+    bias = _edge_bias(np.random.default_rng(31), kind, 3, S).to(cuda)
+    _check_bf16_decode(q, k, v, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "serving"])
+def test_decode_kernel_at_the_bench_decode_batch(cuda, kind):
+    """B = 32 (the bench's decode batch), S = 2304."""
+    q, k, v = _bf16_stripe(cuda, 32, 8, 4, 2304, 128, seed=32)
+    bias = _edge_bias(np.random.default_rng(32), kind, 32, 2304).to(cuda)
+    _check_bf16_decode(q, k, v, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(64, 8192), (64, 16384), (1, 65536)])
+def test_decode_kernel_on_a_large_grid_at_a_long_length(cuda, B, S):
+    """B x NKV = 512 (row, kv head) pairs: the grid alone would leave one
+    block per pair, whose share of the slots fits its shared memory at
+    S = 8192 and not at 16384, so there the cluster keeps more blocks; and
+    one row at S = 65536, past the lengths the int8 kernel takes, with 8
+    blocks."""
+    q, k, v = _bf16_stripe(cuda, B, 8, 4, S, 128, seed=33)
+    bias = _edge_bias(np.random.default_rng(33), "random", B, S).to(cuda)
+    _check_bf16_decode(q, k, v, bias)
 
 
 # Attention backward: the kernels round p and ds to bf16 before their second
@@ -555,18 +611,21 @@ def test_int8_decode_kernel_matches_plain(cuda, mode, L, B, NKV, G, S, HD):
 
 
 def _edge_bias(rng, kind, B, S):
-    """[B, S] decode masks that the kernel's slot skipping must keep: a row
-    that sees no slot (the plain version then weighs every slot alike), rows
-    that see one slot (first, inside, last), and serving rows: left padding,
-    the visible prefix, then masked future slots."""
+    """[B, S] decode masks that the kernel's slot skipping must keep: half
+    the slots at random; a row that sees no slot (the plain version then
+    weighs every slot alike); rows that see every slot; rows that see one
+    slot (first, inside, last); and serving rows: left padding, the visible
+    prefix, then masked future slots."""
     visible = rng.random((B, S)) < 0.5
     if kind == "no_visible":
         visible[0] = False
+    elif kind == "all_visible":
+        visible[:] = True
     elif kind == "one_visible":
         visible[:] = False
         for b, j in zip(range(B), (S // 2 + 3, 0, S - 1)):
             visible[b, j] = True
-    else:
+    elif kind == "serving":
         for b in range(B):
             pad = int(rng.integers(0, S // 4))
             end = int(rng.integers(S // 2, S))
@@ -652,6 +711,31 @@ def test_int8_decode_is_one_launch_that_allocates_only_its_output(cuda, mode):
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     out = decode_attention(q, stripe, None, bias, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before == out.untyped_storage().nbytes()
+    del out
+    assert torch.cuda.memory_allocated() == before
+
+
+@pytest.mark.cuda
+def test_decode_is_one_launch_that_allocates_only_its_output(cuda):
+    # after the int8 decode tests: a profiler session in this process may miss
+    # the kernels of a library first launched after an earlier session ended
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _bf16_stripe(cuda, 4, 8, 4, 2304, 128, seed=34)
+    bias = _edge_bias(np.random.default_rng(34), "serving", 4, 2304).to(cuda)
+    decode_attention(q, k, v, bias)  # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+    on_device = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_device) == 1 and "decode_bf16_kernel" in on_device[0], on_device
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = decode_attention(q, k, v, bias)
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - before == out.untyped_storage().nbytes()
     del out

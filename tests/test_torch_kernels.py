@@ -3,7 +3,8 @@ Pallas kernels, run in interpret mode on the CPU (the CUDA kernels against
 their plain versions are in test_torch_cuda.py).
 
 Tolerance: fp32, 2e-5 (the same scores summed in another order); the int8
-decode attention bodies state theirs where they are tested.
+decode attention bodies, and the bf16 body at bf16 inputs, state theirs where
+they are tested.
 """
 
 import jax.numpy as jnp
@@ -105,6 +106,39 @@ def test_decode_plain_matches_pallas_bf16_body():
     assert kt[li].is_contiguous()  # the layer's stripe is a view, read in place
     got = decode_attention(torch.from_numpy(q), kt[li], vt[li], torch.from_numpy(bias))
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+# bf16 decode attention at bf16 inputs. The plain version rounds where
+# _kernel_bf16 rounds: p = exp(s - m) to bf16 under the row max, before the
+# division by l (summed over the unrounded p). The two differ only where
+# torch.exp and XLA's exp round a p apart (1 ulp, which may flip its bf16
+# rounding) and in the order of the fp32 sums; the bf16 output may then round
+# to its neighbour, at most 2^-7 of |o|: rtol 2^-7, atol 1e-5 for outputs near
+# 0. (Rounding the normalised probabilities instead, as grouped_attention does,
+# misses these limits by up to 2e-3 on these inputs.)
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("mask", ["random", "no_visible", "one_visible"])
+def test_decode_bf16_plain_matches_pallas_bf16_body_at_bf16(G, mask):
+    L, B, NKV, S, HD, li = 2, 3, 2, 96, 128, 1
+    rng = np.random.default_rng(40 + G)
+    q = torch.from_numpy(_normal(rng, B, NKV * G, 1, HD)).to(torch.bfloat16)
+    k = torch.from_numpy(_normal(rng, L, B, NKV, S, HD)).to(torch.bfloat16)
+    v = torch.from_numpy(_normal(rng, L, B, NKV, S, HD)).to(torch.bfloat16)
+    visible = rng.random((B, S)) < 0.5
+    if mask == "no_visible":  # every slot then weighs p = 1
+        visible[0] = False
+    elif mask == "one_visible":
+        visible[:2] = False
+        visible[0, S // 2 + 3] = visible[1, S - 1] = True
+    bias = np.where(visible, 0.0, -1e30).astype(np.float32)
+    as_jax = lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    want = jax_decode(as_jax(q), (as_jax(k), as_jax(v)), jnp.int32(li),
+                      jnp.asarray(bias), interpret=True)
+    assert want.dtype == jnp.bfloat16
+    got = decode_attention(q, k[li], v[li], torch.from_numpy(bias))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=2 ** -7, atol=1e-5)
 
 
 def test_cpu_wrappers_run_plain_and_count_no_launch():

@@ -1,231 +1,388 @@
-// One decode step of GQA attention over one layer's KV-cache stripe, for
+// One decode step of GQA attention over one layer's bf16 KV-cache stripe, for
 // Hopper (sm_90a): bf16 in, bf16 out, fp32 softmax statistics.
 //
 // Replaces decode_attention (_kernel_bf16) of
 // trace_tpu/kernels/decode_attention.py. The TPU kernel receives the layer
 // index as a scalar-prefetch operand to select the stripe of the stacked
 // [L, B, NKV, S, hd] cache; here the caller passes the stripe itself, a
-// contiguous [B, NKV, S, hd] view, so the kernel reads it in place.
+// contiguous [B, NKV, S, hd] view, so the kernel reads it in place. Per
+// (batch row, kv head), for its G query rows:
+//   s = (q . k^T) * scale + bias,  m = max(s),  p = exp(s - m),  l = sum(p),
+//   o = (bf16(p) . v) / max(l, 1e-30),
+// the products and l summed in fp32. p is rounded to bf16 under the row's
+// final max, before the division, as the TPU kernel rounds it.
 //
-// The step is bound by bytes: each (batch row, kv head) stripe is read once
-// and carries only G (= 4 for Mistral) query rows, about 2 flops per byte.
-// One block per (kv head, batch row) would leave most of the 132 SMs idle
-// at serving batch (B x NKV = 16 blocks at B = 2), so the slots are split
-// into chunks of CHUNK and the work runs in two launches:
-//   1. decode_attn_partial: one block per (kv head, batch row, chunk) holds
-//      its G query rows in registers; 8 warps split the chunk's slots, each
-//      warp reads whole 256-byte K and V rows (lane l holds elements
-//      l*hd/32..), four slots per step to keep loads in flight, and keeps a
-//      running max, sum and output accumulator per query row in fp32
-//      (online softmax). The warps merge in shared memory and the block
-//      writes its chunk's (max, sum, unnormalised output) to a workspace.
-//   2. decode_attn_combine: one block per (kv head, batch row) merges the
-//      chunks and divides by max(sum, 1e-30), as the TPU kernel does.
-// Probabilities are rounded to bf16 before they weight V, as the TPU kernel
-// does (p.astype(v.dtype)); their sum stays fp32.
+// The step is bound by bytes: each (row, kv head) stripe is read once for G
+// query rows, about 2 flops per byte. So the kernel reads only the K and V
+// rows of the visible slots, once, and keeps everything else on the chip.
+// One launch, one cluster of C <= 8 blocks per (kv head, batch row), block r
+// of the cluster owning a contiguous share of the slots, no workspace in
+// device memory. C is 8 at serving lengths, less where a share would hold
+// under MIN_SHARE slots or the grid would pass MAX_BLOCKS (four blocks an SM:
+// C = 2 at decode batch 32), but never fewer than hold the row in shared
+// memory (decode_common.cuh, shared with the int8 kernel).
+//   pass 1:     the block loads q (into registers: a lane holds 8 columns of
+//               each of the G rows) and its share of the bias together, and
+//               lists the slots it takes: the visible ones only (bias above
+//               -1e30; a masked slot adds exactly 0 once one slot of its row
+//               is visible, since exp(-1e30 - m) underflows). Their K rows
+//               stream through a ring of NSTAGE shared-memory stages (16-byte
+//               cp.async; NSTAGE - 1 tiles in flight while one is scored);
+//               HD / 8 lanes share a K row, 16 bytes each, and sum their G
+//               partial dots with a reduce-scatter; the scores stay in shared
+//               memory. Then the first V tiles' copies start, to land during
+//               the exchange;
+//   exchange 1: every block writes its max and slot count into every rank's
+//               shared memory (distributed shared memory) before a cluster
+//               barrier, then reads them in rank order: the row max m. A row
+//               with no visible slot at all (the count is 0) repeats pass 1
+//               and exchange 1 over every slot: its scores are then exactly
+//               the bias and p = 1 on every slot, as in the TPU kernel;
+//   pass 2:     p = expf(s - m), the block's share of l over the unrounded p,
+//               and P.V with bf16(p) over its V rows through the ring, HD / 4
+//               threads a row (8 bytes each), fp32 partial sums [G, HD];
+//   exchange 2: every block writes its l into every rank's shared memory and
+//               slice r of its partial sums into rank r's, before a cluster
+//               barrier; rank r sums its slice over the ranks in rank order,
+//               divides by max(l, 1e-30), casts and writes. After that
+//               barrier no block touches another's shared memory, so none
+//               waits for the others to leave. (The first barrier, that every
+//               block of the cluster runs before any writes into it,
+//               completes while q and the bias load.)
+// The max goes first, in an exchange of its own, so that every p is rounded
+// under the row's final max as the TPU kernel rounds it (an online softmax
+// would round each block's p under its own running max). A block whose share
+// is empty takes part in both exchanges with neutral values (max -inf, sums
+// 0). Nothing is summed with atomics, so a call repeats bit for bit.
+// Shared memory: RING plus 4 G + 8 bytes a slot of the share (scores, bias,
+// slot index): 31 KB at S = 2304, G = 4 and C = 8, 51 KB at C = 2, so four
+// blocks fit an SM at serving lengths. C grows where a share would not fit;
+// past 8 x ~8350 slots (S past ~66000 at G = 4) none does, and the launch
+// fails.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "decode_common.cuh"
 
 typedef __nv_bfloat16 bf16;
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NW = 8;            // warps per partial block
-constexpr int KPI = 4;           // slots a warp loads per step
-constexpr int CHUNK = 256;       // slots per partial block
-constexpr float M_INIT = -1e38f;  // running-max start, below any masked score
+constexpr int NT = 256;           // threads per block
+constexpr int NW = NT / 32;       // warps per block
+constexpr int MIN_SHARE = 128;    // slots a block takes at least, where C > 1
+constexpr int MAX_BLOCKS = 528;   // blocks a launch takes at most (4 an SM), where C > 1
+constexpr int STAGE = 8 * 1024;   // bytes of K or V rows in one stage of the ring
+constexpr int NSTAGE = 3;         // stages of the ring, NSTAGE - 1 in flight
+constexpr int RING = NSTAGE * STAGE;
+constexpr int MAX_DYNAMIC_SMEM = 220 * 1024;  // of the 227 KB a block may have, beside static
 
-template <int EPL>
-__device__ __forceinline__ void load_row(const bf16* src, float* dst) {
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// the bf16 pair in word w as two floats
+__device__ __forceinline__ float2 unpack2(unsigned w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
+// the eight bf16 of a 16-byte vector as floats
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int e = 0; e < EPL; e += 2) {
-    const float2 f =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src + e));
-    dst[e] = f.x;
-    dst[e + 1] = f.y;
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = unpack2(w[i]);
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
   }
 }
 
-template <int HD, int G>
-__global__ void __launch_bounds__(NW * 32)
-    decode_attn_partial(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const float* __restrict__ bias,
-                        float* __restrict__ ws_ml, float* __restrict__ ws_acc,
-                        int nkv, int S, float scale) {
-  constexpr int EPL = HD / 32;  // elements of a row per lane
-  __shared__ float sm_m[NW][G];
-  __shared__ float sm_l[NW][G];
-  __shared__ float sm_acc[NW][G][HD];
+// dynamic shared memory of a block, in bytes: the ring of staged K or V rows
+// (later the P.V reduction), then per slot of the share (cap = share rounded
+// up to 16): scores [G][cap] fp32 (in pass 2 bf16(p)), bias [cap] fp32, the
+// slot list [cap] int32
+template <int G>
+__host__ __device__ constexpr int smem_per_slot() {
+  return G * 4 + 4 + 4;
+}
 
-  const int n = blockIdx.x;
-  const int b = blockIdx.y;
-  const int c = blockIdx.z;
-  const int nchunk = gridDim.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const long long bn = static_cast<long long>(b) * nkv + n;
-  const bf16* qb = q + bn * G * HD;  // heads n*G .. n*G+G-1 of batch row b
+template <int HD, int G>
+__global__ void __launch_bounds__(NT, 4)
+    decode_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const float* __restrict__ bias,
+                       bf16* __restrict__ o, int nkv, int S, int share, float scale) {
+  constexpr int ROW = HD * 2;      // bytes of a K or V row
+  constexpr int LPS = HD / 8;      // pass 1: lanes per K row, 16 bytes each
+  constexpr int SPI = NT / LPS;    // pass 1: rows per block iteration
+  constexpr int R = 2;             // pass 1: rows a lane group scores together
+  constexpr int LPR = HD / 4;      // pass 2: threads per V row, 8 bytes each
+  constexpr int RW = NT / LPR;     // pass 2: rows per block iteration
+  constexpr int TR = STAGE / ROW;  // rows per tile of the ring
+  static_assert(RW * G * HD * sizeof(float) <= RING, "the P.V reduction must fit the ring");
+  static_assert(LPS >= G && LPS <= 32, "a K row's lanes hold every query row's dot");
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long long bn = static_cast<long long>(blockIdx.z) * nkv + blockIdx.y;
+  // no block writes into another's shared memory before every block of the
+  // cluster runs; this barrier completes while the first loads are in flight
+  cluster_arrive_relaxed();
+
+  extern __shared__ __align__(16) unsigned char dyn[];
+  const int cap = (share + 15) & ~15;
+  unsigned char* ring = dyn;
+  float* red = reinterpret_cast<float*>(dyn);        // [RW][G][HD], after the last V tile
+  float* sc = reinterpret_cast<float*>(dyn + RING);  // scores, then bf16(p)
+  float* bsh = sc + G * cap;                         // the share's bias
+  int* idx = reinterpret_cast<int*>(bsh + cap);      // the slots taken, ascending
+
+  // what the other ranks write here (rank r's values at [r]), before the
+  // barrier of each exchange
+  __shared__ float rx_m[2][MAX_CLUSTER][G];
+  __shared__ int rx_n[2][MAX_CLUSTER];
+  __shared__ float rx_l[MAX_CLUSTER][G];
+  __shared__ float rx_part[G * HD + MAX_CLUSTER];
+  __shared__ float wr[NW][G];
+  __shared__ int wcnt[NW];
+
+  // q and the share's bias (contiguous) in flight together
+  const int j0 = min(S, rank * share), j1 = min(S, j0 + share);
+  const int sub = tid % LPS, grp = tid / LPS;
+  float qr[G][8];  // columns sub * 8 .. sub * 8 + 7 of every query row
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    unpack8(*reinterpret_cast<const uint4*>(q + (bn * G + g) * HD + sub * 8), qr[g]);
+  {
+    const float* bb = bias + static_cast<long long>(blockIdx.z) * S;
+#pragma unroll 2
+    for (int i = tid; i < j1 - j0; i += NT) bsh[i] = bb[j0 + i];
+  }
+  cluster_wait();
+
+  // pass 1 and exchange 1, in up to two rounds: first over the visible
+  // slots only, then, only if the whole row has no visible slot, over every
+  // slot
   const bf16* kb = k + bn * S * HD;
   const bf16* vb = v + bn * S * HD;
-  const float* bb = bias + static_cast<long long>(b) * S;
-  const int j_end = min(S, (c + 1) * CHUNK);
+  int nv = 0;
+  float m[G];
+  for (int round = 0;; ++round) {
+    const bool dense = round == 1;
+    nv = list_slots<NT>(idx, wcnt, bsh, j0, j1, dense);
 
-  float qr[G][EPL];
+    // their scores: K rows through the ring, LPS lanes a row, R rows a
+    // lane group at once
+    float mx[G];
 #pragma unroll
-  for (int g = 0; g < G; ++g) load_row<EPL>(qb + g * HD + lane * EPL, qr[g]);
-
-  float m[G], l[G], acc[G][EPL];
+    for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
+    const int ntile = (nv + TR - 1) / TR;
+    const int gown = sub / (LPS / G);  // the query row whose dot this lane ends with
+    for (int t = 0; t < NSTAGE - 1; ++t) stage_tile<ROW, STAGE, NSTAGE, NT>(ring, kb, idx, t, nv);
+    for (int t = 0; t < ntile; ++t) {
+      cp_async_wait<NSTAGE - 2>();  // tile t has landed
+      __syncthreads();              // everywhere, and stage (t - 1) % NSTAGE is free
+      stage_tile<ROW, STAGE, NSTAGE, NT>(ring, kb, idx, t + NSTAGE - 1, nv);
+      const int k0 = t * TR, k1 = min(nv, k0 + TR);
+      const unsigned char* tile = ring + (t % NSTAGE) * STAGE;
+      for (int kk = k0; kk < k1; kk += R * SPI) {
+        float a[R][G];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = M_INIT;
-    l[g] = 0.f;
+        for (int u = 0; u < R; ++u) {
+          const int kr = kk + u * SPI + grp;
+          const uint4 kv = kr < k1
+              ? *reinterpret_cast<const uint4*>(tile + (kr - k0) * ROW + sub * 16)
+              : make_uint4(0, 0, 0, 0);
+          float kf[8];
+          unpack8(kv, kf);
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
-  }
-
-  for (int j0 = c * CHUNK + warp * KPI; j0 < j_end; j0 += NW * KPI) {
-    float kr[KPI][EPL], vr[KPI][EPL], bj[KPI];
+          for (int g = 0; g < G; ++g) {
+            a[u][g] = 0.f;
 #pragma unroll
-    for (int u = 0; u < KPI; ++u) {
-      const int j = j0 + u;
-      if (j < j_end) {
-        load_row<EPL>(kb + static_cast<long long>(j) * HD + lane * EPL, kr[u]);
-        load_row<EPL>(vb + static_cast<long long>(j) * HD + lane * EPL, vr[u]);
-        bj[u] = bb[j];
-      } else {
+            for (int e = 0; e < 8; ++e) a[u][g] += qr[g][e] * kf[e];
+          }
+        }
+        // the LPS lanes of a row sum their G partial dots: the first
+        // log2(G) steps halve the values a lane holds (it keeps one half
+        // and sends the other), the rest add the one value left, so lane
+        // sub ends with the whole dot of query row sub / (LPS / G)
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) kr[u][e] = vr[u][e] = 0.f;
-        bj[u] = 0.f;
+        for (int u = 0; u < R; ++u) reduce_scatter<G, LPS>(a[u], sub);
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          const int kr = kk + u * SPI + grp;
+          if (sub % (LPS / G) == 0 && kr < k1) {
+            const float s = a[u][0] * scale + bsh[idx[kr] - j0];
+            sc[gown * cap + kr] = s;
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+              if (g == gown) mx[g] = fmaxf(mx[g], s);
+          }
+        }
       }
     }
+    __syncthreads();  // the ring is free again
+    // the first V tiles land while the max is exchanged
+    for (int t = 0; t < NSTAGE - 1; ++t) stage_tile<ROW, STAGE, NSTAGE, NT>(ring, vb, idx, t, nv);
+
+    // exchange 1: every block writes its max and slot count into every
+    // rank's shared memory; after the barrier each reads them in rank order
 #pragma unroll
-    for (int u = 0; u < KPI; ++u) {
-      if (j0 + u >= j_end) break;  // the same for every lane of the warp
-      float s[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float d = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) d += qr[g][e] * kr[u][e];
-        s[g] = d;
-      }
+    for (int g = 0; g < G; ++g) {
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
+        mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], off));
+      if (lane == 0) wr[warp][g] = mx[g];
+    }
+    __syncthreads();
+    if (tid < C * G) {
+      const int g = tid % G;
+      float bm = wr[0][g];
+      for (int w = 1; w < NW; ++w) bm = fmaxf(bm, wr[w][g]);
+      *cluster.map_shared_rank(&rx_m[round][rank][g], tid / G) = bm;
+    }
+    if (tid < C) *cluster.map_shared_rank(&rx_n[round][rank], tid) = nv;
+    cluster_arrive();
+    cluster_wait();
+    int n = 0;
 #pragma unroll
-        for (int g = 0; g < G; ++g)
-          s[g] += __shfl_xor_sync(0xffffffffu, s[g], off);
+    for (int g = 0; g < G; ++g) m[g] = rx_m[round][0][g];
+    for (int r = 0; r < C; ++r) {
+      n += rx_n[round][r];
+#pragma unroll
+      for (int g = 0; g < G; ++g) m[g] = fmaxf(m[g], rx_m[round][r][g]);
+    }
+    if (n > 0 || dense) break;  // the same in every block of the cluster
+  }
+
+  // pass 2: p = exp(s - m) and this block's share of l over the unrounded
+  // p; the weights bf16(p) replace the scores
+  float ls[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) ls[g] = 0.f;
+  for (int kr = tid; kr < nv; kr += NT) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float p = expf(sc[g * cap + kr] - m[g]);
+      ls[g] += p;
+      sc[g * cap + kr] = bf16_round(p);
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) ls[g] += __shfl_xor_sync(0xffffffffu, ls[g], off);
+    if (lane == 0) wr[warp][g] = ls[g];
+  }
+
+  // P.V over this block's V rows through the ring (the first tile's
+  // barrier also publishes the weights)
+  const int worker = tid / LPR, d0 = (tid % LPR) * 4;
+  float acc[G][4];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
+  const int ntile = (nv + TR - 1) / TR;
+  for (int t = 0; t < ntile; ++t) {
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();
+    stage_tile<ROW, STAGE, NSTAGE, NT>(ring, vb, idx, t + NSTAGE - 1, nv);
+    const int k0 = t * TR, k1 = min(nv, k0 + TR);
+    const unsigned char* tile = ring + (t % NSTAGE) * STAGE;
+    for (int kr = k0 + worker; kr < k1; kr += RW) {
+      const uint2 w = *reinterpret_cast<const uint2*>(tile + (kr - k0) * ROW + d0 * 2);
+      const float2 f01 = unpack2(w.x), f23 = unpack2(w.y);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float x = s[g] * scale + bj[u];
-        const float m_new = fmaxf(m[g], x);
-        const float alpha = expf(m[g] - m_new);
-        const float pe = expf(x - m_new);
-        l[g] = l[g] * alpha + pe;
-        const float pb = __bfloat162float(__float2bfloat16(pe));
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[g][e] = acc[g][e] * alpha + pb * vr[u][e];
-        m[g] = m_new;
+        const float pw = sc[g * cap + kr];
+        acc[g][0] += pw * f01.x;
+        acc[g][1] += pw * f01.y;
+        acc[g][2] += pw * f23.x;
+        acc[g][3] += pw * f23.y;
       }
     }
   }
-
+  __syncthreads();  // the ring is free again
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
+  for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) sm_acc[warp][g][lane * EPL + e] = acc[g][e];
-  }
+    for (int e = 0; e < 4; ++e) red[(worker * G + g) * HD + d0 + e] = acc[g][e];
   __syncthreads();
 
-  // merge the warps; the chunk's partial stays unnormalised
-  const long long slot = bn * nchunk + c;
-  for (int t = threadIdx.x; t < G * HD; t += NW * 32) {
-    const int g = t / HD, d = t % HD;
-    float M = M_INIT;
+  // exchange 2: every block writes l into every rank's shared memory and
+  // output i's partial sum into its owner's, rank i / per; then each owner
+  // sums its slice over the ranks in rank order, divides and writes. After
+  // this barrier no block touches another's shared memory, so none waits
+  // for the others to leave.
+  if (tid < C * G) {
+    const int g = tid % G;
+    float l = 0.f;
+    for (int w = 0; w < NW; ++w) l += wr[w][g];
+    *cluster.map_shared_rank(&rx_l[rank][g], tid / G) = l;
+  }
+  const int per = (G * HD + C - 1) / C;
+  for (int i = tid; i < G * HD; i += NT) {
+    float sum = 0.f;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, sm_m[w][g]);
-    float lsum = 0.f, out = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float f = expf(sm_m[w][g] - M);
-      lsum += sm_l[w][g] * f;
-      out += sm_acc[w][g][d] * f;
+    for (int w = 0; w < RW; ++w) sum += red[w * G * HD + i];
+    const int owner = i / per;
+    *cluster.map_shared_rank(&rx_part[rank * per + i - owner * per], owner) = sum;
+  }
+  cluster_arrive();
+  cluster_wait();
+  for (int t = tid; t < per; t += NT) {
+    const int i = rank * per + t;
+    if (i >= G * HD) break;
+    const int g = i / HD;
+    float sum = 0.f, l = 0.f;
+    for (int r = 0; r < C; ++r) {
+      sum += rx_part[r * per + t];
+      l += rx_l[r][g];
     }
-    ws_acc[slot * G * HD + t] = out;
-    if (d == 0) {
-      ws_ml[(slot * G + g) * 2] = M;
-      ws_ml[(slot * G + g) * 2 + 1] = lsum;
-    }
+    o[bn * G * HD + i] = __float2bfloat16(__fdiv_rn(sum, fmaxf(l, 1e-30f)));
   }
 }
 
 template <int HD, int G>
-__global__ void decode_attn_combine(const float* __restrict__ ws_ml,
-                                    const float* __restrict__ ws_acc,
-                                    bf16* __restrict__ o, int nkv, int nchunk) {
-  const long long bn = static_cast<long long>(blockIdx.y) * nkv + blockIdx.x;
-  for (int t = threadIdx.x; t < G * HD; t += blockDim.x) {
-    const int g = t / HD;
-    float M = M_INIT;
-    for (int c = 0; c < nchunk; ++c)
-      M = fmaxf(M, ws_ml[((bn * nchunk + c) * G + g) * 2]);
-    float lsum = 0.f, out = 0.f;
-    for (int c = 0; c < nchunk; ++c) {
-      const long long slot = bn * nchunk + c;
-      const float f = expf(ws_ml[(slot * G + g) * 2] - M);
-      lsum += ws_ml[(slot * G + g) * 2 + 1] * f;
-      out += ws_acc[slot * G * HD + t] * f;
-    }
-    o[bn * G * HD + t] = __float2bfloat16(out / fmaxf(lsum, 1e-30f));
-  }
-}
-
-template <int HD, int G>
-int launch(const void* q, const void* k, const void* v, const float* bias,
-           void* o, float* ws_ml, float* ws_acc, int B, int nkv, int S,
-           float scale, cudaStream_t stream) {
-  const int nchunk = (S + CHUNK - 1) / CHUNK;
-  decode_attn_partial<HD, G><<<dim3(nkv, B, nchunk), NW * 32, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), bias, ws_ml, ws_acc, nkv, S, scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  decode_attn_combine<HD, G><<<dim3(nkv, B), G * HD, 0, stream>>>(
-      ws_ml, ws_acc, static_cast<bf16*>(o), nkv, nchunk);
-  return static_cast<int>(cudaGetLastError());
+int launch(const bf16* q, const bf16* k, const bf16* v, const float* bias, bf16* o, int B,
+           int nkv, int S, float scale, cudaStream_t stream) {
+  const int C = cluster_blocks(S, B * nkv, MIN_SHARE, MAX_BLOCKS, MAX_DYNAMIC_SMEM, RING,
+                               smem_per_slot<G>());
+  const int share = (S + C - 1) / C;
+  const size_t smem = RING + static_cast<size_t>((share + 15) & ~15) * smem_per_slot<G>();
+  return launch_clusters(decode_bf16_kernel<HD, G>, C, nkv, B, NT, smem, stream, q, k, v,
+                         bias, o, nkv, S, share, scale);
 }
 
 template <int HD>
-int dispatch_group(const void* q, const void* k, const void* v,
-                   const float* bias, void* o, float* ws_ml, float* ws_acc,
+int dispatch_group(const bf16* q, const bf16* k, const bf16* v, const float* bias, bf16* o,
                    int B, int nkv, int G, int S, float scale, cudaStream_t s) {
   switch (G) {
-    case 1: return launch<HD, 1>(q, k, v, bias, o, ws_ml, ws_acc, B, nkv, S, scale, s);
-    case 2: return launch<HD, 2>(q, k, v, bias, o, ws_ml, ws_acc, B, nkv, S, scale, s);
-    case 4: return launch<HD, 4>(q, k, v, bias, o, ws_ml, ws_acc, B, nkv, S, scale, s);
+    case 1: return launch<HD, 1>(q, k, v, bias, o, B, nkv, S, scale, s);
+    case 2: return launch<HD, 2>(q, k, v, bias, o, B, nkv, S, scale, s);
+    case 4: return launch<HD, 4>(q, k, v, bias, o, B, nkv, S, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// Slots per partial block; the caller sizes the workspace from it:
-// ws_ml [B, nkv, ceil(S / chunk), G, 2], ws_acc [B, nkv, ceil(S / chunk), G, hd].
-extern "C" int decode_attn_chunk() { return CHUNK; }
-
 extern "C" int decode_attn_bf16(const void* q, const void* k, const void* v,
-                                const float* bias, void* o, float* ws_ml,
-                                float* ws_acc, int B, int nkv, int G, int S,
+                                const float* bias, void* o, int B, int nkv, int G, int S,
                                 int hd, float scale, void* stream) {
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  bf16* ob = static_cast<bf16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 128)
-    return dispatch_group<128>(q, k, v, bias, o, ws_ml, ws_acc, B, nkv, G, S, scale, s);
-  if (hd == 64)
-    return dispatch_group<64>(q, k, v, bias, o, ws_ml, ws_acc, B, nkv, G, S, scale, s);
+  if (S < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd == 128) return dispatch_group<128>(qb, kb, vb, bias, ob, B, nkv, G, S, scale, s);
+  if (hd == 64) return dispatch_group<64>(qb, kb, vb, bias, ob, B, nkv, G, S, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -73,8 +73,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
 #include <type_traits>
+
+#include "decode_common.cuh"
 
 typedef __nv_bfloat16 bf16;
 namespace cg = cooperative_groups;
@@ -83,14 +84,12 @@ namespace {
 
 constexpr int NT = 256;           // threads per block
 constexpr int NW = NT / 32;       // warps per block
-constexpr int MAX_CLUSTER = 8;    // blocks per (kv head, batch row), portable
 constexpr int MIN_SHARE = 128;    // slots a block takes at least, where C > 1
 constexpr int MAX_BLOCKS = 528;   // blocks a launch takes at most (4 an SM), where C > 1
 constexpr int STAGE = 8 * 1024;   // bytes of K or V rows in one stage of the ring
 constexpr int NSTAGE = 2;         // stages of the ring, NSTAGE - 1 in flight
 constexpr int RING = NSTAGE * STAGE;
 constexpr int MAX_DYNAMIC_SMEM = 220 * 1024;  // of the 227 KB a block may have, beside static
-constexpr float MASKED = -1e30f;  // a slot whose bias is not above this is masked
 constexpr int S8DOT = 0;
 constexpr int DEQUANT = 1;
 #define INV127 (static_cast<float>(1.0 / 127.0))
@@ -118,66 +117,6 @@ __device__ __forceinline__ float clip127(float r) {
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-// the cluster barrier in two halves: arrive (release: this block's writes,
-// also into other blocks' shared memory, become visible), then wait (acquire)
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// a[0..G) summed over the N lanes (xor groups) that share sub = lane % N:
-// after it a[0] holds the sum of a[sub / (N / G)] (N >= G, both powers of 2)
-template <int G, int N, typename T>
-__device__ __forceinline__ void reduce_scatter(T (&a)[G], int sub) {
-  int off = N / 2;
-#pragma unroll
-  for (int half = G / 2; half > 0; half /= 2, off /= 2) {
-    const bool hi = (sub & off) != 0;
-#pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const T keep = hi ? a[half + i] : a[i];
-      const T send = hi ? a[i] : a[half + i];
-      a[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-    }
-  }
-#pragma unroll
-  for (; off > 0; off /= 2) a[0] += __shfl_xor_sync(0xffffffffu, a[0], off);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// start the copies of tile t (rows idx[t * TR .. min(nv, (t + 1) * TR)) of a
-// [S, HD] int8 stripe, TR = STAGE / HD) into stage t % NSTAGE of the ring, as
-// one commit group (empty past the last tile, so that every thread counts
-// the same groups)
-template <int HD>
-__device__ __forceinline__ void stage_tile(int8_t* ring, const int8_t* src, const int* idx,
-                                           int t, int nv) {
-  constexpr int CPR = HD / 16;     // 16-byte pieces per row
-  constexpr int TR = STAGE / HD;   // rows per tile
-  const int k0 = t * TR, rows = min(nv - k0, TR);
-  int8_t* dst = ring + (t % NSTAGE) * STAGE;
-  for (int c = threadIdx.x; c < rows * CPR; c += NT) {
-    const int r = c / CPR, piece = c % CPR;
-    cp_async16(dst + r * HD + piece * 16,
-               src + static_cast<long long>(idx[k0 + r]) * HD + piece * 16);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // dynamic shared memory of a block, in bytes: the ring of staged K or V rows
@@ -320,23 +259,7 @@ __global__ void __launch_bounds__(NT, 4)
   for (int round = 0;; ++round) {
     const bool dense = round == 1;
     // the slots this block takes, in order
-    nv = 0;
-    for (int base = j0; base < j1; base += NT) {
-      const int j = base + tid;
-      const bool take = j < j1 && (dense || bsh[j - j0] > MASKED);
-      const unsigned bal = __ballot_sync(0xffffffffu, take);
-      if (lane == 0) wcnt[warp] = __popc(bal);
-      __syncthreads();
-      int off = nv, tot = 0;
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        off += w < warp ? wcnt[w] : 0;
-        tot += wcnt[w];
-      }
-      if (take) idx[off + __popc(bal & ((1u << lane) - 1u))] = j;
-      nv += tot;
-      __syncthreads();
-    }
+    nv = list_slots<NT>(idx, wcnt, bsh, j0, j1, dense);
 
     // their scores: K rows through the ring, LPS lanes a row, R rows a
     // lane group at once
@@ -345,11 +268,11 @@ __global__ void __launch_bounds__(NT, 4)
     for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
     const int ntile = (nv + TR - 1) / TR;
     const int gown = sub / (LPS / G);  // the query row whose dot this lane ends with
-    for (int t = 0; t < NSTAGE - 1; ++t) stage_tile<HD>(ring, kb, idx, t, nv);
+    for (int t = 0; t < NSTAGE - 1; ++t) stage_tile<HD, STAGE, NSTAGE, NT>(ring, kb, idx, t, nv);
     for (int t = 0; t < ntile; ++t) {
       cp_async_wait<NSTAGE - 2>();  // tile t has landed
       __syncthreads();              // everywhere, and stage (t - 1) % NSTAGE is free
-      stage_tile<HD>(ring, kb, idx, t + NSTAGE - 1, nv);
+      stage_tile<HD, STAGE, NSTAGE, NT>(ring, kb, idx, t + NSTAGE - 1, nv);
       const int k0 = t * TR, k1 = min(nv, k0 + TR);
       const int8_t* tile = ring + (t % NSTAGE) * STAGE;
       for (int kk = k0; kk < k1; kk += R * SPI) {
@@ -408,7 +331,7 @@ __global__ void __launch_bounds__(NT, 4)
     }
     __syncthreads();  // the ring is free again
     // the first V tiles land while the statistics are exchanged
-    for (int t = 0; t < NSTAGE - 1; ++t) stage_tile<HD>(ring, vb, idx, t, nv);
+    for (int t = 0; t < NSTAGE - 1; ++t) stage_tile<HD, STAGE, NSTAGE, NT>(ring, vb, idx, t, nv);
 
     // exchange 1: every block writes its max and slot count into every
     // rank's shared memory; after the barrier each reads them in rank order
@@ -523,7 +446,7 @@ __global__ void __launch_bounds__(NT, 4)
   for (int t = 0; t < ntile; ++t) {
     cp_async_wait<NSTAGE - 2>();
     __syncthreads();
-    stage_tile<HD>(ring, vb, idx, t + NSTAGE - 1, nv);
+    stage_tile<HD, STAGE, NSTAGE, NT>(ring, vb, idx, t + NSTAGE - 1, nv);
     const int k0 = t * TR, k1 = min(nv, k0 + TR);
     const int8_t* tile = ring + (t % NSTAGE) * STAGE;
     if constexpr (MODE == S8DOT) {
@@ -611,36 +534,14 @@ struct Args {
 
 template <int HD, int G, int MODE>
 int launch(const Args& a) {
-  const int by_length = (a.S + MIN_SHARE - 1) / MIN_SHARE;
-  const int by_grid = MAX_BLOCKS / (a.B * a.nkv);
-  // but never fewer blocks than hold the row in shared memory
-  const int fit = (MAX_DYNAMIC_SMEM - RING) / smem_per_slot<G>() - 15;
-  const int by_memory = (a.S + fit - 1) / fit;
-  const int C = std::min(MAX_CLUSTER, std::max({1, by_memory, std::min(by_length, by_grid)}));
+  const int C = cluster_blocks(a.S, a.B * a.nkv, MIN_SHARE, MAX_BLOCKS, MAX_DYNAMIC_SMEM,
+                               RING, smem_per_slot<G>());
   const int share = (a.S + C - 1) / C;
   const size_t smem =
       RING + static_cast<size_t>((share + 15) & ~15) * smem_per_slot<G>();
-  auto kernel = decode_int8_kernel<HD, G, MODE>;
-  // static and dynamic shared memory together pass 48 KB at some lengths
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, a.nkv, a.B);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = a.stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, a.q, a.kq, a.ks, a.vq, a.vs, a.bias, a.o, a.nkv,
-                           a.S, share, a.scale);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_clusters(decode_int8_kernel<HD, G, MODE>, C, a.nkv, a.B, NT, smem, a.stream,
+                         a.q, a.kq, a.ks, a.vq, a.vs, a.bias, a.o, a.nkv, a.S, share,
+                         a.scale);
 }
 
 template <int HD, int MODE>

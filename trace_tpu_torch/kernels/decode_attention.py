@@ -11,15 +11,15 @@ index map; in torch ``cache_k[li]`` is already a contiguous [B, NKV, S, hd]
 view, and the kernels read that view in place.
 
 Bound on an H100: bytes. Each (batch row, kv head) stripe is read once for
-G = 4 query rows (~2 flops per byte, far below the card's ~295). The bf16
-kernel streams K and V once at full row width and keeps the softmax online
-in registers, the slots split into chunks of 256 with a second small launch
-that merges them. The int8 kernel cannot run in one online pass: s8dot
-quantizes ``p * vs`` by its maximum over all slots of the row. It runs as
-one cluster launch instead: a cluster of up to 8 blocks per (batch row, kv
-head) splits the slots, and the blocks exchange the row's max, sum and
-probability scale, then their partial outputs, through distributed shared
-memory; the wrapper allocates only the output. See the sources.
+G = 4 query rows (~2 flops per byte, far below the card's ~295). Neither
+kernel can run in one online pass: the bf16 body rounds ``exp(s - m)`` to
+bf16 under the row's final max, and s8dot quantizes ``p * vs`` by its
+maximum over all slots of the row. Each runs as one cluster launch: a
+cluster of up to 8 blocks per (batch row, kv head) splits the slots, reads
+the K and V rows of the visible ones only, and the blocks exchange the
+row's statistics (the max first), then their partial outputs, through
+distributed shared memory; the wrapper allocates only the output. See the
+sources.
 
 On a CUDA tensor the wrapper launches its kernel or raises; the plain
 version runs for CPU tensors, or when the caller passes ``impl="plain"``.
@@ -53,6 +53,24 @@ def grouped_attention(q, k, v, bias):
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bngts,bnsh->bngth", probs.float(), v.float())
     return out.reshape(B, NH, T, HD).to(q.dtype)
+
+
+def decode_attention_bf16(q, k, v, bias_row):
+    """Plain version of ``_kernel_bf16``: fp32 scores, ``p = exp(s - m)``
+    under the row max, l summed in fp32 over the unrounded p, p cast to v's
+    dtype (bf16 for a bf16 cache) before P.V with fp32 sums, then divided by
+    max(l, 1e-30) and cast to q's dtype. q [B,H,1,hd]; k, v [B,NKV,S,hd];
+    bias_row [B,S] additive."""
+    B, H, _, hd = q.shape
+    NKV = k.shape[1]
+    qg = q.float().reshape(B, NKV, H // NKV, hd)
+    s = _gqa_scores(qg, k.float()) * (hd ** -0.5) + bias_row.float()[:, None, None, :]
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bngs,bnsh->bngh", p.to(v.dtype).float(), v.float())
+    o = o / l.clamp_min(1e-30)
+    return o.to(q.dtype).reshape(B, H, 1, hd)
 
 
 def _gqa_scores(qg, k):
@@ -161,7 +179,7 @@ def decode_attention(
     if isinstance(cache_k, dict):
         return _decode_attention_int8(q, cache_k, bias_row, mode, impl)
     if impl == "plain" or not q.is_cuda:
-        return grouped_attention(q, cache_k, cache_v, bias_row[:, None, None, :])
+        return decode_attention_bf16(q, cache_k, cache_v, bias_row)
     B, H, T, hd = q.shape
     _, NKV, S, _ = cache_k.shape
     if T != 1 or cache_k.shape != (B, NKV, S, hd) or cache_v.shape != cache_k.shape:
@@ -169,31 +187,25 @@ def decode_attention(
     if H % NKV or H // NKV not in (1, 2, 4) or hd not in (64, 128):
         raise ValueError(f"unsupported heads {H}/{NKV} or head dim {hd}")
     for name, x in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
-        if x.dtype != torch.bfloat16 or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous bfloat16 tensor")
+        if (x.dtype != torch.bfloat16 or not x.is_contiguous() or x.device != q.device
+                or x.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned bfloat16 "
+                             f"tensor on {q.device}")
     if (bias_row.shape != (B, S) or bias_row.dtype != torch.float32
-            or not bias_row.is_contiguous()):
-        raise ValueError("bias_row must be a contiguous fp32 [B, S]")
+            or not bias_row.is_contiguous() or bias_row.device != q.device):
+        raise ValueError(f"bias_row must be a contiguous fp32 [B, S] on {q.device}")
 
     from trace_tpu_torch.kernels.build import check, load
 
     lib = load(_SOURCE)
     fn = lib.decode_attn_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
-    lib.decode_attn_chunk.restype = ctypes.c_int
-    lib.decode_attn_chunk.argtypes = []
-    G = H // NKV
-    nchunk = -(-S // lib.decode_attn_chunk())
-    o = torch.empty_like(q)
-    # per-chunk partials: (max, sum) and the unnormalised output
-    ws_ml = torch.empty((B, NKV, nchunk, G, 2), dtype=torch.float32, device=q.device)
-    ws_acc = torch.empty((B, NKV, nchunk, G, hd), dtype=torch.float32, device=q.device)
+    o = torch.empty_like(q)  # the kernel's only allocation: no workspace
     err = fn(
-        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-        bias_row.data_ptr(), o.data_ptr(), ws_ml.data_ptr(), ws_acc.data_ptr(),
-        B, NKV, G, S, hd, float(hd ** -0.5),
+        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), bias_row.data_ptr(),
+        o.data_ptr(), B, NKV, H // NKV, S, hd, float(hd ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check(err, "decode_attn_bf16")

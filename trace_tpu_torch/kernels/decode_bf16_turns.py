@@ -1,0 +1,131 @@
+"""The bf16 decode attention kernel timed beside other builds of its source,
+on the card.
+
+    python -m trace_tpu_torch.kernels.decode_bf16_turns [--against NAME=PATH.cu ...]
+
+Builds ``csrc/decode_attention.cu`` as it is (``this``) and each source
+named by ``--against`` (say an earlier commit's copy, unpacked with
+``git archive`` into a gitignored directory), loads each with ctypes, and
+times it at the shapes of ``chip_smoke.py`` phase 3: a bf16 cache stripe of
+random K/V, 8 kv heads, G = 4, hd 128, S = 2304, half the slots masked at
+random, at B = 4 and at B = 32 (the bench's decode batch), and at B = 32
+with serving-shaped masks (left padding, a visible prefix, masked future
+slots); last at the shape of the decode step that ``chip_smoke.py`` profiles
+(B = 2, S = 2049: a prefill of 2048 slots, left padding, then the new
+slot). CUDA events, median of 20 with the L2 flushed before each run; the
+versions in turns, forward then backward (A B B A), so that a drift of the
+card shows as a spread and not as a difference. Every version's output is
+held against the plain version first (the limits of ``chip_smoke.py``), and
+SDPA on the same stripe is timed beside them as the yardstick. A source with
+the older two-launch interface (it exports ``decode_attn_chunk``) gets its
+two workspaces from the script, allocated once, outside the timed calls.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from trace_tpu_torch.kernels.build import CSRC
+from trace_tpu_torch.kernels.decode_attention import decode_attention_bf16
+from trace_tpu_torch.kernels.decode_int8_turns import (
+    ATOL,
+    CASES,
+    HD,
+    NKV,
+    RTOL,
+    G,
+    S,
+    build,
+    mask_bias,
+    median_ms,
+)
+
+# B, S, mask; last the smoke's profiled decode step
+SHAPES = tuple((B, S, mask) for B, mask in CASES) + ((2, 2049, "step"),)
+
+
+def caller(lib, q, k, v, bias):
+    """A function that launches ``lib``'s kernel once into a fixed output."""
+    B, S = bias.shape
+    o = torch.empty_like(q)
+    fn = lib.decode_attn_bf16
+    fn.restype = ctypes.c_int
+    args = [t.data_ptr() for t in (q, k, v, bias, o)]
+    ws = []
+    if hasattr(lib, "decode_attn_chunk"):  # the two-launch interface
+        lib.decode_attn_chunk.restype = ctypes.c_int
+        lib.decode_attn_chunk.argtypes = []
+        nchunk = -(-S // lib.decode_attn_chunk())
+        ws = [torch.empty((B, NKV, nchunk, G, n), dtype=torch.float32, device="cuda")
+              for n in (2, HD)]
+        args += [w.data_ptr() for w in ws]
+    fn.argtypes = [ctypes.c_void_p] * len(args) + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = fn(*args, B, NKV, G, S, HD, float(HD ** -0.5), stream)
+        if err:
+            raise RuntimeError(f"CUDA error {err} at launch")
+        return o
+
+    run.workspaces = ws  # alive as long as the caller
+    return run
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", action="append", default=[], metavar="NAME=PATH.cu")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("decode_bf16_turns: no CUDA device", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    sources = {"this": CSRC / "decode_attention.cu"}
+    for item in args.against:
+        name, _, path = item.partition("=")
+        sources[name] = Path(path)
+    libs = build(sources, "decode_bf16_turns")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for B, S, mask in SHAPES:
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                   for shape in ((B, NKV * G, 1, HD), (B, NKV, S, HD), (B, NKV, S, HD)))
+        bias = mask_bias(g, B, mask, S)
+        attn_mask = bias[:, None, None, :].to(torch.bfloat16)
+        sdpa = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask, enable_gqa=True), flush)
+        visible = int((bias == 0).sum().item())
+        nbytes = (2 * q.numel() + 2 * visible * NKV * HD) * 2 + bias.numel() * 4
+        print(f"B = {B}, S = {S}, {mask} mask: SDPA {sdpa:.4f} ms; byte bound "
+              f"{nbytes / 3.35e12 * 1e3:.4f} ms", flush=True)
+        ref = decode_attention_bf16(q, k, v, bias).float()
+        runs = {name: caller(lib, q, k, v, bias) for name, lib in libs.items()}
+        for name, run in runs.items():
+            diff = (run().float() - ref).abs()
+            torch.cuda.synchronize()
+            excess = (diff - ATOL - RTOL * ref.abs()).max().item()
+            print(f"  {name}: max_abs_err {diff.max().item():.6f}, excess {excess:.6f}",
+                  flush=True)
+            if excess > 0:
+                print(f"decode_bf16_turns: {name} disagrees with the plain version", flush=True)
+                return 1
+        times = {name: [] for name in runs}
+        for name in list(runs) + list(runs)[::-1]:
+            times[name].append(median_ms(runs[name], flush))
+        for name, ts in times.items():
+            print(f"  {name}: {' / '.join(f'{t:.4f}' for t in ts)} ms", flush=True)
+        del q, k, v, bias, attn_mask, runs
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -40,8 +40,10 @@ CASES = ((4, "random"), (32, "random"), (32, "serving"))
 ATOL, RTOL = 2e-3, 2 ** -7
 
 
-def build(sources: dict[str, Path]) -> dict[str, ctypes.CDLL]:
-    out = BUILD_DIR / "decode_int8_turns"
+def build(sources: dict[str, Path], subdir: str = "decode_int8_turns") -> dict[str, ctypes.CDLL]:
+    """Each source compiled on its own (all nvcc processes together) into
+    ``_build/<subdir>/<name>.so`` and loaded."""
+    out = BUILD_DIR / subdir
     out.mkdir(parents=True, exist_ok=True)
     procs = {name: subprocess.Popen(
         [nvcc(), *NVCC_FLAGS, "-o", str(out / f"{name}.so"), str(src)],
@@ -102,6 +104,22 @@ def median_ms(fn, flush, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def mask_bias(g, B, mask="random", S=S):
+    """[B, S] fp32 bias (0 visible, -1e30 masked): half the slots at random;
+    serving-shaped: row b sees slots [pad, end), its padded prompt, then no
+    future slot; or a first decode step after a prefill into the cache:
+    slots [pad, S)."""
+    if mask == "random":
+        visible = torch.rand((B, S), generator=g, device="cuda") < 0.5
+    else:
+        pad = torch.randint(0, S // 8, (B, 1), generator=g, device="cuda")
+        end = (torch.randint(S // 2, S, (B, 1), generator=g, device="cuda")
+               if mask == "serving" else S)
+        slot = torch.arange(S, device="cuda")[None]
+        visible = (slot >= pad) & (slot < end)
+    return torch.where(visible, 0.0, -1e30).float()
+
+
 def inputs(g, B, mask="random"):
     from trace_tpu_torch.model.mistral import _quantize_kv
 
@@ -110,15 +128,7 @@ def inputs(g, B, mask="random"):
         x = torch.randn((B, NKV, S, HD), generator=g, device="cuda").to(torch.bfloat16)
         stripe[vals], stripe[scales] = (t.contiguous() for t in _quantize_kv(x))
     q = torch.randn((B, NKV * G, 1, HD), generator=g, device="cuda").to(torch.bfloat16)
-    if mask == "random":
-        visible = torch.rand((B, S), generator=g, device="cuda") < 0.5
-    else:  # row b sees slots [pad, end): its padded prompt, then no future slot
-        pad = torch.randint(0, S // 8, (B, 1), generator=g, device="cuda")
-        end = torch.randint(S // 2, S, (B, 1), generator=g, device="cuda")
-        slot = torch.arange(S, device="cuda")[None]
-        visible = (slot >= pad) & (slot < end)
-    bias = torch.where(visible, 0.0, -1e30).float()
-    return q, stripe, bias
+    return q, stripe, mask_bias(g, B, mask)
 
 
 def main() -> int:
