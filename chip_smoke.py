@@ -21,7 +21,8 @@ Phases, in order; any failure exits non-zero:
      (a yardstick only, never called by the port) and the least time the
      card could take (the larger of bytes / 3.35 TB/s and operations over
      the peak rate of their type, 989 TFLOP/s bf16 or 1979 TOP/s int8, the
-     H100 SXM data-sheet rates);
+     H100 SXM data-sheet rates); beside the backward, informational, SDPA's
+     flash backend on the same q / k / v with is_causal and no bias;
   4. the TRACE-7B serving path end to end at full width (CLIP ViT-L/14-336
      at the -2 tap, spatial_slot, Mistral-7B, random weights from seed 0),
      first in bf16, then in the int8 serving configuration (int8 weights in
@@ -43,7 +44,8 @@ Phases, in order; any failure exits non-zero:
      trainable leaf may move), a 2-step run (every trainable group must have
      moved) and the 4-step run that is timed: losses finite, frozen leaves
      bit-equal before and after, launch counts per step as the code implies,
-     peak memory printed; one ``pretrain`` step under torch.profiler. Last, at
+     peak memory printed; one ``pretrain`` step under torch.profiler, with
+     the device time of the training attention kernels in it. Last, at
      the 4-layer depth, one forward_train + backward through the kernels
      against the same with every kernel replaced by its plain version and
      against an fp32 model of the same weights: the loss and the gradients of
@@ -606,6 +608,7 @@ def flash_backward_checks(torch, g, rows: dict) -> None:
     import torch.nn.functional as F
 
     from trace_tpu_torch.kernels import flash_backward as fb
+    from trace_tpu_torch.kernels.attn_bwd_turns import flash_sdpa_backward
 
     B, H, HKV, T, HD, PAD = 2, 32, 8, 2048, 128, 300
     randn = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
@@ -642,6 +645,12 @@ def flash_backward_checks(torch, g, rows: dict) -> None:
     with torch.no_grad():
         lib_fwd_ms = median_ms(torch, lib_fwd)
     lib_bwd_ms = median_ms(torch, lib_bwd)
+    # informational: SDPA's flash backend with is_causal and no bias, what
+    # PyTorch's own backward reaches on this shape (not the same function)
+    flash_bwd, how = flash_sdpa_backward(q, k, v, do, H // HKV)
+    print(f"  SDPA flash backward, is_causal, no bias ({how}): "
+          f"{median_ms(torch, flash_bwd):.4f} ms", flush=True)
+    del flash_bwd
     rows["flash_attention_fwd_res"] = dict(
         **cmp, ms=median_ms(torch, fwd), plain_ms=median_ms(torch, lambda: fwd("plain")),
         library_ms=lib_fwd_ms,
@@ -1244,7 +1253,9 @@ def train_stage(torch, stage: str, layers: int, data: "SyntheticVideos", tmp: Pa
         step = make_train_step(cfg, tx, freeze_stage=stage)
         batch = one_batch(data)
         _, profile = device_profile(torch, "pretrain step (forward, backward, update)",
-                                    lambda: step(params, state, batch), top=14)
+                                    lambda: step(params, state, batch), top=14,
+                                    watch=("attn_fwd_kernel<128>", "attn_bwd_dq_kernel",
+                                           "attn_bwd_dkv_kernel"))
         if isinstance(profile.get("device_busy_ms"), float):
             # against the untraced step: the profiler slows the host by a
             # varying amount, which the traced wall time includes
@@ -1359,9 +1370,10 @@ def training(torch, tmp: Path):
     return launches, stats, check
 
 
-def device_profile(torch, label: str, fn, top: int = 8):
-    """Run fn once under torch.profiler; print the device-busy time and the
-    CUDA kernels that take most of it. Returns (fn's result, summary)."""
+def device_profile(torch, label: str, fn, top: int = 8, watch: tuple = ()):
+    """Run fn once under torch.profiler; print the device-busy time, the
+    CUDA kernels that take most of it and those whose names hold a string of
+    ``watch``. Returns (fn's result, summary)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1384,8 +1396,13 @@ def device_profile(torch, label: str, fn, top: int = 8):
     print(f"{label}: traced wall {wall:.1f} ms, {events} device events, busy {busy:.1f} ms; "
           "most of it: " + "; ".join(f"{name[:60]} {ms:.1f} ms x{n}"
                                      for name, (ms, n) in ranked), flush=True)
+    watched = {w: [sum(v[i] for name, v in by_name.items() if w in name) for i in (0, 1)]
+               for w in watch}
+    if watched:
+        print(f"{label}, of which: " + "; ".join(f"{w} {ms:.1f} ms x{n}"
+                                                for w, (ms, n) in watched.items()), flush=True)
     return out, {"traced_wall_ms": wall, "device_busy_ms": busy, "device_events": events,
-                 "top": [[name[:80], ms, n] for name, (ms, n) in ranked]}
+                 "top": [[name[:80], ms, n] for name, (ms, n) in ranked], "watched": watched}
 
 
 def profile_decode_step(torch, pipe, dec, state, mode: str) -> dict:

@@ -247,6 +247,20 @@ BWD_CASES = [  # B, H, Hkv, Tq, hd, pad, side, causal
     (1, 4, 4, 128, 64, 0, "right", True),
     (2, 4, 1, 77, 64, 5, "right", False),
     (1, 8, 2, 1024, 128, 100, "right", True),
+    # ragged T on both sides of the kernels' 64- and 128-row tiles
+    (1, 4, 2, 63, 128, 0, "right", True),
+    (1, 4, 2, 200, 128, 20, "right", True),
+    (1, 8, 2, 2020, 128, 0, "right", True),
+    (1, 8, 2, 2020, 64, 50, "left", False),
+    # G 1 / 2 / 4 at hd 64 and hd 128, left and right padding, causal and not
+    (2, 4, 4, 129, 128, 7, "left", True),
+    (2, 4, 4, 200, 64, 30, "left", False),
+    (2, 4, 2, 200, 64, 30, "left", True),
+    (2, 4, 2, 257, 128, 40, "right", False),
+    (1, 8, 2, 257, 64, 0, "right", False),
+    (2, 8, 2, 330, 128, 60, "left", False),
+    # the training shape
+    (2, 32, 8, 2048, 128, 300, "right", True),
 ]
 
 

@@ -66,19 +66,14 @@
 // masked averages the keys of the tiles it visits and stays finite, and its
 // lse is written as -1e30 + log(l), exactly -1e30, as the plain version's.
 
-#include "hopper_common.cuh"
-
-typedef __nv_bfloat16 bf16;
+#include "attention_common.cuh"
 
 namespace {
 
 constexpr int BQ = 128;         // query rows of a block
 constexpr int CONSUMERS = 2;    // consumer warpgroups, 64 rows each
 constexpr int THREADS = 128 * (CONSUMERS + 1);
-constexpr int ROW_BYTES = 128;  // a 64-column box row in shared memory
-constexpr float NEG_INF = -1e30f;
 constexpr float M_INIT = -1e38f;  // running-max start, below any masked score
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
@@ -104,174 +99,6 @@ struct Params {
   long long sob, soh, sot, sbias;
   int qfold, kfold, vfold;  // the operand's map is (h*hd + column, token, batch)
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void consumer_sync(int wg) {  // consumer warpgroup wg alone
-  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
-}
-
-// rows x HD of an operand (tokens token.., head, batch row b) into its
-// 64-column boxes at dst
-template <int HD>
-__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, int fold,
-                                          uint32_t bar, int token, int head, int b, int rows) {
-#pragma unroll
-  for (int cb = 0; cb < HD / 64; ++cb) {
-    const uint32_t box = dst + cb * rows * ROW_BYTES;
-    if (fold)
-      tma_load_3d(box, map, bar, head * HD + cb * 64, token, b);
-    else
-      tma_load_4d(box, map, bar, cb * 64, token, head, b);
-  }
-}
-
-// d [64 x 64] (+)= A [64 x 16] B [16 x 64], A and B K-major in shared memory;
-// accumulate = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// d [64 x 128] (+)= A [64 x 16] B [16 x 128], A and B K-major in shared memory;
-// accumulate = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// d [64 x 64] += A [64 x 16] B [16 x 64], A from registers (the fragment of
-// mma.m16n8k16 per warp), B MN-major in shared memory (transpose bit set)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// d [64 x 128] += A [64 x 16] B [16 x 128], A from registers (the fragment of
-// mma.m16n8k16 per warp), B MN-major in shared memory (transpose bit set)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-
-template <int N> struct Wgmma;
-template <> struct Wgmma<64> {
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-    wgmma_ss_n64(d, a, b, acc);
-  }
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-    wgmma_rs_n64(d, a, b);
-  }
-};
-template <> struct Wgmma<128> {
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
-    wgmma_ss_n128(d, a, b, acc);
-  }
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-    wgmma_rs_n128(d, a, b);
-  }
-};
-
-// S [64 x BK] = Q [64 x HD] K^T: qa the warpgroup's rows of the Q tile
-// (BQ-row boxes), ks a K tile (BK-row boxes)
-template <int HD>
-__device__ __forceinline__ void qk_product(float (&s)[Cfg<HD>::BK / 2], uint32_t qa, uint32_t ks) {
-  constexpr int BK = Cfg<HD>::BK;
-#pragma unroll
-  for (int kc = 0; kc < HD / 16; ++kc)
-    Wgmma<BK>::ss(s, sw128_desc(qa + (kc / 4) * BQ * ROW_BYTES + (kc % 4) * 32),
-                  sw128_desc(ks + (kc / 4) * BK * ROW_BYTES + (kc % 4) * 32), kc > 0);
-}
-
-// O [64 x HD] += P [64 x BK] V: pa the P fragments of the BK / 16 key
-// slices, vs a V tile, read MN-major (its HD / 64 boxes BK rows apart)
-template <int HD>
-__device__ __forceinline__ void pv_product(float (&o)[HD / 2],
-                                           const uint32_t (&pa)[Cfg<HD>::BK / 16][4],
-                                           uint32_t vs) {
-  constexpr int BK = Cfg<HD>::BK;
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    Wgmma<HD>::rs(o, pa[kk], sw128_desc_mn(vs + kk * 16 * ROW_BYTES, BK * ROW_BYTES));
-}
 
 template <int HD>
 __device__ __forceinline__ void produce(const CUtensorMap* qmap, const CUtensorMap* kmap,
@@ -415,16 +242,6 @@ __device__ __forceinline__ void softmax_any(float (&s)[Cfg<HD>::BK / 2], float (
   }
 }
 
-// P as the A fragments of the key slices: slice kk is accumulator columns
-// 16 kk .. 16 kk + 15, registers s[8 kk .. 8 kk + 7]
-template <int BK>
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4], const float (&s)[BK / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pa[kk][i] = pack(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
-}
-
 template <int HD>
 __device__ __forceinline__ void rescale(float (&o)[HD / 2], const float (&alpha)[2]) {
 #pragma unroll
@@ -478,7 +295,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
     const uint32_t ks = base + C::Q_BYTES + slot * C::STAGE;
     float s[BK / 2];  // s[4c + 2hh + e]: row row[hh], key k0 + 8c + 2t + e
     wgmma_fence();
-    qk_product<HD>(s, qa, ks);
+    nt_product<HD, BK>(s, qa, BQ, ks);  // S = Q K^T
     wgmma_commit();
     const int k0 = j * BK;
     float bl[BK / 4];
@@ -491,10 +308,10 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
     softmax_any<HD>(s, m, l, alpha, bl, p, bias != nullptr, k0, edge, lim, t);
     rescale<HD>(o, alpha);
     uint32_t pa[BK / 16][4];
-    pack_p<BK>(pa, s);
+    pack_frags<BK>(pa, s);
     mbar_wait(v_full + 8 * slot, parity);
     wgmma_fence();
-    pv_product<HD>(o, pa, ks + C::KV_BYTES);
+    pn_product<HD, BK>(o, pa, ks + C::KV_BYTES);  // O += P V
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(o);
@@ -577,49 +394,13 @@ __global__ void __launch_bounds__(128, 1)
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   mbar_wait(bar, 0);
   wgmma_fence();
-  pv_product<HD>(o, pa, base);
+  pn_product<HD, BK>(o, pa, base);
   wgmma_commit();
   wgmma_wait<0>();
   fence_operands(o);
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i)
     O[(16 * warp + g + 8 * ((i / 2) % 2)) * HD + 8 * (i / 4) + 2 * t + i % 2] = o[i];
-}
-
-// An operand [batch, heads, tokens, hd] at element strides (sb, sh, st) as a
-// tensor map with boxes of 64 columns x `rows` tokens in the 128-byte
-// swizzle; tokens past `tokens` read as zero. Heads that are neighbouring
-// column blocks of a row (sh == hd, the ViT's [B, P, D] slices) fold into
-// the column: a 3-D map (h*hd + column, token, batch); otherwise 4-D
-// (column, token, head, batch).
-int make_map(CUtensorMap* map, int* fold, const void* ptr, int hd, int heads, int tokens,
-             int batch, long long sb, long long sh, long long st, int rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  CUresult r;
-  *fold = sh == hd ? 1 : 0;
-  if (*fold) {
-    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(heads) * hd,
-                                static_cast<cuuint64_t>(tokens), static_cast<cuuint64_t>(batch)};
-    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(st) * 2,
-                                   static_cast<cuuint64_t>(sb) * 2};
-    const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-    r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-               box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  } else {
-    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(tokens),
-                                static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
-    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2,
-                                   static_cast<cuuint64_t>(sh) * 2,
-                                   static_cast<cuuint64_t>(sb) * 2};
-    const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-    r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-               box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  }
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 struct Operands {

@@ -10,297 +10,493 @@
 //   ds = p * (do v^T - delta)
 //   dq = ds k * scale           dk = ds^T q * scale
 //
-// The TPU bodies hold a head's whole K/V (dq) or whole Q/dO (dk/dv) and a
-// full [block, Tk] fp32 score block in VMEM; at Tk = 2048, hd = 128 that is
-// past the 227 KB of shared memory a block has here. So:
-//   * attn_bwd_dq_kernel: one block per (64 query rows, head, batch row),
-//     Q and dO tiles resident in shared memory, K and V streamed in 64-key
-//     tiles (double buffered, cp.async); each of four warps recomputes its
-//     16 x 64 block of p from lse, forms ds and adds ds k into a 16 x hd
-//     fp32 accumulator in registers. Causal key tiles past the block's last
-//     row are skipped.
-//   * attn_bwd_dkv_kernel: one block per (64 keys, kv head, batch row), K
-//     and V tiles resident, Q, dO, lse and delta streamed in 64-query tiles
-//     over the G query heads of the kv head, one after the other in a fixed
-//     order, into 16 x hd fp32 dk and dv accumulators per warp. The group
-//     sum thus happens in registers: no per-query-head copy of dk/dv in
-//     device memory and no float atomics, so a step repeats bit for bit.
-//     Causal query tiles before the block's first key are skipped.
+// Bound on an H100: operations. At the training shape (B = 2, 32 / 8 heads,
+// T = 2048, hd = 128, causal, one row right-padded by 300) one product over
+// the visible pairs is ~29.7 GFLOP; dq needs 3 (0.090 ms at the bf16 peak),
+// dk/dv 4 (0.120 ms), over ~100 MB of operands.
+//
+// Design: the forward's (attention.cu) on both kernels. A block has three
+// warpgroups: a producer, whose one warp issues TMA copies of 64-column
+// boxes in the 128-byte swizzle (per-launch 4-D tensor maps), and two
+// consumer warpgroups that run every product as wgmma with fp32
+// accumulators in registers (at hd = 128 setmaxnreg gives them 240
+// registers a thread, the producer 24).
+//   * attn_bwd_dq_kernel: a block owns 128 query rows of one (head, batch
+//     row), 64 to a consumer warpgroup. Q and dO are copied once; K and V
+//     tiles of 64 keys stream through a ring of 4 stages (full and empty
+//     mbarriers), each with its keys' bias in log2 units (-inf past Tk),
+//     which the producer warp stages beside the tile: read by every
+//     consumer thread from global memory instead, it cost a third of the
+//     kernel's time. Per tile a warpgroup runs S = Q K^T and dP = dO V^T (both
+//     operands K-major from shared memory), forms ds = p (dP - delta) on the
+//     accumulators, p = 2^(s scale log2(e) + bias log2(e) - lse log2(e)) by
+//     ex2, and adds dS K into its 64 x hd dQ: dS from registers (the
+//     accumulator layout is the A-fragment layout, packed to bf16 pairs), K
+//     read MN-major through the transpose bit.
+//   * attn_bwd_dkv_kernel: a block owns 128 keys of one (kv head, batch row),
+//     64 to a consumer warpgroup. K and V are copied once; tiles of 64 query
+//     rows of Q and dO stream through the ring over the G query heads of the
+//     kv head, one after the other in a fixed order, with the rows' lse and
+//     delta, which the producer warp stages in shared memory beside each
+//     tile (lse as +inf past Tq: p = 0 on rows the tensor does not hold,
+//     whose Q and dO rows TMA fills with zeros; keys past Tk get the bias
+//     -inf). Per tile: S^T = K Q^T and dP^T = V dO^T (A = K or V, B = Q or
+//     dO, K-major), p^T and ds^T on the accumulators, then dV += P^T dO and
+//     dK += dS^T Q with A from registers and dO, Q read MN-major from the
+//     same swizzled tiles. The group sum
+//     thus happens in registers: no per-query-head copy of dk/dv and no
+//     float atomics, so a step repeats bit for bit.
+//   * Causal tiles that see nothing are skipped: key tiles past a dq
+//     warpgroup's last row, query tiles before a dk/dv warpgroup's first key.
+//     The blocks with the most work are issued first (the last query tile for
+//     dq, key tile 0 for dk/dv). The causal mask only on tiles that cross
+//     the diagonal, each form one straight block of code (a template
+//     argument).
+//   * Outputs are staged through the warpgroup's own rows of a resident tile
+//     (Q for dq, K and V for dk and dv) and written as 16-byte rows.
 //   * attn_bwd_delta_kernel: delta = rowsum(do * o), one warp per row.
-// All five products run on the tensor cores (mma.sync m16n8k16, bf16 in,
-// fp32 accumulate). p and ds are rounded to bf16 before their second product
-// (p^T do, ds k, ds^T q), as the forward rounds p before p v; the plain
-// version keeps them in fp32, and the comparison's tolerance says so.
+// p and ds are rounded to bf16 before their second product (p^T do, ds k,
+// ds^T q), as the forward rounds p before p v; the plain version keeps them
+// in fp32, and the comparison's tolerance says so. What now sets the pace
+// (PERF.md): the two kernels recompute s and do v^T (7 products for
+// the function's 5); within a warpgroup the elementwise step between its
+// products waits on the first and holds back the second, and only the other
+// warpgroup hides it; S and dP (S^T and dP^T) are m64n64 products with both
+// operands in shared memory. A warpgroup that issues its next products
+// before the elementwise step needs more registers than hd = 128 leaves:
+// tried, the compiler serialized the products or spilled.
 //
-// Bound on an H100: operations (five products of 2 B H pairs hd each over
-// ~100 MB of operands at the training shape). This first version reads its
-// B operands from shared memory with 2- and 4-byte loads and recomputes s
-// in both kernels (7 products for the function's 5).
-//
-// A query row that sees no key has lse = -1e30 and p = exp(0) = 1 on every
-// key tile this kernel visits; the TPU kernel visits the causally masked
-// tiles too. Such rows are padding and carry do = 0 in training, where both
-// give zero.
+// Masks are finite, as in the JAX package: a masked score is -1e30 (in log2
+// units -1e30 * log2(e), finite in fp32). A query row that sees no key has
+// lse = -1e30 and p = 2^0 = 1 on every key tile this kernel visits; the TPU
+// kernel visits the causally masked tiles too. Such rows are padding and
+// carry do = 0 in training, where both give zero.
 
 #include "attention_common.cuh"
 
 namespace {
 
+constexpr int CONSUMERS = 2;                    // consumer warpgroups, 64 rows each
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
+constexpr int BM = 128;  // rows a block owns: query rows (dq), keys (dk/dv)
+constexpr int BN = 64;   // rows of a streamed tile: keys (dq), query rows (dk/dv)
+// a masked score in log2 units. lse and bias are scaled with __fmul_rn, never
+// contracted into an fma, so that a masked bias or the lse = -1e30 of a row
+// that sees no key become exactly this value.
+constexpr float MASKED = NEG_INF * LOG2E;
+
 struct BwdParams {
-  const bf16* q;      // [B, H, Tq, hd]
-  const bf16* k;      // [B, Hkv, Tk, hd]
-  const bf16* v;
-  const float* bias;  // [B, Tk] additive, or null
-  const bf16* d_o;    // [B, H, Tq, hd]
-  const float* lse;   // [B, H, Tq]
-  const float* delta; // [B, H, Tq]
-  bf16* dq;           // [B, H, Tq, hd]
-  bf16* dk;           // [B, Hkv, Tk, hd]
+  const float* bias;   // [B, Tk] additive, or null
+  const float* lse;    // [B, H, Tq]
+  const float* delta;  // [B, H, Tq]
+  bf16* dq;            // [B, H, Tq, hd]
+  bf16* dk;            // [B, H / group, Tk, hd]
   bf16* dv;
   int H, group, tq, tk, causal;
-  float scale;
+  float scale, scale_log2;
+  int qfold, kfold;    // the operand's map is (h*hd + column, token, batch)
 };
 
+// Shared memory of a block: two resident tiles of BM rows (Q and dO, or K
+// and V), a ring of STAGES pairs of streamed tiles of BN rows (K and V, or Q
+// and dO), the streamed rows' bias (dq) or lse and delta (dk/dv), then the
+// mbarriers: resident full, full per stage, empty per stage.
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS) attn_bwd_dq_kernel(BwdParams p) {
-  constexpr int LD = pitch<HD>();
-  constexpr int TILE = BQ * LD;
-  constexpr int NO = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* const Qs = reinterpret_cast<bf16*>(smem);
-  bf16* const dOs = Qs + TILE;
-  bf16* const Kbuf = dOs + TILE;      // [2][TILE]
-  bf16* const Vbuf = Kbuf + 2 * TILE; // [2][TILE]
+struct Cfg {
+  static constexpr int STAGES = 4;
+  static constexpr int RES = BM * HD * 2;   // a resident tile, [HD / 64][BM rows][128 B]
+  static constexpr int TILE = BN * HD * 2;  // a streamed tile, [HD / 64][BN rows][128 B]
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int STAT_OFF = 2 * RES + STAGES * STAGE;
+  static constexpr int BAR_OFF = STAT_OFF + STAGES * 2 * BN * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
+};
+static_assert(Cfg<128>::SMEM <= 232448 && Cfg<64>::SMEM <= 232448, "shared memory");
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / p.group;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row0 = warp * 16;
+template <int HD>
+struct Bars {
+  uint32_t res_full, full, empty;  // full and empty: stage 0's, 8 bytes a stage
+  __device__ explicit Bars(uint32_t base)
+      : res_full(base + Cfg<HD>::BAR_OFF), full(res_full + 8),
+        empty(full + 8 * Cfg<HD>::STAGES) {}
+};
 
-  const long long qrow = (static_cast<long long>(b) * p.H + h) * p.tq;
-  const long long kvoff =
-      (static_cast<long long>(b) * (p.H / p.group) + kvh) * p.tk * HD;
-  const bf16* kg = p.k + kvoff;
-  const bf16* vg = p.v + kvoff;
-  const float* bias = p.bias ? p.bias + static_cast<long long>(b) * p.tk : nullptr;
-
-  const int qvalid = min(BQ, p.tq - q0);
-  copy_tile_async<HD>(Qs, p.q + (qrow + q0) * HD, HD, qvalid);
-  copy_tile_async<HD>(dOs, p.d_o + (qrow + q0) * HD, HD, qvalid);
-  cp_async_commit();
-
-  const int row[2] = {q0 + row0 + g, q0 + row0 + g + 8};
-  float lse[2], delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lse[r] = row[r] < p.tq ? p.lse[qrow + row[r]] : 0.f;
-    delta[r] = row[r] < p.tq ? p.delta[qrow + row[r]] : 0.f;
+// the block's barriers, by thread 0: a stage is full after 33 arrivals of the
+// producer warp (lane 0's, announcing the bytes of its copies, then every
+// lane's after its stores) and those bytes, empty after every consumer
+// thread's arrival
+template <int HD>
+__device__ __forceinline__ void init_barriers(uint32_t base) {
+  if (threadIdx.x == 0) {
+    const Bars<HD> bar(base);
+    mbar_init(bar.res_full, 1);
+    for (int i = 0; i < Cfg<HD>::STAGES; ++i) {
+      mbar_init(bar.full + 8 * i, 33);
+      mbar_init(bar.empty + 8 * i, 128 * CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+}
 
-  float dq[NO][4];
+// A warpgroup's accumulator [64 x HD] times `scale` as bf16 into `stage`, its
+// 64 rows of a resident tile whose wgmma reads are done (boxes BM rows apart,
+// 16-byte chunks swizzled by row against bank conflicts)
+template <int HD>
+__device__ __forceinline__ void stage_rows(unsigned char* stage, const float (&acc)[HD / 2],
+                                           float scale, int warp, int g, int t) {
 #pragma unroll
-  for (int n = 0; n < NO; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * warp + g + 8 * hh;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(stage + (n / 8) * BM * ROW_BYTES + r * ROW_BYTES +
+                                   (((n % 8) ^ (r & 7)) << 4) + 4 * t) =
+          pack(acc[4 * n + 2 * hh] * scale, acc[4 * n + 2 * hh + 1] * scale);
+  }
+}
 
-  // keys past the tile's last query row are causally masked for every row
-  const int k_end = p.causal ? min(p.tk, q0 + BQ) : p.tk;
+// the staged rows r < valid as 16-byte stores to out[r * HD ..]
+template <int HD>
+__device__ __forceinline__ void write_rows(const unsigned char* stage, bf16* out, int valid) {
+  for (int i = threadIdx.x % 128; i < 64 * (HD / 8); i += 128) {
+    const int r = i / (HD / 8), n = i % (HD / 8);
+    if (r >= valid) break;  // rows only grow with i
+    *reinterpret_cast<uint4*>(out + static_cast<long long>(r) * HD + 8 * n) =
+        *reinterpret_cast<const uint4*>(stage + (n / 8) * BM * ROW_BYTES + r * ROW_BYTES +
+                                        (((n % 8) ^ (r & 7)) << 4));
+  }
+}
 
-  copy_tile_async<HD>(Kbuf, kg, HD, min(BK, p.tk));
-  copy_tile_async<HD>(Vbuf, vg, HD, min(BK, p.tk));
-  cp_async_commit();
-  for (int k0 = 0, stage = 0; k0 < k_end; k0 += BK, stage ^= 1) {
-    if (k0 + BK < k_end) {
-      const int nvalid = min(BK, p.tk - k0 - BK);
-      copy_tile_async<HD>(Kbuf + (stage ^ 1) * TILE,
-                          kg + static_cast<long long>(k0 + BK) * HD, HD, nvalid);
-      copy_tile_async<HD>(Vbuf + (stage ^ 1) * TILE,
-                          vg + static_cast<long long>(k0 + BK) * HD, HD, nvalid);
-      cp_async_commit();
-      cp_async_wait<1>();  // all but the next tile's group have landed
-    } else {
-      cp_async_wait<0>();
+// ---------------------------------------------------------------- dq
+
+// One warp: Q and dO of the block once (lane 0), then per key tile j its K
+// and V tiles (lane 0) and its keys' bias in log2 units, -inf past Tk (p = 0
+// on keys the tensor does not hold, whose K and V rows TMA fills with
+// zeros; every lane), into the tile's stage. A stage is full after 33
+// arrivals: lane 0's with the copies' bytes, then every lane's after its
+// stores.
+template <int HD>
+__device__ __forceinline__ void dq_produce(const CUtensorMap* qmap, const CUtensorMap* domap,
+                                           const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                           const BwdParams& p, unsigned char* smem, int h, int b,
+                                           int q0, int ntiles) {
+  using C = Cfg<HD>;
+  const uint32_t base = smem_u32(smem);
+  const Bars<HD> bar(base);
+  const int kvh = h / p.group, lane = threadIdx.x % 32;
+  const float* const bias = p.bias ? p.bias + static_cast<long long>(b) * p.tk : nullptr;
+  if (lane == 0) {
+    mbar_arrive_tx(bar.res_full, 2 * C::RES);
+    load_rows<HD>(base, qmap, p.qfold, bar.res_full, q0, h, b, BM);
+    load_rows<HD>(base + C::RES, domap, p.qfold, bar.res_full, q0, h, b, BM);
+  }
+  for (int j = 0; j < ntiles; ++j) {
+    const int slot = j % C::STAGES;
+    if (j >= C::STAGES) mbar_wait(bar.empty + 8 * slot, ((j / C::STAGES) - 1) & 1);
+    if (lane == 0) {
+      const uint32_t ks = base + 2 * C::RES + slot * C::STAGE;
+      mbar_arrive_tx(bar.full + 8 * slot, C::STAGE);
+      load_rows<HD>(ks, kmap, p.kfold, bar.full + 8 * slot, j * BN, kvh, b, BN);
+      load_rows<HD>(ks + C::TILE, vmap, p.kfold, bar.full + 8 * slot, j * BN, kvh, b, BN);
     }
-    __syncthreads();
-    const bf16* Ks = Kbuf + stage * TILE;
-    const bf16* Vs = Vbuf + stage * TILE;
-
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+    float* const st = reinterpret_cast<float*>(smem + C::STAT_OFF) + slot * 2 * BN;
+    for (int i = lane; i < BN; i += 32) {
+      const int jj = j * BN + i;
+      st[i] = jj >= p.tk ? -INFINITY : bias ? __fmul_rn(bias[jj], LOG2E) : 0.f;
     }
-    mma_nt<HD>(s, Qs + row0 * LD, Ks, g, t);     // q k^T
-    mma_nt<HD>(dp, dOs + row0 * LD, Vs, g, t);   // do v^T
+    mbar_arrive(bar.full + 8 * slot);
+  }
+}
 
-    // ds = p * (dp - delta), p = exp(s - lse), left in s
+// ds = p (dp - delta) of one key tile in registers, s becoming ds: s[4c +
+// 2hh + e] is row row[hh], key k0 + 8c + 2t + e, whose bias is bl[8c + 2t +
+// e]. DIAG adds the causal mask (keys after the row), so that each form is
+// one straight block of code.
+template <bool DIAG>
+__device__ __forceinline__ void dq_ds(float (&s)[BN / 2], const float (&dp)[BN / 2],
+                                      const float* bl, float scale_log2, int k0,
+                                      const int (&row)[2], const float (&lse)[2],
+                                      const float (&delta)[2], int t) {
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
+  for (int c = 0; c < BN / 8; ++c) {
+    const float2 b2 = *reinterpret_cast<const float2*>(bl + 8 * c + 2 * t);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int j = k0 + n * 8 + 2 * t + c;
-        const float bj = (bias && j < p.tk) ? bias[j] : 0.f;
+    for (int e = 0; e < 2; ++e)
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float x = s[n][2 * r + c] * p.scale + bj;
-          if (p.causal && j > row[r]) x = NEG_INF;
-          const float pr = (j < p.tk && row[r] < p.tq) ? expf(x - lse[r]) : 0.f;
-          s[n][2 * r + c] = pr * (dp[n][2 * r + c] - delta[r]);
-        }
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = 4 * c + 2 * hh + e;
+        float x = fmaf(s[i], scale_log2, e ? b2.y : b2.x);
+        if (DIAG) x = k0 + 8 * c + 2 * t + e > row[hh] ? MASKED : x;
+        s[i] = ex2(x - lse[hh]) * (dp[i] - delta[hh]);
       }
-    }
-    mma_pn<HD>(dq, s, Ks, g, t);                 // ds k
-    __syncthreads();  // every warp is done with this stage's buffers
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= p.tq) continue;
-    bf16* out = p.dq + (qrow + row[r]) * HD + 2 * t;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(out + n * 8) =
-          pack(dq[n][2 * r] * p.scale, dq[n][2 * r + 1] * p.scale);
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(NTHREADS) attn_bwd_dkv_kernel(BwdParams p) {
-  constexpr int LD = pitch<HD>();
-  constexpr int TILE = BQ * LD;
-  constexpr int NO = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* const Ks = reinterpret_cast<bf16*>(smem);
-  bf16* const Vs = Ks + TILE;
-  bf16* const Qbuf = Vs + TILE;         // [2][TILE]
-  bf16* const dObuf = Qbuf + 2 * TILE;  // [2][TILE]
-  float* const stat = reinterpret_cast<float*>(dObuf + 2 * TILE);  // [2][2][BQ]: lse, delta
-
-  const int k0 = blockIdx.x * BK;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+__device__ __forceinline__ void dq_consume(const BwdParams& p, unsigned char* smem, int h, int b,
+                                           int q0, int ntiles) {
+  using C = Cfg<HD>;
+  const uint32_t base = smem_u32(smem);
+  const Bars<HD> bar(base);
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int row0 = warp * 16;
-
-  const long long kvoff =
-      ((static_cast<long long>(b) * (p.H / p.group) + kvh) * p.tk + k0) * HD;
-  const int kvalid = min(BK, p.tk - k0);
-  copy_tile_async<HD>(Ks, p.k + kvoff, HD, kvalid);
-  copy_tile_async<HD>(Vs, p.v + kvoff, HD, kvalid);
-  cp_async_commit();
-
-  const int key[2] = {k0 + row0 + g, k0 + row0 + g + 8};
-  float bj[2];
+  const int row0 = q0 + 64 * wg;  // the warpgroup's first query row
+  const int row[2] = {row0 + 16 * warp + g, row0 + 16 * warp + g + 8};
+  // key tiles this warpgroup needs: none past its last row (causal), none
+  // at all when its rows lie past Tq
+  const int wg_end = p.causal ? min(p.tk, row0 + 64) : p.tk;
+  const int nt = row0 >= p.tq ? 0 : (wg_end + BN - 1) / BN;
+  const long long qrow = (static_cast<long long>(b) * p.H + h) * p.tq;
+  float lse[2], delta[2];  // lse in log2 units
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
-    bj[r] = (p.bias && key[r] < p.tk)
-                ? p.bias[static_cast<long long>(b) * p.tk + key[r]] : 0.f;
+  for (int hh = 0; hh < 2; ++hh) {
+    lse[hh] = row[hh] < p.tq ? __fmul_rn(p.lse[qrow + row[hh]], LOG2E) : 0.f;
+    delta[hh] = row[hh] < p.tq ? p.delta[qrow + row[hh]] : 0.f;
+  }
+  const uint32_t qa = base + wg * 64 * ROW_BYTES, doa = qa + C::RES;
+  const float* const stats = reinterpret_cast<const float*>(smem + C::STAT_OFF);
 
-  float dk[NO][4], dv[NO][4];
+  float dq[HD / 2];
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(bar.res_full, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const int slot = j % C::STAGES;
+    mbar_wait(bar.full + 8 * slot, (j / C::STAGES) & 1);
+    if (j >= nt) {  // past the warpgroup's rows: release the stage unread
+      mbar_arrive(bar.empty + 8 * slot);
+      continue;
+    }
+    const uint32_t ks = base + 2 * C::RES + slot * C::STAGE;
+    float s[BN / 2], dp[BN / 2];
+    wgmma_fence();
+    nt_product<HD, BN>(s, qa, BM, ks);             // S = Q K^T
+    nt_product<HD, BN>(dp, doa, BM, ks + C::TILE);  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+    fence_operands(dp);
+    const int k0 = j * BN;
+    const float* const bl = stats + slot * 2 * BN;
+    if (p.causal && k0 + BN - 1 > row0)  // the tile crosses the diagonal
+      dq_ds<true>(s, dp, bl, p.scale_log2, k0, row, lse, delta, t);
+    else
+      dq_ds<false>(s, dp, bl, p.scale_log2, k0, row, lse, delta, t);
+    uint32_t da[BN / 16][4];
+    pack_frags<BN>(da, s);
+    wgmma_fence();
+    pn_product<HD, BN>(dq, da, ks);  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dq);
+    mbar_arrive(bar.empty + 8 * slot);
   }
 
+  unsigned char* const stage = smem + wg * 64 * ROW_BYTES;  // the warpgroup's rows of Q
+  stage_rows<HD>(stage, dq, p.scale, warp, g, t);
+  consumer_sync(wg);
+  if (row0 < p.tq) write_rows<HD>(stage, p.dq + (qrow + row0) * HD, p.tq - row0);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+    attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap domap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, const BwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const int h = blockIdx.x, b = blockIdx.y;
+  // causal q tiles longest first: the last tile sees the most keys
+  const int q0 = (p.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z) * BM;
+  const int k_end = p.causal ? min(p.tk, q0 + BM) : p.tk;
+  const int ntiles = (k_end + BN - 1) / BN;
+  init_barriers<HD>(base);
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) >= CONSUMERS) {
+    if constexpr (HD == 128) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x / 32 == 4 * CONSUMERS)
+      dq_produce<HD>(&qmap, &domap, &kmap, &vmap, p, smem, h, b, q0, ntiles);
+    return;
+  }
+  // at hd = 128 a consumer thread holds dQ (64), S and dP (32 each) and dS
+  if constexpr (HD == 128) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  dq_consume<HD>(p, smem, h, b, q0, ntiles);
+}
+
+// ---------------------------------------------------------------- dk, dv
+
+// One warp: K and V of the block once (lane 0), then per step ``it`` query
+// head kvh * G + it / nqt, query tile qt_start + it % nqt: its Q and dO tiles
+// (lane 0) and its rows' lse (log2 units, +inf past Tq) and delta (every
+// lane) into the step's stage. A stage is full after 33 arrivals: lane 0's
+// with the copies' bytes, then every lane's after its stores.
+template <int HD>
+__device__ __forceinline__ void dkv_produce(const CUtensorMap* qmap, const CUtensorMap* domap,
+                                            const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                            const BwdParams& p, unsigned char* smem, int kvh,
+                                            int b, int k0, int qt_start, int nqt, int total) {
+  using C = Cfg<HD>;
+  const uint32_t base = smem_u32(smem);
+  const Bars<HD> bar(base);
+  const int lane = threadIdx.x % 32;
+  if (lane == 0) {
+    mbar_arrive_tx(bar.res_full, 2 * C::RES);
+    load_rows<HD>(base, kmap, p.kfold, bar.res_full, k0, kvh, b, BM);
+    load_rows<HD>(base + C::RES, vmap, p.kfold, bar.res_full, k0, kvh, b, BM);
+  }
+  for (int it = 0; it < total; ++it) {
+    const int slot = it % C::STAGES;
+    if (it >= C::STAGES) mbar_wait(bar.empty + 8 * slot, ((it / C::STAGES) - 1) & 1);
+    const int hq = kvh * p.group + it / nqt;
+    const int q0 = (qt_start + it % nqt) * BN;
+    if (lane == 0) {
+      const uint32_t qs = base + 2 * C::RES + slot * C::STAGE;
+      mbar_arrive_tx(bar.full + 8 * slot, C::STAGE);
+      load_rows<HD>(qs, qmap, p.qfold, bar.full + 8 * slot, q0, hq, b, BN);
+      load_rows<HD>(qs + C::TILE, domap, p.qfold, bar.full + 8 * slot, q0, hq, b, BN);
+    }
+    const long long qrow = (static_cast<long long>(b) * p.H + hq) * p.tq + q0;
+    float* const st = reinterpret_cast<float*>(smem + C::STAT_OFF) + slot * 2 * BN;
+    for (int i = lane; i < BN; i += 32) {
+      const bool in = q0 + i < p.tq;
+      st[i] = in ? __fmul_rn(p.lse[qrow + i], LOG2E) : INFINITY;
+      st[BN + i] = in ? p.delta[qrow + i] : 0.f;
+    }
+    mbar_arrive(bar.full + 8 * slot);
+  }
+}
+
+// p^T and ds^T of one query tile in registers, s becoming p^T and dp ds^T:
+// s[4c + 2hh + e] is key key[hh], query row q0 + 8c + 2t + e, whose lse and
+// delta are st[8c + 2t + e] and st[BN + 8c + 2t + e]. DIAG adds the causal
+// mask (keys after the row).
+template <bool DIAG>
+__device__ __forceinline__ void dkv_ds(float (&s)[BN / 2], float (&dp)[BN / 2], const float* st,
+                                       const BwdParams& p, int q0, const int (&key)[2],
+                                       const float (&bk)[2], int t) {
+#pragma unroll
+  for (int c = 0; c < BN / 8; ++c) {
+    const float2 l = *reinterpret_cast<const float2*>(st + 8 * c + 2 * t);
+    const float2 d = *reinterpret_cast<const float2*>(st + BN + 8 * c + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = 4 * c + 2 * hh + e;
+        float x = fmaf(s[i], p.scale_log2, bk[hh]);
+        if (DIAG) x = key[hh] > q0 + 8 * c + 2 * t + e ? MASKED : x;
+        const float pr = ex2(x - (e ? l.y : l.x));
+        s[i] = pr;
+        dp[i] = pr * (dp[i] - (e ? d.y : d.x));
+      }
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void dkv_consume(const BwdParams& p, unsigned char* smem, int kvh,
+                                            int b, int k0, int qt_start, int nqt, int total) {
+  using C = Cfg<HD>;
+  const uint32_t base = smem_u32(smem);
+  const Bars<HD> bar(base);
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key0 = k0 + 64 * wg;  // the warpgroup's first key
+  const int key[2] = {key0 + 16 * warp + g, key0 + 16 * warp + g + 8};
+  float bk[2];  // the bias of the thread's keys, log2 units; -inf past Tk (p = 0)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    bk[hh] = key[hh] >= p.tk ? -INFINITY
+             : p.bias ? __fmul_rn(p.bias[static_cast<long long>(b) * p.tk + key[hh]], LOG2E)
+                      : 0.f;
+  const uint32_t ka = base + wg * 64 * ROW_BYTES, va = ka + C::RES;
+  const float* const stats = reinterpret_cast<const float*>(smem + C::STAT_OFF);
+
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(bar.res_full, 0);
+  for (int it = 0; it < total; ++it) {
+    const int slot = it % C::STAGES;
+    mbar_wait(bar.full + 8 * slot, (it / C::STAGES) & 1);
+    const int q0 = (qt_start + it % nqt) * BN;
+    // nothing to add: the warpgroup's keys lie past Tk, or (causal) every
+    // row of the tile lies before its first key
+    if (key0 >= p.tk || (p.causal && q0 + BN - 1 < key0)) {
+      mbar_arrive(bar.empty + 8 * slot);
+      continue;
+    }
+    const uint32_t qs = base + 2 * C::RES + slot * C::STAGE, dos = qs + C::TILE;
+    float s[BN / 2], dp[BN / 2];
+    wgmma_fence();
+    nt_product<HD, BN>(s, ka, BM, qs);    // S^T = K Q^T
+    nt_product<HD, BN>(dp, va, BM, dos);  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+    fence_operands(dp);
+    const float* const st = stats + slot * 2 * BN;
+    if (p.causal && key0 + 63 > q0)  // the tile crosses the diagonal
+      dkv_ds<true>(s, dp, st, p, q0, key, bk, t);
+    else
+      dkv_ds<false>(s, dp, st, p, q0, key, bk, t);
+    uint32_t pa[BN / 16][4], da[BN / 16][4];
+    pack_frags<BN>(pa, s);
+    pack_frags<BN>(da, dp);
+    wgmma_fence();
+    pn_product<HD, BN>(dv, pa, dos);  // dV += P^T dO
+    pn_product<HD, BN>(dk, da, qs);   // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dk);
+    fence_operands(dv);
+    mbar_arrive(bar.empty + 8 * slot);
+  }
+
+  unsigned char* const stage = smem + wg * 64 * ROW_BYTES;  // the warpgroup's rows of K, then V
+  stage_rows<HD>(stage, dk, p.scale, warp, g, t);
+  stage_rows<HD>(stage + C::RES, dv, 1.f, warp, g, t);
+  consumer_sync(wg);
+  if (key0 < p.tk) {
+    const long long off =
+        ((static_cast<long long>(b) * (p.H / p.group) + kvh) * p.tk + key0) * HD;
+    write_rows<HD>(stage, p.dk + off, p.tk - key0);
+    write_rows<HD>(stage + C::RES, p.dv + off, p.tk - key0);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+    attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap domap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap, const BwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BM;  // causal: key tile 0 sees the most rows and goes first
   // query tiles whose last row lies before the block's first key are
   // causally masked for every key of the block
-  const int qt_start = p.causal ? k0 / BQ : 0;
-  const int nqt = (p.tq + BQ - 1) / BQ - qt_start;
+  const int qt_start = p.causal ? k0 / BN : 0;
+  const int nqt = (p.tq + BN - 1) / BN - qt_start;
   const int total = nqt > 0 ? p.group * nqt : 0;
-
-  // step ``it`` = query head kvh * G + it / nqt, query tile qt_start + it % nqt:
-  // its Q and dO tiles and its rows' lse and delta into ``stage``, one group
-  auto prefetch = [&](int it, int stage) {
-    const int hq = kvh * p.group + it / nqt;
-    const int q0 = (qt_start + it % nqt) * BQ;
-    const long long qrow = (static_cast<long long>(b) * p.H + hq) * p.tq + q0;
-    const int valid = min(BQ, p.tq - q0);
-    copy_tile_async<HD>(Qbuf + stage * TILE, p.q + qrow * HD, HD, valid);
-    copy_tile_async<HD>(dObuf + stage * TILE, p.d_o + qrow * HD, HD, valid);
-    {
-      const int which = threadIdx.x / BQ, i = threadIdx.x % BQ;  // 128 threads: lse | delta
-      const float* src = (which ? p.delta : p.lse) + qrow;
-      const unsigned saddr = static_cast<unsigned>(
-          __cvta_generic_to_shared(stat + (stage * 2 + which) * BQ + i));
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                   :: "r"(saddr), "l"(src + (i < valid ? i : 0)), "r"(i < valid ? 4 : 0));
-    }
-    cp_async_commit();
-  };
-
-  if (total > 0) prefetch(0, 0);
-  for (int it = 0, stage = 0; it < total; ++it, stage ^= 1) {
-    if (it + 1 < total) {
-      prefetch(it + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Qs = Qbuf + stage * TILE;
-    const bf16* dOs = dObuf + stage * TILE;
-    const float* lse = stat + stage * 2 * BQ;
-    const float* delta = lse + BQ;
-    const int q0 = (qt_start + it % nqt) * BQ;
-
-    // s^T = k q^T: 16 keys x 64 queries per warp, then p^T in place
-    float s[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    mma_nt<HD>(s, Ks + row0 * LD, Qs, g, t);
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int iq = n * 8 + 2 * t + c;
-        const int i = q0 + iq;
-        const float l = lse[iq];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float x = s[n][2 * r + c] * p.scale + bj[r];
-          if (p.causal && key[r] > i) x = NEG_INF;
-          s[n][2 * r + c] = (key[r] < p.tk && i < p.tq) ? expf(x - l) : 0.f;
-        }
-      }
-    }
-    mma_pn<HD>(dv, s, dOs, g, t);                // dv += p^T do
-
-    float dp[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-    mma_nt<HD>(dp, Vs + row0 * LD, dOs, g, t);   // dp^T = v do^T
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float d = delta[n * 8 + 2 * t + c];
-        s[n][c] *= dp[n][c] - d;
-        s[n][2 + c] *= dp[n][2 + c] - d;
-      }
-    }
-    mma_pn<HD>(dk, s, Qs, g, t);                 // dk += ds^T q
-    __syncthreads();  // every warp is done with this stage's buffers
+  init_barriers<HD>(base);
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) >= CONSUMERS) {
+    if constexpr (HD == 128) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x / 32 == 4 * CONSUMERS)
+      dkv_produce<HD>(&qmap, &domap, &kmap, &vmap, p, smem, kvh, b, k0, qt_start, nqt, total);
+    return;
   }
-  cp_async_wait<0>();  // K and V, if the loop never ran
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (key[r] >= p.tk) continue;
-    const long long off = kvoff + static_cast<long long>(row0 + g + 8 * r) * HD + 2 * t;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<uint32_t*>(p.dk + off + n * 8) =
-          pack(dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(p.dv + off + n * 8) =
-          pack(dv[n][2 * r], dv[n][2 * r + 1]);
-    }
-  }
+  // at hd = 128 a consumer thread holds dK and dV (64 each), S^T and dP^T
+  // (32 each)
+  if constexpr (HD == 128) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  dkv_consume<HD>(p, smem, kvh, b, k0, qt_start, nqt, total);
 }
 
 // delta[row] = sum_c do[row, c] * o[row, c] in fp32, one warp per row, the
@@ -324,38 +520,49 @@ __global__ void attn_bwd_delta_kernel(const bf16* o, const bf16* d_o, float* del
   if (lane == 0) delta[row] = sum;
 }
 
-template <int HD>
-int launch_dq(const BwdParams& p, int B, cudaStream_t stream) {
-  const int bytes = 6 * BQ * pitch<HD>() * static_cast<int>(sizeof(bf16));
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.tq + BQ - 1) / BQ, p.H, B);
-  attn_bwd_dq_kernel<HD><<<grid, NTHREADS, bytes, stream>>>(p);
+struct Operands {
+  const void *q, *k, *v, *d_o;
+  int B;
+};
+
+// One launch of the dq (DQ) or the dk/dv kernel: tensor maps of the
+// contiguous q, do [B, H, Tq, hd] and k, v [B, H / group, Tk, hd] with boxes
+// of the rows each kernel keeps resident (BM) or streams (BN)
+template <int HD, bool DQ>
+int launch(BwdParams p, const Operands& a, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  const int hkv = p.H / p.group;
+  const int qrows = DQ ? BM : BN, krows = DQ ? BN : BM;
+  const long long qh = static_cast<long long>(p.tq) * HD, kh = static_cast<long long>(p.tk) * HD;
+  CUtensorMap qmap, domap, kmap, vmap;
+  int err = make_map(&qmap, &p.qfold, a.q, HD, p.H, p.tq, a.B, p.H * qh, qh, HD, qrows);
+  if (err == 0)
+    err = make_map(&domap, &p.qfold, a.d_o, HD, p.H, p.tq, a.B, p.H * qh, qh, HD, qrows);
+  if (err == 0) err = make_map(&kmap, &p.kfold, a.k, HD, hkv, p.tk, a.B, hkv * kh, kh, HD, krows);
+  if (err == 0) err = make_map(&vmap, &p.kfold, a.v, HD, hkv, p.tk, a.B, hkv * kh, kh, HD, krows);
+  if (err != 0) return err;
+  const auto kernel = DQ ? attn_bwd_dq_kernel<HD> : attn_bwd_dkv_kernel<HD>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid = DQ ? dim3(p.H, a.B, (p.tq + BM - 1) / BM) : dim3(hkv, a.B, (p.tk + BM - 1) / BM);
+  kernel<<<grid, THREADS, C::SMEM, stream>>>(qmap, domap, kmap, vmap, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD>
-int launch_dkv(const BwdParams& p, int B, cudaStream_t stream) {
-  const int bytes = 6 * BQ * pitch<HD>() * static_cast<int>(sizeof(bf16))
-                    + 4 * BQ * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.tk + BK - 1) / BK, p.H / p.group, B);
-  attn_bwd_dkv_kernel<HD><<<grid, NTHREADS, bytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+template <bool DQ>
+int launch_hd(const BwdParams& p, const Operands& a, int hd, cudaStream_t stream) {
+  if (a.B < 1 || p.H < 1 || p.group < 1 || p.H % p.group || p.tq < 1 || p.tk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd == 128) return launch<128, DQ>(p, a, stream);
+  if (hd == 64) return launch<64, DQ>(p, a, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-BwdParams make_params(const void* q, const void* k, const void* v, const float* bias,
-                      const void* d_o, const float* lse, const float* delta,
-                      int H, int group, int tq, int tk, int causal, float scale) {
+BwdParams make_params(const float* bias, const float* lse, const float* delta, int H, int group,
+                      int tq, int tk, int causal, float scale) {
   BwdParams p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
   p.bias = bias;
-  p.d_o = static_cast<const bf16*>(d_o);
   p.lse = lse;
   p.delta = delta;
   p.dq = nullptr;
@@ -367,6 +574,8 @@ BwdParams make_params(const void* q, const void* k, const void* v, const float* 
   p.tk = tk;
   p.causal = causal;
   p.scale = scale;
+  p.scale_log2 = scale * LOG2E;
+  p.qfold = p.kfold = 0;
   return p;
 }
 
@@ -382,18 +591,16 @@ extern "C" int attn_bwd_delta_bf16(const void* o, const void* d_o, float* delta,
   return static_cast<int>(cudaGetLastError());
 }
 
-// All tensors contiguous: q, d_o, dq [B, H, Tq, hd]; k, v [B, H / group, Tk, hd];
-// bias [B, Tk] or null; lse, delta [B, H, Tq].
+// All tensors contiguous and 16-byte aligned: q, d_o, dq [B, H, Tq, hd];
+// k, v [B, H / group, Tk, hd]; bias [B, Tk] or null; lse, delta [B, H, Tq].
 extern "C" int attn_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const float* bias, const void* d_o,
     const float* lse, const float* delta, void* dq, int B, int H, int group, int tq,
     int tk, int hd, int causal, float scale, void* stream) {
-  BwdParams p = make_params(q, k, v, bias, d_o, lse, delta, H, group, tq, tk, causal, scale);
+  BwdParams p = make_params(bias, lse, delta, H, group, tq, tk, causal, scale);
   p.dq = static_cast<bf16*>(dq);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 128) return launch_dq<128>(p, B, s);
-  if (hd == 64) return launch_dq<64>(p, B, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Operands a = {q, k, v, d_o, B};
+  return launch_hd<true>(p, a, hd, static_cast<cudaStream_t>(stream));
 }
 
 // As attn_bwd_dq_bf16; dk, dv [B, H / group, Tk, hd], summed over each kv
@@ -402,11 +609,9 @@ extern "C" int attn_bwd_dkv_bf16(
     const void* q, const void* k, const void* v, const float* bias, const void* d_o,
     const float* lse, const float* delta, void* dk, void* dv, int B, int H, int group,
     int tq, int tk, int hd, int causal, float scale, void* stream) {
-  BwdParams p = make_params(q, k, v, bias, d_o, lse, delta, H, group, tq, tk, causal, scale);
+  BwdParams p = make_params(bias, lse, delta, H, group, tq, tk, causal, scale);
   p.dk = static_cast<bf16*>(dk);
   p.dv = static_cast<bf16*>(dv);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 128) return launch_dkv<128>(p, B, s);
-  if (hd == 64) return launch_dkv<64>(p, B, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Operands a = {q, k, v, d_o, B};
+  return launch_hd<false>(p, a, hd, static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) pieces shared by the wgmma kernels (quant_matmul_p4.cu's
-// tensor-core form, attention.cu's forward): mbarriers, TMA tile copies,
+// tensor-core form; attention.cu's forward and attention_bwd.cu's backward,
+// through attention_common.cuh): mbarriers, TMA tile copies,
 // the 128-byte-swizzle wgmma descriptors, the wgmma fence / commit / wait,
 // and cuTensorMapEncodeTiled looked up at run time.
 

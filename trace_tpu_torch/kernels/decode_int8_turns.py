@@ -40,13 +40,16 @@ CASES = ((4, "random"), (32, "random"), (32, "serving"))
 ATOL, RTOL = 2e-3, 2 ** -7
 
 
-def build(sources: dict[str, Path], subdir: str = "decode_int8_turns") -> dict[str, ctypes.CDLL]:
+def build(sources: dict[str, Path], subdir: str = "decode_int8_turns",
+          ptxas: bool = False) -> dict[str, ctypes.CDLL]:
     """Each source compiled on its own (all nvcc processes together) into
-    ``_build/<subdir>/<name>.so`` and loaded."""
+    ``_build/<subdir>/<name>.so`` and loaded; with ``ptxas``, each kernel's
+    registers and spills as ptxas reports them are printed."""
     out = BUILD_DIR / subdir
     out.mkdir(parents=True, exist_ok=True)
+    extra = ["-Xptxas", "-v"] if ptxas else []
     procs = {name: subprocess.Popen(
-        [nvcc(), *NVCC_FLAGS, "-o", str(out / f"{name}.so"), str(src)],
+        [nvcc(), *NVCC_FLAGS, *extra, "-o", str(out / f"{name}.so"), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, src in sources.items()}
     libs = {}
@@ -54,6 +57,10 @@ def build(sources: dict[str, Path], subdir: str = "decode_int8_turns") -> dict[s
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+        if ptxas:
+            for line in log.splitlines():
+                if "Compiling entry" in line or "registers" in line or "spill" in line:
+                    print(f"  {name}: {line.strip()}", flush=True)
         libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
     return libs
 
