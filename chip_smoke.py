@@ -606,9 +606,9 @@ def flash_backward_checks(torch, g, rows: dict) -> None:
     dq 3 (q k^T, do v^T, ds k), dk/dv 4 (q k^T, do v^T, p^T do, ds^T q); a
     joint backward would need 5."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from trace_tpu_torch.kernels import flash_backward as fb
-    from trace_tpu_torch.kernels.attn_bwd_turns import flash_sdpa_backward
 
     B, H, HKV, T, HD, PAD = 2, 32, 8, 2048, 128, 300
     randn = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
@@ -647,10 +647,14 @@ def flash_backward_checks(torch, g, rows: dict) -> None:
     lib_bwd_ms = median_ms(torch, lib_bwd)
     # informational: SDPA's flash backend with is_causal and no bias, what
     # PyTorch's own backward reaches on this shape (not the same function)
-    flash_bwd, how = flash_sdpa_backward(q, k, v, do, H // HKV)
-    print(f"  SDPA flash backward, is_causal, no bias ({how}): "
-          f"{median_ms(torch, flash_bwd):.4f} ms", flush=True)
-    del flash_bwd
+    flash_leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        flash_out = F.scaled_dot_product_attention(*flash_leaves, is_causal=True,
+                                                   enable_gqa=True)
+    flash_bwd = lambda: torch.autograd.grad(flash_out, flash_leaves, do, retain_graph=True)
+    print(f"  SDPA flash backward, is_causal, no bias: {median_ms(torch, flash_bwd):.4f} ms",
+          flush=True)
+    del flash_leaves, flash_out, flash_bwd
     rows["flash_attention_fwd_res"] = dict(
         **cmp, ms=median_ms(torch, fwd), plain_ms=median_ms(torch, lambda: fwd("plain")),
         library_ms=lib_fwd_ms,

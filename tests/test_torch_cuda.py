@@ -241,42 +241,55 @@ def test_decode_kernel_on_a_large_grid_at_a_long_length(cuda, B, S):
 # limits are in units of the largest |ref|, 2e-2 absolute (measured ~4e-3) and
 # two bf16 steps relative, and ||diff|| / ||ref|| <= REL_NORM. lse is fp32 on
 # both sides and differs by the online softmax's summation order: 1e-4.
-BWD_CASES = [  # B, H, Hkv, Tq, hd, pad, side, causal
-    (2, 8, 2, 300, 128, 37, "right", True),
-    (2, 8, 2, 300, 128, 37, "left", True),
-    (1, 4, 4, 128, 64, 0, "right", True),
-    (2, 4, 1, 77, 64, 5, "right", False),
-    (1, 8, 2, 1024, 128, 100, "right", True),
+BWD_CASES = [  # B, H, Hkv, Tq, Tk, hd, pad, side, causal
+    (2, 8, 2, 300, 300, 128, 37, "right", True),
+    (2, 8, 2, 300, 300, 128, 37, "left", True),
+    (1, 4, 4, 128, 128, 64, 0, "right", True),
+    (2, 4, 1, 77, 77, 64, 5, "right", False),
+    (1, 8, 2, 1024, 1024, 128, 100, "right", True),
     # ragged T on both sides of the kernels' 64- and 128-row tiles
-    (1, 4, 2, 63, 128, 0, "right", True),
-    (1, 4, 2, 200, 128, 20, "right", True),
-    (1, 8, 2, 2020, 128, 0, "right", True),
-    (1, 8, 2, 2020, 64, 50, "left", False),
+    (1, 4, 2, 63, 63, 128, 0, "right", True),
+    (1, 4, 2, 200, 200, 128, 20, "right", True),
+    (1, 8, 2, 2020, 2020, 128, 0, "right", True),
+    (1, 8, 2, 2020, 2020, 64, 50, "left", False),
     # G 1 / 2 / 4 at hd 64 and hd 128, left and right padding, causal and not
-    (2, 4, 4, 129, 128, 7, "left", True),
-    (2, 4, 4, 200, 64, 30, "left", False),
-    (2, 4, 2, 200, 64, 30, "left", True),
-    (2, 4, 2, 257, 128, 40, "right", False),
-    (1, 8, 2, 257, 64, 0, "right", False),
-    (2, 8, 2, 330, 128, 60, "left", False),
+    (2, 4, 4, 129, 129, 128, 7, "left", True),
+    (2, 4, 4, 200, 200, 64, 30, "left", False),
+    (2, 4, 2, 200, 200, 64, 30, "left", True),
+    (2, 4, 2, 257, 257, 128, 40, "right", False),
+    (1, 8, 2, 257, 257, 64, 0, "right", False),
+    (2, 8, 2, 330, 330, 128, 60, "left", False),
+    # Tq != Tk: query rows past Tk (causal, they see every key), keys no
+    # query row sees (causal, their gradients are zero), and neither
+    (1, 4, 2, 330, 200, 128, 25, "right", True),
+    (2, 4, 2, 200, 330, 64, 25, "right", True),
+    (2, 4, 2, 200, 330, 64, 25, "left", False),
     # the training shape
-    (2, 32, 8, 2048, 128, 300, "right", True),
+    (2, 32, 8, 2048, 2048, 128, 300, "right", True),
 ]
 
 
-def _bwd_inputs(cuda, B, H, Hkv, T, hd, pad, side):
+def _bwd_inputs(cuda, B, H, Hkv, Tq, Tk, hd, pad, side):
+    """q, k, v, the key bias, do and the query rows that are real; ``pad``
+    slots of batch row 0 are padding on ``side`` among both the query rows
+    and the keys."""
     rng = np.random.default_rng(11)
-    q, do = _bf16(rng, (B, H, T, hd), cuda), _bf16(rng, (B, H, T, hd), cuda)
-    k, v = _bf16(rng, (B, Hkv, T, hd), cuda), _bf16(rng, (B, Hkv, T, hd), cuda)
-    real = torch.ones((B, T), dtype=torch.bool, device=cuda)
-    if pad:
-        if side == "right":
-            real[0, T - pad:] = False
-        else:
-            real[0, :pad] = False
-    bias = torch.where(real, 0.0, -1e30).float()
-    do = do * real[:, None, :, None]  # padded query rows carry no loss
-    return q, k, v, bias, do, real
+    q, do = _bf16(rng, (B, H, Tq, hd), cuda), _bf16(rng, (B, H, Tq, hd), cuda)
+    k, v = _bf16(rng, (B, Hkv, Tk, hd), cuda), _bf16(rng, (B, Hkv, Tk, hd), cuda)
+
+    def real(T):
+        r = torch.ones((B, T), dtype=torch.bool, device=cuda)
+        if pad:
+            if side == "right":
+                r[0, T - pad:] = False
+            else:
+                r[0, :pad] = False
+        return r
+
+    bias = torch.where(real(Tk), 0.0, -1e30).float()
+    real_q = real(Tq)
+    do = do * real_q[:, None, :, None]  # padded query rows carry no loss
+    return q, k, v, bias, do, real_q
 
 
 def _assert_grad_matches(got, want, name):
@@ -287,11 +300,11 @@ def _assert_grad_matches(got, want, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,Hkv,T,hd,pad,side,causal", BWD_CASES)
-def test_flash_backward_kernels_match_plain(cuda, B, H, Hkv, T, hd, pad, side, causal):
+@pytest.mark.parametrize("B,H,Hkv,Tq,Tk,hd,pad,side,causal", BWD_CASES)
+def test_flash_backward_kernels_match_plain(cuda, B, H, Hkv, Tq, Tk, hd, pad, side, causal):
     from trace_tpu_torch.kernels import flash_backward as fb
 
-    q, k, v, bias, do, real = _bwd_inputs(cuda, B, H, Hkv, T, hd, pad, side)
+    q, k, v, bias, do, real = _bwd_inputs(cuda, B, H, Hkv, Tq, Tk, hd, pad, side)
     counts = [f.launches for f in (fb.flash_attention_fwd_res, fb.flash_attention_bwd_dq,
                                    fb.flash_attention_bwd_dkv)]
     o, lse = fb.flash_attention_fwd_res(q, k, v, bias, causal=causal)
@@ -328,7 +341,7 @@ def test_flash_attention_trainable_on_the_card(cuda):
 
     from trace_tpu_torch.kernels.flash_attention import flash_attention_trainable, xla_attention
 
-    q, k, v, bias, do, _ = _bwd_inputs(cuda, 2, 8, 2, 256, 128, 30, "right")
+    q, k, v, bias, do, _ = _bwd_inputs(cuda, 2, 8, 2, 256, 256, 128, 30, "right")
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     out = checkpoint(lambda a, b, c: flash_attention_trainable(a, b, c, bias, True),
                      *leaves, use_reentrant=False)

@@ -1,7 +1,7 @@
 """The attention backward kernels (dq, dk/dv) timed beside other builds of
 their source, on the card.
 
-    python -m trace_tpu_torch.kernels.attn_bwd_turns [--against NAME=PATH.cu ...] [--ptxas]
+    python -m trace_tpu_torch.kernels.attn_bwd_turns [--against NAME=PATH.cu ...]
 
 Builds ``csrc/attention_bwd.cu`` as it is (``this``) and each source named
 by ``--against`` (say an earlier commit's copy, unpacked with ``git archive``
@@ -18,8 +18,8 @@ version (the limits of ``chip_smoke.py``: 1e-2 + 2^-7 |ref| in units of the
 largest |ref|, and ||diff|| / ||ref|| <= 1e-2) and against a second run of
 themselves, bit for bit. Beside them: autograd's backward through SDPA with
 the same bias (the smoke's library time) and SDPA's flash backend with
-``is_causal=True`` and no bias. ``--ptxas`` prints each kernel's registers
-and spills as ptxas reports them.
+``is_causal=True`` and no bias. Each kernel's registers and spills are
+printed as ptxas reports them.
 """
 
 from __future__ import annotations
@@ -98,7 +98,6 @@ def excess(got, want) -> tuple[float, float]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", action="append", default=[], metavar="NAME=PATH.cu")
-    ap.add_argument("--ptxas", action="store_true", help="print registers and spills")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("attn_bwd_turns: no CUDA device", file=sys.stderr)
@@ -109,7 +108,7 @@ def main() -> int:
     for item in args.against:
         name, _, path = item.partition("=")
         sources[name] = Path(path)
-    libs = build(sources, "attn_bwd_turns", ptxas=args.ptxas)
+    libs = build(sources, "attn_bwd_turns", ptxas=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for hd in (128, 64):
@@ -126,11 +125,11 @@ def main() -> int:
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
         out = F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask, enable_gqa=True)
         sdpa = median_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), flush)
-        flash, how = flash_sdpa_backward(q, k, v, do, H // HKV)
+        flash = flash_sdpa_backward(q, k, v, do)
         print(f"hd = {hd}: one product over the visible pairs {product / 1e9:.1f} GFLOP; bounds "
               f"dq {3 * product / 989e12 * 1e3:.4f} ms, dk/dv {4 * product / 989e12 * 1e3:.4f} ms "
               f"(operations, 989 TFLOP/s); SDPA backward with the bias {sdpa:.4f} ms; SDPA flash "
-              f"backward, is_causal, no bias ({how}) {median_ms(flash, flush):.4f} ms",
+              f"backward, is_causal, no bias {median_ms(flash, flush):.4f} ms",
               flush=True)
         del leaves, out, lib_mask, flash
         runs = {name: callers(lib, q, k, v, bias, do, lse, delta) for name, lib in libs.items()}
@@ -157,24 +156,17 @@ def main() -> int:
     return 0
 
 
-def flash_sdpa_backward(q, k, v, do, group):
-    """(fn, how): fn runs autograd's backward through SDPA's flash backend
+def flash_sdpa_backward(q, k, v, do):
+    """A function that runs autograd's backward through SDPA's flash backend
     with is_causal and no bias once, what PyTorch's own backward reaches on
     this shape (another function than the kernels', which take the padding
-    bias); how says whether the backend took GQA or the kv heads repeated."""
+    bias)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        try:
-            out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
-            how = "GQA"
-        except RuntimeError:  # a flash backend without GQA
-            leaves = [leaves[0]] + [x.detach().repeat_interleave(group, dim=1)
-                                    .requires_grad_(True) for x in leaves[1:]]
-            out = F.scaled_dot_product_attention(*leaves, is_causal=True)
-            how = "kv heads repeated"
-    return (lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)), how
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
 
 if __name__ == "__main__":
