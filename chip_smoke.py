@@ -428,15 +428,27 @@ def quant_matmul_checks(torch, g, rows: dict) -> None:
     rows["quant_matmul"] = head
     del q, s, qr, sr
 
-    L, LI, parts = 32, 17, []
+    L, LI, parts, batch = 32, 17, [], []
     for K, N, out_dtype in ((4096, 6144, torch.bfloat16), (4096, 4096, torch.bfloat16),
                             (4096, 28672, torch.float32), (14336, 4096, torch.bfloat16)):
         xk = torch.randn((2, K), generator=g, device="cuda").to(torch.bfloat16)
         q, s = weight(L, K, N)
         parts.append(one("quant_matmul_stacked", lambda impl: quant_matmul_stacked(
             xk, q, s, LI, out_dtype=out_dtype, impl=impl), xk, q[LI], s[LI]))
+        # the bench's decode batch, 32 rows: tiles of 8 rows, each re-reading
+        # the weight; held to the limits, printed apart, not in the row
+        xb = torch.randn((32, K), generator=g, device="cuda").to(torch.bfloat16)
+        batch.append(one("quant_matmul_stacked", lambda impl: quant_matmul_stacked(
+            xb, q, s, LI, out_dtype=out_dtype, impl=impl), xb, q[LI], s[LI]))
         del q, s
     rows["quant_matmul_stacked"] = merge(parts)
+    r = merge(batch)
+    print(f"  quant_matmul_stacked, the four shapes at M = 32 (not in the row): "
+          f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+          f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} %) "
+          f"max_abs_err={r['err']:.6f} excess={r['excess']:.6f}", flush=True)
+    if not (r["excess"] <= 0 and r["rel_norm"] <= REL_NORM_TOL):
+        fail("quant_matmul_stacked at M = 32: kernel disagrees with its plain version")
 
 
 def packed_int4_checks(torch, g, rows: dict) -> None:

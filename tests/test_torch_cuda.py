@@ -598,6 +598,127 @@ def test_p4_wrappers_refuse_what_they_do_not_take(cuda):
         quant_matmul_p4(xb, qp[:, ::2], s[0, ::2])  # strided qp
 
 
+# The split-K forms (M <= 8) of the int8 ("i8") and packed products, per
+# channel ("p4") and grouped ("p4g"): one cluster launch each, the weight
+# read once for every M <= 8. Weights made once per (form, shape).
+_SPLIT_WEIGHTS = {}
+
+
+def _split_weight(form, K, N, dev, layers=1):
+    """([layers,] K or K/2, N) weight and its scale for ``form``, from a seed."""
+    key = (form, K, N, layers)
+    if key not in _SPLIT_WEIGHTS:
+        rng = np.random.default_rng(K + N + layers)
+        if form == "i8":
+            w = _int8_weight(rng, (layers, K, N), dev)
+        else:
+            w = _packed_weight(rng, (layers, K // 2, N), K // 128 if form == "p4g" else 1, dev)
+        _SPLIT_WEIGHTS.clear()  # one at a time: the w_down weights are large
+        _SPLIT_WEIGHTS[key] = w
+    return _SPLIT_WEIGHTS[key]
+
+
+_SPLIT_FLAT = {"i8": quant_matmul, "p4": quant_matmul_p4, "p4g": quant_matmul_p4_grouped}
+_SPLIT_STACKED = {"i8": quant_matmul_stacked, "p4": quant_matmul_p4_stacked,
+                  "p4g": quant_matmul_p4_grouped_stacked}
+
+
+def _split_call(form, x, w, s, li=None, out_dtype=torch.bfloat16, impl="auto"):
+    """The form's 2-D entry on layer 0 of the stacked leaf, or its stacked
+    entry on layer li."""
+    if li is not None:
+        return _SPLIT_STACKED[form](x, w, s, li, out_dtype=out_dtype, impl=impl)
+    s0 = s[0] if form == "p4g" else s[0].reshape(-1)
+    return _SPLIT_FLAT[form](x, w[0], s0, out_dtype=out_dtype, impl=impl)
+
+
+def _check_split(form, x, w, s, li=None, out_dtype=torch.bfloat16):
+    """One launch, its plain version's limits, and a repeat bit for bit."""
+    fn = (_SPLIT_STACKED if li is not None else _SPLIT_FLAT)[form]
+    count = (quant_matmul_stacked if form == "i8" and li is not None
+             else _SPLIT_FLAT[form])
+    n = count.launches
+    got = _split_call(form, x, w, s, li, out_dtype)
+    torch.cuda.synchronize()
+    assert count.launches == n + 1 and got.dtype == out_dtype, fn.__name__
+    assert torch.isfinite(got).all()
+    want = _split_call(form, x, w, s, li, out_dtype, impl="plain")
+    if form == "i8":
+        _assert_qmm_matches(got, want, out_dtype)
+    else:
+        _assert_p4_matches(got, want, out_dtype, "splitk")
+    assert torch.equal(got, _split_call(form, x, w, s, li, out_dtype))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(4096, 6144), (14336, 4096)])  # wqkv, w_down
+@pytest.mark.parametrize("M", range(1, 9))
+@pytest.mark.parametrize("form", ["i8", "p4", "p4g"])
+def test_split_kernels_match_plain_at_every_m(cuda, form, M, K, N):
+    w, s = _split_weight(form, K, N, cuda)
+    x = _bf16(np.random.default_rng(M), (M, K), cuda)
+    _check_split(form, x, w, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,M,K,N,out_dtype", [
+    ("i8", 2, 512, 100, torch.bfloat16),    # N under one 128-column strip
+    ("p4", 2, 512, 100, torch.float32),
+    ("p4g", 2, 512, 100, torch.bfloat16),
+    ("i8", 5, 2048, 1100, torch.float32),   # N % 16 != 0: the byte-wise loads
+    ("p4", 5, 2048, 1100, torch.bfloat16),
+    ("p4g", 5, 2048, 1100, torch.float32),
+    ("i8", 3, 1000, 2048, torch.bfloat16),  # K no multiple of a rank's share
+    ("p4", 3, 1000, 2048, torch.float32),   # K / 2 = 500: x read element by element
+    ("p4g", 3, 1024, 2048, torch.bfloat16),  # G = 8: 4 groups a half, 64 rows a rank
+    ("i8", 7, 1000, 1100, torch.bfloat16),  # ragged K and N together
+])
+def test_split_kernels_at_ragged_shapes(cuda, form, M, K, N, out_dtype):
+    w, s = _split_weight(form, K, N, cuda)
+    x = _bf16(np.random.default_rng(N), (M, K), cuda)
+    _check_split(form, x, w, s, out_dtype=out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["i8", "p4", "p4g"])
+def test_split_stacked_entries_read_the_last_layer_in_place(cuda, form):
+    L, K, N = 4, 4096, 1024
+    w, s = _split_weight(form, K, N, cuda, layers=L)
+    x = _bf16(np.random.default_rng(31), (2, K), cuda)
+    got = _check_split(form, x, w, s, li=L - 1)
+    last = s[L - 1] if form == "p4g" else s[L - 1].reshape(-1)
+    assert torch.equal(got, _SPLIT_FLAT[form](x, w[L - 1], last, out_dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_split_products_replay_in_a_cuda_graph(cuda):
+    """One call of each entry a decode step makes (the int8 lm_head and the
+    three stacked entries) captured in a CUDA graph and replayed: equal to
+    the eager calls. Capture fails on an allocation outside the graph's pool
+    or a synchronising call, so none is left in the wrappers."""
+    rng = np.random.default_rng(33)
+    K, N = 4096, 1024
+    x = _bf16(rng, (2, K), cuda)
+    q, sq = _int8_weight(rng, (3, K, N), cuda)
+    calls = [lambda: quant_matmul(x, q[0], sq[0], out_dtype=torch.float32),
+             lambda: quant_matmul_stacked(x, q, sq, 2)]
+    for groups, fn in ((1, quant_matmul_p4_stacked), (K // 128, quant_matmul_p4_grouped_stacked)):
+        qp, sp = _packed_weight(rng, (3, K // 2, N), groups, cuda)
+        calls.append(lambda fn=fn, qp=qp, sp=sp: fn(x, qp, sp, 2))
+    eager = [f() for f in calls]  # built, loaded and planned outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [f() for f in calls]
+    for out in outs:
+        out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(outs, eager):
+        assert torch.equal(got, want)
+
+
 def _int8_stripe(rng, L, B, NKV, S, HD, dev):
     from trace_tpu_torch.model.config import DecoderConfig
     from trace_tpu_torch.model.mistral import _quantize_kv, init_kv_cache
@@ -848,3 +969,22 @@ def test_int8_wrappers_refuse_what_they_do_not_take(cuda):
                          torch.zeros((1, 16), device=cuda))
     with pytest.raises(ValueError):
         decode_attention(qh, stripe, None, torch.zeros((1, 16), device=cuda), mode="fp8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["i8", "p4", "p4g"])
+def test_split_product_allocates_only_its_output(cuda, form):
+    """No workspace: a call's peak allocation is its output, and nothing stays
+    allocated but the output (the graph-capture test covers the launch)."""
+    K, N = 4096, 6144
+    w, s = _split_weight(form, K, N, cuda)
+    x = _bf16(np.random.default_rng(35), (2, K), cuda)
+    _split_call(form, x, w, s)  # built, loaded and planned
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = _split_call(form, x, w, s)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before == out.untyped_storage().nbytes()
+    del out
+    assert torch.cuda.memory_allocated() == before

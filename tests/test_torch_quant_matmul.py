@@ -400,32 +400,60 @@ def test_wrappers_refuse_bad_arguments():
         tqmm.quant_matmul_stacked(x, q, s[:, :12], 0)
 
 
+# The split-K products' launch plan (host code the card's launch relies on),
+# with an H100's 132 SMs holding two blocks of the kernel each: a cluster of
+# c blocks fits 264 // c times at once.
+def _fits(c):
+    return 2 * 132 // c
+
+
+def _check_plan(plan, M, K, N, rows, step):
+    """The grid covers N and the rows of x; the cluster's shares (whole
+    k-steps) cover the weight rows, none of them empty; the cluster is
+    portable; two blocks fit an SM's shared memory."""
+    assert plan.strips * tqmm.SPLIT_STRIP >= N > (plan.strips - 1) * tqmm.SPLIT_STRIP
+    assert plan.row_tiles * tqmm.SPLIT_ROWS >= M > (plan.row_tiles - 1) * tqmm.SPLIT_ROWS
+    assert 1 <= plan.cluster <= 8
+    assert plan.share % step == 0
+    assert plan.cluster * plan.share >= rows > (plan.cluster - 1) * plan.share
+    assert plan.smem <= 232448 and 2 * (plan.smem + 1024) <= 233472
+    if plan.cluster > 1:  # every cluster of the launch runs at once
+        assert plan.strips * plan.row_tiles <= _fits(plan.cluster)
+
+
 @pytest.mark.parametrize("M,K,N", [(2, 4096, 6144), (2, 4096, 4096), (2, 4096, 28672),
                                    (2, 14336, 4096), (2, 4096, 32000), (37, 1000, 1100),
                                    (4096, 4096, 4096), (1, 40, 8)])
 def test_split_k_covers_k_within_the_kernels_tile(M, K, N):
-    """The wrapper's choice of K chunk (host code the card's launch relies
-    on): chunks cover K, none is longer than the kernel's x tile, and a
-    decode-shaped call is split into enough blocks to fill 132 SMs."""
-    strip, kmax = 512, 1024
-    kchunk = tqmm.split_k(M, K, N, strip, kmax)
-    assert 1 <= kchunk <= kmax
-    ksplit = -(-K // kchunk)
-    assert ksplit * kchunk >= K and (ksplit - 1) * kchunk < K
-    blocks = -(-N // strip) * -(-M // 4) * ksplit
-    if M <= 4 and K >= 4096:
-        assert blocks >= 132
+    """The int8 product's plan: one cluster of up to 8 blocks along K per
+    128-column strip and tile of 8 rows of x, every cluster resident at
+    once; a decode-shaped call (the four layer shapes and the lm_head) puts
+    at least one block on each of 132 SMs in that one wave."""
+    plan = tqmm.split_plan(M, K, N, "i8", _fits)
+    _check_plan(plan, M, K, N, K, 16)
+    if M <= 8 and K >= 4096:
+        assert 132 <= plan.blocks <= 2 * 132
 
 
 @pytest.mark.parametrize("M,K,N", [(2, 4096, 6144), (2, 4096, 4096), (2, 4096, 28672),
                                    (2, 14336, 4096), (8, 1024, 520), (1, 256, 16)])
 def test_split_k_of_the_packed_product_covers_the_packed_rows(M, K, N):
-    """The packed kernels split their K / 2 packed rows with the same host
-    function, a chunk no longer than their x tile of 512 packed rows."""
-    strip, kmax = 512, 512
-    kchunk = tqmm.split_k(M, K // 2, N, strip, kmax)
-    assert 1 <= kchunk <= kmax
-    ksplit = -(-(K // 2) // kchunk)
-    assert ksplit * kchunk >= K // 2 and (ksplit - 1) * kchunk < K // 2
-    if K >= 4096:
-        assert -(-N // strip) * -(-M // 4) * ksplit >= 132
+    """The packed products split their K / 2 packed rows with the same plan,
+    per channel and grouped (a larger block: its scales ride in the ring)."""
+    for form in ("p4", "p4g"):
+        plan = tqmm.split_plan(M, K, N, form, _fits)
+        _check_plan(plan, M, K, N, K // 2, 8)
+        if K >= 4096:
+            assert 132 <= plan.blocks <= 2 * 132
+
+
+@pytest.mark.parametrize("fits,cluster", [(lambda c: 31 if c == 8 else 264 // c, 7),
+                                          (lambda c: 0, 1)])
+def test_split_plan_takes_a_smaller_cluster_where_the_card_holds_fewer(fits, cluster):
+    """Clusters are placed within a GPC, so a card may hold fewer of the
+    largest than its SM count says: the plan then takes the largest cluster
+    that still runs in one wave (wo at M = 2: 32 strips), and a cluster of 1
+    where none does."""
+    plan = tqmm.split_plan(2, 4096, 4096, "i8", fits)
+    assert plan.cluster == cluster
+    _check_plan(plan, 2, 4096, 4096, 4096, 16)

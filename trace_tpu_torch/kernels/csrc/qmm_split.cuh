@@ -1,0 +1,563 @@
+// The weight products of a decode step for Hopper (sm_90a), one launch per
+// product: y[M, N] = x[M, K] @ W[K, N] for a few rows of bf16 x and a
+// quantized W, an fp32 sum, bf16 or fp32 y. Three weight forms share this
+// skeleton (quant_matmul.cu the first, quant_matmul_p4.cu the other two):
+//   I8:  int8 q [K, N], a per-column scale s [N] applied once on the sum;
+//   P4:  nibble-packed qp [K/2, N] (byte k holds rows k and k + K/2), a
+//        per-column scale on the sum;
+//   P4G: the same bytes, W[k, n] = bf16(nibble * s[k / 128, n]) rounded
+//        before the product (that rounding is part of the function).
+//
+// Bound by bytes: the weight is streamed once (K N or K N / 2 bytes) for at
+// most 8 rows of x, a few operations per byte. What the design does:
+//   * One launch, no workspace. A cluster of C <= 8 blocks (the portable
+//     size) owns a strip of 128 columns of y; rank r takes a contiguous
+//     share of the weight rows. The ranks' partial sums meet in distributed
+//     shared memory: every rank writes its sums for rank o's slice of the
+//     strip into o's shared memory before a cluster barrier, and o adds them
+//     in rank order, scales, casts and writes y. No atomics on the sums: a
+//     repeat gives the same bits.
+//   * Long blocks, one wave. The host (kernels/quant_matmul.py split_plan)
+//     takes the largest C for which all clusters of the launch are resident
+//     at once (cudaOccupancyMaxActiveClusters; two blocks an SM fit), so
+//     the four layer shapes of a 7B decode step and the lm_head launch
+//     192-250 blocks on 132 SMs, each streaming 100-512 KB.
+//   * Bytes in flight. Each block streams its share through a ring of
+//     NSTAGE = 5 stages of 128 weight rows x 128 columns (16 KB), each with
+//     its slice of x (and, for P4G, the rows of scales it touches), all by
+//     TMA onto the stage's mbarrier: up to 80 KB a block, 160 KB an SM. No
+//     block barrier paces the ring: a warp that is done with a stage counts
+//     itself out on the stage's counter, and the last of the 8 refills the
+//     slot with the stage NSTAGE further on, while the others go on.
+//   * Few operations per byte. The products run on the tensor cores:
+//     mma.sync m16n8k16 with the weight as A (16 columns of the strip x 16
+//     k) and x as B (16 k x 8 rows: M <= 8 reads the weight once; a larger
+//     M takes tiles of 8 rows, each re-reading it). A k pair of the A
+//     fragment is built from the bytes in bf16x2 integer arithmetic, each
+//     step exact: int8 rows k, k+1 of a column as 128 + (b & 127) minus
+//     128 or 256 by b's sign bit; packed, the byte's low and high nibbles
+//     (rows k and k + K/2, so that pair of A meets x[k] and x[k + K/2] in B)
+//     as 136 + nibble minus 136, and for P4G times the scale pair, rounded
+//     once as the plain version's fp32 product rounded to bf16. About 2
+//     (int8), 3.4 (P4) and 4.4 (P4G) lane operations a weight byte against
+//     the 4.5-12 of FMAs on fp32 values. The products are exact; to keep
+//     the tensor core's truncating accumulation off long chains, each
+//     stage's at most 4 mma per warp start from zero and are added into the
+//     fp32 sums with round-to-nearest adds.
+// Layout: 8 warps = 2 column halves (64 columns: lane group g reads 8
+// neighbouring bytes, A rows g and g + 8 of n-tile j are columns 8 g + 2 j
+// and + 1) x 4 bands (the stage's k-steps in turn). A lane reads rows 2 tq
+// and 2 tq + 1 of a k-step (int8: and + 8, + 9; packed: its k pairs tq and
+// tq + 4); weight rows and x rows sit in the 128-byte swizzle, so both
+// reads spread over all 32 banks. A k-step past the share is skipped (TMA
+// fetches whole boxes, so the rows there are another rank's); past K the
+// copies read zeros. Shapes a tensor map cannot take (N not a multiple of
+// 16 or an unaligned weight; K or K / 2 not a multiple of 8 or an unaligned
+// x; N not a multiple of 8 for the scales) are loaded by the refilling warp
+// into the same layout. ptxas (CUDA 12.8, sm_90a): 70 / 64 / 90 registers
+// (I8 / P4 / P4G), no spills.
+// Where the time goes (PERF.md, qmm_turns): the stream alone, with the
+// arithmetic cut out, runs at the card's read rate; the arithmetic adds
+// ~19 %, and a launch takes about as long as its busiest SM's blocks, so
+// the 224 blocks of w_gateup (two on 92 SMs, one on 40) pay for the
+// imbalance.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#include "decode_common.cuh"
+#include "hopper_common.cuh"
+
+namespace {
+namespace qsplit {
+
+namespace cg = cooperative_groups;
+typedef __nv_bfloat16 bf16;
+
+enum class Form { I8, P4, P4G };
+
+constexpr int NT = 256;         // threads a block: 8 warps
+constexpr int WARPS = NT / 32;
+constexpr int STRIP = 128;      // columns of y a cluster: one 128-byte swizzle row
+constexpr int ROWS = 128;       // weight rows (packed rows) a stage
+constexpr int BOX_ROWS = 32;    // rows of one weight box: a stage takes up to 4
+constexpr int XBOX = 64;        // k of one x box (128 bytes): a stage takes 2 a half
+constexpr int NSTAGE = 5;       // stages of the ring
+constexpr int MT = 8;           // rows of x a block: the mma's n
+constexpr int BANDS = 4;        // warps that share a column half, taking k-steps in turn
+constexpr int RED_STRIDE = STRIP + 4;
+constexpr int W_STAGE = ROWS * STRIP;  // weight bytes a stage, 128-byte swizzled rows
+
+// floats of the receive buffer: C ranks x MT rows x a slice of ceil(STRIP / C)
+constexpr int rx_floats() {
+  int most = 0;
+  for (int c = 1; c <= MAX_CLUSTER; ++c) {
+    const int n = c * MT * ((STRIP + c - 1) / c);
+    most = n > most ? n : most;
+  }
+  return (most + 3) / 4 * 4;
+}
+
+// shared memory: the weight ring, the x ring (both 1024-byte aligned, as
+// the swizzle wants), the scale ring (P4G), the receive buffer, the
+// stages' barriers and counters
+template <Form F>
+struct Layout {
+  static constexpr bool PACKED = F != Form::I8;
+  static constexpr int STEP = PACKED ? 8 : 16;  // weight rows a k-step of the mma
+  static constexpr int HALVES = PACKED ? 2 : 1;  // x's halves a stage: k, k + K/2
+  static constexpr int X_STAGE = HALVES * (ROWS / XBOX) * MT * 128;
+  static constexpr int S_STAGE = F == Form::P4G ? 4 * STRIP * 2 : 0;  // 2 groups x lo, hi
+  static constexpr int X_OFF = NSTAGE * W_STAGE;
+  static constexpr int S_OFF = X_OFF + NSTAGE * X_STAGE;
+  static constexpr int RX_OFF = S_OFF + NSTAGE * S_STAGE;
+  static constexpr int BAR_OFF = RX_OFF + rx_floats() * 4;
+  static constexpr int CNT_OFF = BAR_OFF + 8 * NSTAGE;
+  static constexpr int SMEM = CNT_OFF + 4 * NSTAGE + 1024;  // + alignment
+};
+static_assert(BANDS * MT * RED_STRIDE * 4 <= NSTAGE * W_STAGE, "reduction buffer");
+static_assert(2 * (Layout<Form::P4G>::SMEM + 1024) <= 233472, "two blocks an SM");
+
+struct Params {
+  const bf16* x;
+  const int8_t* w;   // the layer's weight bytes
+  const bf16* s;     // [N] (I8, P4) or [K / 128, N] (P4G)
+  void* y;
+  int M, K, N;       // K: columns of x
+  int rows;          // weight rows: K, or K / 2 packed
+  int share;         // rows a rank, a multiple of the k-step
+  int wtma, xtma, stma;  // weight, x, scales by TMA; else loaded by a warp
+  int out_f32;
+};
+
+// byte `col` of row r of a tile of 128-byte rows in the 128-byte swizzle
+// (16-byte chunk c of row r at chunk c ^ (r % 8)), as TMA writes it
+__device__ __forceinline__ int sw(int r, int col) {
+  return r * 128 + (((col >> 4) ^ (r & 7)) << 4) + (col & 15);
+}
+
+// byte of x's element k (0 .. ROWS) of row m (and half h) in a stage
+__device__ __forceinline__ int xsw(int h, int m, int k) {
+  return (h * (ROWS / XBOX) + k / XBOX) * MT * 128 + sw(m, (k % XBOX) * 2);
+}
+
+__device__ __forceinline__ uint32_t lds32(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t hsub2(uint32_t a, uint32_t b) {
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                             *reinterpret_cast<__nv_bfloat162*>(&b));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+__device__ __forceinline__ uint32_t hmul2(uint32_t a, uint32_t b) {
+  __nv_bfloat162 r = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                             *reinterpret_cast<__nv_bfloat162*>(&b));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// bytes 0 and 2 of p, int8 weights of rows k and k + 1: bf16x2 (exact)
+__device__ __forceinline__ uint32_t i8_pair(uint32_t p) {
+  const uint32_t v = (p & 0x007F007Fu) | 0x43004300u;  // 128 + (b & 127)
+  const uint32_t c = (p & 0x00800080u) | 0x43004300u;  // 128, or 256 where b < 0
+  return hsub2(v, c);
+}
+
+// the low nibbles of bytes 0 and 2 of q, a packed byte's two weights (low:
+// row k, high: row k + K/2): bf16x2 (exact)
+__device__ __forceinline__ uint32_t p4_pair(uint32_t q) {
+  // nibble ^ 8 = nibble + 8 (signed) into the mantissa of 128: 136 + nibble
+  const uint32_t v = ((q ^ 0x00080008u) & 0x000F000Fu) | 0x43004300u;
+  return hsub2(v, 0x43084308u);
+}
+
+// d += A B, m16n8k16, bf16 in, fp32 sums
+__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                    uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// one count on a stage's counter, ordered after this warp's reads of the
+// stage (release) and before the refill that the last count starts (acquire)
+__device__ __forceinline__ uint32_t count_out(uint32_t* cnt) {
+  uint32_t old;
+  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
+               : "=r"(old) : "r"(smem_u32(cnt)) : "memory");
+  return old;
+}
+
+struct Maps {
+  const CUtensorMap* w;
+  const CUtensorMap* x;
+  const CUtensorMap* s;
+};
+
+// Stage t into its slot, by one whole warp: the weight rows [r0, r0 + nr)
+// of the strip (boxes of 32 rows; rows past K read as zero), x's slice
+// [r0, r0 + ROWS) of the block's rows (of both halves, packed; past K or
+// K / 2 zero) and, for P4G, the scale rows of the one or two groups the
+// stage touches, all completing on the stage's barrier. What a tensor map
+// cannot take the warp loads itself, into the same layout, before lane 0
+// arrives.
+template <Form F>
+__device__ __forceinline__ void refill(unsigned char* smem, const Maps& maps, const Params& p,
+                                       int t, int kb, int ke, int col0, int m0) {
+  using L = Layout<F>;
+  const int lane = threadIdx.x % 32, slot = t % NSTAGE;
+  unsigned char* ws = smem + slot * W_STAGE;
+  unsigned char* xs = smem + L::X_OFF + slot * L::X_STAGE;
+  unsigned char* ss = smem + L::S_OFF + slot * L::S_STAGE;
+  const uint32_t bar = smem_u32(smem + L::BAR_OFF) + 8 * slot;
+  const int r0 = kb + t * ROWS, nr = min(ROWS, ke - r0);
+  const int boxes = (nr + BOX_ROWS - 1) / BOX_ROWS;
+  const int gh = p.rows / 128, g0 = r0 / 128;  // P4G: groups a half; the stage's first
+  if (!p.wtma) {
+    for (int c = lane; c < nr * (STRIP / 4); c += 32) {
+      const int r = c / (STRIP / 4), word = c % (STRIP / 4);
+      const int8_t* row = p.w + static_cast<long long>(r0 + r) * p.N;
+      uint32_t v = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int col = col0 + 4 * word + b;
+        if (col < p.N) v |= static_cast<uint32_t>(static_cast<uint8_t>(row[col])) << (8 * b);
+      }
+      *reinterpret_cast<uint32_t*>(ws + sw(r, 4 * word)) = v;
+    }
+  }
+  if (!p.xtma) {
+    for (int c = lane; c < L::HALVES * MT * ROWS; c += 32) {
+      const int h = c / (MT * ROWS), m = c / ROWS % MT, k = c % ROWS;
+      const bool in = m0 + m < p.M && r0 + k < p.rows;
+      *reinterpret_cast<bf16*>(xs + xsw(h, m, k)) =
+          in ? p.x[static_cast<long long>(m0 + m) * p.K + h * p.rows + r0 + k]
+             : __float2bfloat16(0.f);
+    }
+  }
+  if (F == Form::P4G && !p.stma) {
+    // rows j = 0, 1: the low half's groups g0 and + 1; j = 2, 3 the high
+    // half's, K / 256 groups further
+    for (int c = lane; c < 4 * STRIP; c += 32) {
+      const int j = c / STRIP, col = col0 + c % STRIP, grp = g0 + (j & 1) + (j >> 1) * gh;
+      reinterpret_cast<bf16*>(ss)[c] = (grp < 2 * gh && col < p.N)
+          ? p.s[static_cast<long long>(grp) * p.N + col] : __float2bfloat16(0.f);
+    }
+  }
+  __syncwarp();
+  if (lane == 0) {
+    const int xboxes = L::HALVES * (ROWS / XBOX);
+    const int bytes = (p.wtma ? boxes * BOX_ROWS * STRIP : 0) +
+                      (p.xtma ? xboxes * MT * 128 : 0) +
+                      (F == Form::P4G && p.stma ? 4 * STRIP * 2 : 0);
+    fence_proxy_async();  // the slot's reads by the warps before the copies' writes
+    mbar_arrive_tx(bar, bytes);
+    if (p.wtma)
+      for (int b = 0; b < boxes; ++b)
+        tma_load_2d(smem_u32(ws + b * BOX_ROWS * STRIP), maps.w, bar, col0, r0 + b * BOX_ROWS);
+    if (p.xtma) {
+      for (int b = 0; b < xboxes; ++b) {
+        const uint32_t dst = smem_u32(xs + b * MT * 128);
+        const int k = r0 + (b % (ROWS / XBOX)) * XBOX;
+        if (L::PACKED)
+          tma_load_3d(dst, maps.x, bar, k, b / (ROWS / XBOX), m0);
+        else
+          tma_load_2d(dst, maps.x, bar, k, m0);
+      }
+    }
+    if (F == Form::P4G && p.stma)
+      for (int j = 0; j < 4; ++j)
+        tma_load_2d(smem_u32(ss + j * STRIP * 2), maps.s, bar, col0,
+                    g0 + (j & 1) + (j >> 1) * gh);
+  }
+}
+
+// the scale pairs (low half's, high half's) of the lane's 8 columns for the
+// k-steps of stage row group j (0: the stage's first group, 1: the next)
+__device__ __forceinline__ void scale_pairs(const unsigned char* st_scales, int j, int col,
+                                            uint32_t (&sp)[8]) {
+  const bf16* sc = reinterpret_cast<const bf16*>(st_scales);
+  const uint4 lo = *reinterpret_cast<const uint4*>(sc + j * STRIP + col);
+  const uint4 hi = *reinterpret_cast<const uint4*>(sc + (2 + j) * STRIP + col);
+  const uint32_t l[4] = {lo.x, lo.y, lo.z, lo.w}, h[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) sp[e] = __byte_perm(l[e / 2], h[e / 2], (e & 1) ? 0x7632 : 0x5410);
+}
+
+template <Form F>
+__global__ void __launch_bounds__(NT, 2)
+    split_kernel(const __grid_constant__ CUtensorMap wmap,
+                 const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap smap, const Params p) {
+  using L = Layout<F>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  // every block of the cluster runs before any block writes into it; this
+  // half of the barrier completes while the weight streams
+  cluster_arrive_relaxed();
+
+  const int col0 = blockIdx.y * STRIP, m0 = blockIdx.z * MT;
+  const int mrows = min(MT, p.M - m0);
+  const int kb = min(p.rows, rank * p.share), ke = min(p.rows, kb + p.share);
+  const int nst = (ke - kb + ROWS - 1) / ROWS;
+  const Maps maps = {&wmap, &xmap, &smap};
+  float* rx = reinterpret_cast<float*>(smem + L::RX_OFF);
+  const uint32_t bars = smem_u32(smem + L::BAR_OFF);
+  uint32_t* cnt = reinterpret_cast<uint32_t*>(smem + L::CNT_OFF);
+  if (threadIdx.x < NSTAGE) {
+    mbar_init(bars + 8 * threadIdx.x, 1);
+    cnt[threadIdx.x] = 0;
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int half = warp % 2, band = warp / 2;
+  const int lcol = half * 64 + 8 * g;  // the lane's 8 columns of the strip
+  if (warp == 0)
+    for (int t = 0; t < min(nst, NSTAGE); ++t) refill<F>(smem, maps, p, t, kb, ke, col0, m0);
+
+  // the lane's rows 2 tq and 2 tq + 1 of a k-step in the swizzle: byte
+  // offsets from the k-step's first row (the chunk c ^ (row % 8) does not
+  // change with the k-step, which starts on a multiple of 8 rows)
+  const int wo0 = sw(2 * tq, lcol), wo1 = sw(2 * tq + 1, lcol);
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  uint32_t sp[8];  // P4G: scale pairs of the lane's columns
+  int sp_at = -1;  // P4G: (stage, group) they belong to
+
+  // one k-step at row kk of stage t: d += the lane's share of its products
+  auto kstep = [&](float (&d)[4][4], const unsigned char* ws, const unsigned char* xs, int t,
+                   int slot, int r0, int kk) {
+    const unsigned char* wrow = ws + kk * STRIP;
+    const uint2 w0 = *reinterpret_cast<const uint2*>(wrow + wo0);
+    const uint2 w1 = *reinterpret_cast<const uint2*>(wrow + wo1);
+    // x's k = kk + 2 tq (and + 8) of row g: 4 bytes of a 16-byte chunk
+    const unsigned char* xrow = xs + (kk / XBOX) * MT * 128 + g * 128 + 4 * tq;
+    const int chunk = (kk % XBOX) / 8;
+    if (F == Form::I8) {
+      const uint2 w8 = *reinterpret_cast<const uint2*>(wrow + 8 * STRIP + wo0);
+      const uint2 w9 = *reinterpret_cast<const uint2*>(wrow + 8 * STRIP + wo1);
+      const uint32_t b0 = lds32(xrow + ((chunk ^ g) << 4));
+      const uint32_t b1 = lds32(xrow + (((chunk + 1) ^ g) << 4));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // columns 8 g + 2 j and + 1: bytes 2 j % 4 and + 1 of word j / 2
+        const uint32_t sel = (j & 1) ? 0x7632 : 0x5410;
+        const uint32_t p01 = __byte_perm(j < 2 ? w0.x : w0.y, j < 2 ? w1.x : w1.y, sel);
+        const uint32_t p89 = __byte_perm(j < 2 ? w8.x : w8.y, j < 2 ? w9.x : w9.y, sel);
+        mma(d[j], i8_pair(p01), i8_pair(p01 >> 8), i8_pair(p89), i8_pair(p89 >> 8), b0, b1);
+      }
+    } else {
+      // k pairs tq and tq + 4 of the mma are packed rows kk + 2 tq and + 1,
+      // their low and high nibbles; B pairs x[k] with x[k + K/2] to match
+      const uint32_t xl = lds32(xrow + ((chunk ^ g) << 4));
+      const uint32_t xh = lds32(xrow + (ROWS / XBOX) * MT * 128 + ((chunk ^ g) << 4));
+      const uint32_t b0 = __byte_perm(xl, xh, 0x5410), b1 = __byte_perm(xl, xh, 0x7632);
+      if (F == Form::P4G) {
+        const int j = (r0 + kk) / 128 - r0 / 128;
+        if (t * 2 + j != sp_at) {  // the same in the whole warp
+          sp_at = t * 2 + j;
+          scale_pairs(smem + L::S_OFF + slot * L::S_STAGE, j, lcol, sp);
+        }
+      }
+      const uint32_t w04[2] = {w0.x >> 4, w0.y >> 4}, w14[2] = {w1.x >> 4, w1.y >> 4};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t sel = (j & 1) ? 0x7632 : 0x5410;
+        const uint32_t qa = __byte_perm(j < 2 ? w0.x : w0.y, w04[j / 2], sel);
+        const uint32_t qb = __byte_perm(j < 2 ? w1.x : w1.y, w14[j / 2], sel);
+        uint32_t a0 = p4_pair(qa), a1 = p4_pair(qa >> 8);
+        uint32_t a2 = p4_pair(qb), a3 = p4_pair(qb >> 8);
+        if (F == Form::P4G) {
+          a0 = hmul2(a0, sp[2 * j]);
+          a1 = hmul2(a1, sp[2 * j + 1]);
+          a2 = hmul2(a2, sp[2 * j]);
+          a3 = hmul2(a3, sp[2 * j + 1]);
+        }
+        mma(d[j], a0, a1, a2, a3, b0, b1);
+      }
+    }
+  };
+
+  for (int t = 0; t < nst; ++t) {
+    const int slot = t % NSTAGE;
+    mbar_wait(bars + 8 * slot, (t / NSTAGE) & 1);  // stage t is in
+    const unsigned char* ws = smem + slot * W_STAGE;
+    const unsigned char* xs = smem + L::X_OFF + slot * L::X_STAGE;
+    const int r0 = kb + t * ROWS, nr = min(ROWS, ke - r0);
+    float d[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < ROWS / L::STEP / BANDS; ++i) {
+      const int kk = (band + i * BANDS) * L::STEP;  // first row of the k-step in the stage
+      if (kk >= nr) break;  // the same in the whole warp
+      kstep(d, ws, xs, t, slot, r0, kk);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += d[j][e];
+    // count this warp out of the stage; the last one refills its slot
+    __syncwarp();
+    uint32_t old = 0;
+    if (lane == 0) old = count_out(cnt + slot);
+    old = __shfl_sync(0xffffffffu, old, 0);
+    if (old == WARPS - 1) {
+      if (lane == 0) cnt[slot] = 0;  // no warp counts on it before the refill lands
+      if (t + NSTAGE < nst) refill<F>(smem, maps, p, t + NSTAGE, kb, ke, col0, m0);
+    }
+  }
+
+  // the bands' sums meet in shared memory (the weight ring is free now) ...
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);  // [BANDS][MT][RED_STRIDE]
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // d[j]: A rows g, g + 8 (columns lcol + 2 j, + 1) x rows 2 tq, + 1 of x
+    float* r = red + (band * MT + 2 * tq) * RED_STRIDE + lcol + 2 * j;
+    r[0] = acc[j][0];
+    r[RED_STRIDE] = acc[j][1];
+    r[1] = acc[j][2];
+    r[RED_STRIDE + 1] = acc[j][3];
+  }
+  __syncthreads();
+  // ... then the ranks' in rank o's shared memory, o's slice of the strip
+  const int slice = (STRIP + C - 1) / C;
+  cluster_wait();
+  for (int i = threadIdx.x; i < mrows * STRIP; i += NT) {
+    const int m = i / STRIP, c = i % STRIP;
+    float v = 0.f;
+#pragma unroll
+    for (int b = 0; b < BANDS; ++b) v += red[(b * MT + m) * RED_STRIDE + c];
+    const int owner = c / slice;
+    *cluster.map_shared_rank(rx + (rank * MT + m) * slice + c - owner * slice, owner) = v;
+  }
+  cluster_arrive();
+  cluster_wait();  // after it no block touches another's shared memory
+  const int c0 = rank * slice, cn = max(0, min(slice, STRIP - c0));
+  for (int i = threadIdx.x; i < mrows * cn; i += NT) {
+    const int m = i / cn, c = i % cn, col = col0 + c0 + c;
+    if (col >= p.N) continue;
+    float v = 0.f;
+    for (int r = 0; r < C; ++r) v += rx[(r * MT + m) * slice + c];
+    if (F != Form::P4G) v *= __bfloat162float(p.s[col]);
+    const long long at = static_cast<long long>(m0 + m) * p.N + col;
+    if (p.out_f32)
+      static_cast<float*>(p.y)[at] = v;
+    else
+      static_cast<bf16*>(p.y)[at] = __float2bfloat16(v);
+  }
+}
+
+// Clusters of C blocks that can run at once, or a negative CUDA error.
+template <Form F>
+int clusters_at_once(int C) {
+  if (C < 1 || C > MAX_CLUSTER) return -static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = split_kernel<F>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Layout<F>::SMEM);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = Layout<F>::SMEM;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// a tiled tensor map of `rank` dims (innermost first; strides in bytes of
+// the outer dims) with boxes of `box`, or an error
+inline int tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                      const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
+  if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode_tiled()(map, type, rank, const_cast<void*>(base), dims, strides,
+                                    box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One launch: grid (C, strips, tiles of 8 rows of x), clusters of C along K.
+// share: weight rows a rank (from split_plan), a multiple of the k-step, C
+// shares covering the rows.
+template <Form F>
+int launch(Params p, int C, int share, cudaStream_t stream) {
+  using L = Layout<F>;
+  if (p.M < 1 || p.rows < 1 || p.N < 1 || C < 1 || C > MAX_CLUSTER || share < L::STEP ||
+      share % L::STEP || static_cast<long long>(C) * share < p.rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.share = share;
+  const auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  p.wtma = (p.N % 16 == 0 && aligned(p.w)) ? 1 : 0;
+  p.xtma = (p.rows % 8 == 0 && p.K % 8 == 0 && aligned(p.x)) ? 1 : 0;
+  p.stma = (F == Form::P4G && p.N % 8 == 0 && aligned(p.s)) ? 1 : 0;
+  CUtensorMap wmap, xmap, smap;
+  memset(&wmap, 0, sizeof(wmap));
+  memset(&xmap, 0, sizeof(xmap));
+  memset(&smap, 0, sizeof(smap));
+  int err = 0;
+  if (p.wtma) {  // the weight [rows, N] bytes: 128 columns x 32 rows a box
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.N), static_cast<cuuint64_t>(p.rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.N)};
+    const cuuint32_t box[2] = {STRIP, BOX_ROWS};
+    err = tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.w, dims, strides, box,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (err == 0 && p.xtma) {  // x [M, K] bf16, packed as [M][2][K/2]: 64 k x 8 rows a box
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(p.rows), 2, static_cast<cuuint64_t>(p.M)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(p.rows) * 2,
+                                   static_cast<cuuint64_t>(p.K) * 2};
+    const cuuint32_t box[3] = {XBOX, 1, MT};
+    if (L::PACKED) {
+      err = tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, p.x, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+    } else {
+      const cuuint64_t d2[2] = {static_cast<cuuint64_t>(p.K), static_cast<cuuint64_t>(p.M)};
+      const cuuint32_t b2[2] = {XBOX, MT};
+      err = tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.x, d2, strides + 1, b2,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+    }
+  }
+  if (err == 0 && p.stma) {  // the scales [K / 128, N] bf16: one group row of 128 columns a box
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.N),
+                                static_cast<cuuint64_t>(2 * (p.rows / 128))};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.N) * 2};
+    const cuuint32_t box[2] = {STRIP, 1};
+    err = tensor_map(&smap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.s, dims, strides, box,
+                     CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (err != 0) return err;
+  return launch_clusters(split_kernel<F>, C, (p.N + STRIP - 1) / STRIP, (p.M + MT - 1) / MT,
+                         NT, L::SMEM, stream, wmap, xmap, smap, p);
+}
+
+}  // namespace qsplit
+}  // namespace

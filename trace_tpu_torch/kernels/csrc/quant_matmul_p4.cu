@@ -22,12 +22,20 @@
 //
 // Two forms, chosen on M by the entry point:
 //   * M <= SMALL_M_MAX (a decode step): bound by bytes, K N / 2 of them
-//     streamed once. As in quant_matmul.cu: a block owns a strip of 512
-//     columns and a chunk of packed rows, its x rows (both halves) sit in
-//     shared memory as fp32, 8 warps take the chunk's rows in turn and
-//     multiply-add on the CUDA cores into 16 x rows registers; a second
-//     launch sums the chunks in a fixed order (no atomics: the same bits
-//     from run to run).
+//     streamed once for all rows of x. The P4 (per channel) and P4G
+//     (grouped) forms of qmm_split.cuh: one cluster launch per product with
+//     no workspace (the ranks along the packed rows exchange partial sums
+//     through distributed shared memory in rank order), long blocks in one
+//     wave, a five-stage TMA ring of 16 KB stages that no block barrier
+//     paces, and the products on the tensor cores (mma.sync m16n8k16): a
+//     byte's two nibbles are one k pair of A, met in B by x[k] and
+//     x[k + K/2], dequantized in bf16x2 arithmetic as the tensor-core form's
+//     producers do (136 + nibble minus 136, exact; grouped, times the scale
+//     pair, rounded once as the plain version's fp32 product rounded to
+//     bf16). Tensor cores and not FMAs on fp32 values: about 4.4 lane
+//     operations a packed byte (grouped) against ~12, which keeps the
+//     arithmetic under the byte time. ptxas (CUDA 12.8, sm_90a): 64 (per
+//     channel) and 90 (grouped) registers, no spills.
 //   * larger M (prefill): bound by operations, 2 M K N of them (a 7B layer's
 //     four products at M = 3886: 1.7 TFLOP, 1.7 ms at the card's bf16 peak).
 //     Only wgmma reaches that rate, and the weight has to become bf16 on the
@@ -66,228 +74,18 @@
 #include <string.h>
 
 #include "hopper_common.cuh"
+#include "qmm_split.cuh"
 
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int SMALL_M_MAX = 8;   // rows up to which the split-K form runs
-
-// ---- split-K form -------------------------------------------------------
-
-constexpr int NW = 8;            // warps per block
-constexpr int CPT = 16;          // columns per thread: one 16-byte load
-constexpr int STRIP = 32 * CPT;  // columns per block
-constexpr int KCH_MAX = 512;     // most packed rows of a chunk (x tile in shared memory)
-constexpr int KU = 4;            // packed rows a warp loads before it multiplies
-
-__device__ __forceinline__ void load16(const int8_t* row, int col0, int N,
-                                       int vec, unsigned (&w)[4]) {
-  if (vec) {
-    const uint4 v = *reinterpret_cast<const uint4*>(row + col0);
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      unsigned p = 0;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int c = col0 + 4 * i + b;
-        if (c < N) p |= static_cast<unsigned>(static_cast<uint8_t>(row[c])) << (8 * b);
-      }
-      w[i] = p;
-    }
-  }
-}
-
-// 16 bf16 scales of one group row as 8 packed pairs
-__device__ __forceinline__ void load_scales(const bf16* row, int col0, int N,
-                                            int vec, unsigned (&p)[8]) {
-  if (vec) {
-    const uint4 a = *reinterpret_cast<const uint4*>(row + col0);
-    const uint4 b = *reinterpret_cast<const uint4*>(row + col0 + 8);
-    p[0] = a.x; p[1] = a.y; p[2] = a.z; p[3] = a.w;
-    p[4] = b.x; p[5] = b.y; p[6] = b.z; p[7] = b.w;
-  } else {
-    const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c = col0 + 2 * i;
-      const unsigned lo = c < N ? r[c] : 0u;
-      const unsigned hi = c + 1 < N ? r[c + 1] : 0u;
-      p[i] = lo | (hi << 16);
-    }
-  }
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// s [G, N] for GROUPED (G = K / 128), unused otherwise (the finish launch
-// applies the per-column scale)
-template <int MT, bool GROUPED>
-__global__ void __launch_bounds__(NW * 32, 2)
-    p4_partial(const bf16* __restrict__ x, const int8_t* __restrict__ qp,
-               const bf16* __restrict__ s, float* __restrict__ ws, int M, int K,
-               int N, int kchunk, int vec) {
-  __shared__ float xs[2][MT][KCH_MAX];
-  __shared__ float red[MT][CPT][33];
-
-  const int Kh = K / 2;
-  const int strip = blockIdx.x, ks = blockIdx.y, m0 = blockIdx.z * MT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int kbeg = ks * kchunk;
-  const int klen = min(kchunk, Kh - kbeg);
-
-  for (int i = threadIdx.x; i < 2 * MT * klen; i += NW * 32) {
-    const int half = i / (MT * klen), rem = i % (MT * klen);
-    const int m = rem / klen, k = rem % klen;
-    xs[half][m][k] = (m0 + m < M)
-        ? __bfloat162float(x[static_cast<long long>(m0 + m) * K + half * Kh + kbeg + k])
-        : 0.f;
-  }
-  __syncthreads();
-
-  const int col0 = strip * STRIP + lane * CPT;
-  float acc[MT][CPT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[m][c] = 0.f;
-
-  if (col0 < N) {
-    int cur_group = -1;
-    unsigned slo[8], shi[8];  // the current groups' scales, bf16 pairs
-#pragma unroll
-    for (int i = 0; i < 8; ++i) slo[i] = shi[i] = 0u;
-    for (int k0 = warp; k0 < klen; k0 += NW * KU) {
-      unsigned w[KU][4];
-#pragma unroll
-      for (int u = 0; u < KU; ++u) {
-        const int k = k0 + u * NW;
-        if (k < klen) {
-          load16(qp + static_cast<long long>(kbeg + k) * N, col0, N, vec, w[u]);
-        } else {
-          w[u][0] = w[u][1] = w[u][2] = w[u][3] = 0u;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < KU; ++u) {
-        const int k = k0 + u * NW;
-        if (k >= klen) break;  // the same for every lane of the warp
-        if (GROUPED) {
-          const int group = (kbeg + k) >> 7;  // of the low half; the high half's is G / 2 further
-          if (group != cur_group) {
-            cur_group = group;
-            load_scales(s + static_cast<long long>(group) * N, col0, N, vec, slo);
-            load_scales(s + static_cast<long long>(group + (K >> 8)) * N, col0, N, vec, shi);
-          }
-        }
-        float xl[MT], xh[MT];
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          xl[m] = xs[0][m][k];
-          xh[m] = xs[1][m][k];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          // flip each nibble's sign bit: nibble + 8 in [0, 16), put into the
-          // mantissa of 2^23, minus (2^23 + 8): exact
-          const unsigned biased = w[u][i] ^ 0x88888888u;
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            const int c = 4 * i + b;
-            float lo = __uint_as_float(((biased >> (8 * b)) & 0xFu) | 0x4B000000u) - 8388616.f;
-            float hi = __uint_as_float(((biased >> (8 * b + 4)) & 0xFu) | 0x4B000000u) - 8388616.f;
-            if (GROUPED) {
-              const float sl = __uint_as_float((c & 1) ? (slo[c >> 1] & 0xFFFF0000u)
-                                                       : (slo[c >> 1] << 16));
-              const float sh = __uint_as_float((c & 1) ? (shi[c >> 1] & 0xFFFF0000u)
-                                                       : (shi[c >> 1] << 16));
-              lo = round_bf16(lo * sl);
-              hi = round_bf16(hi * sh);
-            }
-#pragma unroll
-            for (int m = 0; m < MT; ++m) {
-              acc[m][c] = fmaf(xl[m], lo, acc[m][c]);
-              acc[m][c] = fmaf(xh[m], hi, acc[m][c]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-  // merge the warps in a fixed order
-  for (int turn = 0; turn < NW; ++turn) {
-    if (warp == turn) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          if (turn == 0) red[m][c][lane] = acc[m][c];
-          else red[m][c][lane] += acc[m][c];
-        }
-    }
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < MT * STRIP; i += NW * 32) {
-    const int m = i / STRIP, c = i % STRIP;
-    const int col = strip * STRIP + c;
-    if (m0 + m < M && col < N)
-      ws[(static_cast<long long>(ks) * M + m0 + m) * N + col] = red[m][c % CPT][c / CPT];
-  }
-}
+constexpr int SMALL_M_MAX = 8;   // rows up to which the split form runs
 
 template <typename OUT> __device__ __forceinline__ OUT cast_out(float v);
 template <> __device__ __forceinline__ float cast_out<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 cast_out<bf16>(float v) {
   return __float2bfloat16(v);
-}
-
-// sums the chunks in order; s is the per-column scale, or null (grouped)
-template <typename OUT>
-__global__ void p4_finish(const float* __restrict__ ws, const bf16* __restrict__ s,
-                          OUT* __restrict__ y, int ksplit, long long MN, int N) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= MN) return;
-  float acc = 0.f;
-  for (int ks = 0; ks < ksplit; ++ks) acc += ws[ks * MN + idx];
-  if (s != nullptr) acc *= __bfloat162float(s[idx % N]);
-  y[idx] = cast_out<OUT>(acc);
-}
-
-template <int MT, bool GROUPED>
-int launch_partial(const bf16* x, const int8_t* qp, const bf16* s, float* ws, int M,
-                   int K, int N, int kchunk, int ksplit, int vec, cudaStream_t stream) {
-  const dim3 grid((N + STRIP - 1) / STRIP, ksplit, (M + MT - 1) / MT);
-  p4_partial<MT, GROUPED><<<grid, NW * 32, 0, stream>>>(x, qp, s, ws, M, K, N, kchunk, vec);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool GROUPED>
-int run_splitk(const bf16* x, const int8_t* qp, const bf16* s, void* y, float* ws,
-               int M, int K, int N, int kchunk, int out_f32, cudaStream_t stream) {
-  if (ws == nullptr || kchunk < 1 || kchunk > KCH_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int ksplit = (K / 2 + kchunk - 1) / kchunk;
-  const int vec = (N % 16 == 0 && reinterpret_cast<uintptr_t>(qp) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(s) % 16 == 0) ? 1 : 0;
-  int err;
-  if (M == 1) err = launch_partial<1, GROUPED>(x, qp, s, ws, M, K, N, kchunk, ksplit, vec, stream);
-  else if (M == 2) err = launch_partial<2, GROUPED>(x, qp, s, ws, M, K, N, kchunk, ksplit, vec, stream);
-  else err = launch_partial<4, GROUPED>(x, qp, s, ws, M, K, N, kchunk, ksplit, vec, stream);
-  if (err != 0) return err;
-  const long long MN = static_cast<long long>(M) * N;
-  const unsigned blocks = static_cast<unsigned>((MN + 255) / 256);
-  const bf16* col_scale = GROUPED ? nullptr : s;
-  if (out_f32)
-    p4_finish<float><<<blocks, 256, 0, stream>>>(ws, col_scale, static_cast<float*>(y), ksplit, MN, N);
-  else
-    p4_finish<bf16><<<blocks, 256, 0, stream>>>(ws, col_scale, static_cast<bf16*>(y), ksplit, MN, N);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- tensor-core form ---------------------------------------------------
@@ -681,13 +479,18 @@ int launch_tc(const TcParams& p, cudaStream_t stream) {
 }
 
 template <bool GROUPED>
-int run(const void* x, const int8_t* qp, const bf16* s, void* y, float* ws, int M,
-        int K, int N, int kchunk, int out_f32, cudaStream_t stream) {
+int run(const void* x, const int8_t* qp, const bf16* s, void* y, int M, int K, int N,
+        int cluster, int share, int out_f32, cudaStream_t stream) {
   if (M < 1 || K < 2 || K % 2 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (GROUPED && K % 256) return static_cast<int>(cudaErrorInvalidValue);
   const bf16* xb = static_cast<const bf16*>(x);
-  if (M <= SMALL_M_MAX)
-    return run_splitk<GROUPED>(xb, qp, s, y, ws, M, K, N, kchunk, out_f32, stream);
+  if (M <= SMALL_M_MAX) {
+    qsplit::Params p = {};
+    p.x = xb; p.w = qp; p.s = s; p.y = y;
+    p.M = M; p.K = K; p.N = N; p.rows = K / 2; p.out_f32 = out_f32;
+    return qsplit::launch<GROUPED ? qsplit::Form::P4G : qsplit::Form::P4>(p, cluster, share,
+                                                                         stream);
+  }
   TcParams p;
   p.x = xb; p.qp = qp; p.s = s; p.y = y;
   p.M = M; p.K = K; p.N = N;
@@ -699,49 +502,53 @@ int run(const void* x, const int8_t* qp, const bf16* s, void* y, float* ws, int 
 
 }  // namespace
 
-// M <= quant_matmul_p4_small_m_max() takes the split-K form: the caller
-// chooses kchunk (packed rows per block, at most quant_matmul_p4_kchunk_max)
-// and sizes the workspace ws [ceil(K / 2 / kchunk), M, N] fp32. Larger M
-// takes the tensor-core form and reads neither.
-extern "C" int quant_matmul_p4_small_m_max() { return SMALL_M_MAX; }
-extern "C" int quant_matmul_p4_kchunk_max() { return KCH_MAX; }
-extern "C" int quant_matmul_p4_strip() { return STRIP; }
+// M <= SMALL_M_MAX (8) takes the split form: one cluster launch, clusters of
+// `cluster` blocks along the K / 2 packed rows, each rank taking `share` of
+// them (a multiple of 8; cluster * share >= K / 2). Larger M takes the
+// tensor-core form and reads neither. Only y is written.
+
+// Clusters of `cluster` blocks of the split form that run at once, or a
+// negative CUDA error.
+extern "C" int quant_matmul_p4_clusters_at_once(int grouped, int cluster) {
+  return grouped ? qsplit::clusters_at_once<qsplit::Form::P4G>(cluster)
+                 : qsplit::clusters_at_once<qsplit::Form::P4>(cluster);
+}
 
 // per channel: qp [K/2, N], s [N]
-extern "C" int quant_matmul_p4_bf16(const void* x, const void* qp, const void* s,
-                                    void* y, float* ws, int M, int K, int N,
-                                    int kchunk, int out_f32, void* stream) {
-  return run<false>(x, static_cast<const int8_t*>(qp), static_cast<const bf16*>(s), y,
-                    ws, M, K, N, kchunk, out_f32, static_cast<cudaStream_t>(stream));
+extern "C" int quant_matmul_p4_bf16(const void* x, const void* qp, const void* s, void* y,
+                                    int M, int K, int N, int cluster, int share,
+                                    int out_f32, void* stream) {
+  return run<false>(x, static_cast<const int8_t*>(qp), static_cast<const bf16*>(s), y, M, K,
+                    N, cluster, share, out_f32, static_cast<cudaStream_t>(stream));
 }
 
 // grouped: qp [K/2, N], s [K / 128, N]
 extern "C" int quant_matmul_p4_grouped_bf16(const void* x, const void* qp, const void* s,
-                                            void* y, float* ws, int M, int K, int N,
-                                            int kchunk, int out_f32, void* stream) {
-  return run<true>(x, static_cast<const int8_t*>(qp), static_cast<const bf16*>(s), y,
-                   ws, M, K, N, kchunk, out_f32, static_cast<cudaStream_t>(stream));
+                                            void* y, int M, int K, int N, int cluster,
+                                            int share, int out_f32, void* stream) {
+  return run<true>(x, static_cast<const int8_t*>(qp), static_cast<const bf16*>(s), y, M, K,
+                   N, cluster, share, out_f32, static_cast<cudaStream_t>(stream));
 }
 
 // qp [L, K/2, N] and s [L, N] or [L, K / 128, N] whole; layer li is read in place
 extern "C" int quant_matmul_p4_stacked_bf16(const void* x, const void* qp, const void* s,
-                                            int li, int L, void* y, float* ws, int M,
-                                            int K, int N, int kchunk, int out_f32,
+                                            int li, int L, void* y, int M, int K, int N,
+                                            int cluster, int share, int out_f32,
                                             void* stream) {
   if (li < 0 || li >= L) return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* ql = static_cast<const int8_t*>(qp) + static_cast<long long>(li) * (K / 2) * N;
   const bf16* sl = static_cast<const bf16*>(s) + static_cast<long long>(li) * N;
-  return run<false>(x, ql, sl, y, ws, M, K, N, kchunk, out_f32,
+  return run<false>(x, ql, sl, y, M, K, N, cluster, share, out_f32,
                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int quant_matmul_p4_grouped_stacked_bf16(const void* x, const void* qp,
                                                     const void* s, int li, int L, void* y,
-                                                    float* ws, int M, int K, int N,
-                                                    int kchunk, int out_f32, void* stream) {
+                                                    int M, int K, int N, int cluster,
+                                                    int share, int out_f32, void* stream) {
   if (li < 0 || li >= L) return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* ql = static_cast<const int8_t*>(qp) + static_cast<long long>(li) * (K / 2) * N;
   const bf16* sl = static_cast<const bf16*>(s) + static_cast<long long>(li) * (K / 128) * N;
-  return run<true>(x, ql, sl, y, ws, M, K, N, kchunk, out_f32,
+  return run<true>(x, ql, sl, y, M, K, N, cluster, share, out_f32,
                    static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,292 @@
+"""The decode-step weight products (int8, packed int4 per channel and
+grouped, at up to 8 rows of x and the int8 form beyond) timed beside other
+builds of their sources, on the card.
+
+    python -m trace_tpu_torch.kernels.qmm_turns [--against NAME=PATH ...]
+
+Builds ``csrc/quant_matmul.cu`` and ``csrc/quant_matmul_p4.cu`` as they are
+(``this``) and the two sources of each directory named by ``--against`` (or
+of the directory of a ``.cu`` file named there: say an earlier commit's
+``csrc/``, unpacked with ``git archive`` into a gitignored directory with
+its ``*.cuh`` headers), loads each with ctypes, and times the 2-D entries at
+the shapes of ``chip_smoke.py`` phase 3: the four weights of a fused 7B
+layer (``wqkv`` 4096x6144, ``wo`` 4096x4096, ``w_gateup`` 4096x28672 with an
+fp32 output, ``w_down`` 14336x4096) at M = 2 (rows 5, 6 and 7 of PERF.md)
+and M = 8, the ``lm_head`` (4096x32000, fp32 output, row 4) at M = 2, and
+the int8 layer at M = 32, the bench's decode batch, which re-reads the
+weight for each 8 rows. A source with the older interface (it exports
+``quant_matmul_kchunk_max``) gets its workspace from the script, allocated
+once, outside the timed calls. CUDA events, median of 20 with the L2
+flushed before each run; the versions in turns, forward then backward
+(A B B A), so that a drift of the card shows as a spread and not as a
+difference. Every version is first held against the plain version (the
+limits of ``chip_smoke.py``: 1e-5 of the largest output, plus 2^-7
+relative for a bf16 output) and against a second run of itself, bit for
+bit. Beside the times: the byte bound (3.35 TB/s), ``torch.matmul`` on the
+weight dequantized to bf16 beforehand, each version's time with the L2
+flushed by a read of 256 MB instead of a write (so that the cache holds no
+dirty lines to write back while the product reads: the write flush of
+``chip_smoke.py`` adds up to 50 MB of write-back to every timed call), each
+product's device time as ``torch.profiler`` reads it (the kernels alone,
+without the launch), and ptxas's registers and spills of each kernel.
+
+Last, where the time of this tree's int8 product goes: it is built again
+with its k-steps cut out (``stream``: what is left is the copies, the
+ring's barriers and counters and the epilogue; its output is meaningless),
+and both are timed, read-flushed, at K = 4096, M = 2 and N = 16896, 28672
+and 33792 (132, 224 and 264 strips of 128 columns: the busiest SM takes two
+blocks of the plan at every N, of 256, 512 and 512 KB).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import shutil
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from trace_tpu_torch.kernels import quant_matmul as qmm
+from trace_tpu_torch.kernels.build import BUILD_DIR, CSRC
+from trace_tpu_torch.kernels.decode_int8_turns import build, median_ms
+from trace_tpu_torch.model.quantize import dequantize
+
+LAYER = ((4096, 6144, torch.bfloat16), (4096, 4096, torch.bfloat16),
+         (4096, 28672, torch.float32), (14336, 4096, torch.bfloat16))
+LM_HEAD = ((4096, 32000, torch.float32),)
+CASES = (  # label, form, M, shapes
+    ("row 5, int8 layer", "i8", 2, LAYER), ("row 6, p4 layer", "p4", 2, LAYER),
+    ("row 7, p4g layer", "p4g", 2, LAYER), ("row 4, int8 lm_head", "i8", 2, LM_HEAD),
+    ("int8 layer", "i8", 8, LAYER), ("p4 layer", "p4", 8, LAYER),
+    ("p4g layer", "p4g", 8, LAYER),
+    ("int8 layer at the bench's decode batch (not a row)", "i8", 32, LAYER))
+ENTRY = {"i8": ("i8", "quant_matmul_i8"), "p4": ("p4", "quant_matmul_p4_bf16"),
+         "p4g": ("p4", "quant_matmul_p4_grouped_bf16")}
+ATOL, HBM = 1e-5, 3.35e12
+_KSTEP = "      kstep(d, ws, xs, t, slot, r0, kk);"  # the consumers' work on a k-step
+BREAKDOWN = {"full": (), "stream": ((_KSTEP, "      (void)kk;"),)}
+BREAKDOWN_N = (16896, 28672, 33792)
+
+
+def old_kchunk(M, K, N, strip, kmax):
+    """The workspace interface's K chunk, as its wrapper chose it."""
+    blocks = -(-N // strip) * -(-M // 4)
+    ksplit = max(-(-(4 * 132) // blocks), -(-K // kmax))
+    ksplit = max(min(ksplit, -(-K // 64)), -(-K // kmax))
+    return -(-K // ksplit)
+
+
+def caller(lib, form, x, w, s, out_dtype):
+    """A function that launches ``lib``'s entry for ``form`` once into a
+    fixed output."""
+    M, K = x.shape
+    N = w.shape[1]
+    fn = getattr(lib, ENTRY[form][1])
+    fn.restype = ctypes.c_int
+    y = torch.empty((M, N), dtype=out_dtype, device="cuda")
+    ws = []
+    if hasattr(lib, "quant_matmul_clusters_at_once") or hasattr(
+            lib, "quant_matmul_p4_clusters_at_once"):
+        if form == "i8":
+            ask, lead = lib.quant_matmul_clusters_at_once, ()
+        else:
+            ask, lead = lib.quant_matmul_p4_clusters_at_once, (int(form == "p4g"),)
+        ask.restype = ctypes.c_int
+        fit = [0] + [ask(*lead, c) for c in range(1, qmm.SPLIT_MAX_CLUSTER + 1)]
+        plan = qmm.split_plan(M, K, N, form, fit.__getitem__)
+        tail = [M, K, N, plan.cluster, plan.share]
+        how = f"{plan.blocks} blocks, clusters of {plan.cluster}"
+    else:  # the workspace interface
+        packed = form != "i8"
+        const = (lib.quant_matmul_p4_strip, lib.quant_matmul_p4_kchunk_max) if packed else (
+            lib.quant_matmul_strip, lib.quant_matmul_kchunk_max)
+        for c in const:
+            c.restype = ctypes.c_int
+        rows = K // 2 if packed else K
+        kchunk = old_kchunk(M, rows, N, const[0](), const[1]())
+        ws = [torch.empty((-(-rows // kchunk), M, N), dtype=torch.float32, device="cuda")]
+        tail = [ws[0].data_ptr(), M, K, N, kchunk]
+        how = f"K chunks of {kchunk} + a finish launch"
+    args = [x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), *tail,
+            int(out_dtype == torch.float32), torch.cuda.current_stream().cuda_stream]
+    pointers = 4 + len(ws)
+    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * (len(args) - pointers - 1)
+                   + [ctypes.c_void_p])
+
+    def run():
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"{ENTRY[form][1]}: CUDA error {err} at launch")
+        return y
+
+    run.workspaces, run.how = ws, how  # alive as long as the caller
+    return run
+
+
+def operands(g, form, M, K, N):
+    """x, the weight bytes, the scale, the plain version and the weight
+    dequantized to bf16 (the yardstick's operand)."""
+    x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+    if form == "i8":
+        w = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+        s = (torch.rand((N,), generator=g, device="cuda") * 4e-4 + 1e-4).to(torch.bfloat16)
+        return x, w, s, qmm.quant_matmul_plain, (w.to(torch.bfloat16) * s).contiguous()
+    w = torch.randint(-128, 128, (K // 2, N), generator=g, device="cuda", dtype=torch.int8)
+    G = K // 128 if form == "p4g" else 1
+    s = (torch.rand((G, N), generator=g, device="cuda") * 4e-3 + 1e-3).to(torch.bfloat16)
+    dense = dequantize({"qp": w, "s": s})
+    if form == "p4":
+        return x, w, s.reshape(-1), qmm.quant_matmul_p4_plain, dense
+    return x, w, s, qmm.quant_matmul_p4_grouped_plain, dense
+
+
+def read_flushed_ms(fn, flush, reps: int = 20) -> float:
+    """Median CUDA-event time of fn, the L2 flushed before each run by a
+    read of the 256 MB buffer (clean lines only)."""
+    words = flush.view(torch.float32)
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.amax(words)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def breakdown_libs() -> dict[str, ctypes.CDLL]:
+    """This tree's quant_matmul.cu as it is and with its k-steps cut out,
+    each built beside its own copy of the headers."""
+    out = BUILD_DIR / "qmm_turns" / "breakdown"
+    sources = {}
+    for name, edits in BREAKDOWN.items():
+        d = out / name
+        d.mkdir(parents=True, exist_ok=True)
+        for f in [*CSRC.glob("*.cuh"), CSRC / "quant_matmul.cu"]:
+            shutil.copy(f, d)
+        text = (d / "qmm_split.cuh").read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: qmm_split.cuh no longer has one {old.strip()!r}")
+            text = text.replace(old, new)
+        (d / "qmm_split.cuh").write_text(text)
+        sources[name] = d / "quant_matmul.cu"
+    return build(sources, "qmm_turns/breakdown_libs")
+
+
+def device_ms(fn, flush, names: tuple, reps: int = 20) -> float:
+    """The mean time per call of the kernels whose names hold one of
+    ``names``, read by torch.profiler over reps calls (L2 flushed before
+    each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(n in e.name for n in names))
+    return us / 1e3 / reps
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", action="append", default=[], metavar="NAME=PATH")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("qmm_turns: no CUDA device", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    dirs = {"this": CSRC}
+    for item in args.against:
+        name, _, path = item.partition("=")
+        p = Path(path)
+        dirs[name] = p.parent if p.suffix == ".cu" else p
+    built = build({f"{name}_{src}": d / f"quant_matmul{'' if src == 'i8' else '_p4'}.cu"
+                   for name, d in dirs.items() for src in ("i8", "p4")}, "qmm_turns", ptxas=True)
+    libs = {src: {name: built[f"{name}_{src}"] for name in dirs} for src in ("i8", "p4")}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    kernel_names = ("split_kernel", "qmm_partial", "qmm_finish", "p4_partial", "p4_finish")
+    profiled = []
+    for label, form, M, shapes in CASES:
+        total = {name: [0.0, 0.0] for name in dirs}
+        clean = dict.fromkeys(dirs, 0.0)
+        lib_ms = bound_ms = 0.0
+        for K, N, out_dtype in shapes:
+            x, w, s, plain, dense = operands(g, form, M, K, N)
+            ref = plain(x, w, s, out_dtype).float()
+            unit = ref.abs().max()
+            rtol = 2 ** -7 if out_dtype == torch.bfloat16 else ATOL
+            runs = {name: caller(lib, form, x, w, s, out_dtype)
+                    for name, lib in libs[ENTRY[form][0]].items()}
+            for name, run in runs.items():
+                got = run().clone()
+                again = run()
+                torch.cuda.synchronize()
+                excess = ((got.float() - ref).abs() / unit - ATOL - rtol * ref.abs() / unit
+                          ).max().item()
+                if excess > 0 or not torch.equal(got, again):
+                    print(f"qmm_turns: {name} {form} M = {M} {K}x{N} disagrees with the plain "
+                          f"version (excess {excess:.3e}) or with itself", flush=True)
+                    return 1
+            order = list(runs) + list(runs)[::-1]
+            times = {name: [] for name in runs}
+            for name in order:
+                times[name].append(median_ms(runs[name], flush))
+            read = {name: read_flushed_ms(run, flush) for name, run in runs.items()}
+            lib_t = median_ms(lambda: torch.matmul(x, dense), flush)
+            nbytes = x.numel() * 2 + w.numel() + s.numel() * 2 + M * N * (
+                4 if out_dtype == torch.float32 else 2)
+            b = nbytes / HBM * 1e3
+            lib_ms, bound_ms = lib_ms + lib_t, bound_ms + b
+            print(f"{label}: M = {M}, {K}x{N}: bound {b:.4f} ms, library {lib_t:.4f} ms; "
+                  + "; ".join(f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ms "
+                              f"({runs[name].how})" for name, ts in times.items())
+                  + "; read-flushed " + ", ".join(f"{name} {t:.4f} ms" for name, t in read.items()),
+                  flush=True)
+            for name, ts in times.items():
+                total[name] = [a + t for a, t in zip(total[name], ts)]
+                clean[name] += read[name]
+            if M == 2:
+                profiled.append((f"{form} M = {M} {K}x{N}", runs, min(times["this"])))
+            del x, w, s, dense, ref, runs
+        print(f"{label}: M = {M}, the shapes together: bound {bound_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms; " + "; ".join(
+                  f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ms "
+                  f"({100 * bound_ms / min(ts):.1f} % of the bound)"
+                  for name, ts in total.items())
+              + "; read-flushed " + ", ".join(f"{name} {t:.4f} ms ({100 * bound_ms / t:.1f} %)"
+                                              for name, t in clean.items()), flush=True)
+    # device time, after every library has run (a profiler session may miss
+    # the kernels of a library first launched after an earlier one ended)
+    for what, runs, event_ms in profiled:
+        print(f"device time {what}: " + "; ".join(
+            f"{name} {device_ms(run, flush, kernel_names):.4f} ms" for name, run in runs.items())
+            + f" (CUDA events, this: {event_ms:.4f} ms)", flush=True)
+    libs = breakdown_libs()
+    for N in BREAKDOWN_N:
+        x, w, s, _, _ = operands(g, "i8", 2, 4096, N)
+        runs = {name: caller(lib, "i8", x, w, s, torch.float32) for name, lib in libs.items()}
+        print(f"where the time goes, int8 M = 2, 4096x{N} ({w.numel() / 1e6:.1f} MB, "
+              f"{runs['full'].how}), read-flushed: " + "; ".join(
+                  f"{name} {read_flushed_ms(run, flush):.4f} ms" for name, run in runs.items()),
+              flush=True)
+        del x, w, s, runs
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,9 +18,13 @@ entries) are the weight-only products of nibble-packed int4 leaves ``{'qp',
 's'}``: byte ``qp[k, n]`` holds weight rows ``k`` (low nibble) and ``k + K/2``
 (high nibble). Per channel (``s`` [N]) the scale multiplies the fp32 sum once;
 grouped (``s`` [K / 128, N]) each weight is ``nibble * s`` rounded to x's
-dtype before the product. Each kernel has a split-K form for a few rows of x
-(a decode step, bound by bytes) and a tensor-core form beyond (prefill, bound
-by operations); ``launches`` counts both, ``launches_by_form`` each.
+dtype before the product. Each kernel has a split-K form for up to 8 rows of
+x (a decode step, bound by bytes) and a tensor-core form beyond (prefill,
+bound by operations); ``launches`` counts both, ``launches_by_form`` each.
+
+Every wrapper makes one launch that allocates only its output: the split-K
+forms reduce over K inside a cluster of blocks (``split_plan``), so a call
+can be captured in a CUDA graph.
 
 The W8A8 product (``quantize_acts`` + ``quant_apply_w8a8``: prefill and ViT
 projections) is a plain s8 x s8 -> s32 matrix product, which the JAX package
@@ -33,6 +37,7 @@ per-channel packed leaf takes it as two products over its nibble halves
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -40,8 +45,15 @@ from trace_tpu_torch.model.quantize import unpack4
 
 _SOURCE = "quant_matmul.cu"
 _SOURCE_P4 = "quant_matmul_p4.cu"
-_TARGET_BLOCKS = 4 * 132  # a few blocks per SM of an H100
-_MIN_KCHUNK = 64
+# the split form's launch (csrc/qmm_split.cuh: STRIP, MT, MAX_CLUSTER,
+# Layout<F>::SMEM); a rank takes at least one stage of rows
+SPLIT_STRIP = 128
+SPLIT_ROWS = 8
+SPLIT_MAX_CLUSTER = 8
+SPLIT_MIN_SHARE = 128
+SPLIT_SMEM = {"i8": 97500, "p4": 107740, "p4g": 112860}
+_ENTRIES: dict = {}  # C entry name -> its declared ctypes function
+_FIT: dict = {}      # (form, device index) -> clusters the card holds at once
 
 
 def _check_impl(impl: str) -> None:
@@ -86,13 +98,39 @@ def quant_matmul_plain(x, q, s, out_dtype=None):
     return y.to(out_dtype or x.dtype)
 
 
-def split_k(M: int, K: int, N: int, strip: int, kchunk_max: int) -> int:
-    """Rows of K per block: enough (strip, chunk, row tile) blocks to fill
-    the card, a chunk no longer than the kernel's x tile."""
-    blocks = -(-N // strip) * -(-M // 4)
-    ksplit = max(-(-_TARGET_BLOCKS // blocks), -(-K // kchunk_max))
-    ksplit = max(min(ksplit, -(-K // _MIN_KCHUNK)), -(-K // kchunk_max))
-    return -(-K // ksplit)
+class SplitPlan(NamedTuple):
+    """One launch of a split weight product (csrc/qmm_split.cuh): a grid of
+    ``cluster x strips x row_tiles`` blocks, clusters of ``cluster`` blocks
+    along the weight rows, rank r taking rows [r share, (r + 1) share)."""
+
+    cluster: int    # blocks of a cluster, one per share of the weight rows
+    share: int      # weight rows (packed rows) a rank, a multiple of its k-step
+    strips: int     # clusters across N, SPLIT_STRIP columns each
+    row_tiles: int  # tiles of SPLIT_ROWS rows of x, each reading the weight
+    smem: int       # bytes of shared memory a block
+
+    @property
+    def blocks(self) -> int:
+        return self.cluster * self.strips * self.row_tiles
+
+
+def split_plan(M: int, K: int, N: int, form: str, clusters_at_once) -> SplitPlan:
+    """The launch of a split weight product (``form``: "i8", "p4" or "p4g")
+    for x [M, K]: the largest cluster (up to the portable 8, each rank at
+    least SPLIT_MIN_SHARE rows) whose clusters all run at once,
+    ``clusters_at_once(c)`` being how many clusters of c blocks the card
+    holds; a cluster of 1 where none does. Shares are whole k-steps (16 int8
+    rows, 8 packed rows)."""
+    rows, step = (K, 16) if form == "i8" else (K // 2, 8)
+    strips, row_tiles = -(-N // SPLIT_STRIP), -(-M // SPLIT_ROWS)
+    cluster = 1
+    for c in range(min(SPLIT_MAX_CLUSTER, -(-rows // SPLIT_MIN_SHARE)), 1, -1):
+        if strips * row_tiles <= clusters_at_once(c):
+            cluster = c
+            break
+    per_rank = -(-rows // cluster)
+    share = -(-per_rank // step) * step
+    return SplitPlan(cluster, share, strips, row_tiles, SPLIT_SMEM[form])
 
 
 def _check_operands(entry: str, x, q, s, out_dtype) -> None:
@@ -108,24 +146,56 @@ def _check_operands(entry: str, x, q, s, out_dtype) -> None:
             raise ValueError(f"{entry}: {name} must be contiguous on {x.device}")
 
 
-def _launch(entry: str, x, q, s, lead_args, M, K, N, out_dtype):
-    from trace_tpu_torch.kernels.build import check, load
+def _entry(source: str, name: str, lead: int):
+    """The C entry ``name`` of ``source``, its ctypes signature declared once:
+    x, weight, scale, ``lead`` ints, y, M, K, N, cluster, share, out_f32,
+    stream."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        from trace_tpu_torch.kernels.build import load
+
+        fn = getattr(load(source), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * lead + [ctypes.c_void_p]
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        _ENTRIES[name] = fn
+    return fn
+
+
+def _plan(form: str, M: int, K: int, N: int, device) -> SplitPlan:
+    """``split_plan`` for the card of ``device``; how many clusters of each
+    size its split kernel holds at once is asked once per form and card."""
+    key = (form, device.index)
+    fit = _FIT.get(key)
+    if fit is None:
+        from trace_tpu_torch.kernels.build import load
+
+        if form == "i8":
+            ask, lead = load(_SOURCE).quant_matmul_clusters_at_once, ()
+        else:
+            ask, lead = load(_SOURCE_P4).quant_matmul_p4_clusters_at_once, (int(form == "p4g"),)
+        ask.restype = ctypes.c_int
+        ask.argtypes = [ctypes.c_int] * (len(lead) + 1)
+        with torch.cuda.device(device):
+            fit = [0] + [ask(*lead, c) for c in range(1, SPLIT_MAX_CLUSTER + 1)]
+        if min(fit) < 0:
+            raise RuntimeError(f"{form} split kernel: CUDA error {-min(fit)} asking its occupancy")
+        _FIT[key] = fit
+    return split_plan(M, K, N, form, fit.__getitem__)
+
+
+def _launch(source: str, entry: str, x, q, s, lead_args, M, K, N, out_dtype, plan=None):
+    """One launch of a weight-product entry point: the split form with
+    ``plan``, else (the packed entries' tensor-core form) none. Only y is
+    allocated."""
+    from trace_tpu_torch.kernels.build import check
 
     _check_operands(entry, x, q, s, out_dtype)
-    lib = load(_SOURCE)
-    fn = getattr(lib, entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * len(lead_args)
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    for const in (lib.quant_matmul_strip, lib.quant_matmul_kchunk_max):
-        const.restype, const.argtypes = ctypes.c_int, []
-    kchunk = split_k(M, K, N, lib.quant_matmul_strip(), lib.quant_matmul_kchunk_max())
+    fn = _entry(source, entry, len(lead_args))
     y = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    ws = torch.empty((-(-K // kchunk), M, N), dtype=torch.float32, device=x.device)
-    err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), *lead_args,
-             y.data_ptr(), ws.data_ptr(), M, K, N, kchunk,
-             int(out_dtype == torch.float32),
-             torch.cuda.current_stream(x.device).cuda_stream)
+    err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), *lead_args, y.data_ptr(), M, K, N,
+             plan.cluster if plan else 0, plan.share if plan else 0,
+             int(out_dtype == torch.float32), torch.cuda.current_stream(x.device).cuda_stream)
     check(err, entry)
     return y
 
@@ -145,8 +215,9 @@ def quant_matmul(
         raise ValueError(f"shapes x {tuple(x.shape)} q {tuple(q.shape)} s {tuple(s.shape)}")
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_plain(x, q, s, out_dtype)
-    y = _launch("quant_matmul_i8", x, q, s.reshape(-1), (), M, K, q.shape[1],
-                out_dtype or x.dtype)
+    N = q.shape[1]
+    y = _launch(_SOURCE, "quant_matmul_i8", x, q, s.reshape(-1), (), M, K, N,
+                out_dtype or x.dtype, _plan("i8", M, K, N, x.device))
     quant_matmul.launches += 1
     return y
 
@@ -176,8 +247,8 @@ def quant_matmul_stacked(
     s = s.reshape(L, N)
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_plain(x, q[li], s[li], out_dtype)
-    y = _launch("quant_matmul_stacked_i8", x, q, s, (int(li), L), M, K, N,
-                out_dtype or x.dtype)
+    y = _launch(_SOURCE, "quant_matmul_stacked_i8", x, q, s, (int(li), L), M, K, N,
+                out_dtype or x.dtype, _plan("i8", M, K, N, x.device))
     quant_matmul_stacked.launches += 1
     return y
 
@@ -204,36 +275,14 @@ def quant_matmul_p4_grouped_plain(x, qp, s, out_dtype=None):
     return y.to(out_dtype or x.dtype)
 
 
-def _launch_p4(entry: str, x, qp, s, lead_args, M, K, N, out_dtype):
+def _launch_p4(entry: str, x, qp, s, lead_args, M, K, N, out_dtype, grouped: bool):
     """One launch of a packed-int4 entry point of csrc/quant_matmul_p4.cu;
-    returns (y, form): the split-K form up to the kernel's small-M limit
-    (its workspace allocated here), the tensor-core form beyond."""
-    from trace_tpu_torch.kernels.build import check, load
-
-    _check_operands(entry, x, qp, s, out_dtype)
-    lib = load(_SOURCE_P4)
-    fn = getattr(lib, entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * len(lead_args)
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    for const in (lib.quant_matmul_p4_small_m_max, lib.quant_matmul_p4_strip,
-                  lib.quant_matmul_p4_kchunk_max):
-        const.restype, const.argtypes = ctypes.c_int, []
-    y = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    if M <= lib.quant_matmul_p4_small_m_max():
-        form = "splitk"
-        kchunk = split_k(M, K // 2, N, lib.quant_matmul_p4_strip(),
-                         lib.quant_matmul_p4_kchunk_max())
-        ws = torch.empty((-(-(K // 2) // kchunk), M, N), dtype=torch.float32, device=x.device)
-        ws_ptr = ws.data_ptr()
-    else:
-        form, kchunk, ws_ptr = "mma", 0, None
-    err = fn(x.data_ptr(), qp.data_ptr(), s.data_ptr(), *lead_args,
-             y.data_ptr(), ws_ptr, M, K, N, kchunk,
-             int(out_dtype == torch.float32),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    check(err, entry)
-    return y, form
+    returns (y, form): the split form up to SPLIT_ROWS rows of x, the
+    tensor-core form beyond."""
+    if M > SPLIT_ROWS:
+        return _launch(_SOURCE_P4, entry, x, qp, s, lead_args, M, K, N, out_dtype), "mma"
+    plan = _plan("p4g" if grouped else "p4", M, K, N, x.device)
+    return _launch(_SOURCE_P4, entry, x, qp, s, lead_args, M, K, N, out_dtype, plan), "splitk"
 
 
 def _count(fn, form: str) -> None:
@@ -270,7 +319,7 @@ def quant_matmul_p4(
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_p4_plain(x, qp, s, out_dtype)
     y, form = _launch_p4("quant_matmul_p4_bf16", x, qp, s.reshape(-1), (),
-                         x.shape[0], x.shape[1], N, out_dtype or x.dtype)
+                         x.shape[0], x.shape[1], N, out_dtype or x.dtype, False)
     _count(quant_matmul_p4, form)
     return y
 
@@ -297,7 +346,7 @@ def quant_matmul_p4_stacked(
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_p4_plain(x, qp[li], s[li], out_dtype)
     y, form = _launch_p4("quant_matmul_p4_stacked_bf16", x, qp, s, (int(li), L),
-                         x.shape[0], x.shape[1], N, out_dtype or x.dtype)
+                         x.shape[0], x.shape[1], N, out_dtype or x.dtype, False)
     _count(quant_matmul_p4, form)
     return y
 
@@ -327,7 +376,7 @@ def quant_matmul_p4_grouped(
     if s.shape[0] * 128 != K:
         raise ValueError(f"the kernel wants groups of 128 rows, got G={s.shape[0]} for K={K}")
     y, form = _launch_p4("quant_matmul_p4_grouped_bf16", x, qp, s, (),
-                         x.shape[0], K, N, out_dtype or x.dtype)
+                         x.shape[0], K, N, out_dtype or x.dtype, True)
     _count(quant_matmul_p4_grouped, form)
     return y
 
@@ -356,7 +405,7 @@ def quant_matmul_p4_grouped_stacked(
     if s.shape[1] * 128 != K:
         raise ValueError(f"the kernel wants groups of 128 rows, got G={s.shape[1]} for K={K}")
     y, form = _launch_p4("quant_matmul_p4_grouped_stacked_bf16", x, qp, s, (int(li), L),
-                         x.shape[0], K, N, out_dtype or x.dtype)
+                         x.shape[0], K, N, out_dtype or x.dtype, True)
     _count(quant_matmul_p4_grouped, form)
     return y
 
