@@ -36,7 +36,25 @@ Phases, in order; any failure exits non-zero:
      (group 0) int4p tree at a depth of 4 layers (W4A8 prefill, the
      per-channel kernel in the steps), and one request of it without
      activation quantization (the per-channel kernel in the prefill too).
-  5. the training path at full width: ``train_loop`` on TRACE-7B bf16 (random
+  5. the bench's default serving workload (bench.py's defaults) through the
+     port's entry points at full width: TRACE-7B in the int8 serving
+     configuration with the W8A8 ViT and ``upload_format="yuv420"``, random
+     weights from seed 0, ``SpmLikeTokenizer``; a pool of 4 synthetic
+     640x360 128-frame videos prepared with ``prepare_sample_host_np`` before
+     timing and cycled through a corpus of 64 (two decode chunks):
+     ``infer_events_corpus`` at decode batch 32, prefill sub-batches of 2,
+     encode batches of 2 and a 512-token arena, once two-phase with 256 new
+     tokens (pass A), once streamed with 512 (pass B). Per pass videos/s,
+     ``last_corpus_stats``, ms per decode step at B = 32 and the launches of
+     rows 1, 2, 3b, 4 and 5; peak memory; one B = 32 decode step under
+     torch.profiler. Checks: (a) pass A's tokens are the first 256 of pass
+     B's, row for row; (b) ``i420_band_to_patches`` on the card against the
+     CPU (bf16: one step, in at most 1e-3 of the elements); (c) the
+     first-token logits of pass A's first prefill sub-batch: the kernel path
+     no further from an fp32 model of the dequantized weights than
+     REF_RATIO_TOL x the plain path; (d) each of those rows launched, no
+     plain version called on the card.
+  6. the training path at full width: ``train_loop`` on TRACE-7B bf16 (random
      weights from seed 0, 2 synthetic 128-frame videos with one event list
      each, batch 2, remat on) for stage ``pretrain`` and stage ``lora``
      (rank 128 on the seven decoder projections), then stage ``sft`` at a
@@ -50,7 +68,8 @@ Phases, in order; any failure exits non-zero:
      against the same with every kernel replaced by its plain version and
      against an fp32 model of the same weights: the loss and the gradients of
      the connector, the towers and decoder layer 0.
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]} (each entry also holds
+``launches_corpus``, its count in phase 5's pass A); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it prints no result and exits 2. ``--kernels`` stops
 after phase 3 (a short check of freshly edited kernels; no last line).
@@ -1048,6 +1067,271 @@ def end_to_end(torch, mode: str):
                              "prefill_profile": prefill_profile}
 
 
+CORPUS_VIDEOS = 64      # two decode chunks of CORPUS_BATCH
+CORPUS_POOL = 4         # distinct videos, prepared before the passes, cycled
+CORPUS_BATCH = 32       # the bench's decode batch
+CORPUS_BUDGET = 512     # the arena's new-token budget, shared by both passes
+CORPUS_PASSES = (("A", False, 256), ("B", True, 512))  # name, streamed, new tokens
+CORPUS_HW = (360, 640)  # a 16:9 source, as the bench sends it
+CORPUS_ASK = ("Localize a series of activity events in the video, output the start "
+              "and end timestamp for each event, and describe each event with sentences.")
+CORPUS_ROWS = ("flash_attention", "vit_attention_btd", "decode_attention_int8_s8dot",
+               "quant_matmul", "quant_matmul_stacked")
+# (b): the card's patches against the CPU's, bf16, the limits of
+# tests/test_torch_yuv.py: one bf16 step of the value (2^-7 |value|, plus the
+# fp32 difference of 2e-6 for values near 0) at most, in at most
+# PATCH_FLIP_SHARE of the elements
+PATCH_F32_TOL = 2e-6
+PATCH_FLIP_SHARE = 1e-3
+
+
+def watch_plain(torch):
+    """Wrap every plain version of a kernel wrapper in its module so that a
+    call with a CUDA tensor is counted; returns (counts, undo)."""
+    from trace_tpu_torch.kernels import decode_attention as da
+    from trace_tpu_torch.kernels import flash_attention as fa
+    from trace_tpu_torch.kernels import quant_matmul as qm
+
+    names = {fa: ("xla_attention", "vit_attention_btd_reference"),
+             da: ("grouped_attention", "decode_attention_bf16",
+                  "decode_attention_int8_s8dot", "decode_attention_int8_dequant"),
+             qm: ("quant_matmul_plain", "quant_matmul_p4_plain",
+                  "quant_matmul_p4_grouped_plain")}
+    counts, saved = {}, []
+
+    def watched(orig, name):
+        def wrapped(*a, **k):
+            if any(torch.is_tensor(x) and x.is_cuda for x in a):
+                counts[name] += 1
+            return orig(*a, **k)
+        return wrapped
+
+    for mod, fns in names.items():
+        for name in fns:
+            saved.append((mod, name, getattr(mod, name)))
+            counts[name] = 0
+            setattr(mod, name, watched(getattr(mod, name), name))
+    # the int8 decode wrapper reaches its plain bodies through a table
+    saved_table = dict(da._PLAIN_INT8)
+    for mode, fn in saved_table.items():
+        da._PLAIN_INT8[mode] = watched(fn, fn.__name__)
+
+    def undo():
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+        da._PLAIN_INT8.update(saved_table)
+    return counts, undo
+
+
+def corpus_phase(torch):
+    """Phase 5: the bench's default serving workload through the port's
+    entry points (``prepare_sample_host_np`` -> ``infer_events_corpus``) at
+    full width, with checks (a)-(d) of the module docstring."""
+    import numpy as np
+
+    from trace_tpu_torch import EventPredictions
+    from trace_tpu_torch.kernels.decode_attention import decode_attention
+    from trace_tpu_torch.kernels.flash_attention import flash_attention, vit_attention_btd
+    from trace_tpu_torch.kernels.quant_matmul import quant_matmul, quant_matmul_stacked
+    from trace_tpu_torch.model.config import TraceConfig
+    from trace_tpu_torch.model.mistral import compute_logits
+    from trace_tpu_torch.model.quantize import int8_serving
+    from trace_tpu_torch.params import init_trace_params
+    from trace_tpu_torch.runtime import generate as gen
+    from trace_tpu_torch.runtime.pipeline import TracePipeline
+    from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
+    from trace_tpu_torch.video.preprocess import i420_band_to_patches
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(TraceConfig(), upload_format="yuv420")
+    params, cfg = int8_serving(
+        init_trace_params(cfg, torch.Generator(device="cuda").manual_seed(SEED)), cfg)
+    torch.cuda.synchronize()
+    pipe = TracePipeline(params, cfg, SpmLikeTokenizer())
+    del params
+    rng = np.random.default_rng(SEED)
+    ts = [[round(i * 1.7, 1)] for i in range(FRAMES)]
+    t1 = time.perf_counter()
+    pool = [pipe.prepare_sample_host_np(
+        rng.integers(0, 256, (FRAMES,) + CORPUS_HW + (3,), dtype=np.uint8), ts, CORPUS_ASK)
+        for _ in range(CORPUS_POOL)]
+    prep_s = time.perf_counter() - t1
+    spec = pool[0].frames_spec
+    if spec[0] != "yuv_band_p":
+        fail(f"corpus: a 640x360 video took route {spec[0]!r}, not the band patches")
+    print(f"corpus: int8 TRACE-7B (yuv420) ready in {t1 - t0:.1f} s; {CORPUS_POOL} videos "
+          f"{CORPUS_HW[1]}x{CORPUS_HW[0]} x {FRAMES} frames prepared on the host in "
+          f"{prep_s:.2f} s ({spec[1].nbytes / 1e6:.2f} MB of I420 band each, "
+          f"{len(pool[0].token_ids)} prompt tokens)", flush=True)
+
+    # (b) the band's patches on the card against the same function on the CPU
+    yuv, top, left, fill, size, patch = spec[1:]
+    ref = i420_band_to_patches(torch.from_numpy(yuv), top, left, torch.from_numpy(fill),
+                               size, patch, cfg.dtype).float()
+    got = i420_band_to_patches(torch.from_numpy(yuv).cuda(), top, left,
+                               torch.from_numpy(fill).cuda(), size, patch, cfg.dtype)
+    diff = (got.float().cpu() - ref).abs()
+    over = (diff - 2 ** -7 * ref.abs() - PATCH_F32_TOL).max().item()
+    flips = (diff != 0).float().mean().item()
+    patch_check = {"max_diff": diff.max().item(), "share_differing": flips}
+    print(f"corpus check (b): card patches {tuple(got.shape)} vs CPU: max diff "
+          f"{diff.max().item():.3g}, share differing {flips:.2e} (limits: one bf16 step "
+          f"+ {PATCH_F32_TOL}, share <= {PATCH_FLIP_SHARE})", flush=True)
+    if over > 0 or flips > PATCH_FLIP_SHARE:
+        fail("corpus (b): i420_band_to_patches on the card disagrees with the CPU")
+    del ref, got, diff
+
+    fns = (flash_attention, vit_attention_btd, decode_attention, quant_matmul,
+           quant_matmul_stacked)
+    calls: dict = {}   # pass -> [(tokens, decode_steps)] per chunk, in order
+    captured: dict = {}
+    orig = gen.generate_split
+    current = {"pass": None}
+
+    def recording(*a, **k):
+        if current["pass"] == "A" and "prefix" not in captured:
+            pb = k["prefill_batch"]
+            captured["prefix"] = a[2][0][:pb].clone()  # the list hands it over
+            captured["mask"] = a[3][:pb].clone()
+        out = orig(*a, **k)
+        calls.setdefault(current["pass"], []).append((out.tokens, out.decode_steps))
+        captured["arena"], captured["mask_last"] = out.cache, a[3]
+        return out
+
+    stats, plain_calls = {}, {}
+    gen.generate_split = recording
+    plain_counts, undo = watch_plain(torch)
+    try:
+        for name, streamed, new in CORPUS_PASSES:
+            current["pass"] = name
+            for fn in fns:
+                fn.launches = 0
+            for m in decode_attention.launches_int8:
+                decode_attention.launches_int8[m] = 0
+            plain_counts.update(dict.fromkeys(plain_counts, 0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            preds = pipe.infer_events_corpus(
+                lambda i: pool[i % CORPUS_POOL], CORPUS_VIDEOS, encode_batch=2,
+                decode_batch=CORPUS_BATCH, prefill_batch=2, max_new_tokens=new,
+                token_budget=CORPUS_BUDGET, streamed=streamed)
+            wall = time.perf_counter() - t0
+            s = dict(pipe.last_corpus_stats)
+            steps = sum(n for _, n in calls[name])
+            got_launches = {"flash_attention": flash_attention.launches,
+                            "vit_attention_btd": vit_attention_btd.launches,
+                            "decode_attention_int8_s8dot": decode_attention.launches_int8["s8dot"],
+                            "quant_matmul": quant_matmul.launches,
+                            "quant_matmul_stacked": quant_matmul_stacked.launches}
+            s.update(wall_s=wall, videos_per_s=CORPUS_VIDEOS / wall, decode_steps=steps,
+                     ms_per_step=1e3 * s["decode_loop_s"] / max(steps, 1),
+                     launches=got_launches, new_tokens=new)
+            stats[name] = s
+            plain_calls[name] = {k: v for k, v in plain_counts.items() if v}
+            print(f"corpus pass {name} ({'streamed' if streamed else 'two-phase'}, {new} new "
+                  f"tokens, decode batch {CORPUS_BATCH}, prefill 2, encode 2): "
+                  f"{CORPUS_VIDEOS} videos in {wall:.2f} s = {s['videos_per_s']:.4f} videos/s; "
+                  f"encode_s {s['encode_s']}, prefill_s {s['prefill_s']}, decode_loop_s "
+                  f"{s['decode_loop_s']}, decode_s {s['decode_s']}, prefix_tokens "
+                  f"{s['prefix_tokens']}; {steps} decode steps at B = {CORPUS_BATCH}, "
+                  f"{s['ms_per_step']:.2f} ms/step; launches {got_launches}; plain versions "
+                  f"on the card: {plain_calls[name] or 'none'}", flush=True)
+            if len(preds) != CORPUS_VIDEOS or not all(isinstance(p, EventPredictions)
+                                                      for p in preds):
+                fail(f"corpus pass {name}: outputs do not parse into EventPredictions")
+            for toks, _ in calls[name]:
+                check_head_slices(cfg.decoder, toks)
+    finally:
+        gen.generate_split = orig
+        undo()
+
+    serving_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # (a) pass A's tokens are the first tokens of pass B's streams
+    a_tok = np.concatenate([t for t, _ in calls["A"]])
+    b_tok = np.concatenate([t for t, _ in calls["B"]])
+    new_a = CORPUS_PASSES[0][2]
+    same = a_tok[:, :new_a] == b_tok[:, :new_a]
+    print(f"corpus check (a): {len(calls['A'])} + {len(calls['B'])} chunks; pass A's "
+          f"{new_a} tokens equal pass B's first {new_a} in {int(same.all(1).sum())} of "
+          f"{len(a_tok)} rows", flush=True)
+    if a_tok.shape != b_tok.shape or not same.all() or (a_tok[:, new_a:] != gen.PAD_OUTPUT_ID).any():
+        fail("corpus (a): two-phase pass A and streamed pass B disagree")
+
+    # (d) every row of the path launched, no plain version on the card
+    for name, s in stats.items():
+        idle = [r for r in CORPUS_ROWS if s["launches"][r] <= 0]
+        if idle or plain_calls[name]:
+            fail(f"corpus (d): pass {name}: rows {idle} not launched, plain versions "
+                 f"{plain_calls[name]} on the card")
+
+    # one B = 32 decode step from the arena as pass B left it: the prefix
+    # bucket and 511 generated slots visible, the last slot free
+    arena, mask_last = captured.pop("arena"), captured.pop("mask_last")
+    dec = pipe._decoder_params
+    S = arena["kq"].shape[3]
+    cache_mask = torch.zeros((CORPUS_BATCH, S), dtype=torch.bool, device="cuda")
+    cache_mask[:, :mask_last.shape[1]] = mask_last
+    cache_mask[:, mask_last.shape[1]:S - 1] = True
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    last = (torch.randn((CORPUS_BATCH, cfg.decoder.hidden_size), generator=g, device="cuda")
+            .to(cfg.dtype))
+    next_pos = cache_mask.sum(dim=1).int()
+    step = decode_step_fn(torch, pipe, cfg.decoder, (arena, cache_mask, last, next_pos))
+    walls = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    _, step_profile = device_profile(torch, f"corpus decode step (B={CORPUS_BATCH}, S={S})",
+                                     step)
+    step_profile["wall_ms"] = 1e3 * statistics.median(walls[1:])
+    print(f"corpus decode step (B={CORPUS_BATCH}): {step_profile['wall_ms']:.2f} ms wall "
+          "(median of 5, synchronised)", flush=True)
+    del arena, cache_mask, step
+
+    # (c) the first prefill sub-batch of pass A: first-token logits of the
+    # kernel path, the plain path and an fp32 model of the dequantized weights
+    prefix, mask = captured.pop("prefix"), captured.pop("mask")
+    fcfg = dataclasses.replace(cfg.decoder, kv_cache_dtype="bf16", act_quant=False)
+    logits = {}
+    for what, p, c, impl in (("kernel", dec, cfg.decoder, "auto"),
+                             ("plain", dec, cfg.decoder, "plain"),
+                             ("fp32", None, fcfg, "plain")):
+        if p is None:
+            p = dequantized_fp32(dec)
+        x = prefix.float() if what == "fp32" else prefix
+        state = gen._prefill(p, c, x, mask, cache_len=prefix.shape[1] + 1, impl=impl)
+        logits[what] = compute_logits(p, state[2], impl=impl)
+        del state, p
+    heads = gen.head_mask_table(cfg.decoder, "cuda")[1]
+    first = (logits["kernel"] + heads).argmax(-1).cpu().numpy()
+    if not np.array_equal(first, a_tok[:len(first), 0]):
+        fail(f"corpus (c): recomputed first tokens {first} are not pass A's "
+             f"{a_tok[:len(first), 0]}")
+    errs = {"kernel_vs_plain": rel_err(logits["kernel"], logits["plain"]),
+            "kernel_vs_fp32": rel_err(logits["kernel"], logits["fp32"]),
+            "plain_vs_fp32": rel_err(logits["plain"], logits["fp32"])}
+    print(f"corpus check (c): first-token logits of pass A's first prefill sub-batch "
+          f"({tuple(prefix.shape)}): kernel vs plain {errs['kernel_vs_plain']:.5f}, kernel "
+          f"vs fp32 {errs['kernel_vs_fp32']:.5f}, plain vs fp32 {errs['plain_vs_fp32']:.5f} "
+          f"(tol: kernel vs fp32 <= {REF_RATIO_TOL} x plain vs fp32)", flush=True)
+    if not errs["kernel_vs_fp32"] <= REF_RATIO_TOL * errs["plain_vs_fp32"]:
+        fail("corpus (c): the kernel path is further from the fp32 reference than the plain path")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"corpus: peak {serving_peak:.2f} GiB allocated on the card through both passes, "
+          f"{peak:.2f} GiB with check (c)'s fp32 decoder", flush=True)
+    del pipe, logits, prefix
+    torch.cuda.empty_cache()
+    launches = {r: stats["A"]["launches"][r] for r in CORPUS_ROWS}
+    return launches, {"passes": stats, "prep_s": prep_s, "peak_gib": serving_peak,
+                      "peak_gib_with_check": peak, "logits": errs,
+                      "decode_step": step_profile, "patch_check": patch_check}
+
+
 TRAIN_STEPS = 4
 SFT_LAYERS = 4   # depth of the sft run and of the gradient check
 LORA_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -1159,7 +1443,7 @@ def train_params(torch, stage: str, layers: int):
 def train_stage(torch, stage: str, layers: int, data: "SyntheticVideos", tmp: Path):
     """One stage through ``train_loop``: a 1-step run, a 2-step run and the
     timed TRAIN_STEPS-step run, each from a fresh optimizer on the same
-    parameters, with the checks of phase 5."""
+    parameters, with the checks of phase 6."""
     from trace_tpu_torch.train.train import TrainRecipe, make_train_step, param_group, \
         build_optimizer, train_loop, tree_paths
 
@@ -1363,7 +1647,7 @@ def gradient_check(torch, params, cfg, data) -> dict:
 
 
 def training(torch, tmp: Path):
-    """Phase 5: stages pretrain and lora at full depth, sft at SFT_LAYERS
+    """Phase 6: stages pretrain and lora at full depth, sft at SFT_LAYERS
     layers, then the gradient check on the sft model."""
     from trace_tpu_torch.model.config import TraceConfig
     from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
@@ -1421,14 +1705,9 @@ def device_profile(torch, label: str, fn, top: int = 8, watch: tuple = ()):
                  "top": [[name[:80], ms, n] for name, (ms, n) in ranked], "watched": watched}
 
 
-def profile_decode_step(torch, pipe, dec, state, mode: str) -> dict:
+def decode_step_fn(torch, pipe, dec, state):
     """One decode step of the kernel path (decoder, combined logits, argmax)
-    from a prefilled cache: its wall time (median of 5, synchronised), and
-    under torch.profiler the CUDA kernels it launches and the share of the
-    step's wall time (profiled, so the host side is slowed) in which the
-    device runs one."""
-    from torch.profiler import ProfilerActivity, profile
-
+    from a prefilled cache ``state`` whose last slot is free."""
     from trace_tpu_torch.model.mistral import compute_logits, decoder_forward
 
     params = pipe._decoder_params
@@ -1442,7 +1721,18 @@ def profile_decode_step(torch, pipe, dec, state, mode: str) -> dict:
                                ones, next_pos[:, None], cache=cache, cache_index=slot,
                                cache_mask=cache_mask)
         return compute_logits(params, h[:, -1]).argmax(-1)
+    return step
 
+
+def profile_decode_step(torch, pipe, dec, state, mode: str) -> dict:
+    """One decode step of the kernel path (``decode_step_fn``): its wall time
+    (median of 5, synchronised), and under torch.profiler the CUDA kernels it
+    launches and the share of the step's wall time (profiled, so the host
+    side is slowed) in which the device runs one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    last = state[2]
+    step = decode_step_fn(torch, pipe, dec, state)
     walls = []
     for _ in range(6):
         t0 = time.perf_counter()
@@ -1509,6 +1799,9 @@ def main() -> int:
             if n:
                 launches.setdefault(name, n)  # of the first path that runs the kernel
         stats += mode_stats
+    corpus_launches, corpus = corpus_phase(torch)
+    for name, n in corpus_launches.items():
+        launches.setdefault(name, n)
     with tempfile.TemporaryDirectory() as tmp:  # the loops' metrics logs
         train_launches, train_stats, grad_check = training(torch, Path(tmp))
     for name, n in train_launches.items():
@@ -1558,13 +1851,15 @@ def main() -> int:
          "replaces": sources[name][1], "launches": launches.get(name, 0),
          "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"],
+         # the corpus phase's own count (pass A), beside the first path's
+         "launches_corpus": corpus_launches.get(name, 0)}
         for name, r in rows.items()
     ]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
         fail(f"no path launched {idle}")
-    print(json.dumps({"requests": stats, "e2e": e2e, "training": train_stats,
+    print(json.dumps({"requests": stats, "e2e": e2e, "corpus": corpus, "training": train_stats,
                       "gradient_check": grad_check, "card": card,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)

@@ -988,3 +988,202 @@ def test_split_product_allocates_only_its_output(cuda, form):
     assert torch.cuda.max_memory_allocated() - before == out.untyped_storage().nbytes()
     del out
     assert torch.cuda.memory_allocated() == before
+
+
+# ---------------------------------------------------------------------------
+# The bench's serving path: yuv420 preprocessing on the card, the prefill /
+# decode split over an int8 cache, and corpus inference across threads.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_to_patches_on_the_card_matches_cpu(cuda, dtype):
+    """i420_band_to_patches on the card against the same function on the
+    CPU, at the serving shape of one 640x360 video's band (T = 16). The
+    limits are those of tests/test_torch_yuv.py: fp32 within 2e-6 (a few
+    ulps: the card divides by a scalar through its reciprocal); bf16 within
+    one step, in at most 1e-3 of the elements."""
+    from trace_tpu_torch.video import preprocess as pre
+
+    frames = np.random.default_rng(40).integers(0, 256, (16, 360, 640, 3), dtype=np.uint8)
+    band, top, left = pre.host_downscale_band(frames, 336)
+    yuv = torch.from_numpy(pre.rgb_to_i420_np(band))
+    fill = torch.from_numpy(pre.i420_fill_rgb01(pre.pad_fill_u8()))
+    want = pre.i420_band_to_patches(yuv, top, left, fill, 336, 14, dtype).float()
+    got = pre.i420_band_to_patches(yuv.to(cuda), top, left, fill.to(cuda), 336, 14, dtype)
+    assert got.is_cuda and got.dtype == dtype and got.shape == (16, 576, 588)
+    diff = (got.float().cpu() - want).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 2e-6
+    else:
+        assert (diff <= 2 ** -7 * want.abs() + 2e-6).all()
+        assert (diff != 0).float().mean().item() <= 1e-3
+
+
+def _int8_model(cuda, layers: int, frames: int):
+    """Full-width TRACE-7B at ``layers`` decoder layers (and the full ViT),
+    random weights, in the int8 serving configuration."""
+    import dataclasses
+
+    from trace_tpu_torch.model.config import TraceConfig
+    from trace_tpu_torch.model.quantize import int8_serving
+    from trace_tpu_torch.params import init_trace_params
+
+    cfg = TraceConfig()
+    cfg = dataclasses.replace(cfg, num_frames=frames, upload_format="yuv420",
+                              decoder=dataclasses.replace(cfg.decoder, num_layers=layers))
+    params = init_trace_params(cfg, torch.Generator(device=cuda).manual_seed(7))
+    return int8_serving(params, cfg)
+
+
+# generate_split at two full-width int8 layers, kernels against plain. With
+# random weights the greedy streams of two computations that differ by
+# rounding part at the first near-tie (the smoke records kernel and plain
+# streams agreeing for 0 to 13 tokens at 32 layers), and int8 rounding
+# amplifies such differences (the largest logit of the two paths differs by
+# ~0.2 of the logits' RMS here). So the test steps the kernel path, the plain
+# path and an fp32 model of the dequantized weights on the kernel path's
+# tokens (teacher forcing) and holds, as chip_smoke.py does: the kernel
+# path's logits no further from the fp32 model's than REF_RATIO_TOL x the
+# plain path's (over all steps); the greedy token the same as the plain
+# path's wherever the plain top-two margin exceeds twice the step's largest
+# kernel-plain difference; and generate_split's tokens those of the stepped
+# kernel path.
+REF_RATIO_TOL = 1.5
+
+
+def _fp32_decoder(dec: dict) -> dict:
+    """A fused int8 decoder tree as dense fp32 weights, q * s exactly."""
+    from trace_tpu_torch.model.quantize import is_quantized, unfuse_decoder_serving
+
+    def dense(leaf):
+        if is_quantized(leaf):
+            q, sc = leaf["q"], leaf["s"]
+            if q.ndim == 2:
+                return q.float() * sc.float()
+            return torch.stack([q[li].float() * sc[li].float() for li in range(q.shape[0])])
+        if isinstance(leaf, dict):
+            return {k: dense(v) for k, v in leaf.items()}
+        return leaf.float()
+
+    return dense(unfuse_decoder_serving(dec))
+
+
+@pytest.mark.cuda
+def test_generate_split_int8_kernels_match_plain(cuda):
+    """W8A8 prefill in sub-batches of 2 into one arena, int8 cache,
+    weight-only steps, against plain and fp32 (see above); a second call on
+    the returned arena repeats the tokens bit for bit."""
+    import dataclasses
+
+    from trace_tpu_torch.kernels.decode_attention import decode_attention
+    from trace_tpu_torch.model.mistral import compute_logits, decoder_forward, init_kv_cache
+    from trace_tpu_torch.model.quantize import fuse_decoder_serving
+    from trace_tpu_torch.model.trace_model import combined_embedding
+    from trace_tpu_torch.runtime import generate as gen
+
+    params, cfg = _int8_model(cuda, layers=2, frames=4)
+    c = cfg.decoder
+    table = combined_embedding(params)
+    dec = dict(params["decoder"])
+    dec.pop("embed")
+    dec = fuse_decoder_serving(dec)
+    B, P, new, budget = 4, 384, 24, 32
+    rng = np.random.default_rng(41)
+    prefix = torch.from_numpy(_normal(rng, B, P, c.hidden_size)).to(cuda, torch.bfloat16)
+    mask = torch.ones((B, P), dtype=torch.bool, device=cuda)
+    mask[1, :40] = False
+    kw = dict(prefill_batch=2, max_new_tokens=new, token_budget=budget, eos_id=-5)
+    before = decode_attention.launches_int8["s8dot"]
+    got = gen.generate_split(dec, c, prefix, mask, table, **kw)
+    assert decode_attention.launches_int8["s8dot"] - before == c.num_layers * got.decode_steps
+    assert got.decode_steps == new - 1 and (got.tokens[:, new:] == gen.PAD_OUTPUT_ID).all()
+    again = gen.generate_split(dec, c, prefix, mask, table, cache=got.cache, **kw)
+    assert again.cache is got.cache
+    np.testing.assert_array_equal(again.tokens, got.tokens)
+
+    S = P + budget
+    fcfg = dataclasses.replace(c, kv_cache_dtype="bf16", act_quant=False)
+    paths = {"kernel": (dec, c, "auto", torch.bfloat16),
+             "plain": (dec, c, "plain", torch.bfloat16),
+             "fp32": (_fp32_decoder(dec), fcfg, "plain", torch.float32)}
+    state = {}
+    for name, (p, cc, impl, dt) in paths.items():
+        cache = init_kv_cache(cc, B, S, dtype=dt, device=cuda)
+        cm, last, npos = gen._prefill_into(p, cc, cache, prefix.to(dt), mask, prefill_batch=2,
+                                           cache_len=S, impl=impl)
+        state[name] = [cache, cm, last]
+    heads = torch.full((B,), 1, dtype=torch.long, device=cuda)
+    masks = gen.head_mask_table(c, cuda)
+    ones = torch.ones((B, 1), dtype=torch.bool, device=cuda)
+    sq = {"kernel": 0.0, "plain": 0.0}
+    for step in range(new):
+        raw = {name: compute_logits(paths[name][0], st[2], impl=paths[name][2])
+               for name, st in state.items()}
+        for name in sq:
+            sq[name] += (raw[name] - raw["fp32"]).square().sum().item()
+        diff = (raw["kernel"] - raw["plain"]).abs().max().item()
+        tok = (raw["kernel"] + masks[heads]).argmax(-1)
+        plain = raw["plain"] + masks[heads]
+        top2 = plain.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * diff
+        assert (tok == plain.argmax(-1))[clear].all(), step
+        np.testing.assert_array_equal(tok.cpu().numpy(), got.tokens[:, step])
+        heads = gen.swap_heads(c, heads, tok)
+        if step == new - 1:
+            break
+        slot = P + step
+        for name, st in state.items():
+            p, cc, impl, dt = paths[name]
+            h, _ = decoder_forward(p, cc, table[tok][:, None].to(dt), ones,
+                                   (npos + step)[:, None], cache=st[0], cache_index=slot,
+                                   cache_mask=st[1], impl=impl)
+            st[1][:, slot] = True
+            st[2] = h[:, -1]
+    assert sq["kernel"] ** 0.5 <= REF_RATIO_TOL * sq["plain"] ** 0.5, sq
+
+
+@pytest.mark.cuda
+def test_streamed_corpus_matches_two_phase_on_the_card(cuda):
+    """infer_events_corpus streamed (a decode thread prefills and decodes
+    each chunk while the producer threads upload and the calling thread
+    encodes the next) against two-phase, at two full-width int8 layers with
+    the full W8A8 ViT and 640x360 yuv420 videos: the same tokens, row for
+    row, and every path's kernels launched. Run on a side stream, which the
+    corpus's threads must follow."""
+    from trace_tpu_torch.runtime import generate as gen
+    from trace_tpu_torch.runtime.pipeline import TracePipeline
+    from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
+
+    params, cfg = _int8_model(cuda, layers=2, frames=8)
+    pipe = TracePipeline(params, cfg, SpmLikeTokenizer())
+    rng = np.random.default_rng(42)
+    ts = [[float(i)] for i in range(cfg.num_frames)]
+    pool = [pipe.prepare_sample_host_np(
+        rng.integers(0, 256, (cfg.num_frames, 360, 640, 3), dtype=np.uint8), ts,
+        "Localize the visual events in the video and describe each one.") for _ in range(3)]
+    assert pool[0].frames_spec[0] == "yuv_band_p"
+    tokens = {}
+    orig = gen.generate_split
+
+    def keep(*a, **k):
+        out = orig(*a, **k)
+        tokens.setdefault(run, []).append(out.tokens)
+        return out
+
+    gen.generate_split = keep
+    try:
+        kw = dict(encode_batch=2, decode_batch=4, prefill_batch=2, max_new_tokens=16,
+                  token_budget=24)
+        side = torch.cuda.Stream()
+        for run in ("streamed", "two_phase"):
+            with torch.cuda.stream(side):
+                pipe.infer_events_corpus(lambda i: pool[i % 3], 12,
+                                         streamed=run == "streamed", **kw)
+            assert pipe.last_corpus_stats["streamed"] is (run == "streamed")
+    finally:
+        gen.generate_split = orig
+    assert len(tokens["streamed"]) == len(tokens["two_phase"]) == 3
+    for a, b in zip(tokens["streamed"], tokens["two_phase"]):
+        np.testing.assert_array_equal(a, b)

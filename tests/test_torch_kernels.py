@@ -287,3 +287,37 @@ def test_int8_decode_cpu_counts_no_launch_and_refuses_unknown_mode():
     assert decode_attention.launches_int8 == before
     with pytest.raises(ValueError):
         _torch_int8_decode(q, cache, 0, bias, "fp8")
+
+
+def test_launch_counts_lose_nothing_across_threads():
+    """The wrappers count their launches through ``count_launch``, which the
+    corpus's encode and decode threads call at once: more threads than
+    cores and a short switch interval lose no count."""
+    import os
+    import sys
+    import threading
+
+    from trace_tpu_torch.kernels.build import count_launch
+
+    def fn():
+        pass
+
+    fn.launches = 0
+    fn.by_mode = {"a": 0}
+    threads, per = 2 * (os.cpu_count() or 2), 2000
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(per):
+                count_launch(fn)
+                count_launch(fn, "by_mode", "a")
+        pool = [threading.Thread(target=work) for _ in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(interval)
+    assert fn.launches == fn.by_mode["a"] == threads * per

@@ -107,19 +107,26 @@ def test_spm_like_tokenizer_matches_jax():
     assert t.decode(t.encode(text)) == j.decode(j.encode(text))
 
 
-def test_unported_host_paths_raise(pipes):
-    import dataclasses
-
-    _, tpipe = pipes
-    frames = np.zeros((2, 56, 56, 3), np.uint8)
-    tp = from_jax_params(jax.tree.map(np.asarray, _jax_params()))
-    yuv = TracePipeline(tp, dataclasses.replace(CFG, upload_format="yuv420"),
-                        ByteTokenizer(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        yuv.infer_events_from_frames(frames, [[0.0], [1.0]], "q", max_new_tokens=2)
-    big = np.zeros((2, 120, 120, 3), np.uint8)  # would need the cv2 downscale
-    with pytest.raises(NotImplementedError):
-        tpipe.infer_events_from_frames(big, [[0.0], [1.0]], "q", max_new_tokens=2)
+def test_large_rgb_frames_match_jax(pipes):
+    """rgb frames larger than 1.3 S^2 are downscaled on the host first (the
+    bicubic of video/preprocess.py in place of OpenCV's), then preprocessed
+    on the device: the same events and tokens as the JAX package's."""
+    jpipe, tpipe = pipes
+    rng = np.random.default_rng(4)
+    T = CFG.num_frames
+    frames = [rng.integers(0, 256, (T, 90, 120, 3), dtype=np.uint8),
+              rng.integers(0, 256, (T, 130, 70, 3), dtype=np.uint8)]
+    ts = [[[float(i)] for i in range(T)]] * 2
+    qs = ["Find the events.", "What happens?"]
+    jprefix, jmask = jpipe._prepare_prefix_batch(frames, ts, qs)
+    tprefix, _ = tpipe.encode_prefix(frames, ts, qs)
+    np.testing.assert_allclose(tprefix.numpy(), np.asarray(jprefix), rtol=2e-5, atol=2e-5)
+    want = jpipe.infer_events_batch(frames, ts, qs, max_new_tokens=40)
+    got = tpipe.infer_events_batch(frames, ts, qs, max_new_tokens=40)
+    assert [g.to_dict() for g in got] == [w.to_dict() for w in want]
+    jtok = jgen.generate(jpipe._decoder_params, JCFG.decoder, jprefix, jmask,
+                         jpipe._combined, max_new_tokens=40, initial_head=1)
+    np.testing.assert_array_equal(tpipe.last_stats["tokens"], jtok.tokens)
 
 
 def test_pipeline_defaults_to_cuda():
@@ -146,7 +153,7 @@ def test_port_never_imports_jax_or_the_jax_package():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "optax", "orbax", "trace_tpu"), \
+                assert top not in ("jax", "jaxlib", "optax", "orbax", "trace_tpu", "cv2"), \
                     f"{path}: imports {name}"
 
 
@@ -159,7 +166,7 @@ def test_importing_the_port_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'orbax', 'trace_tpu'))\n"
+        "('jax', 'jaxlib', 'optax', 'orbax', 'trace_tpu', 'cv2'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )

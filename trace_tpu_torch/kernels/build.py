@@ -92,6 +92,21 @@ def load(source: str) -> ctypes.CDLL:
         return lib
 
 
+_COUNTS = threading.Lock()
+
+
+def count_launch(fn, table: str = None, key=None) -> None:
+    """One launch of ``fn``'s kernel: ``fn.launches`` (or, with ``table``,
+    ``getattr(fn, table)[key]``) plus one, under a lock, so that threads
+    launching at once (the corpus's encode and decode threads) lose no
+    count."""
+    with _COUNTS:
+        if table is None:
+            fn.launches += 1
+        else:
+            getattr(fn, table)[key] += 1
+
+
 def check(err: int, name: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:

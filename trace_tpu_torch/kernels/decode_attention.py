@@ -33,6 +33,8 @@ import ctypes
 
 import torch
 
+from trace_tpu_torch.kernels.build import count_launch
+
 _SOURCE = "decode_attention.cu"
 _SOURCE_INT8 = "decode_attention_int8.cu"
 INT8_MODES = ("s8dot", "dequant")
@@ -158,7 +160,7 @@ def _decode_attention_int8(q, cache: dict, bias_row, mode: str, impl: str):
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check(err, f"decode_attn_int8_{mode}")
-    decode_attention.launches_int8[mode] += 1
+    count_launch(decode_attention, "launches_int8", mode)
     return o
 
 
@@ -209,7 +211,7 @@ def decode_attention(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check(err, "decode_attn_bf16")
-    decode_attention.launches += 1
+    count_launch(decode_attention)
     return o
 
 

@@ -34,6 +34,8 @@ from typing import Optional
 
 import torch
 
+from trace_tpu_torch.kernels.build import count_launch
+
 NEG_INF = -1e30
 _SOURCE = "attention.cu"
 
@@ -143,7 +145,7 @@ def flash_attention(
         v_strides=v.stride()[:3], o_strides=o.stride()[:3],
         bias_stride=Tk,
     )
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return o
 
 
@@ -199,7 +201,7 @@ def vit_attention_btd(
         q_strides=bht(q), k_strides=bht(k), v_strides=bht(v),
         o_strides=bht(o), bias_stride=0,
     )
-    vit_attention_btd.launches += 1
+    count_launch(vit_attention_btd)
     return o
 
 

@@ -50,6 +50,7 @@ from typing import Optional
 
 import torch
 
+from trace_tpu_torch.kernels.build import count_launch
 from trace_tpu_torch.kernels.flash_attention import (
     NEG_INF,
     _check_causal_operands,
@@ -114,7 +115,7 @@ def flash_attention_fwd_res(
         v_strides=v.stride()[:3], o_strides=o.stride()[:3],
         bias_stride=Tk, lse=lse,
     )
-    flash_attention_fwd_res.launches += 1
+    count_launch(flash_attention_fwd_res)
     return o, lse
 
 
@@ -159,7 +160,7 @@ def flash_attention_bwd_delta(o, do, *, impl: str = "auto"):
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     check(fn(o.data_ptr(), do.data_ptr(), delta.data_ptr(), delta.numel(), hd,
              torch.cuda.current_stream(o.device).cuda_stream), "attn_bwd_delta_bf16")
-    flash_attention_bwd_delta.launches += 1
+    count_launch(flash_attention_bwd_delta)
     return delta
 
 
@@ -224,7 +225,7 @@ def flash_attention_bwd_dq(q, k, v, mask_bias, do, lse, delta, *, causal=False,
     fn.restype = ctypes.c_int
     fn.argtypes, args = _bwd_args(q, k, v, mask_bias, do, lse, delta, (dq,), causal)
     check(fn(*args), "attn_bwd_dq_bf16")
-    flash_attention_bwd_dq.launches += 1
+    count_launch(flash_attention_bwd_dq)
     return dq
 
 
@@ -246,7 +247,7 @@ def flash_attention_bwd_dkv(q, k, v, mask_bias, do, lse, delta, *, causal=False,
     fn.restype = ctypes.c_int
     fn.argtypes, args = _bwd_args(q, k, v, mask_bias, do, lse, delta, (dk, dv), causal)
     check(fn(*args), "attn_bwd_dkv_bf16")
-    flash_attention_bwd_dkv.launches += 1
+    count_launch(flash_attention_bwd_dkv)
     return dk, dv
 
 

@@ -37,10 +37,12 @@ per-channel packed leaf takes it as two products over its nibble halves
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
 
+from trace_tpu_torch.kernels.build import count_launch
 from trace_tpu_torch.model.quantize import unpack4
 
 _SOURCE = "quant_matmul.cu"
@@ -54,6 +56,7 @@ SPLIT_MIN_SHARE = 128
 SPLIT_SMEM = {"i8": 97500, "p4": 107740, "p4g": 112860}
 _ENTRIES: dict = {}  # C entry name -> its declared ctypes function
 _FIT: dict = {}      # (form, device index) -> clusters the card holds at once
+_FIT_LOCK = threading.Lock()
 
 
 def _check_impl(impl: str) -> None:
@@ -166,8 +169,17 @@ def _plan(form: str, M: int, K: int, N: int, device) -> SplitPlan:
     """``split_plan`` for the card of ``device``; how many clusters of each
     size its split kernel holds at once is asked once per form and card."""
     key = (form, device.index)
-    fit = _FIT.get(key)
-    if fit is None:
+    fit = _FIT.get(key) or _ask_fit(form, key, device)
+    return split_plan(M, K, N, form, fit.__getitem__)
+
+
+def _ask_fit(form: str, key, device) -> list:
+    """Ask the card how many clusters of each size it holds at once, once:
+    the lock makes a second thread that arrives meanwhile read the answer."""
+    with _FIT_LOCK:
+        fit = _FIT.get(key)
+        if fit is not None:
+            return fit
         from trace_tpu_torch.kernels.build import load
 
         if form == "i8":
@@ -181,7 +193,7 @@ def _plan(form: str, M: int, K: int, N: int, device) -> SplitPlan:
         if min(fit) < 0:
             raise RuntimeError(f"{form} split kernel: CUDA error {-min(fit)} asking its occupancy")
         _FIT[key] = fit
-    return split_plan(M, K, N, form, fit.__getitem__)
+        return fit
 
 
 def _launch(source: str, entry: str, x, q, s, lead_args, M, K, N, out_dtype, plan=None):
@@ -218,7 +230,7 @@ def quant_matmul(
     N = q.shape[1]
     y = _launch(_SOURCE, "quant_matmul_i8", x, q, s.reshape(-1), (), M, K, N,
                 out_dtype or x.dtype, _plan("i8", M, K, N, x.device))
-    quant_matmul.launches += 1
+    count_launch(quant_matmul)
     return y
 
 
@@ -249,7 +261,7 @@ def quant_matmul_stacked(
         return quant_matmul_plain(x, q[li], s[li], out_dtype)
     y = _launch(_SOURCE, "quant_matmul_stacked_i8", x, q, s, (int(li), L), M, K, N,
                 out_dtype or x.dtype, _plan("i8", M, K, N, x.device))
-    quant_matmul_stacked.launches += 1
+    count_launch(quant_matmul_stacked)
     return y
 
 
@@ -286,8 +298,8 @@ def _launch_p4(entry: str, x, qp, s, lead_args, M, K, N, out_dtype, grouped: boo
 
 
 def _count(fn, form: str) -> None:
-    fn.launches += 1
-    fn.launches_by_form[form] += 1
+    count_launch(fn)
+    count_launch(fn, "launches_by_form", form)
 
 
 def _check_p4(x, qp, stacked: bool = False) -> int:

@@ -124,8 +124,9 @@ class TraceConfig:
     dtype: torch.dtype = torch.bfloat16
     # ViT frames per sequential chunk (0 = single batch)
     vit_chunk_size: int = 16
-    # Frame upload format: only 'rgb' is ported ('yuv420' needs the cv2 host
-    # path, which the port does not carry)
+    # Frame upload format: 'rgb' (uint8 frames, preprocessed on the device)
+    # or 'yuv420' (the host sends the I420 content band of the squared,
+    # downscaled frame: half of RGB's bytes and less; video/preprocess.py)
     upload_format: str = "rgb"
 
     @classmethod

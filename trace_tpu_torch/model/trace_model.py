@@ -45,7 +45,7 @@ def tokens_per_frame(config: TraceConfig) -> int:
 def encode_video(
     params: dict,
     config: TraceConfig,
-    frames: torch.Tensor,          # [B, T, H, W, 3] CLIP-normalized (or patches)
+    frames: torch.Tensor,          # [B, T, H, W, 3] CLIP-normalized, or [B, T, N, 3*p*p] patches
     frame_time_ids: torch.Tensor,  # [B, T, 6] local time-token ids per frame
     *,
     impl: str = "auto",
@@ -122,7 +122,7 @@ def encode_prefix_for_generation(
     config: TraceConfig,
     token_ids: torch.Tensor,       # [B, L] combined ids with the video span
     video_pos: torch.Tensor,       # [B]
-    frames: torch.Tensor,          # [B, T, H, W, 3]
+    frames: torch.Tensor,          # [B, T, H, W, 3], or [B, T, N, 3*p*p] patches
     frame_time_ids: torch.Tensor,  # [B, T, 6]
     *,
     table: Optional[torch.Tensor] = None,

@@ -106,12 +106,15 @@ def _vit_layer(x, lp: dict, config: VisionConfig, tq: int, impl: str = "auto"):
 def vit_forward(
     params: dict,
     config: VisionConfig,
-    images: torch.Tensor,  # [B, H, W, 3] CLIP-normalized
+    images: torch.Tensor,  # [B, H, W, 3] CLIP-normalized, or patches [B, N, 3*p*p]
     *,
     impl: str = "auto",
 ) -> torch.Tensor:
     """Images -> patch features [B, num_patches, hidden] at the -2 tap.
 
+    ``images`` may also be pre-extracted patches [B, N, 3*p*p] in the
+    ``extract_patches`` layout (channel-major rows), as the yuv420 serving
+    path cuts them from its planes (video/preprocess.i420_band_to_patches).
     The token dim is padded once from 577 to a multiple of 16 (592) for the
     whole stack and attention runs through ``vit_attention_btd`` with keys
     >= 577 masked; pad rows are dropped at the end."""
@@ -119,7 +122,8 @@ def vit_forward(
     B = images.shape[0]
     patch_w = dequantize(params["patch_embed"],
                          images.dtype if images.is_floating_point() else torch.float32)
-    embeds = extract_patches(images, c.patch_size).to(patch_w.dtype) @ patch_w
+    patches = images if images.ndim == 3 else extract_patches(images, c.patch_size)
+    embeds = patches.to(patch_w.dtype) @ patch_w
 
     cls = params["class_embedding"].expand(B, 1, c.hidden_size).to(embeds.dtype)
     x = torch.cat([cls, embeds], dim=1)

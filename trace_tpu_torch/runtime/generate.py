@@ -11,6 +11,13 @@ time-constraint trie).
 The JAX package compiles the decode loop into one ``lax.while_loop``; here
 it is a Python loop whose state stays on the device and which stops when
 every row is done (one device->host read of ``done`` per step).
+
+The serving split (``generate_split``, ``generate(prefill_batch=)``):
+prefill runs in sub-batches, each writing its rows of the KV cache in place
+into one decode-batch cache (the "arena"), then one decode loop runs the
+whole batch. ``generate_split`` reuses an arena handed in when its shapes
+match, and ``token_budget`` sizes the cache and the token buffer for a
+longer run than this one, whose loop stops at ``max_new_tokens``.
 """
 
 from __future__ import annotations
@@ -59,8 +66,11 @@ class GenerateOutput:
     tokens: np.ndarray          # [B, max_new_tokens], PAD_OUTPUT_ID after finish
     num_generated: np.ndarray   # [B]
     decode_steps: int           # decoder forwards run by the decode loop
-    # {"prefill_s", "decode_s"}, each ended by a device sync
-    phase_times: dict
+    # {"prefill_s", "decode_s"}, each ended by a device sync (None from
+    # generate_split without time_phases)
+    phase_times: Optional[dict]
+    # generate_split: the KV arena, to hand to the next call
+    cache: object = None
 
 
 # ---------------------------------------------------------------------------
@@ -114,13 +124,17 @@ def _time_constraint_update(config, token, frame_chars, alive, value_pos):
     return alive, value_pos
 
 
-def _prefill(params, c, prefix_embeds, prefix_mask, *, cache_len, impl="auto"):
+def _prefill(params, c, prefix_embeds, prefix_mask, *, cache_len, impl="auto",
+             cache=None):
     """Prefill phase: returns (cache, cache_mask, last_hidden, next_pos).
     The cache is the (k, v) pair in the prefix's dtype, or the int8 dict
-    when ``c.kv_cache_dtype == "int8"``."""
+    when ``c.kv_cache_dtype == "int8"``; ``cache`` (of ``init_kv_cache``'s
+    shapes for this batch, e.g. a view of some rows of a larger cache) is
+    written in place instead of a new one."""
     B, P, D = prefix_embeds.shape
     dev = prefix_embeds.device
-    cache = init_kv_cache(c, B, cache_len, dtype=prefix_embeds.dtype, device=dev)
+    if cache is None:
+        cache = init_kv_cache(c, B, cache_len, dtype=prefix_embeds.dtype, device=dev)
     positions = (torch.cumsum(prefix_mask.int(), dim=1) - 1).clamp(min=0)
     hidden, cache = decoder_forward(
         params, c, prefix_embeds, prefix_mask, positions,
@@ -134,15 +148,62 @@ def _prefill(params, c, prefix_embeds, prefix_mask, *, cache_len, impl="auto"):
     return cache, cache_mask, last_hidden, next_pos
 
 
+def cache_rows(cache, row: int, n: int):
+    """Rows [row, row + n) of a cache (batch axis 1 of every leaf), as views
+    that write through to it."""
+    if isinstance(cache, dict):
+        return {k: v[:, row:row + n] for k, v in cache.items()}
+    return tuple(v[:, row:row + n] for v in cache)
+
+
+def merge_cache_rows(big, small, row: int):
+    """Write ``small``'s batch rows into ``big`` at batch offset ``row``, in
+    place; returns ``big``. Caches are the (k, v) pair or the int8 dict of
+    ``init_kv_cache``."""
+    dst = cache_rows(big, row, (small["kq"] if isinstance(small, dict) else small[0]).shape[1])
+    pairs = zip(dst.values(), small.values()) if isinstance(small, dict) else zip(dst, small)
+    for d, s_ in pairs:
+        d.copy_(s_)
+    return big
+
+
+def _prefill_into(params, c, big, prefix_embeds, prefix_mask, *, prefill_batch,
+                  cache_len, impl="auto"):
+    """Prefill ``prefix_embeds`` in sub-batches of ``prefill_batch`` rows, each
+    writing its K/V rows straight into the decode-batch cache ``big`` (no
+    sub-batch cache, no merge pass). Returns (cache_mask, last_hidden,
+    next_pos) of the whole batch.
+
+    The JAX package has two programs for this (a dispatch loop of
+    ``prefill_into_jit`` and one ``lax.scan`` executable, chosen by
+    ``use_prefill_scan`` and TRACE_TPU_PREFILL_SCAN) that compute the same
+    thing; eager PyTorch has one loop, so neither the choice nor its
+    variable exists here. Slots of ``big`` beyond the prefix keep what they
+    held: a decode step writes a slot before it is visible."""
+    B = prefix_embeds.shape[0]
+    cms, lhs, nps = [], [], []
+    for r in range(0, B, prefill_batch):
+        n = min(prefill_batch, B - r)
+        _, cm, lh, npos = _prefill(
+            params, c, prefix_embeds[r:r + n], prefix_mask[r:r + n],
+            cache_len=cache_len, impl=impl, cache=cache_rows(big, r, n))
+        cms.append(cm)
+        lhs.append(lh)
+        nps.append(npos)
+    return torch.cat(cms), torch.cat(lhs), torch.cat(nps)
+
+
 def _decode_from_state(
     params, c, cache, cache_mask, last_hidden, next_pos,
     combined_embed, initial_head, *,
     prefix_len, max_new_tokens, temperature, eos_id,
     constrain_time, frame_time_ids, generator, embed_dtype,
-    stop_ids=None, impl="auto",
+    stop_ids=None, impl="auto", max_steps=None,
 ):
     """FSM decode loop from a prefilled cache. Returns (tokens [B, N],
-    num_generated [B], decode_steps).
+    num_generated [B], decode_steps). N = ``max_new_tokens`` sizes the token
+    buffer (and the cache beyond the prefix); ``max_steps`` stops the loop
+    earlier, leaving the rest of the buffer PAD_OUTPUT_ID.
 
     ``stop_ids`` ([N, K], -1 left-padded): a rolling buffer of the last K
     emitted ids is compared with each stop sequence every step; a match ends
@@ -195,8 +256,9 @@ def _decode_from_state(
     tokens[:, 0] = tok
     ones = torch.ones((B, 1), dtype=torch.bool, device=dev)
 
+    limit = max_new_tokens if max_steps is None else min(max_new_tokens, max_steps)
     step = 1
-    while step < max_new_tokens and not bool(done.all()):
+    while step < limit and not bool(done.all()):
         cur_embed = combined_embed[tok].to(embed_dtype)
         write_idx = P + step - 1  # slot of the token being fed in
         hidden, cache = decoder_forward(
@@ -239,6 +301,94 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _pad_to_bucket(prefix_embeds, prefix_mask, pad_to_multiple: int):
+    """Left-pad [B, P, D] / [B, P] to the bucket of ``pad_to_multiple``."""
+    P = prefix_embeds.shape[1]
+    bucket = max(pad_to_multiple, -(-P // pad_to_multiple) * pad_to_multiple)
+    if bucket != P:
+        pad = bucket - P
+        prefix_embeds = torch.nn.functional.pad(prefix_embeds, (0, 0, pad, 0))
+        prefix_mask = torch.nn.functional.pad(prefix_mask, (pad, 0))
+    return prefix_embeds, prefix_mask.bool(), bucket
+
+
+def _arena(config, B: int, cache_len: int, dtype, device, cache):
+    """``cache`` when its leaves have the shapes and dtypes of
+    ``init_kv_cache(config, B, cache_len, dtype)`` on ``device``, else a new
+    cache of those."""
+    want = init_kv_cache(config, B, cache_len, dtype=dtype, device="meta")
+    if isinstance(want, dict):
+        fits = isinstance(cache, dict) and set(cache) == set(want)
+        pairs = [(cache[k], want[k]) for k in want] if fits else []
+    else:
+        fits = isinstance(cache, tuple) and len(cache) == len(want)
+        pairs = list(zip(cache, want)) if fits else []
+    if fits and all(a.shape == b.shape and a.dtype == b.dtype and a.device == device
+                    for a, b in pairs):
+        return cache
+    return init_kv_cache(config, B, cache_len, dtype=dtype, device=device)
+
+
+def _generate(params, config, prefix_embeds, prefix_mask, combined_embed, *,
+              max_new_tokens, budget, initial_head, temperature, eos_id, seed,
+              pad_to_multiple, constrain_time, frame_time_ids, stop_sequences,
+              impl, prefill_batch=None, cache=None, time_phases=True,
+              max_steps=None) -> GenerateOutput:
+    """Bucket, prefill (whole or in sub-batches into one cache), decode."""
+    if isinstance(prefix_embeds, list):
+        prefix_embeds = prefix_embeds.pop()  # empty the caller's list
+    if isinstance(prefix_mask, list):
+        prefix_mask = prefix_mask.pop()
+    prefix_embeds, prefix_mask, bucket = _pad_to_bucket(
+        prefix_embeds, prefix_mask, pad_to_multiple)
+    B = prefix_embeds.shape[0]
+    dev = prefix_embeds.device
+    cache_len = bucket + budget
+
+    t0 = time.perf_counter()
+    if prefill_batch is None or prefill_batch >= B:
+        cache, cache_mask, last_hidden, next_pos = _prefill(
+            params, config, prefix_embeds, prefix_mask,
+            cache_len=cache_len, impl=impl,
+            cache=None if cache is None else _arena(
+                config, B, cache_len, prefix_embeds.dtype, dev, cache))
+    else:
+        cache = _arena(config, B, cache_len, prefix_embeds.dtype, dev, cache)
+        cache_mask, last_hidden, next_pos = _prefill_into(
+            params, config, cache, prefix_embeds, prefix_mask,
+            prefill_batch=prefill_batch, cache_len=cache_len, impl=impl)
+    embed_dtype = prefix_embeds.dtype
+    # the prefix (~B*P*D) is dead once prefilled
+    del prefix_embeds
+    t1 = None
+    if time_phases:
+        _sync(dev)
+        t1 = time.perf_counter()
+
+    generator = None
+    if temperature > 0.0:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    heads = torch.full((B,), initial_head, dtype=torch.long, device=dev)
+    tokens, num, steps = _decode_from_state(
+        params, config, cache, cache_mask, last_hidden, next_pos,
+        combined_embed, heads,
+        prefix_len=bucket, max_new_tokens=budget,
+        temperature=temperature, eos_id=eos_id,
+        constrain_time=constrain_time,
+        frame_time_ids=(None if frame_time_ids is None
+                        else frame_time_ids.to(dev).long()),
+        generator=generator, embed_dtype=embed_dtype,
+        stop_ids=pack_stop_sequences(stop_sequences, dev), impl=impl,
+        max_steps=max_steps,
+    )
+    tokens_np = tokens.cpu().numpy()  # waits for the decode loop
+    phase_times = None
+    if time_phases:
+        phase_times = {"prefill_s": t1 - t0, "decode_s": time.perf_counter() - t1}
+    return GenerateOutput(tokens=tokens_np, num_generated=num.cpu().numpy(),
+                          decode_steps=steps, phase_times=phase_times, cache=cache)
+
+
 def generate(
     params: dict,
     config: DecoderConfig,
@@ -254,12 +404,15 @@ def generate(
     pad_to_multiple: int = 128,
     constrain_time: bool = False,
     frame_time_ids: Optional[torch.Tensor] = None,
+    prefill_batch: Optional[int] = None,
     stop_sequences=None,
     impl: str = "auto",
 ) -> GenerateOutput:
     """Left-pad the prefix to a bucket of ``pad_to_multiple``, prefill a
     static cache of ``bucket + max_new_tokens`` slots, and run the FSM
-    decode loop.
+    decode loop. ``prefill_batch`` < B prefills in sub-batches of that many
+    rows, each writing its rows of the one cache. One-element-list prefix
+    arguments hand the prefix over (see ``generate_split``).
 
     ``initial_head`` defaults to 1 (time head): the production prompt ends
     with ``<sync>``. Prefill runs through ``flash_attention`` and each step
@@ -268,41 +421,64 @@ def generate(
     the JAX package at fp32; with temperature > 0 tokens are drawn with
     ``torch.multinomial`` from a ``torch.Generator`` seeded with ``seed``,
     which matches JAX's sampler in distribution, not bit for bit."""
-    B, P, D = prefix_embeds.shape
-    dev = prefix_embeds.device
-    bucket = max(pad_to_multiple, -(-P // pad_to_multiple) * pad_to_multiple)
-    if bucket != P:
-        pad = bucket - P
-        prefix_embeds = torch.nn.functional.pad(prefix_embeds, (0, 0, pad, 0))
-        prefix_mask = torch.nn.functional.pad(prefix_mask, (pad, 0))
-    prefix_mask = prefix_mask.bool()
-    cache_len = bucket + max_new_tokens
+    out = _generate(
+        params, config, prefix_embeds, prefix_mask, combined_embed,
+        max_new_tokens=max_new_tokens, budget=max_new_tokens,
+        initial_head=initial_head, temperature=temperature, eos_id=eos_id,
+        seed=seed, pad_to_multiple=pad_to_multiple, constrain_time=constrain_time,
+        frame_time_ids=frame_time_ids, stop_sequences=stop_sequences, impl=impl,
+        prefill_batch=prefill_batch)
+    out.cache = None
+    return out
 
-    t0 = time.perf_counter()
-    cache, cache_mask, last_hidden, next_pos = _prefill(
-        params, config, prefix_embeds, prefix_mask,
-        cache_len=cache_len, impl=impl,
-    )
-    del prefix_embeds
-    _sync(dev)
-    t1 = time.perf_counter()
 
-    generator = None
-    if temperature > 0.0:
-        generator = torch.Generator(device=dev).manual_seed(seed)
-    heads = torch.full((B,), initial_head, dtype=torch.long, device=dev)
-    tokens, num, steps = _decode_from_state(
-        params, config, cache, cache_mask, last_hidden, next_pos,
-        combined_embed, heads,
-        prefix_len=bucket, max_new_tokens=max_new_tokens,
-        temperature=temperature, eos_id=eos_id,
-        constrain_time=constrain_time,
-        frame_time_ids=(None if frame_time_ids is None
-                        else frame_time_ids.to(dev).long()),
-        generator=generator, embed_dtype=last_hidden.dtype,
-        stop_ids=pack_stop_sequences(stop_sequences, dev), impl=impl,
-    )
-    tokens_np = tokens.cpu().numpy()  # waits for the decode loop
-    phase_times = {"prefill_s": t1 - t0, "decode_s": time.perf_counter() - t1}
-    return GenerateOutput(tokens=tokens_np, num_generated=num.cpu().numpy(),
-                          decode_steps=steps, phase_times=phase_times)
+def generate_split(
+    params: dict,
+    config: DecoderConfig,
+    prefix_embeds: torch.Tensor,
+    prefix_mask: torch.Tensor,
+    combined_embed: torch.Tensor,
+    *,
+    prefill_batch: int,
+    max_new_tokens: int = 1024,
+    initial_head: int = 1,
+    temperature: float = 0.0,
+    eos_id: int = 2,
+    seed: int = 0,
+    pad_to_multiple: int = 128,
+    constrain_time: bool = False,
+    frame_time_ids: Optional[torch.Tensor] = None,
+    stop_sequences=None,
+    cache=None,
+    time_phases: bool = False,
+    token_budget: Optional[int] = None,
+    impl: str = "auto",
+) -> GenerateOutput:
+    """generate() with the serving-style prefill/decode split: prefill runs
+    in ``prefill_batch``-row sub-batches that write their rows of one
+    decode-batch cache in place, then one decode loop runs the whole batch.
+    Prefill's activation working set (~B*P*D) is what caps the batch of a
+    monolithic call; the decode loop's (~B*D) is not.
+
+    ``prefix_embeds`` / ``prefix_mask`` may be one-element lists: the list
+    is emptied (ownership transfer), so the prefix is freed once prefilled
+    rather than held by the caller through the decode loop.
+
+    ``cache``: a KV arena (``init_kv_cache`` shapes) to reuse; it comes back
+    on ``GenerateOutput.cache`` for the next call. A cache of other shapes is
+    dropped and a new one made.
+
+    ``token_budget`` > ``max_new_tokens`` sizes the cache and the token
+    buffer ([B, token_budget]) for the larger budget while the loop stops
+    after ``max_new_tokens`` tokens (PAD_OUTPUT_ID beyond), so runs of
+    several lengths share one arena. ``time_phases`` ends the prefill with
+    a device sync and fills ``phase_times``."""
+    budget = max(max_new_tokens, token_budget or 0)
+    return _generate(
+        params, config, prefix_embeds, prefix_mask, combined_embed,
+        max_new_tokens=max_new_tokens, budget=budget,
+        initial_head=initial_head, temperature=temperature, eos_id=eos_id,
+        seed=seed, pad_to_multiple=pad_to_multiple, constrain_time=constrain_time,
+        frame_time_ids=frame_time_ids, stop_sequences=stop_sequences, impl=impl,
+        prefill_batch=prefill_batch, cache=cache, time_phases=time_phases,
+        max_steps=max_new_tokens if token_budget else None)
