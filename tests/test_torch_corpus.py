@@ -76,6 +76,35 @@ def test_generate_split_matches_jax_and_monolithic(dec, sub):
     assert (got.tokens != PAD).any(axis=1).all()
 
 
+@pytest.mark.parametrize("sub", [2, 4])
+def test_prefill_merge_decode_matches_jax(dec, sub):
+    """The phases as entry points of their own: prefill in sub-batches,
+    merge_cache_rows into one cache, one decode (with max_steps), as
+    tests/test_split_decode.py runs them on the JAX side."""
+    jp, jemb, tp, temb, prefix, mask = dec
+    S = P + NEW
+    heads = jnp.ones((B,), jnp.int32)
+    want, want_n = jgen.generate_jit(jp, JDEC, jnp.asarray(prefix), jnp.asarray(mask), jemb,
+                                     heads, max_new_tokens=NEW, cache_len=S,
+                                     rng=jax.random.PRNGKey(0))
+    big = init_kv_cache(DEC, B, S, dtype=torch.float32)
+    cms, lhs, nps = [], [], []
+    for r in range(0, B, sub):
+        cache, cm, lh, npos = tgen.prefill(tp, DEC, torch.from_numpy(prefix[r:r + sub]),
+                                           torch.from_numpy(mask[r:r + sub]), cache_len=S)
+        assert tgen.merge_cache_rows(big, cache, r) is big
+        cms.append(cm)
+        lhs.append(lh)
+        nps.append(npos)
+    cm = torch.cat(cms)
+    tokens, num, steps = tgen.decode(tp, DEC, big, cm, torch.cat(lhs), torch.cat(nps), temb,
+                                     torch.ones(B, dtype=torch.long), prefix_len=P,
+                                     max_new_tokens=NEW)
+    np.testing.assert_array_equal(tokens.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(num.numpy(), np.asarray(want_n))
+    assert cm[:, P:P + steps].all() and not cm[:, P + steps:].any()
+
+
 @pytest.mark.parametrize("pb", [1, 2, 3])
 def test_generate_prefill_batch_matches_jax(dec, pb):
     jp, jemb, tp, temb, prefix, mask = dec

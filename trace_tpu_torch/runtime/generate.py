@@ -301,6 +301,54 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def prefill(params, config, prefix_embeds, prefix_mask, *, cache_len: int,
+            impl: str = "auto"):
+    """The prefill phase as an entry point of its own (the JAX package's
+    ``prefill_jit``): a new cache of ``cache_len`` slots with the prefix
+    [B, P, D] (content right-aligned) written into it. Returns (cache,
+    cache_mask, last_hidden, next_pos) for ``decode``; sub-batch caches
+    merge into one with ``merge_cache_rows``."""
+    return _prefill(params, config, prefix_embeds, prefix_mask.bool(),
+                    cache_len=cache_len, impl=impl)
+
+
+def decode(params, config, cache, cache_mask, last_hidden, next_pos, combined_embed,
+           initial_head, *, prefix_len: int, max_new_tokens: int,
+           temperature: float = 0.0, eos_id: int = 2, seed: int = 0,
+           constrain_time: bool = False, frame_time_ids=None, stop_sequences=None,
+           max_steps: Optional[int] = None, embed_dtype=None, impl: str = "auto"):
+    """The decode phase as an entry point of its own (the JAX package's
+    ``decode_jit``): the FSM loop from a prefilled cache of ``prefix_len +
+    max_new_tokens`` slots whose rows share ``prefix_len``; ``initial_head``
+    an int or a [B] tensor; ``max_steps`` stops the loop before
+    ``max_new_tokens``. The cache and ``cache_mask`` are updated in place.
+    Returns (tokens [B, max_new_tokens], num_generated [B], decode_steps).
+    ``embed_dtype`` (the dtype the fed-back token embeddings take) defaults,
+    as in ``decode_jit``, to the cache's, or the table's for the int8
+    cache."""
+    B = last_hidden.shape[0]
+    dev = last_hidden.device
+    if embed_dtype is None:
+        embed_dtype = combined_embed.dtype if isinstance(cache, dict) else cache[0].dtype
+    heads = (initial_head.to(dev).long() if torch.is_tensor(initial_head)
+             else torch.full((B,), initial_head, dtype=torch.long, device=dev))
+    generator = None
+    if temperature > 0.0:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    return _decode_from_state(
+        params, config, cache, cache_mask, last_hidden, next_pos,
+        combined_embed, heads,
+        prefix_len=prefix_len, max_new_tokens=max_new_tokens,
+        temperature=temperature, eos_id=eos_id,
+        constrain_time=constrain_time,
+        frame_time_ids=(None if frame_time_ids is None
+                        else frame_time_ids.to(dev).long()),
+        generator=generator, embed_dtype=embed_dtype,
+        stop_ids=pack_stop_sequences(stop_sequences, dev), impl=impl,
+        max_steps=max_steps,
+    )
+
+
 def _pad_to_bucket(prefix_embeds, prefix_mask, pad_to_multiple: int):
     """Left-pad [B, P, D] / [B, P] to the bucket of ``pad_to_multiple``."""
     P = prefix_embeds.shape[1]
@@ -365,21 +413,14 @@ def _generate(params, config, prefix_embeds, prefix_mask, combined_embed, *,
         _sync(dev)
         t1 = time.perf_counter()
 
-    generator = None
-    if temperature > 0.0:
-        generator = torch.Generator(device=dev).manual_seed(seed)
-    heads = torch.full((B,), initial_head, dtype=torch.long, device=dev)
-    tokens, num, steps = _decode_from_state(
+    tokens, num, steps = decode(
         params, config, cache, cache_mask, last_hidden, next_pos,
-        combined_embed, heads,
+        combined_embed, initial_head,
         prefix_len=bucket, max_new_tokens=budget,
-        temperature=temperature, eos_id=eos_id,
-        constrain_time=constrain_time,
-        frame_time_ids=(None if frame_time_ids is None
-                        else frame_time_ids.to(dev).long()),
-        generator=generator, embed_dtype=embed_dtype,
-        stop_ids=pack_stop_sequences(stop_sequences, dev), impl=impl,
-        max_steps=max_steps,
+        temperature=temperature, eos_id=eos_id, seed=seed,
+        constrain_time=constrain_time, frame_time_ids=frame_time_ids,
+        stop_sequences=stop_sequences, max_steps=max_steps,
+        embed_dtype=embed_dtype, impl=impl,
     )
     tokens_np = tokens.cpu().numpy()  # waits for the decode loop
     phase_times = None
