@@ -13,8 +13,10 @@ Phases, in order; any failure exits non-zero:
      weight products, per channel and grouped, each in its split-K form at
      M = 2 and its tensor-core form at M = 3886, the grouped one also at
      M = 32, its 64-row tile, printed apart; the bf16 decode attention also
-     at decode batch 32 with random and with serving masks, printed apart;
-     the training attention:
+     at decode batch 32 with random and with serving masks, and the int8
+     one at decode batch 32, also at phase 5's arena length (S = 2560) with
+     serving masks, printed apart; the 2-D int8 product on the lm_head at
+     M = 32 too, untimed; the training attention:
      forward with the logsumexp residual, backward dq and backward dk/dv), with its time (CUDA
      events, median of 20, L2 flushed between runs), the plain version's
      time, the time of one PyTorch library call computing the same function
@@ -46,14 +48,19 @@ Phases, in order; any failure exits non-zero:
      encode batches of 2 and a 512-token arena, once two-phase with 256 new
      tokens (pass A), once streamed with 512 (pass B). Per pass videos/s,
      ``last_corpus_stats``, ms per decode step at B = 32 and the launches of
-     rows 1, 2, 3b, 4 and 5; peak memory; one B = 32 decode step under
-     torch.profiler. Checks: (a) pass A's tokens are the first 256 of pass
-     B's, row for row; (b) ``i420_band_to_patches`` on the card against the
-     CPU (bf16: one step, in at most 1e-3 of the elements); (c) the
-     first-token logits of pass A's first prefill sub-batch: the kernel path
-     no further from an fp32 model of the dequantized weights than
-     REF_RATIO_TOL x the plain path; (d) each of those rows launched, no
-     plain version called on the card.
+     rows 1, 2, 3b, 4 and 5; peak memory, and where it is set (set-up, the
+     encode before the first prefill, the rest of each pass); one B = 32
+     decode step under torch.profiler. Checks: (a) pass A's tokens are the
+     first 256 of pass B's, row for row; (b) ``i420_band_to_patches`` on the
+     card against the CPU (bf16: one step, in at most 1e-3 of the
+     elements); (c) the first-token logits of pass A's first prefill
+     sub-batch: the kernel path no further from an fp32 model of the
+     dequantized weights than REF_RATIO_TOL x the plain path; (d) each of
+     those rows launched, no plain version called on the card; (e) each of
+     those rows on the path's own inputs (an encode batch, that prefill
+     sub-batch, a B = 32 decode step on pass B's arena): the first call of
+     each wrapper at each shape against its plain version on the same
+     inputs, held to its limits in phase 3.
   6. the training path at full width: ``train_loop`` on TRACE-7B bf16 (random
      weights from seed 0, 2 synthetic 128-frame videos with one event list
      each, batch 2, remat on) for stage ``pretrain`` and stage ``lora``
@@ -400,7 +407,8 @@ def merge(parts: list) -> dict:
 
 def quant_matmul_checks(torch, g, rows: dict) -> None:
     """The int8 weight product against its plain version: the 2-D entry on
-    the lm_head at M = 2 (timed) and at a ragged shape; the stacked entry at
+    the lm_head at M = 2 (timed) and M = 32 (phase 5's decode batch), and at
+    a ragged shape; the stacked entry at
     M = 2, layer 17 of 32, on the four weights of a fused decoder layer (the
     row is their sum: one layer's weight products of a decode step)."""
     from trace_tpu_torch.kernels.quant_matmul import quant_matmul, quant_matmul_stacked
@@ -443,7 +451,14 @@ def quant_matmul_checks(torch, g, rows: dict) -> None:
     qr, sr = weight(1000, 1100)
     ragged = one("quant_matmul", lambda impl: quant_matmul(
         xr, qr, sr, out_dtype=torch.float32, impl=impl), xr, qr, sr, timed=False)
-    head.update({k: max(head[k], ragged[k]) for k in ("err", "excess", "rel_norm")})
+    # the lm_head at the bench's decode batch, 32 rows, as phase 5 runs it
+    x32 = torch.randn((32, 4096), generator=g, device="cuda").to(torch.bfloat16)
+    batch32 = one("quant_matmul", lambda impl: quant_matmul(
+        x32, q, s, out_dtype=torch.float32, impl=impl), x32, q, s, timed=False)
+    print(f"  quant_matmul x [32, 4096] @ q [4096, 32000] -> float32 (not timed): "
+          f"max_abs_err={batch32['err']:.6f} excess={batch32['excess']:.3g} "
+          f"rel_norm_err={batch32['rel_norm']:.3g}", flush=True)
+    head.update({k: max(head[k], ragged[k], batch32[k]) for k in ("err", "excess", "rel_norm")})
     rows["quant_matmul"] = head
     del q, s, qr, sr
 
@@ -567,17 +582,21 @@ def int8_decode_checks(torch, g, rows: dict) -> None:
     B = 4, S = 2304, layer 17's stripe, half the slots masked, the stripe
     quantized from random K/V as the decoder quantizes it; then the same at
     B = 32, the bench's decode batch, where the bytes and not one launch's
-    latency set the bound (printed on lines of its own, held to the same
-    limits; the B = 4 entries are the row)."""
+    latency set the bound; then at B = 32 and phase 5's arena length
+    (S = 2048 + CORPUS_BUDGET) with serving-shaped masks (the B = 32 cases
+    printed on lines of their own, held to the same limits; the B = 4
+    entries are the row)."""
     import torch.nn.functional as F
 
     from trace_tpu_torch.kernels.decode_attention import INT8_MODES, decode_attention
+    from trace_tpu_torch.kernels.decode_int8_turns import mask_bias
     from trace_tpu_torch.model.config import DecoderConfig
     from trace_tpu_torch.model.mistral import _quantize_kv, init_kv_cache
 
-    H, NKV, S, HD, LI = 32, 8, 2304, 128, 17
+    H, NKV, HD, LI = 32, 8, 128, 17
     cfg = DecoderConfig(kv_cache_dtype="int8")
-    for B in (4, 32):
+    for B, S, mask in ((4, 2304, "random"), (32, 2304, "random"),
+                       (32, 2048 + CORPUS_BUDGET, "serving")):
         cache = init_kv_cache(cfg, B, S, device="cuda")
         stripe = {name: leaf[LI] for name, leaf in cache.items()}
         for vals, scales in (("kq", "ks"), ("vq", "vs")):
@@ -585,8 +604,7 @@ def int8_decode_checks(torch, g, rows: dict) -> None:
             stripe[vals][:], stripe[scales][:] = _quantize_kv(x)
             del x
         q = torch.randn((B, H, 1, HD), generator=g, device="cuda").to(torch.bfloat16)
-        bias = torch.where(torch.rand((B, S), generator=g, device="cuda") < 0.5,
-                           0.0, -1e30).float()
+        bias = mask_bias(g, B, mask, S)
         # the yardstick's operands: the stripe dequantized to bf16 beforehand
         kd = stripe["kq"].to(torch.bfloat16) * stripe["ks"].transpose(-1, -2)
         vd = stripe["vq"].to(torch.bfloat16) * stripe["vs"].transpose(-1, -2)
@@ -605,7 +623,7 @@ def int8_decode_checks(torch, g, rows: dict) -> None:
             out, ref = run(), run("plain")
             torch.cuda.synchronize()
             if not torch.isfinite(out).all():
-                fail(f"{name} at B = {B}: non-finite output")
+                fail(f"{name} at B = {B}, S = {S}: non-finite output")
             r = dict(**compare(name, out, ref), ms=median_ms(torch, run),
                      plain_ms=median_ms(torch, lambda: run("plain")),
                      library_ms=median_ms(torch, lib),
@@ -615,13 +633,14 @@ def int8_decode_checks(torch, g, rows: dict) -> None:
                 rows[name] = r
                 continue
             atol, rtol = KERNEL_TOL[name]
-            print(f"  {name} at B = {B}, S = {S}: ms={r['ms']:.4f} library_ms="
+            print(f"  {name} at B = {B}, S = {S}, {mask} mask: ms={r['ms']:.4f} library_ms="
                   f"{r['library_ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms="
                   f"{r['bound'][0]:.4f} ({r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} %) "
                   f"max_abs_err={r['err']:.6f} (|diff| <= {atol} + {rtol} |ref|, excess "
                   f"{r['excess']:.6f}) rel_norm_err={r['rel_norm']:.6f}", flush=True)
             if not (r["excess"] <= 0 and r["rel_norm"] <= REL_NORM_TOL):
-                fail(f"{name} at B = {B}: kernel disagrees with its plain version")
+                fail(f"{name} at B = {B}, S = {S}, {mask} mask: kernel disagrees with "
+                     "its plain version")
         del cache, stripe, kd, vd, q, bias, lib_mask
 
 
@@ -1022,7 +1041,7 @@ def end_to_end(torch, mode: str):
     for name, p, impl in (("kernel", pipe, "auto"), ("plain", plain, "plain"),
                           ("fp32", ref, "plain")):
         x = pe.float() if name == "fp32" else pe
-        prefill = lambda: gen._prefill(p._decoder_params, p.config.decoder, x, pm,
+        prefill = lambda: gen.prefill(p._decoder_params, p.config.decoder, x, pm,
                                        cache_len=bucket + 1, impl=impl)
         if name == "kernel":
             state, prefill_profile = device_profile(torch, f"{mode} prefill", prefill)
@@ -1123,10 +1142,100 @@ def watch_plain(torch):
     return counts, undo
 
 
+def on_path(torch, label: str, run):
+    """Check (e): ``run()`` with the entries of rows 1, 2, 3b, 4 and 5
+    watched where the model calls them (the attention wrappers; for the
+    int8 weight products ``quant_apply`` and ``quant_apply_stacked``, which
+    hand an int8 leaf to ``quant_matmul`` and ``quant_matmul_stacked``). The
+    first call of each at each input shape is repeated at once, before
+    anything writes over its inputs, with ``impl="plain"``, and the two are
+    held to the row's limits as phase 3 holds them: the weight products in
+    units of max |ref|, the attention rows in their own units, on the query
+    rows that see a key; each also ||diff|| / ||ref|| <= REL_NORM_TOL.
+    Prints a line a call; returns {name at shape: the comparison}."""
+    from trace_tpu_torch.model import mistral, vit
+
+    def shape_of(x):
+        """A tensor's shape, an int8 stripe's, else None (ints, flags: the
+        layer index of a stacked weight too, so that layer 0 stands for all)."""
+        if torch.is_tensor(x):
+            return str(list(x.shape))
+        if isinstance(x, dict):
+            return "{" + ", ".join(f"{k} {list(v.shape)}" for k, v in sorted(x.items())) + "}"
+        return None
+
+    def row_of(attr, a, k):
+        """The row a call runs, or None for a call that reaches no kernel."""
+        if attr.startswith("quant_apply"):
+            int8 = isinstance(a[1], dict) and "q" in a[1]
+            return ("quant_matmul" + attr[len("quant_apply"):]) if int8 else None
+        if attr == "decode_attention" and isinstance(a[1], dict):
+            return f"decode_attention_int8_{k.get('mode', 's8dot')}"
+        return attr
+
+    def held(name, a, out, ref):
+        if name.startswith("quant_matmul"):
+            unit = ref.abs().max()
+            r = compare(name, out.float() / unit, ref.float() / unit)
+            r["err"] *= unit.item()
+            return r
+        if name == "vit_attention_btd":
+            tq = a[3]
+            return compare(name, out[:, :tq], ref[:, :tq])
+        seen = a[3] > -1e29  # [B, T] or [B, S]: the visible keys
+        if name == "flash_attention":  # causal: row t sees keys <= t
+            rows = seen.int().cumsum(-1) > 0
+            pick = lambda o: o.transpose(1, 2)[rows]
+            return compare(name, pick(out), pick(ref))
+        rows = seen.any(-1)
+        return compare(name, out[rows], ref[rows])
+
+    results, saved = {}, []
+
+    def watched(mod, attr):
+        orig = getattr(mod, attr)
+
+        def wrapped(*a, **k):
+            out = orig(*a, **k)
+            name = row_of(attr, a, k)
+            shapes = ", ".join(filter(None, map(shape_of, a)))
+            key = (name, shapes)
+            if name and k.get("impl", "auto") == "auto" and key not in results:
+                ref = orig(*a, **{**k, "impl": "plain"})
+                results[key] = dict(held(name, a, out, ref), name=name, shapes=shapes)
+            return out
+        return wrapped
+
+    for mod, attr in ((mistral, "flash_attention"), (vit, "vit_attention_btd"),
+                      (mistral, "decode_attention"), (mistral, "quant_apply"),
+                      (mistral, "quant_apply_stacked")):
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, watched(mod, attr))
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+    bad = []
+    for r in results.values():
+        atol, rtol = KERNEL_TOL[r["name"]]
+        print(f"corpus check (e), {label}: {r['name']} on [{r['shapes']}]: max_abs_err="
+              f"{r['err']:.6g} excess={r['excess']:.3g} (|diff| <= {atol} + {rtol} |ref|) "
+              f"rel_norm_err={r['rel_norm']:.3g} (<= {REL_NORM_TOL})", flush=True)
+        if not (r["excess"] <= 0 and r["rel_norm"] <= REL_NORM_TOL):
+            bad.append(f"{r['name']} on [{r['shapes']}]")
+    if bad:
+        fail(f"corpus (e), {label}: kernel and plain version disagree on the path's "
+             f"inputs: {bad}")
+    return out, {f"{r['name']} [{r['shapes']}]": {k: r[k] for k in ("err", "excess", "rel_norm")}
+                 for r in results.values()}
+
+
 def corpus_phase(torch):
     """Phase 5: the bench's default serving workload through the port's
     entry points (``prepare_sample_host_np`` -> ``infer_events_corpus``) at
-    full width, with checks (a)-(d) of the module docstring."""
+    full width, with checks (a)-(e) of the module docstring."""
     import numpy as np
 
     from trace_tpu_torch import EventPredictions
@@ -1148,9 +1257,14 @@ def corpus_phase(torch):
     cfg = dataclasses.replace(TraceConfig(), upload_format="yuv420")
     params, cfg = int8_serving(
         init_trace_params(cfg, torch.Generator(device="cuda").manual_seed(SEED)), cfg)
-    torch.cuda.synchronize()
     pipe = TracePipeline(params, cfg, SpmLikeTokenizer())
     del params
+    torch.cuda.synchronize()
+    gib = lambda n: n / 2 ** 30
+    # where the peak is set: model set-up (bf16 weights quantized to int8),
+    # then per pass the encode before the first chunk's prefill and the rest
+    memory = {"setup_peak": gib(torch.cuda.max_memory_allocated()),
+              "setup_held": gib(torch.cuda.memory_allocated())}
     rng = np.random.default_rng(SEED)
     ts = [[round(i * 1.7, 1)] for i in range(FRAMES)]
     t1 = time.perf_counter()
@@ -1183,6 +1297,11 @@ def corpus_phase(torch):
         fail("corpus (b): i420_band_to_patches on the card disagrees with the CPU")
     del ref, got, diff
 
+    # (e) row 2 on an encode batch's own inputs
+    pipe._prepare_memory_layout()
+    _, path = on_path(torch, "encode", lambda: pipe._encode_prepared(
+        [pipe._upload_prepared(pool[i]) for i in range(2)])[0])
+
     fns = (flash_attention, vit_attention_btd, decode_attention, quant_matmul,
            quant_matmul_stacked)
     calls: dict = {}   # pass -> [(tokens, decode_steps)] per chunk, in order
@@ -1191,6 +1310,10 @@ def corpus_phase(torch):
     current = {"pass": None}
 
     def recording(*a, **k):
+        window = memory[current["pass"]]
+        if "encode_peak" not in window:  # the first chunk's prefill starts
+            window["encode_peak"] = gib(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
         if current["pass"] == "A" and "prefix" not in captured:
             pb = k["prefill_batch"]
             captured["prefix"] = a[2][0][:pb].clone()  # the list hands it over
@@ -1206,18 +1329,22 @@ def corpus_phase(torch):
     try:
         for name, streamed, new in CORPUS_PASSES:
             current["pass"] = name
+            captured.pop("arena", None)  # the last pass's arena: not held into this one
             for fn in fns:
                 fn.launches = 0
             for m in decode_attention.launches_int8:
                 decode_attention.launches_int8[m] = 0
             plain_counts.update(dict.fromkeys(plain_counts, 0))
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            memory[name] = {"held_at_start": gib(torch.cuda.memory_allocated())}
             t0 = time.perf_counter()
             preds = pipe.infer_events_corpus(
                 lambda i: pool[i % CORPUS_POOL], CORPUS_VIDEOS, encode_batch=2,
                 decode_batch=CORPUS_BATCH, prefill_batch=2, max_new_tokens=new,
                 token_budget=CORPUS_BUDGET, streamed=streamed)
             wall = time.perf_counter() - t0
+            memory[name]["after_peak"] = gib(torch.cuda.max_memory_allocated())
             s = dict(pipe.last_corpus_stats)
             steps = sum(n for _, n in calls[name])
             got_launches = {"flash_attention": flash_attention.launches,
@@ -1247,7 +1374,20 @@ def corpus_phase(torch):
         gen.generate_split = orig
         undo()
 
-    serving_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    serving_peak = max(memory["setup_peak"], *(v for name, *_ in CORPUS_PASSES
+                                                for v in memory[name].values()))
+    arena = captured["arena"]
+    memory["arena"] = gib(sum(t.nbytes for t in arena.values()))
+    bucket = arena["kq"].shape[3] - CORPUS_BUDGET  # a store: [32, bucket, D] bf16
+    memory["store"] = gib(CORPUS_BATCH * bucket * cfg.decoder.hidden_size * 2)
+    print(f"corpus memory (GiB allocated): set-up peak {memory['setup_peak']:.2f}, "
+          f"{memory['setup_held']:.2f} held after (the int8 weights); "
+          + "; ".join(f"pass {name}: {memory[name]['held_at_start']:.2f} held at its start, "
+                      f"peak {memory[name]['encode_peak']:.2f} before the first chunk's "
+                      f"prefill, {memory[name]['after_peak']:.2f} after"
+                      for name, *_ in CORPUS_PASSES)
+          + f"; the arena {memory['arena']:.2f}, a chunk's store {memory['store']:.2f}",
+          flush=True)
 
     # (a) pass A's tokens are the first tokens of pass B's streams
     a_tok = np.concatenate([t for t, _ in calls["A"]])
@@ -1288,6 +1428,8 @@ def corpus_phase(torch):
         walls.append(time.perf_counter() - t0)
     _, step_profile = device_profile(torch, f"corpus decode step (B={CORPUS_BATCH}, S={S})",
                                      step)
+    # (e) rows 3b, 4 and 5 on the step's own inputs
+    path.update(on_path(torch, "decode step", step)[1])
     step_profile["wall_ms"] = 1e3 * statistics.median(walls[1:])
     print(f"corpus decode step (B={CORPUS_BATCH}): {step_profile['wall_ms']:.2f} ms wall "
           "(median of 5, synchronised)", flush=True)
@@ -1304,9 +1446,14 @@ def corpus_phase(torch):
         if p is None:
             p = dequantized_fp32(dec)
         x = prefix.float() if what == "fp32" else prefix
-        state = gen._prefill(p, c, x, mask, cache_len=prefix.shape[1] + 1, impl=impl)
-        logits[what] = compute_logits(p, state[2], impl=impl)
-        del state, p
+        run = lambda: compute_logits(p, gen.prefill(
+            p, c, x, mask, cache_len=prefix.shape[1] + 1, impl=impl)[2], impl=impl)
+        if what == "kernel":  # (e) rows 1 and 4 on the prefill's own inputs
+            logits[what], held = on_path(torch, "prefill", run)
+            path.update(held)
+        else:
+            logits[what] = run()
+        del p
     heads = gen.head_mask_table(cfg.decoder, "cuda")[1]
     first = (logits["kernel"] + heads).argmax(-1).cpu().numpy()
     if not np.array_equal(first, a_tok[:len(first), 0]):
@@ -1328,7 +1475,8 @@ def corpus_phase(torch):
     torch.cuda.empty_cache()
     launches = {r: stats["A"]["launches"][r] for r in CORPUS_ROWS}
     return launches, {"passes": stats, "prep_s": prep_s, "peak_gib": serving_peak,
-                      "peak_gib_with_check": peak, "logits": errs,
+                      "peak_gib_with_check": peak, "memory_gib": memory,
+                      "logits": errs, "on_path": path,
                       "decode_step": step_profile, "patch_check": patch_check}
 
 

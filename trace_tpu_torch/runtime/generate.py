@@ -124,13 +124,18 @@ def _time_constraint_update(config, token, frame_chars, alive, value_pos):
     return alive, value_pos
 
 
-def _prefill(params, c, prefix_embeds, prefix_mask, *, cache_len, impl="auto",
-             cache=None):
-    """Prefill phase: returns (cache, cache_mask, last_hidden, next_pos).
-    The cache is the (k, v) pair in the prefix's dtype, or the int8 dict
-    when ``c.kv_cache_dtype == "int8"``; ``cache`` (of ``init_kv_cache``'s
-    shapes for this batch, e.g. a view of some rows of a larger cache) is
-    written in place instead of a new one."""
+def prefill(params, c, prefix_embeds, prefix_mask, *, cache_len: int, impl: str = "auto",
+            cache=None):
+    """The prefill phase, an entry point of its own (the JAX package's
+    ``prefill_jit``): a cache of ``cache_len`` slots with the prefix
+    [B, P, D] (content right-aligned) written into it. Returns (cache,
+    cache_mask, last_hidden, next_pos) for ``decode``. The cache is the
+    (k, v) pair in the prefix's dtype, or the int8 dict when
+    ``c.kv_cache_dtype == "int8"``; ``cache`` (of ``init_kv_cache``'s shapes
+    for this batch, e.g. a view of some rows of a larger cache) is written in
+    place instead of a new one. Sub-batch caches made apart merge into one
+    with ``merge_cache_rows``."""
+    prefix_mask = prefix_mask.bool()
     B, P, D = prefix_embeds.shape
     dev = prefix_embeds.device
     if cache is None:
@@ -184,7 +189,7 @@ def _prefill_into(params, c, big, prefix_embeds, prefix_mask, *, prefill_batch,
     cms, lhs, nps = [], [], []
     for r in range(0, B, prefill_batch):
         n = min(prefill_batch, B - r)
-        _, cm, lh, npos = _prefill(
+        _, cm, lh, npos = prefill(
             params, c, prefix_embeds[r:r + n], prefix_mask[r:r + n],
             cache_len=cache_len, impl=impl, cache=cache_rows(big, r, n))
         cms.append(cm)
@@ -301,17 +306,6 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def prefill(params, config, prefix_embeds, prefix_mask, *, cache_len: int,
-            impl: str = "auto"):
-    """The prefill phase as an entry point of its own (the JAX package's
-    ``prefill_jit``): a new cache of ``cache_len`` slots with the prefix
-    [B, P, D] (content right-aligned) written into it. Returns (cache,
-    cache_mask, last_hidden, next_pos) for ``decode``; sub-batch caches
-    merge into one with ``merge_cache_rows``."""
-    return _prefill(params, config, prefix_embeds, prefix_mask.bool(),
-                    cache_len=cache_len, impl=impl)
-
-
 def decode(params, config, cache, cache_mask, last_hidden, next_pos, combined_embed,
            initial_head, *, prefix_len: int, max_new_tokens: int,
            temperature: float = 0.0, eos_id: int = 2, seed: int = 0,
@@ -395,7 +389,7 @@ def _generate(params, config, prefix_embeds, prefix_mask, combined_embed, *,
 
     t0 = time.perf_counter()
     if prefill_batch is None or prefill_batch >= B:
-        cache, cache_mask, last_hidden, next_pos = _prefill(
+        cache, cache_mask, last_hidden, next_pos = prefill(
             params, config, prefix_embeds, prefix_mask,
             cache_len=cache_len, impl=impl,
             cache=None if cache is None else _arena(
