@@ -600,7 +600,8 @@ def test_p4_wrappers_refuse_what_they_do_not_take(cuda):
 
 # The split-K forms (M <= 8) of the int8 ("i8") and packed products, per
 # channel ("p4") and grouped ("p4g"): one cluster launch each, the weight
-# read once for every M <= 8. Weights made once per (form, shape).
+# read once for every M <= 8; the int8 product's wide form at M > 8, the
+# weight read once for every M <= 32. Weights made once per (form, shape).
 _SPLIT_WEIGHTS = {}
 
 
@@ -633,14 +634,18 @@ def _split_call(form, x, w, s, li=None, out_dtype=torch.bfloat16, impl="auto"):
 
 
 def _check_split(form, x, w, s, li=None, out_dtype=torch.bfloat16):
-    """One launch, its plain version's limits, and a repeat bit for bit."""
+    """One launch (of the int8 product's wide form where M > 8), its plain
+    version's limits, and a repeat bit for bit."""
     fn = (_SPLIT_STACKED if li is not None else _SPLIT_FLAT)[form]
     count = (quant_matmul_stacked if form == "i8" and li is not None
              else _SPLIT_FLAT[form])
     n = count.launches
+    by_form = dict(count.launches_by_form)
+    by_form["wide" if form == "i8" and x.shape[0] > 8 else "splitk"] += 1
     got = _split_call(form, x, w, s, li, out_dtype)
     torch.cuda.synchronize()
     assert count.launches == n + 1 and got.dtype == out_dtype, fn.__name__
+    assert count.launches_by_form == by_form, fn.__name__
     assert torch.isfinite(got).all()
     want = _split_call(form, x, w, s, li, out_dtype, impl="plain")
     if form == "i8":
@@ -673,6 +678,10 @@ def test_split_kernels_match_plain_at_every_m(cuda, form, M, K, N):
     ("p4", 3, 1000, 2048, torch.float32),   # K / 2 = 500: x read element by element
     ("p4g", 3, 1024, 2048, torch.bfloat16),  # G = 8: 4 groups a half, 64 rows a rank
     ("i8", 7, 1000, 1100, torch.bfloat16),  # ragged K and N together
+    ("i8", 32, 512, 100, torch.float32),    # the wide form: N under one strip
+    ("i8", 32, 2048, 1100, torch.bfloat16),  # N % 16 != 0: the byte-wise weight loads
+    ("i8", 32, 1000, 1100, torch.float32),  # ragged K and N: x loaded element by element
+    ("i8", 27, 1000, 2048, torch.bfloat16),  # ragged K, a tile of 27 rows
 ])
 def test_split_kernels_at_ragged_shapes(cuda, form, M, K, N, out_dtype):
     w, s = _split_weight(form, K, N, cuda)
@@ -689,6 +698,77 @@ def test_split_stacked_entries_read_the_last_layer_in_place(cuda, form):
     got = _check_split(form, x, w, s, li=L - 1)
     last = s[L - 1] if form == "p4g" else s[L - 1].reshape(-1)
     assert torch.equal(got, _SPLIT_FLAT[form](x, w[L - 1], last, out_dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(4096, 6144), (14336, 4096)])  # wqkv, w_down
+@pytest.mark.parametrize("M", [9, 16, 31, 32, 33, 64, 300])
+def test_wide_int8_form_matches_plain(cuda, M, K, N):
+    """The int8 product past 8 rows of x: tiles of 32 rows (a ragged last
+    one where M is no multiple of 32), one launch of the wide form."""
+    w, s = _split_weight("i8", K, N, cuda)
+    x = _bf16(np.random.default_rng(M), (M, K), cuda)
+    _check_split("i8", x, w, s)
+
+
+@pytest.mark.cuda
+def test_wide_form_stacked_entry_reads_the_last_layer_in_place(cuda):
+    L, K, N = 4, 4096, 1024
+    w, s = _split_weight("i8", K, N, cuda, layers=L)
+    x = _bf16(np.random.default_rng(32), (32, K), cuda)
+    got = _check_split("i8", x, w, s, li=L - 1)
+    assert torch.equal(got, quant_matmul(x, w[L - 1], s[L - 1], out_dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_wide_form_allocates_only_its_output(cuda):
+    K, N = 4096, 6144
+    w, s = _split_weight("i8", K, N, cuda)
+    x = _bf16(np.random.default_rng(36), (32, K), cuda)
+    _split_call("i8", x, w, s)  # built, loaded and planned
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = _split_call("i8", x, w, s)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before == out.untyped_storage().nbytes()
+    del out
+    assert torch.cuda.memory_allocated() == before
+
+
+@pytest.mark.cuda
+def test_decode_batch_products_replay_in_a_cuda_graph(cuda):
+    """The int8 products of a decode step at the bench's batch of 32 rows,
+    at full width (the four stacked entries of a fused 7B layer and the
+    lm_head), captured in a CUDA graph and replayed: equal to the eager
+    calls."""
+    g = torch.Generator(device=cuda).manual_seed(37)
+    calls = []
+    for K, N, out_dtype in ((4096, 6144, torch.bfloat16), (4096, 4096, torch.bfloat16),
+                            (4096, 28672, torch.float32), (14336, 4096, torch.bfloat16)):
+        q = torch.randint(-127, 128, (2, K, N), generator=g, device=cuda, dtype=torch.int8)
+        s = (torch.rand((2, N), generator=g, device=cuda) * 4e-3 + 1e-3).to(torch.bfloat16)
+        x = torch.randn((32, K), generator=g, device=cuda).to(torch.bfloat16)
+        calls.append(lambda x=x, q=q, s=s, o=out_dtype: quant_matmul_stacked(x, q, s, 1,
+                                                                            out_dtype=o))
+    q = torch.randint(-127, 128, (4096, 32000), generator=g, device=cuda, dtype=torch.int8)
+    s = (torch.rand((32000,), generator=g, device=cuda) * 4e-3 + 1e-3).to(torch.bfloat16)
+    x = torch.randn((32, 4096), generator=g, device=cuda).to(torch.bfloat16)
+    calls.append(lambda: quant_matmul(x, q, s, out_dtype=torch.float32))
+    n = quant_matmul_stacked.launches_by_form["wide"] + quant_matmul.launches_by_form["wide"]
+    eager = [f() for f in calls]  # built, loaded and planned outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [f() for f in calls]
+    for out in outs:
+        out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (quant_matmul_stacked.launches_by_form["wide"]
+            + quant_matmul.launches_by_form["wide"]) == n + 10
+    for got, want in zip(outs, eager):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -60,7 +60,8 @@ def _assert_close(got, want, x_dtype, out_dtype):
 
 @pytest.mark.parametrize("x_dtype,out_dtype", [("float32", "float32"), ("bfloat16", "bfloat16"),
                                                ("bfloat16", "float32"), ("float32", "bfloat16")])
-@pytest.mark.parametrize("M,K,N", [(2, 128, 256), (5, 200, 130), (37, 96, 72)])
+# M = 32: the bench's decode batch, the card kernel's wide tile
+@pytest.mark.parametrize("M,K,N", [(2, 128, 256), (5, 200, 130), (37, 96, 72), (32, 160, 136)])
 def test_quant_matmul_plain_matches_pallas(M, K, N, x_dtype, out_dtype):
     rng = np.random.default_rng(M + K)
     x = rng.standard_normal((M, K)).astype(np.float32)
@@ -378,12 +379,18 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
     x = _to_torch(rng.standard_normal((2, 32)).astype(np.float32))
     q, s = _weight(rng, 3, 32, 24)
     q, s = _to_torch(q), _to_torch(s, torch.bfloat16)
-    before = (tqmm.quant_matmul.launches, tqmm.quant_matmul_stacked.launches)
+    counts = lambda: (tqmm.quant_matmul.launches, tqmm.quant_matmul_stacked.launches,
+                      dict(tqmm.quant_matmul.launches_by_form),
+                      dict(tqmm.quant_matmul_stacked.launches_by_form))
+    before = counts()
     torch.testing.assert_close(tqmm.quant_matmul(x, q[0], s[0]),
                                tqmm.quant_matmul_plain(x, q[0], s[0]))
     torch.testing.assert_close(tqmm.quant_matmul_stacked(x, q, s, 2),
                                tqmm.quant_matmul_plain(x, q[2], s[2]))
-    assert (tqmm.quant_matmul.launches, tqmm.quant_matmul_stacked.launches) == before
+    x32 = _to_torch(rng.standard_normal((32, 32)).astype(np.float32))  # the wide form's M
+    torch.testing.assert_close(tqmm.quant_matmul_stacked(x32, q, s, 1),
+                               tqmm.quant_matmul_plain(x32, q[1], s[1]))
+    assert counts() == before
 
 
 def test_wrappers_refuse_bad_arguments():
@@ -408,11 +415,13 @@ def _fits(c):
 
 
 def _check_plan(plan, M, K, N, rows, step):
-    """The grid covers N and the rows of x; the cluster's shares (whole
-    k-steps) cover the weight rows, none of them empty; the cluster is
-    portable; two blocks fit an SM's shared memory."""
+    """The grid covers N and the rows of x (tiles of 8 rows, or the wide
+    form's 32); the cluster's shares (whole k-steps) cover the weight rows,
+    none of them empty; the cluster is portable; two blocks fit an SM's
+    shared memory."""
+    assert plan.tile in (tqmm.SPLIT_ROWS, tqmm.SPLIT_WIDE_ROWS)
     assert plan.strips * tqmm.SPLIT_STRIP >= N > (plan.strips - 1) * tqmm.SPLIT_STRIP
-    assert plan.row_tiles * tqmm.SPLIT_ROWS >= M > (plan.row_tiles - 1) * tqmm.SPLIT_ROWS
+    assert plan.row_tiles * plan.tile >= M > (plan.row_tiles - 1) * plan.tile
     assert 1 <= plan.cluster <= 8
     assert plan.share % step == 0
     assert plan.cluster * plan.share >= rows > (plan.cluster - 1) * plan.share
@@ -426,10 +435,11 @@ def _check_plan(plan, M, K, N, rows, step):
                                    (4096, 4096, 4096), (1, 40, 8)])
 def test_split_k_covers_k_within_the_kernels_tile(M, K, N):
     """The int8 product's plan: one cluster of up to 8 blocks along K per
-    128-column strip and tile of 8 rows of x, every cluster resident at
-    once; a decode-shaped call (the four layer shapes and the lm_head) puts
-    at least one block on each of 132 SMs in that one wave."""
-    plan = tqmm.split_plan(M, K, N, "i8", _fits)
+    128-column strip and tile of rows of x (8, or 32 where M > 8), every
+    cluster resident at once; a decode-shaped call (the four layer shapes
+    and the lm_head) puts at least one block on each of 132 SMs in that one
+    wave."""
+    plan = tqmm.split_plan(M, K, N, tqmm.int8_split_form(M), _fits)
     _check_plan(plan, M, K, N, K, 16)
     if M <= 8 and K >= 4096:
         assert 132 <= plan.blocks <= 2 * 132
@@ -445,6 +455,49 @@ def test_split_k_of_the_packed_product_covers_the_packed_rows(M, K, N):
         _check_plan(plan, M, K, N, K // 2, 8)
         if K >= 4096:
             assert 132 <= plan.blocks <= 2 * 132
+
+
+DECODE_SHAPES = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),  # wqkv .. w_down
+                 (4096, 32000))                                              # the lm_head
+
+
+@pytest.mark.parametrize("K,N", DECODE_SHAPES)
+@pytest.mark.parametrize("M", [9, 16, 32, 33, 64, 3886])
+def test_wide_int8_plan_reads_the_weight_once_up_to_32_rows(M, K, N):
+    """Past 8 rows of x the int8 product takes the wide tile: up to 32 rows
+    one row tile, so the weight is read once, and the launch is the one the
+    same shape has at M = 2, the whole grid resident in one wave; past 32
+    rows tiles of 32, each cluster of a launch still resident at once."""
+    assert tqmm.int8_split_form(M) == "i8w" and tqmm.int8_split_form(8) == "i8"
+    plan = tqmm.split_plan(M, K, N, "i8w", _fits)
+    _check_plan(plan, M, K, N, K, 16)
+    assert plan.tile == 32 and plan.row_tiles == -(-M // 32)
+    if M <= 32:
+        narrow = tqmm.split_plan(2, K, N, "i8", _fits)
+        assert plan.row_tiles == 1 and plan.blocks == narrow.blocks <= 2 * 132
+        assert (plan.cluster, plan.share) == (narrow.cluster, narrow.share)
+
+
+def _layout_smem(form):
+    """Layout<F, MT>::SMEM of csrc/qmm_split.cuh: the weight, x and scale
+    rings, the receive buffer, the stages' barriers and counters, and 1024
+    bytes for the alignment."""
+    mt, nstage = (32, 3) if form == "i8w" else (8, 5)
+    halves = 1 if form in ("i8", "i8w") else 2
+    x_stage = halves * 2 * mt * 128
+    s_stage = 4 * 128 * 2 if form == "p4g" else 0
+    rx = max(c * mt * -(-128 // c) for c in range(1, 9))
+    rx = -(-rx // 4) * 4
+    return nstage * (128 * 128 + x_stage + s_stage + 8 + 4) + rx * 4 + 1024
+
+
+@pytest.mark.parametrize("form", ["i8", "i8w", "p4", "p4g"])
+def test_split_smem_is_the_kernels_layout(form):
+    """The shared memory the plan counts on is the kernel's: two blocks an
+    SM fit (232,448 bytes a block at most, 233,472 an SM with 1 KB each
+    reserved)."""
+    assert tqmm.SPLIT_SMEM[form] == _layout_smem(form)
+    assert 2 * (tqmm.SPLIT_SMEM[form] + 1024) <= 233472
 
 
 @pytest.mark.parametrize("fits,cluster", [(lambda c: 31 if c == 8 else 264 // c, 7),

@@ -9,7 +9,8 @@
 //        before the product (that rounding is part of the function).
 //
 // Bound by bytes: the weight is streamed once (K N or K N / 2 bytes) for at
-// most 8 rows of x, a few operations per byte. What the design does:
+// most 8 rows of x (the int8 form: 32), a few operations per byte. What the
+// design does:
 //   * One launch, no workspace. A cluster of C <= 8 blocks (the portable
 //     size) owns a strip of 128 columns of y; rank r takes a contiguous
 //     share of the weight rows. The ranks' partial sums meet in distributed
@@ -23,16 +24,20 @@
 //     the four layer shapes of a 7B decode step and the lm_head launch
 //     192-250 blocks on 132 SMs, each streaming 100-512 KB.
 //   * Bytes in flight. Each block streams its share through a ring of
-//     NSTAGE = 5 stages of 128 weight rows x 128 columns (16 KB), each with
-//     its slice of x (and, for P4G, the rows of scales it touches), all by
-//     TMA onto the stage's mbarrier: up to 80 KB a block, 160 KB an SM. No
+//     NSTAGE = 5 stages (the wide tile: 3) of 128 weight rows x 128 columns
+//     (16 KB), each with its slice of x (and, for P4G, the rows of scales it
+//     touches), all by TMA onto the stage's mbarrier: up to 80 KB a block,
+//     160 KB an SM (wide: 72 and 144, a third of it x). No
 //     block barrier paces the ring: a warp that is done with a stage counts
 //     itself out on the stage's counter, and the last of the 8 refills the
 //     slot with the stage NSTAGE further on, while the others go on.
 //   * Few operations per byte. The products run on the tensor cores:
 //     mma.sync m16n8k16 with the weight as A (16 columns of the strip x 16
-//     k) and x as B (16 k x 8 rows: M <= 8 reads the weight once; a larger
-//     M takes tiles of 8 rows, each re-reading it). A k pair of the A
+//     k) and x as B (16 k x 8 rows). A block takes a tile of MT rows of x:
+//     8, or for the int8 form at M > 8 the wide tile of 32, where each A
+//     fragment, built once from the bytes, meets the four 8-row B fragments
+//     in turn; so up to 32 rows read the weight once, and a larger M takes
+//     tiles of 32 rows, each re-reading it. A k pair of the A
 //     fragment is built from the bytes in bf16x2 integer arithmetic, each
 //     step exact: int8 rows k, k+1 of a column as 128 + (b & 127) minus
 //     128 or 256 by b's sign bit; packed, the byte's low and high nibbles
@@ -42,14 +47,21 @@
 //     (int8), 3.4 (P4) and 4.4 (P4G) lane operations a weight byte against
 //     the 4.5-12 of FMAs on fp32 values. The products are exact; to keep
 //     the tensor core's truncating accumulation off long chains, each
-//     stage's at most 4 mma per warp start from zero and are added into the
-//     fp32 sums with round-to-nearest adds.
-// Layout: 8 warps = 2 column halves (64 columns: lane group g reads 8
-// neighbouring bytes, A rows g and g + 8 of n-tile j are columns 8 g + 2 j
-// and + 1) x 4 bands (the stage's k-steps in turn). A lane reads rows 2 tq
+//     stage's at most 4 mma per warp and tile start from zero and are added
+//     into the fp32 sums with round-to-nearest adds.
+// Layout, MT = 8: 8 warps = 2 column halves (64 columns: lane group g reads
+// 8 neighbouring bytes, A rows g and g + 8 of m-tile j are columns 8 g + 2 j
+// and + 1) x 4 bands (the stage's k-steps in turn). The wide tile, MT = 32:
+// 4 column quarters (32 columns: lane group g reads 4 bytes, m-tile j = 0, 1
+// its columns 4 g + 2 j and + 1) x 2 bands, so a warp holds 2 x 4 tiles of
+// 4 sums and as many of a stage's, 64 registers (32 at MT = 8; the halves'
+// layout would need 128), and a band's 4 k-steps keep the chains at 4 mma.
+// A lane reads rows 2 tq
 // and 2 tq + 1 of a k-step (int8: and + 8, + 9; packed: its k pairs tq and
 // tq + 4); weight rows and x rows sit in the 128-byte swizzle, so both
-// reads spread over all 32 banks. A k-step past the share is skipped (TMA
+// reads spread over all 32 banks. Rows of x past M read zeros (their mma
+// are skipped an n-tile at a time) and are not written. A k-step past the
+// share is skipped (TMA
 // fetches whole boxes, so the rows there are another rank's); past K the
 // copies read zeros. Shapes a tensor map cannot take (N not a multiple of
 // 16 or an unaligned weight; K or K / 2 not a multiple of 8 or an unaligned
@@ -87,27 +99,33 @@ constexpr int STRIP = 128;      // columns of y a cluster: one 128-byte swizzle 
 constexpr int ROWS = 128;       // weight rows (packed rows) a stage
 constexpr int BOX_ROWS = 32;    // rows of one weight box: a stage takes up to 4
 constexpr int XBOX = 64;        // k of one x box (128 bytes): a stage takes 2 a half
-constexpr int NSTAGE = 5;       // stages of the ring
-constexpr int MT = 8;           // rows of x a block: the mma's n
-constexpr int BANDS = 4;        // warps that share a column half, taking k-steps in turn
 constexpr int RED_STRIDE = STRIP + 4;
 constexpr int W_STAGE = ROWS * STRIP;  // weight bytes a stage, 128-byte swizzled rows
 
-// floats of the receive buffer: C ranks x MT rows x a slice of ceil(STRIP / C)
-constexpr int rx_floats() {
+// floats of the receive buffer: C ranks x mt rows x a slice of ceil(STRIP / C)
+constexpr int rx_floats(int mt) {
   int most = 0;
   for (int c = 1; c <= MAX_CLUSTER; ++c) {
-    const int n = c * MT * ((STRIP + c - 1) / c);
+    const int n = c * mt * ((STRIP + c - 1) / c);
     most = n > most ? n : most;
   }
   return (most + 3) / 4 * 4;
 }
 
-// shared memory: the weight ring, the x ring (both 1024-byte aligned, as
-// the swizzle wants), the scale ring (P4G), the receive buffer, the
-// stages' barriers and counters
-template <Form F>
+// A block's tile of MT rows of x (8, or the int8 form's wide 32), how its
+// warps share the strip and the stage, and its shared memory: the weight
+// ring, the x ring (both 1024-byte aligned, as the swizzle wants), the scale
+// ring (P4G), the receive buffer, the stages' barriers and counters
+template <Form F, int MT_ = 8>
 struct Layout {
+  static constexpr int MT = MT_;                  // rows of x a block
+  static constexpr int NTI = MT / 8;              // n-tiles of the mma: 8 rows of x each
+  static constexpr int COLS = MT == 8 ? 64 : 32;  // columns of the strip a warp
+  static constexpr int MTI = COLS / 16;           // m-tiles of the mma a warp
+  static constexpr int WORDS = COLS / 32;         // 4-byte words of a weight row a lane reads
+  static constexpr int GROUPS = STRIP / COLS;     // column groups of the strip
+  static constexpr int BANDS = WARPS / GROUPS;    // warps of a group, taking k-steps in turn
+  static constexpr int NSTAGE = MT == 8 ? 5 : 3;  // stages of the ring
   static constexpr bool PACKED = F != Form::I8;
   static constexpr int STEP = PACKED ? 8 : 16;  // weight rows a k-step of the mma
   static constexpr int HALVES = PACKED ? 2 : 1;  // x's halves a stage: k, k + K/2
@@ -116,12 +134,15 @@ struct Layout {
   static constexpr int X_OFF = NSTAGE * W_STAGE;
   static constexpr int S_OFF = X_OFF + NSTAGE * X_STAGE;
   static constexpr int RX_OFF = S_OFF + NSTAGE * S_STAGE;
-  static constexpr int BAR_OFF = RX_OFF + rx_floats() * 4;
+  static constexpr int BAR_OFF = RX_OFF + rx_floats(MT) * 4;
   static constexpr int CNT_OFF = BAR_OFF + 8 * NSTAGE;
   static constexpr int SMEM = CNT_OFF + 4 * NSTAGE + 1024;  // + alignment
+  static_assert(MT == 8 || (MT == 32 && !PACKED), "tiles of 8 rows; the int8 form also 32");
+  static_assert(ROWS / STEP % BANDS == 0 && ROWS / STEP / BANDS <= 4,
+                "a band's k-steps a stage: at most 4 mma chained from zero");
+  static_assert(BANDS * MT * RED_STRIDE * 4 <= NSTAGE * W_STAGE, "reduction buffer");
+  static_assert(2 * (SMEM + 1024) <= 233472, "two blocks an SM");
 };
-static_assert(BANDS * MT * RED_STRIDE * 4 <= NSTAGE * W_STAGE, "reduction buffer");
-static_assert(2 * (Layout<Form::P4G>::SMEM + 1024) <= 233472, "two blocks an SM");
 
 struct Params {
   const bf16* x;
@@ -142,12 +163,25 @@ __device__ __forceinline__ int sw(int r, int col) {
 }
 
 // byte of x's element k (0 .. ROWS) of row m (and half h) in a stage
+template <int MT>
 __device__ __forceinline__ int xsw(int h, int m, int k) {
   return (h * (ROWS / XBOX) + k / XBOX) * MT * 128 + sw(m, (k % XBOX) * 2);
 }
 
 __device__ __forceinline__ uint32_t lds32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// N neighbouring 4-byte words of shared memory (one 8-byte load for two)
+template <int N>
+__device__ __forceinline__ void ldw(const unsigned char* p, uint32_t (&w)[N]) {
+  if constexpr (N == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    w[0] = lds32(p);
+  }
 }
 
 __device__ __forceinline__ uint32_t hsub2(uint32_t a, uint32_t b) {
@@ -208,11 +242,11 @@ struct Maps {
 // stage touches, all completing on the stage's barrier. What a tensor map
 // cannot take the warp loads itself, into the same layout, before lane 0
 // arrives.
-template <Form F>
+template <Form F, int MT>
 __device__ __forceinline__ void refill(unsigned char* smem, const Maps& maps, const Params& p,
                                        int t, int kb, int ke, int col0, int m0) {
-  using L = Layout<F>;
-  const int lane = threadIdx.x % 32, slot = t % NSTAGE;
+  using L = Layout<F, MT>;
+  const int lane = threadIdx.x % 32, slot = t % L::NSTAGE;
   unsigned char* ws = smem + slot * W_STAGE;
   unsigned char* xs = smem + L::X_OFF + slot * L::X_STAGE;
   unsigned char* ss = smem + L::S_OFF + slot * L::S_STAGE;
@@ -237,7 +271,7 @@ __device__ __forceinline__ void refill(unsigned char* smem, const Maps& maps, co
     for (int c = lane; c < L::HALVES * MT * ROWS; c += 32) {
       const int h = c / (MT * ROWS), m = c / ROWS % MT, k = c % ROWS;
       const bool in = m0 + m < p.M && r0 + k < p.rows;
-      *reinterpret_cast<bf16*>(xs + xsw(h, m, k)) =
+      *reinterpret_cast<bf16*>(xs + xsw<MT>(h, m, k)) =
           in ? p.x[static_cast<long long>(m0 + m) * p.K + h * p.rows + r0 + k]
              : __float2bfloat16(0.f);
     }
@@ -291,12 +325,12 @@ __device__ __forceinline__ void scale_pairs(const unsigned char* st_scales, int 
   for (int e = 0; e < 8; ++e) sp[e] = __byte_perm(l[e / 2], h[e / 2], (e & 1) ? 0x7632 : 0x5410);
 }
 
-template <Form F>
+template <Form F, int MT>
 __global__ void __launch_bounds__(NT, 2)
     split_kernel(const __grid_constant__ CUtensorMap wmap,
                  const __grid_constant__ CUtensorMap xmap,
                  const __grid_constant__ CUtensorMap smap, const Params p) {
-  using L = Layout<F>;
+  using L = Layout<F, MT>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   cg::cluster_group cluster = cg::this_cluster();
@@ -308,13 +342,14 @@ __global__ void __launch_bounds__(NT, 2)
 
   const int col0 = blockIdx.y * STRIP, m0 = blockIdx.z * MT;
   const int mrows = min(MT, p.M - m0);
+  const int ntl = L::NTI == 1 ? 1 : (mrows + 7) / 8;  // n-tiles that hold rows of x
   const int kb = min(p.rows, rank * p.share), ke = min(p.rows, kb + p.share);
   const int nst = (ke - kb + ROWS - 1) / ROWS;
   const Maps maps = {&wmap, &xmap, &smap};
   float* rx = reinterpret_cast<float*>(smem + L::RX_OFF);
   const uint32_t bars = smem_u32(smem + L::BAR_OFF);
   uint32_t* cnt = reinterpret_cast<uint32_t*>(smem + L::CNT_OFF);
-  if (threadIdx.x < NSTAGE) {
+  if (threadIdx.x < L::NSTAGE) {
     mbar_init(bars + 8 * threadIdx.x, 1);
     cnt[threadIdx.x] = 0;
   }
@@ -323,44 +358,58 @@ __global__ void __launch_bounds__(NT, 2)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
-  const int half = warp % 2, band = warp / 2;
-  const int lcol = half * 64 + 8 * g;  // the lane's 8 columns of the strip
+  const int group = warp % L::GROUPS, band = warp / L::GROUPS;
+  const int lcol = group * L::COLS + (L::COLS / 8) * g;  // the lane's columns of the strip
   if (warp == 0)
-    for (int t = 0; t < min(nst, NSTAGE); ++t) refill<F>(smem, maps, p, t, kb, ke, col0, m0);
+    for (int t = 0; t < min(nst, L::NSTAGE); ++t)
+      refill<F, MT>(smem, maps, p, t, kb, ke, col0, m0);
 
   // the lane's rows 2 tq and 2 tq + 1 of a k-step in the swizzle: byte
   // offsets from the k-step's first row (the chunk c ^ (row % 8) does not
   // change with the k-step, which starts on a multiple of 8 rows)
   const int wo0 = sw(2 * tq, lcol), wo1 = sw(2 * tq + 1, lcol);
-  float acc[4][4];
+  float acc[L::MTI][L::NTI][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < L::MTI; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int n = 0; n < L::NTI; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][n][e] = 0.f;
   uint32_t sp[8];  // P4G: scale pairs of the lane's columns
   int sp_at = -1;  // P4G: (stage, group) they belong to
 
   // one k-step at row kk of stage t: d += the lane's share of its products
-  auto kstep = [&](float (&d)[4][4], const unsigned char* ws, const unsigned char* xs, int t,
-                   int slot, int r0, int kk) {
+  auto kstep = [&](float (&d)[L::MTI][L::NTI][4], const unsigned char* ws,
+                   const unsigned char* xs, int t, int slot, int r0, int kk) {
     const unsigned char* wrow = ws + kk * STRIP;
-    const uint2 w0 = *reinterpret_cast<const uint2*>(wrow + wo0);
-    const uint2 w1 = *reinterpret_cast<const uint2*>(wrow + wo1);
-    // x's k = kk + 2 tq (and + 8) of row g: 4 bytes of a 16-byte chunk
+    uint32_t w0[L::WORDS], w1[L::WORDS];
+    ldw(wrow + wo0, w0);
+    ldw(wrow + wo1, w1);
+    // x's k = kk + 2 tq (and + 8) of row 8 n + g: 4 bytes of a 16-byte chunk
     const unsigned char* xrow = xs + (kk / XBOX) * MT * 128 + g * 128 + 4 * tq;
     const int chunk = (kk % XBOX) / 8;
-    if (F == Form::I8) {
-      const uint2 w8 = *reinterpret_cast<const uint2*>(wrow + 8 * STRIP + wo0);
-      const uint2 w9 = *reinterpret_cast<const uint2*>(wrow + 8 * STRIP + wo1);
-      const uint32_t b0 = lds32(xrow + ((chunk ^ g) << 4));
-      const uint32_t b1 = lds32(xrow + (((chunk + 1) ^ g) << 4));
+    if constexpr (F == Form::I8) {
+      uint32_t w8[L::WORDS], w9[L::WORDS], b0[L::NTI], b1[L::NTI];
+      ldw(wrow + 8 * STRIP + wo0, w8);
+      ldw(wrow + 8 * STRIP + wo1, w9);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // columns 8 g + 2 j and + 1: bytes 2 j % 4 and + 1 of word j / 2
+      for (int n = 0; n < L::NTI; ++n) {
+        if (n < ntl) {  // the same in the whole block
+          b0[n] = lds32(xrow + n * 8 * 128 + ((chunk ^ g) << 4));
+          b1[n] = lds32(xrow + n * 8 * 128 + (((chunk + 1) ^ g) << 4));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < L::MTI; ++j) {
+        // the m-tile's columns c and c + 1: bytes 2 j % 4 and + 1 of word j / 2
         const uint32_t sel = (j & 1) ? 0x7632 : 0x5410;
-        const uint32_t p01 = __byte_perm(j < 2 ? w0.x : w0.y, j < 2 ? w1.x : w1.y, sel);
-        const uint32_t p89 = __byte_perm(j < 2 ? w8.x : w8.y, j < 2 ? w9.x : w9.y, sel);
-        mma(d[j], i8_pair(p01), i8_pair(p01 >> 8), i8_pair(p89), i8_pair(p89 >> 8), b0, b1);
+        const uint32_t p01 = __byte_perm(w0[j / 2], w1[j / 2], sel);
+        const uint32_t p89 = __byte_perm(w8[j / 2], w9[j / 2], sel);
+        const uint32_t a0 = i8_pair(p01), a1 = i8_pair(p01 >> 8);
+        const uint32_t a2 = i8_pair(p89), a3 = i8_pair(p89 >> 8);
+#pragma unroll
+        for (int n = 0; n < L::NTI; ++n)
+          if (n < ntl) mma(d[j][n], a0, a1, a2, a3, b0[n], b1[n]);
       }
     } else {
       // k pairs tq and tq + 4 of the mma are packed rows kk + 2 tq and + 1,
@@ -375,12 +424,12 @@ __global__ void __launch_bounds__(NT, 2)
           scale_pairs(smem + L::S_OFF + slot * L::S_STAGE, j, lcol, sp);
         }
       }
-      const uint32_t w04[2] = {w0.x >> 4, w0.y >> 4}, w14[2] = {w1.x >> 4, w1.y >> 4};
+      const uint32_t w04[2] = {w0[0] >> 4, w0[1] >> 4}, w14[2] = {w1[0] >> 4, w1[1] >> 4};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const uint32_t sel = (j & 1) ? 0x7632 : 0x5410;
-        const uint32_t qa = __byte_perm(j < 2 ? w0.x : w0.y, w04[j / 2], sel);
-        const uint32_t qb = __byte_perm(j < 2 ? w1.x : w1.y, w14[j / 2], sel);
+        const uint32_t qa = __byte_perm(w0[j / 2], w04[j / 2], sel);
+        const uint32_t qb = __byte_perm(w1[j / 2], w14[j / 2], sel);
         uint32_t a0 = p4_pair(qa), a1 = p4_pair(qa >> 8);
         uint32_t a2 = p4_pair(qb), a3 = p4_pair(qb >> 8);
         if (F == Form::P4G) {
@@ -389,32 +438,36 @@ __global__ void __launch_bounds__(NT, 2)
           a2 = hmul2(a2, sp[2 * j]);
           a3 = hmul2(a3, sp[2 * j + 1]);
         }
-        mma(d[j], a0, a1, a2, a3, b0, b1);
+        mma(d[j][0], a0, a1, a2, a3, b0, b1);
       }
     }
   };
 
   for (int t = 0; t < nst; ++t) {
-    const int slot = t % NSTAGE;
-    mbar_wait(bars + 8 * slot, (t / NSTAGE) & 1);  // stage t is in
+    const int slot = t % L::NSTAGE;
+    mbar_wait(bars + 8 * slot, (t / L::NSTAGE) & 1);  // stage t is in
     const unsigned char* ws = smem + slot * W_STAGE;
     const unsigned char* xs = smem + L::X_OFF + slot * L::X_STAGE;
     const int r0 = kb + t * ROWS, nr = min(ROWS, ke - r0);
-    float d[4][4];
+    float d[L::MTI][L::NTI][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < L::MTI; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+      for (int n = 0; n < L::NTI; ++n)
 #pragma unroll
-    for (int i = 0; i < ROWS / L::STEP / BANDS; ++i) {
-      const int kk = (band + i * BANDS) * L::STEP;  // first row of the k-step in the stage
+        for (int e = 0; e < 4; ++e) d[j][n][e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < ROWS / L::STEP / L::BANDS; ++i) {
+      const int kk = (band + i * L::BANDS) * L::STEP;  // first row of the k-step in the stage
       if (kk >= nr) break;  // the same in the whole warp
       kstep(d, ws, xs, t, slot, r0, kk);
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < L::MTI; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] += d[j][e];
+      for (int n = 0; n < L::NTI; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][n][e] += d[j][n][e];
     // count this warp out of the stage; the last one refills its slot
     __syncwarp();
     uint32_t old = 0;
@@ -422,7 +475,7 @@ __global__ void __launch_bounds__(NT, 2)
     old = __shfl_sync(0xffffffffu, old, 0);
     if (old == WARPS - 1) {
       if (lane == 0) cnt[slot] = 0;  // no warp counts on it before the refill lands
-      if (t + NSTAGE < nst) refill<F>(smem, maps, p, t + NSTAGE, kb, ke, col0, m0);
+      if (t + L::NSTAGE < nst) refill<F, MT>(smem, maps, p, t + L::NSTAGE, kb, ke, col0, m0);
     }
   }
 
@@ -430,14 +483,16 @@ __global__ void __launch_bounds__(NT, 2)
   __syncthreads();
   float* red = reinterpret_cast<float*>(smem);  // [BANDS][MT][RED_STRIDE]
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    // d[j]: A rows g, g + 8 (columns lcol + 2 j, + 1) x rows 2 tq, + 1 of x
-    float* r = red + (band * MT + 2 * tq) * RED_STRIDE + lcol + 2 * j;
-    r[0] = acc[j][0];
-    r[RED_STRIDE] = acc[j][1];
-    r[1] = acc[j][2];
-    r[RED_STRIDE + 1] = acc[j][3];
-  }
+  for (int j = 0; j < L::MTI; ++j)
+#pragma unroll
+    for (int n = 0; n < L::NTI; ++n) {
+      // d[j][n]: A rows g, g + 8 (columns lcol + 2 j, + 1) x rows 8 n + 2 tq, + 1 of x
+      float* r = red + (band * MT + 8 * n + 2 * tq) * RED_STRIDE + lcol + 2 * j;
+      r[0] = acc[j][n][0];
+      r[RED_STRIDE] = acc[j][n][1];
+      r[1] = acc[j][n][2];
+      r[RED_STRIDE + 1] = acc[j][n][3];
+    }
   __syncthreads();
   // ... then the ranks' in rank o's shared memory, o's slice of the strip
   const int slice = (STRIP + C - 1) / C;
@@ -446,7 +501,7 @@ __global__ void __launch_bounds__(NT, 2)
     const int m = i / STRIP, c = i % STRIP;
     float v = 0.f;
 #pragma unroll
-    for (int b = 0; b < BANDS; ++b) v += red[(b * MT + m) * RED_STRIDE + c];
+    for (int b = 0; b < L::BANDS; ++b) v += red[(b * MT + m) * RED_STRIDE + c];
     const int owner = c / slice;
     *cluster.map_shared_rank(rx + (rank * MT + m) * slice + c - owner * slice, owner) = v;
   }
@@ -468,12 +523,12 @@ __global__ void __launch_bounds__(NT, 2)
 }
 
 // Clusters of C blocks that can run at once, or a negative CUDA error.
-template <Form F>
+template <Form F, int MT = 8>
 int clusters_at_once(int C) {
   if (C < 1 || C > MAX_CLUSTER) return -static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = split_kernel<F>;
+  const auto kernel = split_kernel<F, MT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Layout<F>::SMEM);
+                                         Layout<F, MT>::SMEM);
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -483,7 +538,7 @@ int clusters_at_once(int C) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C, 1, 1);
   cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = Layout<F>::SMEM;
+  cfg.dynamicSmemBytes = Layout<F, MT>::SMEM;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int n = 0;
@@ -505,12 +560,12 @@ inline int tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, cons
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// One launch: grid (C, strips, tiles of 8 rows of x), clusters of C along K.
-// share: weight rows a rank (from split_plan), a multiple of the k-step, C
-// shares covering the rows.
-template <Form F>
+// One launch: grid (C, strips, tiles of MT rows of x), clusters of C along
+// K. share: weight rows a rank (from split_plan), a multiple of the k-step,
+// C shares covering the rows.
+template <Form F, int MT = 8>
 int launch(Params p, int C, int share, cudaStream_t stream) {
-  using L = Layout<F>;
+  using L = Layout<F, MT>;
   if (p.M < 1 || p.rows < 1 || p.N < 1 || C < 1 || C > MAX_CLUSTER || share < L::STEP ||
       share % L::STEP || static_cast<long long>(C) * share < p.rows)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -531,7 +586,7 @@ int launch(Params p, int C, int share, cudaStream_t stream) {
     err = tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.w, dims, strides, box,
                      CU_TENSOR_MAP_SWIZZLE_128B);
   }
-  if (err == 0 && p.xtma) {  // x [M, K] bf16, packed as [M][2][K/2]: 64 k x 8 rows a box
+  if (err == 0 && p.xtma) {  // x [M, K] bf16, packed as [M][2][K/2]: 64 k x MT rows a box
     const cuuint64_t dims[3] = {static_cast<cuuint64_t>(p.rows), 2, static_cast<cuuint64_t>(p.M)};
     const cuuint64_t strides[2] = {static_cast<cuuint64_t>(p.rows) * 2,
                                    static_cast<cuuint64_t>(p.K) * 2};
@@ -555,7 +610,7 @@ int launch(Params p, int C, int share, cudaStream_t stream) {
                      CU_TENSOR_MAP_SWIZZLE_NONE);
   }
   if (err != 0) return err;
-  return launch_clusters(split_kernel<F>, C, (p.N + STRIP - 1) / STRIP, (p.M + MT - 1) / MT,
+  return launch_clusters(split_kernel<F, MT>, C, (p.N + STRIP - 1) / STRIP, (p.M + MT - 1) / MT,
                          NT, L::SMEM, stream, wmap, xmap, smap, p);
 }
 

@@ -13,19 +13,24 @@
 // int8 streamed once, about one operation per byte and row of x. The kernel
 // is the I8 form of qmm_split.cuh: one cluster launch per product, no
 // workspace (the ranks along K exchange their partial sums through
-// distributed shared memory in rank order), long blocks in one wave, a
-// five-stage TMA ring of 16 KB stages that no block barrier paces, and the
-// products on the tensor cores (mma.sync m16n8k16) with each int8 pair
-// turned into bf16x2 by integer and bf16x2 steps that are exact. Any M, K,
-// N is right: up to 8 rows of x read the weight once; a larger M takes
-// tiles of 8 rows, each re-reading the weight (right, and slow: a
-// tensor-core form for M > 8 is still to come; prefill takes the s8 x s8
-// path). ptxas (CUDA 12.8, sm_90a): 70 registers, no spills.
+// distributed shared memory in rank order), long blocks in one wave, a TMA
+// ring of 16 KB stages that no block barrier paces, and the products on
+// the tensor cores (mma.sync m16n8k16) with each int8 pair turned into
+// bf16x2 by integer and bf16x2 steps that are exact. Two tiles of x, each
+// its own entry points: up to 8 rows a block (five stages; a decode step
+// at batch <= 8), and the wide tile of 32 rows a block for M > 8 (three
+// stages, each with 8 KB of x beside 16 KB of weight; the bench's decode
+// batch of 32), where each weight fragment, built once from the bytes,
+// meets four 8-row fragments of x. Up to 32 rows read the weight once; a
+// larger M takes tiles of 32 rows, each re-reading it (right; prefill
+// takes the s8 x s8 path). ptxas (CUDA 12.8, sm_90a): 70 registers, no
+// spills (8 rows); the wide tile: not measured yet.
 
 #include "qmm_split.cuh"
 
 namespace {
 
+template <int MT>
 int run(const void* x, const int8_t* q, const __nv_bfloat16* s, void* y, int M, int K,
         int N, int cluster, int share, int out_f32, cudaStream_t stream) {
   qsplit::Params p = {};
@@ -38,33 +43,59 @@ int run(const void* x, const int8_t* q, const __nv_bfloat16* s, void* y, int M, 
   p.N = N;
   p.rows = K;
   p.out_f32 = out_f32;
-  return qsplit::launch<qsplit::Form::I8>(p, cluster, share, stream);
+  return qsplit::launch<qsplit::Form::I8, MT>(p, cluster, share, stream);
+}
+
+template <int MT>
+int run_stacked(const void* x, const void* q, const void* s, int li, int L, void* y, int M,
+                int K, int N, int cluster, int share, int out_f32, void* stream) {
+  if (li < 0 || li >= L) return static_cast<int>(cudaErrorInvalidValue);
+  const int8_t* ql = static_cast<const int8_t*>(q) + static_cast<long long>(li) * K * N;
+  const __nv_bfloat16* sl = static_cast<const __nv_bfloat16*>(s) + static_cast<long long>(li) * N;
+  return run<MT>(x, ql, sl, y, M, K, N, cluster, share, out_f32,
+                 static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// Clusters of `cluster` blocks that run at once (the host's plan takes the
-// largest cluster that keeps a launch in one wave), or a negative CUDA error.
+// Clusters of `cluster` blocks that run at once, or a negative CUDA error
+// (the host's plan takes the largest cluster that keeps a launch in one
+// wave): the 8-row tile, and the wide one.
 extern "C" int quant_matmul_clusters_at_once(int cluster) {
   return qsplit::clusters_at_once<qsplit::Form::I8>(cluster);
 }
 
+extern "C" int quant_matmul_wide_clusters_at_once(int cluster) {
+  return qsplit::clusters_at_once<qsplit::Form::I8, 32>(cluster);
+}
+
 // One launch: clusters of `cluster` blocks along K, each rank taking `share`
-// rows (a multiple of 16; cluster * share >= K). Only y is written.
+// rows (a multiple of 16; cluster * share >= K); tiles of 8 rows of x, or
+// (_wide) of 32. Only y is written.
 extern "C" int quant_matmul_i8(const void* x, const void* q, const void* s, void* y, int M,
                                int K, int N, int cluster, int share, int out_f32,
                                void* stream) {
-  return run(x, static_cast<const int8_t*>(q), static_cast<const __nv_bfloat16*>(s), y, M,
-             K, N, cluster, share, out_f32, static_cast<cudaStream_t>(stream));
+  return run<8>(x, static_cast<const int8_t*>(q), static_cast<const __nv_bfloat16*>(s), y, M,
+                K, N, cluster, share, out_f32, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int quant_matmul_i8_wide(const void* x, const void* q, const void* s, void* y,
+                                    int M, int K, int N, int cluster, int share, int out_f32,
+                                    void* stream) {
+  return run<32>(x, static_cast<const int8_t*>(q), static_cast<const __nv_bfloat16*>(s), y,
+                 M, K, N, cluster, share, out_f32, static_cast<cudaStream_t>(stream));
 }
 
 // q [L, K, N] and s [L, N] whole; layer li is read in place.
 extern "C" int quant_matmul_stacked_i8(const void* x, const void* q, const void* s, int li,
                                        int L, void* y, int M, int K, int N, int cluster,
                                        int share, int out_f32, void* stream) {
-  if (li < 0 || li >= L) return static_cast<int>(cudaErrorInvalidValue);
-  const int8_t* ql = static_cast<const int8_t*>(q) + static_cast<long long>(li) * K * N;
-  const __nv_bfloat16* sl = static_cast<const __nv_bfloat16*>(s) + static_cast<long long>(li) * N;
-  return run(x, ql, sl, y, M, K, N, cluster, share, out_f32,
-             static_cast<cudaStream_t>(stream));
+  return run_stacked<8>(x, q, s, li, L, y, M, K, N, cluster, share, out_f32, stream);
+}
+
+extern "C" int quant_matmul_stacked_i8_wide(const void* x, const void* q, const void* s,
+                                            int li, int L, void* y, int M, int K, int N,
+                                            int cluster, int share, int out_f32,
+                                            void* stream) {
+  return run_stacked<32>(x, q, s, li, L, y, M, K, N, cluster, share, out_f32, stream);
 }

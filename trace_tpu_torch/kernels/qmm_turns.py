@@ -1,6 +1,6 @@
 """The decode-step weight products (int8, packed int4 per channel and
-grouped, at up to 8 rows of x and the int8 form beyond) timed beside other
-builds of their sources, on the card.
+grouped, at up to 8 rows of x, and the int8 products at 32) timed beside
+other builds of their sources, on the card.
 
     python -m trace_tpu_torch.kernels.qmm_turns [--against NAME=PATH ...]
 
@@ -13,8 +13,10 @@ the shapes of ``chip_smoke.py`` phase 3: the four weights of a fused 7B
 layer (``wqkv`` 4096x6144, ``wo`` 4096x4096, ``w_gateup`` 4096x28672 with an
 fp32 output, ``w_down`` 14336x4096) at M = 2 (rows 5, 6 and 7 of PERF.md)
 and M = 8, the ``lm_head`` (4096x32000, fp32 output, row 4) at M = 2, and
-the int8 layer at M = 32, the bench's decode batch, which re-reads the
-weight for each 8 rows. A source with the older interface (it exports
+the int8 layer and ``lm_head`` at M = 32, the bench's decode batch: a source
+with the wide tile (it exports ``quant_matmul_wide_clusters_at_once``) runs
+it there, an older one tiles of 8 rows, each re-reading the weight, with
+the plan it had. A source with the older interface (it exports
 ``quant_matmul_kchunk_max``) gets its workspace from the script, allocated
 once, outside the timed calls. CUDA events, median of 20 with the L2
 flushed before each run; the versions in turns, forward then backward
@@ -32,10 +34,16 @@ without the launch), and ptxas's registers and spills of each kernel.
 
 Last, where the time of this tree's int8 product goes: it is built again
 with its k-steps cut out (``stream``: what is left is the copies, the
-ring's barriers and counters and the epilogue; its output is meaningless),
-and both are timed, read-flushed, at K = 4096, M = 2 and N = 16896, 28672
+ring's barriers and counters and the epilogue), with each ``mma`` cut out
+but its operands kept (``no_mma``: the copies, the shared-memory reads of
+weight and x and the conversions stay) and with the int8 form's reads of x
+replaced by constants (``no_x``); the outputs of all three are
+meaningless. All four are timed, read-flushed, at K = 4096,
+M = 2 and N = 16896, 28672
 and 33792 (132, 224 and 264 strips of 128 columns: the busiest SM takes two
-blocks of the plan at every N, of 256, 512 and 512 KB).
+blocks of the plan at every N, of 256, 512 and 512 KB), and in the wide
+form at M = 32 and N = 28672 (``w_gateup``: 8 KB of x beside each 16 KB of
+weight).
 """
 
 from __future__ import annotations
@@ -63,13 +71,24 @@ CASES = (  # label, form, M, shapes
     ("row 7, p4g layer", "p4g", 2, LAYER), ("row 4, int8 lm_head", "i8", 2, LM_HEAD),
     ("int8 layer", "i8", 8, LAYER), ("p4 layer", "p4", 8, LAYER),
     ("p4g layer", "p4g", 8, LAYER),
-    ("int8 layer at the bench's decode batch (not a row)", "i8", 32, LAYER))
+    ("row 5 at the bench's decode batch, int8 layer", "i8", 32, LAYER),
+    ("row 4 at the bench's decode batch, int8 lm_head", "i8", 32, LM_HEAD))
 ENTRY = {"i8": ("i8", "quant_matmul_i8"), "p4": ("p4", "quant_matmul_p4_bf16"),
          "p4g": ("p4", "quant_matmul_p4_grouped_bf16")}
 ATOL, HBM = 1e-5, 3.35e12
 _KSTEP = "      kstep(d, ws, xs, t, slot, r0, kk);"  # the consumers' work on a k-step
-BREAKDOWN = {"full": (), "stream": ((_KSTEP, "      (void)kk;"),)}
-BREAKDOWN_N = (16896, 28672, 33792)
+_MMA = '  asm("mma.sync.aligned.m16n8k16'  # the tensor-core product, in mma()
+_XLOAD = ("b0[n] = lds32(xrow + n * 8 * 128 + ((chunk ^ g) << 4));",  # int8 B fragments
+          "b1[n] = lds32(xrow + n * 8 * 128 + (((chunk + 1) ^ g) << 4));")
+BREAKDOWN = {
+    "full": (),
+    "stream": ((_KSTEP, "      (void)kk;"),),
+    # the operands stay live and nothing is computed from them
+    "no_mma": ((_MMA, '  asm volatile("" :: "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));'
+                      "\n  if (0) " + _MMA.lstrip()),),
+    "no_x": tuple((load, load[:5] + " = 0x3f803f80u + n;") for load in _XLOAD),
+}
+BREAKDOWN_MN = ((2, 16896), (2, 28672), (2, 33792), (32, 28672))
 
 
 def old_kchunk(M, K, N, strip, kmax):
@@ -82,24 +101,29 @@ def old_kchunk(M, K, N, strip, kmax):
 
 def caller(lib, form, x, w, s, out_dtype):
     """A function that launches ``lib``'s entry for ``form`` once into a
-    fixed output."""
+    fixed output (the int8 product's wide entry at M > 8 where ``lib`` has
+    one)."""
     M, K = x.shape
     N = w.shape[1]
-    fn = getattr(lib, ENTRY[form][1])
+    wide = (form == "i8" and M > qmm.SPLIT_ROWS
+            and hasattr(lib, "quant_matmul_wide_clusters_at_once"))
+    fn = getattr(lib, ENTRY[form][1] + "_wide" * wide)
     fn.restype = ctypes.c_int
     y = torch.empty((M, N), dtype=out_dtype, device="cuda")
     ws = []
     if hasattr(lib, "quant_matmul_clusters_at_once") or hasattr(
             lib, "quant_matmul_p4_clusters_at_once"):
-        if form == "i8":
+        if wide:
+            ask, lead = lib.quant_matmul_wide_clusters_at_once, ()
+        elif form == "i8":
             ask, lead = lib.quant_matmul_clusters_at_once, ()
         else:
             ask, lead = lib.quant_matmul_p4_clusters_at_once, (int(form == "p4g"),)
         ask.restype = ctypes.c_int
         fit = [0] + [ask(*lead, c) for c in range(1, qmm.SPLIT_MAX_CLUSTER + 1)]
-        plan = qmm.split_plan(M, K, N, form, fit.__getitem__)
+        plan = qmm.split_plan(M, K, N, "i8w" if wide else form, fit.__getitem__)
         tail = [M, K, N, plan.cluster, plan.share]
-        how = f"{plan.blocks} blocks, clusters of {plan.cluster}"
+        how = f"{plan.blocks} blocks of {plan.tile} rows, clusters of {plan.cluster}"
     else:  # the workspace interface
         packed = form != "i8"
         const = (lib.quant_matmul_p4_strip, lib.quant_matmul_p4_kchunk_max) if packed else (
@@ -260,7 +284,7 @@ def main() -> int:
             for name, ts in times.items():
                 total[name] = [a + t for a, t in zip(total[name], ts)]
                 clean[name] += read[name]
-            if M == 2:
+            if M == 2 or M == 32:
                 profiled.append((f"{form} M = {M} {K}x{N}", runs, min(times["this"])))
             del x, w, s, dense, ref, runs
         print(f"{label}: M = {M}, the shapes together: bound {bound_ms:.4f} ms, library "
@@ -277,10 +301,10 @@ def main() -> int:
             f"{name} {device_ms(run, flush, kernel_names):.4f} ms" for name, run in runs.items())
             + f" (CUDA events, this: {event_ms:.4f} ms)", flush=True)
     libs = breakdown_libs()
-    for N in BREAKDOWN_N:
-        x, w, s, _, _ = operands(g, "i8", 2, 4096, N)
+    for M, N in BREAKDOWN_MN:
+        x, w, s, _, _ = operands(g, "i8", M, 4096, N)
         runs = {name: caller(lib, "i8", x, w, s, torch.float32) for name, lib in libs.items()}
-        print(f"where the time goes, int8 M = 2, 4096x{N} ({w.numel() / 1e6:.1f} MB, "
+        print(f"where the time goes, int8 M = {M}, 4096x{N} ({w.numel() / 1e6:.1f} MB, "
               f"{runs['full'].how}), read-flushed: " + "; ".join(
                   f"{name} {read_flushed_ms(run, flush):.4f} ms" for name, run in runs.items()),
               flush=True)

@@ -8,10 +8,13 @@ int8 ``q`` and a per-column scale: the weight-only product of every decoder
 projection of a T = 1 step (stacked: layer ``li`` of the whole ``[L, K, N]``
 leaf, read in place) and of the quantized ``lm_head`` (2-D). Bound on an
 H100: bytes, one streaming read of K x N int8; see the source for the
-design. On a CUDA tensor a wrapper launches its kernel or raises; the plain
+design. Each has two forms: up to 8 rows of x (``"splitk"``, a decode step
+at batch <= 8) and the wide tile of 32 rows for more (``"wide"``, the
+bench's decode batch of 32), both reading the weight once for every tile.
+On a CUDA tensor a wrapper launches its kernel or raises; the plain
 version runs for CPU tensors, or when the caller passes ``impl="plain"``.
 Launches are counted in ``quant_matmul.launches`` and
-``quant_matmul_stacked.launches``.
+``quant_matmul_stacked.launches``, and by form in ``launches_by_form``.
 
 ``quant_matmul_p4`` / ``quant_matmul_p4_grouped`` (and their ``_stacked``
 entries) are the weight-only products of nibble-packed int4 leaves ``{'qp',
@@ -48,12 +51,16 @@ from trace_tpu_torch.model.quantize import unpack4
 _SOURCE = "quant_matmul.cu"
 _SOURCE_P4 = "quant_matmul_p4.cu"
 # the split form's launch (csrc/qmm_split.cuh: STRIP, MT, MAX_CLUSTER,
-# Layout<F>::SMEM); a rank takes at least one stage of rows
+# Layout<F, MT>::SMEM); a rank takes at least one stage of rows. Forms: "i8"
+# (int8, tiles of SPLIT_ROWS rows of x), "i8w" (int8, the wide tile of
+# SPLIT_WIDE_ROWS rows, for M > SPLIT_ROWS), "p4" and "p4g" (packed, per
+# channel and grouped, tiles of SPLIT_ROWS; M <= SPLIT_ROWS only)
 SPLIT_STRIP = 128
 SPLIT_ROWS = 8
+SPLIT_WIDE_ROWS = 32
 SPLIT_MAX_CLUSTER = 8
 SPLIT_MIN_SHARE = 128
-SPLIT_SMEM = {"i8": 97500, "p4": 107740, "p4g": 112860}
+SPLIT_SMEM = {"i8": 97500, "i8w": 91812, "p4": 107740, "p4g": 112860}
 _ENTRIES: dict = {}  # C entry name -> its declared ctypes function
 _FIT: dict = {}      # (form, device index) -> clusters the card holds at once
 _FIT_LOCK = threading.Lock()
@@ -109,23 +116,31 @@ class SplitPlan(NamedTuple):
     cluster: int    # blocks of a cluster, one per share of the weight rows
     share: int      # weight rows (packed rows) a rank, a multiple of its k-step
     strips: int     # clusters across N, SPLIT_STRIP columns each
-    row_tiles: int  # tiles of SPLIT_ROWS rows of x, each reading the weight
+    row_tiles: int  # tiles of ``tile`` rows of x, each reading the weight
     smem: int       # bytes of shared memory a block
+    tile: int       # rows of x a block: SPLIT_ROWS, or SPLIT_WIDE_ROWS ("i8w")
 
     @property
     def blocks(self) -> int:
         return self.cluster * self.strips * self.row_tiles
 
 
+def int8_split_form(M: int) -> str:
+    """The int8 product's form for M rows of x: "i8" up to SPLIT_ROWS,
+    the wide tile "i8w" beyond."""
+    return "i8w" if M > SPLIT_ROWS else "i8"
+
+
 def split_plan(M: int, K: int, N: int, form: str, clusters_at_once) -> SplitPlan:
-    """The launch of a split weight product (``form``: "i8", "p4" or "p4g")
-    for x [M, K]: the largest cluster (up to the portable 8, each rank at
-    least SPLIT_MIN_SHARE rows) whose clusters all run at once,
-    ``clusters_at_once(c)`` being how many clusters of c blocks the card
-    holds; a cluster of 1 where none does. Shares are whole k-steps (16 int8
-    rows, 8 packed rows)."""
-    rows, step = (K, 16) if form == "i8" else (K // 2, 8)
-    strips, row_tiles = -(-N // SPLIT_STRIP), -(-M // SPLIT_ROWS)
+    """The launch of a split weight product (``form``: "i8", "i8w", "p4" or
+    "p4g") for x [M, K]: the largest cluster (up to the portable 8, each rank
+    at least SPLIT_MIN_SHARE rows) whose clusters all run at once,
+    ``clusters_at_once(c)`` being how many clusters of c blocks the form's
+    kernel holds on the card; a cluster of 1 where none does. Shares are
+    whole k-steps (16 int8 rows, 8 packed rows)."""
+    rows, step = (K, 16) if form in ("i8", "i8w") else (K // 2, 8)
+    tile = SPLIT_WIDE_ROWS if form == "i8w" else SPLIT_ROWS
+    strips, row_tiles = -(-N // SPLIT_STRIP), -(-M // tile)
     cluster = 1
     for c in range(min(SPLIT_MAX_CLUSTER, -(-rows // SPLIT_MIN_SHARE)), 1, -1):
         if strips * row_tiles <= clusters_at_once(c):
@@ -133,7 +148,13 @@ def split_plan(M: int, K: int, N: int, form: str, clusters_at_once) -> SplitPlan
             break
     per_rank = -(-rows // cluster)
     share = -(-per_rank // step) * step
-    return SplitPlan(cluster, share, strips, row_tiles, SPLIT_SMEM[form])
+    return SplitPlan(cluster, share, strips, row_tiles, SPLIT_SMEM[form], tile)
+
+
+# the int8 forms' C entries (2-D, stacked) and keys of ``launches_by_form``
+_I8_ENTRY = {"i8": ("quant_matmul_i8", "quant_matmul_stacked_i8"),
+             "i8w": ("quant_matmul_i8_wide", "quant_matmul_stacked_i8_wide")}
+_I8_FORM = {"i8": "splitk", "i8w": "wide"}
 
 
 def _check_operands(entry: str, x, q, s, out_dtype) -> None:
@@ -182,8 +203,11 @@ def _ask_fit(form: str, key, device) -> list:
             return fit
         from trace_tpu_torch.kernels.build import load
 
-        if form == "i8":
-            ask, lead = load(_SOURCE).quant_matmul_clusters_at_once, ()
+        if form in ("i8", "i8w"):
+            lib = load(_SOURCE)
+            ask = (lib.quant_matmul_wide_clusters_at_once if form == "i8w"
+                   else lib.quant_matmul_clusters_at_once)
+            lead = ()
         else:
             ask, lead = load(_SOURCE_P4).quant_matmul_p4_clusters_at_once, (int(form == "p4g"),)
         ask.restype = ctypes.c_int
@@ -212,6 +236,11 @@ def _launch(source: str, entry: str, x, q, s, lead_args, M, K, N, out_dtype, pla
     return y
 
 
+def _count(fn, form: str) -> None:
+    count_launch(fn)
+    count_launch(fn, "launches_by_form", form)
+
+
 def quant_matmul(
     x: torch.Tensor,   # [M, K]
     q: torch.Tensor,   # [K, N] int8
@@ -228,13 +257,15 @@ def quant_matmul(
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_plain(x, q, s, out_dtype)
     N = q.shape[1]
-    y = _launch(_SOURCE, "quant_matmul_i8", x, q, s.reshape(-1), (), M, K, N,
-                out_dtype or x.dtype, _plan("i8", M, K, N, x.device))
-    count_launch(quant_matmul)
+    form = int8_split_form(M)
+    y = _launch(_SOURCE, _I8_ENTRY[form][0], x, q, s.reshape(-1), (), M, K, N,
+                out_dtype or x.dtype, _plan(form, M, K, N, x.device))
+    _count(quant_matmul, _I8_FORM[form])
     return y
 
 
 quant_matmul.launches = 0
+quant_matmul.launches_by_form = {"splitk": 0, "wide": 0}
 
 
 def quant_matmul_stacked(
@@ -259,13 +290,15 @@ def quant_matmul_stacked(
     s = s.reshape(L, N)
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_plain(x, q[li], s[li], out_dtype)
-    y = _launch(_SOURCE, "quant_matmul_stacked_i8", x, q, s, (int(li), L), M, K, N,
-                out_dtype or x.dtype, _plan("i8", M, K, N, x.device))
-    count_launch(quant_matmul_stacked)
+    form = int8_split_form(M)
+    y = _launch(_SOURCE, _I8_ENTRY[form][1], x, q, s, (int(li), L), M, K, N,
+                out_dtype or x.dtype, _plan(form, M, K, N, x.device))
+    _count(quant_matmul_stacked, _I8_FORM[form])
     return y
 
 
 quant_matmul_stacked.launches = 0
+quant_matmul_stacked.launches_by_form = {"splitk": 0, "wide": 0}
 
 
 def quant_matmul_p4_plain(x, qp, s, out_dtype=None):
@@ -295,11 +328,6 @@ def _launch_p4(entry: str, x, qp, s, lead_args, M, K, N, out_dtype, grouped: boo
         return _launch(_SOURCE_P4, entry, x, qp, s, lead_args, M, K, N, out_dtype), "mma"
     plan = _plan("p4g" if grouped else "p4", M, K, N, x.device)
     return _launch(_SOURCE_P4, entry, x, qp, s, lead_args, M, K, N, out_dtype, plan), "splitk"
-
-
-def _count(fn, form: str) -> None:
-    count_launch(fn)
-    count_launch(fn, "launches_by_form", form)
 
 
 def _check_p4(x, qp, stacked: bool = False) -> int:
