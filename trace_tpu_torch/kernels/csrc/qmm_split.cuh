@@ -126,9 +126,6 @@ struct Layout {
   static constexpr int GROUPS = STRIP / COLS;     // column groups of the strip
   static constexpr int BANDS = WARPS / GROUPS;    // warps of a group, taking k-steps in turn
   static constexpr int NSTAGE = MT == 8 ? 5 : 3;  // stages of the ring
-  // the wide tile's products: a warpgroup's wgmma m64n32k16 per 64 columns,
-  // x read by the tensor cores from the ring (else mma.sync, x from registers)
-  static constexpr bool WGMMA = MT == 32;
   static constexpr bool PACKED = F != Form::I8;
   static constexpr int STEP = PACKED ? 8 : 16;  // weight rows a k-step of the mma
   static constexpr int HALVES = PACKED ? 2 : 1;  // x's halves a stage: k, k + K/2
@@ -214,47 +211,6 @@ __device__ __forceinline__ uint32_t p4_pair(uint32_t q) {
   return hsub2(v, 0x43084308u);
 }
 
-// the A fragments of the lane's MTI m-tiles of the int8 k-step whose first
-// weight row is at wrow: rows 2 tq, + 1, + 8, + 9 (offsets wo0, wo1) of its
-// 4 WORDS neighbouring columns; m-tile j is columns c + 2 j and + 1
-template <int WORDS, int MTI>
-__device__ __forceinline__ void i8_frags(const unsigned char* wrow, int wo0, int wo1,
-                                         uint32_t (&a)[MTI][4]) {
-  uint32_t w0[WORDS], w1[WORDS], w8[WORDS], w9[WORDS];
-  ldw(wrow + wo0, w0);
-  ldw(wrow + wo1, w1);
-  ldw(wrow + 8 * STRIP + wo0, w8);
-  ldw(wrow + 8 * STRIP + wo1, w9);
-#pragma unroll
-  for (int j = 0; j < MTI; ++j) {
-    // bytes 2 j % 4 and + 1 of word j / 2
-    const uint32_t sel = (j & 1) ? 0x7632 : 0x5410;
-    const uint32_t p01 = __byte_perm(w0[j / 2], w1[j / 2], sel);
-    const uint32_t p89 = __byte_perm(w8[j / 2], w9[j / 2], sel);
-    a[j][0] = i8_pair(p01);
-    a[j][1] = i8_pair(p01 >> 8);
-    a[j][2] = i8_pair(p89);
-    a[j][3] = i8_pair(p89 >> 8);
-  }
-}
-
-// d [64 x 32] (+)= A [64 x 16] B [16 x 32] on a warpgroup: A from registers
-// (warp w its rows 16 w .. 16 w + 15 in the m16n8k16 fragment), B K-major
-// in shared memory (32 rows of x, the 128-byte swizzle); accumulate = 0
-// overwrites d. d[4 n + e] is the m16n8k16 accumulator e of n-tile n.
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4],
-                                          uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
-}
-
 // d += A B, m16n8k16, bf16 in, fp32 sums
 __device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
                                     uint32_t a3, uint32_t b0, uint32_t b1) {
@@ -319,7 +275,6 @@ __device__ __forceinline__ void refill(unsigned char* smem, const Maps& maps, co
           in ? p.x[static_cast<long long>(m0 + m) * p.K + h * p.rows + r0 + k]
              : __float2bfloat16(0.f);
     }
-    if constexpr (L::WGMMA) fence_proxy_async();  // for the wgmma's reads of this x
   }
   if (F == Form::P4G && !p.stma) {
     // rows j = 0, 1: the low half's groups g0 and + 1; j = 2, 3 the high
@@ -427,12 +382,16 @@ __global__ void __launch_bounds__(NT, 2)
   auto kstep = [&](float (&d)[L::MTI][L::NTI][4], const unsigned char* ws,
                    const unsigned char* xs, int t, int slot, int r0, int kk) {
     const unsigned char* wrow = ws + kk * STRIP;
+    uint32_t w0[L::WORDS], w1[L::WORDS];
+    ldw(wrow + wo0, w0);
+    ldw(wrow + wo1, w1);
     // x's k = kk + 2 tq (and + 8) of row 8 n + g: 4 bytes of a 16-byte chunk
     const unsigned char* xrow = xs + (kk / XBOX) * MT * 128 + g * 128 + 4 * tq;
     const int chunk = (kk % XBOX) / 8;
     if constexpr (F == Form::I8) {
-      uint32_t a[L::MTI][4], b0[L::NTI], b1[L::NTI];
-      i8_frags<L::WORDS, L::MTI>(wrow, wo0, wo1, a);
+      uint32_t w8[L::WORDS], w9[L::WORDS], b0[L::NTI], b1[L::NTI];
+      ldw(wrow + 8 * STRIP + wo0, w8);
+      ldw(wrow + 8 * STRIP + wo1, w9);
 #pragma unroll
       for (int n = 0; n < L::NTI; ++n) {
         if (n < ntl) {  // the same in the whole block
@@ -441,19 +400,23 @@ __global__ void __launch_bounds__(NT, 2)
         }
       }
 #pragma unroll
-      for (int j = 0; j < L::MTI; ++j)
+      for (int j = 0; j < L::MTI; ++j) {
+        // the m-tile's columns c and c + 1: bytes 2 j % 4 and + 1 of word j / 2
+        const uint32_t sel = (j & 1) ? 0x7632 : 0x5410;
+        const uint32_t p01 = __byte_perm(w0[j / 2], w1[j / 2], sel);
+        const uint32_t p89 = __byte_perm(w8[j / 2], w9[j / 2], sel);
+        const uint32_t a0 = i8_pair(p01), a1 = i8_pair(p01 >> 8);
+        const uint32_t a2 = i8_pair(p89), a3 = i8_pair(p89 >> 8);
 #pragma unroll
         for (int n = 0; n < L::NTI; ++n)
-          if (n < ntl) mma(d[j][n], a[j][0], a[j][1], a[j][2], a[j][3], b0[n], b1[n]);
+          if (n < ntl) mma(d[j][n], a0, a1, a2, a3, b0[n], b1[n]);
+      }
     } else {
       // k pairs tq and tq + 4 of the mma are packed rows kk + 2 tq and + 1,
       // their low and high nibbles; B pairs x[k] with x[k + K/2] to match
       const uint32_t xl = lds32(xrow + ((chunk ^ g) << 4));
       const uint32_t xh = lds32(xrow + (ROWS / XBOX) * MT * 128 + ((chunk ^ g) << 4));
       const uint32_t b0 = __byte_perm(xl, xh, 0x5410), b1 = __byte_perm(xl, xh, 0x7632);
-      uint32_t w0[L::WORDS], w1[L::WORDS];
-      ldw(wrow + wo0, w0);
-      ldw(wrow + wo1, w1);
       if (F == Form::P4G) {
         const int j = (r0 + kk) / 128 - r0 / 128;
         if (t * 2 + j != sp_at) {  // the same in the whole warp
@@ -486,62 +449,25 @@ __global__ void __launch_bounds__(NT, 2)
     const unsigned char* ws = smem + slot * W_STAGE;
     const unsigned char* xs = smem + L::X_OFF + slot * L::X_STAGE;
     const int r0 = kb + t * ROWS, nr = min(ROWS, ke - r0);
-    if constexpr (L::WGMMA) {
-      // warpgroup `band`'s k-steps of the stage: their A fragments from the
-      // bytes, then the products, x read from the ring by the tensor cores
-      constexpr int KS = ROWS / L::STEP / L::BANDS;
-      uint32_t a[KS][L::MTI][4];
-      int ks = 0;  // k-steps inside the share: the same in the whole warpgroup
+    float d[L::MTI][L::NTI][4];
 #pragma unroll
-      for (int i = 0; i < KS; ++i) {
-        const int kk = (band + i * L::BANDS) * L::STEP;
-        if (kk < nr) {
-          ks = i + 1;
-          i8_frags<L::WORDS, L::MTI>(ws + kk * STRIP, wo0, wo1, a[i]);
-        }
-      }
-      float d[L::MTI][16];
-      wgmma_fence();
+    for (int j = 0; j < L::MTI; ++j)
 #pragma unroll
-      for (int i = 0; i < KS; ++i) {
-        if (i < ks) {
-          const int kk = (band + i * L::BANDS) * L::STEP;
-          const uint64_t desc = sw128_desc(smem_u32(xs) + (kk / XBOX) * MT * 128 + (kk % XBOX) * 2);
+      for (int n = 0; n < L::NTI; ++n)
 #pragma unroll
-          for (int j = 0; j < L::MTI; ++j) wgmma_n32(d[j], a[i][j], desc, i > 0);
-        }
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
+        for (int e = 0; e < 4; ++e) d[j][n][e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < L::MTI; ++j) fence_operands(d[j]);
-      if (ks > 0) {
-#pragma unroll
-        for (int j = 0; j < L::MTI; ++j)
-#pragma unroll
-          for (int e = 0; e < 16; ++e) acc[j][e / 4][e % 4] += d[j][e];
-      }
-    } else {
-      float d[L::MTI][L::NTI][4];
-#pragma unroll
-      for (int j = 0; j < L::MTI; ++j)
-#pragma unroll
-        for (int n = 0; n < L::NTI; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) d[j][n][e] = 0.f;
-#pragma unroll
-      for (int i = 0; i < ROWS / L::STEP / L::BANDS; ++i) {
-        const int kk = (band + i * L::BANDS) * L::STEP;  // first row of the k-step in the stage
-        if (kk >= nr) break;  // the same in the whole warp
-        kstep(d, ws, xs, t, slot, r0, kk);
-      }
-#pragma unroll
-      for (int j = 0; j < L::MTI; ++j)
-#pragma unroll
-        for (int n = 0; n < L::NTI; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[j][n][e] += d[j][n][e];
+    for (int i = 0; i < ROWS / L::STEP / L::BANDS; ++i) {
+      const int kk = (band + i * L::BANDS) * L::STEP;  // first row of the k-step in the stage
+      if (kk >= nr) break;  // the same in the whole warp
+      kstep(d, ws, xs, t, slot, r0, kk);
     }
+#pragma unroll
+    for (int j = 0; j < L::MTI; ++j)
+#pragma unroll
+      for (int n = 0; n < L::NTI; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][n][e] += d[j][n][e];
     // count this warp out of the stage; the last one refills its slot
     __syncwarp();
     uint32_t old = 0;

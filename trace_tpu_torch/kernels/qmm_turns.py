@@ -76,21 +76,16 @@ CASES = (  # label, form, M, shapes
 ENTRY = {"i8": ("i8", "quant_matmul_i8"), "p4": ("p4", "quant_matmul_p4_bf16"),
          "p4g": ("p4", "quant_matmul_p4_grouped_bf16")}
 ATOL, HBM = 1e-5, 3.35e12
-_KSTEP = "        kstep(d, ws, xs, t, slot, r0, kk);"  # a k-step of the 8-row tile
-_WIDE = "        if (kk < nr) {"  # the wide tile's k-steps of a stage
+_KSTEP = "      kstep(d, ws, xs, t, slot, r0, kk);"  # the consumers' work on a k-step
 _MMA = '  asm("mma.sync.aligned.m16n8k16'  # the tensor-core product, in mma()
-_WGMMA = '      "{\\n.reg .pred p;\\nsetp.ne.b32 p, %21, 0;\\n"'  # ... and in wgmma_n32()
 _XLOAD = ("b0[n] = lds32(xrow + n * 8 * 128 + ((chunk ^ g) << 4));",  # int8 B fragments
           "b1[n] = lds32(xrow + n * 8 * 128 + (((chunk + 1) ^ g) << 4));")
 BREAKDOWN = {
     "full": (),
-    "stream": ((_KSTEP, "        (void)kk;"), (_WIDE, "        if (kk < 0) {")),
+    "stream": ((_KSTEP, "      (void)kk;"),),
     # the operands stay live and nothing is computed from them
     "no_mma": ((_MMA, '  asm volatile("" :: "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));'
-                      "\n  if (0) " + _MMA.lstrip()),
-               ("  asm volatile(\n" + _WGMMA,
-                '  asm volatile("" :: "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));'
-                "\n  if (0) asm volatile(\n" + _WGMMA)),
+                      "\n  if (0) " + _MMA.lstrip()),),
     "no_x": tuple((load, load[:5] + " = 0x3f803f80u + n;") for load in _XLOAD),
 }
 BREAKDOWN_MN = ((2, 16896), (2, 28672), (2, 33792), (32, 28672))
