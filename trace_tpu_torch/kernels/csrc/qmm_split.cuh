@@ -56,23 +56,25 @@
 // its columns 4 g + 2 j and + 1) x 2 bands, so a warp holds 2 x 4 tiles of
 // 4 sums and as many of a stage's, 64 registers (32 at MT = 8; the halves'
 // layout would need 128), and a band's 4 k-steps keep the chains at 4 mma.
-// A lane reads rows 2 tq
-// and 2 tq + 1 of a k-step (int8: and + 8, + 9; packed: its k pairs tq and
-// tq + 4); weight rows and x rows sit in the 128-byte swizzle, so both
-// reads spread over all 32 banks. Rows of x past M read zeros (their mma
-// are skipped an n-tile at a time) and are not written. A k-step past the
-// share is skipped (TMA
+// A lane reads rows 2 tq and 2 tq + 1 of a k-step (int8: and + 8, + 9;
+// packed: its k pairs tq and tq + 4); weight rows and x rows sit in the
+// 128-byte swizzle, so both reads spread over all 32 banks. Rows of x past
+// M read zeros and are not written. A k-step past the share is skipped (TMA
 // fetches whole boxes, so the rows there are another rank's); past K the
 // copies read zeros. Shapes a tensor map cannot take (N not a multiple of
 // 16 or an unaligned weight; K or K / 2 not a multiple of 8 or an unaligned
 // x; N not a multiple of 8 for the scales) are loaded by the refilling warp
-// into the same layout. ptxas (CUDA 12.8, sm_90a): 70 / 64 / 90 registers
-// (I8 / P4 / P4G), no spills.
+// into the same layout. ptxas (CUDA 12.8, sm_90a): 70 / 126 / 64 / 90
+// registers (I8 / I8 wide / P4 / P4G), no spills.
 // Where the time goes (PERF.md, qmm_turns): the stream alone, with the
 // arithmetic cut out, runs at the card's read rate; the arithmetic adds
-// ~19 %, and a launch takes about as long as its busiest SM's blocks, so
-// the 224 blocks of w_gateup (two on 92 SMs, one on 40) pay for the
-// imbalance.
+// ~19 % at 8 rows, 45-50 % in the wide tile at 32, and a launch takes about
+// as long as its busiest SM's blocks, so the 224 blocks of w_gateup (two on
+// 92 SMs, one on 40) pay for the imbalance. In the wide tile the weight's
+// loads and conversions hide under the stream and the products do not:
+// cut out, the launch runs at the stream's time; x's shared-memory reads
+// cost nothing measurable, a 4-stage ring was slower, and the same products
+// as wgmma (x read from the ring) were no faster.
 
 #pragma once
 
@@ -342,7 +344,6 @@ __global__ void __launch_bounds__(NT, 2)
 
   const int col0 = blockIdx.y * STRIP, m0 = blockIdx.z * MT;
   const int mrows = min(MT, p.M - m0);
-  const int ntl = L::NTI == 1 ? 1 : (mrows + 7) / 8;  // n-tiles that hold rows of x
   const int kb = min(p.rows, rank * p.share), ke = min(p.rows, kb + p.share);
   const int nst = (ke - kb + ROWS - 1) / ROWS;
   const Maps maps = {&wmap, &xmap, &smap};
@@ -394,10 +395,8 @@ __global__ void __launch_bounds__(NT, 2)
       ldw(wrow + 8 * STRIP + wo1, w9);
 #pragma unroll
       for (int n = 0; n < L::NTI; ++n) {
-        if (n < ntl) {  // the same in the whole block
-          b0[n] = lds32(xrow + n * 8 * 128 + ((chunk ^ g) << 4));
-          b1[n] = lds32(xrow + n * 8 * 128 + (((chunk + 1) ^ g) << 4));
-        }
+        b0[n] = lds32(xrow + n * 8 * 128 + ((chunk ^ g) << 4));
+        b1[n] = lds32(xrow + n * 8 * 128 + (((chunk + 1) ^ g) << 4));
       }
 #pragma unroll
       for (int j = 0; j < L::MTI; ++j) {
@@ -408,8 +407,7 @@ __global__ void __launch_bounds__(NT, 2)
         const uint32_t a0 = i8_pair(p01), a1 = i8_pair(p01 >> 8);
         const uint32_t a2 = i8_pair(p89), a3 = i8_pair(p89 >> 8);
 #pragma unroll
-        for (int n = 0; n < L::NTI; ++n)
-          if (n < ntl) mma(d[j][n], a0, a1, a2, a3, b0[n], b1[n]);
+        for (int n = 0; n < L::NTI; ++n) mma(d[j][n], a0, a1, a2, a3, b0[n], b1[n]);
       }
     } else {
       // k pairs tq and tq + 4 of the mma are packed rows kk + 2 tq and + 1,

@@ -38,12 +38,11 @@ ring's barriers and counters and the epilogue), with each ``mma`` cut out
 but its operands kept (``no_mma``: the copies, the shared-memory reads of
 weight and x and the conversions stay) and with the int8 form's reads of x
 replaced by constants (``no_x``); the outputs of all three are
-meaningless. All four are timed, read-flushed, at K = 4096,
-M = 2 and N = 16896, 28672
-and 33792 (132, 224 and 264 strips of 128 columns: the busiest SM takes two
-blocks of the plan at every N, of 256, 512 and 512 KB), and in the wide
-form at M = 32 and N = 28672 (``w_gateup``: 8 KB of x beside each 16 KB of
-weight).
+meaningless. All four are timed, read-flushed, at K = 4096, M = 2 and N =
+16896, 28672 and 33792 (132, 224 and 264 strips of 128 columns: the busiest
+SM takes two blocks of the plan at every N, of 256, 512 and 512 KB), and in
+the wide form at M = 32 and N = 28672 (``w_gateup``: 8 KB of x beside each
+16 KB of weight).
 """
 
 from __future__ import annotations
