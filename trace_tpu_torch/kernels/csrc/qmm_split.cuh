@@ -55,8 +55,9 @@
 // 4 column quarters (32 columns: lane group g reads 4 bytes, m-tile j = 0, 1
 // its columns 4 g + 2 j and + 1) x 2 bands, so a warp holds 2 x 4 tiles of
 // 4 sums and as many of a stage's, 64 registers (32 at MT = 8; the halves'
-// layout would need 128), and a band's 4 k-steps keep the chains at 4 mma.
-// A lane reads rows 2 tq and 2 tq + 1 of a k-step (int8: and + 8, + 9;
+// layout would need 128), and a band's 4 k-steps keep the chains at 4 mma;
+// the four B fragments of a k-step come by two ldmatrix.x4. A lane reads
+// rows 2 tq and 2 tq + 1 of a k-step (int8: and + 8, + 9;
 // packed: its k pairs tq and tq + 4); weight rows and x rows sit in the
 // 128-byte swizzle, so both reads spread over all 32 banks. Rows of x past
 // M read zeros and are not written. A k-step past the share is skipped (TMA
@@ -64,7 +65,7 @@
 // copies read zeros. Shapes a tensor map cannot take (N not a multiple of
 // 16 or an unaligned weight; K or K / 2 not a multiple of 8 or an unaligned
 // x; N not a multiple of 8 for the scales) are loaded by the refilling warp
-// into the same layout. ptxas (CUDA 12.8, sm_90a): 70 / 126 / 64 / 90
+// into the same layout. ptxas (CUDA 12.8, sm_90a): 70 / 109 / 64 / 90
 // registers (I8 / I8 wide / P4 / P4G), no spills.
 // Where the time goes (PERF.md, qmm_turns): the stream alone, with the
 // arithmetic cut out, runs at the card's read rate; the arithmetic adds
@@ -72,9 +73,10 @@
 // as long as its busiest SM's blocks, so the 224 blocks of w_gateup (two on
 // 92 SMs, one on 40) pay for the imbalance. In the wide tile the weight's
 // loads and conversions hide under the stream and the products do not:
-// cut out, the launch runs at the stream's time; x's shared-memory reads
-// cost nothing measurable, a 4-stage ring was slower, and the same products
-// as wgmma (x read from the ring) were no faster.
+// cut out, the launch runs at the stream's time. x's B fragments by
+// ldmatrix, not 8 lds32 a k-step, took off 2-3 %; a 4-stage ring was
+// slower, and the same products as wgmma (x read from the ring) were no
+// faster.
 
 #pragma once
 
@@ -211,6 +213,15 @@ __device__ __forceinline__ uint32_t p4_pair(uint32_t q) {
   // nibble ^ 8 = nibble + 8 (signed) into the mantissa of 128: 136 + nibble
   const uint32_t v = ((q ^ 0x00080008u) & 0x000F000Fu) | 0x43004300u;
   return hsub2(v, 0x43084308u);
+}
+
+// four 8x8 bf16 matrices of shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8; a lane gets elements 2 (l % 4) and + 1 of row
+// l / 4 of each: the B fragment of m16n8k16 for matrices of 8 rows of x
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr));
 }
 
 // d += A B, m16n8k16, bf16 in, fp32 sums
@@ -393,10 +404,23 @@ __global__ void __launch_bounds__(NT, 2)
       uint32_t w8[L::WORDS], w9[L::WORDS], b0[L::NTI], b1[L::NTI];
       ldw(wrow + 8 * STRIP + wo0, w8);
       ldw(wrow + 8 * STRIP + wo1, w9);
+      if constexpr (L::NTI == 4) {
+        // two ldmatrix.x4: n-tiles 2 q and 2 q + 1, k chunks chunk and + 1;
+        // lane l gives row l % 8 of matrix l / 8
+        const int r = lane % 8, mq = lane / 8;
+        const uint32_t xb = smem_u32(xs) + (kk / XBOX) * MT * 128;
 #pragma unroll
-      for (int n = 0; n < L::NTI; ++n) {
-        b0[n] = lds32(xrow + n * 8 * 128 + ((chunk ^ g) << 4));
-        b1[n] = lds32(xrow + n * 8 * 128 + (((chunk + 1) ^ g) << 4));
+        for (int q = 0; q < 2; ++q) {
+          const int row = 8 * (2 * q + mq / 2) + r;
+          ldsm_x4(xb + row * 128 + (((chunk + mq % 2) ^ r) << 4), b0[2 * q], b1[2 * q],
+                  b0[2 * q + 1], b1[2 * q + 1]);
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < L::NTI; ++n) {
+          b0[n] = lds32(xrow + n * 8 * 128 + ((chunk ^ g) << 4));
+          b1[n] = lds32(xrow + n * 8 * 128 + (((chunk + 1) ^ g) << 4));
+        }
       }
 #pragma unroll
       for (int j = 0; j < L::MTI; ++j) {

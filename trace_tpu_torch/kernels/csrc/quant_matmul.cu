@@ -24,7 +24,7 @@
 // meets four 8-row fragments of x. Up to 32 rows read the weight once; a
 // larger M takes tiles of 32 rows, each re-reading it (right; prefill
 // takes the s8 x s8 path). ptxas (CUDA 12.8, sm_90a): 70 registers (8
-// rows) and 126 (the wide tile), no spills.
+// rows) and 109 (the wide tile), no spills.
 
 #include "qmm_split.cuh"
 

@@ -37,12 +37,12 @@ with its k-steps cut out (``stream``: what is left is the copies, the
 ring's barriers and counters and the epilogue), with each ``mma`` cut out
 but its operands kept (``no_mma``: the copies, the shared-memory reads of
 weight and x and the conversions stay) and with the int8 form's reads of x
-replaced by constants (``no_x``); the outputs of all three are
-meaningless. All four are timed, read-flushed, at K = 4096, M = 2 and N =
-16896, 28672 and 33792 (132, 224 and 264 strips of 128 columns: the busiest
-SM takes two blocks of the plan at every N, of 256, 512 and 512 KB), and in
-the wide form at M = 32 and N = 28672 (``w_gateup``: 8 KB of x beside each
-16 KB of weight).
+(lds32, or ldmatrix in the wide tile) replaced by constants (``no_x``);
+the outputs of all three are meaningless. All four are timed,
+read-flushed, at K = 4096, M = 2 and N = 16896, 28672 and 33792 (132, 224
+and 264 strips of 128 columns: the busiest SM takes two blocks of the plan
+at every N, of 256, 512 and 512 KB), and in the wide form at M = 32 and N =
+28672 (``w_gateup``: 8 KB of x beside each 16 KB of weight).
 """
 
 from __future__ import annotations
@@ -79,13 +79,16 @@ _KSTEP = "      kstep(d, ws, xs, t, slot, r0, kk);"  # the consumers' work on a 
 _MMA = '  asm("mma.sync.aligned.m16n8k16'  # the tensor-core product, in mma()
 _XLOAD = ("b0[n] = lds32(xrow + n * 8 * 128 + ((chunk ^ g) << 4));",  # int8 B fragments
           "b1[n] = lds32(xrow + n * 8 * 128 + (((chunk + 1) ^ g) << 4));")
+_XLDSM = "ldsm_x4(xb + row * 128 + (((chunk + mq % 2) ^ r) << 4), b0[2 * q], b1[2 * q],"
 BREAKDOWN = {
     "full": (),
     "stream": ((_KSTEP, "      (void)kk;"),),
     # the operands stay live and nothing is computed from them
     "no_mma": ((_MMA, '  asm volatile("" :: "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));'
                       "\n  if (0) " + _MMA.lstrip()),),
-    "no_x": tuple((load, load[:5] + " = 0x3f803f80u + n;") for load in _XLOAD),
+    "no_x": tuple((load, load[:5] + " = 0x3f803f80u + n;") for load in _XLOAD) + (
+        (_XLDSM, "b0[2 * q] = b1[2 * q] = b0[2 * q + 1] = b1[2 * q + 1] = 0x3f803f80u + q;\n"
+                 "          if (0) " + _XLDSM),),
 }
 BREAKDOWN_MN = ((2, 16896), (2, 28672), (2, 33792), (32, 28672))
 
