@@ -89,7 +89,9 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -873,6 +875,42 @@ def weight_only_request(torch, params, cfg, tok, videos, stamps, asks) -> dict:
 G0_LAYERS = 4  # depth of the per-channel (group 0) int4p run
 
 
+def _serving_kernels():
+    from trace_tpu_torch.kernels.decode_attention import decode_attention
+    from trace_tpu_torch.kernels.flash_attention import flash_attention, vit_attention_btd
+    from trace_tpu_torch.kernels import quant_matmul as qm
+
+    return (flash_attention, vit_attention_btd, decode_attention, qm.quant_matmul,
+            qm.quant_matmul_stacked, qm.quant_matmul_p4, qm.quant_matmul_p4_grouped)
+
+
+def reset_serving_launches() -> None:
+    """Every launch count of the serving kernels set to 0."""
+    fa, vit, da, qmm, qmm_stacked, p4, p4g = _serving_kernels()
+    for fn in (fa, vit, da, qmm, qmm_stacked, p4, p4g):
+        fn.launches = 0
+    for m in da.launches_int8:
+        da.launches_int8[m] = 0
+    for fn in (p4, p4g):
+        fn.launches_by_form.update(splitk=0, mma=0)
+    for fn in (qmm, qmm_stacked):
+        fn.launches_by_form.update(splitk=0, wide=0)
+
+
+def serving_launches() -> dict:
+    """The serving kernels' launch counts under their rows' names."""
+    fa, vit, da, qmm, qmm_stacked, p4, p4g = _serving_kernels()
+    return {"flash_attention": fa.launches,
+            "vit_attention_btd": vit.launches,
+            "decode_attention": da.launches,
+            **int8_product_launches(qmm, qmm_stacked),
+            **{f"decode_attention_int8_{m}": n for m, n in da.launches_int8.items()},
+            "quant_matmul_p4": p4.launches_by_form["splitk"],
+            "quant_matmul_p4_mma": p4.launches_by_form["mma"],
+            "quant_matmul_p4_grouped": p4g.launches_by_form["splitk"],
+            "quant_matmul_p4_grouped_mma": p4g.launches_by_form["mma"]}
+
+
 def end_to_end(torch, mode: str):
     """Phase 4: the serving path at full width, two requests, in the bf16
     (``mode="bf16"``), the int8 (``"int8"``) or the int4p serving
@@ -881,14 +919,6 @@ def end_to_end(torch, mode: str):
     import numpy as np
 
     from trace_tpu_torch import EventPredictions
-    from trace_tpu_torch.kernels.decode_attention import decode_attention
-    from trace_tpu_torch.kernels.flash_attention import flash_attention, vit_attention_btd
-    from trace_tpu_torch.kernels.quant_matmul import (
-        quant_matmul,
-        quant_matmul_p4,
-        quant_matmul_p4_grouped,
-        quant_matmul_stacked,
-    )
     from trace_tpu_torch.model.config import TraceConfig
     from trace_tpu_torch.model.mistral import compute_logits
     from trace_tpu_torch.model.quantize import int4p_serving, int8_serving
@@ -928,37 +958,13 @@ def end_to_end(torch, mode: str):
     chunks = VIDEOS * FRAMES // cfg.vit_chunk_size
     L = cfg.decoder.num_layers
 
-    def reset():
-        for fn in (flash_attention, vit_attention_btd, decode_attention,
-                   quant_matmul, quant_matmul_stacked, quant_matmul_p4,
-                   quant_matmul_p4_grouped):
-            fn.launches = 0
-        for m in decode_attention.launches_int8:
-            decode_attention.launches_int8[m] = 0
-        for fn in (quant_matmul_p4, quant_matmul_p4_grouped):
-            fn.launches_by_form.update(splitk=0, mma=0)
-        for fn in (quant_matmul, quant_matmul_stacked):
-            fn.launches_by_form.update(splitk=0, wide=0)
-
-    def counts():
-        return {"flash_attention": flash_attention.launches,
-                "vit_attention_btd": vit_attention_btd.launches,
-                "decode_attention": decode_attention.launches,
-                **int8_product_launches(quant_matmul, quant_matmul_stacked),
-                **{f"decode_attention_int8_{m}": n
-                   for m, n in decode_attention.launches_int8.items()},
-                "quant_matmul_p4": quant_matmul_p4.launches_by_form["splitk"],
-                "quant_matmul_p4_mma": quant_matmul_p4.launches_by_form["mma"],
-                "quant_matmul_p4_grouped": quant_matmul_p4_grouped.launches_by_form["splitk"],
-                "quant_matmul_p4_grouped_mma": quant_matmul_p4_grouped.launches_by_form["mma"]}
-
     launches, stats = None, []
     for request in (1, 2):
-        reset()
+        reset_serving_launches()
         t0 = time.perf_counter()
         preds = pipe.infer_events_batch(videos, stamps, asks, max_new_tokens=MAX_NEW)
         wall = time.perf_counter() - t0
-        got = counts()
+        got = serving_launches()
         s = pipe.last_stats
         steps = s["decode_steps"]
         # what the code implies: one ViT attention per layer and chunk, one
@@ -1915,6 +1921,399 @@ def profile_decode_step(torch, pipe, dec, state, mode: str) -> dict:
     return out
 
 
+# Phase 7: a TRACE checkpoint through the public API at full width. The
+# checkpoint has the keys and shapes of the released TRACE-7B merged layout
+# (the repo's manifest, 690 keys) in bf16, random values from seeded
+# generators on the card, written here in ~5 GB safetensors shards.
+CKPT_MANIFEST = "scripts/parity/manifest_trace7b_merged.json"
+CKPT_SHARD_BYTES = 5 * 10 ** 9
+CKPT_VIDEO_FRAMES = 256  # the .npy sources' frames, sampled to the config's 128
+CKPT_VIDEOS = 4          # served with one file that does not load
+CKPT_NEW = 64            # new tokens of a request
+CKPT_ROWS = ("flash_attention", "vit_attention_btd", "decode_attention_int8_s8dot",
+             "quant_matmul", "quant_matmul_stacked")
+# leaves held bit for bit against the bytes written: (key, its leaf, the
+# converter's transform of the HF tensor)
+CKPT_SAMPLES = (
+    ("model.embed_tokens.weight", lambda p: p["decoder"]["embed"], lambda w: w),
+    ("model.layers.17.self_attn.q_proj.weight", lambda p: p["decoder"]["layers"]["wq"][17],
+     lambda w: w.t().reshape(4096, 32, 128)),
+    ("model.layers.10.self_attn.o_proj.weight", lambda p: p["decoder"]["layers"]["wo"][10],
+     lambda w: w.t().reshape(32, 128, 4096)),
+    ("model.layers.31.mlp.down_proj.weight", lambda p: p["decoder"]["layers"]["w_down"][31],
+     lambda w: w.t()),
+    ("lm_head.weight", lambda p: p["decoder"]["lm_head"], lambda w: w.t()),
+    ("model.vision_tower.vision_tower.vision_model.encoder.layers.23.mlp.fc1.weight",
+     lambda p: p["vision"]["layers"]["fc1"][23], lambda w: w.t()),
+    ("model.vision_tower.vision_tower.vision_model.embeddings.patch_embedding.weight",
+     lambda p: p["vision"]["patch_embed"], lambda w: w.reshape(w.shape[0], -1).t()),
+    ("model.mm_projector.readout.weight", lambda p: p["connector"]["readout"],
+     lambda w: w.t()),
+    ("model.time_tower.embed_tokens.weight", lambda p: p["towers"]["time"], lambda w: w),
+)
+
+
+def ckpt_value(torch, index: int, key: str, shape):
+    """The bf16 tensor written for the ``index``-th key: norms 1, biases 0,
+    connector slots N(0, 1), every other weight N(0, 0.02) (the scales of
+    ``init_trace_params``), from a generator seeded with SEED + 1 + index."""
+    if key.endswith(("norm.weight", "layer_norm1.weight", "layer_norm2.weight",
+                     "ln_vision.weight")):
+        return torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+    if key.endswith(".bias"):
+        return torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1 + index)
+    scale = 1.0 if key.endswith(".slots") else 0.02
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+
+def write_safetensors(torch, path: Path, entries) -> None:
+    """A safetensors file of bf16 tensors: an 8-byte little-endian header
+    length, the JSON header (dtype, shape, data_offsets), then the raw
+    little-endian bytes. ``entries``: (key, shape, make), ``make()`` giving
+    the tensor, written one at a time."""
+    header, offset = {}, 0
+    for key, shape, _ in entries:
+        n = 2 * math.prod(shape)
+        header[key] = {"dtype": "BF16", "shape": list(shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)  # the data starts 8-byte aligned
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for key, shape, make in entries:
+            t = make().cpu()
+            if tuple(t.shape) != tuple(shape) or t.dtype != torch.bfloat16:
+                fail(f"checkpoint writer: {key} is {tuple(t.shape)} {t.dtype}")
+            f.write(t.view(torch.uint8).numpy())
+
+
+def write_checkpoint(torch, path: Path, keys, cfg) -> int:
+    """The merged checkpoint dir: ``keys`` [(key, shape)] in manifest order
+    over shards of about CKPT_SHARD_BYTES, and a config.json of ``cfg``'s
+    geometry (scripts/parity/manifest.py ``_released_config``). Returns the
+    bytes of tensor data."""
+    path.mkdir(parents=True)
+    shards, size = [[]], 0
+    for index, (key, shape) in enumerate(keys):
+        n = 2 * math.prod(shape)
+        if size and size + n > CKPT_SHARD_BYTES:
+            shards.append([])
+            size = 0
+        shards[-1].append((key, shape, lambda i=index, k=key, sh=shape: ckpt_value(torch, i, k, sh)))
+        size += n
+    for i, entries in enumerate(shards):
+        write_safetensors(torch, path / f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors",
+                          entries)
+    d = cfg.decoder
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["TraceMistralForCausalLM"], "model_type": "mistral",
+        "vocab_size": d.vocab_size, "hidden_size": d.hidden_size,
+        "intermediate_size": d.intermediate_size, "num_hidden_layers": d.num_layers,
+        "num_attention_heads": d.num_heads, "num_key_value_heads": d.num_kv_heads,
+        "head_dim": d.head_dim, "rope_theta": d.rope_theta, "rms_norm_eps": d.rms_eps,
+        "time_vocab_size": d.time_vocab_size, "score_vocab_size": d.score_vocab_size,
+        "mm_projector_type": cfg.mm_projector_type, "num_slots": cfg.num_slots,
+        "num_frames": cfg.num_frames, "image_aspect_ratio": cfg.image_aspect_ratio,
+        "mm_vision_tower": "openai/clip-vit-large-patch14-336", "torch_dtype": "bfloat16"}))
+    return sum(2 * math.prod(shape) for _, shape in keys)
+
+
+class HostPeak:
+    """The peak of this process's resident memory (VmRSS of
+    /proc/self/status, which also counts the checkpoint's pages mapped and
+    read), sampled every 20 ms while the ``with`` block runs; ``peak`` in
+    GiB."""
+
+    def __init__(self):
+        import threading
+
+        self.peak = 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _sample(self):
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    self.peak = max(self.peak, int(line.split()[1]) / 2 ** 20)
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self._sample()
+
+    def __enter__(self):
+        self._sample()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self._sample()
+
+
+def timed_calls(targets: dict):
+    """Wrap each (object, attribute) of ``targets`` {label: (obj, attr)} so
+    that its calls add their seconds to ``seconds[label]``; returns
+    (seconds, undo)."""
+    seconds, saved = dict.fromkeys(targets, 0.0), []
+    for label, (obj, attr) in targets.items():
+        orig = getattr(obj, attr)
+
+        def wrapped(*a, _orig=orig, _label=label, **k):
+            t0 = time.perf_counter()
+            try:
+                return _orig(*a, **k)
+            finally:
+                seconds[_label] += time.perf_counter() - t0
+        saved.append((obj, attr, orig))
+        setattr(obj, attr, wrapped)
+
+    def undo():
+        for obj, attr, orig in saved:
+            setattr(obj, attr, orig)
+    return seconds, undo
+
+
+def tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(tree_leaves(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def checkpoint_phase(torch, tmp: Path) -> tuple:
+    """Phase 7: write the TRACE-7B checkpoint, then (a) ``model_init`` bf16:
+    every key read once, every leaf's shape and dtype those of
+    ``init_trace_params``, sampled leaves bit-equal to the bytes written, the
+    tree on the card; (b) ``model_init`` int8: its decoder bit-equal to
+    ``quantize_decoder_params`` + ``fuse_decoder_serving`` of (a)'s tree on
+    the card, the set-up's peak card memory; (c) ``infer_events`` on an
+    ``.npy`` video: EventPredictions, the rows of the path launched, no plain
+    version on the card, the same tokens as ``infer_events_from_frames`` on
+    ``load_video_frames``' output, whose kernels are held against their
+    plain versions (check (e) of phase 5); (d) ``serve`` over the videos and
+    a file that does not load: one JSONL line each, one of them an error."""
+    import gc
+    import shutil
+
+    import numpy as np
+
+    from trace_tpu_torch import EventPredictions, infer_events
+    from trace_tpu_torch.checkpoint import convert
+    from trace_tpu_torch.model.config import TraceConfig
+    from trace_tpu_torch.model.quantize import fuse_decoder_serving, quantize_decoder_params
+    from trace_tpu_torch.native import videodec
+    from trace_tpu_torch.params import init_trace_params
+    from trace_tpu_torch.runtime import pipeline as pl
+    from trace_tpu_torch.runtime.serve_batch import serve
+    from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
+    from trace_tpu_torch.video.io import load_video_frames
+
+    gib = lambda n: n / 2 ** 30
+    t_phase = time.perf_counter()
+    stats = {}
+    try:
+        videodec.load()
+        stats["native_decoder"] = "built: FFmpeg's libraries are on this machine"
+    except videodec.NativeDecoderUnavailable as e:
+        stats["native_decoder"] = f"not available ({str(e).splitlines()[0]})"
+    meminfo = dict(line.split(":", 1) for line in Path("/proc/meminfo").read_text().splitlines())
+    stats["host"] = {"disk_free_gib": gib(shutil.disk_usage(tmp).free),
+                     "ram_available_gib": int(meminfo["MemAvailable"].split()[0]) / 2 ** 20,
+                     "ram_total_gib": int(meminfo["MemTotal"].split()[0]) / 2 ** 20}
+    print(f"checkpoint: native video decoder {stats['native_decoder']}; host: "
+          f"{stats['host']['disk_free_gib']:.1f} GiB free on disk at {tmp}, "
+          f"{stats['host']['ram_available_gib']:.1f} of {stats['host']['ram_total_gib']:.1f} "
+          "GiB of RAM available", flush=True)
+
+    manifest = json.loads((Path(__file__).resolve().parent / CKPT_MANIFEST).read_text())
+    keys = [(k, tuple(v)) for k, v in manifest["keys"].items()]
+    index = {k: i for i, (k, _) in enumerate(keys)}
+    cfg = TraceConfig()
+    ckpt = tmp / "trace-7b"
+    t0 = time.perf_counter()
+    nbytes = write_checkpoint(torch, ckpt, keys, cfg)
+    stats["write_s"] = time.perf_counter() - t0
+    files = sorted(ckpt.glob("*.safetensors"))
+    print(f"checkpoint: {len(keys)} keys ({manifest['num_keys']} in the manifest, "
+          f"{manifest['num_params']} parameters), {nbytes / 1e9:.2f} GB of bf16 in "
+          f"{len(files)} shards written in {stats['write_s']:.1f} s", flush=True)
+
+    # (a) bf16
+    reads, captured = {}, {}
+
+    class Recording(dict):
+        def __getitem__(self, k):
+            reads[k] = reads.get(k, 0) + 1
+            return super().__getitem__(k)
+
+    orig_load, orig_convert = convert.load_checkpoint_tensors, convert.convert_trace_checkpoint
+
+    def capturing(*a, **k):
+        params, config = orig_convert(*a, **k)
+        captured["leaves"] = {n: (tuple(t.shape), t.dtype)
+                              for n, t in tree_leaves(params).items()}
+        captured["samples"] = {key: leaf(params).clone() for key, leaf, _ in CKPT_SAMPLES}
+        return params, config
+
+    convert.load_checkpoint_tensors = lambda path: Recording(orig_load(path))
+    convert.convert_trace_checkpoint = capturing
+    tok = SpmLikeTokenizer()
+    inits = {}
+    try:
+        for quant in ("bf16", "int8"):
+            if quant == "int8":  # (a)'s decoder quantized on the card: (b)'s reference
+                t0 = time.perf_counter()
+                ref = fuse_decoder_serving(quantize_decoder_params(pipe.params["decoder"]))
+                ref = {"layers": {n: ref["layers"][n] for n in ("wqkv", "wo", "w_gateup", "w_down")},
+                       "lm_head": ref["lm_head"]}
+                torch.cuda.synchronize()
+                stats["card_quantize_s"] = time.perf_counter() - t0
+                del pipe
+                gc.collect()
+                torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            seconds, undo = timed_calls({
+                "read_convert_s": (convert, "convert_trace_checkpoint"),
+                "quantize_s": (pl, "int8_serving"),
+                "upload_s": (pl.TracePipeline, "_prepare_memory_layout")})
+            try:
+                with HostPeak() as host:
+                    t0 = time.perf_counter()
+                    pipe = pl.model_init(str(ckpt), quant=quant, tokenizer=tok)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                undo()
+            inits[quant] = {"model_init_s": wall, **seconds,
+                            "host_peak_gib": host.peak,
+                            "card_peak_gib": gib(torch.cuda.max_memory_allocated() - held),
+                            "card_held_gib": gib(torch.cuda.memory_allocated() - held)}
+            off = [n for n, t in tree_leaves({"p": pipe.params, "c": pipe._combined}).items()
+                   if t.device.type != "cuda"]
+            i = inits[quant]
+            print(f"checkpoint ({quant}): model_init {wall:.1f} s (read + convert "
+                  f"{i['read_convert_s']:.1f} s, quantize on the host {i['quantize_s']:.1f} s, "
+                  f"upload and layout {i['upload_s']:.1f} s); host peak RSS "
+                  f"{host.peak:.2f} GiB; card peak {i['card_peak_gib']:.2f} GiB during "
+                  f"set-up, {i['card_held_gib']:.2f} held after; leaves off the card: "
+                  f"{off or 'none'}", flush=True)
+            if off:
+                fail(f"checkpoint ({quant}): model_init left {off} off the card")
+            if quant == "bf16":
+                if reads != dict.fromkeys(manifest["keys"], 1):
+                    bad = {k: reads.get(k, 0) for k in manifest["keys"] if reads.get(k, 0) != 1}
+                    fail(f"checkpoint (a): keys not read exactly once: {list(bad.items())[:8]}")
+                want = {n: (tuple(t.shape), t.dtype) for n, t in tree_leaves(init_trace_params(
+                    cfg, torch.Generator(), device="meta")).items()}
+                if captured["leaves"] != want:
+                    diff = sorted(set(captured["leaves"].items()) ^ set(want.items()))
+                    fail(f"checkpoint (a): converted leaves differ from init_trace_params: "
+                         f"{diff[:6]}")
+                for key, _, transform in CKPT_SAMPLES:
+                    ref_t = transform(ckpt_value(torch, index[key], key, dict(keys)[key])).cpu()
+                    if not torch.equal(captured["samples"][key].view(torch.int16),
+                                       ref_t.contiguous().view(torch.int16)):
+                        fail(f"checkpoint (a): the leaf of {key} is not the bytes written")
+                print(f"checkpoint check (a): {len(reads)} keys read once each; "
+                      f"{len(want)} leaves of init_trace_params' shapes and dtypes; "
+                      f"{len(CKPT_SAMPLES)} sampled leaves bit-equal to the bytes written",
+                      flush=True)
+    finally:
+        convert.load_checkpoint_tensors, convert.convert_trace_checkpoint = orig_load, orig_convert
+    stats["model_init"] = inits
+
+    # (b) the int8 decoder against (a)'s quantized on the card: q and s bit
+    # for bit (both sides divide in IEEE fp32, round half to even, round the
+    # scale to bf16 to nearest even)
+    dec = pipe._decoder_params
+    got = {**dec["layers"], "lm_head": dec["lm_head"]}
+    want = {**ref["layers"], "lm_head": ref["lm_head"]}
+    bits = {"q": torch.int8, "s": torch.int16}
+    mismatched = [f"{n}/{part}" for n in want for part in ("q", "s")
+                  if not torch.equal(got[n][part].view(bits[part]), want[n][part].view(bits[part]))]
+    print(f"checkpoint check (b): the int8 decoder (host-quantized) against (a)'s quantized on "
+          f"the card ({stats['card_quantize_s']:.1f} s): mismatched leaves "
+          f"{mismatched or 'none'} (limit: bit-equal q and s); set-up peak "
+          f"{inits['int8']['card_peak_gib']:.2f} GiB on the card against phase 5's 25.35 GiB "
+          "quantizing on the card", flush=True)
+    if mismatched:
+        fail(f"checkpoint (b): host and card quantization differ in {mismatched}")
+    del ref, dec, got, want
+    torch.cuda.empty_cache()
+
+    # (c) infer_events on a video file, then the same frames with the kernels held
+    rng = np.random.default_rng(SEED)
+    videos = []
+    for v in range(CKPT_VIDEOS):
+        videos.append(tmp / f"video{v}.npy")
+        np.save(videos[-1], rng.integers(0, 256, (CKPT_VIDEO_FRAMES,) + CORPUS_HW + (3,),
+                                         dtype=np.uint8))
+    (tmp / "broken.npy").write_bytes(b"not a numpy file")
+    reset_serving_launches()
+    plain_counts, undo = watch_plain(torch)
+    try:
+        t0 = time.perf_counter()
+        pred = infer_events(pipe, str(videos[0]), CORPUS_ASK, max_new_tokens=CKPT_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        undo()
+    launches = serving_launches()
+    tokens = pipe.last_stats["tokens"]
+    plain = {k: v for k, v in plain_counts.items() if v}
+    s = pipe.last_stats
+    stats["request"] = {"wall_s": wall, "encode_s": s["encode_s"], "prefill_s": s["prefill_s"],
+                        "decode_s": s["decode_s"], "decode_steps": s["decode_steps"],
+                        "prefix_tokens": s["prefix_tokens"], "launches": launches}
+    print(f"checkpoint check (c): infer_events on {videos[0].name} ({CKPT_VIDEO_FRAMES} frames "
+          f"{CORPUS_HW[1]}x{CORPUS_HW[0]}, sampled to {cfg.num_frames}): wall {wall:.2f} s "
+          f"(encode {s['encode_s']:.2f} s, prefill {s['prefill_s']:.3f} s, "
+          f"{s['decode_steps']} steps {1e3 * s['decode_s'] / max(s['decode_steps'], 1):.2f} "
+          f"ms/step), {s['prefix_tokens']} prefix tokens; events "
+          f"{len(pred.timestamps)}; launches {launches}; plain versions on the card: "
+          f"{plain or 'none'}", flush=True)
+    idle = [r for r in CKPT_ROWS if launches[r] <= 0]
+    if not isinstance(pred, EventPredictions) or idle or plain:
+        fail(f"checkpoint (c): output {type(pred).__name__}, rows {idle} not launched, plain "
+             f"versions {plain} on the card")
+    check_head_slices(cfg.decoder, tokens)
+    frames, ts = load_video_frames(str(videos[0]), cfg.num_frames)
+    _, held = on_path(torch, "checkpoint request", lambda: pipe.infer_events_from_frames(
+        frames, ts, CORPUS_ASK, max_new_tokens=CKPT_NEW))
+    stats["on_path"] = held
+    if not np.array_equal(pipe.last_stats["tokens"], tokens):
+        fail("checkpoint (c): infer_events and infer_events_from_frames on the same frames "
+             "gave other tokens")
+    print(f"checkpoint check (c): infer_events_from_frames on load_video_frames' output gave "
+          f"the same {tokens.shape[1]} tokens", flush=True)
+
+    # (d) the serving CLI's entry over the videos and the broken file
+    paths = [str(v) for v in videos] + [str(tmp / "broken.npy")]
+    out = tmp / "serve.jsonl"
+    result = serve(pipe, paths, str(out), frames=cfg.num_frames, max_new_tokens=CKPT_NEW)
+    lines = [json.loads(line) for line in out.read_text().splitlines()]
+    errors = [line for line in lines if "error" in line]
+    stats["serve"] = result
+    print(f"checkpoint check (d): serve over {len(paths)} files: {len(lines)} JSONL lines, "
+          f"{len(errors)} error ({errors[0]['error'][:60] if errors else ''}); "
+          f"{result['videos_per_s']:.4f} videos/s ({result['seconds']:.2f} s, {CKPT_NEW} new "
+          "tokens, decode batch 32)", flush=True)
+    if len(lines) != len(paths) or len(errors) != 1 or "broken" not in errors[0]["video"]:
+        fail("checkpoint (d): serve did not write one line a video with the one error")
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"checkpoint: phase 7 took {stats['seconds']:.1f} s", flush=True)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
 def main() -> int:
     try:
         import torch
@@ -1943,6 +2342,10 @@ def main() -> int:
     print(f"build: {len(build.SOURCES)} CUDA sources in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    if sys.argv[1:] == ["--checkpoint"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps(checkpoint_phase(torch, Path(tmp))[1]), flush=True)
+        return 0
     rows = kernel_checks(torch)
     if sys.argv[1:] == ["--kernels"]:
         print(json.dumps({name: {k: v for k, v in r.items()} for name, r in rows.items()}))
@@ -1964,6 +2367,11 @@ def main() -> int:
         train_launches, train_stats, grad_check = training(torch, Path(tmp))
     for name, n in train_launches.items():
         launches.setdefault(name, n)
+    with tempfile.TemporaryDirectory() as tmp:  # the checkpoint, videos and JSONL
+        ckpt_launches, ckpt_stats = checkpoint_phase(torch, Path(tmp))
+    for name, n in ckpt_launches.items():
+        if n:
+            launches.setdefault(name, n)
     second = stats[1::2]  # the second request of each path
     per_step = lambda s: 1e3 * s["decode_s"] / max(s["decode_steps"], 1)
     col = lambda f: " | ".join(f(s) for s in second)
@@ -2022,7 +2430,7 @@ def main() -> int:
     if idle:
         fail(f"no path launched {idle}")
     print(json.dumps({"requests": stats, "e2e": e2e, "corpus": corpus, "training": train_stats,
-                      "gradient_check": grad_check, "card": card,
+                      "gradient_check": grad_check, "checkpoint": ckpt_stats, "card": card,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

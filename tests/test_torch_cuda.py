@@ -1267,3 +1267,130 @@ def test_streamed_corpus_matches_two_phase_on_the_card(cuda):
     assert len(tokens["streamed"]) == len(tokens["two_phase"]) == 3
     for a, b in zip(tokens["streamed"], tokens["two_phase"]):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints on the card: model_init of a small merged checkpoint written
+# here (chip_smoke.py's safetensors writer, the released layout's key names
+# at small widths), and host quantization against quantization on the card.
+# ---------------------------------------------------------------------------
+
+def _small_checkpoint(path, layers=2):
+    """A merged TRACE checkpoint of a 256-wide decoder (head_dim 128) and a
+    128-wide 2-layer ViT (head_dim 64), the widths the attention kernels
+    take: the keys the converters read, bf16, from chip_smoke.py's writer
+    and value rule. Returns its config and config.json."""
+    import dataclasses
+    import json
+    from pathlib import Path
+
+    import chip_smoke
+    from trace_tpu_torch.model.config import DecoderConfig, TraceConfig, VisionConfig
+
+    dec = dataclasses.replace(DecoderConfig.tiny(), num_layers=layers, num_heads=2,
+                              num_kv_heads=1, head_dim=128, hidden_size=256,
+                              intermediate_size=256)
+    vision = dataclasses.replace(VisionConfig.tiny(), hidden_size=128, intermediate_size=256,
+                                 num_layers=2, num_heads=2)
+    cfg = TraceConfig(decoder=dec, vision=vision, num_slots=4, num_frames=4,
+                      dtype=torch.bfloat16)
+    D, I, V, H = dec.hidden_size, dec.intermediate_size, dec.vocab_size, dec.num_heads
+    vis, P = cfg.vision, cfg.vision.patch_size
+    keys = [("model.embed_tokens.weight", (V, D)), ("model.norm.weight", (D,)),
+            ("lm_head.weight", (V, D)), ("sync_head.weight", (1, D)),
+            ("time_head.weight", (13, D)), ("score_head.weight", (13, D))]
+    for i in range(layers):
+        lyr = f"model.layers.{i}."
+        keys += [(lyr + "input_layernorm.weight", (D,)),
+                 (lyr + "post_attention_layernorm.weight", (D,)),
+                 (lyr + "self_attn.q_proj.weight", (H * 128, D)),
+                 (lyr + "self_attn.k_proj.weight", (128, D)),
+                 (lyr + "self_attn.v_proj.weight", (128, D)),
+                 (lyr + "self_attn.o_proj.weight", (D, H * 128)),
+                 (lyr + "mlp.gate_proj.weight", (I, D)), (lyr + "mlp.up_proj.weight", (I, D)),
+                 (lyr + "mlp.down_proj.weight", (D, I))]
+    keys += [("model.mm_projector.slots", (vis.hidden_size, cfg.num_slots)),
+             ("model.mm_projector.ln_vision.weight", (vis.hidden_size,)),
+             ("model.mm_projector.ln_vision.bias", (vis.hidden_size,)),
+             ("model.mm_projector.readout.weight", (D, vis.hidden_size))]
+    keys += [(f"model.{t}_tower.embed_tokens.weight", (n, D))
+             for t, n in (("time", 13), ("score", 13), ("sync", 1))]
+    pre = "model.vision_tower.vision_tower.vision_model."
+    Dv, Iv = vis.hidden_size, vis.intermediate_size
+    keys += [(pre + "embeddings.class_embedding", (Dv,)),
+             (pre + "embeddings.patch_embedding.weight", (Dv, 3, P, P)),
+             (pre + "embeddings.position_embedding.weight", (vis.num_patches + 1, Dv)),
+             (pre + "pre_layrnorm.weight", (Dv,)), (pre + "pre_layrnorm.bias", (Dv,))]
+    for i in range(vis.num_layers):
+        lyr = pre + f"encoder.layers.{i}."
+        for ln in ("layer_norm1", "layer_norm2"):
+            keys += [(lyr + ln + ".weight", (Dv,)), (lyr + ln + ".bias", (Dv,))]
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            keys += [(lyr + f"self_attn.{proj}.weight", (Dv, Dv)),
+                     (lyr + f"self_attn.{proj}.bias", (Dv,))]
+        keys += [(lyr + "mlp.fc1.weight", (Iv, Dv)), (lyr + "mlp.fc1.bias", (Iv,)),
+                 (lyr + "mlp.fc2.weight", (Dv, Iv)), (lyr + "mlp.fc2.bias", (Dv,))]
+    chip_smoke.write_checkpoint(torch, Path(path), keys, cfg)
+    hf = json.loads((Path(path) / "config.json").read_text())
+    return cfg, hf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["bf16", "int8", "int4p"])
+def test_model_init_puts_every_leaf_on_the_card(cuda, tmp_path, monkeypatch, quant):
+    """model_init of a checkpoint dir (no device given): every leaf of the
+    pipeline's tree and its combined table on the card, and a request from an
+    ``.npy`` video gives EventPredictions."""
+    from trace_tpu_torch import EventPredictions, infer_events
+    from trace_tpu_torch.checkpoint import convert
+    from trace_tpu_torch.runtime.pipeline import model_init
+    from trace_tpu_torch.tokenizers.text import ByteTokenizer
+
+    cfg, hf = _small_checkpoint(tmp_path / "ckpt")
+    assert hf["num_hidden_layers"] == cfg.decoder.num_layers
+    orig = convert.trace_config_from_hf
+    monkeypatch.setattr(convert, "trace_config_from_hf",  # the checkpoint's small ViT
+                        lambda h, **kw: orig(h, **{"vision": cfg.vision, **kw}))
+    pipe = model_init(str(tmp_path / "ckpt"), quant=quant, tokenizer=ByteTokenizer())
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        else:
+            leaves.append(t)
+    walk(pipe.params)
+    leaves.append(pipe._combined)
+    assert leaves and all(t.is_cuda for t in leaves)
+    video = tmp_path / "v.npy"
+    np.save(video, np.random.default_rng(0).integers(0, 256, (12, 90, 160, 3), dtype=np.uint8))
+    out = infer_events(pipe, str(video), "Find the events.", max_new_tokens=12)
+    assert isinstance(out, EventPredictions)
+    assert pipe.last_stats["decode_steps"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits, pack, group", [(8, False, 128), (4, True, 128), (4, True, 0)])
+def test_host_quantization_equals_the_card(cuda, bits, pack, group):
+    """quantize_decoder_params on CPU tensors (model_init's host route) and on
+    the card (int8_serving's device route): q and s bit for bit."""
+    from trace_tpu_torch.model.config import DecoderConfig
+    from trace_tpu_torch.model.quantize import quantize_decoder_params
+    from trace_tpu_torch.params import _decoder, _Init
+
+    c = DecoderConfig(num_layers=2, hidden_size=512, intermediate_size=1024, num_heads=4,
+                      num_kv_heads=2, head_dim=128, vocab_size=1000)
+    host = _decoder(c, _Init(torch.Generator().manual_seed(3), "cpu", torch.bfloat16))
+    card = {k: ({n: v.cuda() for n, v in t.items()} if isinstance(t, dict) else t.cuda())
+            for k, t in host.items()}
+    a = quantize_decoder_params(host, bits, pack, group)
+    b = quantize_decoder_params(card, bits, pack, group)
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        for part, leaf in a["layers"][name].items():
+            other = b["layers"][name][part].cpu()
+            view = torch.int16 if leaf.dtype == torch.bfloat16 else leaf.dtype
+            assert torch.equal(leaf.view(view), other.view(view)), (name, part)
+    for part in ("q", "s"):
+        view = torch.int16 if part == "s" else torch.int8
+        assert torch.equal(a["lm_head"][part].view(view), b["lm_head"][part].cpu().view(view))

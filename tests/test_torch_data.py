@@ -135,16 +135,49 @@ def test_sampler_orders_equal(seed):
 
 
 def test_media_files_are_not_decoded(anno):
-    """Video and image records raise until the file readers are ported; the
-    text-only branch works without them."""
-    ds = tds.EventDataset(anno, ByteTokenizer(), num_frames=T, image_size=S,
-                          num_video_tokens_per_frame=10, max_len=700, text_vocab_size=V)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ds[0]
-    with pytest.raises(NotImplementedError):
-        ds[3]
-    sample = ds[2]
+    """A record whose media file is missing is not decoded: both datasets
+    warn, substitute a record drawn from the same seeded generator, and
+    return the same sample; the text-only branch needs no file."""
+    kw = dict(num_frames=T, image_size=S, num_video_tokens_per_frame=10, max_len=700,
+              text_vocab_size=V, seed=3)
+    jd = jds.EventDataset(anno, JByteTokenizer(), **kw)
+    td = tds.EventDataset(anno, ByteTokenizer(), **kw)
+    with pytest.warns(UserWarning, match="media decode failed"):
+        want = jd[0]
+    with pytest.warns(UserWarning, match="media decode failed"):
+        got = td[0]
+    assert set(got) == set(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert td.media_failures == jd.media_failures > 0
+    sample = td[2]
     assert not sample["has_video"] and not sample["frames_u8"].any()
+
+
+@pytest.mark.parametrize("scheme", ["uniform", "rand"])
+def test_video_and_image_records_match_jax(tmp_path, scheme):
+    """Video and image records read through each package's video/io.py from
+    files on disk (``.npy`` videos larger than the ViT input, downscaled on
+    the host; a png): every array of every sample equal."""
+    from PIL import Image
+
+    rng = np.random.default_rng(6)
+    np.save(tmp_path / "a.npy", rng.integers(0, 256, (30, 72, 96, 3), dtype=np.uint8))
+    np.save(tmp_path / "b.npy", rng.integers(0, 256, (9, S, S, 3), dtype=np.uint8))
+    Image.fromarray(rng.integers(0, 256, (40, 64, 3), dtype=np.uint8)).save(tmp_path / "c.png")
+    (tmp_path / "anno.json").write_text(json.dumps(RECORDS))
+    kw = dict(data_folder=str(tmp_path), num_frames=T, image_size=S,
+              num_video_tokens_per_frame=10, max_len=700, text_vocab_size=V, seed=3,
+              sample_scheme=scheme)
+    jd = jds.EventDataset(str(tmp_path / "anno.json"), JByteTokenizer(), **kw)
+    td = tds.EventDataset(str(tmp_path / "anno.json"), ByteTokenizer(), **kw)
+    for index in range(len(RECORDS)):
+        want, got = jd[index], td[index]
+        assert set(got) == set(want)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=f"{index} {key}")
+    assert td.media_failures == jd.media_failures == 0
+    assert td[0]["frames_u8"].shape == (T, S, S, 3) and td[3]["has_video"]
 
 
 def test_prefetch_loader_batches_in_order_and_stops_early(anno):
@@ -169,13 +202,17 @@ def test_prefetch_loader_batches_in_order_and_stops_early(anno):
     assert threading.active_count() <= before
 
 
-def test_prefetch_loader_hands_a_sample_error_to_the_consumer(anno):
+def test_prefetch_loader_hands_a_sample_error_to_the_consumer(tmp_path):
     """A record the dataset cannot load raises where the loop reads batches,
-    it does not leave the loop waiting on an empty queue."""
-    ds = tds.EventDataset(anno, ByteTokenizer(), num_frames=T, image_size=S,
+    it does not leave the loop waiting on an empty queue: here every record's
+    video is missing, so the dataset gives up after its substitutes."""
+    path = tmp_path / "anno.json"
+    path.write_text(json.dumps([RECORDS[0], RECORDS[1]]))
+    ds = tds.EventDataset(str(path), ByteTokenizer(), num_frames=T, image_size=S,
                           num_video_tokens_per_frame=10, max_len=700, text_vocab_size=V)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        list(PrefetchLoader(ds, 2, order=[2, 2, 2, 0], num_workers=2, prefetch_batches=1))
+    with pytest.warns(UserWarning, match="media decode failed"), \
+            pytest.raises(tds.DatasetError, match="consecutive media decode failures"):
+        list(PrefetchLoader(ds, 2, order=[1, 1, 1, 0], num_workers=2, prefetch_batches=1))
 
 
 def test_spm_like_tokenizer_builds_training_sequences():

@@ -3,6 +3,7 @@
 guard."""
 
 import ast
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -18,6 +19,7 @@ from trace_tpu.model.trace_model import init_trace_params as jax_init
 from trace_tpu.runtime import generate as jgen
 from trace_tpu.runtime.pipeline import TracePipeline as JaxPipeline
 from trace_tpu.tokenizers.text import ByteTokenizer as JaxByteTokenizer
+from trace_tpu.video.io import load_video_frames as jax_load_video
 from trace_tpu_torch.constants import MODAL_TOKEN_INDEX
 from trace_tpu_torch.model.config import TraceConfig
 from trace_tpu_torch.params import from_jax_params
@@ -407,3 +409,159 @@ def test_pipeline_fuses_an_unfused_int8_tree():
     dense = TracePipeline(params, CFG, ByteTokenizer(), device="cpu")
     dense._prepare_memory_layout()
     assert "wq" in dense._decoder_params["layers"]
+
+
+# ---------------------------------------------------------------------------
+# The public API from files: model_init on a checkpoint dir, infer_events /
+# infer / x_infer on a video file, the batch-serving CLI. Both packages load
+# the same dir (a merged TRACE checkpoint in bf16 safetensors shards and a
+# word-level HF tokenizer, written by the helpers of test_torch_checkpoint),
+# in fp32, with the tiny vision tower (fixture ``tiny_vision``) and a
+# 256-wide decoder of head_dim 128 (the JAX int8 decode kernel's width; the
+# group-128 int4p scales then give G = 2 for every weight). The JAX side runs
+# its serving kernels interpreted, as above.
+# ---------------------------------------------------------------------------
+
+from test_torch_checkpoint import (  # noqa: E402
+    assert_trees_equal,
+    jax_config,
+    tiny_vision,  # noqa: F401  (a fixture)
+    write_hf_tokenizer,
+    write_merged_checkpoint,
+)
+
+ASK = "Localize a series of activity events in the video ."
+
+
+@pytest.fixture(scope="module")
+def ckpt_dir(tmp_path_factory):
+    cfg = jax_config(decoder=dict(num_layers=2, num_heads=2, num_kv_heads=1, head_dim=128,
+                                  hidden_size=256, intermediate_size=256))
+    path = tmp_path_factory.mktemp("trace_ckpt")
+    write_merged_checkpoint(path, cfg, seed=12, shards=2)
+    write_hf_tokenizer(path, cfg.decoder.vocab_size)
+    rng = np.random.default_rng(13)
+    np.save(path / "video.npy", rng.integers(0, 256, (10, 64, 48, 3), dtype=np.uint8))
+    return path
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int8", "int4p"])
+def test_model_init_matches_jax(ckpt_dir, tiny_vision, jax_serving_kernels_interpreted, quant):
+    """model_init on the same dir: the same tree on the device (leaf for leaf,
+    bit for bit: converted, host-quantized, fused), the same config, and the
+    same greedy events and tokens from ``infer_events`` on an ``.npy`` video."""
+    from trace_tpu.runtime.pipeline import model_init as jax_model_init
+    from trace_tpu_torch.runtime.pipeline import model_init
+
+    jpipe = jax_model_init(str(ckpt_dir), dtype=jnp.float32, quant=quant)
+    tpipe = model_init(str(ckpt_dir), dtype=torch.float32, quant=quant, device="cpu")
+    jpipe._prepare_memory_layout()
+    assert_trees_equal(tpipe.params, jpipe.params)
+    for part in ("decoder", "vision"):
+        for f in dataclasses.fields(getattr(tpipe.config, part)):
+            if hasattr(getattr(jpipe.config, part), f.name):
+                assert (getattr(getattr(tpipe.config, part), f.name)
+                        == getattr(getattr(jpipe.config, part), f.name)), f.name
+    assert tpipe.config.decoder.kv_cache_dtype == ("bf16" if quant == "bf16" else "int8")
+    assert not tpipe.config.vision.act_quant
+    assert tpipe.tokenizer.vocab_size == jpipe.tokenizer.vocab_size == 384
+
+    video = str(ckpt_dir / "video.npy")
+    want = jpipe.infer_events(video, ASK, max_new_tokens=24)
+    got = tpipe.infer_events(video, ASK, max_new_tokens=24)
+    assert got.to_dict() == want.to_dict()
+    assert got.timestamps or quant == "int4p"  # int4p's stream stays in the time head here
+    frames, ts = jax_load_video(video, JCFG.num_frames)
+    jprefix, jmask = jpipe._prepare_prefix_batch([frames], [ts], [ASK])
+    jtok = jgen.generate(jpipe._decoder_params, jpipe.config.decoder, jprefix, jmask,
+                         jpipe._combined, max_new_tokens=24, initial_head=1,
+                         eos_id=jpipe.tokenizer.eos_token_id, use_flash=True)
+    np.testing.assert_array_equal(tpipe.last_stats["tokens"], jtok.tokens)
+    assert tpipe.last_stats["decode_steps"] > 0
+
+
+def test_model_init_refusals(ckpt_dir):
+    from trace_tpu_torch.runtime.pipeline import model_init
+
+    with pytest.raises(NotImplementedError, match="int4p"):
+        model_init(str(ckpt_dir), quant="int4", device="cpu")
+    with pytest.raises(ValueError, match="quant"):
+        model_init(str(ckpt_dir), quant="int2", device="cpu")
+    if not torch.cuda.is_available():  # fails before reading anything
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model_init(str(ckpt_dir))
+
+
+def test_public_api_from_a_video_file_matches_jax(pipes, tmp_path, monkeypatch):
+    """``infer_events``, ``infer`` and ``x_infer`` (each mode, and the
+    ValueError of an unknown one) on an ``.npy`` video, through both
+    packages' top-level functions."""
+    import trace_tpu
+    import trace_tpu_torch
+
+    jpipe, tpipe = pipes
+    video = str(tmp_path / "v.npy")
+    np.save(video, np.random.default_rng(14).integers(0, 256, (9, 60, 44, 3), dtype=np.uint8))
+    want = trace_tpu.infer_events(jpipe, video, "Find the events.", max_new_tokens=30)
+    got = trace_tpu_torch.infer_events(tpipe, video, "Find the events.", max_new_tokens=30)
+    assert got.to_dict() == want.to_dict()
+    assert (trace_tpu_torch.infer(tpipe, video, "Describe it.", max_new_tokens=10)
+            == trace_tpu.infer(jpipe, video, "Describe it.", max_new_tokens=10))
+    assert (trace_tpu_torch.x_infer(tpipe, video, "What is shown?", mode="mcqa",
+                                    max_new_tokens=8)
+            == trace_tpu.x_infer(jpipe, video, "What is shown?", mode="mcqa",
+                                 max_new_tokens=8))
+    # every mode's instruction, as each package's x_infer hands it to infer
+    asked = {}
+    for mod in (trace_tpu, trace_tpu_torch):
+        monkeypatch.setattr(mod, "infer", lambda p, v, q, _m=mod, **kw: asked.setdefault(
+            _m.__name__, []).append(q))
+        for mode in ("mcqa", "openend", "vanilla"):
+            mod.x_infer(None, video, "What is shown?", mode=mode)
+        with pytest.raises(ValueError):
+            mod.x_infer(None, video, "q", mode="bogus")
+    assert asked["trace_tpu_torch"] == asked["trace_tpu"] and len(set(asked["trace_tpu"])) == 3
+
+
+def test_serve_batch_cli_matches_jax(pipes, tmp_path, monkeypatch):
+    """``python -m trace_tpu_torch.runtime.serve_batch`` writes the JSONL of
+    the JAX package's scripts/inference/serve_batch.py: one line per video,
+    an ``error`` line for the file that does not load; the shard split and
+    its file names as there."""
+    import importlib.util
+    import json
+
+    import trace_tpu.runtime.pipeline as jpl
+    import trace_tpu_torch.runtime.pipeline as tpl
+    from trace_tpu_torch.runtime import serve_batch
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_serve_batch", ROOT / "scripts" / "inference" / "serve_batch.py")
+    jmod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jmod)
+    jpipe, tpipe = pipes
+    T = CFG.num_frames
+    videos = tmp_path / "videos"
+    videos.mkdir()
+    rng = np.random.default_rng(15)
+    for i in range(4):
+        np.save(videos / f"v{i}.npy", rng.integers(0, 256, (T, 56, 56, 3), dtype=np.uint8))
+    (videos / "bad.npy").write_bytes(b"not a numpy file")
+    (videos / "notes.txt").write_text("skipped")
+    monkeypatch.setattr(jpl, "model_init", lambda *a, **k: jpipe)
+    monkeypatch.setattr(tpl, "model_init", lambda *a, **k: tpipe)
+    for shards in ([], ["--num-shards", "2", "--shard", "1"]):
+        flags = ["--model-path", "ignored", "--videos", str(videos), "--batch", "2",
+                 "--frames", str(T), "--max-new-tokens", "8"] + shards
+        monkeypatch.setattr(sys, "argv", ["serve_batch", "--out", str(tmp_path / "j.jsonl")]
+                            + flags)
+        jmod.main()
+        result = serve_batch.main(["--out", str(tmp_path / "t.jsonl")] + flags)
+        suffix = "_shard1of2" if shards else ""
+        want = (tmp_path / f"j{suffix}.jsonl").read_text().splitlines()
+        got = (tmp_path / f"t{suffix}.jsonl").read_text().splitlines()
+        assert got == want
+        lines = [json.loads(line) for line in got]
+        errors = [line for line in lines if "error" in line]
+        assert len(lines) == (2 if shards else 5) and len(errors) == (0 if shards else 1)
+        assert result["ok"] + result["failed"] == len(lines)

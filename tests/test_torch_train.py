@@ -518,12 +518,57 @@ def test_cli_trains_the_tiny_model_on_text_records(tmp_path, stage, capsys):
     assert (out / "checkpoints" / "checkpoint-2" / "state.pt").exists()
 
 
-@pytest.mark.parametrize("flags", [["--init-checkpoint", "x"], ["--base-llm", "x"],
+@pytest.mark.parametrize("flags", [["--init-checkpoint", "x", "--pp-stages", "2"],
+                                   ["--base-llm", "x", "--coordinator", "localhost:1"],
                                    ["--pp-stages", "2"], ["--num-processes", "2"],
                                    ["--coordinator", "localhost:1"]])
 def test_cli_flags_that_are_not_ported_raise(tmp_path, flags):
+    """Pipeline stages and more processes raise, before any checkpoint is
+    read."""
     from trace_tpu_torch.train import cli
 
     with pytest.raises(NotImplementedError):
         cli.main(["--stage", "sft", "--data-path", "x.json", "--output-dir", str(tmp_path),
                   "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("route", ["init", "base"])
+def test_cli_starts_from_a_checkpoint(tmp_path, route, capsys, monkeypatch):
+    """--init-checkpoint (a merged TRACE dir) and --base-llm with
+    --vision-path (stage 0) build the model and tokenizer from files and
+    train; the checkpoint's tiny vision config comes through a wrapper of
+    ``trace_config_from_hf``, as in test_torch_checkpoint."""
+    import json
+
+    from safetensors.torch import save_file
+    from test_torch_checkpoint import jax_config, write_hf_tokenizer, write_merged_checkpoint
+
+    from trace_tpu_torch.checkpoint import convert as tconvert
+    from trace_tpu_torch.model.config import VisionConfig
+    from trace_tpu_torch.train import cli
+
+    orig = tconvert.trace_config_from_hf
+    monkeypatch.setattr(tconvert, "trace_config_from_hf",
+                        lambda hf, **kw: orig(hf, **{"vision": VisionConfig.tiny(), **kw}))
+    ckpt = tmp_path / "ckpt"
+    sd = write_merged_checkpoint(ckpt, jax_config(decoder=dict(num_layers=2)), shards=1)
+    write_hf_tokenizer(ckpt, 384)
+    if route == "init":
+        flags = ["--init-checkpoint", str(ckpt)]
+    else:
+        vis = "model.vision_tower.vision_tower.vision_model."
+        clip = tmp_path / "clip"
+        clip.mkdir()
+        save_file({"vision_model." + k[len(vis):]: v for k, v in sd.items()
+                   if k.startswith(vis)}, str(clip / "model.safetensors"))
+        flags = ["--base-llm", str(ckpt), "--vision-path", str(clip)]
+    records = [{"conversations": [{"from": "human", "value": "What is shown ?"},
+                                  {"from": "gpt", "value": f"the video w{i}"}]}
+               for i in range(4)]
+    data = tmp_path / "anno.json"
+    data.write_text(json.dumps(records))
+    cli.main(["--stage", "pretrain", "--data-path", str(data), "--output-dir",
+              str(tmp_path / "run"), "--num-frames", "4", "--max-len", "256",
+              "--batch-size", "2", "--device", "cpu"] + flags)
+    out = capsys.readouterr().out
+    assert "final metrics" in out and "tiny random model" not in out

@@ -23,13 +23,24 @@ runs forward and backward through ``kernels.flash_attention
 .flash_attention_trainable``: the forward kernel with a logsumexp output and
 the dq and dk/dv backward kernels (``kernels/flash_backward.py``).
 
+The public API of the JAX package (trace_tpu/__init__.py) and the port's
+additions:
+
+  model_init(path, quant=..., tokenizer=...) -> TracePipeline on the card,
+                                               from a TRACE checkpoint dir
+  infer_events(pipeline, video_path, instruction) -> EventPredictions
+  infer(pipeline, video_path, instruct)       -> plain text
+  x_infer(pipeline, video_path, question, mode) -> templated QA text
   TracePipeline(params, config, tokenizer)  -> runs on the card by default
   int8_serving(params, config)              -> the int8 serving pair
   int4p_serving(params, config)             -> the int4p serving pair
   infer_events_batch(pipeline, frames, timestamps, instructions, ...)
+
+``python -m trace_tpu_torch.runtime.serve_batch`` serves a folder of videos
+into JSONL.
 """
 
-from trace_tpu_torch.runtime.pipeline import TracePipeline  # noqa: F401
+from trace_tpu_torch.runtime.pipeline import TracePipeline, model_init  # noqa: F401
 from trace_tpu_torch.tokenizers.event_codec import (  # noqa: F401
     EventPredictions,
     decode_event_stream,
@@ -55,3 +66,39 @@ def infer_events_from_frames(pipeline: TracePipeline, frames_u8, timestamps,
 def infer_text(pipeline: TracePipeline, frames_u8, timestamps, instruct: str, **kw):
     """Plain captioning / QA text on decoded frames."""
     return pipeline.infer_text(frames_u8, timestamps, instruct, **kw)
+
+
+def infer_events(pipeline: TracePipeline, video_path: str, instruction: str, **kw):
+    """Single-video causal event inference from a video file."""
+    return pipeline.infer_events(video_path, instruction, **kw)
+
+
+def infer(pipeline: TracePipeline, video_path: str, instruct: str, **kw):
+    """Plain captioning / QA text from a video file (reference
+    trace/__init__.py:23-75: no event decoding; generation starts on the
+    text head)."""
+    from trace_tpu_torch.video.io import load_video_frames
+
+    frames, ts = load_video_frames(video_path, pipeline.config.num_frames)
+    return pipeline.infer_text(frames, ts, instruct, **kw)
+
+
+def x_infer(pipeline: TracePipeline, video_path: str, question: str,
+            mode: str = "vanilla", **kw):
+    """Instruction-templated QA (reference trace/__init__.py:78-87): mode
+    ``mcqa``, ``openend`` or ``vanilla``."""
+    if mode == "mcqa":
+        instruction = (
+            f"{question}\nAnswer with the option's letter from the given "
+            "choices directly and only give the best option."
+        )
+    elif mode == "openend":
+        instruction = (
+            f"{question}\nAnswer the question using a single word or a short "
+            "phrase with multiple words."
+        )
+    elif mode == "vanilla":
+        instruction = question
+    else:
+        raise ValueError(f"unknown x_infer mode: {mode}")
+    return infer(pipeline, video_path, instruction, **kw)

@@ -19,10 +19,8 @@ constants and tokenizers):
 * every sample pads to a fixed max_len with a fixed num_frames, so every
   step of an epoch has one shape.
 
-Decoding video and image files is not ported (the JAX package's video/io.py):
-``EventDataset._load_media`` raises ``NotImplementedError`` for such records.
-Text-only records work, and a subclass that overrides ``_load_media`` (or
-``collate_batch`` on ready samples) feeds frames from elsewhere.
+Video and image records are read through the port's ``video/io.py`` (the
+native decoder for containers, ``.npy``, frame directories, images, gifs).
 """
 
 from __future__ import annotations
@@ -42,6 +40,7 @@ from trace_tpu_torch.constants import (
     SYNC_TOKEN_ID,
     TIME_OFFSET,
 )
+from trace_tpu_torch.native.videodec import NativeDecoderUnavailable
 from trace_tpu_torch.tokenizers.event_codec import SCORE_CODEC, TIME_CODEC
 from trace_tpu_torch.tokenizers.text import TextTokenizer
 
@@ -423,8 +422,8 @@ class EventDataset:
             rec = self.records[idx]
             try:
                 frames_u8, frame_ts = self._load_media(rec)
-            except NotImplementedError:
-                raise
+            except NativeDecoderUnavailable:
+                raise  # the machine lacks the decoder: no record would load
             except Exception as e:
                 self.media_failures += 1
                 import warnings
@@ -453,15 +452,29 @@ class EventDataset:
         is skipped.  Frames are standardized to image_size on host so
         mixed-resolution corpora collate into one static batch shape.
         """
-        if "video" in rec or "image" in rec:
-            raise NotImplementedError(
-                "decoding video and image files is not ported (the JAX "
-                "package's video/io.py); override _load_media to feed frames")
+        from trace_tpu_torch.video.io import load_image_as_video, load_video_frames
+
+        if "video" in rec:
+            path = os.path.join(self.data_folder, rec["video"])
+            frames_u8, frame_ts = load_video_frames(
+                path, self.num_frames, self.sample_scheme, rng=self.rng
+            )
+        elif "image" in rec:
+            path = os.path.join(self.data_folder, rec["image"])
+            frames_u8, frame_ts = load_image_as_video(path, self.num_frames)
+        else:
+            S = self.image_size
+            return (
+                np.zeros((self.num_frames, S, S, 3), np.uint8),
+                [[0.0]] * self.num_frames,
+            )
+
         S = self.image_size
-        return (
-            np.zeros((self.num_frames, S, S, 3), np.uint8),
-            [[0.0]] * self.num_frames,
-        )
+        if frames_u8.shape[1] != S or frames_u8.shape[2] != S:
+            from trace_tpu_torch.video.preprocess import host_downscale
+
+            frames_u8 = host_downscale(np.ascontiguousarray(frames_u8), S)
+        return frames_u8, frame_ts
 
     def _build(self, rec: dict, frames_u8: np.ndarray, frame_ts: list) -> dict:
         has_video = "video" in rec or "image" in rec

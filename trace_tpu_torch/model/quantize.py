@@ -31,23 +31,48 @@ import torch
 
 from trace_tpu_torch.model.config import TraceConfig
 
+def _abs_max(w: torch.Tensor, dims) -> torch.Tensor:
+    """max |w| over ``dims`` (kept as size 1), in fp32: the larger of the max
+    and the negated min, exact in ``w``'s dtype, with no |w| temporary."""
+    return torch.maximum(w.amax(dim=dims, keepdim=True),
+                         -w.amin(dim=dims, keepdim=True)).float()
+
+
+def _scale(amax: torch.Tensor, qmax: float) -> torch.Tensor:
+    """amax / qmax, at least 1e-8. The divisor is a tensor on amax's device:
+    on CUDA, PyTorch multiplies by the reciprocal of a Python-number divisor,
+    which rounds otherwise than the division the CPU does (and numpy in the
+    JAX package's host quantizer), and a scale one bit apart moves q."""
+    return (amax / amax.new_tensor(float(qmax))).clamp_min(1e-8)
+
+
 def _quantize_axis(w: torch.Tensor, reduce_axes: tuple) -> dict:
-    """Symmetric int8 over ``reduce_axes``; the scale keeps the other axes."""
-    wf = w.float()
-    amax = wf.abs().amax(dim=reduce_axes, keepdim=True)
-    scale = (amax / 127).clamp_min(1e-8)
-    q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
+    """Symmetric int8 over ``reduce_axes``; the scale keeps the other axes.
+    One fp32 copy of ``w``, rounded in place (w itself is not written)."""
+    scale = _scale(_abs_max(w, reduce_axes), 127)
+    wf = w.to(torch.float32, copy=True)
+    q = wf.div_(scale).round_().clamp_(-127, 127).to(torch.int8)
     return {"q": q, "s": scale.to(torch.bfloat16)}
 
 
 def _quantize_stacked(w: torch.Tensor, reduce_axes: tuple) -> dict:
     """``_quantize_axis`` of a layer-stacked weight, one layer at a time
-    (an fp32 temp of the whole stacked ``w_gate`` of a 7B model is 7.5 GB).
+    (an fp32 temp of the whole stacked ``w_gate`` of a 7B model is 7.5 GB)
+    through one fp32 scratch layer, into q and s allocated once.
     ``reduce_axes`` count the leading layer axis, as in JAX."""
     axes = tuple(a - 1 for a in reduce_axes)
-    leaves = [_quantize_axis(w[li], axes) for li in range(w.shape[0])]
-    return {"q": torch.stack([lf["q"] for lf in leaves]),
-            "s": torch.stack([lf["s"] for lf in leaves])}
+    L = w.shape[0]
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = None
+    scratch = torch.empty(w.shape[1:], dtype=torch.float32, device=w.device)
+    for li in range(L):
+        scale = _scale(_abs_max(w[li], axes), 127)
+        if s is None:
+            s = torch.empty((L,) + scale.shape, dtype=torch.bfloat16, device=w.device)
+        s[li] = scale
+        # integral values in [-127, 127]: the cast to int8 is exact
+        q[li] = scratch.copy_(w[li]).div_(scale).round_().clamp_(-127, 127)
+    return {"q": q, "s": s}
 
 
 def is_quantized(leaf) -> bool:
@@ -129,14 +154,17 @@ def _quantize_grouped4(w: torch.Tensor, reduce_axes: tuple, group: int) -> dict:
     for a in reduce_axes:
         K *= w.shape[a]
     G = _group_count(K, group)
-    qp, s = [], []
+    out = None
     for li in range(L):
-        wf = w[li].float().reshape(G, K // G, -1)
-        scale = (wf.abs().amax(dim=1, keepdim=True) / 7.0).clamp_min(1e-8)
-        q = torch.round(wf / scale).clamp(-7, 7).to(torch.int8)
-        qp.append(pack4(q.reshape(K, -1)))
-        s.append(scale[:, 0, :].to(torch.bfloat16))
-    return {"qp": torch.stack(qp), "s": torch.stack(s)}
+        wf = w[li].to(torch.float32, copy=True).reshape(G, K // G, -1)
+        scale = _scale(_abs_max(wf, 1), 7)
+        q = wf.div_(scale).round_().clamp_(-7, 7).to(torch.int8)
+        leaf = {"qp": pack4(q.reshape(K, -1)), "s": scale[:, 0, :].to(torch.bfloat16)}
+        if out is None:
+            out = {k: v.new_empty((L,) + v.shape) for k, v in leaf.items()}
+        for k, v in leaf.items():
+            out[k][li] = v
+    return out
 
 
 def quantize_decoder_params(params: dict, bits: int = 8, pack: bool = False,

@@ -100,6 +100,41 @@ def _vision(c: VisionConfig, r: _Init) -> dict:
     }
 
 
+def _connector(config: TraceConfig, r: _Init) -> dict:
+    mm, lm = config.vision.hidden_size, config.decoder.hidden_size
+    return {
+        "slots": r.normal((mm, config.num_slots), scale=1.0),
+        "ln_scale": r.ones((mm,)),
+        "ln_bias": r.zeros((mm,)),
+        "readout": r.normal((mm, lm)),
+    }
+
+
+def _towers(hidden: int, r: _Init) -> dict:
+    return {
+        "time": r.normal((TIME_VOCAB_SIZE, hidden)),
+        "score": r.normal((SCORE_VOCAB_SIZE, hidden)),
+        "sync": r.normal((1, hidden)),
+    }
+
+
+def init_connector_params(config: TraceConfig, generator: torch.Generator,
+                          dtype=None) -> dict:
+    """A fresh spatial_slot connector (slots N(0, 1), LayerNorm 1 / 0,
+    readout N(0, 0.02)) in ``dtype`` (default: the config's), drawn from
+    ``generator`` on its device, as CPU tensors (a converted tree's place)."""
+    r = _Init(generator, generator.device, dtype or config.dtype)
+    return {k: v.cpu() for k, v in _connector(config, r).items()}
+
+
+def init_tower_params(hidden: int, generator: torch.Generator,
+                      dtype=torch.float32) -> dict:
+    """Fresh time / score / sync towers, N(0, 0.02), drawn as
+    ``init_connector_params`` draws the connector."""
+    r = _Init(generator, generator.device, dtype)
+    return {k: v.cpu() for k, v in _towers(hidden, r).items()}
+
+
 def init_trace_params(config: TraceConfig, generator: torch.Generator,
                       device=None) -> dict:
     """Random params in the JAX package's layout and init scales (weights
@@ -111,19 +146,9 @@ def init_trace_params(config: TraceConfig, generator: torch.Generator,
         raise NotImplementedError("only the spatial_slot connector is ported")
     device = torch.device(device if device is not None else generator.device)
     r = _Init(generator, device, config.dtype)
-    mm, lm = config.vision.hidden_size, config.decoder.hidden_size
     return {
         "decoder": _decoder(config.decoder, r),
         "vision": _vision(config.vision, r),
-        "connector": {
-            "slots": r.normal((mm, config.num_slots), scale=1.0),
-            "ln_scale": r.ones((mm,)),
-            "ln_bias": r.zeros((mm,)),
-            "readout": r.normal((mm, lm)),
-        },
-        "towers": {
-            "time": r.normal((TIME_VOCAB_SIZE, lm)),
-            "score": r.normal((SCORE_VOCAB_SIZE, lm)),
-            "sync": r.normal((1, lm)),
-        },
+        "connector": _connector(config, r),
+        "towers": _towers(config.decoder.hidden_size, r),
     }

@@ -8,6 +8,8 @@ yuv420 frame upload.
   patches (or rgb preprocess) -> ViT + connector + splice -> prefill + FSM
   decode -> shared structured event decoder.
 
+``model_init`` loads a TRACE checkpoint dir into a pipeline on the card;
+``infer_events`` reads a video file (``video/io.py``) and runs one request.
 ``infer_events_batch`` runs one batch; ``infer_events_corpus`` runs a corpus
 the way the bench serves it: producer threads prepare and upload the next
 encode batches while the current one encodes, prefixes collect into
@@ -30,7 +32,7 @@ import torch
 from trace_tpu_torch import conversation as conv
 from trace_tpu_torch.constants import MODAL_TOKEN_INDEX
 from trace_tpu_torch.model.config import TraceConfig
-from trace_tpu_torch.model.quantize import fuse_decoder_serving
+from trace_tpu_torch.model.quantize import fuse_decoder_serving, int4p_serving, int8_serving
 from trace_tpu_torch.model.towers import frame_time_tokens
 from trace_tpu_torch.model.trace_model import (
     combined_embedding,
@@ -45,6 +47,7 @@ from trace_tpu_torch.tokenizers.event_codec import (
 )
 from trace_tpu_torch.tokenizers.text import TextTokenizer, splice_modal_tokens
 from trace_tpu_torch.video import preprocess as pre
+from trace_tpu_torch.video.io import load_video_frames
 
 
 def expand_prompt_ids(
@@ -322,6 +325,15 @@ class TracePipeline:
             for f, ts, q in zip(frames_u8_list, timestamps_list, instructions)
         ]
         return self._encode_prepared(per_sample)
+
+    def infer_events(self, video_path: str, instruction: str, *,
+                     num_frames: Optional[int] = None, **kw) -> EventPredictions:
+        """Single-video causal event inference from a video file
+        (``video/io.py load_video_frames``, ``num_frames`` default the
+        config's); ``kw`` as ``infer_events_batch``."""
+        frames_u8, timestamps = load_video_frames(
+            video_path, num_frames or self.config.num_frames)
+        return self.infer_events_from_frames(frames_u8, timestamps, instruction, **kw)
 
     def infer_events_from_frames(self, frames_u8, video_timestamps, instruction,
                                  **kw) -> EventPredictions:
@@ -708,6 +720,51 @@ class TracePipeline:
                                  default=0),
         }
         return results
+
+
+def model_init(model_path: str, *, vision_path: Optional[str] = None,
+               dtype=torch.bfloat16, quant: str = "bf16", device=None,
+               tokenizer: Optional[TextTokenizer] = None) -> TracePipeline:
+    """A released TRACE checkpoint dir as a pipeline on ``device`` (default:
+    the CUDA card, which must exist), as the JAX package's ``model_init``
+    builds it (load_pretrained_model parity, reference model/builder.py:
+    29-156): the merged layout through ``checkpoint.convert
+    .convert_trace_checkpoint`` in ``dtype``, the CLIP tower bundled or from
+    ``vision_path``.
+
+    ``quant="int8"`` / ``"int4p"`` quantize the decoder alone, on the host
+    before the upload (int8 per output channel; nibble-packed int4 with
+    group-128 scales), fuse it into the serving layout, and set the int8 KV
+    cache and ``act_quant``; the ViT stays in ``dtype`` (``int8_serving`` with
+    ``vision=True`` is the bench's configuration, not this one). ``"int4"``
+    (native int4 storage) raises ``NotImplementedError``.
+
+    ``tokenizer``: a tokenizer object to use in place of the checkpoint's own
+    (which ``load_hf_tokenizer`` reads with ``transformers``). The tree is
+    on the device when this returns."""
+    from trace_tpu_torch.checkpoint.convert import convert_trace_checkpoint
+    from trace_tpu_torch.tokenizers.text import load_hf_tokenizer
+
+    if quant not in ("bf16", "int8", "int4", "int4p"):
+        raise ValueError(f"quant must be bf16, int8, int4 or int4p, got {quant!r}")
+    if quant == "int4":
+        raise NotImplementedError(
+            "quant='int4' is native jnp.int4 storage, which torch has no dtype for; "
+            "use quant='int4p' (the same values nibble-packed)")
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("model_init: no CUDA device; pass device='cpu' to run on the CPU")
+    if tokenizer is None:
+        tokenizer = load_hf_tokenizer(model_path)
+    params, config = convert_trace_checkpoint(model_path, dtype=dtype,
+                                              vision_path=vision_path)
+    if quant != "bf16":
+        serving = int8_serving if quant == "int8" else int4p_serving
+        params, config = serving(params, config, vision=False)
+    pipe = TracePipeline(params, config, tokenizer, device=device)
+    del params
+    pipe._prepare_memory_layout()
+    return pipe
 
 
 def _to_device(tree, device):

@@ -1,9 +1,9 @@
 """Text tokenization and modal-sentinel splicing.
 
-Copy of the framework-neutral parts of trace_tpu/tokenizers/text.py
-(``ByteTokenizer``, ``SpmLikeTokenizer``, ``splice_modal_tokens``). The
-HuggingFace adapter stays out: ``transformers`` is not a dependency of the
-port.
+Copy of trace_tpu/tokenizers/text.py (``ByteTokenizer``,
+``SpmLikeTokenizer``, ``HFTokenizerAdapter``, ``load_hf_tokenizer``,
+``splice_modal_tokens``). ``transformers`` is imported only by
+``load_hf_tokenizer``: a machine without it runs the other tokenizers.
 
 The LM prompt contains literal modal tags (``<video>``, ``<sync>``, ...) which
 must become negative sentinel ids interleaved with real text token ids, to be
@@ -108,6 +108,36 @@ class SpmLikeTokenizer:
         return " ".join(
             self._id_to_piece[int(i)] for i in ids if int(i) in self._id_to_piece
         )
+
+
+class HFTokenizerAdapter:
+    """Wrap a HuggingFace tokenizer loaded from a local path (no hub access)."""
+
+    def __init__(self, hf_tokenizer):
+        self._tok = hf_tokenizer
+        self.bos_token_id = hf_tokenizer.bos_token_id
+        self.eos_token_id = hf_tokenizer.eos_token_id
+        self.vocab_size = len(hf_tokenizer)
+
+    def encode(self, text: str) -> list[int]:
+        return self._tok(text).input_ids
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
+        return self._tok.decode(list(ids), skip_special_tokens=skip_special_tokens)
+
+
+def load_hf_tokenizer(path: str) -> HFTokenizerAdapter:
+    """The tokenizer saved in a checkpoint dir, through ``transformers``'
+    ``AutoTokenizer`` (local files only)."""
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise ImportError(
+            f"loading the tokenizer of {path} needs the transformers package, "
+            "which is not installed; pass a tokenizer object instead "
+            "(model_init(..., tokenizer=...))") from e
+    return HFTokenizerAdapter(
+        AutoTokenizer.from_pretrained(path, use_fast=True, local_files_only=True))
 
 
 def splice_modal_tokens(

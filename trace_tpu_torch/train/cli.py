@@ -12,10 +12,14 @@ Example:
       --data-path anno.json --output-dir runs/stage1 \\
       --num-frames 128 --batch-size 2 --epochs 1
 
-Without a checkpoint it trains the tiny random model, as the JAX package's
-CLI does. Loading checkpoints (--init-checkpoint, --base-llm), pipeline
-stages (--pp-stages) and more than one process (--coordinator,
---num-processes) are not ported and raise ``NotImplementedError``.
+--init-checkpoint starts from a TRACE checkpoint (``checkpoint.loader
+.load_pretrained``), --base-llm assembles stage 0 from a base LLM and the
+CLIP dir of --vision-path (``checkpoint.convert.build_from_base_models``,
+resuming the connector from --pretrain-mm-adapter); both read the
+tokenizer saved beside the weights. Without either it trains the tiny random
+model, as the JAX package's CLI does. Pipeline stages (--pp-stages) and
+more than one process (--coordinator, --num-processes) are not ported and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,12 +35,12 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--data-path", required=True, help="annotation JSON")
     ap.add_argument("--data-folder", default="")
     ap.add_argument("--base-llm", default=None,
-                    help="base HF LLM dir for stage-0 assembly (not ported)")
+                    help="base HF LLM dir for stage-0 assembly")
     ap.add_argument("--pretrain-mm-adapter", default=None,
                     help="stage-1 mm_projector.bin to resume the connector from "
-                         "(with --base-llm; not ported)")
+                         "(with --base-llm)")
     ap.add_argument("--init-checkpoint", default=None,
-                    help="HF checkpoint dir to start from (not ported)")
+                    help="HF checkpoint dir to start from")
     ap.add_argument("--vision-path", default=None)
     ap.add_argument("--output-dir", required=True)
     ap.add_argument("--num-frames", type=int, default=128)
@@ -66,7 +70,8 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    args = build_argparser().parse_args(argv)
+    ap = build_argparser()
+    args = ap.parse_args(argv)
 
     import torch
 
@@ -78,9 +83,6 @@ def main(argv=None):
     from trace_tpu_torch.tokenizers.text import ByteTokenizer
     from trace_tpu_torch.train.train import TrainRecipe, train_loop
 
-    if args.init_checkpoint or args.base_llm:
-        raise NotImplementedError(
-            "--init-checkpoint / --base-llm: loading checkpoints is not ported")
     if args.pp_stages:
         raise NotImplementedError("--pp-stages: pipeline parallelism is not ported")
     if args.coordinator or (args.num_processes or 1) > 1:
@@ -90,11 +92,30 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
 
-    config = TraceConfig.tiny()
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_trace_params(config, generator)
-    tokenizer = ByteTokenizer()
-    print("WARNING: no --init-checkpoint; training a tiny random model")
+    if args.init_checkpoint:
+        from trace_tpu_torch.checkpoint.loader import load_pretrained
+        from trace_tpu_torch.tokenizers.text import load_hf_tokenizer
+
+        params, config = load_pretrained(args.init_checkpoint, vision_path=args.vision_path)
+        tokenizer = load_hf_tokenizer(args.init_checkpoint)
+    elif args.base_llm:
+        # stage 0: base LLM + base CLIP + fresh multimodal modules
+        # (reference trace_arch.py:60-186 initialize_*_modules)
+        from trace_tpu_torch.checkpoint.convert import build_from_base_models
+        from trace_tpu_torch.tokenizers.text import load_hf_tokenizer
+
+        if not args.vision_path:
+            ap.error("--base-llm requires --vision-path (CLIP dir)")
+        params, config = build_from_base_models(
+            args.base_llm, args.vision_path,
+            mm_projector_path=args.pretrain_mm_adapter, generator=generator)
+        tokenizer = load_hf_tokenizer(args.base_llm)
+    else:
+        config = TraceConfig.tiny()
+        params = init_trace_params(config, generator)
+        tokenizer = ByteTokenizer()
+        print("WARNING: no --init-checkpoint; training a tiny random model")
 
     sample_scheme = args.sample_scheme or (
         "rand" if args.stage == "sft" else "uniform")
