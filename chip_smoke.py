@@ -77,11 +77,22 @@ Phases, in order; any failure exits non-zero:
      against the same with every kernel replaced by its plain version and
      against an fp32 model of the same weights: the loss and the gradients of
      the connector, the towers and decoder layer 0.
+  7. a TRACE-7B checkpoint of the released merged layout (690 keys, bf16,
+     random values) written to a temporary directory and served through the
+     public API: ``model_init`` in bf16 and int8, ``infer_events`` on an
+     ``.npy`` of 256 640x360 frames, ``serve`` over four such files and one
+     that does not load (see ``checkpoint_phase``).
+  8. the evaluation entry points on that checkpoint and those videos
+     (``eval_phase``): ``eval.evaluate.main`` for tvg in bf16,
+     ``runtime.inference.main``, ``run_vtg_eval`` for dvc in int8 scored
+     as dvc, dvc-anet and vhd, and ``run_mvbench`` on JPEG frame dumps.
 The line before the last is {"kernels": [...]} (each entry also holds
 ``launches_corpus``, its count in phase 5's pass A); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it prints no result and exits 2. ``--kernels`` stops
-after phase 3 (a short check of freshly edited kernels; no last line).
+after phase 3 (a short check of freshly edited kernels; no last line);
+``--checkpoint`` runs phase 7 alone and ``--eval`` phases 7 and 8 (each
+after the build; no last line).
 """
 
 from __future__ import annotations
@@ -1116,9 +1127,15 @@ def int8_product_launches(quant_matmul, quant_matmul_stacked) -> dict:
             for form, n in fn.launches_by_form.items()}
 
 
+# depth of on_path's reference calls in progress: watch_plain does not count
+# the plain versions they run on purpose
+HOLDING = {"depth": 0}
+
+
 def watch_plain(torch):
     """Wrap every plain version of a kernel wrapper in its module so that a
-    call with a CUDA tensor is counted; returns (counts, undo)."""
+    call with a CUDA tensor is counted, unless on_path makes it to hold a
+    kernel; returns (counts, undo)."""
     from trace_tpu_torch.kernels import decode_attention as da
     from trace_tpu_torch.kernels import flash_attention as fa
     from trace_tpu_torch.kernels import quant_matmul as qm
@@ -1132,7 +1149,7 @@ def watch_plain(torch):
 
     def watched(orig, name):
         def wrapped(*a, **k):
-            if any(torch.is_tensor(x) and x.is_cuda for x in a):
+            if not HOLDING["depth"] and any(torch.is_tensor(x) and x.is_cuda for x in a):
                 counts[name] += 1
             return orig(*a, **k)
         return wrapped
@@ -1155,7 +1172,7 @@ def watch_plain(torch):
 
 
 def on_path(torch, label: str, run):
-    """Check (e): ``run()`` with the entries of rows 1, 2, 3b, 4 and 5
+    """Check (e): ``run()`` with the entries of rows 1, 2, 3, 3b, 4 and 5
     watched where the model calls them (the attention wrappers; for the
     int8 weight products ``quant_apply`` and ``quant_apply_stacked``, which
     hand an int8 leaf to ``quant_matmul`` and ``quant_matmul_stacked``). The
@@ -1215,7 +1232,11 @@ def on_path(torch, label: str, run):
             shapes = ", ".join(filter(None, map(shape_of, a)))
             key = (name, shapes)
             if name and k.get("impl", "auto") == "auto" and key not in results:
-                ref = orig(*a, **{**k, "impl": "plain"})
+                HOLDING["depth"] += 1
+                try:
+                    ref = orig(*a, **{**k, "impl": "plain"})
+                finally:
+                    HOLDING["depth"] -= 1
                 results[key] = dict(held(name, a, out, ref), name=name, shapes=shapes)
             return out
         return wrapped
@@ -2314,6 +2335,319 @@ def checkpoint_phase(torch, tmp: Path) -> tuple:
     return launches, stats
 
 
+# Phase 8: the evaluation entry points (``trace_tpu_torch.eval``,
+# ``runtime.inference``) at full width, in phase 7's directory: its TRACE-7B
+# checkpoint and its .npy videos, four more of the kind beside them.
+EVAL_VIDEOS = 8           # .npy videos of 256 640x360 frames: phase 7's 4 and 4 more
+EVAL_NEW = 64             # --max-new-tokens of every run
+EVAL_BATCH = 4            # the eval CLI's --batch-size default
+EVAL_DURATION = round(CKPT_VIDEO_FRAMES / 30.0, 3)  # an .npy plays at 30 fps
+EVAL_ROWS = {"bf16": ("flash_attention", "vit_attention_btd", "decode_attention"),
+             "int8": CKPT_ROWS}
+# the top-level keys of score_results for each task on eval_ground_truth's
+# annotations, as the JAX package's score_results returns them
+# (tests/test_torch_eval.py holds the two alike)
+EVAL_SCORE_KEYS = {
+    "tvg": ("R@0.3", "R@0.5", "R@0.7", "mIoU", "num_queries"),
+    "dvc": ("Para_CIDER", "Para_METEOR", "CIDER", "METEOR", "SODA_c_3", "Precision@0.3",
+            "Recall@0.3", "Precision@0.5", "Recall@0.5", "Precision@0.7", "Recall@0.7",
+            "Precision@0.9", "Recall@0.9", "Precision_Mean", "Recall_Mean", "F1_Score",
+            "n_preds", "meteor_is_approximate"),
+    "dvc-anet": ("Precision", "Recall", "Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "ROUGE_L",
+                 "CIDEr", "METEOR", "F1", "meteor_is_approximate"),
+    "vhd": ("brief", "HL-min-Fair", "HL-min-Good", "HL-min-VeryGood"),
+}
+# MVBench "Episodic Reasoning": TVQA clips dumped as 3-fps JPEG frames
+# (name, frames), and its records (clip, question, candidates, answer,
+# [start, end] or None)
+EVAL_CLIPS = (("s01e02_seg02_clip_07", 180), ("s05e14_seg01_clip_03", 120))
+EVAL_MCQA = (
+    ("s01e02_seg02_clip_07", "Where was Sheldon when he spoke to Leonard?",
+     ["In the kitchen.", "At the office.", "On the stairs.", "In the car.", "At the cafe."],
+     "On the stairs.", (3.0, 41.5)),
+    ("s01e02_seg02_clip_07", "What did Penny hold when she came in?",
+     ["A cup.", "A book.", "A bag.", "A phone.", "Nothing."], "A bag.", None),
+    ("s05e14_seg01_clip_03", "Why did Howard leave the room?",
+     ["He was angry.", "He got a call.", "He was late.", "He felt sick.", "He was asked to."],
+     "He got a call.", (10.0, 30.0)),
+    ("s05e14_seg01_clip_03", "Who sat down first?",
+     ["Raj.", "Amy.", "Howard.", "Bernadette.", "Sheldon."], "Amy.", (0.0, 40.0)),
+)
+
+
+def eval_ground_truth(names) -> dict:
+    """Annotations over the videos ``names`` in each task's
+    {split}.caption_coco_format.json schema (trace_tpu_torch/eval/evaluate.py):
+    ``tvg`` a query window a video; ``dvc`` two captioned segments a video,
+    which also serve ``dvc-anet``; ``vhd`` a window, three annotators'
+    saliency on 2-s clips. Within EVAL_DURATION; no randomness."""
+    d = EVAL_DURATION
+    out = {"tvg": [], "dvc": [], "vhd": []}
+    for i, name in enumerate(names):
+        a = round(0.4 + 0.3 * (i % 5), 2)
+        b = round(min(d, a + 2.5 + 0.5 * (i % 3)), 2)
+        base = {"image_id": f"clips/{name}", "id": i, "duration": d}
+        out["tvg"].append({**base, "caption": f"a person does action number {i}",
+                           "timestamp": [a, b]})
+        out["dvc"].append({**base, "segments": [[a, b], [b, d]],
+                           "caption": f"A person picks up the object number {i}. The "
+                                      "person puts it down on the table."})
+        out["vhd"].append({**base, "caption": f"a person does action number {i}",
+                           "segments": [[a, b]], "relevant_clip_ids": [0, 1, 2],
+                           "saliency_scores": [[(i + k) % 5, (i + 2 * k) % 5, (i + 3 * k) % 5]
+                                               for k in range(3)]})
+    return out
+
+
+def all_finite(x) -> bool:
+    if isinstance(x, dict):
+        return all(all_finite(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(all_finite(v) for v in x)
+    return isinstance(x, (bool, int)) or (isinstance(x, float) and math.isfinite(x))
+
+
+def check_scores(task: str, scores: dict, seconds: float) -> None:
+    keys = EVAL_SCORE_KEYS[task]
+    print(f"eval: score_results {task} in {seconds:.3f} s: "
+          + ", ".join(f"{k}={scores[k]}" for k in keys if k in scores and k != "brief"),
+          flush=True)
+    if set(scores) != set(keys) or not all_finite(scores):
+        fail(f"eval: score_results {task} gave keys {sorted(scores)} (want {sorted(keys)}) "
+             "or a value that is not finite")
+
+
+def eval_phase(torch, tmp: Path, native_decoder: str) -> tuple:
+    """Phase 8, in phase 7's directory ``tmp``: (a) ``eval.evaluate.main`` for
+    task tvg with the CLI's defaults (bf16, 128 frames, batch 4) over 8 .npy
+    videos, a missing file, one with a corrupt header (.npy) and a junk .mp4;
+    (b) ``model_init(quant="int8")``, ``run_vtg_eval`` for dvc streamed at
+    batch 4, then ``score_results`` for dvc, dvc-anet and vhd; (c)
+    ``run_mvbench`` on the frame-directory subtask with (b)'s pipeline; (d)
+    ``runtime.inference.main`` on one .npy. Checks: a record per readable
+    video and none else, the fmt file equal to the records; every score of
+    the JAX package's keys and finite; in each run the path's rows launched
+    (1, 2, 3; 1, 2, 3b, 4, 5; (d) 1, 2, 3), no plain version on the card,
+    and each kernel, the first call at each shape, held to its plain
+    version (check (e) of phase 5); accuracies in [0, 100] with no failure;
+    (d)'s events finite. ``model_init`` gets ``SpmLikeTokenizer``: the
+    checkpoint has no tokenizer files."""
+    import gc
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    import trace_tpu_torch
+    from trace_tpu_torch.eval import evaluate, mcqa
+    from trace_tpu_torch.metrics import captioning, meteor_align
+    from trace_tpu_torch.runtime import generate as gen
+    from trace_tpu_torch.runtime import inference
+    from trace_tpu_torch.runtime import pipeline as pl
+    from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
+
+    t_phase = time.perf_counter()
+    ckpt = str(tmp / "trace-7b")
+    stats = {"native_decoder": native_decoder}
+    rng = np.random.default_rng(SEED + 8)
+    for v in range(CKPT_VIDEOS, EVAL_VIDEOS):  # phase 7 wrote video0..3
+        np.save(tmp / f"video{v}.npy", rng.integers(
+            0, 256, (CKPT_VIDEO_FRAMES,) + CORPUS_HW + (3,), dtype=np.uint8))
+    names = [f"video{v}.npy" for v in range(EVAL_VIDEOS)]
+    (tmp / "junk.mp4").write_bytes(b"not a video container")
+    gt = eval_ground_truth(names)
+    bad = [{"image_id": f"clips/{n}", "id": 100 + k, "caption": "a query",
+            "timestamp": [0.0, 1.0], "duration": EVAL_DURATION}
+           for k, n in enumerate(("missing.npy", "broken.npy", "junk.mp4"))]
+    anno = {}
+    for task in ("tvg", "dvc", "vhd"):
+        anno[task] = tmp / f"anno_{task}"
+        anno[task].mkdir()
+        records = gt[task] + (bad if task == "tvg" else [])
+        (anno[task] / "test.caption_coco_format.json").write_text(
+            json.dumps({"annotations": records}))
+
+    tok = SpmLikeTokenizer()
+    orig_init, orig_generate = pl.model_init, gen.generate
+    steps = {"steps": 0, "decode_s": 0.0}
+
+    def counting_generate(*a, **k):
+        out = orig_generate(*a, **k)
+        steps["steps"] += out.decode_steps
+        steps["decode_s"] += out.phase_times["decode_s"]
+        return out
+
+    built = {}  # the pipeline the last model_init built, until read
+
+    def init(path, **k):
+        built["pipe"] = orig_init(path, tokenizer=tok, **k)
+        return built["pipe"]
+
+    pl.model_init = trace_tpu_torch.model_init = init
+    gen.generate = counting_generate
+    meteor = captioning.make_meteor()
+    stats["meteor"] = type(meteor).__name__
+    meteor.close()
+    stats["stemmer"] = type(meteor_align._porter()).__name__
+    print(f"eval: METEOR {stats['meteor']} (approximate: "
+          f"{getattr(meteor, 'approximate', False)}), stemmer {stats['stemmer']}; native video "
+          f"decoder {native_decoder}; model_init takes SpmLikeTokenizer", flush=True)
+
+    def run(label, mode, fn):
+        """``fn()`` with the launches counted, plain versions watched and
+        the kernels held (on_path); prints and checks."""
+        reset_serving_launches()
+        steps.update(steps=0, decode_s=0.0)
+        plain_counts, undo = watch_plain(torch)
+        try:
+            t0 = time.perf_counter()
+            out, held = on_path(torch, f"eval {label}", fn)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            undo()
+        launches = serving_launches()
+        plain = {k: v for k, v in plain_counts.items() if v}
+        idle = [r for r in EVAL_ROWS[mode] if launches[r] <= 0]
+        ms = 1e3 * steps["decode_s"] / max(steps["steps"], 1)
+        r = {"wall_s": wall, "decode_steps": steps["steps"], "ms_per_step": ms,
+             "launches": {k: v for k, v in launches.items() if v}, "on_path": held}
+        print(f"eval ({label}, {mode}): wall {wall:.2f} s, {steps['steps']} decode steps at "
+              f"{ms:.2f} ms/step; launches {r['launches']}; plain versions on the card: "
+              f"{plain or 'none'}", flush=True)
+        if idle or plain:
+            fail(f"eval ({label}): rows {idle} not launched, plain versions {plain} on the card")
+        return out, r
+
+    def corpus_line(label, pipe, n_records, seconds):
+        cs = dict(pipe.last_corpus_stats, videos_per_s=n_records / seconds)
+        print(f"eval ({label}): run_vtg_eval {seconds:.2f} s, {n_records} records, "
+              f"{cs['videos_per_s']:.4f} videos/s (check (e) inside); last_corpus_stats "
+              f"{pipe.last_corpus_stats}", flush=True)
+        return cs
+
+    try:
+        # (a) the eval CLI, in-process
+        captured = {}
+        orig_run = evaluate.run_vtg_eval
+
+        def capturing(*a, **k):
+            t0 = time.perf_counter()
+            captured["results"] = orig_run(*a, **k)
+            captured["s"] = time.perf_counter() - t0
+            return captured["results"]
+
+        evaluate.run_vtg_eval = capturing
+        seconds, undo_timed = timed_calls({"tvg": (evaluate, "score_results")})
+        out_dir = tmp / "eval_out"
+        argv = ["--model-path", ckpt, "--task", "tvg", "--anno-path", str(anno["tvg"]),
+                "--video-path", str(tmp), "--output-dir", str(out_dir),
+                "--max-new-tokens", str(EVAL_NEW)]
+        try:
+            scores, stats["a"] = run("a", "bf16", lambda: evaluate.main(argv))
+        finally:
+            evaluate.run_vtg_eval = orig_run
+            undo_timed()
+        results = captured["results"]
+        fmt = out_dir / "fmt_tvg_test_f128.json"
+        got_ids = [r["id"] for r in results]
+        print(f"eval check (a): evaluate.main wrote {fmt.name}; records for ids {got_ids} "
+              f"(of {len(gt['tvg'])} readable videos, a missing file, a corrupt .npy, a junk "
+              ".mp4)", flush=True)
+        if (got_ids != [j["id"] for j in gt["tvg"]]
+                or json.loads(fmt.read_text()) != json.loads(json.dumps(results))):
+            fail("eval (a): not one record per readable video, or the fmt file is not the "
+                 "records")
+        stats["a"]["run_vtg_eval_s"] = captured["s"]
+        stats["a"]["corpus"] = corpus_line("a", built.pop("pipe"), len(results), captured["s"])
+        check_scores("tvg", scores, seconds["tvg"])
+        stats["a"]["score_s"] = seconds["tvg"]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the single-video demo, bf16 as its model_init
+        saved_env = {k: os.environ.get(k) for k in ("MODEL_PATH", "MAX_NEW_TOKENS", "FRAMES")}
+        os.environ.update(MODEL_PATH=ckpt, MAX_NEW_TOKENS=str(EVAL_NEW))
+        os.environ.pop("FRAMES", None)
+        try:
+            events, stats["d"] = run("d", "bf16", lambda: inference.main(
+                ["inference", str(tmp / names[0])]))
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        built.pop("pipe")
+        n_ev = len(events["timestamps"])
+        print(f"eval check (d): inference.main on {names[0]} (64 frames, the script's "
+              f"default): {n_ev} events, {len(events['captions'])} captions", flush=True)
+        if set(events) != {"timestamps", "scores", "captions"} or not all_finite(
+                [events["timestamps"], events["scores"]]):
+            fail(f"eval (d): inference.main printed {sorted(events)} or values not finite")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) int8: dvc streamed at batch 4, scored three ways
+        t0 = time.perf_counter()
+        pipe = pl.model_init(ckpt, quant="int8")
+        built.pop("pipe")
+        torch.cuda.synchronize()
+        stats["int8_model_init_s"] = time.perf_counter() - t0
+        dvc_anno = evaluate.load_annotations(str(anno["dvc"]), "test")
+        results, stats["b"] = run("b", "int8", lambda: evaluate.run_vtg_eval(
+            pipe, "dvc", dvc_anno, str(tmp), batch_size=EVAL_BATCH, streamed=True,
+            max_new_tokens=EVAL_NEW))
+        stats["b"]["corpus"] = corpus_line("b", pipe, len(results), stats["b"]["wall_s"])
+        if [r["id"] for r in results] != [j["id"] for j in dvc_anno]:
+            fail("eval (b): not one record per video")
+        stats["b"]["score_s"] = {}
+        for task, gt_task in (("dvc", "dvc"), ("dvc-anet", "dvc"), ("vhd", "vhd")):
+            t0 = time.perf_counter()
+            scores = evaluate.score_results(
+                task, results, str(anno[gt_task] / "test.caption_coco_format.json"))
+            stats["b"]["score_s"][task] = time.perf_counter() - t0
+            check_scores(task, scores, stats["b"]["score_s"][task])
+
+        # (c) MVBench's frame-directory subtask with (b)'s pipeline
+        root = tmp / "mvbench"
+        frames_dir = root / "video" / mcqa.MVBENCH_TASKS["Episodic Reasoning"][1]
+        base = rng.integers(0, 256, CORPUS_HW + (3,), dtype=np.uint8)
+        for clip, n in EVAL_CLIPS:
+            (frames_dir / clip).mkdir(parents=True)
+            for i in range(1, n + 1):  # 00001.jpg ...: 3-fps dumps, 1-indexed
+                Image.fromarray(np.roll(base, 8 * i, axis=1)).save(
+                    frames_dir / clip / f"{i:05d}.jpg", quality=90)
+        (root / "json").mkdir()
+        (root / "json" / mcqa.MVBENCH_TASKS["Episodic Reasoning"][0]).write_text(json.dumps([
+            {"video": clip, "question": q, "candidates": c, "answer": a,
+             **({"start": b[0], "end": b[1]} if b else {})}
+            for clip, q, c, a, b in EVAL_MCQA]))
+        final, stats["c"] = run("c", "int8", lambda: mcqa.run_mvbench(
+            pipe, str(root / "json"), str(root / "video"), num_frames=128,
+            batch_size=EVAL_BATCH, max_new_tokens=EVAL_NEW,
+            output_dir=str(root / "out"), tasks=["Episodic Reasoning"]))
+        dump = json.loads((root / "out" / "test.json").read_text())
+        stats["c"]["final"] = final
+        print(f"eval check (c): run_mvbench {final}; {len(dump['res_list'])} answers",
+              flush=True)
+        accs = [v for k, v in final.items() if k != "num_failures"]
+        if (final["num_failures"] != 0 or len(dump["res_list"]) != len(EVAL_MCQA)
+                or set(final) != {"Episodic Reasoning", "Avg", "num_failures"}
+                or not all(0.0 <= v <= 100.0 for v in accs)):
+            fail("eval (c): run_mvbench failed an item or gave an accuracy outside [0, 100]")
+        del pipe
+    finally:
+        pl.model_init = trace_tpu_torch.model_init = orig_init
+        gen.generate = orig_generate
+        built.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"eval: phase 8 took {stats['seconds']:.1f} s", flush=True)
+    return stats
+
+
 def main() -> int:
     try:
         import torch
@@ -2342,9 +2676,12 @@ def main() -> int:
     print(f"build: {len(build.SOURCES)} CUDA sources in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    if sys.argv[1:] == ["--checkpoint"]:
+    if sys.argv[1:] in (["--checkpoint"], ["--eval"]):
         with tempfile.TemporaryDirectory() as tmp:
-            print(json.dumps(checkpoint_phase(torch, Path(tmp))[1]), flush=True)
+            ckpt_stats = checkpoint_phase(torch, Path(tmp))[1]
+            if sys.argv[1:] == ["--eval"]:
+                ckpt_stats["eval"] = eval_phase(torch, Path(tmp), ckpt_stats["native_decoder"])
+            print(json.dumps(ckpt_stats), flush=True)
         return 0
     rows = kernel_checks(torch)
     if sys.argv[1:] == ["--kernels"]:
@@ -2367,8 +2704,9 @@ def main() -> int:
         train_launches, train_stats, grad_check = training(torch, Path(tmp))
     for name, n in train_launches.items():
         launches.setdefault(name, n)
-    with tempfile.TemporaryDirectory() as tmp:  # the checkpoint, videos and JSONL
+    with tempfile.TemporaryDirectory() as tmp:  # the checkpoint, videos, JSONL, eval files
         ckpt_launches, ckpt_stats = checkpoint_phase(torch, Path(tmp))
+        eval_stats = eval_phase(torch, Path(tmp), ckpt_stats["native_decoder"])
     for name, n in ckpt_launches.items():
         if n:
             launches.setdefault(name, n)
@@ -2430,7 +2768,8 @@ def main() -> int:
     if idle:
         fail(f"no path launched {idle}")
     print(json.dumps({"requests": stats, "e2e": e2e, "corpus": corpus, "training": train_stats,
-                      "gradient_check": grad_check, "checkpoint": ckpt_stats, "card": card,
+                      "gradient_check": grad_check, "checkpoint": ckpt_stats,
+                      "eval": eval_stats, "card": card,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

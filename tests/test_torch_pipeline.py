@@ -155,7 +155,8 @@ def test_port_never_imports_jax_or_the_jax_package():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "optax", "orbax", "trace_tpu", "cv2"), \
+                assert top not in ("jax", "jaxlib", "optax", "orbax", "trace_tpu", "cv2",
+                                   "sklearn"), \
                     f"{path}: imports {name}"
 
 
@@ -168,7 +169,7 @@ def test_importing_the_port_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'orbax', 'trace_tpu', 'cv2'))\n"
+        "('jax', 'jaxlib', 'optax', 'orbax', 'trace_tpu', 'cv2', 'sklearn'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )

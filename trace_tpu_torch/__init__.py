@@ -37,7 +37,11 @@ additions:
   infer_events_batch(pipeline, frames, timestamps, instructions, ...)
 
 ``python -m trace_tpu_torch.runtime.serve_batch`` serves a folder of videos
-into JSONL.
+into JSONL; ``python -m trace_tpu_torch.runtime.inference VIDEO`` prints one
+video's events. The evaluation layer (``eval/``, ``metrics/``,
+``task_prompts.py``) scores the VTG tasks (``python -m
+trace_tpu_torch.eval.evaluate``) and MVBench / Video-MME (``python -m
+trace_tpu_torch.eval.mcqa``).
 """
 
 from trace_tpu_torch.runtime.pipeline import TracePipeline, model_init  # noqa: F401
