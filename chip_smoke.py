@@ -86,13 +86,21 @@ Phases, in order; any failure exits non-zero:
      (``eval_phase``): ``eval.evaluate.main`` for tvg in bf16,
      ``runtime.inference.main``, ``run_vtg_eval`` for dvc in int8 scored
      as dvc, dvc-anet and vhd, and ``run_mvbench`` on JPEG frame dumps.
+  9. the other backbones at full width, each from a merged checkpoint
+     written here and loaded through ``model_init`` (``families_phase``):
+     qwen2-7B (G = 7, qkv biases) with spatial_slot, two requests in bf16
+     and two in int8, and vicuna-7B with stc_connector_v35 (the
+     global-pooling layout), two in bf16: launch counts, head slices, check
+     (e) and the distance to an fp32 model; rows 3 and 3b at G = 7 (phase
+     3's ``*_g7`` entries, with a G = 16 split and the prefill at G = 7
+     beside them) take their launches from this path.
 The line before the last is {"kernels": [...]} (each entry also holds
 ``launches_corpus``, its count in phase 5's pass A); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it prints no result and exits 2. ``--kernels`` stops
 after phase 3 (a short check of freshly edited kernels; no last line);
-``--checkpoint`` runs phase 7 alone and ``--eval`` phases 7 and 8 (each
-after the build; no last line).
+``--checkpoint`` runs phase 7 alone, ``--eval`` phases 7 and 8 and
+``--families`` phase 9 alone (each after the build; no last line).
 """
 
 from __future__ import annotations
@@ -177,6 +185,11 @@ KERNEL_TOL = {  # name: (atol, rtol)
     "quant_matmul_stacked_wide": (1e-5, 2 ** -7),
     "decode_attention_int8_s8dot": (2e-3, 2 ** -7),
     "decode_attention_int8_dequant": (2e-3, 2 ** -7),
+    # rows 3 and 3b at qwen2-7B's group of 7 query rows a kv head: the same
+    # arithmetic, the same limits
+    "decode_attention_g7": (2e-3, 2 ** -7),
+    "decode_attention_int8_s8dot_g7": (2e-3, 2 ** -7),
+    "decode_attention_int8_dequant_g7": (2e-3, 2 ** -7),
     "quant_matmul_p4": (1e-5, 2 ** -7),          # split-K form, units of max |ref|
     "quant_matmul_p4_mma": (1e-4, 2 ** -7),      # tensor-core form, same units
     "quant_matmul_p4_grouped": (1e-5, 2 ** -7),
@@ -352,6 +365,7 @@ def kernel_checks(torch):
 
     quant_matmul_checks(torch, g, rows)
     int8_decode_checks(torch, g, rows)
+    group_decode_checks(torch, rows)
     packed_int4_checks(torch, g, rows)
     flash_backward_checks(torch, g, rows)
 
@@ -652,6 +666,108 @@ def int8_decode_checks(torch, g, rows: dict) -> None:
         del cache, stripe, kd, vd, q, bias, lib_mask
 
 
+def group_decode_checks(torch, rows: dict) -> None:
+    """Rows 3 and 3b at qwen2-7B's heads, 28 query heads over 4 kv heads
+    (G = 7): q [4, 28, 1, 128] over one layer's stripe [4, 4, 2304, 128],
+    half the slots masked, bf16 and int8 (both modes; the stripe quantized
+    from random K / V as the decoder quantizes it), the entries
+    ``decode_attention_g7`` and ``decode_attention_int8_{s8dot,dequant}_g7``
+    timed beside SDPA with enable_gqa (the int8 stripe dequantized to bf16
+    beforehand). Then, printed on lines of their own and held to the same
+    limits: the same at B = 32 with serving masks; G = 16 (q [4, 64, 1, 128])
+    through the wrapper's split, two launches a call; and the prefill flash
+    attention at G = 7, q [2, 28, 2048, 128] over k / v [2, 4, 2048, 128],
+    causal, row 0 left-padded by 300 slots. Inputs from a generator of their
+    own."""
+    import torch.nn.functional as F
+
+    from trace_tpu_torch.kernels.decode_attention import decode_attention
+    from trace_tpu_torch.kernels.decode_int8_turns import mask_bias
+    from trace_tpu_torch.kernels.flash_attention import flash_attention
+    from trace_tpu_torch.model.mistral import _quantize_kv
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    NKV, S, HD = 4, 2304, 128
+
+    def launches(kernel):
+        return (decode_attention.launches if kernel == "bf16"
+                else decode_attention.launches_int8[kernel])
+
+    for B, G, mask in ((4, 7, "random"), (32, 7, "serving"), (4, 16, "random")):
+        H = NKV * G
+        q, k, v = randn(B, H, 1, HD), randn(B, NKV, S, HD), randn(B, NKV, S, HD)
+        (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+        stripe = {"kq": kq, "ks": ks.contiguous(), "vq": vq, "vs": vs.contiguous()}
+        kd = kq.to(torch.bfloat16) * ks.transpose(-1, -2)
+        vd = vq.to(torch.bfloat16) * vs.transpose(-1, -2)
+        bias = mask_bias(g, B, mask, S)
+        lib_mask = bias[:, None, None, :].to(torch.bfloat16)
+        visible = int((bias == 0).sum().item())
+        ops = 4 * H * visible * HD
+        for kernel in ("bf16", "s8dot", "dequant"):
+            if kernel == "bf16":
+                name = "decode_attention_g7"
+                run = lambda impl="auto": decode_attention(q, k, v, bias, impl=impl)
+                lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask,
+                                                             enable_gqa=True)
+                nbytes = (2 * q.numel() + 2 * visible * NKV * HD) * 2 + bias.numel() * 4
+                peak = BF16_FLOPS_PER_S
+            else:
+                name = f"decode_attention_int8_{kernel}_g7"
+                run = lambda impl="auto": decode_attention(q, stripe, None, bias, mode=kernel,
+                                                           impl=impl)
+                lib = lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=lib_mask,
+                                                             enable_gqa=True)
+                nbytes = 2 * q.numel() * 2 + 2 * visible * NKV * (HD + 2) + bias.numel() * 4
+                peak = INT8_OPS_PER_S if kernel == "s8dot" else BF16_FLOPS_PER_S
+            n = launches(kernel)
+            out = run()
+            torch.cuda.synchronize()
+            calls = launches(kernel) - n
+            ref = run("plain")
+            if not torch.isfinite(out).all():
+                fail(f"{name} at B = {B}, G = {G}: non-finite output")
+            if calls != (G + 7) // 8:
+                fail(f"{name} at G = {G}: {calls} launches a call, expected {(G + 7) // 8}")
+            r = dict(**compare(name, out, ref), ms=median_ms(torch, run),
+                     plain_ms=median_ms(torch, lambda: run("plain")),
+                     library_ms=median_ms(torch, lib), bound=bound(nbytes, ops, peak))
+            if (B, G) == (4, 7):
+                rows[name] = r
+                continue
+            atol, rtol = KERNEL_TOL[name]
+            print(f"  {name.replace('_g7', '')} at B = {B}, G = {G} ({NKV} kv heads), S = {S}, "
+                  f"{mask} mask, {calls} launch(es) a call: ms={r['ms']:.4f} library_ms="
+                  f"{r['library_ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms="
+                  f"{r['bound'][0]:.4f} ({r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} %) "
+                  f"max_abs_err={r['err']:.6f} (|diff| <= {atol} + {rtol} |ref|, excess "
+                  f"{r['excess']:.6f}) rel_norm_err={r['rel_norm']:.6f}", flush=True)
+            if not (r["excess"] <= 0 and r["rel_norm"] <= REL_NORM_TOL):
+                fail(f"{name} at B = {B}, G = {G}: kernel disagrees with its plain version")
+        del q, k, v, stripe, kq, vq, kd, vd, bias, lib_mask
+
+    # the prefill attention at G = 7
+    B, H, T, PAD = 2, 28, 2048, 300
+    q, k, v = randn(B, H, T, HD), randn(B, NKV, T, HD), randn(B, NKV, T, HD)
+    bias = torch.zeros((B, T), device="cuda")
+    bias[0, :PAD] = -1e30
+    run = lambda impl="auto": flash_attention(q, k, v, bias, True, impl=impl)
+    out, ref = run(), run("plain")
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        fail("flash_attention at G = 7: non-finite output")
+    cmp = compare("flash_attention", torch.cat([out[0, :, PAD:], out[1]], dim=1),
+                  torch.cat([ref[0, :, PAD:], ref[1]], dim=1))
+    atol, rtol = KERNEL_TOL["flash_attention"]
+    print(f"  flash_attention at G = 7 (q [{B}, {H}, {T}, {HD}], kv [{B}, {NKV}, {T}, {HD}], "
+          f"causal, row 0 left-padded by {PAD}): ms={median_ms(torch, run):.4f} "
+          f"max_abs_err={cmp['err']:.6f} (|diff| <= {atol} + {rtol} |ref|, excess "
+          f"{cmp['excess']:.6f}) rel_norm_err={cmp['rel_norm']:.6f}", flush=True)
+    if not (cmp["excess"] <= 0 and cmp["rel_norm"] <= REL_NORM_TOL):
+        fail("flash_attention at G = 7: kernel disagrees with its plain version")
+
+
 def flash_backward_checks(torch, g, rows: dict) -> None:
     """The training attention at the shape a full-width train step gives it:
     q/do/o [2, 32, 2048, 128], k/v [2, 8, 2048, 128], causal, row 0
@@ -830,6 +946,8 @@ def dequantized_fp32(tree):
             out[name] = w
         elif isinstance(leaf, dict):
             out[name] = dequantized_fp32(leaf)
+        elif isinstance(leaf, list):  # a connector's layers (the STC family)
+            out[name] = [dequantized_fp32(x) for x in leaf]
         else:
             out[name] = leaf.float()
     return out
@@ -922,6 +1040,108 @@ def serving_launches() -> dict:
             "quant_matmul_p4_grouped_mma": p4g.launches_by_form["mma"]}
 
 
+def reference_check(torch, pipe, params, cfg, tok, videos, stamps, asks, mode: str, tokens,
+                    profile: bool = True) -> dict:
+    """The serving path of ``pipe`` (built from ``params``) against the same path with every kernel
+    replaced by its plain version, and against an fp32 reference of the same
+    model (plain attention, fp32 weights and activations; for a quantized
+    tree the dequantized weights, dense products and an fp32 cache): the
+    prefix embeddings and the first-token logits of a prefill, each the
+    kernel path no further from the fp32 reference than the plain path is,
+    within REF_RATIO_TOL; and the greedy tokens' agreement with the plain
+    path's (``tokens``: the kernel path's). With ``profile`` the encode, the
+    prefill and a decode step run under torch.profiler. Returns the
+    distances, the agreement and the profiles."""
+    from trace_tpu_torch.model.mistral import compute_logits
+    from trace_tpu_torch.runtime import generate as gen
+    from trace_tpu_torch.runtime.pipeline import TracePipeline
+
+    quantized = cfg.decoder.kv_cache_dtype == "int8"  # int8 / int4p serving
+    # The same path with every kernel replaced by its plain version, and an
+    # fp32 reference of the same model (plain attention, fp32 weights and
+    # activations; for a quantized tree the dequantized weights, dense
+    # products and an fp32 cache). With random weights the model is ill-conditioned (the
+    # connector's N(0, 1) slots make its softmax over 576 patches nearly an
+    # argmax; 32 random decoder layers amplify), so kernel-vs-plain has no
+    # fixed scale; the test is that the kernel path is no further from the
+    # fp32 reference than the plain path is, within REF_RATIO_TOL.
+    plain = TracePipeline(params, cfg, tok, attn_impl="plain")
+    if quantized:
+        fcfg = dataclasses.replace(
+            cfg, dtype=torch.float32,
+            decoder=dataclasses.replace(cfg.decoder, kv_cache_dtype="bf16", act_quant=False),
+            vision=dataclasses.replace(cfg.vision, act_quant=False))
+    else:
+        fcfg = dataclasses.replace(cfg, dtype=torch.float32)
+    ref_params = dequantized_fp32(pipe.params)
+    # pipe.params has dropped decoder.embed: the combined table's text rows
+    ref_params["decoder"]["embed"] = pipe._combined[:cfg.decoder.vocab_size].float()
+    ref = TracePipeline(ref_params, fcfg, tok, attn_impl="plain")
+    del ref_params
+    encode_profile = prefill_profile = step_profile = "not measured"
+    if profile:
+        (prefix, mask), encode_profile = device_profile(
+            torch, f"{mode} encode (ViT + connector + splice)",
+            lambda: pipe.encode_prefix(videos, stamps, asks))
+    else:
+        prefix, mask = pipe.encode_prefix(videos, stamps, asks)
+    if not torch.isfinite(prefix).all():
+        fail("non-finite prefix embeddings")
+    prefixes = {"kernel": prefix, "plain": plain.encode_prefix(videos, stamps, asks)[0],
+                "fp32": ref.encode_prefix(videos, stamps, asks)[0]}
+
+    P = prefix.shape[1]
+    bucket = -(-P // 128) * 128
+    pe = torch.nn.functional.pad(prefix, (0, 0, bucket - P, 0))
+    pm = torch.nn.functional.pad(mask, (bucket - P, 0))
+    logits = {}
+    for name, p, impl in (("kernel", pipe, "auto"), ("plain", plain, "plain"),
+                          ("fp32", ref, "plain")):
+        x = pe.float() if name == "fp32" else pe
+        prefill = lambda: gen.prefill(p._decoder_params, p.config.decoder, x, pm,
+                                       cache_len=bucket + 1, impl=impl)
+        if name == "kernel" and profile:
+            state, prefill_profile = device_profile(torch, f"{mode} prefill", prefill)
+        else:
+            state = prefill()
+        logits[name] = compute_logits(p._decoder_params, state[2], impl=impl)
+        if name == "kernel" and profile:
+            step_profile = profile_decode_step(torch, pipe, cfg.decoder, state, mode)
+        del state
+    del ref
+    if not torch.isfinite(logits["kernel"]).all():
+        fail("non-finite logits")
+    errs = {}
+    for what, v in (("prefix", prefixes), ("logits", logits)):
+        errs[what] = {"kernel_vs_plain": rel_err(v["kernel"], v["plain"]),
+                      "kernel_vs_fp32": rel_err(v["kernel"], v["fp32"]),
+                      "plain_vs_fp32": rel_err(v["plain"], v["fp32"])}
+
+    plain.infer_events_batch(videos, stamps, asks, max_new_tokens=MAX_NEW)
+    ptok = plain.last_stats["tokens"]
+    agree = []
+    for a, b in zip(tokens, ptok):
+        n = 0
+        while n < len(a) and a[n] == b[n]:
+            n += 1
+        agree.append(n)
+    for what, e in errs.items():
+        print(f"{mode} {what} (||diff|| / ||ref||): kernel vs plain "
+              f"{e['kernel_vs_plain']:.5f}, kernel vs fp32 {e['kernel_vs_fp32']:.5f}, "
+              f"plain vs fp32 {e['plain_vs_fp32']:.5f} (tol: kernel vs fp32 <= "
+              f"{REF_RATIO_TOL} x plain vs fp32)", flush=True)
+    print(f"{mode}: greedy tokens of the kernel path equal the plain path's for the "
+          f"first {agree} of {MAX_NEW} per row", flush=True)
+    for what, e in errs.items():
+        if not e["kernel_vs_fp32"] <= REF_RATIO_TOL * e["plain_vs_fp32"]:
+            fail(f"{mode} {what}: the kernel path is further from the fp32 reference "
+                 "than the plain path")
+    del plain
+    torch.cuda.empty_cache()
+    return {**errs, "greedy_agree": agree, "decode_step": step_profile,
+            "encode_profile": encode_profile, "prefill_profile": prefill_profile}
+
+
 def end_to_end(torch, mode: str):
     """Phase 4: the serving path at full width, two requests, in the bf16
     (``mode="bf16"``), the int8 (``"int8"``) or the int4p serving
@@ -931,10 +1151,8 @@ def end_to_end(torch, mode: str):
 
     from trace_tpu_torch import EventPredictions
     from trace_tpu_torch.model.config import TraceConfig
-    from trace_tpu_torch.model.mistral import compute_logits
     from trace_tpu_torch.model.quantize import int4p_serving, int8_serving
     from trace_tpu_torch.params import init_trace_params
-    from trace_tpu_torch.runtime import generate as gen
     from trace_tpu_torch.runtime.pipeline import TracePipeline
     from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
 
@@ -1018,86 +1236,10 @@ def end_to_end(torch, mode: str):
     if mode == "int4p_g0":
         launches.update(weight_only_request(torch, params, cfg, tok, videos, stamps, asks))
 
-    # The same path with every kernel replaced by its plain version, and an
-    # fp32 reference of the same model (plain attention, fp32 weights and
-    # activations; for a quantized tree the dequantized weights, dense
-    # products and an fp32 cache). With random weights the model is ill-conditioned (the
-    # connector's N(0, 1) slots make its softmax over 576 patches nearly an
-    # argmax; 32 random decoder layers amplify), so kernel-vs-plain has no
-    # fixed scale; the test is that the kernel path is no further from the
-    # fp32 reference than the plain path is, within REF_RATIO_TOL.
-    plain = TracePipeline(params, cfg, tok, attn_impl="plain")
-    if quantized:
-        fcfg = dataclasses.replace(
-            cfg, dtype=torch.float32,
-            decoder=dataclasses.replace(cfg.decoder, kv_cache_dtype="bf16", act_quant=False),
-            vision=dataclasses.replace(cfg.vision, act_quant=False))
-    else:
-        fcfg = dataclasses.replace(cfg, dtype=torch.float32)
-    ref_params = dequantized_fp32(pipe.params)
-    # pipe.params has dropped decoder.embed: the combined table's text rows
-    ref_params["decoder"]["embed"] = pipe._combined[:cfg.decoder.vocab_size].float()
-    ref = TracePipeline(ref_params, fcfg, tok, attn_impl="plain")
-    del ref_params
-    (prefix, mask), encode_profile = device_profile(
-        torch, f"{mode} encode (ViT + connector + splice)",
-        lambda: pipe.encode_prefix(videos, stamps, asks))
-    if not torch.isfinite(prefix).all():
-        fail("non-finite prefix embeddings")
-    prefixes = {"kernel": prefix, "plain": plain.encode_prefix(videos, stamps, asks)[0],
-                "fp32": ref.encode_prefix(videos, stamps, asks)[0]}
-
-    P = prefix.shape[1]
-    bucket = -(-P // 128) * 128
-    pe = torch.nn.functional.pad(prefix, (0, 0, bucket - P, 0))
-    pm = torch.nn.functional.pad(mask, (bucket - P, 0))
-    logits = {}
-    for name, p, impl in (("kernel", pipe, "auto"), ("plain", plain, "plain"),
-                          ("fp32", ref, "plain")):
-        x = pe.float() if name == "fp32" else pe
-        prefill = lambda: gen.prefill(p._decoder_params, p.config.decoder, x, pm,
-                                       cache_len=bucket + 1, impl=impl)
-        if name == "kernel":
-            state, prefill_profile = device_profile(torch, f"{mode} prefill", prefill)
-        else:
-            state = prefill()
-        logits[name] = compute_logits(p._decoder_params, state[2], impl=impl)
-        if name == "kernel":
-            step_profile = profile_decode_step(torch, pipe, cfg.decoder, state, mode)
-        del state
-    del ref
-    if not torch.isfinite(logits["kernel"]).all():
-        fail("non-finite logits")
-    errs = {}
-    for what, v in (("prefix", prefixes), ("logits", logits)):
-        errs[what] = {"kernel_vs_plain": rel_err(v["kernel"], v["plain"]),
-                      "kernel_vs_fp32": rel_err(v["kernel"], v["fp32"]),
-                      "plain_vs_fp32": rel_err(v["plain"], v["fp32"])}
-
-    plain.infer_events_batch(videos, stamps, asks, max_new_tokens=MAX_NEW)
-    ptok = plain.last_stats["tokens"]
-    agree = []
-    for a, b in zip(tokens, ptok):
-        n = 0
-        while n < len(a) and a[n] == b[n]:
-            n += 1
-        agree.append(n)
-    for what, e in errs.items():
-        print(f"{mode} {what} (||diff|| / ||ref||): kernel vs plain "
-              f"{e['kernel_vs_plain']:.5f}, kernel vs fp32 {e['kernel_vs_fp32']:.5f}, "
-              f"plain vs fp32 {e['plain_vs_fp32']:.5f} (tol: kernel vs fp32 <= "
-              f"{REF_RATIO_TOL} x plain vs fp32)", flush=True)
-    print(f"{mode}: greedy tokens of the kernel path equal the plain path's for the "
-          f"first {agree} of {MAX_NEW} per row", flush=True)
-    for what, e in errs.items():
-        if not e["kernel_vs_fp32"] <= REF_RATIO_TOL * e["plain_vs_fp32"]:
-            fail(f"{mode} {what}: the kernel path is further from the fp32 reference "
-                 "than the plain path")
-    del pipe, plain, params
+    check = reference_check(torch, pipe, params, cfg, tok, videos, stamps, asks, mode, tokens)
+    del pipe, params
     torch.cuda.empty_cache()
-    return launches, stats, {**errs, "greedy_agree": agree, "decode_step": step_profile,
-                             "encode_profile": encode_profile,
-                             "prefill_profile": prefill_profile}
+    return launches, stats, check
 
 
 CORPUS_VIDEOS = 64      # two decode chunks of CORPUS_BATCH
@@ -1977,14 +2119,18 @@ CKPT_SAMPLES = (
 def ckpt_value(torch, index: int, key: str, shape):
     """The bf16 tensor written for the ``index``-th key: norms 1, biases 0,
     connector slots N(0, 1), every other weight N(0, 0.02) (the scales of
-    ``init_trace_params``), from a generator seeded with SEED + 1 + index."""
+    ``init_trace_params``), from a generator seeded with SEED + 1 + index;
+    but a decoder's q / k / v projection biases (qwen2's) N(0, 0.1), so
+    that the bias path moves the result."""
+    qkv_bias = key.startswith("model.layers.") and key.endswith(
+        ("q_proj.bias", "k_proj.bias", "v_proj.bias"))
     if key.endswith(("norm.weight", "layer_norm1.weight", "layer_norm2.weight",
-                     "ln_vision.weight")):
+                     "ln_vision.weight", ".bn.weight")):
         return torch.ones(shape, dtype=torch.bfloat16, device="cuda")
-    if key.endswith(".bias"):
+    if key.endswith(".bias") and not qkv_bias:
         return torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(SEED + 1 + index)
-    scale = 1.0 if key.endswith(".slots") else 0.02
+    scale = 1.0 if key.endswith(".slots") else 0.1 if qkv_bias else 0.02
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
 
 
@@ -2009,11 +2155,11 @@ def write_safetensors(torch, path: Path, entries) -> None:
             f.write(t.view(torch.uint8).numpy())
 
 
-def write_checkpoint(torch, path: Path, keys, cfg) -> int:
+def write_checkpoint(torch, path: Path, keys, cfg, model_type: str = "mistral") -> int:
     """The merged checkpoint dir: ``keys`` [(key, shape)] in manifest order
     over shards of about CKPT_SHARD_BYTES, and a config.json of ``cfg``'s
-    geometry (scripts/parity/manifest.py ``_released_config``). Returns the
-    bytes of tensor data."""
+    geometry (scripts/parity/manifest.py ``_released_config``) under
+    ``model_type``. Returns the bytes of tensor data."""
     path.mkdir(parents=True)
     shards, size = [[]], 0
     for index, (key, shape) in enumerate(keys):
@@ -2028,7 +2174,7 @@ def write_checkpoint(torch, path: Path, keys, cfg) -> int:
                           entries)
     d = cfg.decoder
     (path / "config.json").write_text(json.dumps({
-        "architectures": ["TraceMistralForCausalLM"], "model_type": "mistral",
+        "architectures": ["TraceMistralForCausalLM"], "model_type": model_type,
         "vocab_size": d.vocab_size, "hidden_size": d.hidden_size,
         "intermediate_size": d.intermediate_size, "num_hidden_layers": d.num_layers,
         "num_attention_heads": d.num_heads, "num_key_value_heads": d.num_kv_heads,
@@ -2648,6 +2794,215 @@ def eval_phase(torch, tmp: Path, native_decoder: str) -> tuple:
     return stats
 
 
+# Phase 9: the other two backbones the JAX package builds, at full width,
+# each from a merged checkpoint written here (phase 7's writer, random bf16
+# values) and loaded through ``model_init``: qwen2-7B (28 layers, D 3584,
+# 28 / 4 heads, so G = 7, I 18944, vocab 152064, q / k / v biases) with
+# CLIP ViT-L/14-336 and spatial_slot at 128 frames, served in bf16 and in
+# int8 (int8 weights, left unfused by the biases; int8 KV cache; W8A8
+# prefill); vicuna-7B (MHA, I 11008, vocab 32000) with stc_connector_v35,
+# served in bf16. stc_connector_v35 halves the frames and the 24 x 24 patch
+# grid: 72 tokens a frame, in the global-pooling layout (no time tokens).
+# The video span of the prompt is frames x (num_slots + 6) positions, so
+# num_slots 66 makes it hold them exactly; 32 frames keep the prefix at 2304
+# video tokens (the plain attention of the reference check holds [B, H, T, T]
+# scores).
+FAMILY_MODES = ("qwen2 bf16", "qwen2 int8", "vicuna bf16")
+VICUNA_FRAMES = 32
+VICUNA_SLOTS = 66
+FAMILY_ROWS = {"qwen2 bf16": {"decode_attention": "decode_attention_g7"},
+               "qwen2 int8": {"decode_attention_int8_s8dot": "decode_attention_int8_s8dot_g7",
+                              "decode_attention_int8_dequant": "decode_attention_int8_dequant_g7"}}
+
+
+def family_keys(cfg, vision_keys) -> list:
+    """(key, shape) of a merged checkpoint of ``cfg`` in the HF layout: the
+    decoder (q / k / v biases with ``attn_qkv_bias``), its heads, the
+    connector (spatial_slot, or the STC family's timm names), the towers,
+    and ``vision_keys`` (the bundled CLIP tower)."""
+    d = cfg.decoder
+    D, NQ, NKVW, I = d.hidden_size, d.num_heads * d.head_dim, d.num_kv_heads * d.head_dim, \
+        d.intermediate_size
+    keys = [("model.embed_tokens.weight", (d.vocab_size, D))]
+    for i in range(d.num_layers):
+        lyr = f"model.layers.{i}."
+        keys += [(lyr + "input_layernorm.weight", (D,)),
+                 (lyr + "post_attention_layernorm.weight", (D,)),
+                 (lyr + "self_attn.q_proj.weight", (NQ, D)),
+                 (lyr + "self_attn.k_proj.weight", (NKVW, D)),
+                 (lyr + "self_attn.v_proj.weight", (NKVW, D)),
+                 (lyr + "self_attn.o_proj.weight", (D, NQ)),
+                 (lyr + "mlp.gate_proj.weight", (I, D)),
+                 (lyr + "mlp.up_proj.weight", (I, D)),
+                 (lyr + "mlp.down_proj.weight", (D, I))]
+        if d.attn_qkv_bias:
+            keys += [(lyr + "self_attn.q_proj.bias", (NQ,)),
+                     (lyr + "self_attn.k_proj.bias", (NKVW,)),
+                     (lyr + "self_attn.v_proj.bias", (NKVW,))]
+    keys += [("model.norm.weight", (D,)), ("lm_head.weight", (d.vocab_size, D)),
+             ("sync_head.weight", (1, D)), ("time_head.weight", (d.time_vocab_size, D)),
+             ("score_head.weight", (d.score_vocab_size, D))]
+    mm, pre = cfg.vision.hidden_size, "model.mm_projector."
+    if cfg.mm_projector_type == "spatial_slot":
+        keys += [(pre + "slots", (mm, cfg.num_slots)), (pre + "ln_vision.weight", (mm,)),
+                 (pre + "ln_vision.bias", (mm,)), (pre + "readout.weight", (D, mm))]
+    else:  # stc_connector_v35: RegStages of 4 blocks around a 2 x 2 x 2 Conv3d
+        for stage, first_in in (("s1", mm), ("s2", D)):
+            for b in range(4):
+                blk, cin = f"{pre}{stage}.b{b + 1}.", first_in if b == 0 else D
+                rd = round(cin * 0.25)
+                keys += [(blk + "conv1.conv.weight", (D, cin, 1, 1)),
+                         (blk + "conv2.conv.weight", (D, 1, 3, 3)),
+                         (blk + "conv3.conv.weight", (D, D, 1, 1)),
+                         (blk + "se.fc1.weight", (rd, D, 1, 1)), (blk + "se.fc1.bias", (rd,)),
+                         (blk + "se.fc2.weight", (D, rd, 1, 1)), (blk + "se.fc2.bias", (D,))]
+                keys += [(f"{blk}conv{n}.bn.{w}", (D,)) for n in (1, 2, 3)
+                         for w in ("weight", "bias")]
+                if cin != D:
+                    keys += [(blk + "downsample.conv.weight", (D, cin, 1, 1)),
+                             (blk + "downsample.bn.weight", (D,)),
+                             (blk + "downsample.bn.bias", (D,))]
+        keys += [(pre + "sampler.0.weight", (D, D, 2, 2, 2)), (pre + "sampler.0.bias", (D,)),
+                 (pre + "readout.0.weight", (D, D)), (pre + "readout.0.bias", (D,)),
+                 (pre + "readout.2.weight", (D, D)), (pre + "readout.2.bias", (D,))]
+    keys += [("model.time_tower.embed_tokens.weight", (d.time_vocab_size, D)),
+             ("model.score_tower.embed_tokens.weight", (d.score_vocab_size, D)),
+             ("model.sync_tower.embed_tokens.weight", (1, D))]
+    return keys + list(vision_keys)
+
+
+def serving_tree(pipe) -> dict:
+    """A pipeline's tree on the card with the decoder's text embedding back
+    (the combined table's first rows, a view), for another pipeline."""
+    V = pipe.config.decoder.vocab_size
+    return {**pipe.params, "decoder": {**pipe.params["decoder"], "embed": pipe._combined[:V]}}
+
+
+def families_phase(torch, tmp: Path) -> tuple:
+    """Phase 9 (see FAMILY_MODES). Per backbone: the checkpoint written, then
+    per configuration ``model_init`` (its seconds and the card's peak), two
+    requests of 2 synthetic 336x336 videos, 64 new tokens each: launch
+    counts per request as the code implies (an unfused int8 layer runs seven
+    weight products a step), EventPredictions, the head slices; the int8
+    configuration once more with the dequant body of row 3b; check (e) on a
+    request of 8 tokens (every kernel held to its plain version on the
+    path's own inputs); and the prefix and first-token logits of the kernel
+    path no further from an fp32 model of the same weights than the plain
+    path, within REF_RATIO_TOL. Returns the launches of the G = 7 rows
+    (``*_g7``, the counts of rows 3 and 3b on the qwen2 path, whose every
+    decode attention is at G = 7) and the stats."""
+    import gc
+    import shutil
+
+    import numpy as np
+
+    from trace_tpu_torch import EventPredictions
+    from trace_tpu_torch.model.config import DecoderConfig, TraceConfig
+    from trace_tpu_torch.runtime import pipeline as pl
+    from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
+
+    t_phase = time.perf_counter()
+    manifest = json.loads((Path(__file__).resolve().parent / CKPT_MANIFEST).read_text())
+    vision_keys = [(k, tuple(v)) for k, v in manifest["keys"].items()
+                   if k.startswith("model.vision_tower.")]
+    tok = SpmLikeTokenizer()
+    families = {
+        "qwen2": ("qwen2", TraceConfig(decoder=DecoderConfig.qwen2_7b())),
+        "vicuna": ("llama", TraceConfig(decoder=DecoderConfig.vicuna_7b(),
+                                        mm_projector_type="stc_connector_v35",
+                                        num_slots=VICUNA_SLOTS, num_frames=VICUNA_FRAMES)),
+    }
+    asks = ["Localize the visual events in the video and describe each one.",
+            "Find every moment where something changes, with timestamps."]
+    launches, stats = {}, {}
+    for family, (model_type, cfg) in families.items():
+        ckpt = tmp / f"{family}-7b"
+        t0 = time.perf_counter()
+        nbytes = write_checkpoint(torch, ckpt, family_keys(cfg, vision_keys), cfg, model_type)
+        print(f"families: {family} checkpoint ({model_type}, {cfg.decoder.num_layers} layers, "
+              f"{cfg.mm_projector_type}), {nbytes / 1e9:.2f} GB of bf16 written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        T = cfg.num_frames
+        rng = np.random.default_rng(SEED)
+        videos = [rng.integers(0, 256, (T, 336, 336, 3), dtype=np.uint8) for _ in range(VIDEOS)]
+        stamps = [[[float(i)] for i in range(T)]] * VIDEOS
+        for mode in (m for m in FAMILY_MODES if m.startswith(family)):
+            quant = mode.split()[1]
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            pipe = pl.model_init(str(ckpt), quant=quant, tokenizer=tok)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            pc, dec = pipe.config, pipe.config.decoder
+            if (dec != dataclasses.replace(cfg.decoder, kv_cache_dtype=dec.kv_cache_dtype,
+                                           act_quant=dec.act_quant)
+                    or pc.mm_projector_type != cfg.mm_projector_type
+                    or pc.num_slots != cfg.num_slots or pc.num_frames != T):
+                fail(f"{mode}: model_init gave {pc}, not the checkpoint's config {cfg}")
+            layers = pipe._decoder_params["layers"]
+            fused = "wqkv" in layers
+            if dec.attn_qkv_bias and (fused or "bq" not in layers):
+                fail(f"{mode}: the biased tree is fused or lost its biases")
+            L, steps_all = dec.num_layers, []
+            vit_layers = pc.vision.num_layers + 1 + pc.vision.select_layer
+            chunks = VIDEOS * T // pc.vit_chunk_size
+            for request in (1, 2):
+                reset_serving_launches()
+                t0 = time.perf_counter()
+                preds = pipe.infer_events_batch(videos, stamps, asks, max_new_tokens=MAX_NEW)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got, s = serving_launches(), pipe.last_stats
+                steps = s["decode_steps"]
+                want = dict.fromkeys(got, 0)
+                want.update({"vit_attention_btd": vit_layers * chunks, "flash_attention": L})
+                if quant == "int8":
+                    want.update({"decode_attention_int8_s8dot": L * steps, "quant_matmul": steps + 1,
+                                 "quant_matmul_stacked": (4 if fused else 7) * L * steps})
+                else:
+                    want["decode_attention"] = L * steps
+                print(f"families: {mode} request {request}: launches {got} expected {want}; "
+                      f"{s['prefix_tokens']} prefix tokens, {steps} decode steps; wall "
+                      f"{wall:.3f} s, encode {s['encode_s']:.3f} s, prefill {s['prefill_s']:.3f} "
+                      f"s, decode {1e3 * s['decode_s'] / max(steps, 1):.2f} ms/step", flush=True)
+                if got != want or steps <= 0:
+                    fail(f"{mode}: launch counts {got} != expected {want}")
+                if not all(isinstance(p, EventPredictions) for p in preds):
+                    fail(f"{mode}: output does not parse into EventPredictions")
+                check_head_slices(dec, s["tokens"])
+                steps_all.append(1e3 * s["decode_s"] / max(steps, 1))
+            counts, tokens = got, pipe.last_stats["tokens"]
+            if quant == "int8":
+                counts.update(dequant_request(torch, serving_tree(pipe), pc, tok, videos,
+                                              stamps, asks))
+            for row, name in FAMILY_ROWS.get(mode, {}).items():
+                launches[name] = counts[row]
+            _, held = on_path(torch, mode, lambda: pipe.infer_events_batch(
+                videos, stamps, asks, max_new_tokens=8))
+            check = reference_check(torch, pipe, serving_tree(pipe), pc, tok, videos, stamps,
+                                    asks, mode, tokens, profile=False)
+            stats[mode] = {"model_init_s": init_s, "ms_per_step": steps_all,
+                           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                           "launches": counts, "on_path": held, "reference": check,
+                           "fused": fused}
+            print(f"families: {mode}: model_init {init_s:.1f} s, decode "
+                  f"{' / '.join(f'{t:.2f}' for t in steps_all)} ms/step (requests 1 / 2), "
+                  f"peak {stats[mode]['peak_gib']:.2f} GiB on the card", flush=True)
+            del pipe, layers
+        shutil.rmtree(ckpt)
+    idle = [name for name, n in launches.items() if n <= 0]
+    if idle or len(launches) != 3:
+        fail(f"families: rows at G = 7 not launched: {idle or sorted(launches)}")
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"families: phase 9 took {stats['seconds']:.1f} s; launches of the G = 7 rows "
+          f"{launches}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
 def main() -> int:
     try:
         import torch
@@ -2676,6 +3031,10 @@ def main() -> int:
     print(f"build: {len(build.SOURCES)} CUDA sources in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    if sys.argv[1:] == ["--families"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps(families_phase(torch, Path(tmp))[1]), flush=True)
+        return 0
     if sys.argv[1:] in (["--checkpoint"], ["--eval"]):
         with tempfile.TemporaryDirectory() as tmp:
             ckpt_stats = checkpoint_phase(torch, Path(tmp))[1]
@@ -2710,6 +3069,9 @@ def main() -> int:
     for name, n in ckpt_launches.items():
         if n:
             launches.setdefault(name, n)
+    with tempfile.TemporaryDirectory() as tmp:  # the two checkpoints
+        family_launches, family_stats = families_phase(torch, Path(tmp))
+    launches.update(family_launches)  # the G = 7 rows: launched on this path alone
     second = stats[1::2]  # the second request of each path
     per_step = lambda s: 1e3 * s["decode_s"] / max(s["decode_steps"], 1)
     col = lambda f: " | ".join(f(s) for s in second)
@@ -2737,6 +3099,14 @@ def main() -> int:
             "trace_tpu_torch/kernels/csrc/decode_attention_int8.cu",
             "trace_tpu/kernels/decode_attention.py:288 (bodies :97, :145)"),
         "decode_attention_int8_dequant": (
+            "trace_tpu_torch/kernels/csrc/decode_attention_int8.cu",
+            "trace_tpu/kernels/decode_attention.py:288 (body :68)"),
+        "decode_attention_g7": ("trace_tpu_torch/kernels/csrc/decode_attention.cu",
+                                "trace_tpu/kernels/decode_attention.py:288 (body :47)"),
+        "decode_attention_int8_s8dot_g7": (
+            "trace_tpu_torch/kernels/csrc/decode_attention_int8.cu",
+            "trace_tpu/kernels/decode_attention.py:288 (bodies :97, :145)"),
+        "decode_attention_int8_dequant_g7": (
             "trace_tpu_torch/kernels/csrc/decode_attention_int8.cu",
             "trace_tpu/kernels/decode_attention.py:288 (body :68)"),
         "quant_matmul_p4": ("trace_tpu_torch/kernels/csrc/quant_matmul_p4.cu",
@@ -2769,7 +3139,7 @@ def main() -> int:
         fail(f"no path launched {idle}")
     print(json.dumps({"requests": stats, "e2e": e2e, "corpus": corpus, "training": train_stats,
                       "gradient_check": grad_check, "checkpoint": ckpt_stats,
-                      "eval": eval_stats, "card": card,
+                      "eval": eval_stats, "families": family_stats, "card": card,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -317,13 +317,19 @@ def test_trace_config_from_hf_matches_jax(hf):
     ({"model_type": "qwen2"}, "qwen2"),
 ])
 def test_other_architectures_raise(hf, what):
-    with pytest.raises(NotImplementedError, match=what):
-        tconvert.trace_config_from_hf(hf)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    """Mixtral and an unknown projector raise; a qwen2 config converts, with
+    its qkv biases (ported since; tests/test_torch_families.py holds it to
+    JAX)."""
+    if what == "qwen2":
+        assert tconvert.trace_config_from_hf(hf).decoder.attn_qkv_bias
+    else:
+        with pytest.raises(NotImplementedError, match=what):
+            tconvert.trace_config_from_hf(hf)
+    with pytest.raises(NotImplementedError, match="Mixtral"):
         tconvert.convert_mixtral_decoder({}, None)
-    cfg = dataclasses.replace(TraceConfig.tiny(), mm_projector_type="spatial_time_slot")
-    with pytest.raises(NotImplementedError, match="spatial_time_slot"):
-        tconvert.convert_state_dict({}, cfg, dtype=torch.float32)
+    cfg = dataclasses.replace(TraceConfig.tiny(), mm_projector_type="resampler")
+    with pytest.raises(NotImplementedError, match="resampler"):
+        tconvert.convert_connector({}, cfg, dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------

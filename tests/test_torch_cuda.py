@@ -72,6 +72,7 @@ FLASH_CASES = [  # B, H, Hkv, T, hd, pad, side
     (2, 8, 2, 257, 128, 20, "right"),   # right padding: every row sees a key
     (1, 8, 2, 257, 64, 0, "left"),      # hd = 64, GQA group 4
     (2, 16, 4, 129, 64, 3, "right"),    # hd = 64, GQA group 4, right padding
+    (2, 28, 4, 300, 128, 37, "left"),   # qwen2-7B's heads: GQA group 7
 ]
 
 
@@ -711,6 +712,41 @@ def test_wide_int8_form_matches_plain(cuda, M, K, N):
     _check_split("i8", x, w, s)
 
 
+# qwen2-7B's unfused layer products (its qkv biases keep the tree unfused):
+# D 3584, wk / wv N = 4 x 128 = 512, I 18944. Group-128 scales give 28 and
+# 148 groups, both even. Each weight-only form a decode step runs (int8 at
+# M = 2 and its wide form at the decode batch of 32, packed int4 per channel
+# and grouped at M = 2) and the tensor-core forms of a prefill (M = 300).
+QWEN2_PRODUCTS = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", QWEN2_PRODUCTS)
+@pytest.mark.parametrize("form,M", [("i8", 2), ("i8", 32), ("p4", 2), ("p4g", 2)])
+def test_decode_step_products_at_qwen2_widths(cuda, form, M, K, N):
+    w, s = _split_weight(form, K, N, cuda)
+    x = _bf16(np.random.default_rng(M + N), (M, K), cuda)
+    _check_split(form, x, w, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", QWEN2_PRODUCTS)
+@pytest.mark.parametrize("grouped", [False, True])
+def test_prefill_products_at_qwen2_widths(cuda, grouped, K, N):
+    fn = quant_matmul_p4_grouped if grouped else quant_matmul_p4
+    rng = np.random.default_rng(K + N)
+    x = _bf16(rng, (300, K), cuda)
+    qp, s = _packed_weight(rng, (K // 2, N), K // 128 if grouped else 1, cuda)
+    if not grouped:
+        s = s.reshape(-1)
+    n = fn.launches_by_form["mma"]
+    got = fn(x, qp, s, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fn.launches_by_form["mma"] == n + 1
+    _assert_p4_matches(got, fn(x, qp, s, out_dtype=torch.bfloat16, impl="plain"),
+                       torch.bfloat16, "mma")
+
+
 @pytest.mark.cuda
 def test_wide_form_stacked_entry_reads_the_last_layer_in_place(cuda):
     L, K, N = 4, 4096, 1024
@@ -968,6 +1004,122 @@ def test_decode_is_one_launch_that_allocates_only_its_output(cuda):
     assert torch.cuda.max_memory_allocated() - before == out.untyped_storage().nbytes()
     del out
     assert torch.cuda.memory_allocated() == before
+
+
+# Decode attention at any group G = H / NKV (qwen2-7B's 28 / 4 heads give 7):
+# one launch takes 1 ... 8 query rows a kv head at hd 128, a larger group is
+# split into launches of at most 8. The limits are those above; every call
+# repeats bit for bit and launches once a split.
+ANY_GROUPS = [3, 5, 6, 7, 8, 16]
+DECODE_KERNELS = ["bf16", "s8dot", "dequant"]
+
+
+def _group_stripe(cuda, kernel, B, NKV, G, S, seed):
+    """q [B, NKV * G, 1, 128] and one layer's stripe, bf16 or int8."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((B, NKV * G, 1, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((B, NKV, S, 128), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    if kernel == "bf16":
+        return q, (k, v)
+    from trace_tpu_torch.model.mistral import _quantize_kv
+
+    (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+    return q, ({"kq": kq, "ks": ks.contiguous(), "vq": vq, "vs": vs.contiguous()}, None)
+
+
+def _group_call(kernel, q, kv, bias, impl="auto"):
+    mode = "s8dot" if kernel == "bf16" else kernel
+    return decode_attention(q, kv[0], kv[1], bias, mode=mode, impl=impl)
+
+
+def _launch_count(kernel):
+    return (decode_attention.launches if kernel == "bf16"
+            else decode_attention.launches_int8[kernel])
+
+
+def _check_group_decode(kernel, q, kv, bias, G):
+    n = _launch_count(kernel)
+    got = _group_call(kernel, q, kv, bias)
+    torch.cuda.synchronize()
+    assert _launch_count(kernel) == n + (G + 7) // 8
+    want = _group_call(kernel, q, kv, bias, impl="plain")
+    assert torch.isfinite(got).all()
+    _assert_matches(got, want, ATOL["decode"])
+    assert torch.equal(got, _group_call(kernel, q, kv, bias))  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", ANY_GROUPS)
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+@pytest.mark.parametrize("kind", ["no_visible", "one_visible", "all_visible", "serving"])
+def test_decode_kernels_at_any_group_on_edge_masks(cuda, G, kernel, kind):
+    B, NKV, S = 3, 2, 1100
+    q, kv = _group_stripe(cuda, kernel, B, NKV, G, S, seed=40 + G)
+    bias = _edge_bias(np.random.default_rng(40 + G), kind, B, S).to(cuda)
+    _check_group_decode(kernel, q, kv, bias, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", ANY_GROUPS)
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+def test_decode_kernels_at_any_group_on_a_large_grid(cuda, G, kernel):
+    """B x NKV = 256 (row, kv head) pairs at S = 8192, qwen2's 4 kv heads:
+    one block a pair would not hold its share, so the cluster keeps more."""
+    B, NKV, S = 64, 4, 8192
+    q, kv = _group_stripe(cuda, kernel, B, NKV, G, S, seed=50 + G)
+    bias = _edge_bias(np.random.default_rng(50 + G), "random", B, S).to(cuda)
+    _check_group_decode(kernel, q, kv, bias, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", ANY_GROUPS)
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+def test_decode_kernels_at_any_group_launch_once_a_split(cuda, G, kernel):
+    """qwen2's decode stripe at B = 4, S = 2304: one kernel on the device a
+    split of at most 8 rows (G = 16: two), and a call that one launch takes
+    allocates only its output."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, kv = _group_stripe(cuda, kernel, 4, 4, G, 2304, seed=60 + G)
+    bias = _edge_bias(np.random.default_rng(60 + G), "serving", 4, 2304).to(cuda)
+    _group_call(kernel, q, kv, bias)  # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _group_call(kernel, q, kv, bias)
+        torch.cuda.synchronize()
+    name = "decode_bf16_kernel" if kernel == "bf16" else "decode_int8_kernel"
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    assert len(kernels) == (G + 7) // 8, kernels
+    if G <= 8:
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = _group_call(kernel, q, kv, bias)
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - before == out.untyped_storage().nbytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", ANY_GROUPS)
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+def test_decode_kernels_at_any_group_replay_in_a_cuda_graph(cuda, G, kernel):
+    """A decode call (G = 16: its two launches, the copies of q's rows and
+    the writes of the output's) captured in a CUDA graph and replayed: equal
+    to the eager call."""
+    q, kv = _group_stripe(cuda, kernel, 4, 4, G, 2304, seed=70 + G)
+    bias = _edge_bias(np.random.default_rng(70 + G), "serving", 4, 2304).to(cuda)
+    eager = _group_call(kernel, q, kv, bias)  # built and loaded outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _group_call(kernel, q, kv, bias)
+    out.zero_()
+    n = _launch_count(kernel)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _launch_count(kernel) == n  # counted at capture, not at replay
+    assert torch.equal(out, eager)
 
 
 @pytest.mark.cuda

@@ -22,9 +22,9 @@ leaf. Layer keys are built by index (``layers.{i}``). The values are the JAX
 package's: a stored value cast to the target dtype, which the JAX package
 reaches through fp32 (exact for every floating type below fp64).
 
-Not ported: Mixtral (``convert_mixtral_decoder``), qwen2's qkv bias and the
-connectors other than ``spatial_slot`` raise ``NotImplementedError``
-(ROADMAP.md, Queue 1 item 8).
+Backbones: Mistral, llama / vicuna and qwen2 (its q / k / v biases).
+Connectors: every type of ``model/connector.py``. Not ported: Mixtral
+(``convert_mixtral_decoder`` raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import json
 import math
 import mmap
 import os
+import re
 import struct
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Mapping
@@ -48,7 +49,7 @@ SAFETENSORS_DTYPES = {
     "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
     "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
 }
-OTHER_ARCHITECTURES = "(ROADMAP.md, Queue 1 item 8: other architectures)"
+OTHER_ARCHITECTURES = "(ROADMAP.md, Queue 1: Mixtral)"
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -173,8 +174,10 @@ def convert_mistral_decoder(sd: StateDict, config: DecoderConfig, *,
     HF's ``nn.Linear`` stores [out, in] and the port's products contract
     [in, out], so every projection transposes; the attention projections
     also split heads: q_proj [NH*hd, D] -> wq [D, NH, hd], o_proj
-    [D, NH*hd] -> wo [NH, hd, D]. ``embed_tokens`` and ``lm_head`` keep their
-    first ``vocab_size`` rows; a missing sync/time/score head is zeros."""
+    [D, NH*hd] -> wo [NH, hd, D]. With ``attn_qkv_bias`` (qwen2) the q / k /
+    v projection biases split heads too: bq [NH, hd], bk / bv [NKV, hd].
+    ``embed_tokens`` and ``lm_head`` keep their first ``vocab_size`` rows; a
+    missing sync/time/score head is zeros."""
     c = config
     L, D = c.num_layers, c.hidden_size
     NH, NKV, HD = c.num_heads, c.num_kv_heads, c.head_dim
@@ -194,6 +197,9 @@ def convert_mistral_decoder(sd: StateDict, config: DecoderConfig, *,
         "w_up": stack("mlp.up_proj.weight", transpose=True),
         "w_down": stack("mlp.down_proj.weight", transpose=True),
     }
+    if c.attn_qkv_bias:  # qwen2-style backbones
+        for name, proj, heads in (("bq", "q", NH), ("bk", "k", NKV), ("bv", "v", NKV)):
+            layers[name] = stack(f"self_attn.{proj}_proj.bias", (heads, HD))
     params = {
         "embed": _leaf(sd[f"{prefix}embed_tokens.weight"][: c.vocab_size], dtype),
         "layers": layers,
@@ -283,9 +289,98 @@ def convert_spatial_slot(sd: StateDict, *, prefix: str = "model.mm_projector.",
     }
 
 
-def _check_connector(config: TraceConfig) -> None:
-    if config.mm_projector_type != "spatial_slot":
-        raise _not_ported(f"the {config.mm_projector_type!r} connector")
+def convert_spatial_time_slot(sd: StateDict, *, prefix: str = "model.mm_projector.",
+                              dtype=torch.float32) -> dict:
+    """SpatialTimeSlotPool weights (builder.py:469-487): the spatial and time
+    slot banks sharing one ln_vision LayerNorm and bias-free readout."""
+    return {
+        "spatial_slots": _leaf(sd[prefix + "spatial_slots"], dtype),
+        "time_slots": _leaf(sd[prefix + "time_slots"], dtype),
+        "ln_scale": _leaf(sd[prefix + "ln_vision.weight"], dtype),
+        "ln_bias": _leaf(sd[prefix + "ln_vision.bias"], dtype),
+        "readout": _leaf(sd[prefix + "readout.weight"], dtype, transpose=True),
+    }
+
+
+def _linear(sd: StateDict, name: str, dtype) -> dict:
+    """An nn.Linear ``name`` as {weight [in, out], bias}."""
+    return {"weight": _leaf(sd[name + ".weight"], dtype, transpose=True),
+            "bias": _leaf(sd[name + ".bias"], dtype)}
+
+
+def convert_connector(sd: StateDict, config: TraceConfig, *, dtype=torch.float32) -> dict:
+    """The mm_projector of ``config.mm_projector_type`` out of a state dict
+    with the ``model.mm_projector.`` prefix."""
+    if config.mm_projector_type == "spatial_slot":
+        return convert_spatial_slot(sd, dtype=dtype)
+    return _convert_generic_projector(sd, config, dtype=dtype)
+
+
+def _convert_generic_projector(sd: StateDict, config: TraceConfig, *,
+                               dtype=torch.float32) -> dict:
+    """linear, mlpNx_gelu (GELUs at the odd indices of the Sequential), the
+    STC family, slot (SlotPool has SpatialSlotPool's state-dict layout),
+    spatial_time_slot and identity."""
+    from trace_tpu_torch.model.stc_connector import SPECS
+
+    t = config.mm_projector_type
+    if t == "linear":
+        return _linear(sd, "model.mm_projector", dtype)
+    m = re.match(r"^mlp(\d+)x_gelu$", t)
+    if m:
+        return {"layers": [_linear(sd, f"model.mm_projector.{2 * i}", dtype)
+                           for i in range(int(m.group(1)))]}
+    if t in SPECS:
+        return convert_stc_connector(sd, t, dtype=dtype)
+    if t == "slot":
+        return convert_spatial_slot(sd, dtype=dtype)
+    if t == "spatial_time_slot":
+        return convert_spatial_time_slot(sd, dtype=dtype)
+    if t == "identity":
+        return {}
+    raise NotImplementedError(f"projector conversion for {t} not implemented")
+
+
+def convert_stc_connector(sd: StateDict, projector_type: str, *,
+                          prefix: str = "model.mm_projector.", dtype=torch.float32) -> dict:
+    """An STC / STP-family state dict -> stc_connector params. Keys follow
+    the reference's module tree: timm RegStage names (s1.b{i}.conv1.conv,
+    .bn for the LayerNorm2d, se.fc1, downsample.conv), the Sequential
+    sampler (sampler.0) and build_mlp's readout (readout.0, readout.2, ...).
+    Conv weights keep their layout; the readout's Linears transpose."""
+    from trace_tpu_torch.model.stc_connector import SPECS
+
+    spec = SPECS[projector_type]
+
+    def get(name):
+        return _leaf(sd[prefix + name], dtype)
+
+    def block(stage: str, i: int) -> dict:
+        b = f"{stage}.b{i + 1}"
+        p = {}
+        for n in (1, 2, 3):
+            p[f"conv{n}"] = get(f"{b}.conv{n}.conv.weight")
+            p[f"ln{n}_scale"] = get(f"{b}.conv{n}.bn.weight")
+            p[f"ln{n}_bias"] = get(f"{b}.conv{n}.bn.bias")
+        for n in (1, 2):
+            p[f"se_fc{n}_w"] = get(f"{b}.se.fc{n}.weight")
+            p[f"se_fc{n}_b"] = get(f"{b}.se.fc{n}.bias")
+        if prefix + f"{b}.downsample.conv.weight" in sd:
+            p["down_conv"] = get(f"{b}.downsample.conv.weight")
+            p["down_ln_scale"] = get(f"{b}.downsample.bn.weight")
+            p["down_ln_bias"] = get(f"{b}.downsample.bn.bias")
+        return p
+
+    params: dict = {
+        "s1": [block("s1", i) for i in range(spec.depth)],
+        "s2": [block("s2", i) for i in range(spec.depth)],
+    }
+    if spec.sampler == "conv":
+        params["sampler_w"] = get("sampler.0.weight")
+        params["sampler_b"] = get("sampler.0.bias")
+    params["mlp"] = [_linear(sd, f"{prefix}readout.{2 * i}", dtype)
+                     for i in range(spec.mlp_depth)]
+    return params
 
 
 def convert_towers(sd: StateDict, *, prefix: str = "model.", dtype=torch.float32) -> dict:
@@ -309,12 +404,12 @@ def trace_config_from_hf(hf_cfg: dict, **overrides) -> TraceConfig:
     """A TraceConfig from an HF ``config.json``: the decoder's geometry and
     the TRACE fields (projector, slots, frames, aspect); explicit
     ``overrides`` win. The vision tower is the default CLIP ViT-L/14-336,
-    as in the JAX package."""
+    as in the JAX package. A qwen2 ``model_type`` sets ``attn_qkv_bias``.
+    Where ``num_key_value_heads`` is missing the KV heads default to 8, as
+    in the JAX package (HF's llama defaults to ``num_attention_heads``)."""
     model_type = hf_cfg.get("model_type", "")
     if "mixtral" in model_type or hf_cfg.get("num_local_experts"):
         raise _not_ported("a Mixtral (MoE) backbone")
-    if "qwen2" in model_type:
-        raise _not_ported("a qwen2 backbone (its qkv bias)")
     hidden = hf_cfg.get("hidden_size", 4096)
     heads = hf_cfg.get("num_attention_heads", 32)
     dec = DecoderConfig(
@@ -329,6 +424,7 @@ def trace_config_from_hf(hf_cfg: dict, **overrides) -> TraceConfig:
         rms_eps=hf_cfg.get("rms_norm_eps", 1e-5),
         time_vocab_size=hf_cfg.get("time_vocab_size", 13),
         score_vocab_size=hf_cfg.get("score_vocab_size", 13),
+        attn_qkv_bias="qwen2" in model_type,
     )
     kwargs = dict(
         decoder=dec,
@@ -348,10 +444,9 @@ def convert_state_dict(sd: StateDict, config: TraceConfig, *, dtype,
                        vision_path: str | None = None) -> dict:
     """A merged state dict -> params: decoder + heads, connector, towers, and
     the CLIP tower bundled in ``sd`` or read from ``vision_path``."""
-    _check_connector(config)
     params = {
         "decoder": convert_mistral_decoder(sd, config.decoder, dtype=dtype),
-        "connector": convert_spatial_slot(sd, dtype=dtype),
+        "connector": convert_connector(sd, config, dtype=dtype),
         "towers": convert_towers(sd, dtype=dtype),
     }
     if any(k.startswith(BUNDLED_VISION) for k in sd):
@@ -386,11 +481,10 @@ def load_mm_projector(path: str, config: TraceConfig, *, dtype=torch.bfloat16) -
     """A standalone mm_projector.bin / dir -> connector params (reference
     builder.py:48-62 load_mm_projector). Its keys may or may not carry the
     ``model.mm_projector.`` prefix, depending on how the stage-1 run saved."""
-    _check_connector(config)
     sd = load_checkpoint_tensors(path)
     if not any(k.startswith("model.mm_projector.") for k in sd):
         sd = {f"model.mm_projector.{k}": v for k, v in sd.items()}
-    return convert_spatial_slot(sd, dtype=dtype)
+    return convert_connector(sd, config, dtype=dtype)
 
 
 def build_from_base_models(llm_path: str, vision_path: str, *,
@@ -411,7 +505,6 @@ def build_from_base_models(llm_path: str, vision_path: str, *,
     from trace_tpu_torch.params import init_connector_params, init_tower_params
 
     config = trace_config_from_hf(read_hf_config(llm_path), dtype=dtype, **config_overrides)
-    _check_connector(config)
     g = generator if generator is not None else torch.Generator().manual_seed(seed)
     decoder = convert_mistral_decoder(load_checkpoint_tensors(llm_path), config.decoder,
                                       dtype=dtype)

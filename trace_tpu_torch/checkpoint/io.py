@@ -21,6 +21,8 @@ _STEP_DIR = re.compile(r"^checkpoint-(\d+)$")
 def _detached(tree):
     if isinstance(tree, dict):
         return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, list):  # a connector's layers
+        return [_detached(v) for v in tree]
     return tree.detach() if torch.is_tensor(tree) else tree
 
 
@@ -31,6 +33,10 @@ def _copy_into(like, saved):
         if set(like) != set(saved):
             raise ValueError(f"checkpoint keys {sorted(saved)} != expected {sorted(like)}")
         return {k: _copy_into(v, saved[k]) for k, v in like.items()}
+    if isinstance(like, list):
+        if len(like) != len(saved):
+            raise ValueError(f"checkpoint holds {len(saved)} layers, expected {len(like)}")
+        return [_copy_into(v, s) for v, s in zip(like, saved)]
     if torch.is_tensor(like):
         with torch.no_grad():
             like.copy_(saved)

@@ -18,9 +18,16 @@
 // One launch, one cluster of C <= 8 blocks per (kv head, batch row), block r
 // of the cluster owning a contiguous share of the slots, no workspace in
 // device memory. C is 8 at serving lengths, less where a share would hold
-// under MIN_SHARE slots or the grid would pass MAX_BLOCKS (four blocks an SM:
-// C = 2 at decode batch 32), but never fewer than hold the row in shared
-// memory (decode_common.cuh, shared with the int8 kernel).
+// under MIN_SHARE slots or the grid would pass the blocks the SMs hold at
+// once (four an SM, two above G = 4: C = 2 at decode batch 32 and 8 kv
+// heads), but never fewer than hold the row in shared memory
+// (decode_common.cuh, shared with the int8 kernel).
+// G, the query rows of a kv head, is 1 ... 8 at hd 128 (1, 2 or 4 at hd 64).
+// Pass 1's reduce-scatter halves a power of two of values, so the rows are
+// padded with zero rows to pow2_ceil(G) there (a constant 0 the compiler
+// folds; a padded row's dot is never stored). The P.V reduction reuses the
+// ring, which holds RW x HD partial sums for up to six query rows, so it
+// runs in passes of at most six rows (one pass up to G = 6).
 //   pass 1:     the block loads q (into registers: a lane holds 8 columns of
 //               each of the G rows) and its share of the bias together, and
 //               lists the slots it takes: the visible ones only (bias above
@@ -29,7 +36,8 @@
 //               stream through a ring of NSTAGE shared-memory stages (16-byte
 //               cp.async; NSTAGE - 1 tiles in flight while one is scored);
 //               HD / 8 lanes share a K row, 16 bytes each, and sum their G
-//               partial dots with a reduce-scatter; the scores stay in shared
+//               partial dots with a reduce-scatter (padded to a power of two
+//               rows); the scores stay in shared
 //               memory. Then the first V tiles' copies start, to land during
 //               the exchange;
 //   exchange 1: every block writes its max and slot count into every rank's
@@ -75,7 +83,6 @@ namespace {
 constexpr int NT = 256;           // threads per block
 constexpr int NW = NT / 32;       // warps per block
 constexpr int MIN_SHARE = 128;    // slots a block takes at least, where C > 1
-constexpr int MAX_BLOCKS = 528;   // blocks a launch takes at most (4 an SM), where C > 1
 constexpr int STAGE = 8 * 1024;   // bytes of K or V rows in one stage of the ring
 constexpr int NSTAGE = 3;         // stages of the ring, NSTAGE - 1 in flight
 constexpr int RING = NSTAGE * STAGE;
@@ -111,7 +118,7 @@ __host__ __device__ constexpr int smem_per_slot() {
 }
 
 template <int HD, int G>
-__global__ void __launch_bounds__(NT, 4)
+__global__ void __launch_bounds__(NT, blocks_per_sm(G))
     decode_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const float* __restrict__ bias,
                        bf16* __restrict__ o, int nkv, int S, int share, float scale) {
@@ -122,8 +129,11 @@ __global__ void __launch_bounds__(NT, 4)
   constexpr int LPR = HD / 4;      // pass 2: threads per V row, 8 bytes each
   constexpr int RW = NT / LPR;     // pass 2: rows per block iteration
   constexpr int TR = STAGE / ROW;  // rows per tile of the ring
-  static_assert(RW * G * HD * sizeof(float) <= RING, "the P.V reduction must fit the ring");
-  static_assert(LPS >= G && LPS <= 32, "a K row's lanes hold every query row's dot");
+  constexpr int GP = pow2_ceil(G);  // pass 1: query rows padded for the reduce-scatter
+  constexpr int GR = RING / (RW * HD * sizeof(float)) < G  // query rows a reduction pass takes
+      ? RING / (RW * HD * sizeof(float)) : G;
+  static_assert(GR >= 1, "the P.V reduction of one query row must fit the ring");
+  static_assert(LPS >= GP && LPS <= 32, "a K row's lanes hold every query row's dot");
 
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
@@ -137,7 +147,7 @@ __global__ void __launch_bounds__(NT, 4)
   extern __shared__ __align__(16) unsigned char dyn[];
   const int cap = (share + 15) & ~15;
   unsigned char* ring = dyn;
-  float* red = reinterpret_cast<float*>(dyn);        // [RW][G][HD], after the last V tile
+  float* red = reinterpret_cast<float*>(dyn);        // [RW][GR][HD], after the last V tile
   float* sc = reinterpret_cast<float*>(dyn + RING);  // scores, then bf16(p)
   float* bsh = sc + G * cap;                         // the share's bias
   int* idx = reinterpret_cast<int*>(bsh + cap);      // the slots taken, ascending
@@ -182,7 +192,7 @@ __global__ void __launch_bounds__(NT, 4)
 #pragma unroll
     for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
     const int ntile = (nv + TR - 1) / TR;
-    const int gown = sub / (LPS / G);  // the query row whose dot this lane ends with
+    const int gown = sub / (LPS / GP);  // the query row whose dot this lane ends with
     for (int t = 0; t < NSTAGE - 1; ++t) stage_tile<ROW, STAGE, NSTAGE, NT>(ring, kb, idx, t, nv);
     for (int t = 0; t < ntile; ++t) {
       cp_async_wait<NSTAGE - 2>();  // tile t has landed
@@ -191,7 +201,7 @@ __global__ void __launch_bounds__(NT, 4)
       const int k0 = t * TR, k1 = min(nv, k0 + TR);
       const unsigned char* tile = ring + (t % NSTAGE) * STAGE;
       for (int kk = k0; kk < k1; kk += R * SPI) {
-        float a[R][G];
+        float a[R][GP];
 #pragma unroll
         for (int u = 0; u < R; ++u) {
           const int kr = kk + u * SPI + grp;
@@ -201,22 +211,24 @@ __global__ void __launch_bounds__(NT, 4)
           float kf[8];
           unpack8(kv, kf);
 #pragma unroll
-          for (int g = 0; g < G; ++g) {
+          for (int g = 0; g < GP; ++g) {
             a[u][g] = 0.f;
+            if (g < G) {
 #pragma unroll
-            for (int e = 0; e < 8; ++e) a[u][g] += qr[g][e] * kf[e];
+              for (int e = 0; e < 8; ++e) a[u][g] += qr[g][e] * kf[e];
+            }
           }
         }
-        // the LPS lanes of a row sum their G partial dots: the first
-        // log2(G) steps halve the values a lane holds (it keeps one half
+        // the LPS lanes of a row sum their GP partial dots: the first
+        // log2(GP) steps halve the values a lane holds (it keeps one half
         // and sends the other), the rest add the one value left, so lane
-        // sub ends with the whole dot of query row sub / (LPS / G)
+        // sub ends with the whole dot of query row sub / (LPS / GP)
 #pragma unroll
-        for (int u = 0; u < R; ++u) reduce_scatter<G, LPS>(a[u], sub);
+        for (int u = 0; u < R; ++u) reduce_scatter<GP, LPS>(a[u], sub);
 #pragma unroll
         for (int u = 0; u < R; ++u) {
           const int kr = kk + u * SPI + grp;
-          if (sub % (LPS / G) == 0 && kr < k1) {
+          if (sub % (LPS / GP) == 0 && kr < k1 && gown < G) {
             const float s = a[u][0] * scale + bsh[idx[kr] - j0];
             sc[gown * cap + kr] = s;
 #pragma unroll
@@ -308,31 +320,38 @@ __global__ void __launch_bounds__(NT, 4)
       }
     }
   }
-  __syncthreads();  // the ring is free again
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) red[(worker * G + g) * HD + d0 + e] = acc[g][e];
-  __syncthreads();
 
   // exchange 2: every block writes l into every rank's shared memory and
   // output i's partial sum into its owner's, rank i / per; then each owner
   // sums its slice over the ranks in rank order, divides and writes. After
   // this barrier no block touches another's shared memory, so none waits
-  // for the others to leave.
-  if (tid < C * G) {
+  // for the others to leave. The block's partial sums are summed over its
+  // RW row workers in the ring, GR query rows a pass.
+  const int per = (G * HD + C - 1) / C;
+#pragma unroll
+  for (int g0 = 0; g0 < G; g0 += GR) {
+    __syncthreads();  // the ring, or the pass before, is free again
+#pragma unroll
+    for (int g = 0; g < G; ++g)  // g constant, so acc stays in registers
+      if (g >= g0 && g < g0 + GR) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[(worker * GR + g - g0) * HD + d0 + e] = acc[g][e];
+      }
+    __syncthreads();
+    const int n = (G - g0 < GR ? G - g0 : GR) * HD;
+    for (int i = tid; i < n; i += NT) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < RW; ++w) sum += red[w * GR * HD + i];
+      const int out = g0 * HD + i, owner = out / per;
+      *cluster.map_shared_rank(&rx_part[rank * per + out - owner * per], owner) = sum;
+    }
+  }
+  if (tid < C * G) {  // wr is published by the barriers of the passes
     const int g = tid % G;
     float l = 0.f;
     for (int w = 0; w < NW; ++w) l += wr[w][g];
     *cluster.map_shared_rank(&rx_l[rank][g], tid / G) = l;
-  }
-  const int per = (G * HD + C - 1) / C;
-  for (int i = tid; i < G * HD; i += NT) {
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < RW; ++w) sum += red[w * G * HD + i];
-    const int owner = i / per;
-    *cluster.map_shared_rank(&rx_part[rank * per + i - owner * per], owner) = sum;
   }
   cluster_arrive();
   cluster_wait();
@@ -352,8 +371,8 @@ __global__ void __launch_bounds__(NT, 4)
 template <int HD, int G>
 int launch(const bf16* q, const bf16* k, const bf16* v, const float* bias, bf16* o, int B,
            int nkv, int S, float scale, cudaStream_t stream) {
-  const int C = cluster_blocks(S, B * nkv, MIN_SHARE, MAX_BLOCKS, MAX_DYNAMIC_SMEM, RING,
-                               smem_per_slot<G>());
+  const int C = cluster_blocks(S, B * nkv, MIN_SHARE, SMS * blocks_per_sm(G), MAX_DYNAMIC_SMEM,
+                               RING, smem_per_slot<G>());
   const int share = (S + C - 1) / C;
   const size_t smem = RING + static_cast<size_t>((share + 15) & ~15) * smem_per_slot<G>();
   return launch_clusters(decode_bf16_kernel<HD, G>, C, nkv, B, NT, smem, stream, q, k, v,
@@ -367,8 +386,19 @@ int dispatch_group(const bf16* q, const bf16* k, const bf16* v, const float* bia
     case 1: return launch<HD, 1>(q, k, v, bias, o, B, nkv, S, scale, s);
     case 2: return launch<HD, 2>(q, k, v, bias, o, B, nkv, S, scale, s);
     case 4: return launch<HD, 4>(q, k, v, bias, o, B, nkv, S, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: break;
   }
+  if constexpr (HD == 128) {
+    switch (G) {
+      case 3: return launch<HD, 3>(q, k, v, bias, o, B, nkv, S, scale, s);
+      case 5: return launch<HD, 5>(q, k, v, bias, o, B, nkv, S, scale, s);
+      case 6: return launch<HD, 6>(q, k, v, bias, o, B, nkv, S, scale, s);
+      case 7: return launch<HD, 7>(q, k, v, bias, o, B, nkv, S, scale, s);
+      case 8: return launch<HD, 8>(q, k, v, bias, o, B, nkv, S, scale, s);
+      default: break;
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

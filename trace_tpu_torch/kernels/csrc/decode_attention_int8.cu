@@ -21,8 +21,15 @@
 // blocks that share it: one launch, one cluster of C <= 8 blocks per (kv
 // head, batch row), block r of the cluster owning a contiguous share of the
 // slots, and no workspace in device memory. C is 8 at serving lengths, less
-// where a share would hold under MIN_SHARE slots or the grid would pass
-// MAX_BLOCKS (four blocks an SM: C = 2 at decode batch 32).
+// where a share would hold under MIN_SHARE slots or the grid would pass the
+// blocks the SMs hold at once (four an SM, two above G = 4: C = 2 at decode
+// batch 32 and 8 kv heads).
+// G, the query rows of a kv head, is 1 ... 8 at hd 128 (1, 2 or 4 at hd 64;
+// s8dot's HD / 16 lanes of a K row and one warp per query row bound it).
+// Pass 1's reduce-scatter runs on the rows padded with zero rows to
+// pow2_ceil(G) (a padded row's dot is never stored); the P.V reduction
+// reuses the ring, which holds RW x HD partial sums for four query rows, so
+// it runs in passes of at most four rows.
 //   pass 1:     the block loads q and its share of the bias and of the K and
 //               V scales (contiguous) together, and lists the slots it takes:
 //               the visible ones only (bias above -1e30; a masked slot adds
@@ -85,7 +92,6 @@ namespace {
 constexpr int NT = 256;           // threads per block
 constexpr int NW = NT / 32;       // warps per block
 constexpr int MIN_SHARE = 128;    // slots a block takes at least, where C > 1
-constexpr int MAX_BLOCKS = 528;   // blocks a launch takes at most (4 an SM), where C > 1
 constexpr int STAGE = 8 * 1024;   // bytes of K or V rows in one stage of the ring
 constexpr int NSTAGE = 2;         // stages of the ring, NSTAGE - 1 in flight
 constexpr int RING = NSTAGE * STAGE;
@@ -122,15 +128,19 @@ __device__ __forceinline__ float bf16_round(float x) {
 // dynamic shared memory of a block, in bytes: the ring of staged K or V rows
 // (later the P.V reduction), then per slot of the share (cap = share rounded
 // up to 16): scores [G][cap] fp32, bias [cap] fp32 (in pass 3 s8dot's
-// quantized weights [G][cap] int8), the slot list [cap] int32, K and V
-// scales [cap] bf16
+// quantized weights [G][cap] int8: max(4, G) bytes a slot), the slot list
+// [cap] int32, K and V scales [cap] bf16
+template <int G>
+__host__ __device__ constexpr int bias_bytes() {
+  return G > 4 ? G : 4;
+}
 template <int G>
 __host__ __device__ constexpr int smem_per_slot() {
-  return G * 4 + 4 + 4 + 2 * 2;
+  return G * 4 + bias_bytes<G>() + 4 + 2 * 2;
 }
 
 template <int HD, int G, int MODE>
-__global__ void __launch_bounds__(NT, 4)
+__global__ void __launch_bounds__(NT, blocks_per_sm(G))
     decode_int8_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ kq,
                        const bf16* __restrict__ ks, const int8_t* __restrict__ vq,
                        const bf16* __restrict__ vs, const float* __restrict__ bias,
@@ -144,7 +154,12 @@ __global__ void __launch_bounds__(NT, 4)
   constexpr int TR = STAGE / HD;  // rows per tile of the ring
   typedef acc_t<MODE> A;
   typedef typename std::conditional<BPL == 16, uint4, uint2>::type kvec;
-  static_assert(RW * G * HD * sizeof(A) <= RING, "the P.V reduction must fit the ring");
+  constexpr int GP = pow2_ceil(G);  // pass 1: query rows padded for the reduce-scatter
+  constexpr int GR = RING / (RW * HD * sizeof(A)) < G  // query rows a reduction pass takes
+      ? RING / (RW * HD * sizeof(A)) : G;
+  static_assert(GR >= 1, "the P.V reduction of one query row must fit the ring");
+  static_assert(LPS >= GP && G <= NW, "a K row's lanes hold every query row's dot, "
+                "and s8dot quantizes each query row with a warp");
 
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
@@ -158,10 +173,11 @@ __global__ void __launch_bounds__(NT, 4)
   extern __shared__ __align__(16) unsigned char dyn[];
   const int cap = (share + 15) & ~15;
   int8_t* ring = reinterpret_cast<int8_t*>(dyn);
-  A* red = reinterpret_cast<A*>(dyn);                   // [RW][G][HD], after the last V tile
+  A* red = reinterpret_cast<A*>(dyn);                   // [RW][GR][HD], after the last V tile
   float* sc = reinterpret_cast<float*>(dyn + RING);     // scores, then p * vs or weights
   float* bsh = sc + G * cap;                            // the share's bias (pass 1)
-  int* idx = reinterpret_cast<int*>(bsh + cap);         // the slots taken, ascending
+  int* idx = reinterpret_cast<int*>(                    // the slots taken, ascending
+      reinterpret_cast<unsigned char*>(bsh) + bias_bytes<G>() * cap);
   bf16* kss = reinterpret_cast<bf16*>(idx + cap);       // the share's K scales
   bf16* vss = kss + cap;                                // and V scales
   int8_t* pq = reinterpret_cast<int8_t*>(bsh);          // s8dot: quantized p * vs, in pass 3
@@ -267,7 +283,7 @@ __global__ void __launch_bounds__(NT, 4)
 #pragma unroll
     for (int g = 0; g < G; ++g) mx[g] = -INFINITY;
     const int ntile = (nv + TR - 1) / TR;
-    const int gown = sub / (LPS / G);  // the query row whose dot this lane ends with
+    const int gown = sub / (LPS / GP);  // the query row whose dot this lane ends with
     for (int t = 0; t < NSTAGE - 1; ++t) stage_tile<HD, STAGE, NSTAGE, NT>(ring, kb, idx, t, nv);
     for (int t = 0; t < ntile; ++t) {
       cp_async_wait<NSTAGE - 2>();  // tile t has landed
@@ -277,14 +293,14 @@ __global__ void __launch_bounds__(NT, 4)
       const int8_t* tile = ring + (t % NSTAGE) * STAGE;
       for (int kk = k0; kk < k1; kk += R * SPI) {
         kvec kv[R];
-        A a[R][G];
+        A a[R][GP];  // rows G .. GP - 1 stay 0
 #pragma unroll
         for (int u = 0; u < R; ++u) {
           const int k = kk + u * SPI + grp;
           kv[u] = k < k1 ? *reinterpret_cast<const kvec*>(tile + (k - k0) * HD + sub * BPL)
                          : kvec{};
 #pragma unroll
-          for (int g = 0; g < G; ++g) a[u][g] = 0;
+          for (int g = 0; g < GP; ++g) a[u][g] = 0;
         }
 #pragma unroll
         for (int i = 0; i < BPL / 4; ++i)
@@ -304,16 +320,16 @@ __global__ void __launch_bounds__(NT, 4)
                 for (int e = 0; e < 4; ++e) a[u][g] += qr[g][4 * i + e] * kf[e];
             }
           }
-        // the LPS lanes of a row sum their G partial dots: the first
-        // log2(G) steps halve the values a lane holds (it keeps one half
+        // the LPS lanes of a row sum their GP partial dots: the first
+        // log2(GP) steps halve the values a lane holds (it keeps one half
         // and sends the other), the rest add the one value left, so lane
-        // sub ends with the whole dot of query row sub / (LPS / G)
+        // sub ends with the whole dot of query row sub / (LPS / GP)
 #pragma unroll
-        for (int u = 0; u < R; ++u) reduce_scatter<G, LPS>(a[u], sub);
+        for (int u = 0; u < R; ++u) reduce_scatter<GP, LPS>(a[u], sub);
 #pragma unroll
         for (int u = 0; u < R; ++u) {
           const int k = kk + u * SPI + grp;
-          if (sub % (LPS / G) == 0 && k < k1) {
+          if (sub % (LPS / GP) == 0 && k < k1 && gown < G) {
             const int jj = idx[k] - j0;
             const float ksj = __bfloat162float(kss[jj]), bj = bsh[jj];
             const float dot = static_cast<float>(a[u][0]);
@@ -486,25 +502,32 @@ __global__ void __launch_bounds__(NT, 4)
       }
     }
   }
-  __syncthreads();  // the ring is free again
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) red[(worker * G + g) * HD + d0 + e] = acc[g][e];
-  __syncthreads();
 
   // exchange 3: output i belongs to rank i / per; every block writes its
   // partial sums into the owners' shared memory, then each owner sums its
   // slice over the ranks in rank order, scales, divides and writes. After
   // this barrier no block touches another's shared memory, so none waits
-  // for the others to leave.
+  // for the others to leave. The block's partial sums are summed over its
+  // RW row workers in the ring, GR query rows a pass.
   const int per = (G * HD + C - 1) / C;
-  for (int i = tid; i < G * HD; i += NT) {
-    A sum = 0;
 #pragma unroll
-    for (int w = 0; w < RW; ++w) sum += red[w * G * HD + i];
-    const int owner = i / per;
-    *cluster.map_shared_rank(&rx_part[rank * per + i - owner * per], owner) = sum;
+  for (int g0 = 0; g0 < G; g0 += GR) {
+    __syncthreads();  // the ring, or the pass before, is free again
+#pragma unroll
+    for (int g = 0; g < G; ++g)  // g constant, so acc stays in registers
+      if (g >= g0 && g < g0 + GR) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[(worker * GR + g - g0) * HD + d0 + e] = acc[g][e];
+      }
+    __syncthreads();
+    const int n = (G - g0 < GR ? G - g0 : GR) * HD;
+    for (int i = tid; i < n; i += NT) {
+      A sum = 0;
+#pragma unroll
+      for (int w = 0; w < RW; ++w) sum += red[w * GR * HD + i];
+      const int out = g0 * HD + i, owner = out / per;
+      *cluster.map_shared_rank(&rx_part[rank * per + out - owner * per], owner) = sum;
+    }
   }
   cluster_arrive();
   cluster_wait();
@@ -534,8 +557,8 @@ struct Args {
 
 template <int HD, int G, int MODE>
 int launch(const Args& a) {
-  const int C = cluster_blocks(a.S, a.B * a.nkv, MIN_SHARE, MAX_BLOCKS, MAX_DYNAMIC_SMEM,
-                               RING, smem_per_slot<G>());
+  const int C = cluster_blocks(a.S, a.B * a.nkv, MIN_SHARE, SMS * blocks_per_sm(G),
+                               MAX_DYNAMIC_SMEM, RING, smem_per_slot<G>());
   const int share = (a.S + C - 1) / C;
   const size_t smem =
       RING + static_cast<size_t>((share + 15) & ~15) * smem_per_slot<G>();
@@ -550,8 +573,19 @@ int dispatch_group(const Args& a, int G) {
     case 1: return launch<HD, 1, MODE>(a);
     case 2: return launch<HD, 2, MODE>(a);
     case 4: return launch<HD, 4, MODE>(a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: break;
   }
+  if constexpr (HD == 128) {
+    switch (G) {
+      case 3: return launch<HD, 3, MODE>(a);
+      case 5: return launch<HD, 5, MODE>(a);
+      case 6: return launch<HD, 6, MODE>(a);
+      case 7: return launch<HD, 7, MODE>(a);
+      case 8: return launch<HD, 8, MODE>(a);
+      default: break;
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int MODE>

@@ -5,7 +5,9 @@
 // through distributed shared memory. Here: the split cluster barrier, the
 // cp.async ring that streams the listed K or V rows, the list of the slots a
 // block takes, a reduce-scatter over the lanes of a row, and the host's rule
-// for C and the cluster launch.
+// for C and the cluster launch. Both kernels take G = 1 ... 8 query rows a kv
+// head at hd 128 (1, 2 or 4 at hd 64); the wrappers split a larger group into
+// launches of at most 8 rows.
 
 #pragma once
 
@@ -17,6 +19,19 @@ namespace {
 
 constexpr int MAX_CLUSTER = 8;    // blocks per (kv head, batch row), portable
 constexpr float MASKED = -1e30f;  // a slot whose bias is not above this is masked
+constexpr int SMS = 132;          // streaming multiprocessors of an H100 SXM
+
+// the least power of two >= g: the reduce-scatter of pass 1 runs on the G
+// query rows padded with rows of zeros to that count (never stored)
+__host__ __device__ constexpr int pow2_ceil(int g) {
+  return g <= 1 ? 1 : 2 * pow2_ceil((g + 1) / 2);
+}
+
+// blocks of a decode kernel an SM holds (its __launch_bounds__): four, or two
+// above G = 4, whose query rows and partial sums need twice the registers
+__host__ __device__ constexpr int blocks_per_sm(int g) {
+  return g > 4 ? 2 : 4;
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));

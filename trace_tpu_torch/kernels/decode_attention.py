@@ -11,7 +11,7 @@ index map; in torch ``cache_k[li]`` is already a contiguous [B, NKV, S, hd]
 view, and the kernels read that view in place.
 
 Bound on an H100: bytes. Each (batch row, kv head) stripe is read once for
-G = 4 query rows (~2 flops per byte, far below the card's ~295). Neither
+its G query rows (~G / 2 flops per byte, far below the card's ~295). Neither
 kernel can run in one online pass: the bf16 body rounds ``exp(s - m)`` to
 bf16 under the row's final max, and s8dot quantizes ``p * vs`` by its
 maximum over all slots of the row. Each runs as one cluster launch: a
@@ -19,7 +19,10 @@ cluster of up to 8 blocks per (batch row, kv head) splits the slots, reads
 the K and V rows of the visible ones only, and the blocks exchange the
 row's statistics (the max first), then their partial outputs, through
 distributed shared memory; the wrapper allocates only the output. See the
-sources.
+sources. A launch takes G = 1 ... 8 query rows a kv head at hd 128 (1, 2 or
+4 at hd 64); the wrapper splits a larger group (any G, as the TPU kernel
+takes) into launches of at most that many rows, each on a contiguous copy of
+its rows of q, and writes each launch's rows into the output.
 
 On a CUDA tensor the wrapper launches its kernel or raises; the plain
 version runs for CPU tensors, or when the caller passes ``impl="plain"``.
@@ -38,6 +41,7 @@ from trace_tpu_torch.kernels.build import count_launch
 _SOURCE = "decode_attention.cu"
 _SOURCE_INT8 = "decode_attention_int8.cu"
 INT8_MODES = ("s8dot", "dequant")
+MAX_GROUP = 8  # query rows a kv head that one launch takes (hd 128)
 
 
 def grouped_attention(q, k, v, bias):
@@ -124,6 +128,36 @@ _PLAIN_INT8 = {"s8dot": decode_attention_int8_s8dot,
                "dequant": decode_attention_int8_dequant}
 
 
+def group_splits(G: int, hd: int) -> list:
+    """The query rows of a kv head as the launches take them: [(g0, n)],
+    each n a group the kernels take (1 ... 8 at hd 128; 1, 2 or 4 at hd 64),
+    the largest first."""
+    sizes = range(MAX_GROUP, 0, -1) if hd == 128 else (4, 2, 1)
+    splits, g0 = [], 0
+    while g0 < G:
+        n = next(size for size in sizes if size <= G - g0)
+        splits.append((g0, n))
+        g0 += n
+    return splits
+
+
+def _by_groups(q, NKV: int, launch):
+    """``launch(q_part, G_part)`` over the group splits of q [B, H, 1, hd]:
+    q itself where one launch takes the whole group, else each split's rows
+    of every kv head, copied contiguous, their output written into o's."""
+    B, H, _, hd = q.shape
+    G = H // NKV
+    splits = group_splits(G, hd)
+    if len(splits) == 1:
+        return launch(q, G)
+    o = torch.empty_like(q)
+    qg, og = q.view(B, NKV, G, hd), o.view(B, NKV, G, hd)
+    for g0, n in splits:
+        part = launch(qg[:, :, g0:g0 + n].contiguous().view(B, NKV * n, 1, hd), n)
+        og[:, :, g0:g0 + n] = part.view(B, NKV, n, hd)
+    return o
+
+
 def _decode_attention_int8(q, cache: dict, bias_row, mode: str, impl: str):
     if mode not in INT8_MODES:
         raise ValueError(f"mode must be one of {INT8_MODES}, got {mode!r}")
@@ -136,7 +170,7 @@ def _decode_attention_int8(q, cache: dict, bias_row, mode: str, impl: str):
         raise ValueError(f"shapes q {tuple(q.shape)} cache {tuple(kq.shape)}")
     if ks.shape != (B, NKV, 1, S) or vs.shape != ks.shape:
         raise ValueError(f"scales must be [B, NKV, 1, S], got {tuple(ks.shape)}")
-    if H % NKV or H // NKV not in (1, 2, 4) or hd not in (64, 128):
+    if H % NKV or hd not in (64, 128):
         raise ValueError(f"unsupported heads {H}/{NKV} or head dim {hd}")
     for name, x, dtype in (("q", q, torch.bfloat16), ("kq", kq, torch.int8),
                            ("vq", vq, torch.int8), ("ks", ks, torch.bfloat16),
@@ -153,15 +187,19 @@ def _decode_attention_int8(q, cache: dict, bias_row, mode: str, impl: str):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
-    o = torch.empty_like(q)  # the kernel's only allocation: no workspace
-    err = fn(
-        q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-        bias_row.data_ptr(), o.data_ptr(), B, NKV, H // NKV, S, hd, float(hd ** -0.5),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    check(err, f"decode_attn_int8_{mode}")
-    count_launch(decode_attention, "launches_int8", mode)
-    return o
+
+    def launch(qp, G):
+        o = torch.empty_like(qp)  # the kernel's only allocation: no workspace
+        err = fn(
+            qp.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+            bias_row.data_ptr(), o.data_ptr(), B, NKV, G, S, hd, float(hd ** -0.5),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        check(err, f"decode_attn_int8_{mode}")
+        count_launch(decode_attention, "launches_int8", mode)
+        return o
+
+    return _by_groups(q, NKV, launch)
 
 
 def decode_attention(
@@ -186,7 +224,7 @@ def decode_attention(
     _, NKV, S, _ = cache_k.shape
     if T != 1 or cache_k.shape != (B, NKV, S, hd) or cache_v.shape != cache_k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)} cache {tuple(cache_k.shape)}")
-    if H % NKV or H // NKV not in (1, 2, 4) or hd not in (64, 128):
+    if H % NKV or hd not in (64, 128):
         raise ValueError(f"unsupported heads {H}/{NKV} or head dim {hd}")
     for name, x in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
         if (x.dtype != torch.bfloat16 or not x.is_contiguous() or x.device != q.device
@@ -204,15 +242,19 @@ def decode_attention(
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
-    o = torch.empty_like(q)  # the kernel's only allocation: no workspace
-    err = fn(
-        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), bias_row.data_ptr(),
-        o.data_ptr(), B, NKV, H // NKV, S, hd, float(hd ** -0.5),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    check(err, "decode_attn_bf16")
-    count_launch(decode_attention)
-    return o
+
+    def launch(qp, G):
+        o = torch.empty_like(qp)  # the kernel's only allocation: no workspace
+        err = fn(
+            qp.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), bias_row.data_ptr(),
+            o.data_ptr(), B, NKV, G, S, hd, float(hd ** -0.5),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        check(err, "decode_attn_bf16")
+        count_launch(decode_attention)
+        return o
+
+    return _by_groups(q, NKV, launch)
 
 
 decode_attention.launches = 0

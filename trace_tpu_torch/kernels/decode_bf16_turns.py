@@ -2,6 +2,7 @@
 on the card.
 
     python -m trace_tpu_torch.kernels.decode_bf16_turns [--against NAME=PATH.cu ...]
+        [--group G] [--kv-heads N]
 
 Builds ``csrc/decode_attention.cu`` as it is (``this``) and each source
 named by ``--against`` (say an earlier commit's copy, unpacked with
@@ -12,7 +13,9 @@ random, at B = 4 and at B = 32 (the bench's decode batch), and at B = 32
 with serving-shaped masks (left padding, a visible prefix, masked future
 slots); last at the shape of the decode step that ``chip_smoke.py`` profiles
 (B = 2, S = 2049: a prefill of 2048 slots, left padding, then the new
-slot). CUDA events, median of 20 with the L2 flushed before each run; the
+slot). ``--group`` and ``--kv-heads`` set G and the kv heads (qwen2-7B:
+``--group 7 --kv-heads 4``); ptxas's registers and spills of every kernel of
+the source are printed. CUDA events, median of 20 with the L2 flushed before each run; the
 versions in turns, forward then backward (A B B A), so that a drift of the
 card shows as a spread and not as a difference. Every version's output is
 held against the plain version first (the limits of ``chip_smoke.py``), and
@@ -54,6 +57,8 @@ SHAPES = tuple((B, S, mask) for B, mask in CASES) + ((2, 2049, "step"),)
 def caller(lib, q, k, v, bias):
     """A function that launches ``lib``'s kernel once into a fixed output."""
     B, S = bias.shape
+    NKV = k.shape[1]
+    G = q.shape[1] // NKV
     o = torch.empty_like(q)
     fn = lib.decode_attn_bf16
     fn.restype = ctypes.c_int
@@ -83,6 +88,8 @@ def caller(lib, q, k, v, bias):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", action="append", default=[], metavar="NAME=PATH.cu")
+    ap.add_argument("--group", type=int, default=G, help="query rows a kv head (1 ... 8)")
+    ap.add_argument("--kv-heads", type=int, default=NKV)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("decode_bf16_turns: no CUDA device", file=sys.stderr)
@@ -93,18 +100,20 @@ def main() -> int:
     for item in args.against:
         name, _, path = item.partition("=")
         sources[name] = Path(path)
-    libs = build(sources, "decode_bf16_turns")
+    libs = build(sources, "decode_bf16_turns", ptxas=True)
+    nkv, group = args.kv_heads, args.group
+    print(f"{nkv} kv heads, G = {group}", flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for B, S, mask in SHAPES:
         q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
-                   for shape in ((B, NKV * G, 1, HD), (B, NKV, S, HD), (B, NKV, S, HD)))
+                   for shape in ((B, nkv * group, 1, HD), (B, nkv, S, HD), (B, nkv, S, HD)))
         bias = mask_bias(g, B, mask, S)
         attn_mask = bias[:, None, None, :].to(torch.bfloat16)
         sdpa = median_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, enable_gqa=True), flush)
         visible = int((bias == 0).sum().item())
-        nbytes = (2 * q.numel() + 2 * visible * NKV * HD) * 2 + bias.numel() * 4
+        nbytes = (2 * q.numel() + 2 * visible * nkv * HD) * 2 + bias.numel() * 4
         print(f"B = {B}, S = {S}, {mask} mask: SDPA {sdpa:.4f} ms; byte bound "
               f"{nbytes / 3.35e12 * 1e3:.4f} ms", flush=True)
         ref = decode_attention_bf16(q, k, v, bias).float()

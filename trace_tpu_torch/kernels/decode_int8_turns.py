@@ -2,6 +2,7 @@
 on the card.
 
     python -m trace_tpu_torch.kernels.decode_int8_turns [--against NAME=PATH.cu ...]
+        [--group G] [--kv-heads N]
 
 Builds ``csrc/decode_attention_int8.cu`` as it is (``this``) and each source
 named by ``--against`` (say an earlier commit's copy, unpacked with
@@ -10,7 +11,9 @@ times both modes at the shapes of ``chip_smoke.py`` phase 3: an int8 cache
 stripe quantized from random K/V, 8 kv heads, G = 4, hd 128, S = 2304,
 half the slots masked at random, at B = 4 and at B = 32 (the bench's decode
 batch), and at B = 32 with serving-shaped masks (left padding, a visible
-prefix, masked future slots). CUDA events, median of 20 with the L2 flushed
+prefix, masked future slots). ``--group`` and ``--kv-heads`` set G and the kv
+heads (qwen2-7B: ``--group 7 --kv-heads 4``); ptxas's registers and spills
+of every kernel of the source are printed. CUDA events, median of 20 with the L2 flushed
 before each run; the versions in turns, forward then backward (A B B A), so
 that a drift of the card shows as a spread and not as a difference. Every
 version's output is held against the plain version first (the limits of
@@ -67,7 +70,8 @@ def build(sources: dict[str, Path], subdir: str = "decode_int8_turns",
 
 def caller(lib, mode, q, stripe, bias):
     """A function that launches ``lib``'s kernel once into a fixed output."""
-    B = q.shape[0]
+    B, NKV = stripe["kq"].shape[:2]
+    G = q.shape[1] // NKV
     o = torch.empty_like(q)
     fn = getattr(lib, f"decode_attn_int8_{mode}")
     fn.restype = ctypes.c_int
@@ -127,20 +131,22 @@ def mask_bias(g, B, mask="random", S=S):
     return torch.where(visible, 0.0, -1e30).float()
 
 
-def inputs(g, B, mask="random"):
+def inputs(g, B, mask="random", nkv=NKV, group=G):
     from trace_tpu_torch.model.mistral import _quantize_kv
 
     stripe = {}
     for vals, scales in (("kq", "ks"), ("vq", "vs")):
-        x = torch.randn((B, NKV, S, HD), generator=g, device="cuda").to(torch.bfloat16)
+        x = torch.randn((B, nkv, S, HD), generator=g, device="cuda").to(torch.bfloat16)
         stripe[vals], stripe[scales] = (t.contiguous() for t in _quantize_kv(x))
-    q = torch.randn((B, NKV * G, 1, HD), generator=g, device="cuda").to(torch.bfloat16)
+    q = torch.randn((B, nkv * group, 1, HD), generator=g, device="cuda").to(torch.bfloat16)
     return q, stripe, mask_bias(g, B, mask)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", action="append", default=[], metavar="NAME=PATH.cu")
+    ap.add_argument("--group", type=int, default=G, help="query rows a kv head (1 ... 8)")
+    ap.add_argument("--kv-heads", type=int, default=NKV)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("decode_int8_turns: no CUDA device", file=sys.stderr)
@@ -151,18 +157,20 @@ def main() -> int:
     for item in args.against:
         name, _, path = item.partition("=")
         sources[name] = Path(path)
-    libs = build(sources)
+    libs = build(sources, ptxas=True)
+    nkv = args.kv_heads
+    print(f"{nkv} kv heads, G = {args.group}", flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for B, mask in CASES:
-        q, stripe, bias = inputs(g, B, mask)
+        q, stripe, bias = inputs(g, B, mask, nkv, args.group)
         kd = stripe["kq"].to(torch.bfloat16) * stripe["ks"].transpose(-1, -2)
         vd = stripe["vq"].to(torch.bfloat16) * stripe["vs"].transpose(-1, -2)
         attn_mask = bias[:, None, None, :].to(torch.bfloat16)
         sdpa = median_ms(lambda: F.scaled_dot_product_attention(
             q, kd, vd, attn_mask=attn_mask, enable_gqa=True), flush)
         visible = int((bias == 0).sum().item())
-        nbytes = 2 * q.numel() * 2 + 2 * visible * NKV * (HD + 2) + bias.numel() * 4
+        nbytes = 2 * q.numel() * 2 + 2 * visible * nkv * (HD + 2) + bias.numel() * 4
         print(f"B = {B}, {mask} mask: SDPA {sdpa:.4f} ms; byte bound "
               f"{nbytes / 3.35e12 * 1e3:.4f} ms", flush=True)
         for mode in INT8_MODES:

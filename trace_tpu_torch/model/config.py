@@ -19,10 +19,11 @@ from trace_tpu_torch.constants import (
 
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
-    """Mistral-7B decoder hyperparameters plus TRACE's sync/time/score heads
-    (the JAX config's qkv-bias field belongs to a slice not ported yet).
-    Mistral v0.1's 4096-token sliding window never binds at
-    TRACE's context, so attention is plain causal."""
+    """Mistral-7B decoder hyperparameters plus TRACE's sync/time/score heads;
+    ``vicuna_7b`` and ``qwen2_7b`` give the other two backbones that the
+    reference's training script selects among. Mistral v0.1's 4096-token
+    sliding window never binds at TRACE's context, so attention is plain
+    causal."""
 
     vocab_size: int = TEXT_VOCAB_SIZE
     hidden_size: int = 4096
@@ -35,6 +36,9 @@ class DecoderConfig:
     rms_eps: float = 1e-5
     time_vocab_size: int = TIME_VOCAB_SIZE
     score_vocab_size: int = SCORE_VOCAB_SIZE
+    # qwen2-style biases on the q / k / v projections (leaves bq [L, NH, hd],
+    # bk / bv [L, NKV, hd]), added before RoPE
+    attn_qkv_bias: bool = False
     # KV cache storage: 'bf16', or 'int8' (values int8, one bf16 scale per
     # layer, row, kv head and slot)
     kv_cache_dtype: str = "bf16"
@@ -58,6 +62,25 @@ class DecoderConfig:
     @classmethod
     def mistral_7b(cls) -> "DecoderConfig":
         return cls()
+
+    @classmethod
+    def vicuna_7b(cls) -> "DecoderConfig":
+        """Llama-2-7b-class backbone: MHA (32 kv heads), 11008 FFN, 32k vocab."""
+        return cls(
+            vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+            num_layers=32, num_heads=32, num_kv_heads=32, head_dim=128,
+            rope_theta=10000.0, rms_eps=1e-5,
+        )
+
+    @classmethod
+    def qwen2_7b(cls) -> "DecoderConfig":
+        """Qwen2-7B-class backbone: GQA 28 / 4 (a group of 7), qkv biases,
+        152064-token vocab."""
+        return cls(
+            vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+            num_layers=28, num_heads=28, num_kv_heads=4, head_dim=128,
+            rope_theta=1000000.0, rms_eps=1e-6, attn_qkv_bias=True,
+        )
 
     @classmethod
     def tiny(cls, vocab_size: int = 384) -> "DecoderConfig":

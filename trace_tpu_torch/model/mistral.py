@@ -208,6 +208,9 @@ def _layer(
         q = proj(h, name="wq", out_shape=(NH, HD), acts=hq).transpose(1, 2)
         k = proj(h, name="wk", out_shape=(NKV, HD), acts=hq).transpose(1, 2)
         v = proj(h, name="wv", out_shape=(NKV, HD), acts=hq).transpose(1, 2)
+    if config.attn_qkv_bias:  # qwen2: after the LoRA deltas, before RoPE
+        q, k, v = (t + layer_slice(layers[name], li)[None, :, None, :].to(t.dtype)
+                   for t, name in ((q, "bq"), (k, "bk"), (v, "bv")))
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 

@@ -16,7 +16,7 @@ from torch.utils.checkpoint import checkpoint
 
 from trace_tpu_torch.constants import IGNORE_INDEX, TIME_TOKENS_PER_FRAME
 from trace_tpu_torch.model.config import TraceConfig
-from trace_tpu_torch.model.connector import spatial_slot_forward
+from trace_tpu_torch.model.connector import build_connector
 from trace_tpu_torch.model.mistral import compute_logits, decoder_forward
 from trace_tpu_torch.model.quantize import is_quantized
 from trace_tpu_torch.model.towers import embed_time
@@ -54,17 +54,17 @@ def encode_video(
     """Frames -> interleaved visual + time token features [B, T*(S+6), D_lm].
 
     The ViT runs over ``vit_chunk_size`` frames at a time (sequentially,
-    bounding its activations), then the connector pools each frame to S
-    slots and each frame's 6 time-token embeddings follow its slots.
+    bounding its activations), then the connector of
+    ``config.mm_projector_type`` runs. A per-frame connector (spatial_slot)
+    pools each frame to S slots and each frame's 6 time-token embeddings
+    follow its slots; a global-pooling one (slot, linear, mlpNx_gelu, the
+    STC family) gives [B, S, D_lm] with no time tokens, returned as it is.
 
     The vision tower is frozen in every training stage: it runs under
     ``no_grad``, so nothing of it is kept for a backward. With
     ``remat_connector`` the connector runs under a checkpoint and its
     [B*T, 576, 1024] intermediates are recomputed from the ViT features in
     the backward."""
-    if config.mm_projector_type != "spatial_slot":
-        raise NotImplementedError(
-            f"connector {config.mm_projector_type!r}: only spatial_slot is ported")
     B, T = frames.shape[:2]
     flat = frames.reshape((B * T,) + frames.shape[2:])
     chunk = config.vit_chunk_size
@@ -79,11 +79,13 @@ def encode_video(
             feats = vit(flat)
     feats = feats.reshape(B, T, feats.shape[1], feats.shape[2])
 
+    _, connector = build_connector(config.mm_projector_type)
     if remat_connector and torch.is_grad_enabled():
-        slots = checkpoint(spatial_slot_forward, params["connector"], feats,
-                           use_reentrant=False)
+        slots = checkpoint(connector, params["connector"], feats, use_reentrant=False)
     else:
-        slots = spatial_slot_forward(params["connector"], feats)
+        slots = connector(params["connector"], feats)
+    if slots.ndim == 3:  # a global-pooling connector: no per-frame time tokens
+        return slots
     time_feats = embed_time(params["towers"], frame_time_ids)  # [B, T, 6, D_lm]
     merged = torch.cat([slots, time_feats.to(slots.dtype)], dim=2)
     return merged.reshape(B, T * merged.shape[2], merged.shape[3])

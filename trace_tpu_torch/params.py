@@ -30,6 +30,8 @@ def from_jax_params(tree) -> dict:
     (``<name>_lora_a`` / ``_lora_b``) and quantized leaves included."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):  # a connector's layers
+        return [from_jax_params(v) for v in tree]
     return _to_tensor(tree)
 
 
@@ -58,19 +60,25 @@ class _Init:
 def _decoder(c: DecoderConfig, r: _Init) -> dict:
     L, D, I = c.num_layers, c.hidden_size, c.intermediate_size
     NH, NKV, HD = c.num_heads, c.num_kv_heads, c.head_dim
+    embed = r.normal((c.vocab_size, D))
+    layers = {
+        "attn_norm": r.ones((L, D)),
+        "mlp_norm": r.ones((L, D)),
+        "wq": r.normal((L, D, NH, HD)),
+        "wk": r.normal((L, D, NKV, HD)),
+        "wv": r.normal((L, D, NKV, HD)),
+        "wo": r.normal((L, NH, HD, D)),
+        "w_gate": r.normal((L, D, I)),
+        "w_up": r.normal((L, D, I)),
+        "w_down": r.normal((L, I, D)),
+    }
+    if c.attn_qkv_bias:  # qwen2: zeros, as the JAX package's, no draw
+        layers["bq"] = r.zeros((L, NH, HD))
+        layers["bk"] = r.zeros((L, NKV, HD))
+        layers["bv"] = r.zeros((L, NKV, HD))
     return {
-        "embed": r.normal((c.vocab_size, D)),
-        "layers": {
-            "attn_norm": r.ones((L, D)),
-            "mlp_norm": r.ones((L, D)),
-            "wq": r.normal((L, D, NH, HD)),
-            "wk": r.normal((L, D, NKV, HD)),
-            "wv": r.normal((L, D, NKV, HD)),
-            "wo": r.normal((L, NH, HD, D)),
-            "w_gate": r.normal((L, D, I)),
-            "w_up": r.normal((L, D, I)),
-            "w_down": r.normal((L, I, D)),
-        },
+        "embed": embed,
+        "layers": layers,
         "final_norm": r.ones((D,)),
         "lm_head": r.normal((D, c.vocab_size)),
         "sync_head": r.normal((D, 1)),
@@ -101,13 +109,15 @@ def _vision(c: VisionConfig, r: _Init) -> dict:
 
 
 def _connector(config: TraceConfig, r: _Init) -> dict:
-    mm, lm = config.vision.hidden_size, config.decoder.hidden_size
-    return {
-        "slots": r.normal((mm, config.num_slots), scale=1.0),
-        "ln_scale": r.ones((mm,)),
-        "ln_bias": r.zeros((mm,)),
-        "readout": r.normal((mm, lm)),
-    }
+    """The connector of ``config.mm_projector_type`` in the JAX package's
+    layout (model/connector.py): the slot connectors take
+    ``config.num_slots``, the others their own defaults, as there."""
+    from trace_tpu_torch.model.connector import build_connector
+
+    init, _ = build_connector(config.mm_projector_type)
+    kw = ({"num_slots": config.num_slots}
+          if config.mm_projector_type in ("spatial_slot", "slot") else {})
+    return init(r, config.vision.hidden_size, config.decoder.hidden_size, **kw)
 
 
 def _towers(hidden: int, r: _Init) -> dict:
@@ -120,11 +130,21 @@ def _towers(hidden: int, r: _Init) -> dict:
 
 def init_connector_params(config: TraceConfig, generator: torch.Generator,
                           dtype=None) -> dict:
-    """A fresh spatial_slot connector (slots N(0, 1), LayerNorm 1 / 0,
-    readout N(0, 0.02)) in ``dtype`` (default: the config's), drawn from
-    ``generator`` on its device, as CPU tensors (a converted tree's place)."""
+    """A fresh connector of ``config.mm_projector_type`` (spatial_slot:
+    slots N(0, 1), LayerNorm 1 / 0, readout N(0, 0.02); the others as
+    ``model/connector.py`` sets them) in ``dtype`` (default: the config's),
+    drawn from ``generator`` on its device, as CPU tensors (a converted
+    tree's place)."""
     r = _Init(generator, generator.device, dtype or config.dtype)
-    return {k: v.cpu() for k, v in _connector(config, r).items()}
+    return _cpu(_connector(config, r))
+
+
+def _cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cpu(v) for v in tree]
+    return tree.cpu()
 
 
 def init_tower_params(hidden: int, generator: torch.Generator,
@@ -138,12 +158,11 @@ def init_tower_params(hidden: int, generator: torch.Generator,
 def init_trace_params(config: TraceConfig, generator: torch.Generator,
                       device=None) -> dict:
     """Random params in the JAX package's layout and init scales (weights
-    N(0, 0.02), norms 1, biases 0, connector slots N(0, 1)). The values
+    N(0, 0.02), norms 1, biases 0 (qwen2's qkv biases too), connector slots
+    N(0, 1), convolutions N(0, 1 / fan_in)). The values
     differ from JAX's for the same seed; tests that compare the two sides
     make the weights with JAX and convert them with ``from_jax_params``.
     ``device`` defaults to the generator's."""
-    if config.mm_projector_type != "spatial_slot":
-        raise NotImplementedError("only the spatial_slot connector is ported")
     device = torch.device(device if device is not None else generator.device)
     r = _Init(generator, device, config.dtype)
     return {

@@ -770,4 +770,6 @@ def model_init(model_path: str, *, vision_path: Optional[str] = None,
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):  # a connector's layers
+        return [_to_device(v, device) for v in tree]
     return tree.to(device)

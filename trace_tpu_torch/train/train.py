@@ -44,22 +44,28 @@ from trace_tpu_torch.video.preprocess import preprocess_frames
 # Parameter grouping
 # ---------------------------------------------------------------------------
 
+def _children(tree):
+    """(key, child) pairs of a dict, or of a list (a connector's layers):
+    its indices, as JAX's paths name them."""
+    return tree.items() if isinstance(tree, dict) else enumerate(tree)
+
+
 def tree_paths(tree: dict, prefix: str = ""):
-    """(path, leaf) pairs of a nested dict, paths joined with '/'."""
-    for k, v in tree.items():
+    """(path, leaf) pairs of nested dicts and lists, paths joined with '/'."""
+    for k, v in _children(tree):
         path = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list)):
             yield from tree_paths(v, path)
         else:
             yield path, v
 
 
-def _map_with_path(fn: Callable, tree: dict, prefix: str = "") -> dict:
+def _map_with_path(fn: Callable, tree, prefix: str = ""):
     out = {}
-    for k, v in tree.items():
+    for k, v in _children(tree):
         path = f"{prefix}/{k}" if prefix else str(k)
-        out[k] = _map_with_path(fn, v, path) if isinstance(v, dict) else fn(path, v)
-    return out
+        out[k] = _map_with_path(fn, v, path) if isinstance(v, (dict, list)) else fn(path, v)
+    return out if isinstance(tree, dict) else list(out.values())
 
 
 def param_group(path_s: str, stage: str) -> str:
@@ -320,6 +326,8 @@ def make_train_step(
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
     return tree.to(device) if torch.is_tensor(tree) else tree
 
 
