@@ -31,7 +31,8 @@ Phases, in order; any failure exits non-zero:
      first in bf16, then in the int8 serving configuration (int8 weights in
      the fused layout, int8 KV cache, W8A8 prefill and ViT), then in the
      int4p serving configuration (nibble-packed int4 layer weights with
-     group-128 scales, weight-only at every chunk length): two requests
+     group-128 scales, weight-only at every chunk length; at a depth of 8
+     layers): two requests
      of 2 synthetic 128-frame 336x336 videos, 64 new tokens each, launch
      counts checked per request, outputs checked against the same path with
      every kernel replaced by its plain version and against an fp32 model
@@ -94,17 +95,27 @@ Phases, in order; any failure exits non-zero:
      (e) and the distance to an fp32 model; rows 3 and 3b at G = 7 (phase
      3's ``*_g7`` entries, with a G = 16 split and the prefill at G = 7
      beside them) take their launches from this path.
+ 10. Mixtral-8x7B at its published widths and a depth of 4 of 32 layers
+     (``moe_phase``), from a checkpoint in HF Mixtral key names written
+     here: ``model_init`` bf16 (the dense mixture), two requests, the fp32
+     reference check with each layer's routing flips; the same tree in the
+     sparse form with the int8 KV cache; ``model_init(quant="int8")``
+     raising; two ``lora`` steps at batch 1 x 2048 through the routed
+     layers.
 The line before the last is {"kernels": [...]} (each entry also holds
-``launches_corpus``, its count in phase 5's pass A); the last line is
+``launches_corpus``, its count in phase 5's pass A, and ``launches_moe``,
+its count on phase 10's path); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it prints no result and exits 2. ``--kernels`` stops
 after phase 3 (a short check of freshly edited kernels; no last line);
-``--checkpoint`` runs phase 7 alone, ``--eval`` phases 7 and 8 and
-``--families`` phase 9 alone (each after the build; no last line).
+``--checkpoint`` runs phase 7 alone, ``--eval`` phases 7 and 8,
+``--families`` phase 9 alone and ``--moe`` phase 10 alone (each after the
+build; no last line).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -291,9 +302,8 @@ def kernel_checks(torch):
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
         fail("flash_attention: non-finite output")
-    # left-padded rows see no key: finite, unspecified; compare real rows
-    cmp = compare("flash_attention", torch.cat([out[0, :, PAD:], out[1]], dim=1),
-                  torch.cat([ref[0, :, PAD:], ref[1]], dim=1))
+    # every row; the left-padded ones see no key and get the mean of v
+    cmp = compare("flash_attention", out, ref)
     causal_mask = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
     lib_mask = torch.where(causal_mask[None, None], bias[:, None, None, :],
                            torch.tensor(-1e30, device="cuda")).to(torch.bfloat16)
@@ -1002,6 +1012,9 @@ def weight_only_request(torch, params, cfg, tok, videos, stamps, asks) -> dict:
 
 
 G0_LAYERS = 4  # depth of the per-channel (group 0) int4p run
+# depth of the group-128 int4p run: its row 7 runs the same shapes at
+# every layer, and 32 layers put the whole smoke past 900 s of the 1200
+INT4P_LAYERS = 8
 
 
 def _serving_kernels():
@@ -1040,6 +1053,33 @@ def serving_launches() -> dict:
             "quant_matmul_p4_grouped_mma": p4g.launches_by_form["mma"]}
 
 
+@contextlib.contextmanager
+def recorded_routes(into: list, drops: list):
+    """Record, while the block runs, the top-k expert set (sorted indices
+    [N, k], on the host) of every call of ``model.moe.route`` into ``into``,
+    and the assignments each sparse dispatch drops into ``drops``, in
+    order."""
+    from trace_tpu_torch.model import moe
+
+    route, dispatch = moe.route, moe.dispatch
+
+    def routed(x2d, router, top_k):
+        vals, idx = route(x2d, router, top_k)
+        into.append(idx.sort(dim=-1).values.cpu())
+        return vals, idx
+
+    def dispatched(top_idx, num_experts, cap):
+        out = dispatch(top_idx, num_experts, cap)
+        drops.append(int((~out[1]).sum()))
+        return out
+
+    moe.route, moe.dispatch = routed, dispatched
+    try:
+        yield into
+    finally:
+        moe.route, moe.dispatch = route, dispatch
+
+
 def reference_check(torch, pipe, params, cfg, tok, videos, stamps, asks, mode: str, tokens,
                     profile: bool = True) -> dict:
     """The serving path of ``pipe`` (built from ``params``) against the same path with every kernel
@@ -1050,8 +1090,14 @@ def reference_check(torch, pipe, params, cfg, tok, videos, stamps, asks, mode: s
     kernel path no further from the fp32 reference than the plain path is,
     within REF_RATIO_TOL; and the greedy tokens' agreement with the plain
     path's (``tokens``: the kernel path's). With ``profile`` the encode, the
-    prefill and a decode step run under torch.profiler. Returns the
-    distances, the agreement and the profiles."""
+    prefill and a decode step run under torch.profiler. On a Mixtral-family
+    decoder, per layer the share of the prefill's real tokens whose top-k
+    expert set differs from the fp32 model's, on the kernel and on the plain
+    path (reported, not checked), and the assignments a sparse form drops.
+    The prefill pads the prefix on the left to a multiple of 128, as the
+    pipeline does. Returns the
+    distances, the agreement, the routing flips and drops and the
+    profiles."""
     from trace_tpu_torch.model.mistral import compute_logits
     from trace_tpu_torch.runtime import generate as gen
     from trace_tpu_torch.runtime.pipeline import TracePipeline
@@ -1094,16 +1140,17 @@ def reference_check(torch, pipe, params, cfg, tok, videos, stamps, asks, mode: s
     bucket = -(-P // 128) * 128
     pe = torch.nn.functional.pad(prefix, (0, 0, bucket - P, 0))
     pm = torch.nn.functional.pad(mask, (bucket - P, 0))
-    logits = {}
+    logits, routes, drops = {}, {}, {}
     for name, p, impl in (("kernel", pipe, "auto"), ("plain", plain, "plain"),
                           ("fp32", ref, "plain")):
         x = pe.float() if name == "fp32" else pe
         prefill = lambda: gen.prefill(p._decoder_params, p.config.decoder, x, pm,
                                        cache_len=bucket + 1, impl=impl)
-        if name == "kernel" and profile:
-            state, prefill_profile = device_profile(torch, f"{mode} prefill", prefill)
-        else:
-            state = prefill()
+        with recorded_routes(routes.setdefault(name, []), drops.setdefault(name, [])):
+            if name == "kernel" and profile:
+                state, prefill_profile = device_profile(torch, f"{mode} prefill", prefill)
+            else:
+                state = prefill()
         logits[name] = compute_logits(p._decoder_params, state[2], impl=impl)
         if name == "kernel" and profile:
             step_profile = profile_decode_step(torch, pipe, cfg.decoder, state, mode)
@@ -1111,6 +1158,22 @@ def reference_check(torch, pipe, params, cfg, tok, videos, stamps, asks, mode: s
     del ref
     if not torch.isfinite(logits["kernel"]).all():
         fail("non-finite logits")
+    flips = {}
+    if routes["fp32"]:
+        real = pm.reshape(-1).cpu()
+        for name in ("kernel", "plain"):
+            flips[f"{name}_vs_fp32"] = [
+                (a != b).any(dim=-1)[real].float().mean().item()
+                for a, b in zip(routes[name], routes["fp32"])]
+        print(f"{mode}: share of the prefill's {int(real.sum())} real tokens whose top-"
+              f"{cfg.decoder.top_k} experts differ from the fp32 model's, layer by layer: "
+              f"kernel path {[round(f, 5) for f in flips['kernel_vs_fp32']]}, plain path "
+              f"{[round(f, 5) for f in flips['plain_vs_fp32']]}", flush=True)
+    if drops["fp32"]:
+        flips["dropped"] = drops
+        print(f"{mode}: assignments the sparse dispatch drops, layer by layer, of "
+              f"{pm.numel() * cfg.decoder.top_k} ({pm.numel() - int(pm.sum())} pad rows): "
+              f"{drops}", flush=True)
     errs = {}
     for what, v in (("prefix", prefixes), ("logits", logits)):
         errs[what] = {"kernel_vs_plain": rel_err(v["kernel"], v["plain"]),
@@ -1138,15 +1201,17 @@ def reference_check(torch, pipe, params, cfg, tok, videos, stamps, asks, mode: s
                  "than the plain path")
     del plain
     torch.cuda.empty_cache()
-    return {**errs, "greedy_agree": agree, "decode_step": step_profile,
-            "encode_profile": encode_profile, "prefill_profile": prefill_profile}
+    return {**errs, "greedy_agree": agree, "routing_flips": flips,
+            "decode_step": step_profile, "encode_profile": encode_profile,
+            "prefill_profile": prefill_profile}
 
 
 def end_to_end(torch, mode: str):
     """Phase 4: the serving path at full width, two requests, in the bf16
     (``mode="bf16"``), the int8 (``"int8"``) or the int4p serving
-    configuration with group-128 scales (``"int4p"``); ``"int4p_g0"`` is the
-    int4p configuration with per-channel scales at a depth of G0_LAYERS."""
+    configuration with group-128 scales at a depth of INT4P_LAYERS
+    (``"int4p"``); ``"int4p_g0"`` is the int4p configuration with
+    per-channel scales at a depth of G0_LAYERS."""
     import numpy as np
 
     from trace_tpu_torch import EventPredictions
@@ -1159,9 +1224,9 @@ def end_to_end(torch, mode: str):
     int8 = mode == "int8"
     quantized = mode != "bf16"  # int8 KV cache, int8 lm_head, W8A8 ViT
     cfg = TraceConfig()
-    if mode == "int4p_g0":
+    if mode in ("int4p", "int4p_g0"):
         cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
-            cfg.decoder, num_layers=G0_LAYERS))
+            cfg.decoder, num_layers=INT4P_LAYERS if mode == "int4p" else G0_LAYERS))
     t0 = time.perf_counter()
     params = init_trace_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
     # the dense tree is dropped here
@@ -1355,12 +1420,9 @@ def on_path(torch, label: str, run):
         if name == "vit_attention_btd":
             tq = a[3]
             return compare(name, out[:, :tq], ref[:, :tq])
-        seen = a[3] > -1e29  # [B, T] or [B, S]: the visible keys
-        if name == "flash_attention":  # causal: row t sees keys <= t
-            rows = seen.int().cumsum(-1) > 0
-            pick = lambda o: o.transpose(1, 2)[rows]
-            return compare(name, pick(out), pick(ref))
-        rows = seen.any(-1)
+        if name == "flash_attention":  # every row: one that sees no key gets the mean of v
+            return compare(name, out, ref)
+        rows = (a[3] > -1e29).any(-1)  # [B, S]: the rows that see a key
         return compare(name, out[rows], ref[rows])
 
     results, saved = {}, []
@@ -2158,8 +2220,9 @@ def write_safetensors(torch, path: Path, entries) -> None:
 def write_checkpoint(torch, path: Path, keys, cfg, model_type: str = "mistral") -> int:
     """The merged checkpoint dir: ``keys`` [(key, shape)] in manifest order
     over shards of about CKPT_SHARD_BYTES, and a config.json of ``cfg``'s
-    geometry (scripts/parity/manifest.py ``_released_config``) under
-    ``model_type``. Returns the bytes of tensor data."""
+    geometry (scripts/parity/manifest.py ``_released_config``; a
+    Mixtral-family decoder's experts and top-k too) under ``model_type``.
+    Returns the bytes of tensor data."""
     path.mkdir(parents=True)
     shards, size = [[]], 0
     for index, (key, shape) in enumerate(keys):
@@ -2182,7 +2245,9 @@ def write_checkpoint(torch, path: Path, keys, cfg, model_type: str = "mistral") 
         "time_vocab_size": d.time_vocab_size, "score_vocab_size": d.score_vocab_size,
         "mm_projector_type": cfg.mm_projector_type, "num_slots": cfg.num_slots,
         "num_frames": cfg.num_frames, "image_aspect_ratio": cfg.image_aspect_ratio,
-        "mm_vision_tower": "openai/clip-vit-large-patch14-336", "torch_dtype": "bfloat16"}))
+        "mm_vision_tower": "openai/clip-vit-large-patch14-336", "torch_dtype": "bfloat16",
+        **({"num_local_experts": d.num_experts, "num_experts_per_tok": d.top_k}
+           if hasattr(d, "num_experts") else {})}))
     return sum(2 * math.prod(shape) for _, shape in keys)
 
 
@@ -2819,7 +2884,10 @@ def family_keys(cfg, vision_keys) -> list:
     """(key, shape) of a merged checkpoint of ``cfg`` in the HF layout: the
     decoder (q / k / v biases with ``attn_qkv_bias``), its heads, the
     connector (spatial_slot, or the STC family's timm names), the towers,
-    and ``vision_keys`` (the bundled CLIP tower)."""
+    and ``vision_keys`` (the bundled CLIP tower). A Mixtral-family decoder
+    (``num_experts``) has a ``block_sparse_moe`` a layer in place of the MLP:
+    the router ``gate`` [E, D] and each expert's w1 / w3 [I, D] and w2
+    [D, I]."""
     d = cfg.decoder
     D, NQ, NKVW, I = d.hidden_size, d.num_heads * d.head_dim, d.num_kv_heads * d.head_dim, \
         d.intermediate_size
@@ -2831,10 +2899,18 @@ def family_keys(cfg, vision_keys) -> list:
                  (lyr + "self_attn.q_proj.weight", (NQ, D)),
                  (lyr + "self_attn.k_proj.weight", (NKVW, D)),
                  (lyr + "self_attn.v_proj.weight", (NKVW, D)),
-                 (lyr + "self_attn.o_proj.weight", (D, NQ)),
-                 (lyr + "mlp.gate_proj.weight", (I, D)),
-                 (lyr + "mlp.up_proj.weight", (I, D)),
-                 (lyr + "mlp.down_proj.weight", (D, I))]
+                 (lyr + "self_attn.o_proj.weight", (D, NQ))]
+        if hasattr(d, "num_experts"):
+            moe = lyr + "block_sparse_moe."
+            keys.append((moe + "gate.weight", (d.num_experts, D)))
+            for j in range(d.num_experts):
+                keys += [(f"{moe}experts.{j}.w1.weight", (I, D)),
+                         (f"{moe}experts.{j}.w3.weight", (I, D)),
+                         (f"{moe}experts.{j}.w2.weight", (D, I))]
+        else:
+            keys += [(lyr + "mlp.gate_proj.weight", (I, D)),
+                     (lyr + "mlp.up_proj.weight", (I, D)),
+                     (lyr + "mlp.down_proj.weight", (D, I))]
         if d.attn_qkv_bias:
             keys += [(lyr + "self_attn.q_proj.bias", (NQ,)),
                      (lyr + "self_attn.k_proj.bias", (NKVW,)),
@@ -3003,6 +3079,259 @@ def families_phase(torch, tmp: Path) -> tuple:
     return launches, stats
 
 
+# Phase 10: Mixtral-8x7B, the routed-expert decoder, at the published widths
+# of mistralai/Mixtral-8x7B-v0.1's config.json (D 4096, I 14336, 32 / 8
+# heads, hd 128, vocab 32000, rope_theta 1e6, rms_norm_eps 1e-5, 8 local
+# experts, 2 a token) at a depth of MOE_LAYERS of its 32 layers: 32 layers are
+# ~93 GB in bf16 and do not fit one 80 GB card, and 4 (11.3 GB of experts)
+# keep the written checkpoint near phase 9's. CLIP ViT-L/14-336 and
+# spatial_slot at 128 frames, random bf16 values, written by phase 7's writer
+# in HF Mixtral key names and loaded through ``model_init``.
+MOE_LAYERS = 4
+MOE_TRAIN_TOKENS = 2048  # the lora steps' row: one video, batch 1
+MOE_LORA_TARGETS = ("wq", "wk", "wv", "wo")  # a routed layer takes no MLP adapter
+
+
+def moe_phase(torch, tmp: Path) -> tuple:
+    """Phase 10: (a) the checkpoint written, ``model_init`` bf16 (the dense
+    mixture, as converted checkpoints get), two requests of 2 synthetic
+    336x336 128-frame videos with 64 new tokens (launch counts of rows 1, 2
+    and 3, EventPredictions, head slices), ``infer_events`` on an ``.npy``
+    of one of them, check (e) on a request of 8 tokens, and the prefix and
+    first-token logits no further from an fp32 model than the plain path
+    (REF_RATIO_TOL), with the routing flips of each layer reported; (b) the
+    same tree in the sparse form (capacity factor 2.0) with the int8 KV
+    cache through ``TracePipeline``: row 3b on the path, held the same way;
+    (c) ``model_init(quant="int8")`` raises the ValueError that names
+    Mixtral; (d) two ``lora`` train steps (adapters on the attention
+    projections) at batch 1 x MOE_TRAIN_TOKENS with 128 frames: a first
+    forward + backward whose adapters all take finite, non-zero gradients,
+    then the steps, losses finite, every adapter moved by the second (the
+    schedule starts at 0), rows 8-10 launched. Returns the launches of
+    the path's rows and the stats."""
+    import gc
+    import shutil
+
+    import numpy as np
+
+    from trace_tpu_torch import EventPredictions, infer_events
+    from trace_tpu_torch.checkpoint.loader import load_pretrained
+    from trace_tpu_torch.model.config import MoEConfig, TraceConfig
+    from trace_tpu_torch.model.lora import add_lora_params
+    from trace_tpu_torch.model.trace_model import forward_train
+    from trace_tpu_torch.runtime import pipeline as pl
+    from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
+    from trace_tpu_torch.train.train import (
+        TrainRecipe,
+        _batch_to_device,
+        _to_device,
+        build_optimizer,
+        make_train_step,
+        param_group,
+        preprocess_batch_frames,
+        tree_paths,
+    )
+
+    t_phase = time.perf_counter()
+    manifest = json.loads((Path(__file__).resolve().parent / CKPT_MANIFEST).read_text())
+    vision_keys = [(k, tuple(v)) for k, v in manifest["keys"].items()
+                   if k.startswith("model.vision_tower.")]
+    cfg = TraceConfig(decoder=dataclasses.replace(
+        MoEConfig.mixtral_8x7b(), rope_theta=1000000.0, num_layers=MOE_LAYERS))
+    dec0 = cfg.decoder
+    ckpt = tmp / "mixtral-8x7b"
+    t0 = time.perf_counter()
+    nbytes = write_checkpoint(torch, ckpt, family_keys(cfg, vision_keys), cfg, "mixtral")
+    print(f"moe: Mixtral-8x7B checkpoint (mixtral, {MOE_LAYERS} of 32 layers: depth cut to "
+          f"fit one card; D {dec0.hidden_size}, I {dec0.intermediate_size}, "
+          f"{dec0.num_experts} experts, top {dec0.top_k}, vocab {dec0.vocab_size}, rope_theta "
+          f"{dec0.rope_theta:g}), {nbytes / 1e9:.2f} GB of bf16 written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    tok = SpmLikeTokenizer()
+    rng = np.random.default_rng(SEED)
+    videos = [rng.integers(0, 256, (FRAMES, 336, 336, 3), dtype=np.uint8) for _ in range(VIDEOS)]
+    stamps = [[[float(i)] for i in range(FRAMES)]] * VIDEOS
+    asks = ["Localize the visual events in the video and describe each one.",
+            "Find every moment where something changes, with timestamps."]
+    stats, launches = {}, {}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = pl.model_init(str(ckpt), quant="bf16", tokenizer=tok)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pc = pipe.config
+    if (pc.decoder != dataclasses.replace(dec0, moe_impl="dense")
+            or pc.mm_projector_type != cfg.mm_projector_type or pc.num_frames != FRAMES):
+        fail(f"moe: model_init gave {pc}, not the checkpoint's config {cfg}")
+    layers = pipe._decoder_params["layers"]
+    if layers["w_gate"].shape != (MOE_LAYERS, 8, 4096, 14336) or "router" not in layers:
+        fail(f"moe: the decoder's expert stacks are {tuple(layers['w_gate'].shape)}")
+    print(f"moe: model_init bf16 {init_s:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card", flush=True)
+    tree = serving_tree(pipe)
+    L = MOE_LAYERS
+    vit_layers = pc.vision.num_layers + 1 + pc.vision.select_layer
+    chunks = VIDEOS * FRAMES // pc.vit_chunk_size
+
+    def serve(mode, p, row):
+        """Two requests: launches, the phase times, the head slices; check (e)
+        on an 8-token request; the fp32 reference check."""
+        steps_all, reqs = [], []
+        for request in (1, 2):
+            reset_serving_launches()
+            t0 = time.perf_counter()
+            preds = p.infer_events_batch(videos, stamps, asks, max_new_tokens=MAX_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got, s = serving_launches(), p.last_stats
+            steps = s["decode_steps"]
+            want = dict.fromkeys(got, 0)
+            want.update({"vit_attention_btd": vit_layers * chunks, "flash_attention": L,
+                         row: L * steps})
+            print(f"moe: {mode} request {request}: launches {got} expected {want}; "
+                  f"{s['prefix_tokens']} prefix tokens, {steps} decode steps; wall {wall:.3f} "
+                  f"s, encode {s['encode_s']:.3f} s, prefill {s['prefill_s']:.3f} s, decode "
+                  f"{1e3 * s['decode_s'] / max(steps, 1):.2f} ms/step", flush=True)
+            if got != want or steps <= 0:
+                fail(f"moe {mode}: launch counts {got} != expected {want}")
+            if not all(isinstance(x, EventPredictions) for x in preds):
+                fail(f"moe {mode}: output does not parse into EventPredictions")
+            check_head_slices(p.config.decoder, s["tokens"])
+            steps_all.append(1e3 * s["decode_s"] / max(steps, 1))
+            reqs.append({k: v for k, v in s.items() if k != "tokens"} | {"wall_s": wall})
+        counts, tokens = got, p.last_stats["tokens"]
+        _, held = on_path(torch, f"moe {mode}", lambda: p.infer_events_batch(
+            videos, stamps, asks, max_new_tokens=8))
+        check = reference_check(torch, p, serving_tree(p), p.config, tok, videos, stamps,
+                                asks, f"moe {mode}", tokens, profile=False)
+        return counts, {"ms_per_step": steps_all, "requests": reqs, "launches": counts,
+                        "on_path": held, "reference": check}
+
+    # (a) the dense mixture from the checkpoint, bf16 KV cache
+    counts, stats["bf16 dense"] = serve("bf16 dense", pipe, "decode_attention")
+    launches.update({k: v for k, v in counts.items() if v})
+    video_path = tmp / "moe_video.npy"
+    np.save(video_path, videos[0])
+    t0 = time.perf_counter()
+    pred = infer_events(pipe, str(video_path), asks[0], max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    stats["bf16 dense"]["infer_events_s"] = time.perf_counter() - t0
+    if not isinstance(pred, EventPredictions):
+        fail("moe: infer_events on an .npy did not give EventPredictions")
+    print(f"moe: infer_events on an .npy of {FRAMES} frames: "
+          f"{stats['bf16 dense']['infer_events_s']:.3f} s", flush=True)
+
+    # (b) the same weights in the sparse form with the int8 KV cache. Its pad
+    # rows take bucket slots before the real tokens, so which real
+    # assignments overflow follows what the pad rows hold: the attention
+    # kernel gives a row that sees no key the plain version's mean of v
+    sparse_cfg = dataclasses.replace(pc, decoder=dataclasses.replace(
+        pc.decoder, moe_impl="sparse", capacity_factor=2.0, kv_cache_dtype="int8"))
+    sparse = pl.TracePipeline(tree, sparse_cfg, tok)
+    counts, stats["sparse int8-kv"] = serve("sparse int8-kv", sparse,
+                                            "decode_attention_int8_s8dot")
+    launches.update({k: v for k, v in counts.items() if v})
+    serving_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del sparse, tree, pipe, layers
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) no quantized Mixtral
+    try:
+        pl.model_init(str(ckpt), quant="int8", tokenizer=tok)
+    except ValueError as e:
+        if "Mixtral" not in str(e):
+            fail(f"moe: model_init(quant='int8') raised another ValueError: {e}")
+        print(f"moe: model_init(quant='int8') raises ValueError: {e}", flush=True)
+    else:
+        fail("moe: model_init(quant='int8') on a Mixtral checkpoint did not raise")
+
+    # (d) two lora steps at batch 1 x MOE_TRAIN_TOKENS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, tcfg = load_pretrained(str(ckpt))
+    tcfg = dataclasses.replace(tcfg, decoder=dataclasses.replace(
+        tcfg.decoder, lora_r=128, lora_alpha=256.0))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = _to_device(params, torch.device("cuda"))
+    params["decoder"] = add_lora_params(params["decoder"], tcfg.decoder, gen,
+                                        targets=MOE_LORA_TARGETS)
+    for name, leaf in params["decoder"]["layers"].items():
+        if name.endswith("_lora_b"):  # B = 0 would hold A's gradients at zero
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda") * 1e-3)
+    load_s = time.perf_counter() - t0
+    data = SyntheticVideos(tcfg, tok, 1)
+    if data.max_len != MOE_TRAIN_TOKENS:
+        fail(f"moe: the training row is {data.max_len} tokens, not {MOE_TRAIN_TOKENS}")
+    from trace_tpu_torch.data.dataset import collate_batch
+
+    batch = collate_batch([data[0]])
+    dev_batch = _batch_to_device(batch, torch.device("cuda"))
+    dev_batch["frames"] = preprocess_batch_frames(dev_batch.pop("frames_u8"), tcfg)
+    adapters = []
+    for path, x in tree_paths(params):
+        x.requires_grad_(param_group(path, "lora") != "frozen" and not path.startswith("vision"))
+        x.grad = None
+        if "_lora_" in path:
+            adapters.append((path, x))
+    loss, _ = forward_train(params, tcfg, dev_batch)
+    loss.backward()
+    dead = [p for p, x in adapters
+            if x.grad is None or not torch.isfinite(x.grad).all() or x.grad.abs().max() == 0]
+    for _, x in tree_paths(params):
+        x.grad = None
+    print(f"moe: lora forward + backward: loss {loss.item():.5f}, "
+          f"{len(adapters) - len(dead)} of {len(adapters)} adapter leaves with finite, "
+          f"non-zero gradients", flush=True)
+    if not math.isfinite(loss.item()) or dead or not adapters:
+        fail(f"moe lora: loss {loss.item()}, adapters without gradients {dead}")
+    del loss
+    recipe = TrainRecipe(stage="lora", learning_rate=1e-4, total_steps=TRAIN_STEPS)
+    tx = build_optimizer(params, recipe)
+    opt = tx.init(params)
+    step_fn = make_train_step(tcfg, tx, freeze_stage="lora")
+    for fn in train_counts().values():
+        fn.launches = 0
+    before = {p: x.detach().clone() for p, x in adapters}
+    losses, step_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    train_launches = {name: fn.launches for name, fn in train_counts().items()}
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"moe: lora steps at batch 1 x {data.max_len} tokens ({data.real[0]} real), "
+          f"{MOE_LAYERS} layers: losses {losses}, {' / '.join(f'{t:.3f}' for t in step_s)} "
+          f"s/step, launches {train_launches}, peak {train_peak:.2f} GiB (load + adapters "
+          f"{load_s:.1f} s)", flush=True)
+    # the schedule starts at 0: the first step moves nothing, the second every adapter
+    still = [p for p, x in adapters if torch.equal(x.detach(), before[p])]
+    if not all(math.isfinite(x) for x in losses) or still:
+        fail(f"moe lora: losses {losses}, adapters that did not move {still}")
+    want_rows = {"flash_attention_fwd_res": 2 * 2 * L, "flash_attention_bwd_dq": 2 * L,
+                 "flash_attention_bwd_dkv": 2 * L}
+    if any(train_launches[k] != n for k, n in want_rows.items()):
+        fail(f"moe lora: launches {train_launches}, expected {want_rows} of rows 8-10")
+    for name, n in train_launches.items():
+        launches.setdefault(name, n)
+    stats["lora"] = {"losses": losses, "s_per_step": step_s, "peak_gib": train_peak,
+                     "launches": train_launches, "load_s": load_s}
+    del params, opt, tx, step_fn, dev_batch
+    shutil.rmtree(ckpt)
+    stats.update(model_init_s=init_s, serving_peak_gib=serving_peak,
+                 seconds=time.perf_counter() - t_phase)
+    print(f"moe: phase 10 took {stats['seconds']:.1f} s; serving peak {serving_peak:.2f} GiB, "
+          f"lora peak {train_peak:.2f} GiB; launches on the Mixtral path {launches}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
 def main() -> int:
     try:
         import torch
@@ -3034,6 +3363,10 @@ def main() -> int:
     if sys.argv[1:] == ["--families"]:
         with tempfile.TemporaryDirectory() as tmp:
             print(json.dumps(families_phase(torch, Path(tmp))[1]), flush=True)
+        return 0
+    if sys.argv[1:] == ["--moe"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps(moe_phase(torch, Path(tmp))[1]), flush=True)
         return 0
     if sys.argv[1:] in (["--checkpoint"], ["--eval"]):
         with tempfile.TemporaryDirectory() as tmp:
@@ -3072,10 +3405,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:  # the two checkpoints
         family_launches, family_stats = families_phase(torch, Path(tmp))
     launches.update(family_launches)  # the G = 7 rows: launched on this path alone
+    with tempfile.TemporaryDirectory() as tmp:  # the Mixtral checkpoint and an .npy
+        moe_launches, moe_stats = moe_phase(torch, Path(tmp))
     second = stats[1::2]  # the second request of each path
     per_step = lambda s: 1e3 * s["decode_s"] / max(s["decode_steps"], 1)
     col = lambda f: " | ".join(f(s) for s in second)
-    print(f"second requests, {' | '.join(modes)} ({G0_LAYERS} layers): "
+    print(f"second requests, {' | '.join(modes)} ({INT4P_LAYERS} and {G0_LAYERS} layers): "
           f"encode {col(lambda s: format(s['encode_s'], '.3f'))} s, "
           f"prefill {col(lambda s: format(s['prefill_s'], '.3f'))} s, "
           f"decode {col(lambda s: format(per_step(s), '.2f'))} ms/step", flush=True)
@@ -3131,7 +3466,10 @@ def main() -> int:
          "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
          "library_ms": r["library_ms"],
          # the corpus phase's own count (pass A), beside the first path's
-         "launches_corpus": corpus_launches.get(name, 0)}
+         "launches_corpus": corpus_launches.get(name, 0),
+         # the Mixtral path's own (phase 10: the second request of each
+         # serving form, the two lora steps)
+         "launches_moe": moe_launches.get(name, 0)}
         for name, r in rows.items()
     ]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
@@ -3139,7 +3477,8 @@ def main() -> int:
         fail(f"no path launched {idle}")
     print(json.dumps({"requests": stats, "e2e": e2e, "corpus": corpus, "training": train_stats,
                       "gradient_check": grad_check, "checkpoint": ckpt_stats,
-                      "eval": eval_stats, "families": family_stats, "card": card,
+                      "eval": eval_stats, "families": family_stats, "moe": moe_stats,
+                      "card": card,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -317,16 +317,20 @@ def test_trace_config_from_hf_matches_jax(hf):
     ({"model_type": "qwen2"}, "qwen2"),
 ])
 def test_other_architectures_raise(hf, what):
-    """Mixtral and an unknown projector raise; a qwen2 config converts, with
-    its qkv biases (ported since; tests/test_torch_families.py holds it to
+    """An unknown projector raises. A qwen2 config converts, with its qkv
+    biases, and a Mixtral one (by ``model_type`` or ``num_local_experts``)
+    to the JAX package's MoE config in the dense form (both ported since;
+    tests/test_torch_families.py and tests/test_torch_moe.py hold them to
     JAX)."""
+    got = tconvert.trace_config_from_hf(hf).decoder
     if what == "qwen2":
-        assert tconvert.trace_config_from_hf(hf).decoder.attn_qkv_bias
+        assert got.attn_qkv_bias
     else:
-        with pytest.raises(NotImplementedError, match=what):
-            tconvert.trace_config_from_hf(hf)
-    with pytest.raises(NotImplementedError, match="Mixtral"):
-        tconvert.convert_mixtral_decoder({}, None)
+        want = jconvert.trace_config_from_hf(hf).decoder
+        assert type(got).__name__ == type(want).__name__ == "MoEConfig"
+        for f in dataclasses.fields(got):
+            assert getattr(got, f.name) == getattr(want, f.name, getattr(got, f.name)), f.name
+        assert (got.num_experts, got.top_k, got.moe_impl) == (8, 2, "dense")
     cfg = dataclasses.replace(TraceConfig.tiny(), mm_projector_type="resampler")
     with pytest.raises(NotImplementedError, match="resampler"):
         tconvert.convert_connector({}, cfg, dtype=torch.float32)

@@ -99,9 +99,39 @@ def test_flash_kernel_matches_plain(cuda, B, H, Hkv, T, hd, pad, side):
     assert flash_attention.launches == n + 1
     want = flash_attention(q, k, v, bias, True, impl="plain")
     assert torch.isfinite(got).all()
-    # left-padded rows see no key; their (finite) values are unspecified
-    real = pad if side == "left" else 0
-    _assert_matches(got[:, :, real:], want[:, :, real:], ATOL["flash"])
+    # every row, the left-padded ones that see no key too (the mean of v)
+    _assert_matches(got, want, ATOL["flash"])
+
+
+NO_KEY_CASES = [  # B, H, Hkv, T, hd, causal, the masked keys of batch row 0
+    (2, 8, 2, 300, 128, True, (0, 37)),      # left padding
+    (2, 8, 2, 300, 128, True, (0, 300)),     # a row wholly masked
+    (2, 8, 2, 300, 128, False, (0, 300)),    # the same, not causal
+    (1, 8, 2, 257, 64, True, (0, 130)),      # hd = 64, past a key tile
+    (2, 28, 4, 2048, 128, True, (0, 300)),   # the prefill shape, GQA group 7
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,T,hd,causal,masked", NO_KEY_CASES)
+def test_flash_rows_that_see_no_key_get_the_mean_of_v(cuda, B, H, Hkv, T, hd, causal,
+                                                      masked):
+    """A query row whose keys are all masked gets the mean of v over the
+    keys, as the plain version's uniform softmax over equal -1e30 scores (and
+    the Pallas kernel's at a multiple of 128 keys) gives it; the rows that see
+    a key are untouched. A routed MoE layer gives such rows bucket slots."""
+    q, k, v, _ = _flash_inputs(cuda, B, H, Hkv, T, hd, 0, "left", seed=8)
+    bias = torch.zeros((B, T), device=cuda)
+    bias[0, masked[0]:masked[1]] = -1e30
+    got = flash_attention(q, k, v, bias, causal)
+    want = flash_attention(q, k, v, bias, causal, impl="plain")
+    torch.cuda.synchronize()
+    _assert_matches(got, want, ATOL["flash"])
+    unseen = masked[1] if causal or masked[1] == T else 0
+    mean = v[0].float().mean(dim=1).repeat_interleave(H // Hkv, dim=0)  # [H, hd]
+    rows = got[0, :, :unseen].float()
+    torch.testing.assert_close(rows, mean[:, None].expand_as(rows), atol=1e-6, rtol=2 ** -8)
+    assert unseen > 0
 
 
 @pytest.mark.cuda
@@ -315,7 +345,8 @@ def test_flash_backward_kernels_match_plain(cuda, B, H, Hkv, Tq, Tk, hd, pad, si
     if causal and side == "left":
         sees[0, :pad] = False
     rows = sees[:, None, :, None].expand_as(lse)
-    _assert_matches(o[rows.expand_as(o)], o_ref[rows.expand_as(o)], ATOL["flash"])
+    # o on every row: a row that sees no key gets the mean of v on both sides
+    _assert_matches(o, o_ref, ATOL["flash"])
     torch.testing.assert_close(lse[rows], lse_ref[rows], atol=1e-4, rtol=1e-5)
     assert (lse[~rows] == lse_ref[~rows]).all()  # -1e30 on both sides
 

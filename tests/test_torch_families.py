@@ -243,7 +243,8 @@ def test_hf_parity(family):
 def test_trace_config_from_hf_matches_jax():
     """qwen2 sets the qkv biases; a llama config without
     ``num_key_value_heads`` takes 8 KV heads on both sides (HF's llama
-    would take ``num_attention_heads``: a difference both packages pin)."""
+    would take ``num_attention_heads``: a difference both packages pin); a
+    mixtral one gives JAX's MoE config."""
     base = {"hidden_size": 256, "num_attention_heads": 16, "intermediate_size": 512,
             "num_hidden_layers": 2, "vocab_size": 1000}
     for hf in ({**base, "model_type": "qwen2", "num_key_value_heads": 4,
@@ -256,8 +257,14 @@ def test_trace_config_from_hf_matches_jax():
                 assert getattr(got, f.name) == getattr(want, f.name), (hf["model_type"], f.name)
     assert tconvert.trace_config_from_hf({**base, "model_type": "qwen2"}).decoder.attn_qkv_bias
     assert tconvert.trace_config_from_hf({**base, "model_type": "llama"}).decoder.num_kv_heads == 8
-    with pytest.raises(NotImplementedError, match="Mixtral"):
-        tconvert.trace_config_from_hf({**base, "model_type": "mixtral"})
+    mixtral = {**base, "model_type": "mixtral", "num_local_experts": 4,
+               "num_experts_per_tok": 2}
+    want = jconvert.trace_config_from_hf(mixtral).decoder
+    got = tconvert.trace_config_from_hf(mixtral).decoder
+    assert type(got).__name__ == type(want).__name__ == "MoEConfig"
+    for f in dataclasses.fields(got):
+        if hasattr(want, f.name):
+            assert getattr(got, f.name) == getattr(want, f.name), ("mixtral", f.name)
 
 
 # ---------------------------------------------------------------------------

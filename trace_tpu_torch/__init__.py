@@ -13,7 +13,8 @@ chunk length; W4A8 prefill with per-channel scales).
 Every Pallas kernel of those paths is a hand-written CUDA kernel under
 ``kernels/``: prefill, ViT and decode attention (bf16 and int8 cache), the
 int8 weight product (2-D and layer-stacked) and the packed-int4 weight
-products (per channel and grouped).
+products (per channel and grouped). The decoder may be Mistral, llama /
+vicuna, qwen2 or Mixtral (routed experts, ``model.moe``; bf16 only).
 
 Training (``train.train.train_loop``, ``python -m trace_tpu_torch.train.cli``):
 the three-stream loss over ``model.trace_model.forward_train``, the stage

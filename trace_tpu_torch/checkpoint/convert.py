@@ -22,9 +22,9 @@ leaf. Layer keys are built by index (``layers.{i}``). The values are the JAX
 package's: a stored value cast to the target dtype, which the JAX package
 reaches through fp32 (exact for every floating type below fp64).
 
-Backbones: Mistral, llama / vicuna and qwen2 (its q / k / v biases).
-Connectors: every type of ``model/connector.py``. Not ported: Mixtral
-(``convert_mixtral_decoder`` raises ``NotImplementedError``).
+Backbones: Mistral, llama / vicuna, qwen2 (its q / k / v biases) and
+Mixtral (``block_sparse_moe`` experts into [L, E, ...] stacks).
+Connectors: every type of ``model/connector.py``.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from typing import Dict, Mapping
 
 import torch
 
-from trace_tpu_torch.model.config import DecoderConfig, TraceConfig, VisionConfig
+from trace_tpu_torch.model.config import DecoderConfig, MoEConfig, TraceConfig, VisionConfig
 
 StateDict = Mapping[str, torch.Tensor]
 
@@ -49,11 +49,6 @@ SAFETENSORS_DTYPES = {
     "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
     "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
 }
-OTHER_ARCHITECTURES = "(ROADMAP.md, Queue 1: Mixtral)"
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported {OTHER_ARCHITECTURES}")
 
 
 # ---------------------------------------------------------------------------
@@ -144,23 +139,41 @@ def _leaf(w: torch.Tensor, dtype, transpose: bool = False) -> torch.Tensor:
     return torch.empty(w.shape, dtype=dtype).copy_(w)
 
 
+def _fill(out: torch.Tensor, weights: list) -> torch.Tensor:
+    """Copy ``weights[i]`` into ``out`` viewed as [len(weights), ...], slot i
+    viewed as the weight's shape, on a pool of ``torch.get_num_threads()``
+    threads (a transposed copy runs on one core, and the copies release the
+    interpreter lock)."""
+    slots = out.view(len(weights), -1)
+
+    def put(i):
+        slots[i].view(weights[i].shape).copy_(weights[i])
+
+    with ThreadPoolExecutor(max(1, min(len(weights), torch.get_num_threads()))) as pool:
+        list(pool.map(put, range(len(weights))))
+    return out
+
+
 def _stack(sd: StateDict, fmt: str, num_layers: int, dtype, layer_shape=None,
            transpose: bool = False) -> torch.Tensor:
     """The [L, ...] leaf of the keys ``fmt.format(i=i)``, i = 0..L-1: each
     layer's weight (2-D and transposed with ``transpose``) viewed as
-    ``layer_shape`` (default: its own shape), cast into its slot. The layers
-    are copied on a pool of ``torch.get_num_threads()`` threads (a transposed
-    copy runs on one core, and the copies release the interpreter lock)."""
+    ``layer_shape`` (default: its own shape), cast into its slot."""
     weights = [sd[fmt.format(i=i)] for i in range(num_layers)]
     weights = [w.t() for w in weights] if transpose else weights
     out = torch.empty((num_layers,) + tuple(layer_shape or weights[0].shape), dtype=dtype)
+    return _fill(out, weights)
 
-    def put(i):
-        out[i].view(weights[i].shape).copy_(weights[i])
 
-    with ThreadPoolExecutor(max(1, min(num_layers, torch.get_num_threads()))) as pool:
-        list(pool.map(put, range(num_layers)))
-    return out
+def _stack_experts(sd: StateDict, fmt: str, num_layers: int, num_experts: int,
+                   dtype) -> torch.Tensor:
+    """The [L, E, in, out] leaf of the 2-D HF expert weights
+    ``fmt.format(i=i, j=j)`` ([out, in], transposed), allocated once in
+    ``dtype`` and filled an (i, j) slot at a time."""
+    weights = [sd[fmt.format(i=i, j=j)].t()
+               for i in range(num_layers) for j in range(num_experts)]
+    out = torch.empty((num_layers, num_experts) + tuple(weights[0].shape), dtype=dtype)
+    return _fill(out, weights)
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +181,8 @@ def _stack(sd: StateDict, fmt: str, num_layers: int, dtype, layer_shape=None,
 # ---------------------------------------------------------------------------
 
 def convert_mistral_decoder(sd: StateDict, config: DecoderConfig, *,
-                            prefix: str = "model.", dtype=torch.float32) -> dict:
+                            prefix: str = "model.", dtype=torch.float32,
+                            mlp: bool = True) -> dict:
     """HF MistralForCausalLM (+ TRACE heads) state dict -> decoder params.
 
     HF's ``nn.Linear`` stores [out, in] and the port's products contract
@@ -177,7 +191,8 @@ def convert_mistral_decoder(sd: StateDict, config: DecoderConfig, *,
     [D, NH*hd] -> wo [NH, hd, D]. With ``attn_qkv_bias`` (qwen2) the q / k /
     v projection biases split heads too: bq [NH, hd], bk / bv [NKV, hd].
     ``embed_tokens`` and ``lm_head`` keep their first ``vocab_size`` rows; a
-    missing sync/time/score head is zeros."""
+    missing sync/time/score head is zeros. Without ``mlp`` the dense MLP
+    keys are neither read nor converted (``convert_mixtral_decoder``)."""
     c = config
     L, D = c.num_layers, c.hidden_size
     NH, NKV, HD = c.num_heads, c.num_kv_heads, c.head_dim
@@ -193,10 +208,11 @@ def convert_mistral_decoder(sd: StateDict, config: DecoderConfig, *,
         "wk": stack("self_attn.k_proj.weight", (D, NKV, HD), True),
         "wv": stack("self_attn.v_proj.weight", (D, NKV, HD), True),
         "wo": stack("self_attn.o_proj.weight", (NH, HD, D), True),
-        "w_gate": stack("mlp.gate_proj.weight", transpose=True),
-        "w_up": stack("mlp.up_proj.weight", transpose=True),
-        "w_down": stack("mlp.down_proj.weight", transpose=True),
     }
+    if mlp:
+        for name, hf_name in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                              ("w_down", "down_proj")):
+            layers[name] = stack(f"mlp.{hf_name}.weight", transpose=True)
     if c.attn_qkv_bias:  # qwen2-style backbones
         for name, proj, heads in (("bq", "q", NH), ("bk", "k", NKV), ("bv", "v", NKV)):
             layers[name] = stack(f"self_attn.{proj}_proj.bias", (heads, HD))
@@ -215,10 +231,31 @@ def convert_mistral_decoder(sd: StateDict, config: DecoderConfig, *,
     return params
 
 
-def convert_mixtral_decoder(sd: StateDict, config, *, prefix: str = "model.",
+def convert_mixtral_decoder(sd: StateDict, config: MoEConfig, *, prefix: str = "model.",
                             dtype=torch.float32) -> dict:
-    """HF MixtralForCausalLM state dict -> MoE decoder params: not ported."""
-    raise _not_ported("the Mixtral decoder (convert_mixtral_decoder)")
+    """HF MixtralForCausalLM state dict -> MoE decoder params. Attention,
+    norms, embedding and heads convert as Mistral's; each layer's
+    ``block_sparse_moe`` maps to the stacked-expert layout of
+    ``model/moe.py``:
+
+      gate.weight           [E, D]  -> router  [L, D, E]
+      experts.{j}.w1.weight [I, D]  -> w_gate  [L, E, D, I]
+      experts.{j}.w3.weight [I, D]  -> w_up    [L, E, D, I]
+      experts.{j}.w2.weight [D, I]  -> w_down  [L, E, I, D]
+
+    Each stack is allocated once in ``dtype`` and filled an expert at a time
+    (the JAX package stacks fp32 numpy copies first: ~190 GB of host memory
+    at Mixtral-8x7B's 32 layers)."""
+    c = config
+    L, E = c.num_layers, c.num_experts
+    params = convert_mistral_decoder(sd, c, prefix=prefix, dtype=dtype, mlp=False)
+    moe = prefix + "layers.{i}.block_sparse_moe."
+    layers = params["layers"]
+    layers["router"] = _stack(sd, moe + "gate.weight", L, dtype, transpose=True)
+    for name, hf_name in (("w_gate", "w1"), ("w_up", "w3"), ("w_down", "w2")):
+        layers[name] = _stack_experts(sd, moe + "experts.{j}." + hf_name + ".weight",
+                                      L, E, dtype)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -406,13 +443,21 @@ def trace_config_from_hf(hf_cfg: dict, **overrides) -> TraceConfig:
     ``overrides`` win. The vision tower is the default CLIP ViT-L/14-336,
     as in the JAX package. A qwen2 ``model_type`` sets ``attn_qkv_bias``.
     Where ``num_key_value_heads`` is missing the KV heads default to 8, as
-    in the JAX package (HF's llama defaults to ``num_attention_heads``)."""
+    in the JAX package (HF's llama defaults to ``num_attention_heads``).
+    A mixtral ``model_type`` or ``num_local_experts`` gives a ``MoEConfig``
+    (its experts and top-k) in the dense form: the sparse form drops a
+    token's expert where a bucket overflows, which the HF model the weights
+    were trained under never does."""
     model_type = hf_cfg.get("model_type", "")
-    if "mixtral" in model_type or hf_cfg.get("num_local_experts"):
-        raise _not_ported("a Mixtral (MoE) backbone")
     hidden = hf_cfg.get("hidden_size", 4096)
     heads = hf_cfg.get("num_attention_heads", 32)
-    dec = DecoderConfig(
+    dec_cls, moe_kw = DecoderConfig, {}
+    if "mixtral" in model_type or hf_cfg.get("num_local_experts"):
+        dec_cls = MoEConfig
+        moe_kw = dict(num_experts=hf_cfg.get("num_local_experts", 8),
+                      top_k=hf_cfg.get("num_experts_per_tok", 2), moe_impl="dense")
+    dec = dec_cls(
+        **moe_kw,
         vocab_size=hf_cfg.get("vocab_size", 32000),
         hidden_size=hidden,
         intermediate_size=hf_cfg.get("intermediate_size", 14336),
@@ -442,10 +487,13 @@ BUNDLED_VISION = "model.vision_tower.vision_tower.vision_model."
 
 def convert_state_dict(sd: StateDict, config: TraceConfig, *, dtype,
                        vision_path: str | None = None) -> dict:
-    """A merged state dict -> params: decoder + heads, connector, towers, and
-    the CLIP tower bundled in ``sd`` or read from ``vision_path``."""
+    """A merged state dict -> params: decoder (Mixtral's routed experts for a
+    ``MoEConfig``) + heads, connector, towers, and the CLIP tower bundled in
+    ``sd`` or read from ``vision_path``."""
+    moe = isinstance(config.decoder, MoEConfig)
     params = {
-        "decoder": convert_mistral_decoder(sd, config.decoder, dtype=dtype),
+        "decoder": (convert_mixtral_decoder if moe else convert_mistral_decoder)(
+            sd, config.decoder, dtype=dtype),
         "connector": convert_connector(sd, config, dtype=dtype),
         "towers": convert_towers(sd, dtype=dtype),
     }

@@ -62,9 +62,16 @@
 // order and nothing is atomic: a repeat gives the same bits.
 //
 // Masks use the finite -1e30 of the JAX package, never -inf (keys past Tk,
-// which the tensor does not hold, are dropped): a row whose keys are all
-// masked averages the keys of the tiles it visits and stays finite, and its
-// lse is written as -1e30 + log(l), exactly -1e30, as the plain version's.
+// which the tensor does not hold, are dropped). A query row that sees no key
+// (with a bias: every key it may reach has a bias <= -1e29; a left-padded
+// prefill's pad rows) gets the mean of v over the Tk keys, as the plain
+// version gives it: every score of such a row is the same -1e30, so its
+// softmax is uniform (and so is the Pallas kernel's over its 128-key tiles
+// when Tk is a multiple of 128). The main kernel leaves such rows to a second
+// launch, unseen_rows_kernel, which writes that mean over them. Their values
+// matter: a routed MoE layer gives pad rows bucket slots before the real
+// tokens. The lse of such a row is written as -1e30 + log(l), exactly -1e30,
+// as the plain version's.
 
 #include "attention_common.cuh"
 
@@ -403,6 +410,65 @@ __global__ void __launch_bounds__(128, 1)
     O[(16 * warp + g + 8 * ((i / 2) % 2)) * HD + 8 * (i / 4) + 2 * t + i % 2] = o[i];
 }
 
+// unseen_rows_kernel: a block sums FILL_COLS columns of v over the Tk keys
+// of one (kv head, batch row), 16 column pairs x 16 key groups, each key
+// group in key order and the groups in group order: a fixed order, so a
+// repeat gives the same bits.
+constexpr int FILL_COLS = 32;
+constexpr int FILL_THREADS = 256;
+
+// The rows of batch row b that see no key get the mean of v over the Tk keys
+// (see the note on masks above), in each query head of kv head blockIdx.x.
+// Causal, a row r sees the keys j <= r below kv_len whose bias is above
+// -1e29: the rows before the first such key see none; not causal, every row
+// sees none when no key is visible. Launched after the main kernel, only
+// with a bias.
+__global__ void __launch_bounds__(FILL_THREADS)
+    unseen_rows_kernel(const bf16* v, long long svb, long long svh, long long svt,
+                       const Params p) {
+  const int kvh = blockIdx.x, b = blockIdx.y, c0 = blockIdx.z * FILL_COLS;
+  const float* bias = p.bias + b * p.sbias;
+  const int lim = min(p.tk, p.kv_len);
+  __shared__ int first;  // the first visible key, lim if none
+  __shared__ float2 part[16][16];
+  if (threadIdx.x == 0) first = lim;
+  __syncthreads();
+  for (int j = threadIdx.x; j < lim; j += FILL_THREADS)
+    if (bias[j] > -1e29f) {
+      atomicMin(&first, j);
+      break;
+    }
+  __syncthreads();
+  const int rows = first >= lim ? p.tq : p.causal ? min(first, p.tq) : 0;
+  if (rows == 0) return;
+  const int cp = threadIdx.x % 16, grp = threadIdx.x / 16;
+  const bf16* vb = v + b * svb + kvh * svh + c0 + 2 * cp;
+  float2 s = make_float2(0.f, 0.f);
+#pragma unroll 8
+  for (int j = grp; j < p.tk; j += 16) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(vb + static_cast<long long>(j) * svt));
+    s.x += f.x;
+    s.y += f.y;
+  }
+  part[grp][cp] = s;
+  __syncthreads();
+  if (grp == 0) {
+    for (int g = 1; g < 16; ++g) {
+      s.x += part[g][cp].x;
+      s.y += part[g][cp].y;
+    }
+    part[0][cp] = make_float2(s.x / p.tk, s.y / p.tk);
+  }
+  __syncthreads();
+  const __nv_bfloat162 mean = __floats2bfloat162_rn(part[0][cp].x, part[0][cp].y);
+  for (int i = grp; i < p.group * rows; i += 16) {
+    const int h = kvh * p.group + i / rows, r = i % rows;
+    *reinterpret_cast<__nv_bfloat162*>(p.o + b * p.sob + h * p.soh +
+                                       static_cast<long long>(r) * p.sot + c0 + 2 * cp) = mean;
+  }
+}
+
 struct Operands {
   const void *q, *k, *v;
   int B, tq, tk;
@@ -426,6 +492,12 @@ int launch(Params p, const Operands& a, cudaStream_t stream) {
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(p.H, a.B, (a.tq + BQ - 1) / BQ);
   kernel<<<grid, THREADS, C::SMEM, stream>>>(qmap, kmap, vmap, p);
+  if (p.bias) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    unseen_rows_kernel<<<dim3(hkv, a.B, HD / FILL_COLS), FILL_THREADS, 0, stream>>>(
+        static_cast<const bf16*>(a.v), a.svb, a.svh, a.svt, p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,7 +18,11 @@ query rows of one head; a producer thread copies Q and a ring of 128-key
 K/V tiles by TMA; two consumer warpgroups of 64 rows each run both products
 as wgmma (fp32 accumulate) and an online softmax in registers between them.
 What sets the pace is the softmax between a warpgroup's two products, which
-only the other warpgroup's products hide. See csrc/attention.cu. The kernel
+only the other warpgroup's products hide. See csrc/attention.cu. A query row
+that sees no key (a left-padded prefill's pad rows) gets the mean of v over
+the keys from both: the plain version's scores of such a row are all the same
+-1e30, so its softmax is uniform; the kernel leaves those rows to a second,
+small launch that writes that mean. The kernel
 reads q, k and v through TMA tensor maps, so the wrapper's operands need
 16-byte aligned pointers and row strides.
 

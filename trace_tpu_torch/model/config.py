@@ -1,7 +1,8 @@
 """Model configuration for the PyTorch port (copy of trace_tpu/model/config.py
-with torch dtypes): the bf16, int8 and int4p serving configurations (int8
-KV cache, W8A8 / W4A8 prefill and W8A8 ViT; ``model/quantize.py int8_serving``
-and ``int4p_serving`` set them)."""
+with torch dtypes, and ``MoEConfig`` of trace_tpu/model/moe.py): the bf16,
+int8 and int4p serving configurations (int8 KV cache, W8A8 / W4A8 prefill and
+W8A8 ViT; ``model/quantize.py int8_serving`` and ``int4p_serving`` set
+them)."""
 
 from __future__ import annotations
 
@@ -94,6 +95,38 @@ class DecoderConfig:
             num_kv_heads=2,
             head_dim=16,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig(DecoderConfig):
+    """A Mixtral-family decoder (trace_tpu/model/moe.py): the Mistral block
+    with its MLP replaced by ``num_experts`` SwiGLU experts, ``top_k`` of them
+    routed per token (``model/moe.py``)."""
+
+    num_experts: int = 8
+    top_k: int = 2
+    # 'sparse': capacity-bucketed dispatch, k * capacity_factor / E of the
+    # dense products; 'dense': every expert computes every token (exact, no
+    # drops; what converted checkpoints get)
+    moe_impl: str = "sparse"
+    # an expert's bucket holds capacity_factor x the mean load; a token past
+    # it loses that expert's contribution (Switch semantics)
+    capacity_factor: float = 2.0
+
+    @classmethod
+    def tiny_moe(cls) -> "MoEConfig":
+        return cls(
+            vocab_size=384, hidden_size=64, intermediate_size=96,
+            num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
+            num_experts=4, top_k=2,
+        )
+
+    @classmethod
+    def mixtral_8x7b(cls) -> "MoEConfig":
+        """Mistral-7B's widths with 8 experts, 2 a token, as the JAX
+        package's preset; a checkpoint's ``config.json`` sets the rest
+        (Mixtral-8x7B-v0.1's ``rope_theta`` is 1e6)."""
+        return cls(num_experts=8, top_k=2)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,6 +31,11 @@ sliced through ``layer_slice``, whose backward adds the layer's gradient into
 stripe ``li`` of the stacked ``.grad`` in place: indexing ``leaf[li]`` under
 autograd would build a full [L, ...] zero gradient per layer and weight.
 LoRA adapters (model/lora.py) are extra stacked leaves of the same tree.
+
+A Mixtral-family tree (``router`` among the layer leaves, ``model/moe.py``)
+runs its layers' MLP as routed experts, in the form of ``config.moe_impl``,
+on every route (prefill, decode step, training); MLP adapters do not apply
+there, as in the JAX package. Its weights stay unquantized.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from trace_tpu_torch.kernels.quant_matmul import (
 )
 from trace_tpu_torch.model.config import DecoderConfig
 from trace_tpu_torch.model.lora import lora_delta
+from trace_tpu_torch.model.moe import MOE_KEYS, moe_mlp
 from trace_tpu_torch.model.quantize import is_packed4, is_quantized, packed4_groups
 
 NEG_INF = -1e30  # finite large-negative avoids NaNs from (-inf) - (-inf)
@@ -240,9 +246,12 @@ def _layer(
     attn_flat = attn.transpose(1, 2).reshape(B, T, NQ)
     x = x + proj(attn_flat, name="wo", out_shape=(D,), acts=acts(attn_flat))
 
+    h = rms_norm(x, layer_slice(layers["mlp_norm"], li), config.rms_eps)
+    if "router" in layers:  # a Mixtral-family layer: routed experts, no MLP adapters
+        return x + moe_mlp(h, {name: layer_slice(layers[name], li) for name in MOE_KEYS},
+                           config)
     # gate and up stay fp32 into silu, as the JAX package's
     # preferred_element_type=float32 keeps them
-    h = rms_norm(x, layer_slice(layers["mlp_norm"], li), config.rms_eps)
     hq = acts(h)  # shared by gate/up
     if "w_gateup" in layers:
         gate, up = proj(h, name="w_gateup", out_shape=(-1,), acts=hq,

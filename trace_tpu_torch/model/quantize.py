@@ -167,6 +167,12 @@ def _quantize_grouped4(w: torch.Tensor, reduce_axes: tuple, group: int) -> dict:
     return out
 
 
+MIXTRAL_NOT_QUANTIZED = (
+    "a Mixtral (routed-expert) decoder cannot be quantized: the JAX package's "
+    "int8 / int4 quantizer reduces its expert stacks over the expert axis and its "
+    "decoder then fails on the tree; serve Mixtral with quant='bf16'")
+
+
 def quantize_decoder_params(params: dict, bits: int = 8, pack: bool = False,
                             group: int = 128) -> dict:
     """Quantize the decoder's large matmul weights per (layer, output
@@ -178,7 +184,15 @@ def quantize_decoder_params(params: dict, bits: int = 8, pack: bool = False,
     nibble-packed int4 ``{"qp", "s"}`` leaves with group-wise scales along
     the contraction dim (``group``, default 128; 0 = one scale per output
     channel). ``bits=4, pack=False`` is the JAX package's native ``jnp.int4``
-    storage, which has no torch dtype."""
+    storage, which has no torch dtype.
+
+    A Mixtral-family tree (``router`` among the layers) raises
+    ``ValueError`` before any weight is touched: the JAX package's quantizer
+    reduces its [L, E, D, I] expert stacks over the expert axis, and its
+    decoder then fails on the tree, so there is no quantized Mixtral to
+    reproduce."""
+    if "router" in params["layers"]:
+        raise ValueError(MIXTRAL_NOT_QUANTIZED)
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     if bits == 4 and not pack:

@@ -27,7 +27,8 @@ def from_jax_params(tree) -> dict:
     of the JAX package makes it after ``jax.tree.map(np.asarray, ...)``, to
     the port's tree of CPU tensors (``TracePipeline`` and ``train_loop`` move
     them to their device). Every leaf crosses as it is, LoRA adapter leaves
-    (``<name>_lora_a`` / ``_lora_b``) and quantized leaves included."""
+    (``<name>_lora_a`` / ``_lora_b``), quantized leaves and a Mixtral tree's
+    [L, E, ...] expert stacks included."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):  # a connector's layers
@@ -57,7 +58,9 @@ class _Init:
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
 
-def _decoder(c: DecoderConfig, r: _Init) -> dict:
+def _decoder(c: DecoderConfig, r: _Init, mlp: bool = True) -> dict:
+    """The decoder; without ``mlp`` no dense MLP weights (a Mixtral-family
+    tree takes its experts from ``model/moe.py``)."""
     L, D, I = c.num_layers, c.hidden_size, c.intermediate_size
     NH, NKV, HD = c.num_heads, c.num_kv_heads, c.head_dim
     embed = r.normal((c.vocab_size, D))
@@ -68,10 +71,10 @@ def _decoder(c: DecoderConfig, r: _Init) -> dict:
         "wk": r.normal((L, D, NKV, HD)),
         "wv": r.normal((L, D, NKV, HD)),
         "wo": r.normal((L, NH, HD, D)),
-        "w_gate": r.normal((L, D, I)),
-        "w_up": r.normal((L, D, I)),
-        "w_down": r.normal((L, I, D)),
     }
+    if mlp:
+        layers.update(w_gate=r.normal((L, D, I)), w_up=r.normal((L, D, I)),
+                      w_down=r.normal((L, I, D)))
     if c.attn_qkv_bias:  # qwen2: zeros, as the JAX package's, no draw
         layers["bq"] = r.zeros((L, NH, HD))
         layers["bk"] = r.zeros((L, NKV, HD))
@@ -162,7 +165,9 @@ def init_trace_params(config: TraceConfig, generator: torch.Generator,
     N(0, 1), convolutions N(0, 1 / fan_in)). The values
     differ from JAX's for the same seed; tests that compare the two sides
     make the weights with JAX and convert them with ``from_jax_params``.
-    ``device`` defaults to the generator's."""
+    ``device`` defaults to the generator's. A Mixtral-family decoder config
+    gets the dense decoder here too, as in the JAX package; its routed tree
+    comes from ``model.moe.init_moe_decoder_params``."""
     device = torch.device(device if device is not None else generator.device)
     r = _Init(generator, device, config.dtype)
     return {

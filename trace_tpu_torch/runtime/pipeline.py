@@ -32,7 +32,12 @@ import torch
 from trace_tpu_torch import conversation as conv
 from trace_tpu_torch.constants import MODAL_TOKEN_INDEX
 from trace_tpu_torch.model.config import TraceConfig
-from trace_tpu_torch.model.quantize import fuse_decoder_serving, int4p_serving, int8_serving
+from trace_tpu_torch.model.quantize import (
+    MIXTRAL_NOT_QUANTIZED,
+    fuse_decoder_serving,
+    int4p_serving,
+    int8_serving,
+)
 from trace_tpu_torch.model.towers import frame_time_tokens
 from trace_tpu_torch.model.trace_model import (
     combined_embedding,
@@ -737,12 +742,20 @@ def model_init(model_path: str, *, vision_path: Optional[str] = None,
     group-128 scales), fuse it into the serving layout, and set the int8 KV
     cache and ``act_quant``; the ViT stays in ``dtype`` (``int8_serving`` with
     ``vision=True`` is the bench's configuration, not this one). ``"int4"``
-    (native int4 storage) raises ``NotImplementedError``.
+    (native int4 storage) raises ``NotImplementedError``. A Mixtral
+    checkpoint serves in bf16 alone (the dense mixture): another ``quant``
+    raises ``ValueError`` from its ``config.json``, before any weight is read
+    (``model/quantize.py MIXTRAL_NOT_QUANTIZED``).
 
     ``tokenizer``: a tokenizer object to use in place of the checkpoint's own
     (which ``load_hf_tokenizer`` reads with ``transformers``). The tree is
     on the device when this returns."""
-    from trace_tpu_torch.checkpoint.convert import convert_trace_checkpoint
+    from trace_tpu_torch.checkpoint.convert import (
+        convert_trace_checkpoint,
+        read_hf_config,
+        trace_config_from_hf,
+    )
+    from trace_tpu_torch.model.config import MoEConfig
     from trace_tpu_torch.tokenizers.text import load_hf_tokenizer
 
     if quant not in ("bf16", "int8", "int4", "int4p"):
@@ -754,6 +767,9 @@ def model_init(model_path: str, *, vision_path: Optional[str] = None,
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("model_init: no CUDA device; pass device='cpu' to run on the CPU")
+    if quant != "bf16" and isinstance(trace_config_from_hf(read_hf_config(model_path)).decoder,
+                                      MoEConfig):
+        raise ValueError(MIXTRAL_NOT_QUANTIZED)
     if tokenizer is None:
         tokenizer = load_hf_tokenizer(model_path)
     params, config = convert_trace_checkpoint(model_path, dtype=dtype,
