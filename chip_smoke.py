@@ -40,8 +40,9 @@ Phases, in order; any failure exits non-zero:
      (group 0) int4p tree at a depth of 4 layers (W4A8 prefill, the
      per-channel kernel in the steps), and one request of it without
      activation quantization (the per-channel kernel in the prefill too).
-  5. the bench's default serving workload (bench.py's defaults) through the
-     port's entry points at full width: TRACE-7B in the int8 serving
+  5. the bench's serving workload (bench.py's int8 defaults, cut to 64 of its
+     192 videos and 16 of 32 layers) through the port's entry points at full
+     width: TRACE-7B in the int8 serving
      configuration with the W8A8 ViT and ``upload_format="yuv420"``, random
      weights from seed 0, ``SpmLikeTokenizer``; a pool of 4 synthetic
      640x360 128-frame videos prepared with ``prepare_sample_host_np`` before
@@ -67,8 +68,8 @@ Phases, in order; any failure exits non-zero:
   6. the training path at full width: ``train_loop`` on TRACE-7B bf16 (random
      weights from seed 0, 2 synthetic 128-frame videos with one event list
      each, batch 2, remat on) for stage ``pretrain`` and stage ``lora``
-     (rank 128 on the seven decoder projections), then stage ``sft`` at a
-     depth of 4 layers. Per stage a 1-step run (the schedule starts at 0: no
+     (rank 128 on the seven decoder projections) at a depth of 8 layers,
+     then stage ``sft`` at a depth of 4 layers. Per stage a 1-step run (the schedule starts at 0: no
      trainable leaf may move), a 2-step run (every trainable group must have
      moved) and the 4-step run that is timed: losses finite, frozen leaves
      bit-equal before and after, launch counts per step as the code implies,
@@ -87,7 +88,7 @@ Phases, in order; any failure exits non-zero:
      (``eval_phase``): ``eval.evaluate.main`` for tvg in bf16,
      ``runtime.inference.main``, ``run_vtg_eval`` for dvc in int8 scored
      as dvc, dvc-anet and vhd, and ``run_mvbench`` on JPEG frame dumps.
-  9. the other backbones at full width, each from a merged checkpoint
+  9. the other backbones at full width and a depth of 8 layers, each from a merged checkpoint
      written here and loaded through ``model_init`` (``families_phase``):
      qwen2-7B (G = 7, qkv biases) with spatial_slot, two requests in bf16
      and two in int8, and vicuna-7B with stc_connector_v35 (the
@@ -102,15 +103,34 @@ Phases, in order; any failure exits non-zero:
      sparse form with the int8 KV cache; ``model_init(quant="int8")``
      raising; two ``lora`` steps at batch 1 x 2048 through the routed
      layers.
+ 11. the parallel paths (``parallel_phase``): 2 ranks on the one card, a gloo
+     group over CUDA tensors (NCCL refuses two ranks on one device), a
+     (data 1, model 2) mesh and a 2-stage pipeline mesh. Tensor-parallel
+     serving of phase 4's TRACE-7B (32 layers, seed 0) in bf16 and in the
+     int8 serving configuration through ``shard_params_for_inference``,
+     ``encode_prefix_sharded`` (frame-parallel ViT) and ``generate_sharded``,
+     phase 4's two requests each: launch counts of rows 1, 2, 3 / 3b, 4 and 5
+     per rank and request, check (e) at the local shapes, the ranks' tokens
+     equal, the first-token logits no further from the fp32 model than
+     REF_RATIO_TOL x the one-rank kernel path's (phase 4's, or built here
+     one at a time when phase 4 did not run); an int4p tree refused. One
+     Mixtral-8x7B layer, 4 experts a rank, both forms, against the one-rank
+     layer. ``pp_decoder_forward`` at full width, 8 layers, 2 stages x 2
+     microbatches, B 2 x T 2048: output and gradients against
+     ``decoder_forward`` on one rank. PAR_TRAIN_STEPS ``lora`` steps of
+     ``train_loop(mesh=...)`` at 4 layers, each step's loss and grad norm
+     against one rank's. Per rank:
+     encode s, prefill s, decode ms/step and the gloo collectives' share of
+     the decode loop.
 The line before the last is {"kernels": [...]} (each entry also holds
-``launches_corpus``, its count in phase 5's pass A, and ``launches_moe``,
-its count on phase 10's path); the last line is
-{"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
-of the repository, it prints no result and exits 2. ``--kernels`` stops
-after phase 3 (a short check of freshly edited kernels; no last line);
-``--checkpoint`` runs phase 7 alone, ``--eval`` phases 7 and 8,
-``--families`` phase 9 alone and ``--moe`` phase 10 alone (each after the
-build; no last line).
+``launches_corpus``, its count in phase 5's pass A, ``launches_moe``, its
+count on phase 10's path, and ``launches_parallel``, rank 0's on phase 11's);
+the last line is {"ok": true, "device": {...}}. Without a CUDA device, or
+outside a checkout of the repository, it prints no result and exits 2.
+``--kernels`` stops after phase 3 (a short check of freshly edited kernels;
+no last line); ``--checkpoint`` runs phase 7 alone, ``--eval`` phases 7 and
+8, ``--families`` phase 9 alone, ``--moe`` phase 10 alone and
+``--parallel`` phase 11 alone (each after the build; no last line).
 """
 
 from __future__ import annotations
@@ -1053,17 +1073,27 @@ def serving_launches() -> dict:
             "quant_matmul_p4_grouped_mma": p4g.launches_by_form["mma"]}
 
 
+# what a phase leaves for phase 11: per serving mode of phase 4 the fp32
+# reference's first-token logits and the one-rank kernel path's distance from
+# them ("bf16", "int8"), and phase 10's padded prefill hidden at its first
+# routed layer ("moe_hidden", on the host)
+STASH = {}
+
+
 @contextlib.contextmanager
-def recorded_routes(into: list, drops: list):
+def recorded_routes(into: list, drops: list, first_input: dict = None):
     """Record, while the block runs, the top-k expert set (sorted indices
     [N, k], on the host) of every call of ``model.moe.route`` into ``into``,
     and the assignments each sparse dispatch drops into ``drops``, in
-    order."""
+    order; with ``first_input``, the first routed hidden [N, D] (on the
+    host) under its key "moe_hidden" unless it holds one."""
     from trace_tpu_torch.model import moe
 
     route, dispatch = moe.route, moe.dispatch
 
     def routed(x2d, router, top_k):
+        if first_input is not None and "moe_hidden" not in first_input:
+            first_input["moe_hidden"] = x2d.detach().cpu()
         vals, idx = route(x2d, router, top_k)
         into.append(idx.sort(dim=-1).values.cpu())
         return vals, idx
@@ -1146,7 +1176,8 @@ def reference_check(torch, pipe, params, cfg, tok, videos, stamps, asks, mode: s
         x = pe.float() if name == "fp32" else pe
         prefill = lambda: gen.prefill(p._decoder_params, p.config.decoder, x, pm,
                                        cache_len=bucket + 1, impl=impl)
-        with recorded_routes(routes.setdefault(name, []), drops.setdefault(name, [])):
+        with recorded_routes(routes.setdefault(name, []), drops.setdefault(name, []),
+                             first_input=STASH if name == "kernel" else None):
             if name == "kernel" and profile:
                 state, prefill_profile = device_profile(torch, f"{mode} prefill", prefill)
             else:
@@ -1158,6 +1189,11 @@ def reference_check(torch, pipe, params, cfg, tok, videos, stamps, asks, mode: s
     del ref
     if not torch.isfinite(logits["kernel"]).all():
         fail("non-finite logits")
+    # phase 11's references for the same model: the fp32 logits and the
+    # one-rank kernel path's distance from them
+    STASH[mode] = {"fp32_logits": logits["fp32"].cpu(), "kernel_logits": logits["kernel"].cpu(),
+                   "kernel_vs_fp32": rel_err(logits["kernel"], logits["fp32"]),
+                   "tokens": [list(map(int, row)) for row in tokens]}
     flips = {}
     if routes["fp32"]:
         real = pm.reshape(-1).cpu()
@@ -1206,6 +1242,37 @@ def reference_check(torch, pipe, params, cfg, tok, videos, stamps, asks, mode: s
             "prefill_profile": prefill_profile}
 
 
+def request_inputs():
+    """Phase 4's requests (phase 11's too): VIDEOS synthetic FRAMES-frame
+    336x336 videos from SEED, their timestamps and instructions."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    videos = [rng.integers(0, 256, (FRAMES, 336, 336, 3), dtype=np.uint8)
+              for _ in range(VIDEOS)]
+    stamps = [[[float(i)] for i in range(FRAMES)]] * VIDEOS
+    asks = ["Localize the visual events in the video and describe each one.",
+            "Find every moment where something changes, with timestamps."]
+    return videos, stamps, asks
+
+
+def serving_model(torch, mode: str, layers: int = 0):
+    """(params, config) of phase 4's TRACE-7B from SEED in the bf16 or the
+    int8 serving configuration (``layers`` > 0 cuts the decoder's depth)."""
+    from trace_tpu_torch.model.config import TraceConfig
+    from trace_tpu_torch.model.quantize import int8_serving
+    from trace_tpu_torch.params import init_trace_params
+
+    cfg = TraceConfig()
+    if layers:
+        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                                   num_layers=layers))
+    params = init_trace_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    if mode == "int8":
+        params, cfg = int8_serving(params, cfg)
+    return params, cfg
+
+
 def end_to_end(torch, mode: str):
     """Phase 4: the serving path at full width, two requests, in the bf16
     (``mode="bf16"``), the int8 (``"int8"``) or the int4p serving
@@ -1242,12 +1309,7 @@ def end_to_end(torch, mode: str):
           f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card", flush=True)
     tok = SpmLikeTokenizer()
     pipe = TracePipeline(params, cfg, tok)
-    rng = np.random.default_rng(SEED)
-    videos = [rng.integers(0, 256, (FRAMES, 336, 336, 3), dtype=np.uint8)
-              for _ in range(VIDEOS)]
-    stamps = [[[float(i)] for i in range(FRAMES)]] * VIDEOS
-    asks = ["Localize the visual events in the video and describe each one.",
-            "Find every moment where something changes, with timestamps."]
+    videos, stamps, asks = request_inputs()
     vit_layers = cfg.vision.num_layers + 1 + cfg.vision.select_layer
     chunks = VIDEOS * FRAMES // cfg.vit_chunk_size
     L = cfg.decoder.num_layers
@@ -1308,6 +1370,10 @@ def end_to_end(torch, mode: str):
 
 
 CORPUS_VIDEOS = 64      # two decode chunks of CORPUS_BATCH
+# the corpus model's decoder depth: its decode loop is host-paced at a cost
+# per layer, and 32 layers beside phase 11 put the whole smoke at 1087-1098 s
+# of the 1200 on the card. At 16 its videos/s are not the 32-layer model's
+CORPUS_LAYERS = 16
 CORPUS_POOL = 4         # distinct videos, prepared before the passes, cycled
 CORPUS_BATCH = 32       # the bench's decode batch
 CORPUS_BUDGET = 512     # the arena's new-token budget, shared by both passes
@@ -1472,9 +1538,10 @@ def on_path(torch, label: str, run):
 
 
 def corpus_phase(torch):
-    """Phase 5: the bench's default serving workload through the port's
-    entry points (``prepare_sample_host_np`` -> ``infer_events_corpus``) at
-    full width, with checks (a)-(e) of the module docstring."""
+    """Phase 5: the bench's serving workload, cut to CORPUS_VIDEOS videos and
+    CORPUS_LAYERS layers, through the port's entry points
+    (``prepare_sample_host_np`` -> ``infer_events_corpus``) at full width,
+    with checks (a)-(e) of the module docstring."""
     import numpy as np
 
     from trace_tpu_torch import EventPredictions
@@ -1494,6 +1561,8 @@ def corpus_phase(torch):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cfg = dataclasses.replace(TraceConfig(), upload_format="yuv420")
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                               num_layers=CORPUS_LAYERS))
     params, cfg = int8_serving(
         init_trace_params(cfg, torch.Generator(device="cuda").manual_seed(SEED)), cfg)
     pipe = TracePipeline(params, cfg, SpmLikeTokenizer())
@@ -1514,7 +1583,7 @@ def corpus_phase(torch):
     spec = pool[0].frames_spec
     if spec[0] != "yuv_band_p":
         fail(f"corpus: a 640x360 video took route {spec[0]!r}, not the band patches")
-    print(f"corpus: int8 TRACE-7B (yuv420) ready in {t1 - t0:.1f} s; {CORPUS_POOL} videos "
+    print(f"corpus: int8 TRACE-7B at {CORPUS_LAYERS} of 32 layers (yuv420) ready in {t1 - t0:.1f} s; {CORPUS_POOL} videos "
           f"{CORPUS_HW[1]}x{CORPUS_HW[0]} x {FRAMES} frames prepared on the host in "
           f"{prep_s:.2f} s ({spec[1].nbytes / 1e6:.2f} MB of I420 band each, "
           f"{len(pool[0].token_ids)} prompt tokens)", flush=True)
@@ -1722,6 +1791,9 @@ def corpus_phase(torch):
 
 
 TRAIN_STEPS = 4
+# depth of the pretrain and lora runs: every layer runs the same shapes, and
+# 32 layers put the whole smoke near 950 s of the 1200 with phase 11 to come
+TRAIN_LAYERS = 8
 SFT_LAYERS = 4   # depth of the sft run and of the gradient check
 LORA_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 EVENT_LISTS = (
@@ -2036,17 +2108,17 @@ def gradient_check(torch, params, cfg, data) -> dict:
 
 
 def training(torch, tmp: Path):
-    """Phase 6: stages pretrain and lora at full depth, sft at SFT_LAYERS
-    layers, then the gradient check on the sft model."""
+    """Phase 6: stages pretrain and lora at TRAIN_LAYERS layers, sft at
+    SFT_LAYERS layers, then the gradient check on the sft model."""
     from trace_tpu_torch.model.config import TraceConfig
     from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
 
     tok = SpmLikeTokenizer()
     data = SyntheticVideos(TraceConfig(), tok, VIDEOS)
     launches, stats = {}, []
-    full = TraceConfig().decoder.num_layers
     check = None
-    for stage, layers in (("pretrain", full), ("lora", full), ("sft", SFT_LAYERS)):
+    for stage, layers in (("pretrain", TRAIN_LAYERS), ("lora", TRAIN_LAYERS),
+                          ("sft", SFT_LAYERS)):
         params, cfg, got, st = train_stage(torch, stage, layers, data, tmp)
         for name, n in got.items():
             if n:
@@ -2873,6 +2945,10 @@ def eval_phase(torch, tmp: Path, native_decoder: str) -> tuple:
 # video tokens (the plain attention of the reference check holds [B, H, T, T]
 # scores).
 FAMILY_MODES = ("qwen2 bf16", "qwen2 int8", "vicuna bf16")
+# the backbones' decoder depth: every layer runs the same shapes at full
+# width, and full depth beside phase 5's 32 layers and phase 11 put the whole
+# smoke at 1098 s of the 1200
+FAMILY_LAYERS = 8
 VICUNA_FRAMES = 32
 VICUNA_SLOTS = 66
 FAMILY_ROWS = {"qwen2 bf16": {"decode_attention": "decode_attention_g7"},
@@ -2982,9 +3058,10 @@ def families_phase(torch, tmp: Path) -> tuple:
     vision_keys = [(k, tuple(v)) for k, v in manifest["keys"].items()
                    if k.startswith("model.vision_tower.")]
     tok = SpmLikeTokenizer()
+    cut = lambda d: dataclasses.replace(d, num_layers=FAMILY_LAYERS)
     families = {
-        "qwen2": ("qwen2", TraceConfig(decoder=DecoderConfig.qwen2_7b())),
-        "vicuna": ("llama", TraceConfig(decoder=DecoderConfig.vicuna_7b(),
+        "qwen2": ("qwen2", TraceConfig(decoder=cut(DecoderConfig.qwen2_7b()))),
+        "vicuna": ("llama", TraceConfig(decoder=cut(DecoderConfig.vicuna_7b()),
                                         mm_projector_type="stc_connector_v35",
                                         num_slots=VICUNA_SLOTS, num_frames=VICUNA_FRAMES)),
     }
@@ -3332,6 +3409,555 @@ def moe_phase(torch, tmp: Path) -> tuple:
     return launches, stats
 
 
+PAR_RANKS = 2            # ranks of phase 11, all on the one card
+PP_LAYERS = 8            # depth of the pipeline check
+PP_MICRO = 2             # its microbatches
+PP_TOKENS = 2048         # its rows' length
+PAR_TRAIN_LAYERS = 4     # depth of the tensor-parallel lora steps
+# their number: the schedule's first step has learning rate 0, so the later
+# ones check the sharded update and run on adapters it moved
+PAR_TRAIN_STEPS = 3
+PAR_TIMEOUT_S = 900      # the ranks' deadline
+# relative limits (||diff|| / ||ref||) of phase 11's comparisons with the
+# one-rank path on the same bf16 inputs. The expert-parallel sum adds the
+# ranks' fp32 partial sums in another order before the bf16 cast (~1e-3 of a
+# bf16 step); the pipeline runs the same kernels on microbatches of one row
+# (the products' tiles, and so their fp32 sums, may differ): a few bf16
+# steps through 8 layers; a dropped expert, microbatch or stage moves them
+# by far more than these.
+EP_REL_TOL = 1e-2
+PP_REL_TOL = 3e-2
+# the tensor-parallel lora steps' losses and grad norms against the one-rank
+# run's (|diff| / |one rank's|): partial products summed in fp32 where one
+# rank rounds each product to bf16. A card run at 4 layers, model 2, read
+# 2.1e-4 for the losses and 6.9e-4 for the grad norms; the limits are about
+# 5x and 4x those
+PAR_LOSS_RTOL = 1e-3
+PAR_NORM_RTOL = 3e-3
+
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launches so far, under the rows' names."""
+    return {**serving_launches(),
+            **{name: fn.launches for name, fn in train_counts().items()
+               if name not in ("flash_attention", "vit_attention_btd")}}
+
+
+def count_delta(before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in kernel_counts().items()
+            if v - before.get(k, 0)}
+
+
+def first_logits(torch, pipe, prefix, mask, impl: str):
+    """The first-token logits of ``pipe``'s decoder from a prefill of the
+    prefix left-padded to a multiple of 128, as the pipeline pads it."""
+    from trace_tpu_torch.model.mistral import compute_logits
+    from trace_tpu_torch.runtime import generate as gen
+
+    P = prefix.shape[1]
+    bucket = -(-P // 128) * 128
+    pe = torch.nn.functional.pad(prefix, (0, 0, bucket - P, 0))
+    pm = torch.nn.functional.pad(mask, (bucket - P, 0))
+    state = gen.prefill(pipe._decoder_params, pipe.config.decoder, pe, pm,
+                        cache_len=bucket + 1, impl=impl)
+    return compute_logits(pipe._decoder_params, state[2], impl=impl)
+
+
+def first_token_refs(torch, mode: str) -> dict:
+    """What reference_check leaves in STASH for ``mode`` when phase 4 did
+    not run (``--parallel`` alone): the one-rank kernel path's and the fp32
+    model's first-token logits on phase 4's requests, built one at a time."""
+    from trace_tpu_torch.runtime.pipeline import TracePipeline
+    from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
+
+    tok = SpmLikeTokenizer()
+    params, cfg = serving_model(torch, mode)
+    pipe = TracePipeline(params, cfg, tok)
+    del params
+    videos, stamps, asks = request_inputs()
+    prefix, mask = pipe.encode_prefix(videos, stamps, asks)
+    kernel = first_logits(torch, pipe, prefix, mask, "auto")
+    del prefix
+    fcfg = dataclasses.replace(
+        cfg, dtype=torch.float32,
+        decoder=dataclasses.replace(cfg.decoder, kv_cache_dtype="bf16", act_quant=False),
+        vision=dataclasses.replace(cfg.vision, act_quant=False))
+    ref_params = dequantized_fp32(pipe.params)
+    ref_params["decoder"]["embed"] = pipe._combined[:cfg.decoder.vocab_size].float()
+    del pipe
+    torch.cuda.empty_cache()
+    ref = TracePipeline(ref_params, fcfg, tok, attn_impl="plain")
+    del ref_params
+    prefix, mask = ref.encode_prefix(videos, stamps, asks)
+    fp32 = first_logits(torch, ref, prefix, mask, "plain")
+    del ref, prefix
+    torch.cuda.empty_cache()
+    return {"fp32_logits": fp32.cpu(), "kernel_logits": kernel.cpu(),
+            "kernel_vs_fp32": rel_err(kernel, fp32), "tokens": None}
+
+
+def _tp_serving(torch, mesh, mode: str, rank: int) -> dict:
+    """Two requests of phase 4's videos through shard_params_for_inference,
+    encode_prefix_sharded and generate_sharded on this rank: check (e) on
+    the first, the collectives' share of its decode loop, launch counts per
+    request, the second's first-token logits."""
+    import numpy as np
+
+    from trace_tpu_torch.parallel import collectives
+    from trace_tpu_torch.runtime import generate as gen
+    from trace_tpu_torch.runtime.mesh import shard_params_for_inference
+    from trace_tpu_torch.runtime.pipeline import TracePipeline, encode_prefix_sharded
+    from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
+
+    t0 = time.perf_counter()
+    params, cfg = serving_model(torch, mode)
+    tok = SpmLikeTokenizer()
+    pipe = TracePipeline(params, cfg, tok)
+    del params
+    pipe._prepare_memory_layout()  # the combined table, the fused ViT, the serving layout
+    dec = shard_params_for_inference(pipe._decoder_params, mesh)
+    pipe._decoder_params = pipe.params = None
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    videos, stamps, asks = request_inputs()
+    L, vit_layers = cfg.decoder.num_layers, cfg.vision.num_layers + 1 + cfg.vision.select_layer
+    requests, logits, check_e, share = [], None, None, None
+
+    def request():
+        t0 = time.perf_counter()
+        per_sample = [pipe._prepare_sample_host(f, ts, q) for f, ts, q in zip(videos, stamps, asks)]
+        token_ids, video_pos, mask = pipe._prompt_layout(per_sample)
+        frames = torch.stack([pipe._resolve_frames(s[2]) for s in per_sample])
+        fids = np.stack([s[3] for s in per_sample])
+        prefix = encode_prefix_sharded(
+            pipe._encode_params, cfg, pipe._upload(token_ids), torch.from_numpy(video_pos),
+            frames, pipe._upload(fids), pipe._combined, mesh)
+        del frames
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        out = gen.generate_sharded(dec, cfg.decoder, prefix, pipe._upload(mask), pipe._combined,
+                                   mesh=mesh, max_new_tokens=MAX_NEW, initial_head=1,
+                                   eos_id=tok.eos_token_id)
+        return out, encode_s
+
+    compute_logits, decode = gen.compute_logits, gen.decode
+    for r in (1, 2):
+        seen = []
+
+        def first(*a, **k):  # the first-token logits of the request
+            out = compute_logits(*a, **k)
+            if not seen:
+                seen.append(out.detach().cpu())
+            return out
+
+        def timed_decode(*a, **k):  # the collectives' time in the decode loop
+            collectives.TIMING.update(on=r == 1, seconds=0.0, calls=0)
+            try:
+                return decode(*a, **k)
+            finally:
+                collectives.TIMING["on"] = False
+
+        gen.compute_logits, gen.decode = first, timed_decode
+        before = kernel_counts()
+        try:
+            if r == 1:
+                (out, encode_s), check_e = on_path(
+                    torch, f"parallel {mode}, rank {rank}", request)
+            else:
+                out, encode_s = request()
+        finally:
+            gen.compute_logits, gen.decode = compute_logits, decode
+        got = count_delta(before)
+        steps = out.decode_steps
+        want = {"vit_attention_btd": vit_layers, "flash_attention": L}
+        if mode == "int8":
+            want.update({"decode_attention_int8_s8dot": L * steps,
+                         "quant_matmul_stacked": 7 * L * steps, "quant_matmul": steps + 1})
+        else:
+            want["decode_attention"] = L * steps
+        t = out.phase_times
+        rec = {"encode_s": encode_s, "prefill_s": t["prefill_s"], "decode_s": t["decode_s"],
+               "decode_steps": steps, "launches": got, "tokens": out.tokens.tolist()}
+        if r == 1:
+            share = {"collective_s": collectives.TIMING["seconds"],
+                     "collective_calls": collectives.TIMING["calls"],
+                     "share_of_decode": collectives.TIMING["seconds"] / max(t["decode_s"], 1e-9)}
+            print(f"parallel rank {rank}, {mode}: gloo collectives take "
+                  f"{100 * share['share_of_decode']:.1f} % of request 1's decode loop "
+                  f"({share['collective_calls']} calls, {share['collective_s']:.3f} s of "
+                  f"{t['decode_s']:.3f} s)", flush=True)
+        print(f"parallel rank {rank}, {mode} request {r}: launches {got} expected {want}; "
+              f"encode {encode_s:.3f} s, prefill {t['prefill_s']:.3f} s, decode "
+              f"{1e3 * t['decode_s'] / max(steps, 1):.2f} ms/step over {steps} steps", flush=True)
+        if got != want or steps <= 0:
+            fail(f"parallel {mode}, rank {rank}: launch counts {got} != expected {want}")
+        check_head_slices(cfg.decoder, out.tokens)
+        requests.append(rec)
+        logits = seen[0]
+    del dec, pipe
+    torch.cuda.empty_cache()
+    return {"init_s": init_s, "requests": requests, "first_logits": logits,
+            "collectives": share, "check_e": check_e}
+
+
+def _ep_check(torch, mesh, rank: int, hidden) -> dict:
+    """One Mixtral-8x7B layer at its published widths, E / ranks experts a
+    rank, on ``hidden``, in both forms: the output, and on rank 0 the
+    one-rank moe_mlp's."""
+    from trace_tpu_torch.model.config import MoEConfig
+    from trace_tpu_torch.model.moe import init_moe_mlp_params, moe_mlp
+
+    cfg = dataclasses.replace(MoEConfig.mixtral_8x7b(), num_layers=1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    lp = {k: v[0] for k, v in init_moe_mlp_params(cfg, gen, dtype=torch.bfloat16,
+                                                  device="cuda").items()}
+    n = cfg.num_experts // mesh.shape["model"]
+    r = mesh.coord("model")
+    local = {k: (v if k == "router" else v[r * n:(r + 1) * n]) for k, v in lp.items()}
+    x = hidden.to("cuda")
+    out = {}
+    for form in ("dense", "sparse"):
+        fcfg = dataclasses.replace(cfg, moe_impl=form)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ep = moe_mlp(x, local, fcfg, group=mesh.group("model"))
+        torch.cuda.synchronize()
+        res = {"ep_s": time.perf_counter() - t0, "finite": bool(torch.isfinite(ep).all())}
+        if rank == 0:
+            one = moe_mlp(x, lp, fcfg)
+            res.update(rel_err=rel_err(ep, one), max_abs_err=(ep.float() - one.float()).abs()
+                       .max().item())
+            print(f"parallel expert-parallel {form} (one Mixtral-8x7B layer, {n} experts a "
+                  f"rank): {res['ep_s']:.3f} s, against the one-rank moe_mlp ||diff|| / "
+                  f"||ref|| {res['rel_err']:.3g} (<= {EP_REL_TOL}), max abs "
+                  f"{res['max_abs_err']:.3g}", flush=True)
+        out[form] = res
+    del lp, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_check(torch, pp_mesh, rank: int) -> dict:
+    """pp_decoder_forward at full width, PP_LAYERS layers over the stages,
+    PP_MICRO microbatches, B = 2 x PP_TOKENS, bf16, remat: the output and
+    the gradients of a loss, then the same through decoder_forward on this
+    rank alone, against which the rank holds its output, the embeddings'
+    gradient and its own stage's layer gradients."""
+    from trace_tpu_torch.model.config import DecoderConfig
+    from trace_tpu_torch.model.mistral import decoder_forward
+    from trace_tpu_torch.parallel.pipeline import pp_decoder_forward
+    from trace_tpu_torch.params import _decoder, _Init
+    from trace_tpu_torch.train.train import tree_paths
+
+    cfg = dataclasses.replace(DecoderConfig(), num_layers=PP_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dec = _decoder(cfg, _Init(gen, torch.device("cuda"), torch.bfloat16))
+    leaves = [x for _, x in tree_paths(dec["layers"])]
+    for x in leaves:
+        x.requires_grad_(True)
+    B, T = 2, PP_TOKENS
+    emb = torch.randn((B, T, cfg.hidden_size), generator=gen, device="cuda").to(torch.bfloat16)
+    mask = torch.ones((B, T), dtype=torch.bool, device="cuda")
+    mask[1, T - 300:] = False  # a right-padded row, as training pads
+    pos = (mask.long().cumsum(dim=1) - 1).clamp_min(0)
+    w = torch.randn((B, T, cfg.hidden_size), generator=gen, device="cuda") / (B * T) ** 0.5
+    per = PP_LAYERS // pp_mesh.shape["stage"]
+    mine = slice(pp_mesh.coord("stage") * per, (pp_mesh.coord("stage") + 1) * per)
+
+    def run(fn):
+        e = emb.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(e)
+        (out.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stripes = [x.grad[mine].clone() for x in leaves]  # this stage's layers
+        for x in leaves:
+            x.grad = None
+        return out.detach(), e.grad, stripes, wall
+
+    from trace_tpu_torch.parallel import collectives
+
+    # the one-rank run first: it also takes the training path's first calls
+    ref_out, ref_emb, ref_layers, one_s = run(
+        lambda e: decoder_forward(dec, cfg, e, mask, pos, remat=True, trainable=True)[0])
+    pp = lambda e: pp_decoder_forward(dec, cfg, e, mask, pos, mesh=pp_mesh,
+                                      num_microbatches=PP_MICRO, remat=True)
+    with torch.no_grad():  # the forward alone
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pp(emb)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    before = kernel_counts()
+    collectives.TIMING.update(on=True, seconds=0.0, calls=0)
+    try:
+        out, d_emb, d_layers, pp_s = run(pp)
+    finally:
+        collectives.TIMING["on"] = False
+    got = count_delta(before)
+    # per stage layer and microbatch: the forward's kernel, then in the
+    # backward the recomputation with the logsumexp twice (the stage's, then
+    # the layer checkpoint's) and the two backward kernels
+    want = {"flash_attention": per * PP_MICRO, "flash_attention_fwd_res": 2 * per * PP_MICRO,
+            "flash_attention_bwd_dq": per * PP_MICRO, "flash_attention_bwd_dkv": per * PP_MICRO}
+    print(f"parallel rank {rank}, pipeline ({pp_mesh.shape['stage']} stages x {PP_MICRO} "
+          f"microbatches, {PP_LAYERS} layers, B {B} x T {T}): forward alone {fwd_s:.3f} s, "
+          f"forward + backward {pp_s:.3f} s, of which {collectives.TIMING['seconds']:.3f} s in "
+          f"{collectives.TIMING['calls']} collectives; launches {got} expected {want}",
+          flush=True)
+    if got != want:
+        fail(f"parallel pipeline, rank {rank}: launch counts {got} != expected {want}")
+    num = den = 0.0
+    for a, b in zip(d_layers, ref_layers):
+        num += (a.float() - b.float()).square().sum().item()
+        den += b.float().square().sum().item()
+    res = {"pp_s": pp_s, "forward_s": fwd_s, "one_rank_s": one_s, "launches": got,
+           "collective_s": collectives.TIMING["seconds"],
+           "finite": bool(torch.isfinite(out).all() and torch.isfinite(d_emb).all()
+                          and all(torch.isfinite(a).all() for a in d_layers)),
+           "rel_err_out": rel_err(out, ref_out), "rel_err_d_embeds": rel_err(d_emb, ref_emb),
+           "rel_err_d_layers": (num / den) ** 0.5}
+    print(f"parallel rank {rank}, pipeline against decoder_forward on one rank "
+          f"(||diff|| / ||ref||): output {res['rel_err_out']:.3g}, embedding gradients "
+          f"{res['rel_err_d_embeds']:.3g}, stage {pp_mesh.coord('stage')}'s layer gradients "
+          f"{res['rel_err_d_layers']:.3g} (<= {PP_REL_TOL}); {pp_s:.3f} s against {one_s:.3f} s "
+          "on one rank (which took the process's first calls of the training path)", flush=True)
+    del dec, leaves, d_layers, ref_layers
+    torch.cuda.empty_cache()
+    return res
+
+
+def _lora_steps(torch, mesh, log: Path) -> tuple:
+    """PAR_TRAIN_STEPS lora steps of train_loop at PAR_TRAIN_LAYERS layers on
+    phase 6's data, over ``mesh`` (None: one rank): (wall s, the metrics
+    records of the primary rank)."""
+    from trace_tpu_torch.model.config import TraceConfig
+    from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
+    from trace_tpu_torch.train.train import TrainRecipe, train_loop
+
+    data = SyntheticVideos(TraceConfig(), SpmLikeTokenizer(), PAR_TRAIN_STEPS * VIDEOS)
+    recipe = TrainRecipe(stage="lora", learning_rate=1e-4, total_steps=PAR_TRAIN_STEPS)
+    params, cfg = train_params(torch, "lora", PAR_TRAIN_LAYERS)
+    log.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    train_loop(params, cfg, data, recipe, batch_size=VIDEOS, mesh=mesh, log_every=1,
+               metrics_path=str(log))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    return wall, ([json.loads(x) for x in log.read_text().splitlines()] if log.exists() else [])
+
+
+def _tp_train(torch, mesh, rank: int, tmp: Path) -> dict:
+    """PAR_TRAIN_STEPS lora steps of train_loop(mesh=...) (the one-rank run
+    that they are held to runs in the parent, alone on the card)."""
+    before = kernel_counts()
+    # a log a rank: only the primary writes, and each run first clears its log
+    wall, recs = _lora_steps(torch, mesh, tmp / f"par_train_mesh_{rank}.jsonl")
+    res = {"wall_s": wall, "launches": count_delta(before)}
+    if rank == 0:
+        res["losses"] = [r["loss"] for r in recs]
+        res["grad_norms"] = [r["grad_norm"] for r in recs]
+    return res
+
+
+def _par_rank(rank: int, world: int, port: int, tmp: str) -> None:
+    """One rank of phase 11 (spawned; it writes its results to ``tmp``)."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 11: a rank found no CUDA device")
+    torch.cuda.set_device(0)
+    from trace_tpu_torch.parallel.pipeline import build_pp_mesh
+    from trace_tpu_torch.runtime.distributed import initialize
+    from trace_tpu_torch.runtime.mesh import build_mesh
+
+    # gloo over CUDA tensors: the ranks share the one card, and NCCL refuses
+    # two ranks on one device
+    initialize(f"localhost:{port}", world, rank, backend="gloo")
+    mesh = build_mesh(world, model_axis=world)   # data 1 x model 2, on the card
+    pp_mesh = build_pp_mesh(world)               # 2 stages
+    out = {"rank": rank, "mesh": mesh.shape, "serving": {}}
+    t0 = time.perf_counter()
+    for mode in ("bf16", "int8"):
+        out["serving"][mode] = _tp_serving(torch, mesh, mode, rank)
+    out["serving_s"] = time.perf_counter() - t0
+    from trace_tpu_torch.model.config import DecoderConfig
+    from trace_tpu_torch.model.quantize import quantize_decoder_params
+    from trace_tpu_torch.params import _decoder, _Init
+    from trace_tpu_torch.runtime.generate import generate_sharded
+    from trace_tpu_torch.runtime.mesh import shard_params_for_inference
+
+    small = DecoderConfig.tiny()
+    packed = quantize_decoder_params(_decoder(small, _Init(
+        torch.Generator(device="cuda").manual_seed(SEED), torch.device("cuda"),
+        torch.bfloat16)), bits=4, pack=True)
+    x = torch.zeros((2, 8, small.hidden_size), dtype=torch.bfloat16, device="cuda")
+    try:
+        generate_sharded(shard_params_for_inference(packed, mesh), small, x,
+                         torch.ones((2, 8), dtype=torch.bool, device="cuda"),
+                         torch.zeros((small.combined_vocab_size, small.hidden_size),
+                                     dtype=torch.bfloat16, device="cuda"), mesh=mesh)
+        out["int4p_refused"] = None
+    except ValueError as e:
+        out["int4p_refused"] = str(e)
+    t0 = time.perf_counter()
+    out["moe"] = _ep_check(torch, mesh, rank, torch.load(Path(tmp) / "moe_hidden.pt"))
+    out["moe_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["pp"] = _pp_check(torch, pp_mesh, rank)
+    out["pp_phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train"] = _tp_train(torch, mesh, rank, Path(tmp))
+    out["train_phase_s"] = time.perf_counter() - t0
+    torch.save(out, Path(tmp) / f"par_rank{rank}.pt")
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def parallel_phase(torch, tmp: Path) -> tuple:
+    """Phase 11: PAR_RANKS ranks on the one card, a gloo group over CUDA
+    tensors (see ``_par_rank``), each of the port's parallel paths driven and
+    held to its one-rank path; returns (rank 0's launches on the parallel
+    paths: the second request of each serving mode, the pipeline run and
+    the lora steps, the stats)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    refs = {}
+    for mode in ("bf16", "int8"):
+        refs[mode] = STASH.get(mode) or first_token_refs(torch, mode)
+    hidden = STASH.get("moe_hidden")
+    source = "phase 10's padded prefill"
+    if hidden is None:  # --parallel alone: a seeded hidden of that shape
+        g = torch.Generator().manual_seed(SEED)
+        hidden = torch.randn((VIDEOS * 2048, 4096), generator=g).to(torch.bfloat16)
+        source = "a seeded normal hidden of phase 10's padded prefill shape"
+    torch.save(hidden.reshape(VIDEOS, -1, hidden.shape[-1]), tmp / "moe_hidden.pt")
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_par_rank, args=(PAR_RANKS, port, str(tmp)), nprocs=PAR_RANKS,
+                             join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > PAR_TIMEOUT_S:
+                fail(f"phase 11: the ranks did not finish in {PAR_TIMEOUT_S} s")
+    except Exception as e:  # noqa: BLE001 - a rank raised or died
+        fail(f"phase 11: a rank failed: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"par_rank{r}.pt", weights_only=False) for r in range(PAR_RANKS)]
+    r0 = ranks[0]
+    stats = {"ranks_s": ranks_s, "moe_hidden": source, "per_rank": []}
+    print(f"phase 11: the expert-parallel layer's input is {source}", flush=True)
+    for r in ranks:
+        for mode, sv in r["serving"].items():
+            req = sv["requests"][1]
+            c = sv["collectives"]
+            print(f"parallel rank {r['rank']} {mode}: init + shard {sv['init_s']:.1f} s; second "
+                  f"request: encode {req['encode_s']:.3f} s, prefill {req['prefill_s']:.3f} s, "
+                  f"decode {1e3 * req['decode_s'] / max(req['decode_steps'], 1):.2f} ms/step; "
+                  f"gloo collectives {100 * c['share_of_decode']:.1f} % of the first request's "
+                  f"decode loop ({c['collective_calls']} calls, {c['collective_s']:.3f} s)",
+                  flush=True)
+        stats["per_rank"].append({
+            "rank": r["rank"], "serving_s": r["serving_s"], "moe_s": r["moe_s"],
+            "pp_phase_s": r["pp_phase_s"], "train_phase_s": r["train_phase_s"],
+            "serving": {m: {k: v for k, v in sv.items() if k != "first_logits"}
+                        for m, sv in r["serving"].items()}})
+    # the ranks agree, and the first-token logits are no further from the
+    # fp32 model than the one-rank kernel path's
+    for mode in ("bf16", "int8"):
+        toks = [r["serving"][mode]["requests"][1]["tokens"] for r in ranks]
+        if any(t != toks[0] for t in toks):
+            fail(f"parallel {mode}: the ranks returned different tokens")
+        tp = r0["serving"][mode]["first_logits"]
+        if not torch.isfinite(tp).all():
+            fail(f"parallel {mode}: non-finite first-token logits")
+        e = rel_err(tp, refs[mode]["fp32_logits"])
+        one = refs[mode]["kernel_vs_fp32"]
+        near = rel_err(tp, refs[mode]["kernel_logits"])
+        agree = None
+        if refs[mode]["tokens"] is not None:  # phase 4's greedy tokens of the same requests
+            agree = []
+            for a, b in zip(toks[0], refs[mode]["tokens"]):
+                n = 0
+                while n < min(len(a), len(b)) and a[n] == b[n]:
+                    n += 1
+                agree.append(n)
+        stats[f"{mode}_logits_vs_fp32"] = {"tensor_parallel": e, "one_rank_kernel": one,
+                                           "tensor_parallel_vs_one_rank": near,
+                                           "tokens_agree_with_one_rank": agree}
+        print(f"parallel {mode}: first-token logits from the fp32 model (||diff|| / ||ref||): "
+              f"tensor-parallel {e:.5f}, one-rank kernel path {one:.5f} (tol: tensor-parallel "
+              f"<= {REF_RATIO_TOL} x one-rank); tensor-parallel from one-rank {near:.3g}; "
+              f"greedy tokens equal phase 4's for the first {agree} of {MAX_NEW} per row",
+              flush=True)
+        if not e <= REF_RATIO_TOL * one:
+            fail(f"parallel {mode}: the tensor-parallel logits are further from the fp32 model "
+                 "than the one-rank kernel path's")
+    if not all(r["int4p_refused"] and "single-chip only" in r["int4p_refused"] for r in ranks):
+        fail("parallel: an int4p tree was not refused")
+    for form, m in r0["moe"].items():
+        if not (all(r["moe"][form]["finite"] for r in ranks) and m["rel_err"] <= EP_REL_TOL):
+            fail(f"parallel expert-parallel {form}: disagrees with the one-rank layer")
+    for r in ranks:
+        pp = r["pp"]
+        if not (pp["finite"] and max(pp["rel_err_out"], pp["rel_err_d_embeds"],
+                                     pp["rel_err_d_layers"]) <= PP_REL_TOL):
+            fail(f"parallel pipeline, rank {r['rank']}: disagrees with decoder_forward")
+    pp = r0["pp"]
+    tr = r0["train"]
+    tr["one_rank_wall_s"], one = _lora_steps(torch, None, tmp / "par_train_one.jsonl")
+    tr["one_rank_losses"] = [x["loss"] for x in one]
+    tr["one_rank_grad_norms"] = [x["grad_norm"] for x in one]
+    gap = lambda a, b: max((abs(x - y) / abs(y) for x, y in zip(a, b)), default=math.inf)
+    tr["loss_rel_gap"] = gap(tr["losses"], tr["one_rank_losses"])
+    tr["grad_norm_rel_gap"] = gap(tr["grad_norms"], tr["one_rank_grad_norms"])
+    print(f"parallel lora steps at {PAR_TRAIN_LAYERS} layers, model {PAR_RANKS}: losses "
+          f"{tr['losses']} against one rank's {tr['one_rank_losses']}, largest |diff| / |one "
+          f"rank's| {tr['loss_rel_gap']:.3g} (<= {PAR_LOSS_RTOL}); grad norms "
+          f"{tr['grad_norms']} against {tr['one_rank_grad_norms']}, "
+          f"{tr['grad_norm_rel_gap']:.3g} (<= {PAR_NORM_RTOL}); {tr['wall_s']:.2f} s against "
+          f"{tr['one_rank_wall_s']:.2f} s", flush=True)
+    counts = {len(tr[k]) for k in ("losses", "one_rank_losses", "grad_norms",
+                                   "one_rank_grad_norms")}
+    if counts != {PAR_TRAIN_STEPS} or not all(
+            math.isfinite(x) for x in tr["losses"] + tr["grad_norms"]):
+        fail(f"parallel lora steps: not {PAR_TRAIN_STEPS} finite losses and grad norms a run")
+    if tr["losses"][-1] == tr["losses"][0] and tr["grad_norms"][-1] == tr["grad_norms"][0]:
+        fail("parallel lora steps: the update moved nothing")
+    if not (tr["loss_rel_gap"] <= PAR_LOSS_RTOL and tr["grad_norm_rel_gap"] <= PAR_NORM_RTOL):
+        fail("parallel lora steps: a loss or a grad norm is not within its limit of one rank's")
+    launches = {}
+    for part in ([r0["serving"][m]["requests"][1]["launches"] for m in ("bf16", "int8")]
+                 + [pp["launches"], tr["launches"]]):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    stats.update(moe=r0["moe"], pp=pp, train=tr, launches=launches,
+                 seconds=time.perf_counter() - t_phase)
+    print(f"phase 11: {stats['seconds']:.1f} s ({ranks_s:.1f} s the ranks); launches on rank 0 "
+          f"{launches}", flush=True)
+    return launches, stats
+
+
 def main() -> int:
     try:
         import torch
@@ -3367,6 +3993,11 @@ def main() -> int:
     if sys.argv[1:] == ["--moe"]:
         with tempfile.TemporaryDirectory() as tmp:
             print(json.dumps(moe_phase(torch, Path(tmp))[1]), flush=True)
+        return 0
+    if sys.argv[1:] == ["--parallel"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps(parallel_phase(torch, Path(tmp))[1]), flush=True)
+        print(card, flush=True)
         return 0
     if sys.argv[1:] in (["--checkpoint"], ["--eval"]):
         with tempfile.TemporaryDirectory() as tmp:
@@ -3407,6 +4038,8 @@ def main() -> int:
     launches.update(family_launches)  # the G = 7 rows: launched on this path alone
     with tempfile.TemporaryDirectory() as tmp:  # the Mixtral checkpoint and an .npy
         moe_launches, moe_stats = moe_phase(torch, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:  # the ranks' inputs, logs and results
+        par_launches, par_stats = parallel_phase(torch, Path(tmp))
     second = stats[1::2]  # the second request of each path
     per_step = lambda s: 1e3 * s["decode_s"] / max(s["decode_steps"], 1)
     col = lambda f: " | ".join(f(s) for s in second)
@@ -3469,7 +4102,10 @@ def main() -> int:
          "launches_corpus": corpus_launches.get(name, 0),
          # the Mixtral path's own (phase 10: the second request of each
          # serving form, the two lora steps)
-         "launches_moe": moe_launches.get(name, 0)}
+         "launches_moe": moe_launches.get(name, 0),
+         # the parallel paths' on rank 0 (phase 11: the second request of
+         # each tensor-parallel serving mode, the pipeline run, the lora steps)
+         "launches_parallel": par_launches.get(name, 0)}
         for name, r in rows.items()
     ]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
@@ -3478,6 +4114,7 @@ def main() -> int:
     print(json.dumps({"requests": stats, "e2e": e2e, "corpus": corpus, "training": train_stats,
                       "gradient_check": grad_check, "checkpoint": ckpt_stats,
                       "eval": eval_stats, "families": family_stats, "moe": moe_stats,
+                      "parallel": par_stats,
                       "card": card,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(card, flush=True)

@@ -1577,3 +1577,60 @@ def test_host_quantization_equals_the_card(cuda, bits, pack, group):
     for part in ("q", "s"):
         view = torch.int16 if part == "s" else torch.int8
         assert torch.equal(a["lm_head"][part].view(view), b["lm_head"][part].cpu().view(view))
+
+
+def _collectives_rank(rank: int, port: int) -> None:
+    """One of two ranks of a gloo group on one card (NCCL refuses two ranks
+    on one device): every operator of parallel/collectives.py on CUDA
+    tensors, forward and backward."""
+    import torch.distributed as dist
+
+    from trace_tpu_torch.parallel.collectives import (
+        copy_to_group,
+        gather,
+        hop,
+        reduce_from_group,
+    )
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    group = dist.new_group([0, 1])
+    dev = torch.device("cuda", 0)
+    base = torch.arange(6, dtype=torch.float32, device=dev).reshape(2, 3)
+    k = float(rank + 1)
+
+    x = base.clone().requires_grad_(True)
+    (copy_to_group(x, group) * k).sum().backward()  # partial gradients add up
+    assert torch.equal(x.grad, torch.full_like(base, 3.0))
+
+    x = base.clone().requires_grad_(True)
+    y = reduce_from_group(x * k, group)
+    assert torch.equal(y, base * 3.0)
+    y.sum().backward()  # the gradient passes as it is
+    assert torch.equal(x.grad, torch.full_like(base, k))
+
+    x = (base + 10 * rank).requires_grad_(True)
+    y = gather(x, -1, group)
+    assert torch.equal(y, torch.cat([base, base + 10], dim=-1))
+    w = torch.arange(12, dtype=torch.float32, device=dev).reshape(2, 6)
+    (y * w).sum().backward()  # this rank's slice of the whole gradient
+    assert torch.equal(x.grad, w[:, 3 * rank:3 * rank + 3])
+
+    got = hop(base * 7 if rank == 0 else None, 0, 1, group, shape=base.shape,
+              dtype=base.dtype, device=dev)
+    assert torch.equal(got, base * 7)
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_collectives_on_cuda_tensors_in_a_gloo_group(cuda):
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.spawn(_collectives_rank, args=(port,), nprocs=2, join=True)

@@ -489,12 +489,23 @@ def test_checkpoint_manager_keeps_the_newest(tmp_path):
 
 
 def test_train_loop_refuses_what_is_not_ported(jax_params):
+    """A mesh that is not a ``runtime.mesh.Mesh``, a pipeline mesh without a
+    'stage' axis, a mesh and a pipeline mesh together, and the card where
+    there is none."""
+    from trace_tpu_torch.runtime.mesh import Mesh
+
     recipe = ttrain.TrainRecipe(stage="pretrain", total_steps=4)
     tp = _torch_params(jax_params["pretrain"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="runtime.mesh.Mesh"):
         ttrain.train_loop(tp, CFG, _Samples(2), recipe, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="runtime.mesh.Mesh"):
         ttrain.train_loop(tp, CFG, _Samples(2), recipe, device="cpu", pp_mesh=object())
+    one = Mesh(("data", "model"), (1, 1))
+    with pytest.raises(ValueError, match="'stage' axis"):
+        ttrain.train_loop(tp, CFG, _Samples(2), recipe, device="cpu", pp_mesh=one)
+    with pytest.raises(ValueError, match="together"):
+        ttrain.train_loop(tp, CFG, _Samples(2), recipe, device="cpu", mesh=one,
+                          pp_mesh=Mesh(("stage",), (1,)))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrain.train_loop(tp, CFG, _Samples(2), recipe)
@@ -523,11 +534,13 @@ def test_cli_trains_the_tiny_model_on_text_records(tmp_path, stage, capsys):
                                    ["--pp-stages", "2"], ["--num-processes", "2"],
                                    ["--coordinator", "localhost:1"]])
 def test_cli_flags_that_are_not_ported_raise(tmp_path, flags):
-    """Pipeline stages and more processes raise, before any checkpoint is
-    read."""
+    """Flags that cannot run as given raise before any checkpoint is read:
+    pipeline stages beyond the one process, a coordinator without the number
+    of processes and the process's id, more processes without a coordinator.
+    (Multi-process and pipeline runs of the CLI: tests/test_torch_pp.py.)"""
     from trace_tpu_torch.train import cli
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         cli.main(["--stage", "sft", "--data-path", "x.json", "--output-dir", str(tmp_path),
                   "--device", "cpu"] + flags)
 

@@ -4,6 +4,9 @@
 One file per step, ``<dir>/checkpoint-<step>/state.pt``, holding the params
 tree, the optimizer state and the step; written to a temporary name and
 renamed, so a run cut during a save leaves the previous checkpoint whole.
+Under more than one process each rank writes its own file,
+``state-<rank>-of-<world>.pt``, with its shards, and resumes from it on the
+same mesh (orbax writes one global checkpoint for the JAX package).
 """
 
 from __future__ import annotations
@@ -48,16 +51,18 @@ class CheckpointManager:
     """Step-numbered checkpoints: ``<dir>/checkpoint-<step>/state.pt``; the
     ``max_to_keep`` newest stay."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, *, shard=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        # (rank, world): this rank's file of a multi-process checkpoint
+        self.file = "state.pt" if shard is None else f"state-{shard[0]}-of-{shard[1]}.pt"
         os.makedirs(self.directory, exist_ok=True)
 
     def _steps(self) -> list[int]:
         steps = []
         for name in os.listdir(self.directory):
             m = _STEP_DIR.match(name)
-            if m and os.path.exists(os.path.join(self.directory, name, "state.pt")):
+            if m and os.path.exists(os.path.join(self.directory, name, self.file)):
                 steps.append(int(m.group(1)))
         return sorted(steps)
 
@@ -66,7 +71,7 @@ class CheckpointManager:
 
     def save(self, step: int, params, opt_state) -> None:
         os.makedirs(self._path(step), exist_ok=True)
-        target = os.path.join(self._path(step), "state.pt")
+        target = os.path.join(self._path(step), self.file)
         tmp = target + ".tmp"
         torch.save({"step": int(step), "params": _detached(params),
                     "opt_state": _detached(opt_state)}, tmp)
@@ -86,7 +91,7 @@ class CheckpointManager:
         step = self.latest_step()
         if step is None:
             return None
-        saved = torch.load(os.path.join(self._path(step), "state.pt"),
+        saved = torch.load(os.path.join(self._path(step), self.file),
                            map_location="cpu", weights_only=True)
         params = _copy_into(params_like, saved["params"])
         opt_state = _copy_into(opt_state_like, saved["opt_state"])

@@ -507,12 +507,17 @@ def quant_apply(x, leaf, out_shape: tuple, *, out_dtype=None,
     return y.reshape(x.shape[:-1] + tuple(out_shape))
 
 
-def quantize_acts(x: torch.Tensor):
+def quantize_acts(x: torch.Tensor, amax_reduce=None):
     """Per-token symmetric int8: [..., K] -> (int8 [..., K], fp32 row scales
     [..., 1]). Quantize once and share it across the weights that consume
-    the same activations (q/k/v; gate/up)."""
+    the same activations (q/k/v; gate/up). ``amax_reduce`` maps the row
+    maxima of this slice of K to those of the whole row (tensor parallelism:
+    a max over the ranks that hold the other slices)."""
     xf = x.float()
-    xs = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    xs = amax.clamp_min(1e-8) / 127.0
     xq = torch.round(xf / xs).clamp(-127, 127).to(torch.int8)
     return xq, xs
 
@@ -560,7 +565,8 @@ def _int8_sums(a: torch.Tensor, b: torch.Tensor, impl: str) -> torch.Tensor:
 
 
 def quant_apply_w8a8(xq, xs, leaf: dict, out_shape: tuple, *,
-                     out_dtype=torch.bfloat16, impl: str = "auto") -> torch.Tensor:
+                     out_dtype=torch.bfloat16, impl: str = "auto",
+                     reduce=None) -> torch.Tensor:
     """s8 x s8 -> s32 product of quantized activations (``quantize_acts``)
     with an int8 leaf ``{'q': [K, *out], 's'}``, scaled by the row and then
     the column scales: ``(acc * xs) * s``, then the cast.
@@ -569,7 +575,10 @@ def quant_apply_w8a8(xq, xs, leaf: dict, out_shape: tuple, *,
     product after an unpack to int8 (W4A8), as two products over the nibble
     halves, ``x[:, :K/2] @ lo + x[:, K/2:] @ hi``, summed as integers. A
     group-scaled packed leaf has no s8 x s8 form (its scale applies inside
-    the contraction) and raises ``ValueError``: it is weight-only."""
+    the contraction) and raises ``ValueError``: it is weight-only.
+    ``reduce`` maps the integer sums over this slice of K to those over the
+    whole of K before the scales apply (tensor parallelism: a sum over the
+    ranks)."""
     K = xq.shape[-1]
     x2 = xq.reshape(-1, K)
     if "qp" in leaf:
@@ -582,5 +591,7 @@ def quant_apply_w8a8(xq, xs, leaf: dict, out_shape: tuple, *,
                + _int8_sums(x2[:, K // 2:].contiguous(), w[K // 2:], impl)).float()
     else:
         acc = int8_matmul(x2, leaf["q"].reshape(K, -1), impl=impl)
+    if reduce is not None:
+        acc = reduce(acc)
     y = acc * xs.reshape(-1, 1) * leaf["s"].reshape(-1).float()[None, :]
     return y.to(out_dtype).reshape(xq.shape[:-1] + tuple(out_shape))

@@ -52,12 +52,16 @@ def add_lora_params(
 
 
 def lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-               config: DecoderConfig) -> torch.Tensor:
+               config: DecoderConfig, low=None) -> torch.Tensor:
     """x [..., in] through one layer's adapter (a [in, r], b [r, out_flat]):
-    the delta [..., out_flat] in x's dtype, both products summed in fp32."""
+    the delta [..., out_flat] in x's dtype, both products summed in fp32.
+    ``low`` maps the rank-r product before the second one (a tensor-parallel
+    rank's collective, model/mistral.py)."""
     scale = config.lora_alpha / config.lora_r
-    low = matmul_f32(x.reshape(-1, x.shape[-1]), a)
-    out = matmul_f32(low, b) * scale
+    u = matmul_f32(x.reshape(-1, x.shape[-1]), a)
+    if low is not None:
+        u = low(u)
+    out = matmul_f32(u, b) * scale
     return out.to(x.dtype).reshape(x.shape[:-1] + (b.shape[-1],))
 
 

@@ -36,6 +36,13 @@ A Mixtral-family tree (``router`` among the layer leaves, ``model/moe.py``)
 runs its layers' MLP as routed experts, in the form of ``config.moe_impl``,
 on every route (prefill, decode step, training); MLP adapters do not apply
 there, as in the JAX package. Its weights stay unquantized.
+
+Tensor parallelism (``decoder_forward(tp_group=)``, ``compute_logits``,
+``init_kv_cache(num_kv_heads=)``): a rank runs the layers on its shards of a
+tree that ``runtime/mesh.py`` placed by the JAX package's rules, with the
+collectives of ``parallel/collectives.py`` where GSPMD inserts them there,
+and every kernel at its local shapes. One layer body (``_layer``) serves one
+rank and a rank of a group alike.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import functools
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -62,6 +70,14 @@ from trace_tpu_torch.model.config import DecoderConfig
 from trace_tpu_torch.model.lora import lora_delta
 from trace_tpu_torch.model.moe import MOE_KEYS, moe_mlp
 from trace_tpu_torch.model.quantize import is_packed4, is_quantized, packed4_groups
+from trace_tpu_torch.parallel.collectives import (
+    all_reduce,
+    copy_to_group,
+    gather,
+    group_rank,
+    group_size,
+    reduce_from_group,
+)
 
 NEG_INF = -1e30  # finite large-negative avoids NaNs from (-inf) - (-inf)
 
@@ -138,30 +154,210 @@ def layer_slice(leaf: torch.Tensor, li: int) -> torch.Tensor:
 _QKV = ("wq", "wk", "wv")
 
 
+def _has_adapter(layers: dict, name: str) -> bool:
+    return f"{name}_lora_a" in layers and (
+        name not in _QKV or "wq_lora_a" in layers or "wv_lora_a" in layers)
+
+
 def _project(h, layers: dict, name: str, li: int, out_shape: tuple, *,
-             acts=None, out_dtype=None, impl: str = "auto",
-             config: Optional[DecoderConfig] = None) -> torch.Tensor:
+             acts=None, out_dtype=None, impl: str = "auto") -> torch.Tensor:
     """h [B, T, K] through layer ``li`` of the stacked weight ``name``. A
     quantized leaf (int8 or packed int4) takes the s8 x s8 product when
     ``acts`` (``quantize_acts`` of h) is given, else its weight-only kernel,
     which reads the layer out of the whole stacked leaf in place; a dense
-    weight takes a product with an fp32 sum, plus its LoRA adapter's delta
-    where the tree holds one."""
+    weight takes a product with an fp32 sum."""
     leaf = layers[name]
     out_dtype = out_dtype or h.dtype
     if not is_quantized(leaf):
-        y = quant_apply(h, layer_slice(leaf, li), out_shape, out_dtype=out_dtype)
-        if f"{name}_lora_a" in layers and (
-                name not in _QKV or "wq_lora_a" in layers or "wv_lora_a" in layers):
-            a = layer_slice(layers[f"{name}_lora_a"], li)
-            b = layer_slice(layers[f"{name}_lora_b"], li)
-            y = y + lora_delta(h, a, b, config).reshape(y.shape)
-        return y
+        return quant_apply(h, layer_slice(leaf, li), out_shape, out_dtype=out_dtype)
     if acts is None:
         return quant_apply_stacked(h, leaf, li, out_shape, out_dtype=out_dtype,
                                    impl=impl)
     return quant_apply_w8a8(*acts, {k: v[li] for k, v in leaf.items()},
                             out_shape, out_dtype=out_dtype, impl=impl)
+
+
+def _attend(q, k, v, li: int, *, config: DecoderConfig, flash_bias, decode_bias, cache,
+            cache_index: int, impl: str, trainable: bool) -> torch.Tensor:
+    """q [B, NH, T, hd], k / v [B, NKV, T, hd] after RoPE: the chunk's k / v
+    written into layer ``li``'s stripe of ``cache`` at ``cache_index`` (where
+    there is a cache), then the step's attention over the stripe
+    (``decode_bias``) or the chunk's causal attention over itself
+    (``flash_bias``). Returns [B, NH, T, hd]."""
+    T = q.shape[2]
+    stripe = None
+    if isinstance(cache, dict):
+        stripe = {name: leaf[li] for name, leaf in cache.items()}
+        sl = slice(cache_index, cache_index + T)
+        stripe["kq"][:, :, sl], stripe["ks"][:, :, :, sl] = _quantize_kv(k)
+        stripe["vq"][:, :, sl], stripe["vs"][:, :, :, sl] = _quantize_kv(v)
+    elif cache is not None:
+        stripe = (cache[0][li], cache[1][li])
+        stripe[0][:, :, cache_index:cache_index + T] = k.to(stripe[0].dtype)
+        stripe[1][:, :, cache_index:cache_index + T] = v.to(stripe[1].dtype)
+
+    if decode_bias is not None:
+        if isinstance(stripe, dict):
+            return decode_attention(q.contiguous(), stripe, None, decode_bias,
+                                    mode=config.decode_attn_int8, impl=impl)
+        return decode_attention(q.contiguous(), *stripe, decode_bias, impl=impl)
+    if trainable:
+        return flash_attention_trainable(q, k, v, flash_bias, True, impl=impl)
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           flash_bias, True, impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# Shares of a weight under tensor parallelism (runtime/mesh.py places them);
+# with no group every share is the whole weight and every collective the
+# identity
+# ---------------------------------------------------------------------------
+# A rank holds, of every weight the rules shard, an even share along one
+# axis: a column share [r n, (r + 1) n) of its outputs (q / k / v, gate /
+# up, lm_head; ``_col``) or a row share of its inputs (wo, w_down; ``_row``).
+# A weight whose axis the group does not divide is whole on every rank while
+# its neighbours may be sharded (the JAX rules' divisibility fallback); a
+# tensor in one column layout moves to another through ``_relayout``. A
+# replicated tensor that feeds a rank-specific computation passes through
+# ``copy_to_group``, and partial sums through ``reduce_from_group``, so the
+# gradients of replicated leaves come out whole on every rank.
+
+def _width(leaf, axis: str, in_dims: int = 1) -> int:
+    """The per-layer input ('in') or output ('out') width of a stacked
+    weight: dense [L, *in, *out], int8 {'q': the same, 's'} or packed
+    {'qp': [L, K/2, N], 's'}."""
+    packed = isinstance(leaf, dict) and "qp" in leaf
+    t = leaf if torch.is_tensor(leaf) else leaf["qp" if packed else "q"]
+    if t.ndim == 3:  # a flattened [L, K, N] form
+        in_dims = 1
+    dims = t.shape[1:1 + in_dims] if axis == "in" else t.shape[1 + in_dims:]
+    n = 1
+    for d in dims:
+        n *= d
+    return 2 * n if packed and axis == "in" else n
+
+
+def _share(n_local: int, full: int, rank: int) -> tuple:
+    """(first column, width) of a rank's even share, or (0, full) when whole."""
+    return (rank * n_local, n_local) if n_local < full else (0, full)
+
+
+def _relayout(t: torch.Tensor, have: tuple, want: tuple, full: int, group) -> torch.Tensor:
+    """``t`` [..., n] holding columns ``have`` = (lo, n) of a [..., full]
+    tensor (a rank's even share, or all of it) -> the columns ``want``."""
+    if have == want:
+        return t
+    if have[1] < full:
+        t = gather(t, -1, group)
+    if want[1] == full:
+        return t
+    return copy_to_group(t, group)[..., want[0]:want[0] + want[1]]
+
+
+def _take(t: torch.Tensor, dim: int, lo: int, n: int, group) -> torch.Tensor:
+    """A rank-specific slice of a replicated tensor."""
+    return copy_to_group(t, group).narrow(dim, lo, n)
+
+
+def _adapter(layers: dict, name: str, li: int, k: int, n: int, config: DecoderConfig,
+             group) -> tuple:
+    """Layer ``li``'s LoRA adapter of weight ``name`` (A [k, r], B [r, n]),
+    whole on every rank: a dimension the rules shard is gathered (adapters
+    are small beside the activations their products would gather)."""
+    out = []
+    for part, full in (("a", (k, config.lora_r)), ("b", (config.lora_r, n))):
+        t = layer_slice(layers[f"{name}_lora_{part}"], li)
+        for dim in (0, 1):
+            if t.shape[dim] < full[dim]:
+                t = gather(t, dim, group)
+        out.append(t)
+    return tuple(out)
+
+
+def _col(h, hq, layers: dict, name: str, li: int, full: int, *, group, config, impl,
+         out_dtype=None):
+    """h [B, T, K] (whole on every rank) through a column-parallel weight:
+    (y [B, T, n], its columns (lo, n) of ``full``), plus the weight's LoRA
+    delta at those columns where the tree holds an adapter. ``hq``: the
+    W8A8 activations."""
+    n = _width(layers[name], "out")
+    cols = _share(n, full, group_rank(group))
+    share = cols[1] < full
+    y = _project(copy_to_group(h, group) if share else h, layers, name, li, (n,), acts=hq,
+                 out_dtype=out_dtype, impl=impl)
+    if _has_adapter(layers, name) and not is_quantized(layers[name]):
+        a, b = _adapter(layers, name, li, h.shape[-1], full, config, group)
+        if share:  # the rank's columns of B; the rank-r product's gradient summed
+            b = _take(b, 1, *cols, group)
+        y = y + lora_delta(h, a, b, config,
+                           low=(lambda u: copy_to_group(u, group)) if share else None)
+    return y, cols
+
+
+def _row(x, cols: tuple, layers: dict, name: str, li: int, full: int, out_dim: int, *,
+         group, config, impl, w8a8: bool, out_dtype):
+    """x [B, T, n] (its columns ``cols`` of the weight's K = ``full``)
+    through a row-parallel weight, plus its LoRA delta: [B, T, out_dim],
+    whole on every rank. Partial products sum in fp32 (the W8A8 ones as
+    integer sums, their row scales from the row maxima over all of K)
+    before the cast."""
+    leaf = layers[name]
+    want = _share(_width(leaf, "in", 2 if name == "wo" else 1), full, group_rank(group))
+    sharded = want[1] < full
+    x = _relayout(x, cols, want, full, group)
+    if w8a8:
+        xq, xs = quantize_acts(x, functools.partial(all_reduce, group=group,
+                                                    op=dist.ReduceOp.MAX) if sharded else None)
+        y = quant_apply_w8a8(xq, xs, {k: v[li] for k, v in leaf.items()}, (out_dim,),
+                             out_dtype=out_dtype, impl=impl,
+                             reduce=functools.partial(all_reduce, group=group) if sharded
+                             else None)
+    else:
+        y = _project(x, layers, name, li, (out_dim,), impl=impl,
+                     out_dtype=torch.float32 if sharded else out_dtype)
+        if sharded:
+            y = reduce_from_group(y, group).to(out_dtype)
+    if _has_adapter(layers, name) and not is_quantized(leaf):
+        a, b = _adapter(layers, name, li, full, out_dim, config, group)
+        if sharded:  # the rows of A that meet the rank's share of K
+            a = _take(a, 0, *want, group)
+        y = y + lora_delta(x, a, b, config,
+                           low=(lambda u: reduce_from_group(u, group)) if sharded else None)
+    return y
+
+
+def _attn_heads(q_cols: tuple, k_cols: tuple, config: DecoderConfig):
+    """The heads a rank attends with: ((q columns), (k / v columns)) when its
+    q share is whole heads whose kv heads it holds or can take from a whole
+    k / v; None when it must gather q, k and v and attend with every head
+    (a whole q among them)."""
+    NH, NKV, HD = config.num_heads, config.num_kv_heads, config.head_dim
+    G = NH // NKV
+    (q_lo, q_n), (k_lo, k_n) = q_cols, k_cols
+    if q_n == NH * HD or q_lo % HD or q_n % HD:
+        return None
+    h0, nh = q_lo // HD, q_n // HD
+    if nh % G == 0 and h0 % G == 0:
+        kv = (h0 // G * HD, nh // G * HD)
+    elif G % nh == 0 and h0 // G == (h0 + nh - 1) // G:
+        kv = (h0 // G * HD, HD)
+    else:
+        return None
+    if k_n == NKV * HD or (k_lo, k_n) == kv:
+        return q_cols, kv
+    return None
+
+
+def local_kv_heads(layers: dict, config: DecoderConfig, group) -> int:
+    """The kv heads a rank's KV cache holds under tensor parallelism over
+    ``group`` (all of them with no group)."""
+    if group_size(group) == 1:
+        return config.num_kv_heads
+    rank, HD = group_rank(group), config.head_dim
+    q_cols = _share(_width(layers["wq"], "out"), config.num_heads * HD, rank)
+    k_cols = _share(_width(layers["wk"], "out"), config.num_kv_heads * HD, rank)
+    heads = _attn_heads(q_cols, k_cols, config)
+    return config.num_kv_heads if heads is None else heads[1][1] // HD
 
 
 def _layer(
@@ -178,6 +374,7 @@ def _layer(
     cache_index: int = 0,
     impl: str = "auto",
     trainable: bool = False,
+    group=None,
 ) -> torch.Tensor:
     """Decoder block ``li`` of the stacked tree ``layers``. ``cache`` is the
     whole cache; the block writes its chunk's k/v into its stripe in place
@@ -192,7 +389,14 @@ def _layer(
     (activations quantized once per consumer group); a T = 1 step is always
     weight-only, and so is every chunk of a group-scaled packed tree, whose
     scales apply inside the contraction. The fused serving leaves ``wqkv`` /
-    ``w_gateup`` are used where present."""
+    ``w_gateup`` are used where present (one rank only: a mesh unfuses).
+
+    With ``group`` (the 'model' group of a mesh) the block runs on this
+    rank's shards: q / k / v and gate / up column-parallel, wo and w_down
+    row-parallel with the all-reduce after; the rank attends with its q heads
+    and the kv heads they group onto (its KV cache holds those), or, where
+    the shares are not whole heads, with every head after a gather. ``x`` is
+    whole on every rank, in and out."""
     B, T, D = x.shape
     NH, NKV, HD = config.num_heads, config.num_kv_heads, config.head_dim
     NQ, NKVW = NH * HD, NKV * HD
@@ -200,70 +404,66 @@ def _layer(
     wq = layers["wqkv" if fused_qkv else "wq"]
     grouped = is_packed4(wq) and packed4_groups(wq) > 1
     w8a8 = config.act_quant and T > 1 and is_quantized(wq) and not grouped
-    acts = lambda t: quantize_acts(t) if w8a8 else None
-    proj = functools.partial(_project, layers=layers, li=li, impl=impl, config=config)
+    kw = dict(group=group, config=config, impl=impl)
 
     h = rms_norm(x, layer_slice(layers["attn_norm"], li), config.rms_eps)
-    hq = acts(h)  # one rounding pass shared by q/k/v
-    heads = lambda t, n: t.view(B, T, n, HD).transpose(1, 2)
+    hq = quantize_acts(h) if w8a8 else None  # one rounding pass shared by q/k/v
     if fused_qkv:
-        qkv = proj(h, name="wqkv", out_shape=(NQ + 2 * NKVW,), acts=hq)
-        q, k, v = (heads(t, n) for t, n in zip(
-            qkv.split((NQ, NKVW, NKVW), dim=-1), (NH, NKV, NKV)))
+        qkv, _ = _col(h, hq, layers, "wqkv", li, NQ + 2 * NKVW, **kw)
+        q, k, v = qkv.split((NQ, NKVW, NKVW), dim=-1)
+        q_cols, k_cols, v_cols = (0, NQ), (0, NKVW), (0, NKVW)
     else:
-        q = proj(h, name="wq", out_shape=(NH, HD), acts=hq).transpose(1, 2)
-        k = proj(h, name="wk", out_shape=(NKV, HD), acts=hq).transpose(1, 2)
-        v = proj(h, name="wv", out_shape=(NKV, HD), acts=hq).transpose(1, 2)
+        q, q_cols = _col(h, hq, layers, "wq", li, NQ, **kw)
+        k, k_cols = _col(h, hq, layers, "wk", li, NKVW, **kw)
+        v, v_cols = _col(h, hq, layers, "wv", li, NKVW, **kw)
+    heads = _attn_heads(q_cols, k_cols, config)
+    if heads is None:
+        q = _relayout(q, q_cols, (0, NQ), NQ, group)
+        heads = ((0, NQ), (0, NKVW))
+    qc, kvc = heads
+    k = _relayout(k, k_cols, kvc, NKVW, group)
+    v = _relayout(v, v_cols, kvc, NKVW, group)
+    nh, nkv = qc[1] // HD, kvc[1] // HD
+    q, k, v = (t.reshape(B, T, n, HD).transpose(1, 2) for t, n in ((q, nh), (k, nkv), (v, nkv)))
     if config.attn_qkv_bias:  # qwen2: after the LoRA deltas, before RoPE
-        q, k, v = (t + layer_slice(layers[name], li)[None, :, None, :].to(t.dtype)
-                   for t, name in ((q, "bq"), (k, "bk"), (v, "bv")))
+        def bias(name, c, n):
+            bl = layer_slice(layers[name], li)
+            if n < bl.shape[0]:
+                bl = _take(bl, 0, c[0] // HD, n, group)
+            return bl[None, :, None, :]
+
+        q = q + bias("bq", qc, nh).to(q.dtype)
+        k = k + bias("bk", kvc, nkv).to(k.dtype)
+        v = v + bias("bv", kvc, nkv).to(v.dtype)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-
-    stripe = None
-    if isinstance(cache, dict):
-        stripe = {name: leaf[li] for name, leaf in cache.items()}
-        sl = slice(cache_index, cache_index + T)
-        stripe["kq"][:, :, sl], stripe["ks"][:, :, :, sl] = _quantize_kv(k)
-        stripe["vq"][:, :, sl], stripe["vs"][:, :, :, sl] = _quantize_kv(v)
-    elif cache is not None:
-        stripe = (cache[0][li], cache[1][li])
-        stripe[0][:, :, cache_index:cache_index + T] = k.to(stripe[0].dtype)
-        stripe[1][:, :, cache_index:cache_index + T] = v.to(stripe[1].dtype)
-
-    if decode_bias is not None:
-        if isinstance(stripe, dict):
-            attn = decode_attention(q.contiguous(), stripe, None, decode_bias,
-                                    mode=config.decode_attn_int8, impl=impl)
-        else:
-            attn = decode_attention(q.contiguous(), *stripe, decode_bias, impl=impl)
-    elif trainable:
-        attn = flash_attention_trainable(q, k, v, flash_bias, True, impl=impl)
-    else:
-        attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               flash_bias, True, impl=impl)
-
-    attn_flat = attn.transpose(1, 2).reshape(B, T, NQ)
-    x = x + proj(attn_flat, name="wo", out_shape=(D,), acts=acts(attn_flat))
+    attn = _attend(q, k, v, li, config=config, flash_bias=flash_bias, decode_bias=decode_bias,
+                   cache=cache, cache_index=cache_index, impl=impl, trainable=trainable)
+    attn_flat = attn.transpose(1, 2).reshape(B, T, nh * HD)
+    x = x + _row(attn_flat, qc, layers, "wo", li, NQ, D, w8a8=w8a8, out_dtype=x.dtype, **kw)
 
     h = rms_norm(x, layer_slice(layers["mlp_norm"], li), config.rms_eps)
-    if "router" in layers:  # a Mixtral-family layer: routed experts, no MLP adapters
-        return x + moe_mlp(h, {name: layer_slice(layers[name], li) for name in MOE_KEYS},
-                           config)
+    if "router" in layers:  # routed experts (whole, or a share a rank), no MLP adapters
+        lp = {name: layer_slice(layers[name], li) for name in MOE_KEYS}
+        ep = lp["w_gate"].shape[0] < config.num_experts
+        return x + moe_mlp(h, lp, config, group=group if ep else None)
     # gate and up stay fp32 into silu, as the JAX package's
     # preferred_element_type=float32 keeps them
-    hq = acts(h)  # shared by gate/up
+    I = config.intermediate_size
+    hq = quantize_acts(h) if w8a8 else None  # shared by gate/up
+    f32 = dict(out_dtype=torch.float32, **kw)
     if "w_gateup" in layers:
-        gate, up = proj(h, name="w_gateup", out_shape=(-1,), acts=hq,
-                        out_dtype=torch.float32).chunk(2, dim=-1)
+        gate, up = _col(h, hq, layers, "w_gateup", li, 2 * I, **f32)[0].chunk(2, dim=-1)
+        g_cols = (0, I)
     else:
-        gate = proj(h, name="w_gate", out_shape=(-1,), acts=hq, out_dtype=torch.float32)
-        up = proj(h, name="w_up", out_shape=(-1,), acts=hq, out_dtype=torch.float32)
+        gate, g_cols = _col(h, hq, layers, "w_gate", li, I, **f32)
+        up, u_cols = _col(h, hq, layers, "w_up", li, I, **f32)
+        up = _relayout(up, u_cols, g_cols, I, group)
     act = F.silu(gate) * up
     if not w8a8:
         act = act.to(x.dtype)
-    return x + proj(act, name="w_down", out_shape=(D,), acts=acts(act),
-                    out_dtype=x.dtype)
+    return x + _row(act, g_cols, layers, "w_down", li, I, D, w8a8=w8a8, out_dtype=x.dtype,
+                    **kw)
 
 
 def decoder_forward(
@@ -279,6 +479,7 @@ def decoder_forward(
     impl: str = "auto",
     remat: bool = False,
     trainable: bool = False,
+    tp_group=None,
 ):
     """Run the decoder stack (causal). Without a cache: attention within
     the sequence, with ``trainable`` through ``flash_attention_trainable``
@@ -291,8 +492,11 @@ def decoder_forward(
     after earlier slots has no kernel and raises. The layer weights may be
     dense, int8 ``{'q', 's'}`` or packed int4 ``{'qp', 's'}`` leaves, per
     weight or in the fused serving layout; the
-    cache the (k, v) pair or the int8 dict of ``init_kv_cache``. Returns
-    (final-normed hidden, cache)."""
+    cache the (k, v) pair or the int8 dict of ``init_kv_cache``. With
+    ``tp_group`` (the 'model' group of a mesh) the layers run on this rank's
+    shards of a tree placed by ``runtime/mesh.py`` (see ``_layer``), the
+    cache holding ``local_kv_heads``; ``embeds`` and the result are whole on
+    every rank. Returns (final-normed hidden, cache)."""
     B, T, D = embeds.shape
     dev = embeds.device
     x = embeds
@@ -316,11 +520,12 @@ def decoder_forward(
 
     layers = params["layers"]
     trainable = trainable and flash_bias is not None and T > 1 and cache is None
+    group = tp_group if group_size(tp_group) > 1 else None
     for li in range(layers["attn_norm"].shape[0]):
         layer = functools.partial(
             _layer, layers=layers, li=li, config=config, cos=cos, sin=sin,
             flash_bias=flash_bias, decode_bias=decode_bias,
-            cache=cache, cache_index=cache_index, impl=impl, trainable=trainable,
+            cache=cache, cache_index=cache_index, impl=impl, trainable=trainable, group=group,
         )
         if remat and torch.is_grad_enabled():
             x = checkpoint(layer, x, use_reentrant=False)
@@ -333,33 +538,41 @@ HEAD_NAMES = ("lm_head", "sync_head", "time_head", "score_head")
 
 
 def compute_logits(params: dict, hidden: torch.Tensor, *,
-                   impl: str = "auto") -> torch.Tensor:
+                   impl: str = "auto", tp_group=None,
+                   vocab_size: Optional[int] = None) -> torch.Tensor:
     """hidden [..., D] -> combined fp32 logits [..., V + 1 + Vt + Vs] in
     text|sync|time|score order. The products run in fp32 on the exact fp32
     values of the bf16 operands, as the JAX package's
     preferred_element_type=fp32 does; an int8 ``lm_head`` goes weight-only
-    through ``quant_matmul`` with an fp32 result, at every T."""
+    through ``quant_matmul`` with an fp32 result, at every T. With
+    ``tp_group`` an ``lm_head`` sharded over the vocabulary (its width under
+    ``vocab_size``) gives this rank's columns, gathered into the whole
+    logits on every rank."""
     h = hidden.float()
     parts = [h @ params[name].float() for name in HEAD_NAMES[1:]]
     lm_head = params["lm_head"]
+    width = (lm_head["q"] if is_quantized(lm_head) else lm_head).shape[-1]
+    sharded = group_size(tp_group) > 1 and width < vocab_size
     if is_quantized(lm_head):
-        text = quant_apply(hidden, lm_head, (lm_head["q"].shape[-1],),
-                           out_dtype=torch.float32, impl=impl)
+        text = quant_apply(hidden, lm_head, (width,), out_dtype=torch.float32, impl=impl)
     else:
-        text = h @ lm_head.float()
+        text = (copy_to_group(h, tp_group) if sharded else h) @ lm_head.float()
+    if sharded:
+        text = gather(text, -1, tp_group)
     return torch.cat([text] + parts, dim=-1)
 
 
 def init_kv_cache(
     config: DecoderConfig, batch_size: int, max_len: int,
-    dtype=torch.bfloat16, device=None,
+    dtype=torch.bfloat16, device=None, *, num_kv_heads: Optional[int] = None,
 ):
     """Static cache: the (k, v) pair, each [L, B, NKV, max_len, hd] in
     ``dtype``; or, for ``config.kv_cache_dtype == "int8"``, the dict
     ``{kq, ks, vq, vs}`` with int8 values and bf16 scales
     [L, B, NKV, 1, max_len] (one per layer, row, kv head and slot; the JAX
-    package's layout)."""
-    shape = (config.num_layers, batch_size, config.num_kv_heads, max_len,
+    package's layout). ``num_kv_heads`` (default the config's) sizes a
+    tensor-parallel rank's cache (``local_kv_heads``)."""
+    shape = (config.num_layers, batch_size, num_kv_heads or config.num_kv_heads, max_len,
              config.head_dim)
     if config.kv_cache_dtype == "int8":
         sshape = shape[:-2] + (1, max_len)

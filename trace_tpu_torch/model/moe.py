@@ -34,7 +34,14 @@ within 1e-5 of it). Routing, scatter and gather are eager torch operations:
 the JAX package runs the expert products as XLA einsums, outside any Pallas
 kernel, and so does the port.
 
-Expert-parallel sharding (``MOE_PARAM_RULES``) is not ported: one device.
+Expert parallelism: ``moe_mlp`` also takes a layer whose expert stacks hold
+a rank's even share of the E experts (E / n consecutive ones) with the
+'model' group of n ranks: the router is whole and routes over all E
+experts, each rank sums the contributions of its own experts, and an
+all-reduce adds the ranks. ``MOE_PARAM_RULES`` is the JAX package's
+placement of the stacks; as there, ``runtime/mesh.py shard_params`` does not
+apply it (the [L, E, D, I] stacks match no rule of ``_PARAM_RULES`` and stay
+whole), and an expert-parallel layer is placed by hand.
 """
 
 from __future__ import annotations
@@ -46,11 +53,22 @@ import torch.nn.functional as F
 
 from trace_tpu_torch.kernels.quant_matmul import matmul_f32
 from trace_tpu_torch.model.config import MoEConfig
+from trace_tpu_torch.parallel.collectives import copy_to_group, group_rank, reduce_from_group
 
 # a layer's routed-expert leaves, each stacked [L, ...]
 MOE_KEYS = ("router", "w_gate", "w_up", "w_down")
 
-__all__ = ["MOE_KEYS", "MoEConfig", "init_moe_decoder_params", "init_moe_mlp_params",
+# Expert stacks partition as (None, 'model', None, None): each 'model' rank
+# holds E / model experts; the mixture sums over the experts, so their
+# contributions add up across the ranks (the expert-parallel all-reduce).
+MOE_PARAM_RULES = (
+    ("moe/router", (None, None, None)),
+    ("moe/w_gate", (None, "model", None, None)),
+    ("moe/w_up", (None, "model", None, None)),
+    ("moe/w_down", (None, "model", None, None)),
+)
+
+__all__ = ["MOE_KEYS", "MOE_PARAM_RULES", "MoEConfig", "init_moe_decoder_params", "init_moe_mlp_params",
            "moe_aux_loss", "moe_mlp", "route", "dispatch"]
 
 
@@ -126,15 +144,20 @@ def _swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return matmul_f32(act, w_down)
 
 
-def moe_mlp(x: torch.Tensor, lp: dict, config: MoEConfig) -> torch.Tensor:
+def moe_mlp(x: torch.Tensor, lp: dict, config: MoEConfig, *, group=None) -> torch.Tensor:
     """x [B, T, D] -> [B, T, D] through the top-k routed expert SwiGLU MLPs of
     one layer (``lp``: router [D, E], w_gate / w_up [E, D, I], w_down
-    [E, I, D]), in ``config.moe_impl``'s form."""
-    if config.moe_impl == "sparse":
-        return _moe_mlp_sparse(x, lp, config)
-    if config.moe_impl != "dense":
+    [E, I, D]), in ``config.moe_impl``'s form. With ``group`` the expert
+    stacks hold this rank's share of the experts (see the module's note);
+    ``x`` and the result are whole on every rank."""
+    if config.moe_impl not in ("sparse", "dense"):
         raise ValueError(f"moe_impl must be 'sparse' or 'dense', got {config.moe_impl!r}")
-    return _moe_mlp_dense(x, lp, config)
+    n_local = lp["w_gate"].shape[0]
+    first = group_rank(group) * n_local
+    if first + n_local > config.num_experts or (group is None and n_local != config.num_experts):
+        raise ValueError(f"{n_local} experts a rank do not tile {config.num_experts}")
+    form = _moe_mlp_sparse if config.moe_impl == "sparse" else _moe_mlp_dense
+    return reduce_from_group(form(x, lp, config, first, group), group).to(x.dtype)
 
 
 def _experts(lp: dict):
@@ -143,7 +166,10 @@ def _experts(lp: dict):
     return zip(lp["w_gate"].unbind(0), lp["w_up"].unbind(0), lp["w_down"].unbind(0))
 
 
-def _moe_mlp_sparse(x: torch.Tensor, lp: dict, config: MoEConfig) -> torch.Tensor:
+def _moe_mlp_sparse(x: torch.Tensor, lp: dict, config: MoEConfig, first: int,
+                    group) -> torch.Tensor:
+    """The experts ``first`` ... of ``lp``'s stacks over the capacity
+    buckets of all E: their fp32 contributions [B, T, D]."""
     B, T, D = x.shape
     N, E, k = B * T, config.num_experts, config.top_k
     cap = capacity(N, config)
@@ -152,27 +178,34 @@ def _moe_mlp_sparse(x: torch.Tensor, lp: dict, config: MoEConfig) -> torch.Tenso
     _, keep, slot = dispatch(top_idx, E, cap)
 
     # row n repeated for its k assignments, scattered into the buckets
-    xr = xf.repeat_interleave(k, dim=0)
+    xr = copy_to_group(xf, group).repeat_interleave(k, dim=0)
     buf = xf.new_zeros((E * cap + 1, D)).index_put((slot,), xr)
-    outs = [_swiglu(rows, wg, wu, wd, x.dtype)
-            for rows, (wg, wu, wd) in zip(buf[:E * cap].view(E, cap, D), _experts(lp))]
-    flat_out = torch.cat(outs + [xf.new_zeros((1, D), dtype=torch.float32)], dim=0)
+    n_local = lp["w_gate"].shape[0]
+    rows = buf[first * cap:(first + n_local) * cap].view(n_local, cap, D)
+    outs = [_swiglu(r, wg, wu, wd, x.dtype) for r, (wg, wu, wd) in zip(rows, _experts(lp))]
+    zeros = lambda n: xf.new_zeros((n, D), dtype=torch.float32)
+    flat_out = torch.cat([zeros(first * cap)] + outs + [zeros((E - first - n_local) * cap + 1)],
+                         dim=0)
     gathered = flat_out[slot]  # [N k, D] fp32
-    weighted = gathered * (top_vals.reshape(-1) * keep)[:, None]
-    return weighted.view(N, k, D).sum(dim=1).view(B, T, D).to(x.dtype)
+    weighted = gathered * (copy_to_group(top_vals, group).reshape(-1) * keep)[:, None]
+    return weighted.view(N, k, D).sum(dim=1).view(B, T, D)
 
 
-def _moe_mlp_dense(x: torch.Tensor, lp: dict, config: MoEConfig) -> torch.Tensor:
+def _moe_mlp_dense(x: torch.Tensor, lp: dict, config: MoEConfig, first: int,
+                   group) -> torch.Tensor:
+    """Every token through the experts ``first`` ... of ``lp``'s stacks,
+    mixed by the gate vector: their fp32 contributions [B, T, D]."""
     B, T, D = x.shape
     xf = x.reshape(B * T, D)
     top_vals, top_idx = route(xf, lp["router"], config.top_k)
     gates = torch.zeros((B * T, config.num_experts), dtype=torch.float32,
                         device=x.device).scatter(-1, top_idx, top_vals)
+    xf, gates = copy_to_group(xf, group), copy_to_group(gates, group)
     out = None
-    for e, (wg, wu, wd) in enumerate(_experts(lp)):
+    for e, (wg, wu, wd) in enumerate(_experts(lp), start=first):
         part = _swiglu(xf, wg, wu, wd, x.dtype) * gates[:, e, None]
         out = part if out is None else out + part
-    return out.view(B, T, D).to(x.dtype)
+    return out.view(B, T, D)
 
 
 def moe_aux_loss(x: torch.Tensor, lp: dict, config: MoEConfig) -> torch.Tensor:

@@ -35,6 +35,7 @@ from trace_tpu_torch.model.mistral import (
     compute_logits,
     decoder_forward,
     init_kv_cache,
+    local_kv_heads,
 )
 
 PAD_OUTPUT_ID = -1  # emitted for steps after a sequence finished
@@ -125,7 +126,7 @@ def _time_constraint_update(config, token, frame_chars, alive, value_pos):
 
 
 def prefill(params, c, prefix_embeds, prefix_mask, *, cache_len: int, impl: str = "auto",
-            cache=None):
+            cache=None, tp_group=None):
     """The prefill phase, an entry point of its own (the JAX package's
     ``prefill_jit``): a cache of ``cache_len`` slots with the prefix
     [B, P, D] (content right-aligned) written into it. Returns (cache,
@@ -134,18 +135,21 @@ def prefill(params, c, prefix_embeds, prefix_mask, *, cache_len: int, impl: str 
     ``c.kv_cache_dtype == "int8"``; ``cache`` (of ``init_kv_cache``'s shapes
     for this batch, e.g. a view of some rows of a larger cache) is written in
     place instead of a new one. Sub-batch caches made apart merge into one
-    with ``merge_cache_rows``."""
+    with ``merge_cache_rows``. ``tp_group``: the layers run tensor-parallel
+    on this rank's shards (``decoder_forward``), the cache holding the
+    rank's kv heads."""
     prefix_mask = prefix_mask.bool()
     B, P, D = prefix_embeds.shape
     dev = prefix_embeds.device
     if cache is None:
-        cache = init_kv_cache(c, B, cache_len, dtype=prefix_embeds.dtype, device=dev)
+        cache = init_kv_cache(c, B, cache_len, dtype=prefix_embeds.dtype, device=dev,
+                              num_kv_heads=local_kv_heads(params["layers"], c, tp_group))
     positions = (torch.cumsum(prefix_mask.int(), dim=1) - 1).clamp(min=0)
     hidden, cache = decoder_forward(
         params, c, prefix_embeds, prefix_mask, positions,
         cache=cache, cache_index=0,
         cache_mask=torch.zeros((B, cache_len), dtype=torch.bool, device=dev),
-        impl=impl,
+        impl=impl, tp_group=tp_group,
     )
     cache_mask = torch.nn.functional.pad(prefix_mask.bool(), (0, cache_len - P))
     last_hidden = hidden[:, -1, :]  # content is right-aligned
@@ -173,7 +177,7 @@ def merge_cache_rows(big, small, row: int):
 
 
 def _prefill_into(params, c, big, prefix_embeds, prefix_mask, *, prefill_batch,
-                  cache_len, impl="auto"):
+                  cache_len, impl="auto", tp_group=None):
     """Prefill ``prefix_embeds`` in sub-batches of ``prefill_batch`` rows, each
     writing its K/V rows straight into the decode-batch cache ``big`` (no
     sub-batch cache, no merge pass). Returns (cache_mask, last_hidden,
@@ -191,7 +195,7 @@ def _prefill_into(params, c, big, prefix_embeds, prefix_mask, *, prefill_batch,
         n = min(prefill_batch, B - r)
         _, cm, lh, npos = prefill(
             params, c, prefix_embeds[r:r + n], prefix_mask[r:r + n],
-            cache_len=cache_len, impl=impl, cache=cache_rows(big, r, n))
+            cache_len=cache_len, impl=impl, cache=cache_rows(big, r, n), tp_group=tp_group)
         cms.append(cm)
         lhs.append(lh)
         nps.append(npos)
@@ -203,7 +207,7 @@ def _decode_from_state(
     combined_embed, initial_head, *,
     prefix_len, max_new_tokens, temperature, eos_id,
     constrain_time, frame_time_ids, generator, embed_dtype,
-    stop_ids=None, impl="auto", max_steps=None,
+    stop_ids=None, impl="auto", max_steps=None, tp_group=None,
 ):
     """FSM decode loop from a prefilled cache. Returns (tokens [B, N],
     num_generated [B], decode_steps). N = ``max_new_tokens`` sizes the token
@@ -246,9 +250,10 @@ def _decode_from_state(
             return alive, vpos
         return _time_constraint_update(c, tok, frame_time_ids, alive, vpos)
 
+    logits = lambda hid: compute_logits(params, hid, impl=impl, tp_group=tp_group,
+                                        vocab_size=c.vocab_size)
     # first token from the prefill's last hidden state
-    tok = pick_token(compute_logits(params, last_hidden, impl=impl), initial_head,
-                     alive, vpos).long()
+    tok = pick_token(logits(last_hidden), initial_head, alive, vpos).long()
     K = 0 if stop_ids is None else stop_ids.shape[1]
     recent = torch.full((B, max(K, 1)), -2, dtype=torch.long, device=dev)
     recent[:, -1] = tok
@@ -270,10 +275,10 @@ def _decode_from_state(
             params, c, cur_embed[:, None, :], ones,
             (next_pos + step - 1)[:, None],
             cache=cache, cache_index=write_idx, cache_mask=cache_mask, impl=impl,
+            tp_group=tp_group,
         )
         cache_mask[:, write_idx] = True
-        tok = pick_token(compute_logits(params, hidden[:, -1, :], impl=impl), head,
-                         alive, vpos).long()
+        tok = pick_token(logits(hidden[:, -1, :]), head, alive, vpos).long()
 
         recent = torch.cat([recent[:, 1:], tok[:, None]], dim=1)
         newly_done = (tok == eos_id) | stop_hit(recent)
@@ -310,7 +315,8 @@ def decode(params, config, cache, cache_mask, last_hidden, next_pos, combined_em
            initial_head, *, prefix_len: int, max_new_tokens: int,
            temperature: float = 0.0, eos_id: int = 2, seed: int = 0,
            constrain_time: bool = False, frame_time_ids=None, stop_sequences=None,
-           max_steps: Optional[int] = None, embed_dtype=None, impl: str = "auto"):
+           max_steps: Optional[int] = None, embed_dtype=None, impl: str = "auto",
+           tp_group=None):
     """The decode phase as an entry point of its own (the JAX package's
     ``decode_jit``): the FSM loop from a prefilled cache of ``prefix_len +
     max_new_tokens`` slots whose rows share ``prefix_len``; ``initial_head``
@@ -319,7 +325,7 @@ def decode(params, config, cache, cache_mask, last_hidden, next_pos, combined_em
     Returns (tokens [B, max_new_tokens], num_generated [B], decode_steps).
     ``embed_dtype`` (the dtype the fed-back token embeddings take) defaults,
     as in ``decode_jit``, to the cache's, or the table's for the int8
-    cache."""
+    cache. ``tp_group``: tensor-parallel steps, as in ``prefill``."""
     B = last_hidden.shape[0]
     dev = last_hidden.device
     if embed_dtype is None:
@@ -339,7 +345,7 @@ def decode(params, config, cache, cache_mask, last_hidden, next_pos, combined_em
                         else frame_time_ids.to(dev).long()),
         generator=generator, embed_dtype=embed_dtype,
         stop_ids=pack_stop_sequences(stop_sequences, dev), impl=impl,
-        max_steps=max_steps,
+        max_steps=max_steps, tp_group=tp_group,
     )
 
 
@@ -354,11 +360,12 @@ def _pad_to_bucket(prefix_embeds, prefix_mask, pad_to_multiple: int):
     return prefix_embeds, prefix_mask.bool(), bucket
 
 
-def _arena(config, B: int, cache_len: int, dtype, device, cache):
+def _arena(config, B: int, cache_len: int, dtype, device, cache, num_kv_heads=None):
     """``cache`` when its leaves have the shapes and dtypes of
     ``init_kv_cache(config, B, cache_len, dtype)`` on ``device``, else a new
     cache of those."""
-    want = init_kv_cache(config, B, cache_len, dtype=dtype, device="meta")
+    want = init_kv_cache(config, B, cache_len, dtype=dtype, device="meta",
+                         num_kv_heads=num_kv_heads)
     if isinstance(want, dict):
         fits = isinstance(cache, dict) and set(cache) == set(want)
         pairs = [(cache[k], want[k]) for k in want] if fits else []
@@ -368,14 +375,15 @@ def _arena(config, B: int, cache_len: int, dtype, device, cache):
     if fits and all(a.shape == b.shape and a.dtype == b.dtype and a.device == device
                     for a, b in pairs):
         return cache
-    return init_kv_cache(config, B, cache_len, dtype=dtype, device=device)
+    return init_kv_cache(config, B, cache_len, dtype=dtype, device=device,
+                         num_kv_heads=num_kv_heads)
 
 
 def _generate(params, config, prefix_embeds, prefix_mask, combined_embed, *,
               max_new_tokens, budget, initial_head, temperature, eos_id, seed,
               pad_to_multiple, constrain_time, frame_time_ids, stop_sequences,
               impl, prefill_batch=None, cache=None, time_phases=True,
-              max_steps=None) -> GenerateOutput:
+              max_steps=None, tp_group=None) -> GenerateOutput:
     """Bucket, prefill (whole or in sub-batches into one cache), decode."""
     if isinstance(prefix_embeds, list):
         prefix_embeds = prefix_embeds.pop()  # empty the caller's list
@@ -387,18 +395,19 @@ def _generate(params, config, prefix_embeds, prefix_mask, combined_embed, *,
     dev = prefix_embeds.device
     cache_len = bucket + budget
 
+    kv_heads = local_kv_heads(params["layers"], config, tp_group)
     t0 = time.perf_counter()
     if prefill_batch is None or prefill_batch >= B:
         cache, cache_mask, last_hidden, next_pos = prefill(
             params, config, prefix_embeds, prefix_mask,
-            cache_len=cache_len, impl=impl,
+            cache_len=cache_len, impl=impl, tp_group=tp_group,
             cache=None if cache is None else _arena(
-                config, B, cache_len, prefix_embeds.dtype, dev, cache))
+                config, B, cache_len, prefix_embeds.dtype, dev, cache, kv_heads))
     else:
-        cache = _arena(config, B, cache_len, prefix_embeds.dtype, dev, cache)
+        cache = _arena(config, B, cache_len, prefix_embeds.dtype, dev, cache, kv_heads)
         cache_mask, last_hidden, next_pos = _prefill_into(
             params, config, cache, prefix_embeds, prefix_mask,
-            prefill_batch=prefill_batch, cache_len=cache_len, impl=impl)
+            prefill_batch=prefill_batch, cache_len=cache_len, impl=impl, tp_group=tp_group)
     embed_dtype = prefix_embeds.dtype
     # the prefix (~B*P*D) is dead once prefilled
     del prefix_embeds
@@ -414,7 +423,7 @@ def _generate(params, config, prefix_embeds, prefix_mask, combined_embed, *,
         temperature=temperature, eos_id=eos_id, seed=seed,
         constrain_time=constrain_time, frame_time_ids=frame_time_ids,
         stop_sequences=stop_sequences, max_steps=max_steps,
-        embed_dtype=embed_dtype, impl=impl,
+        embed_dtype=embed_dtype, impl=impl, tp_group=tp_group,
     )
     tokens_np = tokens.cpu().numpy()  # waits for the decode loop
     phase_times = None
@@ -442,6 +451,7 @@ def generate(
     prefill_batch: Optional[int] = None,
     stop_sequences=None,
     impl: str = "auto",
+    tp_group=None,
 ) -> GenerateOutput:
     """Left-pad the prefix to a bucket of ``pad_to_multiple``, prefill a
     static cache of ``bucket + max_new_tokens`` slots, and run the FSM
@@ -455,14 +465,16 @@ def generate(
     ``impl="plain"``). Greedy decoding (temperature 0) is token-exact with
     the JAX package at fp32; with temperature > 0 tokens are drawn with
     ``torch.multinomial`` from a ``torch.Generator`` seeded with ``seed``,
-    which matches JAX's sampler in distribution, not bit for bit."""
+    which matches JAX's sampler in distribution, not bit for bit.
+    ``tp_group``: tensor-parallel layers on this rank's shards (see
+    ``generate_sharded``)."""
     out = _generate(
         params, config, prefix_embeds, prefix_mask, combined_embed,
         max_new_tokens=max_new_tokens, budget=max_new_tokens,
         initial_head=initial_head, temperature=temperature, eos_id=eos_id,
         seed=seed, pad_to_multiple=pad_to_multiple, constrain_time=constrain_time,
         frame_time_ids=frame_time_ids, stop_sequences=stop_sequences, impl=impl,
-        prefill_batch=prefill_batch)
+        prefill_batch=prefill_batch, tp_group=tp_group)
     out.cache = None
     return out
 
@@ -517,3 +529,62 @@ def generate_split(
         frame_time_ids=frame_time_ids, stop_sequences=stop_sequences, impl=impl,
         prefill_batch=prefill_batch, cache=cache, time_phases=time_phases,
         max_steps=max_new_tokens if token_budget else None)
+
+
+def generate_sharded(
+    params: dict,
+    config: DecoderConfig,
+    prefix_embeds: torch.Tensor,
+    prefix_mask: torch.Tensor,
+    combined_embed: torch.Tensor,
+    *,
+    mesh,
+    **kw,
+) -> GenerateOutput:
+    """Generation over a mesh (``runtime/mesh.py``): the batch over 'data',
+    the decoder tensor-parallel over 'model'.
+
+    Every rank of the mesh calls it with the same global prefix [B, P, D],
+    mask and combined table (whole), and ``params`` placed by
+    ``shard_params_for_inference`` (this rank's shards). A rank generates
+    the rows of its 'data' share, its layers running on its shards with the
+    'model' group's collectives (``decoder_forward``'s ``tp_group``: the
+    products column- and row-parallel, the KV cache holding the rank's kv
+    heads, the vocab-sharded ``lm_head`` gathered before the head FSM); the
+    rows are gathered over 'data' at the end, so every rank returns the
+    whole batch's tokens, as JAX's global array holds them. ``kw`` are
+    ``generate``'s; ``decode_steps`` is the largest over the 'data' shares.
+
+    The JAX package turns its Pallas kernels off here, because GSPMD cannot
+    partition a custom call; each rank here runs the hand-written kernels at
+    its local shapes. An int4p (nibble-packed) tree raises ``ValueError``, as
+    there: it is a single-device serving format."""
+    import torch.distributed as dist
+
+    from trace_tpu_torch.model.quantize import is_packed4
+    from trace_tpu_torch.parallel.collectives import all_reduce, gather
+
+    if any(is_packed4(l) for l in params.get("layers", {}).values()):
+        raise ValueError(
+            "int4p (nibble-packed) weights are single-chip only; use "
+            "quant='int8' or 'int4' for sharded generation"
+        )
+    B = prefix_embeds.shape[0]
+    dn, di = mesh.shape["data"], mesh.coord("data")
+    if B % dn:
+        raise ValueError(f"batch {B} does not divide over 'data' ({dn})")
+    rows = slice(di * (B // dn), (di + 1) * (B // dn))
+    dev = mesh.device
+    ft = kw.get("frame_time_ids")
+    if ft is not None:
+        kw["frame_time_ids"] = ft[rows].to(dev)
+    out = generate(params, config, prefix_embeds[rows].to(dev), prefix_mask[rows].to(dev),
+                   combined_embed.to(dev), tp_group=mesh.group("model"), **kw)
+    data = mesh.group("data")
+    tokens = gather(torch.from_numpy(out.tokens).to(dev), 0, data)
+    num = gather(torch.from_numpy(out.num_generated).to(dev), 0, data)
+    steps = all_reduce(torch.tensor([out.decode_steps], device=dev), data,
+                       op=dist.ReduceOp.MAX)
+    return GenerateOutput(tokens=tokens.cpu().numpy(), num_generated=num.cpu().numpy(),
+                          decode_steps=int(steps.item()), phase_times=out.phase_times)
+

@@ -40,8 +40,10 @@ from trace_tpu_torch.model.quantize import (
 )
 from trace_tpu_torch.model.towers import frame_time_tokens
 from trace_tpu_torch.model.trace_model import (
+    build_input_embeds,
     combined_embedding,
     encode_prefix_for_generation,
+    encode_video,
     tokens_per_frame,
 )
 from trace_tpu_torch.model.vit import extract_patches, fuse_vision_qkv
@@ -87,6 +89,39 @@ def expand_prompt_ids(
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def encode_prefix_sharded(
+    params: dict,
+    config: TraceConfig,
+    token_ids,          # [B, L] combined-space ids
+    video_pos,          # [B]
+    frames,             # [B, T, S, S, 3] CLIP-normalized, or [B, T, N, 3*p*p] patches
+    frame_time_ids,     # [B, T, 6]
+    table,              # [CV, D] combined embedding
+    mesh,
+    *,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Frame-parallel prefix encode over a mesh (``runtime/mesh.py``).
+
+    Every rank passes the same global batch. Its rows go over 'data' and
+    each video's frames over 'model' (``shard_batch``): a rank's ViT encodes
+    its share of the frames, unchunked, with the vision weights whole on
+    every rank; the features are gathered over 'model', the connector and
+    the splice run on the whole prefix of the rank's rows, and the rows are
+    gathered over 'data', so every rank returns the whole [B, L, D]."""
+    from trace_tpu_torch.parallel.collectives import gather
+    from trace_tpu_torch.runtime.mesh import shard_batch
+
+    cfg = dataclasses.replace(config, vit_chunk_size=0)
+    batch = shard_batch({"token_ids": token_ids, "video_pos": video_pos, "frames": frames,
+                         "frame_time_ids": frame_time_ids}, mesh)
+    feats = encode_video(params, cfg, batch["frames"], batch["frame_time_ids"], impl=impl,
+                         frame_group=mesh.group("model"))
+    prefix = build_input_embeds(params, cfg, batch["token_ids"], feats, batch["video_pos"],
+                                table=table.to(mesh.device))
+    return gather(prefix, 0, mesh.group("data"))
 
 
 @dataclasses.dataclass

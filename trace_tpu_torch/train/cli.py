@@ -1,4 +1,4 @@
-"""Training CLI (trace_tpu/train/cli.py): the same flags, one device.
+"""Training CLI (trace_tpu/train/cli.py): the same flags.
 
 Stage recipes:
   --stage pretrain   freeze LM backbone; tune connector (projector lr 1e-3)
@@ -17,9 +17,16 @@ Example:
 CLIP dir of --vision-path (``checkpoint.convert.build_from_base_models``,
 resuming the connector from --pretrain-mm-adapter); both read the
 tokenizer saved beside the weights. Without either it trains the tiny random
-model, as the JAX package's CLI does. Pipeline stages (--pp-stages) and
-more than one process (--coordinator, --num-processes) are not ported and
-raise ``NotImplementedError``.
+model, as the JAX package's CLI does.
+
+More than one process: every process runs the CLI with the same
+--coordinator (host:port of rank 0's rendezvous) and --num-processes, and
+its own --process-id (or the torchrun variables, ``runtime/distributed.py
+initialize``); a rank takes the CUDA card of its local index, or --device.
+--pp-stages S pipelines the decoder over S stages (a rank a stage, S must
+divide the processes; ``parallel/pipeline.py``); otherwise the processes
+form a ('data', 'model') mesh (``runtime/mesh.py build_mesh`` over
+--mesh-devices, 0 = all) for data- and tensor-parallel training.
 """
 
 from __future__ import annotations
@@ -58,14 +65,14 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="LoRA rank for --stage lora (reference default)")
     ap.add_argument("--lora-alpha", type=float, default=256.0)
     ap.add_argument("--pp-stages", type=int, default=0,
-                    help="pipeline-parallel decoder stages (0 = off; not ported)")
+                    help="pipeline-parallel decoder stages (0 = off)")
     ap.add_argument("--pp-microbatches", type=int, default=2)
     ap.add_argument("--coordinator", default=None,
-                    help="host:port of process 0's coordination service (not ported)")
+                    help="host:port of process 0's coordination service")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--device", default=None,
-                    help="torch device; default: the CUDA card, which must exist")
+                    help="torch device; default: the CUDA card of this rank, which must exist")
     return ap
 
 
@@ -82,15 +89,37 @@ def main(argv=None):
     from trace_tpu_torch.params import init_trace_params
     from trace_tpu_torch.tokenizers.text import ByteTokenizer
     from trace_tpu_torch.train.train import TrainRecipe, train_loop
+    from trace_tpu_torch.runtime.distributed import (
+        initialize,
+        is_primary,
+        local_device,
+        process_count,
+    )
 
-    if args.pp_stages:
-        raise NotImplementedError("--pp-stages: pipeline parallelism is not ported")
-    if args.coordinator or (args.num_processes or 1) > 1:
-        raise NotImplementedError(
-            "--coordinator / --num-processes: multi-process training is not ported")
-    device = torch.device("cuda" if args.device is None else args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    # NCCL between cards, gloo between CPU ranks
+    initialize(args.coordinator, args.num_processes, args.process_id,
+               backend="gloo" if cpu else None)
+    world = process_count()
+    if args.pp_stages and (args.pp_stages > world or world % args.pp_stages):
+        raise ValueError(f"--pp-stages {args.pp_stages} needs a multiple of as many processes "
+                         f"(a rank a stage); there are {world}")
+    if args.device is None and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
+    device = local_device(args.device)
+    mesh = pp_mesh = None
+    if args.pp_stages:
+        from trace_tpu_torch.parallel.pipeline import build_pp_mesh
+
+        pp_mesh = build_pp_mesh(args.pp_stages, world, device=device)
+        if is_primary():
+            print(f"pipeline mesh: {pp_mesh.shape}")
+    elif world > 1:
+        from trace_tpu_torch.runtime.mesh import build_mesh
+
+        mesh = build_mesh(args.mesh_devices or None, device=device)
+        if is_primary():
+            print(f"mesh: {mesh.shape} over {world} processes")
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if args.init_checkpoint:
@@ -158,12 +187,14 @@ def main(argv=None):
     os.makedirs(args.output_dir, exist_ok=True)
     params, _, metrics = train_loop(
         params, config, dataset, recipe,
-        batch_size=args.batch_size,
+        batch_size=args.batch_size, mesh=mesh,
         checkpoint_dir=os.path.join(args.output_dir, "checkpoints"),
         save_every=args.save_steps,
+        pp_mesh=pp_mesh, pp_microbatches=args.pp_microbatches,
         device=device,
     )
-    print("final metrics:", {k: float(v) for k, v in metrics.items()})
+    if is_primary():
+        print("final metrics:", {k: float(v) for k, v in metrics.items()})
 
 
 if __name__ == "__main__":

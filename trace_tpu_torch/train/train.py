@@ -18,6 +18,13 @@ learning rate, on the ``decay_mask`` leaves and only when
 ``weight_decay != 0``; ``grad_accum_steps = k`` averages k gradients and
 updates on every k-th call.
 
+Under a mesh (``runtime/mesh.py``) a rank holds its shards of the params
+and the moments: gradients add up over 'data' (so a step is the step on the
+global batch), and every global norm (clipping, ``grad_norm``) adds the
+squares of the sharded leaves over 'model'. Under a pipeline mesh
+(``parallel/pipeline.py``) every rank holds the whole tree, and the layer
+gradients, each stage's on its own ranks, add up over 'stage'.
+
 Unlike the JAX step, which returns new trees, ``train_step`` updates the
 parameters and the optimizer state IN PLACE and returns the same objects:
 a second copy of a 7B tree does not fit beside the first. Leaves the stage
@@ -37,6 +44,7 @@ import torch
 
 from trace_tpu_torch.model.config import TraceConfig
 from trace_tpu_torch.model.trace_model import forward_train
+from trace_tpu_torch.parallel.collectives import all_reduce
 from trace_tpu_torch.video.preprocess import preprocess_frames
 
 
@@ -160,14 +168,35 @@ def cosine_schedule(recipe: TrainRecipe, lr: float) -> Callable[[int], float]:
 _UPDATE_SLICE_NUMEL = 1 << 27
 
 
+def global_sq(pairs, device, sharded=frozenset(), group=None) -> torch.Tensor:
+    """The squared global norm of (path, tensor) pairs whose ``sharded``
+    paths hold a rank's slice over ``group`` (their squares add up over it)
+    while the others are whole on every rank: an fp32 scalar on ``device``.
+    Every rank of the group calls it (it all-reduces even with nothing
+    sharded)."""
+    def sq(ts):
+        return (torch.stack([t.float().square().sum() for t in ts]).sum() if ts
+                else torch.zeros((), dtype=torch.float32, device=device))
+
+    total = sq([g for p, g in pairs if p not in sharded])
+    if group is not None:
+        total = total + all_reduce(sq([g for p, g in pairs if p in sharded]), group)
+    return total
+
+
 class Optimizer:
     """AdamW over the 'base' and 'projector' leaves of a params tree, each
     label clipped by its own global norm and on its own learning rate; frozen
     leaves are never touched. ``init`` makes the state, ``update`` applies one
-    gradient tree to the parameters in place."""
+    gradient tree to the parameters in place. ``sharded`` / ``group``: the
+    paths of the leaves a rank holds a slice of and the group over which
+    their squares add up (``runtime/mesh.py sharded_paths``, the 'model'
+    group)."""
 
-    def __init__(self, params: dict, recipe: TrainRecipe):
+    def __init__(self, params: dict, recipe: TrainRecipe, *, sharded=frozenset(),
+                 group=None):
         self.recipe = recipe
+        self.sharded, self.group = frozenset(sharded), group
         self.labels = dict(tree_paths(param_labels(params, recipe.stage)))
         self.decay = dict(tree_paths(decay_mask(params)))
         self.schedules = {
@@ -212,8 +241,9 @@ class Optimizer:
 
         scale = {}
         for label in ("base", "projector"):
-            sq = [grads[p].float().square().sum() for p, _ in leaves if self.labels[p] == label]
-            norm = torch.stack(sq).sum().sqrt().item() if sq else 0.0
+            pairs = [(p, grads[p]) for p, _ in leaves if self.labels[p] == label]
+            device = leaves[0][1].device if leaves else "cpu"
+            norm = global_sq(pairs, device, self.sharded, self.group).sqrt().item()
             scale[label] = 1.0 if norm < r.max_grad_norm else r.max_grad_norm / norm
         lrs = self.learning_rates(state)
         state["count"] += 1
@@ -243,8 +273,9 @@ class Optimizer:
                 acc.zero_()
 
 
-def build_optimizer(params: dict, recipe: TrainRecipe) -> Optimizer:
-    return Optimizer(params, recipe)
+def build_optimizer(params: dict, recipe: TrainRecipe, *, sharded=frozenset(),
+                    group=None) -> Optimizer:
+    return Optimizer(params, recipe, sharded=sharded, group=group)
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +307,9 @@ def make_train_step(
     *,
     remat: bool = True,
     freeze_stage: Optional[str] = None,
+    mesh=None,
+    pp_mesh=None,
+    pp_microbatches: int = 1,
 ):
     """Returns ``(params, opt_state, batch) -> (params, opt_state, metrics)``.
     The trees are updated in place and handed back; ``batch`` holds numpy
@@ -285,7 +319,16 @@ def make_train_step(
     ``requires_grad_(False)``: without it every leaf outside the vision tower
     takes a gradient (and ``metrics["grad_norm"]`` counts it) although the
     optimizer moves none of the frozen ones. ``metrics["grad_norm"]`` is the
-    norm of all gradients of this call before clipping."""
+    norm of all gradients of this call before clipping.
+
+    ``mesh``: the params are a rank's shards (``shard_params``; ``tx`` built
+    with the sharded paths and the 'model' group) and ``batch`` its 'data'
+    rows with all their frames; the gradients add up over 'data'.
+    ``pp_mesh``: the decoder is pipelined over its stages in
+    ``pp_microbatches`` microbatches; the layer gradients add up over
+    'stage'."""
+    data = mesh.group("data") if mesh is not None else None
+    stage = pp_mesh.group("stage") if pp_mesh is not None else None
 
     def train_step(params, opt_state, batch):
         leaves = list(tree_paths(params))
@@ -299,20 +342,26 @@ def make_train_step(
         if "frames" not in batch:
             batch["frames"] = preprocess_batch_frames(batch.pop("frames_u8"), config)
 
-        loss, metrics = forward_train(params, config, batch, remat=remat)
+        loss, metrics = forward_train(params, config, batch, remat=remat, mesh=mesh,
+                                      pp_mesh=pp_mesh, pp_microbatches=pp_microbatches)
         loss.backward()
 
-        grads, sq = {}, []
+        grads, every = {}, []
         for path, x in leaves:
             if not x.requires_grad:
                 continue
             g = x.grad if x.grad is not None else torch.zeros_like(x)
-            sq.append(g.float().square().sum())
+            if data is not None:
+                g = all_reduce(g, data)
+            if stage is not None and path.startswith("decoder/layers/"):
+                g = all_reduce(g, stage)
+            every.append((path, g))
             if tx.labels[path] != "frozen":
                 grads[path] = g
             x.grad = None
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = torch.stack(sq).sum().sqrt()
+        metrics["grad_norm"] = global_sq(every, device, getattr(tx, "sharded", frozenset()),
+                                         getattr(tx, "group", None)).sqrt()
         tx.update(params, opt_state, grads)
         return params, opt_state, metrics
 
@@ -350,32 +399,66 @@ def train_loop(
 ):
     """Minimal epoch loop with modality-grouped order, checkpoints and
     auto-resume, on ``device`` (default: the CUDA card, which must exist;
-    pass ``device="cpu"`` to run on the CPU). One process, one device: a
-    ``mesh`` or ``pp_mesh`` raises ``NotImplementedError``. Returns
-    (params, opt_state, metrics of the last step); the params are the
-    caller's tensors when they already lie on the device, updated in place."""
-    if mesh is not None or pp_mesh is not None:
-        raise NotImplementedError(
-            "sharded and pipeline-parallel training are not ported: one device only")
+    pass ``device="cpu"`` to run on the CPU). Returns (params, opt_state,
+    metrics of the last step); the params are the caller's tensors when they
+    already lie on the device, updated in place.
+
+    More than one process (``runtime/distributed.py initialize`` first):
+    ``batch_size`` stays the GLOBAL batch. With ``mesh`` (``build_mesh``,
+    on its device) the params are sharded before the optimizer is built, so
+    the moments are sharded like them; each rank loads its 'data' share of
+    every global batch (``process_order_shard``), and a step equals the
+    step on the global batch. With ``pp_mesh`` every rank loads the whole
+    batch and runs its stages. Each rank writes its own checkpoint file and
+    resumes from it on the same mesh; only the primary logs."""
+    from trace_tpu_torch.runtime.distributed import (
+        host_local_to_global,
+        is_primary,
+        process_count,
+        process_index,
+        process_order_shard,
+    )
+    from trace_tpu_torch.runtime.mesh import Mesh, shard_params, sharded_paths
+
+    for name, m in (("mesh", mesh), ("pp_mesh", pp_mesh)):
+        if m is not None and not isinstance(m, Mesh):
+            raise TypeError(f"{name} must be a runtime.mesh.Mesh, got {type(m).__name__}")
+    if mesh is not None and pp_mesh is not None:
+        raise ValueError("a mesh and a pipeline mesh together are not supported")
+    if pp_mesh is not None and "stage" not in pp_mesh.shape:
+        raise ValueError("pp_mesh needs a 'stage' axis (parallel.pipeline.build_pp_mesh)")
+    placed = mesh or pp_mesh
+    if placed is not None:
+        device = placed.device
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "train_loop: no CUDA device; pass device='cpu' explicitly to run on the CPU")
+    n_proc = process_count()
+    if n_proc > 1 and placed is None:
+        raise ValueError("multi-process training requires a mesh")
 
     from trace_tpu_torch.data.loader import PrefetchLoader
     from trace_tpu_torch.data.sampler import modality_grouped_indices
 
-    params = _to_device(params, device)
-    tx = build_optimizer(params, recipe)
+    sharded, group = frozenset(), None
+    if mesh is not None:
+        sharded, group = sharded_paths(params, mesh), mesh.group("model")
+        params = shard_params(params, mesh)
+    else:
+        params = _to_device(params, device)
+    tx = build_optimizer(params, recipe, sharded=sharded, group=group)
     opt_state = tx.init(params)
-    step_fn = make_train_step(config, tx, freeze_stage=recipe.stage)
+    step_fn = make_train_step(config, tx, freeze_stage=recipe.stage, mesh=mesh,
+                              pp_mesh=pp_mesh, pp_microbatches=pp_microbatches)
 
     start_step = 0
     ckpt = None
     if checkpoint_dir:
         from trace_tpu_torch.checkpoint.io import CheckpointManager
 
-        ckpt = CheckpointManager(checkpoint_dir)
+        ckpt = CheckpointManager(
+            checkpoint_dir, shard=(process_index(), n_proc) if n_proc > 1 else None)
         if resume:
             restored = ckpt.restore_latest(params, opt_state)
             if restored is not None:
@@ -385,15 +468,20 @@ def train_loop(
     order = modality_grouped_indices(
         lengths, batch_size, seed=recipe.total_steps
     ) if lengths else list(range(len(dataset)))
+    local_bs = batch_size
+    if mesh is not None and mesh.shape["data"] > 1:
+        local_bs = batch_size // mesh.shape["data"]
+        order = process_order_shard(order, batch_size, index=mesh.coord("data"),
+                                    count=mesh.shape["data"])
 
     mlog = None
-    if metrics_path:
+    if metrics_path and is_primary():
         from trace_tpu_torch.utils.profiling import MetricsLogger
 
         mlog = MetricsLogger(metrics_path)
 
     loader = PrefetchLoader(
-        dataset, batch_size, order=order[start_step * batch_size:],
+        dataset, local_bs, order=order[start_step * local_bs:],
         num_workers=4, prefetch_batches=2,
     )
 
@@ -401,9 +489,11 @@ def train_loop(
     metrics = {}
     try:
         for batch in loader:
+            if mesh is not None:
+                batch = host_local_to_global(batch, mesh)
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             step += 1
-            if log_every and step % log_every == 0:
+            if log_every and step % log_every == 0 and is_primary():
                 m = {k: float(v) for k, v in metrics.items()}
                 print(f"step {step}: " + " ".join(f"{k}={v:.4f}" for k, v in m.items()),
                       flush=True)
