@@ -81,13 +81,17 @@ Phases, in order; any failure exits non-zero:
      the connector, the towers and decoder layer 0.
   7. a TRACE-7B checkpoint of the released merged layout (690 keys, bf16,
      random values) written to a temporary directory and served through the
-     public API: ``model_init`` in bf16 and int8, ``infer_events`` on an
-     ``.npy`` of 256 640x360 frames, ``serve`` over four such files and one
-     that does not load (see ``checkpoint_phase``).
+     public API: ``model_init`` in bf16, int8 and int4, ``infer_events`` on
+     an ``.npy`` of 256 640x360 frames and on ``.mp4`` files of such frames
+     (cv2.VideoWriter, mp4v), read on the route ``video.io
+     .container_reader`` names (OpenCV where the native decoder does not
+     build), ``serve`` over the ``.npy`` files and one that does not load,
+     and over the ``.mp4`` files and a junk one (see ``checkpoint_phase``).
   8. the evaluation entry points on that checkpoint and those videos
      (``eval_phase``): ``eval.evaluate.main`` for tvg in bf16,
      ``runtime.inference.main``, ``run_vtg_eval`` for dvc in int8 scored
-     as dvc, dvc-anet and vhd, and ``run_mvbench`` on JPEG frame dumps.
+     as dvc, dvc-anet and vhd, ``run_mvbench`` on JPEG frame dumps and on
+     ``.mp4`` clips, and ``run_videomme`` on phase 7's ``.mp4`` files.
   9. the other backbones at full width and a depth of 8 layers, each from a merged checkpoint
      written here and loaded through ``model_init`` (``families_phase``):
      qwen2-7B (G = 7, qkv biases) with spatial_slot, two requests in bf16
@@ -1445,10 +1449,11 @@ def watch_plain(torch):
 
 
 def on_path(torch, label: str, run):
-    """Check (e): ``run()`` with the entries of rows 1, 2, 3, 3b, 4 and 5
-    watched where the model calls them (the attention wrappers; for the
-    int8 weight products ``quant_apply`` and ``quant_apply_stacked``, which
-    hand an int8 leaf to ``quant_matmul`` and ``quant_matmul_stacked``). The
+    """Check (e): ``run()`` with the entries of rows 1-7 watched where the
+    model calls them (the attention wrappers; for the weight products
+    ``quant_apply`` and ``quant_apply_stacked``, which hand an int8 leaf to
+    ``quant_matmul`` and ``quant_matmul_stacked``, a nibble-packed one to
+    ``quant_matmul_p4`` or, with group scales, ``quant_matmul_p4_grouped``). The
     first call of each at each input shape is repeated at once, before
     anything writes over its inputs, with ``impl="plain"``, and the two are
     held to the row's limits as phase 3 holds them: the weight products in
@@ -1470,9 +1475,14 @@ def on_path(torch, label: str, run):
     def row_of(attr, a, k):
         """The row a call runs, or None for a call that reaches no kernel."""
         if attr.startswith("quant_apply"):
-            int8 = isinstance(a[1], dict) and "q" in a[1]
+            leaf = a[1]
+            if not isinstance(leaf, dict):
+                return None
             wide = a[0].numel() // a[0].shape[-1] > SPLIT_ROWS  # rows of x
-            return ("quant_matmul" + attr[len("quant_apply"):] + "_wide" * wide) if int8 else None
+            if "qp" in leaf:  # rows 6 and 7: the tensor-core form beyond SPLIT_ROWS
+                grouped = leaf["s"].shape[-2] > 1
+                return "quant_matmul_p4" + "_grouped" * grouped + "_mma" * wide
+            return "quant_matmul" + attr[len("quant_apply"):] + "_wide" * wide
         if attr == "decode_attention" and isinstance(a[1], dict):
             return f"decode_attention_int8_{k.get('mode', 's8dot')}"
         return attr
@@ -2229,6 +2239,16 @@ CKPT_VIDEOS = 4          # served with one file that does not load
 CKPT_NEW = 64            # new tokens of a request
 CKPT_ROWS = ("flash_attention", "vit_attention_btd", "decode_attention_int8_s8dot",
              "quant_matmul", "quant_matmul_stacked")
+# the .mp4 files: the first CKPT_MP4 .npy sources written with cv2.VideoWriter
+# (mp4v, 25 fps, 640x360, all 256 frames), each read back through
+# video/io.py on the route this machine gives (container_reader)
+CKPT_MP4 = 2
+CKPT_MP4_FPS = 25.0
+CKPT_BF16_ROWS = ("flash_attention", "vit_attention_btd", "decode_attention")
+# the int4 request (model_init(quant="int4")): rows 1, 2, 3b, 4 (lm_head) and
+# both forms of row 6 (split-K in the steps, tensor-core in the prefill)
+CKPT_INT4_ROWS = ("flash_attention", "vit_attention_btd", "decode_attention_int8_s8dot",
+                  "quant_matmul", "quant_matmul_p4", "quant_matmul_p4_mma")
 # leaves held bit for bit against the bytes written: (key, its leaf, the
 # converter's transform of the HF tensor)
 CKPT_SAMPLES = (
@@ -2389,47 +2409,155 @@ def tree_leaves(tree, prefix=""):
     return {prefix[:-1]: tree}
 
 
-def checkpoint_phase(torch, tmp: Path) -> tuple:
-    """Phase 7: write the TRACE-7B checkpoint, then (a) ``model_init`` bf16:
-    every key read once, every leaf's shape and dtype those of
-    ``init_trace_params``, sampled leaves bit-equal to the bytes written, the
-    tree on the card; (b) ``model_init`` int8: its decoder bit-equal to
-    ``quantize_decoder_params`` + ``fuse_decoder_serving`` of (a)'s tree on
-    the card, the set-up's peak card memory; (c) ``infer_events`` on an
-    ``.npy`` video: EventPredictions, the rows of the path launched, no plain
-    version on the card, the same tokens as ``infer_events_from_frames`` on
-    ``load_video_frames``' output, whose kernels are held against their
-    plain versions (check (e) of phase 5); (d) ``serve`` over the videos and
-    a file that does not load: one JSONL line each, one of them an error."""
-    import gc
-    import shutil
+def write_mp4(path: Path, frames) -> None:
+    """uint8 RGB ``frames`` [T, H, W, 3] written to ``path`` with
+    cv2.VideoWriter (mp4v, CKPT_MP4_FPS), then opened again with cv2: the
+    phase fails with OpenCV's own words where it cannot write or read mp4v."""
+    import cv2
+    import numpy as np
 
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), CKPT_MP4_FPS,
+                             (frames.shape[2], frames.shape[1]))
+    if not writer.isOpened():
+        fail(f"cv2 {cv2.__version__} cannot write mp4v to {path}: VideoWriter did not open; "
+             f"its video I/O: {cv2.getBuildInformation().split('Video I/O:')[-1][:400]}")
+    for f in frames:
+        writer.write(np.ascontiguousarray(f[..., ::-1]))  # RGB to OpenCV's BGR
+    writer.release()
+    cap = cv2.VideoCapture(str(path))
+    ok = cap.isOpened() and cap.read()[0]
+    count = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    if not ok or count != len(frames):
+        fail(f"cv2 {cv2.__version__} cannot read back {path.name} ({path.stat().st_size} "
+             f"bytes): opened and read {ok}, {count} of {len(frames)} frames reported")
+
+
+def video_request(torch, pipe, cfg, video: Path, label: str, rows, decoder=None) -> dict:
+    """One ``infer_events`` on the file ``video``: EventPredictions, ``rows``
+    launched, no plain version on the card, one container read on the route
+    of ``container_reader`` for an ``.mp4`` (none for an ``.npy``), head
+    slices; then
+    ``infer_events_from_frames`` on ``load_video_frames(video)`` under check
+    (e) (with ``decoder`` in place of the pipeline's decoder tree where
+    given) gives the same tokens. Returns the request's stats."""
     import numpy as np
 
     from trace_tpu_torch import EventPredictions, infer_events
+    from trace_tpu_torch.video.io import CONTAINER_READS, container_reader, load_video_frames
+
+    route = container_reader().split()[0]
+    reads = dict(CONTAINER_READS)
+    reset_serving_launches()
+    plain_counts, undo = watch_plain(torch)
+    try:
+        t0 = time.perf_counter()
+        pred = infer_events(pipe, str(video), CORPUS_ASK, max_new_tokens=CKPT_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        undo()
+    launches = serving_launches()
+    tokens = pipe.last_stats["tokens"]
+    plain = {k: v for k, v in plain_counts.items() if v}
+    read = {k: CONTAINER_READS[k] - reads[k] for k in reads}
+    s = pipe.last_stats
+    print(f"checkpoint check {label}: infer_events on {video.name} ({route} route, reads "
+          f"{read}): wall {wall:.2f} s (encode {s['encode_s']:.2f} s, prefill "
+          f"{s['prefill_s']:.3f} s, {s['decode_steps']} steps "
+          f"{1e3 * s['decode_s'] / max(s['decode_steps'], 1):.2f} ms/step), "
+          f"{s['prefix_tokens']} prefix tokens; events {len(pred.timestamps)}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; plain versions on the card: "
+          f"{plain or 'none'}", flush=True)
+    idle = [r for r in rows if launches[r] <= 0]
+    want_read = {**dict.fromkeys(read, 0), **({route: 1} if video.suffix == ".mp4" else {})}
+    if not isinstance(pred, EventPredictions) or idle or plain or read != want_read:
+        fail(f"checkpoint {label}: output {type(pred).__name__}, rows {idle} not launched, "
+             f"plain versions {plain} on the card, container reads {read} (want {want_read})")
+    check_head_slices(cfg.decoder, tokens)
+    frames, ts = load_video_frames(str(video), cfg.num_frames)
+    own = pipe._decoder_params
+    if decoder is not None:
+        pipe._decoder_params = decoder
+    try:
+        _, held = on_path(torch, f"checkpoint request {label}", lambda: pipe.infer_events_from_frames(
+            frames, ts, CORPUS_ASK, max_new_tokens=CKPT_NEW))
+    finally:
+        pipe._decoder_params = own
+    if not np.array_equal(pipe.last_stats["tokens"], tokens):
+        fail(f"checkpoint {label}: infer_events on {video.name} and infer_events_from_frames "
+             f"on load_video_frames' output gave other tokens")
+    print(f"checkpoint check {label}: infer_events_from_frames on load_video_frames' output "
+          f"({frames.shape[1]}x{frames.shape[2]} frames)"
+          f"{' with the reference decoder tree' if decoder is not None else ''} gave the same "
+          f"{tokens.shape[1]} tokens", flush=True)
+    return {"wall_s": wall, "encode_s": s["encode_s"], "prefill_s": s["prefill_s"],
+            "decode_s": s["decode_s"], "decode_steps": s["decode_steps"],
+            "prefix_tokens": s["prefix_tokens"], "launches": launches, "reads": read,
+            "on_path": held}
+
+
+def serve_check(pipe, paths, out: Path, label: str, bad: str) -> dict:
+    """``serve`` over ``paths``: one JSONL line a file, exactly one an error,
+    the one for ``bad``."""
+    from trace_tpu_torch.runtime.serve_batch import serve
+
+    result = serve(pipe, [str(p) for p in paths], str(out), frames=pipe.config.num_frames,
+                   max_new_tokens=CKPT_NEW)
+    lines = [json.loads(line) for line in out.read_text().splitlines()]
+    errors = [line for line in lines if "error" in line]
+    print(f"checkpoint check {label}: serve over {len(paths)} files: {len(lines)} JSONL lines, "
+          f"{len(errors)} error ({errors[0]['error'][:60] if errors else ''}); "
+          f"{result['videos_per_s']:.4f} videos/s ({result['seconds']:.2f} s, {CKPT_NEW} new "
+          "tokens, decode batch 32)", flush=True)
+    if len(lines) != len(paths) or len(errors) != 1 or bad not in errors[0]["video"]:
+        fail(f"checkpoint {label}: serve did not write one line a video with the one error")
+    return result
+
+
+def checkpoint_phase(torch, tmp: Path) -> tuple:
+    """Phase 7: write the TRACE-7B checkpoint, its .npy videos and two of
+    them as .mp4 (cv2.VideoWriter, mp4v), then (a) ``model_init`` bf16:
+    every key read once, every leaf's shape and dtype those of
+    ``init_trace_params``, sampled leaves bit-equal to the bytes written, the
+    tree on the card; (c') ``infer_events`` on an ``.mp4`` with (a)'s
+    pipeline: EventPredictions, rows 1, 2 and 3 launched, no plain version on
+    the card, one container read on the route ``container_reader`` names, the
+    same tokens as ``infer_events_from_frames`` on ``load_video_frames``'
+    output, whose kernels are held against their plain versions (check (e)
+    of phase 5); (d') ``serve`` over the .mp4s and a junk .mp4: one JSONL
+    line each, the junk one an error; (b) ``model_init`` int8: its decoder
+    bit-equal to ``quantize_decoder_params`` + ``fuse_decoder_serving`` of
+    (a)'s tree on the card, the set-up's peak card memory; (c) as (c') on an
+    ``.npy`` with the int8 pipeline; (d) ``serve`` over the .npy videos and
+    a file that does not load; (b') ``model_init(quant="int4")``: its
+    decoder bit-equal to ``quantize_decoder_params(bits=4, pack=True,
+    group=0)`` + ``fuse_decoder_serving`` of (a)'s tree on the card,
+    weight-only with the int8 KV cache, the set-up's peak and the decoder's
+    GiB; then (c') on an ``.mp4`` with rows 1, 2, 3b, 4 and both forms of
+    row 6, whose check (e) runs (a)'s group-0 tree from the card."""
+    import gc
+    import shutil
+
+    import cv2
+    import numpy as np
+
     from trace_tpu_torch.checkpoint import convert
     from trace_tpu_torch.model.config import TraceConfig
     from trace_tpu_torch.model.quantize import fuse_decoder_serving, quantize_decoder_params
-    from trace_tpu_torch.native import videodec
     from trace_tpu_torch.params import init_trace_params
     from trace_tpu_torch.runtime import pipeline as pl
-    from trace_tpu_torch.runtime.serve_batch import serve
     from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
-    from trace_tpu_torch.video.io import load_video_frames
+    from trace_tpu_torch.video.io import CONTAINER_READS, container_reader
 
     gib = lambda n: n / 2 ** 30
     t_phase = time.perf_counter()
-    stats = {}
-    try:
-        videodec.load()
-        stats["native_decoder"] = "built: FFmpeg's libraries are on this machine"
-    except videodec.NativeDecoderUnavailable as e:
-        stats["native_decoder"] = f"not available ({str(e).splitlines()[0]})"
+    stats = {"container_reader": container_reader()}
     meminfo = dict(line.split(":", 1) for line in Path("/proc/meminfo").read_text().splitlines())
     stats["host"] = {"disk_free_gib": gib(shutil.disk_usage(tmp).free),
                      "ram_available_gib": int(meminfo["MemAvailable"].split()[0]) / 2 ** 20,
                      "ram_total_gib": int(meminfo["MemTotal"].split()[0]) / 2 ** 20}
-    print(f"checkpoint: native video decoder {stats['native_decoder']}; host: "
+    print(f"checkpoint: video containers read through {stats['container_reader']}; host: "
           f"{stats['host']['disk_free_gib']:.1f} GiB free on disk at {tmp}, "
           f"{stats['host']['ram_available_gib']:.1f} of {stats['host']['ram_total_gib']:.1f} "
           "GiB of RAM available", flush=True)
@@ -2446,6 +2574,24 @@ def checkpoint_phase(torch, tmp: Path) -> tuple:
     print(f"checkpoint: {len(keys)} keys ({manifest['num_keys']} in the manifest, "
           f"{manifest['num_params']} parameters), {nbytes / 1e9:.2f} GB of bf16 in "
           f"{len(files)} shards written in {stats['write_s']:.1f} s", flush=True)
+    rng = np.random.default_rng(SEED)
+    videos = []
+    for v in range(CKPT_VIDEOS):
+        videos.append(tmp / f"video{v}.npy")
+        np.save(videos[-1], rng.integers(0, 256, (CKPT_VIDEO_FRAMES,) + CORPUS_HW + (3,),
+                                         dtype=np.uint8))
+    (tmp / "broken.npy").write_bytes(b"not a numpy file")
+    t0 = time.perf_counter()
+    stats["cv2"] = cv2.__version__
+    mp4s = [tmp / (v.stem + ".mp4") for v in videos[:CKPT_MP4]]
+    for v, m in zip(videos, mp4s):
+        write_mp4(m, np.load(v))
+    (tmp / "junk_container.mp4").write_bytes(b"not a video container")
+    print(f"checkpoint: cv2 {stats['cv2']} wrote {', '.join(m.name for m in mp4s)} "
+          f"({CKPT_VIDEO_FRAMES} frames {CORPUS_HW[1]}x{CORPUS_HW[0]}, mp4v, "
+          f"{CKPT_MP4_FPS:g} fps; {sum(m.stat().st_size for m in mp4s) / 1e6:.1f} MB) in "
+          f"{time.perf_counter() - t0:.1f} s; containers read through "
+          f"{stats['container_reader']}", flush=True)
 
     # (a) bf16
     reads, captured = {}, {}
@@ -2470,13 +2616,25 @@ def checkpoint_phase(torch, tmp: Path) -> tuple:
     inits = {}
     try:
         for quant in ("bf16", "int8"):
-            if quant == "int8":  # (a)'s decoder quantized on the card: (b)'s reference
+            if quant == "int8":
+                # (c') and (d') with (a)'s pipeline
+                stats["request_mp4"] = video_request(torch, pipe, cfg, mp4s[0], "(c')",
+                                                         CKPT_BF16_ROWS)
+                stats["serve_mp4"] = serve_check(pipe, mp4s + [tmp / "junk_container.mp4"],
+                                                 tmp / "serve_mp4.jsonl", "(d')",
+                                                 "junk_container")
+                # (a)'s decoder quantized on the card: (b)'s and (b')'s references
                 t0 = time.perf_counter()
                 ref = fuse_decoder_serving(quantize_decoder_params(pipe.params["decoder"]))
                 ref = {"layers": {n: ref["layers"][n] for n in ("wqkv", "wo", "w_gateup", "w_down")},
                        "lm_head": ref["lm_head"]}
                 torch.cuda.synchronize()
                 stats["card_quantize_s"] = time.perf_counter() - t0
+                ref4 = fuse_decoder_serving(quantize_decoder_params(
+                    pipe.params["decoder"], bits=4, pack=True, group=0))
+                ref4 = {"layers": {n: ref4["layers"][n]
+                                   for n in ("wqkv", "wo", "w_gateup", "w_down")},
+                        "lm_head": ref4["lm_head"]}
                 del pipe
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -2551,68 +2709,72 @@ def checkpoint_phase(torch, tmp: Path) -> tuple:
     del ref, dec, got, want
     torch.cuda.empty_cache()
 
-    # (c) infer_events on a video file, then the same frames with the kernels held
-    rng = np.random.default_rng(SEED)
-    videos = []
-    for v in range(CKPT_VIDEOS):
-        videos.append(tmp / f"video{v}.npy")
-        np.save(videos[-1], rng.integers(0, 256, (CKPT_VIDEO_FRAMES,) + CORPUS_HW + (3,),
-                                         dtype=np.uint8))
-    (tmp / "broken.npy").write_bytes(b"not a numpy file")
-    reset_serving_launches()
-    plain_counts, undo = watch_plain(torch)
+    # (c) infer_events on an .npy video, then the same frames with the kernels
+    # held; (d) the serving CLI's entry over the videos and the broken file
+    stats["request"] = video_request(torch, pipe, cfg, videos[0], "(c)", CKPT_ROWS)
+    launches = stats["request"]["launches"]
+    stats["serve"] = serve_check(pipe, videos + [tmp / "broken.npy"], tmp / "serve.jsonl",
+                                 "(d)", "broken")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b') int4: host-quantized per channel and nibble-packed, against (a)'s
+    # decoder quantized to the group-0 tree on the card (bit for bit, as (b));
+    # then a request on an .mp4 whose check (e) runs that card tree
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    seconds, undo = timed_calls({
+        "read_convert_s": (convert, "convert_trace_checkpoint"),
+        "quantize_s": (pl, "int4_serving"),
+        "upload_s": (pl.TracePipeline, "_prepare_memory_layout")})
     try:
-        t0 = time.perf_counter()
-        pred = infer_events(pipe, str(videos[0]), CORPUS_ASK, max_new_tokens=CKPT_NEW)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with HostPeak() as host:
+            t0 = time.perf_counter()
+            pipe = pl.model_init(str(ckpt), quant="int4", tokenizer=tok)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     finally:
         undo()
-    launches = serving_launches()
-    tokens = pipe.last_stats["tokens"]
-    plain = {k: v for k, v in plain_counts.items() if v}
-    s = pipe.last_stats
-    stats["request"] = {"wall_s": wall, "encode_s": s["encode_s"], "prefill_s": s["prefill_s"],
-                        "decode_s": s["decode_s"], "decode_steps": s["decode_steps"],
-                        "prefix_tokens": s["prefix_tokens"], "launches": launches}
-    print(f"checkpoint check (c): infer_events on {videos[0].name} ({CKPT_VIDEO_FRAMES} frames "
-          f"{CORPUS_HW[1]}x{CORPUS_HW[0]}, sampled to {cfg.num_frames}): wall {wall:.2f} s "
-          f"(encode {s['encode_s']:.2f} s, prefill {s['prefill_s']:.3f} s, "
-          f"{s['decode_steps']} steps {1e3 * s['decode_s'] / max(s['decode_steps'], 1):.2f} "
-          f"ms/step), {s['prefix_tokens']} prefix tokens; events "
-          f"{len(pred.timestamps)}; launches {launches}; plain versions on the card: "
-          f"{plain or 'none'}", flush=True)
-    idle = [r for r in CKPT_ROWS if launches[r] <= 0]
-    if not isinstance(pred, EventPredictions) or idle or plain:
-        fail(f"checkpoint (c): output {type(pred).__name__}, rows {idle} not launched, plain "
-             f"versions {plain} on the card")
-    check_head_slices(cfg.decoder, tokens)
-    frames, ts = load_video_frames(str(videos[0]), cfg.num_frames)
-    _, held = on_path(torch, "checkpoint request", lambda: pipe.infer_events_from_frames(
-        frames, ts, CORPUS_ASK, max_new_tokens=CKPT_NEW))
-    stats["on_path"] = held
-    if not np.array_equal(pipe.last_stats["tokens"], tokens):
-        fail("checkpoint (c): infer_events and infer_events_from_frames on the same frames "
-             "gave other tokens")
-    print(f"checkpoint check (c): infer_events_from_frames on load_video_frames' output gave "
-          f"the same {tokens.shape[1]} tokens", flush=True)
-
-    # (d) the serving CLI's entry over the videos and the broken file
-    paths = [str(v) for v in videos] + [str(tmp / "broken.npy")]
-    out = tmp / "serve.jsonl"
-    result = serve(pipe, paths, str(out), frames=cfg.num_frames, max_new_tokens=CKPT_NEW)
-    lines = [json.loads(line) for line in out.read_text().splitlines()]
-    errors = [line for line in lines if "error" in line]
-    stats["serve"] = result
-    print(f"checkpoint check (d): serve over {len(paths)} files: {len(lines)} JSONL lines, "
-          f"{len(errors)} error ({errors[0]['error'][:60] if errors else ''}); "
-          f"{result['videos_per_s']:.4f} videos/s ({result['seconds']:.2f} s, {CKPT_NEW} new "
-          "tokens, decode batch 32)", flush=True)
-    if len(lines) != len(paths) or len(errors) != 1 or "broken" not in errors[0]["video"]:
-        fail("checkpoint (d): serve did not write one line a video with the one error")
+    dec = pipe._decoder_params
+    i = inits["int4"] = {
+        "model_init_s": wall, **seconds, "host_peak_gib": host.peak,
+        "card_peak_gib": gib(torch.cuda.max_memory_allocated() - held),
+        "card_held_gib": gib(torch.cuda.memory_allocated() - held),
+        "decoder_gib": gib(sum(t.numel() * t.element_size() for t in tree_leaves(dec).values())),
+        "act_quant": pipe.config.decoder.act_quant,
+        "kv_cache_dtype": pipe.config.decoder.kv_cache_dtype}
+    got = {**dec["layers"], "lm_head": dec["lm_head"]}
+    want = {**ref4["layers"], "lm_head": ref4["lm_head"]}
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    mismatched = [f"{n}/{part}" for n in want for part in want[n]
+                  if set(got[n]) != set(want[n]) or not torch.equal(bits(got[n][part]),
+                                                                   bits(want[n][part]))]
+    off = [n for n, t in tree_leaves({"p": pipe.params, "c": pipe._combined}).items()
+           if t.device.type != "cuda"]
+    print(f"checkpoint (int4): model_init {wall:.1f} s (read + convert "
+          f"{i['read_convert_s']:.1f} s, quantize and pack on the host {i['quantize_s']:.1f} s, "
+          f"upload and layout {i['upload_s']:.1f} s); host peak RSS {host.peak:.2f} GiB; card "
+          f"peak {i['card_peak_gib']:.2f} GiB during set-up, {i['card_held_gib']:.2f} held after "
+          f"(int8: {inits['int8']['card_held_gib']:.2f}), the decoder {i['decoder_gib']:.2f} GiB; "
+          f"act_quant {i['act_quant']}, KV cache {i['kv_cache_dtype']}; leaves off the card: "
+          f"{off or 'none'}", flush=True)
+    print(f"checkpoint check (b'): the int4 decoder (host-quantized, packed per channel) "
+          f"against (a)'s quantized on the card (bits=4, pack=True, group=0, fused): "
+          f"mismatched leaves {mismatched or 'none'} (limit: bit-equal qp, q and s)", flush=True)
+    if off or mismatched or i["act_quant"] or i["kv_cache_dtype"] != "int8":
+        fail(f"checkpoint (b'): leaves off the card {off}, host and card quantization differ "
+             f"in {mismatched}, or act_quant {i['act_quant']} / KV {i['kv_cache_dtype']} are "
+             "not weight-only with the int8 cache")
+    del got
+    card_tree = {**dec, "layers": {**dec["layers"], **ref4["layers"]}, "lm_head": ref4["lm_head"]}
+    stats["request_int4"] = video_request(torch, pipe, cfg, mp4s[1], "(b')",
+                                              CKPT_INT4_ROWS, decoder=card_tree)
+    del pipe, dec, card_tree, ref4, want
+    stats["container_reads"] = dict(CONTAINER_READS)
     stats["seconds"] = time.perf_counter() - t_phase
-    print(f"checkpoint: phase 7 took {stats['seconds']:.1f} s", flush=True)
-    del pipe
+    print(f"checkpoint: container reads by route {stats['container_reads']}; phase 7 took "
+          f"{stats['seconds']:.1f} s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     return launches, stats
@@ -2621,7 +2783,9 @@ def checkpoint_phase(torch, tmp: Path) -> tuple:
 # Phase 8: the evaluation entry points (``trace_tpu_torch.eval``,
 # ``runtime.inference``) at full width, in phase 7's directory: its TRACE-7B
 # checkpoint and its .npy videos, four more of the kind beside them.
-EVAL_VIDEOS = 8           # .npy videos of 256 640x360 frames: phase 7's 4 and 4 more
+# .npy videos of 256 640x360 frames: phase 7's 4 (8 before the .mp4 checks
+# came: cut to keep the whole smoke well inside its 1200 s)
+EVAL_VIDEOS = 4
 EVAL_NEW = 64             # --max-new-tokens of every run
 EVAL_BATCH = 4            # the eval CLI's --batch-size default
 EVAL_DURATION = round(CKPT_VIDEO_FRAMES / 30.0, 3)  # an .npy plays at 30 fps
@@ -2655,6 +2819,27 @@ EVAL_MCQA = (
      "He got a call.", (10.0, 30.0)),
     ("s05e14_seg01_clip_03", "Who sat down first?",
      ["Raj.", "Amy.", "Howard.", "Bernadette.", "Sheldon."], "Amy.", (0.0, 40.0)),
+)
+# MVBench "Action Sequence": Charades clips as .mp4 (name, frames at
+# CKPT_MP4_FPS), and its records, each with its [start, end]
+EVAL_MP4_CLIPS = (("0A8CF", 120), ("1B2ZQ", 90))
+EVAL_MP4_MCQA = (
+    ("0A8CF.mp4", "What happened after the person took the cup?",
+     ["Put down the cup.", "Opened the door.", "Sat on the bed.", "Took the book."],
+     "Put down the cup.", (0.5, 4.2)),
+    ("1B2ZQ.mp4", "What did the person do first?",
+     ["Opened the box.", "Closed the window.", "Held the phone.", "Ate the food."],
+     "Held the phone.", (0.0, 3.6)),
+)
+# Video-MME: phase 7's .mp4 files under YouTube-style ids, and its records
+# (video id, duration category, question, options, answer)
+EVAL_VIDEOMME = (
+    ("fFjv93ACGo8", "video0.mp4", "short", "What is the main object in the video?",
+     ["A. A ball.", "B. A car.", "C. A dog.", "D. A cup."], "B"),
+    ("fFjv93ACGo8", "video0.mp4", "short", "How does the scene change?",
+     ["A. It darkens.", "B. It stays.", "C. It pans left.", "D. It zooms in."], "D"),
+    ("zz9xJrPPpW0", "video1.mp4", "medium", "What does the person do first?",
+     ["A. Chop.", "B. Stir.", "C. Pour.", "D. Taste."], "A"),
 )
 
 
@@ -2700,21 +2885,25 @@ def check_scores(task: str, scores: dict, seconds: float) -> None:
              "or a value that is not finite")
 
 
-def eval_phase(torch, tmp: Path, native_decoder: str) -> tuple:
+def eval_phase(torch, tmp: Path, container_route: str) -> tuple:
     """Phase 8, in phase 7's directory ``tmp``: (a) ``eval.evaluate.main`` for
-    task tvg with the CLI's defaults (bf16, 128 frames, batch 4) over 8 .npy
-    videos, a missing file, one with a corrupt header (.npy) and a junk .mp4;
+    task tvg with the CLI's defaults (bf16, 128 frames, batch 4) over 4 .npy
+    videos, a missing file, one with a corrupt header (.npy) and a junk .mp4
+    (the one container that fails, filtered before the run);
     (b) ``model_init(quant="int8")``, ``run_vtg_eval`` for dvc streamed at
     batch 4, then ``score_results`` for dvc, dvc-anet and vhd; (c)
-    ``run_mvbench`` on the frame-directory subtask with (b)'s pipeline; (d)
+    ``run_mvbench`` with (b)'s pipeline on the frame-directory subtask and a
+    "video" subtask of .mp4 clips with bounds; (e) ``run_videomme`` with
+    (b)'s pipeline over phase 7's .mp4 files; (d)
     ``runtime.inference.main`` on one .npy. Checks: a record per readable
     video and none else, the fmt file equal to the records; every score of
     the JAX package's keys and finite; in each run the path's rows launched
     (1, 2, 3; 1, 2, 3b, 4, 5; (d) 1, 2, 3), no plain version on the card,
     and each kernel, the first call at each shape, held to its plain
-    version (check (e) of phase 5); accuracies in [0, 100] with no failure;
-    (d)'s events finite. ``model_init`` gets ``SpmLikeTokenizer``: the
-    checkpoint has no tokenizer files."""
+    version (check (e) of phase 5); accuracies in [0, 100] with no failure,
+    each .mp4 read on ``container_route``; (d)'s events finite.
+    ``model_init`` gets ``SpmLikeTokenizer``: the checkpoint has no
+    tokenizer files."""
     import gc
     import os
 
@@ -2728,12 +2917,13 @@ def eval_phase(torch, tmp: Path, native_decoder: str) -> tuple:
     from trace_tpu_torch.runtime import inference
     from trace_tpu_torch.runtime import pipeline as pl
     from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
+    from trace_tpu_torch.video.io import CONTAINER_READS
 
     t_phase = time.perf_counter()
     ckpt = str(tmp / "trace-7b")
-    stats = {"native_decoder": native_decoder}
+    stats = {"container_reader": container_route}
     rng = np.random.default_rng(SEED + 8)
-    for v in range(CKPT_VIDEOS, EVAL_VIDEOS):  # phase 7 wrote video0..3
+    for v in range(CKPT_VIDEOS, EVAL_VIDEOS):  # phase 7 wrote video0..CKPT_VIDEOS-1
         np.save(tmp / f"video{v}.npy", rng.integers(
             0, 256, (CKPT_VIDEO_FRAMES,) + CORPUS_HW + (3,), dtype=np.uint8))
     names = [f"video{v}.npy" for v in range(EVAL_VIDEOS)]
@@ -2773,8 +2963,9 @@ def eval_phase(torch, tmp: Path, native_decoder: str) -> tuple:
     meteor.close()
     stats["stemmer"] = type(meteor_align._porter()).__name__
     print(f"eval: METEOR {stats['meteor']} (approximate: "
-          f"{getattr(meteor, 'approximate', False)}), stemmer {stats['stemmer']}; native video "
-          f"decoder {native_decoder}; model_init takes SpmLikeTokenizer", flush=True)
+          f"{getattr(meteor, 'approximate', False)}), stemmer {stats['stemmer']}; video "
+          f"containers read through {container_route}; model_init takes SpmLikeTokenizer",
+          flush=True)
 
     def run(label, mode, fn):
         """``fn()`` with the launches counted, plain versions watched and
@@ -2892,7 +3083,22 @@ def eval_phase(torch, tmp: Path, native_decoder: str) -> tuple:
             stats["b"]["score_s"][task] = time.perf_counter() - t0
             check_scores(task, scores, stats["b"]["score_s"][task])
 
-        # (c) MVBench's frame-directory subtask with (b)'s pipeline
+        route = container_route.split()[0]
+
+        def mcqa_check(label, final, dump, n_items, groups, reads_before, n_mp4):
+            read = {k: CONTAINER_READS[k] - reads_before[k] for k in reads_before}
+            print(f"eval check ({label}): {final}; {len(dump['res_list'])} answers; "
+                  f"container reads {read}", flush=True)
+            accs = [v for k, v in final.items() if k != "num_failures"]
+            if (final["num_failures"] != 0 or len(dump["res_list"]) != n_items
+                    or set(final) != {*groups, "Avg", "num_failures"}
+                    or not all(0.0 <= v <= 100.0 for v in accs)
+                    or read != {**dict.fromkeys(read, 0), route: n_mp4}):
+                fail(f"eval ({label}): an item failed, an accuracy lies outside [0, 100], or "
+                     f"the .mp4 items were not read on the {route} route ({read})")
+
+        # (c) MVBench's frame-directory subtask and a "video" one in .mp4
+        # clips, with (b)'s pipeline
         root = tmp / "mvbench"
         frames_dir = root / "video" / mcqa.MVBENCH_TASKS["Episodic Reasoning"][1]
         base = rng.integers(0, 256, CORPUS_HW + (3,), dtype=np.uint8)
@@ -2901,24 +3107,47 @@ def eval_phase(torch, tmp: Path, native_decoder: str) -> tuple:
             for i in range(1, n + 1):  # 00001.jpg ...: 3-fps dumps, 1-indexed
                 Image.fromarray(np.roll(base, 8 * i, axis=1)).save(
                     frames_dir / clip / f"{i:05d}.jpg", quality=90)
+        clips_dir = root / "video" / mcqa.MVBENCH_TASKS["Action Sequence"][1]
+        clips_dir.mkdir(parents=True)
+        for clip, n in EVAL_MP4_CLIPS:
+            write_mp4(clips_dir / f"{clip}.mp4",
+                      np.stack([np.roll(base, -6 * i, axis=0) for i in range(n)]))
         (root / "json").mkdir()
         (root / "json" / mcqa.MVBENCH_TASKS["Episodic Reasoning"][0]).write_text(json.dumps([
             {"video": clip, "question": q, "candidates": c, "answer": a,
              **({"start": b[0], "end": b[1]} if b else {})}
             for clip, q, c, a, b in EVAL_MCQA]))
+        (root / "json" / mcqa.MVBENCH_TASKS["Action Sequence"][0]).write_text(json.dumps([
+            {"video": clip, "question": q, "candidates": c, "answer": a, "start": b[0],
+             "end": b[1]} for clip, q, c, a, b in EVAL_MP4_MCQA]))
+        reads = dict(CONTAINER_READS)
         final, stats["c"] = run("c", "int8", lambda: mcqa.run_mvbench(
             pipe, str(root / "json"), str(root / "video"), num_frames=128,
-            batch_size=EVAL_BATCH, max_new_tokens=EVAL_NEW,
-            output_dir=str(root / "out"), tasks=["Episodic Reasoning"]))
-        dump = json.loads((root / "out" / "test.json").read_text())
+            batch_size=EVAL_BATCH, max_new_tokens=EVAL_NEW, output_dir=str(root / "out"),
+            tasks=["Episodic Reasoning", "Action Sequence"]))
         stats["c"]["final"] = final
-        print(f"eval check (c): run_mvbench {final}; {len(dump['res_list'])} answers",
-              flush=True)
-        accs = [v for k, v in final.items() if k != "num_failures"]
-        if (final["num_failures"] != 0 or len(dump["res_list"]) != len(EVAL_MCQA)
-                or set(final) != {"Episodic Reasoning", "Avg", "num_failures"}
-                or not all(0.0 <= v <= 100.0 for v in accs)):
-            fail("eval (c): run_mvbench failed an item or gave an accuracy outside [0, 100]")
+        mcqa_check("c", final, json.loads((root / "out" / "test.json").read_text()),
+                   len(EVAL_MCQA) + len(EVAL_MP4_MCQA), ("Episodic Reasoning", "Action Sequence"),
+                   reads, len(EVAL_MP4_MCQA))
+
+        # (e) Video-MME over phase 7's .mp4 files, with (b)'s pipeline
+        vmme = tmp / "videomme"
+        (vmme / "data").mkdir(parents=True)
+        for vid, src, *_ in EVAL_VIDEOMME:
+            if not (vmme / "data" / f"{vid}.mp4").exists():
+                os.link(tmp / src, vmme / "data" / f"{vid}.mp4")
+        (vmme / "videomme.json").write_text(json.dumps([
+            {"videoID": vid, "duration": dur, "question_id": f"{vid}-{k}", "question": q,
+             "options": opts, "answer": a}
+            for k, (vid, _, dur, q, opts, a) in enumerate(EVAL_VIDEOMME)]))
+        reads = dict(CONTAINER_READS)
+        final, stats["e"] = run("e", "int8", lambda: mcqa.run_videomme(
+            pipe, str(vmme / "videomme.json"), str(vmme), num_frames=128,
+            batch_size=EVAL_BATCH, max_new_tokens=EVAL_NEW, output_dir=str(vmme / "out")))
+        stats["e"]["final"] = final
+        mcqa_check("e", final, json.loads((vmme / "out" / "test.json").read_text()),
+                   len(EVAL_VIDEOMME), {d for _, _, d, *_ in EVAL_VIDEOMME}, reads,
+                   len(EVAL_VIDEOMME))
         del pipe
     finally:
         pl.model_init = trace_tpu_torch.model_init = orig_init
@@ -4003,7 +4232,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             ckpt_stats = checkpoint_phase(torch, Path(tmp))[1]
             if sys.argv[1:] == ["--eval"]:
-                ckpt_stats["eval"] = eval_phase(torch, Path(tmp), ckpt_stats["native_decoder"])
+                ckpt_stats["eval"] = eval_phase(torch, Path(tmp),
+                                                ckpt_stats["container_reader"])
             print(json.dumps(ckpt_stats), flush=True)
         return 0
     rows = kernel_checks(torch)
@@ -4029,7 +4259,7 @@ def main() -> int:
         launches.setdefault(name, n)
     with tempfile.TemporaryDirectory() as tmp:  # the checkpoint, videos, JSONL, eval files
         ckpt_launches, ckpt_stats = checkpoint_phase(torch, Path(tmp))
-        eval_stats = eval_phase(torch, Path(tmp), ckpt_stats["native_decoder"])
+        eval_stats = eval_phase(torch, Path(tmp), ckpt_stats["container_reader"])
     for name, n in ckpt_launches.items():
         if n:
             launches.setdefault(name, n)

@@ -1554,7 +1554,8 @@ def test_model_init_puts_every_leaf_on_the_card(cuda, tmp_path, monkeypatch, qua
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits, pack, group", [(8, False, 128), (4, True, 128), (4, True, 0)])
+@pytest.mark.parametrize("bits, pack, group", [(8, False, 128), (4, True, 128), (4, True, 0),
+                                               (4, False, 0)])
 def test_host_quantization_equals_the_card(cuda, bits, pack, group):
     """quantize_decoder_params on CPU tensors (model_init's host route) and on
     the card (int8_serving's device route): q and s bit for bit."""
@@ -1577,6 +1578,39 @@ def test_host_quantization_equals_the_card(cuda, bits, pack, group):
     for part in ("q", "s"):
         view = torch.int16 if part == "s" else torch.int8
         assert torch.equal(a["lm_head"][part].view(view), b["lm_head"][part].cpu().view(view))
+
+
+@pytest.mark.cuda
+def test_int4_serving_host_quantization_equals_the_card(cuda):
+    """``model_init(quant="int4")``'s decoder, quantized on the host by
+    ``int4_serving``, against ``quantize_decoder_params(bits=4, pack=True,
+    group=0)`` + ``fuse_decoder_serving`` on the card: qp and s bit for bit,
+    the int8 ``lm_head`` too."""
+    from trace_tpu_torch.model.config import DecoderConfig, TraceConfig
+    from trace_tpu_torch.model.quantize import (
+        fuse_decoder_serving,
+        int4_serving,
+        quantize_decoder_params,
+    )
+    from trace_tpu_torch.params import _decoder, _Init
+
+    c = DecoderConfig(num_layers=2, hidden_size=512, intermediate_size=1024, num_heads=4,
+                      num_kv_heads=2, head_dim=128, vocab_size=1000)
+    host = _decoder(c, _Init(torch.Generator().manual_seed(5), "cpu", torch.bfloat16))
+    card = {k: ({n: v.cuda() for n, v in t.items()} if isinstance(t, dict) else t.cuda())
+            for k, t in host.items()}
+    got, cfg = int4_serving({"decoder": host, "vision": {}}, TraceConfig.tiny())
+    want = fuse_decoder_serving(quantize_decoder_params(card, bits=4, pack=True, group=0))
+    assert not cfg.decoder.act_quant and cfg.decoder.kv_cache_dtype == "int8"
+    leaves = {**got["decoder"]["layers"], "lm_head": got["decoder"]["lm_head"]}
+    assert {"wqkv", "w_gateup", "wo", "w_down"} <= set(leaves)
+    for name, leaf in leaves.items():
+        if not isinstance(leaf, dict):  # the norms
+            continue
+        other = want["lm_head"] if name == "lm_head" else want["layers"][name]
+        for part, t in leaf.items():
+            view = torch.int16 if t.dtype == torch.bfloat16 else t.dtype
+            assert torch.equal(t.view(view), other[part].cpu().view(view)), (name, part)
 
 
 def _collectives_rank(rank: int, port: int) -> None:

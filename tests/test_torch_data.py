@@ -3,6 +3,7 @@ the JAX package's on the same records: every array equal, element for
 element."""
 
 import json
+import warnings
 
 import numpy as np
 import pytest
@@ -178,6 +179,53 @@ def test_video_and_image_records_match_jax(tmp_path, scheme):
             np.testing.assert_array_equal(got[key], want[key], err_msg=f"{index} {key}")
     assert td.media_failures == jd.media_failures == 0
     assert td[0]["frames_u8"].shape == (T, S, S, 3) and td[3]["has_video"]
+
+
+@pytest.mark.parametrize("route", ["this machine's", "opencv"])
+def test_container_records_match_jax(tmp_path, monkeypatch, route):
+    """Video records in ``.mp4`` files, read through each package's
+    ``video/io.py`` on the route this machine gives (the native decoder
+    where it builds) and through OpenCV on both sides: every array of every
+    sample equal; a junk ``.mp4`` is a media failure on both sides, replaced
+    by the same record drawn from the same seeded generator."""
+    import cv2
+
+    from test_torch_video_io import force_opencv
+
+    if route == "opencv":
+        force_opencv(monkeypatch, tmp_path)
+    rng = np.random.default_rng(8)
+    # rows of whole 16-byte vectors: the JAX package's native decoder writes
+    # past its buffer on other widths (the port's does not:
+    # test_torch_video_io.py::test_native_decoder_writes_only_its_frames)
+    for name, (n, h, w) in (("a.mp4", (30, 64, 96)), ("b.mp4", (12, 48, 48))):
+        vw = cv2.VideoWriter(str(tmp_path / name), cv2.VideoWriter_fourcc(*"mp4v"), 10.0,
+                             (w, h))
+        assert vw.isOpened()
+        for _ in range(n):
+            vw.write(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        vw.release()
+    (tmp_path / "junk.mp4").write_bytes(b"not a video container" * 4)
+    records = [{**RECORDS[0], "video": "a.mp4"}, {**RECORDS[1], "video": "b.mp4"},
+               {**RECORDS[1], "video": "junk.mp4"}]
+    (tmp_path / "anno.json").write_text(json.dumps(records))
+    kw = dict(data_folder=str(tmp_path), num_frames=T, image_size=S,
+              num_video_tokens_per_frame=10, max_len=700, text_vocab_size=V, seed=3)
+    jd = jds.EventDataset(str(tmp_path / "anno.json"), JByteTokenizer(), **kw)
+    td = tds.EventDataset(str(tmp_path / "anno.json"), ByteTokenizer(), **kw)
+    for index in range(len(records)):
+        with warnings.catch_warnings(record=True) as jw:
+            warnings.simplefilter("always")
+            want = jd[index]
+        with warnings.catch_warnings(record=True) as tw:
+            warnings.simplefilter("always")
+            got = td[index]
+        assert len(tw) == len(jw) == (1 if index == 2 else 0)
+        assert set(got) == set(want)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=f"{index} {key}")
+    assert td.media_failures == jd.media_failures == 1
+    assert td[0]["has_video"] and td[0]["frames_u8"].any()
 
 
 def test_prefetch_loader_batches_in_order_and_stops_early(anno):

@@ -4,8 +4,9 @@ trace_tpu.task_prompts, scripts/inference/inference.py) on the tiny config:
 the same weights (``from_jax_params``), ``ByteTokenizer`` on both sides, the
 JAX side on the CPU. Records, scores and written files must be equal, the
 greedy tokens exact; the fixtures follow tests/test_eval_real_formats.py's
-schemas. Items in ``.mp4`` files run where the port's native decoder builds
-and are skipped with the reason where it does not."""
+schemas. Items in ``.mp4`` files read through each package's native decoder
+where it builds, else through OpenCV; the ``*_through_opencv`` tests take
+OpenCV on both sides whatever the machine has."""
 
 import importlib.util
 import json
@@ -35,21 +36,12 @@ T = CFG.num_frames
 NEW = 16
 
 
-def _native_decoder():
-    """None where the port's native decoder builds, else why it does not."""
-    from trace_tpu_torch.native import videodec
+@pytest.fixture
+def opencv_only(tmp_path, monkeypatch):
+    """Both packages read containers through OpenCV."""
+    from test_torch_video_io import force_opencv
 
-    try:
-        videodec.load()
-    except videodec.NativeDecoderUnavailable as e:
-        return str(e).splitlines()[0]
-    return None
-
-
-NO_NATIVE = _native_decoder()
-needs_native = pytest.mark.skipif(
-    NO_NATIVE is not None,
-    reason=f"the port reads .mp4 only through its native decoder: {NO_NATIVE}")
+    force_opencv(monkeypatch, tmp_path)
 
 
 @pytest.fixture(scope="module")
@@ -235,7 +227,7 @@ def test_mcqa_helpers_match_jax(helper):
                 == [j.check_ans(r, g) for r in RESPONSES for g in gts])
 
 
-@pytest.mark.parametrize("data_type", ["frame", pytest.param("video", marks=needs_native)])
+@pytest.mark.parametrize("data_type", ["frame", "video"])
 def test_load_bounded_video_matches_jax(data_type, tmp_path):
     j, t = _both("eval.mcqa")
     if data_type == "frame":
@@ -249,6 +241,24 @@ def test_load_bounded_video_matches_jax(data_type, tmp_path):
         wf, wts = j._load_bounded_video(str(path), 6, bound, data_type)
         np.testing.assert_array_equal(gf, wf)
         assert gts == wts
+
+
+def test_load_bounded_video_through_opencv_matches_jax(tmp_path, opencv_only):
+    """The OpenCV route of a "video" item: the JAX package's frames, at the
+    source's size (``max_side`` 672 applies to the native route alone)."""
+    from trace_tpu_torch.video import io as tio
+
+    j, t = _both("eval.mcqa")
+    path = tmp_path / "clip.mp4"
+    _write_mp4(path, w=64, h=48, seed=6)
+    before = tio.CONTAINER_READS["opencv"]
+    for bound in (None, (1.0, 2.5)):
+        gf, gts = t._load_bounded_video(str(path), 6, bound, "video")
+        wf, wts = j._load_bounded_video(str(path), 6, bound, "video")
+        np.testing.assert_array_equal(gf, wf)
+        assert gts == wts and gf.shape == (6, 48, 64, 3)
+    assert tio.CONTAINER_READS["opencv"] == before + 2
+    assert tio.container_reader().startswith("opencv")
 
 
 # ---------------------------------------------------------------------------
@@ -303,6 +313,33 @@ def test_run_vtg_eval_matches_jax(pipes, tmp_path, mode, capsys, streams):
         assert tpipe.last_corpus_stats["streamed"] is True
     elif mode != "batch":
         assert tpipe.last_corpus_stats["streamed"] is False
+
+
+def test_run_vtg_eval_on_containers_through_opencv_matches_jax(pipes, tmp_path, opencv_only,
+                                                                streams):
+    """A VTG corpus of ``.mp4`` files where neither package has its native
+    decoder: the pre-filter and the loader read them through OpenCV, and the
+    records equal the JAX package's; the junk ``.mp4`` is filtered out."""
+    from trace_tpu_torch.video import io as tio
+
+    jpipe, tpipe = pipes
+    j, t = _both("eval.evaluate")
+    vids = tmp_path / "videos"
+    anno = []
+    for i in range(3):
+        _write_mp4(vids / f"v{i}.mp4", n_frames=12 + 4 * i, seed=30 + i)
+        anno.append({"image_id": f"charades/v{i}.mp4", "caption": f"query number {i}", "id": i,
+                     "timestamp": [0.0, 1.0]})
+    (vids / "header_bad.mp4").write_bytes(b"junk")
+    anno.insert(1, {"image_id": "header_bad.mp4", "caption": "q", "id": 100,
+                    "timestamp": [0, 1]})
+    before = tio.CONTAINER_READS["opencv"]
+    kw = dict(num_frames=T, max_new_tokens=NEW, batch_size=2)
+    want = j.run_vtg_eval(jpipe, "tvg", anno, str(vids), **kw)
+    got = t.run_vtg_eval(tpipe, "tvg", anno, str(vids), **kw)
+    assert got == want and [r["id"] for r in got] == [0, 1, 2]
+    _same_streams(streams, 3)
+    assert tio.CONTAINER_READS["opencv"] == before + 3
 
 
 def test_corpus_skip_paths_decode_once(pipes, tmp_path, monkeypatch):
@@ -443,16 +480,16 @@ def mvbench_tree(tmp_path_factory):
     ]
     os.makedirs(anno)
     (anno / "episodic_reasoning.json").write_text(json.dumps(episodic))
-    if NO_NATIVE is None:  # a "video" subtask with start/end bounds
-        _write_mp4(data / "star/Charades_v1_480/ABC12.mp4", seed=1)
-        (anno / "action_sequence.json").write_text(json.dumps([
-            {"video": "ABC12.mp4", **MCQA_RECORD, "start": 0.4, "end": 2.4}]))
+    # a "video" subtask with start/end bounds
+    _write_mp4(data / "star/Charades_v1_480/ABC12.mp4", seed=1)
+    (anno / "action_sequence.json").write_text(json.dumps([
+        {"video": "ABC12.mp4", **MCQA_RECORD, "start": 0.4, "end": 2.4}]))
     return str(anno), str(data)
 
 
 def test_run_mvbench_matches_jax(pipes, mvbench_tree, tmp_path, streams):
-    """The frame-directory subtask (and, where the native decoder builds, a
-    bounded mp4 one): accuracies, failures and both output files."""
+    """The frame-directory subtask and a bounded mp4 one: accuracies,
+    failures and both output files."""
     jpipe, tpipe = pipes
     j, t = _both("eval.mcqa")
     anno, data = mvbench_tree
@@ -460,9 +497,9 @@ def test_run_mvbench_matches_jax(pipes, mvbench_tree, tmp_path, streams):
     want = j.run_mvbench(jpipe, anno, data, output_dir=str(tmp_path / "j"), **kw)
     got = t.run_mvbench(tpipe, anno, data, output_dir=str(tmp_path / "t"), **kw)
     assert got == want
-    _same_streams(streams, 4 if NO_NATIVE is None else 3)
+    _same_streams(streams, 4)
     assert got["num_failures"] == 1 and 0 <= got["Avg"] <= 100
-    assert ("Action Sequence" in got) == (NO_NATIVE is None)
+    assert "Action Sequence" in got
     for f in ("test.json", "upload_leaderboard.json"):
         assert (tmp_path / "t" / f).read_bytes() == (tmp_path / "j" / f).read_bytes()
 
@@ -503,7 +540,6 @@ class _Spy:
         return self._pipe.infer_events_batch(frames, ts, questions, **kw)
 
 
-@needs_native
 @pytest.mark.parametrize("subtitles", [False, True])
 def test_run_videomme_matches_jax(pipes, videomme_tree, tmp_path, subtitles, streams):
     jpipe, tpipe = pipes
@@ -527,6 +563,37 @@ def test_run_videomme_matches_jax(pipes, videomme_tree, tmp_path, subtitles, str
     for d in dumps:
         d["failures"] = [f["path"] for f in d["failures"]]
     assert dumps[0] == dumps[1]
+
+
+@pytest.mark.parametrize("benchmark", ["videomme", "mvbench"])
+def test_mcqa_containers_through_opencv_match_jax(pipes, videomme_tree, mvbench_tree, tmp_path,
+                                                  opencv_only, streams, benchmark):
+    """Video-MME and MVBench's "video" subtask where neither package has its
+    native decoder: both read the .mp4 items through OpenCV and give the same
+    accuracies, failures, files and greedy streams."""
+    from trace_tpu_torch.video import io as tio
+
+    jpipe, tpipe = pipes
+    j, t = _both("eval.mcqa")
+    kw = dict(num_frames=T, batch_size=2, max_new_tokens=NEW)
+    before = tio.CONTAINER_READS["opencv"]
+    if benchmark == "videomme":
+        anno, data = videomme_tree
+        run = lambda m, p, out: m.run_videomme(p, anno, data, output_dir=out, **kw)
+        n_items, n_mp4 = 2, 2
+    else:
+        anno, data = mvbench_tree
+        run = lambda m, p, out: m.run_mvbench(p, anno, data, output_dir=out,
+                                              tasks=["Action Sequence"], **kw)
+        n_items, n_mp4 = 1, 1
+    want = run(j, jpipe, str(tmp_path / "j"))
+    got = run(t, tpipe, str(tmp_path / "t"))
+    assert got == want and 0 <= got["Avg"] <= 100
+    assert got["num_failures"] == (1 if benchmark == "videomme" else 0)
+    _same_streams(streams, n_items)
+    assert tio.CONTAINER_READS["opencv"] == before + n_mp4
+    board = "upload_leaderboard.json"
+    assert (tmp_path / "t" / board).read_bytes() == (tmp_path / "j" / board).read_bytes()
 
 
 def test_mcqa_main_matches_jax(models, mvbench_tree, tmp_path, monkeypatch, capsys, streams):

@@ -53,6 +53,7 @@ from trace_tpu_torch.model import mistral as tm
 from trace_tpu_torch.model import moe as tmoe
 from trace_tpu_torch.model.config import MoEConfig, TraceConfig
 from trace_tpu_torch.model.quantize import (
+    int4_serving,
     int4p_serving,
     int8_serving,
     quantize_decoder_params,
@@ -636,7 +637,7 @@ def test_base_route_converts_mixtral_where_jax_raises(mixtral_dir, tiny_vision):
                                 model_name="trace-base", dtype=jnp.float32)
 
 
-@pytest.mark.parametrize("quant", ["int8", "int4p"])
+@pytest.mark.parametrize("quant", ["int8", "int4p", "int4"])
 def test_quantized_mixtral_raises_where_jax_fails(mixtral_dir, quant):
     """No quantized Mixtral: the port raises ValueError, naming Mixtral,
     before any weight is read (model_init) or touched (the quantizers). The
@@ -651,6 +652,8 @@ def test_quantized_mixtral_raises_where_jax_fails(mixtral_dir, quant):
     tree = {"decoder": tdec, "vision": {}}
     for fn in (lambda: quantize_decoder_params(tdec),
                lambda: quantize_decoder_params(tdec, bits=4, pack=True),
+               lambda: quantize_decoder_params(tdec, bits=4),
+               lambda: int4_serving(tree, TraceConfig.tiny()),
                lambda: quantize_trace_params(tree),
                lambda: int8_serving(tree, TraceConfig.tiny()),
                lambda: int4p_serving(tree, TraceConfig.tiny())):

@@ -145,13 +145,27 @@ def _port_sources():
         ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_mp_worker.py"]
 
 
+# the files that may import cv2, and the functions of each it is imported in
+# (None: anywhere): the video reader's OpenCV route, as the JAX package's
+# reader has it, and the smoke run, which writes its .mp4 files with it
+CV2_IMPORTS = {"trace_tpu_torch/video/io.py": {"_read_cv2", "_probe_cv2"},
+               "chip_smoke.py": None}
+
+
 def test_port_never_imports_jax_or_the_jax_package():
     sources = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
     assert {"trace_tpu_torch/runtime/mesh.py", "trace_tpu_torch/runtime/distributed.py",
             "trace_tpu_torch/parallel/__init__.py", "trace_tpu_torch/parallel/collectives.py",
             "trace_tpu_torch/parallel/pipeline.py"} <= sources
+    cv2_seen = {}
     for path in _port_sources():
+        rel = path.relative_to(ROOT).as_posix()
         tree = ast.parse(path.read_text(), filename=str(path))
+        where = {}  # node -> the outermost function around it
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.FunctionDef):
+                for node in ast.walk(fn):
+                    where.setdefault(node, fn.name)
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -161,9 +175,16 @@ def test_port_never_imports_jax_or_the_jax_package():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "optax", "orbax", "trace_tpu", "cv2",
+                assert top not in ("jax", "jaxlib", "optax", "orbax", "trace_tpu",
                                    "sklearn"), \
                     f"{path}: imports {name}"
+                if top == "cv2":
+                    assert rel in CV2_IMPORTS, f"{path}: imports cv2"
+                    allowed = CV2_IMPORTS[rel]
+                    assert allowed is None or where.get(node) in allowed, \
+                        f"{path}: imports cv2 outside {sorted(allowed)}"
+                    cv2_seen.setdefault(rel, set()).add(where.get(node))
+    assert cv2_seen["trace_tpu_torch/video/io.py"] == CV2_IMPORTS["trace_tpu_torch/video/io.py"]
 
 
 def test_importing_the_port_loads_no_jax():
@@ -452,10 +473,28 @@ def ckpt_dir(tmp_path_factory):
     return path
 
 
-@pytest.mark.parametrize("quant", ["bf16", "int8", "int4p"])
+def _packed_int4(jparams) -> dict:
+    """The JAX package's ``quant="int4"`` tree as the port holds it: every
+    native-int4 layer weight (through the weight carry-over, one value an
+    int8) nibble-packed per output channel in the flattened [L, K, N] view,
+    with its [L, 1, N] scales, then fused."""
+    from trace_tpu_torch.model.quantize import fuse_decoder_serving, pack4
+
+    tree = from_jax_params(jax.tree.map(np.asarray, jparams))
+    layers = dict(tree["decoder"]["layers"])
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        q, sc = layers[name]["q"], layers[name]["s"]
+        L, N = q.shape[0], sc[0].numel()
+        layers[name] = {"qp": pack4(q.reshape(L, -1, N)), "s": sc.reshape(L, 1, N)}
+    tree["decoder"] = fuse_decoder_serving({**tree["decoder"], "layers": layers})
+    return tree
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int8", "int4p", "int4"])
 def test_model_init_matches_jax(ckpt_dir, tiny_vision, jax_serving_kernels_interpreted, quant):
     """model_init on the same dir: the same tree on the device (leaf for leaf,
-    bit for bit: converted, host-quantized, fused), the same config, and the
+    bit for bit: converted, host-quantized, fused; for int4 the JAX package's
+    native-int4 values as the port packs them), the same config, and the
     same greedy events and tokens from ``infer_events`` on an ``.npy`` video."""
     from trace_tpu.runtime.pipeline import model_init as jax_model_init
     from trace_tpu_torch.runtime.pipeline import model_init
@@ -463,7 +502,12 @@ def test_model_init_matches_jax(ckpt_dir, tiny_vision, jax_serving_kernels_inter
     jpipe = jax_model_init(str(ckpt_dir), dtype=jnp.float32, quant=quant)
     tpipe = model_init(str(ckpt_dir), dtype=torch.float32, quant=quant, device="cpu")
     jpipe._prepare_memory_layout()
-    assert_trees_equal(tpipe.params, jpipe.params)
+    if quant == "int4":
+        assert np.asarray(jpipe.params["decoder"]["layers"]["wq"]["q"]).dtype.name == "int4"
+        assert_trees_equal(tpipe.params, _packed_int4(jpipe.params))
+        assert not tpipe.config.decoder.act_quant
+    else:
+        assert_trees_equal(tpipe.params, jpipe.params)
     for part in ("decoder", "vision"):
         for f in dataclasses.fields(getattr(tpipe.config, part)):
             if hasattr(getattr(jpipe.config, part), f.name):
@@ -477,7 +521,8 @@ def test_model_init_matches_jax(ckpt_dir, tiny_vision, jax_serving_kernels_inter
     want = jpipe.infer_events(video, ASK, max_new_tokens=24)
     got = tpipe.infer_events(video, ASK, max_new_tokens=24)
     assert got.to_dict() == want.to_dict()
-    assert got.timestamps or quant == "int4p"  # int4p's stream stays in the time head here
+    # the 4-bit streams stay in the time head here
+    assert got.timestamps or quant in ("int4p", "int4")
     frames, ts = jax_load_video(video, JCFG.num_frames)
     jprefix, jmask = jpipe._prepare_prefix_batch([frames], [ts], [ASK])
     jtok = jgen.generate(jpipe._decoder_params, jpipe.config.decoder, jprefix, jmask,
@@ -490,8 +535,6 @@ def test_model_init_matches_jax(ckpt_dir, tiny_vision, jax_serving_kernels_inter
 def test_model_init_refusals(ckpt_dir):
     from trace_tpu_torch.runtime.pipeline import model_init
 
-    with pytest.raises(NotImplementedError, match="int4p"):
-        model_init(str(ckpt_dir), quant="int4", device="cpu")
     with pytest.raises(ValueError, match="quant"):
         model_init(str(ckpt_dir), quant="int2", device="cpu")
     if not torch.cuda.is_available():  # fails before reading anything
@@ -528,6 +571,77 @@ def test_public_api_from_a_video_file_matches_jax(pipes, tmp_path, monkeypatch):
         with pytest.raises(ValueError):
             mod.x_infer(None, video, "q", mode="bogus")
     assert asked["trace_tpu_torch"] == asked["trace_tpu"] and len(set(asked["trace_tpu"])) == 3
+
+
+@pytest.mark.parametrize("route", ["this machine's", "opencv"])
+def test_containers_served_match_jax(pipes, tmp_path, monkeypatch, capsys, route):
+    """``infer_events`` and the serving CLI on ``.mp4`` files, on the route
+    this machine gives (the native decoder where it builds) and through
+    OpenCV on both sides: the JAX package's events and greedy tokens, the
+    JAX script's JSONL (a junk ``.mp4`` its one error line); the CLI first
+    says which route containers take."""
+    import importlib.util
+    import json
+
+    import cv2
+
+    import trace_tpu
+    import trace_tpu.runtime.pipeline as jpl
+    import trace_tpu_torch
+    import trace_tpu_torch.runtime.pipeline as tpl
+    from test_torch_video_io import force_opencv
+    from trace_tpu_torch.runtime import serve_batch
+    from trace_tpu_torch.video.io import container_reader
+
+    if route == "opencv":
+        force_opencv(monkeypatch, tmp_path)
+    jpipe, tpipe = pipes
+    videos = tmp_path / "videos"
+    videos.mkdir()
+    rng = np.random.default_rng(16)
+    for i, (w, h) in enumerate(((64, 48), (48, 64))):
+        vw = cv2.VideoWriter(str(videos / f"v{i}.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 10.0,
+                             (w, h))
+        assert vw.isOpened()
+        for _ in range(20):
+            vw.write(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        vw.release()
+    (videos / "junk.mp4").write_bytes(b"not a video container" * 4)
+
+    video = str(videos / "v0.mp4")
+    want = trace_tpu.infer_events(jpipe, video, ASK, max_new_tokens=24)
+    got = trace_tpu_torch.infer_events(tpipe, video, ASK, max_new_tokens=24)
+    assert got.to_dict() == want.to_dict()
+    frames, ts = jax_load_video(video, JCFG.num_frames)
+    jprefix, jmask = jpipe._prepare_prefix_batch([frames], [ts], [ASK])
+    jtok = jgen.generate(jpipe._decoder_params, jpipe.config.decoder, jprefix, jmask,
+                         jpipe._combined, max_new_tokens=24, initial_head=1,
+                         eos_id=jpipe.tokenizer.eos_token_id)
+    np.testing.assert_array_equal(tpipe.last_stats["tokens"], jtok.tokens)
+    assert tpipe.last_stats["decode_steps"] > 0
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_serve_batch", ROOT / "scripts" / "inference" / "serve_batch.py")
+    jmod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jmod)
+    monkeypatch.setattr(jpl, "model_init", lambda *a, **k: jpipe)
+    monkeypatch.setattr(tpl, "model_init", lambda *a, **k: tpipe)
+    flags = ["--model-path", "ignored", "--videos", str(videos), "--batch", "2",
+             "--frames", str(CFG.num_frames), "--max-new-tokens", "8"]
+    monkeypatch.setattr(sys, "argv", ["serve_batch", "--out", str(tmp_path / "j.jsonl")] + flags)
+    jmod.main()
+    capsys.readouterr()
+    result = serve_batch.main(["--out", str(tmp_path / "t.jsonl")] + flags)
+    printed = capsys.readouterr().out.splitlines()
+    assert printed[0] == f"serve_batch: video containers read through {container_reader()}"
+    assert container_reader().startswith("opencv") or route != "opencv"
+    lines = [json.loads(line) for line in (tmp_path / "t.jsonl").read_text().splitlines()]
+    jlines = [json.loads(line) for line in (tmp_path / "j.jsonl").read_text().splitlines()]
+    assert [("error" in line) for line in lines] == [True, False, False]
+    if route != "opencv":  # the native route's error is its own reader's words
+        lines[0]["error"] = jlines[0]["error"]
+    assert lines == jlines
+    assert result["ok"] == 2 and result["failed"] == 1
 
 
 def test_serve_batch_cli_matches_jax(pipes, tmp_path, monkeypatch):

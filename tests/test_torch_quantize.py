@@ -126,13 +126,40 @@ def test_dequantize_matches_jax(decoder):
 
 
 def test_native_int4_storage_is_refused(decoder):
-    """``bits=4, pack=False`` is ``jnp.int4`` storage in the JAX package; torch
-    has no such dtype."""
+    """Torch has no int4 dtype: ``bits=4, pack=False`` holds the JAX
+    package's native-int4 values one per int8 byte, never a 4-bit storage
+    type; widths other than 4 and 8 bits are refused."""
     _, tp = decoder
-    with pytest.raises(NotImplementedError, match="jnp.int4"):
-        tq.quantize_decoder_params(tp, bits=4)
+    got = tq.quantize_decoder_params(tp, bits=4)
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        q = got["layers"][name]["q"]
+        assert q.dtype == torch.int8 and tuple(q.shape) == tuple(tp["layers"][name].shape)
+        assert q.abs().max() == 7
     with pytest.raises(ValueError):
         tq.quantize_decoder_params(tp, bits=2, pack=True)
+
+
+@pytest.mark.parametrize("jax_side", ["host", "device"])
+def test_int4_values_match_jax(decoder, jax_side):
+    """``bits=4, pack=False``: q equal to the JAX package's native int4 values
+    (its host quantizer's ``ml_dtypes.int4``, or ``jnp.int4`` on the device),
+    per output channel in [-7, 7], scales bit for bit; ``lm_head`` int8; the
+    weight carry-over takes JAX's int4 leaves to the same int8 values."""
+    jp, tp = decoder
+    if jax_side == "host":
+        want = jq.quantize_decoder_params_host(jax.tree.map(np.asarray, jp), bits=4)
+    else:
+        want = jq.quantize_decoder_params(jp, bits=4)
+    got = tq.quantize_decoder_params(tp, bits=4)
+    assert np.asarray(want["layers"]["w_up"]["q"]).dtype.name == "int4"
+    for name in ("wq", "wo", "w_up", "w_down"):
+        np.testing.assert_array_equal(
+            got["layers"][name]["q"].numpy(),
+            np.asarray(want["layers"][name]["q"]).astype(np.int8), err_msg=name)
+        np.testing.assert_array_equal(_bits(got["layers"][name]["s"]),
+                                      _bits(want["layers"][name]["s"]), err_msg=name)
+    _assert_same_tree(got, from_jax_params(jax.tree.map(np.asarray, want)))
+    assert got["lm_head"]["q"].dtype == torch.int8 and got["lm_head"]["q"].abs().max() == 127
 
 
 # G = 1 on the tiny config (64 and 128 are no even number of groups of 128);
@@ -288,3 +315,28 @@ def test_int4p_serving_gives_the_serving_pair(group):
     assert torch.is_tensor(params["decoder"]["layers"]["wq"])  # the input tree is kept
     dparams, dcfg = tq.int4p_serving(params, cfg, vision=False, group=group)
     assert dparams["vision"] is params["vision"] and not dcfg.vision.act_quant
+
+
+def test_int4_serving_gives_the_serving_pair():
+    """``int4_serving`` (``model_init(quant="int4")``): the native-int4
+    values nibble-packed per channel and fused, an int8 ``lm_head``, the int8
+    KV cache, weight-only products, the ViT as it is."""
+    cfg = TraceConfig.tiny()
+    params = init_trace_params(cfg, torch.Generator().manual_seed(0))
+    qparams, qcfg = tq.int4_serving(params, cfg)
+    assert qcfg.decoder.kv_cache_dtype == "int8" and not qcfg.decoder.act_quant
+    assert not qcfg.vision.act_quant and qparams["vision"] is params["vision"]
+    want = tq.fuse_decoder_serving(
+        tq.quantize_decoder_params(params["decoder"], bits=4, pack=True, group=0))
+    _assert_same_tree(qparams["decoder"], want)
+    layers = tq.unfuse_decoder_serving(qparams["decoder"])["layers"]
+    values = tq.quantize_decoder_params(params["decoder"], bits=4)["layers"]
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        assert tq.packed4_groups(layers[name]) == 1
+        q = values[name]["q"]
+        assert torch.equal(tq.unpack4(layers[name]["qp"]), q.reshape(q.shape[0], -1,
+                                                                     layers[name]["qp"].shape[-1]))
+        assert torch.equal(layers[name]["s"].reshape(-1).view(torch.int16),
+                           values[name]["s"].reshape(-1).view(torch.int16))
+    assert set(qparams["decoder"]["lm_head"]) == {"q", "s"}
+    assert torch.is_tensor(params["decoder"]["layers"]["wq"])  # the input tree is kept

@@ -19,8 +19,10 @@ constants and tokenizers):
 * every sample pads to a fixed max_len with a fixed num_frames, so every
   step of an epoch has one shape.
 
-Video and image records are read through the port's ``video/io.py`` (the
-native decoder for containers, ``.npy``, frame directories, images, gifs).
+Video and image records are read through the port's ``video/io.py``
+(containers through the native decoder or OpenCV, ``.npy``, frame
+directories, images, gifs); a record whose media no reader opens counts as a
+media failure and is replaced by another, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,7 +42,6 @@ from trace_tpu_torch.constants import (
     SYNC_TOKEN_ID,
     TIME_OFFSET,
 )
-from trace_tpu_torch.native.videodec import NativeDecoderUnavailable
 from trace_tpu_torch.tokenizers.event_codec import SCORE_CODEC, TIME_CODEC
 from trace_tpu_torch.tokenizers.text import TextTokenizer
 
@@ -422,8 +423,6 @@ class EventDataset:
             rec = self.records[idx]
             try:
                 frames_u8, frame_ts = self._load_media(rec)
-            except NativeDecoderUnavailable:
-                raise  # the machine lacks the decoder: no record would load
             except Exception as e:
                 self.media_failures += 1
                 import warnings

@@ -2,8 +2,8 @@
 
 The port's copy of ``trace_tpu/eval/mcqa.py``; ``main(argv)`` parses ``argv``
 (default ``sys.argv[1:]``) and returns the accuracies. "video"-type items and
-Video-MME's ``.mp4`` files read through the native decoder alone
-(``video/io.py``):
+Video-MME's ``.mp4`` files read through ``video/io.py``: the native decoder
+where it builds, else OpenCV:
 
     python -m trace_tpu_torch.eval.mcqa --benchmark mvbench --model-path CKPT \
         --anno-path JSON_DIR --video-path VIDEO_ROOT
@@ -149,7 +149,8 @@ def _load_bounded_video(
 
     duration, fps = vio.probe(path)
     indices, ts = segment_midpoint_indices(num_frames, fps, duration - 1, bound)
-    # 2x the ViT input: HD sources decode pre-scaled in the native pass
+    # 2x the ViT input: the native route decodes HD sources pre-scaled; the
+    # OpenCV route returns them at the source's size
     return vio.read_frames_at(path, indices, max_side=672), ts
 
 

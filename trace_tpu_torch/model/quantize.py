@@ -6,6 +6,11 @@ matmul weights: a quantized leaf is the dict ``{"q": int8, "s": bf16}`` with
 the weight's own einsum shape in ``q`` and the reduced axes kept as size 1
 in ``s``.
 
+int4: the JAX package's native ``jnp.int4`` values (per output channel,
+in [-7, 7]) held one per int8 byte in ``{"q", "s"}`` leaves, which every
+route treats as int8 leaves (torch has no int4 dtype); ``int4_serving``
+nibble-packs the same values per channel for the card.
+
 int4p: nibble-packed int4 on the decoder's layer weights: the leaf
 ``{"qp": int8 [L, K/2, N], "s": bf16 [L, G, N]}`` in the flattened
 [L, K, N] view the weight products use. Byte ``qp[l, k, n]`` holds weight
@@ -55,23 +60,24 @@ def _quantize_axis(w: torch.Tensor, reduce_axes: tuple) -> dict:
     return {"q": q, "s": scale.to(torch.bfloat16)}
 
 
-def _quantize_stacked(w: torch.Tensor, reduce_axes: tuple) -> dict:
+def _quantize_stacked(w: torch.Tensor, reduce_axes: tuple, qmax: int = 127) -> dict:
     """``_quantize_axis`` of a layer-stacked weight, one layer at a time
     (an fp32 temp of the whole stacked ``w_gate`` of a 7B model is 7.5 GB)
     through one fp32 scratch layer, into q and s allocated once.
-    ``reduce_axes`` count the leading layer axis, as in JAX."""
+    ``reduce_axes`` count the leading layer axis, as in JAX. ``qmax`` 7
+    gives the int4 values, held in int8."""
     axes = tuple(a - 1 for a in reduce_axes)
     L = w.shape[0]
     q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
     s = None
     scratch = torch.empty(w.shape[1:], dtype=torch.float32, device=w.device)
     for li in range(L):
-        scale = _scale(_abs_max(w[li], axes), 127)
+        scale = _scale(_abs_max(w[li], axes), qmax)
         if s is None:
             s = torch.empty((L,) + scale.shape, dtype=torch.bfloat16, device=w.device)
         s[li] = scale
-        # integral values in [-127, 127]: the cast to int8 is exact
-        q[li] = scratch.copy_(w[li]).div_(scale).round_().clamp_(-127, 127)
+        # integral values in [-qmax, qmax]: the cast to int8 is exact
+        q[li] = scratch.copy_(w[li]).div_(scale).round_().clamp_(-qmax, qmax)
     return {"q": q, "s": s}
 
 
@@ -101,13 +107,14 @@ def unpack4(qp: torch.Tensor) -> torch.Tensor:
 
 
 def pack4(q4: torch.Tensor) -> torch.Tensor:
-    """[.., K, N] int4-valued integers -> [.., K/2, N] packed int8."""
+    """[.., K, N] int4-valued integers -> [.., K/2, N] packed int8. In
+    uint8, where the two's-complement bits of an int8 value keep their
+    nibble and a left shift drops what passes the byte."""
     K = q4.shape[-2]
     if K % 2:
         raise ValueError(f"pack4 wants an even contraction dim, got {tuple(q4.shape)}")
-    lo = q4[..., : K // 2, :].to(torch.int32)
-    hi = q4[..., K // 2:, :].to(torch.int32)
-    return ((lo & 0xF) | ((hi & 0xF) << 4)).to(torch.uint8).view(torch.int8)
+    u = q4.to(torch.int8).view(torch.uint8)
+    return ((u[..., : K // 2, :] & 0xF) | (u[..., K // 2:, :] << 4)).view(torch.int8)
 
 
 def dequantize(leaf, dtype=torch.bfloat16):
@@ -183,8 +190,10 @@ def quantize_decoder_params(params: dict, bits: int = 8, pack: bool = False,
     ``bits=8``: int8 ``{"q", "s"}`` leaves. ``bits=4, pack=True``:
     nibble-packed int4 ``{"qp", "s"}`` leaves with group-wise scales along
     the contraction dim (``group``, default 128; 0 = one scale per output
-    channel). ``bits=4, pack=False`` is the JAX package's native ``jnp.int4``
-    storage, which has no torch dtype.
+    channel). ``bits=4, pack=False``: the values of the JAX package's native
+    ``jnp.int4`` leaves (per output channel, in [-7, 7], scales as int8's)
+    in ``{"q", "s"}`` leaves of int8, one value a byte; ``group`` does not
+    apply.
 
     A Mixtral-family tree (``router`` among the layers) raises
     ``ValueError`` before any weight is touched: the JAX package's quantizer
@@ -195,17 +204,13 @@ def quantize_decoder_params(params: dict, bits: int = 8, pack: bool = False,
         raise ValueError(MIXTRAL_NOT_QUANTIZED)
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
-    if bits == 4 and not pack:
-        raise NotImplementedError(
-            "bits=4 without pack=True is native jnp.int4 storage, which torch "
-            "has no dtype for; use pack=True (nibble-packed int8 bytes)")
     out = dict(params)
     layers = dict(params["layers"])
     for name, axes in _DECODER_REDUCE.items():
-        if bits == 4:
+        if bits == 4 and pack:
             layers[name] = _quantize_grouped4(layers[name], axes, group)
         else:
-            layers[name] = _quantize_stacked(layers[name], axes)
+            layers[name] = _quantize_stacked(layers[name], axes, 127 if bits == 8 else 7)
     out["layers"] = layers
     out["lm_head"] = _quantize_axis(params["lm_head"], (0,))  # [D, V]
     return out
@@ -334,7 +339,21 @@ def int4p_serving(params: dict, config: TraceConfig, *, vision: bool = True,
     return _serving(params, config, decoder, vision)
 
 
-def _serving(params: dict, config: TraceConfig, decoder: dict, vision: bool):
+def int4_serving(params: dict, config: TraceConfig) -> tuple[dict, TraceConfig]:
+    """The int4 serving pair, as the JAX package's ``model_init(...,
+    quant="int4")`` builds it: the decoder's layer weights quantized per
+    output channel to [-7, 7] (its native ``jnp.int4`` values), an int8
+    ``lm_head``, the int8 KV cache, weight-only products (no ``act_quant``)
+    and the ViT as it is. Torch has no int4 dtype: the values are
+    nibble-packed per channel (``pack=True, group=0``, the same values as
+    ``bits=4, pack=False``) and fused, so the card holds half of int8's
+    decoder bytes, as ``jnp.int4`` does in TPU HBM."""
+    decoder = quantize_decoder_params(params["decoder"], bits=4, pack=True, group=0)
+    return _serving(params, config, decoder, vision=False, act_quant=False)
+
+
+def _serving(params: dict, config: TraceConfig, decoder: dict, vision: bool,
+             act_quant: bool = True):
     params = dict(params)
     params["decoder"] = fuse_decoder_serving(decoder)
     if vision:
@@ -342,7 +361,7 @@ def _serving(params: dict, config: TraceConfig, decoder: dict, vision: bool):
     config = dataclasses.replace(
         config,
         decoder=dataclasses.replace(config.decoder, kv_cache_dtype="int8",
-                                    act_quant=True),
+                                    act_quant=act_quant),
         vision=dataclasses.replace(config.vision, act_quant=vision),
     )
     return params, config

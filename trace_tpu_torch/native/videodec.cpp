@@ -88,6 +88,12 @@ struct Reader {
     return av_rescale_q(ts, st->time_base, av_inv_q(avg_frame_rate));
   }
 
+  // swscale's SIMD output stores run past the end of a row whose bytes are
+  // no multiple of the vector width (a 40-pixel RGB24 row is 120 bytes), so
+  // it writes into rows of this scratch image, 64-byte aligned with 64 bytes
+  // of slack, and only the frame's own bytes are copied to the caller.
+  std::vector<uint8_t> scratch;
+
   bool to_rgb(AVFrame* frame, uint8_t* dst, int out_w, int out_h) {
     sws = sws_getCachedContext(sws, frame->width, frame->height,
                                (AVPixelFormat)frame->format, out_w, out_h,
@@ -97,10 +103,18 @@ struct Reader {
       set_error("swscale init failed");
       return false;
     }
-    uint8_t* planes[1] = {dst};
-    int strides[1] = {3 * out_w};
+    const int row = 3 * out_w;
+    const int stride = (row + 63) / 64 * 64;
+    scratch.resize((size_t)stride * out_h + 128);
+    uint8_t* base = scratch.data();
+    base += (64 - reinterpret_cast<uintptr_t>(base) % 64) % 64;
+    uint8_t* planes[1] = {base};
+    int strides[1] = {stride};
     sws_scale(sws, frame->data, frame->linesize, 0, frame->height, planes,
               strides);
+    for (int y = 0; y < out_h; ++y) {
+      std::memcpy(dst + (size_t)row * y, base + (size_t)stride * y, row);
+    }
     return true;
   }
 };

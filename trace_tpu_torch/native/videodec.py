@@ -4,11 +4,11 @@
 ``videodec.cpp`` beside this file is compiled with g++ against the system
 FFmpeg libraries (libavformat, libavcodec, libavutil, libswscale) at first
 use, into ``_build/`` beside this file; the library's name carries a hash of
-the source and the flags, so an edited source is rebuilt. It is the port's
-only reader of video containers (``video/io.py``): where g++ or FFmpeg's
+the source and the flags, so an edited source is rebuilt. It is the first
+reader of video containers (``video/io.py``): where g++ or FFmpeg's
 development files are missing, the first use raises
 ``NativeDecoderUnavailable`` with the compiler's message, and so does every
-later one.
+later one, and ``video/io.py`` reads containers through OpenCV instead.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ LIBS = ("avformat", "avcodec", "avutil", "swscale")
 
 _lock = threading.Lock()
 _lib = None    # the loaded library, once built
-_error = None  # the build's failure, once it failed
+_error = None  # the build's failure message, once it failed
 
 
 class NativeDecoderUnavailable(OSError):
@@ -64,17 +64,19 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
+        # a new exception each time: one raised again would collect the
+        # frames of every caller in its traceback and keep their locals
         if _error is not None:
-            raise _error
+            raise NativeDecoderUnavailable(_error)
         out = _target()
         try:
             if not out.exists():
                 _build(out)
             lib = ctypes.CDLL(str(out))
         except OSError as e:
-            _error = e if isinstance(e, NativeDecoderUnavailable) else \
-                NativeDecoderUnavailable(f"native decoder: cannot load {out}: {e}")
-            raise _error from None
+            _error = str(e) if isinstance(e, NativeDecoderUnavailable) else \
+                f"native decoder: cannot load {out}: {e}"
+            raise NativeDecoderUnavailable(_error) from None
         lib.vd_probe.argtypes = [
             ctypes.c_char_p,
             ctypes.POINTER(ctypes.c_int64),

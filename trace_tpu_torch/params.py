@@ -19,6 +19,8 @@ def _to_tensor(x) -> torch.Tensor:
     a = np.array(x)  # a writable copy: JAX hands out read-only buffers
     if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16 has no torch mapping
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    if a.dtype.name == "int4":  # ml_dtypes int4, [-8, 7]: one value an int8
+        return torch.from_numpy(a.astype(np.int8))
     return torch.from_numpy(a)
 
 
@@ -28,7 +30,9 @@ def from_jax_params(tree) -> dict:
     the port's tree of CPU tensors (``TracePipeline`` and ``train_loop`` move
     them to their device). Every leaf crosses as it is, LoRA adapter leaves
     (``<name>_lora_a`` / ``_lora_b``), quantized leaves and a Mixtral tree's
-    [L, E, ...] expert stacks included."""
+    [L, E, ...] expert stacks included; native ``int4`` values (the JAX
+    package's ``quant="int4"`` tree) become int8 tensors of the same values,
+    the port's ``quantize_decoder_params(bits=4, pack=False)`` leaves."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):  # a connector's layers

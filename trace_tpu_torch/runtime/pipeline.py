@@ -1,7 +1,7 @@
 """End-to-end inference: frames -> event triplets (trace_tpu/runtime/
-pipeline.py), in the bf16, the int8 or the int4p serving configuration
-(``model/quantize.py int8_serving`` / ``int4p_serving``), with rgb or
-yuv420 frame upload.
+pipeline.py), in the bf16, the int8, the int4 or the int4p serving
+configuration (``model/quantize.py int8_serving`` / ``int4_serving`` /
+``int4p_serving``), with rgb or yuv420 frame upload.
 
   host: tokenize, downscale frames larger than the ViT input, I420 of the
   content band (video/preprocess.py, numpy) -> upload -> device: I420 to
@@ -35,6 +35,7 @@ from trace_tpu_torch.model.config import TraceConfig
 from trace_tpu_torch.model.quantize import (
     MIXTRAL_NOT_QUANTIZED,
     fuse_decoder_serving,
+    int4_serving,
     int4p_serving,
     int8_serving,
 )
@@ -777,7 +778,9 @@ def model_init(model_path: str, *, vision_path: Optional[str] = None,
     group-128 scales), fuse it into the serving layout, and set the int8 KV
     cache and ``act_quant``; the ViT stays in ``dtype`` (``int8_serving`` with
     ``vision=True`` is the bench's configuration, not this one). ``"int4"``
-    (native int4 storage) raises ``NotImplementedError``. A Mixtral
+    is the JAX package's native-int4 configuration (``int4_serving``): the
+    decoder per output channel to [-7, 7], nibble-packed per channel on the
+    host, fused, the int8 KV cache, weight-only (no ``act_quant``). A Mixtral
     checkpoint serves in bf16 alone (the dense mixture): another ``quant``
     raises ``ValueError`` from its ``config.json``, before any weight is read
     (``model/quantize.py MIXTRAL_NOT_QUANTIZED``).
@@ -795,10 +798,6 @@ def model_init(model_path: str, *, vision_path: Optional[str] = None,
 
     if quant not in ("bf16", "int8", "int4", "int4p"):
         raise ValueError(f"quant must be bf16, int8, int4 or int4p, got {quant!r}")
-    if quant == "int4":
-        raise NotImplementedError(
-            "quant='int4' is native jnp.int4 storage, which torch has no dtype for; "
-            "use quant='int4p' (the same values nibble-packed)")
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("model_init: no CUDA device; pass device='cpu' to run on the CPU")
@@ -809,7 +808,9 @@ def model_init(model_path: str, *, vision_path: Optional[str] = None,
         tokenizer = load_hf_tokenizer(model_path)
     params, config = convert_trace_checkpoint(model_path, dtype=dtype,
                                               vision_path=vision_path)
-    if quant != "bf16":
+    if quant == "int4":
+        params, config = int4_serving(params, config)
+    elif quant != "bf16":
         serving = int8_serving if quant == "int8" else int4p_serving
         params, config = serving(params, config, vision=False)
     pipe = TracePipeline(params, config, tokenizer, device=device)

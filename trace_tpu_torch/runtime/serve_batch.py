@@ -59,9 +59,11 @@ def serve(pipe, paths: Sequence[str], out: str, *,
           constrain_time: bool = False, max_side: Optional[int] = 672) -> dict:
     """Run ``pipe.infer_events_corpus`` over ``paths`` and write one JSONL
     line per video to ``out``. Returns {"ok": videos served, "failed":
-    videos that did not load, "seconds": corpus wall time, "videos_per_s"}."""
-    from trace_tpu_torch.video.io import load_video_frames
+    videos that did not load, "seconds": corpus wall time, "videos_per_s"}.
+    Prints the route video containers take on this machine first."""
+    from trace_tpu_torch.video.io import container_reader, load_video_frames
 
+    print(f"serve_batch: video containers read through {container_reader()}", flush=True)
     failed = {}
 
     def load_item(i):
@@ -118,7 +120,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--constrain-time", action="store_true",
                     help="trace-retrieval timestamp constraint")
     ap.add_argument("--max-side", type=int, default=672,
-                    help="native pre-scaled decode cap (0 = native res)")
+                    help="native pre-scaled decode cap (0 = native res; "
+                         "the OpenCV route ignores it)")
     # fleet serving: shard the video list over independent workers (one
     # card each); each writes its own JSONL
     ap.add_argument("--num-shards", type=int, default=1)

@@ -9,19 +9,22 @@ Readers by path, as in the JAX package:
   (PIL);
 * gif (imageio; 10 fps);
 * every other container (mp4, webm, mkv, ...) through the native
-  libavformat/libavcodec decoder (``native/videodec``) alone. The JAX
-  package falls back to OpenCV where that decoder is missing; the port has
-  no such fallback: where the decoder cannot build, reading a container
-  raises ``NativeDecoderUnavailable`` naming what is missing.
+  libavformat/libavcodec decoder (``native/videodec``) where it builds and
+  reads the file, else through OpenCV (``cv2``, FFmpeg-backed), in the JAX
+  package's order. ``container_reader()`` names the route this machine
+  takes, and ``CONTAINER_READS`` counts the reads of each route. On the
+  OpenCV route ``max_side`` is ignored, as in the JAX package: frames come
+  back at the source's size.
 
-PIL and imageio are imported where they are used, so a machine without them
-reads ``.npy`` and containers. Every reader returns (frames uint8
+PIL, imageio and cv2 are imported where they are used, so a machine without
+them reads ``.npy`` and the rest. Every reader returns (frames uint8
 [T, H, W, 3] RGB, timestamps [[sec], ...]).
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -52,13 +55,79 @@ def _read_gif(path: str, indices: np.ndarray) -> Frames:
     return np.stack(frames)
 
 
-def probe(path: str) -> Tuple[int, float]:
-    """(frame_count, fps) of a video container, from the native decoder's
-    reading of its header."""
+# reads of a container by the route that returned its frames
+CONTAINER_READS = {"native": 0, "opencv": 0}
+_reads_lock = threading.Lock()
+
+
+def _count_read(route: str) -> None:
+    with _reads_lock:
+        CONTAINER_READS[route] += 1
+
+
+def _read_cv2(path: str, indices: np.ndarray) -> Frames:
+    """The given frame indices of a container through OpenCV, at the
+    source's size: a seek where an index does not follow the last one."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    try:
+        if not cap.isOpened():
+            raise IOError(f"cannot open video: {path}")
+        frames = []
+        last_pos = -2
+        for idx in indices:
+            idx = int(idx)
+            if idx != last_pos + 1:
+                cap.set(cv2.CAP_PROP_POS_FRAMES, idx)
+            ok, frame = cap.read()
+            if not ok:
+                raise IOError(f"failed to read frame {idx} of {path}")
+            frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+            last_pos = idx
+    finally:
+        cap.release()
+    return np.stack(frames)
+
+
+def _probe_cv2(path: str) -> Tuple[int, float]:
+    """(frame_count, fps) from OpenCV's reading of the container (30 fps
+    where it reports none)."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    try:
+        if not cap.isOpened():
+            raise IOError(f"cannot open video: {path}")
+        duration = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        fps = float(cap.get(cv2.CAP_PROP_FPS)) or 30.0
+    finally:
+        cap.release()
+    return duration, fps
+
+
+def container_reader() -> str:
+    """The route video containers take on this machine: ``"native"`` where
+    the native decoder builds and loads, else ``"opencv (native decoder
+    unavailable: <the first line of its build error>)"``."""
     from trace_tpu_torch.native import videodec
 
-    count, fps, _, _ = videodec.probe(path)
-    return count, fps or 30.0
+    try:
+        videodec.load()
+    except videodec.NativeDecoderUnavailable as e:
+        return f"opencv (native decoder unavailable: {str(e).splitlines()[0]})"
+    return "native"
+
+
+def probe(path: str) -> Tuple[int, float]:
+    """(frame_count, fps) of a video container: the native decoder's reading
+    of its header where it loads, else OpenCV's."""
+    if container_reader() == "native":
+        from trace_tpu_torch.native import videodec
+
+        count, fps, _, _ = videodec.probe(path)
+        return count, fps or 30.0
+    return _probe_cv2(path)
 
 
 def probe_media(path: str) -> None:
@@ -84,14 +153,26 @@ def probe_media(path: str) -> None:
         raise IOError(f"no frames reported by container: {path}")
 
 
-def read_frames_at(path: str, indices: np.ndarray,
+def read_frames_at(path: str, indices: np.ndarray, use_native: bool = True,
                    max_side: int | None = None) -> Frames:
-    """Random-access decode of specific frame indices of a container.
-    ``max_side`` caps the decoded resolution in the decoder's swscale pass
-    (one resample; HD never reaches host RAM at full size)."""
-    from trace_tpu_torch.native import videodec
+    """Random-access decode of specific frame indices of a container: the
+    native decoder where ``use_native`` is set and it loads, OpenCV where it
+    does not or its read fails, as in the JAX package. ``max_side`` caps the
+    decoded resolution in the native decoder's swscale pass (one resample;
+    HD never reaches host RAM at full size); OpenCV ignores it."""
+    if use_native:
+        from trace_tpu_torch.native import videodec
 
-    return videodec.read_frames(path, indices, max_side=max_side)
+        try:
+            frames = videodec.read_frames(path, indices, max_side=max_side)
+        except OSError:  # NativeDecoderUnavailable too
+            pass
+        else:
+            _count_read("native")
+            return frames
+    frames = _read_cv2(path, indices)
+    _count_read("opencv")
+    return frames
 
 
 def load_video_frames(
@@ -100,12 +181,15 @@ def load_video_frames(
     sample_scheme: str = "uniform",
     *,
     rng: Optional[np.random.Generator] = None,
+    use_native: bool = True,
     max_side: int | None = None,
 ) -> Tuple[Frames, Timestamps]:
     """Decode + sample frames from a video file / gif / image dir / npy /
     image, routed by path as the reference's process_video routes containers
     (mm_utils.py:400-448), capped at MAX_FRAMES, with per-frame timestamps in
-    the reference's nested shape."""
+    the reference's nested shape. A container is probed and read through
+    the native decoder where ``use_native`` is set and it loads, else
+    through OpenCV (``read_frames_at``)."""
     if os.path.isdir(path):
         return _load_image_dir(path, num_frames)
     if path.endswith(".npy"):
@@ -125,10 +209,10 @@ def load_video_frames(
         indices = cap_to_max_frames(indices, duration)
         return _read_gif(path, indices), frame_timestamps(indices, GIF_FPS)
 
-    duration, fps = probe(path)
+    duration, fps = probe(path) if use_native else _probe_cv2(path)
     indices = sample_frame_indices(duration, num_frames, sample_scheme, fps=fps, rng=rng)
     indices = cap_to_max_frames(indices, duration)
-    frames = read_frames_at(path, indices, max_side=max_side)
+    frames = read_frames_at(path, indices, use_native, max_side)
     return frames, frame_timestamps(indices, fps)
 
 
