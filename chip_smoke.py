@@ -25,9 +25,17 @@ Phases, in order; any failure exits non-zero:
      card could take (the larger of bytes / 3.35 TB/s and operations over
      the peak rate of their type, 989 TFLOP/s bf16 or 1979 TOP/s int8, the
      H100 SXM data-sheet rates); beside the backward, informational, SDPA's
-     flash backend on the same q / k / v with is_causal and no bias;
+     flash backend on the same q / k / v with is_causal and no bias. Then
+     the fp32 form of every row (``*_f32``, csrc/*_f32.cu, fp32 FMA on the
+     CUDA cores) at the same shapes in fp32 (the decode rows also at
+     B = 32), bound against the fp32 CUDA-core peak of 67 TFLOP/s,
+     yardsticks SDPA in fp32 and ``torch.matmul`` on the dequantized fp32
+     weight, each held to its plain version (FP32_REL_NORM_TOL); and row 1
+     with a query offset (a chunk of a chunked prefill over a cache
+     stripe) against the plain chunked attention, bf16 and fp32;
   4. the TRACE-7B serving path end to end at full width (CLIP ViT-L/14-336
-     at the -2 tap, spatial_slot, Mistral-7B, random weights from seed 0),
+     at the -2 tap, spatial_slot, Mistral-7B at SERVE_LAYERS = 16 of its 32
+     layers, random weights from seed 0),
      first in bf16, then in the int8 serving configuration (int8 weights in
      the fused layout, int8 KV cache, W8A8 prefill and ViT), then in the
      int4p serving configuration (nibble-packed int4 layer weights with
@@ -40,8 +48,15 @@ Phases, in order; any failure exits non-zero:
      (group 0) int4p tree at a depth of 4 layers (W4A8 prefill, the
      per-channel kernel in the steps), and one request of it without
      activation quantization (the per-channel kernel in the prefill too).
+     Then fp32 trees (TraceConfig(dtype=float32)) at F32_LAYERS layers in
+     the int8, int4 and int4p serving configurations: a request each
+     through the fp32 forms (rows 1, 2, 3b and 4-7), check (e), no plain
+     version on the card, and a dequant request on the int8 one; and the
+     chunked prefill: one request's prefix prefilled in two chunks through
+     ``decoder_forward`` against the one-shot prefill, on the kernel and the
+     plain route (bf16 at 32 layers, and the fp32 int8 tree).
   5. the bench's serving workload (bench.py's int8 defaults, cut to 64 of its
-     192 videos and 16 of 32 layers) through the port's entry points at full
+     192 videos and CORPUS_LAYERS = 8 of 32 layers) through the port's entry points at full
      width: TRACE-7B in the int8 serving
      configuration with the W8A8 ViT and ``upload_format="yuv420"``, random
      weights from seed 0, ``SpmLikeTokenizer``; a pool of 4 synthetic
@@ -68,7 +83,7 @@ Phases, in order; any failure exits non-zero:
   6. the training path at full width: ``train_loop`` on TRACE-7B bf16 (random
      weights from seed 0, 2 synthetic 128-frame videos with one event list
      each, batch 2, remat on) for stage ``pretrain`` and stage ``lora``
-     (rank 128 on the seven decoder projections) at a depth of 8 layers,
+     (rank 128 on the seven decoder projections) at a depth of TRAIN_LAYERS = 4 layers,
      then stage ``sft`` at a depth of 4 layers. Per stage a 1-step run (the schedule starts at 0: no
      trainable leaf may move), a 2-step run (every trainable group must have
      moved) and the 4-step run that is timed: losses finite, frozen leaves
@@ -78,7 +93,9 @@ Phases, in order; any failure exits non-zero:
      the 4-layer depth, one forward_train + backward through the kernels
      against the same with every kernel replaced by its plain version and
      against an fp32 model of the same weights: the loss and the gradients of
-     the connector, the towers and decoder layer 0.
+     the connector, the towers and decoder layer 0. Last, two ``lora``
+     steps of an fp32 model at SFT_LAYERS layers through the fp32 forms of
+     rows 2 and 8-10.
   7. a TRACE-7B checkpoint of the released merged layout (690 keys, bf16,
      random values) written to a temporary directory and served through the
      public API: ``model_init`` in bf16, int8 and int4, ``infer_events`` on
@@ -86,13 +103,18 @@ Phases, in order; any failure exits non-zero:
      (cv2.VideoWriter, mp4v), read on the route ``video.io
      .container_reader`` names (OpenCV where the native decoder does not
      build), ``serve`` over the ``.npy`` files and one that does not load,
-     and over the ``.mp4`` files and a junk one (see ``checkpoint_phase``).
+     and over the ``.mp4`` files and a junk one (see ``checkpoint_phase``);
+     then ``model_init(dtype=torch.float32)`` (one request through the fp32
+     forms of rows 1-3, its prefill logits against the fp32 plain path's
+     beside the bf16 kernel path's) and ``python -m
+     trace_tpu_torch.checkpoint.manifest --verify`` on the directory and on
+     a copy without one shard.
   8. the evaluation entry points on that checkpoint and those videos
      (``eval_phase``): ``eval.evaluate.main`` for tvg in bf16,
      ``runtime.inference.main``, ``run_vtg_eval`` for dvc in int8 scored
      as dvc, dvc-anet and vhd, ``run_mvbench`` on JPEG frame dumps and on
      ``.mp4`` clips, and ``run_videomme`` on phase 7's ``.mp4`` files.
-  9. the other backbones at full width and a depth of 8 layers, each from a merged checkpoint
+  9. the other backbones at full width and a depth of FAMILY_LAYERS = 4 layers, each from a merged checkpoint
      written here and loaded through ``model_init`` (``families_phase``):
      qwen2-7B (G = 7, qkv biases) with spatial_slot, two requests in bf16
      and two in int8, and vicuna-7B with stc_connector_v35 (the
@@ -110,20 +132,23 @@ Phases, in order; any failure exits non-zero:
  11. the parallel paths (``parallel_phase``): 2 ranks on the one card, a gloo
      group over CUDA tensors (NCCL refuses two ranks on one device), a
      (data 1, model 2) mesh and a 2-stage pipeline mesh. Tensor-parallel
-     serving of phase 4's TRACE-7B (32 layers, seed 0) in bf16 and in the
+     serving of phase 4's TRACE-7B (at PAR_SERVE_LAYERS = 8 of its 32
+     layers, seed 0) in bf16 and in the
      int8 serving configuration through ``shard_params_for_inference``,
      ``encode_prefix_sharded`` (frame-parallel ViT) and ``generate_sharded``,
      phase 4's two requests each: launch counts of rows 1, 2, 3 / 3b, 4 and 5
      per rank and request, check (e) at the local shapes, the ranks' tokens
      equal, the first-token logits no further from the fp32 model than
-     REF_RATIO_TOL x the one-rank kernel path's (phase 4's, or built here
-     one at a time when phase 4 did not run); an int4p tree refused. One
+     REF_RATIO_TOL x the one-rank kernel path's (built here at the same
+     depth); an int4p tree refused. One
      Mixtral-8x7B layer, 4 experts a rank, both forms, against the one-rank
      layer. ``pp_decoder_forward`` at full width, 8 layers, 2 stages x 2
      microbatches, B 2 x T 2048: output and gradients against
      ``decoder_forward`` on one rank. PAR_TRAIN_STEPS ``lora`` steps of
      ``train_loop(mesh=...)`` at 4 layers, each step's loss and grad norm
-     against one rank's. Per rank:
+     against one rank's. One request in the native int4 configuration at
+     TP_INT4_LAYERS layers (per-channel packed shards packed on each rank)
+     held to the same request on one rank. Per rank:
      encode s, prefill s, decode ms/step and the gloo collectives' share of
      the decode loop.
 The line before the last is {"kernels": [...]} (each entry also holds
@@ -134,7 +159,9 @@ outside a checkout of the repository, it prints no result and exits 2.
 ``--kernels`` stops after phase 3 (a short check of freshly edited kernels;
 no last line); ``--checkpoint`` runs phase 7 alone, ``--eval`` phases 7 and
 8, ``--families`` phase 9 alone, ``--moe`` phase 10 alone and
-``--parallel`` phase 11 alone (each after the build; no last line).
+``--parallel`` phase 11 alone (each after the build; no last line);
+``--runbook`` runs scripts/parity/run_all_torch.sh on a checkpoint of phase
+7's writer.
 """
 
 from __future__ import annotations
@@ -155,6 +182,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, data sheet
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16, data sheet
 INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8, data sheet
+FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 on the CUDA cores (not TF32), data sheet
 SEED = 0
 FRAMES = 128
 VIDEOS = 2
@@ -229,7 +257,35 @@ KERNEL_TOL = {  # name: (atol, rtol)
     "quant_matmul_p4_mma": (1e-4, 2 ** -7),      # tensor-core form, same units
     "quant_matmul_p4_grouped": (1e-5, 2 ** -7),
     "quant_matmul_p4_grouped_mma": (1e-4, 2 ** -7),
+    # the fp32 forms (csrc/*_f32.cu): fp32 in and out, the same fp32 steps as
+    # the plain version in another summation order, so they differ by fp32
+    # rounding: attention and decode rows ~1e-6 of their values (limits 1e-4
+    # absolute on outputs of a few units, 1e-4 relative), gradients in units
+    # of max |ref| (1e-5); the weight products in units of max |ref|, 1e-5
+    # (exact products, sums over K <= 14336 terms in another order). The
+    # dequant decode body rounds p to bf16 as the plain version does; where
+    # the two p lie across a bf16 rounding point (p differs by an ulp) the
+    # weight moves by one bf16 step: a few values a call by up to ~2e-4 (at
+    # B = 32; its atol is the bf16 dequant row's), 4e-5 of the norm.
+    # Their norm limit is FP32_REL_NORM_TOL (NORM_TOL)
+    "flash_attention_f32": (1e-4, 1e-4),
+    "vit_attention_btd_f32": (1e-4, 1e-4),
+    "flash_attention_fwd_res_f32": (1e-4, 1e-4),
+    "flash_attention_bwd_dq_f32": (1e-5, 1e-4),   # units of max |ref|
+    "flash_attention_bwd_dkv_f32": (1e-5, 1e-4),  # units of max |ref|
+    "decode_attention_f32": (1e-4, 1e-4),
+    "decode_attention_int8_s8dot_f32": (1e-4, 1e-4),
+    "decode_attention_int8_dequant_f32": (2e-3, 1e-4),  # the bf16 dequant row's atol
+    "quant_matmul_f32": (1e-5, 0.0),             # units of max |ref|, both forms
+    "quant_matmul_stacked_f32": (1e-5, 0.0),
+    "quant_matmul_p4_f32": (1e-5, 0.0),          # split-K form
+    "quant_matmul_p4_f32_tiled": (1e-5, 0.0),    # tiled form (M > 8)
+    "quant_matmul_p4_grouped_f32": (1e-5, 0.0),
+    "quant_matmul_p4_grouped_f32_tiled": (1e-5, 0.0),
 }
+FP32_REL_NORM_TOL = 1e-4
+# ||diff|| / ||ref|| limit of a row: REL_NORM_TOL, the fp32 forms' FP32_REL_NORM_TOL
+NORM_TOL = {name: FP32_REL_NORM_TOL for name in KERNEL_TOL if "_f32" in name}
 P4_SHAPES = (  # K, N, out dtype: wqkv, wo, w_gateup, w_down of a fused 7B layer
     (4096, 6144, "bfloat16"), (4096, 4096, "bfloat16"),
     (4096, 28672, "float32"), (14336, 4096, "bfloat16"))
@@ -403,17 +459,282 @@ def kernel_checks(torch):
     packed_int4_checks(torch, g, rows)
     flash_backward_checks(torch, g, rows)
 
+    fp32_kernel_checks(torch, rows)
+    query_offset_checks(torch)
+
     for name, r in rows.items():
         atol, rtol = KERNEL_TOL[name]
-        print(f"kernel {name}: max_abs_err={r['err']:.6f} (|diff| <= {atol} + "
-              f"{rtol} |ref|, excess {r['excess']:.6f}) rel_norm_err="
-              f"{r['rel_norm']:.6f} (tol {REL_NORM_TOL}) ref_rms={r['ref_rms']:.4f} "
+        norm = NORM_TOL.get(name, REL_NORM_TOL)
+        print(f"kernel {name}: max_abs_err={r['err']:.6g} (|diff| <= {atol} + "
+              f"{rtol} |ref|, excess {r['excess']:.6g}) rel_norm_err="
+              f"{r['rel_norm']:.6g} (tol {norm}) ref_rms={r['ref_rms']:.4f} "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
               f"({r['bound'][1]})", flush=True)
-        if not (r["excess"] <= 0 and r["rel_norm"] <= REL_NORM_TOL):
+        if not (r["excess"] <= 0 and r["rel_norm"] <= norm):
             fail(f"{name}: kernel disagrees with its plain version")
     return rows
+
+
+def fp32_kernel_checks(torch, rows: dict) -> None:
+    """The fp32 form of every row (csrc/*_f32.cu, fp32 FMA on the CUDA
+    cores) against its plain version at the bf16 row's shapes, fp32
+    operands: K1 rows 1, 2 and 8 (``flash_attention``, ``vit_attention_btd``,
+    ``flash_attention_fwd_res`` with its lse), K2 rows 3 and 3b in both
+    modes at B = 4 (the row) and B = 32 (printed apart), K3 rows 4-7 at
+    M = 2 (split K) and the packed ones at M = 3886 (tiled; the int8 tiled
+    form at M = 37, untimed, folded into its row), K4 rows 9-10. Bound:
+    the larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s (the fp32
+    CUDA-core peak); yardsticks: SDPA in fp32 for the attention rows,
+    ``torch.matmul`` of fp32 x with the dequantized fp32 weight for rows
+    4-7 (TF32 off)."""
+    import torch.nn.functional as F
+
+    from trace_tpu_torch.kernels import flash_backward as fb
+    from trace_tpu_torch.kernels import quant_matmul as qmm
+    from trace_tpu_torch.kernels.decode_attention import INT8_MODES, decode_attention
+    from trace_tpu_torch.kernels.decode_int8_turns import mask_bias
+    from trace_tpu_torch.kernels.flash_attention import flash_attention, vit_attention_btd
+    from trace_tpu_torch.model.mistral import _quantize_kv
+    from trace_tpu_torch.model.quantize import dequantize
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    f32bound = lambda nbytes, ops: bound(nbytes, ops, FP32_FLOPS_PER_S)
+
+    def row(name, fn, lib, nbytes, ops, reps=20, keep=True, label=None, rows_of=None):
+        out, ref = fn(), fn("plain")
+        torch.cuda.synchronize()
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        parts = []
+        for a, b in zip(outs, refs):
+            if not torch.isfinite(a).all():
+                fail(f"{name}: non-finite output")
+            if rows_of is not None:
+                a, b = rows_of(a), rows_of(b)
+            unit = b.abs().max() if name.startswith(("quant", "flash_attention_bwd")) else 1.0
+            r = compare(name, a / unit, b / unit)
+            r["err"] *= float(unit)
+            parts.append(r)
+        r = {k: max(p[k] for p in parts) for k in ("err", "excess", "rel_norm")}
+        r.update(ref_rms=parts[0]["ref_rms"], ms=median_ms(torch, fn, reps),
+                 plain_ms=median_ms(torch, lambda: fn("plain"), reps),
+                 library_ms=median_ms(torch, lib, reps), bound=f32bound(nbytes, ops))
+        atol, rtol = KERNEL_TOL[name]
+        print(f"  {label or name} (fp32): ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
+              f"({r['bound'][1]}; fp32 CUDA-core peak 67 TFLOP/s, "
+              f"{100 * r['bound'][0] / r['ms']:.1f} %) max_abs_err={r['err']:.3g} "
+              f"(excess {r['excess']:.3g}) rel_norm_err={r['rel_norm']:.3g} "
+              f"(tol {FP32_REL_NORM_TOL})", flush=True)
+        if not (r["excess"] <= 0 and r["rel_norm"] <= FP32_REL_NORM_TOL):
+            fail(f"{label or name} (fp32): kernel disagrees with its plain version")
+        if keep:
+            rows[name] = r
+        return r, outs
+
+    # K1, row 1: the prefill shape of the bf16 row in fp32
+    B, H, HKV, T, HD, PAD = 2, 32, 8, 2048, 128, 300
+    q, k, v = randn(B, H, T, HD), randn(B, HKV, T, HD), randn(B, HKV, T, HD)
+    bias = torch.zeros((B, T), device="cuda")
+    bias[0, :PAD] = -1e30
+    causal = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
+    lib_mask = torch.where(causal[None, None], bias[:, None, None, :],
+                           torch.tensor(-1e30, device="cuda"))
+    visible = sum((T - p) * (T - p + 1) // 2 for p in (PAD, 0))
+    flops = 4 * H * HD * visible
+    real = 2 * T - PAD
+    row("flash_attention_f32", lambda impl="auto": flash_attention(q, k, v, bias, True, impl=impl),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask, enable_gqa=True),
+        (H + 2 * HKV) * real * HD * 4 + q.numel() * 4 + bias.numel() * 4, flops, reps=10)
+    # K1, row 8: the training shape, right padding, with the lse
+    real_rows = torch.ones((B, T), dtype=torch.bool, device="cuda")
+    real_rows[0, T - PAD:] = False
+    tbias = torch.where(real_rows, 0.0, -1e30).float()
+    fwd = lambda impl="auto": fb.flash_attention_fwd_res(q, k, v, tbias, causal=True, impl=impl)
+    (o, lse), (o_ref, lse_ref) = fwd(), fwd("plain")
+    lse_err = (lse - lse_ref).abs().max().item()
+    print(f"  flash_attention_fwd_res (fp32) lse: max_abs_err={lse_err:.2e} (tol {LSE_TOL})",
+          flush=True)
+    if not lse_err <= LSE_TOL:
+        fail("flash_attention_fwd_res (fp32): lse disagrees with its plain version")
+    tmask = torch.where(causal[None, None], tbias[:, None, None, :],
+                        torch.tensor(-1e30, device="cuda"))
+    stats = H * real * 4
+    row("flash_attention_fwd_res_f32", lambda impl="auto": fwd(impl)[0],
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=tmask, enable_gqa=True),
+        (H + 2 * HKV) * real * HD * 4 + H * real * HD * 4 + stats + tbias.numel() * 4, flops,
+        reps=10)
+    # K4, rows 9-10 on the forward's own residuals
+    do = randn(B, H, T, HD) * real_rows[:, None, :, None]
+    delta = fb.flash_attention_bwd_delta(o, do)
+    if not torch.allclose(delta, fb.flash_attention_bwd_delta(o, do, impl="plain"),
+                          rtol=1e-5, atol=1e-5):
+        fail("flash_attention_bwd_delta (fp32) disagrees with its plain version")
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=tmask, enable_gqa=True)
+    lib_bwd = lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True)
+    args = (q, k, v, tbias, do, lse, delta)
+    product = 2 * H * HD * visible
+    io = lambda heads: heads * real * HD * 4
+    grads_in = io(2 * H + 2 * HKV) + 2 * stats + tbias.numel() * 4
+    _, dq = row("flash_attention_bwd_dq_f32", lambda impl="auto": fb.flash_attention_bwd_dq(
+        *args, causal=True, impl=impl), lib_bwd, grads_in + io(H), 3 * product, reps=5)
+    _, dkv = row("flash_attention_bwd_dkv_f32", lambda impl="auto": fb.flash_attention_bwd_dkv(
+        *args, causal=True, impl=impl), lib_bwd, grads_in + io(2 * HKV), 4 * product, reps=5)
+    again = fb.flash_attention_bwd(q, k, v, tbias, o, lse, do, causal=True)
+    if not all(torch.equal(a, b) for a, b in zip(dq + dkv, again)):
+        fail("flash_attention_bwd (fp32): two runs on the same inputs differ")
+    del q, k, v, o, lse, o_ref, lse_ref, do, delta, leaves, lib_out, lib_mask, tmask, dq, dkv
+
+    # K1, row 2: the ViT chunk, column slices of an fp32 fused QKV
+    B, P, D, NH, TQ = 16, 592, 1024, 16, 577
+    qkv = randn(B, P, 3 * D)
+    q, k, v = qkv.split(D, dim=-1)
+    heads = lambda x: x.view(B, P, NH, D // NH).transpose(1, 2)
+    key_mask = (torch.arange(P, device="cuda") < TQ)[None, None, None, :]
+    row("vit_attention_btd_f32", lambda impl="auto": vit_attention_btd(q, k, v, TQ, NH,
+                                                                       impl=impl),
+        lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=key_mask),
+        4 * B * TQ * D * 4, 4 * B * NH * TQ * TQ * (D // NH), rows_of=lambda x: x[:, :TQ])
+    del qkv, q, k, v
+
+    # K2, rows 3 and 3b: one layer's stripe, half the slots masked; B = 4 the
+    # row, B = 32 printed
+    H, NKV, HD, S = 32, 8, 128, 2304
+    for B in (4, 32):
+        q = randn(B, H, 1, HD)
+        kf, vf = randn(B, NKV, S, HD), randn(B, NKV, S, HD)
+        bias = mask_bias(g, B, "random", S)
+        n_vis = int((bias == 0).sum().item())
+        ops = 4 * H * n_vis * HD
+        lm = bias[:, None, None, :]
+        row("decode_attention_f32", lambda impl="auto": decode_attention(q, kf, vf, bias,
+                                                                         impl=impl),
+            lambda: F.scaled_dot_product_attention(q, kf, vf, attn_mask=lm, enable_gqa=True),
+            2 * q.numel() * 4 + 2 * n_vis * NKV * HD * 4 + bias.numel() * 4, ops,
+            keep=B == 4, label=f"decode_attention_f32 at B = {B}",
+            rows_of=lambda x: x[(bias > -1e29).any(-1)])
+        stripe = {}
+        for vals, scales, x in (("kq", "ks", kf), ("vq", "vs", vf)):
+            stripe[vals], stripe[scales] = _quantize_kv(x.to(torch.bfloat16))
+        kd = (stripe["kq"].float() * stripe["ks"].float().transpose(-1, -2))
+        vd = (stripe["vq"].float() * stripe["vs"].float().transpose(-1, -2))
+        del kf, vf
+        for mode in INT8_MODES:
+            name = f"decode_attention_int8_{mode}_f32"
+            row(name, lambda impl="auto": decode_attention(q, stripe, None, bias, mode=mode,
+                                                           impl=impl),
+                lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=lm, enable_gqa=True),
+                2 * q.numel() * 4 + 2 * n_vis * NKV * (HD + 2) + bias.numel() * 4, ops,
+                keep=B == 4, label=f"{name} at B = {B}")
+        del q, stripe, kd, vd, bias, lm
+
+    # K3, rows 4-7: layer 17 of 32 of the four weights of a fused layer (the
+    # row: their sum), x fp32; the int8 lm_head at M = 2
+    L, LI = 32, 17
+    timed = {n: [] for n in ("quant_matmul_stacked_f32", "quant_matmul_p4_f32",
+                             "quant_matmul_p4_grouped_f32", "quant_matmul_p4_f32_tiled",
+                             "quant_matmul_p4_grouped_f32_tiled")}
+
+    def mm(name, fn, w, x, qbytes, reps=20):
+        M, K = x.shape
+        N = w.shape[1]
+        r, (out,) = row(name, fn, lambda: torch.matmul(x, w), x.numel() * 4 + qbytes
+                        + M * N * 4, 2 * M * K * N, reps=reps, keep=False,
+                        label=f"{name} x [{M}, {K}] -> [{M}, {N}]")
+        return r
+
+    q8 = torch.randint(-127, 128, (4096, 32000), generator=g, device="cuda", dtype=torch.int8)
+    s8 = (torch.rand((32000,), generator=g, device="cuda") * 4e-4 + 1e-4).to(torch.bfloat16)
+    x2 = randn(2, 4096)
+    rows["quant_matmul_f32"] = mm("quant_matmul_f32", lambda impl="auto": qmm.quant_matmul(
+        x2, q8, s8, out_dtype=torch.float32, impl=impl), q8.float() * s8.float(), x2,
+        q8.numel() + s8.numel() * 2)
+    xr = randn(37, 1000)
+    qr = torch.randint(-127, 128, (1000, 1100), generator=g, device="cuda", dtype=torch.int8)
+    sr = (torch.rand((1100,), generator=g, device="cuda") * 4e-4 + 1e-4).to(torch.bfloat16)
+    out, ref = (qmm.quant_matmul(xr, qr, sr, out_dtype=torch.float32, impl=i)
+                for i in ("auto", "plain"))
+    unit = ref.abs().max()
+    tiled = compare("quant_matmul_f32", out / unit, ref / unit)
+    print(f"  quant_matmul_f32 tiled form, x [37, 1000] (untimed): max_err/max|ref|="
+          f"{tiled['err']:.3g} rel_norm_err={tiled['rel_norm']:.3g}", flush=True)
+    if not (tiled["excess"] <= 0 and tiled["rel_norm"] <= FP32_REL_NORM_TOL):
+        fail("quant_matmul_f32 (tiled form): kernel disagrees with its plain version")
+    rows["quant_matmul_f32"].update({k: max(rows["quant_matmul_f32"][k], tiled[k] * (
+        float(unit) if k == "err" else 1)) for k in ("err", "excess", "rel_norm")})
+    del q8, s8, qr, sr
+    for K, N, _ in P4_SHAPES:
+        x2, xp = randn(2, K), randn(PREFILL_M, K)
+        q8 = torch.randint(-127, 128, (L, K, N), generator=g, device="cuda", dtype=torch.int8)
+        s8 = (torch.rand((L, N), generator=g, device="cuda") * 4e-4 + 1e-4).to(torch.bfloat16)
+        timed["quant_matmul_stacked_f32"].append(mm(
+            "quant_matmul_stacked_f32", lambda impl="auto": qmm.quant_matmul_stacked(
+                x2, q8, s8, LI, out_dtype=torch.float32, impl=impl),
+            q8[LI].float() * s8[LI].float(), x2, K * N + N * 2))
+        del q8, s8
+        for grouped in (False, True):
+            qp = torch.randint(-128, 128, (L, K // 2, N), generator=g, device="cuda",
+                               dtype=torch.int8)
+            sp = (torch.rand((L, K // 128 if grouped else 1, N), generator=g, device="cuda")
+                  * 4e-3 + 1e-3).to(torch.bfloat16)
+            w = dequantize({"qp": qp[LI], "s": sp[LI]}, torch.float32)
+            entry = qmm.quant_matmul_p4_grouped_stacked if grouped else qmm.quant_matmul_p4_stacked
+            base = "quant_matmul_p4_grouped_f32" if grouped else "quant_matmul_p4_f32"
+            qbytes = K * N // 2 + sp[LI].numel() * 2
+            for x, name, reps in ((x2, base, 20), (xp, base + "_tiled", 3)):
+                timed[name].append(mm(name, lambda impl="auto": entry(
+                    x, qp, sp, LI, out_dtype=torch.float32, impl=impl), w, x, qbytes, reps))
+            del qp, sp, w
+        del x2, xp
+    for name, parts in timed.items():
+        rows[name] = merge(parts)
+        r = rows[name]
+        print(f"  {name}, the four shapes together: ms={r['ms']:.4f} plain_ms="
+              f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} bound_ms="
+              f"{r['bound'][0]:.4f} ({r['bound'][1]})", flush=True)
+
+
+def query_offset_checks(torch) -> None:
+    """Row 1 with a query offset (a chunk of a chunked prefill over a cache
+    stripe, ``flash_attention(..., q_offset=)``), bf16 and fp32, against
+    the plain chunked attention (``xla_attention`` with the offset, and the
+    JAX package's einsum expression ``grouped_attention`` with the
+    [B, 1, T, S] visibility of ``model/mistral.py``): a 512-query chunk at
+    slot 1536 of a [2, 8, 2304, 128] stripe whose row 0 is left-padded by
+    300 slots, 32 query heads, the stripe read in place."""
+    from trace_tpu_torch.kernels.decode_attention import grouped_attention
+    from trace_tpu_torch.kernels.flash_attention import NEG_INF, flash_attention
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    B, H, HKV, S, HD, T, OFF, PAD = 2, 32, 8, 2304, 128, 512, 1536, 300
+    for dtype, name in ((torch.bfloat16, "flash_attention"),
+                        (torch.float32, "flash_attention_f32")):
+        q = torch.randn((B, H, T, HD), generator=g, device="cuda").to(dtype)
+        k = torch.randn((B, HKV, S, HD), generator=g, device="cuda").to(dtype)
+        v = torch.randn((B, HKV, S, HD), generator=g, device="cuda").to(dtype)
+        vis = torch.zeros((B, S), dtype=torch.bool, device="cuda")
+        vis[:, :OFF + T] = True
+        vis[0, :PAD] = False
+        bias = torch.where(vis, 0.0, NEG_INF).float().contiguous()
+        out = flash_attention(q, k, v, bias, True, q_offset=OFF)
+        ref = flash_attention(q, k, v, bias, True, q_offset=OFF, impl="plain")
+        slot = torch.arange(S, device="cuda")
+        upto = OFF + torch.arange(T, device="cuda")[:, None]
+        full = (vis[:, None, :] & (slot <= upto)[None])[:, None]
+        einsum = grouped_attention(q, k, v, torch.where(full, 0.0, NEG_INF))
+        torch.cuda.synchronize()
+        norm = NORM_TOL.get(name, REL_NORM_TOL)
+        for label, r in (("plain", compare(name, out, ref)),
+                         ("einsum", compare(name, out, einsum))):
+            print(f"  {name} with query offset {OFF} (T = {T} over S = {S}) against the "
+                  f"{label} chunked attention: max_abs_err={r['err']:.3g} excess="
+                  f"{r['excess']:.3g} rel_norm_err={r['rel_norm']:.3g} (tol {norm})", flush=True)
+            if not (torch.isfinite(out).all() and r["excess"] <= 0 and r["rel_norm"] <= norm):
+                fail(f"{name} with a query offset disagrees with the {label} chunked attention")
+        del q, k, v, out, ref, einsum
 
 
 def bf16_decode_batch_checks(torch) -> None:
@@ -1039,6 +1360,10 @@ G0_LAYERS = 4  # depth of the per-channel (group 0) int4p run
 # depth of the group-128 int4p run: its row 7 runs the same shapes at
 # every layer, and 32 layers put the whole smoke past 900 s of the 1200
 INT4P_LAYERS = 8
+# depth of the bf16 and int8 runs: 32 until the whole smoke took 1004-1018 s
+# with PR 20's fp32 checks (my chip calls 7-8, PR 20); phase 7 serves the
+# 32-layer checkpoint in bf16, int8, int4 and fp32
+SERVE_LAYERS = 16
 
 
 def _serving_kernels():
@@ -1051,16 +1376,19 @@ def _serving_kernels():
 
 
 def reset_serving_launches() -> None:
-    """Every launch count of the serving kernels set to 0."""
+    """Every launch count of the serving kernels set to 0, the fp32 forms'
+    too."""
     fa, vit, da, qmm, qmm_stacked, p4, p4g = _serving_kernels()
     for fn in (fa, vit, da, qmm, qmm_stacked, p4, p4g):
-        fn.launches = 0
+        fn.launches = fn.launches_f32 = 0
     for m in da.launches_int8:
-        da.launches_int8[m] = 0
+        da.launches_int8[m] = da.launches_int8_f32[m] = 0
     for fn in (p4, p4g):
         fn.launches_by_form.update(splitk=0, mma=0)
     for fn in (qmm, qmm_stacked):
         fn.launches_by_form.update(splitk=0, wide=0)
+    for fn in (qmm, qmm_stacked, p4, p4g):
+        fn.launches_f32_by_form.update(splitk=0, tiled=0)
 
 
 def serving_launches() -> dict:
@@ -1074,13 +1402,28 @@ def serving_launches() -> dict:
             "quant_matmul_p4": p4.launches_by_form["splitk"],
             "quant_matmul_p4_mma": p4.launches_by_form["mma"],
             "quant_matmul_p4_grouped": p4g.launches_by_form["splitk"],
-            "quant_matmul_p4_grouped_mma": p4g.launches_by_form["mma"]}
+            "quant_matmul_p4_grouped_mma": p4g.launches_by_form["mma"],
+            **fp32_serving_launches()}
 
 
-# what a phase leaves for phase 11: per serving mode of phase 4 the fp32
-# reference's first-token logits and the one-rank kernel path's distance from
-# them ("bf16", "int8"), and phase 10's padded prefill hidden at its first
-# routed layer ("moe_hidden", on the host)
+def fp32_serving_launches() -> dict:
+    """The fp32 forms' launch counts of the serving kernels, under their
+    rows' names (the int8 products' two forms in one row each)."""
+    fa, vit, da, qmm, qmm_stacked, p4, p4g = _serving_kernels()
+    return {"flash_attention_f32": fa.launches_f32,
+            "vit_attention_btd_f32": vit.launches_f32,
+            "decode_attention_f32": da.launches_f32,
+            **{f"decode_attention_int8_{m}_f32": n for m, n in da.launches_int8_f32.items()},
+            "quant_matmul_f32": qmm.launches_f32,
+            "quant_matmul_stacked_f32": qmm_stacked.launches_f32,
+            "quant_matmul_p4_f32": p4.launches_f32_by_form["splitk"],
+            "quant_matmul_p4_f32_tiled": p4.launches_f32_by_form["tiled"],
+            "quant_matmul_p4_grouped_f32": p4g.launches_f32_by_form["splitk"],
+            "quant_matmul_p4_grouped_f32_tiled": p4g.launches_f32_by_form["tiled"]}
+
+
+# what a phase leaves for phase 11: phase 10's padded prefill hidden at its
+# first routed layer ("moe_hidden", on the host)
 STASH = {}
 
 
@@ -1193,11 +1536,6 @@ def reference_check(torch, pipe, params, cfg, tok, videos, stamps, asks, mode: s
     del ref
     if not torch.isfinite(logits["kernel"]).all():
         fail("non-finite logits")
-    # phase 11's references for the same model: the fp32 logits and the
-    # one-rank kernel path's distance from them
-    STASH[mode] = {"fp32_logits": logits["fp32"].cpu(), "kernel_logits": logits["kernel"].cpu(),
-                   "kernel_vs_fp32": rel_err(logits["kernel"], logits["fp32"]),
-                   "tokens": [list(map(int, row)) for row in tokens]}
     flips = {}
     if routes["fp32"]:
         real = pm.reshape(-1).cpu()
@@ -1279,7 +1617,8 @@ def serving_model(torch, mode: str, layers: int = 0):
 
 def end_to_end(torch, mode: str):
     """Phase 4: the serving path at full width, two requests, in the bf16
-    (``mode="bf16"``), the int8 (``"int8"``) or the int4p serving
+    (``mode="bf16"``) or the int8 (``"int8"``) configuration at a depth of
+    SERVE_LAYERS, or the int4p serving
     configuration with group-128 scales at a depth of INT4P_LAYERS
     (``"int4p"``); ``"int4p_g0"`` is the int4p configuration with
     per-channel scales at a depth of G0_LAYERS."""
@@ -1295,9 +1634,8 @@ def end_to_end(torch, mode: str):
     int8 = mode == "int8"
     quantized = mode != "bf16"  # int8 KV cache, int8 lm_head, W8A8 ViT
     cfg = TraceConfig()
-    if mode in ("int4p", "int4p_g0"):
-        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
-            cfg.decoder, num_layers=INT4P_LAYERS if mode == "int4p" else G0_LAYERS))
+    layers = {"int4p": INT4P_LAYERS, "int4p_g0": G0_LAYERS}.get(mode, SERVE_LAYERS)
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, num_layers=layers))
     t0 = time.perf_counter()
     params = init_trace_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
     # the dense tree is dropped here
@@ -1368,16 +1706,194 @@ def end_to_end(torch, mode: str):
         launches.update(weight_only_request(torch, params, cfg, tok, videos, stamps, asks))
 
     check = reference_check(torch, pipe, params, cfg, tok, videos, stamps, asks, mode, tokens)
+    if mode == "bf16":
+        check["chunked_prefill"] = chunked_prefill_check(torch, pipe, "bf16", CHUNK_TOL_BF16)
     del pipe, params
     torch.cuda.empty_cache()
     return launches, stats, check
 
 
+# Chunked prefill (phase 4, and phase 7's fp32 pipeline): one request's
+# prefix prefilled in two chunks through decoder_forward, the second at
+# cache_index > 0 (row 1 with a query offset on the card), against the
+# one-shot prefill: the last position's logits, ||diff|| / ||ref||. fp32: the
+# same fp32 steps in another order, 1e-3. bf16 at 32 layers of random
+# weights: the online softmax may round p at other points in the two runs,
+# and random weights amplify a bf16 step over the layers; a chunk that saw
+# the wrong slots moves the logits by their own size. 0.1. Over an int8 KV
+# cache the second chunk attends the quantized stripe (as the JAX package's
+# einsum path does) where the one-shot prefill attends its unquantized k / v,
+# and activation and cache roundings that flip between two runs are
+# amplified over the layers (the fp32 int8 tree at 4 layers: 0.076 on both
+# routes, 0.035 between the routes' chunked logits; my chip call 3, PR 20):
+# there the kernel route's chunked logits may lie at most REF_RATIO_TOL x as
+# far from its one-shot prefill as the plain route's do.
+CHUNK_TOL_F32 = 1e-3
+CHUNK_TOL_BF16 = 0.1
+
+
+def chunked_prefill_check(torch, pipe, label: str, tol: float, encoded=None) -> dict:
+    """The first request's first video (or ``encoded``, a (prefix, mask) of
+    one row the caller encoded): its prefix prefilled at once and in
+    two chunks (cut at the middle) into a fresh cache, through the kernels
+    and through the plain versions; each route's two last-position logits
+    within ``tol`` (||diff|| / ||ref||). Over an int8 KV cache (see
+    CHUNK_TOL_F32) the kernel route's distance at most REF_RATIO_TOL x the
+    plain route's instead."""
+    from trace_tpu_torch.model.mistral import compute_logits, decoder_forward, init_kv_cache
+
+    if encoded is None:
+        videos, stamps, asks = request_inputs()
+        encoded = pipe.encode_prefix(videos[:1], stamps[:1], asks[:1])
+    prefix, mask = encoded
+    dec, c = pipe._decoder_params, pipe.config.decoder
+    P = prefix.shape[1]
+    S, cut = P + 8, P // 2
+    pos = (mask.long().cumsum(-1) - 1).clamp_min(0)
+    out = {"prefix_tokens": P, "cut": cut}
+    quantized = c.kv_cache_dtype == "int8"
+    chunked = {}
+    for impl in ("auto", "plain"):
+        with torch.no_grad():
+            cache = init_kv_cache(c, 1, S, dtype=prefix.dtype, device="cuda")
+            h, _ = decoder_forward(dec, c, prefix, mask, pos, cache=cache, cache_index=0,
+                                   impl=impl)
+            one = compute_logits(dec, h[:, -1], impl=impl)
+            cache = init_kv_cache(c, 1, S, dtype=prefix.dtype, device="cuda")
+            _, cache = decoder_forward(dec, c, prefix[:, :cut], mask[:, :cut], pos[:, :cut],
+                                       cache=cache, cache_index=0, impl=impl)
+            cmask = torch.zeros((1, S), dtype=torch.bool, device="cuda")
+            cmask[:, :cut] = mask[:, :cut]
+            h, _ = decoder_forward(dec, c, prefix[:, cut:], mask[:, cut:], pos[:, cut:],
+                                   cache=cache, cache_index=cut, cache_mask=cmask, impl=impl)
+            two = compute_logits(dec, h[:, -1], impl=impl)
+        del cache, h
+        chunked[impl] = two
+        e = rel_err(two, one)
+        same = bool((two.argmax(-1) == one.argmax(-1)).all())
+        out[impl] = {"rel_err": e, "argmax_equal": same}
+        print(f"chunked prefill ({label}, {c.num_layers} layers, {impl} route): {P} prefix "
+              f"tokens in chunks of {cut} and {P - cut}; last-position logits from the one-shot "
+              f"prefill's {e:.3g} (||diff|| / ||ref||{'' if quantized else f', tol {tol}'}), "
+              f"argmax equal {same}", flush=True)
+        if not torch.isfinite(two).all() or (not quantized and e > tol):
+            fail(f"chunked prefill ({label}, {impl}): the logits differ from the one-shot "
+                 "prefill's")
+    if quantized:
+        out["kernel_vs_plain"] = rel_err(chunked["auto"], chunked["plain"])
+        print(f"chunked prefill ({label}, int8 KV cache): the kernel route's chunked logits "
+              f"from the plain route's {out['kernel_vs_plain']:.3g}; limit: the kernel route's "
+              f"distance from its one-shot prefill <= {REF_RATIO_TOL} x the plain route's",
+              flush=True)
+        if out["auto"]["rel_err"] > REF_RATIO_TOL * out["plain"]["rel_err"]:
+            fail(f"chunked prefill ({label}): the kernel route's chunked prefill is further "
+                 "from its one-shot prefill than the plain route's")
+    return out
+
+
+# Phase 4's fp32 trees: TraceConfig(dtype=float32) at F32_LAYERS layers in the
+# int8 (model_init's: int8 decoder, int8 KV cache, W8A8 prefill, fp32 ViT),
+# int4 (native, per channel, weight-only) and int4p (group 128, weight-only)
+# serving configurations; one request each of F32_NEW tokens. 2 layers: cut
+# from 4 when my chip call 4 (PR 20) ran the whole smoke in 1033 s
+F32_LAYERS = 2
+F32_NEW = 16
+F32_ROWS = {  # the rows each fp32 tree's request launches, and no other
+    "int8": {"flash_attention_f32", "vit_attention_btd_f32", "decode_attention_int8_s8dot_f32",
+             "quant_matmul_f32", "quant_matmul_stacked_f32"},
+    "int4": {"flash_attention_f32", "vit_attention_btd_f32", "decode_attention_int8_s8dot_f32",
+             "quant_matmul_f32", "quant_matmul_p4_f32", "quant_matmul_p4_f32_tiled"},
+    "int4p": {"flash_attention_f32", "vit_attention_btd_f32", "decode_attention_int8_s8dot_f32",
+              "quant_matmul_f32", "quant_matmul_p4_grouped_f32",
+              "quant_matmul_p4_grouped_f32_tiled"},
+}
+
+
+def fp32_trees(torch) -> tuple:
+    """Phase 4's fp32 trees (see F32_ROWS): per tree one request of phase 4's
+    videos with check (e) on the path's own inputs, the rows launched exactly
+    those of F32_ROWS, no plain version on the card; the int8 tree once more
+    with decode_attn_int8="dequant" (8 tokens) and the chunked prefill
+    check. Returns (each row's launches on the first tree that runs it,
+    stats)."""
+    import gc
+
+    from trace_tpu_torch.model.config import TraceConfig
+    from trace_tpu_torch.model.quantize import int4_serving, int4p_serving, int8_serving
+    from trace_tpu_torch.params import init_trace_params
+    from trace_tpu_torch.runtime.pipeline import TracePipeline
+    from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
+
+    videos, stamps, asks = request_inputs()
+    tok = SpmLikeTokenizer()
+    serving = {"int8": lambda p, c: int8_serving(p, c, vision=False), "int4": int4_serving,
+               "int4p": lambda p, c: int4p_serving(p, c, vision=False)}
+    launches, stats = {}, {}
+    for mode, serve in serving.items():
+        t0 = time.perf_counter()
+        cfg = TraceConfig(dtype=torch.float32)
+        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                                   num_layers=F32_LAYERS))
+        params, cfg = serve(init_trace_params(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED)), cfg)
+        pipe = TracePipeline(params, cfg, tok)
+        del params
+        pipe._prepare_memory_layout()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        runs = [("request", cfg, F32_NEW)]
+        if mode == "int8":
+            runs.append(("dequant", dataclasses.replace(cfg, decoder=dataclasses.replace(
+                cfg.decoder, decode_attn_int8="dequant")), 8))
+        st = stats[mode] = {"init_s": init_s}
+        for run, rcfg, new in runs:
+            pipe.config = rcfg
+            plain, undo = watch_plain(torch)
+            reset_serving_launches()
+            try:
+                t0 = time.perf_counter()
+                _, check_e = on_path(torch, f"fp32 {mode} {run}", lambda: pipe.infer_events_batch(
+                    videos, stamps, asks, max_new_tokens=new))
+                wall = time.perf_counter() - t0
+            finally:
+                undo()
+            got = {k: v for k, v in serving_launches().items() if v}
+            want = F32_ROWS[mode] if run == "request" else (
+                F32_ROWS[mode] - {"decode_attention_int8_s8dot_f32"}
+                | {"decode_attention_int8_dequant_f32"})
+            ran_plain = {k: v for k, v in plain.items() if v}
+            s = pipe.last_stats
+            steps = s["decode_steps"]
+            st[run] = {"wall_s": wall, "encode_s": s["encode_s"], "prefill_s": s["prefill_s"],
+                       "decode_ms_per_step": 1e3 * s["decode_s"] / max(steps, 1),
+                       "launches": got, "check_e": check_e}
+            print(f"fp32 {mode} tree ({F32_LAYERS} layers), {run}: launches {got}; "
+                  f"{s['prefix_tokens']} prefix tokens; wall {wall:.2f} s, encode "
+                  f"{s['encode_s']:.3f} s, prefill {s['prefill_s']:.3f} s, decode "
+                  f"{st[run]['decode_ms_per_step']:.2f} ms/step over {steps} steps; plain "
+                  f"versions on the card {ran_plain or 'none'}", flush=True)
+            if set(got) != want or ran_plain or steps <= 0:
+                fail(f"fp32 {mode} {run}: rows launched {sorted(got)}, expected {sorted(want)}; "
+                     f"plain versions on the card {ran_plain}")
+            check_head_slices(cfg.decoder, s["tokens"])
+            for name, n in got.items():
+                launches.setdefault(name, n)
+        pipe.config = cfg
+        if mode == "int8":
+            st["chunked_prefill"] = chunked_prefill_check(torch, pipe, "fp32 int8 tree",
+                                                          CHUNK_TOL_F32)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, stats
+
+
 CORPUS_VIDEOS = 64      # two decode chunks of CORPUS_BATCH
 # the corpus model's decoder depth: its decode loop is host-paced at a cost
 # per layer, and 32 layers beside phase 11 put the whole smoke at 1087-1098 s
-# of the 1200 on the card. At 16 its videos/s are not the 32-layer model's
-CORPUS_LAYERS = 16
+# of the 1200 on the card; 16 (PR 18) at 1048 s with PR 20's fp32 checks
+# (my chip call 6, PR 20). At 8 its videos/s are not the 32-layer model's
+CORPUS_LAYERS = 8
 CORPUS_POOL = 4         # distinct videos, prepared before the passes, cycled
 CORPUS_BATCH = 32       # the bench's decode batch
 CORPUS_BUDGET = 512     # the arena's new-token budget, shared by both passes
@@ -1473,19 +1989,22 @@ def on_path(torch, label: str, run):
         return None
 
     def row_of(attr, a, k):
-        """The row a call runs, or None for a call that reaches no kernel."""
+        """The row a call runs, or None for a call that reaches no kernel;
+        fp32 operands run the fp32 form's row (``*_f32``)."""
+        f32 = "_f32" * (a[0].dtype == torch.float32)
         if attr.startswith("quant_apply"):
             leaf = a[1]
             if not isinstance(leaf, dict):
                 return None
             wide = a[0].numel() // a[0].shape[-1] > SPLIT_ROWS  # rows of x
-            if "qp" in leaf:  # rows 6 and 7: the tensor-core form beyond SPLIT_ROWS
+            if "qp" in leaf:  # rows 6 and 7: the tensor-core (fp32: tiled) form beyond SPLIT_ROWS
                 grouped = leaf["s"].shape[-2] > 1
-                return "quant_matmul_p4" + "_grouped" * grouped + "_mma" * wide
-            return "quant_matmul" + attr[len("quant_apply"):] + "_wide" * wide
+                return ("quant_matmul_p4" + "_grouped" * grouped + f32
+                        + ("_tiled" if f32 else "_mma") * wide)
+            return "quant_matmul" + attr[len("quant_apply"):] + (f32 or "_wide" * wide)
         if attr == "decode_attention" and isinstance(a[1], dict):
-            return f"decode_attention_int8_{k.get('mode', 's8dot')}"
-        return attr
+            return f"decode_attention_int8_{k.get('mode', 's8dot')}{f32}"
+        return attr + f32
 
     def held(name, a, out, ref):
         if name.startswith("quant_matmul"):
@@ -1493,10 +2012,10 @@ def on_path(torch, label: str, run):
             r = compare(name, out.float() / unit, ref.float() / unit)
             r["err"] *= unit.item()
             return r
-        if name == "vit_attention_btd":
+        if name.startswith("vit_attention_btd"):
             tq = a[3]
             return compare(name, out[:, :tq], ref[:, :tq])
-        if name == "flash_attention":  # every row: one that sees no key gets the mean of v
+        if name.startswith("flash_attention"):  # every row: one that sees no key gets the mean of v
             return compare(name, out, ref)
         rows = (a[3] > -1e29).any(-1)  # [B, S]: the rows that see a key
         return compare(name, out[rows], ref[rows])
@@ -1535,10 +2054,11 @@ def on_path(torch, label: str, run):
     bad = []
     for r in results.values():
         atol, rtol = KERNEL_TOL[r["name"]]
+        norm = NORM_TOL.get(r["name"], REL_NORM_TOL)
         print(f"corpus check (e), {label}: {r['name']} on [{r['shapes']}]: max_abs_err="
               f"{r['err']:.6g} excess={r['excess']:.3g} (|diff| <= {atol} + {rtol} |ref|) "
-              f"rel_norm_err={r['rel_norm']:.3g} (<= {REL_NORM_TOL})", flush=True)
-        if not (r["excess"] <= 0 and r["rel_norm"] <= REL_NORM_TOL):
+              f"rel_norm_err={r['rel_norm']:.3g} (<= {norm})", flush=True)
+        if not (r["excess"] <= 0 and r["rel_norm"] <= norm):
             bad.append(f"{r['name']} on [{r['shapes']}]")
     if bad:
         fail(f"corpus (e), {label}: kernel and plain version disagree on the path's "
@@ -1802,8 +2322,9 @@ def corpus_phase(torch):
 
 TRAIN_STEPS = 4
 # depth of the pretrain and lora runs: every layer runs the same shapes, and
-# 32 layers put the whole smoke near 950 s of the 1200 with phase 11 to come
-TRAIN_LAYERS = 8
+# 32 layers put the whole smoke near 950 s of the 1200 with phase 11 to come;
+# 8 (PR 18) at 1048 s with PR 20's fp32 checks
+TRAIN_LAYERS = 4
 SFT_LAYERS = 4   # depth of the sft run and of the gradient check
 LORA_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 EVENT_LISTS = (
@@ -1886,15 +2407,15 @@ def train_counts():
             "flash_attention_bwd_dkv": fb.flash_attention_bwd_dkv}
 
 
-def train_params(torch, stage: str, layers: int):
+def train_params(torch, stage: str, layers: int, dtype=None):
     """(params, config) of a stage from SEED: TRACE-7B at ``layers`` decoder
-    layers; stage ``lora`` adds rank-128 fp32 adapters on the seven decoder
-    projections, as the training CLI does."""
+    layers (in ``dtype``, default bf16); stage ``lora`` adds rank-128 fp32
+    adapters on the seven decoder projections, as the training CLI does."""
     from trace_tpu_torch.model.config import TraceConfig
     from trace_tpu_torch.model.lora import add_lora_params
     from trace_tpu_torch.params import init_trace_params
 
-    cfg = TraceConfig()
+    cfg = TraceConfig() if dtype is None else TraceConfig(dtype=dtype)
     cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, num_layers=layers))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_trace_params(cfg, gen)
@@ -2038,6 +2559,76 @@ def train_stage(torch, stage: str, layers: int, data: "SyntheticVideos", tmp: Pa
     return params, cfg, got, stats
 
 
+F32_TRAIN_STEPS = 2
+
+
+def fp32_lora_steps(torch, data, tmp: Path) -> tuple:
+    """Two ``lora`` steps of ``train_loop`` on TRACE-7B in fp32 at
+    SFT_LAYERS layers (TraceConfig(dtype=float32), the rank-128 adapters of
+    phase 6): the training attention through the fp32 forms of rows 2, 8, 9
+    and 10 (K1 and K4), as many launches as the bf16 stage's, no bf16 form
+    and no plain version on the card, finite losses, the adapters moved.
+    Returns (launches over the run, stats)."""
+    from trace_tpu_torch.kernels import flash_backward as fb
+    from trace_tpu_torch.kernels.flash_attention import flash_attention, vit_attention_btd
+    from trace_tpu_torch.train.train import TrainRecipe, train_loop, tree_paths
+
+    params, cfg = train_params(torch, "lora", SFT_LAYERS, dtype=torch.float32)
+    layers = cfg.decoder.num_layers
+    adapters = {p: x.detach().clone() for p, x in tree_paths(params) if "_lora_" in p}
+    fns = {"vit_attention_btd_f32": vit_attention_btd, "flash_attention_f32": flash_attention,
+           "flash_attention_fwd_res_f32": fb.flash_attention_fwd_res,
+           "flash_attention_bwd_dq_f32": fb.flash_attention_bwd_dq,
+           "flash_attention_bwd_dkv_f32": fb.flash_attention_bwd_dkv}
+    for fn in fns.values():
+        fn.launches = fn.launches_f32 = 0
+    recipe = TrainRecipe(stage="lora", learning_rate=1e-4, total_steps=F32_TRAIN_STEPS)
+    log = tmp / "train_lora_f32.jsonl"
+    log.unlink(missing_ok=True)
+    plain, undo = watch_plain(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        train_loop(params, cfg, data.resized(F32_TRAIN_STEPS * VIDEOS), recipe,
+                   batch_size=VIDEOS, log_every=1, metrics_path=str(log))
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    records = [json.loads(line) for line in log.read_text().splitlines()]
+    got = {name: fn.launches_f32 for name, fn in fns.items()}
+    bf16 = {name: fn.launches for name, fn in fns.items() if fn.launches}
+    vit_layers = cfg.vision.num_layers + 1 + cfg.vision.select_layer
+    chunks = VIDEOS * FRAMES // cfg.vit_chunk_size
+    want = {k: F32_TRAIN_STEPS * v for k, v in {
+        "vit_attention_btd_f32": vit_layers * chunks, "flash_attention_f32": 0,
+        "flash_attention_fwd_res_f32": 2 * layers, "flash_attention_bwd_dq_f32": layers,
+        "flash_attention_bwd_dkv_f32": layers}.items()}
+    moved = [p for p, x in tree_paths(params) if p in adapters and not torch.equal(
+        x.detach(), adapters[p])]
+    ran_plain = {k: v for k, v in plain.items() if v}
+    losses = [r["loss"] for r in records]
+    print(f"train lora fp32 ({layers} layers): {F32_TRAIN_STEPS} steps in {wall:.2f} s "
+          f"({records[-1]['wall_s'] - records[0]['wall_s']:.2f} s the second), peak "
+          f"{peak:.2f} GiB; losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(r['grad_norm'], 3) for r in records]}; fp32 launches {got} expected {want}; "
+          f"bf16 launches {bf16 or 'none'}; plain versions on the card {ran_plain or 'none'}; "
+          f"{len(moved)} of {len(adapters)} adapter leaves moved", flush=True)
+    if (got != want or bf16 or ran_plain or len(records) != F32_TRAIN_STEPS
+            or not all(math.isfinite(x) for x in losses)):
+        fail("train lora fp32: launch counts, plain versions or losses are not as expected")
+    if not moved:
+        fail("train lora fp32: no adapter leaf moved")
+    del params, adapters
+    torch.cuda.empty_cache()
+    return {k: v for k, v in got.items() if v}, {
+        "layers": layers, "steps": F32_TRAIN_STEPS, "wall_s": wall, "peak_gib": peak,
+        "losses": losses, "grad_norms": [r["grad_norm"] for r in records],
+        "second_step_s": records[-1]["wall_s"] - records[0]["wall_s"], "launches": got}
+
+
 def one_batch(data):
     from trace_tpu_torch.data.dataset import collate_batch
 
@@ -2138,6 +2729,9 @@ def training(torch, tmp: Path):
             check = gradient_check(torch, params, cfg, data)
         del params
         torch.cuda.empty_cache()
+    f32_launches, f32_stats = fp32_lora_steps(torch, data, tmp)
+    launches.update(f32_launches)
+    stats.append({"stage": "lora fp32", **f32_stats})
     return launches, stats, check
 
 
@@ -2635,6 +3229,14 @@ def checkpoint_phase(torch, tmp: Path) -> tuple:
                 ref4 = {"layers": {n: ref4["layers"][n]
                                    for n in ("wqkv", "wo", "w_gateup", "w_down")},
                         "lm_head": ref4["lm_head"]}
+                # (e'') the bf16 kernel path's prefill logits and tokens on the
+                # fp32 check's request, kept on the host
+                fp32_in = fp32_request_inputs(cfg, videos[0])
+                prefix, mask = pipe.encode_prefix(*fp32_in)
+                bf16_ref = {"logits": first_logits(torch, pipe, prefix, mask, "auto").cpu()}
+                del prefix, mask
+                pipe.infer_events_batch(*fp32_in, max_new_tokens=CKPT_NEW)
+                bf16_ref["tokens"] = pipe.last_stats["tokens"]
                 del pipe
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -2771,6 +3373,11 @@ def checkpoint_phase(torch, tmp: Path) -> tuple:
     stats["request_int4"] = video_request(torch, pipe, cfg, mp4s[1], "(b')",
                                               CKPT_INT4_ROWS, decoder=card_tree)
     del pipe, dec, card_tree, ref4, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_launches, stats["fp32"] = fp32_checkpoint(torch, ckpt, cfg, tok, fp32_in, bf16_ref)
+    stats["verify"] = verify_checkpoint(ckpt, tmp)
+    launches = {**launches, **{k: n for k, n in f32_launches.items() if not launches.get(k)}}
     stats["container_reads"] = dict(CONTAINER_READS)
     stats["seconds"] = time.perf_counter() - t_phase
     print(f"checkpoint: container reads by route {stats['container_reads']}; phase 7 took "
@@ -2778,6 +3385,164 @@ def checkpoint_phase(torch, tmp: Path) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     return launches, stats
+
+
+# (e'') model_init(dtype=torch.float32): the fp32 kernel path's prefill logits
+# no further from the fp32 plain path's than FP32_LOGITS_RATIO x the bf16
+# kernel path's
+FP32_LOGITS_RATIO = 0.1
+FP32_CKPT_ROWS = {"flash_attention_f32", "vit_attention_btd_f32", "decode_attention_f32"}
+
+
+def fp32_request_inputs(cfg, video: Path) -> tuple:
+    """([frames], [timestamps], [instruction]) of (e'')'s request: one of
+    phase 7's .npy videos sampled to the config's frames."""
+    from trace_tpu_torch.video.io import load_video_frames
+
+    frames, stamps = load_video_frames(str(video), cfg.num_frames)
+    return [frames], [stamps], [CORPUS_ASK]
+
+
+def fp32_checkpoint(torch, ckpt: Path, cfg, tok, inputs: tuple, bf16_ref: dict) -> tuple:
+    """(e'') ``model_init(ckpt, dtype=torch.float32)`` on the 32-layer
+    checkpoint (every earlier pipeline of the phase released): set-up s and
+    peak GiB, the tree fp32 on the card; one request with no plain version on
+    the card and only the fp32 forms of rows 1, 2 and 3 launched; then the
+    prefill logits of the request's prefix through the kernels and through
+    the plain versions (``attn_impl="plain"``, the encode too): the kernel
+    path's distance from the plain path's at most FP32_LOGITS_RATIO x the
+    bf16 kernel path's (``bf16_ref``, phase 7's bf16 pipeline on the same
+    request); the greedy tokens' agreement with the bf16 path's, reported."""
+    from trace_tpu_torch.runtime import pipeline as pl
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    pipe = pl.model_init(str(ckpt), dtype=torch.float32, tokenizer=tok)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    dtypes = {str(t.dtype) for t in tree_leaves(pipe.params).values() if t.is_floating_point()}
+    plain, undo = watch_plain(torch)
+    reset_serving_launches()
+    try:
+        t0 = time.perf_counter()
+        pipe.infer_events_batch(*inputs, max_new_tokens=CKPT_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        undo()
+    got = {k: v for k, v in serving_launches().items() if v}
+    ran_plain = {k: v for k, v in plain.items() if v}
+    s = pipe.last_stats
+    steps = s["decode_steps"]
+    tokens = s["tokens"]
+    prefix, mask = pipe.encode_prefix(*inputs)
+    kernel = first_logits(torch, pipe, prefix, mask, "auto")
+    chunked = chunked_prefill_check(torch, pipe, "fp32 checkpoint", CHUNK_TOL_F32,
+                                    encoded=(prefix, mask))
+    del prefix, mask
+    pipe.attn_impl = "plain"
+    prefix, mask = pipe.encode_prefix(*inputs)
+    plain_logits = first_logits(torch, pipe, prefix, mask, "plain")
+    del prefix, mask, pipe
+    torch.cuda.empty_cache()
+    d32 = ((kernel - plain_logits).norm() / plain_logits.norm()).item()
+    d16 = ((bf16_ref["logits"].cuda() - plain_logits).norm() / plain_logits.norm()).item()
+    a, b = tokens[0], bf16_ref["tokens"][0]
+    n = min(len(a), len(b))
+    agree = sum(int(x == y) for x, y in zip(a[:n], b[:n])) / max(n, 1)
+    prefix_agree = next((i for i in range(n) if a[i] != b[i]), n)
+    out = {"model_init_s": init_s, "card_peak_gib": peak,
+           "card_held_gib": (torch.cuda.memory_allocated() - held) / 2 ** 30,
+           "dtypes": sorted(dtypes), "request_wall_s": wall, "encode_s": s["encode_s"],
+           "prefill_s": s["prefill_s"], "decode_ms_per_step": 1e3 * s["decode_s"] / max(steps, 1),
+           "prefix_tokens": s["prefix_tokens"], "launches": got,
+           "logits_fp32_kernel_vs_plain": d32, "logits_bf16_kernel_vs_fp32_plain": d16,
+           "greedy_agreement_with_bf16": agree, "greedy_equal_prefix_with_bf16": prefix_agree,
+           "chunked_prefill": chunked}
+    print(f"checkpoint (e''): model_init(dtype=float32) {init_s:.1f} s, card peak {peak:.2f} GiB "
+          f"during set-up, float dtypes on the card {sorted(dtypes)}; one request: wall "
+          f"{wall:.2f} s, encode {s['encode_s']:.3f} s, prefill {s['prefill_s']:.3f} s, decode "
+          f"{out['decode_ms_per_step']:.2f} ms/step over {steps} steps; launches {got}; plain "
+          f"versions on the card {ran_plain or 'none'}; prefill logits from the fp32 plain "
+          f"path's (||diff|| / ||ref||): fp32 kernels {d32:.3g}, bf16 kernels {d16:.3g} (limit "
+          f"fp32 <= {FP32_LOGITS_RATIO} x bf16); greedy tokens equal the bf16 path's in "
+          f"{agree:.3f} of {n}, the first {prefix_agree}", flush=True)
+    if (dtypes != {"torch.float32"} or set(got) != FP32_CKPT_ROWS or ran_plain or steps <= 0
+            or not torch.isfinite(kernel).all() or not d32 <= FP32_LOGITS_RATIO * d16):
+        fail("checkpoint (e''): the fp32 pipeline's tree, launches, plain versions or prefill "
+             "logits are not as expected")
+    return got, out
+
+
+def verify_checkpoint(ckpt: Path, tmp: Path) -> dict:
+    """(f) ``python -m trace_tpu_torch.checkpoint.manifest --verify`` on the
+    checkpoint: exit 0; on a directory of links to it that leaves out one
+    shard: a nonzero exit and MISSING lines."""
+    import shutil
+
+    cut = tmp / "trace-7b-cut"
+    cut.mkdir()
+    shards = sorted(ckpt.glob("*.safetensors"))
+    for f in ckpt.iterdir():
+        if f != shards[-1]:
+            (cut / f.name).symlink_to(f)
+    repo = Path(__file__).resolve().parent
+    start = lambda d: subprocess.Popen(
+        [sys.executable, "-m", "trace_tpu_torch.checkpoint.manifest", "--verify", str(d)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=repo)
+    t0 = time.perf_counter()
+    procs = [start(ckpt), start(cut)]  # both at once
+
+    def finish(p):
+        out, err = p.communicate(timeout=300)
+        return subprocess.CompletedProcess(p.args, p.returncode, out, err)
+
+    whole, broken = (finish(p) for p in procs)
+    seconds = time.perf_counter() - t0
+    missing = sum(line.startswith("MISSING ") for line in broken.stdout.splitlines())
+    out = {"rc": whole.returncode, "seconds": seconds, "last_line": whole.stdout.strip()[-200:],
+           "cut_rc": broken.returncode, "cut_missing_lines": missing,
+           "cut_shard": shards[-1].name}
+    print(f"checkpoint (f): manifest --verify exit {whole.returncode} ({seconds:.1f} s, both "
+          f"runs) ({out['last_line']!r}); without {shards[-1].name}: exit "
+          f"{broken.returncode}, {missing} MISSING lines", flush=True)
+    if whole.returncode != 0 or broken.returncode == 0 or not missing:
+        fail(f"checkpoint (f): manifest --verify: {whole.stdout[-1500:]} {whole.stderr[-1500:]}")
+    shutil.rmtree(cut)
+    return out
+
+
+def runbook(torch, tmp: Path) -> int:
+    """``--runbook``: scripts/parity/run_all_torch.sh on a TRACE-7B
+    checkpoint written by phase 7's writer (its 690 keys, random values, no
+    tokenizer files) with one of phase 7's .npy videos; its output and exit
+    code. Stages 0-3 run; stage 4 (quality eval) has no annotations here and
+    prints SKIP."""
+    import numpy as np
+
+    from trace_tpu_torch.model.config import TraceConfig
+
+    manifest = json.loads((Path(__file__).resolve().parent / CKPT_MANIFEST).read_text())
+    keys = [(k, tuple(v)) for k, v in manifest["keys"].items()]
+    ckpt = tmp / "trace-7b"
+    t0 = time.perf_counter()
+    write_checkpoint(torch, ckpt, keys, TraceConfig())
+    video = tmp / "video0.npy"
+    np.save(video, np.random.default_rng(SEED).integers(
+        0, 256, (CKPT_VIDEO_FRAMES,) + CORPUS_HW + (3,), dtype=np.uint8))
+    print(f"runbook: checkpoint and video written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = subprocess.run(["bash", "scripts/parity/run_all_torch.sh", str(ckpt), "--video",
+                        str(video)], cwd=Path(__file__).resolve().parent, text=True,
+                       capture_output=True, timeout=1800)
+    print(r.stdout[-12000:], r.stderr[-4000:], sep="\n", flush=True)
+    print(f"runbook: run_all_torch.sh exit {r.returncode} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return r.returncode
 
 
 # Phase 8: the evaluation entry points (``trace_tpu_torch.eval``,
@@ -3176,8 +3941,8 @@ def eval_phase(torch, tmp: Path, container_route: str) -> tuple:
 FAMILY_MODES = ("qwen2 bf16", "qwen2 int8", "vicuna bf16")
 # the backbones' decoder depth: every layer runs the same shapes at full
 # width, and full depth beside phase 5's 32 layers and phase 11 put the whole
-# smoke at 1098 s of the 1200
-FAMILY_LAYERS = 8
+# smoke at 1098 s of the 1200; 8 (PR 18) at 1048 s with PR 20's fp32 checks
+FAMILY_LAYERS = 4
 VICUNA_FRAMES = 32
 VICUNA_SLOTS = 66
 FAMILY_ROWS = {"qwen2 bf16": {"decode_attention": "decode_attention_g7"},
@@ -3390,10 +4155,11 @@ def families_phase(torch, tmp: Path) -> tuple:
 # heads, hd 128, vocab 32000, rope_theta 1e6, rms_norm_eps 1e-5, 8 local
 # experts, 2 a token) at a depth of MOE_LAYERS of its 32 layers: 32 layers are
 # ~93 GB in bf16 and do not fit one 80 GB card, and 4 (11.3 GB of experts)
-# keep the written checkpoint near phase 9's. CLIP ViT-L/14-336 and
-# spatial_slot at 128 frames, random bf16 values, written by phase 7's writer
-# in HF Mixtral key names and loaded through ``model_init``.
-MOE_LAYERS = 4
+# kept the written checkpoint near phase 9's; 2 since the whole smoke took
+# 1004 s with PR 20's fp32 checks (my chip call 7, PR 20). CLIP ViT-L/14-336
+# and spatial_slot at 128 frames, random bf16 values, written by phase 7's
+# writer in HF Mixtral key names and loaded through ``model_init``.
+MOE_LAYERS = 2
 MOE_TRAIN_TOKENS = 2048  # the lora steps' row: one video, batch 1
 MOE_LORA_TARGETS = ("wq", "wk", "wv", "wo")  # a routed layer takes no MLP adapter
 
@@ -3639,6 +4405,11 @@ def moe_phase(torch, tmp: Path) -> tuple:
 
 
 PAR_RANKS = 2            # ranks of phase 11, all on the one card
+# depth of the tensor-parallel bf16 / int8 requests: cut from 32 when my chip
+# call 4 (PR 20) ran the whole smoke in 1033 s, then from 16 when call 6 took
+# 1048 s; their one-rank and fp32 references are built at this depth
+# (first_token_refs)
+PAR_SERVE_LAYERS = 8
 PP_LAYERS = 8            # depth of the pipeline check
 PP_MICRO = 2             # its microbatches
 PP_TOKENS = 2048         # its rows' length
@@ -3693,14 +4464,15 @@ def first_logits(torch, pipe, prefix, mask, impl: str):
 
 
 def first_token_refs(torch, mode: str) -> dict:
-    """What reference_check leaves in STASH for ``mode`` when phase 4 did
-    not run (``--parallel`` alone): the one-rank kernel path's and the fp32
-    model's first-token logits on phase 4's requests, built one at a time."""
+    """Phase 11's references for ``mode`` at PAR_SERVE_LAYERS layers: the
+    one-rank kernel path's and the fp32 model's first-token logits on phase
+    4's requests, built one at a time (what reference_check leaves in STASH
+    for phase 4's 32-layer model)."""
     from trace_tpu_torch.runtime.pipeline import TracePipeline
     from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
 
     tok = SpmLikeTokenizer()
-    params, cfg = serving_model(torch, mode)
+    params, cfg = serving_model(torch, mode, layers=PAR_SERVE_LAYERS)
     pipe = TracePipeline(params, cfg, tok)
     del params
     videos, stamps, asks = request_inputs()
@@ -3722,7 +4494,7 @@ def first_token_refs(torch, mode: str) -> dict:
     del ref, prefix
     torch.cuda.empty_cache()
     return {"fp32_logits": fp32.cpu(), "kernel_logits": kernel.cpu(),
-            "kernel_vs_fp32": rel_err(kernel, fp32), "tokens": None}
+            "kernel_vs_fp32": rel_err(kernel, fp32)}
 
 
 def _tp_serving(torch, mesh, mode: str, rank: int) -> dict:
@@ -3739,7 +4511,7 @@ def _tp_serving(torch, mesh, mode: str, rank: int) -> dict:
     from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
 
     t0 = time.perf_counter()
-    params, cfg = serving_model(torch, mode)
+    params, cfg = serving_model(torch, mode, layers=PAR_SERVE_LAYERS)
     tok = SpmLikeTokenizer()
     pipe = TracePipeline(params, cfg, tok)
     del params
@@ -3828,6 +4600,82 @@ def _tp_serving(torch, mesh, mode: str, rank: int) -> dict:
     torch.cuda.empty_cache()
     return {"init_s": init_s, "requests": requests, "first_logits": logits,
             "collectives": share, "check_e": check_e}
+
+
+# the quant="int4" tensor-parallel request: its depth, and the limit of its
+# first-token logits' distance from one rank's on the same prefix (the
+# row-parallel products sum their partial sums in fp32 across the ranks
+# before the bf16 cast, one rank in one sum: a bf16 step here and there,
+# which random weights amplify over the layers)
+TP_INT4_LAYERS = 8
+TP_INT4_TOL = 5e-2
+TP_INT4_ROWS = {"flash_attention", "decode_attention_int8_s8dot", "quant_matmul_p4",
+                "quant_matmul_p4_mma", "quant_matmul"}
+
+
+def _tp_int4(torch, mesh, rank: int) -> dict:
+    """One request of phase 4's videos in the native int4 serving
+    configuration (``int4_serving``: per-channel packed, weight-only, int8 KV
+    cache) at TP_INT4_LAYERS layers: the prefix encoded on this rank, then
+    ``generate`` on the whole tree and ``generate_sharded`` on the rank's
+    shards (``shard_params_for_inference`` packs them on the rank), check (e)
+    at the local shapes; the rows launched, the first-token logits of both
+    and their greedy tokens."""
+    from trace_tpu_torch.model.quantize import int4_serving
+    from trace_tpu_torch.runtime import generate as gen
+    from trace_tpu_torch.runtime.mesh import shard_params_for_inference
+    from trace_tpu_torch.runtime.pipeline import TracePipeline
+    from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
+
+    params, cfg = int4_serving(*serving_model(torch, "bf16", layers=TP_INT4_LAYERS))
+    tok = SpmLikeTokenizer()
+    pipe = TracePipeline(params, cfg, tok)
+    del params
+    videos, stamps, asks = request_inputs()
+    prefix, mask = pipe.encode_prefix(videos, stamps, asks)
+    kw = dict(max_new_tokens=MAX_NEW, initial_head=1, eos_id=tok.eos_token_id)
+    seen, compute_logits = [], gen.compute_logits
+
+    def first(*a, **k):
+        out = compute_logits(*a, **k)
+        if not seen:
+            seen.append(out.detach().cpu())
+        return out
+
+    gen.compute_logits = first
+    try:
+        one = gen.generate(pipe._decoder_params, cfg.decoder, prefix, mask, pipe._combined, **kw)
+        one_logits = seen.pop()
+        dec = shard_params_for_inference(pipe._decoder_params, mesh)
+        shapes = {n: list(leaf["qp"].shape) for n, leaf in dec["layers"].items()
+                  if isinstance(leaf, dict) and "qp" in leaf}
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        out, check_e = on_path(torch, f"parallel int4, rank {rank}", lambda: gen.generate_sharded(
+            dec, cfg.decoder, prefix, mask, pipe._combined, mesh=mesh, **kw))
+        wall = time.perf_counter() - t0
+        tp_logits = seen.pop()
+    finally:
+        gen.compute_logits = compute_logits
+    got = count_delta(before)
+    del dec, pipe, prefix
+    torch.cuda.empty_cache()
+    t = out.phase_times
+    rec = {"wall_s": wall, "prefill_s": t["prefill_s"], "decode_s": t["decode_s"],
+           "decode_steps": out.decode_steps, "launches": got, "shapes": shapes,
+           "tokens": out.tokens.tolist(), "one_rank_tokens": one.tokens.tolist(),
+           "logits_vs_one_rank": rel_err(tp_logits, one_logits),
+           "finite": bool(torch.isfinite(tp_logits).all()), "check_e": check_e}
+    print(f"parallel rank {rank}, int4 ({TP_INT4_LAYERS} layers): launches {got}; local packed "
+          f"shapes {shapes}; prefill {t['prefill_s']:.3f} s, decode "
+          f"{1e3 * t['decode_s'] / max(out.decode_steps, 1):.2f} ms/step over "
+          f"{out.decode_steps} steps; first-token logits from one rank's "
+          f"{rec['logits_vs_one_rank']:.3g}", flush=True)
+    if set(got) != TP_INT4_ROWS:
+        fail(f"parallel int4, rank {rank}: rows launched {sorted(got)}, expected "
+             f"{sorted(TP_INT4_ROWS)}")
+    check_head_slices(cfg.decoder, out.tokens)
+    return rec
 
 
 def _ep_check(torch, mesh, rank: int, hidden) -> dict:
@@ -4018,6 +4866,9 @@ def _par_rank(rank: int, world: int, port: int, tmp: str) -> None:
     for mode in ("bf16", "int8"):
         out["serving"][mode] = _tp_serving(torch, mesh, mode, rank)
     out["serving_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["int4"] = _tp_int4(torch, mesh, rank)
+    out["int4_s"] = time.perf_counter() - t0
     from trace_tpu_torch.model.config import DecoderConfig
     from trace_tpu_torch.model.quantize import quantize_decoder_params
     from trace_tpu_torch.params import _decoder, _Init
@@ -4066,7 +4917,7 @@ def parallel_phase(torch, tmp: Path) -> tuple:
     t_phase = time.perf_counter()
     refs = {}
     for mode in ("bf16", "int8"):
-        refs[mode] = STASH.get(mode) or first_token_refs(torch, mode)
+        refs[mode] = first_token_refs(torch, mode)
     hidden = STASH.get("moe_hidden")
     source = "phase 10's padded prefill"
     if hidden is None:  # --parallel alone: a seeded hidden of that shape
@@ -4123,27 +4974,31 @@ def parallel_phase(torch, tmp: Path) -> tuple:
         e = rel_err(tp, refs[mode]["fp32_logits"])
         one = refs[mode]["kernel_vs_fp32"]
         near = rel_err(tp, refs[mode]["kernel_logits"])
-        agree = None
-        if refs[mode]["tokens"] is not None:  # phase 4's greedy tokens of the same requests
-            agree = []
-            for a, b in zip(toks[0], refs[mode]["tokens"]):
-                n = 0
-                while n < min(len(a), len(b)) and a[n] == b[n]:
-                    n += 1
-                agree.append(n)
         stats[f"{mode}_logits_vs_fp32"] = {"tensor_parallel": e, "one_rank_kernel": one,
-                                           "tensor_parallel_vs_one_rank": near,
-                                           "tokens_agree_with_one_rank": agree}
-        print(f"parallel {mode}: first-token logits from the fp32 model (||diff|| / ||ref||): "
-              f"tensor-parallel {e:.5f}, one-rank kernel path {one:.5f} (tol: tensor-parallel "
-              f"<= {REF_RATIO_TOL} x one-rank); tensor-parallel from one-rank {near:.3g}; "
-              f"greedy tokens equal phase 4's for the first {agree} of {MAX_NEW} per row",
-              flush=True)
+                                           "tensor_parallel_vs_one_rank": near}
+        print(f"parallel {mode} ({PAR_SERVE_LAYERS} layers): first-token logits from the fp32 "
+              f"model (||diff|| / ||ref||): tensor-parallel {e:.5f}, one-rank kernel path "
+              f"{one:.5f} (tol: tensor-parallel <= {REF_RATIO_TOL} x one-rank); tensor-parallel "
+              f"from one-rank {near:.3g}", flush=True)
         if not e <= REF_RATIO_TOL * one:
             fail(f"parallel {mode}: the tensor-parallel logits are further from the fp32 model "
                  "than the one-rank kernel path's")
     if not all(r["int4p_refused"] and "single-chip only" in r["int4p_refused"] for r in ranks):
         fail("parallel: an int4p tree was not refused")
+    # the int4 request: the ranks agree, each is held to its one-rank request
+    i4 = r0["int4"]
+    lead = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            for a, b in zip(i4["tokens"], i4["one_rank_tokens"])]
+    stats["int4"] = {k: v for k, v in i4.items() if k not in ("tokens", "one_rank_tokens")}
+    stats["int4"].update(seconds=r0["int4_s"], tokens_agree_with_one_rank=lead)
+    print(f"parallel int4 ({TP_INT4_LAYERS} layers, model {PAR_RANKS}): {r0['int4_s']:.1f} s; "
+          f"first-token logits from one rank's {i4['logits_vs_one_rank']:.3g} (tol "
+          f"{TP_INT4_TOL}); greedy tokens equal one rank's for the first {lead} of {MAX_NEW} "
+          "per row", flush=True)
+    if any(r["int4"]["tokens"] != i4["tokens"] for r in ranks):
+        fail("parallel int4: the ranks returned different tokens")
+    if not (i4["finite"] and i4["logits_vs_one_rank"] <= TP_INT4_TOL and min(lead) >= 1):
+        fail("parallel int4: the tensor-parallel request is not held to one rank's")
     for form, m in r0["moe"].items():
         if not (all(r["moe"][form]["finite"] for r in ranks) and m["rel_err"] <= EP_REL_TOL):
             fail(f"parallel expert-parallel {form}: disagrees with the one-rank layer")
@@ -4177,7 +5032,7 @@ def parallel_phase(torch, tmp: Path) -> tuple:
         fail("parallel lora steps: a loss or a grad norm is not within its limit of one rank's")
     launches = {}
     for part in ([r0["serving"][m]["requests"][1]["launches"] for m in ("bf16", "int8")]
-                 + [pp["launches"], tr["launches"]]):
+                 + [i4["launches"], pp["launches"], tr["launches"]]):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
     stats.update(moe=r0["moe"], pp=pp, train=tr, launches=launches,
@@ -4228,6 +5083,9 @@ def main() -> int:
             print(json.dumps(parallel_phase(torch, Path(tmp))[1]), flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--runbook"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            return runbook(torch, Path(tmp))
     if sys.argv[1:] in (["--checkpoint"], ["--eval"]):
         with tempfile.TemporaryDirectory() as tmp:
             ckpt_stats = checkpoint_phase(torch, Path(tmp))[1]
@@ -4243,6 +5101,9 @@ def main() -> int:
     # each path is driven with the counts set to 0 just before it and read
     # just after; a kernel's launches are those of the first path that runs it
     launches, stats, e2e = {}, [], {}
+    elapsed = lambda phase: print(f"chip_smoke: phase {phase} done at "
+                                  f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    elapsed(3)
     modes = ("bf16", "int8", "int4p", "int4p_g0")
     for mode in modes:
         counts, mode_stats, e2e[mode] = end_to_end(torch, mode)
@@ -4250,26 +5111,37 @@ def main() -> int:
             if n:
                 launches.setdefault(name, n)  # of the first path that runs the kernel
         stats += mode_stats
+    f32_launches, f32_trees_stats = fp32_trees(torch)
+    for name, n in f32_launches.items():
+        launches.setdefault(name, n)
+    e2e["fp32_trees"] = f32_trees_stats
+    elapsed(4)
     corpus_launches, corpus = corpus_phase(torch)
+    elapsed(5)
     for name, n in corpus_launches.items():
         launches.setdefault(name, n)
     with tempfile.TemporaryDirectory() as tmp:  # the loops' metrics logs
         train_launches, train_stats, grad_check = training(torch, Path(tmp))
+    elapsed(6)
     for name, n in train_launches.items():
         launches.setdefault(name, n)
     with tempfile.TemporaryDirectory() as tmp:  # the checkpoint, videos, JSONL, eval files
         ckpt_launches, ckpt_stats = checkpoint_phase(torch, Path(tmp))
         eval_stats = eval_phase(torch, Path(tmp), ckpt_stats["container_reader"])
+    elapsed("7-8")
     for name, n in ckpt_launches.items():
         if n:
             launches.setdefault(name, n)
     with tempfile.TemporaryDirectory() as tmp:  # the two checkpoints
         family_launches, family_stats = families_phase(torch, Path(tmp))
+    elapsed(9)
     launches.update(family_launches)  # the G = 7 rows: launched on this path alone
     with tempfile.TemporaryDirectory() as tmp:  # the Mixtral checkpoint and an .npy
         moe_launches, moe_stats = moe_phase(torch, Path(tmp))
+    elapsed(10)
     with tempfile.TemporaryDirectory() as tmp:  # the ranks' inputs, logs and results
         par_launches, par_stats = parallel_phase(torch, Path(tmp))
+    elapsed(11)
     second = stats[1::2]  # the second request of each path
     per_step = lambda s: 1e3 * s["decode_s"] / max(s["decode_steps"], 1)
     col = lambda f: " | ".join(f(s) for s in second)
@@ -4322,6 +5194,22 @@ def main() -> int:
         "flash_attention_bwd_dkv": ("trace_tpu_torch/kernels/csrc/attention_bwd.cu",
                                     "trace_tpu/kernels/flash_backward.py:252"),
     }
+    # the fp32 forms: their own sources, the same TPU kernels
+    f32_sources = {"flash_attention": "attention_f32.cu", "vit_attention_btd": "attention_f32.cu",
+                   "flash_attention_fwd_res": "attention_f32.cu",
+                   "flash_attention_bwd_dq": "attention_bwd_f32.cu",
+                   "flash_attention_bwd_dkv": "attention_bwd_f32.cu",
+                   "decode_attention": "decode_attention_f32.cu",
+                   "decode_attention_int8_s8dot": "decode_attention_f32.cu",
+                   "decode_attention_int8_dequant": "decode_attention_f32.cu",
+                   "quant_matmul": "quant_matmul_f32.cu",
+                   "quant_matmul_stacked": "quant_matmul_f32.cu",
+                   "quant_matmul_p4": "quant_matmul_f32.cu",
+                   "quant_matmul_p4_grouped": "quant_matmul_f32.cu"}
+    for base, src in f32_sources.items():
+        for name in (f"{base}_f32", f"{base}_f32_tiled"):
+            if name in rows:
+                sources[name] = (f"trace_tpu_torch/kernels/csrc/{src}", sources[base][1])
     kernels = [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches.get(name, 0),

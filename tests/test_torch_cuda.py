@@ -389,11 +389,14 @@ def test_flash_attention_trainable_on_the_card(cuda):
 
 @pytest.mark.cuda
 def test_backward_wrappers_refuse_what_they_do_not_take(cuda):
+    """All-fp32 operands take the fp32 forms (they launch); mixed dtypes
+    and wrong shapes still raise."""
     from trace_tpu_torch.kernels import flash_backward as fb
 
-    q = torch.zeros((1, 2, 64, 64), device=cuda)  # fp32: the kernels take bf16
-    with pytest.raises(TypeError):
-        fb.flash_attention_fwd_res(q, q, q, None, causal=True)
+    q = torch.zeros((1, 2, 64, 64), device=cuda)
+    before = fb.flash_attention_fwd_res.launches_f32
+    fb.flash_attention_fwd_res(q, q, q, None, causal=True)
+    assert fb.flash_attention_fwd_res.launches_f32 == before + 1
     qb = q.to(torch.bfloat16)
     rows = torch.zeros((1, 2, 64, 1), device=cuda)
     with pytest.raises(TypeError):
@@ -404,15 +407,188 @@ def test_backward_wrappers_refuse_what_they_do_not_take(cuda):
         fb.flash_attention_bwd_delta(q, qb)
     with pytest.raises(ValueError):
         fb.flash_attention_bwd_dkv(qb, qb, qb, None, qb, rows[:, :1], rows, causal=True)
+    with pytest.raises(ValueError):
+        fb.flash_attention_bwd_dkv(q, q, q, None, q, rows[:, :1], rows, causal=True)
 
 
 @pytest.mark.cuda
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
-    q = torch.zeros((1, 2, 64, 64), device=cuda)  # fp32: the kernels take bf16
+    """fp32 q, k and v launch the fp32 forms; mixed dtypes raise."""
+    q = torch.zeros((1, 2, 64, 64), device=cuda)
+    before = flash_attention.launches_f32
+    flash_attention(q, q, q, None, True)
+    assert flash_attention.launches_f32 == before + 1
     with pytest.raises(TypeError):
-        flash_attention(q, q, q, None, True)
+        flash_attention(q, q.to(torch.bfloat16), q, None, True)
+    with pytest.raises(ValueError):  # an fp32 q over a bf16 stripe
+        decode_attention(q[:, :, :1], q.to(torch.bfloat16), q.to(torch.bfloat16),
+                         torch.zeros((1, 64), device=cuda))
     with pytest.raises(ValueError):
-        decode_attention(q[:, :, :1], q, q, torch.zeros((1, 64), device=cuda))
+        flash_attention(q, q, q, None, False, q_offset=3)  # an offset needs causal
+
+
+# The fp32 forms (csrc/*_f32.cu: fp32 FMA on the CUDA cores) against their
+# plain versions, which compute the same fp32 steps in another summation
+# order: outputs within 1e-4 + 1e-4 |ref| and ||diff|| / ||ref|| <= 1e-4
+# (the limits of chip_smoke.py); gradients and weight products in units of
+# max |ref|.
+
+F32_ATOL, F32_REL_NORM = 1e-4, 1e-4
+
+
+def _assert_f32(got, want, unit=False, atol=F32_ATOL):
+    assert got.dtype == torch.float32
+    got, want = got.float(), want.float()
+    scale = want.abs().max() if unit else 1.0
+    torch.testing.assert_close(got / scale, want / scale, atol=atol if not unit else 1e-5,
+                               rtol=F32_ATOL)
+    assert ((got - want).norm() / want.norm()).item() <= F32_REL_NORM
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,T,hd,pad,side", FLASH_CASES)
+def test_flash_f32_kernel_matches_plain(cuda, B, H, Hkv, T, hd, pad, side):
+    q, k, v, bias = _flash_inputs(cuda, B, H, Hkv, T, hd, pad, side)
+    q, k, v = q.float(), k.float(), v.float()
+    before = flash_attention.launches_f32
+    got = flash_attention(q, k, v, bias, True)
+    assert flash_attention.launches_f32 == before + 1
+    _assert_f32(got, flash_attention(q, k, v, bias, True, impl="plain"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,S,offset", [(64, 300, 100), (129, 2304, 1536), (37, 200, 163)])
+def test_flash_query_offset_over_a_strided_stripe(cuda, dtype, T, S, offset):
+    """A chunk of a chunked prefill: q at slots offset ... offset + T - 1
+    over a layer's stripe of a stacked cache (a strided view, read in
+    place), row 0 left-padded, against the plain chunked attention."""
+    rng = np.random.default_rng(11)
+    B, H, Hkv, hd = 2, 8, 2, 128
+    cache = torch.from_numpy(_normal(rng, 2, 3, B, Hkv, S, hd)).to(cuda, dtype)
+    k, v = cache[0, 1], cache[1, 1]
+    q = torch.from_numpy(_normal(rng, B, H, T, hd)).to(cuda, dtype)
+    vis = torch.zeros((B, S), dtype=torch.bool, device=cuda)
+    vis[:, :offset + T] = True
+    vis[0, :17] = False
+    bias = torch.where(vis, 0.0, -1e30).float()
+    got = flash_attention(q, k, v, bias, True, q_offset=offset)
+    want = flash_attention(q, k, v, bias, True, q_offset=offset, impl="plain")
+    if dtype == torch.float32:
+        _assert_f32(got, want)
+    else:
+        _assert_matches(got, want, ATOL["flash"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,P,NH,HD,TQ", [(3, 80, 4, 64, 77), (2, 592, 16, 64, 577)])
+def test_vit_f32_kernel_matches_plain_on_fused_slices(cuda, B, P, NH, HD, TQ):
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(_normal(rng, B, P, 3 * NH * HD)).to(cuda)
+    q, k, v = qkv.split(NH * HD, dim=-1)
+    got = vit_attention_btd(q, k, v, TQ, NH)
+    _assert_f32(got[:, :TQ], vit_attention_btd(q, k, v, TQ, NH, impl="plain")[:, :TQ])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Tq,Tk,hd,pad,side,causal", BWD_CASES)
+def test_flash_backward_f32_kernels_match_plain(cuda, B, H, Hkv, Tq, Tk, hd, pad, side, causal):
+    from trace_tpu_torch.kernels import flash_backward as fb
+
+    q, k, v, bias, do, _ = _bwd_inputs(cuda, B, H, Hkv, Tq, Tk, hd, pad, side)
+    q, k, v, do = q.float(), k.float(), v.float(), do.float()
+    o, lse = fb.flash_attention_fwd_res(q, k, v, bias, causal=causal)
+    o_ref, lse_ref = fb.flash_attention_fwd_res(q, k, v, bias, causal=causal, impl="plain")
+    _assert_f32(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    delta = fb.flash_attention_bwd_delta(o, do)
+    torch.testing.assert_close(delta, fb.flash_attention_bwd_delta(o, do, impl="plain"),
+                               atol=1e-5, rtol=1e-5)
+    args = (q, k, v, bias, do, lse, delta)
+    _assert_f32(fb.flash_attention_bwd_dq(*args, causal=causal),
+                fb.flash_attention_bwd_dq(*args, causal=causal, impl="plain"), unit=True)
+    for a, b in zip(fb.flash_attention_bwd_dkv(*args, causal=causal),
+                    fb.flash_attention_bwd_dkv(*args, causal=causal, impl="plain")):
+        _assert_f32(a, b, unit=True)
+    again = fb.flash_attention_bwd(q, k, v, bias, o, lse, do, causal=causal)
+    first = (fb.flash_attention_bwd_dq(*args, causal=causal),) + fb.flash_attention_bwd_dkv(
+        *args, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,HD,S", [(1, 128, 333), (4, 128, 2304), (7, 128, 2304),
+                                    (8, 64, 1100), (16, 128, 500)])
+@pytest.mark.parametrize("cache", ["f32", "s8dot", "dequant"])
+def test_decode_f32_kernels_match_plain(cuda, cache, G, HD, S):
+    """fp32 q over an fp32 stripe (row 3) or the int8 one (row 3b, both
+    modes), any group (more than 8 split by the wrapper), rows with no,
+    one and many visible slots."""
+    from trace_tpu_torch.model.mistral import _quantize_kv
+
+    rng = np.random.default_rng(12)
+    B, NKV = 3, 2
+    q = torch.from_numpy(_normal(rng, B, NKV * G, 1, HD)).to(cuda)
+    kf = torch.from_numpy(_normal(rng, B, NKV, S, HD)).to(cuda)
+    vf = torch.from_numpy(_normal(rng, B, NKV, S, HD)).to(cuda)
+    vis = torch.from_numpy(rng.random((B, S)) < 0.5).to(cuda)
+    vis[1] = False
+    vis[2] = False
+    vis[2, S // 3] = True
+    bias = torch.where(vis, 0.0, -1e30).float()
+    if cache == "f32":
+        run = lambda impl: decode_attention(q, kf, vf, bias, impl=impl)
+    else:
+        stripe = {}
+        for vals, scales, x in (("kq", "ks", kf), ("vq", "vs", vf)):
+            stripe[vals], stripe[scales] = _quantize_kv(x.to(torch.bfloat16))
+        run = lambda impl: decode_attention(q, stripe, None, bias, mode=cache, impl=impl)
+    # dequant rounds p to bf16 as its plain version does; a p an ulp apart
+    # may round to a neighbouring bf16 step there (the bf16 row's atol)
+    _assert_f32(run("auto"), run("plain"), atol=2e-3 if cache == "dequant" else F32_ATOL)
+    assert torch.equal(run("auto"), run("auto"))
+
+
+F32_QMM_CASES = [  # form, M, K, N, out dtype
+    ("i8", 2, 4096, 6144, torch.float32), ("i8", 7, 1000, 1100, torch.bfloat16),
+    ("i8", 37, 1000, 1100, torch.float32), ("i8", 300, 512, 640, torch.float32),
+    ("p4", 1, 4096, 4096, torch.float32), ("p4", 8, 14336, 4096, torch.bfloat16),
+    ("p4", 200, 1000, 1100, torch.float32), ("p4", 129, 4096, 6144, torch.float32),
+    ("p4g", 2, 4096, 28672, torch.float32), ("p4g", 5, 1024, 1100, torch.bfloat16),
+    ("p4g", 65, 1024, 1100, torch.float32), ("p4g", 300, 4096, 4096, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,M,K,N,out_dtype", F32_QMM_CASES)
+def test_quant_matmul_f32_forms_match_plain(cuda, form, M, K, N, out_dtype):
+    """fp32 x through every weight product's fp32 form, split K (M <= 8) and
+    tiled, 2-D and stacked (layer 1 of 2, read in place), in units of the
+    largest output: 1e-5 (fp32 outputs), a bf16 step (bf16)."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(_normal(rng, M, K)).to(cuda)
+    if form == "i8":
+        w = torch.from_numpy(rng.integers(-127, 128, (2, K, N), dtype=np.int8)).to(cuda)
+        s = torch.from_numpy(rng.random((2, N)) * 4e-4 + 1e-4).to(cuda, torch.bfloat16)
+        flat, stacked = quant_matmul, quant_matmul_stacked
+    else:
+        w = torch.from_numpy(rng.integers(-128, 128, (2, K // 2, N), dtype=np.int8)).to(cuda)
+        G = K // 128 if form == "p4g" else 1
+        s = torch.from_numpy(rng.random((2, G, N)) * 4e-3 + 1e-3).to(cuda, torch.bfloat16)
+        if form == "p4g":
+            flat, stacked = quant_matmul_p4_grouped, quant_matmul_p4_grouped_stacked
+        else:
+            flat, stacked = quant_matmul_p4, quant_matmul_p4_stacked
+            s = s.reshape(2, N)
+    before = flat.launches_f32 if flat is not quant_matmul_stacked else 0
+    got = stacked(x, w, s, 1, out_dtype=out_dtype)
+    want = stacked(x, w, s, 1, out_dtype=out_dtype, impl="plain")
+    assert torch.equal(got, flat(x, w[1], s[1], out_dtype=out_dtype))
+    if form != "i8":
+        assert flat.launches_f32 == before + 2
+    unit = want.float().abs().max()
+    tol = 1e-5 if out_dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float() / unit, want.float() / unit, atol=tol, rtol=0)
 
 
 # The int8 weight product sums the same exact products (bf16 x int8) in fp32
@@ -615,11 +791,15 @@ def test_w4a8_product_on_the_card_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_p4_wrappers_refuse_what_they_do_not_take(cuda):
+    """fp32 x takes the fp32 form (it launches); the other misfits raise."""
     rng = np.random.default_rng(18)
     qp, s = _packed_weight(rng, (128, 32), 2, cuda)
-    x = torch.zeros((2, 256), device=cuda)  # fp32: the kernels take bf16
-    with pytest.raises(TypeError):
-        quant_matmul_p4_grouped(x, qp, s)
+    x = torch.zeros((2, 256), device=cuda)
+    before = quant_matmul_p4_grouped.launches_f32
+    quant_matmul_p4_grouped(x, qp, s)
+    assert quant_matmul_p4_grouped.launches_f32 == before + 1
+    with pytest.raises(TypeError):  # an fp32 scale
+        quant_matmul_p4_grouped(x, qp, s.float())
     xb = x.to(torch.bfloat16)
     with pytest.raises(ValueError):
         quant_matmul_p4_grouped(xb, qp, s.cpu())
@@ -1213,11 +1393,17 @@ def test_w8a8_decoder_forward_without_cache_at_few_rows(cuda):
 
 @pytest.mark.cuda
 def test_int8_wrappers_refuse_what_they_do_not_take(cuda):
-    x = torch.zeros((2, 64), device=cuda)  # fp32: the kernel takes bf16
+    """fp32 x takes the fp32 form (it launches); the other misfits raise."""
+    x = torch.zeros((2, 64), device=cuda)
     q = torch.zeros((64, 32), dtype=torch.int8, device=cuda)
     s = torch.ones((32,), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(TypeError):
-        quant_matmul(x, q, s)
+    before = quant_matmul.launches_f32
+    quant_matmul(x, q, s)
+    assert quant_matmul.launches_f32 == before + 1
+    with pytest.raises(TypeError):  # a bf16 weight
+        quant_matmul(x, q.to(torch.bfloat16), s)
+    with pytest.raises(ValueError):  # a strided fp32 x
+        quant_matmul(torch.zeros((2, 128), device=cuda)[:, ::2], q, s)
     xb = torch.zeros((2, 128), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         quant_matmul(xb[:, ::2], q, s)  # strided x

@@ -143,17 +143,6 @@ def test_compute_logits_is_fp32_for_bf16_weights(params):
     torch.testing.assert_close(got.double(), want, atol=1e-5, rtol=1e-5)
 
 
-def test_chunked_prefill_raises(params):
-    """A T > 1 chunk after earlier cache slots has no kernel: it raises
-    rather than attending through a plain path."""
-    _, tp = params
-    x, mask, pos = _inputs(T=4)
-    cache = tm.init_kv_cache(CFG, 2, 16, dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
-        tm.decoder_forward(tp, CFG, torch.from_numpy(x), torch.from_numpy(mask),
-                           torch.from_numpy(pos), cache=cache, cache_index=4)
-
-
 def test_init_kv_cache_layout():
     k, v = tm.init_kv_cache(CFG, 3, 40)
     jk, _ = jm.init_kv_cache(JCFG, 3, 40)
@@ -478,3 +467,131 @@ def test_bf16_mlp_keeps_gate_and_up_in_fp32():
     got, want = th.float().numpy(), np.asarray(jh.astype(jnp.float32))
     assert (got != want).mean() <= 0.02
     np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=0)
+
+
+# Chunked prefill: a prompt written into the cache in chunks (T > 1 at
+# cache_index > 0), each attending the slots valid before it and its own
+# real slots up to each query, as the JAX package's einsum path computes it
+# (its CPU default; its accelerator flash path drops the earlier slots, which
+# the port does not copy). The dense cache runs on the tiny fp32 config
+# (TOL); the int8 cache on the int8 branch's head_dim-128 config with dense
+# weights, its T = 1 steps through the JAX package's decode kernel in
+# interpret mode, as above (INT8_TOL). Then greedy decode steps from the last
+# chunk's logits: the tokens equal.
+
+
+def _chunked_run(forward, embed, logits, x, mask, pos, chunks, S, steps, cache, torch_side):
+    """Prefill ``x`` in ``chunks`` then ``steps`` greedy steps through one
+    package's ``forward``; returns (real-row hidden of each chunk, the cache,
+    the greedy tokens, the first step's logits)."""
+    B = x.shape[0]
+    asarr = (lambda a: torch.from_numpy(np.ascontiguousarray(a))) if torch_side else jnp.asarray
+    hidden, start = [], 0
+    for n in chunks:
+        sl = slice(start, start + n)
+        cmask = np.zeros((B, S), bool)
+        cmask[:, :start] = mask[:, :start]
+        h, cache = forward(asarr(x[:, sl]), asarr(mask[:, sl]), asarr(pos[:, sl]), cache,
+                           start, asarr(cmask))
+        hidden.append(np.asarray(h.detach() if torch_side else h) * mask[:, sl, None])
+        start += n
+    T = start
+    valid = np.zeros((B, S), bool)
+    valid[:, :T] = mask
+    tokens, first = [], None
+    last = h[:, -1]
+    p = mask.sum(1, keepdims=True).astype(np.int32)
+    for i in range(steps):
+        lg = np.asarray(logits(last).detach() if torch_side else logits(last))
+        first = lg if first is None else first
+        tok = lg[:, :CFG.vocab_size].argmax(-1)
+        tokens.append(tok)
+        h, cache = forward(asarr(embed(tok)[:, None]), asarr(np.ones((B, 1), bool)), asarr(p + i),
+                           cache, T + i, asarr(valid))
+        valid[:, T + i] = True
+        last = h[:, -1]
+    return hidden, cache, np.stack(tokens, 1), first
+
+
+@pytest.mark.parametrize("chunks", [(4, 8), (4, 4, 4)])
+@pytest.mark.parametrize("left_pad", [False, True])
+@pytest.mark.parametrize("kv", ["dense", "int8"])
+def test_chunked_prefill_matches_jax(jax_kernels_interpreted, kv, left_pad, chunks):
+    """A 12-token prompt in two or three chunks (row 1 left-padded by 5, so
+    that its first chunk holds no real token), then 4 greedy steps: each
+    chunk's hidden states on the real rows, the cache's real slots, the
+    first step's logits and the greedy tokens against JAX's einsum path."""
+    if kv == "dense":
+        jcfg, tcfg, tol = JCFG, CFG, TOL
+    else:
+        jcfg = dataclasses.replace(QJCFG, vocab_size=JCFG.vocab_size)
+        tcfg, tol = dataclasses.replace(QCFG, vocab_size=CFG.vocab_size), INT8_TOL
+    jp = jm.init_decoder_params(jcfg, jax.random.PRNGKey(7))
+    tp = from_jax_params(jax.tree.map(np.asarray, jp))
+    B, T, S, steps = 2, sum(chunks), 24, 4
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal((B, T, tcfg.hidden_size)) * 0.5).astype(np.float32)
+    mask = np.ones((B, T), bool)
+    if left_pad:
+        mask[1, :5] = False
+    pos = np.maximum(np.cumsum(mask, axis=1) - 1, 0).astype(np.int32)
+
+    def jforward(x, m, p, cache, index, cmask):
+        # the first chunk of an int8 cache through JAX's flash route, which
+        # attends the chunk's unquantized k / v as the port's prefill does
+        # (its einsum route would read them back quantized)
+        return jm.decoder_forward(jp, jcfg, x, m, p, cache=cache,
+                                  cache_index=jnp.int32(index), cache_mask=cmask,
+                                  use_flash=kv == "int8" and index == 0)
+
+    def tforward(x, m, p, cache, index, cmask):
+        return tm.decoder_forward(tp, tcfg, x, m, p, cache=cache, cache_index=index,
+                                  cache_mask=cmask)
+
+    jcache = jm.init_kv_cache(jcfg, B, S, dtype=jnp.float32)
+    tcache = tm.init_kv_cache(tcfg, B, S, dtype=torch.float32)
+    jh, jcache, jtok, jlog = _chunked_run(
+        jforward, lambda t: np.asarray(jp["embed"])[t], lambda h: jm.compute_logits(jp, h),
+        x, mask, pos, chunks, S, steps, jcache, False)
+    th, tcache, ttok, tlog = _chunked_run(
+        tforward, lambda t: tp["embed"][torch.from_numpy(t)].numpy(),
+        lambda h: tm.compute_logits(tp, h), x, mask, pos, chunks, S, steps, tcache, True)
+    for got, want in zip(th, jh):
+        _close_scaled(torch.from_numpy(got), want, tol) if kv == "int8" else \
+            _close(torch.from_numpy(got), want, tol)
+    slots = np.zeros((B, S), bool)
+    slots[:, :T] = mask
+    slots[:, T:T + steps] = True
+    if kv == "int8":
+        _assert_int8_cache_close(tcache, jcache, slots)
+        _close_scaled(torch.from_numpy(tlog), jlog, tol)
+    else:
+        sel = slots[None, :, None, :, None]
+        for i in (0, 1):
+            _close(tcache[i] * torch.from_numpy(sel), np.asarray(jcache[i]) * sel)
+        _close(torch.from_numpy(tlog), jlog, tol)
+    np.testing.assert_array_equal(ttok, jtok)
+
+
+def test_chunked_prefill_equals_one_shot_prefill(params):
+    """The port alone: a prompt prefilled in chunks gives the one-shot
+    prefill's hidden states on the real rows and the same cache slots."""
+    _, tp = params
+    x, mask, pos = _inputs(T=12, seed=9, pad=5)
+    B, S = 2, 16
+    one, c1 = tm.decoder_forward(tp, CFG, torch.from_numpy(x), torch.from_numpy(mask),
+                                 torch.from_numpy(pos),
+                                 cache=tm.init_kv_cache(CFG, B, S, dtype=torch.float32))
+    cache, parts = tm.init_kv_cache(CFG, B, S, dtype=torch.float32), []
+    for lo, hi in ((0, 5), (5, 12)):
+        cmask = torch.zeros((B, S), dtype=torch.bool)
+        cmask[:, :lo] = torch.from_numpy(mask[:, :lo])
+        h, cache = tm.decoder_forward(
+            tp, CFG, torch.from_numpy(x[:, lo:hi]), torch.from_numpy(mask[:, lo:hi]),
+            torch.from_numpy(pos[:, lo:hi]), cache=cache, cache_index=lo, cache_mask=cmask)
+        parts.append(h)
+    real = torch.from_numpy(mask[:, :, None])
+    _close(torch.cat(parts, 1) * real, (one * real).numpy())
+    sel = torch.from_numpy(np.pad(mask, ((0, 0), (0, S - 12)))[None, :, None, :, None])
+    for i in (0, 1):
+        _close(cache[i] * sel, (c1[i] * sel).numpy())

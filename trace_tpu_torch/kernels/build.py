@@ -22,7 +22,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("attention.cu", "attention_bwd.cu", "decode_attention.cu",
-           "decode_attention_int8.cu", "quant_matmul.cu", "quant_matmul_p4.cu")
+           "decode_attention_int8.cu", "quant_matmul.cu", "quant_matmul_p4.cu",
+           # the fp32 forms (CUDA cores), chosen by the wrappers for fp32 operands
+           "attention_f32.cu", "attention_bwd_f32.cu", "decode_attention_f32.cu",
+           "quant_matmul_f32.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -97,12 +100,14 @@ _COUNTS = threading.Lock()
 
 def count_launch(fn, table: str = None, key=None) -> None:
     """One launch of ``fn``'s kernel: ``fn.launches`` (or, with ``table``,
-    ``getattr(fn, table)[key]``) plus one, under a lock, so that threads
-    launching at once (the corpus's encode and decode threads) lose no
-    count."""
+    ``getattr(fn, table)`` plus one if it is an int, else its ``[key]``)
+    plus one, under a lock, so that threads launching at once (the corpus's
+    encode and decode threads) lose no count."""
     with _COUNTS:
         if table is None:
             fn.launches += 1
+        elif key is None:
+            setattr(fn, table, getattr(fn, table) + 1)
         else:
             getattr(fn, table)[key] += 1
 

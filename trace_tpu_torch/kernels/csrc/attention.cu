@@ -4,7 +4,9 @@
 // One kernel serves three TPU kernels:
 //   * flash_attention (_attn_kernel) of trace_tpu/kernels/flash_attention.py:
 //     causal GQA prefill attention over [B, H, T, hd] with an additive fp32
-//     [B, Tk] padding bias;
+//     [B, Tk] padding bias; with a query offset for a chunk of a chunked
+//     prefill (query row r sits at position q_offset + r of the cache stripe
+//     and sees the keys j <= q_offset + r; 0 for a whole prefill);
 //   * vit_attention_btd (_btd_kernel), same file: bidirectional ViT attention
 //     read and written in place in the [B, P, D] layout (head h = columns
 //     h*hd..), keys >= kv_len masked;
@@ -102,6 +104,7 @@ struct Params {
   bf16* o;
   float* lse;         // [B, H, Tq] natural-log logsumexp per query row, or null
   int H, group, tq, tk, kv_len, causal;
+  int q_offset;       // causal: query row r sits at position q_offset + r
   float scale_log2;   // hd^-0.5 * log2(e)
   long long sob, soh, sot, sbias;
   int qfold, kfold, vfold;  // the operand's map is (h*hd + column, token, batch)
@@ -274,11 +277,11 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
   const int g = lane / 4, t = lane % 4;
   const int row0 = q0 + 64 * wg;  // the warpgroup's first query row
   const int row[2] = {row0 + 16 * warp + g, row0 + 16 * warp + g + 8};
-  const int lim[2] = {p.causal ? min(p.kv_len, row[0] + 1) : p.kv_len,
-                      p.causal ? min(p.kv_len, row[1] + 1) : p.kv_len};
+  const int lim[2] = {p.causal ? min(p.kv_len, p.q_offset + row[0] + 1) : p.kv_len,
+                      p.causal ? min(p.kv_len, p.q_offset + row[1] + 1) : p.kv_len};
   // key tiles this warpgroup needs: none past its last row (causal), none
   // at all when its rows lie past Tq
-  const int wg_end = p.causal ? min(p.tk, row0 + 64) : p.tk;
+  const int wg_end = p.causal ? min(p.tk, p.q_offset + row0 + 64) : p.tk;
   const int nt = row0 >= p.tq ? 0 : (wg_end + BK - 1) / BK;
   const int kv_lim = min(p.tk, p.kv_len);
   const float* bias = p.bias ? p.bias + b * p.sbias : nullptr;
@@ -310,7 +313,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, in
     wgmma_wait<0>();
     fence_operands(s);
     // masks only on tiles that reach past the keys or above a row's diagonal
-    const bool edge = k0 + BK > kv_lim || (p.causal && k0 + BK - 1 > row0);
+    const bool edge = k0 + BK > kv_lim || (p.causal && k0 + BK - 1 > p.q_offset + row0);
     float alpha[2];
     softmax_any<HD>(s, m, l, alpha, bl, p, bias != nullptr, k0, edge, lim, t);
     rescale<HD>(o, alpha);
@@ -340,7 +343,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int h = blockIdx.x, b = blockIdx.y;
   // causal q tiles longest first: the last tile holds the most keys
   const int q0 = (p.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z) * BQ;
-  const int k_end = p.causal ? min(p.tk, q0 + BQ) : p.tk;
+  const int k_end = p.causal ? min(p.tk, p.q_offset + q0 + BQ) : p.tk;
   const int ntiles = (k_end + C::BK - 1) / C::BK;
   constexpr int STAGES = C::STAGES;
   if (threadIdx.x == 0) {
@@ -419,10 +422,10 @@ constexpr int FILL_THREADS = 256;
 
 // The rows of batch row b that see no key get the mean of v over the Tk keys
 // (see the note on masks above), in each query head of kv head blockIdx.x.
-// Causal, a row r sees the keys j <= r below kv_len whose bias is above
-// -1e29: the rows before the first such key see none; not causal, every row
-// sees none when no key is visible. Launched after the main kernel, only
-// with a bias.
+// Causal, a row r sees the keys j <= q_offset + r below kv_len whose bias is
+// above -1e29: the rows with q_offset + r below the first such key see none;
+// not causal, every row sees none when no key is visible. Launched after the
+// main kernel, only with a bias.
 __global__ void __launch_bounds__(FILL_THREADS)
     unseen_rows_kernel(const bf16* v, long long svb, long long svh, long long svt,
                        const Params p) {
@@ -439,7 +442,7 @@ __global__ void __launch_bounds__(FILL_THREADS)
       break;
     }
   __syncthreads();
-  const int rows = first >= lim ? p.tq : p.causal ? min(first, p.tq) : 0;
+  const int rows = first >= lim ? p.tq : p.causal ? max(0, min(first - p.q_offset, p.tq)) : 0;
   if (rows == 0) return;
   const int cp = threadIdx.x % 16, grp = threadIdx.x / 16;
   const bf16* vb = v + b * svb + kvh * svh + c0 + 2 * cp;
@@ -522,11 +525,11 @@ int launch_pv_tile(const void* P, const void* V, float* O, cudaStream_t stream) 
 extern "C" int attn_fwd_bf16(
     const void* q, const void* k, const void* v, const float* bias, void* o,
     float* lse, int B, int H, int group, int tq, int tk, int hd, int kv_len, int causal,
-    float scale, long long sqb, long long sqh, long long sqt, long long skb,
+    int q_offset, float scale, long long sqb, long long sqh, long long sqt, long long skb,
     long long skh, long long skt, long long svb, long long svh, long long svt,
     long long sob, long long soh, long long sot, long long sbias,
     void* stream) {
-  if (B < 1 || H < 1 || group < 1 || H % group || tq < 1 || tk < 1)
+  if (B < 1 || H < 1 || group < 1 || H % group || tq < 1 || tk < 1 || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.bias = bias;
@@ -538,6 +541,7 @@ extern "C" int attn_fwd_bf16(
   p.tk = tk;
   p.kv_len = kv_len;
   p.causal = causal;
+  p.q_offset = q_offset;
   p.scale_log2 = scale * LOG2E;
   p.sob = sob; p.soh = soh; p.sot = sot;
   p.sbias = sbias;

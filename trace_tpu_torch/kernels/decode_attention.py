@@ -24,10 +24,18 @@ sources. A launch takes G = 1 ... 8 query rows a kv head at hd 128 (1, 2 or
 takes) into launches of at most that many rows, each on a contiguous copy of
 its rows of q, and writes each launch's rows into the output.
 
+An fp32 query (a model served in fp32) takes the fp32 forms of
+csrc/decode_attention_f32.cu over an fp32 cache or the int8 one: one block
+per (kv head, batch row), fp32 FMA on the CUDA cores, the scores through a
+scratch [B, H, S] the wrapper allocates (see the source); G up to 8 a
+launch, split as above.
+
 On a CUDA tensor the wrapper launches its kernel or raises; the plain
 version runs for CPU tensors, or when the caller passes ``impl="plain"``.
-Launches are counted in ``decode_attention.launches`` (bf16 cache) and
-``decode_attention.launches_int8`` (int8 cache, ``{"s8dot": n, "dequant": n}``).
+Launches are counted in ``decode_attention.launches`` (bf16 cache),
+``decode_attention.launches_int8`` (int8 cache, ``{"s8dot": n, "dequant": n}``),
+and for the fp32 forms in ``decode_attention.launches_f32`` (fp32 cache) and
+``decode_attention.launches_int8_f32``.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from trace_tpu_torch.kernels.build import count_launch
 
 _SOURCE = "decode_attention.cu"
 _SOURCE_INT8 = "decode_attention_int8.cu"
+_SOURCE_F32 = "decode_attention_f32.cu"
 INT8_MODES = ("s8dot", "dequant")
 MAX_GROUP = 8  # query rows a kv head that one launch takes (hd 128)
 
@@ -172,7 +181,9 @@ def _decode_attention_int8(q, cache: dict, bias_row, mode: str, impl: str):
         raise ValueError(f"scales must be [B, NKV, 1, S], got {tuple(ks.shape)}")
     if H % NKV or hd not in (64, 128):
         raise ValueError(f"unsupported heads {H}/{NKV} or head dim {hd}")
-    for name, x, dtype in (("q", q, torch.bfloat16), ("kq", kq, torch.int8),
+    f32 = q.dtype == torch.float32
+    for name, x, dtype in (("q", q, torch.float32 if f32 else torch.bfloat16),
+                           ("kq", kq, torch.int8),
                            ("vq", vq, torch.int8), ("ks", ks, torch.bfloat16),
                            ("vs", vs, torch.bfloat16), ("bias_row", bias_row, torch.float32)):
         if x.dtype != dtype or not x.is_contiguous() or x.device != q.device:
@@ -182,21 +193,22 @@ def _decode_attention_int8(q, cache: dict, bias_row, mode: str, impl: str):
 
     from trace_tpu_torch.kernels.build import check, load
 
-    lib = load(_SOURCE_INT8)
-    fn = getattr(lib, f"decode_attn_int8_{mode}")
+    name = f"decode_attn_int8_f32_{mode}" if f32 else f"decode_attn_int8_{mode}"
+    fn = getattr(load(_SOURCE_F32 if f32 else _SOURCE_INT8), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * (7 + f32) + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
 
     def launch(qp, G):
-        o = torch.empty_like(qp)  # the kernel's only allocation: no workspace
+        o = torch.empty_like(qp)  # bf16: the kernel's only allocation, no workspace
+        scratch = (torch.empty((B, NKV * G, S), dtype=torch.float32, device=q.device),) * f32
         err = fn(
             qp.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-            bias_row.data_ptr(), o.data_ptr(), B, NKV, G, S, hd, float(hd ** -0.5),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            bias_row.data_ptr(), o.data_ptr(), *(t.data_ptr() for t in scratch),
+            B, NKV, G, S, hd, float(hd ** -0.5), torch.cuda.current_stream(q.device).cuda_stream,
         )
-        check(err, f"decode_attn_int8_{mode}")
-        count_launch(decode_attention, "launches_int8", mode)
+        check(err, name)
+        count_launch(decode_attention, "launches_int8_f32" if f32 else "launches_int8", mode)
         return o
 
     return _by_groups(q, NKV, launch)
@@ -226,32 +238,35 @@ def decode_attention(
         raise ValueError(f"shapes q {tuple(q.shape)} cache {tuple(cache_k.shape)}")
     if H % NKV or hd not in (64, 128):
         raise ValueError(f"unsupported heads {H}/{NKV} or head dim {hd}")
+    f32 = q.dtype == torch.float32
+    dtype = torch.float32 if f32 else torch.bfloat16
     for name, x in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
-        if (x.dtype != torch.bfloat16 or not x.is_contiguous() or x.device != q.device
+        if (x.dtype != dtype or not x.is_contiguous() or x.device != q.device
                 or x.data_ptr() % 16):
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned bfloat16 "
-                             f"tensor on {q.device}")
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned {dtype} "
+                             f"tensor on {q.device} (bfloat16 or float32, q's dtype)")
     if (bias_row.shape != (B, S) or bias_row.dtype != torch.float32
             or not bias_row.is_contiguous() or bias_row.device != q.device):
         raise ValueError(f"bias_row must be a contiguous fp32 [B, S] on {q.device}")
 
     from trace_tpu_torch.kernels.build import check, load
 
-    lib = load(_SOURCE)
-    fn = lib.decode_attn_bf16
+    name = "decode_attn_f32" if f32 else "decode_attn_bf16"
+    fn = getattr(load(_SOURCE_F32 if f32 else _SOURCE), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * (5 + f32) + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
 
     def launch(qp, G):
-        o = torch.empty_like(qp)  # the kernel's only allocation: no workspace
+        o = torch.empty_like(qp)  # bf16: the kernel's only allocation, no workspace
+        scratch = (torch.empty((B, NKV * G, S), dtype=torch.float32, device=q.device),) * f32
         err = fn(
             qp.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), bias_row.data_ptr(),
-            o.data_ptr(), B, NKV, G, S, hd, float(hd ** -0.5),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            o.data_ptr(), *(t.data_ptr() for t in scratch), B, NKV, G, S, hd,
+            float(hd ** -0.5), torch.cuda.current_stream(q.device).cuda_stream,
         )
-        check(err, "decode_attn_bf16")
-        count_launch(decode_attention)
+        check(err, name)
+        count_launch(decode_attention, "launches_f32" if f32 else "launches")
         return o
 
     return _by_groups(q, NKV, launch)
@@ -259,3 +274,5 @@ def decode_attention(
 
 decode_attention.launches = 0
 decode_attention.launches_int8 = {mode: 0 for mode in INT8_MODES}
+decode_attention.launches_f32 = 0
+decode_attention.launches_int8_f32 = {mode: 0 for mode in INT8_MODES}

@@ -24,11 +24,22 @@ the keys from both: the plain version's scores of such a row are all the same
 -1e30, so its softmax is uniform; the kernel leaves those rows to a second,
 small launch that writes that mean. The kernel
 reads q, k and v through TMA tensor maps, so the wrapper's operands need
-16-byte aligned pointers and row strides.
+16-byte aligned pointers and row strides (not contiguity: a chunk of a
+chunked prefill attends a layer's cache stripe in place).
+
+With ``q_offset`` (``flash_attention``, causal) query row r sits at position
+``q_offset + r`` of the keys and sees the keys j <= q_offset + r: a chunk of
+a chunked prefill over the cache stripe it was just written into.
+
+fp32 operands take the fp32 form of the same functions, csrc/attention_f32.cu
+(fp32 FMA on the CUDA cores, not TF32: exactness is what an fp32 model is
+served for; bound by operations at the fp32 peak of 67 TFLOP/s), chosen by
+dtype; all operands share q's dtype.
 
 On a CUDA tensor a wrapper launches its kernel or raises; the plain version
 runs for CPU tensors, or when the caller passes ``impl="plain"``. Each
-wrapper counts its launches in ``<wrapper>.launches``.
+wrapper counts its launches in ``<wrapper>.launches`` (bf16) and
+``<wrapper>.launches_f32`` (fp32).
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ from trace_tpu_torch.kernels.build import count_launch
 
 NEG_INF = -1e30
 _SOURCE = "attention.cu"
+_SOURCE_F32 = "attention_f32.cu"
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _use_kernel(x: torch.Tensor, impl: str) -> bool:
@@ -52,9 +65,10 @@ def _use_kernel(x: torch.Tensor, impl: str) -> bool:
     return x.is_cuda
 
 
-def xla_attention(q, k, v, mask_bias=None, *, causal=False):
+def xla_attention(q, k, v, mask_bias=None, *, causal=False, q_offset=0):
     """Plain version of ``flash_attention`` (port of the JAX package's
-    ``xla_attention``): materialises the fp32 scores."""
+    ``xla_attention``): materialises the fp32 scores. Causal, query row r
+    sees the keys j <= q_offset + r."""
     B, H, Tq, hd = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -64,7 +78,7 @@ def xla_attention(q, k, v, mask_bias=None, *, causal=False):
     if mask_bias is not None:
         s = s + mask_bias.float()[:, None, None, None, :]
     if causal:
-        qpos = torch.arange(Tq, device=q.device)[:, None]
+        qpos = torch.arange(Tq, device=q.device)[:, None] + q_offset
         kpos = torch.arange(Tk, device=q.device)[None, :]
         s = torch.where(kpos <= qpos, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1).to(v.dtype)
@@ -72,10 +86,16 @@ def xla_attention(q, k, v, mask_bias=None, *, causal=False):
     return o.reshape(B, H, Tq, hd).to(q.dtype)
 
 
-def _check_operand(name, x, hd):
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got {x.dtype}")
-    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]):
+def _count(fn, x) -> None:
+    """One launch of ``fn``'s kernel in the form for x's dtype."""
+    count_launch(fn, "launches_f32") if x.dtype == torch.float32 else count_launch(fn)
+
+
+def _check_operand(name, x, hd, dtype):
+    if x.dtype != dtype or dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: the CUDA kernels take bfloat16 or float32 operands of "
+                        f"one dtype, got {x.dtype} beside q's {dtype}")
+    if x.stride(-1) != 1 or any(s % (16 // x.element_size()) for s in x.stride()[:-1]):
         raise ValueError(f"{name}: needs unit stride on the last dim and "
                          f"16-byte aligned rows, got strides {x.stride()}")
     if x.data_ptr() % 16:
@@ -85,40 +105,42 @@ def _check_operand(name, x, hd):
 
 
 def _launch(q, k, v, bias, o, *, B, H, group, tq, tk, hd, kv_len, causal,
-            q_strides, k_strides, v_strides, o_strides, bias_stride, lse=None):
-    """One launch of the forward kernel; ``lse`` (fp32 [B, H, Tq], contiguous)
-    also receives each query row's logsumexp."""
+            q_strides, k_strides, v_strides, o_strides, bias_stride, lse=None, q_offset=0):
+    """One launch of the forward kernel in the form for q's dtype; ``lse``
+    (fp32 [B, H, Tq], contiguous) also receives each query row's
+    logsumexp."""
     from trace_tpu_torch.kernels.build import check, load
 
-    lib = load(_SOURCE)
-    fn = lib.attn_fwd_bf16
+    name = "attn_fwd_f32" if q.dtype == torch.float32 else "attn_fwd_bf16"
+    fn = getattr(load(_SOURCE_F32 if q.dtype == torch.float32 else _SOURCE), name)
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float]
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
         + [ctypes.c_longlong] * 13 + [ctypes.c_void_p]
     )
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr() if bias is not None else None, o.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        B, H, group, tq, tk, hd, kv_len, int(causal), float(hd ** -0.5),
+        B, H, group, tq, tk, hd, kv_len, int(causal), int(q_offset), float(hd ** -0.5),
         *q_strides, *k_strides, *v_strides, *o_strides, bias_stride,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    check(err, "attn_fwd_bf16")
+    check(err, name)
 
 
-def _check_causal_operands(q, k, v, mask_bias):
-    """Shapes, types and layout the [B, H, T, hd] kernels take."""
+def _check_causal_operands(q, k, v, mask_bias, *, contiguous: bool = True):
+    """Shapes, types and layout the [B, H, T, hd] kernels take (the forward
+    reads through strides, the backward wants ``contiguous`` operands)."""
     B, H, Tq, hd = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     if k.shape != (B, Hkv, Tk, hd) or v.shape != k.shape or H % Hkv:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not match")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_contiguous():
+        if contiguous and not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        _check_operand(name, x, hd)
+        _check_operand(name, x, hd, q.dtype)
     if mask_bias is not None:
         if (mask_bias.shape != (B, Tk) or mask_bias.dtype != torch.float32
                 or not mask_bias.is_contiguous()):
@@ -132,28 +154,34 @@ def flash_attention(
     mask_bias: Optional[torch.Tensor] = None,  # [B, Tk] fp32 additive
     causal: bool = False,
     *,
+    q_offset: int = 0,
     impl: str = "auto",
 ) -> torch.Tensor:
     """Attention with the scores kept on chip. Returns [B, H, Tq, hd] in q's
-    dtype. GQA: query head h reads kv head h // (H // Hkv)."""
+    dtype. GQA: query head h reads kv head h // (H // Hkv). Causal, query
+    row r sees the keys j <= ``q_offset`` + r. q, k and v need unit stride on
+    hd and 16-byte aligned rows, not contiguity."""
     if not _use_kernel(q, impl):
-        return xla_attention(q, k, v, mask_bias, causal=causal)
-    _check_causal_operands(q, k, v, mask_bias)
+        return xla_attention(q, k, v, mask_bias, causal=causal, q_offset=q_offset)
+    _check_causal_operands(q, k, v, mask_bias, contiguous=False)
+    if q_offset < 0 or (q_offset and not causal):
+        raise ValueError(f"q_offset={q_offset}: a causal offset >= 0")
     B, H, Tq, hd = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
-    o = torch.empty_like(q)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(
         q, k, v, mask_bias, o, B=B, H=H, group=H // Hkv, tq=Tq, tk=Tk, hd=hd,
         kv_len=Tk, causal=causal,
         q_strides=q.stride()[:3], k_strides=k.stride()[:3],
         v_strides=v.stride()[:3], o_strides=o.stride()[:3],
-        bias_stride=Tk,
+        bias_stride=Tk, q_offset=q_offset,
     )
-    count_launch(flash_attention)
+    _count(flash_attention, q)
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_f32 = 0
 
 
 def vit_attention_btd_reference(q, k, v, *, tq, num_heads):
@@ -191,7 +219,7 @@ def vit_attention_btd(
         raise ValueError("k and v must share strides")
     hd = D // num_heads
     for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, x, hd)
+        _check_operand(name, x, hd, q.dtype)
     if not 0 < tq <= P:
         raise ValueError(f"tq={tq} outside (0, {P}]")
     o = torch.empty((B, P, D), dtype=q.dtype, device=q.device)
@@ -205,11 +233,12 @@ def vit_attention_btd(
         q_strides=bht(q), k_strides=bht(k), v_strides=bht(v),
         o_strides=bht(o), bias_stride=0,
     )
-    count_launch(vit_attention_btd)
+    _count(vit_attention_btd, q)
     return o
 
 
 vit_attention_btd.launches = 0
+vit_attention_btd.launches_f32 = 0
 
 
 class _FlashAttentionTrainable(torch.autograd.Function):

@@ -36,6 +36,11 @@ See csrc/attention_bwd.cu for what sets their pace.
 On a CUDA tensor a wrapper launches its kernel or raises; the plain version
 runs for CPU tensors, or when the caller passes ``impl="plain"``.
 
+fp32 operands take the fp32 forms (fp32 FMA on the CUDA cores, not TF32):
+the forward of csrc/attention_f32.cu and the three launches of
+csrc/attention_bwd_f32.cu, chosen by dtype and counted in
+``<wrapper>.launches_f32``.
+
 A query row that sees no key (left padding under the causal mask) has
 ``lse = -1e30``; its ``p`` is 1 on every key the backward visits. The plain
 version visits all keys, the kernels skip causally masked tiles, so the two
@@ -50,15 +55,16 @@ from typing import Optional
 
 import torch
 
-from trace_tpu_torch.kernels.build import count_launch
 from trace_tpu_torch.kernels.flash_attention import (
     NEG_INF,
     _check_causal_operands,
+    _count,
     _launch,
     _use_kernel,
 )
 
 _SOURCE = "attention_bwd.cu"
+_SOURCE_F32 = "attention_bwd_f32.cu"
 
 
 def _scores(q, k, mask_bias, causal):
@@ -103,10 +109,10 @@ def flash_attention_fwd_res(
     lse [B, H, Tq, 1] fp32, the residuals ``flash_attention_bwd`` needs."""
     if not _use_kernel(q, impl):
         return flash_attention_fwd_res_plain(q, k, v, mask_bias, causal=causal)
-    _check_causal_operands(q, k, v, mask_bias)
+    _check_causal_operands(q, k, v, mask_bias, contiguous=False)
     B, H, Tq, hd = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
-    o = torch.empty_like(q)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq, 1), dtype=torch.float32, device=q.device)
     _launch(
         q, k, v, mask_bias, o, B=B, H=H, group=H // Hkv, tq=Tq, tk=Tk, hd=hd,
@@ -115,23 +121,28 @@ def flash_attention_fwd_res(
         v_strides=v.stride()[:3], o_strides=o.stride()[:3],
         bias_stride=Tk, lse=lse,
     )
-    count_launch(flash_attention_fwd_res)
+    _count(flash_attention_fwd_res, q)
     return o, lse
 
 
 flash_attention_fwd_res.launches = 0
+flash_attention_fwd_res.launches_f32 = 0
 
 
-def _lib():
+def _entry(x, name: str):
+    """The C entry ``name`` in the form for x's dtype: ``{name}_bf16`` of
+    attention_bwd.cu or ``{name}_f32`` of attention_bwd_f32.cu."""
     from trace_tpu_torch.kernels.build import load
 
-    return load(_SOURCE)
+    f32 = x.dtype == torch.float32
+    full = f"{name}_{'f32' if f32 else 'bf16'}"
+    return getattr(load(_SOURCE_F32 if f32 else _SOURCE), full), full
 
 
 def _check_bwd_operands(q, k, v, mask_bias, do, lse, delta):
     _check_causal_operands(q, k, v, mask_bias)
-    if do.dtype != torch.bfloat16:
-        raise TypeError(f"do: the CUDA kernel takes bfloat16, got {do.dtype}")
+    if do.dtype != q.dtype:
+        raise TypeError(f"do: the CUDA kernels take do in q's dtype {q.dtype}, got {do.dtype}")
     if do.shape != q.shape or not do.is_contiguous():
         raise ValueError("do must be a contiguous tensor of q's shape")
     if do.data_ptr() % 16:
@@ -149,22 +160,24 @@ def flash_attention_bwd_delta(o, do, *, impl: str = "auto"):
     from trace_tpu_torch.kernels.build import check
 
     for name, x in (("o", o), ("do", do)):
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got {x.dtype}")
+        if x.dtype not in (torch.bfloat16, torch.float32) or x.dtype != o.dtype:
+            raise TypeError(f"{name}: the CUDA kernels take bfloat16 or float32 o and do "
+                            f"of one dtype, got {x.dtype}")
         if not x.is_contiguous() or x.shape != o.shape:
             raise ValueError(f"{name} must be contiguous and of o's shape")
     hd = o.shape[-1]
     delta = torch.empty(o.shape[:-1] + (1,), dtype=torch.float32, device=o.device)
-    fn = _lib().attn_bwd_delta_bf16
+    fn, name = _entry(o, "attn_bwd_delta")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     check(fn(o.data_ptr(), do.data_ptr(), delta.data_ptr(), delta.numel(), hd,
-             torch.cuda.current_stream(o.device).cuda_stream), "attn_bwd_delta_bf16")
-    count_launch(flash_attention_bwd_delta)
+             torch.cuda.current_stream(o.device).cuda_stream), name)
+    _count(flash_attention_bwd_delta, o)
     return delta
 
 
 flash_attention_bwd_delta.launches = 0
+flash_attention_bwd_delta.launches_f32 = 0
 
 
 def _p_and_ds(q, k, v, mask_bias, do, lse, delta, causal):
@@ -221,15 +234,16 @@ def flash_attention_bwd_dq(q, k, v, mask_bias, do, lse, delta, *, causal=False,
 
     _check_bwd_operands(q, k, v, mask_bias, do, lse, delta)
     dq = torch.empty_like(q)
-    fn = _lib().attn_bwd_dq_bf16
+    fn, name = _entry(q, "attn_bwd_dq")
     fn.restype = ctypes.c_int
     fn.argtypes, args = _bwd_args(q, k, v, mask_bias, do, lse, delta, (dq,), causal)
-    check(fn(*args), "attn_bwd_dq_bf16")
-    count_launch(flash_attention_bwd_dq)
+    check(fn(*args), name)
+    _count(flash_attention_bwd_dq, q)
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_f32 = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, mask_bias, do, lse, delta, *, causal=False,
@@ -243,15 +257,16 @@ def flash_attention_bwd_dkv(q, k, v, mask_bias, do, lse, delta, *, causal=False,
 
     _check_bwd_operands(q, k, v, mask_bias, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _lib().attn_bwd_dkv_bf16
+    fn, name = _entry(q, "attn_bwd_dkv")
     fn.restype = ctypes.c_int
     fn.argtypes, args = _bwd_args(q, k, v, mask_bias, do, lse, delta, (dk, dv), causal)
-    check(fn(*args), "attn_bwd_dkv_bf16")
-    count_launch(flash_attention_bwd_dkv)
+    check(fn(*args), name)
+    _count(flash_attention_bwd_dkv, q)
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches_f32 = 0
 
 
 def flash_attention_bwd(q, k, v, mask_bias, o, lse, do, *, causal=False,

@@ -29,6 +29,14 @@ Every wrapper makes one launch that allocates only its output: the split-K
 forms reduce over K inside a cluster of blocks (``split_plan``), so a call
 can be captured in a CUDA graph.
 
+fp32 x (a model served in fp32) takes the fp32 forms of every entry,
+csrc/quant_matmul_f32.cu: fp32 FMA on the CUDA cores (every weight is exact
+in fp32, so only the order of the sums differs from the plain version), a
+split-K form up to 8 rows of x with a workspace of partial sums and a
+second launch that adds them in order (``f32_splits``), and a tiled form
+beyond. Their launches are counted in ``<wrapper>.launches_f32`` and by form
+in ``launches_f32_by_form`` (``"splitk"``, ``"tiled"``).
+
 The W8A8 product (``quantize_acts`` + ``quant_apply_w8a8``: prefill and ViT
 projections) is a plain s8 x s8 -> s32 matrix product, which the JAX package
 leaves to XLA outside any Pallas kernel; here it is ``torch._int_mm`` on the
@@ -50,6 +58,12 @@ from trace_tpu_torch.model.quantize import unpack4
 
 _SOURCE = "quant_matmul.cu"
 _SOURCE_P4 = "quant_matmul_p4.cu"
+_SOURCE_F32 = "quant_matmul_f32.cu"
+# the fp32 forms: their entry's form codes, the split-K form's columns a
+# block and the blocks it aims for (about two waves of the card's 132 SMs)
+_F32_FORMS = {"i8": 0, "p4": 1, "p4g": 2}
+F32_SPLIT_COLS = 256
+F32_SPLIT_BLOCKS = 264
 # the split form's launch (csrc/qmm_split.cuh: STRIP, MT, MAX_CLUSTER,
 # Layout<F, MT>::SMEM); a rank takes at least one stage of rows. Forms: "i8"
 # (int8, tiles of SPLIT_ROWS rows of x), "i8w" (int8, the wide tile of
@@ -241,6 +255,52 @@ def _count(fn, form: str) -> None:
     count_launch(fn, "launches_by_form", form)
 
 
+def f32_splits(M: int, rows: int, N: int) -> tuple:
+    """(splits, chunk) of the fp32 split-K form over ``rows`` stored weight
+    rows: enough splits of K that the grid holds about F32_SPLIT_BLOCKS
+    blocks, each split at least 64 rows; (1, rows) for the tiled form
+    (M > SPLIT_ROWS), which reads neither."""
+    if M > SPLIT_ROWS:
+        return 1, rows
+    strips = -(-N // F32_SPLIT_COLS)
+    splits = max(1, min(-(-F32_SPLIT_BLOCKS // strips), -(-rows // 64)))
+    chunk = -(-rows // splits)
+    return -(-rows // chunk), chunk
+
+
+def _launch_f32(fn, kind: str, x, w, s, M, K, N, out_dtype, groups: int = 1):
+    """One call of the fp32 form ``kind`` ("i8", "p4", "p4g") on the layer's
+    weight ``w`` and scale ``s`` (views, read in place); counted on ``fn``."""
+    from trace_tpu_torch.kernels.build import check, load
+
+    if x.dtype != torch.float32 or s.dtype != torch.bfloat16 or w.dtype != torch.int8:
+        raise TypeError(f"{fn.__name__}: the fp32 form wants fp32 x, an int8 weight and a "
+                        f"bf16 scale, got {x.dtype}, {w.dtype}, {s.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{fn.__name__}: out_dtype must be bf16 or fp32, got {out_dtype}")
+    for name, t in (("x", x), ("weight", w), ("scale", s)):
+        if not t.is_cuda or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{fn.__name__}: {name} must be contiguous on {x.device}")
+    entry = _ENTRIES.get("quant_matmul_f32")
+    if entry is None:
+        entry = load(_SOURCE_F32).quant_matmul_f32
+        entry.restype = ctypes.c_int
+        entry.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        _ENTRIES["quant_matmul_f32"] = entry
+    splits, chunk = f32_splits(M, K if kind == "i8" else K // 2, N)
+    y = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+          if M <= SPLIT_ROWS else None)
+    err = entry(x.data_ptr(), w.data_ptr(), s.data_ptr(), ws.data_ptr() if ws is not None else None,
+                y.data_ptr(), M, K, N, _F32_FORMS[kind], groups, splits, chunk,
+                int(out_dtype == torch.float32), torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "quant_matmul_f32")
+    form = "splitk" if M <= SPLIT_ROWS else "tiled"
+    count_launch(fn, "launches_f32")
+    count_launch(fn, "launches_f32_by_form", form)
+    return y
+
+
 def quant_matmul(
     x: torch.Tensor,   # [M, K]
     q: torch.Tensor,   # [K, N] int8
@@ -257,6 +317,8 @@ def quant_matmul(
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_plain(x, q, s, out_dtype)
     N = q.shape[1]
+    if x.dtype == torch.float32:
+        return _launch_f32(quant_matmul, "i8", x, q, s.reshape(-1), M, K, N, out_dtype or x.dtype)
     form = int8_split_form(M)
     y = _launch(_SOURCE, _I8_ENTRY[form][0], x, q, s.reshape(-1), (), M, K, N,
                 out_dtype or x.dtype, _plan(form, M, K, N, x.device))
@@ -266,6 +328,8 @@ def quant_matmul(
 
 quant_matmul.launches = 0
 quant_matmul.launches_by_form = {"splitk": 0, "wide": 0}
+quant_matmul.launches_f32 = 0
+quant_matmul.launches_f32_by_form = {"splitk": 0, "tiled": 0}
 
 
 def quant_matmul_stacked(
@@ -290,6 +354,9 @@ def quant_matmul_stacked(
     s = s.reshape(L, N)
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_plain(x, q[li], s[li], out_dtype)
+    if x.dtype == torch.float32:
+        return _launch_f32(quant_matmul_stacked, "i8", x, q[li], s[li], M, K, N,
+                           out_dtype or x.dtype)
     form = int8_split_form(M)
     y = _launch(_SOURCE, _I8_ENTRY[form][1], x, q, s, (int(li), L), M, K, N,
                 out_dtype or x.dtype, _plan(form, M, K, N, x.device))
@@ -299,6 +366,8 @@ def quant_matmul_stacked(
 
 quant_matmul_stacked.launches = 0
 quant_matmul_stacked.launches_by_form = {"splitk": 0, "wide": 0}
+quant_matmul_stacked.launches_f32 = 0
+quant_matmul_stacked.launches_f32_by_form = {"splitk": 0, "tiled": 0}
 
 
 def quant_matmul_p4_plain(x, qp, s, out_dtype=None):
@@ -358,6 +427,9 @@ def quant_matmul_p4(
         raise ValueError(f"shapes qp {tuple(qp.shape)} s {tuple(s.shape)}")
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_p4_plain(x, qp, s, out_dtype)
+    if x.dtype == torch.float32:
+        return _launch_f32(quant_matmul_p4, "p4", x, qp, s.reshape(-1), x.shape[0],
+                           x.shape[1], N, out_dtype or x.dtype)
     y, form = _launch_p4("quant_matmul_p4_bf16", x, qp, s.reshape(-1), (),
                          x.shape[0], x.shape[1], N, out_dtype or x.dtype, False)
     _count(quant_matmul_p4, form)
@@ -385,6 +457,9 @@ def quant_matmul_p4_stacked(
     s = s.reshape(L, N)
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_p4_plain(x, qp[li], s[li], out_dtype)
+    if x.dtype == torch.float32:
+        return _launch_f32(quant_matmul_p4, "p4", x, qp[li], s[li], x.shape[0], x.shape[1],
+                           N, out_dtype or x.dtype)
     y, form = _launch_p4("quant_matmul_p4_stacked_bf16", x, qp, s, (int(li), L),
                          x.shape[0], x.shape[1], N, out_dtype or x.dtype, False)
     _count(quant_matmul_p4, form)
@@ -393,6 +468,8 @@ def quant_matmul_p4_stacked(
 
 quant_matmul_p4.launches = 0
 quant_matmul_p4.launches_by_form = {"splitk": 0, "mma": 0}
+quant_matmul_p4.launches_f32 = 0
+quant_matmul_p4.launches_f32_by_form = {"splitk": 0, "tiled": 0}
 
 
 def quant_matmul_p4_grouped(
@@ -413,6 +490,9 @@ def quant_matmul_p4_grouped(
     _check_groups(K, s.shape[0])
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_p4_grouped_plain(x, qp, s, out_dtype)
+    if x.dtype == torch.float32:  # any even number of groups dividing K
+        return _launch_f32(quant_matmul_p4_grouped, "p4g", x, qp, s, x.shape[0], K, N,
+                           out_dtype or x.dtype, groups=s.shape[0])
     if s.shape[0] * 128 != K:
         raise ValueError(f"the kernel wants groups of 128 rows, got G={s.shape[0]} for K={K}")
     y, form = _launch_p4("quant_matmul_p4_grouped_bf16", x, qp, s, (),
@@ -442,6 +522,9 @@ def quant_matmul_p4_grouped_stacked(
         raise IndexError(f"layer {li} of {L}")
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_p4_grouped_plain(x, qp[li], s[li], out_dtype)
+    if x.dtype == torch.float32:
+        return _launch_f32(quant_matmul_p4_grouped, "p4g", x, qp[li], s[li], x.shape[0], K, N,
+                           out_dtype or x.dtype, groups=s.shape[1])
     if s.shape[1] * 128 != K:
         raise ValueError(f"the kernel wants groups of 128 rows, got G={s.shape[1]} for K={K}")
     y, form = _launch_p4("quant_matmul_p4_grouped_stacked_bf16", x, qp, s, (int(li), L),
@@ -452,6 +535,8 @@ def quant_matmul_p4_grouped_stacked(
 
 quant_matmul_p4_grouped.launches = 0
 quant_matmul_p4_grouped.launches_by_form = {"splitk": 0, "mma": 0}
+quant_matmul_p4_grouped.launches_f32 = 0
+quant_matmul_p4_grouped.launches_f32_by_form = {"splitk": 0, "tiled": 0}
 
 
 def quant_apply_stacked(x, leaf: dict, li: int, out_shape: tuple, *,

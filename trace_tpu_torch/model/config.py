@@ -52,6 +52,10 @@ class DecoderConfig:
     # and probabilities quantized, s8 x s8 products; the JAX package's
     # default) or 'dequant' (K/V widened to bf16; its TRACE_TPU_DECODE_ATTN_S8=0)
     decode_attn_int8: str = "s8dot"
+    # the packed per-channel int4 leaves hold the JAX package's native int4
+    # tree (quant="int4", model/quantize.py int4_serving), which shards under
+    # tensor parallelism; other packed trees are int4p, single-device only
+    native_int4: bool = False
     # LoRA adapters (model/lora.py): rank (0 = none) and alpha
     lora_r: int = 0
     lora_alpha: float = 16.0

@@ -20,11 +20,14 @@ into its stripe first, then attends (the JAX package threads an immutable
 cache through a scan carry).
 
 Attention always goes through a kernel wrapper: a T=1 step with a cache
-through ``decode_attention`` over the layer's stripe, anything else (the
-cache-less forward, prefill into an empty cache) through
-``flash_attention`` over the chunk, or with ``trainable`` through
-``flash_attention_trainable``, whose backward is a pair of kernels too. Each
-wrapper takes its plain version for CPU tensors or ``impl="plain"``.
+through ``decode_attention`` over the layer's stripe, a chunk of a chunked
+prefill (T > 1 at ``cache_index`` > 0) through ``flash_attention`` over the
+stripe with the chunk's query offset, anything else (the cache-less
+forward, prefill into an empty cache) through ``flash_attention`` over the
+chunk, or with ``trainable`` through ``flash_attention_trainable``, whose
+backward is a pair of kernels too. Each wrapper takes its plain version for
+CPU tensors or ``impl="plain"``; a chunk's plain route is the JAX package's
+einsum over the S slots (``_attend_chunk``).
 
 Training reads the same stacked leaves. A leaf that requires a gradient is
 sliced through ``layer_slice``, whose backward adds the layer's gradient into
@@ -55,7 +58,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from trace_tpu_torch.kernels.decode_attention import decode_attention
+from trace_tpu_torch.kernels.decode_attention import decode_attention, grouped_attention
 from trace_tpu_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_trainable,
@@ -177,12 +180,49 @@ def _project(h, layers: dict, name: str, li: int, out_shape: tuple, *,
                             out_shape, out_dtype=out_dtype, impl=impl)
 
 
+def _attend_chunk(q, stripe, chunk_vis, cache_index: int, impl: str) -> torch.Tensor:
+    """A chunk of a chunked prefill: q [B, NH, T, hd] at slots ``cache_index``
+    ... + T - 1 over the layer's stripe, into which its k / v are written.
+    The JAX package's einsum path (trace_tpu/model/mistral.py, the cache
+    branch of ``decoder_forward``): query i sees the slots valid before the
+    call (``old``, the cache mask) and the chunk's real slots up to its own,
+    ``new`` marking them: ``chunk_vis`` = (old, new), each [B, S] bool. An
+    int8 stripe is dequantized first, each value times its slot's scale
+    (exact in fp32) cast once to q's dtype, as the JAX package's compiled
+    path computes ``kq.astype(bf16) * ks`` followed by the cast. On the card
+    (``impl="auto"``) ``flash_attention`` over the whole stripe, read in
+    place, with query offset ``cache_index`` and the bias row of
+    ``old | new``, which gives the same wherever ``old`` marks no slot at or
+    past ``cache_index`` (slots the chunk writes or no call has written
+    yet); its plain route is the JAX expression itself."""
+    if isinstance(stripe, dict):
+        k_all = stripe["kq"].float() * stripe["ks"].transpose(-1, -2).float()
+        v_all = stripe["vq"].float() * stripe["vs"].transpose(-1, -2).float()
+    else:
+        k_all, v_all = stripe
+    k_all, v_all = k_all.to(q.dtype), v_all.to(q.dtype)
+    old, new = chunk_vis
+    dev, T, S = q.device, q.shape[2], k_all.shape[2]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    if q.is_cuda and impl == "auto":
+        bias_row = torch.where(old | new, zero, neg).contiguous()
+        return flash_attention(q.contiguous(), k_all, v_all, bias_row, True,
+                               q_offset=cache_index, impl=impl)
+    slot = torch.arange(S, device=dev)
+    upto = cache_index + torch.arange(T, device=dev)[:, None]  # [T, 1]
+    in_chunk = (slot >= cache_index) & (slot <= upto)          # [T, S]
+    vis = old[:, None, :] | (in_chunk[None] & new[:, None, :])  # [B, T, S]
+    return grouped_attention(q, k_all, v_all, torch.where(vis, zero, neg)[:, None])
+
+
 def _attend(q, k, v, li: int, *, config: DecoderConfig, flash_bias, decode_bias, cache,
-            cache_index: int, impl: str, trainable: bool) -> torch.Tensor:
+            cache_index: int, impl: str, trainable: bool, chunk_vis=None) -> torch.Tensor:
     """q [B, NH, T, hd], k / v [B, NKV, T, hd] after RoPE: the chunk's k / v
     written into layer ``li``'s stripe of ``cache`` at ``cache_index`` (where
     there is a cache), then the step's attention over the stripe
-    (``decode_bias``) or the chunk's causal attention over itself
+    (``decode_bias``), a chunk's of a chunked prefill over it (``chunk_vis``,
+    ``_attend_chunk``) or the chunk's causal attention over itself
     (``flash_bias``). Returns [B, NH, T, hd]."""
     T = q.shape[2]
     stripe = None
@@ -196,6 +236,8 @@ def _attend(q, k, v, li: int, *, config: DecoderConfig, flash_bias, decode_bias,
         stripe[0][:, :, cache_index:cache_index + T] = k.to(stripe[0].dtype)
         stripe[1][:, :, cache_index:cache_index + T] = v.to(stripe[1].dtype)
 
+    if chunk_vis is not None:
+        return _attend_chunk(q, stripe, chunk_vis, cache_index, impl)
     if decode_bias is not None:
         if isinstance(stripe, dict):
             return decode_attention(q.contiguous(), stripe, None, decode_bias,
@@ -375,13 +417,15 @@ def _layer(
     impl: str = "auto",
     trainable: bool = False,
     group=None,
+    chunk_vis=None,
 ) -> torch.Tensor:
     """Decoder block ``li`` of the stacked tree ``layers``. ``cache`` is the
     whole cache; the block writes its chunk's k/v into its stripe in place
     at ``cache_index`` (quantized per slot for the int8 cache). With
-    ``decode_bias`` ([B, S]) the step attends over the stripe, else the
-    chunk attends causally to itself under ``flash_bias`` ([B, T]), with
-    ``trainable`` through the differentiable wrapper.
+    ``decode_bias`` ([B, S]) the step attends over the stripe, with
+    ``chunk_vis`` a chunk of a chunked prefill over it (``_attend_chunk``),
+    else the chunk attends causally to itself under ``flash_bias`` ([B, T]),
+    with ``trainable`` through the differentiable wrapper.
 
     Routing of a quantized tree, as the JAX package's defaults, decided on
     the q (or fused qkv) leaf: a chunk of more than one token with
@@ -438,7 +482,8 @@ def _layer(
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = _attend(q, k, v, li, config=config, flash_bias=flash_bias, decode_bias=decode_bias,
-                   cache=cache, cache_index=cache_index, impl=impl, trainable=trainable)
+                   cache=cache, cache_index=cache_index, impl=impl, trainable=trainable,
+                   chunk_vis=chunk_vis)
     attn_flat = attn.transpose(1, 2).reshape(B, T, nh * HD)
     x = x + _row(attn_flat, qc, layers, "wo", li, NQ, D, w8a8=w8a8, out_dtype=x.dtype, **kw)
 
@@ -486,10 +531,13 @@ def decoder_forward(
     (forward and backward kernels); ``remat`` runs each layer under a
     non-reentrant checkpoint, so only its input is kept for the backward.
     With a cache, keys/values are written at ``cache_index``; a T=1 step then attends over the static cache, masked by ``cache_mask``
-    (slots valid before this call) plus its own slot. A T > 1 chunk with a
-    cache is prefill into an empty cache (``cache_index`` 0, ``cache_mask``
-    not read), as the JAX package's flash path assumes; chunked prefill
-    after earlier slots has no kernel and raises. The layer weights may be
+    (slots valid before this call) plus its own slot. A T > 1 chunk at
+    ``cache_index`` 0 is prefill into an empty cache (``cache_mask`` not
+    read), as the JAX package's flash path assumes; at ``cache_index`` > 0 it
+    is a chunk of a chunked prefill, which attends as the JAX package's
+    einsum path does: query i sees the slots of ``cache_mask`` and the
+    chunk's real slots up to its own (``_attend_chunk``; the JAX package's
+    flash path would drop the earlier slots). The layer weights may be
     dense, int8 ``{'q', 's'}`` or packed int4 ``{'qp', 's'}`` leaves, per
     weight or in the fused serving layout; the
     cache the (k, v) pair or the int8 dict of ``init_kv_cache``. With
@@ -504,17 +552,21 @@ def decoder_forward(
 
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
-    flash_bias = decode_bias = None
+    flash_bias = decode_bias = chunk_vis = None
+    S = None if cache is None else (cache["kq"] if isinstance(cache, dict) else cache[0]).shape[3]
     if cache is not None and T == 1:
-        S = (cache["kq"] if isinstance(cache, dict) else cache[0]).shape[3]
         vis = (torch.arange(S, device=dev) == cache_index)[None] & attn_mask.bool()
         if cache_mask is not None:
             vis = vis | cache_mask
         decode_bias = torch.where(vis, zero, neg).contiguous()
     elif cache is not None and cache_index != 0:
-        raise NotImplementedError(
-            "chunked prefill (T > 1 at cache_index > 0) is not ported: no "
-            "kernel attends a chunk over earlier cache slots")
+        if cache_index + T > S:
+            raise ValueError(f"a chunk of {T} at slot {cache_index} passes the cache's {S}")
+        new = torch.zeros((B, S), dtype=torch.bool, device=dev)
+        new[:, cache_index:cache_index + T] = attn_mask.bool()
+        old = (cache_mask.bool() if cache_mask is not None
+               else torch.zeros((B, S), dtype=torch.bool, device=dev))
+        chunk_vis = (old, new)
     else:
         flash_bias = torch.where(attn_mask.bool(), zero, neg).contiguous()
 
@@ -526,6 +578,7 @@ def decoder_forward(
             _layer, layers=layers, li=li, config=config, cos=cos, sin=sin,
             flash_bias=flash_bias, decode_bias=decode_bias,
             cache=cache, cache_index=cache_index, impl=impl, trainable=trainable, group=group,
+            chunk_vis=chunk_vis,
         )
         if remat and torch.is_grad_enabled():
             x = checkpoint(layer, x, use_reentrant=False)

@@ -347,13 +347,16 @@ def int4_serving(params: dict, config: TraceConfig) -> tuple[dict, TraceConfig]:
     and the ViT as it is. Torch has no int4 dtype: the values are
     nibble-packed per channel (``pack=True, group=0``, the same values as
     ``bits=4, pack=False``) and fused, so the card holds half of int8's
-    decoder bytes, as ``jnp.int4`` does in TPU HBM."""
+    decoder bytes, as ``jnp.int4`` does in TPU HBM. The config's
+    ``native_int4`` marks the tree as this one, which shards under tensor
+    parallelism (``runtime/mesh.py``, ``generate_sharded``); an int4p tree
+    does not, as in the JAX package."""
     decoder = quantize_decoder_params(params["decoder"], bits=4, pack=True, group=0)
-    return _serving(params, config, decoder, vision=False, act_quant=False)
+    return _serving(params, config, decoder, vision=False, act_quant=False, native_int4=True)
 
 
 def _serving(params: dict, config: TraceConfig, decoder: dict, vision: bool,
-             act_quant: bool = True):
+             act_quant: bool = True, native_int4: bool = False):
     params = dict(params)
     params["decoder"] = fuse_decoder_serving(decoder)
     if vision:
@@ -361,7 +364,7 @@ def _serving(params: dict, config: TraceConfig, decoder: dict, vision: bool,
     config = dataclasses.replace(
         config,
         decoder=dataclasses.replace(config.decoder, kv_cache_dtype="int8",
-                                    act_quant=act_quant),
+                                    act_quant=act_quant, native_int4=native_int4),
         vision=dataclasses.replace(config.vision, act_quant=vision),
     )
     return params, config

@@ -557,14 +557,20 @@ def generate_sharded(
 
     The JAX package turns its Pallas kernels off here, because GSPMD cannot
     partition a custom call; each rank here runs the hand-written kernels at
-    its local shapes. An int4p (nibble-packed) tree raises ``ValueError``, as
-    there: it is a single-device serving format."""
+    its local shapes. The native int4 tree (``int4_serving``, marked by
+    ``config.native_int4``) runs on each rank's per-channel packed shards,
+    packed on the rank by ``shard_params_for_inference``, through the packed
+    product kernel at the local shapes. Any other packed tree (int4p)
+    raises ``ValueError`` with the JAX package's text, which names the
+    formats that shard (int8, int4): it is a single-device serving
+    format."""
     import torch.distributed as dist
 
-    from trace_tpu_torch.model.quantize import is_packed4
+    from trace_tpu_torch.model.quantize import is_packed4, packed4_groups
     from trace_tpu_torch.parallel.collectives import all_reduce, gather
 
-    if any(is_packed4(l) for l in params.get("layers", {}).values()):
+    if any(is_packed4(l) and (not config.native_int4 or packed4_groups(l) > 1)
+           for l in params.get("layers", {}).values()):
         raise ValueError(
             "int4p (nibble-packed) weights are single-chip only; use "
             "quant='int8' or 'int4' for sharded generation"

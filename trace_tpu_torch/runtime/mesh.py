@@ -26,7 +26,15 @@ Two placements differ from the JAX package's by design:
 * a fused serving tree (``wqkv`` / ``w_gateup``) is split into its
   canonical leaves before it is placed, by ``shard_params`` as by
   ``shard_params_for_inference``; the JAX rules would shard the fused
-  output dim across the q|k|v boundaries.
+  output dim across the q|k|v boundaries;
+* a per-channel nibble-packed layer leaf (the native int4 tree of
+  ``int4_serving``) is unpacked to its int4 values, one an int8, placed by
+  the rules of an int8 leaf (the JAX package places its ``jnp.int4``
+  leaves so), and packed again on each rank from its own shard: a byte
+  pairs rows k and k + K / 2 of the weight it holds, so a row-parallel
+  shard (``wo``, ``w_down``) is packed within its local K, never cut out of
+  a globally packed array. Group-scaled packed leaves (int4p) are placed
+  as they are; ``generate_sharded`` refuses them.
 """
 
 from __future__ import annotations
@@ -238,6 +246,39 @@ def _unfused(params: dict) -> dict:
     return params
 
 
+def _channel_int4(params: dict) -> tuple:
+    """(tree, names): the per-channel packed decoder layer leaves of an
+    unfused ``params`` (the whole tree or the decoder) as ``{"q": [L, K, N]
+    int4 values in int8, "s"}``, and their names, to pack again once placed
+    (``_repack_int4``)."""
+    from trace_tpu_torch.model.quantize import is_packed4, packed4_groups, unpack4
+
+    dec = params.get("decoder", params)
+    layers = dec.get("layers", {})
+    names = [n for n, leaf in layers.items() if is_packed4(leaf) and packed4_groups(leaf) == 1]
+    if not names:
+        return params, ()
+    layers = dict(layers)
+    for n in names:
+        layers[n] = {"q": unpack4(layers[n]["qp"]), "s": layers[n]["s"]}
+    dec = {**dec, "layers": layers}
+    return ({**params, "decoder": dec} if "decoder" in params else dec), tuple(names)
+
+
+def _repack_int4(params: dict, names: tuple) -> dict:
+    """``_channel_int4``'s leaves, placed, packed again on this rank."""
+    from trace_tpu_torch.model.quantize import pack4
+
+    if not names:
+        return params
+    dec = params.get("decoder", params)
+    layers = dict(dec["layers"])
+    for n in names:
+        layers[n] = {"qp": pack4(layers[n]["q"]), "s": layers[n]["s"]}
+    dec = {**dec, "layers": layers}
+    return {**params, "decoder": dec} if "decoder" in params else dec
+
+
 def _place(params: dict, mesh: Mesh, spec_of) -> dict:
     def place(path, leaf):
         if not torch.is_tensor(leaf):
@@ -253,8 +294,9 @@ def shard_params(params: dict, mesh: Mesh) -> dict:
     """A training tree on the mesh: each rank keeps its slice of every
     decoder leaf the rules shard; the vision tower, the connector and the
     towers stay whole on every rank (see the module's note)."""
-    return _place(_unfused(params), mesh, lambda path, leaf: (
-        param_spec(path, leaf, mesh) if path.startswith("decoder") else ()))
+    params, packed = _channel_int4(_unfused(params))
+    return _repack_int4(_place(params, mesh, lambda path, leaf: (
+        param_spec(path, leaf, mesh) if path.startswith("decoder") else ())), packed)
 
 
 def inference_param_shardings(params: dict, mesh: Mesh):
@@ -274,10 +316,12 @@ def shard_params_for_inference(params: dict, mesh: Mesh) -> dict:
     """Serving params on the mesh (decoder TP). A fused serving tree (wqkv /
     w_gateup) is split back to canonical leaves first, as in the JAX
     package: the fused single-device layout and the TP layout exclude each
-    other (``model/quantize.py unfuse_decoder_serving``)."""
-    params = _unfused(params)
+    other (``model/quantize.py unfuse_decoder_serving``). Per-channel packed
+    int4 leaves are placed as their int4 values and packed again on each
+    rank (see the module's note)."""
+    params, packed = _channel_int4(_unfused(params))
     specs = dict(_leaves(inference_param_shardings(params, mesh)))
-    return _place(params, mesh, lambda path, leaf: specs[path])
+    return _repack_int4(_place(params, mesh, lambda path, leaf: specs[path]), packed)
 
 
 _BATCH_RULES: dict = {
