@@ -27,7 +27,9 @@ Phases, in order; any failure exits non-zero:
      H100 SXM data-sheet rates); beside the backward, informational, SDPA's
      flash backend on the same q / k / v with is_causal and no bias. Then
      the fp32 form of every row (``*_f32``, csrc/*_f32.cu, fp32 FMA on the
-     CUDA cores) at the same shapes in fp32 (the decode rows also at
+     CUDA cores; the weight products past 8 rows of x two TF32 products on
+     the tensor cores, bound against 495 TFLOP/s, the int8 one printed
+     apart) at the same shapes in fp32 (the decode rows also at
      B = 32), bound against the fp32 CUDA-core peak of 67 TFLOP/s,
      yardsticks SDPA in fp32 and ``torch.matmul`` on the dequantized fp32
      weight, each held to its plain version (FP32_REL_NORM_TOL); and row 1
@@ -39,7 +41,7 @@ Phases, in order; any failure exits non-zero:
      first in bf16, then in the int8 serving configuration (int8 weights in
      the fused layout, int8 KV cache, W8A8 prefill and ViT), then in the
      int4p serving configuration (nibble-packed int4 layer weights with
-     group-128 scales, weight-only at every chunk length; at a depth of 8
+     group-128 scales, weight-only at every chunk length; at a depth of 4
      layers): two requests
      of 2 synthetic 128-frame 336x336 videos, 64 new tokens each, launch
      counts checked per request, outputs checked against the same path with
@@ -54,7 +56,9 @@ Phases, in order; any failure exits non-zero:
      version on the card, and a dequant request on the int8 one; and the
      chunked prefill: one request's prefix prefilled in two chunks through
      ``decoder_forward`` against the one-shot prefill, on the kernel and the
-     plain route (bf16 at 32 layers, and the fp32 int8 tree).
+     plain route (bf16 at 32 layers, and the fp32 int8 tree), and the second
+     chunk again with cache-mask slots inside and past it (two launches of
+     row 8 a layer on the card), the kernel route against the plain one.
   5. the bench's serving workload (bench.py's int8 defaults, cut to 64 of its
      192 videos and CORPUS_LAYERS = 8 of 32 layers) through the port's entry points at full
      width: TRACE-7B in the int8 serving
@@ -183,6 +187,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, data sheet
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16, data sheet
 INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8, data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 on the CUDA cores (not TF32), data sheet
+TF32_FLOPS_PER_S = 495e12   # H100 SXM dense TF32, data sheet
 SEED = 0
 FRAMES = 128
 VIDEOS = 2
@@ -262,7 +267,8 @@ KERNEL_TOL = {  # name: (atol, rtol)
     # rounding: attention and decode rows ~1e-6 of their values (limits 1e-4
     # absolute on outputs of a few units, 1e-4 relative), gradients in units
     # of max |ref| (1e-5); the weight products in units of max |ref|, 1e-5
-    # (exact products, sums over K <= 14336 terms in another order). The
+    # (exact products, sums over K <= 14336 terms in another order; the
+    # tensor-core form's x as two TF32 parts, within 2^-22 of it). The
     # dequant decode body rounds p to bf16 as the plain version does; where
     # the two p lie across a bf16 rounding point (p differs by an ulp) the
     # weight moves by one bf16 step: a few values a call by up to ~2e-4 (at
@@ -278,8 +284,9 @@ KERNEL_TOL = {  # name: (atol, rtol)
     "decode_attention_int8_dequant_f32": (2e-3, 1e-4),  # the bf16 dequant row's atol
     "quant_matmul_f32": (1e-5, 0.0),             # units of max |ref|, both forms
     "quant_matmul_stacked_f32": (1e-5, 0.0),
+    "quant_matmul_stacked_f32_tiled": (1e-5, 0.0),  # tensor-core form (M > 8)
     "quant_matmul_p4_f32": (1e-5, 0.0),          # split-K form
-    "quant_matmul_p4_f32_tiled": (1e-5, 0.0),    # tiled form (M > 8)
+    "quant_matmul_p4_f32_tiled": (1e-5, 0.0),    # tensor-core form (M > 8)
     "quant_matmul_p4_grouped_f32": (1e-5, 0.0),
     "quant_matmul_p4_grouped_f32_tiled": (1e-5, 0.0),
 }
@@ -482,12 +489,15 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
     operands: K1 rows 1, 2 and 8 (``flash_attention``, ``vit_attention_btd``,
     ``flash_attention_fwd_res`` with its lse), K2 rows 3 and 3b in both
     modes at B = 4 (the row) and B = 32 (printed apart), K3 rows 4-7 at
-    M = 2 (split K) and the packed ones at M = 3886 (tiled; the int8 tiled
-    form at M = 37, untimed, folded into its row), K4 rows 9-10. Bound:
-    the larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s (the fp32
-    CUDA-core peak); yardsticks: SDPA in fp32 for the attention rows,
-    ``torch.matmul`` of fp32 x with the dequantized fp32 weight for rows
-    4-7 (TF32 off)."""
+    M = 2 (split K) and the packed ones at M = 3886 (the tensor-core form;
+    the int8 one at M = 37, untimed, folded into its row, and at M = 3886
+    timed and printed apart: no path launches it, the fp32 int8 tree
+    prefills W8A8), K4 rows 9-10. Bound: the larger of bytes / 3.35 TB/s
+    and operations / 67 TFLOP/s (the fp32 CUDA-core peak), for the
+    tensor-core form two products' operations / 495 TFLOP/s (TF32, x split
+    into two TF32 parts; the CUDA-core bound printed beside it);
+    yardsticks: SDPA in fp32 for the attention rows, ``torch.matmul`` of
+    fp32 x with the dequantized fp32 weight for rows 4-7 (TF32 off)."""
     import torch.nn.functional as F
 
     from trace_tpu_torch.kernels import flash_backward as fb
@@ -500,9 +510,8 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
-    f32bound = lambda nbytes, ops: bound(nbytes, ops, FP32_FLOPS_PER_S)
-
-    def row(name, fn, lib, nbytes, ops, reps=20, keep=True, label=None, rows_of=None):
+    def row(name, fn, lib, nbytes, ops, reps=20, keep=True, label=None, rows_of=None,
+            peak=FP32_FLOPS_PER_S):
         out, ref = fn(), fn("plain")
         torch.cuda.synchronize()
         outs = out if isinstance(out, tuple) else (out,)
@@ -520,11 +529,12 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
         r = {k: max(p[k] for p in parts) for k in ("err", "excess", "rel_norm")}
         r.update(ref_rms=parts[0]["ref_rms"], ms=median_ms(torch, fn, reps),
                  plain_ms=median_ms(torch, lambda: fn("plain"), reps),
-                 library_ms=median_ms(torch, lib, reps), bound=f32bound(nbytes, ops))
-        atol, rtol = KERNEL_TOL[name]
+                 library_ms=median_ms(torch, lib, reps), bound=bound(nbytes, ops, peak))
+        peak_name = ("fp32 CUDA-core peak 67" if peak == FP32_FLOPS_PER_S
+                     else f"two TF32 products at {peak / 1e12:.0f}")
         print(f"  {label or name} (fp32): ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
-              f"({r['bound'][1]}; fp32 CUDA-core peak 67 TFLOP/s, "
+              f"({r['bound'][1]}; {peak_name} TFLOP/s, "
               f"{100 * r['bound'][0] / r['ms']:.1f} %) max_abs_err={r['err']:.3g} "
               f"(excess {r['excess']:.3g}) rel_norm_err={r['rel_norm']:.3g} "
               f"(tol {FP32_REL_NORM_TOL})", flush=True)
@@ -635,15 +645,20 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
     # row: their sum), x fp32; the int8 lm_head at M = 2
     L, LI = 32, 17
     timed = {n: [] for n in ("quant_matmul_stacked_f32", "quant_matmul_p4_f32",
-                             "quant_matmul_p4_grouped_f32", "quant_matmul_p4_f32_tiled",
-                             "quant_matmul_p4_grouped_f32_tiled")}
+                             "quant_matmul_p4_grouped_f32", "quant_matmul_stacked_f32_tiled",
+                             "quant_matmul_p4_f32_tiled", "quant_matmul_p4_grouped_f32_tiled")}
 
     def mm(name, fn, w, x, qbytes, reps=20):
         M, K = x.shape
         N = w.shape[1]
+        tiled = name.endswith("_tiled")  # two TF32 products on the tensor cores
         r, (out,) = row(name, fn, lambda: torch.matmul(x, w), x.numel() * 4 + qbytes
-                        + M * N * 4, 2 * M * K * N, reps=reps, keep=False,
-                        label=f"{name} x [{M}, {K}] -> [{M}, {N}]")
+                        + M * N * 4, 2 * M * K * N * (1 + tiled), reps=reps, keep=False,
+                        label=f"{name} x [{M}, {K}] -> [{M}, {N}]",
+                        peak=TF32_FLOPS_PER_S if tiled else FP32_FLOPS_PER_S)
+        if tiled:
+            r["cuda_core_bound"] = bound(x.numel() * 4 + qbytes + M * N * 4, 2 * M * K * N,
+                                         FP32_FLOPS_PER_S)[0]
         return r
 
     q8 = torch.randint(-127, 128, (4096, 32000), generator=g, device="cuda", dtype=torch.int8)
@@ -670,11 +685,12 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
         x2, xp = randn(2, K), randn(PREFILL_M, K)
         q8 = torch.randint(-127, 128, (L, K, N), generator=g, device="cuda", dtype=torch.int8)
         s8 = (torch.rand((L, N), generator=g, device="cuda") * 4e-4 + 1e-4).to(torch.bfloat16)
-        timed["quant_matmul_stacked_f32"].append(mm(
-            "quant_matmul_stacked_f32", lambda impl="auto": qmm.quant_matmul_stacked(
-                x2, q8, s8, LI, out_dtype=torch.float32, impl=impl),
-            q8[LI].float() * s8[LI].float(), x2, K * N + N * 2))
-        del q8, s8
+        w8 = q8[LI].float() * s8[LI].float()
+        for x, name, reps in ((x2, "quant_matmul_stacked_f32", 20),
+                              (xp, "quant_matmul_stacked_f32_tiled", 3)):
+            timed[name].append(mm(name, lambda impl="auto": qmm.quant_matmul_stacked(
+                x, q8, s8, LI, out_dtype=torch.float32, impl=impl), w8, x, K * N + N * 2, reps))
+        del q8, s8, w8
         for grouped in (False, True):
             qp = torch.randint(-128, 128, (L, K // 2, N), generator=g, device="cuda",
                                dtype=torch.int8)
@@ -690,11 +706,14 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
             del qp, sp, w
         del x2, xp
     for name, parts in timed.items():
-        rows[name] = merge(parts)
-        r = rows[name]
+        r = merge(parts)
+        if name != "quant_matmul_stacked_f32_tiled":  # launched by no path: printed only
+            rows[name] = r
+        core = sum(p.get("cuda_core_bound", 0.0) for p in parts)
         print(f"  {name}, the four shapes together: ms={r['ms']:.4f} plain_ms="
               f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} bound_ms="
-              f"{r['bound'][0]:.4f} ({r['bound'][1]})", flush=True)
+              f"{r['bound'][0]:.4f} ({r['bound'][1]})"
+              + (f"; CUDA-core fp32 bound {core:.4f} ms" if core else ""), flush=True)
 
 
 def query_offset_checks(torch) -> None:
@@ -1358,8 +1377,9 @@ def weight_only_request(torch, params, cfg, tok, videos, stamps, asks) -> dict:
 
 G0_LAYERS = 4  # depth of the per-channel (group 0) int4p run
 # depth of the group-128 int4p run: its row 7 runs the same shapes at
-# every layer, and 32 layers put the whole smoke past 900 s of the 1200
-INT4P_LAYERS = 8
+# every layer, and 32 layers put the whole smoke past 900 s of the 1200; 4
+# since the whole smoke took 1073 s at 8 on an H100 80GB HBM3 at 700 W
+INT4P_LAYERS = 4
 # depth of the bf16 and int8 runs: 32 until the whole smoke took 1004-1018 s
 # with PR 20's fp32 checks (my chip calls 7-8, PR 20); phase 7 serves the
 # 32-layer checkpoint in bf16, int8, int4 and fp32
@@ -1739,7 +1759,14 @@ def chunked_prefill_check(torch, pipe, label: str, tol: float, encoded=None) -> 
     and through the plain versions; each route's two last-position logits
     within ``tol`` (||diff|| / ||ref||). Over an int8 KV cache (see
     CHUNK_TOL_F32) the kernel route's distance at most REF_RATIO_TOL x the
-    plain route's instead."""
+    plain route's instead. Then the second chunk once more with a cache
+    mask that also marks slots inside and past it (its second half and the
+    8 unwritten slots after the prefix, which the one-launch route's causal
+    offset would hide): on the card two launches of row 8 a layer merged
+    by their logsumexp; its kernel route's logits within ``tol`` or
+    REF_RATIO_TOL x the unmarked chunk's distance between the routes of the
+    plain route's."""
+    from trace_tpu_torch.kernels.flash_backward import flash_attention_fwd_res as fwd_res
     from trace_tpu_torch.model.mistral import compute_logits, decoder_forward, init_kv_cache
 
     if encoded is None:
@@ -1752,7 +1779,7 @@ def chunked_prefill_check(torch, pipe, label: str, tol: float, encoded=None) -> 
     pos = (mask.long().cumsum(-1) - 1).clamp_min(0)
     out = {"prefix_tokens": P, "cut": cut}
     quantized = c.kv_cache_dtype == "int8"
-    chunked = {}
+    chunked, marked = {}, {}
     for impl in ("auto", "plain"):
         with torch.no_grad():
             cache = init_kv_cache(c, 1, S, dtype=prefix.dtype, device="cuda")
@@ -1767,7 +1794,16 @@ def chunked_prefill_check(torch, pipe, label: str, tol: float, encoded=None) -> 
             h, _ = decoder_forward(dec, c, prefix[:, cut:], mask[:, cut:], pos[:, cut:],
                                    cache=cache, cache_index=cut, cache_mask=cmask, impl=impl)
             two = compute_logits(dec, h[:, -1], impl=impl)
+            cmask[:, cut + (P - cut) // 2:] = True
+            before = fwd_res.launches + fwd_res.launches_f32
+            h, _ = decoder_forward(dec, c, prefix[:, cut:], mask[:, cut:], pos[:, cut:],
+                                   cache=cache, cache_index=cut, cache_mask=cmask, impl=impl)
+            marked[impl] = compute_logits(dec, h[:, -1], impl=impl)
+            launched = fwd_res.launches + fwd_res.launches_f32 - before
         del cache, h
+        if launched != (2 * c.num_layers if impl == "auto" else 0):
+            fail(f"chunked prefill ({label}, {impl}): the marked chunk launched row 8 "
+                 f"{launched} times, expected two a layer on the kernel route")
         chunked[impl] = two
         e = rel_err(two, one)
         same = bool((two.argmax(-1) == one.argmax(-1)).all())
@@ -1788,6 +1824,20 @@ def chunked_prefill_check(torch, pipe, label: str, tol: float, encoded=None) -> 
         if out["auto"]["rel_err"] > REF_RATIO_TOL * out["plain"]["rel_err"]:
             fail(f"chunked prefill ({label}): the kernel route's chunked prefill is further "
                  "from its one-shot prefill than the plain route's")
+    routes = rel_err(chunked["auto"], chunked["plain"])
+    limit = max(tol, REF_RATIO_TOL * routes)
+    out["marked"] = {"kernel_vs_plain": rel_err(marked["auto"], marked["plain"]),
+                     "unmarked_kernel_vs_plain": routes, "limit": limit,
+                     "moved_by_the_marks": rel_err(marked["plain"], chunked["plain"])}
+    m = out["marked"]
+    print(f"chunked prefill ({label}): a chunk whose cache mask marks {S - cut - (P - cut) // 2} "
+          f"slots inside and past it, kernel route (two row-8 launches a layer) from the plain "
+          f"route {m['kernel_vs_plain']:.3g} (limit {limit:.3g}: {tol} or {REF_RATIO_TOL} x "
+          f"the unmarked chunk's {routes:.3g}); the marks move the plain route's logits by "
+          f"{m['moved_by_the_marks']:.3g}", flush=True)
+    if not torch.isfinite(marked["auto"]).all() or m["kernel_vs_plain"] > limit:
+        fail(f"chunked prefill ({label}): a chunk with marked slots past its index differs "
+             "between the kernel and the plain route")
     return out
 
 

@@ -480,6 +480,81 @@ def test_flash_query_offset_over_a_strided_stripe(cuda, dtype, T, S, offset):
         _assert_matches(got, want, ATOL["flash"])
 
 
+def _chunk_inputs(cuda, dtype, kv, marked, seed=16):
+    """q of a 129-token chunk at slot 300 over a layer's stripe (dense, or
+    the int8 dict) of 600 slots, and (old, new): row 0's cache mask marks
+    slots before the chunk and, with ``marked``, slots inside and past it;
+    row 1 is left-padded by 5 and marks none."""
+    from trace_tpu_torch.model.mistral import _quantize_kv
+
+    rng = np.random.default_rng(seed)
+    B, H, Hkv, T, S, hd, at = 2, 8, 2, 129, 600, 128, 300
+    q = torch.from_numpy(_normal(rng, B, H, T, hd)).to(cuda, dtype)
+    k, v = (torch.from_numpy(_normal(rng, B, Hkv, S, hd)).to(cuda, dtype) for _ in range(2))
+    if kv == "dense":
+        stripe = (k, v)
+    else:
+        stripe = {}
+        for vals, scales, x in (("kq", "ks", k), ("vq", "vs", v)):
+            stripe[vals], stripe[scales] = _quantize_kv(x.to(torch.bfloat16))
+    old = torch.zeros((B, S), dtype=torch.bool, device=cuda)
+    old[0, 20:at] = True
+    if marked:
+        old[0, at + 50:at + 80] = True
+        old[0, 500:520] = True
+    new = torch.zeros((B, S), dtype=torch.bool, device=cuda)
+    new[:, at:at + T] = True
+    new[1, at:at + 5] = False
+    return q, stripe, old, new, at
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["dense", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_chunk_with_cache_slots_past_its_index_matches_plain(cuda, dtype, kv):
+    """A chunk whose cache mask marks slots at and past ``cache_index`` (the
+    causal offset of the one-launch route would hide them): on the card two
+    launches of the row-8 forward merged by their logsumexp, against the
+    plain route (the JAX package's chunk expression) within row 1's
+    limits."""
+    from trace_tpu_torch.kernels.flash_backward import flash_attention_fwd_res
+    from trace_tpu_torch.model.mistral import _attend_chunk
+
+    q, stripe, old, new, at = _chunk_inputs(cuda, dtype, kv, marked=True)
+    counter = "launches_f32" if dtype == torch.float32 else "launches"
+    n = getattr(flash_attention_fwd_res, counter)
+    got = _attend_chunk(q, stripe, (old, new, True), at, "auto")
+    assert getattr(flash_attention_fwd_res, counter) == n + 2
+    want = _attend_chunk(q, stripe, (old, new, True), at, "plain")
+    if dtype == torch.float32:
+        _assert_f32(got, want)
+    else:
+        _assert_matches(got, want, ATOL["flash"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["dense", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ordinary_chunk_is_one_launch_bit_for_bit(cuda, dtype, kv):
+    """A chunk whose cache mask marks no slot at or past ``cache_index``
+    (every caller in the package) stays one launch of row 1 with the query
+    offset, bit-equal to that launch."""
+    from trace_tpu_torch.model.mistral import _attend_chunk
+
+    q, stripe, old, new, at = _chunk_inputs(cuda, dtype, kv, marked=False)
+    counter = "launches_f32" if dtype == torch.float32 else "launches"
+    n = getattr(flash_attention, counter)
+    got = _attend_chunk(q, stripe, (old, new, False), at, "auto")
+    assert getattr(flash_attention, counter) == n + 1
+    if kv == "dense":
+        k, v = stripe
+    else:
+        k = (stripe["kq"].float() * stripe["ks"].transpose(-1, -2).float()).to(dtype)
+        v = (stripe["vq"].float() * stripe["vs"].transpose(-1, -2).float()).to(dtype)
+    bias = torch.where(old | new, 0.0, -1e30).float()
+    assert torch.equal(got, flash_attention(q, k, v, bias, True, q_offset=at))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,P,NH,HD,TQ", [(3, 80, 4, 64, 77), (2, 592, 16, 64, 577)])
 def test_vit_f32_kernel_matches_plain_on_fused_slices(cuda, B, P, NH, HD, TQ):
@@ -556,6 +631,16 @@ F32_QMM_CASES = [  # form, M, K, N, out dtype
     ("p4", 200, 1000, 1100, torch.float32), ("p4", 129, 4096, 6144, torch.float32),
     ("p4g", 2, 4096, 28672, torch.float32), ("p4g", 5, 1024, 1100, torch.bfloat16),
     ("p4g", 65, 1024, 1100, torch.float32), ("p4g", 300, 4096, 4096, torch.float32),
+    # the tensor-core form: K = 14336 (w_down: the promoted sums), both tile
+    # heights ragged (37 rows of the 64-row tile, 3886 = 30 x 128 + 46), N
+    # not a multiple of 128, and x or the weight through loads (K or K / 2
+    # not a multiple of 4, N not of 16)
+    ("i8", 3886, 14336, 1100, torch.float32), ("i8", 37, 14336, 4100, torch.bfloat16),
+    ("i8", 20, 1001, 1104, torch.float32),
+    ("p4", 3886, 14336, 1100, torch.float32), ("p4", 37, 14336, 4100, torch.float32),
+    ("p4", 100, 1002, 1040, torch.bfloat16),
+    ("p4g", 3886, 14336, 1100, torch.bfloat16), ("p4g", 37, 14336, 4100, torch.float32),
+    ("p4g", 3886, 4096, 6144, torch.float32),
 ]
 
 
@@ -589,6 +674,45 @@ def test_quant_matmul_f32_forms_match_plain(cuda, form, M, K, N, out_dtype):
     unit = want.float().abs().max()
     tol = 1e-5 if out_dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(got.float() / unit, want.float() / unit, atol=tol, rtol=0)
+    if out_dtype == torch.float32:
+        assert ((got - want).norm() / want.norm()).item() <= 1e-4  # FP32_REL_NORM_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["i8", "p4", "p4g"])
+def test_quant_matmul_f32_tiled_form_repeats_bit_for_bit(cuda, form):
+    """The tensor-core form sums in a fixed order: two calls, the same bits
+    (3886 rows of x, a 7B layer's w_down)."""
+    rng = np.random.default_rng(14)
+    M, K, N = 3886, 14336, 4096
+    x = torch.from_numpy(_normal(rng, M, K)).to(cuda)
+    rows = K if form == "i8" else K // 2
+    w = torch.from_numpy(rng.integers(-128, 128, (rows, N), dtype=np.int8)).to(cuda)
+    G = K // 128 if form == "p4g" else 1
+    s = torch.from_numpy(rng.random((G, N)) * 4e-3 + 1e-3).to(cuda, torch.bfloat16)
+    fn = {"i8": quant_matmul, "p4": quant_matmul_p4, "p4g": quant_matmul_p4_grouped}[form]
+    s = s if form == "p4g" else s.reshape(N)
+    n = fn.launches_f32_by_form["tiled"]
+    first = fn(x, w, s, out_dtype=torch.float32)
+    assert torch.equal(first, fn(x, w, s, out_dtype=torch.float32))
+    assert fn.launches_f32_by_form["tiled"] == n + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,G", [(70, 1026, 18), (300, 2048, 2)])
+def test_quant_matmul_f32_tiled_grouped_at_other_group_sizes(cuda, M, K, G):
+    """The grouped tensor-core form at groups of 57 rows (a scale a row of
+    the producer's 4-row chunks, x and the weight through loads) and of
+    1024, against the plain version."""
+    rng = np.random.default_rng(15)
+    N = 1100
+    x = torch.from_numpy(_normal(rng, M, K)).to(cuda)
+    w = torch.from_numpy(rng.integers(-128, 128, (K // 2, N), dtype=np.int8)).to(cuda)
+    s = torch.from_numpy(rng.random((G, N)) * 4e-3 + 1e-3).to(cuda, torch.bfloat16)
+    got = quant_matmul_p4_grouped(x, w, s, out_dtype=torch.float32)
+    want = quant_matmul_p4_grouped(x, w, s, out_dtype=torch.float32, impl="plain")
+    unit = want.abs().max()
+    torch.testing.assert_close(got / unit, want / unit, atol=1e-5, rtol=0)
 
 
 # The int8 weight product sums the same exact products (bf16 x int8) in fp32

@@ -595,3 +595,43 @@ def test_chunked_prefill_equals_one_shot_prefill(params):
     sel = torch.from_numpy(np.pad(mask, ((0, 0), (0, S - 12)))[None, :, None, :, None])
     for i in (0, 1):
         _close(cache[i] * sel, (c1[i] * sel).numpy())
+
+
+@pytest.mark.parametrize("cache_index", [6, 10])
+@pytest.mark.parametrize("kv", ["dense", "int8"])
+def test_chunk_parts_merged_by_lse_match_jax(kv, cache_index):
+    """The card's route for a chunk whose cache mask marks slots at or past
+    ``cache_index`` (``_attend_chunk_parts``: the slots of ``old`` without a
+    causal mask, the chunk's other real slots causally at the query offset,
+    merged by ``merge_attention``), fed here the two partial attentions and
+    their logsumexps from the plain expressions, against the JAX package's
+    chunk expression (``_attention`` under the visibility its
+    ``decoder_forward`` builds). Row 0 marks slots before, inside and past
+    the chunk; row 1 marks none and is left-padded, so that its first
+    queries see no key in either part (the mean of v), and its others none
+    in the first."""
+    B, NH, NKV, T, S, hd = 2, 4, 2, 5, 24, 16
+    rng = np.random.default_rng(31)
+    normal = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    q = normal(B, NH, T, hd)
+    k, v = normal(B, NKV, S, hd), normal(B, NKV, S, hd)
+    if kv == "int8":  # the stripe as the port's chunk reads it: each value times its scale
+        k, v = (xq.float() * xs.transpose(-1, -2).float()
+                for xq, xs in (tm._quantize_kv(x.to(torch.bfloat16)) for x in (k, v)))
+    old = np.zeros((B, S), bool)
+    old[0, [1, 2, 4, cache_index + 1, cache_index + 3, S - 2]] = True
+    real = np.ones((B, T), bool)
+    real[1, :2] = False
+    new = np.zeros((B, S), bool)
+    new[:, cache_index:cache_index + T] = real
+    got = tm._attend_chunk_parts(q, k, v, torch.from_numpy(old), torch.from_numpy(new),
+                                 cache_index, "auto")
+    slot = np.arange(S)[None, None, None, :]
+    qoff = np.arange(T)[None, None, :, None]
+    in_chunk = (slot >= cache_index) & (slot <= cache_index + qoff)
+    vis = old[:, None, None, :] | (in_chunk & new[:, None, None, :])
+    bias = np.where(vis, 0.0, jm.NEG_INF).astype(np.float32)
+    want = jm._attention(*(jnp.asarray(x.numpy()) for x in (q, k, v)), jnp.asarray(bias))
+    _close(got, want)
+    np.testing.assert_allclose(got[1, :, :2].numpy(), np.broadcast_to(
+        v[1].mean(1).repeat_interleave(NH // NKV, 0)[:, None], (NH, 2, hd)), rtol=TOL, atol=TOL)

@@ -67,8 +67,9 @@ _SOURCE = "attention_bwd.cu"
 _SOURCE_F32 = "attention_bwd_f32.cu"
 
 
-def _scores(q, k, mask_bias, causal):
-    """fp32 scores [B, Hkv, G, Tq, Tk] with the bias and the causal mask."""
+def _scores(q, k, mask_bias, causal, q_offset=0):
+    """fp32 scores [B, Hkv, G, Tq, Tk] with the bias and the causal mask
+    (query row r at key position ``q_offset`` + r)."""
     B, H, Tq, hd = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     qg = q.reshape(B, Hkv, H // Hkv, Tq, hd)
@@ -76,17 +77,17 @@ def _scores(q, k, mask_bias, causal):
     if mask_bias is not None:
         s = s + mask_bias.float()[:, None, None, None, :]
     if causal:
-        qpos = torch.arange(Tq, device=q.device)[:, None]
+        qpos = torch.arange(Tq, device=q.device)[:, None] + q_offset
         kpos = torch.arange(Tk, device=q.device)[None, :]
         s = torch.where(kpos <= qpos, s, torch.full_like(s, NEG_INF))
     return s
 
 
-def flash_attention_fwd_res_plain(q, k, v, mask_bias=None, *, causal=False):
+def flash_attention_fwd_res_plain(q, k, v, mask_bias=None, *, causal=False, q_offset=0):
     """Plain version of ``flash_attention_fwd_res``: ``xla_attention`` with
     its fp32 logsumexp written out."""
     B, H, Tq, hd = q.shape
-    s = _scores(q, k, mask_bias, causal)
+    s = _scores(q, k, mask_bias, causal, q_offset)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     l = e.sum(dim=-1, keepdim=True)
@@ -103,13 +104,18 @@ def flash_attention_fwd_res(
     mask_bias: Optional[torch.Tensor] = None,  # [B, Tk] fp32 additive
     *,
     causal: bool = False,
+    q_offset: int = 0,
     impl: str = "auto",
 ):
     """Attention forward returning (o, lse): o [B, H, Tq, hd] in q's dtype,
-    lse [B, H, Tq, 1] fp32, the residuals ``flash_attention_bwd`` needs."""
+    lse [B, H, Tq, 1] fp32, the residuals ``flash_attention_bwd`` needs.
+    Causal, query row r sees the keys j <= ``q_offset`` + r."""
     if not _use_kernel(q, impl):
-        return flash_attention_fwd_res_plain(q, k, v, mask_bias, causal=causal)
+        return flash_attention_fwd_res_plain(q, k, v, mask_bias, causal=causal,
+                                             q_offset=q_offset)
     _check_causal_operands(q, k, v, mask_bias, contiguous=False)
+    if q_offset < 0 or (q_offset and not causal):
+        raise ValueError(f"q_offset={q_offset}: a causal offset >= 0")
     B, H, Tq, hd = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -119,7 +125,7 @@ def flash_attention_fwd_res(
         kv_len=Tk, causal=causal,
         q_strides=q.stride()[:3], k_strides=k.stride()[:3],
         v_strides=v.stride()[:3], o_strides=o.stride()[:3],
-        bias_stride=Tk, lse=lse,
+        bias_stride=Tk, lse=lse, q_offset=q_offset,
     )
     _count(flash_attention_fwd_res, q)
     return o, lse
@@ -127,6 +133,17 @@ def flash_attention_fwd_res(
 
 flash_attention_fwd_res.launches = 0
 flash_attention_fwd_res.launches_f32 = 0
+
+
+def merge_attention(o1, lse1, o2, lse2, dtype):
+    """One attention from two over disjoint key sets, each with its fp32
+    logsumexp (``flash_attention_fwd_res``): the outputs weighed by
+    exp(lse - max) in fp32, cast once to ``dtype``. A row that sees no key in
+    one part (lse = -1e30) takes the other's output; a row that sees none in
+    either the mean of the two (each then the mean of v)."""
+    m = torch.maximum(lse1, lse2)
+    w1, w2 = torch.exp(lse1 - m), torch.exp(lse2 - m)
+    return ((w1 * o1.float() + w2 * o2.float()) / (w1 + w2)).to(dtype)
 
 
 def _entry(x, name: str):

@@ -43,6 +43,17 @@ read-flushed, at K = 4096, M = 2 and N = 16896, 28672 and 33792 (132, 224
 and 264 strips of 128 columns: the busiest SM takes two blocks of the plan
 at every N, of 256, 512 and 512 KB), and in the wide form at M = 32 and N =
 28672 (``w_gateup``: 8 KB of x beside each 16 KB of weight).
+
+With ``--f32`` it times the fp32 forms' tensor-core form instead
+(``csrc/quant_matmul_f32.cu``, M > 8): int8, packed per channel and
+grouped at x [3886, K] fp32 over the four layer shapes, each build held to
+the plain version (1e-5 of the largest output, relative norm 1e-4) and to
+a second run of itself, then timed in turns (A B B A, median of 5, L2
+flushed) beside ``torch.matmul`` of fp32 x with the dequantized fp32 weight
+(TF32 off), with ptxas's registers and spills; last, this tree's error at
+``w_down`` (K = 14336) against an fp64 product, with the wgmma sum promoted
+every 128 values of k (the kernel's) and only at the end (a build of the
+source with ``PROMOTE_K = 0``), beside the plain fp32 version's.
 """
 
 from __future__ import annotations
@@ -60,7 +71,7 @@ import torch
 from trace_tpu_torch.kernels import quant_matmul as qmm
 from trace_tpu_torch.kernels.build import BUILD_DIR, CSRC
 from trace_tpu_torch.kernels.decode_int8_turns import build, median_ms
-from trace_tpu_torch.model.quantize import dequantize
+from trace_tpu_torch.model.quantize import dequantize, unpack4
 
 LAYER = ((4096, 6144, torch.bfloat16), (4096, 4096, torch.bfloat16),
          (4096, 28672, torch.float32), (14336, 4096, torch.bfloat16))
@@ -226,9 +237,139 @@ def device_ms(fn, flush, names: tuple, reps: int = 20) -> float:
     return us / 1e3 / reps
 
 
+F32_M = 3886                 # the smoke's prefill rows
+PROMOTE = "PROMOTE_K = 128;"  # the fp32 tensor-core form's promotion interval
+F32_FLOPS, TF32_FLOPS = 67e12, 495e12  # H100 SXM: CUDA-core fp32, dense TF32
+
+
+def f32_operands(g, form, M, K, N):
+    """fp32 x, the weight bytes, the scale, the groups and the dense fp32
+    weight ``W`` with y = (x @ W) (* s for the int8 and per-channel forms)."""
+    x = torch.randn((M, K), generator=g, device="cuda")
+    if form == "i8":
+        w = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+        s = (torch.rand((N,), generator=g, device="cuda") * 4e-4 + 1e-4).to(torch.bfloat16)
+        return x, w, s, 1, w.float()
+    w = torch.randint(-128, 128, (K // 2, N), generator=g, device="cuda", dtype=torch.int8)
+    G = K // 128 if form == "p4g" else 1
+    s = (torch.rand((G, N), generator=g, device="cuda") * 4e-3 + 1e-3).to(torch.bfloat16)
+    nibbles = unpack4(w).float()
+    if form == "p4":
+        return x, w, s.reshape(-1), 1, nibbles
+    # each weight times its group's scale in fp32: exact (dequantize rounds it to bf16)
+    return x, w, s, G, (nibbles.reshape(G, K // G, N) * s.float()[:, None]).reshape(K, N)
+
+
+def f32_caller(lib, form, x, w, s, groups, y):
+    """A function that launches ``lib``'s fp32 entry once into y."""
+    M, K = x.shape
+    N = y.shape[1]
+    fn = lib.quant_matmul_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    rows = K if form == "i8" else K // 2
+    args = [x.data_ptr(), w.data_ptr(), s.data_ptr(), None, y.data_ptr(), M, K, N,
+            qmm._F32_FORMS[form], groups, 1, rows, int(y.dtype == torch.float32),
+            torch.cuda.current_stream().cuda_stream]
+
+    def run():
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"quant_matmul_f32 {form}: CUDA error {err} at launch")
+        return y
+
+    return run
+
+
+def f32_turns(dirs: dict) -> int:
+    """The fp32 tensor-core form of each build in turns, then this tree's
+    promotion error (see the module's docstring)."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # the yardstick in full fp32
+    libs = build({name: d / "quant_matmul_f32.cu" for name, d in dirs.items()},
+                 "qmm_turns/f32", ptxas=True)
+    once = BUILD_DIR / "qmm_turns" / "f32_promote_0"  # this tree, the sum promoted at the end
+    once.mkdir(parents=True, exist_ok=True)
+    for f in CSRC.glob("*.cuh"):
+        shutil.copy(f, once)
+    text = (CSRC / "quant_matmul_f32.cu").read_text()
+    if text.count(PROMOTE) != 1:
+        raise RuntimeError(f"quant_matmul_f32.cu no longer has one {PROMOTE!r}")
+    (once / "quant_matmul_f32.cu").write_text(text.replace(PROMOTE, "PROMOTE_K = 0;"))
+    at_end = build({"promote_0": once / "quant_matmul_f32.cu"}, "qmm_turns/f32_promote_0_lib")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for form in ("i8", "p4", "p4g"):
+        total = {name: [0.0, 0.0] for name in libs}
+        lib_ms = 0.0
+        for K, N, _ in LAYER:
+            x, w, s, groups, dense = f32_operands(g, form, F32_M, K, N)
+            scale = s.float().reshape(-1) if form != "p4g" else None
+            ref = x @ dense
+            ref = ref * scale if scale is not None else ref
+            unit = ref.abs().max()
+            runs = {}
+            for name, lib in libs.items():
+                run = f32_caller(lib, form, x, w, s, groups, torch.empty_like(ref))
+                got = run().clone()
+                again = run()
+                torch.cuda.synchronize()
+                err = ((got - ref).abs().max() / unit).item()
+                rel = ((got - ref).norm() / ref.norm()).item()
+                if err > ATOL or rel > 1e-4 or not torch.equal(got, again):
+                    print(f"qmm_turns: {name} fp32 {form} {K}x{N} disagrees with the plain "
+                          f"version ({err:.3e} of the largest output, relative norm "
+                          f"{rel:.3e}) or with itself", flush=True)
+                    return 1
+                runs[name] = run
+            times = {name: [] for name in runs}
+            for name in list(runs) + list(runs)[::-1]:
+                times[name].append(median_ms(runs[name], flush, reps=5))
+            lib_t = median_ms(lambda: torch.matmul(x, dense * scale if scale is not None
+                                                   else dense), flush, reps=5)
+            lib_ms += lib_t
+            print(f"fp32 {form} M = {F32_M}, {K}x{N}: library {lib_t:.4f} ms; " + "; ".join(
+                f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items()),
+                flush=True)
+            for name, ts in times.items():
+                total[name] = [a + t for a, t in zip(total[name], ts)]
+            del x, w, s, dense, ref, runs
+        ops = 2 * F32_M * sum(K * N for K, N, _ in LAYER)
+        print(f"fp32 {form} M = {F32_M}, the four shapes together: bound {ops / F32_FLOPS * 1e3:.4f} "
+              f"ms (operations, 67 TFLOP/s fp32), two-product TF32 ceiling "
+              f"{2 * ops / TF32_FLOPS * 1e3:.4f} ms, library {lib_ms:.4f} ms; " + "; ".join(
+                  f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ms" for name, ts in total.items()),
+              flush=True)
+    # the promotion: this tree at w_down against an fp64 product
+    K, N = 14336, 4096
+    for form in ("i8", "p4", "p4g"):
+        x, w, s, groups, dense = f32_operands(g, form, F32_M, K, N)
+        exact = x.double() @ dense.double()
+        if form != "p4g":
+            exact = exact * s.double().reshape(-1)
+        unit = exact.abs().max()
+        errs, ms = {}, {}
+        for label, lib in (("every 128", libs["this"]), ("at the end only", at_end["promote_0"])):
+            y = torch.empty((F32_M, N), dtype=torch.float32, device="cuda")
+            run = f32_caller(lib, form, x, w, s, groups, y)
+            got = run()
+            errs[label] = ((got.double() - exact).abs().max() / unit).item()
+            ms[label] = median_ms(run, flush, reps=5)
+        plain = x @ dense
+        plain = plain * s.float().reshape(-1) if form != "p4g" else plain
+        errs["plain fp32"] = ((plain.double() - exact).abs().max() / unit).item()
+        print(f"fp32 {form} M = {F32_M}, {K}x{N}, max error against fp64 in units of the "
+              f"largest output: " + "; ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + "; ms with the sum promoted " + "; ".join(f"{k} {v:.4f}" for k, v in ms.items()),
+              flush=True)
+        del x, w, s, dense, exact, plain
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", action="append", default=[], metavar="NAME=PATH")
+    ap.add_argument("--f32", action="store_true",
+                    help="time the fp32 forms' tensor-core form instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("qmm_turns: no CUDA device", file=sys.stderr)
@@ -240,6 +381,8 @@ def main() -> int:
         name, _, path = item.partition("=")
         p = Path(path)
         dirs[name] = p.parent if p.suffix == ".cu" else p
+    if args.f32:
+        return f32_turns(dirs)
     built = build({f"{name}_{src}": d / f"quant_matmul{'' if src == 'i8' else '_p4'}.cu"
                    for name, d in dirs.items() for src in ("i8", "p4")}, "qmm_turns", ptxas=True)
     libs = {src: {name: built[f"{name}_{src}"] for name in dirs} for src in ("i8", "p4")}

@@ -30,12 +30,15 @@ forms reduce over K inside a cluster of blocks (``split_plan``), so a call
 can be captured in a CUDA graph.
 
 fp32 x (a model served in fp32) takes the fp32 forms of every entry,
-csrc/quant_matmul_f32.cu: fp32 FMA on the CUDA cores (every weight is exact
-in fp32, so only the order of the sums differs from the plain version), a
-split-K form up to 8 rows of x with a workspace of partial sums and a
-second launch that adds them in order (``f32_splits``), and a tiled form
-beyond. Their launches are counted in ``<wrapper>.launches_f32`` and by form
-in ``launches_f32_by_form`` (``"splitk"``, ``"tiled"``).
+csrc/quant_matmul_f32.cu (every weight is exact in fp32, so only the order
+of the sums differs from the plain version): up to 8 rows of x a split-K
+form of fp32 FMA on the CUDA cores with a workspace of partial sums and a
+second launch that adds them in order (``f32_splits``); beyond, a
+tensor-core form (``"tiled"``): every weight is exact in TF32 too, so x is
+split into two TF32 parts and the product runs as two TF32 ``wgmma``
+products with fp32 sums. Their launches are counted in
+``<wrapper>.launches_f32`` and by form in ``launches_f32_by_form``
+(``"splitk"``, ``"tiled"``).
 
 The W8A8 product (``quantize_acts`` + ``quant_apply_w8a8``: prefill and ViT
 projections) is a plain s8 x s8 -> s32 matrix product, which the JAX package

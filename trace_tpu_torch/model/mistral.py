@@ -22,7 +22,9 @@ cache through a scan carry).
 Attention always goes through a kernel wrapper: a T=1 step with a cache
 through ``decode_attention`` over the layer's stripe, a chunk of a chunked
 prefill (T > 1 at ``cache_index`` > 0) through ``flash_attention`` over the
-stripe with the chunk's query offset, anything else (the cache-less
+stripe with the chunk's query offset (two ``flash_attention_fwd_res``
+launches merged by their logsumexp where the cache mask marks a slot at or
+past ``cache_index``), anything else (the cache-less
 forward, prefill into an empty cache) through ``flash_attention`` over the
 chunk, or with ``trainable`` through ``flash_attention_trainable``, whose
 backward is a pair of kernels too. Each wrapper takes its plain version for
@@ -63,6 +65,7 @@ from trace_tpu_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_trainable,
 )
+from trace_tpu_torch.kernels.flash_backward import flash_attention_fwd_res, merge_attention
 from trace_tpu_torch.kernels.quant_matmul import (
     quant_apply,
     quant_apply_stacked,
@@ -186,26 +189,30 @@ def _attend_chunk(q, stripe, chunk_vis, cache_index: int, impl: str) -> torch.Te
     The JAX package's einsum path (trace_tpu/model/mistral.py, the cache
     branch of ``decoder_forward``): query i sees the slots valid before the
     call (``old``, the cache mask) and the chunk's real slots up to its own,
-    ``new`` marking them: ``chunk_vis`` = (old, new), each [B, S] bool. An
-    int8 stripe is dequantized first, each value times its slot's scale
-    (exact in fp32) cast once to q's dtype, as the JAX package's compiled
-    path computes ``kq.astype(bf16) * ks`` followed by the cast. On the card
-    (``impl="auto"``) ``flash_attention`` over the whole stripe, read in
-    place, with query offset ``cache_index`` and the bias row of
-    ``old | new``, which gives the same wherever ``old`` marks no slot at or
-    past ``cache_index`` (slots the chunk writes or no call has written
-    yet); its plain route is the JAX expression itself."""
+    ``new`` marking them: ``chunk_vis`` = (old, new, marked), old and new
+    [B, S] bool, ``marked`` whether ``old`` marks a slot at or past
+    ``cache_index``. An int8 stripe is dequantized first, each value times
+    its slot's scale (exact in fp32) cast once to q's dtype, as the JAX
+    package's compiled path computes ``kq.astype(bf16) * ks`` followed by
+    the cast. On the card (``impl="auto"``) the stripe is read in place by
+    ``flash_attention`` with query offset ``cache_index`` and the bias row of
+    ``old | new`` where nothing is marked (every caller in the package: the
+    causal offset then hides no slot of ``old``); else by
+    ``_attend_chunk_parts``. Its plain route is the JAX expression itself."""
     if isinstance(stripe, dict):
         k_all = stripe["kq"].float() * stripe["ks"].transpose(-1, -2).float()
         v_all = stripe["vq"].float() * stripe["vs"].transpose(-1, -2).float()
     else:
         k_all, v_all = stripe
     k_all, v_all = k_all.to(q.dtype), v_all.to(q.dtype)
-    old, new = chunk_vis
+    old, new, marked = chunk_vis
     dev, T, S = q.device, q.shape[2], k_all.shape[2]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
     if q.is_cuda and impl == "auto":
+        if marked:
+            return _attend_chunk_parts(q.contiguous(), k_all, v_all, old, new, cache_index,
+                                       impl)
         bias_row = torch.where(old | new, zero, neg).contiguous()
         return flash_attention(q.contiguous(), k_all, v_all, bias_row, True,
                                q_offset=cache_index, impl=impl)
@@ -214,6 +221,22 @@ def _attend_chunk(q, stripe, chunk_vis, cache_index: int, impl: str) -> torch.Te
     in_chunk = (slot >= cache_index) & (slot <= upto)          # [T, S]
     vis = old[:, None, :] | (in_chunk[None] & new[:, None, :])  # [B, T, S]
     return grouped_attention(q, k_all, v_all, torch.where(vis, zero, neg)[:, None])
+
+
+def _attend_chunk_parts(q, k_all, v_all, old, new, cache_index: int, impl: str):
+    """The chunk's attention as two disjoint key sets merged by their
+    logsumexp: every slot of ``old`` (no causal mask), and the chunk's real
+    slots up to each query's own that ``old`` does not mark (causal at query
+    offset ``cache_index``). Two launches of ``flash_attention_fwd_res`` on
+    the card; its plain version elsewhere."""
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=q.device)
+    o1, lse1 = flash_attention_fwd_res(q, k_all, v_all, torch.where(old, zero, neg).contiguous(),
+                                       causal=False, impl=impl)
+    o2, lse2 = flash_attention_fwd_res(q, k_all, v_all,
+                                       torch.where(new & ~old, zero, neg).contiguous(),
+                                       causal=True, q_offset=cache_index, impl=impl)
+    return merge_attention(o1, lse1, o2, lse2, q.dtype)
 
 
 def _attend(q, k, v, li: int, *, config: DecoderConfig, flash_bias, decode_bias, cache,
@@ -566,7 +589,9 @@ def decoder_forward(
         new[:, cache_index:cache_index + T] = attn_mask.bool()
         old = (cache_mask.bool() if cache_mask is not None
                else torch.zeros((B, S), dtype=torch.bool, device=dev))
-        chunk_vis = (old, new)
+        # once a call: whether old marks a slot the causal offset would hide
+        marked = cache_mask is not None and bool(old[:, cache_index:].any())
+        chunk_vis = (old, new, marked)
     else:
         flash_bias = torch.where(attn_mask.bool(), zero, neg).contiguous()
 
