@@ -29,8 +29,9 @@ Phases, in order; any failure exits non-zero:
      the fp32 form of every row (``*_f32``, csrc/*_f32.cu, fp32 FMA on the
      CUDA cores; the weight products past 8 rows of x two TF32 products on
      the tensor cores, bound against 495 TFLOP/s, the int8 one printed
-     apart) at the same shapes in fp32 (the decode rows also at
-     B = 32), bound against the fp32 CUDA-core peak of 67 TFLOP/s,
+     apart; the decode rows the fp32 instances of the bf16 rows' cluster
+     kernels) at the same shapes in fp32 (the decode rows also at
+     B = 32, random and serving masks), bound against the fp32 CUDA-core peak of 67 TFLOP/s,
      yardsticks SDPA in fp32 and ``torch.matmul`` on the dequantized fp32
      weight, each held to its plain version (FP32_REL_NORM_TOL); and row 1
      with a query offset (a chunk of a chunked prefill over a cache
@@ -262,7 +263,8 @@ KERNEL_TOL = {  # name: (atol, rtol)
     "quant_matmul_p4_mma": (1e-4, 2 ** -7),      # tensor-core form, same units
     "quant_matmul_p4_grouped": (1e-5, 2 ** -7),
     "quant_matmul_p4_grouped_mma": (1e-4, 2 ** -7),
-    # the fp32 forms (csrc/*_f32.cu): fp32 in and out, the same fp32 steps as
+    # the fp32 forms (csrc/*_f32.cu, the decode kernels' fp32 instances): fp32
+    # in and out, the same fp32 steps as
     # the plain version in another summation order, so they differ by fp32
     # rounding: attention and decode rows ~1e-6 of their values (limits 1e-4
     # absolute on outputs of a few units, 1e-4 relative), gradients in units
@@ -485,10 +487,12 @@ def kernel_checks(torch):
 
 def fp32_kernel_checks(torch, rows: dict) -> None:
     """The fp32 form of every row (csrc/*_f32.cu, fp32 FMA on the CUDA
-    cores) against its plain version at the bf16 row's shapes, fp32
-    operands: K1 rows 1, 2 and 8 (``flash_attention``, ``vit_attention_btd``,
+    cores; the decode rows' fp32 instances of csrc/decode_attention*.cu)
+    against its plain version at the bf16 row's shapes, fp32 operands: K1
+    rows 1, 2 and 8 (``flash_attention``, ``vit_attention_btd``,
     ``flash_attention_fwd_res`` with its lse), K2 rows 3 and 3b in both
-    modes at B = 4 (the row) and B = 32 (printed apart), K3 rows 4-7 at
+    modes at B = 4 (the row) and B = 32 with random and serving masks
+    (printed apart), K3 rows 4-7 at
     M = 2 (split K) and the packed ones at M = 3886 (the tensor-core form;
     the int8 one at M = 37, untimed, folded into its row, and at M = 3886
     timed and printed apart: no path launches it, the fp32 int8 tree
@@ -611,20 +615,22 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
     del qkv, q, k, v
 
     # K2, rows 3 and 3b: one layer's stripe, half the slots masked; B = 4 the
-    # row, B = 32 printed
+    # row, B = 32 printed, also with serving masks (left padding, a visible
+    # prefix, masked future slots)
     H, NKV, HD, S = 32, 8, 128, 2304
-    for B in (4, 32):
+    for B, mask in ((4, "random"), (32, "random"), (32, "serving")):
         q = randn(B, H, 1, HD)
         kf, vf = randn(B, NKV, S, HD), randn(B, NKV, S, HD)
-        bias = mask_bias(g, B, "random", S)
+        bias = mask_bias(g, B, mask, S)
         n_vis = int((bias == 0).sum().item())
         ops = 4 * H * n_vis * HD
         lm = bias[:, None, None, :]
+        at = f"at B = {B}" + f", {mask} masks" * (mask != "random")
         row("decode_attention_f32", lambda impl="auto": decode_attention(q, kf, vf, bias,
                                                                          impl=impl),
             lambda: F.scaled_dot_product_attention(q, kf, vf, attn_mask=lm, enable_gqa=True),
             2 * q.numel() * 4 + 2 * n_vis * NKV * HD * 4 + bias.numel() * 4, ops,
-            keep=B == 4, label=f"decode_attention_f32 at B = {B}",
+            keep=B == 4, label=f"decode_attention_f32 {at}",
             rows_of=lambda x: x[(bias > -1e29).any(-1)])
         stripe = {}
         for vals, scales, x in (("kq", "ks", kf), ("vq", "vs", vf)):
@@ -638,7 +644,7 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
                                                            impl=impl),
                 lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=lm, enable_gqa=True),
                 2 * q.numel() * 4 + 2 * n_vis * NKV * (HD + 2) + bias.numel() * 4, ops,
-                keep=B == 4, label=f"{name} at B = {B}")
+                keep=B == 4, label=f"{name} {at}")
         del q, stripe, kd, vd, bias, lm
 
     # K3, rows 4-7: layer 17 of 32 of the four weights of a fused layer (the
@@ -3457,7 +3463,9 @@ def fp32_checkpoint(torch, ckpt: Path, cfg, tok, inputs: tuple, bf16_ref: dict) 
     """(e'') ``model_init(ckpt, dtype=torch.float32)`` on the 32-layer
     checkpoint (every earlier pipeline of the phase released): set-up s and
     peak GiB, the tree fp32 on the card; one request with no plain version on
-    the card and only the fp32 forms of rows 1, 2 and 3 launched; then the
+    the card and only the fp32 forms of rows 1, 2 and 3 launched, with check
+    (e) on its own inputs (its wall time includes the check's plain calls,
+    one an entry and shape); then the
     prefill logits of the request's prefix through the kernels and through
     the plain versions (``attn_impl="plain"``, the encode too): the kernel
     path's distance from the plain path's at most FP32_LOGITS_RATIO x the
@@ -3477,8 +3485,8 @@ def fp32_checkpoint(torch, ckpt: Path, cfg, tok, inputs: tuple, bf16_ref: dict) 
     reset_serving_launches()
     try:
         t0 = time.perf_counter()
-        pipe.infer_events_batch(*inputs, max_new_tokens=CKPT_NEW)
-        torch.cuda.synchronize()
+        _, check_e = on_path(torch, "checkpoint fp32", lambda: pipe.infer_events_batch(
+            *inputs, max_new_tokens=CKPT_NEW))
         wall = time.perf_counter() - t0
     finally:
         undo()
@@ -3510,7 +3518,7 @@ def fp32_checkpoint(torch, ckpt: Path, cfg, tok, inputs: tuple, bf16_ref: dict) 
            "prefix_tokens": s["prefix_tokens"], "launches": got,
            "logits_fp32_kernel_vs_plain": d32, "logits_bf16_kernel_vs_fp32_plain": d16,
            "greedy_agreement_with_bf16": agree, "greedy_equal_prefix_with_bf16": prefix_agree,
-           "chunked_prefill": chunked}
+           "chunked_prefill": chunked, "check_e": check_e}
     print(f"checkpoint (e''): model_init(dtype=float32) {init_s:.1f} s, card peak {peak:.2f} GiB "
           f"during set-up, float dtypes on the card {sorted(dtypes)}; one request: wall "
           f"{wall:.2f} s, encode {s['encode_s']:.3f} s, prefill {s['prefill_s']:.3f} s, decode "
@@ -5244,14 +5252,15 @@ def main() -> int:
         "flash_attention_bwd_dkv": ("trace_tpu_torch/kernels/csrc/attention_bwd.cu",
                                     "trace_tpu/kernels/flash_backward.py:252"),
     }
-    # the fp32 forms: their own sources, the same TPU kernels
+    # the fp32 forms: their own sources (the decode rows: fp32 instances in
+    # the bf16 rows' sources), the same TPU kernels
     f32_sources = {"flash_attention": "attention_f32.cu", "vit_attention_btd": "attention_f32.cu",
                    "flash_attention_fwd_res": "attention_f32.cu",
                    "flash_attention_bwd_dq": "attention_bwd_f32.cu",
                    "flash_attention_bwd_dkv": "attention_bwd_f32.cu",
-                   "decode_attention": "decode_attention_f32.cu",
-                   "decode_attention_int8_s8dot": "decode_attention_f32.cu",
-                   "decode_attention_int8_dequant": "decode_attention_f32.cu",
+                   "decode_attention": "decode_attention.cu",
+                   "decode_attention_int8_s8dot": "decode_attention_int8.cu",
+                   "decode_attention_int8_dequant": "decode_attention_int8.cu",
                    "quant_matmul": "quant_matmul_f32.cu",
                    "quant_matmul_stacked": "quant_matmul_f32.cu",
                    "quant_matmul_p4": "quant_matmul_f32.cu",

@@ -427,9 +427,9 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
         flash_attention(q, q, q, None, False, q_offset=3)  # an offset needs causal
 
 
-# The fp32 forms (csrc/*_f32.cu: fp32 FMA on the CUDA cores) against their
-# plain versions, which compute the same fp32 steps in another summation
-# order: outputs within 1e-4 + 1e-4 |ref| and ||diff|| / ||ref|| <= 1e-4
+# The fp32 forms (csrc/*_f32.cu and the decode kernels' fp32 instances: fp32
+# FMA on the CUDA cores) against their plain versions, which compute the same
+# fp32 steps in another summation order: outputs within 1e-4 + 1e-4 |ref| and ||diff|| / ||ref|| <= 1e-4
 # (the limits of chip_smoke.py); gradients and weight products in units of
 # max |ref|.
 
@@ -592,20 +592,29 @@ def test_flash_backward_f32_kernels_match_plain(cuda, B, H, Hkv, Tq, Tk, hd, pad
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,HD,S", [(1, 128, 333), (4, 128, 2304), (7, 128, 2304),
-                                    (8, 64, 1100), (16, 128, 500)])
+@pytest.mark.parametrize("G,HD,S,B,NKV", [
+    (1, 128, 333, 3, 2), (4, 128, 2304, 3, 2), (7, 128, 2304, 3, 2), (8, 64, 1100, 3, 2),
+    (16, 128, 500, 3, 2),
+    # the bench's decode batch: the host rule takes C = 2 blocks a (kv head, row)
+    (4, 128, 2304, 32, 8),
+    # there at S = 20000 (5.2 GB of fp32 stripe) a share of 2 would not fit a
+    # block's shared memory, so the rule raises C to 3
+    (4, 128, 20000, 32, 8)])
 @pytest.mark.parametrize("cache", ["f32", "s8dot", "dequant"])
-def test_decode_f32_kernels_match_plain(cuda, cache, G, HD, S):
+def test_decode_f32_kernels_match_plain(cuda, cache, G, HD, S, B, NKV):
     """fp32 q over an fp32 stripe (row 3) or the int8 one (row 3b, both
     modes), any group (more than 8 split by the wrapper), rows with no,
     one and many visible slots."""
     from trace_tpu_torch.model.mistral import _quantize_kv
 
     rng = np.random.default_rng(12)
-    B, NKV = 3, 2
     q = torch.from_numpy(_normal(rng, B, NKV * G, 1, HD)).to(cuda)
-    kf = torch.from_numpy(_normal(rng, B, NKV, S, HD)).to(cuda)
-    vf = torch.from_numpy(_normal(rng, B, NKV, S, HD)).to(cuda)
+    if B * NKV * S * HD > 2 ** 26:  # the long stripe: made on the card
+        gen = torch.Generator(device=cuda).manual_seed(12)
+        kf, vf = (torch.randn((B, NKV, S, HD), generator=gen, device=cuda) for _ in range(2))
+    else:
+        kf = torch.from_numpy(_normal(rng, B, NKV, S, HD)).to(cuda)
+        vf = torch.from_numpy(_normal(rng, B, NKV, S, HD)).to(cuda)
     vis = torch.from_numpy(rng.random((B, S)) < 0.5).to(cuda)
     vis[1] = False
     vis[2] = False
@@ -1331,7 +1340,7 @@ def test_decode_is_one_launch_that_allocates_only_its_output(cuda):
         torch.cuda.synchronize()
     on_device = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(on_device) == 1 and "decode_bf16_kernel" in on_device[0], on_device
+    assert len(on_device) == 1 and "decode_kernel" in on_device[0], on_device
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     out = decode_attention(q, k, v, bias)
@@ -1343,34 +1352,39 @@ def test_decode_is_one_launch_that_allocates_only_its_output(cuda):
 
 # Decode attention at any group G = H / NKV (qwen2-7B's 28 / 4 heads give 7):
 # one launch takes 1 ... 8 query rows a kv head at hd 128, a larger group is
-# split into launches of at most 8. The limits are those above; every call
-# repeats bit for bit and launches once a split.
+# split into launches of at most 8. The limits are those above (the fp32
+# forms': those of test_decode_f32_kernels_match_plain); every call repeats
+# bit for bit and launches once a split. The forms: a bf16 cache, the int8
+# one in either mode, and their fp32 instances (fp32 q; "f32": an fp32 cache).
 ANY_GROUPS = [3, 5, 6, 7, 8, 16]
-DECODE_KERNELS = ["bf16", "s8dot", "dequant"]
+DECODE_KERNELS = ["bf16", "s8dot", "dequant", "f32", "s8dot_f32", "dequant_f32"]
 
 
 def _group_stripe(cuda, kernel, B, NKV, G, S, seed):
-    """q [B, NKV * G, 1, 128] and one layer's stripe, bf16 or int8."""
+    """q [B, NKV * G, 1, 128] and one layer's stripe, bf16, fp32 or int8."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
-    q = torch.randn((B, NKV * G, 1, 128), generator=gen, device=cuda).to(torch.bfloat16)
-    k, v = (torch.randn((B, NKV, S, 128), generator=gen, device=cuda).to(torch.bfloat16)
-            for _ in range(2))
-    if kernel == "bf16":
-        return q, (k, v)
+    dtype = torch.float32 if kernel.endswith("f32") else torch.bfloat16
+    q = torch.randn((B, NKV * G, 1, 128), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((B, NKV, S, 128), generator=gen, device=cuda) for _ in range(2))
+    if kernel in ("bf16", "f32"):
+        return q, (k.to(dtype), v.to(dtype))
     from trace_tpu_torch.model.mistral import _quantize_kv
 
-    (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+    (kq, ks), (vq, vs) = _quantize_kv(k.to(torch.bfloat16)), _quantize_kv(v.to(torch.bfloat16))
     return q, ({"kq": kq, "ks": ks.contiguous(), "vq": vq, "vs": vs.contiguous()}, None)
 
 
 def _group_call(kernel, q, kv, bias, impl="auto"):
-    mode = "s8dot" if kernel == "bf16" else kernel
+    mode = kernel.removesuffix("_f32") if kernel.startswith(("s8dot", "dequant")) else "s8dot"
     return decode_attention(q, kv[0], kv[1], bias, mode=mode, impl=impl)
 
 
 def _launch_count(kernel):
-    return (decode_attention.launches if kernel == "bf16"
-            else decode_attention.launches_int8[kernel])
+    if kernel in ("bf16", "f32"):
+        return decode_attention.launches_f32 if kernel == "f32" else decode_attention.launches
+    if kernel.endswith("_f32"):
+        return decode_attention.launches_int8_f32[kernel.removesuffix("_f32")]
+    return decode_attention.launches_int8[kernel]
 
 
 def _check_group_decode(kernel, q, kv, bias, G):
@@ -1380,7 +1394,10 @@ def _check_group_decode(kernel, q, kv, bias, G):
     assert _launch_count(kernel) == n + (G + 7) // 8
     want = _group_call(kernel, q, kv, bias, impl="plain")
     assert torch.isfinite(got).all()
-    _assert_matches(got, want, ATOL["decode"])
+    if kernel.endswith("f32"):
+        _assert_f32(got, want, atol=2e-3 if kernel == "dequant_f32" else F32_ATOL)
+    else:
+        _assert_matches(got, want, ATOL["decode"])
     assert torch.equal(got, _group_call(kernel, q, kv, bias))  # no atomics
 
 
@@ -1423,7 +1440,7 @@ def test_decode_kernels_at_any_group_launch_once_a_split(cuda, G, kernel):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _group_call(kernel, q, kv, bias)
         torch.cuda.synchronize()
-    name = "decode_bf16_kernel" if kernel == "bf16" else "decode_int8_kernel"
+    name = "decode_kernel" if kernel in ("bf16", "f32") else "decode_int8_kernel"
     kernels = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
     assert len(kernels) == (G + 7) // 8, kernels

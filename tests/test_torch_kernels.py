@@ -108,6 +108,32 @@ def test_decode_plain_matches_pallas_bf16_body():
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
 
 
+# The fp32 body at any group up to the CUDA kernel's 8 rows a launch, on the
+# rows that its fp32 instance takes on paths of their own: a row that sees no
+# slot (every slot then weighs p = 1, the mean of v) and rows that see one.
+@pytest.mark.parametrize("G", [1, 4, 7])
+@pytest.mark.parametrize("mask", ["random", "no_visible", "one_visible"])
+def test_decode_plain_matches_pallas_bf16_body_in_fp32(G, mask):
+    L, B, NKV, S, HD, li = 2, 3, 2, 96, 128, 1
+    rng = np.random.default_rng(50 + G)
+    q = _normal(rng, B, NKV * G, 1, HD)
+    k, v = _normal(rng, L, B, NKV, S, HD), _normal(rng, L, B, NKV, S, HD)
+    visible = rng.random((B, S)) < 0.5
+    if mask == "no_visible":
+        visible[0] = False
+    elif mask == "one_visible":
+        visible[:2] = False
+        visible[0, S // 2 + 3] = visible[1, S - 1] = True
+    bias = np.where(visible, 0.0, -1e30).astype(np.float32)
+    want = np.asarray(jax_decode(jnp.asarray(q), (jnp.asarray(k), jnp.asarray(v)),
+                                 jnp.int32(li), jnp.asarray(bias), interpret=True))
+    assert want.dtype == np.float32
+    got = decode_attention(torch.from_numpy(q), torch.from_numpy(k)[li],
+                           torch.from_numpy(v)[li], torch.from_numpy(bias))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
 # bf16 decode attention at bf16 inputs. The plain version rounds where
 # _kernel_bf16 rounds: p = exp(s - m) to bf16 under the row max, before the
 # division by l (summed over the unrounded p). The two differ only where

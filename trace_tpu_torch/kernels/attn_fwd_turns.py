@@ -15,8 +15,9 @@ column slices of a fused [16, 592, 3072], tq 577). Every version's outputs
 are held bit for bit to this build's, then timed in turns (A B B A; CUDA
 events, median of 20, L2 flushed). Each kernel's registers and spills, and
 those of the fp32 forms (``attention_f32.cu``, ``attention_bwd_f32.cu``,
-``decode_attention_f32.cu``, ``quant_matmul_f32.cu``), are printed as ptxas
-reports them.
+``quant_matmul_f32.cu``; the decode kernels' fp32 instances:
+``decode_bf16_turns --f32``, ``decode_int8_turns --f32``), are printed as
+ptxas reports them.
 """
 
 from __future__ import annotations
@@ -32,8 +33,7 @@ import torch
 from trace_tpu_torch.kernels.build import CSRC
 from trace_tpu_torch.kernels.decode_int8_turns import build, median_ms
 
-F32_SOURCES = ("attention_f32.cu", "attention_bwd_f32.cu", "decode_attention_f32.cu",
-               "quant_matmul_f32.cu")
+F32_SOURCES = ("attention_f32.cu", "attention_bwd_f32.cu", "quant_matmul_f32.cu")
 
 
 def caller(lib, offset_abi: bool, q, k, v, bias, o, lse, *, group, tq, tk, kv_len, causal,

@@ -23,9 +23,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("attention.cu", "attention_bwd.cu", "decode_attention.cu",
            "decode_attention_int8.cu", "quant_matmul.cu", "quant_matmul_p4.cu",
-           # the fp32 forms (CUDA cores), chosen by the wrappers for fp32 operands
-           "attention_f32.cu", "attention_bwd_f32.cu", "decode_attention_f32.cu",
-           "quant_matmul_f32.cu")
+           # the fp32 forms, chosen by the wrappers for fp32 operands (the
+           # decode kernels' fp32 instances live in their bf16 sources)
+           "attention_f32.cu", "attention_bwd_f32.cu", "quant_matmul_f32.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,8 +1,11 @@
-// One decode step of GQA attention over one layer's bf16 KV-cache stripe, for
-// Hopper (sm_90a): bf16 in, bf16 out, fp32 softmax statistics.
+// One decode step of GQA attention over one layer's KV-cache stripe, for
+// Hopper (sm_90a): bf16 in, bf16 out, fp32 softmax statistics; or, for a
+// model served in fp32, fp32 in and out (decode_attn_f32), the same kernel
+// on 4-byte elements.
 //
 // Replaces decode_attention (_kernel_bf16) of
-// trace_tpu/kernels/decode_attention.py. The TPU kernel receives the layer
+// trace_tpu/kernels/decode_attention.py, which computes in the operands'
+// dtype, so in fp32 for fp32 operands. The TPU kernel receives the layer
 // index as a scalar-prefetch operand to select the stripe of the stacked
 // [L, B, NKV, S, hd] cache; here the caller passes the stripe itself, a
 // contiguous [B, NKV, S, hd] view, so the kernel reads it in place. Per
@@ -10,7 +13,8 @@
 //   s = (q . k^T) * scale + bias,  m = max(s),  p = exp(s - m),  l = sum(p),
 //   o = (bf16(p) . v) / max(l, 1e-30),
 // the products and l summed in fp32. p is rounded to bf16 under the row's
-// final max, before the division, as the TPU kernel rounds it.
+// final max, before the division, as the TPU kernel rounds it; over an fp32
+// cache p stays unrounded (the TPU kernel casts p to v's dtype).
 //
 // The step is bound by bytes: each (row, kv head) stripe is read once for G
 // query rows, about 2 flops per byte. So the kernel reads only the K and V
@@ -35,7 +39,8 @@
 //               is visible, since exp(-1e30 - m) underflows). Their K rows
 //               stream through a ring of NSTAGE shared-memory stages (16-byte
 //               cp.async; NSTAGE - 1 tiles in flight while one is scored);
-//               HD / 8 lanes share a K row, 16 bytes each, and sum their G
+//               HD / 8 lanes (fp32: HD / 4) share a K row, 16 bytes each,
+//               and sum their G
 //               partial dots with a reduce-scatter (padded to a power of two
 //               rows); the scores stay in shared
 //               memory. Then the first V tiles' copies start, to land during
@@ -47,8 +52,9 @@
 //               and exchange 1 over every slot: its scores are then exactly
 //               the bias and p = 1 on every slot, as in the TPU kernel;
 //   pass 2:     p = expf(s - m), the block's share of l over the unrounded p,
-//               and P.V with bf16(p) over its V rows through the ring, HD / 4
-//               threads a row (8 bytes each), fp32 partial sums [G, HD];
+//               and P.V with bf16(p) (fp32: p) over its V rows through the
+//               ring, HD / 4 threads a row (4 values each), fp32 partial sums
+//               [G, HD];
 //   exchange 2: every block writes its l into every rank's shared memory and
 //               slice r of its partial sums into rank r's, before a cluster
 //               barrier; rank r sums its slice over the ranks in rank order,
@@ -63,10 +69,15 @@
 // is empty takes part in both exchanges with neutral values (max -inf, sums
 // 0). Nothing is summed with atomics, so a call repeats bit for bit.
 // Shared memory: RING plus 4 G + 8 bytes a slot of the share (scores, bias,
-// slot index): 31 KB at S = 2304, G = 4 and C = 8, 51 KB at C = 2, so four
-// blocks fit an SM at serving lengths. C grows where a share would not fit;
-// past 8 x ~8350 slots (S past ~66000 at G = 4) none does, and the launch
-// fails.
+// slot index), in fp32 as in bf16: 31 KB at S = 2304, G = 4 and C = 8, 51 KB
+// at C = 2, so four blocks fit an SM at serving lengths. C grows where a share
+// would not fit; past 8 x ~8350 slots (S past ~66000 at G = 4) none does, and
+// the launch fails.
+// The fp32 instance keeps the ring's 3 stages of 8 KB: a stage holds 16 fp32
+// K or V rows of hd 128 (bf16: 32), so the bytes in flight a block are the
+// bf16 instance's, and a larger ring would cost the fourth block an SM at
+// C = 2 (decode batch 32), where the block's share of the row already needs
+// 27 KB.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -97,36 +108,77 @@ __device__ __forceinline__ float2 unpack2(unsigned w) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
 
-// the eight bf16 of a 16-byte vector as floats
-__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+// the cache's element (also q's and o's): what differs between the bf16 and
+// the fp32 instance
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<bf16> {
+  static constexpr int VEC = 8;  // values in 16 bytes
+  // the VEC values of a 16-byte vector as floats
+  static __device__ __forceinline__ void unpack(const uint4& v, float (&f)[VEC]) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 p = unpack2(w[i]);
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
+    for (int i = 0; i < 4; ++i) {
+      const float2 p = unpack2(w[i]);
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
   }
-}
+  // four values from p (8 bytes)
+  static __device__ __forceinline__ void load4(const unsigned char* p, float (&f)[4]) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    const float2 f01 = unpack2(w.x), f23 = unpack2(w.y);
+    f[0] = f01.x;
+    f[1] = f01.y;
+    f[2] = f23.x;
+    f[3] = f23.y;
+  }
+  // the weight of v's row in P.V: p cast to v's type
+  static __device__ __forceinline__ float weight(float p) { return bf16_round(p); }
+};
+
+template <>
+struct Elem<float> {
+  static constexpr int VEC = 4;
+  static __device__ __forceinline__ void unpack(const uint4& v, float (&f)[VEC]) {
+    f[0] = __uint_as_float(v.x);
+    f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z);
+    f[3] = __uint_as_float(v.w);
+  }
+  static __device__ __forceinline__ void load4(const unsigned char* p, float (&f)[4]) {
+    const float4 w = *reinterpret_cast<const float4*>(p);
+    f[0] = w.x;
+    f[1] = w.y;
+    f[2] = w.z;
+    f[3] = w.w;
+  }
+  static __device__ __forceinline__ float weight(float p) { return p; }
+};
 
 // dynamic shared memory of a block, in bytes: the ring of staged K or V rows
 // (later the P.V reduction), then per slot of the share (cap = share rounded
-// up to 16): scores [G][cap] fp32 (in pass 2 bf16(p)), bias [cap] fp32, the
+// up to 16): scores [G][cap] fp32 (in pass 2 the weights), bias [cap] fp32, the
 // slot list [cap] int32
 template <int G>
 __host__ __device__ constexpr int smem_per_slot() {
   return G * 4 + 4 + 4;
 }
 
-template <int HD, int G>
+template <typename T, int HD, int G>
 __global__ void __launch_bounds__(NT, blocks_per_sm(G))
-    decode_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const float* __restrict__ bias,
-                       bf16* __restrict__ o, int nkv, int S, int share, float scale) {
-  constexpr int ROW = HD * 2;      // bytes of a K or V row
-  constexpr int LPS = HD / 8;      // pass 1: lanes per K row, 16 bytes each
+    decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  const float* __restrict__ bias, T* __restrict__ o, int nkv, int S, int share,
+                  float scale) {
+  typedef Elem<T> E;
+  constexpr int VEC = E::VEC;      // values of a 16-byte piece of a row
+  constexpr int ROW = HD * sizeof(T);  // bytes of a K or V row
+  constexpr int LPS = HD / VEC;    // pass 1: lanes per K row, 16 bytes each
   constexpr int SPI = NT / LPS;    // pass 1: rows per block iteration
   constexpr int R = 2;             // pass 1: rows a lane group scores together
-  constexpr int LPR = HD / 4;      // pass 2: threads per V row, 8 bytes each
+  constexpr int LPR = HD / 4;      // pass 2: threads per V row, 4 values each
   constexpr int RW = NT / LPR;     // pass 2: rows per block iteration
   constexpr int TR = STAGE / ROW;  // rows per tile of the ring
   constexpr int GP = pow2_ceil(G);  // pass 1: query rows padded for the reduce-scatter
@@ -148,7 +200,7 @@ __global__ void __launch_bounds__(NT, blocks_per_sm(G))
   const int cap = (share + 15) & ~15;
   unsigned char* ring = dyn;
   float* red = reinterpret_cast<float*>(dyn);        // [RW][GR][HD], after the last V tile
-  float* sc = reinterpret_cast<float*>(dyn + RING);  // scores, then bf16(p)
+  float* sc = reinterpret_cast<float*>(dyn + RING);  // scores, then the weights
   float* bsh = sc + G * cap;                         // the share's bias
   int* idx = reinterpret_cast<int*>(bsh + cap);      // the slots taken, ascending
 
@@ -164,10 +216,10 @@ __global__ void __launch_bounds__(NT, blocks_per_sm(G))
   // q and the share's bias (contiguous) in flight together
   const int j0 = min(S, rank * share), j1 = min(S, j0 + share);
   const int sub = tid % LPS, grp = tid / LPS;
-  float qr[G][8];  // columns sub * 8 .. sub * 8 + 7 of every query row
+  float qr[G][VEC];  // columns sub * VEC .. sub * VEC + VEC - 1 of every query row
 #pragma unroll
   for (int g = 0; g < G; ++g)
-    unpack8(*reinterpret_cast<const uint4*>(q + (bn * G + g) * HD + sub * 8), qr[g]);
+    E::unpack(*reinterpret_cast<const uint4*>(q + (bn * G + g) * HD + sub * VEC), qr[g]);
   {
     const float* bb = bias + static_cast<long long>(blockIdx.z) * S;
 #pragma unroll 2
@@ -178,8 +230,8 @@ __global__ void __launch_bounds__(NT, blocks_per_sm(G))
   // pass 1 and exchange 1, in up to two rounds: first over the visible
   // slots only, then, only if the whole row has no visible slot, over every
   // slot
-  const bf16* kb = k + bn * S * HD;
-  const bf16* vb = v + bn * S * HD;
+  const T* kb = k + bn * S * HD;
+  const T* vb = v + bn * S * HD;
   int nv = 0;
   float m[G];
   for (int round = 0;; ++round) {
@@ -208,14 +260,14 @@ __global__ void __launch_bounds__(NT, blocks_per_sm(G))
           const uint4 kv = kr < k1
               ? *reinterpret_cast<const uint4*>(tile + (kr - k0) * ROW + sub * 16)
               : make_uint4(0, 0, 0, 0);
-          float kf[8];
-          unpack8(kv, kf);
+          float kf[VEC];
+          E::unpack(kv, kf);
 #pragma unroll
           for (int g = 0; g < GP; ++g) {
             a[u][g] = 0.f;
             if (g < G) {
 #pragma unroll
-              for (int e = 0; e < 8; ++e) a[u][g] += qr[g][e] * kf[e];
+              for (int e = 0; e < VEC; ++e) a[u][g] += qr[g][e] * kf[e];
             }
           }
         }
@@ -273,7 +325,7 @@ __global__ void __launch_bounds__(NT, blocks_per_sm(G))
   }
 
   // pass 2: p = exp(s - m) and this block's share of l over the unrounded
-  // p; the weights bf16(p) replace the scores
+  // p; the weights (p cast to v's type) replace the scores
   float ls[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) ls[g] = 0.f;
@@ -282,7 +334,7 @@ __global__ void __launch_bounds__(NT, blocks_per_sm(G))
     for (int g = 0; g < G; ++g) {
       const float p = expf(sc[g * cap + kr] - m[g]);
       ls[g] += p;
-      sc[g * cap + kr] = bf16_round(p);
+      sc[g * cap + kr] = E::weight(p);
     }
   }
 #pragma unroll
@@ -308,15 +360,13 @@ __global__ void __launch_bounds__(NT, blocks_per_sm(G))
     const int k0 = t * TR, k1 = min(nv, k0 + TR);
     const unsigned char* tile = ring + (t % NSTAGE) * STAGE;
     for (int kr = k0 + worker; kr < k1; kr += RW) {
-      const uint2 w = *reinterpret_cast<const uint2*>(tile + (kr - k0) * ROW + d0 * 2);
-      const float2 f01 = unpack2(w.x), f23 = unpack2(w.y);
+      float f[4];
+      E::load4(tile + (kr - k0) * ROW + d0 * sizeof(T), f);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float pw = sc[g * cap + kr];
-        acc[g][0] += pw * f01.x;
-        acc[g][1] += pw * f01.y;
-        acc[g][2] += pw * f23.x;
-        acc[g][3] += pw * f23.y;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[g][e] += pw * f[e];
       }
     }
   }
@@ -364,55 +414,69 @@ __global__ void __launch_bounds__(NT, blocks_per_sm(G))
       sum += rx_part[r * per + t];
       l += rx_l[r][g];
     }
-    o[bn * G * HD + i] = __float2bfloat16(__fdiv_rn(sum, fmaxf(l, 1e-30f)));
+    store_out(o + bn * G * HD + i, __fdiv_rn(sum, fmaxf(l, 1e-30f)));
   }
 }
 
-template <int HD, int G>
-int launch(const bf16* q, const bf16* k, const bf16* v, const float* bias, bf16* o, int B,
-           int nkv, int S, float scale, cudaStream_t stream) {
+template <typename T, int HD, int G>
+int launch(const T* q, const T* k, const T* v, const float* bias, T* o, int B, int nkv, int S,
+           float scale, cudaStream_t stream) {
   const int C = cluster_blocks(S, B * nkv, MIN_SHARE, SMS * blocks_per_sm(G), MAX_DYNAMIC_SMEM,
                                RING, smem_per_slot<G>());
   const int share = (S + C - 1) / C;
   const size_t smem = RING + static_cast<size_t>((share + 15) & ~15) * smem_per_slot<G>();
-  return launch_clusters(decode_bf16_kernel<HD, G>, C, nkv, B, NT, smem, stream, q, k, v,
-                         bias, o, nkv, S, share, scale);
+  return launch_clusters(decode_kernel<T, HD, G>, C, nkv, B, NT, smem, stream, q, k, v, bias,
+                         o, nkv, S, share, scale);
 }
 
-template <int HD>
-int dispatch_group(const bf16* q, const bf16* k, const bf16* v, const float* bias, bf16* o,
-                   int B, int nkv, int G, int S, float scale, cudaStream_t s) {
+template <typename T, int HD>
+int dispatch_group(const T* q, const T* k, const T* v, const float* bias, T* o, int B, int nkv,
+                   int G, int S, float scale, cudaStream_t s) {
   switch (G) {
-    case 1: return launch<HD, 1>(q, k, v, bias, o, B, nkv, S, scale, s);
-    case 2: return launch<HD, 2>(q, k, v, bias, o, B, nkv, S, scale, s);
-    case 4: return launch<HD, 4>(q, k, v, bias, o, B, nkv, S, scale, s);
+    case 1: return launch<T, HD, 1>(q, k, v, bias, o, B, nkv, S, scale, s);
+    case 2: return launch<T, HD, 2>(q, k, v, bias, o, B, nkv, S, scale, s);
+    case 4: return launch<T, HD, 4>(q, k, v, bias, o, B, nkv, S, scale, s);
     default: break;
   }
   if constexpr (HD == 128) {
     switch (G) {
-      case 3: return launch<HD, 3>(q, k, v, bias, o, B, nkv, S, scale, s);
-      case 5: return launch<HD, 5>(q, k, v, bias, o, B, nkv, S, scale, s);
-      case 6: return launch<HD, 6>(q, k, v, bias, o, B, nkv, S, scale, s);
-      case 7: return launch<HD, 7>(q, k, v, bias, o, B, nkv, S, scale, s);
-      case 8: return launch<HD, 8>(q, k, v, bias, o, B, nkv, S, scale, s);
+      case 3: return launch<T, HD, 3>(q, k, v, bias, o, B, nkv, S, scale, s);
+      case 5: return launch<T, HD, 5>(q, k, v, bias, o, B, nkv, S, scale, s);
+      case 6: return launch<T, HD, 6>(q, k, v, bias, o, B, nkv, S, scale, s);
+      case 7: return launch<T, HD, 7>(q, k, v, bias, o, B, nkv, S, scale, s);
+      case 8: return launch<T, HD, 8>(q, k, v, bias, o, B, nkv, S, scale, s);
       default: break;
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const float* bias, void* o, int B,
+             int nkv, int G, int S, int hd, float scale, void* stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(o);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (S < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd == 128) return dispatch_group<T, 128>(qt, kt, vt, bias, ot, B, nkv, G, S, scale, s);
+  if (hd == 64) return dispatch_group<T, 64>(qt, kt, vt, bias, ot, B, nkv, G, S, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
+// q, o [B, nkv * G, hd]; k, v [B, nkv, S, hd]; bias [B, S] fp32; all
+// contiguous, in bf16, or all in fp32 for decode_attn_f32
 extern "C" int decode_attn_bf16(const void* q, const void* k, const void* v,
                                 const float* bias, void* o, int B, int nkv, int G, int S,
                                 int hd, float scale, void* stream) {
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  bf16* ob = static_cast<bf16*>(o);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (S < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (hd == 128) return dispatch_group<128>(qb, kb, vb, bias, ob, B, nkv, G, S, scale, s);
-  if (hd == 64) return dispatch_group<64>(qb, kb, vb, bias, ob, B, nkv, G, S, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<bf16>(q, k, v, bias, o, B, nkv, G, S, hd, scale, stream);
+}
+
+extern "C" int decode_attn_f32(const void* q, const void* k, const void* v, const float* bias,
+                               void* o, int B, int nkv, int G, int S, int hd, float scale,
+                               void* stream) {
+  return dispatch<float>(q, k, v, bias, o, B, nkv, G, S, hd, scale, stream);
 }

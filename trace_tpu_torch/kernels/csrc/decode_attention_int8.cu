@@ -1,6 +1,7 @@
 // One decode step of GQA attention over one layer's int8 KV-cache stripe, for
 // Hopper (sm_90a): bf16 q, int8 K/V with one bf16 scale per (row, kv head,
-// slot), bf16 out.
+// slot), bf16 out; or, for a model served in fp32, fp32 q and out
+// (decode_attn_int8_f32_*), the same kernel with q read as fp32.
 //
 // Replaces the int8 bodies of decode_attention of
 // trace_tpu/kernels/decode_attention.py, in two modes:
@@ -9,6 +10,9 @@
 //           quantized to int8 and both products run s8 x s8 -> s32;
 //   dequant (_kernel_int8): K/V are converted to bf16 values, the products
 //           sum in fp32, the weights (bf16(p) * vs) are rounded to bf16.
+// With an fp32 q, s8dot quantizes q from its fp32 values and dequant rounds
+// q to bf16 as it loads it; the output is written in fp32 (the TPU kernel
+// computes in q's dtype).
 // The caller passes layer li's stripes (contiguous views of the stacked
 // cache), where the TPU kernel selects them through a scalar-prefetch index.
 //
@@ -70,7 +74,8 @@
 // with the _rn intrinsics so that the compiler fuses no multiply with an add,
 // and the values equal the plain version's bit for bit wherever expf and the
 // plain version's exp agree (only l's summation order differs besides).
-// Shared memory: RING (16 KB) plus 28 bytes a slot of the share at G = 4
+// Shared memory (the same for either q): RING (16 KB) plus 28 bytes a slot of
+// the share at G = 4
 // (24 KB at S = 2304 and C = 8, 48 KB at C = 2), so four blocks fit an SM at
 // serving lengths. C grows where a share would not fit; past 8 x ~7400 slots
 // (S past ~59000) none does, and the launch fails.
@@ -125,6 +130,29 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// a value of q as fp32
+__device__ __forceinline__ float q_value(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float q_value(float x) { return x; }
+
+// dequant: the 8 values of q from p (16-byte aligned) as bf16 values
+__device__ __forceinline__ void load_q8(const bf16* p, float (&f)[8]) {
+  const uint4 h = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned hw = word(h, i);
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hw));
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+__device__ __forceinline__ void load_q8(const float* p, float (&f)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = bf16_round(x[i]);
+}
+
 // dynamic shared memory of a block, in bytes: the ring of staged K or V rows
 // (later the P.V reduction), then per slot of the share (cap = share rounded
 // up to 16): scores [G][cap] fp32, bias [cap] fp32 (in pass 3 s8dot's
@@ -139,12 +167,12 @@ __host__ __device__ constexpr int smem_per_slot() {
   return G * 4 + bias_bytes<G>() + 4 + 2 * 2;
 }
 
-template <int HD, int G, int MODE>
+template <typename TQ, int HD, int G, int MODE>
 __global__ void __launch_bounds__(NT, blocks_per_sm(G))
-    decode_int8_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ kq,
+    decode_int8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ kq,
                        const bf16* __restrict__ ks, const int8_t* __restrict__ vq,
                        const bf16* __restrict__ vs, const float* __restrict__ bias,
-                       bf16* __restrict__ o, int nkv, int S, int share, float scale) {
+                       TQ* __restrict__ o, int nkv, int S, int share, float scale) {
   constexpr int BPL = MODE == S8DOT ? 16 : 8;  // pass 1: bytes of a K row per lane
   constexpr int LPS = HD / BPL;  // pass 1: lanes per K row
   constexpr int SPI = NT / LPS;  // pass 1: rows per block iteration
@@ -208,20 +236,11 @@ __global__ void __launch_bounds__(NT, blocks_per_sm(G))
 #pragma unroll
     for (int u = 0; u < QPT; ++u) {
       const int i = tid + u * NT;
-      qv[u] = i < G * HD ? __bfloat162float(q[bn * G * HD + i]) : 0.f;
+      qv[u] = i < G * HD ? q_value(q[bn * G * HD + i]) : 0.f;
     }
   } else {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const uint4 h = *reinterpret_cast<const uint4*>(q + bn * G * HD + g * HD + sub * BPL);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const unsigned hw = word(h, i);
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hw));
-        qr[g][2 * i] = f.x;
-        qr[g][2 * i + 1] = f.y;
-      }
-    }
+    for (int g = 0; g < G; ++g) load_q8(q + bn * G * HD + g * HD + sub * BPL, qr[g]);
   }
   {
     const float* bb = bias + static_cast<long long>(blockIdx.z) * S;
@@ -545,69 +564,75 @@ __global__ void __launch_bounds__(NT, blocks_per_sm(G))
     }
     float v = static_cast<float>(sum);
     if constexpr (MODE == S8DOT) v = __fmul_rn(v, psg);
-    o[bn * G * HD + i] = __float2bfloat16(__fdiv_rn(v, fmaxf(lg, 1e-30f)));
+    store_out(o + bn * G * HD + i, __fdiv_rn(v, fmaxf(lg, 1e-30f)));
   }
 }
 
+template <typename TQ>
 struct Args {
-  const bf16* q; const int8_t* kq; const bf16* ks; const int8_t* vq; const bf16* vs;
-  const float* bias; bf16* o;
+  const TQ* q; const int8_t* kq; const bf16* ks; const int8_t* vq; const bf16* vs;
+  const float* bias; TQ* o;
   int B, nkv, S; float scale; cudaStream_t stream;
 };
 
-template <int HD, int G, int MODE>
-int launch(const Args& a) {
+template <typename TQ, int HD, int G, int MODE>
+int launch(const Args<TQ>& a) {
   const int C = cluster_blocks(a.S, a.B * a.nkv, MIN_SHARE, SMS * blocks_per_sm(G),
                                MAX_DYNAMIC_SMEM, RING, smem_per_slot<G>());
   const int share = (a.S + C - 1) / C;
   const size_t smem =
       RING + static_cast<size_t>((share + 15) & ~15) * smem_per_slot<G>();
-  return launch_clusters(decode_int8_kernel<HD, G, MODE>, C, a.nkv, a.B, NT, smem, a.stream,
+  return launch_clusters(decode_int8_kernel<TQ, HD, G, MODE>, C, a.nkv, a.B, NT, smem, a.stream,
                          a.q, a.kq, a.ks, a.vq, a.vs, a.bias, a.o, a.nkv, a.S, share,
                          a.scale);
 }
 
-template <int HD, int MODE>
-int dispatch_group(const Args& a, int G) {
+template <typename TQ, int HD, int MODE>
+int dispatch_group(const Args<TQ>& a, int G) {
   switch (G) {
-    case 1: return launch<HD, 1, MODE>(a);
-    case 2: return launch<HD, 2, MODE>(a);
-    case 4: return launch<HD, 4, MODE>(a);
+    case 1: return launch<TQ, HD, 1, MODE>(a);
+    case 2: return launch<TQ, HD, 2, MODE>(a);
+    case 4: return launch<TQ, HD, 4, MODE>(a);
     default: break;
   }
   if constexpr (HD == 128) {
     switch (G) {
-      case 3: return launch<HD, 3, MODE>(a);
-      case 5: return launch<HD, 5, MODE>(a);
-      case 6: return launch<HD, 6, MODE>(a);
-      case 7: return launch<HD, 7, MODE>(a);
-      case 8: return launch<HD, 8, MODE>(a);
+      case 3: return launch<TQ, HD, 3, MODE>(a);
+      case 5: return launch<TQ, HD, 5, MODE>(a);
+      case 6: return launch<TQ, HD, 6, MODE>(a);
+      case 7: return launch<TQ, HD, 7, MODE>(a);
+      case 8: return launch<TQ, HD, 8, MODE>(a);
       default: break;
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int MODE>
-int dispatch(const Args& a, int G, int hd) {
+template <typename TQ, int MODE>
+int dispatch(const Args<TQ>& a, int G, int hd) {
   if (a.S < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (hd == 128) return dispatch_group<128, MODE>(a, G);
-  if (hd == 64) return dispatch_group<64, MODE>(a, G);
+  if (hd == 128) return dispatch_group<TQ, 128, MODE>(a, G);
+  if (hd == 64) return dispatch_group<TQ, 64, MODE>(a, G);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-#define DECODE_ATTN_INT8_ENTRY(NAME, MODE)                                          \
+// q, o [B, nkv * G, hd] in TQ (bf16, or fp32 for the *_f32_* entries); kq, vq
+// [B, nkv, S, hd] int8; ks, vs [B, nkv, 1, S] bf16; bias [B, S] fp32; all
+// contiguous
+#define DECODE_ATTN_INT8_ENTRY(NAME, TQ, MODE)                                        \
   extern "C" int NAME(const void* q, const void* kq, const void* ks, const void* vq, \
                       const void* vs, const float* bias, void* o, int B, int nkv,    \
                       int G, int S, int hd, float scale, void* stream) {             \
-    const Args a = {static_cast<const bf16*>(q), static_cast<const int8_t*>(kq),     \
-                    static_cast<const bf16*>(ks), static_cast<const int8_t*>(vq),    \
-                    static_cast<const bf16*>(vs), bias, static_cast<bf16*>(o), B,    \
-                    nkv, S, scale, static_cast<cudaStream_t>(stream)};               \
-    return dispatch<MODE>(a, G, hd);                                                 \
+    const Args<TQ> a = {static_cast<const TQ*>(q), static_cast<const int8_t*>(kq),   \
+                        static_cast<const bf16*>(ks), static_cast<const int8_t*>(vq),\
+                        static_cast<const bf16*>(vs), bias, static_cast<TQ*>(o), B,  \
+                        nkv, S, scale, static_cast<cudaStream_t>(stream)};           \
+    return dispatch<TQ, MODE>(a, G, hd);                                             \
   }
 
-DECODE_ATTN_INT8_ENTRY(decode_attn_int8_s8dot, S8DOT)
-DECODE_ATTN_INT8_ENTRY(decode_attn_int8_dequant, DEQUANT)
+DECODE_ATTN_INT8_ENTRY(decode_attn_int8_s8dot, bf16, S8DOT)
+DECODE_ATTN_INT8_ENTRY(decode_attn_int8_dequant, bf16, DEQUANT)
+DECODE_ATTN_INT8_ENTRY(decode_attn_int8_f32_s8dot, float, S8DOT)
+DECODE_ATTN_INT8_ENTRY(decode_attn_int8_f32_dequant, float, DEQUANT)

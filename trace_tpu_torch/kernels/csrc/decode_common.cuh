@@ -4,13 +4,15 @@
 // r owning a contiguous share of the slots, the row's statistics exchanged
 // through distributed shared memory. Here: the split cluster barrier, the
 // cp.async ring that streams the listed K or V rows, the list of the slots a
-// block takes, a reduce-scatter over the lanes of a row, and the host's rule
+// block takes, a reduce-scatter over the lanes of a row, the output's store
+// in q's type (bf16, or fp32 for a model served in fp32), and the host's rule
 // for C and the cluster launch. Both kernels take G = 1 ... 8 query rows a kv
 // head at hd 128 (1, 2 or 4 at hd 64); the wrappers split a larger group into
 // launches of at most 8 rows.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -32,6 +34,12 @@ __host__ __device__ constexpr int pow2_ceil(int g) {
 __host__ __device__ constexpr int blocks_per_sm(int g) {
   return g > 4 ? 2 : 4;
 }
+
+// an output value in q's type
+__device__ __forceinline__ void store_out(__nv_bfloat16* o, float x) {
+  *o = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store_out(float* o, float x) { *o = x; }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));

@@ -1,5 +1,5 @@
 """Decode-step attention over one layer's KV-cache stripe: wrapper of the
-CUDA kernels in csrc/decode_attention.cu (bf16 cache) and
+CUDA kernels in csrc/decode_attention.cu (bf16 or fp32 cache) and
 csrc/decode_attention_int8.cu (int8 cache), and their plain PyTorch versions.
 
 Replaces trace_tpu/kernels/decode_attention.py ``decode_attention`` with its
@@ -24,11 +24,11 @@ sources. A launch takes G = 1 ... 8 query rows a kv head at hd 128 (1, 2 or
 takes) into launches of at most that many rows, each on a contiguous copy of
 its rows of q, and writes each launch's rows into the output.
 
-An fp32 query (a model served in fp32) takes the fp32 forms of
-csrc/decode_attention_f32.cu over an fp32 cache or the int8 one: one block
-per (kv head, batch row), fp32 FMA on the CUDA cores, the scores through a
-scratch [B, H, S] the wrapper allocates (see the source); G up to 8 a
-launch, split as above.
+An fp32 query (a model served in fp32) takes the fp32 instances of the same
+two kernels, over an fp32 cache or the int8 one: the same cluster launch on
+4-byte elements, p unrounded over an fp32 cache, q quantized from its fp32
+values (s8dot) or rounded to bf16 (dequant) over the int8 one, the output
+in fp32; the wrapper allocates only the output here too.
 
 On a CUDA tensor the wrapper launches its kernel or raises; the plain
 version runs for CPU tensors, or when the caller passes ``impl="plain"``.
@@ -48,7 +48,6 @@ from trace_tpu_torch.kernels.build import count_launch
 
 _SOURCE = "decode_attention.cu"
 _SOURCE_INT8 = "decode_attention_int8.cu"
-_SOURCE_F32 = "decode_attention_f32.cu"
 INT8_MODES = ("s8dot", "dequant")
 MAX_GROUP = 8  # query rows a kv head that one launch takes (hd 128)
 
@@ -194,18 +193,16 @@ def _decode_attention_int8(q, cache: dict, bias_row, mode: str, impl: str):
     from trace_tpu_torch.kernels.build import check, load
 
     name = f"decode_attn_int8_f32_{mode}" if f32 else f"decode_attn_int8_{mode}"
-    fn = getattr(load(_SOURCE_F32 if f32 else _SOURCE_INT8), name)
+    fn = getattr(load(_SOURCE_INT8), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * (7 + f32) + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 
     def launch(qp, G):
-        o = torch.empty_like(qp)  # bf16: the kernel's only allocation, no workspace
-        scratch = (torch.empty((B, NKV * G, S), dtype=torch.float32, device=q.device),) * f32
+        o = torch.empty_like(qp)  # the kernel's only allocation, no workspace
         err = fn(
             qp.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-            bias_row.data_ptr(), o.data_ptr(), *(t.data_ptr() for t in scratch),
-            B, NKV, G, S, hd, float(hd ** -0.5), torch.cuda.current_stream(q.device).cuda_stream,
+            bias_row.data_ptr(), o.data_ptr(), B, NKV, G, S, hd, float(hd ** -0.5),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
         check(err, name)
         count_launch(decode_attention, "launches_int8_f32" if f32 else "launches_int8", mode)
@@ -252,18 +249,16 @@ def decode_attention(
     from trace_tpu_torch.kernels.build import check, load
 
     name = "decode_attn_f32" if f32 else "decode_attn_bf16"
-    fn = getattr(load(_SOURCE_F32 if f32 else _SOURCE), name)
+    fn = getattr(load(_SOURCE), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * (5 + f32) + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 
     def launch(qp, G):
-        o = torch.empty_like(qp)  # bf16: the kernel's only allocation, no workspace
-        scratch = (torch.empty((B, NKV * G, S), dtype=torch.float32, device=q.device),) * f32
+        o = torch.empty_like(qp)  # the kernel's only allocation, no workspace
         err = fn(
             qp.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), bias_row.data_ptr(),
-            o.data_ptr(), *(t.data_ptr() for t in scratch), B, NKV, G, S, hd,
-            float(hd ** -0.5), torch.cuda.current_stream(q.device).cuda_stream,
+            o.data_ptr(), B, NKV, G, S, hd, float(hd ** -0.5),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
         check(err, name)
         count_launch(decode_attention, "launches_f32" if f32 else "launches")

@@ -2,7 +2,7 @@
 on the card.
 
     python -m trace_tpu_torch.kernels.decode_bf16_turns [--against NAME=PATH.cu ...]
-        [--group G] [--kv-heads N]
+        [--group G] [--kv-heads N] [--f32]
 
 Builds ``csrc/decode_attention.cu`` as it is (``this``) and each source
 named by ``--against`` (say an earlier commit's copy, unpacked with
@@ -15,13 +15,18 @@ slots); last at the shape of the decode step that ``chip_smoke.py`` profiles
 (B = 2, S = 2049: a prefill of 2048 slots, left padding, then the new
 slot). ``--group`` and ``--kv-heads`` set G and the kv heads (qwen2-7B:
 ``--group 7 --kv-heads 4``); ptxas's registers and spills of every kernel of
-the source are printed. CUDA events, median of 20 with the L2 flushed before each run; the
-versions in turns, forward then backward (A B B A), so that a drift of the
-card shows as a spread and not as a difference. Every version's output is
-held against the plain version first (the limits of ``chip_smoke.py``), and
-SDPA on the same stripe is timed beside them as the yardstick. A source with
-the older two-launch interface (it exports ``decode_attn_chunk``) gets its
-two workspaces from the script, allocated once, outside the timed calls.
+the source are printed. ``--f32`` times the fp32 entry (``decode_attn_f32``:
+fp32 q, cache and out) on an fp32 stripe instead, with the fp32 row's
+limits and SDPA in fp32. CUDA events, median of 20 with the L2 flushed
+before each run; the versions in turns, forward then backward (A B B A), so
+that a drift of the card shows as a spread and not as a difference. Every
+version's output is held against the plain version first (the limits of
+``chip_smoke.py``), and whether it equals this build's bit for bit is
+printed; SDPA on the same stripe is timed beside them as the yardstick. A
+source with an older interface gets its workspaces from the script,
+allocated once, outside the timed calls: the two-launch one (it exports
+``decode_attn_chunk``) two, the one-block-a-pair fp32 source
+(``decode_attention_f32.cu``, which has no bf16 entry) its [B, H, S] scores.
 """
 
 from __future__ import annotations
@@ -38,16 +43,16 @@ import torch.nn.functional as F
 from trace_tpu_torch.kernels.build import CSRC
 from trace_tpu_torch.kernels.decode_attention import decode_attention_bf16
 from trace_tpu_torch.kernels.decode_int8_turns import (
-    ATOL,
     CASES,
     HD,
     NKV,
-    RTOL,
     G,
     S,
     build,
+    limits,
     mask_bias,
     median_ms,
+    report,
 )
 
 # B, S, mask; last the smoke's profiled decode step
@@ -55,16 +60,21 @@ SHAPES = tuple((B, S, mask) for B, mask in CASES) + ((2, 2049, "step"),)
 
 
 def caller(lib, q, k, v, bias):
-    """A function that launches ``lib``'s kernel once into a fixed output."""
+    """A function that launches ``lib``'s kernel once into a fixed output
+    (the fp32 entry for fp32 operands)."""
     B, S = bias.shape
     NKV = k.shape[1]
     G = q.shape[1] // NKV
     o = torch.empty_like(q)
-    fn = lib.decode_attn_bf16
+    f32 = q.dtype == torch.float32
+    fn = lib.decode_attn_f32 if f32 else lib.decode_attn_bf16
     fn.restype = ctypes.c_int
     args = [t.data_ptr() for t in (q, k, v, bias, o)]
     ws = []
-    if hasattr(lib, "decode_attn_chunk"):  # the two-launch interface
+    if f32 and not hasattr(lib, "decode_attn_bf16"):  # the scratch interface
+        ws = [torch.empty((B, NKV * G, S), dtype=torch.float32, device="cuda")]
+        args += [ws[0].data_ptr()]
+    elif hasattr(lib, "decode_attn_chunk"):  # the two-launch interface
         lib.decode_attn_chunk.restype = ctypes.c_int
         lib.decode_attn_chunk.argtypes = []
         nchunk = -(-S // lib.decode_attn_chunk())
@@ -90,6 +100,7 @@ def main() -> int:
     ap.add_argument("--against", action="append", default=[], metavar="NAME=PATH.cu")
     ap.add_argument("--group", type=int, default=G, help="query rows a kv head (1 ... 8)")
     ap.add_argument("--kv-heads", type=int, default=NKV)
+    ap.add_argument("--f32", action="store_true", help="the fp32 entry: fp32 q, cache and out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("decode_bf16_turns: no CUDA device", file=sys.stderr)
@@ -102,29 +113,29 @@ def main() -> int:
         sources[name] = Path(path)
     libs = build(sources, "decode_bf16_turns", ptxas=True)
     nkv, group = args.kv_heads, args.group
-    print(f"{nkv} kv heads, G = {group}", flush=True)
+    dtype = torch.float32 if args.f32 else torch.bfloat16
+    print(f"{nkv} kv heads, G = {group}, {dtype}", flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for B, S, mask in SHAPES:
-        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
                    for shape in ((B, nkv * group, 1, HD), (B, nkv, S, HD), (B, nkv, S, HD)))
         bias = mask_bias(g, B, mask, S)
-        attn_mask = bias[:, None, None, :].to(torch.bfloat16)
+        attn_mask = bias[:, None, None, :].to(dtype)
         sdpa = median_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, enable_gqa=True), flush)
         visible = int((bias == 0).sum().item())
-        nbytes = (2 * q.numel() + 2 * visible * nkv * HD) * 2 + bias.numel() * 4
+        nbytes = (2 * q.numel() + 2 * visible * nkv * HD) * q.element_size() + bias.numel() * 4
         print(f"B = {B}, S = {S}, {mask} mask: SDPA {sdpa:.4f} ms; byte bound "
               f"{nbytes / 3.35e12 * 1e3:.4f} ms", flush=True)
         ref = decode_attention_bf16(q, k, v, bias).float()
         runs = {name: caller(lib, q, k, v, bias) for name, lib in libs.items()}
+        first = None
         for name, run in runs.items():
-            diff = (run().float() - ref).abs()
+            got = run().clone()
             torch.cuda.synchronize()
-            excess = (diff - ATOL - RTOL * ref.abs()).max().item()
-            print(f"  {name}: max_abs_err {diff.max().item():.6f}, excess {excess:.6f}",
-                  flush=True)
-            if excess > 0:
+            first = first or (name, got)
+            if not report("", name, got, ref, first, limits("bf16", args.f32)):
                 print(f"decode_bf16_turns: {name} disagrees with the plain version", flush=True)
                 return 1
         times = {name: [] for name in runs}

@@ -2,7 +2,7 @@
 on the card.
 
     python -m trace_tpu_torch.kernels.decode_int8_turns [--against NAME=PATH.cu ...]
-        [--group G] [--kv-heads N]
+        [--group G] [--kv-heads N] [--f32]
 
 Builds ``csrc/decode_attention_int8.cu`` as it is (``this``) and each source
 named by ``--against`` (say an earlier commit's copy, unpacked with
@@ -13,14 +13,18 @@ half the slots masked at random, at B = 4 and at B = 32 (the bench's decode
 batch), and at B = 32 with serving-shaped masks (left padding, a visible
 prefix, masked future slots). ``--group`` and ``--kv-heads`` set G and the kv
 heads (qwen2-7B: ``--group 7 --kv-heads 4``); ptxas's registers and spills
-of every kernel of the source are printed. CUDA events, median of 20 with the L2 flushed
+of every kernel of the source are printed. ``--f32`` times the fp32 entries
+(``decode_attn_int8_f32_*``: an fp32 query, fp32 out) instead, with the fp32
+rows' limits and SDPA in fp32. CUDA events, median of 20 with the L2 flushed
 before each run; the versions in turns, forward then backward (A B B A), so
 that a drift of the card shows as a spread and not as a difference. Every
 version's output is held against the plain version first (the limits of
-``chip_smoke.py``), and SDPA on the dequantized stripe is timed beside them
-as the yardstick. A source with the older four-launch interface (it exports
-``decode_attn_int8_chunk``) gets its three workspaces from the script,
-allocated once, outside the timed calls.
+``chip_smoke.py``), and whether it equals this build's bit for bit is
+printed; SDPA on the dequantized stripe is timed beside them as the
+yardstick. A source with an older interface gets its workspaces from the
+script, allocated once, outside the timed calls: the four-launch one (it
+exports ``decode_attn_int8_chunk``) three, the one-block-a-pair fp32 source
+(``decode_attention_f32.cu``, which has no bf16 entry) its [B, H, S] scores.
 """
 
 from __future__ import annotations
@@ -41,6 +45,27 @@ from trace_tpu_torch.kernels.decode_attention import INT8_MODES, _PLAIN_INT8
 NKV, G, S, HD = 8, 4, 2304, 128
 CASES = ((4, "random"), (32, "random"), (32, "serving"))
 ATOL, RTOL = 2e-3, 2 ** -7
+# the fp32 forms' limits in chip_smoke.py (dequant rounds p to bf16 as its
+# plain version does: the bf16 row's atol)
+F32_ATOL = {"bf16": 1e-4, "s8dot": 1e-4, "dequant": 2e-3}
+F32_RTOL = 1e-4
+
+
+def limits(kernel: str, f32: bool) -> tuple:
+    """(atol, rtol) of a decode form: kernel "bf16" (the bf16 or fp32 cache),
+    "s8dot" or "dequant"; its fp32 instance with ``f32``."""
+    return (F32_ATOL[kernel], F32_RTOL) if f32 else (ATOL, RTOL)
+
+
+def report(tag, name, got, ref, first, limit) -> bool:
+    """Print ``got``'s largest error against the plain version's ``ref`` and
+    whether it equals the first version's output bit for bit; False where it
+    passes the limits (atol, rtol)."""
+    diff = (got.float() - ref).abs()
+    excess = (diff - limit[0] - limit[1] * ref.abs()).max().item()
+    print(f"  {tag}{name}: max_abs_err {diff.max().item():.6g}, excess {excess:.6g}, "
+          f"bit-equal to {first[0]}: {torch.equal(got, first[1])}", flush=True)
+    return excess <= 0
 
 
 def build(sources: dict[str, Path], subdir: str = "decode_int8_turns",
@@ -69,16 +94,21 @@ def build(sources: dict[str, Path], subdir: str = "decode_int8_turns",
 
 
 def caller(lib, mode, q, stripe, bias):
-    """A function that launches ``lib``'s kernel once into a fixed output."""
+    """A function that launches ``lib``'s kernel once into a fixed output
+    (the fp32 entry for an fp32 q)."""
     B, NKV = stripe["kq"].shape[:2]
     G = q.shape[1] // NKV
     o = torch.empty_like(q)
-    fn = getattr(lib, f"decode_attn_int8_{mode}")
+    f32 = q.dtype == torch.float32
+    fn = getattr(lib, f"decode_attn_int8_f32_{mode}" if f32 else f"decode_attn_int8_{mode}")
     fn.restype = ctypes.c_int
     args = [q.data_ptr(), *(stripe[n].data_ptr() for n in ("kq", "ks", "vq", "vs")),
             bias.data_ptr(), o.data_ptr()]
     ws = []
-    if hasattr(lib, "decode_attn_int8_chunk"):  # the four-launch interface
+    if f32 and not hasattr(lib, "decode_attn_int8_s8dot"):  # the scratch interface
+        ws = [torch.empty((B, NKV * G, S), dtype=torch.float32, device="cuda")]
+        args += [ws[0].data_ptr()]
+    elif hasattr(lib, "decode_attn_int8_chunk"):  # the four-launch interface
         lib.decode_attn_int8_chunk.restype = ctypes.c_int
         lib.decode_attn_int8_chunk.argtypes = []
         nchunk = -(-S // lib.decode_attn_int8_chunk())
@@ -131,14 +161,15 @@ def mask_bias(g, B, mask="random", S=S):
     return torch.where(visible, 0.0, -1e30).float()
 
 
-def inputs(g, B, mask="random", nkv=NKV, group=G):
+def inputs(g, B, mask="random", nkv=NKV, group=G, dtype=torch.bfloat16):
+    """q [B, nkv * group, 1, HD] in ``dtype``, an int8 stripe and its bias."""
     from trace_tpu_torch.model.mistral import _quantize_kv
 
     stripe = {}
     for vals, scales in (("kq", "ks"), ("vq", "vs")):
         x = torch.randn((B, nkv, S, HD), generator=g, device="cuda").to(torch.bfloat16)
         stripe[vals], stripe[scales] = (t.contiguous() for t in _quantize_kv(x))
-    q = torch.randn((B, nkv * group, 1, HD), generator=g, device="cuda").to(torch.bfloat16)
+    q = torch.randn((B, nkv * group, 1, HD), generator=g, device="cuda").to(dtype)
     return q, stripe, mask_bias(g, B, mask)
 
 
@@ -147,6 +178,7 @@ def main() -> int:
     ap.add_argument("--against", action="append", default=[], metavar="NAME=PATH.cu")
     ap.add_argument("--group", type=int, default=G, help="query rows a kv head (1 ... 8)")
     ap.add_argument("--kv-heads", type=int, default=NKV)
+    ap.add_argument("--f32", action="store_true", help="the fp32 entries: fp32 q and out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("decode_int8_turns: no CUDA device", file=sys.stderr)
@@ -158,32 +190,32 @@ def main() -> int:
         name, _, path = item.partition("=")
         sources[name] = Path(path)
     libs = build(sources, ptxas=True)
-    nkv = args.kv_heads
-    print(f"{nkv} kv heads, G = {args.group}", flush=True)
+    nkv, dtype = args.kv_heads, torch.float32 if args.f32 else torch.bfloat16
+    print(f"{nkv} kv heads, G = {args.group}, q {dtype}", flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for B, mask in CASES:
-        q, stripe, bias = inputs(g, B, mask, nkv, args.group)
-        kd = stripe["kq"].to(torch.bfloat16) * stripe["ks"].transpose(-1, -2)
-        vd = stripe["vq"].to(torch.bfloat16) * stripe["vs"].transpose(-1, -2)
-        attn_mask = bias[:, None, None, :].to(torch.bfloat16)
+        q, stripe, bias = inputs(g, B, mask, nkv, args.group, dtype)
+        kd = stripe["kq"].to(dtype) * stripe["ks"].transpose(-1, -2).to(dtype)
+        vd = stripe["vq"].to(dtype) * stripe["vs"].transpose(-1, -2).to(dtype)
+        attn_mask = bias[:, None, None, :].to(dtype)
         sdpa = median_ms(lambda: F.scaled_dot_product_attention(
             q, kd, vd, attn_mask=attn_mask, enable_gqa=True), flush)
         visible = int((bias == 0).sum().item())
-        nbytes = 2 * q.numel() * 2 + 2 * visible * nkv * (HD + 2) + bias.numel() * 4
+        nbytes = (2 * q.numel() * q.element_size() + 2 * visible * nkv * (HD + 2)
+                  + bias.numel() * 4)
         print(f"B = {B}, {mask} mask: SDPA {sdpa:.4f} ms; byte bound "
               f"{nbytes / 3.35e12 * 1e3:.4f} ms", flush=True)
         for mode in INT8_MODES:
             ref = _PLAIN_INT8[mode](q, stripe["kq"], stripe["ks"], stripe["vq"], stripe["vs"],
                                     bias).float()
             runs = {name: caller(lib, mode, q, stripe, bias) for name, lib in libs.items()}
+            first = None
             for name, run in runs.items():
-                diff = (run().float() - ref).abs()
+                got = run().clone()
                 torch.cuda.synchronize()
-                excess = (diff - ATOL - RTOL * ref.abs()).max().item()
-                print(f"  {mode} {name}: max_abs_err {diff.max().item():.6f}, "
-                      f"excess {excess:.6f}", flush=True)
-                if excess > 0:
+                first = first or (name, got)
+                if not report(f"{mode} ", name, got, ref, first, limits(mode, args.f32)):
                     print(f"decode_int8_turns: {name} disagrees with the plain version",
                           flush=True)
                     return 1
