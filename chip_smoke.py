@@ -29,7 +29,8 @@ Phases, in order; any failure exits non-zero:
      the fp32 form of every row (``*_f32``, csrc/*_f32.cu, fp32 FMA on the
      CUDA cores; the weight products past 8 rows of x two TF32 products on
      the tensor cores, bound against 495 TFLOP/s, the int8 one printed
-     apart; the decode rows the fp32 instances of the bf16 rows' cluster
+     apart; the backward's dq and dk/dv three TF32 products each, bound
+     likewise; the decode rows the fp32 instances of the bf16 rows' cluster
      kernels) at the same shapes in fp32 (the decode rows also at
      B = 32, random and serving masks), bound against the fp32 CUDA-core peak of 67 TFLOP/s,
      yardsticks SDPA in fp32 and ``torch.matmul`` on the dequantized fp32
@@ -268,7 +269,9 @@ KERNEL_TOL = {  # name: (atol, rtol)
     # the plain version in another summation order, so they differ by fp32
     # rounding: attention and decode rows ~1e-6 of their values (limits 1e-4
     # absolute on outputs of a few units, 1e-4 relative), gradients in units
-    # of max |ref| (1e-5); the weight products in units of max |ref|, 1e-5
+    # of max |ref| (1e-5; their products three TF32 products, ~2^-22 of each
+    # fp32 product, each tile's sum promoted into a round-to-nearest one);
+    # the weight products in units of max |ref|, 1e-5
     # (exact products, sums over K <= 14336 terms in another order; the
     # tensor-core form's x as two TF32 parts, within 2^-22 of it). The
     # dequant decode body rounds p to bf16 as the plain version does; where
@@ -499,7 +502,8 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
     prefills W8A8), K4 rows 9-10. Bound: the larger of bytes / 3.35 TB/s
     and operations / 67 TFLOP/s (the fp32 CUDA-core peak), for the
     tensor-core form two products' operations / 495 TFLOP/s (TF32, x split
-    into two TF32 parts; the CUDA-core bound printed beside it);
+    into two TF32 parts; the CUDA-core bound printed beside it), for rows
+    9-10 three products' (both operands split; likewise);
     yardsticks: SDPA in fp32 for the attention rows, ``torch.matmul`` of
     fp32 x with the dequantized fp32 weight for rows 4-7 (TF32 off)."""
     import torch.nn.functional as F
@@ -515,7 +519,7 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
     def row(name, fn, lib, nbytes, ops, reps=20, keep=True, label=None, rows_of=None,
-            peak=FP32_FLOPS_PER_S):
+            peak=FP32_FLOPS_PER_S, tf32_products="two"):
         out, ref = fn(), fn("plain")
         torch.cuda.synchronize()
         outs = out if isinstance(out, tuple) else (out,)
@@ -535,7 +539,7 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
                  plain_ms=median_ms(torch, lambda: fn("plain"), reps),
                  library_ms=median_ms(torch, lib, reps), bound=bound(nbytes, ops, peak))
         peak_name = ("fp32 CUDA-core peak 67" if peak == FP32_FLOPS_PER_S
-                     else f"two TF32 products at {peak / 1e12:.0f}")
+                     else f"{tf32_products} TF32 products at {peak / 1e12:.0f}")
         print(f"  {label or name} (fp32): ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
               f"({r['bound'][1]}; {peak_name} TFLOP/s, "
@@ -593,10 +597,18 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
     product = 2 * H * HD * visible
     io = lambda heads: heads * real * HD * 4
     grads_in = io(2 * H + 2 * HKV) + 2 * stats + tbias.numel() * 4
-    _, dq = row("flash_attention_bwd_dq_f32", lambda impl="auto": fb.flash_attention_bwd_dq(
-        *args, causal=True, impl=impl), lib_bwd, grads_in + io(H), 3 * product, reps=5)
-    _, dkv = row("flash_attention_bwd_dkv_f32", lambda impl="auto": fb.flash_attention_bwd_dkv(
-        *args, causal=True, impl=impl), lib_bwd, grads_in + io(2 * HKV), 4 * product, reps=5)
+    # three TF32 products for each product (both operands split)
+    r, dq = row("flash_attention_bwd_dq_f32", lambda impl="auto": fb.flash_attention_bwd_dq(
+        *args, causal=True, impl=impl), lib_bwd, grads_in + io(H), 9 * product, reps=5,
+        peak=TF32_FLOPS_PER_S, tf32_products="three")
+    core = bound(grads_in + io(H), 3 * product, FP32_FLOPS_PER_S)[0]
+    r2, dkv = row("flash_attention_bwd_dkv_f32", lambda impl="auto": fb.flash_attention_bwd_dkv(
+        *args, causal=True, impl=impl), lib_bwd, grads_in + io(2 * HKV), 12 * product, reps=5,
+        peak=TF32_FLOPS_PER_S, tf32_products="three")
+    core2 = bound(grads_in + io(2 * HKV), 4 * product, FP32_FLOPS_PER_S)[0]
+    print(f"  flash_attention_bwd_dq_f32 + dkv_f32: {r['ms'] + r2['ms']:.4f} ms against SDPA "
+          f"fp32's backward {r['library_ms']:.4f} ms; CUDA-core fp32 bounds {core:.4f} / "
+          f"{core2:.4f} ms", flush=True)
     again = fb.flash_attention_bwd(q, k, v, tbias, o, lse, do, causal=True)
     if not all(torch.equal(a, b) for a, b in zip(dq + dkv, again)):
         fail("flash_attention_bwd (fp32): two runs on the same inputs differ")
@@ -2123,6 +2135,53 @@ def on_path(torch, label: str, run):
                  for r in results.values()}
 
 
+def watch_backward(torch):
+    """Check (e) for rows 9 and 10 in training: ``flash_attention_bwd`` (which
+    ``_FlashAttentionTrainable.backward`` calls) wrapped so that its first
+    call at each input shape is repeated at once, before anything writes over
+    its inputs, through the plain versions of rows 9 and 10 (``impl="plain"``)
+    on the kernel's own delta (the pre-pass again: the same bits), and the
+    pair held to their phase-3 limits in units of max |ref| (rows ``*_f32``
+    for fp32 operands). Returns (results {name at shape: the comparison},
+    undo)."""
+    from trace_tpu_torch.kernels import flash_backward as fb
+
+    orig = fb.flash_attention_bwd
+    results = {}
+
+    def wrapped(q, k, v, mask_bias, o, lse, do, *, causal=False, impl="auto"):
+        out = orig(q, k, v, mask_bias, o, lse, do, causal=causal, impl=impl)
+        shapes = f"q {list(q.shape)}, k {list(k.shape)}"
+        f32 = "_f32" * (q.dtype == torch.float32)
+        if impl != "auto" or not q.is_cuda or ("flash_attention_bwd_dq" + f32, shapes) in results:
+            return out
+        HOLDING["depth"] += 1
+        try:
+            delta = fb.flash_attention_bwd_delta(o, do)
+            refs = (fb.flash_attention_bwd_dq(q, k, v, mask_bias, do, lse, delta, causal=causal,
+                                              impl="plain"),) + fb.flash_attention_bwd_dkv(
+                q, k, v, mask_bias, do, lse, delta, causal=causal, impl="plain")
+        finally:
+            HOLDING["depth"] -= 1
+        for name, got, ref in (("flash_attention_bwd_dq" + f32, out[:1], refs[:1]),
+                               ("flash_attention_bwd_dkv" + f32, out[1:], refs[1:])):
+            parts = []
+            for a, b in zip(got, ref):
+                unit = b.float().abs().max()
+                r = compare(name, a.float() / unit, b.float() / unit)
+                r["err"] *= unit.item()
+                parts.append(r)
+            results[(name, shapes)] = {k: max(r[k] for r in parts)
+                                       for k in ("err", "excess", "rel_norm")}
+        return out
+
+    fb.flash_attention_bwd = wrapped
+
+    def undo():
+        fb.flash_attention_bwd = orig
+    return results, undo
+
+
 def corpus_phase(torch):
     """Phase 5: the bench's serving workload, cut to CORPUS_VIDEOS videos and
     CORPUS_LAYERS layers, through the port's entry points
@@ -2623,8 +2682,10 @@ def fp32_lora_steps(torch, data, tmp: Path) -> tuple:
     SFT_LAYERS layers (TraceConfig(dtype=float32), the rank-128 adapters of
     phase 6): the training attention through the fp32 forms of rows 2, 8, 9
     and 10 (K1 and K4), as many launches as the bf16 stage's, no bf16 form
-    and no plain version on the card, finite losses, the adapters moved.
-    Returns (launches over the run, stats)."""
+    and no plain version on the card, finite losses, the adapters moved;
+    check (e) of rows 9 and 10 on the step's own inputs (``watch_backward``;
+    its plain reference counts in the peak). Returns (launches over the
+    run, stats)."""
     from trace_tpu_torch.kernels import flash_backward as fb
     from trace_tpu_torch.kernels.flash_attention import flash_attention, vit_attention_btd
     from trace_tpu_torch.train.train import TrainRecipe, train_loop, tree_paths
@@ -2642,6 +2703,7 @@ def fp32_lora_steps(torch, data, tmp: Path) -> tuple:
     log = tmp / "train_lora_f32.jsonl"
     log.unlink(missing_ok=True)
     plain, undo = watch_plain(torch)
+    held, undo_held = watch_backward(torch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2650,8 +2712,22 @@ def fp32_lora_steps(torch, data, tmp: Path) -> tuple:
                    batch_size=VIDEOS, log_every=1, metrics_path=str(log))
         torch.cuda.synchronize()
     finally:
+        undo_held()
         undo()
     wall = time.perf_counter() - t0
+    bad = []
+    for (name, shapes), r in held.items():
+        atol, rtol = KERNEL_TOL[name]
+        norm = NORM_TOL.get(name, REL_NORM_TOL)
+        print(f"train lora fp32 check (e): {name} on [{shapes}]: max_abs_err={r['err']:.6g} "
+              f"excess={r['excess']:.3g} (|diff| <= {atol} + {rtol} |ref|, units of max |ref|) "
+              f"rel_norm_err={r['rel_norm']:.3g} (<= {norm})", flush=True)
+        if not (r["excess"] <= 0 and r["rel_norm"] <= norm):
+            bad.append(f"{name} on [{shapes}]")
+    if {name for name, _ in held} != {"flash_attention_bwd_dq_f32",
+                                      "flash_attention_bwd_dkv_f32"} or bad:
+        fail(f"train lora fp32 (e): rows 9 and 10 not held on the step's inputs, or kernel and "
+             f"plain version disagree: {bad or sorted(held)}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     records = [json.loads(line) for line in log.read_text().splitlines()]
     got = {name: fn.launches_f32 for name, fn in fns.items()}
@@ -2682,7 +2758,8 @@ def fp32_lora_steps(torch, data, tmp: Path) -> tuple:
     return {k: v for k, v in got.items() if v}, {
         "layers": layers, "steps": F32_TRAIN_STEPS, "wall_s": wall, "peak_gib": peak,
         "losses": losses, "grad_norms": [r["grad_norm"] for r in records],
-        "second_step_s": records[-1]["wall_s"] - records[0]["wall_s"], "launches": got}
+        "second_step_s": records[-1]["wall_s"] - records[0]["wall_s"], "launches": got,
+        "on_path": {f"{name} [{shapes}]": r for (name, shapes), r in held.items()}}
 
 
 def one_batch(data):

@@ -565,9 +565,31 @@ def test_vit_f32_kernel_matches_plain_on_fused_slices(cuda, B, P, NH, HD, TQ):
     _assert_f32(got[:, :TQ], vit_attention_btd(q, k, v, TQ, NH, impl="plain")[:, :TQ])
 
 
+# the fp32 backward's tensor-core kernels take blocks of 32 query rows (dq)
+# or keys (dk/dv) and stream tiles of 64 keys or rows: besides BWD_CASES,
+# the training shape at hd 64, G = 8, Tq != Tk causal and not, and T ragged
+# on both sides of 32 and 64
+BWD_F32_CASES = BWD_CASES + [  # B, H, Hkv, Tq, Tk, hd, pad, side, causal
+    (2, 32, 8, 2048, 2048, 64, 300, "right", True),
+    (1, 8, 1, 200, 200, 128, 20, "right", True),
+    (2, 16, 2, 97, 97, 64, 10, "left", False),
+    (1, 4, 1, 95, 161, 128, 0, "right", False),
+    (1, 8, 2, 161, 95, 64, 7, "left", True),
+    (2, 8, 8, 161, 95, 128, 7, "right", True),
+    (1, 4, 2, 31, 31, 128, 0, "right", True),
+    (1, 4, 2, 32, 32, 64, 0, "right", True),
+    (2, 4, 2, 33, 33, 64, 3, "left", True),
+    (2, 4, 2, 65, 65, 128, 5, "right", False),
+    (1, 4, 4, 96, 96, 128, 9, "left", True),
+    (1, 4, 1, 97, 97, 64, 9, "right", True),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,Hkv,Tq,Tk,hd,pad,side,causal", BWD_CASES)
+@pytest.mark.parametrize("B,H,Hkv,Tq,Tk,hd,pad,side,causal", BWD_F32_CASES)
 def test_flash_backward_f32_kernels_match_plain(cuda, B, H, Hkv, Tq, Tk, hd, pad, side, causal):
+    """Limits in units of max |ref|: 1e-5 + 1e-4 |ref|, ||diff|| / ||ref|| <=
+    1e-4 (three TF32 products for each fp32 product); a repeat bit for bit."""
     from trace_tpu_torch.kernels import flash_backward as fb
 
     q, k, v, bias, do, _ = _bwd_inputs(cuda, B, H, Hkv, Tq, Tk, hd, pad, side)

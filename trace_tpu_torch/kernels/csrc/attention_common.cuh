@@ -1,5 +1,6 @@
 // Pieces the attention kernels share (attention.cu's forward, attention_bwd.cu's
-// backward): tensor maps of [B, H, T, hd] operands and the TMA loads of their
+// backward; attention_bwd_f32.cu takes ex2 and the masks' constants): tensor
+// maps of [B, H, T, hd] operands and the TMA loads of their
 // rows into 64-column boxes in the 128-byte swizzle, the wgmma products of
 // one warpgroup (m64n64 and m64n128, A from shared memory or from registers),
 // and the packing of an accumulator into the A fragments of the next product.
