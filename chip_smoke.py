@@ -26,13 +26,16 @@ Phases, in order; any failure exits non-zero:
      the peak rate of their type, 989 TFLOP/s bf16 or 1979 TOP/s int8, the
      H100 SXM data-sheet rates); beside the backward, informational, SDPA's
      flash backend on the same q / k / v with is_causal and no bias. Then
-     the fp32 form of every row (``*_f32``, csrc/*_f32.cu, fp32 FMA on the
-     CUDA cores; the weight products past 8 rows of x two TF32 products on
-     the tensor cores, bound against 495 TFLOP/s, the int8 one printed
-     apart; the backward's dq and dk/dv three TF32 products each, bound
-     likewise; the decode rows the fp32 instances of the bf16 rows' cluster
-     kernels) at the same shapes in fp32 (the decode rows also at
-     B = 32, random and serving masks), bound against the fp32 CUDA-core peak of 67 TFLOP/s,
+     the fp32 form of every row (``*_f32``, csrc/*_f32.cu: the attention
+     forward (rows 1, 2, 8) and the backward's dq and dk/dv three TF32
+     products on the tensor cores for each fp32 product, bound against
+     495 TFLOP/s with the CUDA-core bound printed beside, the forward also
+     repeated bit for bit; the weight products past 8 rows of x two TF32
+     products, bound likewise, the int8 one printed apart; the weight
+     products up to 8 rows fp32 FMA on the CUDA cores; the decode rows the
+     fp32 instances of the bf16 rows' cluster kernels) at the same shapes
+     in fp32 (the decode rows also at B = 32, random and serving masks),
+     bound otherwise against the fp32 CUDA-core peak of 67 TFLOP/s,
      yardsticks SDPA in fp32 and ``torch.matmul`` on the dequantized fp32
      weight, each held to its plain version (FP32_REL_NORM_TOL); and row 1
      with a query offset (a chunk of a chunked prefill over a cache
@@ -489,21 +492,23 @@ def kernel_checks(torch):
 
 
 def fp32_kernel_checks(torch, rows: dict) -> None:
-    """The fp32 form of every row (csrc/*_f32.cu, fp32 FMA on the CUDA
-    cores; the decode rows' fp32 instances of csrc/decode_attention*.cu)
-    against its plain version at the bf16 row's shapes, fp32 operands: K1
-    rows 1, 2 and 8 (``flash_attention``, ``vit_attention_btd``,
-    ``flash_attention_fwd_res`` with its lse), K2 rows 3 and 3b in both
+    """The fp32 form of every row (csrc/*_f32.cu; the decode rows' fp32
+    instances of csrc/decode_attention*.cu) against its plain version at the
+    bf16 row's shapes, fp32 operands: K1 rows 1, 2 and 8 (``flash_attention``,
+    ``vit_attention_btd``, ``flash_attention_fwd_res`` with its lse; three
+    TF32 products for each product on the tensor cores, each repeated bit
+    for bit), K2 rows 3 and 3b in both
     modes at B = 4 (the row) and B = 32 with random and serving masks
     (printed apart), K3 rows 4-7 at
     M = 2 (split K) and the packed ones at M = 3886 (the tensor-core form;
     the int8 one at M = 37, untimed, folded into its row, and at M = 3886
     timed and printed apart: no path launches it, the fp32 int8 tree
     prefills W8A8), K4 rows 9-10. Bound: the larger of bytes / 3.35 TB/s
-    and operations / 67 TFLOP/s (the fp32 CUDA-core peak), for the
-    tensor-core form two products' operations / 495 TFLOP/s (TF32, x split
-    into two TF32 parts; the CUDA-core bound printed beside it), for rows
-    9-10 three products' (both operands split; likewise);
+    and operations / 67 TFLOP/s (the fp32 CUDA-core peak: rows 3-7 up to 8
+    rows of x), for the weight products' tensor-core form two products'
+    operations / 495 TFLOP/s (TF32, x split into two TF32 parts; the
+    CUDA-core bound printed beside it), for rows 1, 2, 8, 9 and 10 three
+    products' (both operands split; likewise);
     yardsticks: SDPA in fp32 for the attention rows, ``torch.matmul`` of
     fp32 x with the dequantized fp32 weight for rows 4-7 (TF32 off)."""
     import torch.nn.functional as F
@@ -563,9 +568,24 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
     visible = sum((T - p) * (T - p + 1) // 2 for p in (PAD, 0))
     flops = 4 * H * HD * visible
     real = 2 * T - PAD
-    row("flash_attention_f32", lambda impl="auto": flash_attention(q, k, v, bias, True, impl=impl),
-        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask, enable_gqa=True),
-        (H + 2 * HKV) * real * HD * 4 + q.numel() * 4 + bias.numel() * 4, flops, reps=10)
+    # rows 1, 2 and 8: three TF32 products for each product (both operands
+    # split), the CUDA-core bound printed beside; a repeat is bit-equal
+    def forward_row(name, fn, lib, nbytes, flops, reps=10, rows_of=None):
+        row(name, fn, lib, nbytes, 3 * flops, reps=reps, rows_of=rows_of,
+            peak=TF32_FLOPS_PER_S, tf32_products="three")
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        same = torch.equal(first, second)
+        print(f"  {name}: CUDA-core fp32 bound {bound(nbytes, flops, FP32_FLOPS_PER_S)[0]:.4f} "
+              f"ms; a repeat bit-equal {same}", flush=True)
+        if not same:
+            fail(f"{name}: two runs on the same inputs differ")
+
+    forward_row("flash_attention_f32",
+                lambda impl="auto": flash_attention(q, k, v, bias, True, impl=impl),
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask,
+                                                       enable_gqa=True),
+                (H + 2 * HKV) * real * HD * 4 + q.numel() * 4 + bias.numel() * 4, flops)
     # K1, row 8: the training shape, right padding, with the lse
     real_rows = torch.ones((B, T), dtype=torch.bool, device="cuda")
     real_rows[0, T - PAD:] = False
@@ -580,10 +600,15 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
     tmask = torch.where(causal[None, None], tbias[:, None, None, :],
                         torch.tensor(-1e30, device="cuda"))
     stats = H * real * 4
-    row("flash_attention_fwd_res_f32", lambda impl="auto": fwd(impl)[0],
-        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=tmask, enable_gqa=True),
-        (H + 2 * HKV) * real * HD * 4 + H * real * HD * 4 + stats + tbias.numel() * 4, flops,
-        reps=10)
+    forward_row("flash_attention_fwd_res_f32", lambda impl="auto": fwd(impl)[0],
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=tmask,
+                                                       enable_gqa=True),
+                (H + 2 * HKV) * real * HD * 4 + H * real * HD * 4 + stats + tbias.numel() * 4,
+                flops)
+    lse_again = fwd()[1]
+    torch.cuda.synchronize()
+    if not torch.equal(lse, lse_again):
+        fail("flash_attention_fwd_res (fp32): two runs give another lse")
     # K4, rows 9-10 on the forward's own residuals
     do = randn(B, H, T, HD) * real_rows[:, None, :, None]
     delta = fb.flash_attention_bwd_delta(o, do)
@@ -620,10 +645,12 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
     q, k, v = qkv.split(D, dim=-1)
     heads = lambda x: x.view(B, P, NH, D // NH).transpose(1, 2)
     key_mask = (torch.arange(P, device="cuda") < TQ)[None, None, None, :]
-    row("vit_attention_btd_f32", lambda impl="auto": vit_attention_btd(q, k, v, TQ, NH,
-                                                                       impl=impl),
-        lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=key_mask),
-        4 * B * TQ * D * 4, 4 * B * NH * TQ * TQ * (D // NH), rows_of=lambda x: x[:, :TQ])
+    forward_row("vit_attention_btd_f32",
+                lambda impl="auto": vit_attention_btd(q, k, v, TQ, NH, impl=impl),
+                lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                       attn_mask=key_mask),
+                4 * B * TQ * D * 4, 4 * B * NH * TQ * TQ * (D // NH), reps=20,
+                rows_of=lambda x: x[:, :TQ])
     del qkv, q, k, v
 
     # K2, rows 3 and 3b: one layer's stripe, half the slots masked; B = 4 the

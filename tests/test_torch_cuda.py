@@ -427,9 +427,11 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
         flash_attention(q, q, q, None, False, q_offset=3)  # an offset needs causal
 
 
-# The fp32 forms (csrc/*_f32.cu and the decode kernels' fp32 instances: fp32
-# FMA on the CUDA cores) against their plain versions, which compute the same
-# fp32 steps in another summation order: outputs within 1e-4 + 1e-4 |ref| and ||diff|| / ||ref|| <= 1e-4
+# The fp32 forms (csrc/*_f32.cu and the decode kernels' fp32 instances; the
+# attention rows and the tiled weight products as TF32 products of operands
+# split into hi and lo, within ~2^-22 of each fp32 product) against their
+# plain versions, which compute the same fp32 steps in another summation
+# order: outputs within 1e-4 + 1e-4 |ref| and ||diff|| / ||ref|| <= 1e-4
 # (the limits of chip_smoke.py); gradients and weight products in units of
 # max |ref|.
 
@@ -563,6 +565,117 @@ def test_vit_f32_kernel_matches_plain_on_fused_slices(cuda, B, P, NH, HD, TQ):
     q, k, v = qkv.split(NH * HD, dim=-1)
     got = vit_attention_btd(q, k, v, TQ, NH)
     _assert_f32(got[:, :TQ], vit_attention_btd(q, k, v, TQ, NH, impl="plain")[:, :TQ])
+
+
+# The fp32 forward on the tensor cores (csrc/attention_f32.cu) takes blocks
+# of 128 query rows, two warpgroups of 64, and tiles of 64 keys: T on both
+# sides of 32, 64, 128 and past 160, hd 64 and 128, G 1, 4, 7 and 8, both
+# paddings (left padding past a key tile: rows that see no key). The inputs
+# are fp32 normals, not bf16 values, so that every operand has a lo part.
+F32_FWD_EDGE_CASES = [  # B, H, Hkv, T, hd, pad, side
+    (1, 4, 4, 31, 128, 0, "left"),
+    (2, 8, 2, 32, 64, 3, "left"),
+    (1, 8, 1, 33, 128, 5, "right"),
+    (2, 4, 1, 63, 64, 0, "right"),
+    (1, 7, 1, 64, 128, 10, "left"),
+    (2, 16, 4, 65, 64, 7, "right"),
+    (1, 8, 8, 127, 128, 0, "left"),
+    (2, 8, 1, 128, 64, 20, "left"),
+    (1, 28, 4, 129, 128, 33, "right"),
+    (2, 8, 2, 161, 64, 70, "left"),
+    (1, 4, 1, 161, 128, 0, "right"),
+    (2, 7, 1, 300, 128, 130, "left"),
+]
+
+
+def _f32_inputs(cuda, B, H, Hkv, T, hd, pad, side, seed=24):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(_normal(rng, B, h, T, hd)).to(cuda) for h in (H, Hkv, Hkv))
+    bias = torch.zeros((B, T), device=cuda)
+    if pad:
+        if side == "left":
+            bias[0, :pad] = -1e30
+        else:
+            bias[0, T - pad:] = -1e30
+    return q, k, v, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,T,hd,pad,side", F32_FWD_EDGE_CASES)
+def test_flash_f32_forward_at_its_tile_edges(cuda, B, H, Hkv, T, hd, pad, side):
+    """Rows 1 and 8 in fp32 against the plain version (o within 1e-4 + 1e-4
+    |ref|, the lse within 1e-4), rows that see no key included, and a repeat
+    bit for bit."""
+    from trace_tpu_torch.kernels.flash_backward import flash_attention_fwd_res
+
+    q, k, v, bias = _f32_inputs(cuda, B, H, Hkv, T, hd, pad, side)
+    before = flash_attention.launches_f32, flash_attention_fwd_res.launches_f32
+    got = flash_attention(q, k, v, bias, True)
+    o, lse = flash_attention_fwd_res(q, k, v, bias, causal=True)
+    assert (flash_attention.launches_f32, flash_attention_fwd_res.launches_f32) == (
+        before[0] + 1, before[1] + 1)
+    want = flash_attention(q, k, v, bias, True, impl="plain")
+    o_ref, lse_ref = flash_attention_fwd_res(q, k, v, bias, causal=True, impl="plain")
+    _assert_f32(got, want)
+    _assert_f32(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    again, (o2, lse2) = flash_attention(q, k, v, bias, True), flash_attention_fwd_res(
+        q, k, v, bias, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_forward_on_a_wholly_masked_row(cuda, hd, causal):
+    """A batch row whose keys are all masked: every query row of it sees no
+    key and gets the mean of v (the second launch); its lse is -1e30, as the
+    plain version's."""
+    from trace_tpu_torch.kernels.flash_backward import flash_attention_fwd_res
+
+    q, k, v, bias = _f32_inputs(cuda, 2, 8, 2, 200, hd, 200, "left", seed=25)
+    o, lse = flash_attention_fwd_res(q, k, v, bias, causal=causal)
+    o_ref, lse_ref = flash_attention_fwd_res(q, k, v, bias, causal=causal, impl="plain")
+    _assert_f32(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    assert (lse[0] == -1e30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,offset,hd", [(65, 400, 200, 64), (161, 700, 500, 64),
+                                           (63, 640, 577, 128), (128, 1000, 64, 128)])
+def test_flash_f32_query_offset_at_tile_edges(cuda, T, S, offset, hd):
+    """A chunk at slots offset ... offset + T - 1 over a strided stripe of a
+    stacked cache, row 0 left-padded past a key tile, fp32 normals."""
+    rng = np.random.default_rng(26)
+    B, H, Hkv = 2, 8, 2
+    cache = torch.from_numpy(_normal(rng, 2, 3, B, Hkv, S, hd)).to(cuda)
+    k, v = cache[0, 2], cache[1, 2]
+    q = torch.from_numpy(_normal(rng, B, H, T, hd)).to(cuda)
+    vis = torch.zeros((B, S), dtype=torch.bool, device=cuda)
+    vis[:, :offset + T] = True
+    vis[0, :70] = False
+    bias = torch.where(vis, 0.0, -1e30).float()
+    got = flash_attention(q, k, v, bias, True, q_offset=offset)
+    _assert_f32(got, flash_attention(q, k, v, bias, True, q_offset=offset, impl="plain"))
+    assert torch.equal(got, flash_attention(q, k, v, bias, True, q_offset=offset))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,P,NH,HD,TQ", [(2, 65, 2, 64, 63), (3, 161, 4, 64, 97),
+                                          (1, 130, 2, 128, 64), (2, 200, 3, 128, 129)])
+def test_vit_f32_forward_at_its_tile_edges(cuda, B, P, NH, HD, TQ):
+    """Row 2 in fp32 on column slices of a fused fp32 QKV with kv_len < Tk,
+    against the plain version on the real rows, and a repeat bit for bit."""
+    rng = np.random.default_rng(27)
+    qkv = torch.from_numpy(_normal(rng, B, P, 3 * NH * HD)).to(cuda)
+    q, k, v = qkv.split(NH * HD, dim=-1)
+    before = vit_attention_btd.launches_f32
+    got = vit_attention_btd(q, k, v, TQ, NH)
+    assert vit_attention_btd.launches_f32 == before + 1
+    _assert_f32(got[:, :TQ], vit_attention_btd(q, k, v, TQ, NH, impl="plain")[:, :TQ])
+    assert torch.equal(got, vit_attention_btd(q, k, v, TQ, NH))
 
 
 # the fp32 backward's tensor-core kernels take blocks of 32 query rows (dq)

@@ -31,10 +31,14 @@ With ``q_offset`` (``flash_attention``, causal) query row r sits at position
 ``q_offset + r`` of the keys and sees the keys j <= q_offset + r: a chunk of
 a chunked prefill over the cache stripe it was just written into.
 
-fp32 operands take the fp32 form of the same functions, csrc/attention_f32.cu
-(fp32 FMA on the CUDA cores, not TF32: exactness is what an fp32 model is
-served for; bound by operations at the fp32 peak of 67 TFLOP/s), chosen by
-dtype; all operands share q's dtype.
+fp32 operands take the fp32 form of the same functions, csrc/attention_f32.cu,
+chosen by dtype; all operands share q's dtype. It keeps the design above on
+Hopper's tensor cores, and each fp32 product runs as three TF32 products of
+the operands split into hi and lo parts, a_hi b_hi + a_hi b_lo + a_lo b_hi,
+within ~2^-22 of the fp32 product (one TF32 product would round the operands
+to 10 mantissa bits, and exactness is what an fp32 model is served for); each
+key tile's P V is summed apart and added into O rounding to nearest. Bound by
+operations: three TF32 products at 495 TFLOP/s.
 
 On a CUDA tensor a wrapper launches its kernel or raises; the plain version
 runs for CPU tensors, or when the caller passes ``impl="plain"``. Each

@@ -37,10 +37,10 @@ On a CUDA tensor a wrapper launches its kernel or raises; the plain version
 runs for CPU tensors, or when the caller passes ``impl="plain"``.
 
 fp32 operands take the fp32 forms, chosen by dtype and counted in
-``<wrapper>.launches_f32``: the forward of csrc/attention_f32.cu (fp32 FMA
-on the CUDA cores) and the three launches of csrc/attention_bwd_f32.cu (the
-pre-pass, then dq and dk/dv on the tensor cores, each fp32 product as three
-TF32 products of the operands split into hi and lo parts).
+``<wrapper>.launches_f32``: the forward of csrc/attention_f32.cu and the
+three launches of csrc/attention_bwd_f32.cu (the pre-pass, then dq and dk/dv),
+all on the tensor cores, each fp32 product as three TF32 products of the
+operands split into hi and lo parts.
 
 A query row that sees no key (left padding under the causal mask) has
 ``lse = -1e30``; its ``p`` is 1 on every key the backward visits. The plain
