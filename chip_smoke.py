@@ -493,19 +493,21 @@ def kernel_checks(torch):
 
 def fp32_kernel_checks(torch, rows: dict) -> None:
     """The fp32 form of every row (csrc/*_f32.cu; the decode rows' fp32
-    instances of csrc/decode_attention*.cu) against its plain version at the
+    instances of csrc/decode_attention*.cu, the weight products' split form
+    the fp32 instances of csrc/qmm_split.cuh) against its plain version at the
     bf16 row's shapes, fp32 operands: K1 rows 1, 2 and 8 (``flash_attention``,
     ``vit_attention_btd``, ``flash_attention_fwd_res`` with its lse; three
     TF32 products for each product on the tensor cores, each repeated bit
     for bit), K2 rows 3 and 3b in both
     modes at B = 4 (the row) and B = 32 with random and serving masks
     (printed apart), K3 rows 4-7 at
-    M = 2 (split K) and the packed ones at M = 3886 (the tensor-core form;
+    M = 2 (split K; M = 8 printed apart, each repeated bit for bit) and the
+    packed ones at M = 3886 (the tensor-core form;
     the int8 one at M = 37, untimed, folded into its row, and at M = 3886
     timed and printed apart: no path launches it, the fp32 int8 tree
     prefills W8A8), K4 rows 9-10. Bound: the larger of bytes / 3.35 TB/s
-    and operations / 67 TFLOP/s (the fp32 CUDA-core peak: rows 3-7 up to 8
-    rows of x), for the weight products' tensor-core form two products'
+    and operations / 67 TFLOP/s (the fp32 CUDA-core peak: rows 3 and 3b),
+    for the weight products (both forms) two products'
     operations / 495 TFLOP/s (TF32, x split into two TF32 parts; the
     CUDA-core bound printed beside it), for rows 1, 2, 8, 9 and 10 three
     products' (both operands split; likewise);
@@ -692,26 +694,36 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
     timed = {n: [] for n in ("quant_matmul_stacked_f32", "quant_matmul_p4_f32",
                              "quant_matmul_p4_grouped_f32", "quant_matmul_stacked_f32_tiled",
                              "quant_matmul_p4_f32_tiled", "quant_matmul_p4_grouped_f32_tiled")}
+    at8 = {n: [] for n in ("quant_matmul_f32", "quant_matmul_stacked_f32", "quant_matmul_p4_f32",
+                           "quant_matmul_p4_grouped_f32")}  # the split rows at M = 8
 
     def mm(name, fn, w, x, qbytes, reps=20):
+        """Both forms run two TF32 products on x split into hi + lo: the bound
+        counts them at 495 TFLOP/s (the CUDA-core bound printed beside); the
+        split form (M <= 8) also repeats bit for bit."""
         M, K = x.shape
         N = w.shape[1]
-        tiled = name.endswith("_tiled")  # two TF32 products on the tensor cores
         r, (out,) = row(name, fn, lambda: torch.matmul(x, w), x.numel() * 4 + qbytes
-                        + M * N * 4, 2 * M * K * N * (1 + tiled), reps=reps, keep=False,
-                        label=f"{name} x [{M}, {K}] -> [{M}, {N}]",
-                        peak=TF32_FLOPS_PER_S if tiled else FP32_FLOPS_PER_S)
-        if tiled:
-            r["cuda_core_bound"] = bound(x.numel() * 4 + qbytes + M * N * 4, 2 * M * K * N,
-                                         FP32_FLOPS_PER_S)[0]
+                        + M * N * 4, 2 * 2 * M * K * N, reps=reps, keep=False,
+                        label=f"{name} x [{M}, {K}] -> [{M}, {N}]", peak=TF32_FLOPS_PER_S)
+        r["cuda_core_bound"] = bound(x.numel() * 4 + qbytes + M * N * 4, 2 * M * K * N,
+                                     FP32_FLOPS_PER_S)[0]
+        if M <= 8:
+            again = fn()
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                fail(f"{name} x [{M}, {K}]: two runs on the same inputs differ")
         return r
 
     q8 = torch.randint(-127, 128, (4096, 32000), generator=g, device="cuda", dtype=torch.int8)
     s8 = (torch.rand((32000,), generator=g, device="cuda") * 4e-4 + 1e-4).to(torch.bfloat16)
-    x2 = randn(2, 4096)
+    x2, x8 = randn(2, 4096), randn(8, 4096)
     rows["quant_matmul_f32"] = mm("quant_matmul_f32", lambda impl="auto": qmm.quant_matmul(
         x2, q8, s8, out_dtype=torch.float32, impl=impl), q8.float() * s8.float(), x2,
         q8.numel() + s8.numel() * 2)
+    at8["quant_matmul_f32"].append(mm("quant_matmul_f32", lambda impl="auto": qmm.quant_matmul(
+        x8, q8, s8, out_dtype=torch.float32, impl=impl), q8.float() * s8.float(), x8,
+        q8.numel() + s8.numel() * 2))
     xr = randn(37, 1000)
     qr = torch.randint(-127, 128, (1000, 1100), generator=g, device="cuda", dtype=torch.int8)
     sr = (torch.rand((1100,), generator=g, device="cuda") * 4e-4 + 1e-4).to(torch.bfloat16)
@@ -727,14 +739,16 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
         float(unit) if k == "err" else 1)) for k in ("err", "excess", "rel_norm")})
     del q8, s8, qr, sr
     for K, N, _ in P4_SHAPES:
-        x2, xp = randn(2, K), randn(PREFILL_M, K)
+        x2, x8, xp = randn(2, K), randn(8, K), randn(PREFILL_M, K)
         q8 = torch.randint(-127, 128, (L, K, N), generator=g, device="cuda", dtype=torch.int8)
         s8 = (torch.rand((L, N), generator=g, device="cuda") * 4e-4 + 1e-4).to(torch.bfloat16)
         w8 = q8[LI].float() * s8[LI].float()
         for x, name, reps in ((x2, "quant_matmul_stacked_f32", 20),
+                              (x8, "quant_matmul_stacked_f32", 20),
                               (xp, "quant_matmul_stacked_f32_tiled", 3)):
-            timed[name].append(mm(name, lambda impl="auto": qmm.quant_matmul_stacked(
-                x, q8, s8, LI, out_dtype=torch.float32, impl=impl), w8, x, K * N + N * 2, reps))
+            (at8 if x is x8 else timed)[name].append(mm(name, lambda impl="auto": (
+                qmm.quant_matmul_stacked(x, q8, s8, LI, out_dtype=torch.float32, impl=impl)),
+                w8, x, K * N + N * 2, reps))
         del q8, s8, w8
         for grouped in (False, True):
             qp = torch.randint(-128, 128, (L, K // 2, N), generator=g, device="cuda",
@@ -745,11 +759,11 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
             entry = qmm.quant_matmul_p4_grouped_stacked if grouped else qmm.quant_matmul_p4_stacked
             base = "quant_matmul_p4_grouped_f32" if grouped else "quant_matmul_p4_f32"
             qbytes = K * N // 2 + sp[LI].numel() * 2
-            for x, name, reps in ((x2, base, 20), (xp, base + "_tiled", 3)):
-                timed[name].append(mm(name, lambda impl="auto": entry(
+            for x, name, reps in ((x2, base, 20), (x8, base, 20), (xp, base + "_tiled", 3)):
+                (at8 if x is x8 else timed)[name].append(mm(name, lambda impl="auto": entry(
                     x, qp, sp, LI, out_dtype=torch.float32, impl=impl), w, x, qbytes, reps))
             del qp, sp, w
-        del x2, xp
+        del x2, x8, xp
     for name, parts in timed.items():
         r = merge(parts)
         if name != "quant_matmul_stacked_f32_tiled":  # launched by no path: printed only
@@ -757,8 +771,15 @@ def fp32_kernel_checks(torch, rows: dict) -> None:
         core = sum(p.get("cuda_core_bound", 0.0) for p in parts)
         print(f"  {name}, the four shapes together: ms={r['ms']:.4f} plain_ms="
               f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} bound_ms="
-              f"{r['bound'][0]:.4f} ({r['bound'][1]})"
-              + (f"; CUDA-core fp32 bound {core:.4f} ms" if core else ""), flush=True)
+              f"{r['bound'][0]:.4f} ({r['bound'][1]}); CUDA-core fp32 bound {core:.4f} ms",
+              flush=True)
+    for name, parts in at8.items():  # printed beside the rows (M = 2), not in them
+        r = merge(parts)
+        print(f"  {name} at M = 8{', the four shapes together' * (len(parts) > 1)}: "
+              f"ms={r['ms']:.4f} (M = 2: {rows[name]['ms']:.4f}) plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
+              f"({r['bound'][1]}) max_abs_err={r['err']:.3g} rel_norm_err={r['rel_norm']:.3g}",
+              flush=True)
 
 
 def query_offset_checks(torch) -> None:
@@ -5365,14 +5386,16 @@ def main() -> int:
                    "decode_attention": "decode_attention.cu",
                    "decode_attention_int8_s8dot": "decode_attention_int8.cu",
                    "decode_attention_int8_dequant": "decode_attention_int8.cu",
-                   "quant_matmul": "quant_matmul_f32.cu",
-                   "quant_matmul_stacked": "quant_matmul_f32.cu",
-                   "quant_matmul_p4": "quant_matmul_f32.cu",
-                   "quant_matmul_p4_grouped": "quant_matmul_f32.cu"}
+                   "quant_matmul": "quant_matmul.cu",
+                   "quant_matmul_stacked": "quant_matmul.cu",
+                   "quant_matmul_p4": "quant_matmul_p4.cu",
+                   "quant_matmul_p4_grouped": "quant_matmul_p4.cu"}
     for base, src in f32_sources.items():
         for name in (f"{base}_f32", f"{base}_f32_tiled"):
-            if name in rows:
-                sources[name] = (f"trace_tpu_torch/kernels/csrc/{src}", sources[base][1])
+            if name in rows:  # the weight products' tensor-core form: quant_matmul_f32.cu
+                tiled = name.endswith("_tiled")
+                sources[name] = (f"trace_tpu_torch/kernels/csrc/"
+                                 f"{'quant_matmul_f32.cu' if tiled else src}", sources[base][1])
     kernels = [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches.get(name, 0),

@@ -785,6 +785,16 @@ F32_QMM_CASES = [  # form, M, K, N, out dtype
     ("p4", 100, 1002, 1040, torch.bfloat16),
     ("p4g", 3886, 14336, 1100, torch.bfloat16), ("p4g", 37, 14336, 4100, torch.float32),
     ("p4g", 3886, 4096, 6144, torch.float32),
+    # the split form's fp32 instances (M <= 8): K = 1000 (x by TMA) and 1002
+    # (K or K / 2 no multiple of 4: x through loads), N = 520 and 1100 (no
+    # multiple of 16: the weight through loads), w_down's K = 14336 (the
+    # longest chain of stages), the lm_head
+    ("i8", 1, 4096, 32000, torch.float32), ("i8", 3, 1000, 1100, torch.bfloat16),
+    ("i8", 5, 1002, 520, torch.float32), ("i8", 8, 14336, 4096, torch.float32),
+    ("p4", 3, 1000, 520, torch.float32), ("p4", 5, 1002, 1100, torch.bfloat16),
+    ("p4", 8, 14336, 1100, torch.float32), ("p4", 1, 4096, 32000, torch.float32),
+    ("p4g", 1, 14336, 4096, torch.float32), ("p4g", 3, 1024, 520, torch.float32),
+    ("p4g", 8, 4096, 1100, torch.bfloat16), ("p4g", 5, 4096, 32000, torch.float32),
 ]
 
 
@@ -857,6 +867,71 @@ def test_quant_matmul_f32_tiled_grouped_at_other_group_sizes(cuda, M, K, G):
     want = quant_matmul_p4_grouped(x, w, s, out_dtype=torch.float32, impl="plain")
     unit = want.abs().max()
     torch.testing.assert_close(got / unit, want / unit, atol=1e-5, rtol=0)
+
+
+def _f32_split_operands(rng, form, M, K, N, G, dev):
+    """fp32 x [M, K], the weight and its scale for ``form`` (G groups, p4g)."""
+    x = torch.from_numpy(_normal(rng, M, K)).to(dev)
+    if form == "i8":
+        w, s = _int8_weight(rng, (K, N), dev)
+        return x, w, s, quant_matmul
+    if form == "p4g":
+        return (x, *_packed_weight(rng, (K // 2, N), G, dev), quant_matmul_p4_grouped)
+    w, s = _packed_weight(rng, (K // 2, N), 1, dev)
+    return x, w, s.reshape(N), quant_matmul_p4
+
+
+def _assert_f32_split(fn, x, w, s, out_dtype=torch.float32):
+    """One split-form launch, its plain version's limits (1e-5 of the
+    largest output and a relative norm of 1e-4 for fp32 y, a bf16 step for
+    bf16 y), and a repeat bit for bit."""
+    n = fn.launches_f32_by_form["splitk"]
+    got = fn(x, w, s, out_dtype=out_dtype)
+    want = fn(x, w, s, out_dtype=out_dtype, impl="plain")
+    assert fn.launches_f32_by_form["splitk"] == n + 1 and got.dtype == out_dtype
+    unit = want.float().abs().max()
+    tol = 1e-5 if out_dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float() / unit, want.float() / unit, atol=tol, rtol=0)
+    if out_dtype == torch.float32:
+        assert ((got - want).norm() / want.norm()).item() <= 1e-4
+    assert torch.equal(got, fn(x, w, s, out_dtype=out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["i8", "p4", "p4g"])
+def test_quant_matmul_f32_split_form_repeats_bit_for_bit(cuda, form):
+    """The split form's fp32 instance adds the ranks' sums in rank order and
+    nothing atomically: two calls, the same bits (w_down at M = 8)."""
+    x, w, s, fn = _f32_split_operands(np.random.default_rng(16), form, 8, 14336, 4096,
+                                      14336 // 128, cuda)
+    _assert_f32_split(fn, x, w, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,G", [(3, 1026, 18), (8, 2048, 2), (5, 1024, 512), (1, 4096, 32)])
+def test_quant_matmul_f32_split_grouped_at_other_group_sizes(cuda, M, K, G):
+    """The grouped split form's fp32 instance at any even G dividing K:
+    groups of 57 rows (x through loads; each lane reads its scales), of
+    1024 and of 128 (the scales in the ring), and of 2 (a group a row pair)."""
+    x, w, s, fn = _f32_split_operands(np.random.default_rng(17), "p4g", M, K, 1100, G, cuda)
+    _assert_f32_split(fn, x, w, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["i8", "p4", "p4g"])
+@pytest.mark.parametrize("rows,N,cluster", [(128, 1100, 1), (4096, 256, 8)])
+def test_quant_matmul_f32_split_at_clusters_of_1_and_8(cuda, form, rows, N, cluster):
+    """A plan of one block along K (one rank, no exchange: 128 weight rows)
+    and one of eight (the largest exchange through distributed shared
+    memory); at M = 2 and 7 (one mma a k-step, and two)."""
+    from trace_tpu_torch.kernels.quant_matmul import _plan
+
+    K = rows if form == "i8" else 2 * rows
+    for M in (2, 7):
+        x, w, s, fn = _f32_split_operands(np.random.default_rng(18), form, M, K, N, K // 128,
+                                          cuda)
+        assert _plan(form + "f", M, K, N, cuda).cluster == cluster
+        _assert_f32_split(fn, x, w, s)
 
 
 # The int8 weight product sums the same exact products (bf16 x int8) in fp32
@@ -1289,8 +1364,8 @@ def test_decode_batch_products_replay_in_a_cuda_graph(cuda):
 @pytest.mark.cuda
 def test_split_products_replay_in_a_cuda_graph(cuda):
     """One call of each entry a decode step makes (the int8 lm_head and the
-    three stacked entries) captured in a CUDA graph and replayed: equal to
-    the eager calls. Capture fails on an allocation outside the graph's pool
+    three stacked entries), with bf16 and with fp32 x, captured in a CUDA
+    graph and replayed: equal to the eager calls. Capture fails on an allocation outside the graph's pool
     or a synchronising call, so none is left in the wrappers."""
     rng = np.random.default_rng(33)
     K, N = 4096, 1024
@@ -1301,6 +1376,12 @@ def test_split_products_replay_in_a_cuda_graph(cuda):
     for groups, fn in ((1, quant_matmul_p4_stacked), (K // 128, quant_matmul_p4_grouped_stacked)):
         qp, sp = _packed_weight(rng, (3, K // 2, N), groups, cuda)
         calls.append(lambda fn=fn, qp=qp, sp=sp: fn(x, qp, sp, 2))
+    # the same entries with fp32 x: the split form's fp32 instances
+    x32 = torch.from_numpy(_normal(rng, 2, K)).to(cuda)
+    calls += [lambda: quant_matmul(x32, q[0], sq[0]), lambda: quant_matmul_stacked(x32, q, sq, 2)]
+    for groups, fn in ((1, quant_matmul_p4_stacked), (K // 128, quant_matmul_p4_grouped_stacked)):
+        qp, sp = _packed_weight(rng, (3, K // 2, N), groups, cuda)
+        calls.append(lambda fn=fn, qp=qp, sp=sp: fn(x32, qp, sp, 1))
     eager = [f() for f in calls]  # built, loaded and planned outside the capture
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -1709,6 +1790,22 @@ def test_split_product_allocates_only_its_output(cuda, form):
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     out = _split_call(form, x, w, s)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before == out.untyped_storage().nbytes()
+    del out
+    assert torch.cuda.memory_allocated() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["i8", "p4", "p4g"])
+def test_split_product_f32_allocates_only_its_output(cuda, form):
+    """fp32 x up to 8 rows: no workspace either."""
+    x, w, s, fn = _f32_split_operands(np.random.default_rng(36), form, 2, 4096, 6144, 32, cuda)
+    fn(x, w, s)  # built, loaded and planned
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(x, w, s)
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - before == out.untyped_storage().nbytes()
     del out

@@ -438,19 +438,26 @@ def test_split_k_covers_k_within_the_kernels_tile(M, K, N):
     128-column strip and tile of rows of x (8, or 32 where M > 8), every
     cluster resident at once; a decode-shaped call (the four layer shapes
     and the lm_head) puts at least one block on each of 132 SMs in that one
-    wave."""
+    wave. Up to 8 rows, fp32 x's instance ("i8f", shares of 8-row k-steps)
+    plans the same grid."""
     plan = tqmm.split_plan(M, K, N, tqmm.int8_split_form(M), _fits)
     _check_plan(plan, M, K, N, K, 16)
     if M <= 8 and K >= 4096:
         assert 132 <= plan.blocks <= 2 * 132
+    if M <= 8:
+        f32 = tqmm.split_plan(M, K, N, "i8f", _fits)
+        _check_plan(f32, M, K, N, K, 8)
+        assert (f32.cluster, f32.strips, f32.row_tiles) == (plan.cluster, plan.strips,
+                                                            plan.row_tiles)
 
 
 @pytest.mark.parametrize("M,K,N", [(2, 4096, 6144), (2, 4096, 4096), (2, 4096, 28672),
                                    (2, 14336, 4096), (8, 1024, 520), (1, 256, 16)])
 def test_split_k_of_the_packed_product_covers_the_packed_rows(M, K, N):
     """The packed products split their K / 2 packed rows with the same plan,
-    per channel and grouped (a larger block: its scales ride in the ring)."""
-    for form in ("p4", "p4g"):
+    per channel and grouped (a larger block: its scales ride in the ring),
+    with bf16 x and with fp32 x ("p4f", "p4gf")."""
+    for form in ("p4", "p4g", "p4f", "p4gf"):
         plan = tqmm.split_plan(M, K, N, form, _fits)
         _check_plan(plan, M, K, N, K // 2, 8)
         if K >= 4096:
@@ -479,19 +486,22 @@ def test_wide_int8_plan_reads_the_weight_once_up_to_32_rows(M, K, N):
 
 
 def _layout_smem(form):
-    """Layout<F, MT>::SMEM of csrc/qmm_split.cuh: the weight, x and scale
+    """Layout<F, MT, X>::SMEM of csrc/qmm_split.cuh: the weight, x and scale
     rings, the receive buffer, the stages' barriers and counters, and 1024
-    bytes for the alignment."""
-    mt, nstage = (32, 3) if form == "i8w" else (8, 5)
-    halves = 1 if form in ("i8", "i8w") else 2
-    x_stage = halves * 2 * mt * 128
-    s_stage = 4 * 128 * 2 if form == "p4g" else 0
+    bytes for the alignment. fp32 x ("i8f", "p4f", "p4gf") takes boxes of 32
+    k, twice a bf16 stage's x; its packed forms a ring of 4 stages."""
+    f32, packed = form.endswith("f"), form.startswith("p4")
+    mt = 32 if form == "i8w" else 8
+    nstage = 3 if form == "i8w" else 4 if f32 and packed else 5
+    halves = 2 if packed else 1
+    x_stage = halves * (128 // (32 if f32 else 64)) * mt * 128
+    s_stage = 4 * 128 * 2 if form.startswith("p4g") else 0
     rx = max(c * mt * -(-128 // c) for c in range(1, 9))
     rx = -(-rx // 4) * 4
     return nstage * (128 * 128 + x_stage + s_stage + 8 + 4) + rx * 4 + 1024
 
 
-@pytest.mark.parametrize("form", ["i8", "i8w", "p4", "p4g"])
+@pytest.mark.parametrize("form", ["i8", "i8w", "p4", "p4g", "i8f", "p4f", "p4gf"])
 def test_split_smem_is_the_kernels_layout(form):
     """The shared memory the plan counts on is the kernel's: two blocks an
     SM fit (232,448 bytes a block at most, 233,472 an SM with 1 KB each

@@ -24,17 +24,22 @@
 // meets four 8-row fragments of x. Up to 32 rows read the weight once; a
 // larger M takes tiles of 32 rows, each re-reading it (right; prefill
 // takes the s8 x s8 path). ptxas (CUDA 12.8, sm_90a): 70 registers (8
-// rows) and 109 (the wide tile), no spills.
+// rows) and 105 (the wide tile), no spills.
+//
+// fp32 x (a model served in fp32), up to 8 rows: the fp32 instance of the
+// same kernel (_f32 entry points; qmm_split.cuh: x fp32 in the ring, each
+// k-step two TF32 products on x split into hi + lo, the weight exact in
+// TF32). More rows take quant_matmul_f32.cu's tensor-core form.
 
 #include "qmm_split.cuh"
 
 namespace {
 
-template <int MT>
+template <int MT, typename X = __nv_bfloat16>
 int run(const void* x, const int8_t* q, const __nv_bfloat16* s, void* y, int M, int K,
         int N, int cluster, int share, int out_f32, cudaStream_t stream) {
   qsplit::Params p = {};
-  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.x = x;
   p.w = q;
   p.s = s;
   p.y = y;
@@ -43,17 +48,17 @@ int run(const void* x, const int8_t* q, const __nv_bfloat16* s, void* y, int M, 
   p.N = N;
   p.rows = K;
   p.out_f32 = out_f32;
-  return qsplit::launch<qsplit::Form::I8, MT>(p, cluster, share, stream);
+  return qsplit::launch<qsplit::Form::I8, MT, X>(p, cluster, share, stream);
 }
 
-template <int MT>
+template <int MT, typename X = __nv_bfloat16>
 int run_stacked(const void* x, const void* q, const void* s, int li, int L, void* y, int M,
                 int K, int N, int cluster, int share, int out_f32, void* stream) {
   if (li < 0 || li >= L) return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* ql = static_cast<const int8_t*>(q) + static_cast<long long>(li) * K * N;
   const __nv_bfloat16* sl = static_cast<const __nv_bfloat16*>(s) + static_cast<long long>(li) * N;
-  return run<MT>(x, ql, sl, y, M, K, N, cluster, share, out_f32,
-                 static_cast<cudaStream_t>(stream));
+  return run<MT, X>(x, ql, sl, y, M, K, N, cluster, share, out_f32,
+                    static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -67,6 +72,10 @@ extern "C" int quant_matmul_clusters_at_once(int cluster) {
 
 extern "C" int quant_matmul_wide_clusters_at_once(int cluster) {
   return qsplit::clusters_at_once<qsplit::Form::I8, 32>(cluster);
+}
+
+extern "C" int quant_matmul_f32_clusters_at_once(int cluster) {
+  return qsplit::clusters_at_once<qsplit::Form::I8, 8, float>(cluster);
 }
 
 // One launch: clusters of `cluster` blocks along K, each rank taking `share`
@@ -98,4 +107,20 @@ extern "C" int quant_matmul_stacked_i8_wide(const void* x, const void* q, const 
                                             int cluster, int share, int out_f32,
                                             void* stream) {
   return run_stacked<32>(x, q, s, li, L, y, M, K, N, cluster, share, out_f32, stream);
+}
+
+// fp32 x [M <= 8, K]: one launch of the fp32 instance (shares a multiple of 8 rows).
+extern "C" int quant_matmul_i8_f32(const void* x, const void* q, const void* s, void* y, int M,
+                                   int K, int N, int cluster, int share, int out_f32,
+                                   void* stream) {
+  if (M > 8) return static_cast<int>(cudaErrorInvalidValue);
+  return run<8, float>(x, static_cast<const int8_t*>(q), static_cast<const __nv_bfloat16*>(s),
+                       y, M, K, N, cluster, share, out_f32, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int quant_matmul_stacked_i8_f32(const void* x, const void* q, const void* s, int li,
+                                           int L, void* y, int M, int K, int N, int cluster,
+                                           int share, int out_f32, void* stream) {
+  if (M > 8) return static_cast<int>(cudaErrorInvalidValue);
+  return run_stacked<8, float>(x, q, s, li, L, y, M, K, N, cluster, share, out_f32, stream);
 }

@@ -13,18 +13,11 @@
 // points are these with the layer's weight and scale pointers (the wrapper
 // offsets them; nothing is copied).
 //
-// Two forms, as the bf16 kernels have:
-//   * up to 8 rows of x (a decode step), split K: bound by bytes, one
-//     streaming read of the weight. A block takes 256 columns (8 a lane, one
-//     8-byte load a weight row) and a chunk of the weight rows, its 8 warps
-//     taking every eighth row of it (a packed row: both its nibbles, weight
-//     rows r and r + K / 2), each multiply-adding MT rows of x (read from
-//     L1, the same address in every lane) into MT x 8 fp32 sums (fp32 FMA).
-//     The warps' sums reduce through shared memory in warp order into the
-//     split's partial [M, N] of a workspace the wrapper allocates; a second
-//     launch adds the splits in order and applies the scale. The wrapper
-//     picks the splits so that about two waves of blocks stream the weight.
-//   * more rows (a prefill), on the tensor cores: bound by operations, 2 M K N
+// Up to 8 rows of x (a decode step) take the fp32 instances of the bf16
+// kernels' split-K form (qmm_split.cuh, through quant_matmul.cu's and
+// quant_matmul_p4.cu's _f32 entry points: one cluster launch, no workspace,
+// two TF32 products a k-step). This source holds the form for more rows:
+//   * a prefill, on the tensor cores: bound by operations, 2 M K N
 //     of them (a 7B layer's four products at M = 3886: 1.695 TFLOP, 25.3 ms at
 //     the 67 TFLOP/s fp32 CUDA-core peak). Every weight of the three forms is
 //     exact in TF32, which keeps 11 significant bits (an int8 needs 7, a
@@ -69,110 +62,6 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 enum Form { FORM_I8 = 0, FORM_P4 = 1, FORM_P4G = 2 };
-constexpr int WARPS = 8;
-constexpr int COLS = 256;  // columns of a split-K block: 8 a lane
-
-struct Params {
-  const float* x;   // [M, K]
-  const int8_t* w;  // [K, N] int8, or [K / 2, N] packed
-  const bf16* s;    // [N] or [G, N]
-  float* ws;        // split partials [splits, M, N]
-  void* y;          // [M, N] fp32 or bf16
-  int M, K, N, groups, chunk, out_f32;
-};
-
-// the weights of stored row r at columns n .. n + 7 in fp32 (grouped ones
-// times their scale): w0 of weight row r, and, packed, w1 of row r + K / 2
-template <int FORM>
-__device__ __forceinline__ void weights8(const Params& p, int r, int n, float (&w0)[8],
-                                         float (&w1)[8]) {
-  const int8_t* row = p.w + static_cast<long long>(r) * p.N + n;
-  __align__(8) int8_t b[8];
-  if (n + 8 <= p.N && p.N % 8 == 0 && reinterpret_cast<uintptr_t>(p.w) % 8 == 0) {
-    *reinterpret_cast<uint2*>(b) = *reinterpret_cast<const uint2*>(row);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) b[e] = n + e < p.N ? row[e] : 0;
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int v = b[e];
-    w0[e] = FORM == FORM_I8 ? static_cast<float>(v)
-                            : static_cast<float>(static_cast<int>(static_cast<int8_t>(v << 4)) >> 4);
-    w1[e] = FORM == FORM_I8 ? 0.f : static_cast<float>(v >> 4);
-  }
-  if (FORM == FORM_P4G) {
-    const int gsize = p.K / p.groups, half = p.K / 2;
-    const bf16* s0 = p.s + static_cast<long long>(r / gsize) * p.N + n;
-    const bf16* s1 = p.s + static_cast<long long>((r + half) / gsize) * p.N + n;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      w0[e] *= n + e < p.N ? __bfloat162float(s0[e]) : 0.f;
-      w1[e] *= n + e < p.N ? __bfloat162float(s1[e]) : 0.f;
-    }
-  }
-}
-
-template <int FORM, int MT>
-__global__ void __launch_bounds__(WARPS * 32) splitk_kernel(const Params p) {
-  extern __shared__ float red[];  // [WARPS][MT][COLS]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n = blockIdx.x * COLS + lane * 8;
-  const int rows = FORM == FORM_I8 ? p.K : p.K / 2;  // stored weight rows
-  const int r_begin = blockIdx.y * p.chunk, r_end = min(rows, r_begin + p.chunk);
-  float acc[MT][8];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[m][e] = 0.f;
-  if (n < p.N) {
-#pragma unroll 4
-    for (int r = r_begin + warp; r < r_end; r += WARPS) {
-      float w0[8], w1[8];
-      weights8<FORM>(p, r, n, w0, w1);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float* xr = p.x + static_cast<long long>(m) * p.K;
-        const float x0 = m < p.M ? __ldg(xr + r) : 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[m][e] = fmaf(x0, w0[e], acc[m][e]);
-        if (FORM != FORM_I8) {
-          const float x1 = m < p.M ? __ldg(xr + rows + r) : 0.f;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[m][e] = fmaf(x1, w1[e], acc[m][e]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) red[(warp * MT + m) * COLS + lane * 8 + e] = acc[m][e];
-  __syncthreads();
-  float* part = p.ws + static_cast<long long>(blockIdx.y) * p.M * p.N;
-  for (int i = threadIdx.x; i < MT * COLS; i += WARPS * 32) {
-    const int m = i / COLS, c = i % COLS, col = blockIdx.x * COLS + c;
-    if (m >= p.M || col >= p.N) continue;
-    float t = red[m * COLS + c];
-    for (int w = 1; w < WARPS; ++w) t += red[(w * MT + m) * COLS + c];
-    part[static_cast<long long>(m) * p.N + col] = t;
-  }
-}
-
-// y = (sum of the splits' partials, in split order) [* s], cast
-template <int FORM>
-__global__ void finish_kernel(const Params p, int splits) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long total = static_cast<long long>(p.M) * p.N;
-  if (i >= total) return;
-  float t = p.ws[i];
-  for (int sp = 1; sp < splits; ++sp) t += p.ws[sp * total + i];
-  if (FORM != FORM_P4G) t *= __bfloat162float(p.s[i % p.N]);
-  if (p.out_f32)
-    static_cast<float*>(p.y)[i] = t;
-  else
-    static_cast<bf16*>(p.y)[i] = __float2bfloat16_rn(t);
-}
 
 // ---- tensor-core form (M > 8) ---------------------------------------------
 //
@@ -618,55 +507,32 @@ int launch_tc(const TcParams& p, cudaStream_t stream) {
   return p.M <= 64 ? launch_tf<1, FORM, OUT>(p, stream) : launch_tf<2, FORM, OUT>(p, stream);
 }
 
-template <int FORM, int MT>
-int launch_splitk(const Params& p, int splits, cudaStream_t stream) {
-  const int bytes = WARPS * MT * COLS * 4;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      splitk_kernel<FORM, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  splitk_kernel<FORM, MT><<<dim3((p.N + COLS - 1) / COLS, splits), WARPS * 32, bytes, stream>>>(p);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long total = static_cast<long long>(p.M) * p.N;
-  finish_kernel<FORM><<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(p, splits);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int FORM>
-int launch(const Params& p, int splits, cudaStream_t stream) {
-  if (p.M <= 8)  // two row tiles: a decode step at B <= 2, and up to 8
-    return p.M <= 2 ? launch_splitk<FORM, 2>(p, splits, stream)
-                    : launch_splitk<FORM, 8>(p, splits, stream);
-  const int rows = FORM == FORM_I8 ? p.K : p.K / 2;
-  TcParams t;
-  t.x = p.x; t.w = p.w; t.s = p.s; t.y = p.y;
-  t.M = p.M; t.K = p.K; t.N = p.N; t.groups = p.groups;
-  t.xtma = (rows % 4 == 0 && reinterpret_cast<uintptr_t>(p.x) % 16 == 0) ? 1 : 0;
-  t.wtma = (p.N % 16 == 0 && reinterpret_cast<uintptr_t>(p.w) % 16 == 0) ? 1 : 0;
-  t.yvec = (p.N % 8 == 0 && reinterpret_cast<uintptr_t>(p.y) % 16 == 0) ? 1 : 0;
-  return p.out_f32 ? launch_tc<FORM, float>(t, stream) : launch_tc<FORM, bf16>(t, stream);
+int launch(const TcParams& p, int out_f32, cudaStream_t stream) {
+  return out_f32 ? launch_tc<FORM, float>(p, stream) : launch_tc<FORM, bf16>(p, stream);
 }
 
 }  // namespace
 
-// x [M, K] fp32; w [K, N] int8 (form 0) or [K / 2, N] packed (forms 1, 2);
-// s [N] (forms 0, 1) or [groups, N] (form 2) bf16; y [M, N] fp32 (out_f32)
-// or bf16; for M <= 8 a workspace of splits x M x N fp32 and the stored
-// weight rows of a split (chunk: of K rows, packed of K / 2), all
-// contiguous. M > 8 reads neither.
-extern "C" int quant_matmul_f32(const float* x, const void* w, const void* s, float* ws,
-                                void* y, int M, int K, int N, int form, int groups,
-                                int splits, int chunk, int out_f32, void* stream) {
-  if (M < 1 || K < 1 || N < 1 || (form != FORM_I8 && K % 2) ||
-      (form == FORM_P4G && (groups < 1 || K % groups)) ||
-      (M <= 8 && (splits < 1 || chunk < 1 ||
-                  static_cast<long long>(splits) * chunk < (form == FORM_I8 ? K : K / 2))))
+// x [M, K] fp32 (M > 8); w [K, N] int8 (form 0) or [K / 2, N] packed
+// (forms 1, 2); s [N] (forms 0, 1) or [groups, N] (form 2) bf16; y [M, N]
+// fp32 (out_f32) or bf16; all contiguous.
+extern "C" int quant_matmul_f32_tiled(const float* x, const void* w, const void* s, void* y,
+                                      int M, int K, int N, int form, int groups, int out_f32,
+                                      void* stream) {
+  if (M <= 8 || K < 1 || N < 1 || (form != FORM_I8 && K % 2) ||
+      (form == FORM_P4G && (groups < 1 || K % groups)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p = {x, static_cast<const int8_t*>(w), static_cast<const bf16*>(s), ws, y,
-                    M, K, N, groups, chunk, out_f32};
+  const int rows = form == FORM_I8 ? K : K / 2;
+  TcParams t;
+  t.x = x; t.w = static_cast<const int8_t*>(w); t.s = static_cast<const bf16*>(s); t.y = y;
+  t.M = M; t.K = K; t.N = N; t.groups = groups;
+  t.xtma = (rows % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) ? 1 : 0;
+  t.wtma = (N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0) ? 1 : 0;
+  t.yvec = (N % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0) ? 1 : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (form == FORM_I8) return launch<FORM_I8>(p, splits, st);
-  if (form == FORM_P4) return launch<FORM_P4>(p, splits, st);
-  if (form == FORM_P4G) return launch<FORM_P4G>(p, splits, st);
+  if (form == FORM_I8) return launch<FORM_I8>(t, out_f32, st);
+  if (form == FORM_P4) return launch<FORM_P4>(t, out_f32, st);
+  if (form == FORM_P4G) return launch<FORM_P4G>(t, out_f32, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -34,7 +34,7 @@
 //     pair, rounded once as the plain version's fp32 product rounded to
 //     bf16). Tensor cores and not FMAs on fp32 values: about 4.4 lane
 //     operations a packed byte (grouped) against ~12, which keeps the
-//     arithmetic under the byte time. ptxas (CUDA 12.8, sm_90a): 64 (per
+//     arithmetic under the byte time. ptxas (CUDA 12.8, sm_90a): 67 (per
 //     channel) and 90 (grouped) registers, no spills.
 //   * larger M (prefill): bound by operations, 2 M K N of them (a 7B layer's
 //     four products at M = 3886: 1.7 TFLOP, 1.7 ms at the card's bf16 peak).
@@ -70,6 +70,10 @@
 //     can hold, and one producer warpgroup does not dequantize fast enough;
 //     both roles fit the 128 registers a thread holds at launch, so no
 //     setmaxnreg.
+// fp32 x takes the fp32 instances of the split form up to 8 rows (the _f32
+// entry points: x split into two TF32 parts, each k-step two m16n8k8 TF32
+// products, the weight exact in TF32; grouped at any even G dividing K) and
+// quant_matmul_f32.cu's tensor-core form beyond.
 
 #include <string.h>
 
@@ -487,7 +491,7 @@ int run(const void* x, const int8_t* qp, const bf16* s, void* y, int M, int K, i
   if (M <= SMALL_M_MAX) {
     qsplit::Params p = {};
     p.x = xb; p.w = qp; p.s = s; p.y = y;
-    p.M = M; p.K = K; p.N = N; p.rows = K / 2; p.out_f32 = out_f32;
+    p.M = M; p.K = K; p.N = N; p.rows = K / 2; p.groups = K / 128; p.out_f32 = out_f32;
     return qsplit::launch<GROUPED ? qsplit::Form::P4G : qsplit::Form::P4>(p, cluster, share,
                                                                          stream);
   }
@@ -498,6 +502,20 @@ int run(const void* x, const int8_t* qp, const bf16* s, void* y, int M, int K, i
   p.wtma = (N % 16 == 0 && reinterpret_cast<uintptr_t>(qp) % 16 == 0) ? 1 : 0;
   p.yvec = (N % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0) ? 1 : 0;
   return out_f32 ? launch_tc<GROUPED, float>(p, stream) : launch_tc<GROUPED, bf16>(p, stream);
+}
+
+// fp32 x, M <= SMALL_M_MAX: the fp32 instance of the split form (grouped:
+// G groups, even and dividing K). Larger M takes quant_matmul_f32.cu.
+template <bool GROUPED>
+int run_f32(const void* x, const int8_t* qp, const bf16* s, int G, void* y, int M, int K,
+            int N, int cluster, int share, int out_f32, cudaStream_t stream) {
+  if (M < 1 || M > SMALL_M_MAX || K < 2 || K % 2 || N < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  qsplit::Params p = {};
+  p.x = x; p.w = qp; p.s = s; p.y = y;
+  p.M = M; p.K = K; p.N = N; p.rows = K / 2; p.groups = G; p.out_f32 = out_f32;
+  return qsplit::launch<GROUPED ? qsplit::Form::P4G : qsplit::Form::P4, 8, float>(
+      p, cluster, share, stream);
 }
 
 }  // namespace
@@ -551,4 +569,47 @@ extern "C" int quant_matmul_p4_grouped_stacked_bf16(const void* x, const void* q
   const bf16* sl = static_cast<const bf16*>(s) + static_cast<long long>(li) * (K / 128) * N;
   return run<true>(x, ql, sl, y, M, K, N, cluster, share, out_f32,
                    static_cast<cudaStream_t>(stream));
+}
+
+// fp32 x: the fp32 instances of the split form, M <= 8 (shares a multiple
+// of 8 packed rows); grouped ones take s [G, N], G even and dividing K.
+extern "C" int quant_matmul_p4_f32_clusters_at_once(int grouped, int cluster) {
+  return grouped ? qsplit::clusters_at_once<qsplit::Form::P4G, 8, float>(cluster)
+                 : qsplit::clusters_at_once<qsplit::Form::P4, 8, float>(cluster);
+}
+
+extern "C" int quant_matmul_p4_f32(const void* x, const void* qp, const void* s, void* y, int M,
+                                   int K, int N, int cluster, int share, int out_f32,
+                                   void* stream) {
+  return run_f32<false>(x, static_cast<const int8_t*>(qp), static_cast<const bf16*>(s), 1, y,
+                        M, K, N, cluster, share, out_f32, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int quant_matmul_p4_grouped_f32(const void* x, const void* qp, const void* s, int G,
+                                           void* y, int M, int K, int N, int cluster,
+                                           int share, int out_f32, void* stream) {
+  return run_f32<true>(x, static_cast<const int8_t*>(qp), static_cast<const bf16*>(s), G, y,
+                       M, K, N, cluster, share, out_f32, static_cast<cudaStream_t>(stream));
+}
+
+// qp [L, K/2, N] and s [L, N] or [L, G, N] whole; layer li is read in place
+extern "C" int quant_matmul_p4_stacked_f32(const void* x, const void* qp, const void* s, int li,
+                                           int L, void* y, int M, int K, int N, int cluster,
+                                           int share, int out_f32, void* stream) {
+  if (li < 0 || li >= L) return static_cast<int>(cudaErrorInvalidValue);
+  const int8_t* ql = static_cast<const int8_t*>(qp) + static_cast<long long>(li) * (K / 2) * N;
+  const bf16* sl = static_cast<const bf16*>(s) + static_cast<long long>(li) * N;
+  return run_f32<false>(x, ql, sl, 1, y, M, K, N, cluster, share, out_f32,
+                        static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int quant_matmul_p4_grouped_stacked_f32(const void* x, const void* qp, const void* s,
+                                                   int li, int L, int G, void* y, int M, int K,
+                                                   int N, int cluster, int share, int out_f32,
+                                                   void* stream) {
+  if (li < 0 || li >= L || G < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int8_t* ql = static_cast<const int8_t*>(qp) + static_cast<long long>(li) * (K / 2) * N;
+  const bf16* sl = static_cast<const bf16*>(s) + static_cast<long long>(li) * G * N;
+  return run_f32<true>(x, ql, sl, G, y, M, K, N, cluster, share, out_f32,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -44,16 +44,40 @@ and 264 strips of 128 columns: the busiest SM takes two blocks of the plan
 at every N, of 256, 512 and 512 KB), and in the wide form at M = 32 and N =
 28672 (``w_gateup``: 8 KB of x beside each 16 KB of weight).
 
-With ``--f32`` it times the fp32 forms' tensor-core form instead
+Each version's output is also compared with this tree's, bit for bit
+(``bit-equal to this``), so that a build of the parent's sources shows
+whether a change left the bf16 instances' arithmetic as it was.
+
+With ``--f32`` it times the fp32 forms instead. First the split form (M <=
+8): this tree's fp32 instances of ``qmm_split.cuh`` (the ``_f32`` entries of
+``quant_matmul.cu`` and ``quant_matmul_p4.cu``), or, in a source that has
+none, the older workspace form of ``quant_matmul_f32.cu`` (a split-K launch
+into partial sums the script allocates, and a finish launch), at M =
+1, 2 and 8 on the four layer shapes (int8, packed per channel, grouped with
+group-128 scales) and the int8 ``lm_head``; each build held to the plain
+version (1e-5 of the largest output and a relative norm of 1e-4, 2^-7
+relative for a bf16 output) and to a second run of itself, then timed in
+turns (A B B A, median of 20, L2 flushed) beside the byte bound, the
+two-TF32-product bound (495 TFLOP/s) and ``torch.matmul`` of fp32 x with
+the dequantized fp32 weight (TF32 off). Then where this tree's time goes,
+at M = 2 and 8 on the four layer shapes: its split form built again with
+the k-steps cut out (``stream``), each ``mma`` cut out with its operands
+kept (``no_mma``), the weight's conversions (lop3, fadd) cut out
+(``no_convert``; the grouped form's scale multiply stays), with two
+products a k-step at M <= 4 as beyond (``unfolded``: x_hi and x_lo not
+sharing one B fragment) and the packed forms' ring as 8 stages of 64
+packed rows in place of 4 of 128 (``rows64``); the last two give right
+results. Then the tensor-core form
 (``csrc/quant_matmul_f32.cu``, M > 8): int8, packed per channel and
 grouped at x [3886, K] fp32 over the four layer shapes, each build held to
-the plain version (1e-5 of the largest output, relative norm 1e-4) and to
-a second run of itself, then timed in turns (A B B A, median of 5, L2
-flushed) beside ``torch.matmul`` of fp32 x with the dequantized fp32 weight
-(TF32 off), with ptxas's registers and spills; last, this tree's error at
-``w_down`` (K = 14336) against an fp64 product, with the wgmma sum promoted
-every 128 values of k (the kernel's) and only at the end (a build of the
-source with ``PROMOTE_K = 0``), beside the plain fp32 version's.
+the plain version (1e-5 of the largest output, relative norm 1e-4), to a
+second run of itself and to this tree's bits, then timed in turns (A B B
+A, median of 5, L2 flushed) beside ``torch.matmul`` of fp32 x with the
+dequantized fp32 weight (TF32 off), with ptxas's registers and spills;
+last, this tree's error at ``w_down`` (K = 14336) against an fp64 product,
+with the wgmma sum promoted every 128 values of k (the kernel's) and only
+at the end (a build of the source with ``PROMOTE_K = 0``), beside the plain
+fp32 version's.
 """
 
 from __future__ import annotations
@@ -86,7 +110,7 @@ CASES = (  # label, form, M, shapes
 ENTRY = {"i8": ("i8", "quant_matmul_i8"), "p4": ("p4", "quant_matmul_p4_bf16"),
          "p4g": ("p4", "quant_matmul_p4_grouped_bf16")}
 ATOL, HBM = 1e-5, 3.35e12
-_KSTEP = "      kstep(d, ws, xs, t, slot, r0, kk);"  # the consumers' work on a k-step
+_KSTEP = "      kstep(d, ws, xs, t, slot, r0, kk, sg0);"  # the consumers' work on a k-step
 _MMA = '  asm("mma.sync.aligned.m16n8k16'  # the tensor-core product, in mma()
 _XLOAD = ("b0[n] = lds32(xrow + n * 8 * 128 + ((chunk ^ g) << 4));",  # int8 B fragments
           "b1[n] = lds32(xrow + n * 8 * 128 + (((chunk + 1) ^ g) << 4));")
@@ -260,31 +284,224 @@ def f32_operands(g, form, M, K, N):
     return x, w, s, G, (nibbles.reshape(G, K // G, N) * s.float()[:, None]).reshape(K, N)
 
 
+_F32_CODE = {"i8": 0, "p4": 1, "p4g": 2}  # quant_matmul_f32.cu's form codes
+
+
 def f32_caller(lib, form, x, w, s, groups, y):
-    """A function that launches ``lib``'s fp32 entry once into y."""
+    """A function that launches ``lib``'s fp32 tensor-core entry once into y
+    (``quant_matmul_f32_tiled``, or an older source's ``quant_matmul_f32``
+    with its workspace arguments unused at M > 8)."""
     M, K = x.shape
     N = y.shape[1]
-    fn = lib.quant_matmul_f32
+    out_f32, stream = int(y.dtype == torch.float32), torch.cuda.current_stream().cuda_stream
+    if hasattr(lib, "quant_matmul_f32_tiled"):
+        fn = lib.quant_matmul_f32_tiled
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        args = [x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), M, K, N,
+                _F32_CODE[form], groups, out_f32, stream]
+    else:
+        fn = lib.quant_matmul_f32
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        rows = K if form == "i8" else K // 2
+        args = [x.data_ptr(), w.data_ptr(), s.data_ptr(), None, y.data_ptr(), M, K, N,
+                _F32_CODE[form], groups, 1, rows, out_f32, stream]
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    rows = K if form == "i8" else K // 2
-    args = [x.data_ptr(), w.data_ptr(), s.data_ptr(), None, y.data_ptr(), M, K, N,
-            qmm._F32_FORMS[form], groups, 1, rows, int(y.dtype == torch.float32),
-            torch.cuda.current_stream().cuda_stream]
 
     def run():
         err = fn(*args)
         if err:
-            raise RuntimeError(f"quant_matmul_f32 {form}: CUDA error {err} at launch")
+            raise RuntimeError(f"fp32 tensor-core form {form}: CUDA error {err} at launch")
         return y
 
     return run
 
 
+def old_f32_splits(M, rows, N):
+    """(splits, chunk) of an older quant_matmul_f32.cu's workspace form as
+    its wrapper chose them: about 264 blocks of 256 columns, each split at
+    least 64 rows."""
+    strips = -(-N // 256)
+    splits = max(1, min(-(-264 // strips), -(-rows // 64)))
+    chunk = -(-rows // splits)
+    return -(-rows // chunk), chunk
+
+
+_F32_SPLIT_ENTRY = {"i8": "quant_matmul_i8_f32", "p4": "quant_matmul_p4_f32",
+                    "p4g": "quant_matmul_p4_grouped_f32"}
+
+
+def f32_split_caller(libs, form, x, w, s, groups, y):
+    """A function that launches one build's fp32 split form once into y:
+    ``libs`` are its (quant_matmul, quant_matmul_p4, quant_matmul_f32)
+    libraries; the fp32 instance of the split form where the build has one,
+    else the workspace form (its partial sums allocated here, once)."""
+    i8, p4, f32 = libs
+    M, K = x.shape
+    N = y.shape[1]
+    out_f32, stream = int(y.dtype == torch.float32), torch.cuda.current_stream().cuda_stream
+    ws = []
+    if hasattr(i8, "quant_matmul_i8_f32"):
+        lib = i8 if form == "i8" else p4
+        ask, lead = ((lib.quant_matmul_f32_clusters_at_once, ()) if form == "i8" else
+                     (lib.quant_matmul_p4_f32_clusters_at_once, (int(form == "p4g"),)))
+        ask.restype = ctypes.c_int
+        fit = [0] + [ask(*lead, c) for c in range(1, qmm.SPLIT_MAX_CLUSTER + 1)]
+        plan = qmm.split_plan(M, K, N, form + "f", fit.__getitem__)
+        fn = getattr(lib, _F32_SPLIT_ENTRY[form])
+        extra = [groups] if form == "p4g" else []
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * len(extra) + [ctypes.c_void_p]
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        args = [x.data_ptr(), w.data_ptr(), s.data_ptr(), *extra, y.data_ptr(), M, K, N,
+                plan.cluster, plan.share, out_f32, stream]
+        how = f"{plan.blocks} blocks, clusters of {plan.cluster}"
+    else:
+        fn = f32.quant_matmul_f32
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        splits, chunk = old_f32_splits(M, K if form == "i8" else K // 2, N)
+        ws = [torch.empty((splits, M, N), dtype=torch.float32, device="cuda")]
+        args = [x.data_ptr(), w.data_ptr(), s.data_ptr(), ws[0].data_ptr(), y.data_ptr(), M, K,
+                N, _F32_CODE[form], groups, splits, chunk, out_f32, stream]
+        how = f"{splits} splits of {chunk} rows + a finish launch"
+    fn.restype = ctypes.c_int
+
+    def run():
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"fp32 split form {form}: CUDA error {err} at launch")
+        return y
+
+    run.workspaces, run.how = ws, how
+    return run
+
+
+F32_SPLIT_M = (1, 2, 8)
+F32_SPLIT_CASES = (("row 5 fp32, int8 layer", "i8", LAYER), ("row 6 fp32, p4 layer", "p4", LAYER),
+                   ("row 7 fp32, p4g layer", "p4g", LAYER),
+                   ("row 4 fp32, int8 lm_head", "i8", LM_HEAD))
+_MMA_TF32 = '  asm("mma.sync.aligned.m16n8k8'  # the TF32 product, in mma_tf32()
+F32_BREAKDOWN = {
+    "full": (),
+    "stream": (("      kstep(d, ws, xs, t, slot, r0, kk, sg0);", "      (void)kk;"),),
+    "no_mma": ((_MMA_TF32, '  asm volatile("" :: "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), '
+                           '"r"(b1));\n  if (0) ' + _MMA_TF32.lstrip()),),
+    "no_convert": (("  return __uint_as_float((w & mask) | one) - base;",
+                    "  return __uint_as_float(w);"),),
+    "unfolded": (("if (p.M <= 4)  // half the products", "if (p.M < 0)  // unfolded"),),
+    "rows64": (("  static constexpr int ROWS = 128; ",
+                "  static constexpr int ROWS = F32 && PACKED ? 64 : 128; "),
+               ("(F32 && PACKED ? 4 : 5)", "(F32 && PACKED ? 8 : 5)")),
+}
+_F32_PLAIN = {"i8": qmm.quant_matmul_plain, "p4": qmm.quant_matmul_p4_plain,
+              "p4g": qmm.quant_matmul_p4_grouped_plain}
+
+
+def f32_split_check(name, run, form, ref, M, K, N, out_dtype) -> tuple:
+    """(the output, an error line or None): the plain version's limits and a
+    second run's bits."""
+    got = run().clone()
+    again = run()
+    torch.cuda.synchronize()
+    unit = ref.abs().max()
+    rtol = 2 ** -7 if out_dtype == torch.bfloat16 else 0.0
+    excess = ((got.float() - ref).abs() / unit - ATOL - rtol * ref.abs() / unit).max().item()
+    rel = ((got.float() - ref).norm() / ref.norm()).item()
+    if excess > 0 or (out_dtype == torch.float32 and rel > 1e-4) or not torch.equal(got, again):
+        return got, (f"qmm_turns: {name} fp32 {form} M = {M} {K}x{N} disagrees with the plain "
+                     f"version (excess {excess:.3e}, relative norm {rel:.3e}) or with itself")
+    return got, None
+
+
+def f32_split_turns(dirs: dict, flush, g) -> int:
+    """The fp32 split form of each build in turns, then where this tree's
+    time goes (see the module's docstring)."""
+    sources = {f"{name}_{src}": d / f"{src}.cu" for name, d in dirs.items()
+               for src in ("quant_matmul", "quant_matmul_p4", "quant_matmul_f32")}
+    built = build(sources, "qmm_turns/f32_split", ptxas=True)
+    libs = {name: tuple(built[f"{name}_{src}"] for src in
+                        ("quant_matmul", "quant_matmul_p4", "quant_matmul_f32")) for name in dirs}
+    for M in F32_SPLIT_M:
+        for label, form, shapes in F32_SPLIT_CASES:
+            total = {name: [0.0, 0.0] for name in libs}
+            lib_ms = bound_ms = ceil_ms = 0.0
+            for K, N, out_dtype in shapes:
+                x, w, s, groups, dense = f32_operands(g, form, M, K, N)
+                ref = _F32_PLAIN[form](x, w, s, out_dtype).float()
+                runs, outs = {}, {}
+                for name, lb in libs.items():
+                    y = torch.empty((M, N), dtype=out_dtype, device="cuda")
+                    runs[name] = f32_split_caller(lb, form, x, w, s, groups, y)
+                    outs[name], err = f32_split_check(name, runs[name], form, ref, M, K, N,
+                                                      out_dtype)
+                    if err:
+                        print(err, flush=True)
+                        return 1
+                same = {name: torch.equal(o, outs["this"]) for name, o in outs.items()}
+                times = {name: [] for name in runs}
+                for name in list(runs) + list(runs)[::-1]:
+                    times[name].append(median_ms(runs[name], flush))
+                scaled = dense * s.float().reshape(-1) if form != "p4g" else dense
+                lib_t = median_ms(lambda: torch.matmul(x, scaled), flush)
+                nbytes = x.numel() * 4 + w.numel() + s.numel() * 2 + M * N * (
+                    4 if out_dtype == torch.float32 else 2)
+                b, c = nbytes / HBM * 1e3, 2 * 2 * M * K * N / TF32_FLOPS * 1e3
+                lib_ms, bound_ms, ceil_ms = lib_ms + lib_t, bound_ms + b, ceil_ms + c
+                print(f"fp32 split {label}: M = {M}, {K}x{N}: bound {max(b, c):.4f} ms (bytes "
+                      f"{b:.4f}, two TF32 products {c:.4f}), library {lib_t:.4f} ms; " + "; ".join(
+                          f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ms ({runs[name].how})"
+                          for name, ts in times.items())
+                      + "; bit-equal to this: " + ", ".join(
+                          f"{n} {'yes' if v else 'no'}" for n, v in same.items()), flush=True)
+                for name, ts in times.items():
+                    total[name] = [a + t for a, t in zip(total[name], ts)]
+                del x, w, s, dense, scaled, ref, runs, outs
+            print(f"fp32 split {label}: M = {M}, the shapes together: bound "
+                  f"{max(bound_ms, ceil_ms):.4f} ms (bytes {bound_ms:.4f}, two TF32 products "
+                  f"{ceil_ms:.4f}), library {lib_ms:.4f} ms; " + "; ".join(
+                      f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ms "
+                      f"({100 * max(bound_ms, ceil_ms) / min(ts):.1f} % of the bound)"
+                      for name, ts in total.items()), flush=True)
+    # where this tree's time goes: its split form with parts cut out
+    out = BUILD_DIR / "qmm_turns" / "f32_breakdown"
+    sources = {}
+    for name, edits in F32_BREAKDOWN.items():
+        d = out / name
+        d.mkdir(parents=True, exist_ok=True)
+        for f in [*CSRC.glob("*.cuh"), CSRC / "quant_matmul.cu", CSRC / "quant_matmul_p4.cu"]:
+            shutil.copy(f, d)
+        text = (d / "qmm_split.cuh").read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: qmm_split.cuh no longer has one {old.strip()!r}")
+            text = text.replace(old, new)
+        (d / "qmm_split.cuh").write_text(text)
+        sources[f"{name}_quant_matmul"] = d / "quant_matmul.cu"
+        sources[f"{name}_quant_matmul_p4"] = d / "quant_matmul_p4.cu"
+    built = build(sources, "qmm_turns/f32_breakdown_libs", ptxas=True)
+    variants = {name: (built[f"{name}_quant_matmul"], built[f"{name}_quant_matmul_p4"], None)
+                for name in F32_BREAKDOWN}
+    for M in (2, 8):
+        for form in ("i8", "p4", "p4g"):
+            total = dict.fromkeys(variants, 0.0)
+            for K, N, out_dtype in LAYER:
+                x, w, s, groups, _ = f32_operands(g, form, M, K, N)
+                for name, lb in variants.items():
+                    y = torch.empty((M, N), dtype=out_dtype, device="cuda")
+                    total[name] += median_ms(f32_split_caller(lb, form, x, w, s, groups, y), flush)
+                del x, w, s
+            print(f"where the time goes, fp32 split {form} M = {M}, the four layer shapes: "
+                  + "; ".join(f"{name} {ms:.4f} ms" for name, ms in total.items()), flush=True)
+    return 0
+
+
 def f32_turns(dirs: dict) -> int:
-    """The fp32 tensor-core form of each build in turns, then this tree's
-    promotion error (see the module's docstring)."""
+    """The fp32 split form of each build in turns and its breakdown, then
+    the tensor-core form of each build in turns and this tree's promotion
+    error (see the module's docstring)."""
     torch.backends.cuda.matmul.allow_tf32 = False  # the yardstick in full fp32
+    g = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    if f32_split_turns(dirs, flush, g):
+        return 1
     libs = build({name: d / "quant_matmul_f32.cu" for name, d in dirs.items()},
                  "qmm_turns/f32", ptxas=True)
     once = BUILD_DIR / "qmm_turns" / "f32_promote_0"  # this tree, the sum promoted at the end
@@ -296,8 +513,6 @@ def f32_turns(dirs: dict) -> int:
         raise RuntimeError(f"quant_matmul_f32.cu no longer has one {PROMOTE!r}")
     (once / "quant_matmul_f32.cu").write_text(text.replace(PROMOTE, "PROMOTE_K = 0;"))
     at_end = build({"promote_0": once / "quant_matmul_f32.cu"}, "qmm_turns/f32_promote_0_lib")
-    g = torch.Generator(device="cuda").manual_seed(0)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for form in ("i8", "p4", "p4g"):
         total = {name: [0.0, 0.0] for name in libs}
         lib_ms = 0.0
@@ -307,10 +522,10 @@ def f32_turns(dirs: dict) -> int:
             ref = x @ dense
             ref = ref * scale if scale is not None else ref
             unit = ref.abs().max()
-            runs = {}
+            runs, outs = {}, {}
             for name, lib in libs.items():
                 run = f32_caller(lib, form, x, w, s, groups, torch.empty_like(ref))
-                got = run().clone()
+                got = outs[name] = run().clone()
                 again = run()
                 torch.cuda.synchronize()
                 err = ((got - ref).abs().max() / unit).item()
@@ -321,6 +536,7 @@ def f32_turns(dirs: dict) -> int:
                           f"{rel:.3e}) or with itself", flush=True)
                     return 1
                 runs[name] = run
+            same = {name: torch.equal(o, outs["this"]) for name, o in outs.items()}
             times = {name: [] for name in runs}
             for name in list(runs) + list(runs)[::-1]:
                 times[name].append(median_ms(runs[name], flush, reps=5))
@@ -328,11 +544,12 @@ def f32_turns(dirs: dict) -> int:
                                                    else dense), flush, reps=5)
             lib_ms += lib_t
             print(f"fp32 {form} M = {F32_M}, {K}x{N}: library {lib_t:.4f} ms; " + "; ".join(
-                f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items()),
-                flush=True)
+                f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items())
+                + "; bit-equal to this: " + ", ".join(f"{n} {'yes' if v else 'NO'}"
+                                                      for n, v in same.items()), flush=True)
             for name, ts in times.items():
                 total[name] = [a + t for a, t in zip(total[name], ts)]
-            del x, w, s, dense, ref, runs
+            del x, w, s, dense, ref, runs, outs
         ops = 2 * F32_M * sum(K * N for K, N, _ in LAYER)
         print(f"fp32 {form} M = {F32_M}, the four shapes together: bound {ops / F32_FLOPS * 1e3:.4f} "
               f"ms (operations, 67 TFLOP/s fp32), two-product TF32 ceiling "
@@ -369,7 +586,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", action="append", default=[], metavar="NAME=PATH")
     ap.add_argument("--f32", action="store_true",
-                    help="time the fp32 forms' tensor-core form instead")
+                    help="time the fp32 forms (split and tensor-core) instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("qmm_turns: no CUDA device", file=sys.stderr)
@@ -401,8 +618,9 @@ def main() -> int:
             rtol = 2 ** -7 if out_dtype == torch.bfloat16 else ATOL
             runs = {name: caller(lib, form, x, w, s, out_dtype)
                     for name, lib in libs[ENTRY[form][0]].items()}
+            outs = {}
             for name, run in runs.items():
-                got = run().clone()
+                got = outs[name] = run().clone()
                 again = run()
                 torch.cuda.synchronize()
                 excess = ((got.float() - ref).abs() / unit - ATOL - rtol * ref.abs() / unit
@@ -411,6 +629,7 @@ def main() -> int:
                     print(f"qmm_turns: {name} {form} M = {M} {K}x{N} disagrees with the plain "
                           f"version (excess {excess:.3e}) or with itself", flush=True)
                     return 1
+            same = {name: torch.equal(got, outs["this"]) for name, got in outs.items()}
             order = list(runs) + list(runs)[::-1]
             times = {name: [] for name in runs}
             for name in order:
@@ -424,7 +643,9 @@ def main() -> int:
             print(f"{label}: M = {M}, {K}x{N}: bound {b:.4f} ms, library {lib_t:.4f} ms; "
                   + "; ".join(f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ms "
                               f"({runs[name].how})" for name, ts in times.items())
-                  + "; read-flushed " + ", ".join(f"{name} {t:.4f} ms" for name, t in read.items()),
+                  + "; read-flushed " + ", ".join(f"{name} {t:.4f} ms" for name, t in read.items())
+                  + "; bit-equal to this: " + ", ".join(f"{n} {'yes' if v else 'NO'}"
+                                                        for n, v in same.items()),
                   flush=True)
             for name, ts in times.items():
                 total[name] = [a + t for a, t in zip(total[name], ts)]

@@ -29,16 +29,18 @@ Every wrapper makes one launch that allocates only its output: the split-K
 forms reduce over K inside a cluster of blocks (``split_plan``), so a call
 can be captured in a CUDA graph.
 
-fp32 x (a model served in fp32) takes the fp32 forms of every entry,
-csrc/quant_matmul_f32.cu (every weight is exact in fp32, so only the order
-of the sums differs from the plain version): up to 8 rows of x a split-K
-form of fp32 FMA on the CUDA cores with a workspace of partial sums and a
-second launch that adds them in order (``f32_splits``); beyond, a
-tensor-core form (``"tiled"``): every weight is exact in TF32 too, so x is
-split into two TF32 parts and the product runs as two TF32 ``wgmma``
-products with fp32 sums. Their launches are counted in
-``<wrapper>.launches_f32`` and by form in ``launches_f32_by_form``
-(``"splitk"``, ``"tiled"``).
+fp32 x (a model served in fp32) takes the fp32 forms of every entry. Every
+weight is exact in TF32 (an int8, a nibble, or a nibble times a bf16 scale),
+so x is split into two TF32 parts and each product runs as two TF32
+products with fp32 sums; only the order of the sums differs from the plain
+version. Up to 8 rows of x (``"splitk"``) the fp32 instances of the split
+form (csrc/qmm_split.cuh through the ``_f32`` entries of quant_matmul.cu and
+quant_matmul_p4.cu, planned by ``split_plan`` as forms "i8f", "p4f" and
+"p4gf"): one launch that allocates only y, as a bf16 call; beyond, the
+tensor-core form of csrc/quant_matmul_f32.cu (``"tiled"``, two TF32
+``wgmma`` products). The grouped fp32 forms take any even number of groups
+dividing K. Their launches are counted in ``<wrapper>.launches_f32`` and by
+form in ``launches_f32_by_form`` (``"splitk"``, ``"tiled"``).
 
 The W8A8 product (``quantize_acts`` + ``quant_apply_w8a8``: prefill and ViT
 projections) is a plain s8 x s8 -> s32 matrix product, which the JAX package
@@ -62,22 +64,27 @@ from trace_tpu_torch.model.quantize import unpack4
 _SOURCE = "quant_matmul.cu"
 _SOURCE_P4 = "quant_matmul_p4.cu"
 _SOURCE_F32 = "quant_matmul_f32.cu"
-# the fp32 forms: their entry's form codes, the split-K form's columns a
-# block and the blocks it aims for (about two waves of the card's 132 SMs)
-_F32_FORMS = {"i8": 0, "p4": 1, "p4g": 2}
-F32_SPLIT_COLS = 256
-F32_SPLIT_BLOCKS = 264
 # the split form's launch (csrc/qmm_split.cuh: STRIP, MT, MAX_CLUSTER,
-# Layout<F, MT>::SMEM); a rank takes at least one stage of rows. Forms: "i8"
-# (int8, tiles of SPLIT_ROWS rows of x), "i8w" (int8, the wide tile of
-# SPLIT_WIDE_ROWS rows, for M > SPLIT_ROWS), "p4" and "p4g" (packed, per
-# channel and grouped, tiles of SPLIT_ROWS; M <= SPLIT_ROWS only)
+# Layout<F, MT, X>::SMEM); a rank takes at least one stage of rows. Forms:
+# "i8" (int8, tiles of SPLIT_ROWS rows of bf16 x), "i8w" (int8, the wide tile
+# of SPLIT_WIDE_ROWS rows, for M > SPLIT_ROWS), "p4" and "p4g" (packed, per
+# channel and grouped, tiles of SPLIT_ROWS; M <= SPLIT_ROWS only), and the
+# fp32 instances "i8f", "p4f" and "p4gf" (fp32 x, M <= SPLIT_ROWS)
 SPLIT_STRIP = 128
 SPLIT_ROWS = 8
 SPLIT_WIDE_ROWS = 32
 SPLIT_MAX_CLUSTER = 8
 SPLIT_MIN_SHARE = 128
-SPLIT_SMEM = {"i8": 97500, "i8w": 91812, "p4": 107740, "p4g": 112860}
+SPLIT_SMEM = {"i8": 97500, "i8w": 91812, "p4": 107740, "p4g": 112860,
+              "i8f": 107740, "p4f": 103632, "p4gf": 107728}
+# the fp32 forms: up to SPLIT_ROWS rows of x the split form's fp32 instance
+# (source, 2-D entry, stacked entry), beyond the tensor-core form of
+# _SOURCE_F32 (its form code)
+_F32_SPLIT = {"i8f": (_SOURCE, "quant_matmul_i8_f32", "quant_matmul_stacked_i8_f32"),
+              "p4f": (_SOURCE_P4, "quant_matmul_p4_f32", "quant_matmul_p4_stacked_f32"),
+              "p4gf": (_SOURCE_P4, "quant_matmul_p4_grouped_f32",
+                       "quant_matmul_p4_grouped_stacked_f32")}
+_F32_TILED = {"i8f": 0, "p4f": 1, "p4gf": 2}
 _ENTRIES: dict = {}  # C entry name -> its declared ctypes function
 _FIT: dict = {}      # (form, device index) -> clusters the card holds at once
 _FIT_LOCK = threading.Lock()
@@ -149,13 +156,15 @@ def int8_split_form(M: int) -> str:
 
 
 def split_plan(M: int, K: int, N: int, form: str, clusters_at_once) -> SplitPlan:
-    """The launch of a split weight product (``form``: "i8", "i8w", "p4" or
-    "p4g") for x [M, K]: the largest cluster (up to the portable 8, each rank
-    at least SPLIT_MIN_SHARE rows) whose clusters all run at once,
-    ``clusters_at_once(c)`` being how many clusters of c blocks the form's
-    kernel holds on the card; a cluster of 1 where none does. Shares are
-    whole k-steps (16 int8 rows, 8 packed rows)."""
-    rows, step = (K, 16) if form in ("i8", "i8w") else (K // 2, 8)
+    """The launch of a split weight product (``form``: "i8", "i8w", "p4",
+    "p4g", or the fp32 instances "i8f", "p4f", "p4gf") for x [M, K]: the
+    largest cluster (up to the portable 8, each rank at least SPLIT_MIN_SHARE
+    rows) whose clusters all run at once, ``clusters_at_once(c)`` being how
+    many clusters of c blocks the form's kernel holds on the card; a cluster
+    of 1 where none does. Shares are whole k-steps (16 int8 rows with bf16
+    x, else 8 rows or packed rows)."""
+    rows = K // 2 if form.startswith("p4") else K
+    step = 16 if form in ("i8", "i8w") else 8
     tile = SPLIT_WIDE_ROWS if form == "i8w" else SPLIT_ROWS
     strips, row_tiles = -(-N // SPLIT_STRIP), -(-M // tile)
     cluster = 1
@@ -174,11 +183,12 @@ _I8_ENTRY = {"i8": ("quant_matmul_i8", "quant_matmul_stacked_i8"),
 _I8_FORM = {"i8": "splitk", "i8w": "wide"}
 
 
-def _check_operands(entry: str, x, q, s, out_dtype) -> None:
-    """What every weight-product kernel takes: bf16 x, int8 weight bytes and a
-    bf16 scale, contiguous on x's card; a bf16 or fp32 output."""
-    if x.dtype != torch.bfloat16 or s.dtype != torch.bfloat16 or q.dtype != torch.int8:
-        raise TypeError(f"{entry}: wants bf16 x, an int8 weight and a bf16 scale, got "
+def _check_operands(entry: str, x, q, s, out_dtype, x_dtype=torch.bfloat16) -> None:
+    """What every weight-product kernel takes: x of ``x_dtype`` (bf16, or
+    fp32 for the fp32 forms), int8 weight bytes and a bf16 scale, contiguous
+    on x's card; a bf16 or fp32 output."""
+    if x.dtype != x_dtype or s.dtype != torch.bfloat16 or q.dtype != torch.int8:
+        raise TypeError(f"{entry}: wants {x_dtype} x, an int8 weight and a bf16 scale, got "
                         f"{x.dtype}, {q.dtype}, {s.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{entry}: out_dtype must be bf16 or fp32, got {out_dtype}")
@@ -220,13 +230,17 @@ def _ask_fit(form: str, key, device) -> list:
             return fit
         from trace_tpu_torch.kernels.build import load
 
-        if form in ("i8", "i8w"):
+        if form.startswith("i8"):
             lib = load(_SOURCE)
-            ask = (lib.quant_matmul_wide_clusters_at_once if form == "i8w"
-                   else lib.quant_matmul_clusters_at_once)
+            ask = {"i8": lib.quant_matmul_clusters_at_once,
+                   "i8w": lib.quant_matmul_wide_clusters_at_once,
+                   "i8f": lib.quant_matmul_f32_clusters_at_once}[form]
             lead = ()
         else:
-            ask, lead = load(_SOURCE_P4).quant_matmul_p4_clusters_at_once, (int(form == "p4g"),)
+            lib = load(_SOURCE_P4)
+            ask = (lib.quant_matmul_p4_f32_clusters_at_once if form.endswith("f")
+                   else lib.quant_matmul_p4_clusters_at_once)
+            lead = (int(form.startswith("p4g")),)
         ask.restype = ctypes.c_int
         ask.argtypes = [ctypes.c_int] * (len(lead) + 1)
         with torch.cuda.device(device):
@@ -237,13 +251,14 @@ def _ask_fit(form: str, key, device) -> list:
         return fit
 
 
-def _launch(source: str, entry: str, x, q, s, lead_args, M, K, N, out_dtype, plan=None):
+def _launch(source: str, entry: str, x, q, s, lead_args, M, K, N, out_dtype, plan=None,
+            x_dtype=torch.bfloat16):
     """One launch of a weight-product entry point: the split form with
     ``plan``, else (the packed entries' tensor-core form) none. Only y is
     allocated."""
     from trace_tpu_torch.kernels.build import check
 
-    _check_operands(entry, x, q, s, out_dtype)
+    _check_operands(entry, x, q, s, out_dtype, x_dtype)
     fn = _entry(source, entry, len(lead_args))
     y = torch.empty((M, N), dtype=out_dtype, device=x.device)
     err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), *lead_args, y.data_ptr(), M, K, N,
@@ -258,49 +273,37 @@ def _count(fn, form: str) -> None:
     count_launch(fn, "launches_by_form", form)
 
 
-def f32_splits(M: int, rows: int, N: int) -> tuple:
-    """(splits, chunk) of the fp32 split-K form over ``rows`` stored weight
-    rows: enough splits of K that the grid holds about F32_SPLIT_BLOCKS
-    blocks, each split at least 64 rows; (1, rows) for the tiled form
-    (M > SPLIT_ROWS), which reads neither."""
-    if M > SPLIT_ROWS:
-        return 1, rows
-    strips = -(-N // F32_SPLIT_COLS)
-    splits = max(1, min(-(-F32_SPLIT_BLOCKS // strips), -(-rows // 64)))
-    chunk = -(-rows // splits)
-    return -(-rows // chunk), chunk
-
-
-def _launch_f32(fn, kind: str, x, w, s, M, K, N, out_dtype, groups: int = 1):
-    """One call of the fp32 form ``kind`` ("i8", "p4", "p4g") on the layer's
-    weight ``w`` and scale ``s`` (views, read in place); counted on ``fn``."""
+def _launch_f32(fn, form: str, x, w, s, M, K, N, out_dtype, li=None, groups: int = 0):
+    """One call of the fp32 form ``form`` ("i8f", "p4f", "p4gf") on weight
+    ``w`` and scale ``s``: the whole layer stack, read in place at layer
+    ``li``, or the 2-D leaf where ``li`` is None. Up to SPLIT_ROWS rows of x
+    the split form's fp32 instance, beyond the tensor-core form; only y is
+    allocated; counted on ``fn``."""
     from trace_tpu_torch.kernels.build import check, load
 
-    if x.dtype != torch.float32 or s.dtype != torch.bfloat16 or w.dtype != torch.int8:
-        raise TypeError(f"{fn.__name__}: the fp32 form wants fp32 x, an int8 weight and a "
-                        f"bf16 scale, got {x.dtype}, {w.dtype}, {s.dtype}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"{fn.__name__}: out_dtype must be bf16 or fp32, got {out_dtype}")
-    for name, t in (("x", x), ("weight", w), ("scale", s)):
-        if not t.is_cuda or t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"{fn.__name__}: {name} must be contiguous on {x.device}")
-    entry = _ENTRIES.get("quant_matmul_f32")
-    if entry is None:
-        entry = load(_SOURCE_F32).quant_matmul_f32
-        entry.restype = ctypes.c_int
-        entry.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        _ENTRIES["quant_matmul_f32"] = entry
-    splits, chunk = f32_splits(M, K if kind == "i8" else K // 2, N)
-    y = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-          if M <= SPLIT_ROWS else None)
-    err = entry(x.data_ptr(), w.data_ptr(), s.data_ptr(), ws.data_ptr() if ws is not None else None,
-                y.data_ptr(), M, K, N, _F32_FORMS[kind], groups, splits, chunk,
-                int(out_dtype == torch.float32), torch.cuda.current_stream(x.device).cuda_stream)
-    check(err, "quant_matmul_f32")
-    form = "splitk" if M <= SPLIT_ROWS else "tiled"
+    if M <= SPLIT_ROWS:
+        source, flat, stacked = _F32_SPLIT[form]
+        lead = (() if li is None else (int(li), w.shape[0])) + ((groups,) if groups else ())
+        y = _launch(source, flat if li is None else stacked, x, w, s, lead, M, K, N, out_dtype,
+                    _plan(form, M, K, N, x.device), x_dtype=torch.float32)
+        kind = "splitk"
+    else:
+        if li is not None:
+            w, s = w[li], s[li]
+        _check_operands("quant_matmul_f32_tiled", x, w, s, out_dtype, torch.float32)
+        entry = _ENTRIES.get("quant_matmul_f32_tiled")
+        if entry is None:
+            entry = load(_SOURCE_F32).quant_matmul_f32_tiled
+            entry.restype = ctypes.c_int
+            entry.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            _ENTRIES["quant_matmul_f32_tiled"] = entry
+        y = torch.empty((M, N), dtype=out_dtype, device=x.device)
+        check(entry(x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), M, K, N,
+                    _F32_TILED[form], groups or 1, int(out_dtype == torch.float32),
+                    torch.cuda.current_stream(x.device).cuda_stream), "quant_matmul_f32_tiled")
+        kind = "tiled"
     count_launch(fn, "launches_f32")
-    count_launch(fn, "launches_f32_by_form", form)
+    count_launch(fn, "launches_f32_by_form", kind)
     return y
 
 
@@ -321,7 +324,8 @@ def quant_matmul(
         return quant_matmul_plain(x, q, s, out_dtype)
     N = q.shape[1]
     if x.dtype == torch.float32:
-        return _launch_f32(quant_matmul, "i8", x, q, s.reshape(-1), M, K, N, out_dtype or x.dtype)
+        return _launch_f32(quant_matmul, "i8f", x, q, s.reshape(-1), M, K, N,
+                           out_dtype or x.dtype)
     form = int8_split_form(M)
     y = _launch(_SOURCE, _I8_ENTRY[form][0], x, q, s.reshape(-1), (), M, K, N,
                 out_dtype or x.dtype, _plan(form, M, K, N, x.device))
@@ -358,8 +362,8 @@ def quant_matmul_stacked(
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_plain(x, q[li], s[li], out_dtype)
     if x.dtype == torch.float32:
-        return _launch_f32(quant_matmul_stacked, "i8", x, q[li], s[li], M, K, N,
-                           out_dtype or x.dtype)
+        return _launch_f32(quant_matmul_stacked, "i8f", x, q, s, M, K, N, out_dtype or x.dtype,
+                           li=li)
     form = int8_split_form(M)
     y = _launch(_SOURCE, _I8_ENTRY[form][1], x, q, s, (int(li), L), M, K, N,
                 out_dtype or x.dtype, _plan(form, M, K, N, x.device))
@@ -431,7 +435,7 @@ def quant_matmul_p4(
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_p4_plain(x, qp, s, out_dtype)
     if x.dtype == torch.float32:
-        return _launch_f32(quant_matmul_p4, "p4", x, qp, s.reshape(-1), x.shape[0],
+        return _launch_f32(quant_matmul_p4, "p4f", x, qp, s.reshape(-1), x.shape[0],
                            x.shape[1], N, out_dtype or x.dtype)
     y, form = _launch_p4("quant_matmul_p4_bf16", x, qp, s.reshape(-1), (),
                          x.shape[0], x.shape[1], N, out_dtype or x.dtype, False)
@@ -461,8 +465,8 @@ def quant_matmul_p4_stacked(
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_p4_plain(x, qp[li], s[li], out_dtype)
     if x.dtype == torch.float32:
-        return _launch_f32(quant_matmul_p4, "p4", x, qp[li], s[li], x.shape[0], x.shape[1],
-                           N, out_dtype or x.dtype)
+        return _launch_f32(quant_matmul_p4, "p4f", x, qp, s, x.shape[0], x.shape[1], N,
+                           out_dtype or x.dtype, li=li)
     y, form = _launch_p4("quant_matmul_p4_stacked_bf16", x, qp, s, (int(li), L),
                          x.shape[0], x.shape[1], N, out_dtype or x.dtype, False)
     _count(quant_matmul_p4, form)
@@ -484,7 +488,8 @@ def quant_matmul_p4_grouped(
     impl: str = "auto",
 ) -> torch.Tensor:
     """y [M, N] = x @ (unpack4(qp) scaled per group and rounded to x's dtype).
-    The plain version takes any even G dividing K; the kernel groups of 128."""
+    The plain version and the fp32 forms take any even G dividing K; the
+    bf16 kernel groups of 128."""
     _check_impl(impl)
     N = _check_p4(x, qp)
     K = x.shape[1]
@@ -494,7 +499,7 @@ def quant_matmul_p4_grouped(
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_p4_grouped_plain(x, qp, s, out_dtype)
     if x.dtype == torch.float32:  # any even number of groups dividing K
-        return _launch_f32(quant_matmul_p4_grouped, "p4g", x, qp, s, x.shape[0], K, N,
+        return _launch_f32(quant_matmul_p4_grouped, "p4gf", x, qp, s, x.shape[0], K, N,
                            out_dtype or x.dtype, groups=s.shape[0])
     if s.shape[0] * 128 != K:
         raise ValueError(f"the kernel wants groups of 128 rows, got G={s.shape[0]} for K={K}")
@@ -526,8 +531,8 @@ def quant_matmul_p4_grouped_stacked(
     if impl == "plain" or not x.is_cuda:
         return quant_matmul_p4_grouped_plain(x, qp[li], s[li], out_dtype)
     if x.dtype == torch.float32:
-        return _launch_f32(quant_matmul_p4_grouped, "p4g", x, qp[li], s[li], x.shape[0], K, N,
-                           out_dtype or x.dtype, groups=s.shape[1])
+        return _launch_f32(quant_matmul_p4_grouped, "p4gf", x, qp, s, x.shape[0], K, N,
+                           out_dtype or x.dtype, li=li, groups=s.shape[1])
     if s.shape[1] * 128 != K:
         raise ValueError(f"the kernel wants groups of 128 rows, got G={s.shape[1]} for K={K}")
     y, form = _launch_p4("quant_matmul_p4_grouped_stacked_bf16", x, qp, s, (int(li), L),
