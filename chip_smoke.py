@@ -39,7 +39,11 @@ Phases, in order; any failure exits non-zero:
      yardsticks SDPA in fp32 and ``torch.matmul`` on the dequantized fp32
      weight, each held to its plain version (FP32_REL_NORM_TOL); and row 1
      with a query offset (a chunk of a chunked prefill over a cache
-     stripe) against the plain chunked attention, bf16 and fp32;
+     stripe) against the plain chunked attention, bf16 and fp32; last every
+     attention row (1, 2, 3, 3b, 8, 9, 10; bf16 and fp32) at open_llama_3b's
+     head dim 100 beside hd 128 at 32 / 32 heads, with the time of its pad
+     copies (``head_dim_checks``; the bf16 rows of phase 9's path are the
+     entries ``*_hd100``);
   4. the TRACE-7B serving path end to end at full width (CLIP ViT-L/14-336
      at the -2 tap, spatial_slot, Mistral-7B at SERVE_LAYERS = 16 of its 32
      layers, random weights from seed 0),
@@ -130,7 +134,11 @@ Phases, in order; any failure exits non-zero:
      global-pooling layout), two in bf16: launch counts, head slices, check
      (e) and the distance to an fp32 model; rows 3 and 3b at G = 7 (phase
      3's ``*_g7`` entries, with a G = 16 split and the prefill at G = 7
-     beside them) take their launches from this path.
+     beside them) take their launches from this path. Then a decoder
+     shaped like open_llama_3b (hd 100, 32 / 32 heads) with spatial_slot,
+     two requests in bf16 and two in int8 (check (e) of rows 1, 3 and 3b
+     in both bodies), and one ``lora`` step of it at HD_LORA_LAYERS layers
+     (check (e) of rows 8-10): the ``*_hd100`` entries' launches.
  10. Mixtral-8x7B at its published widths and a depth of 4 of 32 layers
      (``moe_phase``), from a checkpoint in HF Mixtral key names written
      here: ``model_init`` bf16 (the dense mixture), two requests, the fp32
@@ -298,6 +306,12 @@ KERNEL_TOL = {  # name: (atol, rtol)
     "quant_matmul_p4_grouped_f32": (1e-5, 0.0),
     "quant_matmul_p4_grouped_f32_tiled": (1e-5, 0.0),
 }
+# the rows at open_llama_3b's head dim 100 (``*_hd100``; head_dim_checks):
+# the same arithmetic on zero-padded columns, the same limits
+HD100_ROWS = ("flash_attention", "flash_attention_fwd_res", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv", "decode_attention", "decode_attention_int8_s8dot",
+              "decode_attention_int8_dequant")
+KERNEL_TOL.update({f"{base}_hd100": KERNEL_TOL[base] for base in HD100_ROWS})
 FP32_REL_NORM_TOL = 1e-4
 # ||diff|| / ||ref|| limit of a row: REL_NORM_TOL, the fp32 forms' FP32_REL_NORM_TOL
 NORM_TOL = {name: FP32_REL_NORM_TOL for name in KERNEL_TOL if "_f32" in name}
@@ -476,6 +490,7 @@ def kernel_checks(torch):
 
     fp32_kernel_checks(torch, rows)
     query_offset_checks(torch)
+    head_dim_checks(torch, rows)
 
     for name, r in rows.items():
         atol, rtol = KERNEL_TOL[name]
@@ -820,6 +835,239 @@ def query_offset_checks(torch) -> None:
             if not (torch.isfinite(out).all() and r["excess"] <= 0 and r["rel_norm"] <= norm):
                 fail(f"{name} with a query offset disagrees with the {label} chunked attention")
         del q, k, v, out, ref, einsum
+
+
+# open_llama_3b's attention (32 / 32 heads, hd 100) at the phase's shapes
+HD_HEADS, HD_OTHER = 32, 100
+
+
+def head_dim_checks(torch, rows: dict) -> None:
+    """Every attention row at open_llama_3b's head dim 100 beside the same
+    row at hd 128 and the same heads (32 / 32, G = 1), bf16 and fp32: row 1
+    (prefill: q / k / v [2, 32, 2048, hd], causal, row 0 left-padded by 300),
+    rows 8, 9 and 10 (the training shape: the same, row 0 right-padded by
+    300, do zero on padded rows, the backward from the kernel's residuals),
+    row 2 (a 16-frame ViT chunk [16, 592, 16 x hd] of fused-QKV slices, tq
+    577) and rows 3 / 3b (q [4, 32, 1, hd] over a [4, 32, 2304, hd] stripe
+    read in place, half the slots masked; int8 both modes). Each with its
+    bound for hd 100's own bytes and operations (fp32: three TF32 products
+    on the attention rows), its plain version and SDPA; the attention rows
+    with the time of their pad copies (q, k, v and, backward, do zero-padded
+    to 128, the outputs sliced back) and its share of the row's time; the
+    decode rows with their launches a call (one: no copy of the cache). The
+    bf16 rows of the path (1, 8-10, 3, 3b) are entries ``*_hd100``, which
+    phase 9's open_llama_3b path launches; row 2 and the fp32 forms, which
+    no path launches at hd 100, are printed and held here."""
+    import torch.nn.functional as F
+
+    from trace_tpu_torch.kernels import flash_backward as fb
+    from trace_tpu_torch.kernels.decode_attention import decode_attention
+    from trace_tpu_torch.kernels.flash_attention import (
+        flash_attention,
+        pad_head_dim,
+        pad_heads,
+        unpad_heads,
+        vit_attention_btd,
+    )
+    from trace_tpu_torch.model.mistral import _quantize_kv
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 100)
+    H, T, PAD, W = HD_HEADS, 2048, 300, 128
+
+    def held(name, hd, out, ref, f32, unit=False):
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        parts = []
+        for a, b in zip(outs, refs):
+            if not torch.isfinite(a).all():
+                fail(f"{name}: non-finite output")
+            scale = b.float().abs().max() if unit else 1.0
+            r = compare(name, a.float() / scale, b.float() / scale)
+            r["err"] *= float(scale)
+            parts.append(r)
+        r = {k: max(p[k] for p in parts) for k in ("err", "excess", "rel_norm")}
+        r["ref_rms"] = parts[0]["ref_rms"]
+        norm = FP32_REL_NORM_TOL if f32 else REL_NORM_TOL
+        if not (r["excess"] <= 0 and r["rel_norm"] <= norm):
+            fail(f"{name} at hd {hd}: kernel disagrees with its plain version")
+        return r
+
+    def copies(xs, out, hd):
+        """ms of a row's pad copies alone, as its wrapper makes them: ``xs``
+        padded to W, the padded output ``out`` sliced back to ``hd``."""
+        return median_ms(torch, lambda: [pad_head_dim(x, W) for x in xs]
+                         + [out[..., :hd].contiguous()])
+
+    def share(r, ms):
+        return f"; pad copies {ms:.4f} ms ({100 * ms / r['ms']:.1f} % of the row)"
+
+    def line(name, hd, r, extra=""):
+        print(f"  {name} at hd {hd}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
+              f"({r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} %) "
+              f"max_abs_err={r['err']:.6g} (excess {r['excess']:.6g}) "
+              f"rel_norm_err={r['rel_norm']:.6g}{extra}", flush=True)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        sfx = "_f32" if f32 else ""
+        peak, mult = (TF32_FLOPS_PER_S, 3) if f32 else (BF16_FLOPS_PER_S, 1)
+        esize = 4 if f32 else 2
+        randn = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(dtype)
+        for hd in (W, HD_OTHER):
+            # row 1: the prefill
+            q, k, v = randn(2, H, T, hd), randn(2, H, T, hd), randn(2, H, T, hd)
+            bias = torch.zeros((2, T), device="cuda")
+            bias[0, :PAD] = -1e30
+            run = lambda impl="auto": flash_attention(q, k, v, bias, True, impl=impl)
+            name = f"flash_attention{sfx}"
+            r = held(name, hd, run(), run("plain"), f32)
+            causal_mask = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
+            lib_mask = torch.where(causal_mask[None, None], bias[:, None, None, :],
+                                   torch.tensor(-1e30, device="cuda")).to(dtype)
+            visible = sum((T - p) * (T - p + 1) // 2 for p in (PAD, 0))
+            real = 2 * T - PAD
+            r.update(ms=median_ms(torch, run), plain_ms=median_ms(torch, lambda: run("plain")),
+                     library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(
+                         q, k, v, attn_mask=lib_mask)),
+                     bound=bound(3 * H * real * hd * esize + q.numel() * esize + 2 * T * 4,
+                                 mult * 4 * H * hd * visible, peak))
+            extra = ""
+            if hd != W:
+                extra = share(r, copies((q, k, v), torch.empty_like(pad_head_dim(q, W)), hd))
+                if not f32:
+                    rows["flash_attention_hd100"] = r
+            line(name, hd, r, extra)
+            del q, k, v, lib_mask, causal_mask
+
+            # rows 8, 9, 10: the training shape, right padding
+            q, k, v, do = (randn(2, H, T, hd) for _ in range(4))
+            real_q = torch.ones((2, T), dtype=torch.bool, device="cuda")
+            real_q[0, T - PAD:] = False
+            bias = torch.where(real_q, 0.0, -1e30).float()
+            do = do * real_q[:, None, :, None]
+            fwd = lambda impl="auto": fb.flash_attention_fwd_res(q, k, v, bias, causal=True,
+                                                                 impl=impl)
+            (o, lse), (o_ref, lse_ref) = fwd(), fwd("plain")
+            name = f"flash_attention_fwd_res{sfx}"
+            r = held(name, hd, o, o_ref, f32)
+            lse_err = (lse - lse_ref).abs().max().item()
+            if not lse_err <= LSE_TOL:
+                fail(f"{name} at hd {hd}: lse off by {lse_err:.3g}")
+            product = 2 * H * hd * visible
+            io = lambda heads: heads * real * hd * esize
+            stats = H * real * 4
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            causal_mask = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
+            lib_mask = torch.where(causal_mask[None, None], bias[:, None, None, :],
+                                   torch.tensor(-1e30, device="cuda")).to(dtype)
+            lib_fwd = lambda: F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask)
+            with torch.no_grad():
+                lib_fwd_ms = median_ms(torch, lib_fwd)
+            lib_out = lib_fwd()
+            lib_bwd_ms = median_ms(torch, lambda: torch.autograd.grad(
+                lib_out, leaves, do, retain_graph=True))
+            r.update(ms=median_ms(torch, fwd), plain_ms=median_ms(torch, lambda: fwd("plain")),
+                     library_ms=lib_fwd_ms,
+                     bound=bound(io(3 * H) + io(H) + stats + bias.numel() * 4,
+                                 mult * 2 * product, peak))
+            extra = ""
+            if hd != W:
+                extra = share(r, copies((q, k, v), torch.empty_like(pad_head_dim(q, W)), hd))
+                if not f32:
+                    rows["flash_attention_fwd_res_hd100"] = r
+            line(name, hd, r, f"; lse max_abs_err={lse_err:.2e}{extra}")
+            del lib_out, leaves, o_ref, lse_ref
+            delta = fb.flash_attention_bwd_delta(o, do)
+            args = (q, k, v, bias, do, lse, delta)
+            for name, fn, n_products, out_heads in (
+                    (f"flash_attention_bwd_dq{sfx}", fb.flash_attention_bwd_dq, 3, H),
+                    (f"flash_attention_bwd_dkv{sfx}", fb.flash_attention_bwd_dkv, 4, 2 * H)):
+                run = lambda impl="auto", fn=fn: fn(*args, causal=True, impl=impl)
+                r = held(name, hd, run(), run("plain"), f32, unit=True)
+                r.update(ms=median_ms(torch, run), plain_ms=median_ms(torch, lambda: run("plain")),
+                         library_ms=lib_bwd_ms,
+                         bound=bound(io(4 * H) + 2 * stats + bias.numel() * 4 + io(out_heads),
+                                     mult * n_products * product, peak))
+                extra = ""
+                if hd != W:
+                    out = torch.empty((2, out_heads, T, W), dtype=dtype, device="cuda")
+                    extra = share(r, copies((q, k, v, do), out, hd))
+                    if not f32:
+                        rows[f"{name}_hd100"] = r
+                line(name, hd, r, extra)
+            del q, k, v, do, o, lse, delta, args, lib_mask, causal_mask
+
+            # row 2: a ViT chunk of fused-QKV slices, 16 heads
+            B2, P, NH, TQ = 16, 592, 16, 577
+            qkv = randn(B2, P, 3 * NH * hd)
+            q, k, v = qkv.split(NH * hd, dim=-1)
+            run = lambda impl="auto": vit_attention_btd(q, k, v, TQ, NH, impl=impl)
+            name = f"vit_attention_btd{sfx}"
+            r = held(name, hd, run()[:, :TQ], run("plain")[:, :TQ], f32)
+            heads = lambda x: x.view(B2, P, NH, hd).transpose(1, 2)
+            key_mask = (torch.arange(P, device="cuda") < TQ)[None, None, None, :]
+            r.update(ms=median_ms(torch, run), plain_ms=median_ms(torch, lambda: run("plain")),
+                     library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(
+                         heads(q), heads(k), heads(v), attn_mask=key_mask)),
+                     bound=bound(4 * B2 * TQ * NH * hd * esize,
+                                 mult * 4 * B2 * NH * TQ * TQ * hd, peak))
+            extra = ""
+            if hd != W:
+                o_pad = torch.empty((B2, P, NH * W), dtype=dtype, device="cuda")
+                copy = median_ms(torch, lambda: [pad_heads(x, NH, W) for x in (q, k, v)]
+                                 + [unpad_heads(o_pad, NH, hd)])
+                extra = share(r, copy) + f"; no path launches it at hd {hd}"
+            line(name, hd, r, extra)
+            del qkv, q, k, v
+
+            # rows 3 and 3b: one layer's stripe read in place
+            B3, S = 4, 2304
+            q = randn(B3, H, 1, hd)
+            kf, vf = randn(B3, H, S, hd), randn(B3, H, S, hd)
+            bias = torch.where(torch.rand((B3, S), generator=g, device="cuda") < 0.5,
+                               0.0, -1e30).float()
+            (kq, ks), (vq, vs) = (_quantize_kv(x.to(torch.bfloat16)) for x in (kf, vf))
+            stripe = {"kq": kq, "ks": ks.contiguous(), "vq": vq, "vs": vs.contiguous()}
+            kd = (kq.to(dtype) * ks.transpose(-1, -2).to(dtype))
+            vd = (vq.to(dtype) * vs.transpose(-1, -2).to(dtype))
+            lib_mask = bias[:, None, None, :].to(dtype)
+            visible = int((bias == 0).sum().item())
+            for kernel in ("bf16", "s8dot", "dequant"):
+                if kernel == "bf16":
+                    name = f"decode_attention{sfx}"
+                    run = lambda impl="auto": decode_attention(q, kf, vf, bias, impl=impl)
+                    lib = lambda: F.scaled_dot_product_attention(q, kf, vf, attn_mask=lib_mask)
+                    nbytes = (2 * q.numel() + 2 * visible * H * hd) * esize + bias.numel() * 4
+                    count = lambda: (decode_attention.launches_f32 if f32
+                                     else decode_attention.launches)
+                    peak3 = FP32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S
+                else:
+                    name = f"decode_attention_int8_{kernel}{sfx}"
+                    run = lambda impl="auto", m=kernel: decode_attention(
+                        q, stripe, None, bias, mode=m, impl=impl)
+                    lib = lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=lib_mask)
+                    nbytes = (2 * q.numel() * esize + 2 * visible * H * (hd + 2)
+                              + bias.numel() * 4)
+                    table = "launches_int8_f32" if f32 else "launches_int8"
+                    count = lambda m=kernel, t=table: getattr(decode_attention, t)[m]
+                    peak3 = (INT8_OPS_PER_S if kernel == "s8dot" and not f32
+                             else FP32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S)
+                n = count()
+                out = run()
+                torch.cuda.synchronize()
+                calls = count() - n
+                if calls != 1:
+                    fail(f"{name} at hd {hd}: {calls} launches a call, expected 1")
+                r = held(name, hd, out, run("plain"), f32)
+                r.update(ms=median_ms(torch, run), plain_ms=median_ms(torch, lambda: run("plain")),
+                         library_ms=median_ms(torch, lib),
+                         bound=bound(nbytes, 4 * H * visible * hd, peak3))
+                if hd != W and not f32:
+                    rows[f"{name}_hd100"] = r
+                line(name, hd, r, "; one launch a call, the stripe read in place"
+                     if hd != W else "")
+            del q, kf, vf, kq, vq, kd, vd, stripe, lib_mask
 
 
 def bf16_decode_batch_checks(torch) -> None:
@@ -2570,15 +2818,17 @@ def train_counts():
             "flash_attention_bwd_dkv": fb.flash_attention_bwd_dkv}
 
 
-def train_params(torch, stage: str, layers: int, dtype=None):
-    """(params, config) of a stage from SEED: TRACE-7B at ``layers`` decoder
-    layers (in ``dtype``, default bf16); stage ``lora`` adds rank-128 fp32
-    adapters on the seven decoder projections, as the training CLI does."""
+def train_params(torch, stage: str, layers: int, dtype=None, base=None):
+    """(params, config) of a stage from SEED: TRACE-7B (or the TraceConfig
+    ``base``) at ``layers`` decoder layers (in ``dtype``, default bf16);
+    stage ``lora`` adds rank-128 fp32 adapters on the seven decoder
+    projections, as the training CLI does."""
     from trace_tpu_torch.model.config import TraceConfig
     from trace_tpu_torch.model.lora import add_lora_params
     from trace_tpu_torch.params import init_trace_params
 
-    cfg = TraceConfig() if dtype is None else TraceConfig(dtype=dtype)
+    cfg = base or TraceConfig()
+    cfg = cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
     cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, num_layers=layers))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_trace_params(cfg, gen)
@@ -4121,7 +4371,7 @@ def eval_phase(torch, tmp: Path, container_route: str) -> tuple:
 # num_slots 66 makes it hold them exactly; 32 frames keep the prefix at 2304
 # video tokens (the plain attention of the reference check holds [B, H, T, T]
 # scores).
-FAMILY_MODES = ("qwen2 bf16", "qwen2 int8", "vicuna bf16")
+FAMILY_MODES = ("qwen2 bf16", "qwen2 int8", "vicuna bf16", "openllama bf16", "openllama int8")
 # the backbones' decoder depth: every layer runs the same shapes at full
 # width, and full depth beside phase 5's 32 layers and phase 11 put the whole
 # smoke at 1098 s of the 1200; 8 (PR 18) at 1048 s with PR 20's fp32 checks
@@ -4130,7 +4380,21 @@ VICUNA_FRAMES = 32
 VICUNA_SLOTS = 66
 FAMILY_ROWS = {"qwen2 bf16": {"decode_attention": "decode_attention_g7"},
                "qwen2 int8": {"decode_attention_int8_s8dot": "decode_attention_int8_s8dot_g7",
-                              "decode_attention_int8_dequant": "decode_attention_int8_dequant_g7"}}
+                              "decode_attention_int8_dequant": "decode_attention_int8_dequant_g7"},
+               "openllama bf16": {"flash_attention": "flash_attention_hd100",
+                                  "decode_attention": "decode_attention_hd100"},
+               "openllama int8": {
+                   "decode_attention_int8_s8dot": "decode_attention_int8_s8dot_hd100",
+                   "decode_attention_int8_dequant": "decode_attention_int8_dequant_hd100"}}
+# A decoder shaped like open_llama_3b: the decoder fields of the config.json
+# of openlm-research/open_llama_3b (hidden 3200, 32 heads: hd 100) at
+# FAMILY_LAYERS of its 26 layers. The published file has no
+# num_key_value_heads, which both packages would default to 8; the model
+# has 32 (MHA), written here.
+OPEN_LLAMA_3B = {"model_type": "llama", "hidden_size": 3200, "intermediate_size": 8640,
+                 "num_hidden_layers": 26, "num_attention_heads": 32, "num_key_value_heads": 32,
+                 "vocab_size": 32000, "rms_norm_eps": 1e-6, "rope_theta": 10000.0}
+HD_LORA_LAYERS = 2  # depth of its lora step (rows 8-10 at hd 100)
 
 
 def family_keys(cfg, vision_keys) -> list:
@@ -4217,15 +4481,19 @@ def families_phase(torch, tmp: Path) -> tuple:
     request of 8 tokens (every kernel held to its plain version on the
     path's own inputs); and the prefix and first-token logits of the kernel
     path no further from an fp32 model of the same weights than the plain
-    path, within REF_RATIO_TOL. Returns the launches of the G = 7 rows
+    path, within REF_RATIO_TOL. The open_llama_3b-shaped decoder (hd 100)
+    runs its int8 dequant request under check (e) too, then one ``lora``
+    step (``hd_lora_step``). Returns the launches of the G = 7 rows
     (``*_g7``, the counts of rows 3 and 3b on the qwen2 path, whose every
-    decode attention is at G = 7) and the stats."""
+    decode attention is at G = 7) and of the hd-100 rows (``*_hd100``, on
+    the open_llama_3b path) and the stats."""
     import gc
     import shutil
 
     import numpy as np
 
     from trace_tpu_torch import EventPredictions
+    from trace_tpu_torch.checkpoint.convert import trace_config_from_hf
     from trace_tpu_torch.model.config import DecoderConfig, TraceConfig
     from trace_tpu_torch.runtime import pipeline as pl
     from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
@@ -4241,6 +4509,8 @@ def families_phase(torch, tmp: Path) -> tuple:
         "vicuna": ("llama", TraceConfig(decoder=cut(DecoderConfig.vicuna_7b()),
                                         mm_projector_type="stc_connector_v35",
                                         num_slots=VICUNA_SLOTS, num_frames=VICUNA_FRAMES)),
+        "openllama": ("llama", TraceConfig(decoder=cut(
+            trace_config_from_hf(OPEN_LLAMA_3B).decoder))),
     }
     asks = ["Localize the visual events in the video and describe each one.",
             "Find every moment where something changes, with timestamps."]
@@ -4304,13 +4574,19 @@ def families_phase(torch, tmp: Path) -> tuple:
                 check_head_slices(dec, s["tokens"])
                 steps_all.append(1e3 * s["decode_s"] / max(steps, 1))
             counts, tokens = got, pipe.last_stats["tokens"]
-            if quant == "int8":
+            held_dequant = {}
+            if quant == "int8" and dec.head_dim != 128:  # check (e) of the dequant body too
+                dequant, held_dequant = on_path(torch, f"{mode} dequant", lambda: dequant_request(
+                    torch, serving_tree(pipe), pc, tok, videos, stamps, asks))
+                counts.update(dequant)
+            elif quant == "int8":
                 counts.update(dequant_request(torch, serving_tree(pipe), pc, tok, videos,
                                               stamps, asks))
             for row, name in FAMILY_ROWS.get(mode, {}).items():
                 launches[name] = counts[row]
             _, held = on_path(torch, mode, lambda: pipe.infer_events_batch(
                 videos, stamps, asks, max_new_tokens=8))
+            held.update(held_dequant)
             check = reference_check(torch, pipe, serving_tree(pipe), pc, tok, videos, stamps,
                                     asks, mode, tokens, profile=False)
             stats[mode] = {"model_init_s": init_s, "ms_per_step": steps_all,
@@ -4322,15 +4598,110 @@ def families_phase(torch, tmp: Path) -> tuple:
                   f"peak {stats[mode]['peak_gib']:.2f} GiB on the card", flush=True)
             del pipe, layers
         shutil.rmtree(ckpt)
+    lora_launches, stats["openllama lora"] = hd_lora_step(torch, families["openllama"][1], tmp)
+    launches.update(lora_launches)
     idle = [name for name, n in launches.items() if n <= 0]
-    if idle or len(launches) != 3:
-        fail(f"families: rows at G = 7 not launched: {idle or sorted(launches)}")
+    if idle or len(launches) != 10:
+        fail(f"families: rows at G = 7 or hd 100 not launched: {idle or sorted(launches)}")
     stats["seconds"] = time.perf_counter() - t_phase
-    print(f"families: phase 9 took {stats['seconds']:.1f} s; launches of the G = 7 rows "
-          f"{launches}", flush=True)
+    print(f"families: phase 9 took {stats['seconds']:.1f} s; launches of the G = 7 and "
+          f"hd-100 rows {launches}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     return launches, stats
+
+
+def hd_lora_step(torch, base, tmp: Path) -> tuple:
+    """One ``lora`` step of ``train_loop`` on phase 9's open_llama_3b-shaped
+    model (``base``) at HD_LORA_LAYERS layers: random weights from SEED,
+    rank-128 adapters on the seven decoder projections, phase 6's synthetic
+    videos at batch VIDEOS. Rows 8, 9 and 10 at hd 100, with check (e) on the
+    step's own inputs: the first call of row 8 (the forward with its
+    residuals, o and lse) at each shape and of rows 9-10 (``watch_backward``)
+    against their plain versions; no plain version on the card; a finite loss
+    and a finite, non-zero gradient norm (the schedule starts at 0, so the
+    step moves no adapter). Returns ({``*_hd100``: launches}, stats)."""
+    from trace_tpu_torch.kernels import flash_backward as fb
+    from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
+    from trace_tpu_torch.train.train import TrainRecipe, train_loop, tree_paths
+
+    params, cfg = train_params(torch, "lora", HD_LORA_LAYERS, base=base)
+    layers, hd = cfg.decoder.num_layers, cfg.decoder.head_dim
+    data = SyntheticVideos(cfg, SpmLikeTokenizer(), VIDEOS)
+    adapters = [p for p, _ in tree_paths(params) if "_lora_" in p]
+    fns = {"flash_attention_fwd_res": fb.flash_attention_fwd_res,
+           "flash_attention_bwd_dq": fb.flash_attention_bwd_dq,
+           "flash_attention_bwd_dkv": fb.flash_attention_bwd_dkv}
+    for fn in fns.values():
+        fn.launches = 0
+    # row 8's launch: flash_attention_fwd_res's kernel route (``_forward``
+    # with the residual), watched where it calls it, so that the wrapper and
+    # its launch count stay as they are
+    orig, fwd_held = fb._forward, {}
+
+    def fwd_watched(q, k, v, mask_bias, *, causal, q_offset, lse=False):
+        out = orig(q, k, v, mask_bias, causal=causal, q_offset=q_offset, lse=lse)
+        shapes = f"q {list(q.shape)}, k {list(k.shape)}"
+        if lse and shapes not in fwd_held:
+            ref = fb.flash_attention_fwd_res_plain(q, k, v, mask_bias, causal=causal,
+                                                   q_offset=q_offset)
+            r = compare("flash_attention_fwd_res_hd100", out[0], ref[0])
+            r["lse_err"] = (out[1] - ref[1]).abs().max().item()
+            fwd_held[shapes] = r
+        return out
+
+    # a schedule of two steps (one is all warmup), one batch: one step runs
+    recipe = TrainRecipe(stage="lora", learning_rate=1e-4, total_steps=2)
+    log = tmp / "train_lora_hd100.jsonl"
+    plain, undo = watch_plain(torch)
+    held, undo_held = watch_backward(torch)
+    fb._forward = fwd_watched
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        train_loop(params, cfg, data.resized(VIDEOS), recipe, batch_size=VIDEOS,
+                   log_every=1, metrics_path=str(log))
+        torch.cuda.synchronize()
+    finally:
+        fb._forward = orig
+        undo_held()
+        undo()
+    wall = time.perf_counter() - t0
+    bad = []
+    checks = {("flash_attention_fwd_res_hd100", shapes): r for shapes, r in fwd_held.items()}
+    checks.update({(f"{name}_hd100", shapes): r for (name, shapes), r in held.items()})
+    for (name, shapes), r in checks.items():
+        atol, rtol = KERNEL_TOL[name]
+        lse = f", lse max_abs_err={r['lse_err']:.2e} (<= {LSE_TOL})" if "lse_err" in r else ""
+        print(f"families: openllama lora check (e): {name} on [{shapes}]: max_abs_err="
+              f"{r['err']:.6g} excess={r['excess']:.3g} (|diff| <= {atol} + {rtol} |ref|) "
+              f"rel_norm_err={r['rel_norm']:.3g} (<= {REL_NORM_TOL}){lse}", flush=True)
+        if not (r["excess"] <= 0 and r["rel_norm"] <= REL_NORM_TOL
+                and r.get("lse_err", 0.0) <= LSE_TOL):
+            bad.append(f"{name} on [{shapes}]")
+    if {name for name, _ in checks} != {f"{n}_hd100" for n in fns} or bad:
+        fail(f"families: openllama lora (e): rows 8-10 not held at hd {hd}, or kernel and "
+             f"plain version disagree: {bad or sorted(checks)}")
+    records = [json.loads(line) for line in log.read_text().splitlines()]
+    got = {f"{name}_hd100": fn.launches for name, fn in fns.items()}
+    want = {"flash_attention_fwd_res_hd100": 2 * layers, "flash_attention_bwd_dq_hd100": layers,
+            "flash_attention_bwd_dkv_hd100": layers}
+    ran_plain = {k: v for k, v in plain.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = records[-1]["loss"] if records else float("nan")
+    print(f"families: openllama lora step ({layers} layers, hd {hd}): {wall:.2f} s, loss "
+          f"{loss:.5f}, grad norm {records[-1]['grad_norm'] if records else None}, peak "
+          f"{peak:.2f} GiB; launches {got} expected {want}; plain versions on the card "
+          f"{ran_plain or 'none'}", flush=True)
+    if (got != want or ran_plain or len(records) != 1 or not math.isfinite(loss)
+            or not 0 < records[-1]["grad_norm"] < math.inf or not adapters):
+        fail("families: openllama lora step: launches, plain versions or loss not as expected")
+    del params, adapters
+    torch.cuda.empty_cache()
+    return got, {"layers": layers, "head_dim": hd, "wall_s": wall, "peak_gib": peak,
+                 "loss": loss, "grad_norm": records[-1]["grad_norm"], "launches": got,
+                 "on_path": {f"{n} [{sh}]": r for (n, sh), r in checks.items()}}
 
 
 # Phase 10: Mixtral-8x7B, the routed-expert decoder, at the published widths
@@ -5377,6 +5748,13 @@ def main() -> int:
         "flash_attention_bwd_dkv": ("trace_tpu_torch/kernels/csrc/attention_bwd.cu",
                                     "trace_tpu/kernels/flash_backward.py:252"),
     }
+    # the rows at hd 100 (phase 9's open_llama_3b path): the same TPU kernels
+    # (the JAX package pads hd there, or decodes through XLA's einsum); the
+    # decode rows' padded instances in the *_pad.cu twins of their sources
+    for base in HD100_ROWS:
+        src, replaces = sources[base]
+        sources[f"{base}_hd100"] = (
+            src.replace(".cu", "_pad.cu") if base.startswith("decode") else src, replaces)
     # the fp32 forms: their own sources (the decode rows: fp32 instances in
     # the bf16 rows' sources), the same TPU kernels
     f32_sources = {"flash_attention": "attention_f32.cu", "vit_attention_btd": "attention_f32.cu",

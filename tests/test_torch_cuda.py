@@ -2227,3 +2227,233 @@ def test_collectives_on_cuda_tensors_in_a_gloo_group(cuda):
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     mp.spawn(_collectives_rank, args=(port,), nprocs=2, join=True)
+
+
+# Head dims other than the kernels' widths 64 and 128 (open_llama_3b's 100;
+# 40, 72, 80, 96, 112): the attention rows (1, 2, 8, 9, 10) run at the next
+# width on zero-padded copies with the real hd's scale, the decode rows (3,
+# 3b) read the stripe in place with rows zero-filled in shared memory. Each
+# form against its plain version at the real hd, within the limits above;
+# a repeat bit for bit; launches counted per form.
+OTHER_HEAD_DIMS = [40, 72, 80, 96, 100, 112]
+HD_FLASH_CASES = [  # B, H, Hkv, T, pad, side: G 1, 4 and 7, padded rows
+    (1, 4, 4, 129, 5, "right"), (2, 8, 2, 257, 20, "left"), (2, 28, 4, 300, 37, "left")]
+
+
+def _hd_check(got, want, dtype, atol):
+    if dtype == torch.float32:
+        _assert_f32(got, want)
+    else:
+        _assert_matches(got, want, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,T,pad,side", HD_FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", OTHER_HEAD_DIMS)
+def test_flash_forward_at_other_head_dims(cuda, hd, dtype, B, H, Hkv, T, pad, side):
+    """Rows 1 and 8: o (and lse) on every row, one launch a call, a repeat
+    bit for bit."""
+    from trace_tpu_torch.kernels import flash_backward as fb
+
+    q, k, v, bias = (x.to(dtype) if x.dtype == torch.bfloat16 else x
+                     for x in _flash_inputs(cuda, B, H, Hkv, T, hd, pad, side, seed=hd))
+    table = "launches_f32" if dtype == torch.float32 else "launches"
+    n = getattr(flash_attention, table)
+    got = flash_attention(q, k, v, bias, True)
+    torch.cuda.synchronize()
+    assert getattr(flash_attention, table) == n + 1
+    assert got.shape == q.shape and got.is_contiguous() and torch.isfinite(got).all()
+    _hd_check(got, flash_attention(q, k, v, bias, True, impl="plain"), dtype, ATOL["flash"])
+    assert torch.equal(got, flash_attention(q, k, v, bias, True))
+    o, lse = fb.flash_attention_fwd_res(q, k, v, bias, causal=True)
+    o_ref, lse_ref = fb.flash_attention_fwd_res(q, k, v, bias, causal=True, impl="plain")
+    _hd_check(o, o_ref, dtype, ATOL["flash"])
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [72, 100])
+def test_flash_query_offset_at_other_head_dims(cuda, hd, dtype):
+    """A chunk of a chunked prefill over a layer's cache stripe (a strided
+    view, copied padded once) at a query offset."""
+    from trace_tpu_torch.kernels.flash_attention import NEG_INF
+
+    B, H, Hkv, T, S, offset = 2, 8, 2, 129, 600, 300
+    rng = np.random.default_rng(hd)
+    q = _bf16(rng, (B, H, T, hd), cuda).to(dtype)
+    cache = _bf16(rng, (2, 3, B, Hkv, S, hd), cuda).to(dtype)  # [kv, layer, ...]
+    k, v = cache[0, 1], cache[1, 1]
+    vis = torch.arange(S, device=cuda)[None, :] < torch.tensor([[offset + T], [offset - 40]],
+                                                               device=cuda)
+    bias = torch.where(vis, 0.0, NEG_INF).float().contiguous()
+    got = flash_attention(q, k, v, bias, True, q_offset=offset)
+    want = flash_attention(q, k, v, bias, True, q_offset=offset, impl="plain")
+    _hd_check(got, want, dtype, ATOL["flash"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", OTHER_HEAD_DIMS)
+def test_vit_attention_at_other_head_dims(cuda, hd, dtype):
+    """Row 2 on column slices of a fused QKV, each head padded."""
+    B, P, NH, TQ = 2, 150, 4, 141
+    rng = np.random.default_rng(hd)
+    qkv = _bf16(rng, (B, P, 3 * NH * hd), cuda).to(dtype)
+    q, k, v = qkv.split(NH * hd, dim=-1)
+    table = "launches_f32" if dtype == torch.float32 else "launches"
+    n = getattr(vit_attention_btd, table)
+    got = vit_attention_btd(q, k, v, TQ, NH)
+    torch.cuda.synchronize()
+    assert getattr(vit_attention_btd, table) == n + 1
+    assert got.shape == (B, P, NH * hd) and got.is_contiguous()
+    _hd_check(got[:, :TQ], vit_attention_btd(q, k, v, TQ, NH, impl="plain")[:, :TQ], dtype,
+              ATOL["vit"])
+    assert torch.equal(got, vit_attention_btd(q, k, v, TQ, NH))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,T,pad,causal", [(1, 4, 4, 129, 5, True),
+                                                   (2, 8, 2, 200, 25, True),
+                                                   (2, 28, 4, 130, 9, False)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", OTHER_HEAD_DIMS)
+def test_flash_backward_at_other_head_dims(cuda, hd, dtype, B, H, Hkv, T, pad, causal):
+    """Rows 9 and 10 from the kernel's own residuals: dq, dk and dv within
+    the backward's limits (fp32: the fp32 forms'), one launch each, the
+    separate entries equal to the joint call, a repeat bit for bit."""
+    from trace_tpu_torch.kernels import flash_backward as fb
+
+    q, k, v, bias, do, _ = _bwd_inputs(cuda, B, H, Hkv, T, T, hd, pad, "right")
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    o, lse = fb.flash_attention_fwd_res(q, k, v, bias, causal=causal)
+    table = "launches_f32" if dtype == torch.float32 else "launches"
+    counts = [getattr(f, table) for f in (fb.flash_attention_bwd_dq, fb.flash_attention_bwd_dkv)]
+    got = fb.flash_attention_bwd(q, k, v, bias, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert [getattr(f, table) for f in (fb.flash_attention_bwd_dq,
+                                        fb.flash_attention_bwd_dkv)] == [c + 1 for c in counts]
+    want = fb.flash_attention_bwd(q, k, v, bias, o, lse, do, causal=causal, impl="plain")
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape and g.is_contiguous() and torch.isfinite(g).all(), name
+        if dtype == torch.float32:
+            _assert_f32(g, w, unit=True)
+        else:
+            _assert_grad_matches(g, w, name)
+    delta = fb.flash_attention_bwd_delta(o, do)
+    args = (q, k, v, bias, do, lse, delta)
+    parts = (fb.flash_attention_bwd_dq(*args, causal=causal),) + fb.flash_attention_bwd_dkv(
+        *args, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(parts, got))
+    again = fb.flash_attention_bwd(q, k, v, bias, o, lse, do, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _hd_stripe(cuda, kernel, B, NKV, G, S, hd, seed):
+    """q [B, NKV * G, 1, hd] and layer 1's stripe of a 2-layer cache (a view
+    read in place), bf16, fp32 or int8."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    dtype = torch.float32 if kernel.endswith("f32") else torch.bfloat16
+    q = torch.randn((B, NKV * G, 1, hd), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((2, B, NKV, S, hd), generator=gen, device=cuda) for _ in range(2))
+    if kernel in ("bf16", "f32"):
+        return q, (k.to(dtype)[1], v.to(dtype)[1])
+    from trace_tpu_torch.model.mistral import _quantize_kv
+
+    stripe = {}
+    for vals, scales, x in (("kq", "ks", k), ("vq", "vs", v)):
+        layers = [_quantize_kv(x[li].to(torch.bfloat16)) for li in range(2)]
+        stripe[vals] = torch.stack([t for t, _ in layers])[1]
+        stripe[scales] = torch.stack([s.contiguous() for _, s in layers])[1]
+    return q, (stripe, None)
+
+
+def _hd_bias(rng, B, S):
+    """Half the slots masked at random; row 1 sees no slot, row 2 one."""
+    vis = torch.from_numpy(rng.random((B, S)) < 0.5)
+    vis[1] = False
+    vis[2] = False
+    vis[2, S // 3] = True
+    return torch.where(vis, 0.0, -1e30).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 4, 7])
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+@pytest.mark.parametrize("hd", OTHER_HEAD_DIMS)
+def test_decode_rows_at_other_head_dims(cuda, hd, kernel, G):
+    """Rows 3 and 3b (both bodies), bf16 and fp32, over a stripe read in
+    place: one launch a group split (hd <= 64: 4, 2, 1 rows), the limits of
+    the hd-128 forms, a repeat bit for bit."""
+    from trace_tpu_torch.kernels.decode_attention import group_splits
+
+    B, NKV, S = 3, 2, 333
+    q, kv = _hd_stripe(cuda, kernel, B, NKV, G, S, hd, seed=hd + G)
+    bias = _hd_bias(np.random.default_rng(hd + G), B, S).to(cuda)
+    n = _launch_count(kernel)
+    got = _group_call(kernel, q, kv, bias)
+    torch.cuda.synchronize()
+    assert _launch_count(kernel) == n + len(group_splits(G, hd))
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    want = _group_call(kernel, q, kv, bias, impl="plain")
+    if kernel.endswith("f32"):
+        _assert_f32(got, want, atol=2e-3 if kernel == "dequant_f32" else F32_ATOL)
+    else:
+        _assert_matches(got, want, ATOL["decode"])
+    assert torch.equal(got, _group_call(kernel, q, kv, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+def test_hd100_decode_step_allocates_only_its_output_and_replays_in_a_graph(cuda, kernel):
+    """open_llama_3b's decode attention (32 / 32 heads, hd 100) at B = 4,
+    S = 2304, serving masks: one launch, no allocation beside the output (no
+    copy of the stripe), and the call captured in a CUDA graph replays equal
+    to the eager call. (Which kernels ran is read from the launch count: a
+    profiler session after this file's graph captures sees no kernel.)"""
+    q, kv = _hd_stripe(cuda, kernel, 4, 32, 1, 2304, 100, seed=80)
+    bias = _edge_bias(np.random.default_rng(80), "serving", 4, 2304).to(cuda)
+    n = _launch_count(kernel)
+    eager = _group_call(kernel, q, kv, bias)  # built and loaded outside the capture
+    torch.cuda.synchronize()
+    assert _launch_count(kernel) == n + 1
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = _group_call(kernel, q, kv, bias)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before == out.untyped_storage().nbytes()
+    assert torch.equal(out, eager)
+    del out
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _group_call(kernel, q, kv, bias)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_head_dims_past_the_kernels_limits_raise(cuda):
+    """hd 136 in every wrapper, and hd 102 (no multiple of 4) in the decode
+    rows: a ValueError that states the limit, no launch, no plain route."""
+    from trace_tpu_torch.kernels import flash_backward as fb
+
+    for hd in (136, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.zeros((1, 2, 64, hd), dtype=dtype, device=cuda)
+            rows = torch.zeros((1, 2, 64, 1), device=cuda)
+            with pytest.raises(ValueError, match="128"):
+                flash_attention(q, q, q, None, True)
+            with pytest.raises(ValueError, match="128"):
+                fb.flash_attention_fwd_res(q, q, q, None, causal=True)
+            with pytest.raises(ValueError, match="128"):
+                fb.flash_attention_bwd(q, q, q, None, q, rows, q, causal=True)
+            with pytest.raises(ValueError, match="128"):
+                vit_attention_btd(q[0], q[0], q[0], 64, 1)
+    for hd in (136, 102):
+        for kernel in DECODE_KERNELS:
+            q, kv = _hd_stripe(cuda, kernel, 1, 2, 1, 64, hd, seed=hd)
+            with pytest.raises(ValueError, match="128"):
+                _group_call(kernel, q, kv, torch.zeros((1, 64), device=cuda))

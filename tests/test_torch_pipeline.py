@@ -140,9 +140,13 @@ def test_pipeline_defaults_to_cuda():
 
 
 def _port_sources():
-    # the rank worker of the multi-process tests runs without JAX too
+    # the rank worker of the multi-process tests runs without JAX too, and
+    # so do the twins of the launch scripts
     return sorted((ROOT / "trace_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_mp_worker.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_mp_worker.py",
+        ROOT / "scripts" / "inference" / "inference_torch.py",
+        ROOT / "scripts" / "inference" / "serve_batch_torch.py",
+        ROOT / "examples" / "inference_torch.py"]
 
 
 # the files that may import cv2, and the functions of each it is imported in

@@ -1,0 +1,11 @@
+// One decode step of GQA attention over one layer's int8 KV-cache stripe, for
+// Hopper (sm_90a): the instances at the head dims other than 64 and 128, each
+// a multiple of 4 up to 128, run at width 64 or 128 with the rows zero-padded
+// in shared memory (kq and vq aligned to the largest of 16, 8 and 4 bytes that
+// divides a row). A library of its own beside decode_attention_int8.cu, so
+// that the two compile in parallel. The kernel and its design: decode_int8.cuh.
+
+#include "decode_int8.cuh"
+
+#define DECODE_INT8_PAD true
+DECODE_ATTN_INT8_ENTRIES

@@ -8,7 +8,10 @@
 // in q's type (bf16, or fp32 for a model served in fp32), and the host's rule
 // for C and the cluster launch. Both kernels take G = 1 ... 8 query rows a kv
 // head at hd 128 (1, 2 or 4 at hd 64); the wrappers split a larger group into
-// launches of at most 8 rows.
+// launches of at most 8 rows. Any other head dim that is a multiple of 4 up
+// to 128 runs at the next width HD (64 or 128) with its rows zero-padded in
+// shared memory as they land (stage_rows): the cache is read in place, no
+// copy of it is made.
 
 #pragma once
 
@@ -100,6 +103,67 @@ __device__ __forceinline__ void stage_tile(void* ring, const void* src, const in
                rows_src + static_cast<long long>(idx[k0 + r]) * ROW + piece * 16);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// cp.async of a P-byte piece (16, 8 or 4) whose first n bytes come from src
+// and whose rest is zero-filled (n = 0: nothing is read)
+template <int P>
+__device__ __forceinline__ void cp_async_fill(void* dst, const void* src, int n) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (P == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src), "n"(P),
+                 "r"(n)
+                 : "memory");
+}
+
+// stage_tile for a stripe whose rows hold gbytes < ROW bytes in device memory
+// (a head dim below the kernel's width HD): each row's ROW bytes in the ring
+// copied as P-byte pieces, the bytes past gbytes zero-filled, so that the
+// ring holds the rows as stage_tile puts them with zero columns past hd
+template <int P, int ROW, int STAGE, int NSTAGE, int NT>
+__device__ __forceinline__ void stage_tile_padded(void* ring, const void* src, const int* idx,
+                                                  int t, int nv, int gbytes) {
+  constexpr int CPR = ROW / P;     // pieces per row of the ring
+  constexpr int TR = STAGE / ROW;  // rows per tile
+  const int k0 = t * TR, rows = min(nv - k0, TR);
+  unsigned char* dst = static_cast<unsigned char*>(ring) + (t % NSTAGE) * STAGE;
+  const unsigned char* rows_src = static_cast<const unsigned char*>(src);
+  for (int c = threadIdx.x; c < rows * CPR; c += NT) {
+    const int r = c / CPR, off = (c % CPR) * P;
+    const unsigned char* row = rows_src + static_cast<long long>(idx[k0 + r]) * gbytes;
+    const int n = min(P, max(0, gbytes - off));
+    cp_async_fill<P>(dst + r * ROW + off, n > 0 ? row + off : row, n);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// the copies of tile t of a stripe of gbytes-byte rows: stage_tile where the
+// rows fill the kernel's width (PAD false, gbytes = ROW), else
+// stage_tile_padded in the largest pieces (16, 8 or 4 bytes) that the rows'
+// alignment allows
+template <bool PAD, int ROW, int STAGE, int NSTAGE, int NT>
+__device__ __forceinline__ void stage_rows(void* ring, const void* src, const int* idx, int t,
+                                           int nv, int gbytes) {
+  if constexpr (!PAD)
+    stage_tile<ROW, STAGE, NSTAGE, NT>(ring, src, idx, t, nv);
+  else if (gbytes % 16 == 0)
+    stage_tile_padded<16, ROW, STAGE, NSTAGE, NT>(ring, src, idx, t, nv, gbytes);
+  else if (gbytes % 8 == 0)
+    stage_tile_padded<8, ROW, STAGE, NSTAGE, NT>(ring, src, idx, t, nv, gbytes);
+  else
+    stage_tile_padded<4, ROW, STAGE, NSTAGE, NT>(ring, src, idx, t, nv, gbytes);
+}
+
+// the kernels' width HD for a head dim hd they take: 64 or 128 themselves
+// (padded false); any other multiple of 4 below 128 at the next of the two,
+// its rows zero-padded in shared memory (padded true); 0 for any other hd
+inline int decode_width(int hd, bool* padded) {
+  *padded = hd != 64 && hd != 128;
+  if (hd < 4 || hd > 128 || hd % 4) return 0;
+  return hd <= 64 ? 64 : 128;
 }
 
 // the slots of [j0, j1) that the block takes, ascending, into idx; returns

@@ -1,6 +1,9 @@
 """Decode-step attention over one layer's KV-cache stripe: wrapper of the
 CUDA kernels in csrc/decode_attention.cu (bf16 or fp32 cache) and
 csrc/decode_attention_int8.cu (int8 cache), and their plain PyTorch versions.
+(The kernels are in csrc/decode_bf16.cuh and csrc/decode_int8.cuh; each
+source's ``*_pad.cu`` twin holds their instances at head dims other than 64
+and 128.)
 
 Replaces trace_tpu/kernels/decode_attention.py ``decode_attention`` with its
 bodies ``_kernel_bf16``, ``_kernel_int8_s8dot`` / ``_kernel_int8_s8dot_stacked``
@@ -24,6 +27,14 @@ sources. A launch takes G = 1 ... 8 query rows a kv head at hd 128 (1, 2 or
 takes) into launches of at most that many rows, each on a contiguous copy of
 its rows of q, and writes each launch's rows into the output.
 
+Head dims: the kernels are built at HD = 64 and 128 and take any hd up to 128
+that is a multiple of 4 (the published head dims 64, 72, 80, 96, 100, 112,
+128); any other raises a ``ValueError``. Another hd runs at the next width
+(hd <= 64 at 64, else 128) with no copy of the cache: the kernel reads rows
+of hd values in place and zero-fills the rest of each row as it lands in
+shared memory (cp.async's source size, in pieces of 16, 8 or 4 bytes as the
+rows' alignment allows); it writes only the output's hd columns.
+
 An fp32 query (a model served in fp32) takes the fp32 instances of the same
 two kernels, over an fp32 cache or the int8 one: the same cluster launch on
 4-byte elements, p unrounded over an fp32 cache, q quantized from its fp32
@@ -45,11 +56,18 @@ import ctypes
 import torch
 
 from trace_tpu_torch.kernels.build import count_launch
+from trace_tpu_torch.kernels.flash_attention import MAX_HEAD_DIM
 
 _SOURCE = "decode_attention.cu"
 _SOURCE_INT8 = "decode_attention_int8.cu"
 INT8_MODES = ("s8dot", "dequant")
-MAX_GROUP = 8  # query rows a kv head that one launch takes (hd 128)
+MAX_GROUP = 8  # query rows a kv head that one launch takes (hd above 64)
+
+
+def _source(name: str, hd: int) -> str:
+    """The library of a decode source that holds head dim ``hd``: the source
+    itself at 64 and 128, its ``*_pad.cu`` twin at the other head dims."""
+    return name if hd in (64, 128) else name.replace(".cu", "_pad.cu")
 
 
 def grouped_attention(q, k, v, bias):
@@ -136,11 +154,24 @@ _PLAIN_INT8 = {"s8dot": decode_attention_int8_s8dot,
                "dequant": decode_attention_int8_dequant}
 
 
+def check_head_dim(hd: int) -> None:
+    """A ``ValueError`` unless the decode kernels take head dim ``hd``."""
+    if not (0 < hd <= MAX_HEAD_DIM and hd % 4 == 0):
+        raise ValueError(f"head dim {hd}: the decode attention kernels take multiples of 4 "
+                         f"up to {MAX_HEAD_DIM}")
+
+
+def row_alignment(row_bytes: int) -> int:
+    """The alignment the kernels need of a cache stripe whose rows hold
+    ``row_bytes``: the largest of 16, 8 and 4 that divides a row."""
+    return next(a for a in (16, 8, 4) if row_bytes % a == 0)
+
+
 def group_splits(G: int, hd: int) -> list:
     """The query rows of a kv head as the launches take them: [(g0, n)],
-    each n a group the kernels take (1 ... 8 at hd 128; 1, 2 or 4 at hd 64),
-    the largest first."""
-    sizes = range(MAX_GROUP, 0, -1) if hd == 128 else (4, 2, 1)
+    each n a group the kernels take (1 ... 8 at hd above 64, run at width
+    128; 1, 2 or 4 at hd <= 64), the largest first."""
+    sizes = range(MAX_GROUP, 0, -1) if hd > 64 else (4, 2, 1)
     splits, g0 = [], 0
     while g0 < G:
         n = next(size for size in sizes if size <= G - g0)
@@ -178,8 +209,9 @@ def _decode_attention_int8(q, cache: dict, bias_row, mode: str, impl: str):
         raise ValueError(f"shapes q {tuple(q.shape)} cache {tuple(kq.shape)}")
     if ks.shape != (B, NKV, 1, S) or vs.shape != ks.shape:
         raise ValueError(f"scales must be [B, NKV, 1, S], got {tuple(ks.shape)}")
-    if H % NKV or hd not in (64, 128):
-        raise ValueError(f"unsupported heads {H}/{NKV} or head dim {hd}")
+    check_head_dim(hd)
+    if H % NKV:
+        raise ValueError(f"unsupported heads {H}/{NKV}")
     f32 = q.dtype == torch.float32
     for name, x, dtype in (("q", q, torch.float32 if f32 else torch.bfloat16),
                            ("kq", kq, torch.int8),
@@ -187,13 +219,16 @@ def _decode_attention_int8(q, cache: dict, bias_row, mode: str, impl: str):
                            ("vs", vs, torch.bfloat16), ("bias_row", bias_row, torch.float32)):
         if x.dtype != dtype or not x.is_contiguous() or x.device != q.device:
             raise ValueError(f"{name} must be a contiguous {dtype} tensor on {q.device}")
+    for name, x in (("kq", kq), ("vq", vq)):
+        if x.data_ptr() % row_alignment(hd):
+            raise ValueError(f"{name}: data pointer not {row_alignment(hd)}-byte aligned")
     if bias_row.shape != (B, S):
         raise ValueError("bias_row must be [B, S]")
 
     from trace_tpu_torch.kernels.build import check, load
 
     name = f"decode_attn_int8_f32_{mode}" if f32 else f"decode_attn_int8_{mode}"
-    fn = getattr(load(_SOURCE_INT8), name)
+    fn = getattr(load(_source(_SOURCE_INT8, hd)), name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 
@@ -233,14 +268,16 @@ def decode_attention(
     _, NKV, S, _ = cache_k.shape
     if T != 1 or cache_k.shape != (B, NKV, S, hd) or cache_v.shape != cache_k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)} cache {tuple(cache_k.shape)}")
-    if H % NKV or hd not in (64, 128):
-        raise ValueError(f"unsupported heads {H}/{NKV} or head dim {hd}")
+    check_head_dim(hd)
+    if H % NKV:
+        raise ValueError(f"unsupported heads {H}/{NKV}")
     f32 = q.dtype == torch.float32
     dtype = torch.float32 if f32 else torch.bfloat16
+    align = row_alignment(hd * q.element_size())
     for name, x in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
         if (x.dtype != dtype or not x.is_contiguous() or x.device != q.device
-                or x.data_ptr() % 16):
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned {dtype} "
+                or x.data_ptr() % align):
+            raise ValueError(f"{name} must be a contiguous, {align}-byte aligned {dtype} "
                              f"tensor on {q.device} (bfloat16 or float32, q's dtype)")
     if (bias_row.shape != (B, S) or bias_row.dtype != torch.float32
             or not bias_row.is_contiguous() or bias_row.device != q.device):
@@ -249,7 +286,7 @@ def decode_attention(
     from trace_tpu_torch.kernels.build import check, load
 
     name = "decode_attn_f32" if f32 else "decode_attn_bf16"
-    fn = getattr(load(_SOURCE), name)
+    fn = getattr(load(_source(_SOURCE, hd)), name)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 

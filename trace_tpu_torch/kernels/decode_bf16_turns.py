@@ -2,7 +2,7 @@
 on the card.
 
     python -m trace_tpu_torch.kernels.decode_bf16_turns [--against NAME=PATH.cu ...]
-        [--group G] [--kv-heads N] [--f32]
+        [--group G] [--kv-heads N] [--head-dim HD] [--f32]
 
 Builds ``csrc/decode_attention.cu`` as it is (``this``) and each source
 named by ``--against`` (say an earlier commit's copy, unpacked with
@@ -14,8 +14,9 @@ with serving-shaped masks (left padding, a visible prefix, masked future
 slots); last at the shape of the decode step that ``chip_smoke.py`` profiles
 (B = 2, S = 2049: a prefill of 2048 slots, left padding, then the new
 slot). ``--group`` and ``--kv-heads`` set G and the kv heads (qwen2-7B:
-``--group 7 --kv-heads 4``); ptxas's registers and spills of every kernel of
-the source are printed. ``--f32`` times the fp32 entry (``decode_attn_f32``:
+``--group 7 --kv-heads 4``), ``--head-dim`` hd (any the wrapper takes; a
+source that does not take it fails at launch); ptxas's registers and spills
+of every kernel of the source are printed. ``--f32`` times the fp32 entry (``decode_attn_f32``:
 fp32 q, cache and out) on an fp32 stripe instead, with the fp32 row's
 limits and SDPA in fp32. CUDA events, median of 20 with the L2 flushed
 before each run; the versions in turns, forward then backward (A B B A), so
@@ -41,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from trace_tpu_torch.kernels.build import CSRC
-from trace_tpu_torch.kernels.decode_attention import decode_attention_bf16
+from trace_tpu_torch.kernels.decode_attention import _source, decode_attention_bf16
 from trace_tpu_torch.kernels.decode_int8_turns import (
     CASES,
     HD,
@@ -63,7 +64,7 @@ def caller(lib, q, k, v, bias):
     """A function that launches ``lib``'s kernel once into a fixed output
     (the fp32 entry for fp32 operands)."""
     B, S = bias.shape
-    NKV = k.shape[1]
+    NKV, hd = k.shape[1], k.shape[-1]
     G = q.shape[1] // NKV
     o = torch.empty_like(q)
     f32 = q.dtype == torch.float32
@@ -79,14 +80,14 @@ def caller(lib, q, k, v, bias):
         lib.decode_attn_chunk.argtypes = []
         nchunk = -(-S // lib.decode_attn_chunk())
         ws = [torch.empty((B, NKV, nchunk, G, n), dtype=torch.float32, device="cuda")
-              for n in (2, HD)]
+              for n in (2, hd)]
         args += [w.data_ptr() for w in ws]
     fn.argtypes = [ctypes.c_void_p] * len(args) + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
-        err = fn(*args, B, NKV, G, S, HD, float(HD ** -0.5), stream)
+        err = fn(*args, B, NKV, G, S, hd, float(hd ** -0.5), stream)
         if err:
             raise RuntimeError(f"CUDA error {err} at launch")
         return o
@@ -100,6 +101,7 @@ def main() -> int:
     ap.add_argument("--against", action="append", default=[], metavar="NAME=PATH.cu")
     ap.add_argument("--group", type=int, default=G, help="query rows a kv head (1 ... 8)")
     ap.add_argument("--kv-heads", type=int, default=NKV)
+    ap.add_argument("--head-dim", type=int, default=HD)
     ap.add_argument("--f32", action="store_true", help="the fp32 entry: fp32 q, cache and out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -107,25 +109,26 @@ def main() -> int:
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    sources = {"this": CSRC / "decode_attention.cu"}
+    # this build's library of the head dim: the source, or its *_pad.cu twin
+    sources = {"this": CSRC / _source("decode_attention.cu", args.head_dim)}
     for item in args.against:
         name, _, path = item.partition("=")
         sources[name] = Path(path)
     libs = build(sources, "decode_bf16_turns", ptxas=True)
-    nkv, group = args.kv_heads, args.group
+    nkv, group, hd = args.kv_heads, args.group, args.head_dim
     dtype = torch.float32 if args.f32 else torch.bfloat16
-    print(f"{nkv} kv heads, G = {group}, {dtype}", flush=True)
+    print(f"{nkv} kv heads, G = {group}, hd {hd}, {dtype}", flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for B, S, mask in SHAPES:
         q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
-                   for shape in ((B, nkv * group, 1, HD), (B, nkv, S, HD), (B, nkv, S, HD)))
+                   for shape in ((B, nkv * group, 1, hd), (B, nkv, S, hd), (B, nkv, S, hd)))
         bias = mask_bias(g, B, mask, S)
         attn_mask = bias[:, None, None, :].to(dtype)
         sdpa = median_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, enable_gqa=True), flush)
         visible = int((bias == 0).sum().item())
-        nbytes = (2 * q.numel() + 2 * visible * nkv * HD) * q.element_size() + bias.numel() * 4
+        nbytes = (2 * q.numel() + 2 * visible * nkv * hd) * q.element_size() + bias.numel() * 4
         print(f"B = {B}, S = {S}, {mask} mask: SDPA {sdpa:.4f} ms; byte bound "
               f"{nbytes / 3.35e12 * 1e3:.4f} ms", flush=True)
         ref = decode_attention_bf16(q, k, v, bias).float()

@@ -2,7 +2,7 @@
 on the card.
 
     python -m trace_tpu_torch.kernels.decode_int8_turns [--against NAME=PATH.cu ...]
-        [--group G] [--kv-heads N] [--f32]
+        [--group G] [--kv-heads N] [--head-dim HD] [--f32]
 
 Builds ``csrc/decode_attention_int8.cu`` as it is (``this``) and each source
 named by ``--against`` (say an earlier commit's copy, unpacked with
@@ -12,7 +12,9 @@ stripe quantized from random K/V, 8 kv heads, G = 4, hd 128, S = 2304,
 half the slots masked at random, at B = 4 and at B = 32 (the bench's decode
 batch), and at B = 32 with serving-shaped masks (left padding, a visible
 prefix, masked future slots). ``--group`` and ``--kv-heads`` set G and the kv
-heads (qwen2-7B: ``--group 7 --kv-heads 4``); ptxas's registers and spills
+heads (qwen2-7B: ``--group 7 --kv-heads 4``), ``--head-dim`` hd (any the
+wrapper takes; a source that does not take it fails at launch); ptxas's
+registers and spills
 of every kernel of the source are printed. ``--f32`` times the fp32 entries
 (``decode_attn_int8_f32_*``: an fp32 query, fp32 out) instead, with the fp32
 rows' limits and SDPA in fp32. CUDA events, median of 20 with the L2 flushed
@@ -40,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from trace_tpu_torch.kernels.build import BUILD_DIR, CSRC, NVCC_FLAGS, nvcc
-from trace_tpu_torch.kernels.decode_attention import INT8_MODES, _PLAIN_INT8
+from trace_tpu_torch.kernels.decode_attention import _PLAIN_INT8, INT8_MODES, _source
 
 NKV, G, S, HD = 8, 4, 2304, 128
 CASES = ((4, "random"), (32, "random"), (32, "serving"))
@@ -97,7 +99,7 @@ def caller(lib, mode, q, stripe, bias):
     """A function that launches ``lib``'s kernel once into a fixed output
     (the fp32 entry for an fp32 q)."""
     B, NKV = stripe["kq"].shape[:2]
-    G = q.shape[1] // NKV
+    G, hd = q.shape[1] // NKV, q.shape[-1]
     o = torch.empty_like(q)
     f32 = q.dtype == torch.float32
     fn = getattr(lib, f"decode_attn_int8_f32_{mode}" if f32 else f"decode_attn_int8_{mode}")
@@ -114,14 +116,14 @@ def caller(lib, mode, q, stripe, bias):
         nchunk = -(-S // lib.decode_attn_int8_chunk())
         ws = [torch.empty(shape, dtype=dtype, device="cuda") for shape, dtype in (
             ((B, NKV, G, S), torch.float32), ((B, NKV, G, 2), torch.float32),
-            ((B, NKV, nchunk, G, HD), torch.int32))]
+            ((B, NKV, nchunk, G, hd), torch.int32))]
         args += [w.data_ptr() for w in ws]
     fn.argtypes = [ctypes.c_void_p] * len(args) + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
-        err = fn(*args, B, NKV, G, S, HD, float(HD ** -0.5), stream)
+        err = fn(*args, B, NKV, G, S, hd, float(hd ** -0.5), stream)
         if err:
             raise RuntimeError(f"CUDA error {err} at launch")
         return o
@@ -161,15 +163,15 @@ def mask_bias(g, B, mask="random", S=S):
     return torch.where(visible, 0.0, -1e30).float()
 
 
-def inputs(g, B, mask="random", nkv=NKV, group=G, dtype=torch.bfloat16):
-    """q [B, nkv * group, 1, HD] in ``dtype``, an int8 stripe and its bias."""
+def inputs(g, B, mask="random", nkv=NKV, group=G, dtype=torch.bfloat16, hd=HD):
+    """q [B, nkv * group, 1, hd] in ``dtype``, an int8 stripe and its bias."""
     from trace_tpu_torch.model.mistral import _quantize_kv
 
     stripe = {}
     for vals, scales in (("kq", "ks"), ("vq", "vs")):
-        x = torch.randn((B, nkv, S, HD), generator=g, device="cuda").to(torch.bfloat16)
+        x = torch.randn((B, nkv, S, hd), generator=g, device="cuda").to(torch.bfloat16)
         stripe[vals], stripe[scales] = (t.contiguous() for t in _quantize_kv(x))
-    q = torch.randn((B, nkv * group, 1, HD), generator=g, device="cuda").to(dtype)
+    q = torch.randn((B, nkv * group, 1, hd), generator=g, device="cuda").to(dtype)
     return q, stripe, mask_bias(g, B, mask)
 
 
@@ -178,6 +180,7 @@ def main() -> int:
     ap.add_argument("--against", action="append", default=[], metavar="NAME=PATH.cu")
     ap.add_argument("--group", type=int, default=G, help="query rows a kv head (1 ... 8)")
     ap.add_argument("--kv-heads", type=int, default=NKV)
+    ap.add_argument("--head-dim", type=int, default=HD)
     ap.add_argument("--f32", action="store_true", help="the fp32 entries: fp32 q and out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -185,24 +188,25 @@ def main() -> int:
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    sources = {"this": CSRC / "decode_attention_int8.cu"}
+    # this build's library of the head dim: the source, or its *_pad.cu twin
+    sources = {"this": CSRC / _source("decode_attention_int8.cu", args.head_dim)}
     for item in args.against:
         name, _, path = item.partition("=")
         sources[name] = Path(path)
     libs = build(sources, ptxas=True)
-    nkv, dtype = args.kv_heads, torch.float32 if args.f32 else torch.bfloat16
-    print(f"{nkv} kv heads, G = {args.group}, q {dtype}", flush=True)
+    nkv, dtype, hd = args.kv_heads, torch.float32 if args.f32 else torch.bfloat16, args.head_dim
+    print(f"{nkv} kv heads, G = {args.group}, hd {hd}, q {dtype}", flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for B, mask in CASES:
-        q, stripe, bias = inputs(g, B, mask, nkv, args.group, dtype)
+        q, stripe, bias = inputs(g, B, mask, nkv, args.group, dtype, hd)
         kd = stripe["kq"].to(dtype) * stripe["ks"].transpose(-1, -2).to(dtype)
         vd = stripe["vq"].to(dtype) * stripe["vs"].transpose(-1, -2).to(dtype)
         attn_mask = bias[:, None, None, :].to(dtype)
         sdpa = median_ms(lambda: F.scaled_dot_product_attention(
             q, kd, vd, attn_mask=attn_mask, enable_gqa=True), flush)
         visible = int((bias == 0).sum().item())
-        nbytes = (2 * q.numel() * q.element_size() + 2 * visible * nkv * (HD + 2)
+        nbytes = (2 * q.numel() * q.element_size() + 2 * visible * nkv * (hd + 2)
                   + bias.numel() * 4)
         print(f"B = {B}, {mask} mask: SDPA {sdpa:.4f} ms; byte bound "
               f"{nbytes / 3.35e12 * 1e3:.4f} ms", flush=True)

@@ -27,6 +27,14 @@ reads q, k and v through TMA tensor maps, so the wrapper's operands need
 16-byte aligned pointers and row strides (not contiguity: a chunk of a
 chunked prefill attends a layer's cache stripe in place).
 
+Head dims: the kernels are built at a tile width HD of 64 or 128, and take
+any hd from 1 to 128 (``MAX_HEAD_DIM``; above it a ``ValueError``): hd <= 64
+runs at 64, 64 < hd <= 128 at 128. At an hd other than 64 or 128 the
+wrapper copies q, k and v zero-padded to HD (``pad_head_dim``), as the JAX
+package pads to a multiple of 128, passes the real hd's scale hd^-0.5 apart
+from the width, and slices the output back: zero columns add nothing to
+q . k and give zero output columns. At 64 and 128 nothing is copied.
+
 With ``q_offset`` (``flash_attention``, causal) query row r sits at position
 ``q_offset + r`` of the keys and sees the keys j <= q_offset + r: a chunk of
 a chunked prefill over the cache stripe it was just written into.
@@ -56,6 +64,7 @@ import torch
 from trace_tpu_torch.kernels.build import count_launch
 
 NEG_INF = -1e30
+MAX_HEAD_DIM = 128  # the widest tile the kernels are built at
 _SOURCE = "attention.cu"
 _SOURCE_F32 = "attention_f32.cu"
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -69,16 +78,49 @@ def _use_kernel(x: torch.Tensor, impl: str) -> bool:
     return x.is_cuda
 
 
-def xla_attention(q, k, v, mask_bias=None, *, causal=False, q_offset=0):
+def kernel_width(hd: int) -> int:
+    """The tile width HD the kernels run head dim ``hd`` at: 64 for hd <= 64,
+    128 up to ``MAX_HEAD_DIM``; a ``ValueError`` past it."""
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd}: the attention kernels take 1 ... {MAX_HEAD_DIM}")
+    return 64 if hd <= 64 else 128
+
+
+def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x with its last dim zero-padded to ``width`` (a contiguous copy, one
+    pass over x), or x itself where the last dim is ``width``."""
+    hd = x.shape[-1]
+    return x if hd == width else torch.nn.functional.pad(x, (0, width - hd)).contiguous()
+
+
+def pad_heads(x: torch.Tensor, num_heads: int, width: int) -> torch.Tensor:
+    """[B, P, heads x hd] -> [B, P, heads x width]: each head's columns
+    zero-padded to ``width`` (a contiguous copy; x itself at hd = width)."""
+    hd = x.shape[-1] // num_heads
+    if hd == width:
+        return x
+    return pad_head_dim(x.unflatten(-1, (num_heads, hd)), width).flatten(-2)
+
+
+def unpad_heads(x: torch.Tensor, num_heads: int, hd: int) -> torch.Tensor:
+    """The inverse of ``pad_heads``: each head's first ``hd`` columns, as a
+    contiguous [B, P, heads x hd]."""
+    width = x.shape[-1] // num_heads
+    if hd == width:
+        return x
+    return x.unflatten(-1, (num_heads, width))[..., :hd].flatten(-2).contiguous()
+
+
+def xla_attention(q, k, v, mask_bias=None, *, causal=False, q_offset=0, scale=None):
     """Plain version of ``flash_attention`` (port of the JAX package's
     ``xla_attention``): materialises the fp32 scores. Causal, query row r
-    sees the keys j <= q_offset + r."""
+    sees the keys j <= q_offset + r. ``scale`` defaults to hd^-0.5."""
     B, H, Tq, hd = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     G = H // Hkv
     qg = q.reshape(B, Hkv, G, Tq, hd)
     s = torch.einsum("bngth,bnsh->bngts", qg.float(), k.float())
-    s = s * (hd ** -0.5)
+    s = s * (hd ** -0.5 if scale is None else scale)
     if mask_bias is not None:
         s = s + mask_bias.float()[:, None, None, None, :]
     if causal:
@@ -96,6 +138,8 @@ def _count(fn, x) -> None:
 
 
 def _check_operand(name, x, hd, dtype):
+    """An operand the kernels read at tile width ``hd`` (64 or 128; the
+    wrappers pad other head dims first)."""
     if x.dtype != dtype or dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name}: the CUDA kernels take bfloat16 or float32 operands of "
                         f"one dtype, got {x.dtype} beside q's {dtype}")
@@ -105,14 +149,16 @@ def _check_operand(name, x, hd, dtype):
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer not 16-byte aligned")
     if hd not in (64, 128):
-        raise ValueError(f"{name}: head dim {hd} not in (64, 128)")
+        raise ValueError(f"{name}: tile width {hd} not in (64, 128)")
 
 
 def _launch(q, k, v, bias, o, *, B, H, group, tq, tk, hd, kv_len, causal,
-            q_strides, k_strides, v_strides, o_strides, bias_stride, lse=None, q_offset=0):
-    """One launch of the forward kernel in the form for q's dtype; ``lse``
-    (fp32 [B, H, Tq], contiguous) also receives each query row's
-    logsumexp."""
+            q_strides, k_strides, v_strides, o_strides, bias_stride, scale, lse=None,
+            q_offset=0):
+    """One launch of the forward kernel in the form for q's dtype, at tile
+    width ``hd`` (64 or 128) with the softmax scale ``scale`` (hd^-0.5 of
+    the real head dim); ``lse`` (fp32 [B, H, Tq], contiguous) also
+    receives each query row's logsumexp."""
     from trace_tpu_torch.kernels.build import check, load
 
     name = "attn_fwd_f32" if q.dtype == torch.float32 else "attn_fwd_bf16"
@@ -126,7 +172,7 @@ def _launch(q, k, v, bias, o, *, B, H, group, tq, tk, hd, kv_len, causal,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr() if bias is not None else None, o.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        B, H, group, tq, tk, hd, kv_len, int(causal), int(q_offset), float(hd ** -0.5),
+        B, H, group, tq, tk, hd, kv_len, int(causal), int(q_offset), float(scale),
         *q_strides, *k_strides, *v_strides, *o_strides, bias_stride,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -135,7 +181,8 @@ def _launch(q, k, v, bias, o, *, B, H, group, tq, tk, hd, kv_len, causal,
 
 def _check_causal_operands(q, k, v, mask_bias, *, contiguous: bool = True):
     """Shapes, types and layout the [B, H, T, hd] kernels take (the forward
-    reads through strides, the backward wants ``contiguous`` operands)."""
+    reads through strides, the backward wants ``contiguous`` operands), at
+    tile width hd: the operands as the wrappers pass them, padded."""
     B, H, Tq, hd = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     if k.shape != (B, Hkv, Tk, hd) or v.shape != k.shape or H % Hkv:
@@ -163,33 +210,51 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention with the scores kept on chip. Returns [B, H, Tq, hd] in q's
     dtype. GQA: query head h reads kv head h // (H // Hkv). Causal, query
-    row r sees the keys j <= ``q_offset`` + r. q, k and v need unit stride on
-    hd and 16-byte aligned rows, not contiguity."""
+    row r sees the keys j <= ``q_offset`` + r. At hd 64 and 128, q, k and v
+    need unit stride on hd and 16-byte aligned rows, not contiguity; any
+    other hd up to 128 runs on zero-padded copies."""
     if not _use_kernel(q, impl):
         return xla_attention(q, k, v, mask_bias, causal=causal, q_offset=q_offset)
-    _check_causal_operands(q, k, v, mask_bias, contiguous=False)
-    if q_offset < 0 or (q_offset and not causal):
-        raise ValueError(f"q_offset={q_offset}: a causal offset >= 0")
-    B, H, Tq, hd = q.shape
-    Hkv, Tk = k.shape[1], k.shape[2]
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(
-        q, k, v, mask_bias, o, B=B, H=H, group=H // Hkv, tq=Tq, tk=Tk, hd=hd,
-        kv_len=Tk, causal=causal,
-        q_strides=q.stride()[:3], k_strides=k.stride()[:3],
-        v_strides=v.stride()[:3], o_strides=o.stride()[:3],
-        bias_stride=Tk, q_offset=q_offset,
-    )
+    o, _ = _forward(q, k, v, mask_bias, causal=causal, q_offset=q_offset)
     _count(flash_attention, q)
     return o
+
+
+def _forward(q, k, v, mask_bias, *, causal, q_offset, lse: bool = False):
+    """One launch of the forward kernel over [B, H, T, hd] operands of any
+    hd up to 128: (o [B, H, Tq, hd] contiguous, lse [B, H, Tq, 1] fp32 or
+    None). At an hd other than the tile width, on zero-padded copies, the
+    output sliced back."""
+    hd = q.shape[-1]
+    width = kernel_width(hd)
+    if k.shape[-1] != hd or v.shape[-1] != hd:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do not match")
+    if q_offset < 0 or (q_offset and not causal):
+        raise ValueError(f"q_offset={q_offset}: a causal offset >= 0")
+    qp, kp, vp = (pad_head_dim(x, width) for x in (q, k, v))
+    _check_causal_operands(qp, kp, vp, mask_bias, contiguous=False)
+    B, H, Tq, _ = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    o = torch.empty(qp.shape, dtype=q.dtype, device=q.device)
+    res = torch.empty((B, H, Tq, 1), dtype=torch.float32, device=q.device) if lse else None
+    _launch(
+        qp, kp, vp, mask_bias, o, B=B, H=H, group=H // Hkv, tq=Tq, tk=Tk, hd=width,
+        kv_len=Tk, causal=causal,
+        q_strides=qp.stride()[:3], k_strides=kp.stride()[:3],
+        v_strides=vp.stride()[:3], o_strides=o.stride()[:3],
+        bias_stride=Tk, lse=res, q_offset=q_offset, scale=hd ** -0.5,
+    )
+    return (o if width == hd else o[..., :hd].contiguous()), res
 
 
 flash_attention.launches = 0
 flash_attention.launches_f32 = 0
 
 
-def vit_attention_btd_reference(q, k, v, *, tq, num_heads):
-    """Plain version of ``vit_attention_btd``."""
+def vit_attention_btd_reference(q, k, v, *, tq, num_heads, scale=None):
+    """Plain version of ``vit_attention_btd``; ``scale`` defaults to
+    hd^-0.5."""
     B, P, D = q.shape
     hd = D // num_heads
     qh = q.reshape(B, P, num_heads, hd).transpose(1, 2)
@@ -198,7 +263,7 @@ def vit_attention_btd_reference(q, k, v, *, tq, num_heads):
     bias = torch.where(
         torch.arange(P, device=q.device) < tq, 0.0, NEG_INF
     ).to(torch.float32)[None, :]
-    o = xla_attention(qh, kh, vh, bias.expand(B, P))
+    o = xla_attention(qh, kh, vh, bias.expand(B, P), scale=scale)
     return o.transpose(1, 2).reshape(B, P, D)
 
 
@@ -213,32 +278,36 @@ def vit_attention_btd(
 ) -> torch.Tensor:
     """Bidirectional attention in [B, P, D] layout. q, k and v may be column
     slices of one fused [B, P, 3D] projection (unit stride on D is all the
-    kernel needs). Returns a contiguous [B, P, D]; rows >= tq are padding."""
+    kernel needs at head dims 64 and 128; any other up to 128 runs on
+    zero-padded [B, P, heads, HD] copies). Returns a contiguous [B, P, D];
+    rows >= tq are padding."""
     if not _use_kernel(q, impl):
         return vit_attention_btd_reference(q, k, v, tq=tq, num_heads=num_heads)
     B, P, D = q.shape
     if k.shape != q.shape or v.shape != q.shape or D % num_heads:
         raise ValueError("q, k, v must share one [B, P, D] shape")
+    hd = D // num_heads
+    width = kernel_width(hd)
+    q, k, v = (pad_heads(x, num_heads, width) for x in (q, k, v))
     if k.stride() != v.stride():
         raise ValueError("k and v must share strides")
-    hd = D // num_heads
     for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, x, hd, q.dtype)
+        _check_operand(name, x, width, q.dtype)
     if not 0 < tq <= P:
         raise ValueError(f"tq={tq} outside (0, {P}]")
-    o = torch.empty((B, P, D), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, P, num_heads * width), dtype=q.dtype, device=q.device)
 
-    def bht(x):  # (batch, head, token) element strides of the [B, P, D] view
-        return (x.stride(0), hd, x.stride(1))
+    def bht(x):  # (batch, head, token) element strides of the [B, P, heads x HD] view
+        return (x.stride(0), width, x.stride(1))
 
     _launch(
-        q, k, v, None, o, B=B, H=num_heads, group=1, tq=P, tk=P, hd=hd,
+        q, k, v, None, o, B=B, H=num_heads, group=1, tq=P, tk=P, hd=width,
         kv_len=tq, causal=False,
         q_strides=bht(q), k_strides=bht(k), v_strides=bht(v),
-        o_strides=bht(o), bias_stride=0,
+        o_strides=bht(o), bias_stride=0, scale=hd ** -0.5,
     )
     _count(vit_attention_btd, q)
-    return o
+    return unpad_heads(o, num_heads, hd)
 
 
 vit_attention_btd.launches = 0

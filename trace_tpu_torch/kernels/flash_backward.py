@@ -42,6 +42,13 @@ three launches of csrc/attention_bwd_f32.cu (the pre-pass, then dq and dk/dv),
 all on the tensor cores, each fp32 product as three TF32 products of the
 operands split into hi and lo parts.
 
+Head dims: as the forward, any hd from 1 to 128. At an hd other than 64 or
+128 the dq and dk/dv wrappers copy q, k, v and do zero-padded to the tile
+width, pass the real hd's scale, and slice dq, dk and dv back (the padded
+columns of a gradient are products with zero columns; lse is unchanged).
+The ``delta`` pre-pass reads o and do at any even hd in place (an odd hd
+takes one zero column): zero columns add nothing to its sums.
+
 A query row that sees no key (left padding under the causal mask) has
 ``lse = -1e30``; its ``p`` is 1 on every key the backward visits. The plain
 version visits all keys, the kernels skip causally masked tiles, so the two
@@ -60,21 +67,28 @@ from trace_tpu_torch.kernels.flash_attention import (
     NEG_INF,
     _check_causal_operands,
     _count,
-    _launch,
+    _forward,
     _use_kernel,
+    kernel_width,
+    pad_head_dim,
 )
 
 _SOURCE = "attention_bwd.cu"
 _SOURCE_F32 = "attention_bwd_f32.cu"
 
 
-def _scores(q, k, mask_bias, causal, q_offset=0):
+def _scale(hd: int, scale):
+    return hd ** -0.5 if scale is None else scale
+
+
+def _scores(q, k, mask_bias, causal, q_offset=0, scale=None):
     """fp32 scores [B, Hkv, G, Tq, Tk] with the bias and the causal mask
-    (query row r at key position ``q_offset`` + r)."""
+    (query row r at key position ``q_offset`` + r); ``scale`` defaults to
+    hd^-0.5."""
     B, H, Tq, hd = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     qg = q.reshape(B, Hkv, H // Hkv, Tq, hd)
-    s = torch.einsum("bngth,bnsh->bngts", qg.float(), k.float()) * (hd ** -0.5)
+    s = torch.einsum("bngth,bnsh->bngts", qg.float(), k.float()) * _scale(hd, scale)
     if mask_bias is not None:
         s = s + mask_bias.float()[:, None, None, None, :]
     if causal:
@@ -84,11 +98,12 @@ def _scores(q, k, mask_bias, causal, q_offset=0):
     return s
 
 
-def flash_attention_fwd_res_plain(q, k, v, mask_bias=None, *, causal=False, q_offset=0):
+def flash_attention_fwd_res_plain(q, k, v, mask_bias=None, *, causal=False, q_offset=0,
+                                  scale=None):
     """Plain version of ``flash_attention_fwd_res``: ``xla_attention`` with
     its fp32 logsumexp written out."""
     B, H, Tq, hd = q.shape
-    s = _scores(q, k, mask_bias, causal, q_offset)
+    s = _scores(q, k, mask_bias, causal, q_offset, scale)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     l = e.sum(dim=-1, keepdim=True)
@@ -114,20 +129,7 @@ def flash_attention_fwd_res(
     if not _use_kernel(q, impl):
         return flash_attention_fwd_res_plain(q, k, v, mask_bias, causal=causal,
                                              q_offset=q_offset)
-    _check_causal_operands(q, k, v, mask_bias, contiguous=False)
-    if q_offset < 0 or (q_offset and not causal):
-        raise ValueError(f"q_offset={q_offset}: a causal offset >= 0")
-    B, H, Tq, hd = q.shape
-    Hkv, Tk = k.shape[1], k.shape[2]
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, Tq, 1), dtype=torch.float32, device=q.device)
-    _launch(
-        q, k, v, mask_bias, o, B=B, H=H, group=H // Hkv, tq=Tq, tk=Tk, hd=hd,
-        kv_len=Tk, causal=causal,
-        q_strides=q.stride()[:3], k_strides=k.stride()[:3],
-        v_strides=v.stride()[:3], o_strides=o.stride()[:3],
-        bias_stride=Tk, lse=lse, q_offset=q_offset,
-    )
+    o, lse = _forward(q, k, v, mask_bias, causal=causal, q_offset=q_offset, lse=True)
     _count(flash_attention_fwd_res, q)
     return o, lse
 
@@ -184,6 +186,9 @@ def flash_attention_bwd_delta(o, do, *, impl: str = "auto"):
         if not x.is_contiguous() or x.shape != o.shape:
             raise ValueError(f"{name} must be contiguous and of o's shape")
     hd = o.shape[-1]
+    kernel_width(hd)  # the limit of every attention wrapper
+    if hd % 2:  # the bf16 kernel reads pairs
+        o, do, hd = pad_head_dim(o, hd + 1), pad_head_dim(do, hd + 1), hd + 1
     delta = torch.empty(o.shape[:-1] + (1,), dtype=torch.float32, device=o.device)
     fn, name = _entry(o, "attn_bwd_delta")
     fn.restype = ctypes.c_int
@@ -198,37 +203,51 @@ flash_attention_bwd_delta.launches = 0
 flash_attention_bwd_delta.launches_f32 = 0
 
 
-def _p_and_ds(q, k, v, mask_bias, do, lse, delta, causal):
+def _p_and_ds(q, k, v, mask_bias, do, lse, delta, causal, scale=None):
     """fp32 p and ds, [B, Hkv, G, Tq, Tk], and do grouped alike."""
     B, H, Tq, hd = q.shape
     Hkv = k.shape[1]
     shape = (B, Hkv, H // Hkv, Tq)
-    p = torch.exp(_scores(q, k, mask_bias, causal) - lse.reshape(shape + (1,)))
+    p = torch.exp(_scores(q, k, mask_bias, causal, scale=scale) - lse.reshape(shape + (1,)))
     dog = do.reshape(shape + (hd,)).float()
     dp = torch.einsum("bngth,bnsh->bngts", dog, v.float())
     return p, p * (dp - delta.reshape(shape + (1,))), dog
 
 
-def flash_attention_bwd_dq_plain(q, k, v, mask_bias, do, lse, delta, *, causal=False):
+def flash_attention_bwd_dq_plain(q, k, v, mask_bias, do, lse, delta, *, causal=False,
+                                 scale=None):
     """Plain version of ``flash_attention_bwd_dq``: materialised scores."""
-    _, ds, _ = _p_and_ds(q, k, v, mask_bias, do, lse, delta, causal)
-    dq = torch.einsum("bngts,bnsh->bngth", ds, k.float()) * (q.shape[-1] ** -0.5)
+    _, ds, _ = _p_and_ds(q, k, v, mask_bias, do, lse, delta, causal, scale)
+    dq = torch.einsum("bngts,bnsh->bngth", ds, k.float()) * _scale(q.shape[-1], scale)
     return dq.reshape(q.shape).to(q.dtype)
 
 
-def flash_attention_bwd_dkv_plain(q, k, v, mask_bias, do, lse, delta, *, causal=False):
+def flash_attention_bwd_dkv_plain(q, k, v, mask_bias, do, lse, delta, *, causal=False,
+                                  scale=None):
     """Plain version of ``flash_attention_bwd_dkv``: materialised scores, the
     sum over a kv head's query heads inside the contraction."""
     B, H, Tq, hd = q.shape
     Hkv = k.shape[1]
-    p, ds, dog = _p_and_ds(q, k, v, mask_bias, do, lse, delta, causal)
+    p, ds, dog = _p_and_ds(q, k, v, mask_bias, do, lse, delta, causal, scale)
     qg = q.reshape(B, Hkv, H // Hkv, Tq, hd).float()
     dv = torch.einsum("bngts,bngth->bnsh", p, dog)
-    dk = torch.einsum("bngts,bngth->bnsh", ds, qg) * (hd ** -0.5)
+    dk = torch.einsum("bngts,bngth->bnsh", ds, qg) * _scale(hd, scale)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_args(q, k, v, mask_bias, do, lse, delta, outs, causal):
+def _padded(*xs):
+    """The operands zero-padded to the kernels' tile width for their head
+    dim (themselves at 64 and 128), and the real head dim's scale."""
+    hd = xs[0].shape[-1]
+    width = kernel_width(hd)
+    return [pad_head_dim(x, width) for x in xs], hd ** -0.5
+
+
+def _unpadded(x, hd: int):
+    return x if x.shape[-1] == hd else x[..., :hd].contiguous()
+
+
+def _bwd_args(q, k, v, mask_bias, do, lse, delta, outs, causal, scale):
     B, H, Tq, hd = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     argtypes = ([ctypes.c_void_p] * (7 + len(outs)) + [ctypes.c_int] * 7
@@ -237,7 +256,7 @@ def _bwd_args(q, k, v, mask_bias, do, lse, delta, outs, causal):
             mask_bias.data_ptr() if mask_bias is not None else None,
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             *(x.data_ptr() for x in outs),
-            B, H, H // Hkv, Tq, Tk, hd, int(causal), float(hd ** -0.5),
+            B, H, H // Hkv, Tq, Tk, hd, int(causal), float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     return argtypes, args
 
@@ -248,13 +267,19 @@ def flash_attention_bwd_dq(q, k, v, mask_bias, do, lse, delta, *, causal=False,
     if not _use_kernel(q, impl):
         return flash_attention_bwd_dq_plain(q, k, v, mask_bias, do, lse, delta,
                                             causal=causal)
+    (qp, kp, vp, dop), scale = _padded(q, k, v, do)
+    return _unpadded(_dq(qp, kp, vp, mask_bias, dop, lse, delta, causal, scale), q.shape[-1])
+
+
+def _dq(q, k, v, mask_bias, do, lse, delta, causal, scale):
+    """One launch of the dq kernel on operands at the tile width."""
     from trace_tpu_torch.kernels.build import check
 
     _check_bwd_operands(q, k, v, mask_bias, do, lse, delta)
     dq = torch.empty_like(q)
     fn, name = _entry(q, "attn_bwd_dq")
     fn.restype = ctypes.c_int
-    fn.argtypes, args = _bwd_args(q, k, v, mask_bias, do, lse, delta, (dq,), causal)
+    fn.argtypes, args = _bwd_args(q, k, v, mask_bias, do, lse, delta, (dq,), causal, scale)
     check(fn(*args), name)
     _count(flash_attention_bwd_dq, q)
     return dq
@@ -271,13 +296,21 @@ def flash_attention_bwd_dkv(q, k, v, mask_bias, do, lse, delta, *, causal=False,
     if not _use_kernel(q, impl):
         return flash_attention_bwd_dkv_plain(q, k, v, mask_bias, do, lse, delta,
                                              causal=causal)
+    (qp, kp, vp, dop), scale = _padded(q, k, v, do)
+    dk, dv = _dkv(qp, kp, vp, mask_bias, dop, lse, delta, causal, scale)
+    return _unpadded(dk, q.shape[-1]), _unpadded(dv, q.shape[-1])
+
+
+def _dkv(q, k, v, mask_bias, do, lse, delta, causal, scale):
+    """One launch of the dk/dv kernel on operands at the tile width."""
     from trace_tpu_torch.kernels.build import check
 
     _check_bwd_operands(q, k, v, mask_bias, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     fn, name = _entry(q, "attn_bwd_dkv")
     fn.restype = ctypes.c_int
-    fn.argtypes, args = _bwd_args(q, k, v, mask_bias, do, lse, delta, (dk, dv), causal)
+    fn.argtypes, args = _bwd_args(q, k, v, mask_bias, do, lse, delta, (dk, dv), causal,
+                                  scale)
     check(fn(*args), name)
     _count(flash_attention_bwd_dkv, q)
     return dk, dv
@@ -290,10 +323,19 @@ flash_attention_bwd_dkv.launches_f32 = 0
 def flash_attention_bwd(q, k, v, mask_bias, o, lse, do, *, causal=False,
                         impl: str = "auto"):
     """(dq, dk, dv) in the input dtypes from the forward's residuals ``o``
-    and ``lse``; the scores are recomputed tile by tile."""
+    and ``lse``; the scores are recomputed tile by tile (on the card, at an
+    hd other than the tile width, over operands padded once for both
+    kernels)."""
+    if not _use_kernel(q, impl):
+        delta = flash_attention_bwd_delta(o, do, impl=impl)
+        dq = flash_attention_bwd_dq(q, k, v, mask_bias, do, lse, delta, causal=causal,
+                                    impl=impl)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, mask_bias, do, lse, delta,
+                                         causal=causal, impl=impl)
+        return dq, dk, dv
+    hd = q.shape[-1]
+    (qp, kp, vp, dop), scale = _padded(q, k, v, do)
     delta = flash_attention_bwd_delta(o, do, impl=impl)
-    dq = flash_attention_bwd_dq(q, k, v, mask_bias, do, lse, delta, causal=causal,
-                                impl=impl)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, mask_bias, do, lse, delta,
-                                     causal=causal, impl=impl)
-    return dq, dk, dv
+    dq = _dq(qp, kp, vp, mask_bias, dop, lse, delta, causal, scale)
+    dk, dv = _dkv(qp, kp, vp, mask_bias, dop, lse, delta, causal, scale)
+    return _unpadded(dq, hd), _unpadded(dk, hd), _unpadded(dv, hd)
