@@ -43,9 +43,12 @@ Phases, in order; any failure exits non-zero:
      attention row (1, 2, 3, 3b, 8, 9, 10; bf16 and fp32) at open_llama_3b's
      head dim 100 beside hd 128 at 32 / 32 heads, with the time of its pad
      copies (``head_dim_checks``; the bf16 rows of phase 9's path are the
-     entries ``*_hd100``);
+     entries ``*_hd100``); then rows 1, 8, 3 and 3b (both bodies) at
+     Falcon3-7B's head dim 256 and at hd 192 (on copies padded to 256)
+     beside hd 128 at its 12 / 4 heads (``wide_head_dim_checks``; the hd-256
+     rows are the entries ``*_hd256``);
   4. the TRACE-7B serving path end to end at full width (CLIP ViT-L/14-336
-     at the -2 tap, spatial_slot, Mistral-7B at SERVE_LAYERS = 16 of its 32
+     at the -2 tap, spatial_slot, Mistral-7B at SERVE_LAYERS = 8 of its 32
      layers, random weights from seed 0),
      first in bf16, then in the int8 serving configuration (int8 weights in
      the fused layout, int8 KV cache, W8A8 prefill and ViT), then in the
@@ -122,7 +125,8 @@ Phases, in order; any failure exits non-zero:
      beside the bf16 kernel path's) and ``python -m
      trace_tpu_torch.checkpoint.manifest --verify`` on the directory and on
      a copy without one shard.
-  8. the evaluation entry points on that checkpoint and those videos
+  8. the evaluation entry points on a checkpoint of that layout at
+     EVAL_LAYERS = 8 of its 32 decoder layers and on those videos
      (``eval_phase``): ``eval.evaluate.main`` for tvg in bf16,
      ``runtime.inference.main``, ``run_vtg_eval`` for dvc in int8 scored
      as dvc, dvc-anet and vhd, ``run_mvbench`` on JPEG frame dumps and on
@@ -138,7 +142,13 @@ Phases, in order; any failure exits non-zero:
      shaped like open_llama_3b (hd 100, 32 / 32 heads) with spatial_slot,
      two requests in bf16 and two in int8 (check (e) of rows 1, 3 and 3b
      in both bodies), and one ``lora`` step of it at HD_LORA_LAYERS layers
-     (check (e) of rows 8-10): the ``*_hd100`` entries' launches.
+     (check (e) of rows 8-10): the ``*_hd100`` entries' launches. Then a
+     decoder shaped like Falcon3-7B (hd 256, 12 / 4 heads, I 23040) with
+     spatial_slot, two requests in bf16 and two in int8 (check (e) of rows
+     1, 3 and 3b in both bodies), a chunk of its bf16 prefill with marked
+     cache slots (two launches of row 8 a layer), and a ``lora`` step that
+     must raise the backward kernels' head-dim limit (128): the ``*_hd256``
+     entries' launches.
  10. Mixtral-8x7B at its published widths and a depth of 4 of 32 layers
      (``moe_phase``), from a checkpoint in HF Mixtral key names written
      here: ``model_init`` bf16 (the dense mixture), two requests, the fp32
@@ -312,6 +322,11 @@ HD100_ROWS = ("flash_attention", "flash_attention_fwd_res", "flash_attention_bwd
               "flash_attention_bwd_dkv", "decode_attention", "decode_attention_int8_s8dot",
               "decode_attention_int8_dequant")
 KERNEL_TOL.update({f"{base}_hd100": KERNEL_TOL[base] for base in HD100_ROWS})
+# the rows at Falcon3's head dim 256 (``*_hd256``; wide_head_dim_checks): the
+# same arithmetic at the kernels' width-256 instances, the same limits
+HD256_ROWS = ("flash_attention", "flash_attention_fwd_res", "decode_attention",
+              "decode_attention_int8_s8dot", "decode_attention_int8_dequant")
+KERNEL_TOL.update({f"{base}_hd256": KERNEL_TOL[base] for base in HD256_ROWS})
 FP32_REL_NORM_TOL = 1e-4
 # ||diff|| / ||ref|| limit of a row: REL_NORM_TOL, the fp32 forms' FP32_REL_NORM_TOL
 NORM_TOL = {name: FP32_REL_NORM_TOL for name in KERNEL_TOL if "_f32" in name}
@@ -491,6 +506,7 @@ def kernel_checks(torch):
     fp32_kernel_checks(torch, rows)
     query_offset_checks(torch)
     head_dim_checks(torch, rows)
+    wide_head_dim_checks(torch, rows)
 
     for name, r in rows.items():
         atol, rtol = KERNEL_TOL[name]
@@ -841,6 +857,49 @@ def query_offset_checks(torch) -> None:
 HD_HEADS, HD_OTHER = 32, 100
 
 
+def held_at(torch, name, hd, out, ref, f32, unit=False) -> dict:
+    """A row at head dim ``hd`` against its plain version (``out`` and
+    ``ref`` a tensor or a tuple of them; ``unit``: in units of max |ref|),
+    held to the row's limits: the comparison, the worst over the tuple."""
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    parts = []
+    for a, b in zip(outs, refs):
+        if not torch.isfinite(a).all():
+            fail(f"{name}: non-finite output")
+        scale = b.float().abs().max() if unit else 1.0
+        r = compare(name, a.float() / scale, b.float() / scale)
+        r["err"] *= float(scale)
+        parts.append(r)
+    r = {k: max(p[k] for p in parts) for k in ("err", "excess", "rel_norm")}
+    r["ref_rms"] = parts[0]["ref_rms"]
+    norm = FP32_REL_NORM_TOL if f32 else REL_NORM_TOL
+    if not (r["excess"] <= 0 and r["rel_norm"] <= norm):
+        fail(f"{name} at hd {hd}: kernel disagrees with its plain version")
+    return r
+
+
+def pad_copies_ms(torch, xs, out, hd, width) -> float:
+    """ms of a row's pad copies alone, as its wrapper makes them: ``xs``
+    padded to ``width``, the padded output ``out`` sliced back to ``hd``."""
+    from trace_tpu_torch.kernels.flash_attention import pad_head_dim
+
+    return median_ms(torch, lambda: [pad_head_dim(x, width) for x in xs]
+                     + [out[..., :hd].contiguous()])
+
+
+def pad_share(r, ms) -> str:
+    return f"; pad copies {ms:.4f} ms ({100 * ms / r['ms']:.1f} % of the row)"
+
+
+def row_line(name, hd, r, extra="") -> None:
+    print(f"  {name} at hd {hd}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+          f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
+          f"({r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} %) "
+          f"max_abs_err={r['err']:.6g} (excess {r['excess']:.6g}) "
+          f"rel_norm_err={r['rel_norm']:.6g}{extra}", flush=True)
+
+
 def head_dim_checks(torch, rows: dict) -> None:
     """Every attention row at open_llama_3b's head dim 100 beside the same
     row at hd 128 and the same heads (32 / 32, G = 1), bf16 and fp32: row 1
@@ -874,40 +933,6 @@ def head_dim_checks(torch, rows: dict) -> None:
     g = torch.Generator(device="cuda").manual_seed(SEED + 100)
     H, T, PAD, W = HD_HEADS, 2048, 300, 128
 
-    def held(name, hd, out, ref, f32, unit=False):
-        outs = out if isinstance(out, tuple) else (out,)
-        refs = ref if isinstance(ref, tuple) else (ref,)
-        parts = []
-        for a, b in zip(outs, refs):
-            if not torch.isfinite(a).all():
-                fail(f"{name}: non-finite output")
-            scale = b.float().abs().max() if unit else 1.0
-            r = compare(name, a.float() / scale, b.float() / scale)
-            r["err"] *= float(scale)
-            parts.append(r)
-        r = {k: max(p[k] for p in parts) for k in ("err", "excess", "rel_norm")}
-        r["ref_rms"] = parts[0]["ref_rms"]
-        norm = FP32_REL_NORM_TOL if f32 else REL_NORM_TOL
-        if not (r["excess"] <= 0 and r["rel_norm"] <= norm):
-            fail(f"{name} at hd {hd}: kernel disagrees with its plain version")
-        return r
-
-    def copies(xs, out, hd):
-        """ms of a row's pad copies alone, as its wrapper makes them: ``xs``
-        padded to W, the padded output ``out`` sliced back to ``hd``."""
-        return median_ms(torch, lambda: [pad_head_dim(x, W) for x in xs]
-                         + [out[..., :hd].contiguous()])
-
-    def share(r, ms):
-        return f"; pad copies {ms:.4f} ms ({100 * ms / r['ms']:.1f} % of the row)"
-
-    def line(name, hd, r, extra=""):
-        print(f"  {name} at hd {hd}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
-              f"({r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} %) "
-              f"max_abs_err={r['err']:.6g} (excess {r['excess']:.6g}) "
-              f"rel_norm_err={r['rel_norm']:.6g}{extra}", flush=True)
-
     for dtype in (torch.bfloat16, torch.float32):
         f32 = dtype == torch.float32
         sfx = "_f32" if f32 else ""
@@ -921,7 +946,7 @@ def head_dim_checks(torch, rows: dict) -> None:
             bias[0, :PAD] = -1e30
             run = lambda impl="auto": flash_attention(q, k, v, bias, True, impl=impl)
             name = f"flash_attention{sfx}"
-            r = held(name, hd, run(), run("plain"), f32)
+            r = held_at(torch, name, hd, run(), run("plain"), f32)
             causal_mask = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
             lib_mask = torch.where(causal_mask[None, None], bias[:, None, None, :],
                                    torch.tensor(-1e30, device="cuda")).to(dtype)
@@ -934,10 +959,11 @@ def head_dim_checks(torch, rows: dict) -> None:
                                  mult * 4 * H * hd * visible, peak))
             extra = ""
             if hd != W:
-                extra = share(r, copies((q, k, v), torch.empty_like(pad_head_dim(q, W)), hd))
+                out = torch.empty_like(pad_head_dim(q, W))
+                extra = pad_share(r, pad_copies_ms(torch, (q, k, v), out, hd, W))
                 if not f32:
                     rows["flash_attention_hd100"] = r
-            line(name, hd, r, extra)
+            row_line(name, hd, r, extra)
             del q, k, v, lib_mask, causal_mask
 
             # rows 8, 9, 10: the training shape, right padding
@@ -950,7 +976,7 @@ def head_dim_checks(torch, rows: dict) -> None:
                                                                  impl=impl)
             (o, lse), (o_ref, lse_ref) = fwd(), fwd("plain")
             name = f"flash_attention_fwd_res{sfx}"
-            r = held(name, hd, o, o_ref, f32)
+            r = held_at(torch, name, hd, o, o_ref, f32)
             lse_err = (lse - lse_ref).abs().max().item()
             if not lse_err <= LSE_TOL:
                 fail(f"{name} at hd {hd}: lse off by {lse_err:.3g}")
@@ -973,10 +999,11 @@ def head_dim_checks(torch, rows: dict) -> None:
                                  mult * 2 * product, peak))
             extra = ""
             if hd != W:
-                extra = share(r, copies((q, k, v), torch.empty_like(pad_head_dim(q, W)), hd))
+                out = torch.empty_like(pad_head_dim(q, W))
+                extra = pad_share(r, pad_copies_ms(torch, (q, k, v), out, hd, W))
                 if not f32:
                     rows["flash_attention_fwd_res_hd100"] = r
-            line(name, hd, r, f"; lse max_abs_err={lse_err:.2e}{extra}")
+            row_line(name, hd, r, f"; lse max_abs_err={lse_err:.2e}{extra}")
             del lib_out, leaves, o_ref, lse_ref
             delta = fb.flash_attention_bwd_delta(o, do)
             args = (q, k, v, bias, do, lse, delta)
@@ -984,7 +1011,7 @@ def head_dim_checks(torch, rows: dict) -> None:
                     (f"flash_attention_bwd_dq{sfx}", fb.flash_attention_bwd_dq, 3, H),
                     (f"flash_attention_bwd_dkv{sfx}", fb.flash_attention_bwd_dkv, 4, 2 * H)):
                 run = lambda impl="auto", fn=fn: fn(*args, causal=True, impl=impl)
-                r = held(name, hd, run(), run("plain"), f32, unit=True)
+                r = held_at(torch, name, hd, run(), run("plain"), f32, unit=True)
                 r.update(ms=median_ms(torch, run), plain_ms=median_ms(torch, lambda: run("plain")),
                          library_ms=lib_bwd_ms,
                          bound=bound(io(4 * H) + 2 * stats + bias.numel() * 4 + io(out_heads),
@@ -992,10 +1019,10 @@ def head_dim_checks(torch, rows: dict) -> None:
                 extra = ""
                 if hd != W:
                     out = torch.empty((2, out_heads, T, W), dtype=dtype, device="cuda")
-                    extra = share(r, copies((q, k, v, do), out, hd))
+                    extra = pad_share(r, pad_copies_ms(torch, (q, k, v, do), out, hd, W))
                     if not f32:
                         rows[f"{name}_hd100"] = r
-                line(name, hd, r, extra)
+                row_line(name, hd, r, extra)
             del q, k, v, do, o, lse, delta, args, lib_mask, causal_mask
 
             # row 2: a ViT chunk of fused-QKV slices, 16 heads
@@ -1004,7 +1031,7 @@ def head_dim_checks(torch, rows: dict) -> None:
             q, k, v = qkv.split(NH * hd, dim=-1)
             run = lambda impl="auto": vit_attention_btd(q, k, v, TQ, NH, impl=impl)
             name = f"vit_attention_btd{sfx}"
-            r = held(name, hd, run()[:, :TQ], run("plain")[:, :TQ], f32)
+            r = held_at(torch, name, hd, run()[:, :TQ], run("plain")[:, :TQ], f32)
             heads = lambda x: x.view(B2, P, NH, hd).transpose(1, 2)
             key_mask = (torch.arange(P, device="cuda") < TQ)[None, None, None, :]
             r.update(ms=median_ms(torch, run), plain_ms=median_ms(torch, lambda: run("plain")),
@@ -1017,8 +1044,8 @@ def head_dim_checks(torch, rows: dict) -> None:
                 o_pad = torch.empty((B2, P, NH * W), dtype=dtype, device="cuda")
                 copy = median_ms(torch, lambda: [pad_heads(x, NH, W) for x in (q, k, v)]
                                  + [unpad_heads(o_pad, NH, hd)])
-                extra = share(r, copy) + f"; no path launches it at hd {hd}"
-            line(name, hd, r, extra)
+                extra = pad_share(r, copy) + f"; no path launches it at hd {hd}"
+            row_line(name, hd, r, extra)
             del qkv, q, k, v
 
             # rows 3 and 3b: one layer's stripe read in place
@@ -1059,15 +1086,134 @@ def head_dim_checks(torch, rows: dict) -> None:
                 calls = count() - n
                 if calls != 1:
                     fail(f"{name} at hd {hd}: {calls} launches a call, expected 1")
-                r = held(name, hd, out, run("plain"), f32)
+                r = held_at(torch, name, hd, out, run("plain"), f32)
                 r.update(ms=median_ms(torch, run), plain_ms=median_ms(torch, lambda: run("plain")),
                          library_ms=median_ms(torch, lib),
                          bound=bound(nbytes, 4 * H * visible * hd, peak3))
                 if hd != W and not f32:
                     rows[f"{name}_hd100"] = r
-                line(name, hd, r, "; one launch a call, the stripe read in place"
+                row_line(name, hd, r, "; one launch a call, the stripe read in place"
                      if hd != W else "")
             del q, kf, vf, kq, vq, kd, vd, stripe, lib_mask
+
+
+# Falcon3-7B's attention (12 / 4 heads, G = 3) at Falcon3's head dim 256 and
+# at a head dim between 128 and 256 (run on copies padded to 256)
+WIDE_HEADS, WIDE_HD, WIDE_PADDED = (12, 4), 256, 192
+
+
+def wide_head_dim_checks(torch, rows: dict) -> None:
+    """The serving rows at hd 256 and at hd 192 (padded to 256) beside hd
+    128, at Falcon3-7B's 12 / 4 heads, bf16: row 1 (prefill: q [2, 12, 2048,
+    hd], k / v [2, 4, 2048, hd], causal, row 0 left-padded by 300), row 8
+    (the same, right-padded, with its lse) and rows 3 / 3b (q [4, 12, 1, hd]
+    over a [4, 4, 2304, hd] stripe read in place, half the slots masked; int8
+    both modes), each with its bound for its own hd's bytes and operations,
+    its plain version and SDPA; rows 1 and 8 at 192 with the time of their
+    pad copies; the decode rows with their launches a call (one: no copy of
+    the cache). The hd-256 rows are entries ``*_hd256``, which phase 9's
+    Falcon3 path launches; hd 128 and 192 are printed and held here."""
+    import torch.nn.functional as F
+
+    from trace_tpu_torch.kernels import flash_backward as fb
+    from trace_tpu_torch.kernels.decode_attention import decode_attention
+    from trace_tpu_torch.kernels.flash_attention import flash_attention, pad_head_dim
+    from trace_tpu_torch.model.mistral import _quantize_kv
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 256)
+    (H, HKV), T, PAD, W = WIDE_HEADS, 2048, 300, WIDE_HD
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    causal_mask = torch.ones((T, T), dtype=torch.bool, device="cuda").tril()
+    visible = sum((T - p) * (T - p + 1) // 2 for p in (PAD, 0))  # causal pairs a head
+    real = 2 * T - PAD
+    print(f"head dims above 128 at Falcon3-7B's {H} / {HKV} heads:", flush=True)
+    for hd in (128, WIDE_HD, WIDE_PADDED):
+        sfx = f"_hd{hd}" if hd == WIDE_HD else ""
+        # rows 1 and 8: the prefill (left padding) and the training shape's
+        # forward with its residual (right padding)
+        for name, side in (("flash_attention", "left"), ("flash_attention_fwd_res", "right")):
+            q, k, v = randn(2, H, T, hd), randn(2, HKV, T, hd), randn(2, HKV, T, hd)
+            bias = torch.zeros((2, T), device="cuda")
+            if side == "left":
+                bias[0, :PAD] = -1e30
+            else:
+                bias[0, T - PAD:] = -1e30
+            if name == "flash_attention":
+                run = lambda impl="auto": flash_attention(q, k, v, bias, True, impl=impl)
+                r = held_at(torch, name, hd, run(), run("plain"), False)
+                extra = ""
+            else:
+                run = lambda impl="auto": fb.flash_attention_fwd_res(q, k, v, bias, causal=True,
+                                                                     impl=impl)
+                (o, lse), (o_ref, lse_ref) = run(), run("plain")
+                r = held_at(torch, name, hd, o, o_ref, False)
+                lse_err = (lse - lse_ref).abs().max().item()
+                if not lse_err <= LSE_TOL:
+                    fail(f"{name} at hd {hd}: lse off by {lse_err:.3g}")
+                extra = f"; lse max_abs_err={lse_err:.2e}"
+                del o, lse, o_ref, lse_ref
+            lib_mask = torch.where(causal_mask[None, None], bias[:, None, None, :],
+                                   torch.tensor(-1e30, device="cuda")).to(torch.bfloat16)
+            stats = H * real * 4 if name == "flash_attention_fwd_res" else 0
+            r.update(ms=median_ms(torch, run), plain_ms=median_ms(torch, lambda: run("plain")),
+                     library_ms=median_ms(torch, lambda: F.scaled_dot_product_attention(
+                         q, k, v, attn_mask=lib_mask, enable_gqa=True)),
+                     bound=bound((H + 2 * HKV) * real * hd * 2 + q.numel() * 2 + stats
+                                 + bias.numel() * 4, 4 * H * hd * visible))
+            if hd == WIDE_PADDED:
+                out = torch.empty_like(pad_head_dim(q, W))
+                extra += pad_share(r, pad_copies_ms(torch, (q, k, v), out, hd, W))
+            if sfx:
+                rows[name + sfx] = r
+            row_line(name, hd, r, extra)
+            del q, k, v, lib_mask
+
+        # rows 3 and 3b: one layer's stripe read in place
+        B3, S = 4, 2304
+        q = randn(B3, H, 1, hd)
+        kf, vf = randn(B3, HKV, S, hd), randn(B3, HKV, S, hd)
+        bias = torch.where(torch.rand((B3, S), generator=g, device="cuda") < 0.5,
+                           0.0, -1e30).float()
+        (kq, ks), (vq, vs) = _quantize_kv(kf), _quantize_kv(vf)
+        stripe = {"kq": kq, "ks": ks.contiguous(), "vq": vq, "vs": vs.contiguous()}
+        kd = (kq.to(torch.bfloat16) * ks.transpose(-1, -2)).to(torch.bfloat16)
+        vd = (vq.to(torch.bfloat16) * vs.transpose(-1, -2)).to(torch.bfloat16)
+        lib_mask = bias[:, None, None, :].to(torch.bfloat16)
+        seen = int((bias == 0).sum().item())  # (row, slot) pairs
+        for kernel in ("bf16", "s8dot", "dequant"):
+            if kernel == "bf16":
+                name = "decode_attention"
+                run = lambda impl="auto": decode_attention(q, kf, vf, bias, impl=impl)
+                lib = lambda: F.scaled_dot_product_attention(q, kf, vf, attn_mask=lib_mask,
+                                                             enable_gqa=True)
+                nbytes = (2 * q.numel() + 2 * seen * HKV * hd) * 2 + bias.numel() * 4
+                count = lambda: decode_attention.launches
+                peak = BF16_FLOPS_PER_S
+            else:
+                name = f"decode_attention_int8_{kernel}"
+                run = lambda impl="auto", m=kernel: decode_attention(q, stripe, None, bias,
+                                                                     mode=m, impl=impl)
+                lib = lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=lib_mask,
+                                                             enable_gqa=True)
+                nbytes = 2 * q.numel() * 2 + 2 * seen * HKV * (hd + 2) + bias.numel() * 4
+                count = lambda m=kernel: decode_attention.launches_int8[m]
+                peak = INT8_OPS_PER_S if kernel == "s8dot" else BF16_FLOPS_PER_S
+            n = count()
+            out = run()
+            torch.cuda.synchronize()
+            if count() - n != 1:
+                fail(f"{name} at hd {hd}: {count() - n} launches a call, expected 1")
+            r = held_at(torch, name, hd, out, run("plain"), False)
+            if not torch.equal(out, run()):
+                fail(f"{name} at hd {hd}: a repeat differs from the first call")
+            r.update(ms=median_ms(torch, run), plain_ms=median_ms(torch, lambda: run("plain")),
+                     library_ms=median_ms(torch, lib),
+                     bound=bound(nbytes, 4 * H * seen * hd, peak))
+            if sfx:
+                rows[name + sfx] = r
+            row_line(name, hd, r, "; one launch a call, the stripe read in place, repeated "
+                     "bit for bit")
+        del q, kf, vf, kq, vq, kd, vd, stripe, lib_mask
 
 
 def bf16_decode_batch_checks(torch) -> None:
@@ -1694,10 +1840,11 @@ G0_LAYERS = 4  # depth of the per-channel (group 0) int4p run
 # every layer, and 32 layers put the whole smoke past 900 s of the 1200; 4
 # since the whole smoke took 1073 s at 8 on an H100 80GB HBM3 at 700 W
 INT4P_LAYERS = 4
-# depth of the bf16 and int8 runs: 32 until the whole smoke took 1004-1018 s
-# with PR 20's fp32 checks (my chip calls 7-8, PR 20); phase 7 serves the
-# 32-layer checkpoint in bf16, int8, int4 and fp32
-SERVE_LAYERS = 16
+# depth of the bf16 and int8 runs (phase 7 serves the 32-layer checkpoint in
+# bf16, int8, int4 and fp32): 32 put the whole smoke past 1000 s with the fp32
+# checks; 8 since it took 1165 s at 16 with the hd-256 path of phase 9 (an H100
+# 80GB HBM3 at 700 W)
+SERVE_LAYERS = 8
 
 
 def _serving_kernels():
@@ -3979,8 +4126,14 @@ def runbook(torch, tmp: Path) -> int:
 
 
 # Phase 8: the evaluation entry points (``trace_tpu_torch.eval``,
-# ``runtime.inference``) at full width, in phase 7's directory: its TRACE-7B
-# checkpoint and its .npy videos, four more of the kind beside them.
+# ``runtime.inference``) at full width, in phase 7's directory: its .npy
+# videos, four more of the kind beside them, and a checkpoint of phase 7's
+# layout at EVAL_LAYERS of the 32 decoder layers. The eval layer takes the
+# depth from config.json and nothing else of it; phase 7's 32-layer
+# checkpoint holds the layout's checks, and at 32 layers here the host-paced
+# decode and conversions put the whole smoke at 1165 s (an H100 80GB HBM3 at
+# 700 W).
+EVAL_LAYERS = 8
 # .npy videos of 256 640x360 frames: phase 7's 4 (8 before the .mp4 checks
 # came: cut to keep the whole smoke well inside its 1200 s)
 EVAL_VIDEOS = 4
@@ -4084,7 +4237,8 @@ def check_scores(task: str, scores: dict, seconds: float) -> None:
 
 
 def eval_phase(torch, tmp: Path, container_route: str) -> tuple:
-    """Phase 8, in phase 7's directory ``tmp``: (a) ``eval.evaluate.main`` for
+    """Phase 8, in phase 7's directory ``tmp``, on a checkpoint of phase 7's
+    layout at EVAL_LAYERS decoder layers written here: (a) ``eval.evaluate.main`` for
     task tvg with the CLI's defaults (bf16, 128 frames, batch 4) over 4 .npy
     videos, a missing file, one with a corrupt header (.npy) and a junk .mp4
     (the one container that fails, filtered before the run);
@@ -4111,6 +4265,7 @@ def eval_phase(torch, tmp: Path, container_route: str) -> tuple:
     import trace_tpu_torch
     from trace_tpu_torch.eval import evaluate, mcqa
     from trace_tpu_torch.metrics import captioning, meteor_align
+    from trace_tpu_torch.model.config import TraceConfig
     from trace_tpu_torch.runtime import generate as gen
     from trace_tpu_torch.runtime import inference
     from trace_tpu_torch.runtime import pipeline as pl
@@ -4118,8 +4273,19 @@ def eval_phase(torch, tmp: Path, container_route: str) -> tuple:
     from trace_tpu_torch.video.io import CONTAINER_READS
 
     t_phase = time.perf_counter()
-    ckpt = str(tmp / "trace-7b")
-    stats = {"container_reader": container_route}
+    manifest = json.loads((Path(__file__).resolve().parent / CKPT_MANIFEST).read_text())
+    keys = [(k, tuple(v)) for k, v in manifest["keys"].items()
+            if not k.startswith("model.layers.") or int(k.split(".")[2]) < EVAL_LAYERS]
+    cfg = TraceConfig()
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                               num_layers=EVAL_LAYERS))
+    ckpt = tmp / "trace-7b-eval"
+    nbytes = write_checkpoint(torch, ckpt, keys, cfg)
+    ckpt = str(ckpt)
+    stats = {"container_reader": container_route, "layers": EVAL_LAYERS}
+    print(f"eval: phase 7's layout at {EVAL_LAYERS} of 32 decoder layers ({len(keys)} keys, "
+          f"{nbytes / 1e9:.2f} GB of bf16) written in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     rng = np.random.default_rng(SEED + 8)
     for v in range(CKPT_VIDEOS, EVAL_VIDEOS):  # phase 7 wrote video0..CKPT_VIDEOS-1
         np.save(tmp / f"video{v}.npy", rng.integers(
@@ -4371,7 +4537,8 @@ def eval_phase(torch, tmp: Path, container_route: str) -> tuple:
 # num_slots 66 makes it hold them exactly; 32 frames keep the prefix at 2304
 # video tokens (the plain attention of the reference check holds [B, H, T, T]
 # scores).
-FAMILY_MODES = ("qwen2 bf16", "qwen2 int8", "vicuna bf16", "openllama bf16", "openllama int8")
+FAMILY_MODES = ("qwen2 bf16", "qwen2 int8", "vicuna bf16", "openllama bf16", "openllama int8",
+                "falcon3 bf16", "falcon3 int8")
 # the backbones' decoder depth: every layer runs the same shapes at full
 # width, and full depth beside phase 5's 32 layers and phase 11 put the whole
 # smoke at 1098 s of the 1200; 8 (PR 18) at 1048 s with PR 20's fp32 checks
@@ -4385,7 +4552,12 @@ FAMILY_ROWS = {"qwen2 bf16": {"decode_attention": "decode_attention_g7"},
                                   "decode_attention": "decode_attention_hd100"},
                "openllama int8": {
                    "decode_attention_int8_s8dot": "decode_attention_int8_s8dot_hd100",
-                   "decode_attention_int8_dequant": "decode_attention_int8_dequant_hd100"}}
+                   "decode_attention_int8_dequant": "decode_attention_int8_dequant_hd100"},
+               "falcon3 bf16": {"flash_attention": "flash_attention_hd256",
+                                "decode_attention": "decode_attention_hd256"},
+               "falcon3 int8": {
+                   "decode_attention_int8_s8dot": "decode_attention_int8_s8dot_hd256",
+                   "decode_attention_int8_dequant": "decode_attention_int8_dequant_hd256"}}
 # A decoder shaped like open_llama_3b: the decoder fields of the config.json
 # of openlm-research/open_llama_3b (hidden 3200, 32 heads: hd 100) at
 # FAMILY_LAYERS of its 26 layers. The published file has no
@@ -4395,6 +4567,15 @@ OPEN_LLAMA_3B = {"model_type": "llama", "hidden_size": 3200, "intermediate_size"
                  "num_hidden_layers": 26, "num_attention_heads": 32, "num_key_value_heads": 32,
                  "vocab_size": 32000, "rms_norm_eps": 1e-6, "rope_theta": 10000.0}
 HD_LORA_LAYERS = 2  # depth of its lora step (rows 8-10 at hd 100)
+# A decoder shaped like Falcon3-7B: the decoder fields of the config.json of
+# tiiuae/Falcon3-7B-Base (a LlamaForCausalLM checkpoint; hidden 3072, 12 / 4
+# heads of head_dim 256, G = 3) at FAMILY_LAYERS of its 28 layers, with its
+# published vocabulary as the other families take theirs.
+FALCON3_7B = {"model_type": "llama", "hidden_size": 3072, "intermediate_size": 23040,
+              "num_hidden_layers": 28, "num_attention_heads": 12, "num_key_value_heads": 4,
+              "head_dim": 256, "vocab_size": 131072, "rms_norm_eps": 1e-6,
+              "rope_theta": 1000042.0}
+FALCON3_LORA_LAYERS = 1  # depth of its lora step, which the backward's limit refuses
 
 
 def family_keys(cfg, vision_keys) -> list:
@@ -4482,11 +4663,16 @@ def families_phase(torch, tmp: Path) -> tuple:
     path's own inputs); and the prefix and first-token logits of the kernel
     path no further from an fp32 model of the same weights than the plain
     path, within REF_RATIO_TOL. The open_llama_3b-shaped decoder (hd 100)
-    runs its int8 dequant request under check (e) too, then one ``lora``
-    step (``hd_lora_step``). Returns the launches of the G = 7 rows
+    and the Falcon3-shaped one (hd 256) run their int8 dequant request under
+    check (e) too; then one ``lora`` step of the first (``hd_lora_step``);
+    the second's bf16 tree prefills a chunk with marked cache slots (two
+    launches of row 8 a layer, ``chunked_prefill_check``), and a ``lora``
+    step of it raises the backward's head-dim limit
+    (``falcon3_lora_refused``). Returns the launches of the G = 7 rows
     (``*_g7``, the counts of rows 3 and 3b on the qwen2 path, whose every
-    decode attention is at G = 7) and of the hd-100 rows (``*_hd100``, on
-    the open_llama_3b path) and the stats."""
+    decode attention is at G = 7), of the hd-100 rows (``*_hd100``, on the
+    open_llama_3b path) and of the hd-256 rows (``*_hd256``, on the Falcon3
+    path) and the stats."""
     import gc
     import shutil
 
@@ -4494,6 +4680,7 @@ def families_phase(torch, tmp: Path) -> tuple:
 
     from trace_tpu_torch import EventPredictions
     from trace_tpu_torch.checkpoint.convert import trace_config_from_hf
+    from trace_tpu_torch.kernels import flash_backward as fb
     from trace_tpu_torch.model.config import DecoderConfig, TraceConfig
     from trace_tpu_torch.runtime import pipeline as pl
     from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
@@ -4511,6 +4698,7 @@ def families_phase(torch, tmp: Path) -> tuple:
                                         num_slots=VICUNA_SLOTS, num_frames=VICUNA_FRAMES)),
         "openllama": ("llama", TraceConfig(decoder=cut(
             trace_config_from_hf(OPEN_LLAMA_3B).decoder))),
+        "falcon3": ("llama", TraceConfig(decoder=cut(trace_config_from_hf(FALCON3_7B).decoder))),
     }
     asks = ["Localize the visual events in the video and describe each one.",
             "Find every moment where something changes, with timestamps."]
@@ -4589,6 +4777,11 @@ def families_phase(torch, tmp: Path) -> tuple:
             held.update(held_dequant)
             check = reference_check(torch, pipe, serving_tree(pipe), pc, tok, videos, stamps,
                                     asks, mode, tokens, profile=False)
+            if mode == "falcon3 bf16":  # row 8 at hd 256: a chunk with marked cache slots
+                n = fb.flash_attention_fwd_res.launches
+                check["chunked_prefill"] = chunked_prefill_check(torch, pipe, mode,
+                                                                 CHUNK_TOL_BF16)
+                launches["flash_attention_fwd_res_hd256"] = fb.flash_attention_fwd_res.launches - n
             stats[mode] = {"model_init_s": init_s, "ms_per_step": steps_all,
                            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                            "launches": counts, "on_path": held, "reference": check,
@@ -4600,12 +4793,14 @@ def families_phase(torch, tmp: Path) -> tuple:
         shutil.rmtree(ckpt)
     lora_launches, stats["openllama lora"] = hd_lora_step(torch, families["openllama"][1], tmp)
     launches.update(lora_launches)
+    stats["falcon3 lora"] = falcon3_lora_refused(torch, families["falcon3"][1], tmp)
     idle = [name for name, n in launches.items() if n <= 0]
-    if idle or len(launches) != 10:
-        fail(f"families: rows at G = 7 or hd 100 not launched: {idle or sorted(launches)}")
+    if idle or len(launches) != 15:
+        fail(f"families: rows at G = 7, hd 100 or hd 256 not launched: "
+             f"{idle or sorted(launches)}")
     stats["seconds"] = time.perf_counter() - t_phase
-    print(f"families: phase 9 took {stats['seconds']:.1f} s; launches of the G = 7 and "
-          f"hd-100 rows {launches}", flush=True)
+    print(f"families: phase 9 took {stats['seconds']:.1f} s; launches of the G = 7, hd-100 "
+          f"and hd-256 rows {launches}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     return launches, stats
@@ -4702,6 +4897,41 @@ def hd_lora_step(torch, base, tmp: Path) -> tuple:
     return got, {"layers": layers, "head_dim": hd, "wall_s": wall, "peak_gib": peak,
                  "loss": loss, "grad_norm": records[-1]["grad_norm"], "launches": got,
                  "on_path": {f"{n} [{sh}]": r for (n, sh), r in checks.items()}}
+
+
+def falcon3_lora_refused(torch, base, tmp: Path) -> dict:
+    """One ``lora`` step of ``train_loop`` on phase 9's Falcon3-shaped model
+    (``base``) at FALCON3_LORA_LAYERS layers, as ``hd_lora_step`` sets it up:
+    the backward kernels (rows 9-10) take hd up to 128, so the step raises
+    their ValueError at its first attention forward, before row 8 launches
+    (``flash_attention_trainable``). Fails if the step runs or raises
+    anything else; returns the message."""
+    from trace_tpu_torch.kernels import flash_backward as fb
+    from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
+    from trace_tpu_torch.train.train import TrainRecipe, train_loop
+
+    params, cfg = train_params(torch, "lora", FALCON3_LORA_LAYERS, base=base)
+    data = SyntheticVideos(cfg, SpmLikeTokenizer(), VIDEOS)
+    recipe = TrainRecipe(stage="lora", learning_rate=1e-4, total_steps=2)
+    n = fb.flash_attention_fwd_res.launches
+    t0 = time.perf_counter()
+    try:
+        train_loop(params, cfg, data.resized(VIDEOS), recipe, batch_size=VIDEOS,
+                   log_every=1, metrics_path=str(tmp / "train_lora_hd256.jsonl"))
+    except ValueError as e:
+        msg = str(e)
+    else:
+        fail("families: a lora step at hd 256 ran, past the backward kernels' limit of 128")
+    launched = fb.flash_attention_fwd_res.launches - n
+    print(f"families: falcon3 lora step ({cfg.decoder.num_layers} layer, hd "
+          f"{cfg.decoder.head_dim}) refused in {time.perf_counter() - t0:.2f} s, row 8 launched "
+          f"{launched} times: ValueError: {msg}", flush=True)
+    if "backward kernels" not in msg or "take 1 ... 128" not in msg or launched:
+        fail(f"families: the hd-256 lora step raised {msg!r} after {launched} row-8 launches, "
+             "not the backward's head-dim limit at its first forward")
+    del params
+    torch.cuda.empty_cache()
+    return {"layers": cfg.decoder.num_layers, "head_dim": cfg.decoder.head_dim, "raised": msg}
 
 
 # Phase 10: Mixtral-8x7B, the routed-expert decoder, at the published widths
@@ -5755,6 +5985,13 @@ def main() -> int:
         src, replaces = sources[base]
         sources[f"{base}_hd100"] = (
             src.replace(".cu", "_pad.cu") if base.startswith("decode") else src, replaces)
+    # the rows at hd 256 (phase 9's Falcon3 path): the same TPU kernels (the
+    # JAX package runs its Pallas kernels at hd 256); the decode rows'
+    # width-256 instances in the *_256.cu twins of their sources
+    for base in HD256_ROWS:
+        src, replaces = sources[base]
+        sources[f"{base}_hd256"] = (
+            src.replace(".cu", "_256.cu") if base.startswith("decode") else src, replaces)
     # the fp32 forms: their own sources (the decode rows: fp32 instances in
     # the bf16 rows' sources), the same TPU kernels
     f32_sources = {"flash_attention": "attention_f32.cu", "vit_attention_btd": "attention_f32.cu",

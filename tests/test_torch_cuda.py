@@ -169,7 +169,7 @@ def test_attention_forward_repeats_bit_for_bit(cuda, row):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_forward_pv_product_on_one_tile(cuda, hd):
     """The forward's O += P V on one tile alone (P in the A fragments, V
     through its tensor map and the MN-major swizzled descriptor) against
@@ -182,7 +182,7 @@ def test_forward_pv_product_on_one_tile(cuda, hd):
 
     lib = load("attention.cu")
     bk = lib.attn_fwd_tile_keys(hd)
-    assert bk in (64, 128)
+    assert bk == (64 if hd == 256 else 128)
     rng = np.random.default_rng(21)
     p = torch.from_numpy(rng.random((64, bk)).astype(np.float32)).to(cuda, torch.bfloat16)
     v = _bf16(rng, (bk, hd), cuda)
@@ -2436,24 +2436,213 @@ def test_hd100_decode_step_allocates_only_its_output_and_replays_in_a_graph(cuda
 
 @pytest.mark.cuda
 def test_head_dims_past_the_kernels_limits_raise(cuda):
-    """hd 136 in every wrapper, and hd 102 (no multiple of 4) in the decode
-    rows: a ValueError that states the limit, no launch, no plain route."""
+    """Each wrapper past its own limit, and hd 102 (no multiple of 4) in the
+    decode rows: a ValueError that names the limit, no launch, no plain
+    route. The bf16 forward (rows 1, 2, 8) and the bf16-query decode (rows 3,
+    3b) stop at 256; the backward (rows 9-10, also at a training step's
+    forward, before it runs) and every fp32 form at 128."""
     from trace_tpu_torch.kernels import flash_backward as fb
+    from trace_tpu_torch.kernels.flash_attention import flash_attention_trainable
 
+    for hd, dtype, limit in ((257, torch.bfloat16, 256), (264, torch.bfloat16, 256),
+                             (136, torch.float32, 128), (256, torch.float32, 128)):
+        q = torch.zeros((1, 2, 64, hd), dtype=dtype, device=cuda)
+        launches = flash_attention.launches + flash_attention.launches_f32
+        for call in (lambda: flash_attention(q, q, q, None, True),
+                     lambda: fb.flash_attention_fwd_res(q, q, q, None, causal=True),
+                     lambda: vit_attention_btd(q[0], q[0], q[0], 64, 1)):
+            with pytest.raises(ValueError, match=f"take 1 ... {limit}"):
+                call()
+        assert flash_attention.launches + flash_attention.launches_f32 == launches
     for hd in (136, 256):
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.zeros((1, 2, 64, hd), dtype=dtype, device=cuda)
             rows = torch.zeros((1, 2, 64, 1), device=cuda)
-            with pytest.raises(ValueError, match="128"):
-                flash_attention(q, q, q, None, True)
-            with pytest.raises(ValueError, match="128"):
-                fb.flash_attention_fwd_res(q, q, q, None, causal=True)
-            with pytest.raises(ValueError, match="128"):
+            with pytest.raises(ValueError, match="backward kernels .* take 1 ... 128"):
                 fb.flash_attention_bwd(q, q, q, None, q, rows, q, causal=True)
-            with pytest.raises(ValueError, match="128"):
-                vit_attention_btd(q[0], q[0], q[0], 64, 1)
-    for hd in (136, 102):
-        for kernel in DECODE_KERNELS:
+            with pytest.raises(ValueError, match="backward kernels .* take 1 ... 128"):
+                fb.flash_attention_bwd_delta(q, q)
+            n = fb.flash_attention_fwd_res.launches + fb.flash_attention_fwd_res.launches_f32
+            leaf = q.clone().requires_grad_(True)
+            with pytest.raises(ValueError, match="backward kernels .* take 1 ... 128"):
+                flash_attention_trainable(leaf, q, q, None, True)
+            assert fb.flash_attention_fwd_res.launches + \
+                fb.flash_attention_fwd_res.launches_f32 == n
+    for hd in (260, 102):
+        for kernel in ("bf16", "s8dot", "dequant"):
             q, kv = _hd_stripe(cuda, kernel, 1, 2, 1, 64, hd, seed=hd)
-            with pytest.raises(ValueError, match="128"):
+            with pytest.raises(ValueError, match="up to 256" if hd > 256 else "multiples of 4"):
                 _group_call(kernel, q, kv, torch.zeros((1, 64), device=cuda))
+    for hd in (136, 256, 102):
+        for kernel in ("f32", "s8dot_f32", "dequant_f32"):
+            q, kv = _hd_stripe(cuda, kernel, 1, 2, 1, 64, hd, seed=hd)
+            with pytest.raises(ValueError, match="fp32-query .* up to 128"):
+                _group_call(kernel, q, kv, torch.zeros((1, 64), device=cuda))
+
+
+# Head dims above 128 (Falcon3's 256; 132, 160, 192, 252 on padded copies):
+# the bf16 forward (rows 1, 2, 8) at its width-256 instance (64-key tiles,
+# P V as wgmma m64n256k16), the operands zero-padded to 256 below it; the
+# bf16-query decode rows (3, 3b) at their width-256 instances, the stripe
+# read in place. Each against its plain version at the real hd within the
+# limits above, one launch a call, a repeat bit for bit.
+WIDE_HEAD_DIMS = [256, 132, 160, 192, 252]
+WIDE_FLASH_CASES = [  # B, H, Hkv, T, pad, side: G 1, 3, 4 and 8, the tile edges
+    (1, 3, 3, 65, 5, "right"),     # G = 1, a second 64-key tile holding one key
+    (2, 12, 4, 300, 37, "left"),   # Falcon3's 12 / 4 heads, left-padded rows
+    (2, 8, 2, 129, 0, "left"),     # G = 4, a second query tile holding one row
+    (1, 8, 1, 257, 20, "right"),   # G = 8
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,T,pad,side", WIDE_FLASH_CASES)
+@pytest.mark.parametrize("hd", WIDE_HEAD_DIMS)
+def test_flash_forward_at_wide_head_dims(cuda, hd, B, H, Hkv, T, pad, side):
+    """Rows 1 and 8 at hd 129-256: o on every row (left-padded rows see no
+    key and get the mean of v) and lse, one launch a call, a repeat bit for
+    bit."""
+    from trace_tpu_torch.kernels import flash_backward as fb
+
+    q, k, v, bias = _flash_inputs(cuda, B, H, Hkv, T, hd, pad, side, seed=hd + T)
+    n = flash_attention.launches
+    got = flash_attention(q, k, v, bias, True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1
+    assert got.shape == q.shape and got.is_contiguous() and torch.isfinite(got).all()
+    _assert_matches(got, flash_attention(q, k, v, bias, True, impl="plain"), ATOL["flash"])
+    assert torch.equal(got, flash_attention(q, k, v, bias, True))
+    n = fb.flash_attention_fwd_res.launches
+    o, lse = fb.flash_attention_fwd_res(q, k, v, bias, causal=True)
+    assert fb.flash_attention_fwd_res.launches == n + 1
+    o_ref, lse_ref = fb.flash_attention_fwd_res(q, k, v, bias, causal=True, impl="plain")
+    _assert_matches(o, o_ref, ATOL["flash"])
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    assert torch.equal(o, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,masked", [(True, (0, 300)), (False, (0, 300)),
+                                           (True, (0, 70))])
+@pytest.mark.parametrize("hd", [256, 192])
+def test_flash_rows_that_see_no_key_at_wide_head_dims(cuda, hd, causal, masked):
+    """Rows 1 at hd 256 and 192, Falcon3's heads: wholly masked rows (and,
+    causal, rows past one 64-key tile of left padding) get the mean of v."""
+    B, H, Hkv, T = 2, 12, 4, 300
+    q, k, v, _ = _flash_inputs(cuda, B, H, Hkv, T, hd, 0, "left", seed=hd)
+    bias = torch.zeros((B, T), device=cuda)
+    bias[0, masked[0]:masked[1]] = -1e30
+    got = flash_attention(q, k, v, bias, causal)
+    _assert_matches(got, flash_attention(q, k, v, bias, causal, impl="plain"), ATOL["flash"])
+    unseen = masked[1] if causal or masked[1] == T else 0
+    mean = v[0].float().mean(dim=1).repeat_interleave(H // Hkv, dim=0)
+    rows = got[0, :, :unseen].float()
+    torch.testing.assert_close(rows, mean[:, None].expand_as(rows), atol=1e-6, rtol=2 ** -8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [256, 192])
+def test_flash_query_offset_at_wide_head_dims(cuda, hd):
+    """A chunk of a chunked prefill over a layer's cache stripe (a strided
+    view; at 256 read in place, at 192 copied padded once) at a query
+    offset, and the chunk's two ``flash_attention_fwd_res`` parts merged by
+    their lse against the one call."""
+    from trace_tpu_torch.kernels.flash_attention import NEG_INF
+    from trace_tpu_torch.kernels.flash_backward import flash_attention_fwd_res, merge_attention
+
+    B, H, Hkv, T, S, offset = 2, 12, 4, 129, 600, 300
+    rng = np.random.default_rng(hd)
+    q = _bf16(rng, (B, H, T, hd), cuda)
+    cache = _bf16(rng, (2, 3, B, Hkv, S, hd), cuda)  # [kv, layer, ...]
+    k, v = cache[0, 1], cache[1, 1]
+    vis = torch.arange(S, device=cuda)[None, :] < torch.tensor([[offset + T], [offset - 40]],
+                                                               device=cuda)
+    bias = torch.where(vis, 0.0, NEG_INF).float().contiguous()
+    got = flash_attention(q, k, v, bias, True, q_offset=offset)
+    want = flash_attention(q, k, v, bias, True, q_offset=offset, impl="plain")
+    _assert_matches(got, want, ATOL["flash"])
+    old = (torch.arange(S, device=cuda) < offset)[None, :]
+    parts = [flash_attention_fwd_res(q, k, v, torch.where(sel & vis, 0.0, NEG_INF).float()
+                                     .contiguous(), causal=True, q_offset=offset)
+             for sel in (old, ~old)]
+    merged = merge_attention(*parts[0], *parts[1], torch.bfloat16)
+    _assert_matches(merged, want, ATOL["flash"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [256, 160])
+def test_vit_attention_at_wide_head_dims(cuda, hd):
+    """Row 2 through the width-256 instance: column slices of a fused QKV,
+    read in place at 256 (a 3-D map over 256-column heads), padded at 160."""
+    B, P, NH, TQ = 2, 150, 4, 141
+    rng = np.random.default_rng(hd)
+    q, k, v = _bf16(rng, (B, P, 3 * NH * hd), cuda).split(NH * hd, dim=-1)
+    n = vit_attention_btd.launches
+    got = vit_attention_btd(q, k, v, TQ, NH)
+    torch.cuda.synchronize()
+    assert vit_attention_btd.launches == n + 1
+    _assert_matches(got[:, :TQ], vit_attention_btd(q, k, v, TQ, NH, impl="plain")[:, :TQ],
+                    ATOL["vit"])
+    assert torch.equal(got, vit_attention_btd(q, k, v, TQ, NH))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+@pytest.mark.parametrize("kernel", ["bf16", "s8dot", "dequant"])
+@pytest.mark.parametrize("hd", WIDE_HEAD_DIMS)
+def test_decode_rows_at_wide_head_dims(cuda, hd, kernel, G):
+    """Rows 3 and 3b (both bodies) at hd 129-256 over a stripe read in
+    place, rows that see no slot or one: one launch a call, the limits of
+    the hd-128 forms, a repeat bit for bit."""
+    B, NKV, S = 3, 2, 333
+    q, kv = _hd_stripe(cuda, kernel, B, NKV, G, S, hd, seed=hd + G)
+    bias = _hd_bias(np.random.default_rng(hd + G), B, S).to(cuda)
+    n = _launch_count(kernel)
+    got = _group_call(kernel, q, kv, bias)
+    torch.cuda.synchronize()
+    assert _launch_count(kernel) == n + 1
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    _assert_matches(got, _group_call(kernel, q, kv, bias, impl="plain"), ATOL["decode"])
+    assert torch.equal(got, _group_call(kernel, q, kv, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["serving", "one_visible", "all_visible"])
+@pytest.mark.parametrize("kernel", ["bf16", "s8dot", "dequant"])
+def test_decode_rows_at_hd256_on_edge_masks_and_a_long_row(cuda, kernel, kind):
+    """Falcon3's decode (12 / 4 heads, G = 3) at hd 256 over serving and
+    edge masks at S = 1100, and at B = 32 over a 4096-slot arena (eight
+    blocks a row, then four blocks an SM)."""
+    for B, S in ((3, 1100), (32, 4096)):
+        q, kv = _hd_stripe(cuda, kernel, B, 4, 3, S, 256, seed=S)
+        bias = _edge_bias(np.random.default_rng(S), kind, B, S).to(cuda)
+        got = _group_call(kernel, q, kv, bias)
+        _assert_matches(got, _group_call(kernel, q, kv, bias, impl="plain"), ATOL["decode"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["bf16", "s8dot", "dequant"])
+def test_hd256_decode_step_allocates_only_its_output_and_replays_in_a_graph(cuda, kernel):
+    """Falcon3's decode attention (12 / 4 heads, hd 256) at B = 4, S = 2304,
+    serving masks: one launch, no allocation beside the output, and the call
+    captured in a CUDA graph replays equal to the eager call."""
+    q, kv = _hd_stripe(cuda, kernel, 4, 4, 3, 2304, 256, seed=81)
+    bias = _edge_bias(np.random.default_rng(81), "serving", 4, 2304).to(cuda)
+    n = _launch_count(kernel)
+    eager = _group_call(kernel, q, kv, bias)
+    torch.cuda.synchronize()
+    assert _launch_count(kernel) == n + 1
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = _group_call(kernel, q, kv, bias)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before == out.untyped_storage().nbytes()
+    assert torch.equal(out, eager)
+    del out
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _group_call(kernel, q, kv, bias)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)

@@ -24,8 +24,11 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("attention.cu", "attention_bwd.cu", "decode_attention.cu",
            "decode_attention_int8.cu", "quant_matmul.cu", "quant_matmul_p4.cu",
            # the decode kernels' instances at head dims other than 64 and 128
-           # (libraries of their own, so that they compile in parallel)
+           # (libraries of their own, so that they compile in parallel): up to
+           # 128, and at width 256 (hd 256, then 132 ... 252)
            "decode_attention_pad.cu", "decode_attention_int8_pad.cu",
+           "decode_attention_256.cu", "decode_attention_int8_256.cu",
+           "decode_attention_256_pad.cu", "decode_attention_int8_256_pad.cu",
            # the fp32 forms, chosen by the wrappers for fp32 operands (the
            # decode kernels' fp32 instances live in their bf16 sources)
            "attention_f32.cu", "attention_bwd_f32.cu", "quant_matmul_f32.cu")

@@ -30,9 +30,10 @@
 // owns 128 query rows of one (head, batch row) and has three warpgroups.
 //   * The producer: one thread issues TMA copies, Q once, then K and V tiles
 //     of 128 keys into a ring of 2 stages at hd = 128 (all the shared memory
-//     there is) and 3 at hd = 64, with full and empty mbarriers per stage.
-//     Every tile sits in shared memory in the 128-byte swizzle as 64-column
-//     boxes (two per row at hd = 128).
+//     there is) and 3 at hd = 64, with full and empty mbarriers per stage;
+//     at hd = 256 tiles of 64 keys, 2 stages (Q alone is 64 KB there, and a
+//     stage of 128-key tiles 128 KB). Every tile sits in shared memory in
+//     the 128-byte swizzle as 64-column boxes (HD / 64 per row).
 //     Rows past Tk arrive zero-filled and are masked below.
 //   * Two consumer warpgroups of 64 query rows each. Per key tile:
 //     S = Q K^T as wgmma.mma_async m64n128k16 (Q and K both K-major from
@@ -43,7 +44,8 @@
 //     m64nHDk16 with P from registers: the S accumulator layout is the A
 //     fragment layout, so P is the accumulator packed to bf16 pairs, and V is
 //     read MN-major through the transpose bit. Then the stage is released.
-//     At hd = 128 that is 160 accumulator and fragment registers a thread:
+//     At hd = 128 that is 160 accumulator and fragment registers a thread,
+//     at hd = 256 (S of 64 keys, O m64n256k16) 192 with the tile's bias:
 //     setmaxnreg moves registers from the producer warpgroup (24) to the
 //     consumers (240).
 //   * Causal blocks are issued longest first (the q-tile index is the
@@ -87,17 +89,21 @@ constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
 struct Cfg {
-  static constexpr int BK = 128;                    // keys per tile
+  // keys per tile: 128, and 64 at hd = 256, where a stage of 128-key K and V
+  // tiles (128 KB) would leave room beside Q's 64 KB for one stage alone
+  static constexpr int BK = HD == 256 ? 64 : 128;
   // K/V tiles in flight: at hd = 128 two stages of 64 KB fill the shared
-  // memory beside Q's 32 KB
-  static constexpr int STAGES = HD == 128 ? 2 : 3;
+  // memory beside Q's 32 KB; at hd = 256 two stages of 64 KB (64 keys)
+  // beside Q's 64 KB
+  static constexpr int STAGES = HD == 64 ? 3 : 2;
   static constexpr int Q_BYTES = BQ * HD * 2;      // [HD / 64][BQ rows][128 B]
   static constexpr int KV_BYTES = BK * HD * 2;     // a K or a V tile, [HD / 64][BK rows][128 B]
   static constexpr int STAGE = 2 * KV_BYTES;
   static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE;
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;  // + alignment
 };
-static_assert(Cfg<128>::SMEM <= 232448 && Cfg<64>::SMEM <= 232448, "shared memory");
+static_assert(Cfg<256>::SMEM <= 232448 && Cfg<128>::SMEM <= 232448 &&
+                  Cfg<64>::SMEM <= 232448, "shared memory");
 
 struct Params {
   const float* bias;  // [B, Tk] additive, or null
@@ -359,12 +365,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   __syncthreads();
   if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) >= CONSUMERS) {
     // at hd = 128 a consumer thread holds S (64), O (64) and P (32) of a
-    // tile: the producer warpgroup gives up its registers to the consumers
-    if constexpr (HD == 128) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    // tile, at hd = 256 S (32), O (128), P (16) and the tile's bias (16):
+    // the producer warpgroup gives up its registers to the consumers
+    if constexpr (HD >= 128) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 128 * CONSUMERS) produce<HD>(&qmap, &kmap, &vmap, p, base, h, b, q0, ntiles);
     return;
   }
-  if constexpr (HD == 128) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  if constexpr (HD >= 128) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
   consume<HD>(p, smem, h, b, q0, ntiles);
 }
 
@@ -550,13 +557,14 @@ extern "C" int attn_fwd_bf16(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 128) return launch<128>(p, a, s);
   if (hd == 64) return launch<64>(p, a, s);
+  if (hd == 256) return launch<256>(p, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // keys per tile of the forward at head dim hd (the P V test's tile), 0 if
 // the forward does not take hd
 extern "C" int attn_fwd_tile_keys(int hd) {
-  return hd == 128 ? Cfg<128>::BK : hd == 64 ? Cfg<64>::BK : 0;
+  return hd == 128 ? Cfg<128>::BK : hd == 64 ? Cfg<64>::BK : hd == 256 ? Cfg<256>::BK : 0;
 }
 
 // O [64, hd] fp32 = P [64, BK] V [BK, hd], both bf16 row-major and 16-byte
@@ -566,5 +574,6 @@ extern "C" int attn_pv_tile_bf16(const void* P, const void* V, float* O, int hd,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 128) return launch_pv_tile<128>(P, V, O, s);
   if (hd == 64) return launch_pv_tile<64>(P, V, O, s);
+  if (hd == 256) return launch_pv_tile<256>(P, V, O, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,4 +8,5 @@
 #include "decode_int8.cuh"
 
 #define DECODE_INT8_PAD true
+#define DECODE_INT8_WIDE false
 DECODE_ATTN_INT8_ENTRIES

@@ -26,7 +26,8 @@
 // once (four an SM, two above G = 4: C = 2 at decode batch 32 and 8 kv
 // heads), but never fewer than hold the row in shared memory
 // (decode_common.cuh, shared with the int8 kernel).
-// G, the query rows of a kv head, is 1 ... 8 at hd 128 (1, 2 or 4 at hd 64).
+// G, the query rows of a kv head, is 1 ... 8 at hd 128 and 256 (1, 2 or 4 at
+// hd 64).
 // Pass 1's reduce-scatter halves a power of two of values, so the rows are
 // padded with zero rows to pow2_ceil(G) there (a constant 0 the compiler
 // folds; a padded row's dot is never stored). The P.V reduction reuses the
@@ -73,15 +74,20 @@
 // at C = 2, so four blocks fit an SM at serving lengths. C grows where a share
 // would not fit; past 8 x ~8350 slots (S past ~66000 at G = 4) none does, and
 // the launch fails.
-// Head dims: the kernel is built at HD = 64 and 128; any other hd that is a
-// multiple of 4 up to 128 runs at the next of the two (PAD): the rows of q,
+// Head dims: the kernel is built at HD = 64 and 128, and in bf16 at 256 (a
+// K row of 512 bytes: a warp's 32 lanes of 16 bytes in pass 1, 16 rows a
+// stage); any other hd that is a multiple of 4 up to 256 (128 in fp32) runs
+// at the next of the widths (PAD): the rows of q,
 // K and V hold hd values in device memory, the ring's rows HD, the columns
 // past hd zero-filled by the copies themselves (cp.async's source size, in
 // pieces of 16, 8 or 4 bytes as the rows' alignment allows), so the
 // arithmetic is the HD instance's over zero columns, and only the output's
 // first hd columns are written. The cache is read in place. The instances
-// at 64 and 128 are the library of decode_attention.cu, the padded ones that
-// of decode_attention_pad.cu (each source's entries dispatch only its own).
+// at 64 and 128 are the library of decode_attention.cu, the padded ones up to
+// 128 that of decode_attention_pad.cu, those at width 256 the libraries of
+// decode_attention_256.cu (hd 256) and decode_attention_256_pad.cu (each
+// source's entries dispatch only its own; libraries of their own so that
+// they compile in parallel).
 // The fp32 instance keeps the ring's 3 stages of 8 KB: a stage holds 16 fp32
 // K or V rows of hd 128 (bf16: 32), so the bytes in flight a block are the
 // bf16 instance's, and a larger ring would cost the fourth block an SM at
@@ -109,6 +115,12 @@ constexpr int STAGE = 8 * 1024;   // bytes of K or V rows in one stage of the ri
 constexpr int NSTAGE = 3;         // stages of the ring, NSTAGE - 1 in flight
 constexpr int RING = NSTAGE * STAGE;
 constexpr int MAX_DYNAMIC_SMEM = 220 * 1024;  // of the 227 KB a block may have, beside static
+// at width 256 the static arrays take up to ~9 KB (the partial sums rx_part
+// [G x 256] at G = 8): the dynamic part stops at 204 KB there
+template <int HD>
+constexpr int max_dynamic_smem() {
+  return HD == 256 ? 204 * 1024 : MAX_DYNAMIC_SMEM;
+}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -452,8 +464,8 @@ __global__ void __launch_bounds__(NT, blocks_per_sm(G))
 template <typename T, int HD, int G, bool PAD>
 int launch(const T* q, const T* k, const T* v, const float* bias, T* o, int B, int nkv, int S,
            float scale, int hd, cudaStream_t stream) {
-  const int C = cluster_blocks(S, B * nkv, MIN_SHARE, SMS * blocks_per_sm(G), MAX_DYNAMIC_SMEM,
-                               RING, smem_per_slot<G>());
+  const int C = cluster_blocks(S, B * nkv, MIN_SHARE, SMS * blocks_per_sm(G),
+                               max_dynamic_smem<HD>(), RING, smem_per_slot<G>());
   const int share = (S + C - 1) / C;
   const size_t smem = RING + static_cast<size_t>((share + 15) & ~15) * smem_per_slot<G>();
   return launch_clusters(decode_kernel<T, HD, G, PAD>, C, nkv, B, NT, smem, stream, q, k, v,
@@ -469,7 +481,7 @@ int dispatch_group(const T* q, const T* k, const T* v, const float* bias, T* o, 
     case 4: return launch<T, HD, 4, PAD>(q, k, v, bias, o, B, nkv, S, scale, hd, s);
     default: break;
   }
-  if constexpr (HD == 128) {
+  if constexpr (HD >= 128) {
     switch (G) {
       case 3: return launch<T, HD, 3, PAD>(q, k, v, bias, o, B, nkv, S, scale, hd, s);
       case 5: return launch<T, HD, 5, PAD>(q, k, v, bias, o, B, nkv, S, scale, hd, s);
@@ -483,9 +495,11 @@ int dispatch_group(const T* q, const T* k, const T* v, const float* bias, T* o, 
 }
 
 // the instances of one library: PAD false those at hd 64 and 128
-// (decode_attention.cu), PAD true those at the other head dims
-// (decode_attention_pad.cu); a head dim of the other library is refused
-template <typename T, bool PAD>
+// (decode_attention.cu), PAD true those at the other head dims up to 128
+// (decode_attention_pad.cu); WIDE those at width 256, bf16 alone, at hd 256
+// (decode_attention_256.cu) and at 132 ... 252 (decode_attention_256_pad.cu);
+// a head dim of another library is refused
+template <typename T, bool PAD, bool WIDE = false>
 int dispatch(const void* q, const void* k, const void* v, const float* bias, void* o, int B,
              int nkv, int G, int S, int hd, float scale, void* stream) {
   const T* qt = static_cast<const T*>(q);
@@ -495,10 +509,15 @@ int dispatch(const void* q, const void* k, const void* v, const float* bias, voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool pad;
   const int width = decode_width(hd, &pad);
-  if (S < 1 || width == 0 || pad != PAD) return static_cast<int>(cudaErrorInvalidValue);
-  if (width == 128)
-    return dispatch_group<T, 128, PAD>(qt, kt, vt, bias, ot, B, nkv, G, S, scale, hd, s);
-  return dispatch_group<T, 64, PAD>(qt, kt, vt, bias, ot, B, nkv, G, S, scale, hd, s);
+  if (S < 1 || width == 0 || pad != PAD || (width == 256) != WIDE)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (WIDE) {
+    return dispatch_group<T, 256, PAD>(qt, kt, vt, bias, ot, B, nkv, G, S, scale, hd, s);
+  } else {
+    if (width == 128)
+      return dispatch_group<T, 128, PAD>(qt, kt, vt, bias, ot, B, nkv, G, S, scale, hd, s);
+    return dispatch_group<T, 64, PAD>(qt, kt, vt, bias, ot, B, nkv, G, S, scale, hd, s);
+  }
 }
 
 }  // namespace

@@ -7,11 +7,12 @@
 // block takes, a reduce-scatter over the lanes of a row, the output's store
 // in q's type (bf16, or fp32 for a model served in fp32), and the host's rule
 // for C and the cluster launch. Both kernels take G = 1 ... 8 query rows a kv
-// head at hd 128 (1, 2 or 4 at hd 64); the wrappers split a larger group into
-// launches of at most 8 rows. Any other head dim that is a multiple of 4 up
-// to 128 runs at the next width HD (64 or 128) with its rows zero-padded in
-// shared memory as they land (stage_rows): the cache is read in place, no
-// copy of it is made.
+// head at hd 128 and 256 (1, 2 or 4 at hd 64); the wrappers split a larger
+// group into launches of at most 8 rows. Any other head dim that is a
+// multiple of 4 up to 256 runs at the next width HD (64, 128 or 256) with its
+// rows zero-padded in shared memory as they land (stage_rows): the cache is
+// read in place, no copy of it is made. Width 256 is built for a bf16 query
+// alone.
 
 #pragma once
 
@@ -157,13 +158,14 @@ __device__ __forceinline__ void stage_rows(void* ring, const void* src, const in
     stage_tile_padded<4, ROW, STAGE, NSTAGE, NT>(ring, src, idx, t, nv, gbytes);
 }
 
-// the kernels' width HD for a head dim hd they take: 64 or 128 themselves
-// (padded false); any other multiple of 4 below 128 at the next of the two,
-// its rows zero-padded in shared memory (padded true); 0 for any other hd
+// the kernels' width HD for a head dim hd they take: 64, 128 or 256
+// themselves (padded false); any other multiple of 4 below 256 at the next of
+// the three, its rows zero-padded in shared memory (padded true); 0 for any
+// other hd
 inline int decode_width(int hd, bool* padded) {
-  *padded = hd != 64 && hd != 128;
-  if (hd < 4 || hd > 128 || hd % 4) return 0;
-  return hd <= 64 ? 64 : 128;
+  *padded = hd != 64 && hd != 128 && hd != 256;
+  if (hd < 4 || hd > 256 || hd % 4) return 0;
+  return hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
 }
 
 // the slots of [j0, j1) that the block takes, ascending, into idx; returns

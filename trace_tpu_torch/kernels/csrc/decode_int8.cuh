@@ -28,8 +28,9 @@
 // where a share would hold under MIN_SHARE slots or the grid would pass the
 // blocks the SMs hold at once (four an SM, two above G = 4: C = 2 at decode
 // batch 32 and 8 kv heads).
-// G, the query rows of a kv head, is 1 ... 8 at hd 128 (1, 2 or 4 at hd 64;
-// s8dot's HD / 16 lanes of a K row and one warp per query row bound it).
+// G, the query rows of a kv head, is 1 ... 8 at hd 128 and 256 (1, 2 or 4 at
+// hd 64; s8dot's HD / 16 lanes of a K row and one warp per query row bound
+// it).
 // Pass 1's reduce-scatter runs on the rows padded with zero rows to
 // pow2_ceil(G) (a padded row's dot is never stored); the P.V reduction
 // reuses the ring, which holds RW x HD partial sums for four query rows, so
@@ -74,15 +75,19 @@
 // with the _rn intrinsics so that the compiler fuses no multiply with an add,
 // and the values equal the plain version's bit for bit wherever expf and the
 // plain version's exp agree (only l's summation order differs besides).
-// Head dims: built at HD = 64 and 128; any other hd that is a multiple of 4
-// up to 128 runs at the next of the two (PAD), as the bf16 kernel does: rows
+// Head dims: built at HD = 64 and 128, and for a bf16 q at 256 (a K row of
+// 256 bytes: 16 lanes in s8dot, 32 in dequant; 32 rows a stage); any other
+// hd that is a multiple of 4 up to 256 (128 for an fp32 q) runs at the next
+// of the widths (PAD), as the bf16 kernel does: rows
 // of hd values (bytes, for K and V) in device memory, the ring's rows HD
 // with zero columns past hd filled by the copies themselves (4-byte pieces
 // where a row is not a multiple of 8 bytes), q's columns past hd read as 0
 // (s8dot's amax over the real hd only: zeros do not change it), and only
 // the output's first hd columns written. The cache is read in place. The
 // instances at 64 and 128 are the library of decode_attention_int8.cu, the
-// padded ones that of decode_attention_int8_pad.cu.
+// padded ones up to 128 that of decode_attention_int8_pad.cu, those at width
+// 256 the libraries of decode_attention_int8_256.cu (hd 256) and
+// decode_attention_int8_256_pad.cu.
 // Shared memory (the same for either q): RING (16 KB) plus 28 bytes a slot of
 // the share at G = 4
 // (24 KB at S = 2304 and C = 8, 48 KB at C = 2), so four blocks fit an SM at
@@ -112,6 +117,13 @@ constexpr int STAGE = 8 * 1024;   // bytes of K or V rows in one stage of the ri
 constexpr int NSTAGE = 2;         // stages of the ring, NSTAGE - 1 in flight
 constexpr int RING = NSTAGE * STAGE;
 constexpr int MAX_DYNAMIC_SMEM = 220 * 1024;  // of the 227 KB a block may have, beside static
+// at width 256 the static arrays take up to ~20 KB (q as fp32 and packed
+// int8, the partial sums rx_part [G x 256] at G = 8): the dynamic part stops at
+// 204 KB there
+template <int HD>
+constexpr int max_dynamic_smem() {
+  return HD == 256 ? 204 * 1024 : MAX_DYNAMIC_SMEM;
+}
 constexpr int S8DOT = 0;
 constexpr int DEQUANT = 1;
 #define INV127 (static_cast<float>(1.0 / 127.0))
@@ -615,7 +627,7 @@ struct Args {
 template <typename TQ, int HD, int G, int MODE, bool PAD>
 int launch(const Args<TQ>& a) {
   const int C = cluster_blocks(a.S, a.B * a.nkv, MIN_SHARE, SMS * blocks_per_sm(G),
-                               MAX_DYNAMIC_SMEM, RING, smem_per_slot<G>());
+                               max_dynamic_smem<HD>(), RING, smem_per_slot<G>());
   const int share = (a.S + C - 1) / C;
   const size_t smem =
       RING + static_cast<size_t>((share + 15) & ~15) * smem_per_slot<G>();
@@ -632,7 +644,7 @@ int dispatch_group(const Args<TQ>& a, int G) {
     case 4: return launch<TQ, HD, 4, MODE, PAD>(a);
     default: break;
   }
-  if constexpr (HD == 128) {
+  if constexpr (HD >= 128) {
     switch (G) {
       case 3: return launch<TQ, HD, 3, MODE, PAD>(a);
       case 5: return launch<TQ, HD, 5, MODE, PAD>(a);
@@ -646,23 +658,32 @@ int dispatch_group(const Args<TQ>& a, int G) {
 }
 
 // the instances of one library: PAD false those at hd 64 and 128
-// (decode_attention_int8.cu), PAD true those at the other head dims
-// (decode_attention_int8_pad.cu); a head dim of the other library is refused
-template <typename TQ, int MODE, bool PAD>
+// (decode_attention_int8.cu), PAD true those at the other head dims up to 128
+// (decode_attention_int8_pad.cu); WIDE those at width 256, bf16 q alone, at
+// hd 256 (decode_attention_int8_256.cu) and at 132 ... 252
+// (decode_attention_int8_256_pad.cu); a head dim of another library is
+// refused
+template <typename TQ, int MODE, bool PAD, bool WIDE>
 int dispatch(const Args<TQ>& a, int G) {
   bool pad;
   const int width = decode_width(a.hd, &pad);
-  if (a.S < 1 || width == 0 || pad != PAD) return static_cast<int>(cudaErrorInvalidValue);
-  if (width == 128) return dispatch_group<TQ, 128, MODE, PAD>(a, G);
-  return dispatch_group<TQ, 64, MODE, PAD>(a, G);
+  if (a.S < 1 || width == 0 || pad != PAD || (width == 256) != WIDE)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (WIDE) {
+    return dispatch_group<TQ, 256, MODE, PAD>(a, G);
+  } else {
+    if (width == 128) return dispatch_group<TQ, 128, MODE, PAD>(a, G);
+    return dispatch_group<TQ, 64, MODE, PAD>(a, G);
+  }
 }
 
 }  // namespace
 
 // q, o [B, nkv * G, hd] in TQ (bf16, or fp32 for the *_f32_* entries); kq, vq
 // [B, nkv, S, hd] int8; ks, vs [B, nkv, 1, S] bf16; bias [B, S] fp32; all
-// contiguous. The entries of a library whose instances DECODE_INT8_PAD
-// selects
+// contiguous. The entries of a library whose instances DECODE_INT8_PAD and
+// DECODE_INT8_WIDE select; a library at width 256 holds the bf16-q entries
+// alone (DECODE_ATTN_INT8_BF16_ENTRIES)
 #define DECODE_ATTN_INT8_ENTRY(NAME, TQ, MODE)                                        \
   extern "C" int NAME(const void* q, const void* kq, const void* ks, const void* vq, \
                       const void* vs, const float* bias, void* o, int B, int nkv,    \
@@ -671,11 +692,14 @@ int dispatch(const Args<TQ>& a, int G) {
                         static_cast<const bf16*>(ks), static_cast<const int8_t*>(vq),\
                         static_cast<const bf16*>(vs), bias, static_cast<TQ*>(o), B,  \
                         nkv, S, scale, hd, static_cast<cudaStream_t>(stream)};       \
-    return dispatch<TQ, MODE, DECODE_INT8_PAD>(a, G);                                \
+    return dispatch<TQ, MODE, DECODE_INT8_PAD, DECODE_INT8_WIDE>(a, G);              \
   }
 
-#define DECODE_ATTN_INT8_ENTRIES                                            \
+#define DECODE_ATTN_INT8_BF16_ENTRIES                                       \
   DECODE_ATTN_INT8_ENTRY(decode_attn_int8_s8dot, bf16, S8DOT)               \
-  DECODE_ATTN_INT8_ENTRY(decode_attn_int8_dequant, bf16, DEQUANT)           \
+  DECODE_ATTN_INT8_ENTRY(decode_attn_int8_dequant, bf16, DEQUANT)
+
+#define DECODE_ATTN_INT8_ENTRIES                                            \
+  DECODE_ATTN_INT8_BF16_ENTRIES                                             \
   DECODE_ATTN_INT8_ENTRY(decode_attn_int8_f32_s8dot, float, S8DOT)          \
   DECODE_ATTN_INT8_ENTRY(decode_attn_int8_f32_dequant, float, DEQUANT)

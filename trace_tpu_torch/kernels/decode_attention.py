@@ -3,7 +3,8 @@ CUDA kernels in csrc/decode_attention.cu (bf16 or fp32 cache) and
 csrc/decode_attention_int8.cu (int8 cache), and their plain PyTorch versions.
 (The kernels are in csrc/decode_bf16.cuh and csrc/decode_int8.cuh; each
 source's ``*_pad.cu`` twin holds their instances at head dims other than 64
-and 128.)
+and 128 up to 128, its ``*_256.cu`` and ``*_256_pad.cu`` twins those at hd
+256 and at 132 ... 252.)
 
 Replaces trace_tpu/kernels/decode_attention.py ``decode_attention`` with its
 bodies ``_kernel_bf16``, ``_kernel_int8_s8dot`` / ``_kernel_int8_s8dot_stacked``
@@ -22,18 +23,21 @@ cluster of up to 8 blocks per (batch row, kv head) splits the slots, reads
 the K and V rows of the visible ones only, and the blocks exchange the
 row's statistics (the max first), then their partial outputs, through
 distributed shared memory; the wrapper allocates only the output. See the
-sources. A launch takes G = 1 ... 8 query rows a kv head at hd 128 (1, 2 or
-4 at hd 64); the wrapper splits a larger group (any G, as the TPU kernel
-takes) into launches of at most that many rows, each on a contiguous copy of
-its rows of q, and writes each launch's rows into the output.
+sources. A launch takes G = 1 ... 8 query rows a kv head at hd above 64 (1,
+2 or 4 at hd <= 64); the wrapper splits a larger group (any G, as the TPU
+kernel takes) into launches of at most that many rows, each on a contiguous
+copy of its rows of q, and writes each launch's rows into the output.
 
-Head dims: the kernels are built at HD = 64 and 128 and take any hd up to 128
-that is a multiple of 4 (the published head dims 64, 72, 80, 96, 100, 112,
-128); any other raises a ``ValueError``. Another hd runs at the next width
-(hd <= 64 at 64, else 128) with no copy of the cache: the kernel reads rows
-of hd values in place and zero-fills the rest of each row as it lands in
-shared memory (cp.async's source size, in pieces of 16, 8 or 4 bytes as the
-rows' alignment allows); it writes only the output's hd columns.
+Head dims: the kernels are built at HD = 64 and 128, and for a bf16 query
+(over the bf16 cache or the int8 one) at 256; they take any hd that is a
+multiple of 4 up to 256 with a bf16 query (``MAX_HEAD_DIM``: the published
+head dims 64, 72, 80, 96, 100, 112, 128, 256) and up to 128 with an fp32 one
+(``MAX_HEAD_DIM_NARROW``); any other raises a ``ValueError`` that names the
+limit (``check_head_dim``). Another hd runs at the next width (64, 128 or
+256) with no copy of the cache: the kernel reads rows of hd values in place
+and zero-fills the rest of each row as it lands in shared memory (cp.async's
+source size, in pieces of 16, 8 or 4 bytes as the rows' alignment allows);
+it writes only the output's hd columns.
 
 An fp32 query (a model served in fp32) takes the fp32 instances of the same
 two kernels, over an fp32 cache or the int8 one: the same cluster launch on
@@ -56,7 +60,7 @@ import ctypes
 import torch
 
 from trace_tpu_torch.kernels.build import count_launch
-from trace_tpu_torch.kernels.flash_attention import MAX_HEAD_DIM
+from trace_tpu_torch.kernels.flash_attention import MAX_HEAD_DIM, MAX_HEAD_DIM_NARROW
 
 _SOURCE = "decode_attention.cu"
 _SOURCE_INT8 = "decode_attention_int8.cu"
@@ -66,8 +70,12 @@ MAX_GROUP = 8  # query rows a kv head that one launch takes (hd above 64)
 
 def _source(name: str, hd: int) -> str:
     """The library of a decode source that holds head dim ``hd``: the source
-    itself at 64 and 128, its ``*_pad.cu`` twin at the other head dims."""
-    return name if hd in (64, 128) else name.replace(".cu", "_pad.cu")
+    itself at 64 and 128, its ``*_pad.cu`` twin at the other head dims up to
+    128, its ``*_256.cu`` twin at 256 and ``*_256_pad.cu`` between 128 and
+    256."""
+    wide = "_256" if hd > 128 else ""
+    pad = "" if hd in (64, 128, 256) else "_pad"
+    return name.replace(".cu", f"{wide}{pad}.cu")
 
 
 def grouped_attention(q, k, v, bias):
@@ -154,11 +162,16 @@ _PLAIN_INT8 = {"s8dot": decode_attention_int8_s8dot,
                "dequant": decode_attention_int8_dequant}
 
 
-def check_head_dim(hd: int) -> None:
-    """A ``ValueError`` unless the decode kernels take head dim ``hd``."""
-    if not (0 < hd <= MAX_HEAD_DIM and hd % 4 == 0):
-        raise ValueError(f"head dim {hd}: the decode attention kernels take multiples of 4 "
-                         f"up to {MAX_HEAD_DIM}")
+def check_head_dim(hd: int, dtype=torch.bfloat16) -> None:
+    """A ``ValueError`` unless the decode kernels take head dim ``hd`` with a
+    query of ``dtype``: multiples of 4 up to ``MAX_HEAD_DIM`` with a bf16
+    query, up to ``MAX_HEAD_DIM_NARROW`` with an fp32 one (the fp32 cache,
+    or the int8 one with an fp32 query)."""
+    f32 = dtype == torch.float32
+    limit = MAX_HEAD_DIM_NARROW if f32 else MAX_HEAD_DIM
+    if not (0 < hd <= limit and hd % 4 == 0):
+        raise ValueError(f"head dim {hd}: the {'fp32' if f32 else 'bf16'}-query decode "
+                         f"attention kernels take multiples of 4 up to {limit}")
 
 
 def row_alignment(row_bytes: int) -> int:
@@ -170,7 +183,7 @@ def row_alignment(row_bytes: int) -> int:
 def group_splits(G: int, hd: int) -> list:
     """The query rows of a kv head as the launches take them: [(g0, n)],
     each n a group the kernels take (1 ... 8 at hd above 64, run at width
-    128; 1, 2 or 4 at hd <= 64), the largest first."""
+    128 or 256; 1, 2 or 4 at hd <= 64), the largest first."""
     sizes = range(MAX_GROUP, 0, -1) if hd > 64 else (4, 2, 1)
     splits, g0 = [], 0
     while g0 < G:
@@ -209,7 +222,7 @@ def _decode_attention_int8(q, cache: dict, bias_row, mode: str, impl: str):
         raise ValueError(f"shapes q {tuple(q.shape)} cache {tuple(kq.shape)}")
     if ks.shape != (B, NKV, 1, S) or vs.shape != ks.shape:
         raise ValueError(f"scales must be [B, NKV, 1, S], got {tuple(ks.shape)}")
-    check_head_dim(hd)
+    check_head_dim(hd, q.dtype)
     if H % NKV:
         raise ValueError(f"unsupported heads {H}/{NKV}")
     f32 = q.dtype == torch.float32
@@ -268,7 +281,7 @@ def decode_attention(
     _, NKV, S, _ = cache_k.shape
     if T != 1 or cache_k.shape != (B, NKV, S, hd) or cache_v.shape != cache_k.shape:
         raise ValueError(f"shapes q {tuple(q.shape)} cache {tuple(cache_k.shape)}")
-    check_head_dim(hd)
+    check_head_dim(hd, q.dtype)
     if H % NKV:
         raise ValueError(f"unsupported heads {H}/{NKV}")
     f32 = q.dtype == torch.float32

@@ -109,7 +109,8 @@ def main() -> int:
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    # this build's library of the head dim: the source, or its *_pad.cu twin
+    # this build's library of the head dim: the source, or its *_pad.cu,
+    # *_256.cu or *_256_pad.cu twin
     sources = {"this": CSRC / _source("decode_attention.cu", args.head_dim)}
     for item in args.against:
         name, _, path = item.partition("=")

@@ -27,13 +27,19 @@ reads q, k and v through TMA tensor maps, so the wrapper's operands need
 16-byte aligned pointers and row strides (not contiguity: a chunk of a
 chunked prefill attends a layer's cache stripe in place).
 
-Head dims: the kernels are built at a tile width HD of 64 or 128, and take
-any hd from 1 to 128 (``MAX_HEAD_DIM``; above it a ``ValueError``): hd <= 64
-runs at 64, 64 < hd <= 128 at 128. At an hd other than 64 or 128 the
-wrapper copies q, k and v zero-padded to HD (``pad_head_dim``), as the JAX
-package pads to a multiple of 128, passes the real hd's scale hd^-0.5 apart
-from the width, and slices the output back: zero columns add nothing to
-q . k and give zero output columns. At 64 and 128 nothing is copied.
+Head dims: the bf16 kernel is built at a tile width HD of 64, 128 or 256
+and takes any hd from 1 to 256 (``MAX_HEAD_DIM``): hd <= 64 runs at 64,
+64 < hd <= 128 at 128, 128 < hd <= 256 at 256 (``kernel_width``). The fp32
+form, and the backward of csrc/attention_bwd.cu (kernels/flash_backward.py),
+are built at 64 and 128 and take 1 to 128 (``MAX_HEAD_DIM_NARROW``). Past
+its limit a wrapper raises a ``ValueError`` that names it
+(``head_dim_limit``). At an hd other than the tile width the wrapper copies
+q, k and v zero-padded to HD (``pad_head_dim``), as the JAX package pads to
+a multiple of 128, passes the real hd's scale hd^-0.5 apart from the width,
+and slices the output back: zero columns add nothing to q . k and give zero
+output columns. At 64, 128 and 256 nothing is copied. At hd 256 the kernel
+streams 64-key K / V tiles (Q alone fills 64 KB of shared memory there) and
+its P V runs as wgmma m64n256k16.
 
 With ``q_offset`` (``flash_attention``, causal) query row r sits at position
 ``q_offset + r`` of the keys and sees the keys j <= q_offset + r: a chunk of
@@ -64,7 +70,9 @@ import torch
 from trace_tpu_torch.kernels.build import count_launch
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128  # the widest tile the kernels are built at
+MAX_HEAD_DIM = 256  # the widest tile the bf16 forward (rows 1, 2, 8) is built at
+# the widest tile of every fp32 form and of the backward (rows 9-10)
+MAX_HEAD_DIM_NARROW = 128
 _SOURCE = "attention.cu"
 _SOURCE_F32 = "attention_f32.cu"
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -78,12 +86,24 @@ def _use_kernel(x: torch.Tensor, impl: str) -> bool:
     return x.is_cuda
 
 
-def kernel_width(hd: int) -> int:
+def head_dim_limit(dtype=torch.bfloat16, *, backward: bool = False) -> int:
+    """The largest head dim the attention kernels take for operands of
+    ``dtype``: ``MAX_HEAD_DIM`` in the bf16 forward, ``MAX_HEAD_DIM_NARROW``
+    in every fp32 form and (``backward``) in the backward."""
+    return MAX_HEAD_DIM if dtype == torch.bfloat16 and not backward else MAX_HEAD_DIM_NARROW
+
+
+def kernel_width(hd: int, dtype=torch.bfloat16, *, backward: bool = False) -> int:
     """The tile width HD the kernels run head dim ``hd`` at: 64 for hd <= 64,
-    128 up to ``MAX_HEAD_DIM``; a ``ValueError`` past it."""
-    if not 1 <= hd <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {hd}: the attention kernels take 1 ... {MAX_HEAD_DIM}")
-    return 64 if hd <= 64 else 128
+    128 up to 128, 256 up to 256; a ``ValueError`` past the limit of the
+    kernels for ``dtype`` (and ``backward``), which it names."""
+    limit = head_dim_limit(dtype, backward=backward)
+    if not 1 <= hd <= limit:
+        what = ("attention backward kernels (rows 9-10)" if backward
+                else "fp32 attention kernels" if dtype == torch.float32
+                else "bf16 attention forward kernels")
+        raise ValueError(f"head dim {hd}: the {what} take 1 ... {limit}")
+    return 64 if hd <= 64 else 128 if hd <= 128 else 256
 
 
 def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -138,7 +158,7 @@ def _count(fn, x) -> None:
 
 
 def _check_operand(name, x, hd, dtype):
-    """An operand the kernels read at tile width ``hd`` (64 or 128; the
+    """An operand the kernels read at tile width ``hd`` (64, 128 or 256; the
     wrappers pad other head dims first)."""
     if x.dtype != dtype or dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name}: the CUDA kernels take bfloat16 or float32 operands of "
@@ -148,15 +168,15 @@ def _check_operand(name, x, hd, dtype):
                          f"16-byte aligned rows, got strides {x.stride()}")
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer not 16-byte aligned")
-    if hd not in (64, 128):
-        raise ValueError(f"{name}: tile width {hd} not in (64, 128)")
+    if hd not in (64, 128, 256):
+        raise ValueError(f"{name}: tile width {hd} not in (64, 128, 256)")
 
 
 def _launch(q, k, v, bias, o, *, B, H, group, tq, tk, hd, kv_len, causal,
             q_strides, k_strides, v_strides, o_strides, bias_stride, scale, lse=None,
             q_offset=0):
     """One launch of the forward kernel in the form for q's dtype, at tile
-    width ``hd`` (64 or 128) with the softmax scale ``scale`` (hd^-0.5 of
+    width ``hd`` (64, 128 or 256) with the softmax scale ``scale`` (hd^-0.5 of
     the real head dim); ``lse`` (fp32 [B, H, Tq], contiguous) also
     receives each query row's logsumexp."""
     from trace_tpu_torch.kernels.build import check, load
@@ -210,9 +230,10 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention with the scores kept on chip. Returns [B, H, Tq, hd] in q's
     dtype. GQA: query head h reads kv head h // (H // Hkv). Causal, query
-    row r sees the keys j <= ``q_offset`` + r. At hd 64 and 128, q, k and v
-    need unit stride on hd and 16-byte aligned rows, not contiguity; any
-    other hd up to 128 runs on zero-padded copies."""
+    row r sees the keys j <= ``q_offset`` + r. At hd 64, 128 and 256, q, k
+    and v need unit stride on hd and 16-byte aligned rows, not contiguity;
+    any other hd up to the limit (``head_dim_limit``: 256 in bf16, 128 in
+    fp32) runs on zero-padded copies."""
     if not _use_kernel(q, impl):
         return xla_attention(q, k, v, mask_bias, causal=causal, q_offset=q_offset)
     o, _ = _forward(q, k, v, mask_bias, causal=causal, q_offset=q_offset)
@@ -222,11 +243,11 @@ def flash_attention(
 
 def _forward(q, k, v, mask_bias, *, causal, q_offset, lse: bool = False):
     """One launch of the forward kernel over [B, H, T, hd] operands of any
-    hd up to 128: (o [B, H, Tq, hd] contiguous, lse [B, H, Tq, 1] fp32 or
-    None). At an hd other than the tile width, on zero-padded copies, the
-    output sliced back."""
+    hd up to the limit for q's dtype: (o [B, H, Tq, hd] contiguous, lse [B,
+    H, Tq, 1] fp32 or None). At an hd other than the tile width, on
+    zero-padded copies, the output sliced back."""
     hd = q.shape[-1]
-    width = kernel_width(hd)
+    width = kernel_width(hd, q.dtype)
     if k.shape[-1] != hd or v.shape[-1] != hd:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not match")
@@ -278,8 +299,8 @@ def vit_attention_btd(
 ) -> torch.Tensor:
     """Bidirectional attention in [B, P, D] layout. q, k and v may be column
     slices of one fused [B, P, 3D] projection (unit stride on D is all the
-    kernel needs at head dims 64 and 128; any other up to 128 runs on
-    zero-padded [B, P, heads, HD] copies). Returns a contiguous [B, P, D];
+    kernel needs at head dims 64, 128 and 256; any other up to the limit runs
+    on zero-padded [B, P, heads, HD] copies). Returns a contiguous [B, P, D];
     rows >= tq are padding."""
     if not _use_kernel(q, impl):
         return vit_attention_btd_reference(q, k, v, tq=tq, num_heads=num_heads)
@@ -287,7 +308,7 @@ def vit_attention_btd(
     if k.shape != q.shape or v.shape != q.shape or D % num_heads:
         raise ValueError("q, k, v must share one [B, P, D] shape")
     hd = D // num_heads
-    width = kernel_width(hd)
+    width = kernel_width(hd, q.dtype)
     q, k, v = (pad_heads(x, num_heads, width) for x in (q, k, v))
     if k.stride() != v.stride():
         raise ValueError("k and v must share strides")
@@ -323,6 +344,10 @@ class _FlashAttentionTrainable(torch.autograd.Function):
     def forward(ctx, q, k, v, mask_bias, causal, impl):
         from trace_tpu_torch.kernels.flash_backward import flash_attention_fwd_res
 
+        if _use_kernel(q, impl) and any(ctx.needs_input_grad[:3]):
+            # past the backward's head-dim limit a step raises here, before
+            # its forward, not after it
+            kernel_width(q.shape[-1], q.dtype, backward=True)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o, lse = flash_attention_fwd_res(q, k, v, mask_bias, causal=causal, impl=impl)
         # under no_grad nothing is saved: autograd drops these references

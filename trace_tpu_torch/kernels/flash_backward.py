@@ -42,12 +42,17 @@ three launches of csrc/attention_bwd_f32.cu (the pre-pass, then dq and dk/dv),
 all on the tensor cores, each fp32 product as three TF32 products of the
 operands split into hi and lo parts.
 
-Head dims: as the forward, any hd from 1 to 128. At an hd other than 64 or
-128 the dq and dk/dv wrappers copy q, k, v and do zero-padded to the tile
-width, pass the real hd's scale, and slice dq, dk and dv back (the padded
-columns of a gradient are products with zero columns; lse is unchanged).
-The ``delta`` pre-pass reads o and do at any even hd in place (an odd hd
-takes one zero column): zero columns add nothing to its sums.
+Head dims: ``flash_attention_fwd_res`` takes what the forward takes (1 to
+256 in bf16, 1 to 128 in fp32); the backward (``flash_attention_bwd`` and
+its three launches, bf16 and fp32) any hd from 1 to 128
+(``MAX_HEAD_DIM_NARROW``), and past it raises a ``ValueError`` that names
+that limit (``flash_attention_trainable`` raises it at the forward of a
+step whose q, k or v takes a gradient). At an hd other than 64 or 128 the
+dq and dk/dv wrappers copy q, k, v and do zero-padded to the tile width,
+pass the real hd's scale, and slice dq, dk and dv back (the padded columns
+of a gradient are products with zero columns; lse is unchanged). The
+``delta`` pre-pass reads o and do at any even hd in place (an odd hd takes
+one zero column): zero columns add nothing to its sums.
 
 A query row that sees no key (left padding under the causal mask) has
 ``lse = -1e30``; its ``p`` is 1 on every key the backward visits. The plain
@@ -186,7 +191,7 @@ def flash_attention_bwd_delta(o, do, *, impl: str = "auto"):
         if not x.is_contiguous() or x.shape != o.shape:
             raise ValueError(f"{name} must be contiguous and of o's shape")
     hd = o.shape[-1]
-    kernel_width(hd)  # the limit of every attention wrapper
+    kernel_width(hd, o.dtype, backward=True)  # the backward's limit
     if hd % 2:  # the bf16 kernel reads pairs
         o, do, hd = pad_head_dim(o, hd + 1), pad_head_dim(do, hd + 1), hd + 1
     delta = torch.empty(o.shape[:-1] + (1,), dtype=torch.float32, device=o.device)
@@ -236,10 +241,10 @@ def flash_attention_bwd_dkv_plain(q, k, v, mask_bias, do, lse, delta, *, causal=
 
 
 def _padded(*xs):
-    """The operands zero-padded to the kernels' tile width for their head
-    dim (themselves at 64 and 128), and the real head dim's scale."""
+    """The operands zero-padded to the backward kernels' tile width for their
+    head dim (themselves at 64 and 128), and the real head dim's scale."""
     hd = xs[0].shape[-1]
-    width = kernel_width(hd)
+    width = kernel_width(hd, xs[0].dtype, backward=True)
     return [pad_head_dim(x, width) for x in xs], hd ** -0.5
 
 
