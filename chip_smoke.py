@@ -45,8 +45,10 @@ Phases, in order; any failure exits non-zero:
      copies (``head_dim_checks``; the bf16 rows of phase 9's path are the
      entries ``*_hd100``); then rows 1, 8, 3 and 3b (both bodies) at
      Falcon3-7B's head dim 256 and at hd 192 (on copies padded to 256)
-     beside hd 128 at its 12 / 4 heads (``wide_head_dim_checks``; the hd-256
-     rows are the entries ``*_hd256``);
+     beside hd 128 at its 12 / 4 heads, with rows 9 and 10 (the backward,
+     from row 8's residuals, repeated bit for bit) beside them
+     (``wide_head_dim_checks``; the hd-256 rows are the entries
+     ``*_hd256``);
   4. the TRACE-7B serving path end to end at full width (CLIP ViT-L/14-336
      at the -2 tap, spatial_slot, Mistral-7B at SERVE_LAYERS = 8 of its 32
      layers, random weights from seed 0),
@@ -146,9 +148,9 @@ Phases, in order; any failure exits non-zero:
      decoder shaped like Falcon3-7B (hd 256, 12 / 4 heads, I 23040) with
      spatial_slot, two requests in bf16 and two in int8 (check (e) of rows
      1, 3 and 3b in both bodies), a chunk of its bf16 prefill with marked
-     cache slots (two launches of row 8 a layer), and a ``lora`` step that
-     must raise the backward kernels' head-dim limit (128): the ``*_hd256``
-     entries' launches.
+     cache slots (two launches of row 8 a layer), and one ``lora`` step of
+     it at HD_LORA_LAYERS layers (check (e) of rows 8-10 at hd 256): the
+     ``*_hd256`` entries' launches.
  10. Mixtral-8x7B at its published widths and a depth of 4 of 32 layers
      (``moe_phase``), from a checkpoint in HF Mixtral key names written
      here: ``model_init`` bf16 (the dense mixture), two requests, the fp32
@@ -324,8 +326,9 @@ HD100_ROWS = ("flash_attention", "flash_attention_fwd_res", "flash_attention_bwd
 KERNEL_TOL.update({f"{base}_hd100": KERNEL_TOL[base] for base in HD100_ROWS})
 # the rows at Falcon3's head dim 256 (``*_hd256``; wide_head_dim_checks): the
 # same arithmetic at the kernels' width-256 instances, the same limits
-HD256_ROWS = ("flash_attention", "flash_attention_fwd_res", "decode_attention",
-              "decode_attention_int8_s8dot", "decode_attention_int8_dequant")
+HD256_ROWS = ("flash_attention", "flash_attention_fwd_res", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv", "decode_attention", "decode_attention_int8_s8dot",
+              "decode_attention_int8_dequant")
 KERNEL_TOL.update({f"{base}_hd256": KERNEL_TOL[base] for base in HD256_ROWS})
 FP32_REL_NORM_TOL = 1e-4
 # ||diff|| / ||ref|| limit of a row: REL_NORM_TOL, the fp32 forms' FP32_REL_NORM_TOL
@@ -1103,16 +1106,19 @@ WIDE_HEADS, WIDE_HD, WIDE_PADDED = (12, 4), 256, 192
 
 
 def wide_head_dim_checks(torch, rows: dict) -> None:
-    """The serving rows at hd 256 and at hd 192 (padded to 256) beside hd
+    """The attention rows at hd 256 and at hd 192 (padded to 256) beside hd
     128, at Falcon3-7B's 12 / 4 heads, bf16: row 1 (prefill: q [2, 12, 2048,
     hd], k / v [2, 4, 2048, hd], causal, row 0 left-padded by 300), row 8
-    (the same, right-padded, with its lse) and rows 3 / 3b (q [4, 12, 1, hd]
-    over a [4, 4, 2304, hd] stripe read in place, half the slots masked; int8
-    both modes), each with its bound for its own hd's bytes and operations,
-    its plain version and SDPA; rows 1 and 8 at 192 with the time of their
-    pad copies; the decode rows with their launches a call (one: no copy of
-    the cache). The hd-256 rows are entries ``*_hd256``, which phase 9's
-    Falcon3 path launches; hd 128 and 192 are printed and held here."""
+    (the same, right-padded, with its lse), rows 9 and 10 (the backward from
+    row 8's residuals, do zero on the padded rows; each repeated bit for bit)
+    and rows 3 / 3b (q [4, 12, 1, hd] over a [4, 4, 2304, hd] stripe read in
+    place, half the slots masked; int8 both modes), each with its bound for
+    its own hd's bytes and operations, its plain version and SDPA (forward,
+    or autograd's backward through it); rows 1, 8, 9 and 10 at 192 with the
+    time of their pad copies; the decode rows with their launches a call
+    (one: no copy of the cache). The hd-256 rows are entries ``*_hd256``,
+    which phase 9's Falcon3 path launches; hd 128 and 192 are printed and
+    held here."""
     import torch.nn.functional as F
 
     from trace_tpu_torch.kernels import flash_backward as fb
@@ -1151,7 +1157,7 @@ def wide_head_dim_checks(torch, rows: dict) -> None:
                 if not lse_err <= LSE_TOL:
                     fail(f"{name} at hd {hd}: lse off by {lse_err:.3g}")
                 extra = f"; lse max_abs_err={lse_err:.2e}"
-                del o, lse, o_ref, lse_ref
+                del o_ref, lse_ref
             lib_mask = torch.where(causal_mask[None, None], bias[:, None, None, :],
                                    torch.tensor(-1e30, device="cuda")).to(torch.bfloat16)
             stats = H * real * 4 if name == "flash_attention_fwd_res" else 0
@@ -1166,6 +1172,9 @@ def wide_head_dim_checks(torch, rows: dict) -> None:
             if sfx:
                 rows[name + sfx] = r
             row_line(name, hd, r, extra)
+            if name == "flash_attention_fwd_res":
+                wide_backward_rows(torch, rows, q, k, v, bias, o, lse, lib_mask, hd, sfx)
+                del o, lse
             del q, k, v, lib_mask
 
         # rows 3 and 3b: one layer's stripe read in place
@@ -1214,6 +1223,57 @@ def wide_head_dim_checks(torch, rows: dict) -> None:
             row_line(name, hd, r, "; one launch a call, the stripe read in place, repeated "
                      "bit for bit")
         del q, kf, vf, kq, vq, kd, vd, stripe, lib_mask
+
+
+def wide_backward_rows(torch, rows, q, k, v, bias, o, lse, lib_mask, hd, sfx) -> None:
+    """Rows 9 and 10 of ``wide_head_dim_checks``: the backward from row 8's
+    residuals ``o`` and ``lse`` with a do zero on the padded rows (bias <
+    0), held to the plain versions in units of max |ref| and repeated bit
+    for bit; bound for the visible pairs (3 products for dq, 4 for dk/dv)
+    and the bytes of q, k, v, do, lse, delta, the bias and the outputs;
+    library: autograd's backward through SDPA with the same mask; at hd 192
+    the pad copies (q, k, v, do in, the output sliced back)."""
+    import torch.nn.functional as F
+
+    from trace_tpu_torch.kernels import flash_backward as fb
+
+    (B, H, T, _), HKV = q.shape, k.shape[1]
+    g = torch.Generator(device="cuda").manual_seed(SEED + hd)
+    do = (torch.randn(q.shape, generator=g, device="cuda")
+          * (bias == 0)[:, None, :, None]).to(torch.bfloat16)
+    real = int((bias == 0).sum().item())  # (batch row, token) pairs that are real
+    visible = sum(n * (n + 1) // 2 for n in (bias == 0).sum(dim=1).tolist())
+    delta = fb.flash_attention_bwd_delta(o, do)
+    args = (q, k, v, bias, do, lse, delta)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=lib_mask, enable_gqa=True)
+    lib_ms = median_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, do,
+                                                          retain_graph=True))
+    del lib_out, leaves
+    product = 2 * H * hd * visible
+    inputs = (2 * H + 2 * HKV) * real * hd * 2 + 2 * H * real * 4 + bias.numel() * 4
+    for name, fn, n_products, out_heads in (
+            ("flash_attention_bwd_dq", fb.flash_attention_bwd_dq, 3, H),
+            ("flash_attention_bwd_dkv", fb.flash_attention_bwd_dkv, 4, 2 * HKV)):
+        run = lambda impl="auto", fn=fn: fn(*args, causal=True, impl=impl)
+        out = run()
+        r = held_at(torch, name, hd, out, run("plain"), False, unit=True)
+        again = run()
+        if not all(torch.equal(a, b) for a, b in zip(
+                *((x if isinstance(x, tuple) else (x,)) for x in (out, again)))):
+            fail(f"{name} at hd {hd}: a repeat differs from the first call")
+        del out, again
+        r.update(ms=median_ms(torch, run), plain_ms=median_ms(torch, lambda: run("plain")),
+                 library_ms=lib_ms,
+                 bound=bound(inputs + out_heads * real * hd * 2, n_products * product))
+        extra = "; repeated bit for bit"
+        if hd == WIDE_PADDED:
+            padded = torch.empty((B, out_heads, T, WIDE_HD), dtype=q.dtype, device="cuda")
+            extra += pad_share(r, pad_copies_ms(torch, (q, k, v, do), padded, hd, WIDE_HD))
+            del padded
+        if sfx:
+            rows[name + sfx] = r
+        row_line(name, hd, r, extra)
 
 
 def bf16_decode_batch_checks(torch) -> None:
@@ -4566,7 +4626,7 @@ FAMILY_ROWS = {"qwen2 bf16": {"decode_attention": "decode_attention_g7"},
 OPEN_LLAMA_3B = {"model_type": "llama", "hidden_size": 3200, "intermediate_size": 8640,
                  "num_hidden_layers": 26, "num_attention_heads": 32, "num_key_value_heads": 32,
                  "vocab_size": 32000, "rms_norm_eps": 1e-6, "rope_theta": 10000.0}
-HD_LORA_LAYERS = 2  # depth of its lora step (rows 8-10 at hd 100)
+HD_LORA_LAYERS = 2  # depth of its lora step and Falcon3's (rows 8-10 at hd 100, 256)
 # A decoder shaped like Falcon3-7B: the decoder fields of the config.json of
 # tiiuae/Falcon3-7B-Base (a LlamaForCausalLM checkpoint; hidden 3072, 12 / 4
 # heads of head_dim 256, G = 3) at FAMILY_LAYERS of its 28 layers, with its
@@ -4575,7 +4635,6 @@ FALCON3_7B = {"model_type": "llama", "hidden_size": 3072, "intermediate_size": 2
               "num_hidden_layers": 28, "num_attention_heads": 12, "num_key_value_heads": 4,
               "head_dim": 256, "vocab_size": 131072, "rms_norm_eps": 1e-6,
               "rope_theta": 1000042.0}
-FALCON3_LORA_LAYERS = 1  # depth of its lora step, which the backward's limit refuses
 
 
 def family_keys(cfg, vision_keys) -> list:
@@ -4664,11 +4723,10 @@ def families_phase(torch, tmp: Path) -> tuple:
     path no further from an fp32 model of the same weights than the plain
     path, within REF_RATIO_TOL. The open_llama_3b-shaped decoder (hd 100)
     and the Falcon3-shaped one (hd 256) run their int8 dequant request under
-    check (e) too; then one ``lora`` step of the first (``hd_lora_step``);
-    the second's bf16 tree prefills a chunk with marked cache slots (two
-    launches of row 8 a layer, ``chunked_prefill_check``), and a ``lora``
-    step of it raises the backward's head-dim limit
-    (``falcon3_lora_refused``). Returns the launches of the G = 7 rows
+    check (e) too; the second's bf16 tree prefills a chunk with marked
+    cache slots (two launches of row 8 a layer, ``chunked_prefill_check``);
+    then one ``lora`` step of each (``hd_lora_step``: rows 8-10 at hd 100
+    and 256 under check (e)). Returns the launches of the G = 7 rows
     (``*_g7``, the counts of rows 3 and 3b on the qwen2 path, whose every
     decode attention is at G = 7), of the hd-100 rows (``*_hd100``, on the
     open_llama_3b path) and of the hd-256 rows (``*_hd256``, on the Falcon3
@@ -4791,11 +4849,13 @@ def families_phase(torch, tmp: Path) -> tuple:
                   f"peak {stats[mode]['peak_gib']:.2f} GiB on the card", flush=True)
             del pipe, layers
         shutil.rmtree(ckpt)
-    lora_launches, stats["openllama lora"] = hd_lora_step(torch, families["openllama"][1], tmp)
-    launches.update(lora_launches)
-    stats["falcon3 lora"] = falcon3_lora_refused(torch, families["falcon3"][1], tmp)
+    for family in ("openllama", "falcon3"):
+        lora_launches, stats[f"{family} lora"] = hd_lora_step(torch, family,
+                                                              families[family][1], tmp)
+        for name, n in lora_launches.items():  # row 8 at hd 256: the chunk's count
+            launches.setdefault(name, n)
     idle = [name for name, n in launches.items() if n <= 0]
-    if idle or len(launches) != 15:
+    if idle or len(launches) != 17:
         fail(f"families: rows at G = 7, hd 100 or hd 256 not launched: "
              f"{idle or sorted(launches)}")
     stats["seconds"] = time.perf_counter() - t_phase
@@ -4806,22 +4866,24 @@ def families_phase(torch, tmp: Path) -> tuple:
     return launches, stats
 
 
-def hd_lora_step(torch, base, tmp: Path) -> tuple:
-    """One ``lora`` step of ``train_loop`` on phase 9's open_llama_3b-shaped
-    model (``base``) at HD_LORA_LAYERS layers: random weights from SEED,
-    rank-128 adapters on the seven decoder projections, phase 6's synthetic
-    videos at batch VIDEOS. Rows 8, 9 and 10 at hd 100, with check (e) on the
+def hd_lora_step(torch, family: str, base, tmp: Path) -> tuple:
+    """One ``lora`` step of ``train_loop`` on phase 9's ``family`` model
+    (``base``: the open_llama_3b-shaped one at hd 100, the Falcon3-shaped one
+    at hd 256) at HD_LORA_LAYERS layers: random weights from SEED, rank-128
+    adapters on the seven decoder projections, phase 6's synthetic videos at
+    batch VIDEOS. Rows 8, 9 and 10 at the model's hd, with check (e) on the
     step's own inputs: the first call of row 8 (the forward with its
     residuals, o and lse) at each shape and of rows 9-10 (``watch_backward``)
     against their plain versions; no plain version on the card; a finite loss
     and a finite, non-zero gradient norm (the schedule starts at 0, so the
-    step moves no adapter). Returns ({``*_hd100``: launches}, stats)."""
+    step moves no adapter). Returns ({``*_hd<hd>``: launches}, stats)."""
     from trace_tpu_torch.kernels import flash_backward as fb
     from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
     from trace_tpu_torch.train.train import TrainRecipe, train_loop, tree_paths
 
     params, cfg = train_params(torch, "lora", HD_LORA_LAYERS, base=base)
     layers, hd = cfg.decoder.num_layers, cfg.decoder.head_dim
+    sfx = f"_hd{hd}"
     data = SyntheticVideos(cfg, SpmLikeTokenizer(), VIDEOS)
     adapters = [p for p, _ in tree_paths(params) if "_lora_" in p]
     fns = {"flash_attention_fwd_res": fb.flash_attention_fwd_res,
@@ -4840,14 +4902,14 @@ def hd_lora_step(torch, base, tmp: Path) -> tuple:
         if lse and shapes not in fwd_held:
             ref = fb.flash_attention_fwd_res_plain(q, k, v, mask_bias, causal=causal,
                                                    q_offset=q_offset)
-            r = compare("flash_attention_fwd_res_hd100", out[0], ref[0])
+            r = compare("flash_attention_fwd_res" + sfx, out[0], ref[0])
             r["lse_err"] = (out[1] - ref[1]).abs().max().item()
             fwd_held[shapes] = r
         return out
 
     # a schedule of two steps (one is all warmup), one batch: one step runs
     recipe = TrainRecipe(stage="lora", learning_rate=1e-4, total_steps=2)
-    log = tmp / "train_lora_hd100.jsonl"
+    log = tmp / f"train_lora{sfx}.jsonl"
     plain, undo = watch_plain(torch)
     held, undo_held = watch_backward(torch)
     fb._forward = fwd_watched
@@ -4864,74 +4926,40 @@ def hd_lora_step(torch, base, tmp: Path) -> tuple:
         undo()
     wall = time.perf_counter() - t0
     bad = []
-    checks = {("flash_attention_fwd_res_hd100", shapes): r for shapes, r in fwd_held.items()}
-    checks.update({(f"{name}_hd100", shapes): r for (name, shapes), r in held.items()})
+    checks = {("flash_attention_fwd_res" + sfx, shapes): r for shapes, r in fwd_held.items()}
+    checks.update({(name + sfx, shapes): r for (name, shapes), r in held.items()})
     for (name, shapes), r in checks.items():
         atol, rtol = KERNEL_TOL[name]
         lse = f", lse max_abs_err={r['lse_err']:.2e} (<= {LSE_TOL})" if "lse_err" in r else ""
-        print(f"families: openllama lora check (e): {name} on [{shapes}]: max_abs_err="
+        print(f"families: {family} lora check (e): {name} on [{shapes}]: max_abs_err="
               f"{r['err']:.6g} excess={r['excess']:.3g} (|diff| <= {atol} + {rtol} |ref|) "
               f"rel_norm_err={r['rel_norm']:.3g} (<= {REL_NORM_TOL}){lse}", flush=True)
         if not (r["excess"] <= 0 and r["rel_norm"] <= REL_NORM_TOL
                 and r.get("lse_err", 0.0) <= LSE_TOL):
             bad.append(f"{name} on [{shapes}]")
-    if {name for name, _ in checks} != {f"{n}_hd100" for n in fns} or bad:
-        fail(f"families: openllama lora (e): rows 8-10 not held at hd {hd}, or kernel and "
+    if {name for name, _ in checks} != {n + sfx for n in fns} or bad:
+        fail(f"families: {family} lora (e): rows 8-10 not held at hd {hd}, or kernel and "
              f"plain version disagree: {bad or sorted(checks)}")
     records = [json.loads(line) for line in log.read_text().splitlines()]
-    got = {f"{name}_hd100": fn.launches for name, fn in fns.items()}
-    want = {"flash_attention_fwd_res_hd100": 2 * layers, "flash_attention_bwd_dq_hd100": layers,
-            "flash_attention_bwd_dkv_hd100": layers}
+    got = {name + sfx: fn.launches for name, fn in fns.items()}
+    want = {"flash_attention_fwd_res" + sfx: 2 * layers, "flash_attention_bwd_dq" + sfx: layers,
+            "flash_attention_bwd_dkv" + sfx: layers}
     ran_plain = {k: v for k, v in plain.items() if v}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     loss = records[-1]["loss"] if records else float("nan")
-    print(f"families: openllama lora step ({layers} layers, hd {hd}): {wall:.2f} s, loss "
+    print(f"families: {family} lora step ({layers} layers, hd {hd}): {wall:.2f} s/step (one "
+          f"step, its check (e) inside), loss "
           f"{loss:.5f}, grad norm {records[-1]['grad_norm'] if records else None}, peak "
           f"{peak:.2f} GiB; launches {got} expected {want}; plain versions on the card "
           f"{ran_plain or 'none'}", flush=True)
     if (got != want or ran_plain or len(records) != 1 or not math.isfinite(loss)
             or not 0 < records[-1]["grad_norm"] < math.inf or not adapters):
-        fail("families: openllama lora step: launches, plain versions or loss not as expected")
+        fail(f"families: {family} lora step: launches, plain versions or loss not as expected")
     del params, adapters
     torch.cuda.empty_cache()
     return got, {"layers": layers, "head_dim": hd, "wall_s": wall, "peak_gib": peak,
                  "loss": loss, "grad_norm": records[-1]["grad_norm"], "launches": got,
                  "on_path": {f"{n} [{sh}]": r for (n, sh), r in checks.items()}}
-
-
-def falcon3_lora_refused(torch, base, tmp: Path) -> dict:
-    """One ``lora`` step of ``train_loop`` on phase 9's Falcon3-shaped model
-    (``base``) at FALCON3_LORA_LAYERS layers, as ``hd_lora_step`` sets it up:
-    the backward kernels (rows 9-10) take hd up to 128, so the step raises
-    their ValueError at its first attention forward, before row 8 launches
-    (``flash_attention_trainable``). Fails if the step runs or raises
-    anything else; returns the message."""
-    from trace_tpu_torch.kernels import flash_backward as fb
-    from trace_tpu_torch.tokenizers.text import SpmLikeTokenizer
-    from trace_tpu_torch.train.train import TrainRecipe, train_loop
-
-    params, cfg = train_params(torch, "lora", FALCON3_LORA_LAYERS, base=base)
-    data = SyntheticVideos(cfg, SpmLikeTokenizer(), VIDEOS)
-    recipe = TrainRecipe(stage="lora", learning_rate=1e-4, total_steps=2)
-    n = fb.flash_attention_fwd_res.launches
-    t0 = time.perf_counter()
-    try:
-        train_loop(params, cfg, data.resized(VIDEOS), recipe, batch_size=VIDEOS,
-                   log_every=1, metrics_path=str(tmp / "train_lora_hd256.jsonl"))
-    except ValueError as e:
-        msg = str(e)
-    else:
-        fail("families: a lora step at hd 256 ran, past the backward kernels' limit of 128")
-    launched = fb.flash_attention_fwd_res.launches - n
-    print(f"families: falcon3 lora step ({cfg.decoder.num_layers} layer, hd "
-          f"{cfg.decoder.head_dim}) refused in {time.perf_counter() - t0:.2f} s, row 8 launched "
-          f"{launched} times: ValueError: {msg}", flush=True)
-    if "backward kernels" not in msg or "take 1 ... 128" not in msg or launched:
-        fail(f"families: the hd-256 lora step raised {msg!r} after {launched} row-8 launches, "
-             "not the backward's head-dim limit at its first forward")
-    del params
-    torch.cuda.empty_cache()
-    return {"layers": cfg.decoder.num_layers, "head_dim": cfg.decoder.head_dim, "raised": msg}
 
 
 # Phase 10: Mixtral-8x7B, the routed-expert decoder, at the published widths
@@ -5986,12 +6014,14 @@ def main() -> int:
         sources[f"{base}_hd100"] = (
             src.replace(".cu", "_pad.cu") if base.startswith("decode") else src, replaces)
     # the rows at hd 256 (phase 9's Falcon3 path): the same TPU kernels (the
-    # JAX package runs its Pallas kernels at hd 256); the decode rows'
-    # width-256 instances in the *_256.cu twins of their sources
+    # JAX package runs its Pallas kernels at hd 256); the decode rows' and
+    # the backward's width-256 instances in the *_256.cu twins of their
+    # sources
     for base in HD256_ROWS:
         src, replaces = sources[base]
         sources[f"{base}_hd256"] = (
-            src.replace(".cu", "_256.cu") if base.startswith("decode") else src, replaces)
+            src.replace(".cu", "_256.cu") if base.startswith(("decode", "flash_attention_bwd"))
+            else src, replaces)
     # the fp32 forms: their own sources (the decode rows: fp32 instances in
     # the bf16 rows' sources), the same TPU kernels
     f32_sources = {"flash_attention": "attention_f32.cu", "vit_attention_btd": "attention_f32.cu",

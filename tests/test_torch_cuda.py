@@ -2438,9 +2438,9 @@ def test_hd100_decode_step_allocates_only_its_output_and_replays_in_a_graph(cuda
 def test_head_dims_past_the_kernels_limits_raise(cuda):
     """Each wrapper past its own limit, and hd 102 (no multiple of 4) in the
     decode rows: a ValueError that names the limit, no launch, no plain
-    route. The bf16 forward (rows 1, 2, 8) and the bf16-query decode (rows 3,
-    3b) stop at 256; the backward (rows 9-10, also at a training step's
-    forward, before it runs) and every fp32 form at 128."""
+    route. The bf16 forward (rows 1, 2, 8), the bf16 backward (rows 9-10,
+    also at a training step's forward, before it runs) and the bf16-query
+    decode (rows 3, 3b) stop at 256; every fp32 form at 128."""
     from trace_tpu_torch.kernels import flash_backward as fb
     from trace_tpu_torch.kernels.flash_attention import flash_attention_trainable
 
@@ -2454,20 +2454,20 @@ def test_head_dims_past_the_kernels_limits_raise(cuda):
             with pytest.raises(ValueError, match=f"take 1 ... {limit}"):
                 call()
         assert flash_attention.launches + flash_attention.launches_f32 == launches
-    for hd in (136, 256):
-        for dtype in (torch.bfloat16, torch.float32):
-            q = torch.zeros((1, 2, 64, hd), dtype=dtype, device=cuda)
-            rows = torch.zeros((1, 2, 64, 1), device=cuda)
-            with pytest.raises(ValueError, match="backward kernels .* take 1 ... 128"):
-                fb.flash_attention_bwd(q, q, q, None, q, rows, q, causal=True)
-            with pytest.raises(ValueError, match="backward kernels .* take 1 ... 128"):
-                fb.flash_attention_bwd_delta(q, q)
-            n = fb.flash_attention_fwd_res.launches + fb.flash_attention_fwd_res.launches_f32
-            leaf = q.clone().requires_grad_(True)
-            with pytest.raises(ValueError, match="backward kernels .* take 1 ... 128"):
-                flash_attention_trainable(leaf, q, q, None, True)
-            assert fb.flash_attention_fwd_res.launches + \
-                fb.flash_attention_fwd_res.launches_f32 == n
+    for hd, dtype, limit in ((136, torch.float32, 128), (256, torch.float32, 128),
+                             (257, torch.bfloat16, 256), (264, torch.bfloat16, 256)):
+        q = torch.zeros((1, 2, 64, hd), dtype=dtype, device=cuda)
+        rows = torch.zeros((1, 2, 64, 1), device=cuda)
+        with pytest.raises(ValueError, match=f"backward kernels .* take 1 ... {limit}"):
+            fb.flash_attention_bwd(q, q, q, None, q, rows, q, causal=True)
+        with pytest.raises(ValueError, match=f"backward kernels .* take 1 ... {limit}"):
+            fb.flash_attention_bwd_delta(q, q)
+        n = fb.flash_attention_fwd_res.launches + fb.flash_attention_fwd_res.launches_f32
+        leaf = q.clone().requires_grad_(True)
+        with pytest.raises(ValueError, match=f"backward kernels .* take 1 ... {limit}"):
+            flash_attention_trainable(leaf, q, q, None, True)
+        assert fb.flash_attention_fwd_res.launches + \
+            fb.flash_attention_fwd_res.launches_f32 == n
     for hd in (260, 102):
         for kernel in ("bf16", "s8dot", "dequant"):
             q, kv = _hd_stripe(cuda, kernel, 1, 2, 1, 64, hd, seed=hd)
@@ -2584,6 +2584,84 @@ def test_vit_attention_at_wide_head_dims(cuda, hd):
     _assert_matches(got[:, :TQ], vit_attention_btd(q, k, v, TQ, NH, impl="plain")[:, :TQ],
                     ATOL["vit"])
     assert torch.equal(got, vit_attention_btd(q, k, v, TQ, NH))
+
+
+# Rows 9 and 10 at hd 129-256: csrc/attention_bwd_256.cu (dq over 32-key
+# tiles; dk / dv in blocks of 64 keys whose two consumer warpgroups own half
+# of the columns each), the operands zero-padded to 256 below it.
+WIDE_BWD_CASES = [  # B, H, Hkv, Tq, Tk, pad, side, causal: G 1, 3, 4 and 8, the tile edges
+    (1, 3, 3, 65, 65, 5, "right", True),      # G = 1, a second 64-key block holding one key
+    (2, 12, 4, 300, 300, 37, "left", True),   # Falcon3's heads; rows that see no key, do = 0
+    (2, 8, 2, 129, 129, 0, "left", False),    # G = 4, a second 128-row dq block holding one row
+    (1, 8, 1, 257, 257, 20, "right", False),  # G = 8
+    (1, 6, 2, 200, 97, 25, "right", True),    # Tq > Tk: rows past Tk see every key
+    (2, 6, 2, 97, 200, 25, "left", False),    # Tq < Tk, left padding, bidirectional
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,Tq,Tk,pad,side,causal", WIDE_BWD_CASES)
+@pytest.mark.parametrize("hd", WIDE_HEAD_DIMS)
+def test_flash_backward_at_wide_head_dims(cuda, hd, B, H, Hkv, Tq, Tk, pad, side, causal):
+    """Rows 9 and 10 from the kernel's own residuals at hd 129-256: dq, dk
+    and dv within the backward's limits, one launch each, the separate
+    entries equal to the joint call, a repeat bit for bit."""
+    from trace_tpu_torch.kernels import flash_backward as fb
+
+    q, k, v, bias, do, _ = _bwd_inputs(cuda, B, H, Hkv, Tq, Tk, hd, pad, side)
+    o, lse = fb.flash_attention_fwd_res(q, k, v, bias, causal=causal)
+    counts = [f.launches for f in (fb.flash_attention_bwd_dq, fb.flash_attention_bwd_dkv)]
+    got = fb.flash_attention_bwd(q, k, v, bias, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fb.flash_attention_bwd_dq,
+                                 fb.flash_attention_bwd_dkv)] == [c + 1 for c in counts]
+    want = fb.flash_attention_bwd(q, k, v, bias, o, lse, do, causal=causal, impl="plain")
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape and g.is_contiguous() and torch.isfinite(g).all(), name
+        _assert_grad_matches(g, w, name)
+    delta = fb.flash_attention_bwd_delta(o, do)
+    args = (q, k, v, bias, do, lse, delta)
+    parts = (fb.flash_attention_bwd_dq(*args, causal=causal),) + fb.flash_attention_bwd_dkv(
+        *args, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(parts, got))
+    again = fb.flash_attention_bwd(q, k, v, bias, o, lse, do, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_hd256_backward_allocates_only_its_outputs(cuda):
+    """Falcon3's backward at hd 256 (12 / 4 heads, T = 1000, causal): the dq
+    and dk/dv wrappers launch once each and allocate nothing beside their
+    outputs (no copy at the tile width), and ``flash_attention_trainable``
+    under autograd gives the gradients of the plain attention."""
+    from trace_tpu_torch.kernels import flash_backward as fb
+    from trace_tpu_torch.kernels.flash_attention import flash_attention_trainable, xla_attention
+
+    q, k, v, bias, do, _ = _bwd_inputs(cuda, 2, 12, 4, 1000, 1000, 256, 100, "right")
+    o, lse = fb.flash_attention_fwd_res(q, k, v, bias, causal=True)
+    delta = fb.flash_attention_bwd_delta(o, do)
+    args = (q, k, v, bias, do, lse, delta)
+    # allocations and the bytes asked for (a multi-MB output may take a
+    # larger block the caching allocator holds, so its block size says less)
+    counted = ("allocation.all.allocated", "requested_bytes.all.allocated")
+    for fn in (fb.flash_attention_bwd_dq, fb.flash_attention_bwd_dkv):
+        fn(*args, causal=True)  # built and loaded before the count
+        torch.cuda.synchronize()
+        n, before = fn.launches, torch.cuda.memory_stats()
+        out = fn(*args, causal=True)
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_stats()
+        outs = out if isinstance(out, tuple) else (out,)
+        assert fn.launches == n + 1
+        assert [after[c] - before[c] for c in counted] == [
+            len(outs), sum(x.untyped_storage().nbytes() for x in outs)]
+        del out, outs
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    flash_attention_trainable(*leaves, bias, True).backward(do)
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    xla_attention(*refs, bias, causal=True).backward(do)
+    for a, b, name in zip(leaves, refs, ("dq", "dk", "dv")):
+        _assert_grad_matches(a.grad, b.grad, name)
 
 
 @pytest.mark.cuda

@@ -11,6 +11,16 @@ Pallas decode kernel.
   tests/test_torch_head_dims.py holds them at hd 100 (2e-5: other summation
   orders and exp implementations); the padded columns exactly 0. Row 2
   (the ViT, the same instance through a 3-D map) likewise at hd 160 and 256.
+- Rows 9 and 10 (the bf16 backward, built at 64, 128 and 256) at hd 160,
+  200 and 256: delta, dq, dk and dv of the plain versions on operands padded
+  to 256 with hd's scale, sliced, and of the port's wrappers at hd, held to
+  JAX's ``flash_attention_bwd`` in interpret mode (2e-4, as at hd 100); the
+  padded columns of the gradients exactly 0.
+- A training step of a narrow hd-256 model (two query heads of 256, one kv
+  head, two layers; the rest ``TraceConfig.tiny()``): in ``sft`` and
+  ``lora`` the loss and every trainable leaf's gradient from
+  ``forward_train`` against ``jax.grad`` of the JAX package's, with the
+  batch, route and tolerances of tests/test_torch_train.py.
 - Rows 3 and 3b: the plain decode versions (bf16 cache; int8 cache in both
   modes) at hd 256 against JAX's Pallas decode bodies in interpret mode,
   with the masks and tolerances of tests/test_torch_families.py (bf16 body:
@@ -41,7 +51,18 @@ from test_torch_checkpoint import (
     write_merged_checkpoint,
 )
 from test_torch_families import ASK, INT8_TOL, jax_serving_kernels_interpreted  # noqa: F401
-from test_torch_head_dims import FWD_TOL, _inputs, _padded
+from test_torch_head_dims import FWD_TOL, GRAD_TOL, _inputs, _padded
+from test_torch_train import (
+    CFG,
+    JCFG,
+    LORA_TARGETS,
+    _assert_grads_match,
+    _jax_loss_and_grads,
+    _torch_loss_and_grads,
+    _torch_params,
+    _with_lora,
+    batch,  # noqa: F401  (a fixture)
+)
 from trace_tpu.checkpoint import convert as jconvert
 from trace_tpu.kernels import flash_backward as jfb
 from trace_tpu.kernels.decode_attention import decode_attention as jax_decode
@@ -69,11 +90,10 @@ HEAD_DIMS = (160, 200, 256)
 
 @pytest.mark.parametrize("hd", [132, 160, 200, 252, 256])
 def test_kernel_width_above_128(hd):
-    """hd 129-256 runs at width 256 in the bf16 forward; the fp32 forms and
-    the backward stop at 128."""
-    assert head_dim_limit() == 256
-    assert head_dim_limit(torch.float32) == head_dim_limit(backward=True) == 128
-    assert kernel_width(hd) == 256
+    """hd 129-256 runs at width 256 in the bf16 forward and backward; the
+    fp32 forms stop at 128."""
+    assert head_dim_limit() == 256 and head_dim_limit(torch.float32) == 128
+    assert kernel_width(hd) == kernel_width(hd, backward=True) == 256
     x = torch.randn(2, 3, hd)
     p = pad_head_dim(x, 256)
     assert p.shape == (2, 3, 256) and torch.equal(p[..., :hd], x) and not p[..., hd:].any()
@@ -116,6 +136,41 @@ def test_residuals_above_128_match_jax(hd):
                                                  causal=True)
     np.testing.assert_allclose(got_o.numpy(), np.asarray(jo), rtol=FWD_TOL, atol=FWD_TOL)
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(jlse), rtol=FWD_TOL, atol=FWD_TOL)
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_backward_above_128_matches_jax(hd):
+    """Rows 9 and 10: delta, dq and dk / dv of the plain versions on q, k, v,
+    o and do padded to the backward's width (256) at hd's scale, sliced, and
+    of the port's wrappers at hd, against JAX's ``flash_attention_bwd`` in
+    interpret mode (which pads hd to 256 itself); the padded columns of
+    every gradient are 0 and delta equals the unpadded one's."""
+    q, k, v, bias, do = _inputs(hd, seed=400 + hd)
+    jo, jlse = jfb.flash_attention_fwd_res(q, k, v, bias, causal=True, interpret=True)
+    jgrads = jfb.flash_attention_bwd(q, k, v, bias, jo, jlse, do, causal=True, interpret=True)
+
+    assert kernel_width(hd, backward=True) == 256
+    scale = hd ** -0.5
+    tb = torch.from_numpy(bias)
+    qp, kp, vp, dop = _padded(hd, q, k, v, do)
+    o, lse = tfb.flash_attention_fwd_res_plain(qp, kp, vp, tb, causal=True, scale=scale)
+    delta = tfb.flash_attention_bwd_delta(o, dop)
+    torch.testing.assert_close(delta, tfb.flash_attention_bwd_delta(o[..., :hd], dop[..., :hd]),
+                               rtol=1e-6, atol=1e-6)
+    dq = tfb.flash_attention_bwd_dq_plain(qp, kp, vp, tb, dop, lse, delta, causal=True,
+                                          scale=scale)
+    dk, dv = tfb.flash_attention_bwd_dkv_plain(qp, kp, vp, tb, dop, lse, delta, causal=True,
+                                               scale=scale)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    wrapped = tfb.flash_attention_bwd(tq, tk, tv, tb, o[..., :hd].contiguous(), lse, tdo,
+                                      causal=True)
+    for got, at_hd, want, name in zip((dq, dk, dv), wrapped, jgrads, ("dq", "dk", "dv")):
+        assert not got[..., hd:].any(), name
+        np.testing.assert_allclose(got[..., :hd].numpy(), np.asarray(want), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=name)
+        assert at_hd.shape[-1] == hd, name
+        np.testing.assert_allclose(at_hd.numpy(), np.asarray(want), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=name)
 
 
 @pytest.mark.parametrize("hd", [160, 256])
@@ -265,3 +320,55 @@ def test_hd256_model_init_matches_jax(hd256_ckpt, tiny_vision, jax_serving_kerne
                          eos_id=jpipe.tokenizer.eos_token_id, use_flash=True)
     np.testing.assert_array_equal(tpipe.last_stats["tokens"], jtok.tokens)
     assert tpipe.last_stats["decode_steps"] > 0
+
+
+# ---------------------------------------------------------------------------
+# A training step at hd 256
+# ---------------------------------------------------------------------------
+
+def _hd256(cfg):
+    """cfg with a narrow hd-256 decoder: two query heads of 256, one kv head."""
+    return dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, num_heads=2, num_kv_heads=1, head_dim=256))
+
+
+@pytest.fixture(scope="module")
+def hd256_train_params():
+    """stage -> JAX params of the hd-256 tiny model; 'lora' adds adapters on
+    the seven projections whose B is random too (as tests/test_torch_train.py
+    makes them), so that both adapter leaves take a gradient."""
+    import jax
+
+    from trace_tpu.model import lora as jlora
+    from trace_tpu.model import trace_model as jtm
+
+    base = jtm.init_trace_params(_hd256(JCFG), jax.random.PRNGKey(7))
+    lora = dict(base)
+    lora["decoder"] = jlora.add_lora_params(base["decoder"], _with_lora(_hd256(JCFG)).decoder,
+                                            jax.random.PRNGKey(8), targets=LORA_TARGETS)
+    rng = np.random.default_rng(9)
+    layers = dict(lora["decoder"]["layers"])
+    for name, leaf in layers.items():
+        if name.endswith("_lora_b"):
+            layers[name] = jnp.asarray(rng.standard_normal(leaf.shape).astype(np.float32) * 0.05)
+    lora["decoder"] = {**lora["decoder"], "layers": layers}
+    return {"sft": base, "lora": lora}
+
+
+@pytest.mark.parametrize("stage", ["sft", "lora"])
+def test_hd256_forward_train_loss_and_grads_match_jax(hd256_train_params, batch, stage):
+    """The loss, its three streams and every trainable leaf's gradient of an
+    hd-256 model's ``forward_train`` against ``jax.grad`` (the JAX side
+    without its Pallas flash path, as in tests/test_torch_train.py)."""
+    jcfg, cfg = _hd256(JCFG), _hd256(CFG)
+    if stage == "lora":
+        jcfg, cfg = _with_lora(jcfg), _with_lora(cfg)
+    assert cfg.decoder.head_dim == 256 and cfg.decoder.num_heads == 2
+    jp = hd256_train_params[stage]
+    jloss, jmetrics, jgrads = _jax_loss_and_grads(jp, jcfg, batch)
+    tloss, tmetrics, tgrads = _torch_loss_and_grads(_torch_params(jp), cfg, batch, stage)
+    np.testing.assert_allclose(tloss, jloss, rtol=1e-5, atol=1e-5)
+    for name in ("text_loss", "time_loss", "score_loss"):
+        np.testing.assert_allclose(tmetrics[name].item(), float(jmetrics[name]),
+                                   rtol=1e-5, atol=1e-5)
+    _assert_grads_match(tgrads, jgrads, stage)

@@ -10,8 +10,8 @@ of 128 in its Pallas attention and sends decode at such hd to XLA.
   ``flash_attention_bwd`` in interpret mode, as tests/test_torch_flash_backward.py
   holds them (o and lse 2e-5, gradients 2e-4: other summation orders and
   exp implementations); the padded columns of every output exactly 0.
-- The limits the wrappers state: hd above 256 in the bf16 forward and the
-  bf16-query decode, above 128 in the backward and every fp32 form (and the
+- The limits the wrappers state: hd above 256 in the bf16 forward, the bf16
+  backward and the bf16-query decode, above 128 in every fp32 form (and the
   decode rows' hd not a multiple of 4) raise a ``ValueError`` naming it.
 - ``trace_config_from_hf`` on open_llama_3b's config.json (hidden 3200, 32
   heads, hd 100) equal in both packages, with and without
@@ -168,13 +168,14 @@ def test_padded_vit_attention_matches_jax(hd):
 @pytest.mark.parametrize("family,hd", [
     ("bf16 forward", 0), ("bf16 forward", 257),            # rows 1, 2, 8 in bf16
     ("bf16-query decode", 257), ("bf16-query decode", 512),  # rows 3 / 3b, bf16 q
-    ("backward", 129), ("backward", 256),                  # rows 9-10, bf16 and fp32
+    ("backward", 129), ("backward", 256), ("backward", 257),  # rows 9-10, bf16 and fp32
     ("fp32", 129), ("fp32", 256),                          # every fp32 form
 ])
 def test_head_dims_past_the_limit_raise(family, hd):
     """Each family of wrappers past its own limit: a ValueError that names
-    it (256 for the bf16 forward and the bf16-query decode, 128 for the
-    backward and every fp32 form)."""
+    it (256 for the bf16 forward, the bf16 backward and the bf16-query
+    decode, 128 for every fp32 form); the bf16 backward runs hd 129-256 at
+    width 256."""
     if family == "bf16 forward":
         with pytest.raises(ValueError, match="forward kernels take 1 ... 256"):
             kernel_width(hd)
@@ -182,9 +183,13 @@ def test_head_dims_past_the_limit_raise(family, hd):
         with pytest.raises(ValueError, match="bf16-query .* up to 256"):
             check_head_dim(hd)
     elif family == "backward":
-        for dtype in (torch.bfloat16, torch.float32):
-            with pytest.raises(ValueError, match="backward kernels .* take 1 ... 128"):
-                kernel_width(hd, dtype, backward=True)
+        if hd > 256:
+            with pytest.raises(ValueError, match="bf16 .*backward kernels .* take 1 ... 256"):
+                kernel_width(hd, torch.bfloat16, backward=True)
+        else:
+            assert kernel_width(hd, torch.bfloat16, backward=True) == 256
+        with pytest.raises(ValueError, match="fp32 .*backward kernels .* take 1 ... 128"):
+            kernel_width(hd, torch.float32, backward=True)
     else:
         with pytest.raises(ValueError, match="fp32 attention kernels take 1 ... 128"):
             kernel_width(hd, torch.float32)

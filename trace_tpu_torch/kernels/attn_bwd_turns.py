@@ -1,10 +1,12 @@
 """The attention backward kernels (dq, dk/dv) timed beside other builds of
 their source, on the card.
 
-    python -m trace_tpu_torch.kernels.attn_bwd_turns [--dtype float32] [--against NAME=PATH.cu ...]
+    python -m trace_tpu_torch.kernels.attn_bwd_turns [--dtype float32] [--head-dim 256]
+        [--against NAME=PATH.cu ...]
 
 Builds ``csrc/attention_bwd.cu`` (with ``--dtype float32``:
-``csrc/attention_bwd_f32.cu``) as it is (``this``) and each source named
+``csrc/attention_bwd_f32.cu``; with ``--head-dim 256``:
+``csrc/attention_bwd_256.cu``) as it is (``this``) and each source named
 by ``--against`` (say an earlier commit's copy, unpacked with ``git archive``
 into a gitignored directory together with the ``*.cuh`` headers beside it),
 loads each with ctypes, and times ``attn_bwd_dq_bf16`` and
@@ -12,7 +14,9 @@ loads each with ctypes, and times ``attn_bwd_dq_bf16`` and
 shape of ``chip_smoke.py`` phase 3 (B = 2, 32 / 8 heads, T = 2048, hd 128,
 causal, row 0 right-padded by 300 slots, do zero on padded rows; lse from
 the forward kernel, delta from the pre-pass) and at the same shape with hd
-64. CUDA events, median of 20 with the L2 flushed before each run; the
+64; with ``--head-dim 256`` at hd 256 and Falcon3-7B's 12 / 4 heads (the
+width-256 source takes no other hd). CUDA events, median of 20 with the L2
+flushed before each run; the
 versions in turns, forward then backward (A B B A), so that a drift of the
 card shows as a spread and not as a difference. Every version's gradients
 are first held against the plain version (the limits of ``chip_smoke.py``,
@@ -42,7 +46,8 @@ from trace_tpu_torch.kernels import flash_backward as fb
 from trace_tpu_torch.kernels.build import CSRC
 from trace_tpu_torch.kernels.decode_int8_turns import build, median_ms
 
-B, H, HKV, T, PAD = 2, 32, 8, 2048, 300
+B, T, PAD = 2, 2048, 300
+HEADS = {64: (32, 8), 128: (32, 8), 256: (12, 4)}  # query / kv heads at each head dim
 # per dtype: atol and rtol in units of the largest |ref|, ||diff|| / ||ref||
 LIMITS = {"bfloat16": (1e-2, 2 ** -7, 1e-2), "float32": (1e-5, 1e-4, 1e-4)}
 TF32_FLOPS_PER_S, FP32_FLOPS_PER_S, BF16_FLOPS_PER_S = 495e12, 67e12, 989e12
@@ -50,6 +55,7 @@ TF32_FLOPS_PER_S, FP32_FLOPS_PER_S, BF16_FLOPS_PER_S = 495e12, 67e12, 989e12
 
 def inputs(g, hd, dtype):
     """q, k, v, bias, do, lse, delta at the phase-3 shape with head dim hd."""
+    H, HKV = HEADS[hd]
     randn = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(dtype)
     q, k, v = randn(B, H, T, hd), randn(B, HKV, T, hd), randn(B, HKV, T, hd)
     real = torch.ones((B, T), dtype=torch.bool, device="cuda")
@@ -64,7 +70,7 @@ def inputs(g, hd, dtype):
 def callers(lib, q, k, v, bias, do, lse, delta):
     """Functions that launch ``lib``'s dq and dk/dv kernels (the entries for
     q's dtype) once into fixed outputs."""
-    hd = q.shape[-1]
+    H, HKV, hd = q.shape[1], k.shape[1], q.shape[-1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream().cuda_stream
     common = [t.data_ptr() for t in (q, k, v, bias, do, lse, delta)]
@@ -106,8 +112,14 @@ def excess(got, want, atol, rtol) -> tuple[float, float]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", choices=sorted(LIMITS), default="bfloat16")
+    ap.add_argument("--head-dim", type=int, choices=(64, 128, 256), action="append",
+                    help="head dims to time (default 128 and 64; 256 alone, bf16)")
     ap.add_argument("--against", action="append", default=[], metavar="NAME=PATH.cu")
     args = ap.parse_args()
+    head_dims = args.head_dim or [128, 64]
+    wide = 256 in head_dims
+    if wide and (len(set(head_dims)) > 1 or args.dtype != "bfloat16"):
+        ap.error("--head-dim 256 times the width-256 source alone, in bf16")
     if not torch.cuda.is_available():
         print("attn_bwd_turns: no CUDA device", file=sys.stderr)
         return 2
@@ -118,15 +130,17 @@ def main() -> int:
     dtype = getattr(torch, args.dtype)
     f32 = dtype == torch.float32
     atol, rtol, rel_norm = LIMITS[args.dtype]
-    sources = {"this": CSRC / ("attention_bwd_f32.cu" if f32 else "attention_bwd.cu")}
+    sources = {"this": CSRC / ("attention_bwd_f32.cu" if f32 else
+                               "attention_bwd_256.cu" if wide else "attention_bwd.cu")}
     for item in args.against:
         name, _, path = item.partition("=")
         sources[name] = Path(path)
     libs = build(sources, "attn_bwd_turns", ptxas=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    for hd in (128, 64):
+    for hd in head_dims:
         q, k, v, bias, do, lse, delta = inputs(g, hd, dtype)
+        H = HEADS[hd][0]
         want = {"dq": (fb.flash_attention_bwd_dq(q, k, v, bias, do, lse, delta, causal=True,
                                                  impl="plain"),),
                 "dkv": fb.flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta, causal=True,

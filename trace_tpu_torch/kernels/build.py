@@ -23,6 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("attention.cu", "attention_bwd.cu", "decode_attention.cu",
            "decode_attention_int8.cu", "quant_matmul.cu", "quant_matmul_p4.cu",
+           # the backward's dq and dk/dv kernels at width 256 (hd 129-256)
+           "attention_bwd_256.cu",
            # the decode kernels' instances at head dims other than 64 and 128
            # (libraries of their own, so that they compile in parallel): up to
            # 128, and at width 256 (hd 256, then 132 ... 252)

@@ -29,17 +29,18 @@ chunked prefill attends a layer's cache stripe in place).
 
 Head dims: the bf16 kernel is built at a tile width HD of 64, 128 or 256
 and takes any hd from 1 to 256 (``MAX_HEAD_DIM``): hd <= 64 runs at 64,
-64 < hd <= 128 at 128, 128 < hd <= 256 at 256 (``kernel_width``). The fp32
-form, and the backward of csrc/attention_bwd.cu (kernels/flash_backward.py),
-are built at 64 and 128 and take 1 to 128 (``MAX_HEAD_DIM_NARROW``). Past
-its limit a wrapper raises a ``ValueError`` that names it
-(``head_dim_limit``). At an hd other than the tile width the wrapper copies
-q, k and v zero-padded to HD (``pad_head_dim``), as the JAX package pads to
-a multiple of 128, passes the real hd's scale hd^-0.5 apart from the width,
-and slices the output back: zero columns add nothing to q . k and give zero
-output columns. At 64, 128 and 256 nothing is copied. At hd 256 the kernel
-streams 64-key K / V tiles (Q alone fills 64 KB of shared memory there) and
-its P V runs as wgmma m64n256k16.
+64 < hd <= 128 at 128, 128 < hd <= 256 at 256 (``kernel_width``); so does
+the bf16 backward (kernels/flash_backward.py: csrc/attention_bwd.cu at 64
+and 128, csrc/attention_bwd_256.cu at 256). The fp32 forms, forward and
+backward, are built at 64 and 128 and take 1 to 128
+(``MAX_HEAD_DIM_NARROW``). Past its limit a wrapper raises a ``ValueError``
+that names it (``head_dim_limit``). At an hd other than the tile width the
+wrapper copies q, k and v zero-padded to HD (``pad_head_dim``), as the JAX
+package pads to a multiple of 128, passes the real hd's scale hd^-0.5 apart
+from the width, and slices the output back: zero columns add nothing to
+q . k and give zero output columns. At 64, 128 and 256 nothing is copied.
+At hd 256 the kernel streams 64-key K / V tiles (Q alone fills 64 KB of
+shared memory there) and its P V runs as wgmma m64n256k16.
 
 With ``q_offset`` (``flash_attention``, causal) query row r sits at position
 ``q_offset + r`` of the keys and sees the keys j <= q_offset + r: a chunk of
@@ -70,9 +71,8 @@ import torch
 from trace_tpu_torch.kernels.build import count_launch
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 256  # the widest tile the bf16 forward (rows 1, 2, 8) is built at
-# the widest tile of every fp32 form and of the backward (rows 9-10)
-MAX_HEAD_DIM_NARROW = 128
+MAX_HEAD_DIM = 256  # the widest tile the bf16 kernels (rows 1, 2, 8-10) are built at
+MAX_HEAD_DIM_NARROW = 128  # the widest tile of every fp32 form
 _SOURCE = "attention.cu"
 _SOURCE_F32 = "attention_f32.cu"
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -86,20 +86,22 @@ def _use_kernel(x: torch.Tensor, impl: str) -> bool:
     return x.is_cuda
 
 
-def head_dim_limit(dtype=torch.bfloat16, *, backward: bool = False) -> int:
-    """The largest head dim the attention kernels take for operands of
-    ``dtype``: ``MAX_HEAD_DIM`` in the bf16 forward, ``MAX_HEAD_DIM_NARROW``
-    in every fp32 form and (``backward``) in the backward."""
-    return MAX_HEAD_DIM if dtype == torch.bfloat16 and not backward else MAX_HEAD_DIM_NARROW
+def head_dim_limit(dtype=torch.bfloat16) -> int:
+    """The largest head dim the attention kernels, forward and backward,
+    take for operands of ``dtype``: ``MAX_HEAD_DIM`` in bf16,
+    ``MAX_HEAD_DIM_NARROW`` in every fp32 form."""
+    return MAX_HEAD_DIM if dtype == torch.bfloat16 else MAX_HEAD_DIM_NARROW
 
 
 def kernel_width(hd: int, dtype=torch.bfloat16, *, backward: bool = False) -> int:
     """The tile width HD the kernels run head dim ``hd`` at: 64 for hd <= 64,
     128 up to 128, 256 up to 256; a ``ValueError`` past the limit of the
-    kernels for ``dtype`` (and ``backward``), which it names."""
-    limit = head_dim_limit(dtype, backward=backward)
+    kernels for ``dtype``, which it names (the backward's, with
+    ``backward``)."""
+    limit = head_dim_limit(dtype)
     if not 1 <= hd <= limit:
-        what = ("attention backward kernels (rows 9-10)" if backward
+        kind = "fp32" if dtype == torch.float32 else "bf16"
+        what = (f"{kind} attention backward kernels (rows 9-10)" if backward
                 else "fp32 attention kernels" if dtype == torch.float32
                 else "bf16 attention forward kernels")
         raise ValueError(f"head dim {hd}: the {what} take 1 ... {limit}")
@@ -345,8 +347,8 @@ class _FlashAttentionTrainable(torch.autograd.Function):
         from trace_tpu_torch.kernels.flash_backward import flash_attention_fwd_res
 
         if _use_kernel(q, impl) and any(ctx.needs_input_grad[:3]):
-            # past the backward's head-dim limit a step raises here, before
-            # its forward, not after it
+            # past the backward's head-dim limit (256 in bf16, 128 in fp32) a
+            # step raises here, before its forward, not after it
             kernel_width(q.shape[-1], q.dtype, backward=True)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o, lse = flash_attention_fwd_res(q, k, v, mask_bias, causal=causal, impl=impl)

@@ -1,6 +1,6 @@
 """Attention forward with residuals and attention backward: wrappers of the
-CUDA kernels in csrc/attention.cu and csrc/attention_bwd.cu, and their plain
-PyTorch versions.
+CUDA kernels in csrc/attention.cu and csrc/attention_bwd.cu (at head dim 256
+csrc/attention_bwd_256.cu), and their plain PyTorch versions.
 
 ``flash_attention_fwd_res`` replaces trace_tpu/kernels/flash_backward.py
 ``flash_attention_fwd_res`` (``_fwd_res_kernel``): the attention forward that
@@ -42,17 +42,21 @@ three launches of csrc/attention_bwd_f32.cu (the pre-pass, then dq and dk/dv),
 all on the tensor cores, each fp32 product as three TF32 products of the
 operands split into hi and lo parts.
 
-Head dims: ``flash_attention_fwd_res`` takes what the forward takes (1 to
-256 in bf16, 1 to 128 in fp32); the backward (``flash_attention_bwd`` and
-its three launches, bf16 and fp32) any hd from 1 to 128
-(``MAX_HEAD_DIM_NARROW``), and past it raises a ``ValueError`` that names
-that limit (``flash_attention_trainable`` raises it at the forward of a
-step whose q, k or v takes a gradient). At an hd other than 64 or 128 the
-dq and dk/dv wrappers copy q, k, v and do zero-padded to the tile width,
-pass the real hd's scale, and slice dq, dk and dv back (the padded columns
-of a gradient are products with zero columns; lse is unchanged). The
-``delta`` pre-pass reads o and do at any even hd in place (an odd hd takes
-one zero column): zero columns add nothing to its sums.
+Head dims: ``flash_attention_fwd_res`` and the backward
+(``flash_attention_bwd`` and its three launches) take what the forward
+takes: 1 to 256 in bf16, 1 to 128 in fp32 (``head_dim_limit``); past it
+they raise a ``ValueError`` that names that limit
+(``flash_attention_trainable`` raises it at the forward of a step whose q,
+k or v takes a gradient). The bf16 dq and dk/dv kernels are built at tile
+widths 64 and 128 (csrc/attention_bwd.cu) and 256
+(csrc/attention_bwd_256.cu: 32-key tiles for dq, and for dk/dv blocks of
+64 keys whose two consumer warpgroups each own half of hd's columns). At an
+hd other than 64, 128 or 256 the dq and dk/dv wrappers copy q, k, v and do
+zero-padded to the tile width (``kernel_width``), pass the real hd's scale,
+and slice dq, dk and dv back (the padded columns of a gradient are products
+with zero columns; lse is unchanged). The ``delta`` pre-pass reads o and do
+at any even hd in place (an odd hd takes one zero column): zero columns add
+nothing to its sums.
 
 A query row that sees no key (left padding under the causal mask) has
 ``lse = -1e30``; its ``p`` is 1 on every key the backward visits. The plain
@@ -79,6 +83,7 @@ from trace_tpu_torch.kernels.flash_attention import (
 )
 
 _SOURCE = "attention_bwd.cu"
+_SOURCE_256 = "attention_bwd_256.cu"  # the bf16 dq and dk/dv kernels at width 256
 _SOURCE_F32 = "attention_bwd_f32.cu"
 
 
@@ -154,14 +159,17 @@ def merge_attention(o1, lse1, o2, lse2, dtype):
     return ((w1 * o1.float() + w2 * o2.float()) / (w1 + w2)).to(dtype)
 
 
-def _entry(x, name: str):
+def _entry(x, name: str, width: int = 0):
     """The C entry ``name`` in the form for x's dtype: ``{name}_bf16`` of
-    attention_bwd.cu or ``{name}_f32`` of attention_bwd_f32.cu."""
+    attention_bwd.cu (of attention_bwd_256.cu at tile ``width`` 256) or
+    ``{name}_f32`` of attention_bwd_f32.cu."""
     from trace_tpu_torch.kernels.build import load
 
-    f32 = x.dtype == torch.float32
-    full = f"{name}_{'f32' if f32 else 'bf16'}"
-    return getattr(load(_SOURCE_F32 if f32 else _SOURCE), full), full
+    if x.dtype == torch.float32:
+        source, full = _SOURCE_F32, f"{name}_f32"
+    else:
+        source, full = _SOURCE_256 if width == 256 else _SOURCE, f"{name}_bf16"
+    return getattr(load(source), full), full
 
 
 def _check_bwd_operands(q, k, v, mask_bias, do, lse, delta):
@@ -242,7 +250,7 @@ def flash_attention_bwd_dkv_plain(q, k, v, mask_bias, do, lse, delta, *, causal=
 
 def _padded(*xs):
     """The operands zero-padded to the backward kernels' tile width for their
-    head dim (themselves at 64 and 128), and the real head dim's scale."""
+    head dim (themselves at 64, 128 and 256), and the real head dim's scale."""
     hd = xs[0].shape[-1]
     width = kernel_width(hd, xs[0].dtype, backward=True)
     return [pad_head_dim(x, width) for x in xs], hd ** -0.5
@@ -282,7 +290,7 @@ def _dq(q, k, v, mask_bias, do, lse, delta, causal, scale):
 
     _check_bwd_operands(q, k, v, mask_bias, do, lse, delta)
     dq = torch.empty_like(q)
-    fn, name = _entry(q, "attn_bwd_dq")
+    fn, name = _entry(q, "attn_bwd_dq", q.shape[-1])
     fn.restype = ctypes.c_int
     fn.argtypes, args = _bwd_args(q, k, v, mask_bias, do, lse, delta, (dq,), causal, scale)
     check(fn(*args), name)
@@ -312,7 +320,7 @@ def _dkv(q, k, v, mask_bias, do, lse, delta, causal, scale):
 
     _check_bwd_operands(q, k, v, mask_bias, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn, name = _entry(q, "attn_bwd_dkv")
+    fn, name = _entry(q, "attn_bwd_dkv", q.shape[-1])
     fn.restype = ctypes.c_int
     fn.argtypes, args = _bwd_args(q, k, v, mask_bias, do, lse, delta, (dk, dv), causal,
                                   scale)
